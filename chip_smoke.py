@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Smoke test of tensorrt_llm_tpu_torch on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
+CUDA device and nvcc, and exits non-zero (printing no result) without
+them or when the package is not beside it. Phases, each of which fails
+the run on error:
+
+  1. device + build: the card's name and power limit, then every kernel
+     of the serving path built from csrc/ (one nvcc per source, in
+     parallel), with the build time;
+  2. kernels: each CUDA kernel against its plain PyTorch version on the
+     same bf16 inputs (atol = rtol = 2e-2: bf16 output rounding, float32
+     accumulation in both), at serving shapes; times (CUDA events, median
+     of 30 launches; 10 for the plain version and the library call), the
+     bound from this run's bytes and FLOPs, and the time of
+     ``scaled_dot_product_attention`` over the gathered KV as a yardstick
+     where one call computes the same function;
+  3. parity: the float32 parity checkpoint (tests/assets/tinycode-llama)
+     through ``LLM.generate`` on the card and on the CPU (the plain path
+     the CPU tests hold to the JAX package) must give identical greedy
+     tokens;
+  4. serving: the TinyLlama-1.1B geometry (32 x 64 heads, 4 KV heads, 22
+     layers) with seeded random bf16 weights, 16 requests of 128 prompt
+     tokens and 64 output tokens through ``LLM.generate`` with default
+     arguments; the kernels' launch counters are zeroed right before and
+     read right after, and every request must return 64 tokens.
+
+The last three lines are the nvidia-smi line, one JSON object with the
+per-kernel results and ``{"ok": true, "device": {...}}``.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+TOL = 2e-2
+PAGE = 32                     # the serving path's default tokens_per_block
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median of per-launch CUDA-event times, after warm-up. The launches
+    are queued behind a ~25 ms device sleep, so the card runs them back to
+    back and a launch's time is the kernel's, not the host's enqueue gap
+    (a function that syncs inside, like the plain prefill loop, still
+    pays its host time)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    pairs = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def make_case(q_lens, ctx_lens, qh, kvh, hd, seed, page=PAGE):
+    """bf16 packed queries and a shuffled paged pool on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = len(q_lens)
+    kv = [c + q for c, q in zip(ctx_lens, q_lens)]
+    maxp = max(-(-k // page) for k in kv)
+    P = S * maxp + 1
+    pool = torch.randn((P, page, 2 * kvh, hd), generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    pt = torch.randperm(S * maxp, generator=g, device="cuda") \
+        .to(torch.int32).reshape(S, maxp)
+    q = torch.randn((sum(q_lens), qh, hd), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    cu = torch.zeros(S + 1, dtype=torch.int32, device="cuda")
+    cu[1:] = torch.cumsum(torch.tensor(q_lens, device="cuda"), 0)
+    kv_lens = torch.tensor(kv, dtype=torch.int32, device="cuda")
+    return q, pool, kv_lens, pt, cu
+
+
+def dense_kv(pool, kv_lens, pt, kvh, hd):
+    """Gathered [S, kvh, kv, hd] K and V (sequences of equal length)."""
+    S, kv = kv_lens.shape[0], int(kv_lens[0])
+    pages = pool[pt.reshape(-1).long()].reshape(S, -1, 2 * kvh, hd)[:, :kv]
+    k = pages[:, :, 0::2].transpose(1, 2).contiguous()
+    v = pages[:, :, 1::2].transpose(1, 2).contiguous()
+    return k, v
+
+
+def kernel_phase():
+    import torch
+    import torch.nn.functional as F
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+
+    results = {}
+    # ---- K1: paged decode --------------------------------------------
+    for name, S, kvlen, qh, kvh, hd, page in [
+            ("decode_hd64", 64, 1024, 32, 4, 64, PAGE),
+            ("decode_hd64_page16", 64, 1024, 32, 4, 64, 16),
+            ("decode_hd128", 64, 1024, 16, 4, 128, PAGE),
+            ("decode_serving_rows", 64, 160, 32, 4, 64, PAGE)]:
+        q, pool, kv_lens, pt, _ = make_case([1] * S, [kvlen - 1] * S, qh,
+                                            kvh, hd, seed=len(name),
+                                            page=page)
+        kw = dict(sm_scale=hd ** -0.5)
+        got = dec.paged_decode_attention(q, pool, kv_lens, pt, **kw)
+        ref = dec.paged_decode_attention_plain(q, pool, kv_lens, pt, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.allclose(got.float(), ref.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"{name}: kernel != plain (max {err})")
+        ms = time_ms(lambda: dec.paged_decode_attention(
+            q, pool, kv_lens, pt, **kw), 30)
+        plain_ms = time_ms(lambda: dec.paged_decode_attention_plain(
+            q, pool, kv_lens, pt, **kw), 10)
+        k, v = dense_kv(pool, kv_lens, pt, kvh, hd)
+        q4 = q.reshape(S, qh, 1, hd)
+        lib = F.scaled_dot_product_attention(q4, k, v, scale=kw["sm_scale"],
+                                             enable_gqa=True)
+        torch.cuda.synchronize()
+        lib_err = (lib.reshape(S, qh, hd).float() - ref.float()).abs().max()
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k, v, scale=kw["sm_scale"], enable_gqa=True), 10)
+        kv_bytes = S * kvlen * kvh * hd * 2 * 2
+        io_bytes = kv_bytes + 2 * q.numel() * 2 + pt.numel() * 4 + S * 4
+        flops = 4 * S * qh * hd * kvlen
+        results[name] = dict(
+            shape=dict(seqs=S, kv_len=kvlen, qh=qh, kvh=kvh, hd=hd,
+                       page=page),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_max_abs_err=lib_err.item(),
+            bytes=io_bytes, flops=flops,
+            **_bound(io_bytes, flops))
+        emit({"phase": "kernels", "case": name, **results[name]})
+
+    # ---- K2: ragged prefill / mixed ------------------------------------
+    for name, q_lens, ctx, qh, kvh, hd in [
+            ("prefill_hd64", [512] * 8, [0] * 8, 32, 4, 64),
+            ("prefill_hd128", [512] * 8, [0] * 8, 16, 4, 128),
+            ("prefill_serving", [128] * 16, [0] * 16, 32, 4, 64),
+            ("mixed_hd64", [1] * 32 + [256] * 4, [1023] * 32 + [256] * 4,
+             32, 4, 64),
+            ("mixed_hd128", [1] * 32 + [256] * 4, [1023] * 32 + [256] * 4,
+             16, 4, 128)]:
+        q, pool, kv_lens, pt, cu = make_case(q_lens, ctx, qh, kvh, hd,
+                                             seed=len(name))
+        kw = dict(sm_scale=hd ** -0.5)
+        mq = max(q_lens)
+        got = pre.ragged_prefill_attention(q, pool, kv_lens, pt, cu,
+                                           max_q_len=mq, **kw)
+        ref = pre.ragged_prefill_attention_plain(q, pool, kv_lens, pt, cu,
+                                                 **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.allclose(got.float(), ref.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"{name}: kernel != plain (max {err})")
+        ms = time_ms(lambda: pre.ragged_prefill_attention(
+            q, pool, kv_lens, pt, cu, max_q_len=mq, **kw), 30)
+        plain_ms = time_ms(lambda: pre.ragged_prefill_attention_plain(
+            q, pool, kv_lens, pt, cu, **kw), 10)
+        library_ms = lib_err = None
+        if not any(ctx):
+            # one causal SDPA call over the gathered KV computes the same
+            # function when every sequence is a fresh prompt of one length
+            S, L = len(q_lens), q_lens[0]
+            k, v = dense_kv(pool, kv_lens, pt, kvh, hd)
+            q4 = q.reshape(S, L, qh, hd).transpose(1, 2).contiguous()
+            lib = F.scaled_dot_product_attention(
+                q4, k, v, is_causal=True, scale=kw["sm_scale"],
+                enable_gqa=True)
+            torch.cuda.synchronize()
+            lib_err = (lib.transpose(1, 2).reshape(q.shape).float()
+                       - ref.float()).abs().max().item()
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k, v, is_causal=True, scale=kw["sm_scale"],
+                enable_gqa=True), 10)
+        pairs = sum(c * n + n * (n + 1) // 2 for c, n in zip(ctx, q_lens))
+        flops = 4 * qh * hd * pairs
+        io_bytes = sum(c + n for c, n in zip(ctx, q_lens)) * kvh * hd * 4 \
+            + 2 * q.numel() * 2 + pt.numel() * 4 + 2 * cu.numel() * 4
+        results[name] = dict(
+            shape=dict(q_lens=sorted(set(q_lens)), ctx=sorted(set(ctx)),
+                       seqs=len(q_lens), qh=qh, kvh=kvh, hd=hd, page=PAGE),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_max_abs_err=lib_err,
+            bytes=io_bytes, flops=flops, **_bound(io_bytes, flops))
+        emit({"phase": "kernels", "case": name, **results[name]})
+    return results
+
+
+def _bound(io_bytes: int, flops: int) -> dict:
+    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def parity_phase(repo: Path):
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"import torch\n"), list(range(32, 120))]
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        llm = LLM(repo / "tests" / "assets" / "tinycode-llama", device=dev,
+                  dtype="float32", skip_tokenizer_init=True,
+                  max_batch_size=8, max_input_len=128, max_seq_len=256,
+                  max_num_tokens=512,
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=4096))
+        try:
+            outs = llm.generate(prompts, SamplingParams(max_tokens=32,
+                                                        top_k=1))
+        finally:
+            llm.shutdown()
+        toks[dev] = [o.outputs[0].token_ids for o in outs]
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError(f"cuda/cpu greedy tokens differ: {toks}")
+    if any(len(t) != 32 for t in toks["cuda"]):
+        raise AssertionError("parity run returned short outputs")
+    emit({"phase": "parity", "prompts": len(prompts), "tokens_each": 32,
+          "identical": True})
+
+
+def serving_phase():
+    import torch
+    from transformers import LlamaConfig
+    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=2048,
+                      intermediate_size=5632, num_hidden_layers=22,
+                      num_attention_heads=32, num_key_value_heads=4,
+                      max_position_embeddings=4096)
+    n_req, isl, osl = 16, 128, 64
+    torch.cuda.empty_cache()       # size the KV pool from what is free now
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16")
+    build_s = time.monotonic() - t0
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (n_req, isl),
+                            generator=gen).tolist()
+    sp = SamplingParams(max_tokens=osl, top_k=1)
+    try:
+        llm.generate(prompts[:2], SamplingParams(max_tokens=8, top_k=1))
+        torch.cuda.synchronize()
+        dec.LAUNCHES = 0
+        pre.LAUNCHES = 0
+        t0 = time.monotonic()
+        outs = llm.generate(prompts, sp)
+        wall = time.monotonic() - t0
+        launches = {"paged_decode_attention": dec.LAUNCHES,
+                    "ragged_prefill_attention": pre.LAUNCHES}
+    finally:
+        llm.shutdown()
+    for o in outs:
+        toks = o.outputs[0].token_ids
+        if len(toks) != osl or not all(0 <= t < cfg.vocab_size
+                                       for t in toks):
+            raise AssertionError(f"request {o.request_id}: bad output "
+                                 f"({len(toks)} tokens)")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    perf = [o._result.request.perf for o in outs]
+    ttft = [p.first_token_time - p.arrival_time for p in perf]
+    tpot = [(p.last_token_time - p.first_token_time) / (osl - 1)
+            for p in perf]
+    res = dict(requests=n_req, isl=isl, osl=osl, layers=22,
+               engine_build_s=build_s, wall_s=wall,
+               output_tok_per_s=n_req * osl / wall,
+               ttft_ms_median=statistics.median(ttft) * 1e3,
+               ttft_ms_max=max(ttft) * 1e3,
+               tpot_ms_median=statistics.median(tpot) * 1e3,
+               launches=launches,
+               decode_steps=launches["paged_decode_attention"] // 22,
+               prefill_steps=launches["ragged_prefill_attention"] // 22)
+    emit({"phase": "serving", **res})
+    return res
+
+
+def main() -> int:
+    here = Path(__file__).resolve().parent
+    if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke.py: tensorrt_llm_tpu_torch/ not found beside "
+              "this script; run it from a checkout", file=sys.stderr)
+        return 3
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(here))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    from tensorrt_llm_tpu_torch.ops.cuda import _build
+    t0 = time.monotonic()
+    _build.build_all()
+    emit({"phase": "build", "kernels": list(_build.KERNELS),
+          "seconds": time.monotonic() - t0})
+
+    kern = kernel_phase()
+    parity_phase(here)
+    serving = serving_phase()
+
+    kernels = []
+    for name, case, group, src, replaces in [
+            ("paged_decode_attention", "decode_hd64", ("decode",),
+             "tensorrt_llm_tpu_torch/csrc/decode_attention.cu",
+             "tensorrt_llm_tpu/ops/pallas/decode_attention.py:164"),
+            ("ragged_prefill_attention", "prefill_hd64",
+             ("prefill", "mixed"),
+             "tensorrt_llm_tpu_torch/csrc/prefill_attention.cu",
+             "tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250")]:
+        r = kern[case]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=serving["launches"][name],
+            max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
+                            if c.startswith(group)),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"]))
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

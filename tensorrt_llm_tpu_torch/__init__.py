@@ -1,0 +1,14 @@
+"""tensorrt_llm_tpu_torch — the PyTorch + CUDA port of tensorrt_llm_tpu.
+
+A second package beside the JAX one, with the same layout (llmapi/,
+runtime/, models/, ops/) and names. Its kernels are written by hand for
+NVIDIA Hopper (csrc/*.cu) and built with nvcc at first use. It imports
+neither JAX nor the JAX package.
+"""
+from .llmapi.llm import LLM, RequestOutput
+from .llmapi.llm_args import KvCacheConfig, LlmArgs
+from .models.convert import from_jax_params
+from .sampling_params import SamplingParams
+
+__all__ = ["LLM", "RequestOutput", "LlmArgs", "KvCacheConfig",
+           "SamplingParams", "from_jax_params"]

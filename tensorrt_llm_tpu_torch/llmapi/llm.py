@@ -1,0 +1,263 @@
+"""The public ``LLM`` API.
+
+Port of ``tensorrt_llm_tpu/llmapi/llm.py`` (``LLM.generate`` /
+``generate_async`` / ``shutdown``, ``RequestOutput``): parse args, load the
+model, build engine + executor, submit requests as futures.
+
+``model`` is a checkpoint directory (``config.json`` +
+``model.safetensors``) or a bare ``transformers`` config, which serves
+random weights like ``load_format="dummy"``. The engine runs on the CUDA
+device unless ``device="cpu"`` is passed; without CUDA and without that
+argument, construction raises.
+"""
+from __future__ import annotations
+
+import copy
+from pathlib import Path
+from typing import Any, List, Optional, Sequence, Union
+
+import torch
+
+from ..logger import logger
+from ..models import ModelConfig, get_model_class
+from ..runtime.executor import GenerationResult, PyExecutor
+from ..runtime.kv_cache_manager import KVCacheManager
+from ..runtime.model_engine import ModelEngine
+from ..runtime.request import LlmRequest
+from ..runtime.scheduler import (CapacityScheduler, MicroBatchScheduler,
+                                 RequestScheduler)
+from ..sampling_params import SamplingParams
+from .llm_args import LlmArgs
+
+PromptInput = Union[str, Sequence[int]]
+
+_DTYPES = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "float32": torch.float32}
+
+
+class RequestOutput:
+    """Final result wrapper around one request's GenerationResult."""
+
+    def __init__(self, result: GenerationResult, prompt: Optional[str]):
+        self._result = result
+        self.prompt = prompt
+
+    @property
+    def request_id(self) -> int:
+        return self._result.request_id
+
+    @property
+    def prompt_token_ids(self):
+        return self._result.prompt_token_ids
+
+    @property
+    def outputs(self):
+        return list(self._result.outputs)
+
+    @property
+    def finished(self) -> bool:
+        return self._result.finished
+
+    def result(self, timeout: Optional[float] = None) -> "RequestOutput":
+        self._result.result(timeout)
+        return self
+
+    def __iter__(self):
+        return iter(self._result)
+
+    def __repr__(self):
+        return (f"RequestOutput(request_id={self.request_id}, "
+                f"outputs={self.outputs!r})")
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]
+                   ) -> torch.device:
+    """The CUDA device unless the caller names another; never a silent
+    CPU fallback."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    return dev
+
+
+class LLM:
+    """End-user entry point."""
+
+    def __init__(self, model: Any, tokenizer: Any = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 **kwargs):
+        self.device = resolve_device(device)
+        self._hf_config = None
+        if isinstance(model, (str, Path)):
+            kwargs["model"] = str(model)
+        else:
+            # a bare transformers config: random weights
+            self._hf_config = model
+            kwargs["model"] = getattr(model, "name_or_path", "") or \
+                "__inline_config__"
+            kwargs["load_format"] = "dummy"
+        self.args = LlmArgs(**kwargs)
+        self.tokenizer = tokenizer
+        self._build_model()
+        self._build_executor()
+
+    # ------------------------------------------------------------------ #
+    # Build
+    # ------------------------------------------------------------------ #
+    def _build_model(self):
+        hf_config, state_dict = self._load_checkpoint()
+        model_config = ModelConfig(hf_config=hf_config,
+                                   dtype=_DTYPES[self.args.dtype],
+                                   device=self.device)
+        self.model = get_model_class(hf_config.model_type)(model_config)
+        if state_dict is None:
+            self._params = self.model.init_params(seed=0)
+        else:
+            self._params = self.model.load_hf_state_dict(state_dict)
+
+    def _load_checkpoint(self):
+        if self._hf_config is not None:
+            return self._hf_config, None
+        path = Path(self.args.model)
+        if not path.exists():
+            raise FileNotFoundError(
+                f"model path {path} not found (pass a local checkpoint "
+                f"directory or a transformers config)")
+        from transformers import AutoConfig
+        hf_config = AutoConfig.from_pretrained(path)
+        if self.tokenizer is None and not self.args.skip_tokenizer_init:
+            try:
+                from transformers import AutoTokenizer
+                self.tokenizer = AutoTokenizer.from_pretrained(path)
+            except (OSError, ValueError) as e:
+                logger.warning("tokenizer load failed: %s", e)
+        if self.args.load_format == "dummy":
+            return hf_config, None
+        from safetensors.torch import load_file
+        files = sorted(path.glob("*.safetensors"))
+        if not files:
+            raise FileNotFoundError(f"no *.safetensors under {path}")
+        sd = {}
+        for f in files:
+            sd.update(load_file(str(f)))
+        return hf_config, sd
+
+    def _build_executor(self):
+        args = self.args
+        self.engine = ModelEngine(self.model, self._params, args)
+        del self._params
+        # a single sequence can never exceed the KV pool
+        pool_tokens = self.engine.num_kv_pages * \
+            args.kv_cache_config.tokens_per_block
+        if pool_tokens < args.max_seq_len:
+            logger.warning(
+                "KV pool (%d tokens) is smaller than max_seq_len (%d); "
+                "clamping max_seq_len to the pool capacity",
+                pool_tokens, args.max_seq_len)
+            args.max_seq_len = pool_tokens
+        self.kv_cache_manager = KVCacheManager(
+            num_blocks=self.engine.num_kv_pages,
+            tokens_per_block=args.kv_cache_config.tokens_per_block,
+            max_seq_len=args.max_seq_len,
+            enable_block_reuse=args.kv_cache_config.enable_block_reuse,
+            event_buffer_max_size=args.kv_cache_config.event_buffer_max_size)
+        capacity = CapacityScheduler(
+            max_num_requests=args.max_batch_size,
+            kv_cache_manager=self.kv_cache_manager,
+            policy=args.scheduler_config.capacity_scheduler_policy)
+        micro = MicroBatchScheduler(
+            max_batch_size=args.max_batch_size,
+            max_num_tokens=args.max_num_tokens,
+            enable_chunked_prefill=args.enable_chunked_prefill,
+            chunking_policy=args.scheduler_config.context_chunking_policy,
+            chunk_unit_size=args.kv_cache_config.tokens_per_block)
+        self.executor = PyExecutor(
+            self.engine, self.kv_cache_manager,
+            RequestScheduler(capacity, micro),
+            tokenizer=self.tokenizer,
+            enable_overlap=not args.disable_overlap_scheduler,
+            stream_interval=args.stream_interval,
+            pipeline_depth=args.max_inflight_steps,
+            decode_multi_step=args.decode_multi_step,
+            waiting_queue_policy=args.scheduler_config.waiting_queue_policy,
+            max_active_requests=args.scheduler_config.max_active_requests)
+
+    # ------------------------------------------------------------------ #
+    # Generation
+    # ------------------------------------------------------------------ #
+    def generate(self,
+                 prompts: Union[PromptInput, Sequence[PromptInput]],
+                 sampling_params: Optional[Union[SamplingParams,
+                                                 List[SamplingParams]]] = None
+                 ) -> Union[RequestOutput, List[RequestOutput]]:
+        single = isinstance(prompts, str) or (
+            isinstance(prompts, Sequence) and prompts and
+            isinstance(prompts[0], int))
+        batch = [prompts] if single else list(prompts)
+        if isinstance(sampling_params, SamplingParams) or \
+                sampling_params is None:
+            sp_list = [sampling_params] * len(batch)
+        else:
+            sp_list = list(sampling_params)
+        futures = [self.generate_async(p, sp)
+                   for p, sp in zip(batch, sp_list)]
+        results = [f.result() for f in futures]
+        return results[0] if single else results
+
+    def generate_async(self,
+                       prompt: PromptInput,
+                       sampling_params: Optional[SamplingParams] = None,
+                       streaming: bool = False) -> RequestOutput:
+        # per-request clamps land on a private copy: generate() shares one
+        # SamplingParams across every prompt of a batch
+        sampling_params = copy.copy(sampling_params) if sampling_params \
+            else SamplingParams()
+        if sampling_params.n > 1:
+            raise NotImplementedError("n > 1 is not supported yet")
+        if isinstance(prompt, str):
+            if self.tokenizer is None:
+                raise ValueError("string prompt requires a tokenizer")
+            token_ids = self.tokenizer.encode(
+                prompt, add_special_tokens=sampling_params.add_special_tokens)
+            prompt_text = prompt
+        else:
+            token_ids = list(prompt)
+            prompt_text = None
+        if sampling_params.truncate_prompt_tokens:
+            token_ids = token_ids[-sampling_params.truncate_prompt_tokens:]
+        if len(token_ids) > self.args.max_input_len:
+            raise ValueError(
+                f"prompt length {len(token_ids)} exceeds max_input_len "
+                f"{self.args.max_input_len}")
+        room = self.args.max_seq_len - len(token_ids)
+        if room < 1:
+            raise ValueError("prompt leaves no room for generation within "
+                             f"max_seq_len {self.args.max_seq_len}")
+        sampling_params.max_tokens = min(sampling_params.max_tokens, room)
+        if sampling_params.end_id is None and self.tokenizer is not None:
+            eos = getattr(self.tokenizer, "eos_token_id", None)
+            if eos is not None:
+                sampling_params.end_id = eos
+        req = LlmRequest(prompt_token_ids=token_ids,
+                         sampling_params=sampling_params,
+                         streaming=streaming)
+        return RequestOutput(self.executor.submit(req), prompt_text)
+
+    # ------------------------------------------------------------------ #
+    def shutdown(self):
+        if getattr(self, "executor", None) is not None:
+            self.executor.shutdown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+
+    def __del__(self):
+        try:
+            self.shutdown()
+        except Exception:  # interpreter teardown: nothing left to report
+            pass

@@ -1,0 +1,108 @@
+"""Configuration tree for the LLM API.
+
+Port of the subset of ``tensorrt_llm_tpu/llmapi/llm_args.py`` that the
+dense-Llama serving path reads. Unknown keys are rejected (so an option
+this package does not implement fails loudly instead of being ignored).
+"""
+from __future__ import annotations
+
+from typing import List, Literal, Optional
+
+from pydantic import BaseModel, Field, field_validator, model_validator
+
+from ..quantization.mode import KvCacheQuantAlgo, QuantAlgo
+from ..runtime.scheduler import CapacitySchedulerPolicy, ContextChunkingPolicy
+
+
+class StrictBaseModel(BaseModel):
+    model_config = dict(extra="forbid", validate_assignment=True,
+                        arbitrary_types_allowed=True)
+
+
+class KvCacheConfig(StrictBaseModel):
+    enable_block_reuse: bool = True
+    max_tokens: Optional[int] = None
+    free_gpu_memory_fraction: float = Field(0.9, gt=0.0, le=1.0)
+    event_buffer_max_size: int = 0
+    tokens_per_block: int = 32
+
+    @field_validator("tokens_per_block")
+    @classmethod
+    def _power_of_two(cls, v: int) -> int:
+        if v & (v - 1) or v <= 0:
+            raise ValueError("tokens_per_block must be a power of 2")
+        return v
+
+
+class SchedulerConfig(StrictBaseModel):
+    capacity_scheduler_policy: CapacitySchedulerPolicy = \
+        CapacitySchedulerPolicy.GUARANTEED_NO_EVICT
+    context_chunking_policy: ContextChunkingPolicy = \
+        ContextChunkingPolicy.FIRST_COME_FIRST_SERVED
+    waiting_queue_policy: Literal["fcfs", "priority"] = "fcfs"
+    # cap on requests concurrently holding executor state; None = 4x
+    # max_batch_size (waiting requests hold no KV/slots)
+    max_active_requests: Optional[int] = None
+
+
+class BucketingConfig(StrictBaseModel):
+    """Token buckets: every step's ragged batch is padded up to the next
+    bucket, so a later CUDA graph per bucket can replay it."""
+    token_buckets: Optional[List[int]] = None
+
+    def resolve_token_buckets(self, max_num_tokens: int) -> List[int]:
+        if self.token_buckets:
+            return sorted(set(min(t, max_num_tokens)
+                              for t in self.token_buckets))
+        buckets, t = [], 64
+        while t < max_num_tokens:
+            buckets.append(t)
+            t *= 4
+        buckets.append(max_num_tokens)
+        return sorted(set(buckets))
+
+
+class QuantConfig(StrictBaseModel):
+    quant_algo: QuantAlgo = QuantAlgo.NO_QUANT
+    kv_cache_quant_algo: KvCacheQuantAlgo = KvCacheQuantAlgo.NO_QUANT
+
+
+class LlmArgs(StrictBaseModel):
+    """Top-level engine arguments. ``model`` is a checkpoint directory or
+    the name of an inline config (dummy weights)."""
+    model: str
+    skip_tokenizer_init: bool = False
+    dtype: Literal["auto", "bfloat16", "float32"] = "auto"
+
+    # engine limits
+    max_batch_size: int = 64
+    max_input_len: int = 2048
+    max_seq_len: Optional[int] = None
+    max_num_tokens: int = 4096
+
+    kv_cache_config: KvCacheConfig = Field(default_factory=KvCacheConfig)
+    scheduler_config: SchedulerConfig = Field(default_factory=SchedulerConfig)
+    bucketing_config: BucketingConfig = Field(default_factory=BucketingConfig)
+    quant_config: QuantConfig = Field(default_factory=QuantConfig)
+
+    enable_chunked_prefill: bool = True
+    disable_overlap_scheduler: bool = False
+    # decode steps allowed in flight before the host consumes results
+    # (the overlap scheduler generalized to depth N)
+    max_inflight_steps: int = 4
+    # decode iterations per dispatched window: the engine loops K steps
+    # on the device without a host sync; the host fetches once per K
+    decode_multi_step: int = 8
+    load_format: Literal["auto", "dummy"] = "auto"
+    stream_interval: int = 1
+
+    @model_validator(mode="after")
+    def _fill_defaults(self):
+        if self.max_seq_len is None:
+            object.__setattr__(self, "max_seq_len", self.max_input_len + 2048)
+        if self.quant_config.quant_algo != QuantAlgo.NO_QUANT or \
+                self.quant_config.kv_cache_quant_algo != \
+                KvCacheQuantAlgo.NO_QUANT:
+            raise NotImplementedError(
+                "quantized weights / KV are not supported by this package")
+        return self

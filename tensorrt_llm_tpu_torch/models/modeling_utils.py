@@ -1,0 +1,155 @@
+"""Model-layer foundation: config, registry, shared attention block.
+
+Port of ``tensorrt_llm_tpu/models/modeling_utils.py`` (``ModelConfig``,
+``AttentionSpec``, ``attention_block``, ``DecoderModelForCausalLM``)
+without ring/Ulysses context parallelism, LoRA, sparse or star attention
+and tensor parallelism.
+
+Models are functions over a dict of parameter tensors; a model object
+holds only static config. The KV pool is owned by the engine and passed
+in: ``forward(params, token_ids[T], kv_pages[L, P, ps, 2kvh, hd],
+metadata) -> (logits[S, V], kv_pages)``, where the pool is updated in
+place. Q, K and V come from one fused projection (and the MLP's gate and
+up from another): one matmul launch each instead of three and two.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..ops import rope as rope_ops
+from ..ops.attention import (AttentionMetadata, ragged_paged_attention,
+                             write_kv)
+from ..ops.linear import LinearMethod
+
+MODEL_REGISTRY: Dict[str, type] = {}
+
+
+def register_model(*model_types: str):
+    """Register a model class under HF ``model_type`` names."""
+    def deco(cls):
+        for t in model_types:
+            MODEL_REGISTRY[t] = cls
+        return cls
+    return deco
+
+
+def get_model_class(model_type: str) -> type:
+    if model_type not in MODEL_REGISTRY:
+        raise ValueError(
+            f"unsupported model_type '{model_type}'; "
+            f"registered: {sorted(MODEL_REGISTRY)}")
+    return MODEL_REGISTRY[model_type]
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    """Engine-side model description."""
+    hf_config: Any                        # transformers PretrainedConfig
+    dtype: torch.dtype = torch.bfloat16
+    device: torch.device = torch.device("cuda")
+    kv_cache_dtype: Optional[torch.dtype] = None   # None -> dtype
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.kv_cache_dtype is None:
+            self.kv_cache_dtype = self.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionSpec:
+    """Static attention geometry for one layer."""
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    sm_scale: float
+    rope: Optional[rope_ops.RopeConfig] = None
+    sliding_window: Optional[int] = None
+    soft_cap: Optional[float] = None
+    is_neox: bool = True
+    # ALiBi: per-q-head slopes (static tuple)
+    alibi_slopes: Optional[tuple] = None
+    # attention sinks: layer params carry a per-q-head "sinks" tensor
+    use_sinks: bool = False
+
+
+def attention_block(params: Dict[str, Any],
+                    x: torch.Tensor,                 # [T, hidden]
+                    kv_pages: torch.Tensor,          # [pages, ps, 2kvh, hd]
+                    metadata: AttentionMetadata,
+                    spec: AttentionSpec,
+                    method: LinearMethod,
+                    rope_cos_sin: Optional[Tuple[torch.Tensor,
+                                                 torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """QKV projection, RoPE, KV append (in place) and paged attention,
+    then the output projection."""
+    T = x.shape[0]
+    nq, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    qkv = method.apply(params["qkv"], x)
+    q, k, v = qkv.split([nq * hd, nkv * hd, nkv * hd], dim=-1)
+    q = q.reshape(T, nq, hd)
+    k = k.reshape(T, nkv, hd)
+    v = v.reshape(T, nkv, hd)
+    if spec.rope is not None:
+        cos, sin = rope_cos_sin if rope_cos_sin is not None else \
+            rope_ops.rope_cos_sin(spec.rope, metadata.positions)
+        q = rope_ops.apply_rope(q, cos, sin, spec.is_neox)
+        k = rope_ops.apply_rope(k, cos, sin, spec.is_neox)
+    write_kv(kv_pages, k, v, metadata.slot_mapping)
+    attn = ragged_paged_attention(
+        q.contiguous(), kv_pages, metadata, sm_scale=spec.sm_scale,
+        sliding_window=spec.sliding_window, soft_cap=spec.soft_cap,
+        alibi_slopes=spec.alibi_slopes,
+        sinks=params["sinks"] if spec.use_sinks else None)
+    return method.apply(params["o"], attn.reshape(T, nq * hd))
+
+
+class DecoderModelForCausalLM:
+    """Base for decoder-only CausalLM models (subclasses implement
+    ``init_params``, ``load_hf_state_dict`` and ``forward``)."""
+    architectures: tuple = ()
+
+    def __init__(self, model_config: ModelConfig):
+        self.config = model_config
+        self.hf = model_config.hf_config
+        self.dtype = model_config.dtype
+        self.device = model_config.device
+
+    @property
+    def num_layers(self) -> int:
+        return self.hf.num_hidden_layers
+
+    @property
+    def num_kv_heads(self) -> int:
+        return getattr(self.hf, "num_key_value_heads", None) or \
+            self.hf.num_attention_heads
+
+    @property
+    def head_dim(self) -> int:
+        return getattr(self.hf, "head_dim", None) or \
+            self.hf.hidden_size // self.hf.num_attention_heads
+
+    @property
+    def vocab_size(self) -> int:
+        return self.hf.vocab_size
+
+    def kv_pool_shape(self, num_pages: int, page_size: int) -> tuple:
+        return (self.num_layers, num_pages, page_size,
+                2 * self.num_kv_heads, self.head_dim)
+
+    def make_kv_pages(self, num_pages: int, page_size: int) -> torch.Tensor:
+        return torch.zeros(self.kv_pool_shape(num_pages, page_size),
+                           dtype=self.config.kv_cache_dtype,
+                           device=self.device)
+
+    def init_params(self, seed: int = 0) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def load_hf_state_dict(self, state_dict) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def forward(self, params, token_ids, kv_pages, metadata):
+        raise NotImplementedError

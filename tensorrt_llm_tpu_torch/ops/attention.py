@@ -1,0 +1,198 @@
+"""Paged attention for mixed prefill + decode batches.
+
+Port of ``tensorrt_llm_tpu/ops/attention.py`` for the features a dense
+model uses. All scheduled sequences' new tokens share one ragged token
+axis. Each layer:
+
+  1. ``write_kv`` scatters this step's K/V into the paged pool at
+     ``slot_mapping`` (k at even combined-head indices, v at odd);
+  2. ``ragged_paged_attention`` attends over (kv_lens, page_indices,
+     cu_q_lens). A decode-only batch goes to the paged decode kernel
+     (ops/cuda/decode_attention.py), any other batch to the ragged
+     prefill kernel (ops/cuda/prefill_attention.py); decode rows inside a
+     mixed batch are q_len-1 segments of that kernel. This is the JAX
+     package's ``hybrid_decode`` rule. The prefill kernel takes segments
+     of any length, so there is no dense fallback for long segments.
+
+``_reference_attention`` is the dense gather implementation of the same
+semantics, kept for the tests.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from .cuda.decode_attention import paged_decode_attention
+from .cuda.prefill_attention import ragged_prefill_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionMetadata:
+    """Per-iteration ragged-batch metadata (device tensors), shared by
+    every layer.
+
+    Shapes (S = padded max sequences, T = padded token bucket,
+    P = pages per sequence):
+      kv_lens:        i32[S]   total KV length per seq incl. this step
+      page_indices:   i32[S, P]
+      cu_q_lens:      i32[S+1] cumulative new-token counts
+      num_seqs:       i32[1]
+      slot_mapping:   i32[T]   flat pool slot (page*page_size+offset) per
+                      new token; out of range for padding (write dropped)
+      positions:      i32[T]   absolute position of each new token
+      logits_indices: i32[S]   token index of each sequence's last token
+      max_q_len:      host int, the longest query segment (1 = decode-only
+                      batch); None makes the dispatch read it from the
+                      device (a sync).
+    """
+    kv_lens: torch.Tensor
+    page_indices: torch.Tensor
+    cu_q_lens: torch.Tensor
+    num_seqs: torch.Tensor
+    slot_mapping: torch.Tensor
+    positions: torch.Tensor
+    logits_indices: torch.Tensor
+    max_q_len: Optional[int] = None
+
+
+def layer_metadata(metadata: AttentionMetadata, layer_idx: int,
+                   pages_per_layer: int, page_size: int,
+                   num_layers: int) -> AttentionMetadata:
+    """Metadata view addressing layer ``layer_idx`` of a flat all-layers
+    pool ``[(L*P), ps, c, hd]``: layer l's pages sit at ``l*P + i``.
+    Padding slots (encoded as >= P*ps) map to the flat pool's global
+    out-of-range slot so their writes stay dropped."""
+    per = pages_per_layer * page_size
+    sm = torch.where(metadata.slot_mapping >= per, num_layers * per,
+                     metadata.slot_mapping + layer_idx * per)
+    return dataclasses.replace(
+        metadata,
+        page_indices=metadata.page_indices + layer_idx * pages_per_layer,
+        slot_mapping=sm)
+
+
+def write_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             slot_mapping: torch.Tensor) -> torch.Tensor:
+    """Scatter new K/V into the paged pool, IN PLACE, and return the pool.
+
+    kv_pages: [num_pages, page_size, 2*kv_heads, head_dim] (cache dtype)
+    k, v:     [T, kv_heads, head_dim]
+    slot_mapping: i32[T] flat slots; slots >= num_pages*page_size are
+    dropped. The drop needs no host sync: a dropped row is redirected to
+    the slot of the first kept row with that row's values (a duplicate
+    write of identical data), or, when no row is kept, to slot 0 with the
+    pool's own slot-0 contents.
+    """
+    num_pages, page_size, combined, head_dim = kv_pages.shape
+    n = num_pages * page_size
+    flat = kv_pages.view(n, combined, head_dim)
+    kv = torch.stack([k, v], dim=2).reshape(k.shape[0], combined, head_dim)
+    kv = kv.to(kv_pages.dtype)
+    slots = slot_mapping.long()
+    keep = (slots >= 0) & (slots < n)
+    first = torch.argmax(keep.to(torch.int8))           # first kept row
+    any_keep = keep.any()
+    fb_slot = torch.where(any_keep, slots[first], 0)
+    fb_val = torch.where(any_keep, kv[first], flat[0])
+    idx = torch.where(keep, slots, fb_slot)
+    vals = torch.where(keep[:, None, None], kv, fb_val[None])
+    flat.index_copy_(0, idx, vals)
+    return kv_pages
+
+
+def ragged_paged_attention(q: torch.Tensor,            # [T, qh, hd]
+                           kv_pages: torch.Tensor,     # [P, ps, 2kvh, hd]
+                           metadata: AttentionMetadata,
+                           *,
+                           sm_scale: float,
+                           sliding_window: Optional[int] = None,
+                           soft_cap: Optional[float] = None,
+                           alibi_slopes: Optional[Sequence[float]] = None,
+                           sinks: Optional[torch.Tensor] = None,
+                           k_scale: Optional[float] = None,
+                           v_scale: Optional[float] = None) -> torch.Tensor:
+    """Mixed prefill/decode attention over the paged KV pool."""
+    S = metadata.kv_lens.shape[0]
+    T = q.shape[0]
+    max_q = metadata.max_q_len
+    if max_q is None:
+        n = int(metadata.num_seqs[0])
+        cu = metadata.cu_q_lens
+        max_q = int((cu[1:n + 1] - cu[:n]).max()) if n else 0
+    opts = dict(sm_scale=sm_scale, sliding_window=sliding_window,
+                soft_cap=soft_cap, alibi_slopes=alibi_slopes, sinks=sinks,
+                k_scale=k_scale, v_scale=v_scale)
+    if max_q <= 1:
+        # decode-only batch: row i of q is sequence i's single token
+        m = min(S, T)
+        out_s = paged_decode_attention(
+            q[:m], kv_pages, metadata.kv_lens[:m],
+            metadata.page_indices[:m], **opts)
+        if m == T:
+            return out_s
+        out = torch.zeros_like(q)
+        out[:m] = out_s
+        return out
+    return ragged_prefill_attention(
+        q, kv_pages, metadata.kv_lens, metadata.page_indices,
+        metadata.cu_q_lens, max_q_len=max_q, **opts)
+
+
+def _reference_attention(q, kv_pages, metadata, *, sm_scale,
+                         sliding_window=None, soft_cap=None,
+                         alibi_slopes=None, sinks=None):
+    """Dense gather-based paged attention, vectorized over sequences (the
+    JAX package's ``_reference_attention`` for the dense-model features;
+    a fully masked padding row averages V, as there)."""
+    T, num_q_heads, head_dim = q.shape
+    num_pages, page_size, combined, _ = kv_pages.shape
+    num_kv_heads = combined // 2
+    S, P = metadata.page_indices.shape
+    max_kv = P * page_size
+    cu = metadata.cu_q_lens.long()
+    kv_lens = metadata.kv_lens.long()
+
+    tok_idx = torch.arange(T, device=q.device)
+    seq_of_tok = torch.searchsorted(cu[1:S + 1], tok_idx, right=True)
+    seq_of_tok = seq_of_tok.clamp(max=S - 1)
+    q_start = cu[seq_of_tok]
+    q_lens = cu[1:S + 1] - cu[:S]
+    tok_kv_pos = kv_lens[seq_of_tok] - q_lens[seq_of_tok] + (tok_idx - q_start)
+
+    pages = kv_pages[metadata.page_indices.reshape(-1).long()]
+    pages = pages.reshape(S, max_kv, combined, head_dim)
+    k = pages[:, :, 0::2].to(q.dtype)
+    v = pages[:, :, 1::2].to(q.dtype)
+    k_tok = k[seq_of_tok]
+    v_tok = v[seq_of_tok]
+    group = num_q_heads // num_kv_heads
+    qg = q.reshape(T, num_kv_heads, group, head_dim)
+    scores = torch.einsum("tkgd,tskd->tkgs", qg.float(),
+                          k_tok.float()) * sm_scale
+    kv_pos = torch.arange(max_kv, device=q.device)
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=q.device).reshape(num_kv_heads, group)
+        dist = (kv_pos[None, :] - tok_kv_pos[:, None]).float()
+        scores = scores + slopes[None, :, :, None] * dist[:, None, None, :]
+    if soft_cap is not None:
+        scores = soft_cap * torch.tanh(scores / soft_cap)
+    in_len = kv_pos[None, :] < kv_lens[seq_of_tok][:, None]
+    valid = (kv_pos[None, :] <= tok_kv_pos[:, None]) & in_len
+    if sliding_window is not None:
+        valid &= kv_pos[None, :] > (tok_kv_pos[:, None] - sliding_window)
+    neg = torch.finfo(torch.float32).min
+    scores = torch.where(valid[:, None, None, :], scores, neg)
+    if sinks is not None:
+        sk = torch.as_tensor(sinks, dtype=torch.float32,
+                             device=q.device).reshape(num_kv_heads, group)
+        m = torch.maximum(scores.amax(dim=-1), sk[None])
+        e = torch.exp(scores - m[..., None])
+        denom = e.sum(dim=-1) + torch.exp(sk[None] - m)
+        probs = e / denom[..., None]
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("tkgs,tskd->tkgd", probs, v_tok.float())
+    return out.reshape(T, num_q_heads, head_dim).to(q.dtype)

@@ -1,0 +1,160 @@
+"""Causal ragged attention over the paged KV pool (prefill / mixed).
+
+Replaces the TPU kernel ``ragged_prefill_attention``
+(tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250). The CUDA kernel is
+``csrc/prefill_attention.cu``: one CTA per (block of up to 64 score rows,
+KV head, sequence), each owning disjoint output rows, with no cap on the
+segment length. At long prefills it is bound by the attention FLOPs
+(FLOPs / dense bf16 peak); the simple design runs float32 dot products on
+CUDA cores and leaves mma/wgmma, KV-tile sharing and TMA pipelining for
+later.
+
+``ragged_prefill_attention`` launches the kernel for CUDA tensors and runs
+``ragged_prefill_attention_plain`` only for CPU tensors. ``LAUNCHES``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from . import _build
+from .decode_attention import _DTYPES, _as_f32
+
+LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The built C entry point, with its ctypes signature set once."""
+    fn = _build.load("prefill_attention").ragged_prefill_attention
+    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P_] * 8 + [I_] * 8 + [F_, I_, F_, I_, P_]
+    fn.restype = I_
+    return fn
+
+
+def ragged_prefill_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
+                                   kv_lens: torch.Tensor,
+                                   page_indices: torch.Tensor,
+                                   cu_q_lens: torch.Tensor, *,
+                                   sm_scale: float,
+                                   sliding_window: Optional[int] = None,
+                                   soft_cap: Optional[float] = None,
+                                   alibi_slopes: Optional[Sequence[float]]
+                                   = None,
+                                   sinks: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, one sequence at a time: gather
+    the sequence's pages, causal + window mask, float32 softmax (sink
+    logit in the denominator when given). Rows past cu_q_lens[S] are 0."""
+    T, qh, hd = q.shape
+    P, ps, combined, _ = kv_pages.shape
+    kvh = combined // 2
+    group = qh // kvh
+    S = kv_lens.shape[0]
+    out = torch.zeros_like(q)
+    cu = cu_q_lens.tolist()
+    kl = kv_lens.tolist()
+    sl = _as_f32(alibi_slopes, q.device)
+    sk = _as_f32(sinks, q.device)
+    for s in range(S):
+        q_len, kv_len = cu[s + 1] - cu[s], kl[s]
+        if q_len <= 0:
+            continue
+        n_pages = -(-kv_len // ps)
+        pids = page_indices[s, :n_pages].clamp(0, P - 1).long()
+        pages = kv_pages[pids].reshape(n_pages * ps, combined, hd)[:kv_len]
+        k = pages[:, 0::2].float()                     # [kv, kvh, hd]
+        v = pages[:, 1::2].float()
+        qs = q[cu[s]:cu[s + 1]].float().reshape(q_len, kvh, group, hd)
+        scores = torch.einsum("tkgd,ckd->kgtc", qs, k) * sm_scale
+        q_pos = kv_len - q_len + torch.arange(q_len, device=q.device)
+        pos = torch.arange(kv_len, device=q.device)
+        if sl is not None:
+            dist = (pos[None, :] - q_pos[:, None]).float()
+            scores = scores + sl.reshape(kvh, group)[:, :, None, None] * dist
+        if soft_cap is not None:
+            scores = soft_cap * torch.tanh(scores / soft_cap)
+        valid = pos[None, :] <= q_pos[:, None]
+        if sliding_window is not None:
+            valid &= pos[None, :] > q_pos[:, None] - sliding_window
+        scores = scores.masked_fill(~valid, float("-inf"))
+        m = scores.amax(dim=-1)                         # [kvh, g, t]
+        if sk is not None:
+            skr = sk.reshape(kvh, group, 1)
+            m = torch.maximum(m, skr)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        e = torch.exp(scores - m[..., None])
+        denom = e.sum(dim=-1)
+        if sk is not None:
+            denom = denom + torch.exp(skr - m)
+        probs = e / denom.clamp(min=1e-30)[..., None]
+        o = torch.einsum("kgtc,ckd->tkgd", probs, v)
+        out[cu[s]:cu[s + 1]] = o.reshape(q_len, qh, hd).to(q.dtype)
+    return out
+
+
+def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
+                             kv_lens: torch.Tensor,
+                             page_indices: torch.Tensor,
+                             cu_q_lens: torch.Tensor, *,
+                             sm_scale: float,
+                             sliding_window: Optional[int] = None,
+                             soft_cap: Optional[float] = None,
+                             alibi_slopes: Optional[Sequence[float]] = None,
+                             sinks: Optional[torch.Tensor] = None,
+                             k_scale: Optional[float] = None,
+                             v_scale: Optional[float] = None,
+                             max_q_len: Optional[int] = None
+                             ) -> torch.Tensor:
+    """q [T, qh, hd] packed by cu_q_lens i32[S+1]; kv_pages
+    [P, ps, 2*kvh, hd]; kv_lens i32[S]; page_indices i32[S, max_pages] ->
+    out [T, qh, hd]. ``max_q_len`` (the longest segment) sizes the grid;
+    pass it from the host to avoid a device sync."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        if k_scale is not None or v_scale is not None:
+            raise NotImplementedError("quantized KV pools are not supported")
+        return ragged_prefill_attention_plain(
+            q, kv_pages, kv_lens, page_indices, cu_q_lens,
+            sm_scale=sm_scale, sliding_window=sliding_window,
+            soft_cap=soft_cap, alibi_slopes=alibi_slopes, sinks=sinks)
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "the CUDA prefill kernel has no int8/fp8 KV dequant yet")
+    T, qh, hd = q.shape
+    P, ps, combined, _ = kv_pages.shape
+    kvh = combined // 2
+    S = kv_lens.shape[0]
+    if q.device.type != "cuda" or kv_pages.device != q.device:
+        raise ValueError("q and kv_pages must be on the same CUDA device")
+    if q.dtype not in _DTYPES or kv_pages.dtype != q.dtype:
+        raise TypeError(f"unsupported dtypes q={q.dtype} kv={kv_pages.dtype}")
+    if hd not in (64, 128) or qh % kvh or qh // kvh > 64:
+        raise ValueError(f"unsupported geometry qh={qh} kvh={kvh} hd={hd}")
+    if not (q.is_contiguous() and kv_pages.is_contiguous()):
+        raise ValueError("q and kv_pages must be contiguous")
+    kv_lens = kv_lens.to(torch.int32).contiguous()
+    page_indices = page_indices.to(torch.int32).contiguous()
+    cu_q_lens = cu_q_lens.to(torch.int32).contiguous()
+    if max_q_len is None:
+        max_q_len = int((cu_q_lens[1:] - cu_q_lens[:-1]).max())
+    sinks_t = _as_f32(sinks, q.device)
+    alibi_t = _as_f32(alibi_slopes, q.device)
+    out = torch.zeros_like(q)
+    err = _kernel()(
+        q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
+        page_indices.data_ptr(), cu_q_lens.data_ptr(),
+        sinks_t.data_ptr() if sinks_t is not None else None,
+        alibi_t.data_ptr() if alibi_t is not None else None,
+        out.data_ptr(), S, qh, kvh, hd, ps, P, page_indices.shape[1],
+        int(max_q_len), float(sm_scale), int(sliding_window or 0),
+        float(soft_cap or 0.0), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "ragged_prefill_attention")
+    LAUNCHES += 1
+    return out

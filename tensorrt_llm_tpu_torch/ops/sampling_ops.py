@@ -1,0 +1,186 @@
+"""Batched on-device sampling.
+
+Port of ``tensorrt_llm_tpu/ops/sampling_ops.py`` (``SamplingTensors``,
+``apply_penalties``, ``mask_logits``, ``sample``, ``top_logprobs``). One
+vectorized routine serves the whole batch with per-row parameters: the
+masking is one [B, V] sort, the draw a Gumbel argmax, and greedy rows take
+the plain argmax (bit-exact with the JAX version for equal logits).
+
+Random numbers cannot match ``jax.random`` bit for bit, so draws are held
+to the JAX version by distribution. Unseeded rows draw from the caller's
+``torch.Generator``. Rows with ``SamplingParams.seed`` draw from a counter
+hash of (seed, position, vocab id) computed with integer tensor ops on the
+device, so a seeded request's stream is a function of its seed and
+position only — independent of batch composition, as in the JAX version —
+and needs no host sync inside a decode window.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = torch.finfo(torch.float32).min
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingTensors:
+    """Per-row sampling controls, padded to the batch bucket.
+
+    top_k == 0 disables top-k; top_p == 1 disables top-p; greedy rows use
+    pure argmax (temperature == 0 semantics of SamplingParams)."""
+    temperature: torch.Tensor        # f32[B]
+    top_k: torch.Tensor              # i64[B]
+    top_p: torch.Tensor              # f32[B]
+    min_p: torch.Tensor              # f32[B]
+    greedy: torch.Tensor             # bool[B]
+    repetition_penalty: torch.Tensor  # f32[B]
+    presence_penalty: torch.Tensor   # f32[B]
+    frequency_penalty: torch.Tensor  # f32[B]
+
+    @staticmethod
+    def from_requests(requests, batch_size: int,
+                      device="cpu") -> "SamplingTensors":
+        """Host-side packing of SamplingParams into padded tensors."""
+        n = min(len(requests), batch_size)
+        f = torch.zeros((6, batch_size), dtype=torch.float32)
+        f[0] = 1.0   # temperature
+        f[1] = 1.0   # top_p
+        f[3] = 1.0   # repetition
+        top_k = torch.zeros(batch_size, dtype=torch.int64)
+        greedy = torch.ones(batch_size, dtype=torch.bool)
+        for i, r in enumerate(requests[:n]):
+            sp = r.sampling_params
+            greedy[i] = sp.greedy
+            top_k[i] = sp.top_k
+            f[:, i] = torch.tensor([
+                max(sp.temperature, 1e-5), sp.top_p, sp.min_p,
+                sp.repetition_penalty, sp.presence_penalty,
+                sp.frequency_penalty])
+        f = f.to(device)
+        return SamplingTensors(
+            temperature=f[0], top_k=top_k.to(device), top_p=f[1],
+            min_p=f[2], greedy=greedy.to(device), repetition_penalty=f[3],
+            presence_penalty=f[4], frequency_penalty=f[5])
+
+
+def apply_penalties(logits: torch.Tensor,          # f32[B, V]
+                    token_counts: torch.Tensor,    # i32[B, V]
+                    st: SamplingTensors) -> torch.Tensor:
+    """Repetition/presence/frequency penalties: repetition divides
+    positive logits and multiplies negative ones of seen tokens; presence
+    subtracts a flat value; frequency subtracts count-proportionally."""
+    seen = token_counts > 0
+    rep = st.repetition_penalty[:, None]
+    penalized = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = torch.where(seen, penalized, logits)
+    logits = logits - torch.where(seen, st.presence_penalty[:, None], 0.0)
+    return logits - token_counts.float() * st.frequency_penalty[:, None]
+
+
+def mask_logits(logits: torch.Tensor, st: SamplingTensors) -> torch.Tensor:
+    """Temperature + top-k + top-p + min-p masking. Returns the processed
+    logits (masked entries = NEG_INF)."""
+    B, V = logits.shape
+    scaled = logits.float() / st.temperature[:, None]
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+
+    # top-k: value threshold at the k-th largest
+    k = torch.where(st.top_k > 0, st.top_k, V)
+    kth = torch.gather(sorted_desc, 1, (k - 1).clamp(0, V - 1)[:, None])
+    mask = scaled >= kth
+
+    # top-p: keep the smallest prefix of the sorted distribution whose
+    # cumulative probability reaches top_p (first token always kept)
+    probs_sorted = torch.softmax(sorted_desc, dim=-1)
+    cum = torch.cumsum(probs_sorted, dim=-1)
+    keep_sorted = (cum - probs_sorted) < st.top_p[:, None]
+    count = torch.clamp(keep_sorted.sum(dim=-1), min=1)
+    p_threshold = torch.gather(sorted_desc, 1, (count - 1)[:, None])
+    mask &= scaled >= p_threshold
+
+    # min-p: prob >= min_p * max_prob  <=>  logit >= max_logit + log(min_p)
+    max_logit = scaled.max(dim=-1, keepdim=True).values
+    minp_thresh = max_logit + torch.log(st.min_p.clamp(min=1e-10))[:, None]
+    mask &= torch.where(st.min_p[:, None] > 0, scaled >= minp_thresh, True)
+    return torch.where(mask, scaled, NEG_INF)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), without int64
+    overflow (the constant is split in 16-bit halves)."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """32-bit integer finalizer (xorshift-multiply, "lowbias32")."""
+    x = x & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def seeded_gumbel(seeds: torch.Tensor, pos: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Gumbel noise f32[B, V] that is a pure function of (seed, position,
+    vocab id): the counter-based draw for seeded rows."""
+    row = _hash32(_hash32(seeds.long() ^ 0x5EED) ^ pos.long())     # [B]
+    col = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    bits = _hash32(row[:, None] ^ _hash32(col + 0x9E3779B9)[None, :])
+    u = (bits.double() + 0.5) / 4294967296.0                        # (0, 1)
+    return (-torch.log(-torch.log(u))).float()
+
+
+def sample(logits: torch.Tensor,                    # f32/bf16 [B, V]
+           st: SamplingTensors,
+           generator: Optional[torch.Generator],
+           token_counts: Optional[torch.Tensor] = None,
+           row_seeds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (tokens i64[B], logprobs f32[B]); the logprob is under the
+    processed distribution. ``row_seeds`` = (seeds i32[B], positions
+    i32[B]); rows with seed 0 use ``generator``."""
+    logits = logits.float()
+    if token_counts is not None:
+        logits = apply_penalties(logits, token_counts, st)
+    processed = mask_logits(logits, st)
+    u = torch.rand(processed.shape, generator=generator,
+                   device=processed.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+    if row_seeds is not None:
+        seeds, pos = row_seeds
+        gumbel = torch.where((seeds != 0)[:, None],
+                             seeded_gumbel(seeds, pos, processed.shape[-1]),
+                             gumbel)
+    sampled = torch.argmax(processed + gumbel, dim=-1)
+    greedy_tok = torch.argmax(logits, dim=-1)
+    tokens = torch.where(st.greedy, greedy_tok, sampled)
+    logz = torch.logsumexp(processed, dim=-1)
+    chosen = torch.gather(processed, 1, tokens[:, None])[:, 0]
+    return tokens, chosen - logz
+
+
+def greedy_sample(logits: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-greedy fast path: argmax + its log-softmax value (no sort, no
+    noise)."""
+    lf = logits.float()
+    tokens = torch.argmax(lf, dim=-1)
+    chosen = torch.gather(lf, 1, tokens[:, None])[:, 0]
+    return tokens, chosen - torch.logsumexp(lf, dim=-1)
+
+
+def top_logprobs(logits: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k (values, ids) of log-softmax — for SamplingParams.logprobs."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    vals, ids = torch.topk(lp, k, dim=-1)
+    return vals, ids

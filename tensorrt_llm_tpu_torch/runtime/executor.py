@@ -1,0 +1,592 @@
+"""Continuous-batching executor loop.
+
+Port of ``tensorrt_llm_tpu/runtime/executor.py`` (``PyExecutor``): one
+background thread runs fetch -> schedule -> allocate -> forward ->
+process-previous -> respond. Sampled tokens stay on the device indexed by
+sequence slot and the next step gathers them there, so the host processes
+iteration n-1's tokens (up to ``pipeline_depth`` iterations behind) while
+the device executes iteration n. Pure-decode batches run K-step decode
+windows (``ModelEngine.forward_multi_step``); a batch with context and
+generation rows splits into a prefill step and a decode window.
+
+Not ported: mixed rider windows, speculative decoding, beam search,
+attention-DP / multi-host roles, guided decoding, disaggregation, KV
+connectors, logits processors, hang detection, per-request error
+isolation, cancellation, iteration statistics, the TTFT-budget window
+shrink and the decode batching-wait.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+import traceback
+from collections import deque
+from typing import Dict, List, Optional
+
+from ..logger import logger
+from .kv_cache_manager import KVCacheManager, NoFreeBlocksError
+from .model_engine import HostFuture, ModelEngine
+from .request import FinishReason, LlmRequest, LlmRequestState
+from .scheduler import RequestScheduler, ScheduledRequests
+from .waiting_queue import create_waiting_queue
+
+
+@dataclasses.dataclass
+class CompletionOutput:
+    index: int
+    text: str = ""
+    token_ids: List[int] = dataclasses.field(default_factory=list)
+    cumulative_logprob: Optional[float] = None
+    logprobs: Optional[list] = None
+    finish_reason: Optional[str] = None
+
+
+class GenerationResult:
+    """Future-like handle for one request."""
+
+    def __init__(self, request: LlmRequest, tokenizer=None,
+                 streaming: bool = False):
+        self.request = request
+        self.tokenizer = tokenizer
+        self.streaming = streaming
+        self._done = threading.Event()
+        self._stream_queue: "queue.Queue" = queue.Queue()
+        self.outputs: List[CompletionOutput] = []
+        self.error: Optional[Exception] = None
+
+    @property
+    def request_id(self) -> int:
+        return self.request.request_id
+
+    @property
+    def prompt_token_ids(self) -> List[int]:
+        return self.request.prompt_token_ids
+
+    @property
+    def finished(self) -> bool:
+        return self._done.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> "GenerationResult":
+        if not self._done.wait(timeout):
+            raise TimeoutError(
+                f"request {self.request_id} not finished within {timeout}s")
+        if self.error is not None:
+            raise self.error
+        return self
+
+    def __iter__(self):
+        """Streaming iteration: yields incremental CompletionOutput."""
+        while True:
+            item = self._stream_queue.get()
+            if item is None:
+                break
+            yield item
+
+    # executor-side callbacks ------------------------------------------- #
+    def _on_tokens(self, new_tokens: List[int]) -> None:
+        if self.streaming:
+            toks = list(new_tokens)
+            self._stream_queue.put(CompletionOutput(
+                index=0, token_ids=toks, text=self._safe_decode(toks)))
+
+    def _on_finish(self) -> None:
+        req = self.request
+        if self.streaming and req.num_tokens_streamed < req.num_output_tokens:
+            tail = req.output_token_ids[req.num_tokens_streamed:]
+            req.num_tokens_streamed = req.num_output_tokens
+            self._on_tokens(tail)
+        out = CompletionOutput(
+            index=0,
+            token_ids=list(req.output_token_ids),
+            cumulative_logprob=req.cum_logprob or None,
+            logprobs=req.logprobs or None,
+            finish_reason=req.finish_reason.name.lower())
+        out.text = self._safe_decode(req.output_token_ids)
+        sp = req.sampling_params
+        if sp.stop and out.text:
+            for stop in sp.stop:
+                idx = out.text.find(stop)
+                if idx >= 0:
+                    end = idx + (len(stop)
+                                 if sp.include_stop_str_in_output else 0)
+                    out.text = out.text[:end]
+                    break
+        self.outputs = [out]
+        self._done.set()
+        if self.streaming:
+            self._stream_queue.put(None)
+
+    def _on_error(self, err: Exception) -> None:
+        self.error = err
+        self._done.set()
+        if self.streaming:
+            self._stream_queue.put(None)
+
+    def _safe_decode(self, token_ids) -> str:
+        if self.tokenizer is None or \
+                not self.request.sampling_params.detokenize:
+            return ""
+        try:
+            return self.tokenizer.decode(
+                token_ids,
+                skip_special_tokens=self.request.sampling_params
+                .skip_special_tokens)
+        except Exception:  # a tokenizer fault must not kill the loop
+            return ""
+
+
+@dataclasses.dataclass
+class _InflightBatch:
+    entries: List[LlmRequest]
+    samples_output: List[bool]   # row's sampled token is a real output token
+    result: HostFuture           # (tokens, logprobs[, top vals, top ids]) or
+                                 # multi: (tokens [K, S], logprobs, emitted)
+    kind: str = "single"         # "single" | "multi"
+    planned: Optional[List[int]] = None   # multi: per-row budget
+    has_top_lp: bool = False
+
+
+class PyExecutor:
+    def __init__(self,
+                 engine: ModelEngine,
+                 kv_cache_manager: KVCacheManager,
+                 scheduler: RequestScheduler,
+                 tokenizer=None,
+                 enable_overlap: bool = True,
+                 stream_interval: int = 1,
+                 pipeline_depth: int = 4,
+                 decode_multi_step: int = 1,
+                 waiting_queue_policy: str = "fcfs",
+                 max_active_requests: Optional[int] = None):
+        self.engine = engine
+        self.kv = kv_cache_manager
+        self.scheduler = scheduler
+        self.tokenizer = tokenizer
+        self.waiting = create_waiting_queue(waiting_queue_policy)
+        self.max_active_requests = max_active_requests or \
+            4 * engine.max_batch_size
+        self.enable_overlap = enable_overlap
+        self.stream_interval = stream_interval
+        # decode window: K decode iterations per dispatch; 1 = one-token
+        # steps
+        self.multi_step = max(1, decode_multi_step)
+        # steps in flight before the host consumes results
+        self.pipeline_depth = max(1, pipeline_depth) if enable_overlap else 1
+
+        self._request_queue: "queue.Queue" = queue.Queue()
+        self._results: Dict[int, GenerationResult] = {}
+        self._active: List[LlmRequest] = []
+        self._free_slots = list(range(engine.max_batch_size - 1, -1, -1))
+        self._inflight: "deque[_InflightBatch]" = deque()
+        self._shutdown = threading.Event()
+        self._work_event = threading.Event()
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._executor_loop,
+                                        daemon=True, name="tllm-executor")
+        self._thread.start()
+
+    # ------------------------------------------------------------------ #
+    # API
+    # ------------------------------------------------------------------ #
+    def submit(self, request: LlmRequest) -> GenerationResult:
+        if self._shutdown.is_set():
+            raise RuntimeError("executor is shut down")
+        sp = request.sampling_params
+        if sp.use_beam_search or sp.logits_processor is not None or \
+                sp.guided_decoding is not None or sp.no_repeat_ngram_size \
+                or sp.bad_token_ids or sp.embedding_bias is not None:
+            raise NotImplementedError(
+                "beam search, logits processors, guided decoding, "
+                "no-repeat-ngram, bad words and embedding bias are not "
+                "supported by this package yet")
+        res = GenerationResult(request, tokenizer=self.tokenizer,
+                               streaming=request.streaming)
+        with self._lock:
+            self._results[request.request_id] = res
+        self._request_queue.put(request)
+        self._work_event.set()
+        return res
+
+    def shutdown(self, wait: bool = True) -> None:
+        self._shutdown.set()
+        self._work_event.set()
+        if wait and self._thread.is_alive():
+            self._thread.join(timeout=60)
+
+    # ------------------------------------------------------------------ #
+    # Main loop
+    # ------------------------------------------------------------------ #
+    def _executor_loop(self):
+        try:
+            self._executor_loop_body()
+        except Exception as e:  # loop boundary: fail every open request
+            traceback.print_exc()
+            logger.error("executor loop died: %s", e)
+            with self._lock:
+                results = list(self._results.values())
+            for r in results:
+                if not r.finished:
+                    r._on_error(e)
+
+    def _executor_loop_body(self):
+        while not self._shutdown.is_set():
+            if not self._active and not self._inflight:
+                self._work_event.wait(timeout=0.05)
+                self._work_event.clear()
+            self._fetch_new_requests()
+            if not self._active and not self._inflight:
+                continue
+            batch = self.scheduler.schedule(self._schedulable())
+            if batch.paused_requests:
+                self._pause_requests(batch.paused_requests, batch)
+            # pure-decode batch -> K-step window; a mixed ctx+gen batch
+            # splits into a prefill step plus a decode window for its
+            # generation rows
+            multi = not batch.is_empty and not batch.context_requests \
+                and self._multi_step_ok(batch)
+            gen_window = None
+            if (not multi and batch.context_requests
+                    and batch.generation_requests and self.multi_step > 1
+                    and self._multi_rows_ok(batch.generation_requests)):
+                gen_window = ScheduledRequests(
+                    generation_requests=batch.generation_requests)
+                batch = ScheduledRequests(
+                    context_requests=batch.context_requests)
+            if not batch.is_empty or gen_window is not None:
+                if multi:
+                    self._prepare_resources_multi(batch)
+                else:
+                    self._prepare_resources(batch)
+                if gen_window is not None:
+                    self._prepare_resources_multi(gen_window)
+            if batch.is_empty and gen_window is None:
+                self._process_inflight()     # nothing runnable; drain
+                continue
+            wb = batch if multi else gen_window
+            if wb is not None and wb.generation_requests:
+                use_pen = any(r.sampling_params.needs_penalties
+                              for r in wb.all_requests)
+                tokens, logprobs, emitted = self.engine.forward_multi_step(
+                    wb, self.multi_step, use_penalties=use_pen)
+                entries, planned = self._advance_multi(wb)
+                self._inflight.append(_InflightBatch(
+                    entries, [True] * len(entries),
+                    HostFuture(tokens, logprobs, emitted), kind="multi",
+                    planned=planned))
+            if not multi and not batch.is_empty:
+                use_pen = any(r.sampling_params.needs_penalties
+                              for r in batch.all_requests)
+                tokens, logprobs, top_lp = self.engine.forward_step(
+                    batch, use_penalties=use_pen)
+                outs = (tokens, logprobs) + (top_lp or ())
+                entries, samples = self._advance_device_state(batch)
+                self._inflight.append(_InflightBatch(
+                    entries, samples, HostFuture(*outs),
+                    has_top_lp=top_lp is not None))
+            while len(self._inflight) >= self.pipeline_depth:
+                self._process_inflight()
+        # drain at shutdown
+        while self._inflight:
+            self._process_inflight()
+
+    # ------------------------------------------------------------------ #
+    def _fetch_new_requests(self):
+        while True:
+            try:
+                req = self._request_queue.get_nowait()
+            except queue.Empty:
+                break
+            self.waiting.add_request(req)
+        # admission: waiting -> active while there is room
+        while self.waiting and len(self._active) < self.max_active_requests:
+            self._active.append(self.waiting.pop_request())
+
+    def _schedulable(self) -> List[LlmRequest]:
+        out = []
+        for r in self._active:
+            if r.is_finished:
+                continue
+            if r.is_generation_in_progress and not r.is_context_init_state:
+                # length gate on device progress (overlap runs ahead)
+                if r.num_device_tokens - r.prompt_len + 1 >= \
+                        r.sampling_params.max_tokens:
+                    continue
+            if r.is_generation_in_progress and r.seq_slot is None:
+                continue
+            out.append(r)
+        return out
+
+    def _pause_requests(self, paused: List[LlmRequest],
+                        batch: ScheduledRequests) -> None:
+        """MAX_UTILIZATION eviction: drain the pipeline, release the
+        paused requests' KV into the reuse tree and reset them to
+        CONTEXT_INIT for recompute-on-resume."""
+        while self._inflight:
+            self._process_inflight()
+        for req in paused:
+            if req.is_finished:
+                continue
+            logger.info("pausing request %d under memory pressure "
+                        "(%d tokens recompute on resume)",
+                        req.request_id, req.num_total_tokens)
+            self.kv.free_resources(req, store_for_reuse=True)
+            if req.seq_slot is not None:
+                self._release_slot(req)
+            req.pause_for_recompute()
+            if req in batch.generation_requests:
+                batch.generation_requests.remove(req)
+            if req in batch.context_requests:
+                batch.context_requests.remove(req)
+
+    def _prepare_resources(self, batch: ScheduledRequests):
+        """KV allocation + slot assignment."""
+        deferred = []
+        new_slots = []
+        for req in batch.context_requests:
+            if req.seq_slot is None:
+                if not self._free_slots:
+                    # slots release one iteration after a request finishes
+                    # (overlap lag); defer admission to the next iteration
+                    deferred.append(req)
+                    continue
+                req.seq_slot = self._free_slots.pop()
+                try:
+                    reused = self.kv.add_sequence(req)
+                except NoFreeBlocksError:
+                    self._free_slots.append(req.seq_slot)
+                    req.seq_slot = None
+                    deferred.append(req)
+                    continue
+                new_slots.append(req.seq_slot)
+                if reused:
+                    req.context_current_position = reused
+                    req.perf.kv_cache_hit_tokens = reused
+                if req.perf.first_scheduled_time == 0:
+                    req.perf.first_scheduled_time = time.monotonic()
+        for req in deferred:
+            batch.context_requests.remove(req)
+        self.engine.reset_slot_counts(new_slots)
+        starved = []
+        for req in batch.generation_requests:
+            try:
+                self.kv.add_token(req)
+            except NoFreeBlocksError:
+                starved.append(req)
+        for req in starved:
+            batch.generation_requests.remove(req)
+
+    # ------------------------------------------------------------------ #
+    # Multi-step decode window (K tokens per dispatch)
+    # ------------------------------------------------------------------ #
+    def _multi_step_ok(self, batch: ScheduledRequests) -> bool:
+        """A pure-decode batch takes the K-step window unless a row needs
+        a per-token host look (top-k logprobs, too many stop ids)."""
+        if self.multi_step <= 1 or batch.context_requests:
+            return False
+        return self._multi_rows_ok(batch.generation_requests)
+
+    def _multi_rows_ok(self, gen_requests) -> bool:
+        for r in gen_requests:
+            sp = r.sampling_params
+            if sp.logprobs or len(sp.stop_id_list()) > self.engine.NSTOP:
+                return False
+        return True
+
+    def _prepare_resources_multi(self, batch: ScheduledRequests) -> None:
+        """Pre-allocate KV pages for each request's decode window and set
+        its per-window token budget."""
+        K = self.multi_step
+        starved = []
+        for req in batch.generation_requests:
+            sp = req.sampling_params
+            ndt = req.num_device_tokens
+            outs = max(0, ndt - req.prompt_len)
+            budget = max(1, min(K, sp.max_tokens - outs,
+                                self.engine.max_seq_len - ndt))
+            try:
+                self.kv.add_tokens(req, budget)
+                req.multi_step_budget = budget
+            except NoFreeBlocksError:
+                # admitted on a one-token need: degrade to a single step
+                try:
+                    self.kv.add_token(req)
+                    req.multi_step_budget = 1
+                except NoFreeBlocksError:
+                    starved.append(req)
+        for req in starved:
+            batch.generation_requests.remove(req)
+
+    def _advance_multi(self, batch: ScheduledRequests):
+        entries, planned = [], []
+        for req in batch.generation_requests:
+            req.num_device_tokens += req.multi_step_budget
+            req.host_token_override = None
+            entries.append(req)
+            planned.append(req.multi_step_budget)
+        return entries, planned
+
+    def _process_multi(self, batch: _InflightBatch) -> None:
+        tokens, logprobs, emitted = batch.result.get()
+        tok_cols = tokens.T          # [Sb, K]
+        lp_cols = logprobs.T
+        finished: List[LlmRequest] = []
+        for i, req in enumerate(batch.entries):
+            if req.is_finished:
+                continue
+            e = int(emitted[i])
+            plan = batch.planned[i]
+            sp = req.sampling_params
+            if (e == plan and e > 0 and not sp.stop_token_ids
+                    and (sp.end_id is None or sp.ignore_eos)
+                    and not (sp.stop and self.tokenizer is not None)):
+                # fast path: no stop ids / stop strings — the window can
+                # only end by length. Bulk-append the whole emitted run.
+                now = time.monotonic()
+                if not req.output_token_ids:
+                    req.perf.first_token_time = now
+                req.perf.last_token_time = now
+                # the window budget is KV-room capped, not length capped:
+                # truncate at max_tokens and roll the device accounting
+                # back (clamped at 0: never append a negative count)
+                take = max(0, min(e, sp.max_tokens - req.num_output_tokens))
+                row_t = tok_cols[i, :take].tolist()
+                row_l = lp_cols[i, :take].tolist()
+                req.output_token_ids.extend(row_t)
+                req.cum_logprob += sum(row_l)
+                req.logprobs.extend({t: l} for t, l in zip(row_t, row_l))
+                if take < plan:
+                    req.num_device_tokens -= plan - take
+                if req.num_output_tokens >= sp.max_tokens:
+                    req.finish_by_reason(FinishReason.LENGTH)
+                    finished.append(req)
+                else:
+                    self._stream(req)
+                continue
+            accepted = 0
+            done = False
+            check_stop_strings = bool(sp.stop) and self.tokenizer is not None
+            for j in range(e):
+                done = req.add_output_token(int(tokens[j, i]),
+                                            float(logprobs[j, i]))
+                accepted += 1
+                if not done and check_stop_strings:
+                    done = self._check_stop_strings(req)
+                if done:
+                    break
+            if accepted < plan:
+                # the device stopped early (or a stop string landed
+                # mid-window): roll host bookkeeping back to the accepted
+                # prefix so the KV accounting matches
+                req.num_device_tokens -= plan - accepted
+                if not done:
+                    logger.warning(
+                        "request %d: device emitted %d of %d planned "
+                        "tokens without a host-visible stop",
+                        req.request_id, e, plan)
+            if done:
+                finished.append(req)
+            else:
+                self._stream(req)
+        for req in finished:
+            self._finish_request(req)
+
+    def _stream(self, req: LlmRequest) -> None:
+        res = self._results.get(req.request_id)
+        if res is not None and req.streaming and \
+                req.num_output_tokens - req.num_tokens_streamed >= \
+                self.stream_interval:
+            new = req.output_token_ids[req.num_tokens_streamed:]
+            req.num_tokens_streamed = req.num_output_tokens
+            res._on_tokens(new)
+
+    def _advance_device_state(self, batch: ScheduledRequests):
+        entries, samples = [], []
+        for req in batch.context_requests:
+            start = req.context_current_position
+            end = min(req.context_len, start + req.context_chunk_size)
+            last_chunk = end >= req.context_len
+            req.context_current_position = end
+            if last_chunk:
+                req.state = LlmRequestState.GENERATION_IN_PROGRESS
+                req.num_device_tokens = req.context_len
+            entries.append(req)
+            samples.append(last_chunk)
+        for req in batch.generation_requests:
+            req.num_device_tokens += 1
+            req.host_token_override = None
+            entries.append(req)
+            samples.append(True)
+        return entries, samples
+
+    def _process_inflight(self):
+        if not self._inflight:
+            return
+        batch = self._inflight.popleft()
+        if batch.kind == "multi":
+            self._process_multi(batch)
+            return
+        fetched = batch.result.get()               # sync point, one fetch
+        tokens, logprobs = fetched[:2]
+        top_lp = fetched[2:] if batch.has_top_lp else None
+        finished: List[LlmRequest] = []
+        for i, req in enumerate(batch.entries):
+            if req.is_finished:
+                continue  # stopped while this step was in flight
+            if not batch.samples_output[i]:
+                continue  # mid-context chunk: logits unused
+            tok = int(tokens[i])
+            done = req.add_output_token(tok, float(logprobs[i]))
+            k = req.sampling_params.logprobs
+            if top_lp is not None and k:
+                vals, ids = top_lp
+                req.logprobs[-1] = {int(t): float(v) for v, t in
+                                    zip(vals[i][:k], ids[i][:k])}
+                req.logprobs[-1].setdefault(tok, float(logprobs[i]))
+            if not done and req.sampling_params.stop and \
+                    self.tokenizer is not None:
+                done = self._check_stop_strings(req)
+            if not self.enable_overlap:
+                req.host_token_override = tok
+            if done:
+                finished.append(req)
+            elif req.streaming and \
+                    req.num_output_tokens % self.stream_interval == 0:
+                self._stream(req)
+        for req in finished:
+            self._finish_request(req)
+
+    def _release_slot(self, req: LlmRequest) -> None:
+        self._free_slots.append(req.seq_slot)
+        req.seq_slot = None
+
+    def _check_stop_strings(self, req: LlmRequest) -> bool:
+        """Text-level stop sequences (SamplingParams.stop), over a bounded
+        decoded tail."""
+        sp = req.sampling_params
+        if req.num_output_tokens < sp.min_tokens:
+            return False
+        max_stop = max(len(s) for s in sp.stop)
+        tail_tokens = req.output_token_ids[-(max_stop + 8):]
+        try:
+            text = self.tokenizer.decode(tail_tokens,
+                                         skip_special_tokens=True)
+        except Exception:  # a tokenizer fault must not kill the loop
+            return False
+        for stop in sp.stop:
+            if text.find(stop) >= 0:
+                req.finish_by_reason(FinishReason.STOP_WORDS)
+                return True
+        return False
+
+    def _finish_request(self, req: LlmRequest):
+        self.kv.free_resources(req)
+        if req.seq_slot is not None:
+            self._release_slot(req)
+        if req in self._active:
+            self._active.remove(req)
+        with self._lock:
+            res = self._results.pop(req.request_id, None)
+        if res is not None:
+            res._on_finish()

@@ -1,0 +1,414 @@
+"""Paged KV-cache block manager with radix-tree prefix reuse.
+
+Host-side port of ``tensorrt_llm_tpu/runtime/kv_cache_manager.py``
+(``KVCacheManager``): integer page ids only, no device tensors. The
+secondary host/disk tiers and the VSWA dual-pool facade are not part of
+this package yet.
+
+Semantics:
+  * Block identity: ``BlockKey`` = (tokens_in_block, lora_task_id,
+    cache_salt); exact-key per block, longest-prefix over the chain.
+  * Reuse: finished sequences attach their chain to a radix tree;
+    new sequences claim the longest matched prefix (ref-counted).
+  * Eviction: priority-bucketed LRU over *leaf* blocks only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+from .request import LlmRequest
+
+DEFAULT_PRIORITY = 35
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockKey:
+    """Identity of one full KV block."""
+    tokens: Tuple[int, ...]
+    lora_task_id: Optional[int] = None
+    cache_salt: Optional[str] = None
+    extra_hashes: Tuple[int, ...] = ()
+
+
+def stable_block_hash(tokens, parent_hash: Optional[int] = None,
+                      lora_task_id: Optional[int] = None,
+                      cache_salt: Optional[str] = None) -> int:
+    """Chained content hash of one full KV block, stable across processes
+    (sha256 over parent hash + token ids)."""
+    import hashlib
+    import struct as _struct
+    h = hashlib.sha256()
+    if parent_hash is not None:
+        h.update(_struct.pack("<q", parent_hash))
+    if lora_task_id is not None:
+        h.update(b"L" + _struct.pack("<q", lora_task_id))
+    if cache_salt:
+        h.update(b"S" + cache_salt.encode())
+    h.update(_struct.pack(f"<{len(tokens)}i", *tokens))
+    return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+
+class RadixNode:
+    """Reuse-tree node holding (while cached) one primary block."""
+    __slots__ = ("key", "parent", "children", "block", "priority",
+                 "_lru_tick", "content_hash")
+
+    def __init__(self, key: Optional[BlockKey] = None,
+                 parent: Optional["RadixNode"] = None):
+        self.content_hash: Optional[int] = None
+        self.key = key
+        self.parent = parent
+        self.children: Dict[BlockKey, "RadixNode"] = {}
+        self.block: Optional["Block"] = None
+        self.priority = DEFAULT_PRIORITY
+        self._lru_tick = 0
+
+    @property
+    def is_leaf(self) -> bool:
+        return not self.children
+
+    def detach(self) -> None:
+        if self.parent is not None:
+            self.parent.children.pop(self.key, None)
+        self.parent = None
+        self.children = {}
+        if self.block is not None:
+            self.block.node = None
+            self.block = None
+
+
+class Block:
+    __slots__ = ("block_id", "ref_count", "node")
+
+    def __init__(self, block_id: int):
+        self.block_id = block_id
+        self.ref_count = 0
+        self.node: Optional[RadixNode] = None
+
+
+@dataclasses.dataclass
+class KvCacheStats:
+    max_blocks: int = 0
+    free_blocks: int = 0
+    used_blocks: int = 0
+    reusable_blocks: int = 0
+    alloc_total_blocks: int = 0
+    alloc_new_blocks: int = 0
+    reused_blocks: int = 0
+    missed_blocks: int = 0
+    cache_hit_rate: float = 0.0
+
+
+@dataclasses.dataclass
+class KVCacheEvent:
+    """Block stored/removed events for external routers."""
+    event_id: int
+    kind: str                   # "stored" | "removed"
+    block_hashes: List[int]
+
+
+class KVCacheManager:
+    """Paged KV allocator for one attention-window size."""
+
+    def __init__(self,
+                 num_blocks: int,
+                 tokens_per_block: int,
+                 max_seq_len: int = 1 << 30,
+                 enable_block_reuse: bool = True,
+                 event_buffer_max_size: int = 0):
+        if tokens_per_block <= 0:
+            raise ValueError("tokens_per_block must be positive")
+        self.num_blocks = num_blocks
+        self.tokens_per_block = tokens_per_block
+        self.max_seq_len = max_seq_len
+        self.enable_block_reuse = enable_block_reuse
+
+        self._blocks = [Block(i) for i in range(num_blocks)]
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))  # LIFO
+        # reusable tree-attached blocks with ref 0:
+        # priority -> OrderedDict[block_id, None] (LRU order)
+        self._reusable: Dict[int, OrderedDict] = {}
+        self._num_reusable = 0
+        self._root = RadixNode()
+        self._lru_clock = 0
+
+        self._seq_blocks: Dict[int, List[Block]] = {}
+        self._req_priority: Dict[int, int] = {}
+        self._reusable_prio: Dict[int, int] = {}  # block_id -> bucket used
+
+        self._stats = KvCacheStats(max_blocks=num_blocks)
+        self._events: List[KVCacheEvent] = []
+        self._event_buffer_max_size = event_buffer_max_size
+        self._event_id = 0
+
+    # ------------------------------------------------------------------ #
+    # Capacity queries (used by the capacity scheduler)
+    # ------------------------------------------------------------------ #
+    @property
+    def free_block_count(self) -> int:
+        return len(self._free) + self._num_reusable
+
+    def get_num_free_blocks(self) -> int:
+        return self.free_block_count
+
+    def blocks_for_tokens(self, num_tokens: int) -> int:
+        return -(-num_tokens // self.tokens_per_block)
+
+    @staticmethod
+    def _device_progress(request: LlmRequest) -> int:
+        """Allocation follows *device* progress, which runs ahead of the
+        host-accepted token count by up to the executor pipeline depth."""
+        return max(request.num_total_tokens, request.num_device_tokens)
+
+    def get_needed_blocks_one_step(self, request: LlmRequest) -> int:
+        have = len(self._seq_blocks.get(request.request_id, ()))
+        if request.is_context_init_state:
+            end = min(request.context_len,
+                      request.context_current_position
+                      + request.context_chunk_size)
+            return max(0, self.blocks_for_tokens(end) - have)
+        return max(0, self.blocks_for_tokens(
+            self._device_progress(request) + 1) - have)
+
+    def get_remaining_blocks_to_completion(self, request: LlmRequest) -> int:
+        """Worst-case blocks to finish the request (GuaranteedNoEvict)."""
+        total = request.prompt_len + request.max_new_tokens
+        have = len(self._seq_blocks.get(request.request_id, ()))
+        return max(0, self.blocks_for_tokens(total) - have)
+
+    # ------------------------------------------------------------------ #
+    # Allocation API
+    # ------------------------------------------------------------------ #
+    def add_sequence(self, request: LlmRequest,
+                     enable_reuse: Optional[bool] = None) -> int:
+        """Claim blocks for a new context-phase sequence with
+        longest-prefix reuse over full blocks (all but the final token —
+        its KV must be recomputed for logits)."""
+        rid = request.request_id
+        if rid in self._seq_blocks:
+            raise ValueError(f"request {rid} already has KV blocks")
+        chain: List[Block] = []
+        reused_tokens = 0
+        reuse = self.enable_block_reuse if enable_reuse is None \
+            else enable_reuse
+        if reuse:
+            node = self._root
+            matchable = request.context_len - 1
+            pos = 0
+            while matchable - pos >= self.tokens_per_block:
+                child = node.children.get(self._make_key(request, pos))
+                if child is None or child.block is None:
+                    break
+                chain.append(self._claim_node(child))
+                pos += self.tokens_per_block
+                node = child
+            reused_tokens = pos
+
+        total_needed = self.blocks_for_tokens(request.context_len)
+        new_needed = total_needed - len(chain)
+        if new_needed > self.free_block_count:
+            for b in chain:
+                self._release_block(b)
+            raise NoFreeBlocksError(
+                f"need {new_needed} blocks, have {self.free_block_count}")
+        for _ in range(new_needed):
+            chain.append(self._allocate_block())
+        self._seq_blocks[rid] = chain
+        request.kv_block_ids = [b.block_id for b in chain]
+        request.num_cached_tokens = reused_tokens
+        self._stats.reused_blocks += len(chain) - new_needed
+        self._stats.missed_blocks += new_needed
+        self._stats.alloc_new_blocks += new_needed
+        self._stats.alloc_total_blocks += len(chain)
+        return reused_tokens
+
+    def add_token(self, request: LlmRequest) -> None:
+        self._grow(request, self._device_progress(request) + 1)
+
+    def add_tokens(self, request: LlmRequest, num_tokens: int) -> None:
+        """Pre-allocate pages for a multi-step decode window (the device
+        writes KV for up to ``num_tokens`` positions before the host sees
+        the results)."""
+        self._grow(request, self._device_progress(request) + num_tokens)
+
+    def _grow(self, request: LlmRequest, total_tokens: int) -> None:
+        chain = self._seq_blocks[request.request_id]
+        needed = self.blocks_for_tokens(total_tokens)
+        while len(chain) < needed:
+            chain.append(self._allocate_block())
+            self._stats.alloc_new_blocks += 1
+            self._stats.alloc_total_blocks += 1
+        request.kv_block_ids = [b.block_id for b in chain]
+
+    def free_resources(self, request: LlmRequest,
+                       store_for_reuse: Optional[bool] = None) -> None:
+        """Release a sequence's blocks; optionally attach them to the
+        reuse tree keyed by the tokens they hold."""
+        rid = request.request_id
+        chain = self._seq_blocks.pop(rid, None)
+        if chain is None:
+            return
+        store = self.enable_block_reuse if store_for_reuse is None \
+            else store_for_reuse
+        tokens = request.all_token_ids
+        node: Optional[RadixNode] = self._root
+        stored_hashes: List[int] = []
+        phash: Optional[int] = None   # chained stable hash of the prefix
+        for i, block in enumerate(chain):
+            start = i * self.tokens_per_block
+            full = start + self.tokens_per_block <= len(tokens)
+            if store and full and node is not None and block.node is None:
+                blk_tokens = tuple(
+                    tokens[start:start + self.tokens_per_block])
+                key = BlockKey(
+                    tokens=blk_tokens,
+                    lora_task_id=request.lora_task_id,
+                    cache_salt=request.cache_salt)
+                phash = stable_block_hash(blk_tokens, phash,
+                                          request.lora_task_id,
+                                          request.cache_salt)
+                existing = node.children.get(key)
+                if existing is not None:
+                    # duplicate content: keep the existing node
+                    self._release_block(block)
+                    node = existing
+                    continue
+                child = RadixNode(key, node)
+                child.block = block
+                child.content_hash = phash
+                child.priority = self._req_priority.get(
+                    rid, DEFAULT_PRIORITY)
+                block.node = child
+                node.children[key] = child
+                stored_hashes.append(phash)
+                node = child
+                self._release_block(block)
+            elif block.node is not None:
+                node = block.node
+                phash = node.content_hash
+                self._release_block(block)
+            else:
+                node = None  # chain broken: deeper blocks cannot attach
+                self._release_block(block)
+        if stored_hashes:
+            self._push_event("stored", stored_hashes)
+        request.kv_block_ids = []
+
+    def update_priority(self, request: LlmRequest, priority: int) -> None:
+        """Retention priority: applied to tree nodes now and remembered
+        for blocks stored at free time."""
+        self._req_priority[request.request_id] = priority
+        for b in self._seq_blocks.get(request.request_id, ()):
+            if b.node is not None:
+                b.node.priority = priority
+
+    # ------------------------------------------------------------------ #
+    # Stats / events
+    # ------------------------------------------------------------------ #
+    def get_stats(self) -> KvCacheStats:
+        s = self._stats
+        s.free_blocks = self.free_block_count
+        s.used_blocks = self.num_blocks - s.free_blocks
+        s.reusable_blocks = self._num_reusable
+        total = s.reused_blocks + s.missed_blocks
+        s.cache_hit_rate = s.reused_blocks / total if total else 0.0
+        return s
+
+    def get_latest_events(self, clear: bool = True) -> List[KVCacheEvent]:
+        ev = self._events
+        if clear:
+            self._events = []
+        return ev
+
+    # ------------------------------------------------------------------ #
+    # Internals
+    # ------------------------------------------------------------------ #
+    def _make_key(self, request: LlmRequest, start: int) -> BlockKey:
+        return BlockKey(
+            tokens=tuple(request.context_token_ids[
+                start:start + self.tokens_per_block]),
+            lora_task_id=request.lora_task_id,
+            cache_salt=request.cache_salt)
+
+    def _claim_node(self, node: RadixNode) -> Block:
+        """Take a reference on a matched node's block."""
+        if node.block.ref_count == 0:
+            self._reusable_remove(node.block, node)
+        node.block.ref_count += 1
+        return node.block
+
+    def _release_block(self, block: Block) -> None:
+        block.ref_count -= 1
+        if block.ref_count < 0:
+            raise AssertionError(f"double free of block {block.block_id}")
+        if block.ref_count == 0:
+            if block.node is not None:
+                self._reusable_add(block, block.node)
+            else:
+                self._free.append(block.block_id)
+
+    def _allocate_block(self) -> Block:
+        if self._free:
+            block = self._blocks[self._free.pop()]
+        else:
+            block = self._evict_one()
+        block.ref_count = 1
+        return block
+
+    def _evict_one(self) -> Block:
+        """Evict the lowest-priority LRU *leaf* reusable block."""
+        for priority in sorted(self._reusable):
+            bucket = self._reusable[priority]
+            for block_id in bucket:
+                block = self._blocks[block_id]
+                node = block.node
+                if node is not None and node.is_leaf:
+                    self._reusable_remove(block, node)
+                    self._push_event("removed", [
+                        node.content_hash if node.content_hash
+                        is not None else hash(node.key)])
+                    parent = node.parent
+                    node.detach()
+                    self._maybe_prune(parent)
+                    block.node = None
+                    return block
+        raise NoFreeBlocksError("no free or evictable KV blocks")
+
+    def _maybe_prune(self, node: Optional[RadixNode]) -> None:
+        """Remove dataless interior nodes that became childless."""
+        while (node is not None and node is not self._root and node.is_leaf
+               and node.block is None):
+            parent = node.parent
+            node.detach()
+            node = parent
+
+    def _reusable_add(self, block: Block, node: RadixNode) -> None:
+        self._lru_clock += 1
+        node._lru_tick = self._lru_clock
+        self._reusable.setdefault(node.priority, OrderedDict())[
+            block.block_id] = None
+        self._reusable_prio[block.block_id] = node.priority
+        self._num_reusable += 1
+
+    def _reusable_remove(self, block: Block, node: RadixNode) -> None:
+        prio = self._reusable_prio.pop(block.block_id, node.priority)
+        bucket = self._reusable.get(prio)
+        if bucket is not None and block.block_id in bucket:
+            del bucket[block.block_id]
+            if not bucket:
+                del self._reusable[prio]
+            self._num_reusable -= 1
+
+    def _push_event(self, kind: str, hashes: List[int]) -> None:
+        if self._event_buffer_max_size <= 0:
+            return
+        self._event_id += 1
+        self._events.append(KVCacheEvent(self._event_id, kind, hashes))
+        if len(self._events) > self._event_buffer_max_size:
+            self._events.pop(0)
+
+
+class NoFreeBlocksError(RuntimeError):
+    pass

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card (skipped without one). float32 cases hold to 1e-4 (float32 sums in
+another order); bfloat16 cases to 2e-2 (bf16 inputs and output rounding,
+float32 accumulation in both)."""
+import numpy as np
+import pytest
+import torch
+
+from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+
+pytestmark = pytest.mark.cuda
+
+TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(q_lens, ctx_lens, qh, kvh, hd, ps, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    S = len(q_lens)
+    kv_lens = torch.tensor([c + q for c, q in zip(ctx_lens, q_lens)],
+                           dtype=torch.int32)
+    max_pages = max(int((kv_lens.max() + ps - 1) // ps), 1)
+    P = S * max_pages + 3
+    pool = torch.randn((P, ps, 2 * kvh, hd), generator=g)
+    pt = torch.randperm(S * max_pages, generator=g).int().reshape(S, -1)
+    q = torch.randn((int(sum(q_lens)), qh, hd), generator=g)
+    cu = torch.zeros(S + 1, dtype=torch.int32)
+    cu[1:] = torch.cumsum(torch.tensor(q_lens), 0)
+    return [t.to(device) for t in (q.to(dtype), pool.to(dtype), kv_lens,
+                                   pt, cu)]
+
+
+def _opts(name, qh, device):
+    if name == "window_softcap":
+        return {"sliding_window": 45, "soft_cap": 30.0}
+    if name == "sinks":
+        return {"sinks": torch.linspace(-1.0, 2.0, qh, device=device)}
+    if name == "alibi":
+        return {"alibi_slopes": tuple(2.0 ** (-8.0 * (i + 1) / qh)
+                                      for i in range(qh))}
+    return {}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_lens,qh,kvh,hd,ps,opt", [
+    ([7, 300, 1, 0, 65], 8, 2, 64, 16, None),
+    ([1024] * 64, 32, 4, 64, 32, None),             # serving decode shape
+    ([150, 33, 513], 16, 4, 128, 16, None),
+    ([100, 31], 8, 8, 64, 32, None),                # MHA
+    ([161, 5, 290], 8, 2, 64, 16, "window_softcap"),
+    ([17, 44, 3], 8, 2, 64, 16, "sinks"),
+    ([9, 380, 26], 8, 2, 128, 16, "alibi"),
+])
+def test_decode_kernel_matches_plain(cuda, dtype, kv_lens, qh, kvh, hd, ps,
+                                     opt):
+    S = len(kv_lens)
+    q, pool, _, pt, _ = _inputs([1] * S, [max(k - 1, 0) for k in kv_lens],
+                                qh, kvh, hd, ps, dtype, cuda)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5, **_opts(opt, qh, cuda))
+    before = dec.LAUNCHES
+    got = dec.paged_decode_attention(q, pool, kvl, pt, **kw)
+    torch.cuda.synchronize()
+    assert dec.LAUNCHES == before + 1
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_lens,ctx_lens,qh,kvh,hd,ps,opt", [
+    ([7, 30, 1, 0], [0, 0, 40, 0], 8, 4, 64, 16, None),
+    ([512] * 8, [0] * 8, 32, 4, 64, 32, None),      # serving prefill shape
+    ([1, 1, 300, 1, 70], [900, 20, 0, 31, 500], 32, 4, 64, 32, None),
+    ([200, 3], [0, 77], 16, 4, 128, 16, None),
+    ([129], [0], 8, 8, 64, 16, None),               # MHA: 64 tokens / CTA
+    ([250, 9], [10, 300], 8, 2, 64, 16, "window_softcap"),
+    ([9, 121, 1], [4, 0, 30], 8, 2, 64, 16, "sinks"),
+    ([9, 121, 1], [4, 0, 30], 8, 2, 128, 16, "alibi"),
+])
+def test_prefill_kernel_matches_plain(cuda, dtype, q_lens, ctx_lens, qh, kvh,
+                                      hd, ps, opt):
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx_lens, qh, kvh, hd, ps, dtype,
+                                   cuda, seed=1)
+    kw = dict(sm_scale=hd ** -0.5, **_opts(opt, qh, cuda))
+    before = pre.LAUNCHES
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                       max_q_len=max(q_lens), **kw)
+    torch.cuda.synchronize()
+    assert pre.LAUNCHES == before + 1
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+def test_quantized_pool_raises_on_cuda(cuda):
+    q, pool, kvl, pt, cu = _inputs([1, 1], [3, 4], 4, 2, 64, 16,
+                                   torch.bfloat16, cuda)
+    with pytest.raises(NotImplementedError):
+        dec.paged_decode_attention(q, pool, kvl, pt, sm_scale=0.125,
+                                   k_scale=0.05, v_scale=0.05)
+    with pytest.raises(NotImplementedError):
+        pre.ragged_prefill_attention(q, pool, kvl, pt, cu, sm_scale=0.125,
+                                     k_scale=0.05, v_scale=0.05)
+
+
+def test_llm_greedy_cuda_matches_cpu(cuda):
+    """The parity checkpoint in float32: the kernel path on the card and
+    the plain path on the CPU give the same greedy tokens — with more
+    requests than batch rows (queueing), a prompt longer than the token
+    budget (chunked prefill) and a repeated prompt (prefix reuse)."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    long = list(range(2, 120))
+    # the first `long` stops early, so the second one takes its batch row
+    # after it has stored its blocks in the reuse tree
+    prompts = [[5, 9, 23, 44, 17], long, [1] * 20, list(b"def f("), long]
+    n_out = [24, 8, 24, 24, 24]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        llm = LLM("tests/assets/tinycode-llama", device=dev, dtype="float32",
+                  skip_tokenizer_init=True, max_batch_size=4,
+                  max_input_len=128, max_seq_len=256, max_num_tokens=64,
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=4096))
+        try:
+            res = llm.generate(prompts, [SamplingParams(max_tokens=n, top_k=1)
+                                         for n in n_out])
+            outs[dev] = [r.outputs[0].token_ids for r in res]
+            assert llm.kv_cache_manager.get_stats().reused_blocks > 0
+        finally:
+            llm.shutdown()
+    assert outs["cuda"] == outs["cpu"]
+    assert [len(t) for t in outs["cuda"]] == n_out
