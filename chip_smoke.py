@@ -7,24 +7,35 @@ them or when the package is not beside it. Phases, each of which fails
 the run on error:
 
   1. device + build: the card's name and power limit, then every kernel
-     of the serving path built from csrc/ (one nvcc per source, in
+     of the serving paths built from csrc/ (one nvcc per source, in
      parallel), with the build time;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      same bf16 inputs (atol = rtol = 2e-2: bf16 output rounding, float32
      accumulation in both), at serving shapes; times (CUDA events, median
      of 30 launches; 10 for the plain version and the library call), the
-     bound from this run's bytes and FLOPs, and the time of
-     ``scaled_dot_product_attention`` over the gathered KV as a yardstick
-     where one call computes the same function;
-  3. parity: the float32 parity checkpoint (tests/assets/tinycode-llama)
-     through ``LLM.generate`` on the card and on the CPU (the plain path
-     the CPU tests hold to the JAX package) must give identical greedy
-     tokens;
+     bound from this run's bytes and FLOPs, and as a yardstick the time
+     of one PyTorch call that computes the same function where there is
+     one: ``scaled_dot_product_attention`` over the gathered KV for the
+     attention kernels, ``F.linear`` on the weight dequantized to bf16
+     beforehand (4x the int4 bytes) for the dequant-matmul kernel;
+  3. parity: through ``LLM.generate`` on the card and on the CPU (the
+     plain path the CPU tests hold to the JAX package), (a) the float32
+     parity checkpoint (tests/assets/tinycode-llama) must give identical
+     greedy tokens; (b) a seeded float32 checkpoint whose widths fit the
+     dequant-matmul kernel, served with W4A16_AWQ, must give identical
+     greedy tokens wherever the CPU run decides by more than 3e-2 in
+     log-probability (a random-weight model has near-ties, and the
+     kernel's float32 sums, taken in another order than the plain
+     version's, can round a projection output to the neighbouring bf16
+     value and resolve a near-tie the other way);
   4. serving: the TinyLlama-1.1B geometry (32 x 64 heads, 4 KV heads, 22
-     layers) with seeded random bf16 weights, 16 requests of 128 prompt
-     tokens and 64 output tokens through ``LLM.generate`` with default
-     arguments; the kernels' launch counters are zeroed right before and
-     read right after, and every request must return 64 tokens.
+     layers) with seeded random weights, 16 requests of 128 prompt tokens
+     and 64 output tokens through ``LLM.generate`` with default
+     arguments, once in bf16 and once with
+     ``QuantConfig(quant_algo=W4A16_AWQ, group_size=128)``; the kernels'
+     launch counters are zeroed right before each run and read right
+     after, every request must return 64 tokens, and every kernel of the
+     run's path must have launched.
 
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results and ``{"ok": true, "device": {...}}``.
@@ -33,12 +44,15 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 TOL = 2e-2
+NEAR_TIE = 3e-2               # log-probability margin below which the
+                              # quantized cuda/cpu runs may part ways
 PAGE = 32                     # the serving path's default tokens_per_block
 
 
@@ -197,7 +211,65 @@ def kernel_phase():
             library_ms=library_ms, library_max_abs_err=lib_err,
             bytes=io_bytes, flops=flops, **_bound(io_bytes, flops))
         emit({"phase": "kernels", "case": name, **results[name]})
+    quant_kernel_phase(results)
     return results
+
+
+def quant_kernel_phase(results: dict) -> None:
+    """K3: the dequant-matmul kernel at the serving shapes of the
+    TinyLlama-1.1B geometry (M = 64 decode rows; qkv, o, gate_up, down),
+    one row, 128 rows, the int8 body at the MXFP4 and NVFP4 group sizes,
+    and an N that is no multiple of the 32-column tile."""
+    import torch
+    import torch.nn.functional as F
+    from tensorrt_llm_tpu_torch.ops import quant as Q
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
+
+    one = torch.empty(1, device="cuda")
+    emit({"phase": "kernels", "case": "launch_floor",
+          "note": "an empty elementwise launch, timed like every kernel",
+          "ms": time_ms(lambda: one.fill_(1.0), 30)})
+    for name, M, K, N, G, bits in [
+            ("qmm_qkv", 64, 2048, 2560, 128, 4),
+            ("qmm_o", 64, 2048, 2048, 128, 4),
+            ("qmm_gate_up", 64, 2048, 11264, 128, 4),
+            ("qmm_down", 64, 5632, 2048, 128, 4),
+            ("qmm_rows1", 1, 2048, 2560, 128, 4),
+            ("qmm_rows128", 128, 2048, 2560, 128, 4),
+            ("qmm_int8_group32", 64, 2048, 2560, 32, 8),
+            ("qmm_int8_group16", 64, 2048, 2560, 16, 8),
+            ("qmm_ragged_n257", 64, 2048, 257, 128, 4)]:
+        g = torch.Generator(device="cuda").manual_seed(len(name) + M)
+        x = torch.randn((M, K), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn((K, N), generator=g, device="cuda") * 0.02
+        q, s, _ = Q.quantize_weight_groupwise(w, group_size=G, bits=bits)
+        wd = Q.dequantize_weight(q, s, group_size=G).t().contiguous()
+        if bits == 4:
+            q = Q.pack_int4(q)
+        del w
+        kw = dict(group_size=G, bits=bits)
+        got = qmm.groupwise_dequant_matmul(x, q, s, **kw)
+        ref = qmm.groupwise_dequant_matmul_plain(x, q, s, **kw)
+        lib = F.linear(x, wd)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.allclose(got.float(), ref.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"{name}: kernel != plain (max {err})")
+        lib_err = (lib.float() - ref.float()).abs().max().item()
+        ms = time_ms(lambda: qmm.groupwise_dequant_matmul(x, q, s, **kw), 30)
+        plain_ms = time_ms(
+            lambda: qmm.groupwise_dequant_matmul_plain(x, q, s, **kw), 10)
+        library_ms = time_ms(lambda: F.linear(x, wd), 10)
+        io_bytes = K * N * bits // 8 + s.numel() * 4 + x.numel() * 2 \
+            + M * N * 2
+        flops = 2 * M * K * N
+        results[name] = dict(
+            shape=dict(M=M, K=K, N=N, group=G, bits=bits),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_max_abs_err=lib_err,
+            bytes=io_bytes, flops=flops, **_bound(io_bytes, flops))
+        emit({"phase": "kernels", "case": name, **results[name]})
 
 
 def _bound(io_bytes: int, flops: int) -> dict:
@@ -233,22 +305,120 @@ def parity_phase(repo: Path):
           "identical": True})
 
 
-def serving_phase():
+def quant_parity_phase():
+    """W4A16_AWQ on a seeded float32 checkpoint whose widths fit the
+    dequant-matmul kernel (hidden 256 = 4 x 64 heads, intermediate 512,
+    group 64), through ``LLM.generate`` on the card (the kernel) and on
+    the CPU (its plain version)."""
+    import torch
+    from safetensors.torch import save_file
+    from transformers import LlamaConfig
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, QuantAlgo,
+                                        QuantConfig, SamplingParams)
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=4, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256,
+                      tie_word_embeddings=False)
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    gen = torch.Generator().manual_seed(1)
+
+    def mat(*shape):
+        return torch.randn(shape, generator=gen) * 0.05
+
+    sd = {"model.embed_tokens.weight": mat(V, H), "lm_head.weight": mat(V, H),
+          "model.norm.weight": torch.ones(H)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = torch.ones(H)
+        sd[p + "post_attention_layernorm.weight"] = torch.ones(H)
+        for n, shape in [("self_attn.q_proj", (H, H)),
+                         ("self_attn.k_proj", (H // 2, H)),
+                         ("self_attn.v_proj", (H // 2, H)),
+                         ("self_attn.o_proj", (H, H)),
+                         ("mlp.gate_proj", (I, H)), ("mlp.up_proj", (I, H)),
+                         ("mlp.down_proj", (H, I))]:
+            sd[p + n + ".weight"] = mat(*shape)
+    prompts = [list(range(3, 40)), [7, 300, 41, 5, 99, 250],
+               list(range(500, 470, -1))]
+    n_out = 24
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.save_pretrained(tmp)
+        save_file(sd, str(Path(tmp) / "model.safetensors"))
+        for dev in ("cuda", "cpu"):
+            qmm.LAUNCHES = 0
+            llm = LLM(tmp, device=dev, dtype="float32",
+                      skip_tokenizer_init=True, max_batch_size=8,
+                      max_input_len=128, max_seq_len=256, max_num_tokens=128,
+                      quant_config=QuantConfig(
+                          quant_algo=QuantAlgo.W4A16_AWQ, group_size=64),
+                      kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=4096))
+            try:
+                outs = llm.generate(prompts, SamplingParams(
+                    max_tokens=n_out, top_k=1, logprobs=2))
+            finally:
+                llm.shutdown()
+            runs[dev] = [(o.outputs[0].token_ids, o.outputs[0].logprobs)
+                         for o in outs]
+            if (qmm.LAUNCHES > 0) != (dev == "cuda"):
+                raise AssertionError(
+                    f"{dev}: {qmm.LAUNCHES} dequant-matmul launches")
+    agreed = near_ties = 0
+    for (ref, lps), (got, _) in zip(runs["cpu"], runs["cuda"]):
+        if len(ref) != n_out or len(got) != n_out:
+            raise AssertionError("quantized parity run returned short "
+                                 "outputs")
+        for a, b, lp in zip(ref, got, lps):
+            if a != b:
+                top = sorted(lp.values(), reverse=True)
+                if top[0] - top[1] > NEAR_TIE:
+                    raise AssertionError(
+                        f"cuda/cpu greedy tokens differ where the cpu run "
+                        f"decides by {top[0] - top[1]:.4f}: {ref} vs {got}")
+                near_ties += 1
+                break
+            agreed += 1
+    total = n_out * len(prompts)
+    if agreed < total // 2:
+        raise AssertionError(f"only {agreed} of {total} tokens compared "
+                             "equal before a near-tie")
+    emit({"phase": "parity_quantized", "quant_algo": "W4A16_AWQ",
+          "group_size": 64, "prompts": len(prompts), "tokens_each": n_out,
+          "tokens_equal": agreed, "parted_at_near_tie": near_ties,
+          "near_tie_logprob_margin": NEAR_TIE,
+          "identical": near_ties == 0})
+
+
+def serving_phase(quant_algo=None):
+    """One serving run; ``quant_algo`` None serves bf16 weights, else a
+    ``QuantAlgo`` name with group size 128."""
+    import gc
+
     import torch
     from transformers import LlamaConfig
-    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch import (LLM, QuantAlgo, QuantConfig,
+                                        SamplingParams)
     from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
     from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
 
     cfg = LlamaConfig(vocab_size=32000, hidden_size=2048,
                       intermediate_size=5632, num_hidden_layers=22,
                       num_attention_heads=32, num_key_value_heads=4,
                       max_position_embeddings=4096)
     n_req, isl, osl = 16, 128, 64
+    gc.collect()
     torch.cuda.empty_cache()       # size the KV pool from what is free now
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    llm = LLM(cfg, dtype="bfloat16")
+    llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
+        quant_algo=QuantAlgo[quant_algo or "NO_QUANT"], group_size=128))
     build_s = time.monotonic() - t0
+    weights_bytes = sum(t.numel() * t.element_size()
+                        for t in _tensors(llm.engine.params))
     gen = torch.Generator().manual_seed(0)
     prompts = torch.randint(0, cfg.vocab_size, (n_req, isl),
                             generator=gen).tolist()
@@ -258,27 +428,38 @@ def serving_phase():
         torch.cuda.synchronize()
         dec.LAUNCHES = 0
         pre.LAUNCHES = 0
+        qmm.LAUNCHES = 0
         t0 = time.monotonic()
         outs = llm.generate(prompts, sp)
         wall = time.monotonic() - t0
         launches = {"paged_decode_attention": dec.LAUNCHES,
-                    "ragged_prefill_attention": pre.LAUNCHES}
+                    "ragged_prefill_attention": pre.LAUNCHES,
+                    "groupwise_dequant_matmul": qmm.LAUNCHES}
     finally:
         llm.shutdown()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    del llm
     for o in outs:
         toks = o.outputs[0].token_ids
         if len(toks) != osl or not all(0 <= t < cfg.vocab_size
                                        for t in toks):
             raise AssertionError(f"request {o.request_id}: bad output "
                                  f"({len(toks)} tokens)")
-    if min(launches.values()) <= 0:
+    on_path = [k for k in launches
+               if quant_algo or k != "groupwise_dequant_matmul"]
+    if min(launches[k] for k in on_path) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
+    if not quant_algo and launches["groupwise_dequant_matmul"]:
+        raise AssertionError("the bf16 run launched the dequant-matmul "
+                             f"kernel: {launches}")
     perf = [o._result.request.perf for o in outs]
     ttft = [p.first_token_time - p.arrival_time for p in perf]
     tpot = [(p.last_token_time - p.first_token_time) / (osl - 1)
             for p in perf]
-    res = dict(requests=n_req, isl=isl, osl=osl, layers=22,
-               engine_build_s=build_s, wall_s=wall,
+    res = dict(quant_algo=quant_algo or "NO_QUANT", requests=n_req,
+               isl=isl, osl=osl, layers=22,
+               engine_build_s=build_s, weights_bytes=weights_bytes,
+               peak_allocated_bytes=peak_bytes, wall_s=wall,
                output_tok_per_s=n_req * osl / wall,
                ttft_ms_median=statistics.median(ttft) * 1e3,
                ttft_ms_max=max(ttft) * 1e3,
@@ -288,6 +469,22 @@ def serving_phase():
                prefill_steps=launches["ragged_prefill_attention"] // 22)
     emit({"phase": "serving", **res})
     return res
+
+
+def _tensors(tree):
+    """Every distinct tensor of a parameter tree."""
+    import torch
+    seen = {}
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, torch.Tensor):
+            seen[id(node)] = node
+        elif isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+    return seen.values()
 
 
 def main() -> int:
@@ -318,21 +515,27 @@ def main() -> int:
 
     kern = kernel_phase()
     parity_phase(here)
+    quant_parity_phase()
     serving = serving_phase()
+    serving_q = serving_phase("W4A16_AWQ")
 
     kernels = []
-    for name, case, group, src, replaces in [
+    for name, case, group, src, replaces, run in [
             ("paged_decode_attention", "decode_hd64", ("decode",),
              "tensorrt_llm_tpu_torch/csrc/decode_attention.cu",
-             "tensorrt_llm_tpu/ops/pallas/decode_attention.py:164"),
+             "tensorrt_llm_tpu/ops/pallas/decode_attention.py:164", serving),
             ("ragged_prefill_attention", "prefill_hd64",
              ("prefill", "mixed"),
              "tensorrt_llm_tpu_torch/csrc/prefill_attention.cu",
-             "tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250")]:
+             "tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250", serving),
+            ("groupwise_dequant_matmul", "qmm_gate_up", ("qmm",),
+             "tensorrt_llm_tpu_torch/csrc/quant_matmul.cu",
+             "tensorrt_llm_tpu/ops/pallas/quant_matmul.py:105", serving_q)]:
         r = kern[case]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=serving["launches"][name],
+            launches=run["launches"][name],
+            launches_in=run["quant_algo"],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -6,9 +6,10 @@ NVIDIA Hopper (csrc/*.cu) and built with nvcc at first use. It imports
 neither JAX nor the JAX package.
 """
 from .llmapi.llm import LLM, RequestOutput
-from .llmapi.llm_args import KvCacheConfig, LlmArgs
+from .llmapi.llm_args import KvCacheConfig, LlmArgs, QuantConfig
 from .models.convert import from_jax_params
+from .quantization.mode import QuantAlgo
 from .sampling_params import SamplingParams
 
-__all__ = ["LLM", "RequestOutput", "LlmArgs", "KvCacheConfig",
-           "SamplingParams", "from_jax_params"]
+__all__ = ["LLM", "RequestOutput", "LlmArgs", "KvCacheConfig", "QuantConfig",
+           "QuantAlgo", "SamplingParams", "from_jax_params"]

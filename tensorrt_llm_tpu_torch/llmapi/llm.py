@@ -5,8 +5,11 @@ Port of ``tensorrt_llm_tpu/llmapi/llm.py`` (``LLM.generate`` /
 model, build engine + executor, submit requests as futures.
 
 ``model`` is a checkpoint directory (``config.json`` +
-``model.safetensors``) or a bare ``transformers`` config, which serves
-random weights like ``load_format="dummy"``. The engine runs on the CUDA
+``model.safetensors``; an AutoAWQ or AutoGPTQ 4-bit checkpoint is served
+from its own integers and scales) or a bare ``transformers`` config,
+which serves random weights like ``load_format="dummy"``.
+``quant_config=QuantConfig(quant_algo=...)`` quantizes float weights at
+load. The engine runs on the CUDA
 device unless ``device="cpu"`` is passed; without CUDA and without that
 argument, construction raises.
 """
@@ -20,6 +23,10 @@ import torch
 
 from ..logger import logger
 from ..models import ModelConfig, get_model_class
+from ..quantization.checkpoint import (PrequantizedWeight,
+                                       convert_state_dict,
+                                       detect_prequantized)
+from ..quantization.mode import QuantAlgo
 from ..runtime.executor import GenerationResult, PyExecutor
 from ..runtime.kv_cache_manager import KVCacheManager
 from ..runtime.model_engine import ModelEngine
@@ -110,7 +117,8 @@ class LLM:
         hf_config, state_dict = self._load_checkpoint()
         model_config = ModelConfig(hf_config=hf_config,
                                    dtype=_DTYPES[self.args.dtype],
-                                   device=self.device)
+                                   device=self.device,
+                                   quant_config=self.args.quant_config)
         self.model = get_model_class(hf_config.model_type)(model_config)
         if state_dict is None:
             self._params = self.model.init_params(seed=0)
@@ -142,6 +150,25 @@ class LLM:
         sd = {}
         for f in files:
             sd.update(load_file(str(f)))
+        # a prequantized checkpoint (AutoAWQ / AutoGPTQ) brings its own
+        # recipe: adopt it and unpack its integer weights
+        pq = detect_prequantized(path)
+        if pq is not None:
+            qc = self.args.quant_config
+            if qc.quant_algo not in (QuantAlgo.NO_QUANT, pq.quant_algo):
+                logger.warning(
+                    "quant_config %s overridden by the checkpoint's own %s",
+                    qc.quant_algo.value, pq.quant_algo.value)
+            qc.quant_algo = pq.quant_algo
+            qc.group_size = pq.group_size
+            qc.exclude_modules = sorted(set(qc.exclude_modules) |
+                                        set(pq.exclude_modules))
+            sd = convert_state_dict(sd, pq)
+            logger.info("ingested prequantized checkpoint: %s group=%d "
+                        "(%d quantized tensors)", pq.quant_algo.value,
+                        pq.group_size,
+                        sum(isinstance(v, PrequantizedWeight)
+                            for v in sd.values()))
         return hf_config, sd
 
     def _build_executor(self):

@@ -1,7 +1,7 @@
 """Configuration tree for the LLM API.
 
 Port of the subset of ``tensorrt_llm_tpu/llmapi/llm_args.py`` that the
-dense-Llama serving path reads. Unknown keys are rejected (so an option
+dense-Llama serving path reads, weight-only quantization included. Unknown keys are rejected (so an option
 this package does not implement fails loudly instead of being ignored).
 """
 from __future__ import annotations
@@ -10,6 +10,7 @@ from typing import List, Literal, Optional
 
 from pydantic import BaseModel, Field, field_validator, model_validator
 
+from ..ops.linear import check_ported
 from ..quantization.mode import KvCacheQuantAlgo, QuantAlgo
 from ..runtime.scheduler import CapacitySchedulerPolicy, ContextChunkingPolicy
 
@@ -63,8 +64,13 @@ class BucketingConfig(StrictBaseModel):
 
 
 class QuantConfig(StrictBaseModel):
+    """Weight quantization: the algorithm, the group size of the
+    group-wise ones (NVFP4 and MXFP4 fix their own), and name fragments of
+    the projections that stay unquantized."""
     quant_algo: QuantAlgo = QuantAlgo.NO_QUANT
     kv_cache_quant_algo: KvCacheQuantAlgo = KvCacheQuantAlgo.NO_QUANT
+    group_size: int = 128
+    exclude_modules: List[str] = Field(default_factory=lambda: ["lm_head"])
 
 
 class LlmArgs(StrictBaseModel):
@@ -100,9 +106,10 @@ class LlmArgs(StrictBaseModel):
     def _fill_defaults(self):
         if self.max_seq_len is None:
             object.__setattr__(self, "max_seq_len", self.max_input_len + 2048)
-        if self.quant_config.quant_algo != QuantAlgo.NO_QUANT or \
-                self.quant_config.kv_cache_quant_algo != \
-                KvCacheQuantAlgo.NO_QUANT:
+        check_ported(self.quant_config.quant_algo)
+        kv_algo = self.quant_config.kv_cache_quant_algo
+        if kv_algo != KvCacheQuantAlgo.NO_QUANT:
             raise NotImplementedError(
-                "quantized weights / KV are not supported by this package")
+                f"kv_cache_quant_algo {kv_algo.value}: a quantized KV "
+                "cache is not supported by this package yet")
         return self

@@ -1,10 +1,13 @@
 """Parameter conversion from the JAX package's Llama layout.
 
 ``from_jax_params`` takes the JAX ``LlamaForCausalLM`` parameter tree as
-numpy arrays — stacked layers with a leading L axis, [in, out] matrices
-under ``{"weight": ...}`` — and returns this package's parameters
-([out, in] matrices, fused qkv and gate_up, a list of per-layer dicts), so
-that both packages compute the same function from the same numbers.
+numpy arrays — stacked layers with a leading L axis, one dict per
+projection — and returns this package's parameters (a list of per-layer
+dicts, fused qkv and gate_up), so that both packages compute the same
+function from the same numbers. An unquantized projection
+(``{"weight": [in, out]}``) becomes ``{"weight": [out, in]}``; a
+weight-only quantized one keeps its [K, N] integers (packed int4
+included), ``weight_scale``, ``weight_zero`` and ``bias`` as they are.
 """
 from __future__ import annotations
 
@@ -13,34 +16,57 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..ops.linear import fuse_params
+
 
 def from_jax_params(params_np: Dict[str, Any], device="cpu",
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """JAX Llama params (numpy) -> port params (tensors on ``device``).
-    ``dtype`` defaults to the type of the arrays."""
+    ``dtype`` (default: the arrays' own) applies to the float weights,
+    norms and biases; integers and float32 scales keep their types."""
 
-    def t(a) -> torch.Tensor:
+    def t(a, dt=dtype) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.kind not in "fiub":    # ml_dtypes int4: widen to int8
+            a = a.astype(np.int8)
         out = torch.from_numpy(np.array(a))          # a writable copy
-        return out.to(device=device, dtype=dtype or out.dtype)
+        return out.to(device=device, dtype=dt or out.dtype)
 
-    def w(a) -> torch.Tensor:            # [in, out] -> [out, in]
-        return t(np.asarray(a).T)
+    def proj(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """One projection ({name: array}, layer axis already indexed)."""
+        if "weight_scale" not in p:
+            out = {"weight": t(np.asarray(p["weight"]).T)}
+        else:
+            out = {k: t(p[k], None) for k in p if k != "bias"}
+        if "bias" in p:
+            out["bias"] = t(p["bias"])
+        return out
+
+    def fused(parts):
+        """q, k, v (or gate, up) as one projection when they are of one
+        kind, else None."""
+        kinds = {frozenset(p) for p in parts}
+        if len(kinds) != 1:
+            return None
+        return fuse_params(
+            parts, weight_dim=-1 if "weight_scale" in parts[0] else 0)
 
     lay = params_np["layers"]
     num_layers = lay["input_norm"].shape[0]
     layers = []
     for i in range(num_layers):
-        layers.append({
-            "input_norm": t(lay["input_norm"][i]),
-            "post_norm": t(lay["post_norm"][i]),
-            "qkv": {"weight": torch.cat([w(lay[n]["weight"][i])
-                                         for n in ("q", "k", "v")])},
-            "o": {"weight": w(lay["o"]["weight"][i])},
-            "gate_up": {"weight": torch.cat([w(lay[n]["weight"][i])
-                                             for n in ("gate", "up")])},
-            "down": {"weight": w(lay["down"]["weight"][i])},
-        })
+        def at(name):
+            return proj({k: v[i] for k, v in lay[name].items()})
+        layer = {"input_norm": t(lay["input_norm"][i]),
+                 "post_norm": t(lay["post_norm"][i]),
+                 "o": at("o"), "down": at("down"),
+                 "gate_up": fused([at("gate"), at("up")])}
+        qkv = [at("q"), at("k"), at("v")]
+        one = fused(qkv)
+        layer.update({"qkv": one} if one is not None
+                     else zip(("q", "k", "v"), qkv))
+        layers.append(layer)
     return {"embed": t(params_np["embed"]["weight"]),
             "layers": layers,
             "final_norm": t(params_np["final_norm"]),
-            "lm_head": {"weight": w(params_np["lm_head"]["weight"])}}
+            "lm_head": proj(params_np["lm_head"])}

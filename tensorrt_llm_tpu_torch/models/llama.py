@@ -7,16 +7,22 @@ parameter dicts. The KV pool stays one flat all-layers pool in which
 layer l's pages sit at ``l*P + i`` (ops/attention.py layer_metadata), and
 each layer's KV append updates it in place.
 
-Parameters (weights in PyTorch's [out, in] layout):
-  embed [V, H]; final_norm [H]; lm_head {"weight": [V, H]} (the embed
-  tensor itself when embeddings are tied); layers[l] = {input_norm,
-  post_norm, qkv {"weight": [(nq+2nkv)*hd, H]}, o, gate_up
-  {"weight": [2I, H]}, down}.
+Parameters:
+  embed [V, H]; final_norm [H]; lm_head (the embed tensor itself when
+  embeddings are tied and lm_head is unquantized); layers[l] =
+  {input_norm, post_norm, qkv, o, gate_up, down}. Each projection is the
+  parameter dict of its linear method (ops/linear.py): unquantized
+  {"weight": [out, in]}, e.g. qkv [(nq+2nkv)*hd, H] and gate_up [2I, H];
+  weight-only quantized {"weight": int8 [K, N] or packed [K/2, N],
+  "weight_scale", optionally "weight_zero"}. Methods are chosen per
+  projection name (q_proj, k_proj, o_proj, mlp, lm_head) so that
+  ``exclude_modules`` is honoured; when q and k/v differ, a layer holds
+  "q", "k", "v" apart instead of "qkv".
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +31,10 @@ from ..ops.attention import AttentionMetadata, layer_metadata
 from ..ops.linear import LinearMethod
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig, rope_cos_sin
-from .modeling_utils import (AttentionSpec, DecoderModelForCausalLM,
-                             ModelConfig, attention_block, register_model)
+from .modeling_utils import (AttentionMethods, AttentionSpec,
+                             DecoderModelForCausalLM, ModelConfig,
+                             attention_block, fuse_projections, hf_transpose,
+                             quantize_linear, register_model)
 
 
 @register_model("llama", "mistral", "tinyllama")
@@ -49,15 +57,53 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             rope=RopeConfig.from_hf_config(hf, self.head_dim),
             sliding_window=getattr(hf, "sliding_window", None),
             is_neox=True)
-        self.linear = LinearMethod()
+        # per-projection linear methods (exclude_modules goes by name)
+        self.m_q = self._method("q_proj")
+        self.m_kv = self._method("k_proj")
+        self.m_o = self._method("o_proj")
+        self.m_mlp = self._method("mlp")
+        self.m_lm_head = self._method("lm_head")
+        self.attn_methods = AttentionMethods(self.m_q, self.m_kv, self.m_o)
 
     # ------------------------------------------------------------------ #
     # Parameters
     # ------------------------------------------------------------------ #
+    def _layer(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
+               weight: Callable[[str], Any],
+               bias: Callable[[str], Any] = lambda name: None
+               ) -> Dict[str, Any]:
+        """One layer's parameters. ``weight(name)`` gives projection
+        ``name`` (q, k, v, o, gate, up, down) as [out, in] floats or a
+        ``PrequantizedWeight``; each goes through its method on the
+        target device, one at a time."""
+        def lin(method: LinearMethod, name: str):
+            return quantize_linear(method, hf_transpose(weight(name)),
+                                   bias=bias(name), dtype=self.dtype,
+                                   device=self.device)
+
+        layer = {"input_norm": input_norm, "post_norm": post_norm}
+        layer.update(fuse_projections(
+            "qkv", ("q", "k", "v"), (self.m_q, self.m_kv, self.m_kv),
+            [lin(self.m_q, "q"), lin(self.m_kv, "k"), lin(self.m_kv, "v")]))
+        layer["o"] = lin(self.m_o, "o")
+        layer["gate_up"] = self.m_mlp.fuse([lin(self.m_mlp, "gate"),
+                                            lin(self.m_mlp, "up")])
+        layer["down"] = lin(self.m_mlp, "down")
+        return layer
+
+    def _lm_head(self, embed: torch.Tensor, weight) -> Dict[str, Any]:
+        """``weight``: [V, H] floats, a ``PrequantizedWeight``, or None
+        for tied embeddings."""
+        if type(self.m_lm_head) is LinearMethod and weight is None:
+            return {"weight": embed}              # share the tensor
+        return quantize_linear(
+            self.m_lm_head, hf_transpose(embed if weight is None else weight),
+            dtype=self.dtype, device=self.device)
+
     def init_params(self, seed: int = 0) -> Dict[str, Any]:
         """Random weights (load_format="dummy"): normal(0, 0.02) matrices
         and unit norms, drawn on the target device from a seeded
-        ``torch.Generator``."""
+        ``torch.Generator``, then quantized by each projection's method."""
         H, V, I = self.hidden_size, self.vocab_size, self.intermediate_size
         nq, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         dev, dt = self.device, self.dtype
@@ -71,56 +117,53 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         def ones():
             return torch.ones(H, device=dev, dtype=dt)
 
-        layers = [{
-            "input_norm": ones(), "post_norm": ones(),
-            "qkv": {"weight": mat((nq + 2 * nkv) * hd, H)},
-            "o": {"weight": mat(H, nq * hd)},
-            "gate_up": {"weight": mat(2 * I, H)},
-            "down": {"weight": mat(H, I)},
-        } for _ in range(self.num_layers)]
+        layers = []
+        for _ in range(self.num_layers):
+            q, k, v = mat((nq + 2 * nkv) * hd, H).split(
+                [nq * hd, nkv * hd, nkv * hd])
+            w = {"q": q, "k": k, "v": v, "o": mat(H, nq * hd)}
+            w["gate"], w["up"] = mat(2 * I, H).split(I)
+            w["down"] = mat(H, I)
+            layers.append(self._layer(ones(), ones(), w.pop))
         embed = mat(V, H)
-        lm_head = embed if self.tie_embeddings else mat(V, H)
+        lm_head = None if self.tie_embeddings else mat(V, H)
         return {"embed": embed, "layers": layers, "final_norm": ones(),
-                "lm_head": {"weight": lm_head}}
+                "lm_head": self._lm_head(embed, lm_head)}
 
     def load_hf_state_dict(self, sd: Mapping[str, Any]) -> Dict[str, Any]:
-        """HF checkpoint names -> parameter dict (tensors or numpy arrays
-        in, tensors of the model's dtype on its device out)."""
+        """HF checkpoint names -> parameter dict (tensors, numpy arrays
+        or ``PrequantizedWeight``s in; tensors on the model's device out,
+        floats in its dtype)."""
         dev, dt = self.device, self.dtype
+        hf_names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                    "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+                    "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+                    "down": "mlp.down_proj"}
 
         def t(name):
             return torch.as_tensor(sd[name]).to(device=dev, dtype=dt)
 
-        def cat(*names):
-            return torch.cat([t(n) for n in names], dim=0).contiguous()
-
         layers = []
         for i in range(self.num_layers):
             p = f"model.layers.{i}."
-            layers.append({
-                "input_norm": t(p + "input_layernorm.weight"),
-                "post_norm": t(p + "post_attention_layernorm.weight"),
-                "qkv": {"weight": cat(p + "self_attn.q_proj.weight",
-                                      p + "self_attn.k_proj.weight",
-                                      p + "self_attn.v_proj.weight")},
-                "o": {"weight": t(p + "self_attn.o_proj.weight")},
-                "gate_up": {"weight": cat(p + "mlp.gate_proj.weight",
-                                          p + "mlp.up_proj.weight")},
-                "down": {"weight": t(p + "mlp.down_proj.weight")},
-            })
+            layers.append(self._layer(
+                t(p + "input_layernorm.weight"),
+                t(p + "post_attention_layernorm.weight"),
+                lambda n: sd[p + hf_names[n] + ".weight"],
+                lambda n: sd.get(p + hf_names[n] + ".bias")))
         embed = t("model.embed_tokens.weight")
-        lm_head = embed if self.tie_embeddings or "lm_head.weight" not in sd \
-            else t("lm_head.weight")
+        lm_head = None if self.tie_embeddings or "lm_head.weight" not in sd \
+            else sd["lm_head.weight"]
         return {"embed": embed, "layers": layers,
                 "final_norm": t("model.norm.weight"),
-                "lm_head": {"weight": lm_head}}
+                "lm_head": self._lm_head(embed, lm_head)}
 
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages: torch.Tensor, metadata: AttentionMetadata):
-        spec, eps, lin = self.attn_spec, self.rms_eps, self.linear
+        spec, eps, mlp = self.attn_spec, self.rms_eps, self.m_mlp
         inter = self.intermediate_size
         h = params["embed"][token_ids].to(self.dtype)
         cos_sin = rope_cos_sin(spec.rope, metadata.positions)
@@ -129,13 +172,13 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         for li, layer in enumerate(params["layers"]):
             md_l = layer_metadata(metadata, li, P, ps, L)
             x = rms_norm(h, layer["input_norm"], eps)
-            h = h + attention_block(layer, x, kv_flat, md_l, spec, lin,
-                                    rope_cos_sin=cos_sin)
+            h = h + attention_block(layer, x, kv_flat, md_l, spec,
+                                    self.attn_methods, rope_cos_sin=cos_sin)
             normed = rms_norm(h, layer["post_norm"], eps)
-            gate, up = lin.apply(layer["gate_up"], normed).split(inter, -1)
+            gate, up = mlp.apply(layer["gate_up"], normed).split(inter, -1)
             act = F.silu(gate.float()).to(self.dtype) * up
-            h = h + lin.apply(layer["down"], act)
+            h = h + mlp.apply(layer["down"], act)
         # RMSNorm is row-wise: gather the logits rows first, then norm
         last = rms_norm(h[metadata.logits_indices], params["final_norm"], eps)
-        logits = lin.apply(params["lm_head"], last).float()
+        logits = self.m_lm_head.apply(params["lm_head"], last).float()
         return logits, kv_pages

@@ -10,19 +10,24 @@ holds only static config. The KV pool is owned by the engine and passed
 in: ``forward(params, token_ids[T], kv_pages[L, P, ps, 2kvh, hd],
 metadata) -> (logits[S, V], kv_pages)``, where the pool is updated in
 place. Q, K and V come from one fused projection (and the MLP's gate and
-up from another): one matmul launch each instead of three and two.
+up from another) whenever they share a linear method: one matmul launch
+each instead of three and two. Projections whose methods differ (an
+``exclude_modules`` entry that names only some of them) stay apart.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import rope as rope_ops
 from ..ops.attention import (AttentionMetadata, ragged_paged_attention,
                              write_kv)
-from ..ops.linear import LinearMethod
+from ..ops.linear import LinearMethod, make_linear_method
+from ..ops.quant import pack_int4
+from ..quantization.checkpoint import PrequantizedWeight
 
 MODEL_REGISTRY: Dict[str, type] = {}
 
@@ -51,6 +56,9 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     device: torch.device = torch.device("cuda")
     kv_cache_dtype: Optional[torch.dtype] = None   # None -> dtype
+    # llmapi.llm_args.QuantConfig (or anything with quant_algo,
+    # group_size and exclude_modules); None -> unquantized
+    quant_config: Any = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -75,21 +83,34 @@ class AttentionSpec:
     use_sinks: bool = False
 
 
+class AttentionMethods(NamedTuple):
+    """Linear methods of one attention block: q, k and v (shared), o."""
+    q: LinearMethod
+    kv: LinearMethod
+    o: LinearMethod
+
+
 def attention_block(params: Dict[str, Any],
                     x: torch.Tensor,                 # [T, hidden]
                     kv_pages: torch.Tensor,          # [pages, ps, 2kvh, hd]
                     metadata: AttentionMetadata,
                     spec: AttentionSpec,
-                    method: LinearMethod,
+                    methods: AttentionMethods,
                     rope_cos_sin: Optional[Tuple[torch.Tensor,
                                                  torch.Tensor]] = None
                     ) -> torch.Tensor:
-    """QKV projection, RoPE, KV append (in place) and paged attention,
-    then the output projection."""
+    """QKV projection (``params["qkv"]`` fused, or "q", "k", "v" apart),
+    RoPE, KV append (in place) and paged attention, then the output
+    projection."""
     T = x.shape[0]
     nq, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    qkv = method.apply(params["qkv"], x)
-    q, k, v = qkv.split([nq * hd, nkv * hd, nkv * hd], dim=-1)
+    if "qkv" in params:
+        qkv = methods.q.apply(params["qkv"], x)
+        q, k, v = qkv.split([nq * hd, nkv * hd, nkv * hd], dim=-1)
+    else:
+        q = methods.q.apply(params["q"], x)
+        k = methods.kv.apply(params["k"], x)
+        v = methods.kv.apply(params["v"], x)
     q = q.reshape(T, nq, hd)
     k = k.reshape(T, nkv, hd)
     v = v.reshape(T, nkv, hd)
@@ -99,12 +120,72 @@ def attention_block(params: Dict[str, Any],
         q = rope_ops.apply_rope(q, cos, sin, spec.is_neox)
         k = rope_ops.apply_rope(k, cos, sin, spec.is_neox)
     write_kv(kv_pages, k, v, metadata.slot_mapping)
+    # the dequant-matmul kernel returns bf16 whatever the model's type:
+    # attention runs in the pool's type and hands q's type back
     attn = ragged_paged_attention(
-        q.contiguous(), kv_pages, metadata, sm_scale=spec.sm_scale,
+        q.to(kv_pages.dtype).contiguous(), kv_pages, metadata,
+        sm_scale=spec.sm_scale,
         sliding_window=spec.sliding_window, soft_cap=spec.soft_cap,
         alibi_slopes=spec.alibi_slopes,
-        sinks=params["sinks"] if spec.use_sinks else None)
-    return method.apply(params["o"], attn.reshape(T, nq * hd))
+        sinks=params["sinks"] if spec.use_sinks else None).to(q.dtype)
+    return methods.o.apply(params["o"], attn.reshape(T, nq * hd))
+
+
+# --------------------------------------------------------------------- #
+# Load-time conversion of projections
+# --------------------------------------------------------------------- #
+def hf_transpose(w):
+    """HF checkpoints store [out, in]; the linear methods quantize
+    [in, out]. A ``PrequantizedWeight`` (AWQ/GPTQ ingestion) already is
+    [in, out] and passes through."""
+    if isinstance(w, PrequantizedWeight):
+        return w
+    return torch.as_tensor(w).t()
+
+
+def quantize_linear(method: LinearMethod, w, bias=None,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device="cpu") -> Dict[str, torch.Tensor]:
+    """One [K, N] weight through its method, onto ``device``. The float
+    weight is moved first and quantized there, so only one tensor's float
+    copy is alive at a time. A ``PrequantizedWeight`` keeps the
+    checkpoint's own integers, scales and zero points; a symmetric int4
+    one is packed for the dequant-matmul kernel."""
+    if isinstance(w, PrequantizedWeight):
+        if type(method) is LinearMethod:
+            raise ValueError("a prequantized projection is excluded from "
+                             "quantization (exclude_modules)")
+        q = torch.from_numpy(np.ascontiguousarray(w.weight)).to(device)
+        params = {"weight": q, "weight_scale": torch.from_numpy(
+            np.ascontiguousarray(w.weight_scale)).to(device)}
+        if w.weight_zero is not None:
+            params["weight_zero"] = torch.from_numpy(
+                np.ascontiguousarray(w.weight_zero)).to(device)
+        elif w.bits == 4:
+            params["weight"] = pack_int4(q)
+    else:
+        # w is a transposed view of an [out, in] tensor: the quantizers'
+        # elementwise results inherit its strides
+        params = {k: v.contiguous() for k, v in method.quantize_weights(
+            torch.as_tensor(w).to(device), dtype=dtype).items()}
+    if bias is not None:
+        params["bias"] = torch.as_tensor(bias).to(device=device, dtype=dtype)
+    return params
+
+
+def fuse_projections(fused: str, names: Sequence[str],
+                     methods: Sequence[LinearMethod],
+                     parts: List[Dict[str, torch.Tensor]]
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{fused: one projection}`` when every part shares one method and
+    one set of tensors (scales are per output column, so joining
+    separately quantized parts along the output axis is exact — for
+    packed int4 too, since packing runs along K); otherwise the parts
+    under their own names."""
+    if all(m.same_as(methods[0]) for m in methods[1:]) and \
+            all(set(p) == set(parts[0]) for p in parts[1:]):
+        return {fused: methods[0].fuse(parts)}
+    return dict(zip(names, parts))
 
 
 class DecoderModelForCausalLM:
@@ -135,6 +216,10 @@ class DecoderModelForCausalLM:
     @property
     def vocab_size(self) -> int:
         return self.hf.vocab_size
+
+    def _method(self, name: str) -> LinearMethod:
+        """The linear method of the projection called ``name``."""
+        return make_linear_method(self.config.quant_config, name)
 
     def kv_pool_shape(self, num_pages: int, page_size: int) -> tuple:
         return (self.num_layers, num_pages, page_size,

@@ -21,7 +21,7 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("decode_attention", "prefill_attention")
+KERNELS = ("decode_attention", "prefill_attention", "quant_matmul")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

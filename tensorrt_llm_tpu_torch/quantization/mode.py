@@ -1,9 +1,11 @@
 """Quantization algorithm names.
 
 Port of the ``QuantAlgo`` / ``KvCacheQuantAlgo`` enums of
-``tensorrt_llm_tpu/quantization/mode.py``. This package serves unquantized
-weights and KV only; the names exist so configurations parse the same way
-and an unsupported algorithm is refused by name.
+``tensorrt_llm_tpu/quantization/mode.py``. This package serves the
+weight-only algorithms (W8A16, W4A16, W4A16_AWQ, W4A16_GPTQ, NVFP4,
+MXFP4; ops/linear.py) over an unquantized KV cache. The other names exist
+so that configurations parse the same way and an algorithm that is not
+ported is refused by name.
 """
 from __future__ import annotations
 

@@ -7,13 +7,17 @@ timed without the profiler and once under ``torch.profiler``, then prints
 one JSON line: both wall times, the summed GPU kernel time, the device's
 idle share (kernel time over the unprofiled wall time; the profiler
 itself slows the host several-fold), the kernel time by class (the two
-attention kernels, GEMMs, everything else), kernel launches per output
-step, and the top kernels by GPU time.
+attention kernels, the dequant-matmul kernel, library GEMMs, everything
+else), kernel launches per output step, and the top kernels by GPU time.
+``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
+group-wise algorithms).
 
     python -m tensorrt_llm_tpu_torch.tools.serving_profile
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile --quant W4A16_AWQ
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -26,6 +30,8 @@ def _class(name: str) -> str:
         return "decode_attention"
     if "prefill_kernel" in name:
         return "prefill_attention"
+    if "quant_matmul_kernel" in name:
+        return "quant_matmul"
     low = name.lower()
     if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
         return "gemm"
@@ -33,11 +39,18 @@ def _class(name: str) -> str:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--quant", default="NO_QUANT",
+                    help="QuantAlgo name, e.g. W4A16_AWQ, W8A16, MXFP4")
+    ap.add_argument("--group-size", type=int, default=128)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from transformers import LlamaConfig
 
     from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
+    from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
     cfg = LlamaConfig(vocab_size=32000, hidden_size=2048,
                       intermediate_size=5632, num_hidden_layers=22,
                       num_attention_heads=32, num_key_value_heads=4,
@@ -46,7 +59,8 @@ def main() -> None:
     prompts = torch.randint(0, cfg.vocab_size, (16, 128),
                             generator=gen).tolist()
     sp = SamplingParams(max_tokens=64, top_k=1)
-    llm = LLM(cfg, dtype="bfloat16")
+    llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
+        quant_algo=QuantAlgo[args.quant], group_size=args.group_size))
     try:
         llm.generate(prompts, sp)
         torch.cuda.synchronize()
@@ -81,6 +95,7 @@ def main() -> None:
     steps = max(1, decode_launches // cfg.num_hidden_layers)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "quant_algo": args.quant,
         "wall_ms": plain_wall * 1e3, "profiled_wall_ms": wall * 1e3,
         "gpu_kernel_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / (plain_wall * 1e3)),

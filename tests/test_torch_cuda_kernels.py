@@ -1,13 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card (skipped without one). float32 cases hold to 1e-4 (float32 sums in
 another order); bfloat16 cases to 2e-2 (bf16 inputs and output rounding,
-float32 accumulation in both)."""
+float32 accumulation in both). The dequant-matmul kernel rounds its
+output to bf16 for either input type, so it holds to 2e-2 throughout."""
 import numpy as np
 import pytest
 import torch
 
 from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
 from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
 
 pytestmark = pytest.mark.cuda
 
@@ -98,6 +100,60 @@ def test_prefill_kernel_matches_plain(cuda, dtype, q_lens, ctx_lens, qh, kvh,
     assert pre.LAUNCHES == before + 1
     ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
     torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+def _quant_inputs(M, K, N, G, bits, dtype, device, seed=0):
+    """Seeded x, a group-quantized weight (packed for int4) and scales."""
+    from tensorrt_llm_tpu_torch.ops import quant as Q
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, N), np.float32) * 0.02)
+    q, s, _ = Q.quantize_weight_groupwise(w, group_size=G, bits=bits)
+    if bits == 4:
+        q = Q.pack_int4(q)
+    return x.to(dtype).to(device), q.to(device), s.to(device)
+
+
+@pytest.mark.parametrize("M,K,N,G,bits,dtype", [
+    (64, 2048, 2560, 128, 4, torch.bfloat16),       # serving: qkv
+    (64, 2048, 2048, 128, 4, torch.bfloat16),       # serving: o
+    (64, 2048, 11264, 128, 4, torch.bfloat16),      # serving: gate_up
+    (64, 5632, 2048, 128, 4, torch.bfloat16),       # serving: down
+    (1, 2048, 2560, 128, 4, torch.bfloat16),
+    (8, 512, 384, 64, 4, torch.float32),
+    (17, 256, 257, 32, 4, torch.bfloat16),          # ragged rows and columns
+    (33, 256, 1001, 64, 8, torch.bfloat16),
+    (128, 2048, 2048, 128, 4, torch.bfloat16),      # two row blocks
+    (100, 1024, 130, 16, 4, torch.bfloat16),
+    (64, 2048, 2560, 32, 8, torch.bfloat16),        # the MXFP4 shape
+    (64, 2048, 2560, 16, 8, torch.bfloat16),        # the NVFP4 shape
+    (5, 48, 8, 16, 8, torch.float32),
+])
+def test_quant_matmul_kernel_matches_plain(cuda, M, K, N, G, bits, dtype):
+    x, w, s = _quant_inputs(M, K, N, G, bits, dtype, cuda)
+    before = qmm.LAUNCHES
+    got = qmm.groupwise_dequant_matmul(x, w, s, group_size=G, bits=bits)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    ref = qmm.groupwise_dequant_matmul_plain(x, w, s, group_size=G, bits=bits)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_quant_matmul_dispatch_on_cuda(cuda):
+    """M > 128 takes the dequantize-then-matmul route (no launch); a
+    shape outside the kernel's contract raises instead of falling back."""
+    x, w, s = _quant_inputs(129, 256, 96, 64, 4, torch.bfloat16, cuda)
+    before = qmm.LAUNCHES
+    got = qmm.groupwise_dequant_matmul(x, w, s, group_size=64, bits=4)
+    assert qmm.LAUNCHES == before
+    ref = qmm.groupwise_dequant_matmul_plain(x, w, s, group_size=64, bits=4)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    x, w, s = _quant_inputs(4, 192, 96, 64, 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contract"):
+        # 96 stored rows read as packed int4: K = 192 is no multiple of 128
+        qmm.groupwise_dequant_matmul(x, w[:96].contiguous(), s,
+                                     group_size=64, bits=4)
 
 
 def test_quantized_pool_raises_on_cuda(cuda):

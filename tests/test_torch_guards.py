@@ -39,7 +39,8 @@ def test_no_jax_or_jax_package_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_port_serves_with_jax_unimportable():
+@pytest.mark.parametrize("quant", ["NO_QUANT", "W4A16_AWQ", "MXFP4"])
+def test_port_serves_with_jax_unimportable(quant):
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -52,6 +53,8 @@ def test_port_serves_with_jax_unimportable():
                           max_position_embeddings=128)
         llm = t.LLM(cfg, device="cpu", dtype="float32", max_batch_size=2,
                     max_input_len=16, max_seq_len=32, max_num_tokens=64,
+                    quant_config=t.QuantConfig(
+                        quant_algo=t.QuantAlgo[sys.argv[1]], group_size=16),
                     kv_cache_config=t.KvCacheConfig(tokens_per_block=16,
                                                     max_tokens=256))
         out = llm.generate([1, 2, 3], t.SamplingParams(max_tokens=4,
@@ -63,8 +66,9 @@ def test_port_serves_with_jax_unimportable():
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", code, quant], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
 
@@ -86,7 +90,16 @@ def test_cpu_tensors_take_the_plain_path_uncounted():
     only kernel launches."""
     from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
     from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
     g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 64), generator=g)
+    w = torch.randint(-128, 128, (32, 10), generator=g).to(torch.int8)
+    sc = torch.rand((2, 10), generator=g)
+    launches = qmm.LAUNCHES
+    got = qmm.groupwise_dequant_matmul(x, w, sc, group_size=32, bits=4)
+    assert torch.equal(got, qmm.groupwise_dequant_matmul_plain(
+        x, w, sc, group_size=32, bits=4))
+    assert qmm.LAUNCHES == launches
     q = torch.randn((2, 4, 64), generator=g)
     pool = torch.randn((4, 16, 4, 64), generator=g)
     kvl = torch.tensor([5, 17], dtype=torch.int32)
