@@ -10,13 +10,18 @@ the run on error:
      of the serving paths built from csrc/ (one nvcc per source, in
      parallel), with the build time;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     same bf16 inputs (atol = rtol = 2e-2: bf16 output rounding, float32
-     accumulation in both), at serving shapes; times (CUDA events, median
+     same bf16 inputs (atol = rtol = 2e-2: bf16 inputs, probabilities and
+     output rounding, float32 accumulation in both), at serving shapes,
+     plus decode cases that force a split of the KV axis (few long rows),
+     exceed the L2 cache, or mix lengths from 1 to 4,096 (each prints its
+     number of splits), and one float32 prefill case held to 1e-4 (each
+     prefill case prints its route); times (CUDA events, median
      of 30 launches; 10 for the plain version and the library call), the
      bound from this run's bytes and FLOPs, and as a yardstick the time
      of one PyTorch call that computes the same function where there is
      one: ``scaled_dot_product_attention`` over the gathered KV for the
-     attention kernels, ``F.linear`` on the weight dequantized to bf16
+     attention kernels (with a mask of each row's length where the
+     decode rows differ in length), ``F.linear`` on the weight dequantized to bf16
      beforehand (4x the int4 bytes) for the dequant-matmul kernel;
   3. parity: through ``LLM.generate`` on the card and on the CPU (the
      plain path the CPU tests hold to the JAX package), (a) the float32
@@ -53,63 +58,10 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 TOL = 2e-2
 NEAR_TIE = 3e-2               # log-probability margin below which the
                               # quantized cuda/cpu runs may part ways
-PAGE = 32                     # the serving path's default tokens_per_block
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, reps: int) -> float:
-    """Median of per-launch CUDA-event times, after warm-up. The launches
-    are queued behind a ~25 ms device sleep, so the card runs them back to
-    back and a launch's time is the kernel's, not the host's enqueue gap
-    (a function that syncs inside, like the plain prefill loop, still
-    pays its host time)."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
-    pairs = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
-
-
-def make_case(q_lens, ctx_lens, qh, kvh, hd, seed, page=PAGE):
-    """bf16 packed queries and a shuffled paged pool on the card."""
-    import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    S = len(q_lens)
-    kv = [c + q for c, q in zip(ctx_lens, q_lens)]
-    maxp = max(-(-k // page) for k in kv)
-    P = S * maxp + 1
-    pool = torch.randn((P, page, 2 * kvh, hd), generator=g, device="cuda",
-                       dtype=torch.bfloat16)
-    pt = torch.randperm(S * maxp, generator=g, device="cuda") \
-        .to(torch.int32).reshape(S, maxp)
-    q = torch.randn((sum(q_lens), qh, hd), generator=g, device="cuda",
-                    dtype=torch.bfloat16)
-    cu = torch.zeros(S + 1, dtype=torch.int32, device="cuda")
-    cu[1:] = torch.cumsum(torch.tensor(q_lens, device="cuda"), 0)
-    kv_lens = torch.tensor(kv, dtype=torch.int32, device="cuda")
-    return q, pool, kv_lens, pt, cu
-
-
-def dense_kv(pool, kv_lens, pt, kvh, hd):
-    """Gathered [S, kvh, kv, hd] K and V (sequences of equal length)."""
-    S, kv = kv_lens.shape[0], int(kv_lens[0])
-    pages = pool[pt.reshape(-1).long()].reshape(S, -1, 2 * kvh, hd)[:, :kv]
-    k = pages[:, :, 0::2].transpose(1, 2).contiguous()
-    v = pages[:, :, 1::2].transpose(1, 2).contiguous()
-    return k, v
 
 
 def kernel_phase():
@@ -117,47 +69,77 @@ def kernel_phase():
     import torch.nn.functional as F
     from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
     from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    from tensorrt_llm_tpu_torch.tools.card_timing import (
+        PAGE, dense_kv, make_case, time_ms)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     # ---- K1: paged decode --------------------------------------------
-    for name, S, kvlen, qh, kvh, hd, page in [
-            ("decode_hd64", 64, 1024, 32, 4, 64, PAGE),
-            ("decode_hd64_page16", 64, 1024, 32, 4, 64, 16),
-            ("decode_hd128", 64, 1024, 16, 4, 128, PAGE),
-            ("decode_serving_rows", 64, 160, 32, 4, 64, PAGE)]:
-        q, pool, kv_lens, pt, _ = make_case([1] * S, [kvlen - 1] * S, qh,
-                                            kvh, hd, seed=len(name),
+    # decode_long: S x kvh alone is 16 CTAs, so the KV axis must be split;
+    # decode_hbm: 268 MB of KV, well above the 50 MB L2; decode_ragged: KV
+    # lengths from 1 to 4,096 in one batch.
+    ragged = [1 + (4095 * i) // 63 for i in range(64)]
+    for name, kvs, qh, kvh, hd, page in [
+            ("decode_hd64", [1024] * 64, 32, 4, 64, PAGE),
+            ("decode_hd64_page16", [1024] * 64, 32, 4, 64, 16),
+            ("decode_hd128", [1024] * 64, 16, 4, 128, PAGE),
+            ("decode_serving_rows", [160] * 64, 32, 4, 64, PAGE),
+            ("decode_long", [16384] * 4, 32, 4, 64, PAGE),
+            ("decode_hbm", [4096] * 64, 32, 4, 64, PAGE),
+            ("decode_ragged", ragged, 32, 4, 64, PAGE)]:
+        S = len(kvs)
+        q, pool, kv_lens, pt, _ = make_case([1] * S, [k - 1 for k in kvs],
+                                            qh, kvh, hd, seed=len(name),
                                             page=page)
         kw = dict(sm_scale=hd ** -0.5)
-        got = dec.paged_decode_attention(q, pool, kv_lens, pt, **kw)
+        fast = dict(max_kv_len=max(kvs), **kw)    # the engine's host hint
+        got = dec.paged_decode_attention(q, pool, kv_lens, pt, **fast)
+        splits = dec.choose_splits(S, kvh, max(kvs), sms, qh // kvh)
         ref = dec.paged_decode_attention_plain(q, pool, kv_lens, pt, **kw)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.allclose(got.float(), ref.float(), atol=TOL, rtol=TOL):
             raise AssertionError(f"{name}: kernel != plain (max {err})")
         ms = time_ms(lambda: dec.paged_decode_attention(
-            q, pool, kv_lens, pt, **kw), 30)
+            q, pool, kv_lens, pt, **fast), 30)
         plain_ms = time_ms(lambda: dec.paged_decode_attention_plain(
             q, pool, kv_lens, pt, **kw), 10)
-        k, v = dense_kv(pool, kv_lens, pt, kvh, hd)
+        # one SDPA call over the KV gathered to the longest row computes
+        # the same function, with a mask of each row's length when the
+        # lengths differ
+        k, v = dense_kv(pool, pt, kvh, hd, max(kvs))
         q4 = q.reshape(S, qh, 1, hd)
-        lib = F.scaled_dot_product_attention(q4, k, v, scale=kw["sm_scale"],
-                                             enable_gqa=True)
+        mask = None
+        if len(set(kvs)) > 1:
+            mask = (torch.arange(max(kvs), device="cuda")[None, :]
+                    < kv_lens[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q4, k, v, attn_mask=mask, scale=kw["sm_scale"],
+                enable_gqa=True)
+        lib = sdpa()
         torch.cuda.synchronize()
-        lib_err = (lib.reshape(S, qh, hd).float() - ref.float()).abs().max()
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k, v, scale=kw["sm_scale"], enable_gqa=True), 10)
-        kv_bytes = S * kvlen * kvh * hd * 2 * 2
+        lib = lib.reshape(S, qh, hd).float()
+        lib_err = (lib - ref.float()).abs().max().item()
+        if not torch.allclose(lib, ref.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"{name}: library != plain (max {lib_err})")
+        library_ms = time_ms(sdpa, 10)
+        del k, v, lib, mask
+        kv_bytes = sum(kvs) * kvh * hd * 2 * 2
         io_bytes = kv_bytes + 2 * q.numel() * 2 + pt.numel() * 4 + S * 4
-        flops = 4 * S * qh * hd * kvlen
+        flops = 4 * qh * hd * sum(kvs)
         results[name] = dict(
-            shape=dict(seqs=S, kv_len=kvlen, qh=qh, kvh=kvh, hd=hd,
+            shape=dict(seqs=S, kv_len=kvs[0] if len(set(kvs)) == 1
+                       else [min(kvs), max(kvs)], qh=qh, kvh=kvh, hd=hd,
                        page=page),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, library_max_abs_err=lib_err.item(),
+            splits=splits, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_max_abs_err=lib_err,
             bytes=io_bytes, flops=flops,
             **_bound(io_bytes, flops))
         emit({"phase": "kernels", "case": name, **results[name]})
+        del q, pool, kv_lens, pt, got, ref
+        torch.cuda.empty_cache()
 
     # ---- K2: ragged prefill / mixed ------------------------------------
     for name, q_lens, ctx, qh, kvh, hd in [
@@ -189,7 +171,7 @@ def kernel_phase():
             # one causal SDPA call over the gathered KV computes the same
             # function when every sequence is a fresh prompt of one length
             S, L = len(q_lens), q_lens[0]
-            k, v = dense_kv(pool, kv_lens, pt, kvh, hd)
+            k, v = dense_kv(pool, pt, kvh, hd, L)
             q4 = q.reshape(S, L, qh, hd).transpose(1, 2).contiguous()
             lib = F.scaled_dot_product_attention(
                 q4, k, v, is_causal=True, scale=kw["sm_scale"],
@@ -207,10 +189,26 @@ def kernel_phase():
         results[name] = dict(
             shape=dict(q_lens=sorted(set(q_lens)), ctx=sorted(set(ctx)),
                        seqs=len(q_lens), qh=qh, kvh=kvh, hd=hd, page=PAGE),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            route=pre.route_for(q.dtype), max_abs_err=err, ms=ms,
+            plain_ms=plain_ms,
             library_ms=library_ms, library_max_abs_err=lib_err,
             bytes=io_bytes, flops=flops, **_bound(io_bytes, flops))
         emit({"phase": "kernels", "case": name, **results[name]})
+    # the float32 route (the parity path's) stays covered: checked, not
+    # timed; float32 sums in another order than the plain version's
+    q, pool, kv_lens, pt, cu = make_case(
+        [1, 300, 1, 70], [900, 0, 31, 500], 32, 4, 64, seed=5,
+        dtype=torch.float32)
+    kw = dict(sm_scale=0.125)
+    got = pre.ragged_prefill_attention(q, pool, kv_lens, pt, cu,
+                                       max_q_len=300, **kw)
+    ref = pre.ragged_prefill_attention_plain(q, pool, kv_lens, pt, cu, **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not torch.allclose(got, ref, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"prefill float32: kernel != plain (max {err})")
+    emit({"phase": "kernels", "case": "prefill_float32_checked",
+          "route": pre.route_for(q.dtype), "max_abs_err": err, "tol": 1e-4})
     quant_kernel_phase(results)
     return results
 
@@ -224,6 +222,7 @@ def quant_kernel_phase(results: dict) -> None:
     import torch.nn.functional as F
     from tensorrt_llm_tpu_torch.ops import quant as Q
     from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
 
     one = torch.empty(1, device="cuda")
     emit({"phase": "kernels", "case": "launch_floor",

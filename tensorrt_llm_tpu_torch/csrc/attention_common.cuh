@@ -1,6 +1,8 @@
 // Shared helpers of the paged attention kernels (decode_attention.cu,
 // prefill_attention.cu): element conversion, 16-byte vector loads, warp
-// reductions and the launch-side shared-memory opt-in.
+// and quad reductions, the score transform, and the tensor-core building
+// blocks of the bf16 routes (cp.async, ldmatrix, mma.sync m16n8k16, the
+// shared-memory swizzle) with the launch-side shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +14,10 @@
 // exp(MASK - m) is exactly 0 once a real score arrives (the TPU kernels'
 // MASK value, ops/pallas/decode_attention.py).
 #define ATTN_MASK (-0.7f * FLT_MAX)
+
+// The bf16 routes keep scores in log2 units (score * log2(e)) so that a
+// probability is one ex2; ATTN_MASK itself is never rescaled.
+#define ATTN_LOG2E 1.4426950408889634f
 
 enum AttnDtype { ATTN_F32 = 0, ATTN_BF16 = 1 };
 
@@ -51,6 +57,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Reductions over the four lanes that share one accumulator row of an
+// mma.m16n8k16 result (lanes 4g .. 4g+3).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // Score transform shared by both kernels, in the order of the reference
 // path (ops/attention.py _reference_attention): scale, ALiBi bias, soft
 // cap. Returns -inf for a masked position.
@@ -65,10 +83,125 @@ __device__ __forceinline__ float attn_score(float dot, float sm_scale,
   return s;
 }
 
-// Dynamic shared memory above 48 KB needs an explicit opt-in per kernel.
+// The same transform for the bf16 routes when ALiBi or a soft cap is on:
+// the slope is already in a register (0 without ALiBi) and the result is
+// in log2 units.
+__device__ __forceinline__ float attn_score_log2(float dot, float sm_scale, float slope,
+                                                int kv_pos, int q_pos, float soft_cap) {
+  float s = dot * sm_scale + slope * (float)(kv_pos - q_pos);
+  if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
+  return s * ATTN_LOG2E;
+}
+
+// 2^x in one MUFU instruction (relative error 2^-22): 0 for -inf and for
+// anything below -126, 1 for 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// This split's share [*lo, *hi) of a decode row's visible positions. The
+// visible range starts at the sliding window's first position (rounded
+// down to a tile) and is cut into `splits` runs of whole tiles, so a
+// window moves the first split instead of leaving early splits empty.
+// *lo >= *hi for a split that has nothing to read.
+__device__ __forceinline__ void split_range(int kv_len, int window, int tile,
+                                            int splits, int split, int* lo, int* hi) {
+  int start = window > 0 ? max(0, kv_len - window) : 0;   // kv_pos > q_pos - window
+  start = (start / tile) * tile;
+  const int tiles = kv_len > start ? (kv_len - start + tile - 1) / tile : 0;
+  const int per = (tiles + splits - 1) / splits;
+  *lo = start + min(split * per, tiles) * tile;
+  *hi = min(kv_len, start + min((split + 1) * per, tiles) * tile);
+}
+
+// ---- tensor-core building blocks (bf16 routes) -------------------------
+
+// Byte offset of the 16-byte chunk `c` of row `r` in a shared-memory tile
+// whose rows hold HD bf16 values (128 or 256 bytes). The chunk index is
+// XORed with the row's low three bits, so the eight rows of one ldmatrix
+// 8x8 block land in eight different 16-byte bank groups.
+template <int HD>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * (HD * 2) + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy global -> shared; with `pred` false nothing is
+// read and the 16 bytes are zero-filled (src must still be a valid
+// address).
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool pred) {
+  const int src_bytes = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Four 8x8 bf16 blocks; lane l gives the address of row l % 8 of block
+// l / 8 (16 bytes, 16-byte aligned).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// The same, each block transposed on the way (B fragments of P.V from a
+// [position][dim] tile).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// D += A (16x16 bf16, row) * B (16x8 bf16, col), float32 accumulation.
+// Accumulator of lane 4g+t: c[0], c[1] = row g, columns 2t, 2t+1; c[2],
+// c[3] = row g+8, the same columns.
+__device__ __forceinline__ void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Dynamic shared memory above 48 KB needs an explicit opt-in per kernel
+// and per device. `allowed` is the caller's record for this kernel (one
+// static per template instantiation) of the bytes opted in on each device,
+// so the attribute is set only when a launch on the current device needs
+// more than an earlier one did (the size may depend on run-time arguments).
+constexpr int kSmemDevices = 64;   // devices remembered; others always set
+struct SmemAllowed { int bytes[kSmemDevices]; };
+
 template <typename K>
-static cudaError_t allow_smem(K kernel, size_t bytes) {
+static cudaError_t allow_smem(K kernel, size_t bytes, SmemAllowed* allowed) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < kSmemDevices;
+  if (known && (int)bytes <= allowed->bytes[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (known && err == cudaSuccess) allowed->bytes[dev] = (int)bytes;
+  return err;
 }

@@ -9,39 +9,92 @@
 // optional sliding window, logit soft cap and ALiBi; out [S, qh, hd] in
 // q's type. A sequence with kv_len 0 yields zeros.
 //
-// Design (simple first version): one CTA per (sequence, KV head). The CTA
-// holds the `group` query heads that share that KV head, walks the
-// sequence's pages in tiles of 32 positions (16-byte vector loads into
-// shared memory, converted to float32), scores all group x 32 pairs, runs
-// the online-softmax update with one warp per query head and accumulates
-// P.V in shared memory.
-//
 // What bounds it on the H100: the KV bytes it must read (each K and V row
-// once), so the bound is bytes / 3.35 TB/s. What this design leaves on the
-// table: only S*kvh CTAs (256 at 64 sequences x 4 KV heads, under two per
-// SM), no split over the KV axis (flash-decoding), no cp.async/TMA
-// pipelining of the next tile behind the current one's math, and CUDA-core
-// float32 dot products.
+// once) over 3.35 TB/s. Reaching that needs (a) enough bytes in flight on
+// every SM whatever the batch, and (b) arithmetic that keeps up: at group 8
+// and hd 64 one KV position of a head costs 1,024 FMAs for 256 bytes,
+// about 27 TFLOP/s at the memory rate, which one CUDA-core thread per
+// (head, position) cannot deliver next to its shared-memory reads.
+//
+// Design, for both routes: the KV axis is split across CTAs
+// (flash-decoding). Grid (S, KV head x chunks of 16 query heads, splits);
+// the number of splits comes from the host (ops/cuda/decode_attention.py
+// choose_splits: a pure function of host ints, so the grid is fixed under
+// a CUDA graph). split_range() cuts a row's visible range, from its
+// sliding-window start to kv_len, into `splits` runs of whole tiles, so
+// rows of different lengths and windowed rows still spread their work. With
+// splits == 1 a CTA writes the output itself. Otherwise it writes an
+// unnormalised partial (running max m, sum l, accumulator; float32) to
+// scratch that the wrapper allocated, and decode_merge_kernel combines
+// them: weight exp(m_i - max m), so a split that saw no key (m =
+// ATTN_MASK, l = 0) weighs exactly 0 and a row with no key at all is 0.
+// The sink logit enters once, in split 0.
+//
+// bf16 -> decode_tc_kernel. Four warps, and each warp owns its own tiles
+// of the CTA's range (tile w, w + 4, ...), its own online-softmax state in
+// registers and its own three-stage ring in shared memory: a tile of 32
+// positions at hd 64 (16 at hd 128) is 8 KB of K and V, copied as bf16 by
+// 16-byte cp.async (one page-table read per tile, spread by shuffles), two
+// tiles in flight while one is scored, waited for with cp.async.wait_group
+// + __syncwarp(). There is no __syncthreads() in the loop; the warps meet
+// once, at the end, through shared memory. The up to 16 query heads of the
+// KV head are one mma A tile (rows past the group are zero): S = Q.K^T and
+// P.V run as mma.sync m16n8k16 on bf16 with float32 accumulation, K
+// fragments by ldmatrix and V fragments by ldmatrix.trans from
+// XOR-swizzled rows; Q fragments are loaded once from global memory; the
+// softmax runs on the accumulator fragments in log2 units. Tiles wholly
+// inside [window start, kv_len) skip the mask. Positions past kv_len are
+// zero-filled on the way in (their weight is 0, so V must be finite).
+// Tensor cores rather than a CUDA-core loop with q in registers: a
+// CUDA-core loop needs group x hd FMAs per position per KV head (27
+// TFLOP/s at the memory rate, above), 40 % of the card's float32 peak
+// before any conversion from bf16; the mma route spends a quarter of the
+// tensor pipe at group 8 even with half of the 16 rows padding.
+//
+// float32 -> decode_f32_simple_kernel: the first version's CUDA-core
+// kernel (tiles of 32 positions widened to float32 in shared memory,
+// synchronous loads, one CTA-wide barrier per phase), kept for the float32
+// parity path, which is tested to 1e-4 (TF32 would not hold it). It takes
+// the same splits and writes the same partials, in natural-log units.
+//
+// What is left: TMA instead of per-thread cp.async; a persistent grid that
+// balances ragged batches better than equal splits per row; one launch
+// instead of two when splits > 1 (last-arriving CTA merges); hd 256;
+// int8/fp8 pools.
 
 #include "attention_common.cuh"
 
 namespace {
+
+// Where split `split` of (row, head) keeps its partial. acc: [.., HD]
+// floats; ml: [.., 2] floats (m, l).
+__device__ __forceinline__ size_t part_index(int s, int head, int qh, int splits,
+                                             int split) {
+  return ((size_t)s * qh + head) * splits + split;
+}
+
+// ------------------------------------------------------------------------
+// float32 route: CUDA cores, float32 math throughout.
+// ------------------------------------------------------------------------
+namespace simple {
 
 constexpr int kTile = 32;      // KV positions per tile (one per lane)
 constexpr int kThreads = 128;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-              const int* __restrict__ kv_lens,
-              const int* __restrict__ page_idx,
-              const float* __restrict__ sinks,
-              const float* __restrict__ alibi, T* __restrict__ out, int qh,
-              int kvh, int ps, int num_pages, int max_pages, float sm_scale,
-              int window, float soft_cap) {
+decode_f32_simple_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                         const int* __restrict__ kv_lens,
+                         const int* __restrict__ page_idx,
+                         const float* __restrict__ sinks,
+                         const float* __restrict__ alibi, T* __restrict__ out,
+                         float* __restrict__ part_acc, float* __restrict__ part_ml,
+                         int qh, int kvh, int ps, int num_pages, int max_pages,
+                         float sm_scale, int window, float soft_cap, int splits) {
   constexpr int V = Vec<T>::N;
   const int s = blockIdx.x;
   const int h = blockIdx.y;
+  const int split = blockIdx.z;
   const int group = qh / kvh;
   const int combined = 2 * kvh;
   const int tid = threadIdx.x;
@@ -64,24 +117,24 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const T* q_row = q + ((size_t)s * qh + (size_t)h * group) * HD;
   for (int i = tid * V; i < group * HD; i += kThreads * V) load_vec<T>(q_row + i, q_s + i);
   for (int i = tid; i < group * HD; i += kThreads) acc[i] = 0.f;
+  const bool sink = sinks != nullptr && split == 0;   // counted once
   for (int g = tid; g < group; g += kThreads) {
-    m_s[g] = sinks != nullptr ? sinks[h * group + g] : ATTN_MASK;
-    l_s[g] = sinks != nullptr ? 1.f : 0.f;
+    m_s[g] = sink ? sinks[h * group + g] : ATTN_MASK;
+    l_s[g] = sink ? 1.f : 0.f;
   }
 
-  int start = 0;
-  if (window > 0) start = max(0, kv_len - window);   // kv_pos > q_pos - window
-  start = (start / kTile) * kTile;
+  int lo, hi;
+  split_range(kv_len, window, kTile, splits, split, &lo, &hi);
   const int* pt = page_idx + (size_t)s * max_pages;
 
-  for (int base = start; base < kv_len; base += kTile) {
+  for (int base = lo; base < hi; base += kTile) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid * V; i < kTile * HD; i += kThreads * V) {
       const int t = i / HD;
       const int d = i % HD;
       const int pos = base + t;
       float kr[V], vr[V];
-      if (pos < kv_len) {
+      if (pos < hi) {
         int page = pt[min(pos / ps, max_pages - 1)];
         page = min(max(page, 0), num_pages - 1);
         const T* row = kv + (((size_t)page * ps + pos % ps) * combined + 2 * h) * HD;
@@ -107,7 +160,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       float dot = 0.f;
 #pragma unroll 16
       for (int d = 0; d < HD; ++d) dot += qr[d] * kr[d];
-      const bool valid = pos < kv_len && (window <= 0 || pos > q_pos - window);
+      const bool valid = pos < hi && (window <= 0 || pos > q_pos - window);
       p_s[i] = attn_score(dot, sm_scale, alibi, h * group + g, pos, q_pos,
                           soft_cap, valid);
     }
@@ -138,29 +191,385 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     }
   }
   __syncthreads();
-  T* o_row = out + ((size_t)s * qh + (size_t)h * group) * HD;
-  for (int i = tid; i < group * HD; i += kThreads)
-    o_row[i] = from_f<T>(acc[i] / fmaxf(l_s[i / HD], 1e-30f));
+  if (splits == 1) {
+    T* o_row = out + ((size_t)s * qh + (size_t)h * group) * HD;
+    for (int i = tid; i < group * HD; i += kThreads)
+      o_row[i] = from_f<T>(acc[i] / fmaxf(l_s[i / HD], 1e-30f));
+    return;
+  }
+  for (int i = tid; i < group * HD; i += kThreads) {
+    const size_t p = part_index(s, h * group + i / HD, qh, splits, split);
+    part_acc[p * HD + i % HD] = acc[i];
+    if (i % HD == 0) {
+      part_ml[2 * p] = m_s[i / HD];
+      part_ml[2 * p + 1] = l_s[i / HD];
+    }
+  }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
-                   const int* page_idx, const float* sinks, const float* alibi,
-                   void* out, int S, int qh, int kvh, int ps, int num_pages,
-                   int max_pages, float sm_scale, int window, float soft_cap,
-                   cudaStream_t stream) {
+}  // namespace simple
+
+// ------------------------------------------------------------------------
+// bf16 route: split KV, per-warp cp.async rings, tensor-core products.
+// ------------------------------------------------------------------------
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 3;
+constexpr int kStageBytes = 8192;   // K and V of one warp tile
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr size_t kSmemBytes = (size_t)kWarps * kRingBytes;
+
+// Positions per warp tile: 8 KB of K and V.
+template <int HD> struct WarpTile { static constexpr int N = kStageBytes / (4 * HD); };
+
+// PLAIN: no ALiBi, no soft cap, sm_scale > 0. The score transform is then
+// one multiply, folded into the exponent's FMA.
+template <int HD, bool PLAIN>
+__global__ void __launch_bounds__(kThreads)
+decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+                 const int* __restrict__ kv_lens, const int* __restrict__ page_idx,
+                 const float* __restrict__ sinks, const float* __restrict__ alibi,
+                 bf16* __restrict__ out, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int qh, int kvh, int gchunks, int ps,
+                 int num_pages, int max_pages, float sm_scale, int window,
+                 float soft_cap, int splits) {
+  constexpr int TP = WarpTile<HD>::N;   // 32 or 16 positions
+  constexpr int CH = HD / 8;            // 16-byte chunks per K (or V) row
+  constexpr int KS = HD / 16;           // k-steps of Q.K^T
+  constexpr int NT = TP / 8;            // score n-tiles per tile
+  constexpr int PK = TP / 16;           // k-steps of P.V
+  constexpr int ON = HD / 8;            // output n-tiles
+  constexpr int PPI = 32 / (2 * CH);    // positions one warp-wide copy covers
+  constexpr int OS = HD + 8;            // floats per row of a warp's final stash
+  static_assert(16 * OS * 4 + 2 * 16 * 4 <= kRingBytes, "stash must fit the ring");
+
+  const int s = blockIdx.x;
+  const int h = blockIdx.y / gchunks;
+  const int g0 = (blockIdx.y % gchunks) * 16;   // first query head of this chunk
+  const int split = blockIdx.z;
   const int group = qh / kvh;
-  const size_t smem = sizeof(float) *
-      (2 * group * HD + kTile * (HD + 1) + kTile * HD + group * kTile + 3 * group);
-  auto kernel = decode_kernel<T, HD>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(S, kvh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kv), kv_lens, page_idx,
-      sinks, alibi, static_cast<T*>(out), qh, kvh, ps, num_pages, max_pages,
-      sm_scale, window, soft_cap);
+  const int grows = min(16, group - g0);        // live rows of the A tile
+  const int combined = 2 * kvh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem + warp * kRingBytes;
+
+  const int kv_len = kv_lens[s];
+  const int q_pos = kv_len - 1;
+  int lo, hi;
+  split_range(kv_len, window, TP, splits, split, &lo, &hi);
+  // this warp's tiles: lo + (warp + kWarps * i) * TP
+  const int tiles = hi > lo ? (hi - lo + TP - 1) / TP : 0;
+  const int n_my = tiles > warp ? (tiles - warp + kWarps - 1) / kWarps : 0;
+  const int* pt = page_idx + (size_t)s * max_pages;
+
+  // Start the copies of this warp's i-th tile into ring stage `st`.
+  auto start_tile = [&](int i, int st) {
+    const int base = lo + (warp + kWarps * i) * TP;
+    int slot = 0;   // pool row (page * ps + offset) of position base + lane
+    if (lane < TP) {
+      const int pos = min(base + lane, hi - 1);
+      int page = pt[min(pos / ps, max_pages - 1)];
+      page = min(max(page, 0), num_pages - 1);
+      slot = page * ps + pos % ps;
+    }
+    unsigned char* k_dst = ring + st * kStageBytes;
+    unsigned char* v_dst = k_dst + TP * HD * 2;
+#pragma unroll
+    for (int j = 0; j < TP / PPI; ++j) {
+      const int p = j * PPI + lane / (2 * CH);
+      const int c2 = lane % (2 * CH);            // chunk of the row's [k | v]
+      const int row_slot = __shfl_sync(0xffffffffu, slot, p);
+      const bf16* src = kv + ((size_t)row_slot * combined + 2 * h) * HD + c2 * 8;
+      unsigned char* dst = (c2 < CH ? k_dst : v_dst) + swz<HD>(p, c2 % CH);
+      cp_async_16(dst, src, base + p < hi);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_my) start_tile(st, st); else cp_async_commit();
+  }
+
+  // Q as A fragments straight from global memory: rows g and g + 8 of the
+  // chunk's query heads, zero past the group.
+  uint32_t qf[KS][4];
+  {
+    const bf16* q_row = q + ((size_t)s * qh + h * group + g0) * HD;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e & 1);
+        const int d = ks * 16 + 2 * t + 8 * (e >> 1);
+        qf[ks][e] = r < grows
+            ? *reinterpret_cast<const uint32_t*>(q_row + (size_t)r * HD + d) : 0u;
+      }
+    }
+  }
+
+  float slope_r[2], m_r[2], l_r[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = g + 8 * e;
+    slope_r[e] = (alibi != nullptr && r < grows) ? alibi[h * group + g0 + r] : 0.f;
+    m_r[e] = ATTN_MASK;
+    l_r[e] = 0.f;
+  }
+  // scores enter the softmax as s * sl2 in log2 units: raw dots times the
+  // folded scale when PLAIN, else already transformed in place
+  const float sl2 = PLAIN ? sm_scale * ATTN_LOG2E : 1.f;
+  const int win_lo = window > 0 ? max(0, kv_len - window) : 0;   // first visible
+
+  float oacc[ON][4];
+#pragma unroll
+  for (int n = 0; n < ON; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+
+  for (int i = 0; i < n_my; ++i) {
+    const int base = lo + (warp + kWarps * i) * TP;
+    const unsigned char* k_s = ring + (i % kStages) * kStageBytes;
+    const unsigned char* v_s = k_s + TP * HD * 2;
+    cp_async_wait<kStages - 2>();   // this lane's copies of tile i have landed
+    __syncwarp();                   // every lane's have; tile i-1 has been read
+    const int nxt = i + kStages - 1;
+    if (nxt < n_my) start_tile(nxt, nxt % kStages); else cp_async_commit();
+
+    float sacc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int n2 = 0; n2 < NT / 2; ++n2) {
+        // blocks: (positions 16*n2 + 0..7 | +8..15) x (dims 16*ks + 0..7 | +8..15)
+        uint32_t b[4];
+        ldmatrix_x4(b, k_s + swz<HD>(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                     ks * 2 + ((lane >> 3) & 1)));
+        mma_m16n8k16(sacc[2 * n2], qf[ks], b[0], b[1]);
+        mma_m16n8k16(sacc[2 * n2 + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    const bool full = base >= win_lo && base + TP <= hi;
+    if constexpr (!PLAIN) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sacc[n][e] = attn_score_log2(sacc[n][e], sm_scale, slope_r[e >> 1],
+                                       base + n * 8 + 2 * t + (e & 1), q_pos, soft_cap);
+    }
+    if (!full) {   // an edge tile: test each position
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int pos = base + n * 8 + 2 * t + (e & 1);
+          sacc[n][e] = (pos >= win_lo && pos < hi) ? sacc[n][e] : -INFINITY;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sacc[n][e]);
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float m_new = fmaxf(m_r[rr], quad_max(mx[rr]) * sl2);   // finite
+      alpha[rr] = fast_exp2(m_r[rr] - m_new);
+      m_r[rr] = m_new;
+      l_r[rr] *= alpha[rr];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // 0 for a masked (-inf) score
+        const float p = fast_exp2(fmaf(sacc[n][e], sl2, -m_r[e >> 1]));
+        sacc[n][e] = p;
+        l_r[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
+      a[1] = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
+      a[2] = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
+      a[3] = pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]);
+#pragma unroll
+      for (int n2 = 0; n2 < ON / 2; ++n2) {
+        // blocks: (positions 16*kk + 0..7 | +8..15) x (dims 16*n2 + 0..7 | +8..15)
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, v_s + swz<HD>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                           n2 * 2 + (lane >> 4)));
+        mma_m16n8k16(oacc[2 * n2], a, b[0], b[1]);
+        mma_m16n8k16(oacc[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncwarp();   // the ring is this warp's own and idle: reuse it as a stash
+
+  // Each warp leaves its state in its own ring: O [16][OS], then m [16],
+  // l [16].
+  float* o_w = reinterpret_cast<float*>(ring);
+  float* ml_w = o_w + 16 * OS;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = g + 8 * rr;
+    const float l = quad_sum(l_r[rr]);
+#pragma unroll
+    for (int n = 0; n < ON; ++n)
+      *reinterpret_cast<float2*>(o_w + r * OS + n * 8 + 2 * t) =
+          make_float2(oacc[n][2 * rr], oacc[n][2 * rr + 1]);
+    if (t == 0) {
+      ml_w[r] = m_r[rr];
+      ml_w[16 + r] = l;
+    }
+  }
+  __syncthreads();   // the one meeting of the CTA's warps
+
+  for (int i = tid; i < grows * HD; i += kThreads) {
+    const int r = i / HD;
+    const int d = i % HD;
+    const int head = h * group + g0 + r;
+    const bool sink = sinks != nullptr && split == 0;   // counted once
+    float m = sink ? sinks[head] * ATTN_LOG2E : ATTN_MASK;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      m = fmaxf(m, reinterpret_cast<const float*>(smem + w * kRingBytes)[16 * OS + r]);
+    float l = sink ? exp2f(sinks[head] * ATTN_LOG2E - m) : 0.f;
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* sw = reinterpret_cast<const float*>(smem + w * kRingBytes);
+      const float wgt = exp2f(sw[16 * OS + r] - m);   // 1 when both are ATTN_MASK: l, o are 0
+      l += sw[16 * OS + 16 + r] * wgt;
+      o += sw[r * OS + d] * wgt;
+    }
+    if (splits == 1) {
+      out[((size_t)s * qh + head) * HD + d] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+    } else {
+      const size_t p = part_index(s, head, qh, splits, split);
+      part_acc[p * HD + d] = o;
+      if (d == 0) {
+        part_ml[2 * p] = m;
+        part_ml[2 * p + 1] = l;
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
+// out[row, :] from the `splits` partials of (sequence, query head) `row`.
+// `unit` converts a difference of running maxima to log2 units (1 for the
+// bf16 route, log2(e) for the float32 route).
+template <typename T>
+__global__ void decode_merge_kernel(const float* __restrict__ part_acc,
+                                    const float* __restrict__ part_ml,
+                                    T* __restrict__ out, int splits, int hd,
+                                    float unit) {
+  const size_t row = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* ml = part_ml + row * splits * 2;
+  float m = ATTN_MASK;
+  for (int i = 0; i < splits; ++i) m = fmaxf(m, ml[2 * i]);
+  float l = 0.f, o = 0.f;
+  for (int i = 0; i < splits; ++i) {
+    // an empty split has m = ATTN_MASK, l = 0: weight 0 beside any real
+    // split, weight 1 (times zeros) when every split is empty; never NaN
+    const float w = exp2f((ml[2 * i] - m) * unit);
+    l += ml[2 * i + 1] * w;
+    o += part_acc[(row * splits + i) * hd + d] * w;
+  }
+  out[row * hd + d] = from_f<T>(o / fmaxf(l, 1e-30f));
+}
+
+struct Args {
+  const void* q; const void* kv; const int* kv_lens; const int* page_idx;
+  const float* sinks; const float* alibi; void* out; float* part_acc; float* part_ml;
+  int S, qh, kvh, ps, num_pages, max_pages;
+  float sm_scale; int window; float soft_cap; int splits;
+  cudaStream_t stream;
+};
+
+template <typename T>
+cudaError_t merge(const Args& a, int hd, float unit) {
+  if (a.splits == 1) return cudaSuccess;
+  decode_merge_kernel<T><<<a.S * a.qh, hd, 0, a.stream>>>(
+      a.part_acc, a.part_ml, static_cast<T*>(a.out), a.splits, hd, unit);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_f32(const Args& a) {
+  const int group = a.qh / a.kvh;
+  const size_t smem = sizeof(float) *
+      (2 * group * HD + simple::kTile * (HD + 1) + simple::kTile * HD +
+       group * simple::kTile + 3 * group);
+  auto kernel = simple::decode_f32_simple_kernel<float, HD>;
+  static SmemAllowed allowed = {};
+  cudaError_t err = allow_smem(kernel, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.S, a.kvh, a.splits);
+  kernel<<<grid, simple::kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.kv), a.kv_lens,
+      a.page_idx, a.sinks, a.alibi, static_cast<float*>(a.out), a.part_acc, a.part_ml,
+      a.qh, a.kvh, a.ps, a.num_pages, a.max_pages, a.sm_scale, a.window, a.soft_cap,
+      a.splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge<float>(a, HD, ATTN_LOG2E);
+}
+
+template <int HD, bool PLAIN>
+cudaError_t launch_tc_as(const Args& a) {
+  const int group = a.qh / a.kvh;
+  const int gchunks = (group + 15) / 16;
+  auto kernel = tc::decode_tc_kernel<HD, PLAIN>;
+  static SmemAllowed allowed = {};
+  cudaError_t err = allow_smem(kernel, tc::kSmemBytes, &allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.S, a.kvh * gchunks, a.splits);
+  kernel<<<grid, tc::kThreads, tc::kSmemBytes, a.stream>>>(
+      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.kv), a.kv_lens,
+      a.page_idx, a.sinks, a.alibi, static_cast<tc::bf16*>(a.out), a.part_acc,
+      a.part_ml, a.qh, a.kvh, gchunks, a.ps, a.num_pages, a.max_pages, a.sm_scale,
+      a.window, a.soft_cap, a.splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge<tc::bf16>(a, HD, 1.f);
+}
+
+template <int HD>
+cudaError_t launch_tc(const Args& a) {
+  const bool plain = a.alibi == nullptr && a.soft_cap <= 0.f && a.sm_scale > 0.f;
+  return plain ? launch_tc_as<HD, true>(a) : launch_tc_as<HD, false>(a);
 }
 
 }  // namespace
@@ -168,20 +577,25 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
 // dtype: 0 float32, 1 bfloat16 (q, pool and out share it). sinks and alibi
 // are float32 [qh] device pointers or null. window <= 0 and soft_cap <= 0
-// disable those options.
+// disable those options. splits >= 1; with splits > 1, part_acc
+// (float32 [S, qh, splits, hd]) and part_ml (float32 [S, qh, splits, 2])
+// are scratch the caller allocated, else they may be null.
 extern "C" int paged_decode_attention(
     const void* q, const void* kv, const int* kv_lens, const int* page_idx,
-    const float* sinks, const float* alibi, void* out, int S, int qh, int kvh,
-    int hd, int ps, int num_pages, int max_pages, float sm_scale, int window,
-    float soft_cap, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* sinks, const float* alibi, void* out, float* part_acc,
+    float* part_ml, int S, int qh, int kvh, int hd, int ps, int num_pages,
+    int max_pages, float sm_scale, int window, float soft_cap, int splits,
+    int dtype, void* stream) {
   if (S == 0) return 0;
-#define ARGS q, kv, kv_lens, page_idx, sinks, alibi, out, S, qh, kvh, ps, \
-             num_pages, max_pages, sm_scale, window, soft_cap, st
-  if (dtype == ATTN_BF16 && hd == 64) return launch<__nv_bfloat16, 64>(ARGS);
-  if (dtype == ATTN_BF16 && hd == 128) return launch<__nv_bfloat16, 128>(ARGS);
-  if (dtype == ATTN_F32 && hd == 64) return launch<float, 64>(ARGS);
-  if (dtype == ATTN_F32 && hd == 128) return launch<float, 128>(ARGS);
-#undef ARGS
+  if (qh % kvh != 0 || splits < 1 || splits > 65535 ||
+      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Args a = {q, kv, kv_lens, page_idx, sinks, alibi, out, part_acc, part_ml,
+                  S, qh, kvh, ps, num_pages, max_pages, sm_scale, window, soft_cap,
+                  splits, static_cast<cudaStream_t>(stream)};
+  if (dtype == ATTN_BF16 && hd == 64) return launch_tc<64>(a);
+  if (dtype == ATTN_BF16 && hd == 128) return launch_tc<128>(a);
+  if (dtype == ATTN_F32 && hd == 64) return launch_f32<64>(a);
+  if (dtype == ATTN_F32 && hd == 128) return launch_f32<128>(a);
   return (int)cudaErrorInvalidValue;
 }

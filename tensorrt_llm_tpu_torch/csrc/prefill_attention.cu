@@ -5,34 +5,81 @@
 // (tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250, body _kernel :37).
 // Same function: query rows packed by cu_q_lens i32[S+1] into q [T, qh, hd];
 // the i-th new token of sequence s sits at position kv_len - q_len + i and
-// sees KV positions <= its own; pool, page table, sinks, sliding window,
-// soft cap and ALiBi as in the decode kernel; out [T, qh, hd]. Rows past
-// cu_q_lens[S] are left untouched. A q_len-1 segment is a decode row, so
-// one launch serves a mixed batch. There is no cap on the segment length
-// (the TPU kernel's 256-row max_q_len was a VMEM bound).
+// sees KV positions <= its own; pool [P, ps, 2*kvh, hd] with k of head h at
+// combined index 2h and v at 2h+1; page table entries clamped to [0, P-1];
+// sinks, sliding window, soft cap and ALiBi as in the decode kernel; out
+// [T, qh, hd]. Rows past cu_q_lens[S] are left untouched; a row with no
+// visible key is 0. A q_len-1 segment is a decode row, so one launch serves
+// a mixed batch. There is no cap on the segment length (the TPU kernel's
+// 256-row max_q_len was a VMEM bound).
 //
-// Design (simple first version): one CTA per (query block, KV head,
-// sequence). A query block is up to 64 score rows = QB tokens x `group`
-// query heads of one KV head (QB = 64 / group). The TPU kernel walks
-// sequences in order on one core and blends each segment's unaligned edge
-// into rows the previous grid step wrote; CUDA blocks run in any order, so
-// here every CTA owns disjoint output rows and writes only rows of its own
-// segment. The CTA streams KV tiles of 32 positions up to the causal limit
-// of its last row (and from the sliding-window start of its first row),
-// scores 64 x 32 pairs per tile with float32 dot products from shared
-// memory, runs the online softmax with one warp per row group and keeps
-// its P.V accumulator in registers (4 threads per row).
+// What bounds it on the H100: at the timed shapes the bytes (q, out and the
+// KV read once; 11 us at 8 x 512 tokens) narrowly ahead of the attention
+// FLOPs (4 * qh * hd per visible pair over the dense bf16 tensor-core
+// peak; 9 us), so only a kernel that runs both products on the tensor
+// cores and keeps them fed comes near either.
 //
-// What bounds it on the H100 at long prefills: the attention FLOPs (4 *
-// qh * hd per visible (query, key) pair), so the bound is FLOPs / the
-// dense bf16 tensor-core peak. What this design leaves on the table: it
-// runs on CUDA cores in float32 (no mma/wgmma), reloads K/V per query
-// block instead of sharing tiles across blocks of one sequence, and has
-// no cp.async/TMA pipelining.
+// Two routes, picked by the element type:
+//
+// bf16 -> prefill_wgmma_kernel (FlashAttention shape on Hopper's warpgroup
+// MMA). A CTA is one warpgroup and owns 64 score rows of one (sequence, KV
+// head): rows are tokens x `group` query heads, r -> (tok0 + r / group,
+// r % group), so any group <= 64 works and the K/V tile a CTA stages
+// serves all the query heads that share it. (128-row CTAs of two
+// warpgroups halve the L2 traffic but ran 5-8 % slower at every shape
+// from 16 x 128 to one 8,192-token prompt: a barrier shared by two
+// warpgroups keeps them in step, so they want the tensor cores and the
+// SFU at the same moments; four independent one-warpgroup CTAs per SM
+// drift apart.) Q is copied once into shared memory as bf16. K and V tiles
+// of 64 positions stay bf16 in shared memory, copied by 16-byte cp.async
+// into a two-stage ring, a tile one commit group, so the next tile is in
+// flight while one is used and there is one __syncthreads() per tile. A
+// thread copies chunks of two rows of the tile (one page-table entry and
+// one address per row, the entries fetched a tile ahead), and every tile
+// is laid out as wgmma reads it: blocks of 64
+// columns, rows of 128 bytes, the 16-byte chunk XORed with the row's low
+// bits (the 128-byte swizzle), 1024-byte aligned. S = Q.K^T is
+// wgmma m64n64k16 with both operands from shared memory (K is K-major as
+// stored); the online softmax runs on the accumulator fragments in
+// registers (row max by quad shuffles, the row sum kept per lane and
+// reduced once at the end), in float32 and log2 units with the scale
+// folded into the exponent's FMA and ex2.approx for the exponential,
+// seeded with the sink logit or ATTN_MASK; P is rounded to bf16 in
+// registers and is the register A operand of the second wgmma (m64n64k16
+// or m64n128k16), which reads V transposed straight from its
+// [position][dim] tile, so P never touches shared memory. Tiles are
+// classified once per CTA: tiles before the first row's window start or
+// past the last row's causal limit are never loaded, tiles wholly visible
+// to every row skip the mask, only edge tiles test each element. The rescale
+// of the output accumulator is skipped once the running maxima have
+// settled. Query blocks are mapped last to first so the CTAs with the
+// longest causal span start first.
+//
+// float32 -> prefill_f32_simple_kernel: the first version's CUDA-core
+// kernel, kept because TF32 does not hold the 1e-4 that the float32 parity
+// path is tested to. One CTA per 64 score rows, KV tiles of 32 positions
+// widened to float32 in shared memory, synchronous loads.
+//
+// What is left (measured: the copies take a third of the time at long
+// prompts and overlap the math only in part, and a warpgroup's tensor
+// cores idle during its softmax): a producer warp with TMA instead of
+// per-thread cp.async (one box per page covers k and v of a head); the
+// next tile's S started before this tile's softmax, or warpgroups taking
+// turns at softmax and products; a K/V tile shared between
+// the query blocks of one sequence (each CTA re-reads its causal span
+// through L2); a split of the KV range for q_len-1 rows of mixed batches
+// (one CTA with 8 live rows of 64 walks the row's whole KV); hd 256;
+// int8/fp8 pools.
 
 #include "attention_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+// ------------------------------------------------------------------------
+// float32 route: CUDA cores, float32 math throughout.
+// ------------------------------------------------------------------------
+namespace simple {
 
 constexpr int kTile = 32;      // KV positions per tile (one per lane)
 constexpr int kRows = 64;      // score rows per CTA (tokens x heads)
@@ -43,14 +90,14 @@ constexpr int kPStride = kTile + 1;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-               const int* __restrict__ kv_lens,
-               const int* __restrict__ page_idx,
-               const int* __restrict__ cu_q_lens,
-               const float* __restrict__ sinks,
-               const float* __restrict__ alibi, T* __restrict__ out, int qh,
-               int kvh, int ps, int num_pages, int max_pages, float sm_scale,
-               int window, float soft_cap) {
+prefill_f32_simple_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                          const int* __restrict__ kv_lens,
+                          const int* __restrict__ page_idx,
+                          const int* __restrict__ cu_q_lens,
+                          const float* __restrict__ sinks,
+                          const float* __restrict__ alibi, T* __restrict__ out,
+                          int qh, int kvh, int ps, int num_pages, int max_pages,
+                          float sm_scale, int window, float soft_cap) {
   constexpr int V = Vec<T>::N;
   constexpr int kCols = HD / 4;   // accumulator columns per thread
   const int qblk = blockIdx.x;
@@ -199,7 +246,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
                    const int* page_idx, const int* cu_q_lens, const float* sinks,
                    const float* alibi, void* out, int S, int qh, int kvh, int ps,
@@ -209,22 +256,383 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
   const int qb = kRows / group;
   const size_t smem = sizeof(float) *
       (kRows * HD + kTile * (HD + 1) + kTile * HD + kRows * kPStride + 2 * kRows);
-  auto kernel = prefill_kernel<T, HD>;
-  cudaError_t err = allow_smem(kernel, smem);
+  auto kernel = prefill_f32_simple_kernel<float, HD>;
+  static SmemAllowed allowed = {};
+  cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
   dim3 grid((max_q_len + qb - 1) / qb, kvh, S);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kv), kv_lens, page_idx,
-      cu_q_lens, sinks, alibi, static_cast<T*>(out), qh, kvh, ps, num_pages,
+      static_cast<const float*>(q), static_cast<const float*>(kv), kv_lens, page_idx,
+      cu_q_lens, sinks, alibi, static_cast<float*>(out), qh, kvh, ps, num_pages,
       max_pages, sm_scale, window, soft_cap);
   return cudaGetLastError();
 }
 
+}  // namespace simple
+
+// ------------------------------------------------------------------------
+// bf16 route: both products by wgmma.
+// ------------------------------------------------------------------------
+namespace wg {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kRows = 64;      // score rows per CTA: one warpgroup
+constexpr int kThreads = 128;
+constexpr int kTile = 64;      // KV positions per tile
+constexpr int kNT = kTile / 8;    // 8-position blocks of a tile's scores
+constexpr int kPK = kTile / 16;   // k-steps of P.V per tile
+
+// STAGES: depth of the cp.async ring (STAGES - 1 tiles in flight while one
+// is used); MINB: CTAs per SM the register budget is cut for.
+template <int HD> struct Shape {
+  static constexpr int STAGES = 2;
+  static constexpr int MINB = HD <= 64 ? 4 : 2;
+  static constexpr int Q_BYTES = kRows * HD * sizeof(bf16);
+  static constexpr int TILE_BYTES = kTile * HD * sizeof(bf16);   // K or V of a tile
+  // + 1024: the tiles are aligned to the swizzle pattern's 1024 bytes
+  static constexpr size_t SMEM = Q_BYTES + 2 * STAGES * TILE_BYTES + 1024;
+};
+
+// Byte offset of the 16-byte chunk `c` of row `r` in a wgmma operand tile
+// of ROWS rows (wgmma.cuh): blocks of 64 columns, each [ROWS][128 bytes]
+// with the chunk index XORed with the row's low three bits.
+template <int ROWS>
+__device__ __forceinline__ int tile_off(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// PLAIN: no ALiBi, no soft cap, sm_scale > 0. The score transform is then
+// one multiply, folded into the exponent's FMA.
+template <int HD, bool PLAIN>
+__global__ void __launch_bounds__(kThreads, Shape<HD>::MINB)
+prefill_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+                     const int* __restrict__ kv_lens,
+                     const int* __restrict__ page_idx,
+                     const int* __restrict__ cu_q_lens,
+                     const float* __restrict__ sinks,
+                     const float* __restrict__ alibi, bf16* __restrict__ out, int qh,
+                     int kvh, int ps, int num_pages, int max_pages, float sm_scale,
+                     int window, float soft_cap) {
+  constexpr int kStages = Shape<HD>::STAGES;
+  constexpr int kTileBytes = Shape<HD>::TILE_BYTES;
+  constexpr int CH = HD / 8;     // 16-byte chunks per row
+  constexpr int KS = HD / 16;    // k-steps of Q.K^T
+  constexpr int ON = HD / 8;     // 8-dim blocks of the output
+
+  // heaviest first: the last query block has the longest causal span
+  const int qblk = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int s = blockIdx.z;
+  const int group = qh / kvh;
+  const int qb = kRows / group;   // tokens per CTA
+  const int combined = 2 * kvh;
+  const int tid = threadIdx.x;
+
+  // Copies of a tile: thread -> (rows ld_r and ld_r + 32 of the tile, chunks
+  // ld_q + 4i of their K and V), so a thread needs one page-table entry and
+  // one address per row, and four neighbouring lanes read 64 contiguous
+  // bytes.
+  constexpr int LR = 4 * kTile / kThreads;   // rows of a tile per thread
+  constexpr int kRowStep = kThreads / 4;     // between a thread's rows
+  const int ld_r = tid >> 2;
+  const int ld_q = tid & 3;
+  const int* pt = page_idx + (size_t)s * max_pages;
+  const int ps_shift = (ps & (ps - 1)) == 0 ? __ffs(ps) - 1 : -1;   // pages of 2^n positions
+  // The page-table entries of this thread's rows of the tile at `base`
+  // (any base >= 0: entries past the sequence's pages are read but never
+  // used). The loop fetches them one tile ahead of their use so that the
+  // lookup's latency hides behind a tile's math instead of stalling every
+  // warp right after the barrier.
+  struct Pages { int p[LR]; };
+  auto fetch_page = [&](int base) {
+    Pages r;
+#pragma unroll
+    for (int k = 0; k < LR; ++k) {
+      const int pos = base + ld_r + k * kRowStep;
+      r.p[k] = pt[min(ps_shift >= 0 ? pos >> ps_shift : pos / ps, max_pages - 1)];
+    }
+    return r;
+  };
+
+  const int q_start = cu_q_lens[s];
+  const int q_len = cu_q_lens[s + 1] - q_start;
+  const int tok0 = qblk * qb;
+  if (tok0 >= q_len) return;
+  const int kv_len = kv_lens[s];
+  const int ctx = kv_len - q_len;                 // position of token 0
+  const int tok_last = min(tok0 + qb, q_len) - 1;
+  const int live_rows = (tok_last - tok0 + 1) * group;
+  const int q_pos_first = ctx + tok0;
+  const int q_pos_last = ctx + tok_last;
+  const int kv_end = min(kv_len, q_pos_last + 1);
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;      // accumulator row within the warp's 16
+  const int t = lane & 3;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = smem;                          // [kRows][HD]
+  unsigned char* kv_s = smem + Shape<HD>::Q_BYTES;    // stages x [K | V]
+
+  int start = 0;
+  if (window > 0) start = max(0, q_pos_first - window + 1);
+  start = (start / kTile) * kTile;
+  const int n_tiles = kv_end > start ? (kv_end - start + kTile - 1) / kTile : 0;
+
+  // chunk ld_q of the row's first 64-column block; chunk ld_q + 4 is 64
+  // bytes away under the swizzle, later blocks a whole [kTile][128] further
+  const int ld_off = ld_r * 128 + ((ld_q ^ (ld_r & 7)) << 4);
+  const size_t row_elems = (size_t)combined * HD;
+  const bf16* kv_head = kv + 2 * h * HD + ld_q * 8;
+  // Start the copies of the tile at `base` into ring stage `st`, K and V
+  // as one commit group. Positions at or past kv_end are zero-filled (V
+  // must be finite there: its weight is 0).
+  auto start_tile = [&](int base, int st, const Pages& pages) {
+    unsigned char* k_dst = kv_s + st * 2 * kTileBytes;
+    unsigned char* v_dst = k_dst + kTileBytes;
+#pragma unroll
+    for (int k = 0; k < LR; ++k) {
+      const int pos = base + ld_r + k * kRowStep;
+      const bool live = pos < kv_end;
+      const int page = min(max(pages.p[k], 0), num_pages - 1);
+      const int slot = page * ps + (ps_shift >= 0 ? pos & (ps - 1) : pos % ps);
+      const bf16* src = live ? kv_head + slot * row_elems : kv;
+#pragma unroll
+      for (int i = 0; i < CH / 4; ++i) {
+        // the row k * kRowStep further has the same low bits: same swizzle
+        const int off = (i >> 1) * (kTile * 128) + (ld_off ^ ((i & 1) << 6)) +
+                        k * kRowStep * 128;
+        cp_async_16(k_dst + off, src + 32 * i, live);
+        cp_async_16(v_dst + off, src + (live ? HD + 32 * i : 0), live);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Q: rows r = token_local * group + head_local, dead rows zero-filled;
+  // its copies ride in the first tile's group.
+  for (int i = tid; i < kRows * CH; i += kThreads) {
+    const int r = i / CH;
+    const int c = i % CH;
+    const bool live = r < live_rows;
+    const bf16* src = q;
+    if (live)
+      src = q + ((size_t)(q_start + tok0 + r / group) * qh + h * group + r % group) * HD + c * 8;
+    cp_async_16(q_s + tile_off<kRows>(r, c), src, live);
+  }
+  // Prologue: the first kStages - 1 tiles, then the pages of the tile the
+  // loop's first iteration will start.
+  static_assert(kRowStep % 8 == 0, "a thread's rows must share their swizzle");
+  Pages page_r = {};
+  {
+    Pages pre[kStages - 1];
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) pre[st] = fetch_page(start + st * kTile);
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < n_tiles) start_tile(start + st * kTile, st, pre[st]); else cp_async_commit();
+    }
+    if (kStages - 1 < n_tiles) page_r = fetch_page(start + (kStages - 1) * kTile);
+  }
+
+  // This thread's two rows: row0 + g and row0 + g + 8.
+  const int row0 = warp * 16;
+  int q_pos_r[2];
+  float slope_r[2], m_r[2], l_r[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = row0 + g + 8 * e;
+    const int head = h * group + r % group;
+    q_pos_r[e] = ctx + tok0 + r / group;
+    slope_r[e] = alibi != nullptr ? alibi[head] : 0.f;
+    const bool sink = sinks != nullptr;
+    m_r[e] = sink ? sinks[head] * ATTN_LOG2E : ATTN_MASK;
+    l_r[e] = (sink && t == 0) ? 1.f : 0.f;   // per-lane partial sums: seed one lane
+  }
+  // scores enter the softmax as s * sl2 in log2 units: raw dots times the
+  // folded scale when PLAIN, else already transformed in place
+  const float sl2 = PLAIN ? sm_scale * ATTN_LOG2E : 1.f;
+
+  float oacc[4 * ON];
+#pragma unroll
+  for (int i = 0; i < 4 * ON; ++i) oacc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int base = start + j * kTile;
+    const unsigned char* k_s = kv_s + (j % kStages) * 2 * kTileBytes;
+    const unsigned char* v_s = k_s + kTileBytes;
+    cp_async_wait<kStages - 2>();   // tile j (and Q) of this thread have landed
+    fence_proxy_async();            // ... where wgmma will see them
+    __syncthreads();                // everyone's have; tile j-1 has been read by all
+    const int nxt = j + kStages - 1;   // goes where tile j-1 was
+    if (nxt < n_tiles) {
+      start_tile(start + nxt * kTile, nxt % kStages, page_r);
+      if (nxt + 1 < n_tiles) page_r = fetch_page(start + (nxt + 1) * kTile);
+    } else {
+      cp_async_commit();
+    }
+
+    // S = Q.K^T: the CTA's 64 rows x 64 positions
+    float sacc[4 * kNT];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      // columns 16*ks .. of the 64-column block ks / 4
+      const uint64_t da = wgmma_desc(
+          q_s + (ks >> 2) * (kRows * 128) + (ks & 3) * 32, 16, 1024);
+      const uint64_t db = wgmma_desc(
+          k_s + (ks >> 2) * (kTile * 128) + (ks & 3) * 32, 16, 1024);
+      wgmma_m64n64k16_ss(sacc, da, db, ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    if constexpr (!PLAIN) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sacc[4 * n + e] = attn_score_log2(
+              sacc[4 * n + e], sm_scale, slope_r[e >> 1],
+              base + n * 8 + 2 * t + (e & 1), q_pos_r[e >> 1], soft_cap);
+    }
+    // wholly visible to every row of the CTA: below the first row's
+    // diagonal and inside the last row's window; else test each element
+    const bool full = base + kTile - 1 <= q_pos_first &&
+                      (window <= 0 || base > q_pos_last - window);
+    if (!full) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int pos = base + n * 8 + 2 * t + (e & 1);
+          const int q_pos = q_pos_r[e >> 1];
+          const bool valid = pos <= q_pos && pos < kv_end &&
+                             (window <= 0 || pos > q_pos - window);
+          sacc[4 * n + e] = valid ? sacc[4 * n + e] : -INFINITY;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sacc[4 * n + e]);
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float m_new = fmaxf(m_r[rr], quad_max(mx[rr]) * sl2);   // finite
+      alpha[rr] = fast_exp2(m_r[rr] - m_new);
+      m_r[rr] = m_new;
+      l_r[rr] *= alpha[rr];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // 0 for a masked (-inf) score
+        const float p = fast_exp2(fmaf(sacc[4 * n + e], sl2, -m_r[e >> 1]));
+        sacc[4 * n + e] = p;
+        l_r[e >> 1] += p;
+      }
+    }
+    // once the running maxima have settled every alpha is 1: skip the pass
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < ON; ++n) {
+        oacc[4 * n + 0] *= alpha[0];
+        oacc[4 * n + 1] *= alpha[0];
+        oacc[4 * n + 2] *= alpha[1];
+        oacc[4 * n + 3] *= alpha[1];
+      }
+    }
+    // P rounded to bf16 in registers: the A operand of P.V
+    uint32_t pa[kPK][4];
+#pragma unroll
+    for (int kk = 0; kk < kPK; ++kk) {
+      pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+    }
+    // O += P.V: V is [position][dim], read transposed; positions 16*kk ..
+    // are two groups of 8 rows, 1024 bytes apart; dims past 64 are the
+    // next block, a tile's 64 x 128 bytes further
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kPK; ++kk) {
+      const uint64_t db = wgmma_desc(v_s + kk * 16 * 128, kTile * 128, 1024);
+      if constexpr (HD == 64) {
+        wgmma_m64n64k16_rs_tb(oacc, pa[kk], db);
+      } else {
+        wgmma_m64n128k16_rs_tb(oacc, pa[kk], db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + g + 8 * rr;
+    const float l = quad_sum(l_r[rr]);
+    if (r >= live_rows) continue;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    bf16* o = out + ((size_t)(q_start + tok0 + r / group) * qh + h * group + r % group) * HD;
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(o + n * 8 + 2 * t) = __floats2bfloat162_rn(
+          oacc[4 * n + 2 * rr] * inv, oacc[4 * n + 2 * rr + 1] * inv);
+    }
+  }
+}
+
+template <int HD, bool PLAIN>
+cudaError_t launch_as(const void* q, const void* kv, const int* kv_lens,
+                      const int* page_idx, const int* cu_q_lens, const float* sinks,
+                      const float* alibi, void* out, int S, int qh, int kvh, int ps,
+                      int num_pages, int max_pages, int max_q_len, float sm_scale,
+                      int window, float soft_cap, cudaStream_t stream) {
+  const int group = qh / kvh;
+  const int qb = kRows / group;
+  constexpr size_t smem = Shape<HD>::SMEM;
+  auto kernel = prefill_wgmma_kernel<HD, PLAIN>;
+  static SmemAllowed allowed = {};
+  cudaError_t err = allow_smem(kernel, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid((max_q_len + qb - 1) / qb, kvh, S);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kv), kv_lens, page_idx,
+      cu_q_lens, sinks, alibi, static_cast<bf16*>(out), qh, kvh, ps, num_pages,
+      max_pages, sm_scale, window, soft_cap);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
+                   const int* page_idx, const int* cu_q_lens, const float* sinks,
+                   const float* alibi, void* out, int S, int qh, int kvh, int ps,
+                   int num_pages, int max_pages, int max_q_len, float sm_scale,
+                   int window, float soft_cap, cudaStream_t stream) {
+  const bool plain = alibi == nullptr && soft_cap <= 0.f && sm_scale > 0.f;
+  auto fn = plain ? launch_as<HD, true> : launch_as<HD, false>;
+  return fn(q, kv, kv_lens, page_idx, cu_q_lens, sinks, alibi, out, S, qh, kvh, ps,
+            num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, stream);
+}
+
+}  // namespace wg
+
+
 }  // namespace
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
-// dtype: 0 float32, 1 bfloat16. group = qh / kvh must be <= 64. max_q_len
-// is the longest segment of this batch (host-known; it sizes the grid).
+// dtype: 0 float32 (the CUDA-core route), 1 bfloat16 (the tensor-core
+// route). group = qh / kvh must be <= 64. max_q_len is the longest segment
+// of this batch (host-known; it sizes the grid).
 extern "C" int ragged_prefill_attention(
     const void* q, const void* kv, const int* kv_lens, const int* page_idx,
     const int* cu_q_lens, const float* sinks, const float* alibi, void* out,
@@ -233,13 +641,13 @@ extern "C" int ragged_prefill_attention(
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 0 || max_q_len <= 0) return 0;
-  if (qh % kvh != 0 || qh / kvh > kRows) return (int)cudaErrorInvalidValue;
+  if (qh % kvh != 0 || qh / kvh > 64) return (int)cudaErrorInvalidValue;
 #define ARGS q, kv, kv_lens, page_idx, cu_q_lens, sinks, alibi, out, S, qh, kvh, \
              ps, num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, st
-  if (dtype == ATTN_BF16 && hd == 64) return launch<__nv_bfloat16, 64>(ARGS);
-  if (dtype == ATTN_BF16 && hd == 128) return launch<__nv_bfloat16, 128>(ARGS);
-  if (dtype == ATTN_F32 && hd == 64) return launch<float, 64>(ARGS);
-  if (dtype == ATTN_F32 && hd == 128) return launch<float, 128>(ARGS);
+  if (dtype == ATTN_BF16 && hd == 64) return wg::launch<64>(ARGS);
+  if (dtype == ATTN_BF16 && hd == 128) return wg::launch<128>(ARGS);
+  if (dtype == ATTN_F32 && hd == 64) return simple::launch<64>(ARGS);
+  if (dtype == ATTN_F32 && hd == 128) return simple::launch<128>(ARGS);
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }

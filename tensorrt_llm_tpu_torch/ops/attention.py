@@ -46,6 +46,9 @@ class AttentionMetadata:
       max_q_len:      host int, the longest query segment (1 = decode-only
                       batch); None makes the dispatch read it from the
                       device (a sync).
+      max_kv_len:     host int, an upper bound of kv_lens (a hint: the
+                      decode kernel picks its number of KV splits from
+                      it); None means the page table's reach.
     """
     kv_lens: torch.Tensor
     page_indices: torch.Tensor
@@ -55,6 +58,7 @@ class AttentionMetadata:
     positions: torch.Tensor
     logits_indices: torch.Tensor
     max_q_len: Optional[int] = None
+    max_kv_len: Optional[int] = None
 
 
 def layer_metadata(metadata: AttentionMetadata, layer_idx: int,
@@ -129,7 +133,8 @@ def ragged_paged_attention(q: torch.Tensor,            # [T, qh, hd]
         m = min(S, T)
         out_s = paged_decode_attention(
             q[:m], kv_pages, metadata.kv_lens[:m],
-            metadata.page_indices[:m], **opts)
+            metadata.page_indices[:m], max_kv_len=metadata.max_kv_len,
+            **opts)
         if m == T:
             return out_s
         out = torch.zeros_like(q)

@@ -1,15 +1,27 @@
 """Paged GQA decode attention (one query token per sequence).
 
 Replaces the TPU kernel ``paged_decode_attention``
-(tensorrt_llm_tpu/ops/pallas/decode_attention.py:164). The CUDA kernel is
-``csrc/decode_attention.cu``: one CTA per (sequence, KV head), walking the
-sequence's pages with a float32 online softmax. It is bound by the KV
-bytes it reads (bytes / HBM bandwidth); the simple design leaves split-KV,
-cp.async/TMA pipelining and tensor-core dot products for later.
+(tensorrt_llm_tpu/ops/pallas/decode_attention.py:164). The CUDA kernels
+are in ``csrc/decode_attention.cu``. The function is bound by the KV bytes
+it reads (bytes / HBM bandwidth), so the design is about keeping enough
+bytes in flight whatever the batch: the KV axis is split across CTAs
+(flash-decoding; ``choose_splits`` picks the count on the host from ints
+it already has, so nothing syncs and the grid is fixed under a CUDA
+graph), every warp streams its own tiles through its own cp.async ring,
+and for bf16 the query heads of a KV head are one tensor-core tile
+(mma.sync on bf16, float32 softmax). Each split leaves an unnormalised
+partial (m, l, acc) in scratch allocated here, and a small merge kernel
+combines them; one split writes the output directly. float32 inputs take
+the first version's CUDA-core kernel (float32 math throughout, 1e-4
+against the plain version), with the same splits. Left for later: TMA,
+one launch instead of two when split, hd 256, int8/fp8 pools.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and runs
-``paged_decode_attention_plain`` (gather the pages, then a masked softmax)
-only for CPU tensors. ``LAUNCHES`` counts kernel launches.
+``paged_decode_attention_plain`` only for CPU tensors.
+``paged_decode_attention_plain(..., num_splits=n)`` is the plain PyTorch
+version of the split algorithm: one partial per split, merged with the
+kernel's formulas. ``LAUNCHES`` counts wrapper calls that launched (one
+per call, whatever the number of splits).
 """
 from __future__ import annotations
 
@@ -37,9 +49,46 @@ def _kernel():
     """The built C entry point, with its ctypes signature set once."""
     fn = _build.load("decode_attention").paged_decode_attention
     P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P_] * 7 + [I_] * 7 + [F_, I_, F_, I_, P_]
+    fn.argtypes = [P_] * 9 + [I_] * 7 + [F_, I_, F_, I_, I_, P_]
     fn.restype = I_
     return fn
+
+
+SPLIT_TILE = 32        # positions per tile of the split rule (the bf16
+                       # kernel's warp tile is 2048 / hd: 32 or 16)
+MIN_SPLIT = 256        # no split is planned shorter than this
+_MASK = -0.7 * torch.finfo(torch.float32).max   # csrc ATTN_MASK
+
+
+def choose_splits(num_seqs: int, num_kv_heads: int, max_kv_len: int,
+                  sm_count: int, group: int = 1) -> int:
+    """How many ways to split the KV axis: a pure function of host ints.
+
+    One split gives ``num_seqs * num_kv_heads`` CTAs (times the chunks of
+    16 query heads per KV head). Aim for one CTA per SM (measured: once
+    every SM has a CTA, more splits only add partials to write and merge),
+    never plan a split shorter than ``MIN_SPLIT`` positions of the longest
+    row, never more splits than tiles."""
+    ctas = max(1, num_seqs * num_kv_heads * (-(-group // 16)))
+    want = -(-sm_count // ctas)
+    by_len = max(1, max_kv_len // MIN_SPLIT)
+    tiles = max(1, -(-max_kv_len // SPLIT_TILE))
+    return max(1, min(want, by_len, tiles))
+
+
+def _split_bounds(kv_lens: torch.Tensor, window: Optional[int], tile: int,
+                  splits: int, split: int):
+    """[lo, hi) per row for one split: csrc attention_common.cuh
+    split_range, vectorized over rows."""
+    kv = kv_lens.long()
+    start = (kv - window).clamp(min=0) if window else torch.zeros_like(kv)
+    start = start // tile * tile
+    tiles = (kv - start + tile - 1).clamp(min=0) // tile
+    per = (tiles + splits - 1) // splits
+    lo = start + torch.minimum(split * per, tiles) * tile
+    hi = torch.minimum(kv, start + torch.minimum((split + 1) * per, tiles)
+                       * tile)
+    return lo, hi
 
 
 def paged_decode_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -49,11 +98,16 @@ def paged_decode_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
                                  sliding_window: Optional[int] = None,
                                  soft_cap: Optional[float] = None,
                                  alibi_slopes: Optional[Sequence[float]] = None,
-                                 sinks: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
+                                 sinks: Optional[torch.Tensor] = None,
+                                 num_splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gather every page of the page
     table, mask positions past kv_len (and outside the window), softmax in
-    float32 (with the sink logit in the denominator when given)."""
+    float32 (with the sink logit in the denominator when given).
+
+    With ``num_splits`` > 1 it runs the kernel's split algorithm: each
+    split computes (m, l, acc) over its share of the row's visible range,
+    seeded with ``_MASK`` (the sink logit only in split 0), and the merge
+    weighs every partial by exp(m_i - max m)."""
     S, qh, hd = q.shape
     P, ps, combined, _ = kv_pages.shape
     kvh = combined // 2
@@ -75,19 +129,52 @@ def paged_decode_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
     valid = pos[None, :] < kv_lens.long()[:, None]
     if sliding_window is not None:
         valid &= pos[None, :] > q_pos[:, None] - sliding_window
-    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
-    m = scores.amax(dim=-1)
+    sk = None
     if sinks is not None:
         sk = _as_f32(sinks, q.device).reshape(1, kvh, group)
-        m = torch.maximum(m, sk)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    e = torch.exp(scores - m[..., None])
-    denom = e.sum(dim=-1)
-    if sinks is not None:
-        denom = denom + torch.exp(sk - m)
-    probs = e / denom.clamp(min=1e-30)[..., None]
-    out = torch.einsum("skgc,sckd->skgd", probs, v)
+    if num_splits == 1:
+        scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+        m = scores.amax(dim=-1)
+        if sk is not None:
+            m = torch.maximum(m, sk)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        e = torch.exp(scores - m[..., None])
+        denom = e.sum(dim=-1)
+        if sk is not None:
+            denom = denom + torch.exp(sk - m)
+        probs = e / denom.clamp(min=1e-30)[..., None]
+        out = torch.einsum("skgc,sckd->skgd", probs, v)
+        return out.reshape(S, qh, hd).to(q.dtype)
+
+    parts = []
+    for i in range(num_splits):
+        lo, hi = _split_bounds(kv_lens, sliding_window, SPLIT_TILE,
+                               num_splits, i)
+        mine = valid & (pos[None, :] >= lo[:, None]) \
+            & (pos[None, :] < hi[:, None])
+        sc = scores.masked_fill(~mine[:, None, None, :], float("-inf"))
+        m = sc.amax(dim=-1).clamp(min=_MASK)             # [S, kvh, g]
+        l = torch.zeros_like(m)
+        if sk is not None and i == 0:                    # the sink, once
+            m = torch.maximum(m, sk)
+            l = torch.exp(sk - m)
+        e = torch.exp(sc - m[..., None])                 # 0 where masked
+        parts.append((m, l + e.sum(dim=-1),
+                      torch.einsum("skgc,sckd->skgd", e, v)))
+    m_all = torch.stack([p[0] for p in parts]).amax(dim=0)
+    l_sum = torch.zeros_like(m_all)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        w = torch.exp(m - m_all)         # an empty split: 0, or 1 times 0s
+        l_sum = l_sum + l * w
+        acc = acc + a * w[..., None]
+    out = acc / l_sum.clamp(min=1e-30)[..., None]
     return out.reshape(S, qh, hd).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -98,9 +185,16 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            alibi_slopes: Optional[Sequence[float]] = None,
                            sinks: Optional[torch.Tensor] = None,
                            k_scale: Optional[float] = None,
-                           v_scale: Optional[float] = None) -> torch.Tensor:
+                           v_scale: Optional[float] = None,
+                           max_kv_len: Optional[int] = None,
+                           num_splits: Optional[int] = None) -> torch.Tensor:
     """q [S, qh, hd]; kv_pages [P, ps, 2*kvh, hd]; kv_lens i32[S];
-    page_indices i32[S, max_pages] -> out [S, qh, hd]."""
+    page_indices i32[S, max_pages] -> out [S, qh, hd].
+
+    ``max_kv_len`` is a host-known upper bound of ``kv_lens`` (a hint: it
+    only picks the number of KV splits, any value gives the same result);
+    without it the bound is the page table's reach. ``num_splits`` forces
+    the count (tests and sweeps)."""
     global LAUNCHES
     if q.device.type == "cpu":
         if k_scale is not None or v_scale is not None:
@@ -108,7 +202,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         return paged_decode_attention_plain(
             q, kv_pages, kv_lens, page_indices, sm_scale=sm_scale,
             sliding_window=sliding_window, soft_cap=soft_cap,
-            alibi_slopes=alibi_slopes, sinks=sinks)
+            alibi_slopes=alibi_slopes, sinks=sinks,
+            num_splits=num_splits or 1)
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
             "the CUDA decode kernel has no int8/fp8 KV dequant yet")
@@ -127,15 +222,31 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     page_indices = page_indices.to(torch.int32).contiguous()
     sinks_t = _as_f32(sinks, q.device)
     alibi_t = _as_f32(alibi_slopes, q.device)
+    reach = page_indices.shape[1] * ps
+    bound = reach if max_kv_len is None else min(int(max_kv_len), reach)
+    if sliding_window:
+        bound = min(bound, int(sliding_window) + SPLIT_TILE)
+    splits = int(num_splits) if num_splits else choose_splits(
+        S, kvh, bound, _sm_count(q.device.index or 0), qh // kvh)
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if splits > 1:
+        part_acc = torch.empty((S, qh, splits, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((S, qh, splits, 2), dtype=torch.float32,
+                              device=q.device)
     err = _kernel()(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(),
         sinks_t.data_ptr() if sinks_t is not None else None,
         alibi_t.data_ptr() if alibi_t is not None else None,
-        out.data_ptr(), S, qh, kvh, hd, ps, P, page_indices.shape[1],
+        out.data_ptr(),
+        part_acc.data_ptr() if part_acc is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
+        S, qh, kvh, hd, ps, P, page_indices.shape[1],
         float(sm_scale), int(sliding_window or 0), float(soft_cap or 0.0),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        splits, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     LAUNCHES += 1
     return out

@@ -1,13 +1,28 @@
 """Causal ragged attention over the paged KV pool (prefill / mixed).
 
 Replaces the TPU kernel ``ragged_prefill_attention``
-(tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250). The CUDA kernel is
-``csrc/prefill_attention.cu``: one CTA per (block of up to 64 score rows,
-KV head, sequence), each owning disjoint output rows, with no cap on the
-segment length. At long prefills it is bound by the attention FLOPs
-(FLOPs / dense bf16 peak); the simple design runs float32 dot products on
-CUDA cores and leaves mma/wgmma, KV-tile sharing and TMA pipelining for
-later.
+(tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250). The CUDA kernels
+are in ``csrc/prefill_attention.cu``; every CTA owns disjoint output rows
+and there is no cap on the segment length. At the timed shapes the
+function's bytes and its tensor-core FLOPs are within 25 % of each other,
+so the kernel has to run both products on the tensor cores. Two routes,
+picked by the element type (``route_for``):
+
+- bf16, ``tensor_core``: FlashAttention shape on Hopper's warpgroup MMA. A
+  CTA is one warpgroup and owns 64 score rows (tokens x the query heads of
+  one KV head); K and V tiles of 64 positions stay bf16 in shared memory,
+  copied by cp.async into a ring in the swizzled layout wgmma reads;
+  S = Q.K^T is wgmma from shared memory, the online softmax runs on the
+  accumulator fragments in registers, and P goes from registers into the
+  second wgmma, which reads V transposed; tiles are classified once
+  (skipped, unmasked, edge); the longest causal spans start first.
+- float32, ``float32_simple``: the first version's CUDA-core kernel,
+  float32 math throughout (1e-4 against the plain version, which TF32
+  would not hold).
+
+Left for later: a TMA producer warp, softmax overlapped with the next
+tile's product, K/V tiles shared between the query blocks of a sequence,
+a KV split for the q_len-1 rows of mixed batches, hd 256, int8/fp8 pools.
 
 ``ragged_prefill_attention`` launches the kernel for CUDA tensors and runs
 ``ragged_prefill_attention_plain`` only for CPU tensors. ``LAUNCHES``
@@ -25,6 +40,13 @@ from . import _build
 from .decode_attention import _DTYPES, _as_f32
 
 LAUNCHES = 0
+
+
+def route_for(dtype: torch.dtype) -> str:
+    """The kernel route a CUDA tensor of ``dtype`` takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    return "tensor_core" if dtype == torch.bfloat16 else "float32_simple"
 
 
 @functools.lru_cache(maxsize=None)

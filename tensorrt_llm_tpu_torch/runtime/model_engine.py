@@ -49,6 +49,7 @@ class StepInputs:
     num_tokens: int                # actual (unpadded) token count
     num_reqs: int
     max_q_len: int                 # longest query segment (1 = decode-only)
+    max_kv_len: int                # longest KV length incl. this step
 
 
 class HostFuture:
@@ -249,7 +250,8 @@ class ModelEngine:
             num_seqs=np.asarray([len(reqs)], np.int32),
             slot_mapping=np.asarray(slot_map, np.int32),
             logits_indices=logits_idx, out_slots=out_slots,
-            num_tokens=len(tok_list), num_reqs=len(reqs), max_q_len=max_q)
+            num_tokens=len(tok_list), num_reqs=len(reqs), max_q_len=max_q,
+            max_kv_len=int(kv_lens.max()))
 
     # ------------------------------------------------------------------ #
     # Forward + sample for one scheduled batch
@@ -301,7 +303,8 @@ class ModelEngine:
         metadata = AttentionMetadata(
             kv_lens=kv_lens, page_indices=pages, cu_q_lens=cu_q,
             num_seqs=num_seqs, slot_mapping=dev_t[3], positions=dev_t[2],
-            logits_indices=logits_idx.long(), max_q_len=inp.max_q_len)
+            logits_indices=logits_idx.long(), max_q_len=inp.max_q_len,
+            max_kv_len=inp.max_kv_len)
         logits, self.kv_pages = self.model.forward(
             self.params, tokens_in, self.kv_pages, metadata)
 
@@ -398,7 +401,10 @@ class ModelEngine:
         active = valid & (max_new > 0)
         emitted = torch.zeros(Sb, dtype=torch.int32, device=self.device)
         toks, lps = [], []
-        for _ in range(K):
+        # host-known bound of every row's kv_len at step k of the window:
+        # a row advances by at most one position per step
+        max_start = int(ints[2].max()) if n else 0
+        for step in range(K):
             kv_len = torch.where(valid, pos + 1, 1).to(torch.int32)
             page_row = pages[iota, (pos // ps).clamp(0, P - 1).long()]
             slot_map = torch.where(active, page_row * ps + pos % ps,
@@ -406,7 +412,8 @@ class ModelEngine:
             metadata = AttentionMetadata(
                 kv_lens=kv_len, page_indices=pages, cu_q_lens=cu_q,
                 num_seqs=num_seqs, slot_mapping=slot_map,
-                positions=pos, logits_indices=iota, max_q_len=1)
+                positions=pos, logits_indices=iota, max_q_len=1,
+                max_kv_len=max_start + step + 1)
             logits, self.kv_pages = self.model.forward(
                 self.params, cur, self.kv_pages, metadata)
             slot_idx = torch.where(active, out_slots, nslots).long()

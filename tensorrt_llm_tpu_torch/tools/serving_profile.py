@@ -19,16 +19,22 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 
+_DECODE = ("decode_tc_kernel", "decode_f32_simple_kernel",
+           "decode_merge_kernel")
+_PREFILL = ("prefill_wgmma_kernel", "prefill_f32_simple_kernel")
+
+
 def _class(name: str) -> str:
-    if "decode_kernel" in name:
+    if any(k in name for k in _DECODE):
         return "decode_attention"
-    if "prefill_kernel" in name:
+    if any(k in name for k in _PREFILL):
         return "prefill_attention"
     if "quant_matmul_kernel" in name:
         return "quant_matmul"
@@ -50,6 +56,7 @@ def main() -> None:
 
     from tensorrt_llm_tpu_torch import LLM, SamplingParams
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
     from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
     cfg = LlamaConfig(vocab_size=32000, hidden_size=2048,
                       intermediate_size=5632, num_hidden_layers=22,
@@ -68,6 +75,7 @@ def main() -> None:
         llm.generate(prompts, sp)
         torch.cuda.synchronize()
         plain_wall = time.monotonic() - t0
+        dec.LAUNCHES = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
@@ -91,10 +99,14 @@ def main() -> None:
         kernels.append((dev_us / 1e3, e.count, e.key[:90]))
     kernels.sort(reverse=True)
     busy_ms = sum(by_class.values())
-    decode_launches = sum(n for _, n, k in kernels if "decode_kernel" in k)
-    steps = max(1, decode_launches // cfg.num_hidden_layers)
+    # one wrapper call per layer per decode step, whatever the KV splits
+    steps = max(1, dec.LAUNCHES // cfg.num_hidden_layers)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
         "quant_algo": args.quant,
         "wall_ms": plain_wall * 1e3, "profiled_wall_ms": wall * 1e3,
         "gpu_kernel_ms": busy_ms,

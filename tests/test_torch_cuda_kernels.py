@@ -102,6 +102,118 @@ def test_prefill_kernel_matches_plain(cuda, dtype, q_lens, ctx_lens, qh, kvh,
     torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_splits", [2, 5, None])
+@pytest.mark.parametrize("kv_lens,qh,kvh,hd,ps,opt", [
+    ([7, 300, 1, 0, 65, 0, 1000], 8, 2, 64, 16, None),   # ragged, zeros
+    ([2500, 40, 0, 1700], 32, 4, 64, 32, None),     # chosen value > 1
+    ([900, 33, 513], 16, 4, 128, 16, None),
+    ([700, 31], 40, 2, 64, 32, None),               # three chunks of heads
+    ([161, 5, 290, 0], 8, 2, 64, 16, "window_softcap"),
+    ([170, 44, 3, 0], 8, 2, 64, 16, "sinks"),
+    ([9, 380, 26], 8, 2, 128, 16, "alibi"),
+])
+def test_decode_kernel_split_matches_plain(cuda, dtype, num_splits, kv_lens,
+                                           qh, kvh, hd, ps, opt):
+    """Forced and chosen numbers of KV splits against the unsplit plain
+    version: empty splits, rows of length 0, the sink counted once."""
+    S = len(kv_lens)
+    q, pool, _, pt, _ = _inputs([1] * S, [max(k - 1, 0) for k in kv_lens],
+                                qh, kvh, hd, ps, dtype, cuda, seed=2)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5, **_opts(opt, qh, cuda))
+    before = dec.LAUNCHES
+    got = dec.paged_decode_attention(q, pool, kvl, pt, num_splits=num_splits,
+                                     max_kv_len=max(kv_lens), **kw)
+    torch.cuda.synchronize()
+    assert dec.LAUNCHES == before + 1            # one per call, not per split
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+    assert not got[torch.tensor(kv_lens) == 0].any()
+
+
+def test_decode_float32_growing_group_in_one_process(cuda):
+    """The float32 route sizes its shared memory from the run-time group:
+    a larger group after a smaller one must still launch (hd 128: group 8
+    fits the default limit, 32 and 64 each need a larger opt-in)."""
+    for group in (8, 32, 64):
+        kv_lens = [70, 0, 333]
+        q, pool, _, pt, _ = _inputs([1] * 3, [max(k - 1, 0) for k in kv_lens],
+                                    group, 1, 128, 16, torch.float32, cuda,
+                                    seed=group)
+        kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+        got = dec.paged_decode_attention(q, pool, kvl, pt, sm_scale=0.1)
+        torch.cuda.synchronize()
+        ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, sm_scale=0.1)
+        torch.testing.assert_close(got, ref, **TOLS[torch.float32])
+
+
+def test_decode_chosen_splits_follow_the_hint(cuda):
+    """Few long rows split; the same rows with a short host bound do not;
+    the result is the same either way."""
+    kv_lens = [3000, 2000]
+    q, pool, _, pt, _ = _inputs([1, 1], [k - 1 for k in kv_lens], 32, 4, 64,
+                                32, torch.bfloat16, cuda, seed=3)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    reach = pt.shape[1] * 32
+    assert dec.choose_splits(2, 4, reach, sms, 8) > 1
+    assert dec.choose_splits(2, 4, 200, sms, 8) == 1
+    a = dec.paged_decode_attention(q, pool, kvl, pt, sm_scale=0.125)
+    b = dec.paged_decode_attention(q, pool, kvl, pt, sm_scale=0.125,
+                                   max_kv_len=200)
+    torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "float32_simple"),
+                                         (torch.bfloat16, "tensor_core")])
+@pytest.mark.parametrize("q_lens,ctx_lens,qh,kvh,hd,ps,opt,window", [
+    ([70, 1, 45], [3, 90, 0], 6, 2, 64, 16, None, None),    # group 3: 126 rows
+    ([13, 300], [0, 0], 4, 2, 64, 16, None, None),  # 300 tokens at offset 13
+    ([13, 300], [5, 77], 16, 4, 128, 16, None, None),
+    ([200, 40], [100, 0], 8, 2, 64, 16, "window", 20),      # window < a tile
+    ([200, 40], [100, 0], 8, 2, 128, 32, "window", 70),
+    ([1, 1, 1], [500, 0, 63], 32, 4, 64, 32, None, None),   # decode rows only
+    ([64, 2], [0, 700], 64, 1, 64, 32, None, None),         # group 64
+])
+def test_prefill_routes_match_plain(cuda, dtype, route, q_lens, ctx_lens, qh,
+                                    kvh, hd, ps, opt, window):
+    assert pre.route_for(dtype) == route
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx_lens, qh, kvh, hd, ps, dtype,
+                                   cuda, seed=4)
+    kw = dict(sm_scale=hd ** -0.5)
+    if opt == "window":
+        kw["sliding_window"] = window
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                       max_q_len=max(q_lens), **kw)
+    torch.cuda.synchronize()
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+def test_prefill_pool_garbage_past_kv_len_is_ignored(cuda):
+    """Positions past kv_len inside a tile may hold anything (NaN here):
+    their weight is 0 and they must not reach the output."""
+    q, pool, kvl, pt, cu = _inputs([50, 1], [0, 70], 8, 2, 64, 16,
+                                   torch.bfloat16, cuda, seed=5)
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu,
+                                             sm_scale=0.125)
+    flat = pool.view(-1, 16, 4, 64)
+    for s, n in enumerate(kvl.tolist()):
+        page, off = pt[s, n // 16].item(), n % 16
+        flat[page, off:] = float("nan")
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu, max_q_len=50,
+                                       sm_scale=0.125)
+    dgot = dec.paged_decode_attention(q[50:], pool, kvl[1:], pt[1:],
+                                      sm_scale=0.125)
+    torch.cuda.synchronize()
+    tol = TOLS[torch.bfloat16]
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    torch.testing.assert_close(dgot.float(), ref[50:].float(), **tol)
+
+
 def _quant_inputs(M, K, N, G, bits, dtype, device, seed=0):
     """Seeded x, a group-quantized weight (packed for int4) and scales."""
     from tensorrt_llm_tpu_torch.ops import quant as Q
