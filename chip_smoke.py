@@ -22,7 +22,9 @@ the run on error:
      one: ``scaled_dot_product_attention`` over the gathered KV for the
      attention kernels (with a mask of each row's length where the
      decode rows differ in length), ``F.linear`` on the weight dequantized to bf16
-     beforehand (4x the int4 bytes) for the dequant-matmul kernel;
+     beforehand (4x the int4 bytes) for the dequant-matmul kernel, which
+     is also timed with its weights cold (rotating over copies past the
+     L2 cache) at the serving shapes;
   3. parity: through ``LLM.generate`` on the card and on the CPU (the
      plain path the CPU tests hold to the JAX package), (a) the float32
      parity checkpoint (tests/assets/tinycode-llama) must give identical
@@ -216,28 +218,36 @@ def kernel_phase():
 def quant_kernel_phase(results: dict) -> None:
     """K3: the dequant-matmul kernel at the serving shapes of the
     TinyLlama-1.1B geometry (M = 64 decode rows; qkv, o, gate_up, down),
-    one row, 128 rows, the int8 body at the MXFP4 and NVFP4 group sizes,
-    and an N that is no multiple of the 32-column tile."""
+    16 rows (the serving run's live rows), one row, 128 rows, the int8 body
+    at the MXFP4 and NVFP4 group sizes, and an N that is no multiple of
+    16 (the narrow-copy route). Each case prints the host rule's split
+    count along K. The serving shapes and the 16-row case are also timed
+    cold: rotating over copies of the weight and scales (and of the bf16
+    weight for ``F.linear``) that together pass COLD_BYTES, as a decode
+    step streams every layer's weights from HBM; the share of the bound
+    is read from the cold time."""
     import torch
     import torch.nn.functional as F
     from tensorrt_llm_tpu_torch.ops import quant as Q
     from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
     from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     one = torch.empty(1, device="cuda")
     emit({"phase": "kernels", "case": "launch_floor",
           "note": "an empty elementwise launch, timed like every kernel",
           "ms": time_ms(lambda: one.fill_(1.0), 30)})
-    for name, M, K, N, G, bits in [
-            ("qmm_qkv", 64, 2048, 2560, 128, 4),
-            ("qmm_o", 64, 2048, 2048, 128, 4),
-            ("qmm_gate_up", 64, 2048, 11264, 128, 4),
-            ("qmm_down", 64, 5632, 2048, 128, 4),
-            ("qmm_rows1", 1, 2048, 2560, 128, 4),
-            ("qmm_rows128", 128, 2048, 2560, 128, 4),
-            ("qmm_int8_group32", 64, 2048, 2560, 32, 8),
-            ("qmm_int8_group16", 64, 2048, 2560, 16, 8),
-            ("qmm_ragged_n257", 64, 2048, 257, 128, 4)]:
+    for name, M, K, N, G, bits, cold in [
+            ("qmm_qkv", 64, 2048, 2560, 128, 4, True),
+            ("qmm_o", 64, 2048, 2048, 128, 4, True),
+            ("qmm_gate_up", 64, 2048, 11264, 128, 4, True),
+            ("qmm_down", 64, 5632, 2048, 128, 4, True),
+            ("qmm_rows16", 16, 2048, 11264, 128, 4, True),
+            ("qmm_rows1", 1, 2048, 2560, 128, 4, False),
+            ("qmm_rows128", 128, 2048, 2560, 128, 4, False),
+            ("qmm_int8_group32", 64, 2048, 2560, 32, 8, False),
+            ("qmm_int8_group16", 64, 2048, 2560, 16, 8, False),
+            ("qmm_ragged_n257", 64, 2048, 257, 128, 4, False)]:
         g = torch.Generator(device="cuda").manual_seed(len(name) + M)
         x = torch.randn((M, K), generator=g, device="cuda",
                         dtype=torch.bfloat16)
@@ -263,12 +273,48 @@ def quant_kernel_phase(results: dict) -> None:
         io_bytes = K * N * bits // 8 + s.numel() * 4 + x.numel() * 2 \
             + M * N * 2
         flops = 2 * M * K * N
-        results[name] = dict(
+        res = dict(
             shape=dict(M=M, K=K, N=N, group=G, bits=bits),
+            splits=qmm.choose_splits(M, K, N, G, bits, sms),
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, library_max_abs_err=lib_err,
             bytes=io_bytes, flops=flops, **_bound(io_bytes, flops))
-        emit({"phase": "kernels", "case": name, **results[name]})
+        if cold:
+            qs = _copies([q, s])
+            wds = _copies([wd])
+            res["ms_cold"] = time_ms(_rotate(
+                lambda i: qmm.groupwise_dequant_matmul(x, *qs[i], **kw),
+                len(qs)), 30)
+            res["library_ms_cold"] = time_ms(_rotate(
+                lambda i: F.linear(x, wds[i][0]), len(wds)), 30)
+            res["cold_copies"] = [len(qs), len(wds)]
+            res["bound_share_cold"] = res["bound_ms"] / res["ms_cold"]
+            del qs, wds
+        results[name] = res
+        emit({"phase": "kernels", "case": name, **res})
+        del x, q, s, wd, got, ref, lib
+        torch.cuda.empty_cache()
+
+
+COLD_BYTES = 100e6      # well past the H100's 50 MB L2
+
+
+def _copies(tensors):
+    """Enough copies of ``tensors`` to pass COLD_BYTES together."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    n = int(COLD_BYTES // size) + 2
+    return [[t.clone() for t in tensors] for _ in range(n)]
+
+
+def _rotate(fn, n):
+    """A function that calls ``fn(i)`` for i = 1, 2, ..., n - 1, 0, 1, ...:
+    each launch reads a copy that the last n - 1 launches did not."""
+    state = [0]
+
+    def step():
+        state[0] = (state[0] + 1) % n
+        return fn(state[0])
+    return step
 
 
 def _bound(io_bytes: int, flops: int) -> dict:
@@ -539,7 +585,9 @@ def main() -> int:
                             if c.startswith(group)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"]))
+            shape=r["shape"],
+            **{k: r[k] for k in ("ms_cold", "library_ms_cold", "splits")
+               if k in r}))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

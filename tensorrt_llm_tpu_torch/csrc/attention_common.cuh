@@ -2,13 +2,16 @@
 // prefill_attention.cu): element conversion, 16-byte vector loads, warp
 // and quad reductions, the score transform, and the tensor-core building
 // blocks of the bf16 routes (cp.async, ldmatrix, mma.sync m16n8k16, the
-// shared-memory swizzle) with the launch-side shared-memory opt-in.
+// shared-memory swizzle); the launch-side shared-memory opt-in is in
+// smem_optin.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include "smem_optin.cuh"
 
 // Online-softmax seed when a row has no sink logit: finite, so that
 // exp(MASK - m) is exactly 0 once a real score arrives (the TPU kernels'
@@ -182,26 +185,4 @@ __device__ __forceinline__ void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Dynamic shared memory above 48 KB needs an explicit opt-in per kernel
-// and per device. `allowed` is the caller's record for this kernel (one
-// static per template instantiation) of the bytes opted in on each device,
-// so the attribute is set only when a launch on the current device needs
-// more than an earlier one did (the size may depend on run-time arguments).
-constexpr int kSmemDevices = 64;   // devices remembered; others always set
-struct SmemAllowed { int bytes[kSmemDevices]; };
-
-template <typename K>
-static cudaError_t allow_smem(K kernel, size_t bytes, SmemAllowed* allowed) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const bool known = dev >= 0 && dev < kSmemDevices;
-  if (known && (int)bytes <= allowed->bytes[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (known && err == cudaSuccess) allowed->bytes[dev] = (int)bytes;
-  return err;
 }

@@ -10,329 +10,585 @@
 // product with its slice of x is accumulated in float32, multiplied by the
 // group's scale row and added to the float32 result; out [M, N] bf16.
 // Contract: G in {16, 32, 64, 128}; int4 K % 2G == 0, int8 K % G == 0; any
-// N (edge columns are guarded, not padded).
+// N (edge columns are zero-filled on the way in and not written).
 //
-// Design (simple first version): one CTA of sixteen warps per tile of 32
-// output columns and block of up to 64 rows. K is walked in chunks of 128
-// stored weight rows (for int4 that is 128 rows of the low half of K and
-// the 128 matching rows of the high half). A chunk's weights (128 x 32
-// bytes), the matching columns of x (two slices for int4) and its scale
-// rows are copied into shared memory with cp.async, into a ring of three
-// buffers, so the next two chunks are in flight while one is multiplied.
-// Warp (c, k) owns the 8-column slice c and the 32-row slice k of the
-// chunk: it widens the nibbles/bytes of a 16 x 8 weight fragment once,
-// feeds it to mma.sync m16n8k16 (bf16 in, float32 out) for every 16-row
-// block of x (A fragments by ldmatrix), and after the last fragment of a
-// group multiplies the partial sums by the two scales its accumulator
-// columns need. The four row slices' float32 sums meet in shared memory
-// at the end. Staged rows are padded (x by 8 elements, weights to 36
-// bytes) so the fragment reads hit 32 distinct banks. Group size, bits
-// and row blocks are template parameters: every inner loop has a
-// compile-time trip count.
+// What bounds it on the H100: up to 64 rows, the bytes of the quantized
+// weight (K*N/2 or K*N) over 3.35 TB/s. At M = 64 with int4 the product is
+// 256 FLOP per weight byte against the card's ridge of ~295 (989 TFLOP/s
+// over 3.35 TB/s), so the tensor cores must run near their peak to keep up
+// with the memory; at M = 128 the FLOPs bound it.
 //
-// What bounds it on the H100: at M <= 128 the bytes of the quantized
-// weight (K*N/2 or K*N) over 3.35 TB/s; the product itself would take
-// 2*M*K*N / 989 TFLOP/s on the tensor cores. What this design leaves on
-// the table: every CTA stages all of x again (N/32 copies through L2),
-// N = 2048 gives only 64 CTAs for 132 SMs (no split over K across CTAs),
-// each fragment byte is read with its own shared-memory load and widened
-// through an int-to-float conversion, the ring is filled by all threads
-// rather than by TMA, and mma.sync reaches about half of what wgmma does.
+// Design. The product is computed transposed, out^T = W^T x^T, so that the
+// widened weights are wgmma's A operand in registers (m64: 64 weight
+// columns per warpgroup) and x is the B operand, read by wgmma from shared
+// memory as stored ([row][k], K-major, 128-byte swizzle), with wgmma's N =
+// the rows rounded up to 8 (8, 16, 32 or 64; a second row block above 64).
+//   * Fewer x bytes per weight byte: a CTA covers 128 weight columns (two
+//     consumer warpgroups) and stages each x slice once for all of them
+//     (the first version staged x once per 32 columns).
+//   * Enough CTAs: K is split across the CTAs of a thread-block cluster
+//     (1, 2 or 4, chosen on the host from M, K, N, G, bits and the SM
+//     count: about one CTA per SM), in whole chunks of groups. Each CTA
+//     leaves its float32 tile in its own shared memory; after a cluster
+//     barrier, CTA r sums rows r/S.. of every member's tile in member order
+//     through distributed shared memory and writes bf16. One launch, no
+//     atomics: the same inputs give the same bits.
+//   * Cheap widening: a warp's 16 weight columns of a 16-row step come in
+//     with one ldmatrix.x2.trans on byte pairs; the transpose hands each
+//     thread two rows of two adjacent columns, which are exactly its A
+//     fragment registers once fragment row g is read as column 2g and row
+//     g + 8 as column 2g + 1 (the scales and the epilogue undo that order).
+//     One packed register serves both int4 halves. A nibble pair becomes a
+//     bf16 pair with one lop3, (v & 0x000F000F) ^ 0x43084308 = 128 + (v ^
+//     8), and one bf16x2 subtraction of 136: exact. int8 goes through an
+//     exact int-to-float conversion.
+//   * wgmma for the product, group scaling beside it: each (segment of a
+//     group, half) is one batch of wgmmas into a partial accumulator,
+//     zeroed by the group's first batch; both halves' batches are issued
+//     back to back into two partials, and while a warpgroup waits for them
+//     and multiplies them by their float32 scales into the float32 sum,
+//     the other warpgroup's batches run.
+//   * Copies that overlap the math: one producer warp fills a ring of
+//     stages of 64 stored rows (x slices and weight bytes by TMA into the
+//     128-byte swizzle, scale rows by cp.async) and signals an mbarrier per
+//     stage; the consumers release a stage through another mbarrier once
+//     the wgmmas that read it have completed. Where N % 16 != 0 the weight
+//     rows are not 16-byte aligned, as TMA needs, and the producer copies
+//     them in 4-byte pieces (N % 4 == 0) or bytes: a route chosen by shape.
+// The weight bytes stay in the JAX package's layout; a load-time repack
+// into fragment order is left for later.
 
+#include <cuda.h>   // CUtensorMap; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_optin.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kTN = 32;              // output columns per CTA: four 8-column slices
-constexpr int kKSplit = 4;           // row slices per chunk, one warp each per column slice
-constexpr int kThreads = 128 * kKSplit;
-constexpr int kChunk = 128;          // stored weight rows per ring buffer
-constexpr int kSlice = kChunk / kKSplit;   // rows of a chunk per warp: two k16 steps
-constexpr int kWStride = kTN + 4;    // bytes per staged weight row
-constexpr int kXPad = 8;             // bf16 elements of padding per x row
-constexpr int kStages = 3;           // ring depth (chunks)
-constexpr int kRedStride = kTN + 1;  // floats per row of the final reduction
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
+constexpr int kTN = 128;                          // weight columns per CTA
+constexpr int kConsumers = 2;                     // warpgroups, 64 columns each
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kThreads = kConsumerThreads + 32;   // + the producer warp
+constexpr int kRowBlock = 64;                     // x rows per CTA (grid.z covers more)
+constexpr int kRedRow = kTN + 4;                  // floats per row of the partial tile
+constexpr int kRingBudget = 200 * 1024;
+constexpr int kMaxStages = 8;
+
+// Shared-memory plan for BITS (4 or 8), NB x rows (8, 16, 32, 64) and
+// group size G. K is split across CTAs in chunks of CH stored weight rows
+// (one group, or 64 rows of smaller groups). The ring's stages are 64
+// stored rows each: a stage holds the x slice of each half ([NB][64]
+// bf16), the weight bytes ([64][kTN]), both in the 128-byte swizzle
+// (16-byte piece c of row r at c ^ (r % 8)), and the scale rows of the
+// groups it touches ([HALVES][SEGS][kTN] float). A stage is SEGS segments
+// of SEG rows; a segment is a whole group, or part of a 128-row group.
+template <int BITS, int NB, int G>
+struct Plan {
+  static constexpr int HALVES = BITS == 4 ? 2 : 1;
+  static constexpr int CH = G > 64 ? G : 64;
+  static constexpr int SEG = G < 64 ? G : 64;       // rows of a segment
+  static constexpr int SEGS = 64 / SEG;             // segments per stage
+  static constexpr int PARTS = G > 64 ? G / 64 : 1;   // stages per group
+  static constexpr int KS = SEG / 16;               // k16 steps per segment
+  static constexpr int XH = NB * 128;               // bytes of one half's x slice
+  static constexpr int W_OFF = HALVES * XH;
+  static constexpr int S_OFF = W_OFF + 64 * kTN;
+  static constexpr int TMA_BYTES = HALVES * XH;     // x boxes per stage
+  static constexpr int STAGE = (S_OFF + HALVES * SEGS * kTN * 4 + 1023) / 1024 * 1024;
+  static constexpr int STAGES =
+      kRingBudget / STAGE > kMaxStages ? kMaxStages : kRingBudget / STAGE;
+  static constexpr int RED = NB * kRedRow * 4;
+  static constexpr int RING = STAGES * STAGE > RED ? STAGES * STAGE : RED;
+  static constexpr int SMEM = RING + 2048;          // barriers + alignment slack
+  static_assert(STAGES >= 2, "ring too shallow");
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of 16 or 4 bytes; the first `src_bytes` are read, the rest of
+// the piece is zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// A 2-D box of a tensor map into shared memory; its bytes count against
+// the mbarrier's expected transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
 }
 
-// The 16 x 16 bf16 A fragment of mma.m16n8k16 in one instruction: lanes
-// 0-15 give the addresses of rows 0-15 at column 0, lanes 16-31 those of
-// rows 0-15 at column 8 (each row 16 bytes, 16-byte aligned).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* row) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-// One stored byte -> the integer it holds for this pass. int4: half 0 is
-// the low nibble, half 1 the high nibble, both sign-extended from 4 bits.
-template <int BITS>
-__device__ __forceinline__ int widen(uint8_t b, int half) {
-  if (BITS == 8) return (int)(int8_t)b;
-  const int nib = half == 0 ? (b & 0x0F) : (b >> 4);
-  return (nib ^ 8) - 8;
+// Byte offset of byte c of stored row r in a swizzled [rows][kTN] tile.
+__device__ __forceinline__ int wsw(int r, int c) {
+  return r * kTN + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
 }
 
-// Two small integers -> one register of two bf16 (exact), first in the
-// low 16 bits.
-__device__ __forceinline__ uint32_t bf16_pair(int first, int second) {
-  __nv_bfloat162 h = __floats2bfloat162_rn((float)first, (float)second);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// The barrier's phase also waits for this thread's cp.async copies so far.
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Four floats at the same shared-memory offset in CTA `rank` of the cluster.
+__device__ __forceinline__ float4 ld_cluster(const float* p, int rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// Two 8x8 b16 matrices, each transposed on the way: lanes 0-7 give the
+// rows of the first, lanes 8-15 those of the second.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(row)));
+}
+
+// Nibbles at bits 0-3 and 16-19 (two's complement int4) -> two bf16, the
+// first in the low half: 128 + (v ^ 8) built in the mantissa of 128.0,
+// minus 136. Exact.
+__device__ __forceinline__ uint32_t int4_pair(uint32_t v) {
+  const uint32_t biased = (v & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 h = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+                             __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+// Bytes at bits 0-7 and 16-23 (int8) -> two bf16 (exact: |v| <= 128).
+__device__ __forceinline__ uint32_t int8_pair(uint32_t v) {
+  __nv_bfloat162 h = __floats2bfloat162_rn((float)(int8_t)(v & 0xFFu),
+                                           (float)(int8_t)((v >> 16) & 0xFFu));
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+// Reads of wgmma accumulators stay after the wait that completes them:
+// later instructions depend on this asm's outputs, so the compiler cannot
+// hoist them above the wait (a read inside the pipeline makes it
+// serialize every wgmma).
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// The packed bytes of one segment for this thread: the warp's 16 columns
+// (starting at `col`), KS x 16 stored rows from `row0` of the stage.
+// raw[s][0] holds stored rows 2t, 2t+1 and raw[s][1] rows 2t+8, 2t+9 of
+// step s, each for columns 2g and 2g + 1 (fragment rows g and g + 8).
+template <int KS>
+__device__ __forceinline__ void load_raw(uint32_t (&raw)[KS][2], const uint8_t* ws, int row0,
+                                         int col, int lane) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+    ldmatrix_x2_trans(raw[s][0], raw[s][1], ws + wsw(row0 + 16 * s + (lane & 15), col));
 }
 
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+// A fragments of one half from the packed bytes: register a[s] is
+// mma.m16n8k16's A layout for k16 step s, fragment row g = column 2g, row
+// g + 8 = column 2g + 1.
+template <int BITS, int HALF, int KS>
+__device__ __forceinline__ void widen(uint32_t (&a)[KS][4], const uint32_t (&raw)[KS][2]) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if constexpr (BITS == 4) {
+        a[s][2 * i] = int4_pair(raw[s][i] >> (4 * HALF));
+        a[s][2 * i + 1] = int4_pair(raw[s][i] >> (4 * HALF + 8));
+      } else {
+        a[s][2 * i] = int8_pair(raw[s][i]);
+        a[s][2 * i + 1] = int8_pair(raw[s][i] >> 8);
+      }
+    }
+  }
 }
 
-// BITS: 4 (packed split halves) or 8. MT: 16-row blocks per CTA (1, 2 or
-// 4). G: quantization group size.
-template <int BITS, int MT, int G>
-struct Tile {
-  static constexpr int HALVES = BITS == 4 ? 2 : 1;
-  static constexpr int TM = MT * 16;
-  static constexpr int NG = kChunk / G;                       // groups per chunk and half
-  static constexpr int XS_STRIDE = kChunk + kXPad;            // bf16 elements
-  static constexpr int XS_BYTES = 2 * HALVES * TM * XS_STRIDE;
-  static constexpr int WS_BYTES = kChunk * kWStride;
-  static constexpr int SC_BYTES = 4 * HALVES * NG * kTN;
-  static constexpr int STAGE_BYTES = XS_BYTES + WS_BYTES + SC_BYTES;   // multiple of 16
-  static constexpr int RED_BYTES = 4 * kKSplit * TM * kRedStride;
-  static constexpr int SMEM_BYTES =
-      kStages * STAGE_BYTES > RED_BYTES ? kStages * STAGE_BYTES : RED_BYTES;
-};
+// One (segment, half) batch: p = A . x over the segment's KS k16 steps;
+// `desc` addresses the segment's first step in the x slice (steps are 32
+// bytes apart in the swizzled rows); `fresh` starts the partial at 0.
+template <int NB, int KS>
+__device__ __forceinline__ void issue(float (&p)[NB / 2], const uint32_t (&a)[KS][4],
+                                      uint64_t desc, bool fresh) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KS; ++s) wgmma_rs<NB>(p, a[s], desc + 2 * s, s > 0 || !fresh);
+  wgmma_commit();
+}
 
-template <int BITS, int MT, int G>
-__global__ void __launch_bounds__(kThreads)
-quant_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out,
-                    int M, int K, int N) {
-  using T = Tile<BITS, MT, G>;
-  constexpr int HALVES = T::HALVES;
-  constexpr int TM = T::TM;
-  constexpr int NG = T::NG;
-  constexpr int XS = T::XS_STRIDE;
-  extern __shared__ __align__(16) unsigned char smem[];   // kStages x [x | w | scales]
+// acc += p * scale of the accumulator row's column (rows g: sc.x, g + 8: sc.y).
+template <int NR>
+__device__ __forceinline__ void scale_add(float (&acc)[NR], float (&p)[NR], float2 sc) {
+  keep(p);
+#pragma unroll
+  for (int i = 0; i < NR; ++i) acc[i] = fmaf(p[i], (i & 2) ? sc.y : sc.x, acc[i]);
+}
+
+template <int BITS, int NB, int G>
+__global__ void __launch_bounds__(kThreads, 1)
+quant_matmul_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w_map, const uint8_t* __restrict__ w,
+                    const float* __restrict__ scales, bf16* __restrict__ out, int M, int K,
+                    int N, int w_piece, int s_piece) {
+  using P = Plan<BITS, NB, G>;
+  constexpr int HALVES = P::HALVES;
+  constexpr int NR = NB / 2;   // accumulator floats per thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + P::STAGES;
+  const unsigned raw = smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + 256 + 1023) & ~1023u) - raw);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int cw = (tid >> 5) & 3;     // column slice of this warp
-  const int kw = tid >> 7;           // row slice of this warp
-  const int g = lane >> 2;           // fragment row / column group
-  const int t = lane & 3;
   const int n0 = blockIdx.x * kTN;
-  const int m0 = blockIdx.y * TM;
-  const int Kh = K / HALVES;         // stored weight rows
-  const int groups = Kh / G;         // groups per half
-  const int chunks = (Kh + kChunk - 1) / kChunk;
-  const bool word_loads = (N % 4) == 0;
+  const int splits = gridDim.y;
+  const int m0 = blockIdx.z * kRowBlock;
+  const int rows_m = min(kRowBlock, M - m0);
+  const int Kh = K / HALVES;       // stored weight rows
+  const int groups = Kh / G;       // groups per half
+  // This CTA's chunks: an even share, the first `extra` CTAs one more
+  // (ops/cuda/quant_matmul.py split_chunks computes the same); its stored
+  // rows [row_begin, row_end), walked in stages of 64.
+  const int chunks = (Kh + P::CH - 1) / P::CH;
+  const int per = chunks / splits;
+  const int extra = chunks % splits;
+  const int c_begin = blockIdx.y * per + min((int)blockIdx.y, extra);
+  const int row_begin = c_begin * P::CH;
+  const int row_end = min(Kh, (c_begin + per + ((int)blockIdx.y < extra ? 1 : 0)) * P::CH);
+  const int n_stages = (row_end - row_begin + 63) / 64;
 
-  // Start the copies of chunk c into ring buffer `buf` (cp.async where a
-  // whole aligned word or vector is in range, plain stores elsewhere).
-  // Rows past the end of K are neither copied nor read.
-  auto stage = [&](int c, int buf) {
-    unsigned char* base = smem + buf * T::STAGE_BYTES;
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
-    uint8_t* ws = base + T::XS_BYTES;
-    float* sc = reinterpret_cast<float*>(base + T::XS_BYTES + T::WS_BYTES);
-    const int rows = min(kChunk, Kh - c * kChunk);
+  if (tid == 0) {
 #pragma unroll
-    for (int i = tid; i < kChunk * (kTN / 4); i += kThreads) {
-      const int r = i / (kTN / 4);
-      const int c4 = (i % (kTN / 4)) * 4;
-      if (r >= rows) continue;
-      const int8_t* src = w + (size_t)(c * kChunk + r) * N + n0 + c4;
-      uint8_t* dst = ws + r * kWStride + c4;
-      if (word_loads && n0 + c4 + 3 < N) {
-        cp_async_4(dst, src);
-      } else {
-        uint32_t v = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n0 + c4 + j < N) v |= (uint32_t)(uint8_t)src[j] << (8 * j);
-        *reinterpret_cast<uint32_t*>(dst) = v;
-      }
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumerThreads);
     }
-    constexpr int VECS = kChunk / 8;   // 16-byte vectors per staged x row
-#pragma unroll
-    for (int i = tid; i < HALVES * TM * VECS; i += kThreads) {
-      const int h = i / (TM * VECS);
-      const int rem = i % (TM * VECS);
-      const int r = rem / VECS;
-      const int v = (rem % VECS) * 8;
-      if (v >= rows) continue;
-      __nv_bfloat16* dst = xs + (h * TM + r) * XS + v;
-      if (m0 + r < M)
-        cp_async_16(dst, x + (size_t)(m0 + r) * K + h * Kh + c * kChunk + v);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = tid; i < HALVES * NG * kTN; i += kThreads) {
-      const int h = i / (NG * kTN);
-      const int gi = (i / kTN) % NG;
-      const int cc = i % kTN;
-      if (gi * G >= rows) continue;
-      if (n0 + cc < N)
-        cp_async_4(sc + i, scales + (size_t)(h * groups + c * NG + gi) * N + n0 + cc);
-      else
-        sc[i] = 0.f;
-    }
-    cp_async_commit();
-  };
-
-  float acc[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
-
-  // Ring of kStages chunks: kStages - 1 are in flight while one is
-  // multiplied. Every step commits one cp.async group (an empty one past
-  // the end), so "all but the newest kStages - 2" always means "chunk c".
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < chunks) stage(s, s); else cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int c = 0; c < chunks; ++c) {
-    const int buf = c % kStages;
-    cp_async_wait<kStages - 2>();    // this thread's copies of chunk c have landed
-    __syncthreads();                 // everyone's have, and chunk c - 1 has been read
-    const int next = c + kStages - 1;
-    if (next < chunks) stage(next, next % kStages); else cp_async_commit();
+  __syncthreads();
 
-    const unsigned char* base = smem + buf * T::STAGE_BYTES;
-    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(base);
-    const uint8_t* ws = base + T::XS_BYTES;
-    const float* sc = reinterpret_cast<const float*>(base + T::XS_BYTES + T::WS_BYTES);
-    const int rows = min(kChunk, Kh - c * kChunk);
-    // This warp's rows of the chunk, one group (or part of one) at a time.
-    constexpr int SUB = G < kSlice ? G : kSlice;
+  float acc[NR];
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h) {
-      const __nv_bfloat16* xh = xs + h * TM * XS;
+  for (int i = 0; i < NR; ++i) acc[i] = 0.f;
+  const int lane = tid & 31;
+  const int col = (tid >> 5) * 16;   // consumer warp's 16 columns in the tile
+
+  if (tid >= kConsumerThreads) {
+    // ---- producer warp: fill the ring ---------------------------------
+    // x by TMA (rows past M and columns past the chunk arrive as zeros);
+    // the weights by TMA where their rows are 16-byte aligned (w_piece 0),
+    // else by 4-byte cp.async (N % 4 == 0) or byte loads; the scale rows
+    // by cp.async. Lane 0 arrives with the TMA bytes after its own copies.
+    for (int j = 0; j < n_stages; ++j) {
+      const int st = j % P::STAGES;
+      if (j >= P::STAGES) mbar_wait(&empty[st], (j / P::STAGES - 1) & 1);
+      const int r0 = row_begin + 64 * j;
+      const int rows = min(64, row_end - r0);
+      unsigned char* base = ring + st * P::STAGE;
+      uint8_t* ws = base + P::W_OFF;
+      if (w_piece == 4) {
+        const int c = lane * 4;
+        for (int r = 0; r < 64; ++r) {
+          const bool live = r < rows && n0 + c < N;   // N % 4 == 0: whole pieces
+          cp_async_4(ws + wsw(r, c), live ? w + (size_t)(r0 + r) * N + n0 + c : w,
+                     live ? 4 : 0);
+        }
+      } else if (w_piece == 1) {
+        const int c = lane * 4;
+        for (int r = 0; r < 64; ++r) {
+          uint32_t v = 0;
 #pragma unroll
-      for (int sb = 0; sb < kSlice; sb += SUB) {
-        const int row0 = kw * kSlice + sb;
-        if (row0 >= rows) continue;   // rows is a multiple of G, so of SUB
-        float part[MT][4];
+          for (int b = 0; b < 4; ++b)
+            if (r < rows && n0 + c + b < N)
+              v |= (uint32_t)w[(size_t)(r0 + r) * N + n0 + c + b] << (8 * b);
+          *reinterpret_cast<uint32_t*>(ws + wsw(r, c)) = v;
+        }
+      }
+      float* sc = reinterpret_cast<float*>(base + P::S_OFF);
+      for (int h = 0; h < HALVES; ++h) {
+        for (int si = 0; si < P::SEGS; ++si) {
+          const bool seg = si * P::SEG < rows;
+          const float* src =
+              scales + (size_t)(h * groups + (r0 + (seg ? si * P::SEG : 0)) / G) * N + n0;
+          float* dst = sc + (h * P::SEGS + si) * kTN;
+          if (s_piece == 16) {
+            const int c = lane * 4;
+            const bool live = seg && n0 + c < N;   // N % 4 == 0: whole pieces
+            cp_async_16(dst + c, live ? src + c : scales, live ? 16 : 0);
+          } else {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) part[mt][i] = 0.f;
-#pragma unroll
-        for (int ks = row0; ks < row0 + SUB; ks += 16) {
-          // B fragment: rows ks + 2t, +1, +8, +9 of column cw*8 + g
-          const uint8_t* wr = ws + (ks + t * 2) * kWStride + cw * 8 + g;
-          const uint32_t b0 = bf16_pair(widen<BITS>(wr[0], h), widen<BITS>(wr[kWStride], h));
-          const uint32_t b1 = bf16_pair(widen<BITS>(wr[8 * kWStride], h),
-                                        widen<BITS>(wr[9 * kWStride], h));
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            uint32_t a[4];
-            ldmatrix_x4(a, xh + (mt * 16 + (lane & 15)) * XS + ks + (lane >> 4) * 8);
-            mma_m16n8k16(part[mt], a, b0, b1);
+            for (int i = 0; i < 4; ++i) {
+              const int c = lane + 32 * i;
+              const bool live = seg && n0 + c < N;
+              cp_async_4(dst + c, live ? src + c : scales, live ? 4 : 0);
+            }
           }
         }
-        const float* s = sc + (h * NG + row0 / G) * kTN + cw * 8 + t * 2;
-        const float s0 = s[0];
-        const float s1 = s[1];
+      }
+      mbar_arrive_copies(&full[st]);
+      if (lane == 0) {
+        mbar_arrive_expect(&full[st], P::TMA_BYTES + (w_piece == 0 ? 64 * kTN : 0));
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          acc[mt][0] += part[mt][0] * s0;
-          acc[mt][1] += part[mt][1] * s1;
-          acc[mt][2] += part[mt][2] * s0;
-          acc[mt][3] += part[mt][3] * s1;
+        for (int h = 0; h < HALVES; ++h)
+          tma_load(base + h * P::XH, &x_map, h * Kh + r0, m0, &full[st]);
+        if (w_piece == 0) tma_load(ws, &w_map, n0, r0, &full[st]);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups ------------------------------------------
+    // Per segment: widen both halves, issue both batches back to back,
+    // wait, scale. Nothing reads an accumulator while a wgmma is in flight
+    // (the compiler would serialize every wgmma otherwise); the other
+    // warpgroup's batches keep the tensor cores busy meanwhile. The group
+    // structure is unrolled at compile time (a 128-row group is two
+    // stages), and a stage past the end of K is multiplied out in full
+    // (its weights and scales arrive as zeros).
+    const int g = lane >> 2;
+    float p0[NR], p1[NR];
+    uint32_t raw[P::KS][2], a0[P::KS][4], a1[P::KS][4];
+    float2 s0, s1;
+    for (int j0 = 0; j0 < n_stages; j0 += P::PARTS) {
+#pragma unroll
+      for (int part = 0; part < P::PARTS; ++part) {
+        const int j = j0 + part;
+        const int st = j % P::STAGES;
+        mbar_wait(&full[st], (j / P::STAGES) & 1);
+        const unsigned char* base = ring + st * P::STAGE;
+        const uint8_t* ws = base + P::W_OFF;
+        const float* sc = reinterpret_cast<const float*>(base + P::S_OFF) + col + 2 * g;
+        const uint64_t xd = wgmma_desc(base, 16, 1024);   // + 2 per 32 bytes
+        const bool last = part == P::PARTS - 1;   // folded by the unrolling
+#pragma unroll
+        for (int si = 0; si < P::SEGS; ++si) {
+          const int k0 = si * P::SEG;
+          load_raw(raw, ws, k0, col, lane);
+          widen<BITS, 0>(a0, raw);
+          if constexpr (BITS == 4) widen<BITS, 1>(a1, raw);
+          if (last) {
+            s0 = *reinterpret_cast<const float2*>(sc + si * kTN);
+            if constexpr (BITS == 4) s1 = *reinterpret_cast<const float2*>(sc + (P::SEGS + si) * kTN);
+          }
+          // the low half (or the int8 group) into p0, the high half into p1
+          issue<NB>(p0, a0, xd + k0 / 8, part == 0);
+          if constexpr (BITS == 4) issue<NB>(p1, a1, xd + (P::XH + k0 * 2) / 16, part == 0);
+          wgmma_wait<0>();
+          if (last) {
+            scale_add(acc, p0, s0);
+            if constexpr (BITS == 4) scale_add(acc, p1, s1);
+          }
         }
+        mbar_arrive(&empty[st]);
       }
     }
   }
 
-  // The row slices' sums meet in shared memory (every real copy has been
-  // waited for; the ring is free once all warps are past the loop).
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);   // [kKSplit][TM][kRedStride]
+  // ---- epilogue: partial tiles meet across the cluster ------------------
+  __syncthreads();   // every stage has been read: the ring holds the tile now
+  float* red = reinterpret_cast<float*>(ring);
+  if (tid < kConsumerThreads) {
+    const int g = lane >> 2;
+    const int t = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    for (int j = 0; j < NB / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = mt * 16 + g + (i >> 1) * 8;
-      red[(kw * TM + r) * kRedStride + cw * 8 + t * 2 + (i & 1)] = acc[mt][i];
+      for (int e = 0; e < 4; ++e)
+        red[(8 * j + 2 * t + (e & 1)) * kRedRow + col + 2 * g + (e >> 1)] = acc[4 * j + e];
+  }
+  if (splits > 1) cluster_sync(); else __syncthreads();
+  const int rank = splits > 1 ? cluster_rank() : 0;
+  constexpr int V = NB * (kTN / 4);   // float4s of the tile
+  const int share = V / splits;
+  for (int v = rank * share + tid; v < (rank + 1) * share; v += kThreads) {
+    const int m = v / (kTN / 4);
+    const int c = (v % (kTN / 4)) * 4;
+    if (m >= rows_m || n0 + c >= N) continue;
+    const float* src = red + m * kRedRow + c;
+    float4 sum = splits > 1 ? ld_cluster(src, 0) : *reinterpret_cast<const float4*>(src);
+    for (int q = 1; q < splits; ++q) {
+      const float4 o = ld_cluster(src, q);
+      sum.x += o.x;
+      sum.y += o.y;
+      sum.z += o.z;
+      sum.w += o.w;
+    }
+    bf16* dst = out + (size_t)(m0 + m) * N + n0 + c;
+    if ((N & 3) == 0) {   // n0 + c + 3 < N, 8-byte aligned
+      __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x, sum.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z, sum.w);
+      uint2 pk;
+      pk.x = *reinterpret_cast<uint32_t*>(&lo);
+      pk.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(dst) = pk;
+    } else {
+      const float f[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (n0 + c + i < N) dst[i] = __float2bfloat16(f[i]);
     }
   }
-  __syncthreads();
-  for (int i = tid; i < TM * kTN; i += kThreads) {
-    const int r = i / kTN;
-    const int cc = i % kTN;
-    if (m0 + r >= M || n0 + cc >= N) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < kKSplit; ++k) sum += red[(k * TM + r) * kRedStride + cc];
-    out[(size_t)(m0 + r) * N + n0 + cc] = __float2bfloat16(sum);
-  }
+  if (splits > 1) cluster_sync();   // no CTA leaves while others read its tile
 }
 
-template <int BITS, int MT, int G>
-cudaError_t launch(const void* x, const void* w, const float* scales, void* out, int M,
-                   int K, int N, cudaStream_t stream) {
-  using T = Tile<BITS, MT, G>;
-  constexpr size_t smem = T::SMEM_BYTES;
-  auto kernel = quant_matmul_kernel<BITS, MT, G>;
-  static bool opted_in = false;   // dynamic shared memory above 48 KB needs an opt-in
-  if (smem > 48 * 1024 && !opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query (no link against libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  dim3 grid((N + kTN - 1) / kTN, (M + T::TM - 1) / T::TM);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scales,
-      static_cast<__nv_bfloat16*>(out), M, K, N);
+  return fn;
+}
+
+// A 2-D row-major tensor of `cols` x `rows` elements (`pitch` bytes per
+// row) read in boxes of box_cols x box_rows into the 128-byte swizzle;
+// reads outside the tensor fill zeros.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t cols,
+            uint64_t rows, uint64_t pitch, uint32_t box_cols, uint32_t box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int BITS, int NB, int G>
+cudaError_t launch(const void* x, const void* w, const float* scales, void* out, int M,
+                   int K, int N, int splits, cudaStream_t stream) {
+  using P = Plan<BITS, NB, G>;
+  auto kernel = quant_matmul_kernel<BITS, NB, G>;
+  static SmemAllowed allowed = {};
+  cudaError_t err = allow_smem(kernel, P::SMEM, &allowed);
+  if (err != cudaSuccess) return err;
+  // copy routes by shape: TMA needs 16-byte aligned rows, cp.async of 16
+  // bytes 16-byte aligned pieces
+  const int Kh = K / P::HALVES;
+  const uintptr_t wp = reinterpret_cast<uintptr_t>(w);
+  const int w_piece = (N % 16 == 0 && wp % 16 == 0) ? 0 : (N % 4 == 0 && wp % 4 == 0) ? 4 : 1;
+  const int s_piece = (N % 4 == 0 && reinterpret_cast<uintptr_t>(scales) % 16 == 0) ? 16 : 4;
+  CUtensorMap x_map = {}, w_map = {};
+  if (!encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, 64, NB))
+    return cudaErrorInvalidValue;
+  if (w_piece == 0 &&
+      !encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, Kh, N, kTN, 64))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTN - 1) / kTN, splits, (M + kRowBlock - 1) / kRowBlock);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = P::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x_map, w_map, static_cast<const uint8_t*>(w), scales,
+                           static_cast<bf16*>(out), M, K, N, w_piece, s_piece);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Row blocks per CTA by M: no more rows are staged than the call has.
+// wgmma's N by the rows of one row block: no more rows staged than needed.
 template <int BITS, int G>
 cudaError_t launch_rows(const void* x, const void* w, const float* scales, void* out, int M,
-                        int K, int N, cudaStream_t stream) {
-  if (M <= 16) return launch<BITS, 1, G>(x, w, scales, out, M, K, N, stream);
-  if (M <= 32) return launch<BITS, 2, G>(x, w, scales, out, M, K, N, stream);
-  return launch<BITS, 4, G>(x, w, scales, out, M, K, N, stream);
+                        int K, int N, int splits, cudaStream_t stream) {
+  const int rows = M < kRowBlock ? M : kRowBlock;
+  if (rows <= 8) return launch<BITS, 8, G>(x, w, scales, out, M, K, N, splits, stream);
+  if (rows <= 16) return launch<BITS, 16, G>(x, w, scales, out, M, K, N, splits, stream);
+  if (rows <= 32) return launch<BITS, 32, G>(x, w, scales, out, M, K, N, splits, stream);
+  return launch<BITS, 64, G>(x, w, scales, out, M, K, N, splits, stream);
 }
 
 template <int BITS>
 cudaError_t launch_group(const void* x, const void* w, const float* scales, void* out, int M,
-                         int K, int N, int G, cudaStream_t stream) {
+                         int K, int N, int G, int splits, cudaStream_t stream) {
   switch (G) {
-    case 16: return launch_rows<BITS, 16>(x, w, scales, out, M, K, N, stream);
-    case 32: return launch_rows<BITS, 32>(x, w, scales, out, M, K, N, stream);
-    case 64: return launch_rows<BITS, 64>(x, w, scales, out, M, K, N, stream);
-    case 128: return launch_rows<BITS, 128>(x, w, scales, out, M, K, N, stream);
+    case 16: return launch_rows<BITS, 16>(x, w, scales, out, M, K, N, splits, stream);
+    case 32: return launch_rows<BITS, 32>(x, w, scales, out, M, K, N, splits, stream);
+    case 64: return launch_rows<BITS, 64>(x, w, scales, out, M, K, N, splits, stream);
+    case 128: return launch_rows<BITS, 128>(x, w, scales, out, M, K, N, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -341,14 +597,18 @@ cudaError_t launch_group(const void* x, const void* w, const float* scales, void
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
 // x and out are bf16, w int8 (bits 4: [K/2, N] packed; bits 8: [K, N]),
-// scales float32 [K/G, N]; x must be 16-byte and w 4-byte aligned.
+// scales float32 [K/G, N]; x must be 16-byte aligned. `splits` (1, 2, 4
+// or 8) is the cluster's CTAs along K, chosen by the caller.
 extern "C" int groupwise_dequant_matmul(const void* x, const void* w, const float* scales,
                                         void* out, int M, int K, int N, int G, int bits,
-                                        void* stream) {
+                                        int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
-  if (G <= 0 || M < 0 || M > 128) return (int)cudaErrorInvalidValue;
-  if (bits == 4 && K % (2 * G) == 0) return launch_group<4>(x, w, scales, out, M, K, N, G, st);
-  if (bits == 8 && K % G == 0) return launch_group<8>(x, w, scales, out, M, K, N, G, st);
+  if (G <= 0 || M < 0 || M > 2 * kRowBlock) return (int)cudaErrorInvalidValue;
+  if (splits != 1 && splits != 2 && splits != 4 && splits != 8) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16) return (int)cudaErrorInvalidValue;
+  if (bits == 4 && K % (2 * G) == 0)
+    return launch_group<4>(x, w, scales, out, M, K, N, G, splits, st);
+  if (bits == 8 && K % G == 0) return launch_group<8>(x, w, scales, out, M, K, N, G, splits, st);
   return (int)cudaErrorInvalidValue;
 }

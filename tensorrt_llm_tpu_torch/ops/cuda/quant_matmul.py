@@ -2,12 +2,22 @@
 
 Replaces the TPU kernel ``groupwise_dequant_matmul``
 (tensorrt_llm_tpu/ops/pallas/quant_matmul.py:105). The CUDA kernel is
-``csrc/quant_matmul.cu``: a CTA per 32 output columns and up to 64 rows
-walks K in chunks of 128 stored weight rows, staged with x and the scale
-rows in a shared-memory ring by ``cp.async``; its warps widen the
-int4/int8 values to bf16 and run ``mma.sync`` into float32 partial sums
-that are scaled per group. At M <= 128 it is bound by the bytes of
-the quantized weight (K*N/2 or K*N over the HBM bandwidth).
+``csrc/quant_matmul.cu``, designed for Hopper: it computes the product
+transposed, so that the widened int4/int8 weights are ``wgmma``'s A
+operand in registers and x is its B operand in shared memory; a CTA
+covers 128 weight columns and up to 64 rows, K is split across the CTAs
+of a thread-block cluster whose float32 partial tiles are summed in a
+fixed order through distributed shared memory (one launch, no atomics,
+the same bits on every call), and one producer warp keeps a ring of TMA
+stages in flight behind mbarriers. Up to 64 rows it is bound by
+the bytes of the quantized weight (K*N/2 or K*N over the HBM bandwidth);
+at 128 rows by the tensor cores. The source's head says what the design
+does about each cost of the first version.
+
+The split count comes from ``choose_splits``, a pure function of host
+ints (rows, K, N, group size, bits, SM count), so the grid is fixed for a
+shape and a launch can be captured in a CUDA graph. ``split_chunks`` is
+the share of K each CTA takes, as the kernel computes it.
 
 Arithmetic, as in the TPU kernel: x is rounded to bf16 whatever its type,
 the integers widen to bf16 exactly, each group's partial product is
@@ -29,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Tuple
 
 import torch
 
@@ -39,6 +50,13 @@ LAUNCHES = 0
 
 M_KERNEL_MAX = 128
 GROUP_SIZES = (16, 32, 64, 128)
+TILE_N = 128          # weight columns per CTA
+ROW_BLOCK = 64        # x rows per CTA; more rows take a second row block
+# CTAs of a cluster along K. 8 is the portable limit, but a CTA takes a
+# whole SM (its shared-memory ring), and not every GPC has room for two
+# clusters of eight at once: on an H100 the o shape ran 17.2 µs with 8
+# and 12.4 µs with 4 (PERF.md).
+MAX_SPLITS = 4
 
 
 def kernel_takes(M: int, K: int, group_size: int, bits: int) -> bool:
@@ -50,12 +68,49 @@ def kernel_takes(M: int, K: int, group_size: int, bits: int) -> bool:
     return bits == 8 and K % group_size == 0
 
 
+def chunk_rows(group_size: int) -> int:
+    """Stored weight rows per chunk: one group, or 64 rows of smaller
+    groups. A chunk is the unit of the split along K."""
+    return max(group_size, 64)
+
+
+def num_chunks(K: int, group_size: int, bits: int) -> int:
+    stored = K // 2 if bits == 4 else K
+    return -(-stored // chunk_rows(group_size))
+
+
+def choose_splits(M: int, K: int, N: int, group_size: int, bits: int,
+                  sm_count: int) -> int:
+    """How many CTAs share K for each output tile: a pure function of host
+    ints. Aim for about one CTA per SM (tiles x splits <= SMs), never more
+    splits than chunks or than ``MAX_SPLITS``; a power of two, so the
+    cluster's CTAs divide the tile's float4s evenly and clusters pack into
+    the card's GPCs."""
+    tiles = -(-N // TILE_N) * -(-M // ROW_BLOCK)
+    want = min(max(1, sm_count // tiles), MAX_SPLITS,
+               num_chunks(K, group_size, bits))
+    return 1 << (want.bit_length() - 1)
+
+
+def split_chunks(chunks: int, splits: int) -> List[Tuple[int, int]]:
+    """(first chunk, count) of each CTA along K: an even share, the first
+    ``chunks % splits`` CTAs one more (the kernel computes the same)."""
+    per, extra = divmod(chunks, splits)
+    return [(r * per + min(r, extra), per + (1 if r < extra else 0))
+            for r in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The built C entry point, with its ctypes signature set once."""
     fn = _build.load("quant_matmul").groupwise_dequant_matmul
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P_] * 4 + [I_] * 5 + [P_]
+    fn.argtypes = [P_] * 4 + [I_] * 6 + [P_]
     fn.restype = I_
     return fn
 
@@ -127,11 +182,11 @@ def groupwise_dequant_matmul(x: torch.Tensor,        # [M, K]
     xb = x.to(torch.bfloat16).contiguous()
     if xb.data_ptr() % 16:
         xb = xb.clone()
-    if w.data_ptr() % 4:
-        raise ValueError("w must be 4-byte aligned")
+    splits = choose_splits(M, K, N, group_size, bits,
+                           _sm_count(x.device.index or 0))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     err = _kernel()(xb.data_ptr(), w.data_ptr(), scales.data_ptr(),
-                    out.data_ptr(), M, K, N, group_size, bits,
+                    out.data_ptr(), M, K, N, group_size, bits, splits,
                     torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "groupwise_dequant_matmul")
     LAUNCHES += 1

@@ -240,6 +240,18 @@ def _quant_inputs(M, K, N, G, bits, dtype, device, seed=0):
     (64, 2048, 2560, 32, 8, torch.bfloat16),        # the MXFP4 shape
     (64, 2048, 2560, 16, 8, torch.bfloat16),        # the NVFP4 shape
     (5, 48, 8, 16, 8, torch.float32),
+    (8, 2048, 2560, 128, 4, torch.bfloat16),
+    (16, 2048, 11264, 128, 4, torch.bfloat16),      # the serving run's live rows
+    (16, 5632, 2048, 128, 4, torch.bfloat16),       # uneven split along K
+    (65, 1024, 1024, 64, 4, torch.bfloat16),        # one row in the second block
+    (120, 5632, 384, 128, 4, torch.bfloat16),
+    (128, 1024, 257, 32, 4, torch.bfloat16),
+    (64, 512, 8, 16, 4, torch.bfloat16),            # N = 8: 4-byte copies
+    (64, 1536, 130, 64, 4, torch.bfloat16),         # N = 130: byte copies
+    (1, 1024, 130, 128, 8, torch.bfloat16),
+    (40, 2048, 1001, 32, 8, torch.bfloat16),
+    (24, 768, 257, 16, 8, torch.float32),
+    (64, 5632, 2048, 16, 8, torch.bfloat16),
 ])
 def test_quant_matmul_kernel_matches_plain(cuda, M, K, N, G, bits, dtype):
     x, w, s = _quant_inputs(M, K, N, G, bits, dtype, cuda)
@@ -250,6 +262,57 @@ def test_quant_matmul_kernel_matches_plain(cuda, M, K, N, G, bits, dtype):
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     ref = qmm.groupwise_dequant_matmul_plain(x, w, s, group_size=G, bits=bits)
     torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_quant_matmul_unaligned_x(cuda):
+    """x starting 2 bytes past a 16-byte boundary: the wrapper copies it
+    to an aligned buffer before the launch."""
+    x, w, s = _quant_inputs(64, 2048, 2560, 128, 4, torch.bfloat16, cuda)
+    buf = torch.empty(x.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    xu = buf[1:1 + x.numel()].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 == 2
+    got = qmm.groupwise_dequant_matmul(xu, w, s, group_size=128, bits=4)
+    ref = qmm.groupwise_dequant_matmul_plain(x, w, s, group_size=128, bits=4)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 5632, 2048), (64, 2048, 2560),
+                                   (16, 2048, 11264), (100, 2048, 1001)])
+def test_quant_matmul_is_deterministic(cuda, M, K, N):
+    """The split-K partial tiles are summed in a fixed order (no atomics):
+    repeated calls give the same bits."""
+    x, w, s = _quant_inputs(M, K, N, 128, 4, torch.bfloat16, cuda, seed=3)
+    first = qmm.groupwise_dequant_matmul(x, w, s, group_size=128, bits=4)
+    for _ in range(3):
+        again = qmm.groupwise_dequant_matmul(x, w, s, group_size=128, bits=4)
+        assert torch.equal(first, again)
+
+
+def test_quant_matmul_replays_under_cuda_graph(cuda):
+    """The grid comes from host ints, so a launch can be captured and
+    replayed; a replay reads the current contents of x."""
+    x, w, s = _quant_inputs(64, 5632, 2048, 128, 4, torch.bfloat16, cuda)
+    kw = dict(group_size=128, bits=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = qmm.groupwise_dequant_matmul(x, w, s, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmm.groupwise_dequant_matmul(x, w, s, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x.mul_(-0.5)
+    graph.replay()
+    want = qmm.groupwise_dequant_matmul(x, w, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    torch.testing.assert_close(
+        out.float(), qmm.groupwise_dequant_matmul_plain(x, w, s, **kw).float(),
+        rtol=2e-2, atol=2e-2)
 
 
 def test_quant_matmul_dispatch_on_cuda(cuda):
