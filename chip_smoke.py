@@ -11,11 +11,17 @@ the run on error:
      parallel), with the build time;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      same bf16 inputs (atol = rtol = 2e-2: bf16 inputs, probabilities and
-     output rounding, float32 accumulation in both), at serving shapes,
+     output rounding, float32 accumulation in both), at the shapes of
+     both serving runs below (``decode_bench`` and ``prefill_bench`` are
+     the bench-settings run's, whose launches the last JSON line counts),
      plus decode cases that force a split of the KV axis (few long rows),
      exceed the L2 cache, or mix lengths from 1 to 4,096 (each prints its
-     number of splits), and one float32 prefill case held to 1e-4 (each
-     prefill case prints its route); times (CUDA events, median
+     number of splits), the rider window's one launch (256 decode rows,
+     8 chunks of 64 tokens and a filler row, timed beside the decode
+     kernel on the rows alone and the prefill kernel on the chunks
+     alone, each of the three held against its plain version), and one
+     float32 prefill case held to 1e-4 (each prefill
+     case prints its route); times (CUDA events, median
      of 30 launches; 10 for the plain version and the library call), the
      bound from this run's bytes and FLOPs, and as a yardstick the time
      of one PyTorch call that computes the same function where there is
@@ -35,14 +41,35 @@ the run on error:
      kernel's float32 sums, taken in another order than the plain
      version's, can round a projection output to the neighbouring bf16
      value and resolve a near-tie the other way);
-  4. serving: the TinyLlama-1.1B geometry (32 x 64 heads, 4 KV heads, 22
+  4. graphs: the parity checkpoint, in float32 and in bf16, serves one
+     workload twice through ``LLM.generate``: replaying the engine's CUDA
+     graphs, and eagerly on the same static buffers
+     (``engine.graphs.capture = False``). Eight requests are queued
+     before the executor admits any (so both runs schedule alike), with
+     4 batch rows, 128 tokens per prefill step and
+     ``mixed_window_ctx=64``, so context chunks ride inside decode
+     windows. Greedy tokens must be identical; riders must have ridden
+     and graphs replayed. Prints the graphs captured, capture seconds,
+     pool bytes, launches by replays per kernel and the rider counters;
+  5. serving: the TinyLlama-1.1B geometry (32 x 64 heads, 4 KV heads, 22
      layers) with seeded random weights, 16 requests of 128 prompt tokens
      and 64 output tokens through ``LLM.generate`` with default
      arguments, once in bf16 and once with
      ``QuantConfig(quant_algo=W4A16_AWQ, group_size=128)``; the kernels'
      launch counters are zeroed right before each run and read right
-     after, every request must return 64 tokens, and every kernel of the
-     run's path must have launched.
+     after, every request must return 64 tokens, every kernel of the
+     run's path must have launched, and replayed windows must have
+     launched the decode kernel (and, quantized, the dequant-matmul
+     kernel); the graph pool must fit the memory kept free for it;
+  6. serving at ``bench.py``'s throughput settings (its default 1b
+     geometry, 16 x 128 heads; 512 requests of 128 -> 128 tokens,
+     max_batch_size 256, decode_multi_step 16, max_inflight_steps 3,
+     mixed_window_ctx 512, decode_wait_occupancy 1.0, max_num_tokens
+     16384, page 32; ``tools/serving_profile.py --bench-settings``): a
+     warm-up pass, a timed pass with the launch counters zeroed before and
+     read after (tokens/s, TTFT and TPOT medians, graphs replayed, the
+     windows' dead-step share), then a profiled pass (device idle share,
+     launches per output step); the graph pool must fit its reserve.
 
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results and ``{"ok": true, "device": {...}}``.
@@ -79,9 +106,12 @@ def kernel_phase():
     # ---- K1: paged decode --------------------------------------------
     # decode_long: S x kvh alone is 16 CTAs, so the KV axis must be split;
     # decode_hbm: 268 MB of KV, well above the 50 MB L2; decode_ragged: KV
-    # lengths from 1 to 4,096 in one batch.
+    # lengths from 1 to 4,096 in one batch; decode_bench: the windows of
+    # the bench-settings run (256 rows at 129 to 264 positions, hd 128).
     ragged = [1 + (4095 * i) // 63 for i in range(64)]
+    bench_rows = [129 + (135 * i) // 255 for i in range(256)]
     for name, kvs, qh, kvh, hd, page in [
+            ("decode_bench", bench_rows, 16, 4, 128, PAGE),
             ("decode_hd64", [1024] * 64, 32, 4, 64, PAGE),
             ("decode_hd64_page16", [1024] * 64, 32, 4, 64, 16),
             ("decode_hd128", [1024] * 64, 16, 4, 128, PAGE),
@@ -148,6 +178,7 @@ def kernel_phase():
             ("prefill_hd64", [512] * 8, [0] * 8, 32, 4, 64),
             ("prefill_hd128", [512] * 8, [0] * 8, 16, 4, 128),
             ("prefill_serving", [128] * 16, [0] * 16, 32, 4, 64),
+            ("prefill_bench", [128] * 128, [0] * 128, 16, 4, 128),
             ("mixed_hd64", [1] * 32 + [256] * 4, [1023] * 32 + [256] * 4,
              32, 4, 64),
             ("mixed_hd128", [1] * 32 + [256] * 4, [1023] * 32 + [256] * 4,
@@ -196,6 +227,7 @@ def kernel_phase():
             library_ms=library_ms, library_max_abs_err=lib_err,
             bytes=io_bytes, flops=flops, **_bound(io_bytes, flops))
         emit({"phase": "kernels", "case": name, **results[name]})
+    results["rider_hd128"] = rider_case()
     # the float32 route (the parity path's) stays covered: checked, not
     # timed; float32 sums in another order than the plain version's
     q, pool, kv_lens, pt, cu = make_case(
@@ -213,6 +245,79 @@ def kernel_phase():
           "route": pre.route_for(q.dtype), "max_abs_err": err, "tol": 1e-4})
     quant_kernel_phase(results)
     return results
+
+
+def rider_case() -> dict:
+    """The rider window's one launch of the prefill kernel at bench.py's
+    settings: 256 decode rows at 190-209 positions, 8 chunks of 64 tokens
+    after 0-448 positions and a filler row without tokens, hd 128 (16 x
+    128 heads, 4 KV heads), its grid fixed by the window's chunk width
+    C = 512. Timed beside the same work in two launches: the decode
+    kernel on the 256 rows, the prefill kernel on the chunks."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    from tensorrt_llm_tpu_torch.tools.card_timing import (PAGE, make_case,
+                                                          time_ms)
+    Sb, NC, chunk, C = 256, 8, 64, 512
+    qh, kvh, hd = 16, 4, 128
+    q_lens = [1] * Sb + [chunk] * NC + [0]
+    ctx = [189 + i % 20 for i in range(Sb)] + \
+        [64 * i for i in range(NC)] + [1]
+    q, pool, kv_lens, pt, cu = make_case(q_lens, ctx, qh, kvh, hd, seed=11)
+    kw = dict(sm_scale=hd ** -0.5)
+    got = pre.ragged_prefill_attention(q, pool, kv_lens, pt, cu,
+                                       max_q_len=C, **kw)
+    ref = pre.ragged_prefill_attention_plain(q, pool, kv_lens, pt, cu, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    if not torch.isfinite(got.float()).all() or not torch.allclose(
+            got.float(), ref.float(), atol=TOL, rtol=TOL):
+        raise AssertionError(f"rider_hd128: kernel != plain (max {err})")
+    ms = time_ms(lambda: pre.ragged_prefill_attention(
+        q, pool, kv_lens, pt, cu, max_q_len=C, **kw), 30)
+    plain_ms = time_ms(lambda: pre.ragged_prefill_attention_plain(
+        q, pool, kv_lens, pt, cu, **kw), 10)
+    # the same work in two launches, each held against its plain version
+    qd, kvd, ptd = q[:Sb], kv_lens[:Sb], pt[:Sb]
+    qc = q[Sb:Sb + NC * chunk]
+    cuc = cu[Sb:Sb + NC + 1] - Sb
+    kvc, ptc = kv_lens[Sb:Sb + NC], pt[Sb:Sb + NC]
+    dkw = dict(max_kv_len=max(ctx[:Sb]) + 1, **kw)
+    for part, got_p, ref_p in [
+            ("decode rows", dec.paged_decode_attention(qd, pool, kvd, ptd,
+                                                       **dkw),
+             dec.paged_decode_attention_plain(qd, pool, kvd, ptd, **kw)),
+            ("chunks", pre.ragged_prefill_attention(qc, pool, kvc, ptc, cuc,
+                                                    max_q_len=chunk, **kw),
+             pre.ragged_prefill_attention_plain(qc, pool, kvc, ptc, cuc,
+                                                **kw))]:
+        torch.cuda.synchronize()
+        part_err = (got_p.float() - ref_p.float()).abs().max().item()
+        if not torch.allclose(got_p.float(), ref_p.float(), atol=TOL,
+                              rtol=TOL):
+            raise AssertionError(f"rider_hd128 {part}: kernel != plain "
+                                 f"(max {part_err})")
+        err = max(err, part_err)
+    dec_ms = time_ms(lambda: dec.paged_decode_attention(
+        qd, pool, kvd, ptd, **dkw), 30)
+    pre_ms = time_ms(lambda: pre.ragged_prefill_attention(
+        qc, pool, kvc, ptc, cuc, max_q_len=chunk, **kw), 30)
+    pairs = sum(c * n + n * (n + 1) // 2 for c, n in zip(ctx, q_lens))
+    flops = 4 * qh * hd * pairs
+    io_bytes = sum(c + n for c, n in zip(ctx, q_lens)) * kvh * hd * 4 \
+        + 2 * q.numel() * 2 + pt.numel() * 4 + 2 * cu.numel() * 4
+    res = dict(
+        shape=dict(decode_rows=Sb, decode_kv=[min(ctx[:Sb]) + 1,
+                                              max(ctx[:Sb]) + 1],
+                   chunks=NC, chunk_tokens=chunk, filler_rows=1, C=C,
+                   qh=qh, kvh=kvh, hd=hd, page=PAGE),
+        route=pre.route_for(q.dtype), max_q_len=C, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=None, bytes=io_bytes, flops=flops,
+        decode_rows_k1_ms=dec_ms, chunks_k2_ms=pre_ms,
+        two_launches_ms=dec_ms + pre_ms, **_bound(io_bytes, flops))
+    emit({"phase": "kernels", "case": "rider_hd128", **res})
+    return res
 
 
 def quant_kernel_phase(results: dict) -> None:
@@ -437,6 +542,104 @@ def quant_parity_phase():
           "identical": near_ties == 0})
 
 
+def _queued_generate(llm, prompts, sps):
+    """Every request queued before the executor admits any, so that a
+    run's schedule follows from the workload alone."""
+    import threading
+    ex = llm.executor
+    gate = threading.Event()
+    fetch = ex._fetch_new_requests
+    ex._fetch_new_requests = lambda: fetch() if gate.is_set() else None
+    futs = [llm.generate_async(p, sp) for p, sp in zip(prompts, sps)]
+    gate.set()
+    return [f.result(timeout=600).outputs[0].token_ids for f in futs]
+
+
+def _kernel_counts():
+    from tensorrt_llm_tpu_torch.tools.serving_profile import kernel_modules
+    return kernel_modules()
+
+
+def _zero_launches() -> None:
+    for mod in _kernel_counts().values():
+        mod.LAUNCHES = 0
+
+
+def _read_launches() -> dict:
+    return {k: mod.LAUNCHES for k, mod in _kernel_counts().items()}
+
+
+def _graph_stats(engine) -> dict:
+    """The engine's CUDA graphs and what their replays launched."""
+    g = engine.graphs
+    by_module = g.replayed_launches()
+    return dict(graphs_captured=g.num_graphs, capture_s=g.capture_seconds,
+                pool_bytes=g.pool_bytes, graph_replays=g.replays,
+                replayed_launches={k: by_module[mod.__name__]
+                                   for k, mod in _kernel_counts().items()},
+                mixed_windows_dispatched=engine.mixed_windows_dispatched,
+                mixed_ctx_carved=engine.mixed_ctx_carved,
+                window_steps=engine.window_steps,
+                dead_window_steps=engine.dead_window_steps)
+
+
+def graph_phase(repo: Path, device: str = "cuda"):
+    """One rider-window workload on the parity checkpoint, replayed from
+    CUDA graphs and run eagerly on the same static buffers, in float32
+    and in bf16: greedy tokens must be identical, riders must ride and
+    graphs replay."""
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    gen = torch.Generator().manual_seed(3)
+    lengths = [30, 200, 90, 150, 60, 180, 45, 120]
+    prompts = [torch.randint(1, 256, (n,), generator=gen).tolist()
+               for n in lengths]
+    sps = [SamplingParams(max_tokens=n, top_k=1, ignore_eos=True)
+           for n in (40, 24, 37, 40, 13, 24, 40, 21)]
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        toks, stats = {}, {}
+        for mode in ("graph", "eager"):
+            llm = LLM(repo / "tests" / "assets" / "tinycode-llama",
+                      device=device, dtype=dtype, skip_tokenizer_init=True,
+                      max_batch_size=4, max_input_len=256, max_seq_len=320,
+                      max_num_tokens=128, decode_multi_step=8,
+                      mixed_window_ctx=64, enable_warmup=mode == "graph",
+                      kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=8192))
+            llm.engine.graphs.capture = mode == "graph" and \
+                device == "cuda"
+            try:
+                _zero_launches()
+                toks[mode] = _queued_generate(llm, prompts, sps)
+                stats[mode] = dict(launches=_read_launches(),
+                                   **_graph_stats(llm.engine))
+            finally:
+                llm.shutdown()
+        g, e = stats["graph"], stats["eager"]
+        if toks["graph"] != toks["eager"]:
+            raise AssertionError(f"{dtype}: graph and eager greedy tokens "
+                                 f"differ: {toks}")
+        if [len(t) for t in toks["graph"]] != [sp.max_tokens for sp in sps]:
+            raise AssertionError(f"{dtype}: short outputs")
+        if not (g["mixed_windows_dispatched"] and g["mixed_ctx_carved"]):
+            raise AssertionError(f"{dtype}: no context rode a window: {g}")
+        if (g["mixed_windows_dispatched"], g["mixed_ctx_carved"]) != \
+                (e["mixed_windows_dispatched"], e["mixed_ctx_carved"]):
+            raise AssertionError(f"{dtype}: the two runs scheduled "
+                                 f"differently: {g} {e}")
+        if device == "cuda" and not (
+                g["graph_replays"] and g["replayed_launches"][
+                    "paged_decode_attention"] and g["replayed_launches"][
+                    "ragged_prefill_attention"]):
+            raise AssertionError(f"{dtype}: no graph replayed the "
+                                 f"attention kernels: {g}")
+        out[dtype] = dict(identical=True, graph=g, eager=e)
+        emit({"phase": "graphs", "dtype": dtype, "requests": len(prompts),
+              "tokens": sum(len(t) for t in toks["graph"]), **out[dtype]})
+    return out
+
+
 def serving_phase(quant_algo=None):
     """One serving run; ``quant_algo`` None serves bf16 weights, else a
     ``QuantAlgo`` name with group size 128."""
@@ -446,9 +649,6 @@ def serving_phase(quant_algo=None):
     from transformers import LlamaConfig
     from tensorrt_llm_tpu_torch import (LLM, QuantAlgo, QuantConfig,
                                         SamplingParams)
-    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
-    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
-    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
 
     cfg = LlamaConfig(vocab_size=32000, hidden_size=2048,
                       intermediate_size=5632, num_hidden_layers=22,
@@ -471,15 +671,17 @@ def serving_phase(quant_algo=None):
     try:
         llm.generate(prompts[:2], SamplingParams(max_tokens=8, top_k=1))
         torch.cuda.synchronize()
-        dec.LAUNCHES = 0
-        pre.LAUNCHES = 0
-        qmm.LAUNCHES = 0
+        replayed = llm.engine.graphs.replayed_launches()
+        reserve = llm.engine.graph_pool_reserve()
+        _zero_launches()
         t0 = time.monotonic()
         outs = llm.generate(prompts, sp)
         wall = time.monotonic() - t0
-        launches = {"paged_decode_attention": dec.LAUNCHES,
-                    "ragged_prefill_attention": pre.LAUNCHES,
-                    "groupwise_dequant_matmul": qmm.LAUNCHES}
+        launches = _read_launches()
+        graphs = _graph_stats(llm.engine)
+        graphs["replayed_launches"] = {
+            k: v - replayed[_kernel_counts()[k].__name__]
+            for k, v in graphs["replayed_launches"].items()}
     finally:
         llm.shutdown()
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -509,11 +711,65 @@ def serving_phase(quant_algo=None):
                ttft_ms_median=statistics.median(ttft) * 1e3,
                ttft_ms_max=max(ttft) * 1e3,
                tpot_ms_median=statistics.median(tpot) * 1e3,
-               launches=launches,
+               graph_pool_reserve_bytes=reserve, launches=launches,
                decode_steps=launches["paged_decode_attention"] // 22,
-               prefill_steps=launches["ragged_prefill_attention"] // 22)
+               prefill_steps=launches["ragged_prefill_attention"] // 22,
+               graphs=graphs)
+    if not graphs["replayed_launches"]["paged_decode_attention"]:
+        raise AssertionError(f"no decode window was replayed: {graphs}")
+    if quant_algo and not \
+            graphs["replayed_launches"]["groupwise_dequant_matmul"]:
+        raise AssertionError("no replayed window launched the "
+                             f"dequant-matmul kernel: {graphs}")
+    _check_reserve(res)
     emit({"phase": "serving", **res})
     return res
+
+
+def bench_serving_phase():
+    """bench.py's throughput settings on its 1b geometry (seeded random
+    bf16 weights), measured by tools/serving_profile.py: a warm-up pass,
+    a timed pass (the launch counters zeroed right before it and read
+    right after), a profiled pass."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sp = sprof.workload(bench_settings=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    try:
+        res = sprof.measure(llm, prompts, sp)
+        graphs = _graph_stats(llm.engine)
+        reserve = llm.engine.graph_pool_reserve()
+    finally:
+        llm.shutdown()
+    del llm
+    launches = res["launches"]
+    if res["output_tokens"] != len(prompts) * sp.max_tokens:
+        raise AssertionError(f"bench run: {res['output_tokens']} tokens")
+    if min(launches[k] for k in ("paged_decode_attention",
+                                 "ragged_prefill_attention")) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    res.update(engine_build_s=build_s, capture_s=graphs["capture_s"],
+               pool_bytes=graphs["pool_bytes"],
+               graph_pool_reserve_bytes=reserve)
+    _check_reserve(dict(res, graphs=graphs))
+    emit({"phase": "serving_bench_settings", **res})
+    return res
+
+
+def _check_reserve(res: dict) -> None:
+    """The graph pool must fit the memory the engine kept free for it
+    when it sized the KV pool (``ModelEngine.graph_pool_reserve``)."""
+    pool = res["graphs"]["pool_bytes"]
+    if pool > res["graph_pool_reserve_bytes"]:
+        raise AssertionError(f"graph pool {pool} B exceeds its reserve "
+                             f"{res['graph_pool_reserve_bytes']} B")
 
 
 def _tensors(tree):
@@ -561,18 +817,20 @@ def main() -> int:
     kern = kernel_phase()
     parity_phase(here)
     quant_parity_phase()
-    serving = serving_phase()
+    graph_phase(here)
+    serving_phase()
     serving_q = serving_phase("W4A16_AWQ")
+    bench = bench_serving_phase()
 
     kernels = []
     for name, case, group, src, replaces, run in [
-            ("paged_decode_attention", "decode_hd64", ("decode",),
+            ("paged_decode_attention", "decode_bench", ("decode",),
              "tensorrt_llm_tpu_torch/csrc/decode_attention.cu",
-             "tensorrt_llm_tpu/ops/pallas/decode_attention.py:164", serving),
-            ("ragged_prefill_attention", "prefill_hd64",
-             ("prefill", "mixed"),
+             "tensorrt_llm_tpu/ops/pallas/decode_attention.py:164", bench),
+            ("ragged_prefill_attention", "prefill_bench",
+             ("prefill", "mixed", "rider"),
              "tensorrt_llm_tpu_torch/csrc/prefill_attention.cu",
-             "tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250", serving),
+             "tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250", bench),
             ("groupwise_dequant_matmul", "qmm_gate_up", ("qmm",),
              "tensorrt_llm_tpu_torch/csrc/quant_matmul.cu",
              "tensorrt_llm_tpu/ops/pallas/quant_matmul.py:105", serving_q)]:
@@ -580,7 +838,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=run["launches"][name],
-            launches_in=run["quant_algo"],
+            launches_in=run.get("quant_algo", "bench_settings"),
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

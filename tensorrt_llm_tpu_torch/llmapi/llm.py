@@ -11,7 +11,9 @@ which serves random weights like ``load_format="dummy"``.
 ``quant_config=QuantConfig(quant_algo=...)`` quantizes float weights at
 load. The engine runs on the CUDA
 device unless ``device="cpu"`` is passed; without CUDA and without that
-argument, construction raises.
+argument, construction raises. On CUDA, ``enable_warmup`` (the default)
+captures the serving CUDA graphs at build, as the JAX ``LLM`` compiles
+its buckets at build on the TPU.
 """
 from __future__ import annotations
 
@@ -175,6 +177,8 @@ class LLM:
         args = self.args
         self.engine = ModelEngine(self.model, self._params, args)
         del self._params
+        if args.enable_warmup and self.device.type == "cuda":
+            self.engine.warmup()
         # a single sequence can never exceed the KV pool
         pool_tokens = self.engine.num_kv_pages * \
             args.kv_cache_config.tokens_per_block
@@ -209,7 +213,9 @@ class LLM:
             pipeline_depth=args.max_inflight_steps,
             decode_multi_step=args.decode_multi_step,
             waiting_queue_policy=args.scheduler_config.waiting_queue_policy,
-            max_active_requests=args.scheduler_config.max_active_requests)
+            max_active_requests=args.scheduler_config.max_active_requests,
+            decode_wait_occupancy=args.decode_wait_occupancy,
+            ttft_slo_ms=args.ttft_slo_ms)
 
     # ------------------------------------------------------------------ #
     # Generation

@@ -99,6 +99,23 @@ class LlmArgs(StrictBaseModel):
     # decode iterations per dispatched window: the engine loops K steps
     # on the device without a host sync; the host fetches once per K
     decode_multi_step: int = 8
+    # context tokens carried per decode-window step (mixed window): each
+    # of the K steps also prefills up to this many context tokens in the
+    # same forward, so refill phases do not run prefill-only steps while
+    # decode rows idle. 0 disables.
+    mixed_window_ctx: int = Field(0, ge=0)
+    # batching-wait: while context work is scheduled and the decode pool
+    # is below this fraction of max_batch_size, decode rows sit out the
+    # iteration so prefill refills the pool and windows run full. 0
+    # disables (the latency-friendly default).
+    decode_wait_occupancy: float = 0.0
+    # TTFT budget: when a request that has not produced its first token
+    # has waited longer than this, decode windows shrink to
+    # decode_multi_step/4. 0 = off.
+    ttft_slo_ms: float = 0.0
+    # capture the serving CUDA graphs at engine build (the CUDA device
+    # only); otherwise each is captured at its first step
+    enable_warmup: bool = True
     load_format: Literal["auto", "dummy"] = "auto"
     stream_interval: int = 1
 

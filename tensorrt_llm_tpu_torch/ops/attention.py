@@ -96,12 +96,15 @@ def write_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv = kv.to(kv_pages.dtype)
     slots = slot_mapping.long()
     keep = (slots >= 0) & (slots < n)
-    first = torch.argmax(keep.to(torch.int8))           # first kept row
+    # the first kept row, as a 1-element index: indexing by a 0-dim
+    # tensor would read it on the host (a sync, which a CUDA graph
+    # capture refuses)
+    first = torch.argmax(keep.to(torch.int8)).view(1)
     any_keep = keep.any()
     fb_slot = torch.where(any_keep, slots[first], 0)
-    fb_val = torch.where(any_keep, kv[first], flat[0])
+    fb_val = torch.where(any_keep, kv[first], flat[:1])
     idx = torch.where(keep, slots, fb_slot)
-    vals = torch.where(keep[:, None, None], kv, fb_val[None])
+    vals = torch.where(keep[:, None, None], kv, fb_val)
     flat.index_copy_(0, idx, vals)
     return kv_pages
 

@@ -6,17 +6,26 @@ happen at first use (never at import), into ``_build/`` beside ``csrc/``,
 under a file name that carries a hash of the sources, so an edited kernel
 is rebuilt and an unchanged one is reused. ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
+
+Each wrapper module keeps ``LAUNCHES``, the number of times its kernel
+ran, and counts through ``count_launch``. A launch recorded into a CUDA
+graph is not a run: while ``tally_launches`` is open on the thread, the
+launch goes into its tally instead, and whoever replays the graph adds
+the tally once per replay (``add_launches``; runtime/cuda_graph.py).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Counter, Dict, Iterator, List
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -25,6 +34,7 @@ KERNELS = ("decode_attention", "prefill_attention", "quant_matmul")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_tally = threading.local()      # .counts: the open tally of this thread
 
 
 def nvcc_path() -> str:
@@ -97,3 +107,32 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def count_launch(module: str) -> None:
+    """One launch of the kernel wrapped by ``module`` (its ``__name__``):
+    into the thread's open tally if there is one, else onto the module's
+    ``LAUNCHES``."""
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[module] += 1
+    else:
+        sys.modules[module].LAUNCHES += 1
+
+
+@contextlib.contextmanager
+def tally_launches() -> Iterator[Counter[str]]:
+    """Record this thread's launches by module instead of counting them
+    (a capture records what each replay will launch)."""
+    prev = getattr(_tally, "counts", None)
+    _tally.counts = collections.Counter()
+    try:
+        yield _tally.counts
+    finally:
+        _tally.counts = prev
+
+
+def add_launches(counts: Counter[str]) -> None:
+    """Count a recorded tally once (one replay of a graph)."""
+    for module, n in counts.items():
+        sys.modules[module].LAUNCHES += n

@@ -21,7 +21,11 @@ one launch instead of two when split, hd 256, int8/fp8 pools.
 ``paged_decode_attention_plain(..., num_splits=n)`` is the plain PyTorch
 version of the split algorithm: one partial per split, merged with the
 kernel's formulas. ``LAUNCHES`` counts wrapper calls that launched (one
-per call, whatever the number of splits).
+per call, whatever the number of splits; a captured call counts once per
+replay of its graph, ``_build.count_launch``). Grids, split counts and
+the scratch for the partials come from host ints and ``torch.empty``, so
+a launch can be captured in a CUDA graph (the scratch then comes from
+the graph's pool).
 """
 from __future__ import annotations
 
@@ -177,6 +181,21 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def splits_for(num_seqs: int, num_q_heads: int, num_kv_heads: int,
+               reach: int, max_kv_len: Optional[int],
+               sliding_window: Optional[int], device: torch.device) -> int:
+    """The split count a launch on ``device`` takes: ``choose_splits`` at
+    the hint ``max_kv_len`` (the page table's ``reach`` without one, and
+    no more than the window needs). The engine keys its CUDA graphs by
+    it."""
+    bound = reach if max_kv_len is None else min(int(max_kv_len), reach)
+    if sliding_window:
+        bound = min(bound, int(sliding_window) + SPLIT_TILE)
+    return choose_splits(num_seqs, num_kv_heads, bound,
+                         _sm_count(device.index or 0),
+                         num_q_heads // num_kv_heads)
+
+
 def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            kv_lens: torch.Tensor, page_indices: torch.Tensor,
                            *, sm_scale: float,
@@ -195,7 +214,6 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     only picks the number of KV splits, any value gives the same result);
     without it the bound is the page table's reach. ``num_splits`` forces
     the count (tests and sweeps)."""
-    global LAUNCHES
     if q.device.type == "cpu":
         if k_scale is not None or v_scale is not None:
             raise NotImplementedError("quantized KV pools are not supported")
@@ -222,12 +240,9 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     page_indices = page_indices.to(torch.int32).contiguous()
     sinks_t = _as_f32(sinks, q.device)
     alibi_t = _as_f32(alibi_slopes, q.device)
-    reach = page_indices.shape[1] * ps
-    bound = reach if max_kv_len is None else min(int(max_kv_len), reach)
-    if sliding_window:
-        bound = min(bound, int(sliding_window) + SPLIT_TILE)
-    splits = int(num_splits) if num_splits else choose_splits(
-        S, kvh, bound, _sm_count(q.device.index or 0), qh // kvh)
+    splits = int(num_splits) if num_splits else splits_for(
+        S, qh, kvh, page_indices.shape[1] * ps, max_kv_len, sliding_window,
+        q.device)
     out = torch.empty_like(q)
     part_acc = part_ml = None
     if splits > 1:
@@ -248,5 +263,5 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         splits, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
-    LAUNCHES += 1
+    _build.count_launch(__name__)
     return out

@@ -26,7 +26,10 @@ a KV split for the q_len-1 rows of mixed batches, hd 256, int8/fp8 pools.
 
 ``ragged_prefill_attention`` launches the kernel for CUDA tensors and runs
 ``ragged_prefill_attention_plain`` only for CPU tensors. ``LAUNCHES``
-counts kernel launches.
+counts kernel launches (a captured launch once per replay of its graph).
+The grid comes from ``max_q_len``, a host int: a CUDA graph fixes it for
+its key (the rider window passes its chunk width), and CTAs past the end
+of a shorter segment return at once.
 """
 from __future__ import annotations
 
@@ -137,7 +140,6 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     [P, ps, 2*kvh, hd]; kv_lens i32[S]; page_indices i32[S, max_pages] ->
     out [T, qh, hd]. ``max_q_len`` (the longest segment) sizes the grid;
     pass it from the host to avoid a device sync."""
-    global LAUNCHES
     if q.device.type == "cpu":
         if k_scale is not None or v_scale is not None:
             raise NotImplementedError("quantized KV pools are not supported")
@@ -178,5 +180,5 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         float(soft_cap or 0.0), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ragged_prefill_attention")
-    LAUNCHES += 1
+    _build.count_launch(__name__)
     return out

@@ -31,7 +31,8 @@ Dispatch, by shape only:
   * ``M > M_KERNEL_MAX`` (prefill): dequantize the weight to x's type and
     call one plain matmul (result in x's type), on any device — where the
     JAX package leaves the product to XLA;
-  * otherwise a CUDA tensor launches the kernel (``LAUNCHES`` counts) or
+  * otherwise a CUDA tensor launches the kernel (``LAUNCHES`` counts it,
+    a captured launch once per replay of its graph) or
     raises when the shape is outside ``kernel_takes``; a CPU tensor runs
     ``groupwise_dequant_matmul_plain``.
 """
@@ -155,7 +156,6 @@ def groupwise_dequant_matmul(x: torch.Tensor,        # [M, K]
                              *, group_size: int = 128,
                              bits: int = 4) -> torch.Tensor:
     """x @ dequant(w) -> [M, N], bf16 for M <= 128, else x's type."""
-    global LAUNCHES
     M, K, N = _check_shapes(x, w, scales, group_size, bits)
     if M > M_KERNEL_MAX:
         wq = unpack_int4(w) if bits == 4 else w
@@ -189,5 +189,5 @@ def groupwise_dequant_matmul(x: torch.Tensor,        # [M, K]
                     out.data_ptr(), M, K, N, group_size, bits, splits,
                     torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "groupwise_dequant_matmul")
-    LAUNCHES += 1
+    _build.count_launch(__name__)
     return out

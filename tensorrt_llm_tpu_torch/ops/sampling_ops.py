@@ -12,13 +12,17 @@ to the JAX version by distribution. Unseeded rows draw from the caller's
 hash of (seed, position, vocab id) computed with integer tensor ops on the
 device, so a seeded request's stream is a function of its seed and
 position only — independent of batch composition, as in the JAX version —
-and needs no host sync inside a decode window.
+and needs no host sync inside a decode window. Nothing here syncs with the
+host or copies from it, so a CUDA graph can capture ``sample`` and
+``greedy_sample``; the per-row controls reach the device packed
+(``SamplingTensors.rows`` / ``from_rows``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -40,29 +44,37 @@ class SamplingTensors:
     frequency_penalty: torch.Tensor  # f32[B]
 
     @staticmethod
-    def from_requests(requests, batch_size: int,
-                      device="cpu") -> "SamplingTensors":
-        """Host-side packing of SamplingParams into padded tensors."""
+    def rows(requests, batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-side packing of SamplingParams, padded to ``batch_size``:
+        ints i32[2, B] (top_k, greedy) and floats f32[6, B] (temperature,
+        top_p, min_p, repetition, presence, frequency penalty), the rows
+        of the JAX engine's window inputs. A step copies them into its
+        own device buffers and reads them with ``from_rows``."""
         n = min(len(requests), batch_size)
-        f = torch.zeros((6, batch_size), dtype=torch.float32)
-        f[0] = 1.0   # temperature
-        f[1] = 1.0   # top_p
-        f[3] = 1.0   # repetition
-        top_k = torch.zeros(batch_size, dtype=torch.int64)
-        greedy = torch.ones(batch_size, dtype=torch.bool)
+        ints = np.zeros((2, batch_size), np.int32)
+        ints[1] = 1                           # padding rows are greedy
+        floats = np.zeros((6, batch_size), np.float32)
+        floats[0] = 1.0   # temperature
+        floats[1] = 1.0   # top_p
+        floats[3] = 1.0   # repetition
         for i, r in enumerate(requests[:n]):
             sp = r.sampling_params
-            greedy[i] = sp.greedy
-            top_k[i] = sp.top_k
-            f[:, i] = torch.tensor([
-                max(sp.temperature, 1e-5), sp.top_p, sp.min_p,
-                sp.repetition_penalty, sp.presence_penalty,
-                sp.frequency_penalty])
-        f = f.to(device)
+            ints[:, i] = (sp.top_k, sp.greedy)
+            floats[:, i] = (max(sp.temperature, 1e-5), sp.top_p, sp.min_p,
+                            sp.repetition_penalty, sp.presence_penalty,
+                            sp.frequency_penalty)
+        return ints, floats
+
+    @staticmethod
+    def from_rows(ints: torch.Tensor, floats: torch.Tensor
+                  ) -> "SamplingTensors":
+        """Views of packed rows already on the device (no copy from the
+        host, so a CUDA graph can capture it)."""
         return SamplingTensors(
-            temperature=f[0], top_k=top_k.to(device), top_p=f[1],
-            min_p=f[2], greedy=greedy.to(device), repetition_penalty=f[3],
-            presence_penalty=f[4], frequency_penalty=f[5])
+            temperature=floats[0], top_k=ints[0].long(), top_p=floats[1],
+            min_p=floats[2], greedy=ints[1].bool(),
+            repetition_penalty=floats[3], presence_penalty=floats[4],
+            frequency_penalty=floats[5])
 
 
 def apply_penalties(logits: torch.Tensor,          # f32[B, V]

@@ -7,13 +7,20 @@ sequence slot and the next step gathers them there, so the host processes
 iteration n-1's tokens (up to ``pipeline_depth`` iterations behind) while
 the device executes iteration n. Pure-decode batches run K-step decode
 windows (``ModelEngine.forward_multi_step``); a batch with context and
-generation rows splits into a prefill step and a decode window.
+generation rows splits into a prefill step and a decode window, and with
+``mixed_window_ctx`` > 0 context chunks ride inside that window's steps
+instead of the prefill step. The serving schedule of the JAX executor
+comes along: the batching-wait (``decode_wait_occupancy``: decode rows
+sit out while context runs and the pool is under the target) and the
+TTFT budget (``ttft_slo_ms``: windows shrink to K/4 while a request waits
+past it for its first token).
 
-Not ported: mixed rider windows, speculative decoding, beam search,
-attention-DP / multi-host roles, guided decoding, disaggregation, KV
-connectors, logits processors, hang detection, per-request error
-isolation, cancellation, iteration statistics, the TTFT-budget window
-shrink and the decode batching-wait.
+This executor is the JAX package's single-engine role only: it has no
+leader, follower, attention-DP or speculative roles, so their branches
+of the schedule are not ported. Not ported either: beam search, guided
+decoding, disaggregation, KV connectors, logits processors, hang
+detection, per-request error isolation, cancellation and iteration
+statistics.
 """
 from __future__ import annotations
 
@@ -159,7 +166,9 @@ class PyExecutor:
                  pipeline_depth: int = 4,
                  decode_multi_step: int = 1,
                  waiting_queue_policy: str = "fcfs",
-                 max_active_requests: Optional[int] = None):
+                 max_active_requests: Optional[int] = None,
+                 decode_wait_occupancy: float = 0.0,
+                 ttft_slo_ms: float = 0.0):
         self.engine = engine
         self.kv = kv_cache_manager
         self.scheduler = scheduler
@@ -174,6 +183,14 @@ class PyExecutor:
         self.multi_step = max(1, decode_multi_step)
         # steps in flight before the host consumes results
         self.pipeline_depth = max(1, pipeline_depth) if enable_overlap else 1
+        # batching-wait: while context runs and fewer than this share of
+        # max_batch_size rows decode, the decode rows sit out
+        self.decode_wait_occupancy = decode_wait_occupancy
+        # TTFT budget: this iteration's window length, K/4 while someone
+        # waits past ttft_slo_ms for a first token
+        self.ttft_slo_ms = ttft_slo_ms
+        self._iter_K = self.multi_step
+        self.ttft_shrunk_iters = 0
 
         self._request_queue: "queue.Queue" = queue.Queue()
         self._results: Dict[int, GenerationResult] = {}
@@ -238,9 +255,16 @@ class PyExecutor:
             self._fetch_new_requests()
             if not self._active and not self._inflight:
                 continue
-            batch = self.scheduler.schedule(self._schedulable())
+            batch = self._batching_wait(
+                self.scheduler.schedule(self._schedulable()))
             if batch.paused_requests:
                 self._pause_requests(batch.paused_requests, batch)
+            # TTFT budget: shrink the window while a request has waited
+            # past the budget for its first token
+            self._iter_K = self.multi_step
+            if self.ttft_slo_ms > 0 and self._ttft_urgent():
+                self._iter_K = max(1, self.multi_step // 4)
+                self.ttft_shrunk_iters += 1
             # pure-decode batch -> K-step window; a mixed ctx+gen batch
             # splits into a prefill step plus a decode window for its
             # generation rows
@@ -261,6 +285,25 @@ class PyExecutor:
                     self._prepare_resources(batch)
                 if gen_window is not None:
                     self._prepare_resources_multi(gen_window)
+            # mixed window: resourced context chunks ride inside the
+            # decode window's steps, where their prefill hides under the
+            # decode steps' weight reads; they leave the prefill step
+            riders: List[LlmRequest] = []
+            if (gen_window is not None and gen_window.generation_requests
+                    and batch.context_requests and self._mixed_ok()):
+                cap = self.engine.mixed_ctx_tokens * self._iter_K
+                tot = 0
+                for r in batch.context_requests:
+                    if tot >= cap:
+                        break
+                    if self._ctx_rider_ok(r):
+                        riders.append(r)
+                        tot += min(r.context_chunk_size,
+                                   r.context_remaining_length)
+                if riders:
+                    batch = ScheduledRequests(context_requests=[
+                        r for r in batch.context_requests
+                        if r not in riders])
             if batch.is_empty and gen_window is None:
                 self._process_inflight()     # nothing runnable; drain
                 continue
@@ -268,8 +311,11 @@ class PyExecutor:
             if wb is not None and wb.generation_requests:
                 use_pen = any(r.sampling_params.needs_penalties
                               for r in wb.all_requests)
-                tokens, logprobs, emitted = self.engine.forward_multi_step(
-                    wb, self.multi_step, use_penalties=use_pen)
+                tokens, logprobs, emitted, carved = \
+                    self.engine.forward_multi_step(
+                        wb, self._iter_K, use_penalties=use_pen,
+                        ctx_requests=riders)
+                self._advance_ctx_riders(riders, carved)
                 entries, planned = self._advance_multi(wb)
                 self._inflight.append(_InflightBatch(
                     entries, [True] * len(entries),
@@ -278,18 +324,43 @@ class PyExecutor:
             if not multi and not batch.is_empty:
                 use_pen = any(r.sampling_params.needs_penalties
                               for r in batch.all_requests)
-                tokens, logprobs, top_lp = self.engine.forward_step(
-                    batch, use_penalties=use_pen)
-                outs = (tokens, logprobs) + (top_lp or ())
+                outs = self.engine.forward_step(batch, use_penalties=use_pen)
                 entries, samples = self._advance_device_state(batch)
                 self._inflight.append(_InflightBatch(
                     entries, samples, HostFuture(*outs),
-                    has_top_lp=top_lp is not None))
+                    has_top_lp=len(outs) > 2))
             while len(self._inflight) >= self.pipeline_depth:
                 self._process_inflight()
         # drain at shutdown
         while self._inflight:
             self._process_inflight()
+
+    def _batching_wait(self, batch: ScheduledRequests) -> ScheduledRequests:
+        """While context work is scheduled and the decode pool is under
+        the occupancy target, decode rows sit out this iteration, so
+        prefill refills the pool and windows run full. Rows only wait
+        while context runs."""
+        if (self.decode_wait_occupancy > 0 and batch.context_requests
+                and batch.generation_requests
+                and len(batch.generation_requests) <
+                self.decode_wait_occupancy * self.engine.max_batch_size):
+            return ScheduledRequests(context_requests=batch.context_requests,
+                                     paused_requests=batch.paused_requests)
+        return batch
+
+    def _ttft_urgent(self) -> bool:
+        """True when any request that has not produced its first token
+        has waited past the TTFT budget (llm_args.ttft_slo_ms)."""
+        budget = self.ttft_slo_ms / 1e3
+        now = time.monotonic()
+        for req in self.waiting:
+            if now - req.perf.arrival_time > budget:
+                return True
+        for req in self._active:
+            p = req.perf
+            if not p.first_token_time and now - p.arrival_time > budget:
+                return True
+        return False
 
     # ------------------------------------------------------------------ #
     def _fetch_new_requests(self):
@@ -397,11 +468,13 @@ class PyExecutor:
     def _prepare_resources_multi(self, batch: ScheduledRequests) -> None:
         """Pre-allocate KV pages for each request's decode window and set
         its per-window token budget."""
-        K = self.multi_step
+        K = self._iter_K
         starved = []
         for req in batch.generation_requests:
             sp = req.sampling_params
             ndt = req.num_device_tokens
+            # max(0, .): a rider-flipped row sits one position BEFORE its
+            # first output (it recomputes the last prompt token)
             outs = max(0, ndt - req.prompt_len)
             budget = max(1, min(K, sp.max_tokens - outs,
                                 self.engine.max_seq_len - ndt))
@@ -417,6 +490,38 @@ class PyExecutor:
                     starved.append(req)
         for req in starved:
             batch.generation_requests.remove(req)
+
+    # ------------------------------------------------------------------ #
+    # Mixed windows: context riders
+    # ------------------------------------------------------------------ #
+    def _mixed_ok(self) -> bool:
+        """Rider windows are on (``mixed_window_ctx`` > 0). The JAX
+        package also needs the plain attention pool (no VSWA, M-RoPE or
+        multimodal engine), which is all this package has."""
+        return self.engine.mixed_ctx_tokens > 0
+
+    def _ctx_rider_ok(self, r: LlmRequest) -> bool:
+        """A context request can ride once it holds a slot and its KV.
+        Requests of this package carry no prompt embeddings, cross states
+        or LoRA adapters, the JAX package's other reasons to keep one in
+        the prefill step."""
+        return r.seq_slot is not None
+
+    def _advance_ctx_riders(self, riders: List[LlmRequest],
+                            carved: List[int]) -> None:
+        """Host bookkeeping after a mixed window: carved context wrote
+        its KV in-window. A fully-prefilled prompt flips straight to
+        generation with the LAST prompt token as the next step's input
+        (its KV rewrite is idempotent), so the first output samples
+        through the normal gen path without a separate prefill step."""
+        for r, c in zip(riders, carved):
+            if c <= 0:
+                continue
+            r.context_current_position += c
+            if r.context_current_position >= r.context_len:
+                r.state = LlmRequestState.GENERATION_IN_PROGRESS
+                r.num_device_tokens = r.context_len - 1
+                r.host_token_override = int(r.context_token_ids[-1])
 
     def _advance_multi(self, batch: ScheduledRequests):
         entries, planned = [], []

@@ -2,12 +2,21 @@
 
 Port of ``tensorrt_llm_tpu/runtime/model_engine.py`` (``StepInputs``,
 ``prepare_inputs``, ``forward_step``, the K-step decode window of
-``_build_multi_step`` / ``forward_multi_step``, token buckets and KV-pool
-sizing) without guided decoding, LoRA, speculation, tree drafts, VSWA,
-M-RoPE, MoE statistics, pipeline parallelism and mixed rider windows.
+``_build_multi_step`` / ``forward_multi_step`` with its context riders
+and ``plan_ctx_chunks``, token and row buckets, ``warmup`` /
+``_warm_multi`` and KV-pool sizing) without guided decoding, LoRA,
+speculation, tree drafts, VSWA, M-RoPE, MoE statistics and pipeline
+parallelism.
 
-Execution is eager. Each step's ragged batch is still padded to a token
-bucket, so that a later CUDA graph per bucket can replay it. Sampled
+Every step is padded to a (token bucket, row bucket) pair, as the JAX
+engine pads to its jit buckets. On CUDA, decode windows and decode-only
+single steps replay one CUDA graph per key (runtime/cuda_graph.py), where
+the JAX engine replays one jitted executable; ``warmup`` captures the
+greedy ones at build. A window is K steps long whatever the rows'
+budgets, as the JAX scan is; a graph cannot skip a step that has no live
+row, as the JAX package does with ``lax.cond``, so such a step runs with
+every row inactive (``dead_window_steps`` counts the ones the host can
+foresee). Prefill steps outside rider windows run eagerly. Sampled
 tokens stay on the device, scattered by sequence slot into
 ``prev_tokens``; the next step gathers its decode inputs from there, so
 the overlap scheduler (executor.py) never waits for a token on the host.
@@ -28,9 +37,17 @@ from ..llmapi.llm_args import LlmArgs
 from ..logger import logger
 from ..models.modeling_utils import DecoderModelForCausalLM
 from ..ops.attention import AttentionMetadata
+from ..ops.cuda import decode_attention as dec
 from ..ops.sampling_ops import (SamplingTensors, greedy_sample, sample,
                                 top_logprobs)
+from .cuda_graph import GraphRunner, Inputs, upload
 from .scheduler import ScheduledRequests
+
+
+def _seeded(reqs, greedy: bool) -> bool:
+    """Whether a sampled step must draw seeded rows' counter-based noise:
+    a key of its own, so that unseeded batches skip that work."""
+    return not greedy and any(r.sampling_params.seed for r in reqs)
 
 
 @dataclasses.dataclass
@@ -99,7 +116,18 @@ class ModelEngine:
                                     {decode_bucket})
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
+        self.graphs = GraphRunner(self.device, self.generator,
+                                  capture=self.device.type == "cuda")
         self.iter_counter = 0
+        # decode steps dispatched (windows and single steps); mixed
+        # windows: windows that carried riders, context tokens carved into
+        # them; every window's steps, and the steps the host knew would
+        # have no live row and no rider chunk
+        self.decode_steps = 0
+        self.mixed_windows_dispatched = 0
+        self.mixed_ctx_carved = 0
+        self.window_steps = 0
+        self.dead_window_steps = 0
         self.params = params
         self.num_kv_pages = num_kv_pages or self._default_num_pages()
         logger.info("KV pool: %d pages x %d tokens (%.1f MB/layer)",
@@ -108,7 +136,8 @@ class ModelEngine:
         self.kv_pages = model.make_kv_pages(self.num_kv_pages,
                                             self.page_size)
         # slot-indexed device state; index max_batch_size is a trash slot
-        # that absorbs the scatters of padding and inactive rows
+        # that absorbs the scatters of padding and inactive rows. Steps
+        # update it in place: captured graphs hold its address
         self.prev_tokens = torch.zeros(self.max_batch_size + 1,
                                        dtype=torch.int64, device=self.device)
         self.token_counts: Optional[torch.Tensor] = None
@@ -127,16 +156,48 @@ class ModelEngine:
         return self.num_kv_pages * self.bytes_per_kv_block \
             // self.model.num_layers
 
+    def graph_pool_reserve(self) -> int:
+        """Device bytes kept free for the CUDA graphs' shared pool when
+        the KV pool is sized (0 on the CPU). An estimate from above, not
+        a derivation. The pool holds about one step of the widest window
+        (every row plus a full rider chunk), since a window's steps and
+        the graphs, which replay one after another, reuse its blocks:
+
+        - per token, 4 hidden-wide tensors (residual, normed input,
+          attention output, o-projection output) and 3 intermediate-wide
+          ones (gate and up projections, their product), at 4 bytes
+          though most are bf16;
+        - per row, 6 [rows, vocab] float32 tensors of the sampler (logits,
+          log-softmax, the generator's noise, the seeded rows' noise, the
+          perturbed logits, their selection);
+        - a factor 2 of headroom for the allocator's block rounding and
+          the blocks that the graphs' static outputs keep.
+
+        On an H100 at bench.py's serving settings (1b geometry, 256 rows,
+        a 512-token rider chunk) the six graphs of ``warmup`` took 178 MB
+        against a 547 MB reserve; at ``LLM``'s defaults on the
+        TinyLlama-1.1B geometry two graphs took 50 MB
+        (``chip_smoke.py``, which prints both)."""
+        if self.device.type != "cuda":
+            return 0
+        hf = self.model.hf
+        rows = self.max_batch_size
+        tokens = rows + self.mixed_ctx_tokens
+        acts = tokens * (4 * hf.hidden_size + 3 * hf.intermediate_size) * 4
+        sampler = rows * self.model.vocab_size * 4 * 6
+        return 2 * (acts + sampler)
+
     def _default_num_pages(self) -> int:
-        """KV pool sizing from free device memory (a fixed 2 GiB budget
-        on the CPU)."""
+        """KV pool sizing from free device memory, less 1 GiB and the
+        graph pool's reserve (a fixed 2 GiB budget on the CPU)."""
         cfg = self.args.kv_cache_config
         if cfg.max_tokens is not None:
             return -(-cfg.max_tokens // self.page_size)
         bytes_per_page = self.bytes_per_kv_block
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
-            budget = int(free * cfg.free_gpu_memory_fraction) - (1 << 30)
+            budget = int(free * cfg.free_gpu_memory_fraction) - (1 << 30) \
+                - self.graph_pool_reserve()
         else:
             budget = 2 << 30
         budget = max(budget, bytes_per_page * self.max_batch_size)
@@ -163,15 +224,24 @@ class ModelEngine:
                 return b
         raise ValueError(f"{n} rows exceeds max_batch_size")
 
-    # ------------------------------------------------------------------ #
-    # Host -> device
-    # ------------------------------------------------------------------ #
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """One host array to the device without blocking the host."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+    def _kv_bound(self, n: int) -> int:
+        """The decode kernel's ``max_kv_len`` hint for a step whose rows
+        reach at most ``n`` positions: n rounded up to a power of two,
+        capped at the page table's reach. A graph's key fixes the split
+        count this bound gives, and eager steps pass the same bound, so
+        both launch alike and give the same bits."""
+        reach = self.pages_per_seq * self.page_size
+        return min(1 << (max(n, 1) - 1).bit_length(), reach)
+
+    def _splits(self, rows: int, bound: int) -> int:
+        """KV splits of the decode kernel over ``rows`` at ``bound`` (1 on
+        the CPU, whose plain version does not split)."""
+        if self.device.type != "cuda":
+            return 1
+        spec = self.model.attn_spec
+        return dec.splits_for(rows, spec.num_heads, spec.num_kv_heads,
+                              self.pages_per_seq * self.page_size, bound,
+                              spec.sliding_window, self.device)
 
     def _counts(self, use_penalties: bool) -> Optional[torch.Tensor]:
         if use_penalties and self.token_counts is None:
@@ -186,6 +256,16 @@ class ModelEngine:
         if self.token_counts is None or not slots:
             return
         self.token_counts[torch.as_tensor(slots, device=self.device)] = 0
+
+    def _forward(self, tokens: torch.Tensor,
+                 metadata: AttentionMetadata) -> torch.Tensor:
+        """The model over the KV pool, which it updates in place (captured
+        graphs hold the pool's address)."""
+        logits, kv = self.model.forward(self.params, tokens, self.kv_pages,
+                                        metadata)
+        if kv.data_ptr() != self.kv_pages.data_ptr():
+            raise RuntimeError("the model moved the KV pool")
+        return logits
 
     # ------------------------------------------------------------------ #
     # Input preparation (host, numpy)
@@ -254,190 +334,407 @@ class ModelEngine:
             max_kv_len=int(kv_lens.max()))
 
     # ------------------------------------------------------------------ #
-    # Forward + sample for one scheduled batch
+    # One step for one scheduled batch
     # ------------------------------------------------------------------ #
-    @torch.no_grad()
-    def forward_step(self, batch: ScheduledRequests,
-                     use_penalties: bool = False):
-        """Launch one iteration. Returns (tokens, logprobs, top_lp) as
-        device tensors indexed by batch row; top_lp is (values, ids) when
-        a request asked for logprobs, else None."""
-        inp = self.prepare_inputs(batch)
-        T = self._pick_bucket(inp.num_tokens)
-        n = inp.num_tokens
-        S = self.max_batch_size
-        num_slots = self.num_kv_pages * self.page_size
-        self.iter_counter += 1
-        reqs = batch.context_requests + batch.generation_requests
-
-        ints_t = np.zeros((4, T), np.int32)
-        ints_t[0, :n] = inp.token_ids
-        ints_t[1, :] = -1
-        ints_t[1, :n] = inp.prev_slot
-        ints_t[2, :n] = inp.positions
+    def _step_inputs(self, inp: StepInputs, reqs, T: int,
+                     greedy: bool) -> Inputs:
+        """A step's host inputs, padded to the token bucket T."""
+        n, S = inp.num_tokens, self.max_batch_size
+        tokens = np.zeros(T, np.int32)
+        tokens[:n] = inp.token_ids
+        prev_slot = np.full(T, -1, np.int32)
+        prev_slot[:n] = inp.prev_slot
+        positions = np.zeros(T, np.int32)
+        positions[:n] = inp.positions
         # padding tokens write to an out-of-range slot -> dropped
-        ints_t[3, :] = num_slots
-        ints_t[3, :n] = inp.slot_mapping
+        slots = np.full(T, self.num_kv_pages * self.page_size, np.int32)
+        slots[:n] = inp.slot_mapping
         seeds = np.zeros(S, np.int32)
         for i, r in enumerate(reqs):
             if r.sampling_params.seed:
                 seeds[i] = r.sampling_params.seed & 0x7FFFFFFF or 1
-        ints_s = np.concatenate([inp.kv_lens, inp.cu_q_lens,
-                                 inp.logits_indices, inp.out_slots,
-                                 inp.num_seqs, seeds])
-        dev_t = self._upload(ints_t)
-        dev_s = self._upload(ints_s)
-        pages = self._upload(inp.page_indices)
-        o = 0
-        kv_lens = dev_s[o:o + S]; o += S
-        cu_q = dev_s[o:o + S + 1]; o += S + 1
-        logits_idx = dev_s[o:o + S]; o += S
-        out_slots = dev_s[o:o + S]; o += S
-        num_seqs = dev_s[o:o + 1]; o += 1
-        row_seeds = dev_s[o:o + S]
+        inputs = dict(tokens=tokens, prev_slot=prev_slot,
+                      positions=positions, slot_mapping=slots,
+                      kv_lens=inp.kv_lens, cu_q_lens=inp.cu_q_lens,
+                      logits_indices=inp.logits_indices,
+                      out_slots=inp.out_slots, num_seqs=inp.num_seqs,
+                      seeds=seeds, page_indices=inp.page_indices)
+        if not greedy:
+            inputs["samp_ints"], inputs["samp_floats"] = \
+                SamplingTensors.rows(reqs, S)
+        return inputs
 
-        prev_slot = dev_t[1].long()
-        tokens_in = torch.where(prev_slot >= 0,
-                                self.prev_tokens[prev_slot.clamp(min=0)],
-                                dev_t[0].long())
-        metadata = AttentionMetadata(
-            kv_lens=kv_lens, page_indices=pages, cu_q_lens=cu_q,
-            num_seqs=num_seqs, slot_mapping=dev_t[3], positions=dev_t[2],
-            logits_indices=logits_idx.long(), max_q_len=inp.max_q_len,
-            max_kv_len=inp.max_kv_len)
-        logits, self.kv_pages = self.model.forward(
-            self.params, tokens_in, self.kv_pages, metadata)
+    def _step_key(self, T: int, bound: int, greedy: bool,
+                  use_penalties: bool, k_lp: int,
+                  seeded: bool = False) -> tuple:
+        return ("step", T, self._splits(min(self.max_batch_size, T), bound),
+                greedy, use_penalties, k_lp, seeded)
 
-        all_greedy = all(r.sampling_params.greedy for r in reqs)
-        counts = self._counts(use_penalties)
-        slot_idx = torch.where(out_slots >= 0, out_slots, S).long()
-        if all_greedy and not use_penalties:
-            new_tokens, logprobs = greedy_sample(logits)
+    @torch.no_grad()
+    def forward_step(self, batch: ScheduledRequests,
+                     use_penalties: bool = False):
+        """Launch one iteration. Returns device tensors indexed by batch
+        row: (tokens, logprobs), then (top values, top ids) when a request
+        asked for logprobs. A decode-only batch replays the graph of its
+        key; a batch with prompt tokens runs eagerly."""
+        inp = self.prepare_inputs(batch)
+        T = self._pick_bucket(inp.num_tokens)
+        self.iter_counter += 1
+        reqs = batch.context_requests + batch.generation_requests
+        greedy = not use_penalties and \
+            all(r.sampling_params.greedy for r in reqs)
+        k_lp = min(20, max((r.sampling_params.logprobs or 0)
+                           for r in reqs) if reqs else 0)
+        seeded = _seeded(reqs, greedy)
+        inputs = self._step_inputs(inp, reqs, T, greedy)
+        self._counts(use_penalties)
+        if inp.max_q_len > 1:
+            body = self._step_body(inp.max_q_len, inp.max_kv_len, greedy,
+                                   use_penalties, k_lp, seeded)
+            return body(upload(inputs, self.device))
+        bound = self._kv_bound(inp.max_kv_len)
+        self.decode_steps += 1
+        return self.graphs.run(
+            self._step_key(T, bound, greedy, use_penalties, k_lp, seeded),
+            inputs,
+            self._step_body(1, bound, greedy, use_penalties, k_lp, seeded),
+            inert=lambda: self._step_inputs(
+                self.prepare_inputs(ScheduledRequests()), [], T, greedy))
+
+    def _step_body(self, max_q_len: int, kv_bound: int, greedy: bool,
+                   use_penalties: bool, k_lp: int, seeded: bool = False):
+        S = self.max_batch_size
+
+        def body(v):
+            prev = v["prev_slot"].long()
+            tokens = torch.where(prev >= 0,
+                                 self.prev_tokens[prev.clamp(min=0)],
+                                 v["tokens"].long())
+            logits = self._forward(tokens, AttentionMetadata(
+                kv_lens=v["kv_lens"], page_indices=v["page_indices"],
+                cu_q_lens=v["cu_q_lens"], num_seqs=v["num_seqs"],
+                slot_mapping=v["slot_mapping"], positions=v["positions"],
+                logits_indices=v["logits_indices"].long(),
+                max_q_len=max_q_len, max_kv_len=kv_bound))
+            out_slots = v["out_slots"]
+            st = None if greedy else SamplingTensors.from_rows(
+                v["samp_ints"], v["samp_floats"])
+            outs = self._sample(logits, st,
+                                v["seeds"] if seeded else None,
+                                v["kv_lens"],
+                                torch.where(out_slots >= 0, out_slots,
+                                            S).long(), use_penalties)
+            if k_lp:
+                outs += top_logprobs(logits, k_lp)
+            return outs
+        return body
+
+    def _sample(self, logits, st: Optional[SamplingTensors], seeds,
+                positions, slot_idx, use_penalties: bool):
+        """Sample (argmax when ``st`` is None; ``seeds`` None when no row
+        has a seed, which skips the seeded rows' noise), scatter the tokens
+        by slot for the next step's gather (padding and inactive rows land
+        in the trash slot) and count them for the penalties."""
+        if st is None:
+            tok, lp = greedy_sample(logits)
         else:
-            st = SamplingTensors.from_requests(reqs, S, self.device)
-            new_tokens, logprobs = sample(
+            tok, lp = sample(
                 logits, st, self.generator,
-                token_counts=counts[slot_idx] if use_penalties else None,
-                row_seeds=(row_seeds, kv_lens) if seeds.any() else None)
-        # scatter by slot for the next iteration's gather; padding rows
-        # land in the trash slot
-        self.prev_tokens[slot_idx] = new_tokens
+                token_counts=self.token_counts[slot_idx]
+                if use_penalties else None,
+                row_seeds=None if seeds is None else (seeds, positions))
+        self.prev_tokens[slot_idx] = tok
         if use_penalties:
-            counts.index_put_((slot_idx, new_tokens),
-                              torch.ones_like(new_tokens, dtype=counts.dtype),
-                              accumulate=True)
-        want_lp = max((r.sampling_params.logprobs or 0) for r in reqs) \
-            if reqs else 0
-        top_lp = top_logprobs(logits, min(want_lp, 20)) if want_lp else None
-        return new_tokens, logprobs, top_lp
+            self.token_counts.index_put_(
+                (slot_idx, tok), torch.ones_like(tok, dtype=torch.int32),
+                accumulate=True)
+        return tok, lp
 
     # ------------------------------------------------------------------ #
     # K-step decode window: K decode iterations dispatched back to back
     # with the sampled tokens kept on the device, per-row stop handling
     # (stop ids / min_tokens / token budget) on the device, and one host
-    # fetch per window.
+    # fetch per window. With riders, each step also prefills a planned
+    # chunk of context tokens in the same forward.
     # ------------------------------------------------------------------ #
-    @torch.no_grad()
-    def forward_multi_step(self, batch: ScheduledRequests, K: int,
-                           use_penalties: bool = False):
-        """Launch one K-step decode window for a generation-only batch.
-        Each request must carry ``multi_step_budget`` (set by the executor
-        after KV pre-allocation). Returns device tensors (tokens [K', Sb],
-        logprobs [K', Sb], emitted [Sb]) with K' = the largest budget."""
-        reqs = batch.generation_requests
-        n = len(reqs)
-        Sb = self._pick_row_bucket(n)
-        ps, P = self.page_size, self.pages_per_seq
-        NSTOP = self.NSTOP
-        self.iter_counter += 1
+    @property
+    def mixed_ctx_tokens(self) -> int:
+        """C: context tokens carried per window step (0 = disabled)."""
+        return self.args.mixed_window_ctx
 
-        # ints rows: token_ids, prev_slot, start_pos, out_slots, max_new,
-        # stop_gate, row_seeds
-        ints = np.zeros((7, Sb), np.int32)
-        ints[1] = -1
-        ints[3] = -1
+    @property
+    def mixed_ctx_seqs(self) -> int:
+        """NC: context sequences per window step (plus one filler row)."""
+        C = self.mixed_ctx_tokens
+        return max(2, min(16, C // 64)) if C else 0
+
+    def plan_ctx_chunks(self, ctx_requests, K: int):
+        """Carve the scheduled context requests' chunk ranges into K
+        per-step rider chunks (host, numpy). Returns (xs dict with
+        leading K axis, carved token count per request)."""
+        C, NC = self.mixed_ctx_tokens, self.mixed_ctx_seqs
+        ps, P = self.page_size, self.pages_per_seq
+        oob = self.num_kv_pages * ps
+        tok = np.zeros((K, C), np.int32)
+        pos = np.zeros((K, C), np.int32)
+        slot = np.full((K, C), oob, np.int32)
+        kvl = np.ones((K, NC + 1), np.int32)
+        cu = np.zeros((K, NC + 2), np.int32)
+        pages = np.zeros((K, NC + 1, P), np.int32)
+        carved = [0] * len(ctx_requests)
+        offs = [r.context_current_position for r in ctx_requests]
+        ends = [min(r.context_len,
+                    r.context_current_position + r.context_chunk_size)
+                for r in ctx_requests]
+        ri = 0
+        for k in range(K):
+            used, row = 0, 0
+            while ri < len(ctx_requests) and used < C and row < NC:
+                r = ctx_requests[ri]
+                take = min(ends[ri] - offs[ri], C - used)
+                if take <= 0:
+                    ri += 1
+                    continue
+                s, e = offs[ri], offs[ri] + take
+                blk = np.asarray(r.kv_block_ids, np.int32)
+                ppos = np.arange(s, e, dtype=np.int32)
+                tok[k, used:used + take] = r.context_token_ids[s:e]
+                pos[k, used:used + take] = ppos
+                slot[k, used:used + take] = blk[ppos // ps] * ps + ppos % ps
+                pages[k, row, :len(blk)] = blk
+                kvl[k, row] = e
+                cu[k, row + 1] = used + take
+                used += take
+                row += 1
+                offs[ri] += take
+                carved[ri] += take
+                if offs[ri] >= ends[ri]:
+                    ri += 1
+            for rr in range(row, NC):
+                cu[k, rr + 1] = used
+            cu[k, NC + 1] = C
+            # filler row self-attends over the pad region (garbage in,
+            # output discarded; KV writes routed out of bounds)
+            kvl[k, NC] = max(1, C - used)
+            pos[k, used:] = np.arange(C - used, dtype=np.int32)
+        xs = dict(tokens=tok, positions=pos, slots=slot, kv_lens=kvl, cu=cu,
+                  pages=pages)
+        return xs, carved
+
+    def _window_inputs(self, reqs, Sb: int, K: int, greedy: bool,
+                       riders=None):
+        """Host inputs of a K-step window over the generation rows
+        ``reqs`` padded to Sb rows, with the rider plan of ``riders``
+        (None: a window without the rider branch). Returns (inputs,
+        carved)."""
+        P, NSTOP = self.pages_per_seq, self.NSTOP
+        # rows: token_ids, prev_slot, start_pos, out_slots, max_new,
+        # stop_gate; padding rows have no slot, so they never run
+        rows = np.zeros((6, Sb), np.int32)
+        rows[1] = -1
+        rows[3] = -1
+        seeds = np.zeros(Sb, np.int32)
         stop_ids = np.full((Sb, NSTOP), -1, np.int32)
         page_indices = np.zeros((Sb, P), np.int32)
         for i, r in enumerate(reqs):
             sp = r.sampling_params
             ndt = r.num_device_tokens
             if r.host_token_override is not None:
-                ints[0, i] = r.host_token_override
+                rows[0, i] = r.host_token_override
             else:
-                ints[1, i] = r.seq_slot
-            ints[2, i] = ndt
-            ints[3, i] = r.seq_slot
-            ints[4, i] = r.multi_step_budget
-            ints[5, i] = max(0, sp.min_tokens - (ndt - r.prompt_len))
+                rows[1, i] = r.seq_slot
+            rows[2, i] = ndt
+            rows[3, i] = r.seq_slot
+            rows[4, i] = r.multi_step_budget
+            rows[5, i] = max(0, sp.min_tokens - (ndt - r.prompt_len))
             if sp.seed:
-                ints[6, i] = sp.seed & 0x7FFFFFFF or 1
+                seeds[i] = sp.seed & 0x7FFFFFFF or 1
             ids = list(sp.stop_id_list())[:NSTOP]
             stop_ids[i, :len(ids)] = ids
             blocks = r.kv_block_ids
             page_indices[i, :len(blocks)] = blocks
-        K = max(1, min(K, int(ints[4].max()) if n else 1))
-        dev = self._upload(np.concatenate([ints, stop_ids.T], axis=0))
-        pages = self._upload(page_indices)
-        token_ids, prev_slot, start_pos, out_slots, max_new, stop_gate, \
-            row_seeds = dev[:7]
-        stops = dev[7:].T                                    # [Sb, NSTOP]
-        all_greedy = all(r.sampling_params.greedy for r in reqs)
-        seeded = bool(ints[6].any())
-        st = None if all_greedy and not use_penalties else \
-            SamplingTensors.from_requests(reqs, Sb, self.device)
-        counts = self._counts(use_penalties)
+        inputs = dict(rows=rows, seeds=seeds, stop_ids=stop_ids,
+                      page_indices=page_indices)
+        if not greedy:
+            inputs["samp_ints"], inputs["samp_floats"] = \
+                SamplingTensors.rows(reqs, Sb)
+        carved: List[int] = []
+        if riders is not None:
+            xs, carved = self.plan_ctx_chunks(riders, K)
+            inputs.update(("ctx_" + k, a) for k, a in xs.items())
+        return inputs, carved
 
-        num_slots_oob = self.num_kv_pages * ps
-        nslots = self.max_batch_size
-        valid = out_slots >= 0
-        iota = torch.arange(Sb, device=self.device)
-        cu_q = torch.arange(Sb + 1, dtype=torch.int32, device=self.device)
-        num_seqs = torch.full((1,), Sb, dtype=torch.int32,
-                              device=self.device)
-        prev = prev_slot.long()
-        cur = torch.where(prev >= 0, self.prev_tokens[prev.clamp(min=0)],
-                          token_ids.long())
-        pos = start_pos
-        active = valid & (max_new > 0)
-        emitted = torch.zeros(Sb, dtype=torch.int32, device=self.device)
-        toks, lps = [], []
-        # host-known bound of every row's kv_len at step k of the window:
-        # a row advances by at most one position per step
-        max_start = int(ints[2].max()) if n else 0
-        for step in range(K):
-            kv_len = torch.where(valid, pos + 1, 1).to(torch.int32)
-            page_row = pages[iota, (pos // ps).clamp(0, P - 1).long()]
-            slot_map = torch.where(active, page_row * ps + pos % ps,
-                                   num_slots_oob).to(torch.int32)
-            metadata = AttentionMetadata(
-                kv_lens=kv_len, page_indices=pages, cu_q_lens=cu_q,
-                num_seqs=num_seqs, slot_mapping=slot_map,
-                positions=pos, logits_indices=iota, max_q_len=1,
-                max_kv_len=max_start + step + 1)
-            logits, self.kv_pages = self.model.forward(
-                self.params, cur, self.kv_pages, metadata)
-            slot_idx = torch.where(active, out_slots, nslots).long()
-            if st is None:
-                tok, lp = greedy_sample(logits)
-            else:
-                tok, lp = sample(
-                    logits, st, self.generator,
-                    token_counts=counts[slot_idx] if use_penalties else None,
-                    row_seeds=(row_seeds, kv_len) if seeded else None)
-            new_emitted = emitted + active.to(torch.int32)
-            hit_stop = (tok[:, None] == stops).any(dim=1)
-            stopped = hit_stop & (new_emitted >= stop_gate)
-            len_done = new_emitted >= max_new
-            self.prev_tokens[slot_idx] = tok
-            if use_penalties:
-                counts.index_put_((slot_idx, tok),
-                                  torch.ones_like(tok, dtype=counts.dtype),
-                                  accumulate=True)
-            pos = pos + active.to(pos.dtype)
-            active = active & ~stopped & ~len_done
-            emitted = new_emitted
-            cur = tok
-            toks.append(tok)
-            lps.append(lp)
-        return torch.stack(toks), torch.stack(lps), emitted
+    def _window_key(self, K: int, Sb: int, C: int, bound: int,
+                    greedy: bool, use_penalties: bool,
+                    seeded: bool = False) -> tuple:
+        # a rider window's attention is the ragged kernel alone: no splits
+        splits = 1 if C else self._splits(Sb, bound)
+        return ("multi", K, Sb, C, self.mixed_ctx_seqs if C else 0, splits,
+                greedy, use_penalties, seeded)
 
+    @torch.no_grad()
+    def forward_multi_step(self, batch: ScheduledRequests, K: int,
+                           use_penalties: bool = False, ctx_requests=None):
+        """Launch one K-step decode window for a generation-only batch.
+        Each request must carry ``multi_step_budget`` (set by the executor
+        after KV pre-allocation). Returns device tensors (tokens [K, Sb],
+        logprobs [K, Sb], emitted [Sb]), of which a row's tokens past its
+        emitted count are not outputs, and ``carved``: the context tokens
+        consumed per request of ``ctx_requests``. With ``ctx_requests``
+        (a mixed window), each step also prefills a planned context
+        chunk."""
+        reqs = batch.generation_requests
+        n = len(reqs)
+        Sb = self._pick_row_bucket(n)
+        self.iter_counter += 1
+        greedy = not use_penalties and \
+            all(r.sampling_params.greedy for r in reqs)
+        seeded = _seeded(reqs, greedy)
+        riders = ctx_requests or None
+        inputs, carved = self._window_inputs(reqs, Sb, K, greedy, riders)
+        C = self.mixed_ctx_tokens if riders else 0
+        rows = inputs["rows"]
+        # steps the host knows to be live: every row is done by its
+        # budget, and the plan says which steps carry a chunk
+        live = int(rows[4].max()) if n else 0
+        if riders:
+            self.mixed_windows_dispatched += 1
+            self.mixed_ctx_carved += sum(carved)
+            chunk_steps = np.flatnonzero(inputs["ctx_cu"][:, -2])
+            live = max(live, int(chunk_steps[-1]) + 1 if chunk_steps.size
+                       else 0)
+        self.decode_steps += K
+        self.window_steps += K
+        self.dead_window_steps += max(0, K - live)
+        bound = self._kv_bound((int(rows[2].max()) if n else 0) + K)
+        self._counts(use_penalties)
+        out = self.graphs.run(
+            self._window_key(K, Sb, C, bound, greedy, use_penalties, seeded),
+            inputs,
+            self._window_body(K, Sb, C, bound, greedy, use_penalties, seeded),
+            inert=lambda: self._window_inputs(
+                [], Sb, K, greedy, [] if riders else None)[0])
+        return (*out, carved)
+
+    def _window_body(self, K: int, Sb: int, C: int, kv_bound: int,
+                     greedy: bool, use_penalties: bool,
+                     seeded: bool = False):
+        ps, P = self.page_size, self.pages_per_seq
+        NC = self.mixed_ctx_seqs if C else 0
+        oob = self.num_kv_pages * ps
+        trash = self.max_batch_size
+        dev = self.device
+
+        def body(v):
+            token_ids, prev_slot, start_pos, out_slots, max_new, \
+                stop_gate = v["rows"]
+            stops, pages = v["stop_ids"], v["page_indices"]
+            st = None if greedy else SamplingTensors.from_rows(
+                v["samp_ints"], v["samp_floats"])
+            valid = out_slots >= 0
+            iota = torch.arange(Sb, device=dev)
+            cu_q = torch.arange(Sb + 1, dtype=torch.int32, device=dev)
+            num_seqs = torch.full((1,), Sb + (NC + 1 if C else 0),
+                                  dtype=torch.int32, device=dev)
+            prev = prev_slot.long()
+            cur = torch.where(prev >= 0, self.prev_tokens[prev.clamp(min=0)],
+                              token_ids.long())
+            pos = start_pos
+            active = valid & (max_new > 0)
+            emitted = torch.zeros(Sb, dtype=torch.int32, device=dev)
+            toks, lps = [], []
+            for k in range(K):
+                kv_len = torch.where(valid, pos + 1, 1).to(torch.int32)
+                page_row = pages[iota, (pos // ps).clamp(0, P - 1).long()]
+                slot_map = torch.where(active, page_row * ps + pos % ps,
+                                       oob).to(torch.int32)
+                if C:
+                    # context riders: the step's planned chunk (C tokens
+                    # over NC sequences and a filler row) joins the
+                    # decode rows in one forward, one ragged-kernel
+                    # launch per layer whose grid C fixes (a chunk row may
+                    # hold several tokens, so at least 2); logits are
+                    # taken at the decode rows only
+                    logits = self._forward(
+                        torch.cat([cur, v["ctx_tokens"][k].long()]),
+                        AttentionMetadata(
+                            kv_lens=torch.cat([kv_len,
+                                               v["ctx_kv_lens"][k]]),
+                            page_indices=torch.cat([pages,
+                                                    v["ctx_pages"][k]]),
+                            cu_q_lens=torch.cat([cu_q,
+                                                 Sb + v["ctx_cu"][k, 1:]]),
+                            num_seqs=num_seqs,
+                            slot_mapping=torch.cat([slot_map,
+                                                    v["ctx_slots"][k]]),
+                            positions=torch.cat([pos,
+                                                 v["ctx_positions"][k]]),
+                            logits_indices=iota, max_q_len=max(C, 2),
+                            max_kv_len=kv_bound))
+                else:
+                    logits = self._forward(cur, AttentionMetadata(
+                        kv_lens=kv_len, page_indices=pages, cu_q_lens=cu_q,
+                        num_seqs=num_seqs, slot_mapping=slot_map,
+                        positions=pos, logits_indices=iota, max_q_len=1,
+                        max_kv_len=kv_bound))
+                tok, lp = self._sample(
+                    logits, st, v["seeds"] if seeded else None, kv_len,
+                    torch.where(active, out_slots, trash).long(),
+                    use_penalties)
+                new_emitted = emitted + active.to(torch.int32)
+                hit_stop = (tok[:, None] == stops).any(dim=1)
+                stopped = hit_stop & (new_emitted >= stop_gate)
+                len_done = new_emitted >= max_new
+                pos = pos + active.to(pos.dtype)
+                active = active & ~stopped & ~len_done
+                emitted = new_emitted
+                cur = tok
+                toks.append(tok)
+                lps.append(lp)
+            return torch.stack(toks), torch.stack(lps), emitted
+        return body
+
+    # ------------------------------------------------------------------ #
+    # Warmup: capture the serving graphs at build (the JAX engine's
+    # warmup / _warm_multi compile the same shapes)
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def warmup(self) -> None:
+        """Capture the greedy window of every row bucket at K (and at K/4,
+        the TTFT-budget window, when ``ttft_slo_ms`` is set), with and
+        without riders when ``mixed_window_ctx`` > 0, and the greedy
+        decode-only single step of every token bucket a decode batch
+        takes. Every row is inactive and the rider chunks are empty, so no
+        device state changes. Sampled and penalty variants, and other KV
+        split counts, are captured at first use."""
+        K = self.args.decode_multi_step
+        if K > 1:
+            Ks = {K, max(1, K // 4)} if self.args.ttft_slo_ms > 0 else {K}
+            riders = [None] + ([[]] if self.mixed_ctx_tokens else [])
+            for Sb in self.row_buckets:
+                for k in sorted(Ks):
+                    for r in riders:
+                        self._warm_multi(k, Sb, r)
+        for T in self.token_buckets:
+            if T <= self.max_batch_size:
+                bound = self._kv_bound(1)
+                self.graphs.ensure(
+                    self._step_key(T, bound, True, False, 0),
+                    self._step_inputs(self.prepare_inputs(
+                        ScheduledRequests()), [], T, True),
+                    self._step_body(1, bound, True, False, 0))
+        # the inert steps scattered into the trash slot only; clear it in
+        # place all the same (the graphs hold its address)
+        self.prev_tokens.zero_()
+        logger.info("captured %d graphs in %.1f s", self.graphs.num_graphs,
+                    self.graphs.capture_seconds)
+
+    def _warm_multi(self, K: int, Sb: int, riders) -> None:
+        """Capture one greedy window (all rows inactive; ``riders`` [] for
+        the rider branch with an empty chunk, None without it)."""
+        inert, _ = self._window_inputs([], Sb, K, True, riders)
+        C = self.mixed_ctx_tokens if riders is not None else 0
+        bound = self._kv_bound(K)
+        self.graphs.ensure(self._window_key(K, Sb, C, bound, True, False),
+                           inert,
+                           self._window_body(K, Sb, C, bound, True, False))

@@ -1,34 +1,78 @@
 """Where the serving path's time goes on the card.
 
-Runs the chip_smoke.py serving workload (TinyLlama-1.1B geometry, seeded
-random bf16 weights, 16 requests of 128 prompt tokens and 64 output
-tokens, ``LLM.generate`` with default arguments) once to warm up, once
-timed without the profiler and once under ``torch.profiler``, then prints
-one JSON line: both wall times, the summed GPU kernel time, the device's
-idle share (kernel time over the unprofiled wall time; the profiler
-itself slows the host several-fold), the kernel time by class (the two
-attention kernels, the dequant-matmul kernel, library GEMMs, everything
-else), kernel launches per output step, and the top kernels by GPU time.
+Runs a serving workload once to warm up, once timed without the profiler
+and once under ``torch.profiler``, then prints one JSON line: both wall
+times, tokens/s and the TTFT / TPOT medians of the timed run, the summed
+GPU kernel time, the device's idle share (kernel time over the
+unprofiled wall time; the profiler itself slows the host), the kernel
+time by class (the two attention kernels, the dequant-matmul kernel,
+library GEMMs, everything else), launches per output step (those the
+host issues, a CUDA graph's replay being one, and the kernels the device
+runs), the CUDA graphs captured and replayed, the windows' dead-step
+share, and the top kernels by GPU time.
+
+Two workloads:
+
+- default: ``chip_smoke.py``'s first serving run (TinyLlama-1.1B
+  geometry, 32 x 64 heads; seeded random bf16 weights; 16 requests of
+  128 prompt tokens and 64 output tokens; ``LLM`` defaults);
+- ``--bench-settings``: ``bench.py``'s throughput settings
+  (``bench.py:183-251``: its default 1b geometry, 16 x 128 heads; 512
+  requests of 128 -> 128 tokens with ``ignore_eos``; max_batch_size 256,
+  decode_multi_step 16, max_inflight_steps 3, mixed_window_ctx 512,
+  decode_wait_occupancy 1.0, max_num_tokens 16384, page 32).
+
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms).
 
     python -m tensorrt_llm_tpu_torch.tools.serving_profile
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile --bench-settings
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --quant W4A16_AWQ
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
-
 
 _DECODE = ("decode_tc_kernel", "decode_f32_simple_kernel",
            "decode_merge_kernel")
 _PREFILL = ("prefill_wgmma_kernel", "prefill_f32_simple_kernel")
+# runtime calls by which the host starts work on the device
+_HOST_LAUNCH = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
+
+TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                 num_hidden_layers=22, num_attention_heads=32,
+                 num_key_value_heads=4, max_position_embeddings=4096)
+BENCH_1B = dict(TINYLLAMA, num_attention_heads=16, head_dim=128)
+
+
+def workload(bench_settings: bool):
+    """(LlamaConfig, LLM keyword arguments, prompts, SamplingParams)."""
+    from transformers import LlamaConfig
+
+    from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
+    gen = torch.Generator().manual_seed(0)
+    if not bench_settings:
+        prompts = torch.randint(0, 32000, (16, 128), generator=gen).tolist()
+        return (LlamaConfig(**TINYLLAMA), {}, prompts,
+                SamplingParams(max_tokens=64, top_k=1))
+    isl = osl = 128
+    batch = 256
+    prompts = torch.randint(1, 32000 - 1, (2 * batch, isl),
+                            generator=gen).tolist()
+    kwargs = dict(max_batch_size=batch, max_input_len=isl + 8,
+                  max_seq_len=isl + osl + 8, max_num_tokens=isl * batch // 2,
+                  decode_multi_step=16, max_inflight_steps=3,
+                  mixed_window_ctx=512, decode_wait_occupancy=1.0,
+                  kv_cache_config=KvCacheConfig(tokens_per_block=32))
+    return (LlamaConfig(**BENCH_1B), kwargs, prompts,
+            SamplingParams(max_tokens=osl, top_k=1, ignore_eos=True))
 
 
 def _class(name: str) -> str:
@@ -44,80 +88,130 @@ def _class(name: str) -> str:
     return "other"
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--quant", default="NO_QUANT",
-                    help="QuantAlgo name, e.g. W4A16_AWQ, W8A16, MXFP4")
-    ap.add_argument("--group-size", type=int, default=128)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    from transformers import LlamaConfig
-
-    from tensorrt_llm_tpu_torch import LLM, SamplingParams
-    from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
+def kernel_modules() -> dict:
+    """Each kernel's wrapper module (its ``LAUNCHES``), by kernel name."""
     from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
-    from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
-    cfg = LlamaConfig(vocab_size=32000, hidden_size=2048,
-                      intermediate_size=5632, num_hidden_layers=22,
-                      num_attention_heads=32, num_key_value_heads=4,
-                      max_position_embeddings=4096)
-    gen = torch.Generator().manual_seed(0)
-    prompts = torch.randint(0, cfg.vocab_size, (16, 128),
-                            generator=gen).tolist()
-    sp = SamplingParams(max_tokens=64, top_k=1)
-    llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
-        quant_algo=QuantAlgo[args.quant], group_size=args.group_size))
-    try:
-        llm.generate(prompts, sp)
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        llm.generate(prompts, sp)
-        torch.cuda.synchronize()
-        plain_wall = time.monotonic() - t0
-        dec.LAUNCHES = 0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            llm.generate(prompts, sp)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-    finally:
-        llm.shutdown()
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
+    return {"paged_decode_attention": dec, "ragged_prefill_attention": pre,
+            "groupwise_dequant_matmul": qmm}
+
+
+def _generate(llm, prompts, sp):
+    """All requests submitted at once; (wall seconds, outputs)."""
+    t0 = time.monotonic()
+    futs = [llm.generate_async(p, sp) for p in prompts]
+    outs = [f.result() for f in futs]
+    torch.cuda.synchronize()
+    return time.monotonic() - t0, outs
+
+
+def measure(llm, prompts, sp, profile: bool = True) -> dict:
+    """Warm-up pass, timed pass, then (``profile``) a profiled pass of
+    the same requests through ``llm``. The kernels' launch counters are
+    zeroed right before the timed pass and read right after it."""
+    kernels = kernel_modules()
+    _generate(llm, prompts, sp)
+    eng = llm.engine
+    replays0 = eng.graphs.replays
+    steps0 = (eng.decode_steps, eng.window_steps, eng.dead_window_steps)
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    wall, outs = _generate(llm, prompts, sp)
+    launches = {k: mod.LAUNCHES for k, mod in kernels.items()}
+    steps = max(1, eng.decode_steps - steps0[0])
+    perf = [o._result.request.perf for o in outs]
+    n_out = [len(o.outputs[0].token_ids) for o in outs]
+    res = dict(
+        device=torch.cuda.get_device_name(0),
+        nvidia_smi=subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
+        requests=len(prompts), output_tokens=sum(n_out),
+        wall_ms=wall * 1e3, output_tok_per_s=sum(n_out) / wall,
+        ttft_ms_median=statistics.median(
+            p.first_token_time - p.arrival_time for p in perf) * 1e3,
+        tpot_ms_median=statistics.median(
+            (p.last_token_time - p.first_token_time) / max(1, n - 1)
+            for p, n in zip(perf, n_out)) * 1e3,
+        decode_steps=steps, launches=launches,
+        graphs_captured=eng.graphs.num_graphs,
+        graph_replays=eng.graphs.replays - replays0,
+        window_steps=eng.window_steps - steps0[1],
+        dead_window_steps=eng.dead_window_steps - steps0[2],
+        mixed_windows_dispatched=eng.mixed_windows_dispatched,
+        mixed_ctx_carved=eng.mixed_ctx_carved)
+    res["dead_step_share"] = res["dead_window_steps"] / max(
+        1, res["window_steps"])
+    if profile:
+        res.update(_profiled(llm, prompts, sp, wall))
+    return res
+
+
+def _profiled(llm, prompts, sp, plain_wall: float) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    eng = llm.engine
+    steps0 = eng.decode_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = _generate(llm, prompts, sp)
+    # a pass's schedule may differ by a step or so between passes
+    steps = max(1, eng.decode_steps - steps0)
     by_class: dict = {}
     kernels = []
-    launches = 0
+    device_launches = host_launches = 0
     for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.key.startswith(_HOST_LAUNCH):
+                host_launches += e.count
+            continue
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = e.cuda_time_total
-        if dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+        if dev_us <= 0:
             continue
-        launches += e.count
+        device_launches += e.count
         c = _class(e.key)
         by_class[c] = by_class.get(c, 0.0) + dev_us / 1e3
         kernels.append((dev_us / 1e3, e.count, e.key[:90]))
     kernels.sort(reverse=True)
     busy_ms = sum(by_class.values())
-    # one wrapper call per layer per decode step, whatever the KV splits
-    steps = max(1, dec.LAUNCHES // cfg.num_hidden_layers)
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip(),
-        "quant_algo": args.quant,
-        "wall_ms": plain_wall * 1e3, "profiled_wall_ms": wall * 1e3,
-        "gpu_kernel_ms": busy_ms,
-        "idle_share": max(0.0, 1.0 - busy_ms / (plain_wall * 1e3)),
-        "profiled_idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
-        "kernel_ms_by_class": by_class,
-        "kernel_launches": launches,
-        "decode_steps": steps,
-        "launches_per_output_step": launches / steps,
-        "top_kernels": [{"ms": ms, "count": n, "name": k}
-                        for ms, n, k in kernels[:12]]}))
+    return dict(
+        profiled_wall_ms=wall * 1e3, gpu_kernel_ms=busy_ms,
+        idle_share=max(0.0, 1.0 - busy_ms / (plain_wall * 1e3)),
+        profiled_idle_share=max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+        kernel_ms_by_class=by_class,
+        device_kernels=device_launches, host_launches=host_launches,
+        host_launches_per_output_step=host_launches / steps,
+        device_kernels_per_output_step=device_launches / steps,
+        top_kernels=[{"ms": ms, "count": n, "name": k}
+                     for ms, n, k in kernels[:12]])
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--quant", default="NO_QUANT",
+                    help="QuantAlgo name, e.g. W4A16_AWQ, W8A16, MXFP4")
+    ap.add_argument("--group-size", type=int, default=128)
+    ap.add_argument("--bench-settings", action="store_true",
+                    help="bench.py's throughput workload and settings")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
+    from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
+    cfg, kwargs, prompts, sp = workload(args.bench_settings)
+    llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
+        quant_algo=QuantAlgo[args.quant], group_size=args.group_size),
+        **kwargs)
+    try:
+        res = measure(llm, prompts, sp)
+    finally:
+        llm.shutdown()
+    print(json.dumps(dict(quant_algo=args.quant,
+                          bench_settings=args.bench_settings, **res)))
 
 
 if __name__ == "__main__":

@@ -369,3 +369,130 @@ def test_llm_greedy_cuda_matches_cpu(cuda):
             llm.shutdown()
     assert outs["cuda"] == outs["cpu"]
     assert [len(t) for t in outs["cuda"]] == n_out
+
+
+# ---- CUDA graphs ---------------------------------------------------------
+
+def _graphed(fn):
+    """``fn`` run eagerly (on a side stream, as a warm-up), then captured
+    into a graph and replayed once: (eager result, static output, graph)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, out, graph
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_lens,qh,kvh,hd", [
+    ([16384] * 4, 32, 4, 64),
+    ([3000, 17, 2500, 1], 16, 4, 128),
+])
+def test_decode_split_replays_under_cuda_graph(cuda, dtype, kv_lens, qh, kvh,
+                                               hd):
+    """More than one KV split (partials in scratch from the graph's pool,
+    the merge kernel): a replay gives the eager launch's bits, and reads
+    the current contents of q."""
+    S = len(kv_lens)
+    q, pool, _, pt, _ = _inputs([1] * S, [k - 1 for k in kv_lens], qh, kvh,
+                                hd, 32, dtype, cuda, seed=4)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5, max_kv_len=max(kv_lens))
+    assert dec.splits_for(S, qh, kvh, pt.shape[1] * 32, max(kv_lens), None,
+                          cuda) > 1
+    eager, out, graph = _graphed(
+        lambda: dec.paged_decode_attention(q, pool, kvl, pt, **kw))
+    assert torch.equal(out, eager)
+    q.mul_(-0.5)
+    graph.replay()
+    want = dec.paged_decode_attention(q, pool, kvl, pt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt,
+                                           sm_scale=hd ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_rider_shape_replays_under_cuda_graph(cuda, dtype):
+    """The rider window's launch: 64 decode rows at about 200 positions,
+    8 chunks of 60 tokens and a filler row of 32 that self-attends over
+    page 0, with the grid fixed by C = 512. A replay gives the eager
+    launch's bits; the filler's rows are finite."""
+    q_lens = [1] * 64 + [60] * 8 + [32]
+    ctx = [180 + i for i in range(64)] + [64 * i for i in range(8)] + [0]
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx, 16, 4, 128, 16, dtype, cuda,
+                                   seed=6)
+    pt[-1] = 0                                   # the filler reads page 0
+    kw = dict(sm_scale=128 ** -0.5)
+    eager, out, graph = _graphed(lambda: pre.ragged_prefill_attention(
+        q, pool, kvl, pt, cu, max_q_len=512, **kw))
+    assert torch.equal(out, eager)
+    assert torch.isfinite(out.float()).all()
+    q.mul_(0.5)
+    graph.replay()
+    want = pre.ragged_prefill_attention(q, pool, kvl, pt, cu, max_q_len=512,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+def test_window_graph_draws_fresh_noise_per_replay(cuda):
+    """Two replays of one captured temperature-1 window with the same
+    inputs: the unseeded row draws new noise (the engine's generator is
+    registered with the graph), the seeded row repeats its tokens; each
+    replay counts the decode kernel once per layer and step."""
+    from transformers import LlamaConfig
+    from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.llmapi.llm_args import LlmArgs
+    from tensorrt_llm_tpu_torch.models import ModelConfig, get_model_class
+    from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import \
+        KVCacheManager
+    from tensorrt_llm_tpu_torch.runtime.model_engine import ModelEngine
+    from tensorrt_llm_tpu_torch.runtime.request import (LlmRequest,
+                                                        LlmRequestState)
+    from tensorrt_llm_tpu_torch.runtime.scheduler import ScheduledRequests
+    cfg = LlamaConfig(vocab_size=128, hidden_size=256, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=512)
+    args = LlmArgs(model="tiny", dtype="float32", max_batch_size=4,
+                   max_input_len=64, max_seq_len=128, max_num_tokens=256,
+                   kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                 max_tokens=2048))
+    model = get_model_class("llama")(ModelConfig(
+        hf_config=cfg, dtype=torch.float32, device=cuda))
+    engine = ModelEngine(model, model.init_params(seed=0), args)
+    kv = KVCacheManager(num_blocks=engine.num_kv_pages, tokens_per_block=16,
+                        max_seq_len=128, enable_block_reuse=False)
+    reqs = []
+    for i, seed in enumerate((0, 1234)):
+        r = LlmRequest(prompt_token_ids=[3, 1, 4, 1, 5, 9, 2, 6],
+                       sampling_params=SamplingParams(
+                           max_tokens=16, temperature=1.0, top_k=0,
+                           seed=seed, ignore_eos=True))
+        r.seq_slot = i
+        kv.add_sequence(r)
+        reqs.append(r)
+    engine.forward_step(ScheduledRequests(context_requests=reqs))
+    for r in reqs:
+        r.state = LlmRequestState.GENERATION_IN_PROGRESS
+        r.num_device_tokens = r.context_len
+        r.host_token_override = 7              # the same input each time
+        kv.add_tokens(r, 8)
+        r.multi_step_budget = 8
+    batch = ScheduledRequests(generation_requests=reqs)
+    first = engine.forward_multi_step(batch, 8)[0].cpu()
+    launches = dec.LAUNCHES
+    second = engine.forward_multi_step(batch, 8)[0].cpu()
+    assert engine.graphs.num_graphs == 1 and engine.graphs.replays == 2
+    assert dec.LAUNCHES - launches == 8 * cfg.num_hidden_layers
+    assert not torch.equal(first[:, 0], second[:, 0])
+    assert torch.equal(first[:, 1], second[:, 1])
