@@ -19,7 +19,10 @@ the run on error:
      number of splits), the rider window's one launch (256 decode rows,
      8 chunks of 64 tokens and a filler row, timed beside the decode
      kernel on the rows alone and the prefill kernel on the chunks
-     alone, each of the three held against its plain version), and one
+     alone, each of the three held against its plain version), the spec
+     window's verify launch (``verify_bench``: 64 sequences x 4 query
+     rows at 129-264 KV, timed beside the decode kernel on the same
+     queries as 256 single rows), and one
      float32 prefill case held to 1e-4 (each prefill
      case prints its route); times (CUDA events, median
      of 30 launches; 10 for the plain version and the library call), the
@@ -27,7 +30,9 @@ the run on error:
      of one PyTorch call that computes the same function where there is
      one: ``scaled_dot_product_attention`` over the gathered KV for the
      attention kernels (with a mask of each row's length where the
-     decode rows differ in length), ``F.linear`` on the weight dequantized to bf16
+     decode rows differ in length, and for ragged query segments the
+     queries padded to the longest one under an explicit mask of each
+     row's causal offset), ``F.linear`` on the weight dequantized to bf16
      beforehand (4x the int4 bytes) for the dequant-matmul kernel, which
      is also timed with its weights cold (rotating over copies past the
      L2 cache) at the serving shapes;
@@ -51,7 +56,15 @@ the run on error:
      windows. Greedy tokens must be identical; riders must have ridden
      and graphs replayed. Prints the graphs captured, capture seconds,
      pool bytes, launches by replays per kernel and the rider counters;
-  5. serving: the TinyLlama-1.1B geometry (32 x 64 heads, 4 KV heads, 22
+  5. spec_parity: EAGLE3 in the fused window with the in-repo pair
+     (tests/assets/tinycode-llama + tinycode-eagle), 6 prompts x 64
+     tokens, d = 2 and 3, float32 and bf16, against the same engine
+     without speculation: tokens identical in float32 (in bf16 a parting
+     only at a near-tie below 3e-2), mean drafts accepted per iteration
+     at least 0.5 in float32, spec windows replayed from graphs and no
+     row outside them; a seeded sampled run identical to the run without
+     speculation;
+  6. serving: the TinyLlama-1.1B geometry (32 x 64 heads, 4 KV heads, 22
      layers) with seeded random weights, 16 requests of 128 prompt tokens
      and 64 output tokens through ``LLM.generate`` with default
      arguments, once in bf16 and once with
@@ -61,7 +74,7 @@ the run on error:
      run's path must have launched, and replayed windows must have
      launched the decode kernel (and, quantized, the dequant-matmul
      kernel); the graph pool must fit the memory kept free for it;
-  6. serving at ``bench.py``'s throughput settings (its default 1b
+  7. serving at ``bench.py``'s throughput settings (its default 1b
      geometry, 16 x 128 heads; 512 requests of 128 -> 128 tokens,
      max_batch_size 256, decode_multi_step 16, max_inflight_steps 3,
      mixed_window_ctx 512, decode_wait_occupancy 1.0, max_num_tokens
@@ -69,10 +82,25 @@ the run on error:
      warm-up pass, a timed pass with the launch counters zeroed before and
      read after (tokens/s, TTFT and TPOT medians, graphs replayed, the
      windows' dead-step share), then a profiled pass (device idle share,
-     launches per output step); the graph pool must fit its reserve.
+     launches per output step); the graph pool must fit its reserve;
+  8. spec_serving: EAGLE3 at bench.py's 1b geometry with a random head,
+     d = 3 (64 requests of 128 -> 128 greedy tokens, max_batch_size 64,
+     decode_multi_step 8, so K = 2), a warm-up and a timed pass (the
+     launch counters zeroed right before it and read right after) beside
+     the same traffic without speculation: tokens/s, TTFT and TPOT
+     medians, spec windows and dead iterations, mean accepted drafts,
+     graphs and pool bytes against the reserve, launches replayed from
+     spec graphs (the decode and prefill kernels must be among them), no
+     decode row outside the spec windows. The first 8 requests' tokens
+     against the run without speculation: in bf16 a stream may part only
+     where that run decides by less than max(3e-2, twice the logprob
+     drift measured on the agreed tokens) (``_compare_streams``); at the
+     same geometry in float32 they must be identical.
 
 The last three lines are the nvidia-smi line, one JSON object with the
-per-kernel results and ``{"ok": true, "device": {...}}``.
+per-kernel results (launches from the bench-settings run, or the
+W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's
+timed pass) and ``{"ok": true, "device": {...}}``.
 """
 import json
 import statistics
@@ -199,7 +227,6 @@ def kernel_phase():
             q, pool, kv_lens, pt, cu, max_q_len=mq, **kw), 30)
         plain_ms = time_ms(lambda: pre.ragged_prefill_attention_plain(
             q, pool, kv_lens, pt, cu, **kw), 10)
-        library_ms = lib_err = None
         if not any(ctx):
             # one causal SDPA call over the gathered KV computes the same
             # function when every sequence is a fresh prompt of one length
@@ -215,6 +242,13 @@ def kernel_phase():
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 q4, k, v, is_causal=True, scale=kw["sm_scale"],
                 enable_gqa=True), 10)
+        else:
+            # decode rows beside chunks: one SDPA call over the KV gathered
+            # to the longest row, the queries padded to the longest
+            # segment, with an explicit mask of each row's causal offset
+            library_ms, lib_err = _ragged_library(
+                q, pool, pt, q_lens, [c + n for c, n in zip(ctx, q_lens)],
+                kvh, hd, kw["sm_scale"], ref, name)
         pairs = sum(c * n + n * (n + 1) // 2 for c, n in zip(ctx, q_lens))
         flops = 4 * qh * hd * pairs
         io_bytes = sum(c + n for c, n in zip(ctx, q_lens)) * kvh * hd * 4 \
@@ -228,6 +262,7 @@ def kernel_phase():
             bytes=io_bytes, flops=flops, **_bound(io_bytes, flops))
         emit({"phase": "kernels", "case": name, **results[name]})
     results["rider_hd128"] = rider_case()
+    results["verify_bench"] = verify_case()
     # the float32 route (the parity path's) stays covered: checked, not
     # timed; float32 sums in another order than the plain version's
     q, pool, kv_lens, pt, cu = make_case(
@@ -303,6 +338,9 @@ def rider_case() -> dict:
         qd, pool, kvd, ptd, **dkw), 30)
     pre_ms = time_ms(lambda: pre.ragged_prefill_attention(
         qc, pool, kvc, ptc, cuc, max_q_len=chunk, **kw), 30)
+    library_ms, lib_err = _ragged_library(
+        q, pool, pt, q_lens, [c + n for c, n in zip(ctx, q_lens)], kvh, hd,
+        kw["sm_scale"], ref, "rider_hd128")
     pairs = sum(c * n + n * (n + 1) // 2 for c, n in zip(ctx, q_lens))
     flops = 4 * qh * hd * pairs
     io_bytes = sum(c + n for c, n in zip(ctx, q_lens)) * kvh * hd * 4 \
@@ -313,11 +351,122 @@ def rider_case() -> dict:
                    chunks=NC, chunk_tokens=chunk, filler_rows=1, C=C,
                    qh=qh, kvh=kvh, hd=hd, page=PAGE),
         route=pre.route_for(q.dtype), max_q_len=C, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, library_ms=None, bytes=io_bytes, flops=flops,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_max_abs_err=lib_err, bytes=io_bytes, flops=flops,
         decode_rows_k1_ms=dec_ms, chunks_k2_ms=pre_ms,
         two_launches_ms=dec_ms + pre_ms, **_bound(io_bytes, flops))
     emit({"phase": "kernels", "case": "rider_hd128", **res})
     return res
+
+
+def verify_case() -> dict:
+    """The spec window's verify pass, one launch of the prefill kernel: 64
+    sequences x 4 query rows (d = 3) at KV lengths 129-264 (the 4 rows
+    included), 16 x 128 heads, 4 KV heads, page 32, bf16, its grid fixed
+    by max_q_len = 4. Beside it the same queries through the decode
+    kernel as 256 single-query rows, each at its causal length (the other
+    way to launch this work), both held against their plain versions."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    from tensorrt_llm_tpu_torch.tools.card_timing import (PAGE, make_case,
+                                                          time_ms)
+    Sb, Dp, qh, kvh, hd = 64, 4, 16, 4, 128
+    kvs = [129 + (135 * i) // (Sb - 1) for i in range(Sb)]
+    q_lens = [Dp] * Sb
+    ctx = [k - Dp for k in kvs]
+    q, pool, kv_lens, pt, cu = make_case(q_lens, ctx, qh, kvh, hd, seed=13)
+    kw = dict(sm_scale=hd ** -0.5)
+    got = pre.ragged_prefill_attention(q, pool, kv_lens, pt, cu,
+                                       max_q_len=Dp, **kw)
+    ref = pre.ragged_prefill_attention_plain(q, pool, kv_lens, pt, cu, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    if not torch.allclose(got.float(), ref.float(), atol=TOL, rtol=TOL):
+        raise AssertionError(f"verify_bench: kernel != plain (max {err})")
+    ms = time_ms(lambda: pre.ragged_prefill_attention(
+        q, pool, kv_lens, pt, cu, max_q_len=Dp, **kw), 30)
+    plain_ms = time_ms(lambda: pre.ragged_prefill_attention_plain(
+        q, pool, kv_lens, pt, cu, **kw), 10)
+    library_ms, lib_err = _ragged_library(q, pool, pt, q_lens, kvs, kvh, hd,
+                                          kw["sm_scale"], ref,
+                                          "verify_bench")
+    # the decode kernel, one row per query at its own causal length
+    kv1 = torch.tensor([c + j + 1 for c in ctx for j in range(Dp)],
+                       dtype=torch.int32, device="cuda")
+    pt1 = pt.repeat_interleave(Dp, dim=0)
+    dkw = dict(max_kv_len=max(kvs), **kw)
+    got1 = dec.paged_decode_attention(q, pool, kv1, pt1, **dkw)
+    ref1 = dec.paged_decode_attention_plain(q, pool, kv1, pt1, **kw)
+    torch.cuda.synchronize()
+    k1_err = (got1.float() - ref1.float()).abs().max().item()
+    if not torch.allclose(got1.float(), ref1.float(), atol=TOL, rtol=TOL):
+        raise AssertionError(f"verify_bench K1: kernel != plain (max "
+                             f"{k1_err})")
+    if not torch.allclose(ref1.float(), ref.float(), atol=TOL, rtol=TOL):
+        raise AssertionError("verify_bench: the two plain versions differ")
+    k1_ms = time_ms(lambda: dec.paged_decode_attention(
+        q, pool, kv1, pt1, **dkw), 30)
+    pairs = sum(c * n + n * (n + 1) // 2 for c, n in zip(ctx, q_lens))
+    flops = 4 * qh * hd * pairs
+    io_bytes = sum(kvs) * kvh * hd * 4 + 2 * q.numel() * 2 \
+        + pt.numel() * 4 + 2 * cu.numel() * 4
+    res = dict(
+        shape=dict(seqs=Sb, q_len=Dp, kv_len=[min(kvs), max(kvs)], qh=qh,
+                   kvh=kvh, hd=hd, page=PAGE),
+        route=pre.route_for(q.dtype), max_q_len=Dp, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_max_abs_err=lib_err, bytes=io_bytes, flops=flops,
+        k1_per_query_ms=k1_ms, k1_max_abs_err=k1_err,
+        k1_splits=dec.choose_splits(
+            Sb * Dp, kvh, max(kvs),
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            qh // kvh),
+        **_bound(io_bytes, flops))
+    emit({"phase": "kernels", "case": "verify_bench", **res})
+    return res
+
+
+def _ragged_library(q, pool, pt, q_lens, kv_lens, kvh, hd, scale, ref,
+                    name):
+    """One SDPA call that computes what the prefill kernel computes for
+    ragged segments: the KV gathered to the longest row, the queries
+    padded to the longest segment, an explicit mask of each row's causal
+    offset (a padding row sees position 0, its output dropped). Held
+    against the plain version ``ref``; returns (ms, max abs err)."""
+    import torch
+    import torch.nn.functional as F
+    from tensorrt_llm_tpu_torch.tools.card_timing import dense_kv, time_ms
+    S, Lq, Lk = len(q_lens), max(q_lens), max(kv_lens)
+    qh = q.shape[1]
+    dev = q.device
+    k, v = dense_kv(pool, pt, kvh, hd, Lk)
+    nq = torch.tensor(q_lens, device=dev)
+    seq = torch.repeat_interleave(torch.arange(S, device=dev), nq)
+    row = torch.cat([torch.arange(n, device=dev) for n in q_lens])
+    qp = torch.zeros((S, Lq, qh, hd), dtype=q.dtype, device=dev)
+    qp[seq, row] = q
+    qp = qp.transpose(1, 2).contiguous()                    # [S, qh, Lq, hd]
+    off = torch.tensor(kv_lens, device=dev) - nq
+    qpos = off[:, None] + torch.arange(Lq, device=dev)[None]
+    live = torch.arange(Lq, device=dev)[None] < nq[:, None]
+    mask = (torch.arange(Lk, device=dev)[None, None] <= qpos[:, :, None]) \
+        & live[:, :, None]
+    mask[:, :, 0] |= ~live
+    mask = mask[:, None]                                    # [S, 1, Lq, Lk]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qp, k, v, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+    lib = sdpa().transpose(1, 2)[seq, row]
+    torch.cuda.synchronize()
+    lib_err = (lib.float() - ref.float()).abs().max().item()
+    if not torch.allclose(lib.float(), ref.float(), atol=TOL, rtol=TOL):
+        raise AssertionError(f"{name}: library != plain (max {lib_err})")
+    ms = time_ms(sdpa, 10)
+    del k, v, qp, mask, lib
+    torch.cuda.empty_cache()
+    return ms, lib_err
 
 
 def quant_kernel_phase(results: dict) -> None:
@@ -640,6 +789,232 @@ def graph_phase(repo: Path, device: str = "cuda"):
     return out
 
 
+def _spec_stats(llm) -> dict:
+    """The spec window's counters and what its graphs replayed."""
+    sd, dr = llm.engine.sd, llm.executor.drafter
+    by_module = llm.engine.graphs.replayed_launches("spec")
+    return dict(
+        spec_windows=sd.windows, spec_iters=sd.iters,
+        spec_dead_iters=sd.dead_iters,
+        spec_idle_iters=llm.executor.spec_idle_iters,
+        mean_accepted=dr.accepted_total / max(1, dr.steps_total),
+        spec_graph_replays=sum(
+            st.replays for k, st in llm.engine.graphs.steps.items()
+            if k[0] == "spec" and st.graph is not None),
+        spec_replayed_launches={k: by_module[mod.__name__]
+                                for k, mod in _kernel_counts().items()},
+        nonspec_decode_rows=llm.executor.nonspec_decode_rows)
+
+
+def spec_parity_phase(repo: Path):
+    """EAGLE3 in the fused window on the card with the in-repo pair
+    (tinycode-llama + tinycode-eagle), 6 prompts x 64 tokens, d = 2 and 3,
+    float32 and bf16, against the same engine without speculation: tokens
+    identical in float32 (in bf16 a parting only at a near-tie), at least
+    0.5 drafts accepted per iteration in float32, spec windows replayed
+    from graphs; a seeded sampled run equals the same run without spec."""
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, SamplingParams,
+                                        SpeculativeConfig)
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"import torch\n"), list(range(32, 120)),
+               list(b"class Cache:\n    def __init__(self, size):\n"),
+               list(b"for i in range(10):\n    print("),
+               list(b"def softmax(x):\n    e = np.exp(x - x.max())\n")]
+    n_out = 64
+
+    def run(dtype, d, sp):
+        spec = None if d is None else SpeculativeConfig(
+            mode="EAGLE3", max_draft_len=d,
+            draft_model=str(repo / "tests" / "assets" / "tinycode-eagle"))
+        llm = LLM(repo / "tests" / "assets" / "tinycode-llama",
+                  dtype=dtype, skip_tokenizer_init=True, max_batch_size=8,
+                  max_input_len=128, max_seq_len=256, max_num_tokens=512,
+                  speculative_config=spec,
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=8192))
+        try:
+            outs = llm.generate(prompts, sp)
+            stats = _spec_stats(llm) if d is not None else {}
+        finally:
+            llm.shutdown()
+        if any(len(o.outputs[0].token_ids) != n_out for o in outs):
+            raise AssertionError(f"{dtype} d={d}: short outputs")
+        return ([o.outputs[0].token_ids for o in outs],
+                [o.outputs[0].logprobs for o in outs], stats)
+
+    greedy = SamplingParams(max_tokens=n_out, top_k=1, ignore_eos=True)
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        ref, ref_lps, _ = run(dtype, None, SamplingParams(
+            max_tokens=n_out, top_k=1, ignore_eos=True, logprobs=2))
+        for d in (2, 3):
+            got, got_lps, stats = run(dtype, d, greedy)
+            cmp = _compare_streams((ref, ref_lps), (got, got_lps))
+            if cmp["parting_margins"] and max(
+                    cmp["parting_margins"]) > NEAR_TIE:
+                raise AssertionError(f"{dtype} d={d}: tokens part where the "
+                                     f"run without spec decides by more "
+                                     f"than {NEAR_TIE}: {cmp}")
+            if dtype == "float32" and got != ref:
+                raise AssertionError(f"float32 d={d}: spec tokens differ "
+                                     f"from non-spec: {got} vs {ref}")
+            if dtype == "float32" and stats["mean_accepted"] < 0.5:
+                raise AssertionError(f"d={d}: mean accepted "
+                                     f"{stats['mean_accepted']} < 0.5")
+            if not stats["spec_graph_replays"] or stats["nonspec_decode_rows"]:
+                raise AssertionError(f"{dtype} d={d}: no spec window "
+                                     f"replayed, or rows left them: {stats}")
+            res[f"{dtype}_d{d}"] = dict(
+                tokens_equal=cmp["tokens_equal"], parted=cmp["parted"],
+                parting_margins=cmp["parting_margins"], identical=got == ref,
+                tokens=len(prompts) * n_out, **stats)
+            emit({"phase": "spec_parity", "dtype": dtype, "draft_len": d,
+                  "near_tie_logprob_margin": NEAR_TIE,
+                  **res[f"{dtype}_d{d}"]})
+    seeded = SamplingParams(max_tokens=n_out, temperature=0.8, top_k=0,
+                            top_p=0.95, seed=1234, ignore_eos=True)
+    ref, _, _ = run("float32", None, seeded)
+    got, _, stats = run("float32", 3, seeded)
+    if got != ref:
+        raise AssertionError("seeded sampled spec run differs from the run "
+                             f"without spec: {got} vs {ref}")
+    res["seeded_sampled"] = dict(identical=True, **stats)
+    emit({"phase": "spec_parity", "dtype": "float32", "draft_len": 3,
+          "sampling": "seeded", **res["seeded_sampled"]})
+    return res
+
+
+def spec_serving_phase():
+    """EAGLE3 at full width: bench.py's 1b geometry (hidden 2048, 22
+    layers, 16 x 128 heads, 4 KV heads, seeded random weights) with a
+    random head, d = 3; 64 requests of 128 -> 128 greedy tokens with
+    ignore_eos, max_batch_size 64, decode_multi_step 8 (so K = 2), in
+    bf16, timed by tools/serving_profile.py's ``measure`` (a warm-up pass,
+    then a timed pass with the launch counters zeroed right before it and
+    read right after), beside the same traffic without speculation. The
+    first 8 requests' tokens are compared with the run without
+    speculation (``_compare_streams``), and again in float32, where they
+    must be identical."""
+    import gc
+
+    import torch
+    from transformers import LlamaConfig
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, SamplingParams,
+                                        SpeculativeConfig)
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg = LlamaConfig(**sprof.BENCH_1B)
+    n_req, isl, osl, d = 64, 128, 128, 3
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(1, cfg.vocab_size - 1, (n_req, isl),
+                            generator=gen).tolist()
+    sp = SamplingParams(max_tokens=osl, top_k=1, ignore_eos=True)
+    sp_lp = SamplingParams(max_tokens=osl, top_k=1, ignore_eos=True,
+                           logprobs=2)
+    kwargs = dict(max_batch_size=n_req, max_input_len=isl + 8,
+                  max_seq_len=isl + osl + 8, max_num_tokens=isl * n_req // 2,
+                  decode_multi_step=8,
+                  kv_cache_config=KvCacheConfig(tokens_per_block=32))
+
+    def build(mode, dtype, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = dict(speculative_config=SpeculativeConfig(
+            mode="EAGLE3", max_draft_len=d)) if mode == "spec" else {}
+        return LLM(cfg, dtype=dtype, **dict(kwargs, **kw), **extra)
+
+    def first8(llm, params):
+        outs = llm.generate(prompts[:8], params)
+        return ([o.outputs[0].token_ids for o in outs],
+                [o.outputs[0].logprobs for o in outs])
+
+    runs, toks = {}, {}
+    for mode in ("spec", "plain"):
+        t0 = time.monotonic()
+        llm = build(mode, "bfloat16")
+        build_s = time.monotonic() - t0
+        try:
+            res = sprof.measure(llm, prompts, sp, profile=False)
+            res.update(
+                engine_build_s=build_s, graphs=_graph_stats(llm.engine),
+                graph_pool_reserve_bytes=llm.engine.graph_pool_reserve())
+            if mode == "spec":
+                # measure's counters cover the timed pass; these, both
+                # passes
+                st = _spec_stats(llm)
+                res.update(spec_graph_replays=st["spec_graph_replays"],
+                           spec_replayed_launches=st["spec_replayed_launches"],
+                           spec_state_bytes=llm.engine.spec_state_bytes())
+            toks[mode] = first8(llm, sp if mode == "spec" else sp_lp)
+        finally:
+            llm.shutdown()
+        del llm
+        if res["output_tokens"] != n_req * osl:
+            raise AssertionError(f"{mode}: {res['output_tokens']} tokens")
+        _check_reserve(res)
+        runs[mode] = res
+    f32 = {}
+    for mode in ("spec", "plain"):
+        llm = build(mode, "float32", max_batch_size=8, enable_warmup=False)
+        try:
+            f32[mode] = first8(llm, sp)[0]
+        finally:
+            llm.shutdown()
+        del llm
+    spec = runs["spec"]
+    cmp = _compare_streams(toks["plain"], toks["spec"])
+    out = dict(requests=n_req, isl=isl, osl=osl, draft_len=d, layers=22,
+               first8_bf16=cmp, first8_float32_identical=f32["spec"] == f32[
+                   "plain"], spec=spec, plain=runs["plain"])
+    emit({"phase": "spec_serving", **out})
+    if not (spec["spec_windows"] and spec["spec_replayed_launches"][
+            "paged_decode_attention"] and spec["spec_replayed_launches"][
+            "ragged_prefill_attention"]):
+        raise AssertionError(f"spec graphs did not replay K1 and K2: {spec}")
+    if spec["nonspec_decode_rows"]:
+        raise AssertionError(f"{spec['nonspec_decode_rows']} decode rows "
+                             "left the spec windows")
+    if min(spec["launches"][k] for k in ("paged_decode_attention",
+                                         "ragged_prefill_attention")) <= 0:
+        raise AssertionError(f"a kernel never launched: {spec['launches']}")
+    if cmp["unexplained_partings"]:
+        raise AssertionError(f"spec_serving bf16: tokens part where the run "
+                             f"without speculation decides by more than the "
+                             f"measured noise allows: {cmp}")
+    if not out["first8_float32_identical"]:
+        raise AssertionError("spec_serving float32: spec tokens differ from "
+                             f"the run without speculation: {f32}")
+    return out
+
+
+def _compare_streams(ref, got) -> dict:
+    """Token streams with and without speculation: the verify pass (the
+    prefill kernel over d+1 rows per sequence, GEMMs of d+1 times the
+    rows) rounds in another order than the decode steps, so in bf16 the
+    logits drift apart. ``ref`` = (tokens, top-2 logprobs per token) of
+    the run without speculation, ``got`` = (tokens, the chosen token's
+    logprob per token). Each stream is compared up to its first parting,
+    where the margin by which the reference decides is recorded; the
+    drift, delta, is the largest difference of the chosen token's
+    logprob on the agreed prefixes. A parting is explained where the
+    margin is at most max(NEAR_TIE, 2 * delta) (the two leading logprobs
+    moving delta each)."""
+    delta, margins = 0.0, []
+    for a_row, a_lps, b_row, b_lps in zip(ref[0], ref[1], got[0], got[1]):
+        for a, b, alp, blp in zip(a_row, b_row, a_lps, b_lps):
+            if a != b:
+                top = sorted(alp.values(), reverse=True)
+                margins.append(top[0] - top[1])
+                break
+            delta = max(delta, abs(alp[a] - blp[b]))
+    allowed = max(NEAR_TIE, 2 * delta)
+    return dict(tokens_equal=sum(
+        next((i for i, (x, y) in enumerate(zip(r, g)) if x != y), len(r))
+        for r, g in zip(ref[0], got[0])), parted=len(margins),
+        parting_margins=margins, max_logprob_drift=delta,
+        allowed_margin=allowed,
+        unexplained_partings=sum(m > allowed for m in margins))
+
+
 def serving_phase(quant_algo=None):
     """One serving run; ``quant_algo`` None serves bf16 weights, else a
     ``QuantAlgo`` name with group size 128."""
@@ -818,9 +1193,11 @@ def main() -> int:
     parity_phase(here)
     quant_parity_phase()
     graph_phase(here)
+    spec_parity_phase(here)
     serving_phase()
     serving_q = serving_phase("W4A16_AWQ")
     bench = bench_serving_phase()
+    spec = spec_serving_phase()["spec"]
 
     kernels = []
     for name, case, group, src, replaces, run in [
@@ -828,7 +1205,7 @@ def main() -> int:
              "tensorrt_llm_tpu_torch/csrc/decode_attention.cu",
              "tensorrt_llm_tpu/ops/pallas/decode_attention.py:164", bench),
             ("ragged_prefill_attention", "prefill_bench",
-             ("prefill", "mixed", "rider"),
+             ("prefill", "mixed", "rider", "verify"),
              "tensorrt_llm_tpu_torch/csrc/prefill_attention.cu",
              "tensorrt_llm_tpu/ops/pallas/prefill_attention.py:250", bench),
             ("groupwise_dequant_matmul", "qmm_gate_up", ("qmm",),
@@ -839,6 +1216,7 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=run["launches"][name],
             launches_in=run.get("quant_algo", "bench_settings"),
+            launches_spec_serving=spec["launches"][name],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

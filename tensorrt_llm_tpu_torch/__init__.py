@@ -6,10 +6,12 @@ NVIDIA Hopper (csrc/*.cu) and built with nvcc at first use. It imports
 neither JAX nor the JAX package.
 """
 from .llmapi.llm import LLM, RequestOutput
-from .llmapi.llm_args import KvCacheConfig, LlmArgs, QuantConfig
+from .llmapi.llm_args import (KvCacheConfig, LlmArgs, QuantConfig,
+                              SpeculativeConfig)
 from .models.convert import from_jax_params
 from .quantization.mode import QuantAlgo
 from .sampling_params import SamplingParams
 
 __all__ = ["LLM", "RequestOutput", "LlmArgs", "KvCacheConfig", "QuantConfig",
-           "QuantAlgo", "SamplingParams", "from_jax_params"]
+           "QuantAlgo", "SamplingParams", "SpeculativeConfig",
+           "from_jax_params"]

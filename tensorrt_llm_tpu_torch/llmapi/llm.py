@@ -9,7 +9,12 @@ model, build engine + executor, submit requests as futures.
 from its own integers and scales) or a bare ``transformers`` config,
 which serves random weights like ``load_format="dummy"``.
 ``quant_config=QuantConfig(quant_algo=...)`` quantizes float weights at
-load. The engine runs on the CUDA
+load. ``speculative_config=SpeculativeConfig(mode="EAGLE3",
+max_draft_len=d, draft_model=...)`` serves EAGLE3 speculative decoding in
+the fused device window (runtime/spec_window.py); ``draft_model`` is a
+directory of ``*.safetensors`` head weights, a torch module whose
+``state_dict`` holds them, or None for a seeded random head. The engine
+runs on the CUDA
 device unless ``device="cpu"`` is passed; without CUDA and without that
 argument, construction raises. On CUDA, ``enable_warmup`` (the default)
 captures the serving CUDA graphs at build, as the JAX ``LLM`` compiles
@@ -173,10 +178,41 @@ class LLM:
                             for v in sd.values()))
         return hf_config, sd
 
+    def _build_drafter(self):
+        """The EAGLE3 head of the fused window, or None without
+        speculation (``LlmArgs`` has refused every other mode)."""
+        sc = self.args.speculative_config
+        if sc is None or sc.mode == "NONE":
+            return None
+        from ..speculative.eagle import Eagle3Drafter
+        head_sd = None
+        if isinstance(sc.draft_model, (str, Path)):
+            from safetensors.torch import load_file
+            head_sd = {}
+            for f in sorted(Path(sc.draft_model).glob("*.safetensors")):
+                head_sd.update(load_file(str(f)))
+        elif sc.draft_model is not None and \
+                hasattr(sc.draft_model, "state_dict"):
+            head_sd = {k: v.detach().cpu().float()
+                       for k, v in sc.draft_model.state_dict().items()}
+        return Eagle3Drafter(self.model, self._params,
+                             max_draft_len=self.engine.spec_draft_len,
+                             max_seq_len=self.args.max_seq_len,
+                             head_state_dict=head_sd)
+
     def _build_executor(self):
         args = self.args
         self.engine = ModelEngine(self.model, self._params, args)
+        drafter = self._build_drafter()
         del self._params
+        if drafter is not None:
+            # device windows verify inside the fused window; the plain
+            # step stays single-logit
+            from ..runtime.spec_window import enable_spec_device
+            d = drafter.max_draft_len
+            K = args.speculative_config.device_window_iters or max(
+                1, args.decode_multi_step // (d + 1))
+            enable_spec_device(self.engine, drafter, d, K)
         if args.enable_warmup and self.device.type == "cuda":
             self.engine.warmup()
         # a single sequence can never exceed the KV pool
@@ -215,7 +251,7 @@ class LLM:
             waiting_queue_policy=args.scheduler_config.waiting_queue_policy,
             max_active_requests=args.scheduler_config.max_active_requests,
             decode_wait_occupancy=args.decode_wait_occupancy,
-            ttft_slo_ms=args.ttft_slo_ms)
+            ttft_slo_ms=args.ttft_slo_ms, drafter=drafter)
 
     # ------------------------------------------------------------------ #
     # Generation

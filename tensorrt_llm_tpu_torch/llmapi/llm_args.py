@@ -1,12 +1,13 @@
 """Configuration tree for the LLM API.
 
 Port of the subset of ``tensorrt_llm_tpu/llmapi/llm_args.py`` that the
-dense-Llama serving path reads, weight-only quantization included. Unknown keys are rejected (so an option
+dense-Llama serving path reads, weight-only quantization and EAGLE3
+speculative decoding included. Unknown keys are rejected (so an option
 this package does not implement fails loudly instead of being ignored).
 """
 from __future__ import annotations
 
-from typing import List, Literal, Optional
+from typing import Any, List, Literal, Optional
 
 from pydantic import BaseModel, Field, field_validator, model_validator
 
@@ -73,6 +74,65 @@ class QuantConfig(StrictBaseModel):
     exclude_modules: List[str] = Field(default_factory=lambda: ["lm_head"])
 
 
+class SpeculativeConfig(StrictBaseModel):
+    """Umbrella for spec-decode modes: the JAX package's fields, defaults
+    and meanings. This package serves ``mode="EAGLE3"`` with
+    ``device_window=True`` and a linear draft chain
+    (``check_ported_spec``); every other mode or option is refused by
+    name."""
+    mode: Literal["NONE", "DRAFT_TARGET", "NGRAM", "EAGLE3", "MTP",
+                  "SA", "AUTO", "PARD", "DFLASH", "USER_PROVIDED"] = "NONE"
+    max_draft_len: int = 0
+    # checkpoint dir of *.safetensors, torch module, or None (a random head)
+    draft_model: Optional[Any] = None
+    # ngram
+    ngram_max_matching_ngram_size: int = 4
+    ngram_prompt_lookup_num_tokens: int = 4
+    # PARD parallel draft: the draft model predicts all K drafts in one
+    # forward over K mask tokens
+    pard_mask_token_id: Optional[int] = None
+    # suffix automaton: threshold suppresses weak matches
+    sa_threshold: int = 2
+    # auto-disable drafting above this many concurrently drafted rows
+    max_concurrency: Optional[int] = None
+    # EAGLE3/MTP: run propose->verify->accept fused on the device
+    # (runtime/spec_window.py) so speculation rides the overlap
+    # scheduler; False = host-orchestrated drafting (sync scheduler)
+    device_window: bool = True
+    # spec iterations per fused dispatch (0 = derive from
+    # decode_multi_step)
+    device_window_iters: int = 0
+    # EAGLE3 top-b TREE proposal: b nodes per level, max_draft_len//b
+    # levels; 0 = linear chain
+    eagle_tree_width: int = 0
+    # dynamic tree: the final tree is the global top-max_draft_len cut
+    # over the whole candidate pool by cumulative logprob
+    eagle_dynamic_tree: bool = False
+
+
+def check_ported_spec(sc: Optional[SpeculativeConfig]) -> None:
+    """Refuse, by name, a speculative mode or option this package does
+    not have."""
+    if sc is None or sc.mode == "NONE":
+        return
+    if sc.mode != "EAGLE3":
+        raise NotImplementedError(
+            f"speculative mode {sc.mode} is not supported by this package "
+            "yet (EAGLE3 with device_window=True is)")
+    if not sc.device_window:
+        raise NotImplementedError(
+            "speculative device_window=False (host-orchestrated drafting) "
+            "is not supported by this package yet")
+    if sc.eagle_tree_width > 1:
+        raise NotImplementedError(
+            "speculative eagle_tree_width > 1 (EAGLE tree drafts) is not "
+            "supported by this package yet")
+    if sc.eagle_dynamic_tree:
+        raise NotImplementedError(
+            "speculative eagle_dynamic_tree (dynamic-tree drafts) is not "
+            "supported by this package yet")
+
+
 class LlmArgs(StrictBaseModel):
     """Top-level engine arguments. ``model`` is a checkpoint directory or
     the name of an inline config (dummy weights)."""
@@ -90,6 +150,7 @@ class LlmArgs(StrictBaseModel):
     scheduler_config: SchedulerConfig = Field(default_factory=SchedulerConfig)
     bucketing_config: BucketingConfig = Field(default_factory=BucketingConfig)
     quant_config: QuantConfig = Field(default_factory=QuantConfig)
+    speculative_config: Optional[SpeculativeConfig] = None
 
     enable_chunked_prefill: bool = True
     disable_overlap_scheduler: bool = False
@@ -124,6 +185,7 @@ class LlmArgs(StrictBaseModel):
         if self.max_seq_len is None:
             object.__setattr__(self, "max_seq_len", self.max_input_len + 2048)
         check_ported(self.quant_config.quant_algo)
+        check_ported_spec(self.speculative_config)
         kv_algo = self.quant_config.kv_cache_quant_algo
         if kv_algo != KvCacheQuantAlgo.NO_QUANT:
             raise NotImplementedError(

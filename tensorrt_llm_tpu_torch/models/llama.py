@@ -162,7 +162,11 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
     # Forward
     # ------------------------------------------------------------------ #
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
-                kv_pages: torch.Tensor, metadata: AttentionMetadata):
+                kv_pages: torch.Tensor, metadata: AttentionMetadata,
+                collect_hidden: bool = False):
+        """(logits [S, V] float32 at ``logits_indices``, kv_pages), and
+        with ``collect_hidden`` also the pre-final-norm hidden rows at
+        ``logits_indices`` (the EAGLE draft head's features)."""
         spec, eps, mlp = self.attn_spec, self.rms_eps, self.m_mlp
         inter = self.intermediate_size
         h = params["embed"][token_ids].to(self.dtype)
@@ -179,6 +183,9 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             act = F.silu(gate.float()).to(self.dtype) * up
             h = h + mlp.apply(layer["down"], act)
         # RMSNorm is row-wise: gather the logits rows first, then norm
-        last = rms_norm(h[metadata.logits_indices], params["final_norm"], eps)
+        rows = h[metadata.logits_indices]
+        last = rms_norm(rows, params["final_norm"], eps)
         logits = self.m_lm_head.apply(params["lm_head"], last).float()
+        if collect_hidden:
+            return logits, kv_pages, rows
         return logits, kv_pages

@@ -46,6 +46,11 @@ class LinearMethod:
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, params["weight"], params.get("bias"))
 
+    def dequantize(self, params: Params, dtype: torch.dtype) -> torch.Tensor:
+        """The projection's weight as [K, N] = [in, out] floats of
+        ``dtype`` (a view for this method)."""
+        return params["weight"].t().to(dtype)
+
     def fuse(self, parts: List[Params]) -> Params:
         """Parameters of projections that share an input, joined along
         the output axis into one projection."""
@@ -96,11 +101,15 @@ class WeightOnlyPerChannelMethod(_QuantizedMethod):
         q, s = Q.quantize_weight_per_channel(w, bits=self.bits)
         return {"weight": q, "weight_scale": s}
 
+    def dequantize(self, params, dtype):
+        return Q.dequantize_weight(params["weight"], params["weight_scale"],
+                                   dtype=dtype)
+
     def apply(self, params, x):
-        w = Q.dequantize_weight(params["weight"], params["weight_scale"],
-                                dtype=x.dtype)
         x2d = x.reshape(-1, x.shape[-1])
-        return self._finish(torch.matmul(x2d, w), params, x)
+        return self._finish(torch.matmul(x2d, self.dequantize(params,
+                                                              x.dtype)),
+                            params, x)
 
 
 class _GroupwiseMethod(_QuantizedMethod):
@@ -109,25 +118,28 @@ class _GroupwiseMethod(_QuantizedMethod):
     bits: int
     group_size: int
 
-    def _apply(self, params: Params, x: torch.Tensor, packed: bool
-               ) -> torch.Tensor:
+    def _packed(self, params: Params) -> bool:
+        return self.bits == 4 and "weight_zero" not in params
+
+    def dequantize(self, params, dtype):
+        wq = params["weight"]
+        if self._packed(params):
+            wq = Q.unpack_int4(wq)
+        return Q.dequantize_weight(wq, params["weight_scale"],
+                                   zeros=params.get("weight_zero"),
+                                   group_size=self.group_size, dtype=dtype)
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x2d = x.reshape(-1, x.shape[-1])
         M, K = x2d.shape
-        kernel_bits = 4 if packed else 8
+        kernel_bits = 4 if self._packed(params) else 8
         if "weight_zero" not in params and \
                 kernel_takes(M, K, self.group_size, kernel_bits):
             out = groupwise_dequant_matmul(
                 x2d, params["weight"], params["weight_scale"],
                 group_size=self.group_size, bits=kernel_bits)
         else:
-            wq = params["weight"]
-            if packed:
-                wq = Q.unpack_int4(wq)
-            w = Q.dequantize_weight(wq, params["weight_scale"],
-                                    zeros=params.get("weight_zero"),
-                                    group_size=self.group_size,
-                                    dtype=x.dtype)
-            out = torch.matmul(x2d, w)
+            out = torch.matmul(x2d, self.dequantize(params, x.dtype))
         return self._finish(out, params, x)
 
 
@@ -153,10 +165,6 @@ class WeightOnlyGroupwiseMethod(_GroupwiseMethod):
             out["weight_zero"] = z
         return out
 
-    def apply(self, params, x):
-        packed = self.bits == 4 and "weight_zero" not in params
-        return self._apply(params, x, packed)
-
 
 class Fp4GroupwiseMethod(_GroupwiseMethod):
     """NVFP4 (groups of 16, e4m3 group scales under a global float32
@@ -177,9 +185,6 @@ class Fp4GroupwiseMethod(_GroupwiseMethod):
             w, group_size=self.group_size,
             scale_fmt="e4m3" if self.flavor == "nvfp4" else "e8m0")
         return {"weight": q, "weight_scale": s_half}
-
-    def apply(self, params, x):
-        return self._apply(params, x, packed=False)
 
 
 _NOT_PORTED = {

@@ -1,7 +1,8 @@
 """Batched on-device sampling.
 
 Port of ``tensorrt_llm_tpu/ops/sampling_ops.py`` (``SamplingTensors``,
-``apply_penalties``, ``mask_logits``, ``sample``, ``top_logprobs``). One
+``apply_penalties``, ``mask_logits``, ``sample``, ``rejection_sample``,
+``top_logprobs``). One
 vectorized routine serves the whole batch with per-row parameters: the
 masking is one [B, V] sort, the draw a Gumbel argmax, and greedy rows take
 the plain argmax (bit-exact with the JAX version for equal logits).
@@ -24,6 +25,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -173,6 +175,64 @@ def sample(logits: torch.Tensor,                    # f32/bf16 [B, V]
                              seeded_gumbel(seeds, pos, processed.shape[-1]),
                              gumbel)
     sampled = torch.argmax(processed + gumbel, dim=-1)
+    greedy_tok = torch.argmax(logits, dim=-1)
+    tokens = torch.where(st.greedy, greedy_tok, sampled)
+    logz = torch.logsumexp(processed, dim=-1)
+    chosen = torch.gather(processed, 1, tokens[:, None])[:, 0]
+    return tokens, chosen - logz
+
+
+def rejection_sample(logits: torch.Tensor,          # f32 [R, V]
+                     st: SamplingTensors,            # one row per logits row
+                     generator: Optional[torch.Generator],
+                     draft_ids: torch.Tensor,        # i64[R], -1 = no draft
+                     token_counts: Optional[torch.Tensor] = None,
+                     row_seeds: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lossless speculative acceptance for sampled rows (reference:
+    speculativeDecoding rejection-sampling kernels; Leviathan et al. with
+    a deterministic drafter, q = point mass). Returns (tokens i64[R],
+    logprobs f32[R]) as ``sample`` does.
+
+    - Unseeded rows, true rejection sampling: accept the draft d with
+      probability p(d), else draw from p with d's mass removed
+      (renormalized), so the emitted token then differs from the draft
+      and acceptance stays "draft == emitted prefix". Rows without a
+      draft (-1: the bonus position, padding) draw from p. Noise comes
+      from ``generator``.
+    - Seeded rows (``row_seeds`` = (seeds, positions), seed != 0),
+      sample-and-match: the token is exactly the one ``sample`` draws
+      for that (seed, position), so the stream equals non-speculative
+      seeded sampling bit for bit.
+    - Greedy rows emit the argmax."""
+    logits = logits.float()
+    if token_counts is not None:
+        logits = apply_penalties(logits, token_counts, st)
+    processed = mask_logits(logits, st)
+    R, V = processed.shape
+    probs = torch.softmax(processed, dim=-1)
+    d = draft_ids.long().clamp(min=0)
+    has_draft = draft_ids >= 0
+    p_d = torch.gather(probs, 1, d[:, None])[:, 0]
+    u = torch.rand(R, generator=generator, device=processed.device,
+                   dtype=torch.float32)
+    accept = has_draft & (u < p_d)
+    # residual distribution: p with the rejected draft's mass removed
+    onehot = F.one_hot(d, V).to(torch.float32)
+    resid = torch.where(has_draft[:, None], probs * (1.0 - onehot), probs)
+    rs = resid.sum(dim=-1, keepdim=True)
+    resid = torch.where(rs > 1e-9, resid / rs.clamp(min=1e-9), probs)
+    g = torch.rand(processed.shape, generator=generator,
+                   device=processed.device, dtype=torch.float32)
+    g = -torch.log(-torch.log(g.clamp(1e-20, 1.0 - 1e-7)))
+    resampled = torch.argmax(torch.log(resid.clamp(min=1e-30)) + g, dim=-1)
+    sampled = torch.where(accept, d, resampled)
+    if row_seeds is not None:
+        seeds, pos = row_seeds
+        match_tok = torch.argmax(
+            processed + seeded_gumbel(seeds, pos, V), dim=-1)
+        sampled = torch.where(seeds != 0, match_tok, sampled)
     greedy_tok = torch.argmax(logits, dim=-1)
     tokens = torch.where(st.greedy, greedy_tok, sampled)
     logz = torch.logsumexp(processed, dim=-1)

@@ -139,10 +139,13 @@ class GraphRunner:
     def replays(self) -> int:
         return sum(s.replays for s in self.steps.values())
 
-    def replayed_launches(self) -> Counter[str]:
-        """Kernel launches made by graph replays, by wrapper module."""
+    def replayed_launches(self, kind: Optional[str] = None) -> Counter[str]:
+        """Kernel launches made by graph replays, by wrapper module (of the
+        keys whose first field is ``kind``, or of every key)."""
         total: Counter[str] = collections.Counter()
-        for s in self.steps.values():
+        for key, s in self.steps.items():
+            if kind is not None and key[0] != kind:
+                continue
             for module, n in s.launches.items():
                 total[module] += n * s.replays
         return total

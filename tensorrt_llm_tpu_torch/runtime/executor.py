@@ -15,12 +15,23 @@ sit out while context runs and the pool is under the target) and the
 TTFT budget (``ttft_slo_ms``: windows shrink to K/4 while a request waits
 past it for its first token).
 
+With an EAGLE3 drafter (``LLM(speculative_config=...)``), decode rows
+that qualify (``_spec_row_ok``: seeded by a prefill step of this engine,
+no penalties, few enough stop ids, room left) take the fused speculative
+window (``ModelEngine.forward_spec_window``, runtime/spec_window.py)
+instead: K propose -> verify -> accept iterations per dispatch, riding
+the same overlap pipeline. A decode batch splits its qualifying rows off
+into their own window; the others take single steps (no multi-step
+window runs beside a drafter, as in the JAX package). A prompt's last
+chunk, run in a prefill step, seeds its row's draft head on the device
+(``spec_seed``).
+
 This executor is the JAX package's single-engine role only: it has no
-leader, follower, attention-DP or speculative roles, so their branches
-of the schedule are not ported. Not ported either: beam search, guided
-decoding, disaggregation, KV connectors, logits processors, hang
-detection, per-request error isolation, cancellation and iteration
-statistics.
+leader, follower or attention-DP roles, so their branches of the
+schedule are not ported. Not ported either: host-orchestrated drafting,
+beam search, guided decoding, disaggregation, KV connectors, logits
+processors, hang detection, per-request error isolation, cancellation
+and iteration statistics.
 """
 from __future__ import annotations
 
@@ -31,6 +42,8 @@ import time
 import traceback
 from collections import deque
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from ..logger import logger
 from .kv_cache_manager import KVCacheManager, NoFreeBlocksError
@@ -150,8 +163,10 @@ class _InflightBatch:
     samples_output: List[bool]   # row's sampled token is a real output token
     result: HostFuture           # (tokens, logprobs[, top vals, top ids]) or
                                  # multi: (tokens [K, S], logprobs, emitted)
-    kind: str = "single"         # "single" | "multi"
-    planned: Optional[List[int]] = None   # multi: per-row budget
+                                 # spec: (tokens [K, S, d+1], logprobs,
+                                 # counts [K, S], emitted[, top vals, ids])
+    kind: str = "single"         # "single" | "multi" | "spec"
+    planned: Optional[List[int]] = None   # multi/spec: per-row budget
     has_top_lp: bool = False
 
 
@@ -168,11 +183,15 @@ class PyExecutor:
                  waiting_queue_policy: str = "fcfs",
                  max_active_requests: Optional[int] = None,
                  decode_wait_occupancy: float = 0.0,
-                 ttft_slo_ms: float = 0.0):
+                 ttft_slo_ms: float = 0.0,
+                 drafter=None):
         self.engine = engine
         self.kv = kv_cache_manager
         self.scheduler = scheduler
         self.tokenizer = tokenizer
+        # the EAGLE3 head of the fused speculative window (engine.sd); the
+        # executor only feeds it acceptance statistics
+        self.drafter = drafter
         self.waiting = create_waiting_queue(waiting_queue_policy)
         self.max_active_requests = max_active_requests or \
             4 * engine.max_batch_size
@@ -191,6 +210,11 @@ class PyExecutor:
         self.ttft_slo_ms = ttft_slo_ms
         self._iter_K = self.multi_step
         self.ttft_shrunk_iters = 0
+        # decode rows dispatched outside spec windows while a drafter is
+        # attached (rows that do not qualify, _spec_row_ok), and spec
+        # iterations that emitted nothing for any row (a graph runs them)
+        self.nonspec_decode_rows = 0
+        self.spec_idle_iters = 0
 
         self._request_queue: "queue.Queue" = queue.Queue()
         self._results: Dict[int, GenerationResult] = {}
@@ -265,31 +289,67 @@ class PyExecutor:
             if self.ttft_slo_ms > 0 and self._ttft_urgent():
                 self._iter_K = max(1, self.multi_step // 4)
                 self.ttft_shrunk_iters += 1
-            # pure-decode batch -> K-step window; a mixed ctx+gen batch
-            # splits into a prefill step plus a decode window for its
-            # generation rows
-            multi = not batch.is_empty and not batch.context_requests \
-                and self._multi_step_ok(batch)
+            # decode batches with rows that qualify for the fused
+            # speculative window and rows that do not: the qualifying rows
+            # split off into their own window, so one row does not demote
+            # everyone else's speculation
+            spec_side = None
+            if (self.engine.sd is not None and not batch.context_requests
+                    and batch.generation_requests):
+                elig = [r for r in batch.generation_requests
+                        if self._spec_row_ok(r)]
+                if elig and len(elig) < len(batch.generation_requests):
+                    rest = [r for r in batch.generation_requests
+                            if not self._spec_row_ok(r)]
+                    spec_side = ScheduledRequests(generation_requests=elig)
+                    batch = ScheduledRequests(generation_requests=rest)
+            # window kind of a pure-decode batch: "spec" (fused speculative
+            # window), "multi" (K-step window) or None (one step); a mixed
+            # ctx+gen batch splits into a prefill step plus a window of
+            # its generation rows
+            wkind = None
+            if not batch.is_empty and not batch.context_requests:
+                if self._spec_window_ok(batch.generation_requests):
+                    wkind = "spec"
+                elif self._multi_step_ok(batch):
+                    wkind = "multi"
+            multi = wkind is not None
             gen_window = None
+            gwkind = None
             if (not multi and batch.context_requests
-                    and batch.generation_requests and self.multi_step > 1
-                    and self._multi_rows_ok(batch.generation_requests)):
-                gen_window = ScheduledRequests(
-                    generation_requests=batch.generation_requests)
-                batch = ScheduledRequests(
-                    context_requests=batch.context_requests)
+                    and batch.generation_requests):
+                if self._spec_window_ok(batch.generation_requests):
+                    gwkind = "spec"
+                elif self.multi_step > 1 and \
+                        self._multi_rows_ok(batch.generation_requests):
+                    gwkind = "multi"
+                if gwkind is not None:
+                    gen_window = ScheduledRequests(
+                        generation_requests=batch.generation_requests)
+                    batch = ScheduledRequests(
+                        context_requests=batch.context_requests)
+            if spec_side is not None:
+                self._prepare_resources_spec(spec_side)
+                if spec_side.generation_requests:
+                    self._dispatch_spec(spec_side)
             if not batch.is_empty or gen_window is not None:
-                if multi:
+                if wkind == "spec":
+                    self._prepare_resources_spec(batch)
+                elif multi:
                     self._prepare_resources_multi(batch)
                 else:
                     self._prepare_resources(batch)
                 if gen_window is not None:
-                    self._prepare_resources_multi(gen_window)
+                    if gwkind == "spec":
+                        self._prepare_resources_spec(gen_window)
+                    else:
+                        self._prepare_resources_multi(gen_window)
             # mixed window: resourced context chunks ride inside the
             # decode window's steps, where their prefill hides under the
             # decode steps' weight reads; they leave the prefill step
             riders: List[LlmRequest] = []
-            if (gen_window is not None and gen_window.generation_requests
+            if (gen_window is not None and gwkind == "multi"
+                    and gen_window.generation_requests
                     and batch.context_requests and self._mixed_ok()):
                 cap = self.engine.mixed_ctx_tokens * self._iter_K
                 tot = 0
@@ -309,22 +369,22 @@ class PyExecutor:
                 continue
             wb = batch if multi else gen_window
             if wb is not None and wb.generation_requests:
-                use_pen = any(r.sampling_params.needs_penalties
-                              for r in wb.all_requests)
-                tokens, logprobs, emitted, carved = \
-                    self.engine.forward_multi_step(
-                        wb, self._iter_K, use_penalties=use_pen,
-                        ctx_requests=riders)
-                self._advance_ctx_riders(riders, carved)
-                entries, planned = self._advance_multi(wb)
-                self._inflight.append(_InflightBatch(
-                    entries, [True] * len(entries),
-                    HostFuture(tokens, logprobs, emitted), kind="multi",
-                    planned=planned))
+                if (wkind if multi else gwkind) == "spec":
+                    self._dispatch_spec(wb)
+                else:
+                    self._dispatch_multi(wb, riders)
             if not multi and not batch.is_empty:
                 use_pen = any(r.sampling_params.needs_penalties
                               for r in batch.all_requests)
-                outs = self.engine.forward_step(batch, use_penalties=use_pen)
+                seed = self._spec_seed_rows(batch)
+                if self.engine.sd is not None:
+                    self.nonspec_decode_rows += len(batch.generation_requests)
+                outs = self.engine.forward_step(batch, use_penalties=use_pen,
+                                                collect_hidden=bool(seed[0]))
+                if seed[0]:
+                    # the draft head's pending pair, on the device
+                    self.engine.spec_seed(outs[0], outs[-1], *seed)
+                    outs = outs[:-1]
                 entries, samples = self._advance_device_state(batch)
                 self._inflight.append(_InflightBatch(
                     entries, samples, HostFuture(*outs),
@@ -334,6 +394,45 @@ class PyExecutor:
         # drain at shutdown
         while self._inflight:
             self._process_inflight()
+
+    def _dispatch_multi(self, wb: ScheduledRequests,
+                        riders: List[LlmRequest]) -> None:
+        use_pen = any(r.sampling_params.needs_penalties
+                      for r in wb.all_requests)
+        tokens, logprobs, emitted, carved = self.engine.forward_multi_step(
+            wb, self._iter_K, use_penalties=use_pen, ctx_requests=riders)
+        self._advance_ctx_riders(riders, carved)
+        entries, planned = self._advance_multi(wb)
+        self._inflight.append(_InflightBatch(
+            entries, [True] * len(entries),
+            HostFuture(tokens, logprobs, emitted), kind="multi",
+            planned=planned))
+
+    def _dispatch_spec(self, wb: ScheduledRequests) -> None:
+        outs = self.engine.forward_spec_window(wb)
+        entries, planned = self._advance_spec(wb)
+        self._inflight.append(_InflightBatch(
+            entries, [True] * len(entries), HostFuture(*outs), kind="spec",
+            planned=planned, has_top_lp=len(outs) > 4))
+
+    def _spec_seed_rows(self, batch: ScheduledRequests):
+        """(batch rows, slots, positions, emitted counts) of the context
+        rows whose last chunk this step runs: their sampled token and its
+        feature seed the draft head (``spec_seed``). Only context rows
+        seed: a generation row on this path was disqualified from spec
+        windows for reasons that do not change."""
+        rows, slots, positions, emitted = [], [], [], []
+        if self.engine.sd is None:
+            return rows, slots, positions, emitted
+        for i, r in enumerate(batch.context_requests):
+            if not r.is_last_context_chunk or r.seq_slot is None:
+                continue
+            rows.append(i)
+            slots.append(r.seq_slot)
+            positions.append(r.context_len)
+            emitted.append(r.context_len - r.prompt_len + 1)
+            r.spec_seeded = True
+        return rows, slots, positions, emitted
 
     def _batching_wait(self, batch: ScheduledRequests) -> ScheduledRequests:
         """While context work is scheduled and the decode pool is under
@@ -459,6 +558,8 @@ class PyExecutor:
         return self._multi_rows_ok(batch.generation_requests)
 
     def _multi_rows_ok(self, gen_requests) -> bool:
+        if self.drafter is not None:
+            return False
         for r in gen_requests:
             sp = r.sampling_params
             if sp.logprobs or len(sp.stop_id_list()) > self.engine.NSTOP:
@@ -597,6 +698,150 @@ class PyExecutor:
         for req in finished:
             self._finish_request(req)
 
+    # ------------------------------------------------------------------ #
+    # Fused speculative window (runtime/spec_window.py)
+    # ------------------------------------------------------------------ #
+    def _spec_window_ok(self, gen_requests) -> bool:
+        """Rows may take the fused propose/verify/accept window when every
+        one qualifies (``_spec_row_ok``)."""
+        if self.engine.sd is None or not gen_requests:
+            return False
+        return all(self._spec_row_ok(r) for r in gen_requests)
+
+    def _spec_row_ok(self, r: LlmRequest) -> bool:
+        """Greedy and sampled rows qualify (seeded rows accept by
+        position-keyed sample-and-match, unseeded ones by rejection
+        sampling), top-k logprobs included, once a prefill step of this
+        engine seeded the row and while it has room. Penalty rows and rows
+        with more stop ids than the window checks do not. (Beam search,
+        bad words, embedding bias, logits processors, LoRA and guided
+        decoding, the JAX package's other reasons, are refused at submit
+        by this package.)"""
+        sp = r.sampling_params
+        if (sp.needs_penalties
+                or len(sp.stop_id_list()) > self.engine.NSTOP
+                or not r.spec_seeded):
+            return False
+        outs = r.num_device_tokens - r.prompt_len
+        room = self.engine.max_seq_len - r.num_device_tokens - \
+            self.engine.sd.d
+        return min(sp.max_tokens - outs, room) >= 1
+
+    def _prepare_resources_spec(self, batch: ScheduledRequests) -> None:
+        """KV pre-allocation for the fused window: the emission budget
+        plus d slots of draft overshoot (the verify pass writes d+1
+        positions per iteration; rejected-draft KV is overwritten by the
+        next iteration's writes, never rewound)."""
+        sd = self.engine.sd
+        W = sd.K * (sd.d + 1)
+        starved = []
+        for req in batch.generation_requests:
+            sp = req.sampling_params
+            ndt = req.num_device_tokens
+            outs = ndt - req.prompt_len
+            budget = max(1, min(W, sp.max_tokens - outs,
+                                self.engine.max_seq_len - ndt - sd.d))
+            try:
+                self.kv.add_tokens(req, budget + sd.d)
+                req.spec_budget = budget
+            except NoFreeBlocksError:
+                try:
+                    self.kv.add_tokens(req, 1 + sd.d)
+                    req.spec_budget = 1
+                except NoFreeBlocksError:
+                    starved.append(req)
+        for req in starved:
+            batch.generation_requests.remove(req)
+
+    def _advance_spec(self, batch: ScheduledRequests):
+        entries, planned = [], []
+        for req in batch.generation_requests:
+            req.num_device_tokens += req.spec_budget
+            req.host_token_override = None
+            entries.append(req)
+            planned.append(req.spec_budget)
+        return entries, planned
+
+    def _process_spec(self, ib: _InflightBatch) -> None:
+        fetched = ib.result.get()
+        tokens, logprobs, counts = fetched[:3]   # [K, Sb, d+1], [K, Sb]
+        top_lp = fetched[4:] if ib.has_top_lp else None
+        K, _, Dp = tokens.shape
+        self.spec_idle_iters += int((counts.sum(axis=1) == 0).sum())
+        finished: List[LlmRequest] = []
+        for i, req in enumerate(ib.entries):
+            if req.is_finished:
+                continue
+            plan = ib.planned[i]
+            sp = req.sampling_params
+            cs = counts[:, i]
+            if self.drafter is not None:
+                # acceptance stats: ck - 1 drafts accepted + 1 bonus
+                for ck in cs[cs > 0].tolist():
+                    self.drafter.update(req, [0] * (ck - 1))
+            if (top_lp is None and not sp.stop_token_ids
+                    and (sp.end_id is None or sp.ignore_eos)
+                    and not (sp.stop and self.tokenizer is not None)):
+                # fast path: the window can only end a row by length.
+                # Gather each iteration's accepted prefix with one mask,
+                # truncate at max_tokens, roll device accounting back by
+                # the unemitted remainder of the plan cap
+                keep = np.arange(Dp)[None, :] < cs[:, None]
+                row_t = tokens[:, i, :][keep].tolist()
+                row_l = logprobs[:, i, :][keep].tolist()
+                take = max(0, min(len(row_t),
+                                  sp.max_tokens - req.num_output_tokens))
+                if take > 0:
+                    now = time.monotonic()
+                    if not req.output_token_ids:
+                        req.perf.first_token_time = now
+                    req.perf.last_token_time = now
+                    req.output_token_ids.extend(row_t[:take])
+                    req.cum_logprob += sum(row_l[:take])
+                    req.logprobs.extend(
+                        {t: l} for t, l in zip(row_t[:take], row_l[:take]))
+                if take < plan:
+                    req.num_device_tokens -= plan - take
+                if req.num_output_tokens >= sp.max_tokens:
+                    req.finish_by_reason(FinishReason.LENGTH)
+                    finished.append(req)
+                else:
+                    self._stream(req)
+                continue
+            accepted = 0
+            done = False
+            check_stop_strings = bool(sp.stop) and self.tokenizer is not None
+            for k in range(K):
+                for j in range(int(cs[k])):
+                    tok = int(tokens[k, i, j])
+                    lp = float(logprobs[k, i, j])
+                    done = req.add_output_token(tok, lp)
+                    if top_lp is not None and sp.logprobs:
+                        vals, ids = top_lp
+                        kk = sp.logprobs
+                        req.logprobs[-1] = {
+                            int(t): float(v) for v, t in
+                            zip(vals[k, i, j][:kk], ids[k, i, j][:kk])}
+                        req.logprobs[-1].setdefault(tok, lp)
+                    accepted += 1
+                    if not done and check_stop_strings:
+                        done = self._check_stop_strings(req)
+                    if done:
+                        break
+                if done:
+                    break
+            if accepted < plan:
+                # normal for speculation: the plan is an emission CAP and
+                # rejected drafts emit nothing. Roll host bookkeeping back
+                # to what the device actually produced
+                req.num_device_tokens -= plan - accepted
+            if done:
+                finished.append(req)
+            else:
+                self._stream(req)
+        for req in finished:
+            self._finish_request(req)
+
     def _stream(self, req: LlmRequest) -> None:
         res = self._results.get(req.request_id)
         if res is not None and req.streaming and \
@@ -631,6 +876,9 @@ class PyExecutor:
         batch = self._inflight.popleft()
         if batch.kind == "multi":
             self._process_multi(batch)
+            return
+        if batch.kind == "spec":
+            self._process_spec(batch)
             return
         fetched = batch.result.get()               # sync point, one fetch
         tokens, logprobs = fetched[:2]

@@ -1,24 +1,27 @@
 """Model engine: owns params + the KV pool and drives each step.
 
 Port of ``tensorrt_llm_tpu/runtime/model_engine.py`` (``StepInputs``,
-``prepare_inputs``, ``forward_step``, the K-step decode window of
-``_build_multi_step`` / ``forward_multi_step`` with its context riders
-and ``plan_ctx_chunks``, token and row buckets, ``warmup`` /
-``_warm_multi`` and KV-pool sizing) without guided decoding, LoRA,
-speculation, tree drafts, VSWA, M-RoPE, MoE statistics and pipeline
-parallelism.
+``prepare_inputs``, ``forward_step`` with its hidden rows for seeding the
+draft head, the K-step decode window of ``_build_multi_step`` /
+``forward_multi_step`` with its context riders and ``plan_ctx_chunks``,
+the fused speculative window's entry points ``forward_spec_window`` /
+``spec_seed`` and its state ``sd`` (runtime/spec_window.py), token and
+row buckets, ``warmup`` / ``_warm_multi`` and KV-pool sizing, which
+carves out the draft head's pool) without guided decoding, LoRA,
+host-orchestrated drafts, tree drafts, VSWA, M-RoPE, MoE statistics and
+pipeline parallelism.
 
 Every step is padded to a (token bucket, row bucket) pair, as the JAX
-engine pads to its jit buckets. On CUDA, decode windows and decode-only
-single steps replay one CUDA graph per key (runtime/cuda_graph.py), where
-the JAX engine replays one jitted executable; ``warmup`` captures the
-greedy ones at build. A window is K steps long whatever the rows'
-budgets, as the JAX scan is; a graph cannot skip a step that has no live
-row, as the JAX package does with ``lax.cond``, so such a step runs with
-every row inactive (``dead_window_steps`` counts the ones the host can
-foresee). Prefill steps outside rider windows run eagerly. Sampled
-tokens stay on the device, scattered by sequence slot into
-``prev_tokens``; the next step gathers its decode inputs from there, so
+engine pads to its jit buckets. On CUDA, decode windows, spec windows and
+decode-only single steps replay one CUDA graph per key
+(runtime/cuda_graph.py), where the JAX engine replays one jitted
+executable; ``warmup`` captures the greedy ones at build. A window is K
+steps long whatever the rows' budgets, as the JAX scan is; a graph cannot
+skip a step that has no live row, as the JAX package does with
+``lax.cond``, so such a step runs with every row inactive
+(``dead_window_steps`` counts the ones the host can foresee). Prefill
+steps outside rider windows run eagerly. Sampled tokens stay on the
+device, scattered by sequence slot into ``prev_tokens``; the next step gathers its decode inputs from there, so
 the overlap scheduler (executor.py) never waits for a token on the host.
 Host inputs go up in one pinned, non-blocking copy per step and results
 come back the same way (``HostFuture``): the host only synchronizes when
@@ -40,6 +43,7 @@ from ..ops.attention import AttentionMetadata
 from ..ops.cuda import decode_attention as dec
 from ..ops.sampling_ops import (SamplingTensors, greedy_sample, sample,
                                 top_logprobs)
+from . import spec_window
 from .cuda_graph import GraphRunner, Inputs, upload
 from .scheduler import ScheduledRequests
 
@@ -141,6 +145,9 @@ class ModelEngine:
         self.prev_tokens = torch.zeros(self.max_batch_size + 1,
                                        dtype=torch.int64, device=self.device)
         self.token_counts: Optional[torch.Tensor] = None
+        # the fused speculative window's device state
+        # (runtime/spec_window.py), set by ``enable_spec_device``
+        self.sd: Optional[spec_window.SpecDeviceState] = None
 
     # ------------------------------------------------------------------ #
     # Sizing
@@ -151,6 +158,27 @@ class ModelEngine:
             .element_size()
         return (self.model.num_layers * self.page_size *
                 2 * self.model.num_kv_heads * self.model.head_dim * el)
+
+    @property
+    def spec_draft_len(self) -> int:
+        """Drafts per iteration of the fused speculative window (0: no
+        speculation configured)."""
+        sc = self.args.speculative_config
+        if sc is None or sc.mode == "NONE":
+            return 0
+        return sc.max_draft_len or 4
+
+    def spec_state_bytes(self) -> int:
+        """Device bytes of the draft head's KV pool and pending features
+        (``spec_window.head_pool_bytes``; 0 without speculation)."""
+        d = self.spec_draft_len
+        if not d:
+            return 0
+        m = self.model
+        el = torch.empty((), dtype=m.dtype).element_size()
+        return spec_window.head_pool_bytes(
+            self.max_batch_size, self.max_seq_len, d, m.hidden_size,
+            m.num_kv_heads, m.head_dim, el)
 
     def _kv_bytes_per_layer(self) -> int:
         return self.num_kv_pages * self.bytes_per_kv_block \
@@ -170,6 +198,10 @@ class ModelEngine:
         - per row, 6 [rows, vocab] float32 tensors of the sampler (logits,
           log-softmax, the generator's noise, the seeded rows' noise, the
           perturbed logits, their selection);
+        - with speculation, a spec window's verify pass instead: rows x
+          (d+1) tokens, and 10 [rows x (d+1), vocab] float32 tensors
+          (rejection sampling also holds the probabilities, the residual,
+          a second noise draw and the draft one-hot);
         - a factor 2 of headroom for the allocator's block rounding and
           the blocks that the graphs' static outputs keep.
 
@@ -183,13 +215,19 @@ class ModelEngine:
         hf = self.model.hf
         rows = self.max_batch_size
         tokens = rows + self.mixed_ctx_tokens
-        acts = tokens * (4 * hf.hidden_size + 3 * hf.intermediate_size) * 4
         sampler = rows * self.model.vocab_size * 4 * 6
+        d = self.spec_draft_len
+        if d:
+            tokens = max(tokens, rows * (d + 1))
+            sampler = max(sampler,
+                          rows * (d + 1) * self.model.vocab_size * 4 * 10)
+        acts = tokens * (4 * hf.hidden_size + 3 * hf.intermediate_size) * 4
         return 2 * (acts + sampler)
 
     def _default_num_pages(self) -> int:
-        """KV pool sizing from free device memory, less 1 GiB and the
-        graph pool's reserve (a fixed 2 GiB budget on the CPU)."""
+        """KV pool sizing from free device memory, less 1 GiB, the graph
+        pool's reserve and the draft head's state (a fixed 2 GiB budget on
+        the CPU)."""
         cfg = self.args.kv_cache_config
         if cfg.max_tokens is not None:
             return -(-cfg.max_tokens // self.page_size)
@@ -197,7 +235,7 @@ class ModelEngine:
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
             budget = int(free * cfg.free_gpu_memory_fraction) - (1 << 30) \
-                - self.graph_pool_reserve()
+                - self.graph_pool_reserve() - self.spec_state_bytes()
         else:
             budget = 2 << 30
         budget = max(budget, bytes_per_page * self.max_batch_size)
@@ -224,24 +262,35 @@ class ModelEngine:
                 return b
         raise ValueError(f"{n} rows exceeds max_batch_size")
 
-    def _kv_bound(self, n: int) -> int:
+    def _kv_bound(self, n: int, reach: Optional[int] = None) -> int:
         """The decode kernel's ``max_kv_len`` hint for a step whose rows
         reach at most ``n`` positions: n rounded up to a power of two,
-        capped at the page table's reach. A graph's key fixes the split
-        count this bound gives, and eager steps pass the same bound, so
-        both launch alike and give the same bits."""
-        reach = self.pages_per_seq * self.page_size
+        capped at the page table's ``reach`` (the target pool's by
+        default). A graph's key fixes the split count this bound gives,
+        and eager steps pass the same bound, so both launch alike and give
+        the same bits."""
+        reach = reach or self.pages_per_seq * self.page_size
         return min(1 << (max(n, 1) - 1).bit_length(), reach)
 
-    def _splits(self, rows: int, bound: int) -> int:
+    def head_kv_bound(self, n: int) -> int:
+        """``_kv_bound`` over the draft head's page table: the hint of the
+        head's chained decode-kernel steps in a spec window."""
+        return self._kv_bound(n, self.sd.P_h * self.sd.ps_h)
+
+    def _splits(self, rows: int, bound: int, head: bool = False) -> int:
         """KV splits of the decode kernel over ``rows`` at ``bound`` (1 on
-        the CPU, whose plain version does not split)."""
+        the CPU, whose plain version does not split): the target's
+        layers, or with ``head`` the draft head's layer."""
         if self.device.type != "cuda":
             return 1
-        spec = self.model.attn_spec
+        if head:
+            spec = self.sd.drafter.attn_spec
+            reach = self.sd.P_h * self.sd.ps_h
+        else:
+            spec = self.model.attn_spec
+            reach = self.pages_per_seq * self.page_size
         return dec.splits_for(rows, spec.num_heads, spec.num_kv_heads,
-                              self.pages_per_seq * self.page_size, bound,
-                              spec.sliding_window, self.device)
+                              reach, bound, spec.sliding_window, self.device)
 
     def _counts(self, use_penalties: bool) -> Optional[torch.Tensor]:
         if use_penalties and self.token_counts is None:
@@ -257,15 +306,16 @@ class ModelEngine:
             return
         self.token_counts[torch.as_tensor(slots, device=self.device)] = 0
 
-    def _forward(self, tokens: torch.Tensor,
-                 metadata: AttentionMetadata) -> torch.Tensor:
+    def _forward(self, tokens: torch.Tensor, metadata: AttentionMetadata,
+                 collect_hidden: bool = False):
         """The model over the KV pool, which it updates in place (captured
-        graphs hold the pool's address)."""
-        logits, kv = self.model.forward(self.params, tokens, self.kv_pages,
-                                        metadata)
-        if kv.data_ptr() != self.kv_pages.data_ptr():
+        graphs hold the pool's address): logits, and with
+        ``collect_hidden`` (logits, pre-final-norm hidden rows)."""
+        out = self.model.forward(self.params, tokens, self.kv_pages,
+                                 metadata, collect_hidden=collect_hidden)
+        if out[1].data_ptr() != self.kv_pages.data_ptr():
             raise RuntimeError("the model moved the KV pool")
-        return logits
+        return (out[0], out[2]) if collect_hidden else out[0]
 
     # ------------------------------------------------------------------ #
     # Input preparation (host, numpy)
@@ -366,17 +416,20 @@ class ModelEngine:
 
     def _step_key(self, T: int, bound: int, greedy: bool,
                   use_penalties: bool, k_lp: int,
-                  seeded: bool = False) -> tuple:
+                  seeded: bool = False, hidden: bool = False) -> tuple:
         return ("step", T, self._splits(min(self.max_batch_size, T), bound),
-                greedy, use_penalties, k_lp, seeded)
+                greedy, use_penalties, k_lp, seeded, hidden)
 
     @torch.no_grad()
     def forward_step(self, batch: ScheduledRequests,
-                     use_penalties: bool = False):
+                     use_penalties: bool = False,
+                     collect_hidden: bool = False):
         """Launch one iteration. Returns device tensors indexed by batch
         row: (tokens, logprobs), then (top values, top ids) when a request
-        asked for logprobs. A decode-only batch replays the graph of its
-        key; a batch with prompt tokens runs eagerly."""
+        asked for logprobs, then with ``collect_hidden`` the pre-final-norm
+        hidden rows (which seed the draft head, ``spec_seed``). A
+        decode-only batch replays the graph of its key; a batch with
+        prompt tokens runs eagerly."""
         inp = self.prepare_inputs(batch)
         T = self._pick_bucket(inp.num_tokens)
         self.iter_counter += 1
@@ -390,19 +443,23 @@ class ModelEngine:
         self._counts(use_penalties)
         if inp.max_q_len > 1:
             body = self._step_body(inp.max_q_len, inp.max_kv_len, greedy,
-                                   use_penalties, k_lp, seeded)
+                                   use_penalties, k_lp, seeded,
+                                   collect_hidden)
             return body(upload(inputs, self.device))
         bound = self._kv_bound(inp.max_kv_len)
         self.decode_steps += 1
         return self.graphs.run(
-            self._step_key(T, bound, greedy, use_penalties, k_lp, seeded),
+            self._step_key(T, bound, greedy, use_penalties, k_lp, seeded,
+                           collect_hidden),
             inputs,
-            self._step_body(1, bound, greedy, use_penalties, k_lp, seeded),
+            self._step_body(1, bound, greedy, use_penalties, k_lp, seeded,
+                            collect_hidden),
             inert=lambda: self._step_inputs(
                 self.prepare_inputs(ScheduledRequests()), [], T, greedy))
 
     def _step_body(self, max_q_len: int, kv_bound: int, greedy: bool,
-                   use_penalties: bool, k_lp: int, seeded: bool = False):
+                   use_penalties: bool, k_lp: int, seeded: bool = False,
+                   collect_hidden: bool = False):
         S = self.max_batch_size
 
         def body(v):
@@ -415,7 +472,10 @@ class ModelEngine:
                 cu_q_lens=v["cu_q_lens"], num_seqs=v["num_seqs"],
                 slot_mapping=v["slot_mapping"], positions=v["positions"],
                 logits_indices=v["logits_indices"].long(),
-                max_q_len=max_q_len, max_kv_len=kv_bound))
+                max_q_len=max_q_len, max_kv_len=kv_bound),
+                collect_hidden=collect_hidden)
+            if collect_hidden:
+                logits, hidden = logits
             out_slots = v["out_slots"]
             st = None if greedy else SamplingTensors.from_rows(
                 v["samp_ints"], v["samp_floats"])
@@ -426,6 +486,8 @@ class ModelEngine:
                                             S).long(), use_penalties)
             if k_lp:
                 outs += top_logprobs(logits, k_lp)
+            if collect_hidden:
+                outs += (hidden,)
             return outs
         return body
 
@@ -695,6 +757,28 @@ class ModelEngine:
         return body
 
     # ------------------------------------------------------------------ #
+    # Fused speculative window (runtime/spec_window.py)
+    # ------------------------------------------------------------------ #
+    def spec_key(self, Sb: int, greedy: bool, seeded: bool, k_lp: int,
+                 head_bound: int) -> tuple:
+        """A spec window's graph key: the head steps' decode-kernel split
+        count stands for their ``max_kv_len`` hint."""
+        return ("spec", self.sd.K, Sb, greedy, seeded, k_lp,
+                self._splits(Sb, head_bound, head=True))
+
+    @torch.no_grad()
+    def forward_spec_window(self, batch: ScheduledRequests):
+        """Fused speculative decode window (runtime/spec_window.py)."""
+        return spec_window.forward_spec_window(self, batch)
+
+    @torch.no_grad()
+    def spec_seed(self, tokens: torch.Tensor, hidden: torch.Tensor,
+                  rows: List[int], slots: List[int], positions: List[int],
+                  emitted: List[int]) -> None:
+        spec_window.spec_seed(self, tokens, hidden, rows, slots, positions,
+                              emitted)
+
+    # ------------------------------------------------------------------ #
     # Warmup: capture the serving graphs at build (the JAX engine's
     # warmup / _warm_multi compile the same shapes)
     # ------------------------------------------------------------------ #
@@ -702,13 +786,19 @@ class ModelEngine:
     def warmup(self) -> None:
         """Capture the greedy window of every row bucket at K (and at K/4,
         the TTFT-budget window, when ``ttft_slo_ms`` is set), with and
-        without riders when ``mixed_window_ctx`` > 0, and the greedy
+        without riders when ``mixed_window_ctx`` > 0, the greedy spec
+        window of every row bucket when speculation is on, and the greedy
         decode-only single step of every token bucket a decode batch
         takes. Every row is inactive and the rider chunks are empty, so no
-        device state changes. Sampled and penalty variants, and other KV
-        split counts, are captured at first use."""
+        device state changes. Sampled, penalty and logprob variants, and
+        other KV split counts, are captured at first use."""
         K = self.args.decode_multi_step
-        if K > 1:
+        if self.sd is not None:
+            for Sb in self.row_buckets:
+                self._warm_spec(Sb)
+        # under speculation no row takes a multi-step window (the
+        # executor's _multi_rows_ok, as in the JAX package)
+        if K > 1 and self.sd is None:
             Ks = {K, max(1, K // 4)} if self.args.ttft_slo_ms > 0 else {K}
             riders = [None] + ([[]] if self.mixed_ctx_tokens else [])
             for Sb in self.row_buckets:
@@ -728,6 +818,16 @@ class ModelEngine:
         self.prev_tokens.zero_()
         logger.info("captured %d graphs in %.1f s", self.graphs.num_graphs,
                     self.graphs.capture_seconds)
+
+    def _warm_spec(self, Sb: int) -> None:
+        """Capture one greedy spec window (all rows inactive)."""
+        sd = self.sd
+        bound = self.head_kv_bound(sd.K * (sd.d + 1) + sd.d)
+        self.graphs.ensure(
+            self.spec_key(Sb, True, False, 0, bound),
+            spec_window.spec_inputs(self, [], Sb, True),
+            spec_window.build_spec_window(self, sd.K, Sb, True, False, 0,
+                                          bound))
 
     def _warm_multi(self, K: int, Sb: int, riders) -> None:
         """Capture one greedy window (all rows inactive; ``riders`` [] for

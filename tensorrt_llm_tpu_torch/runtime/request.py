@@ -86,7 +86,8 @@ class LlmRequest:
         self.cum_logprob: float = 0.0
         self.logprobs: List[dict] = []          # per generated token: {tok: logprob}
         # speculative draft for the next step (the scheduler counts it;
-        # always empty until speculation is ported)
+        # always empty here: the fused speculative window drafts on the
+        # device)
         self.draft_tokens: List[int] = []
 
         # chunked-prefill progress
@@ -115,6 +116,12 @@ class LlmRequest:
         # tokens this request may emit in the current multi-step decode
         # window (set by the executor after KV pre-allocation)
         self.multi_step_budget: int = 1
+        # fused speculative window (runtime/spec_window.py): the emission
+        # cap of the current window (set by the executor after KV
+        # pre-allocation of budget + d tokens), and whether a prefill step
+        # of this engine seeded the draft head's pending pair for the row
+        self.spec_budget: int = 1
+        self.spec_seeded: bool = False
 
         self.perf = PerfMetrics(arrival_time=arrival_time or time.monotonic())
         self.priority: float = 0.5

@@ -4,7 +4,8 @@ Runs a serving workload once to warm up, once timed without the profiler
 and once under ``torch.profiler``, then prints one JSON line: both wall
 times, tokens/s and the TTFT / TPOT medians of the timed run, the summed
 GPU kernel time, the device's idle share (kernel time over the
-unprofiled wall time; the profiler itself slows the host), the kernel
+unprofiled wall time; the profiler itself slows the host), the KV pages
+the timed pass allocated (reused prefix pages included), the kernel
 time by class (the two attention kernels, the dequant-matmul kernel,
 library GEMMs, everything else), launches per output step (those the
 host issues, a CUDA graph's replay being one, and the kernels the device
@@ -23,11 +24,20 @@ Two workloads:
   decode_wait_occupancy 1.0, max_num_tokens 16384, page 32).
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
-group-wise algorithms).
+group-wise algorithms). ``--spec EAGLE3 --draft-len d`` serves the
+workload with EAGLE3 speculative decoding in the fused device window and
+a seeded random head (which accepts close to nothing: the run shows the
+window's mechanics and costs, not a speed-up); the line then also carries
+the spec windows dispatched, their iterations, the dead ones the host
+foresaw and those that emitted nothing (a graph runs them all), the mean
+drafts accepted per iteration, the decode rows that ran
+outside spec windows, and the launches replayed from spec graphs.
 
     python -m tensorrt_llm_tpu_torch.tools.serving_profile
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --bench-settings
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --quant W4A16_AWQ
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile --spec EAGLE3 \
+        --draft-len 3
 """
 from __future__ import annotations
 
@@ -115,10 +125,14 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
     eng = llm.engine
     replays0 = eng.graphs.replays
     steps0 = (eng.decode_steps, eng.window_steps, eng.dead_window_steps)
+    spec0 = _spec_counts(llm)
+    blocks0 = llm.kv_cache_manager.get_stats().alloc_total_blocks
     for mod in kernels.values():
         mod.LAUNCHES = 0
     wall, outs = _generate(llm, prompts, sp)
     launches = {k: mod.LAUNCHES for k, mod in kernels.items()}
+    spec1 = _spec_counts(llm)
+    blocks = llm.kv_cache_manager.get_stats().alloc_total_blocks - blocks0
     steps = max(1, eng.decode_steps - steps0[0])
     perf = [o._result.request.perf for o in outs]
     n_out = [len(o.outputs[0].token_ids) for o in outs]
@@ -141,12 +155,33 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
         window_steps=eng.window_steps - steps0[1],
         dead_window_steps=eng.dead_window_steps - steps0[2],
         mixed_windows_dispatched=eng.mixed_windows_dispatched,
-        mixed_ctx_carved=eng.mixed_ctx_carved)
+        mixed_ctx_carved=eng.mixed_ctx_carved,
+        kv_blocks_allocated=blocks)
     res["dead_step_share"] = res["dead_window_steps"] / max(
         1, res["window_steps"])
+    if spec0 is not None:
+        d = {k: spec1[k] - spec0[k] for k in spec0}
+        res.update(spec_windows=d["windows"], spec_iters=d["iters"],
+                   spec_dead_iters=d["dead_iters"],
+                   spec_idle_iters=d["idle_iters"],
+                   spec_mean_accepted=d["accepted"] / max(1, d["steps"]),
+                   nonspec_decode_rows=d["nonspec_rows"])
     if profile:
         res.update(_profiled(llm, prompts, sp, wall))
     return res
+
+
+def _spec_counts(llm):
+    """The spec window's cumulative counters (None without speculation);
+    ``measure`` reports their change over the timed pass."""
+    sd = llm.engine.sd
+    if sd is None:
+        return None
+    dr, ex = sd.drafter, llm.executor
+    return dict(windows=sd.windows, iters=sd.iters, dead_iters=sd.dead_iters,
+                accepted=dr.accepted_total, steps=dr.steps_total,
+                nonspec_rows=ex.nonspec_decode_rows,
+                idle_iters=ex.spec_idle_iters)
 
 
 def _profiled(llm, prompts, sp, plain_wall: float) -> dict:
@@ -196,22 +231,32 @@ def main() -> None:
     ap.add_argument("--group-size", type=int, default=128)
     ap.add_argument("--bench-settings", action="store_true",
                     help="bench.py's throughput workload and settings")
+    ap.add_argument("--spec", choices=["NONE", "EAGLE3"], default="NONE",
+                    help="speculative mode (EAGLE3: a seeded random head)")
+    ap.add_argument("--draft-len", type=int, default=3,
+                    help="drafts per spec iteration")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch import LLM, SpeculativeConfig
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
     from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
     cfg, kwargs, prompts, sp = workload(args.bench_settings)
+    if args.spec != "NONE":
+        kwargs["speculative_config"] = SpeculativeConfig(
+            mode=args.spec, max_draft_len=args.draft_len)
     llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
         quant_algo=QuantAlgo[args.quant], group_size=args.group_size),
         **kwargs)
     try:
         res = measure(llm, prompts, sp)
+        res["spec_replayed_launches"] = dict(
+            llm.engine.graphs.replayed_launches("spec"))
     finally:
         llm.shutdown()
     print(json.dumps(dict(quant_algo=args.quant,
-                          bench_settings=args.bench_settings, **res)))
+                          bench_settings=args.bench_settings,
+                          spec=args.spec, draft_len=args.draft_len, **res)))
 
 
 if __name__ == "__main__":

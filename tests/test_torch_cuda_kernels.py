@@ -496,3 +496,77 @@ def test_window_graph_draws_fresh_noise_per_replay(cuda):
     assert dec.LAUNCHES - launches == 8 * cfg.num_hidden_layers
     assert not torch.equal(first[:, 0], second[:, 0])
     assert torch.equal(first[:, 1], second[:, 1])
+
+
+# ---- speculative verify and catch-up shapes ------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,qh,kvh", [(64, 8, 2), (128, 16, 4)])
+def test_prefill_small_q_rows_match_plain_and_replay(cuda, dtype, hd, qh,
+                                                     kvh):
+    """The spec window's launches of the prefill kernel: segments of 2 to
+    8 query rows after 0 to 300 positions (the verify pass), and segments
+    whose KV length is shorter than their query length (the head's
+    catch-up of an inactive row or of a short history: rows that see no
+    key give 0). Against the plain version, and a graph replay gives the
+    eager launch's bits."""
+    q_lens = [2, 3, 4, 5, 6, 7, 8, 4, 4, 3]
+    ctx = [300, 129, 0, 17, 64, 250, 31, 0, 0, 0]
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx, qh, kvh, hd, 32, dtype, cuda,
+                                   seed=8)
+    kvl[-3:] = torch.tensor([1, 2, 2], dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5)
+    eager, out, graph = _graphed(lambda: pre.ragged_prefill_attention(
+        q, pool, kvl, pt, cu, max_q_len=8, **kw))
+    assert torch.equal(out, eager)
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+    # rows placed before position 0 (row j of a segment sits at
+    # kv_len - q_len + j) see no key: exactly 0 in both
+    c = cu.tolist()
+    blind = [c[7] + j for j in range(3)] + [c[8] + j for j in range(2)] + \
+        [c[9]]
+    assert out[c[7] + 3].any() and out[c[9] + 1].any()
+    assert not out[blind].any() and not ref[blind].any()
+    q.mul_(0.5)
+    graph.replay()
+    want = pre.ragged_prefill_attention(q, pool, kvl, pt, cu, max_q_len=8,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spec_window_replay_equals_eager(cuda, dtype):
+    """The in-repo pair (tinycode-llama + tinycode-eagle, d = 3) serves one
+    workload twice on the card: spec windows replayed from CUDA graphs,
+    and the same windows run eagerly on the same static buffers
+    (``engine.graphs.capture = False``). Tokens and acceptance are
+    identical; the spec graphs replayed both attention kernels."""
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, SamplingParams,
+                                        SpeculativeConfig)
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"import torch\n"), list(range(32, 120))]
+    sp = SamplingParams(max_tokens=40, top_k=1, ignore_eos=True)
+    runs = {}
+    for mode in ("graph", "eager"):
+        llm = LLM("tests/assets/tinycode-llama", device=cuda, dtype=dtype,
+                  skip_tokenizer_init=True, max_batch_size=4,
+                  max_input_len=128, max_seq_len=256, max_num_tokens=256,
+                  enable_warmup=mode == "graph",
+                  speculative_config=SpeculativeConfig(
+                      mode="EAGLE3", max_draft_len=3,
+                      draft_model="tests/assets/tinycode-eagle"),
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=4096))
+        llm.engine.graphs.capture = mode == "graph"
+        try:
+            toks = [o.outputs[0].token_ids for o in llm.generate(prompts, sp)]
+            runs[mode] = (toks, list(llm.executor.drafter.acceptance_window),
+                          llm.engine.graphs.replayed_launches("spec"))
+        finally:
+            llm.shutdown()
+    assert runs["graph"][:2] == runs["eager"][:2]
+    replayed = runs["graph"][2]
+    assert replayed[dec.__name__] > 0 and replayed[pre.__name__] > 0
+    assert not runs["eager"][2]
