@@ -97,10 +97,37 @@ the run on error:
      drift measured on the agreed tokens) (``_compare_streams``); at the
      same geometry in float32 they must be identical.
 
+  9. moe_block (after the kernels): one Qwen3-30B-A3B MoE block at full
+     width (128 experts, top 8, hidden 2048, expert width 768; seeded
+     bf16) at T = 64 and 2,048: the grouped route (``torch._grouped_mm``,
+     a library call) against the plain one at 2e-2, the dense route
+     against the plain one in float32 at T = 64 (1e-4), each route's
+     time, whether ``torch._grouped_mm`` in float32 syncs with the host
+     (why float32 takes the dense route), the whole block replayed from a
+     CUDA graph (equal to the eager run), the experts touched and the
+     bound (bytes of the experts touched plus x and out, or FLOPs);
+ 10. moe_parity (after spec_parity): tiny Qwen3-MoE, Qwen2-MoE and
+     Mixtral checkpoints (random ``transformers`` models saved to a
+     temporary directory) through ``LLM.generate``, the card against the
+     CPU plain path: greedy tokens identical in float32, in bf16 a
+     parting only at a near-tie (``_compare_streams``); replayed graphs
+     against eager runs: identical tokens, replays required;
+ 11. moe_serving (last): Qwen3-30B-A3B at full width and depth (48
+     layers; seeded random bf16, 61.1 GB), 64 requests of 128 -> 64
+     greedy tokens, ``LLM`` defaults, measured by
+     tools/serving_profile.py (``--geometry qwen3-30b-a3b``): tok/s,
+     TTFT, TPOT, device idle share, GPU time by class, weight bytes, KV
+     pool pages, graphs, launches replayed per kernel; fails if no window
+     replayed K1, K2 never launched or the graph pool outgrew its
+     reserve. The kernel phase's ``decode_qwen3moe`` (64 rows at 129-200
+     KV) and ``prefill_qwen3moe`` (32 prompts x 128: one 4,096-token
+     prefill step) are K1 and K2 at the shapes moe_serving launches them
+     with (32 x 128 q heads, 4 KV heads).
+
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results (launches from the bench-settings run, or the
-W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's
-timed pass) and ``{"ok": true, "device": {...}}``.
+W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's and
+moe_serving's timed passes) and ``{"ok": true, "device": {...}}``.
 """
 import json
 import statistics
@@ -138,8 +165,13 @@ def kernel_phase():
     # the bench-settings run (256 rows at 129 to 264 positions, hd 128).
     ragged = [1 + (4095 * i) // 63 for i in range(64)]
     bench_rows = [129 + (135 * i) // 255 for i in range(256)]
+    # decode_qwen3moe: moe_serving's windows (64 rows of 128 -> 64 traffic
+    # at 129-200 positions, the last window's K = 8 steps included;
+    # Qwen3-30B-A3B's 32 x 128 q heads over 4 KV heads)
+    qwen_rows = [129 + (71 * i) // 63 for i in range(64)]
     for name, kvs, qh, kvh, hd, page in [
             ("decode_bench", bench_rows, 16, 4, 128, PAGE),
+            ("decode_qwen3moe", qwen_rows, 32, 4, 128, PAGE),
             ("decode_hd64", [1024] * 64, 32, 4, 64, PAGE),
             ("decode_hd64_page16", [1024] * 64, 32, 4, 64, 16),
             ("decode_hd128", [1024] * 64, 16, 4, 128, PAGE),
@@ -207,6 +239,7 @@ def kernel_phase():
             ("prefill_hd128", [512] * 8, [0] * 8, 16, 4, 128),
             ("prefill_serving", [128] * 16, [0] * 16, 32, 4, 64),
             ("prefill_bench", [128] * 128, [0] * 128, 16, 4, 128),
+            ("prefill_qwen3moe", [128] * 32, [0] * 32, 32, 4, 128),
             ("mixed_hd64", [1] * 32 + [256] * 4, [1023] * 32 + [256] * 4,
              32, 4, 64),
             ("mixed_hd128", [1] * 32 + [256] * 4, [1023] * 32 + [256] * 4,
@@ -1163,6 +1196,294 @@ def _tensors(tree):
     return seen.values()
 
 
+# --------------------------------------------------------------------- #
+# MoE (Qwen3-30B-A3B and the tiny MoE checkpoints)
+# --------------------------------------------------------------------- #
+def moe_block_phase() -> dict:
+    """One Qwen3-30B-A3B MoE block at full width (128 experts, top 8,
+    hidden 2048, expert width 768), seeded bf16 weights, at T = 64 (a
+    decode step of 64 rows) and T = 2,048 (a prefill step): the grouped
+    route (``torch._grouped_mm``, a library call: the JAX package's
+    ``lax.ragged_dot`` is no Pallas kernel) against the plain route at
+    2e-2, the dense route against the plain one in float32 at T = 64
+    (1e-4), each route's time (CUDA events), ``torch._grouped_mm`` in
+    float32 (its error, its time, and whether it syncs with the host,
+    which would keep it out of a CUDA graph), the whole block with its
+    routing replayed from a CUDA graph, the experts touched, and the
+    bound: the bytes of the experts touched plus x and out over 3.35 TB/s,
+    or the FLOPs over 989 TFLOP/s, whichever is larger."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import moe
+    from tensorrt_llm_tpu_torch.ops.linear import dot_f32
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    E, H, I, k = 128, 2048, 768, 8
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def mat(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02) \
+            .to(torch.bfloat16)
+    wgu, wd, router = mat(E, H, 2 * I), mat(E, I, H), mat(E, H)
+    out = {}
+    for T in (64, 2048):
+        x = torch.randn((T, H), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        probs, idx = moe.topk_routing(dot_f32(x, router), k)
+        args = (x, wgu, wd, probs, idx)
+        got = moe.moe_mlp_grouped(*args)
+        ref = moe.moe_mlp_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.isfinite(got.float()).all() or not torch.allclose(
+                got.float(), ref.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"moe_block T={T}: grouped != plain "
+                                 f"(max {err})")
+        touched = int(torch.unique(idx).numel())
+        io_bytes = touched * (H * 2 * I + I * H) * 2 + 2 * T * H * 2 \
+            + probs.numel() * 4 + idx.numel() * 4
+        flops = 2 * T * k * (H * 2 * I + I * H)
+        res = dict(T=T, k=k, experts=E, hidden=H, moe_intermediate=I,
+                   experts_touched=touched, max_abs_err=err, tol=TOL,
+                   grouped_ms=time_ms(lambda: moe.moe_mlp_grouped(*args), 30),
+                   plain_ms=time_ms(lambda: moe.moe_mlp_plain(*args), 10),
+                   bytes=io_bytes, flops=flops, **_bound(io_bytes, flops))
+        # the whole block (router, routing, experts, combine) as a serving
+        # window runs it: replayed from a CUDA graph
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            moe.moe_mlp(x, wgu, wd, router, k)
+        torch.cuda.current_stream().wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = moe.moe_mlp(x, wgu, wd, router, k)
+        graph.replay()
+        eager = moe.moe_mlp(x, wgu, wd, router, k)
+        torch.cuda.synchronize()
+        if not torch.equal(static, eager):
+            raise AssertionError(f"moe_block T={T}: graph replay != eager")
+        res["block_graph_ms"] = time_ms(graph.replay, 30)
+        res["block_eager_ms"] = time_ms(
+            lambda: moe.moe_mlp(x, wgu, wd, router, k), 30)
+        res["bound_share_grouped"] = res["bound_ms"] / res["grouped_ms"]
+        del graph, static
+        if T == 64:
+            f32 = (x.float(), wgu.float(), wd.float(), probs, idx)
+            dense = moe.moe_mlp_dense(*f32)
+            plain = moe.moe_mlp_plain(*f32)
+            torch.cuda.synchronize()
+            derr = (dense - plain).abs().max().item()
+            if not torch.allclose(dense, plain, atol=1e-4, rtol=1e-4):
+                raise AssertionError(f"moe_block float32: dense != plain "
+                                     f"(max {derr})")
+            res.update(dense_max_abs_err=derr, dense_tol=1e-4,
+                       dense_ms=time_ms(lambda: moe.moe_mlp_dense(*f32), 10),
+                       plain_f32_ms=time_ms(
+                           lambda: moe.moe_mlp_plain(*f32), 10))
+            # the grouped product in float32, measured, not served: a
+            # host sync here would fail a graph capture
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                moe.moe_mlp_grouped(*f32)
+                gsync = None
+            except RuntimeError as e:
+                gsync = str(e).splitlines()[0][:120]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            gf32 = moe.moe_mlp_grouped(*f32)
+            torch.cuda.synchronize()
+            res.update(grouped_f32_host_sync=gsync,
+                       grouped_f32_max_abs_err=(gf32 - plain).abs().max()
+                       .item(),
+                       grouped_f32_ms=time_ms(
+                           lambda: moe.moe_mlp_grouped(*f32), 10))
+            del f32, dense, plain, gf32
+        out[T] = res
+        emit({"phase": "moe_block", **res})
+        del x, got, ref
+    del wgu, wd, router
+    torch.cuda.empty_cache()
+    return out
+
+
+MOE_TINY = {
+    "qwen3_moe": ("Qwen3MoeConfig", dict(
+        moe_intermediate_size=128, num_experts=8, num_experts_per_tok=2,
+        norm_topk_prob=True, head_dim=64)),
+    "qwen2_moe": ("Qwen2MoeConfig", dict(
+        moe_intermediate_size=128, shared_expert_intermediate_size=256,
+        num_experts=8, num_experts_per_tok=2, norm_topk_prob=False,
+        decoder_sparse_step=1, mlp_only_layers=[])),
+    "mixtral": ("MixtralConfig", dict(num_local_experts=8,
+                                      num_experts_per_tok=2)),
+}
+
+
+def _save_tiny_moe(path: Path, family: str) -> None:
+    """A tiny random ``transformers`` model of ``family`` (hidden 256, 4
+    x 64 heads over 2 KV heads, 2 layers, 8 experts, top 2, vocab 512)
+    saved to ``path``, its routers redrawn at std 0.5 so that top-k
+    choices are decisive."""
+    import torch
+    import transformers
+    cls_name, extra = MOE_TINY[family]
+    cfg = getattr(transformers, cls_name)(
+        vocab_size=512, hidden_size=256, intermediate_size=256,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=512, tie_word_embeddings=False, **extra)
+    model_cls = getattr(transformers, cls_name.replace("Config",
+                                                       "ForCausalLM"))
+    torch.manual_seed(21)
+    model = model_cls(cfg).float()
+    gen = torch.Generator().manual_seed(22)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gate.weight") and "proj" not in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    model.save_pretrained(path)
+
+
+def moe_parity_phase() -> dict:
+    """Tiny Qwen3-MoE, Qwen2-MoE and Mixtral checkpoints (random
+    ``transformers`` models saved to a temporary directory) through
+    ``LLM.generate``: the card against the port's CPU plain path, greedy
+    tokens identical in float32 (the dense MoE route against the plain
+    one), and in bf16 (the grouped route) a parting only where the CPU
+    run decides by less than ``_compare_streams``' margin; then replayed
+    CUDA graphs against eager runs on the same static buffers (bf16, and
+    float32 for Qwen3-MoE): identical tokens, replays required."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    prompts = [[5, 17, 99, 3, 64, 12, 7] * 3, list(range(20, 81)),
+               [101, 2, 33, 400, 7], list(range(300, 260, -1))]
+    n_out = 24
+    kw = dict(skip_tokenizer_init=True, max_batch_size=4, max_input_len=96,
+              max_seq_len=160, max_num_tokens=128,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    sp = SamplingParams(max_tokens=n_out, top_k=1, ignore_eos=True,
+                        logprobs=2)
+    res = {}
+
+    def run(path, device, dtype, capture=None):
+        llm = LLM(str(path), device=device, dtype=dtype,
+                  enable_warmup=capture is not False, **kw)
+        if capture is not None:
+            llm.engine.graphs.capture = capture
+        try:
+            outs = llm.generate(prompts, sp)
+            stats = _graph_stats(llm.engine) if device == "cuda" else {}
+        finally:
+            llm.shutdown()
+        toks = [o.outputs[0].token_ids for o in outs]
+        if any(len(t) != n_out for t in toks):
+            raise AssertionError(f"{path.name} {device} {dtype}: short "
+                                 "outputs")
+        return toks, [o.outputs[0].logprobs for o in outs], stats
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for family in MOE_TINY:
+            path = Path(tmp) / family
+            _save_tiny_moe(path, family)
+            for dtype in ("float32", "bfloat16"):
+                cpu = run(path, "cpu", dtype)
+                card = run(path, "cuda", dtype)
+                cmp = _compare_streams(cpu[:2], card[:2])
+                if dtype == "float32" and card[0] != cpu[0]:
+                    raise AssertionError(f"moe_parity {family} float32: "
+                                         f"card {card[0]} != cpu {cpu[0]}")
+                if cmp["unexplained_partings"]:
+                    raise AssertionError(f"moe_parity {family} {dtype}: "
+                                         f"a parting above the near-tie "
+                                         f"margin: {cmp}")
+                r = dict(family=family, dtype=dtype,
+                         identical=card[0] == cpu[0], **cmp)
+                if dtype == "bfloat16" or family == "qwen3_moe":
+                    eager = run(path, "cuda", dtype, capture=False)
+                    g = card[2]
+                    if eager[0] != card[0]:
+                        raise AssertionError(
+                            f"moe_parity {family} {dtype}: graph replay "
+                            f"{card[0]} != eager {eager[0]}")
+                    if not g["graph_replays"] or not g["replayed_launches"][
+                            "paged_decode_attention"]:
+                        raise AssertionError(f"moe_parity {family} {dtype}: "
+                                             f"no window replayed: {g}")
+                    r.update(graph_equals_eager=True,
+                             graph_replays=g["graph_replays"],
+                             replayed_launches=g["replayed_launches"])
+                res[f"{family}_{dtype}"] = r
+                emit({"phase": "moe_parity", **r})
+    return res
+
+
+def moe_serving_phase() -> dict:
+    """Qwen3-30B-A3B at its published width and depth (48 layers, 128
+    experts, top 8; seeded random bf16 weights, 61.1 GB), 64 requests of
+    128 prompt tokens -> 64 greedy tokens with ``ignore_eos`` through
+    ``LLM.generate`` with ``LLM`` defaults (64 rows, K = 8, depth 4),
+    measured by tools/serving_profile.py (``--geometry qwen3-30b-a3b``): a
+    warm-up pass, a timed pass (the launch counters zeroed right before
+    it and read right after; tok/s, TTFT and TPOT medians) and a profiled
+    pass (device idle share, GPU time by class). Fails if a request comes
+    back short or out of the vocabulary, if no window was replayed from a
+    graph, if a replay launched no decode kernel, if the prefill kernel
+    never launched, or if the graph pool outgrew its reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="qwen3-30b-a3b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    try:
+        weights_bytes = sum(t.numel() * t.element_size()
+                            for t in _tensors(llm.engine.params))
+        replayed0 = llm.engine.graphs.replayed_launches()
+        res = sprof.measure(llm, prompts, sp)
+        graphs = _graph_stats(llm.engine)
+        graphs["replayed_launches"] = {
+            k: v - replayed0[_kernel_counts()[k].__name__]
+            for k, v in graphs["replayed_launches"].items()}
+        reserve = llm.engine.graph_pool_reserve()
+        pages = llm.engine.num_kv_pages
+        kv_bytes_per_token = llm.engine.bytes_per_kv_block // \
+            llm.engine.page_size
+        outs = llm.generate(prompts[:4], sp)
+    finally:
+        llm.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = cfg.vocab_size
+    for o in outs:
+        toks = o.outputs[0].token_ids
+        if len(toks) != sp.max_tokens or not all(0 <= t < V for t in toks):
+            raise AssertionError(f"moe_serving: bad output {toks}")
+    if res["output_tokens"] != len(prompts) * sp.max_tokens:
+        raise AssertionError(f"moe_serving: {res['output_tokens']} tokens")
+    res.update(model="Qwen3-30B-A3B", layers=cfg.num_hidden_layers,
+               experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+               engine_build_s=build_s, weights_bytes=weights_bytes,
+               peak_allocated_bytes=peak, kv_pool_pages=pages,
+               kv_bytes_per_token=kv_bytes_per_token,
+               graph_pool_reserve_bytes=reserve, graphs=graphs)
+    emit({"phase": "moe_serving", **res})
+    if not graphs["graph_replays"] or not \
+            graphs["replayed_launches"]["paged_decode_attention"]:
+        raise AssertionError(f"moe_serving: no window replayed K1: {graphs}")
+    if res["launches"]["ragged_prefill_attention"] <= 0:
+        raise AssertionError(f"moe_serving: K2 never launched: "
+                             f"{res['launches']}")
+    _check_reserve(res)
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -1190,14 +1511,17 @@ def main() -> int:
           "seconds": time.monotonic() - t0})
 
     kern = kernel_phase()
+    moe_block_phase()
     parity_phase(here)
     quant_parity_phase()
     graph_phase(here)
     spec_parity_phase(here)
+    moe_parity_phase()
     serving_phase()
     serving_q = serving_phase("W4A16_AWQ")
     bench = bench_serving_phase()
     spec = spec_serving_phase()["spec"]
+    moe = moe_serving_phase()
 
     kernels = []
     for name, case, group, src, replaces, run in [
@@ -1217,6 +1541,7 @@ def main() -> int:
             launches=run["launches"][name],
             launches_in=run.get("quant_algo", "bench_settings"),
             launches_spec_serving=spec["launches"][name],
+            launches_moe_serving=moe["launches"][name],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

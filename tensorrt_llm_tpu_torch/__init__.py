@@ -6,12 +6,12 @@ NVIDIA Hopper (csrc/*.cu) and built with nvcc at first use. It imports
 neither JAX nor the JAX package.
 """
 from .llmapi.llm import LLM, RequestOutput
-from .llmapi.llm_args import (KvCacheConfig, LlmArgs, QuantConfig,
-                              SpeculativeConfig)
+from .llmapi.llm_args import (KvCacheConfig, LlmArgs, MoeConfig,
+                              QuantConfig, SpeculativeConfig)
 from .models.convert import from_jax_params
 from .quantization.mode import QuantAlgo
 from .sampling_params import SamplingParams
 
-__all__ = ["LLM", "RequestOutput", "LlmArgs", "KvCacheConfig", "QuantConfig",
-           "QuantAlgo", "SamplingParams", "SpeculativeConfig",
+__all__ = ["LLM", "RequestOutput", "LlmArgs", "KvCacheConfig", "MoeConfig",
+           "QuantConfig", "QuantAlgo", "SamplingParams", "SpeculativeConfig",
            "from_jax_params"]

@@ -5,9 +5,12 @@ Port of ``tensorrt_llm_tpu/llmapi/llm.py`` (``LLM.generate`` /
 model, build engine + executor, submit requests as futures.
 
 ``model`` is a checkpoint directory (``config.json`` +
-``model.safetensors``; an AutoAWQ or AutoGPTQ 4-bit checkpoint is served
-from its own integers and scales) or a bare ``transformers`` config,
-which serves random weights like ``load_format="dummy"``.
+``model.safetensors``; an AutoAWQ or AutoGPTQ 4-bit checkpoint of a dense
+family is served from its own integers and scales) or a bare
+``transformers`` config, which serves random weights like
+``load_format="dummy"``. Families (``model_type``): llama, mistral,
+tinyllama, qwen2, qwen3, and the MoE families mixtral, qwen2_moe,
+qwen3_moe and olmoe on one GPU.
 ``quant_config=QuantConfig(quant_algo=...)`` quantizes float weights at
 load. ``speculative_config=SpeculativeConfig(mode="EAGLE3",
 max_draft_len=d, draft_model=...)`` serves EAGLE3 speculative decoding in
@@ -41,7 +44,7 @@ from ..runtime.request import LlmRequest
 from ..runtime.scheduler import (CapacityScheduler, MicroBatchScheduler,
                                  RequestScheduler)
 from ..sampling_params import SamplingParams
-from .llm_args import LlmArgs
+from .llm_args import MOE_MODEL_TYPES, LlmArgs, check_ported_spec
 
 PromptInput = Union[str, Sequence[int]]
 
@@ -126,6 +129,8 @@ class LLM:
                                    dtype=_DTYPES[self.args.dtype],
                                    device=self.device,
                                    quant_config=self.args.quant_config)
+        check_ported_spec(self.args.speculative_config,
+                          hf_config.model_type)
         self.model = get_model_class(hf_config.model_type)(model_config)
         if state_dict is None:
             self._params = self.model.init_params(seed=0)
@@ -160,6 +165,11 @@ class LLM:
         # a prequantized checkpoint (AutoAWQ / AutoGPTQ) brings its own
         # recipe: adopt it and unpack its integer weights
         pq = detect_prequantized(path)
+        if pq is not None and hf_config.model_type in MOE_MODEL_TYPES:
+            raise NotImplementedError(
+                f"a prequantized ({pq.quant_algo.value}) "
+                f"{hf_config.model_type} checkpoint is not supported by "
+                "this package (MoE experts are served in the model's type)")
         if pq is not None:
             qc = self.args.quant_config
             if qc.quant_algo not in (QuantAlgo.NO_QUANT, pq.quant_algo):

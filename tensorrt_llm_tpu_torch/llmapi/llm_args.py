@@ -1,9 +1,10 @@
 """Configuration tree for the LLM API.
 
 Port of the subset of ``tensorrt_llm_tpu/llmapi/llm_args.py`` that the
-dense-Llama serving path reads, weight-only quantization and EAGLE3
-speculative decoding included. Unknown keys are rejected (so an option
-this package does not implement fails loudly instead of being ignored).
+serving path reads, weight-only quantization, the single-device MoE
+options and EAGLE3 speculative decoding included. Unknown keys are
+rejected (so an option this package does not implement fails loudly
+instead of being ignored).
 """
 from __future__ import annotations
 
@@ -74,6 +75,17 @@ class QuantConfig(StrictBaseModel):
     exclude_modules: List[str] = Field(default_factory=lambda: ["lm_head"])
 
 
+class MoeConfig(StrictBaseModel):
+    """The JAX package's MoE options, at their defaults only: the MoE
+    block picks its route by the experts' type and device (ops/moe.py), so
+    a ``backend`` other than "auto", a ``max_num_tokens`` chunk limit and
+    the online expert load balancer (wide EP) are refused by name
+    (``check_ported_moe``)."""
+    backend: str = "auto"            # auto|megablox|dense|ragged
+    max_num_tokens: Optional[int] = None
+    load_balancer: Optional[dict] = None
+
+
 class SpeculativeConfig(StrictBaseModel):
     """Umbrella for spec-decode modes: the JAX package's fields, defaults
     and meanings. This package serves ``mode="EAGLE3"`` with
@@ -110,11 +122,19 @@ class SpeculativeConfig(StrictBaseModel):
     eagle_dynamic_tree: bool = False
 
 
-def check_ported_spec(sc: Optional[SpeculativeConfig]) -> None:
+def check_ported_spec(sc: Optional[SpeculativeConfig],
+                      model_type: Optional[str] = None) -> None:
     """Refuse, by name, a speculative mode or option this package does
-    not have."""
+    not have, and (with ``model_type``) a target it cannot draft for: the
+    EAGLE3 head reads the target's hidden rows, which the MoE families'
+    forward does not collect (nor does the JAX package's)."""
     if sc is None or sc.mode == "NONE":
         return
+    if model_type in MOE_MODEL_TYPES:
+        raise NotImplementedError(
+            f"speculative mode {sc.mode} with a {model_type} target is not "
+            "supported by this package (EAGLE3 drafts for the Llama and "
+            "Qwen2/Qwen3 dense families)")
     if sc.mode != "EAGLE3":
         raise NotImplementedError(
             f"speculative mode {sc.mode} is not supported by this package "
@@ -131,6 +151,34 @@ def check_ported_spec(sc: Optional[SpeculativeConfig]) -> None:
         raise NotImplementedError(
             "speculative eagle_dynamic_tree (dynamic-tree drafts) is not "
             "supported by this package yet")
+
+
+MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe")
+
+
+def check_ported_moe(args: "LlmArgs") -> None:
+    """Refuse, by name, the MoE options of the JAX package that need more
+    than one device or its expert load balancer, or that this package
+    would otherwise ignore."""
+    for name in ("moe_tensor_parallel_size", "moe_expert_parallel_size"):
+        if getattr(args, name) not in (-1, 1):
+            raise NotImplementedError(
+                f"{name}={getattr(args, name)}: MoE parallelism across "
+                "devices is not supported by this package yet")
+    mc = args.moe_config
+    if mc.backend != "auto":
+        raise NotImplementedError(
+            f"moe_config.backend={mc.backend!r} is not supported by this "
+            "package: the MoE route follows the experts' type and device "
+            "(\"auto\")")
+    if mc.max_num_tokens is not None:
+        raise NotImplementedError(
+            "moe_config.max_num_tokens (a per-call token chunk of the MoE "
+            "block) is not supported by this package")
+    if mc.load_balancer:
+        raise NotImplementedError(
+            "moe_config.load_balancer (the online wide-EP expert balancer) "
+            "is not supported by this package")
 
 
 class LlmArgs(StrictBaseModel):
@@ -150,7 +198,11 @@ class LlmArgs(StrictBaseModel):
     scheduler_config: SchedulerConfig = Field(default_factory=SchedulerConfig)
     bucketing_config: BucketingConfig = Field(default_factory=BucketingConfig)
     quant_config: QuantConfig = Field(default_factory=QuantConfig)
+    moe_config: MoeConfig = Field(default_factory=MoeConfig)
     speculative_config: Optional[SpeculativeConfig] = None
+    # -1 = derived, as in the JAX package; on one device only 1 is served
+    moe_tensor_parallel_size: int = -1
+    moe_expert_parallel_size: int = -1
 
     enable_chunked_prefill: bool = True
     disable_overlap_scheduler: bool = False
@@ -186,6 +238,7 @@ class LlmArgs(StrictBaseModel):
             object.__setattr__(self, "max_seq_len", self.max_input_len + 2048)
         check_ported(self.quant_config.quant_algo)
         check_ported_spec(self.speculative_config)
+        check_ported_moe(self)
         kv_algo = self.quant_config.kv_cache_quant_algo
         if kv_algo != KvCacheQuantAlgo.NO_QUANT:
             raise NotImplementedError(

@@ -1,13 +1,20 @@
-"""Parameter conversion from the JAX package's Llama layout.
+"""Parameter conversion from the JAX package's Llama and MoE layouts.
 
-``from_jax_params`` takes the JAX ``LlamaForCausalLM`` parameter tree as
-numpy arrays — stacked layers with a leading L axis, one dict per
-projection — and returns this package's parameters (a list of per-layer
-dicts, fused qkv and gate_up), so that both packages compute the same
-function from the same numbers. An unquantized projection
-(``{"weight": [in, out]}``) becomes ``{"weight": [out, in]}``; a
-weight-only quantized one keeps its [K, N] integers (packed int4
-included), ``weight_scale``, ``weight_zero`` and ``bias`` as they are.
+``from_jax_params`` takes the parameter tree of the JAX
+``LlamaForCausalLM`` (Qwen2/Qwen3 included) or ``MixtralForCausalLM``
+(Qwen2-MoE, Qwen3-MoE, OLMoE included) as numpy arrays — stacked layers
+with a leading L axis, one dict per projection — and returns this
+package's parameters (a list of per-layer dicts, fused qkv and gate_up),
+so that both packages compute the same function from the same numbers.
+An unquantized projection (``{"weight": [in, out]}``) becomes
+``{"weight": [out, in]}``; a weight-only quantized one keeps its [K, N]
+integers (packed int4 included), ``weight_scale``, ``weight_zero`` and
+``bias`` as they are. The MoE parts: ``router`` [L, H, E] becomes [E, H];
+the experts ``w_gate`` / ``w_up`` [L, E, H, I] become one ``w_gate_up``
+[E, H, 2I] and ``w_down`` [L, E, I, H] stays [E, I, H] (ops/moe.py's
+layout); the shared expert's ``se_gate`` / ``se_up`` projections fuse into
+``se_gate_up``, and its gate ``se_gate_w`` [L, H, 1] becomes [1, H].
+``q_norm`` / ``k_norm`` are carried as they are.
 """
 from __future__ import annotations
 
@@ -58,9 +65,22 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
         def at(name):
             return proj({k: v[i] for k, v in lay[name].items()})
         layer = {"input_norm": t(lay["input_norm"][i]),
-                 "post_norm": t(lay["post_norm"][i]),
-                 "o": at("o"), "down": at("down"),
-                 "gate_up": fused([at("gate"), at("up")])}
+                 "post_norm": t(lay["post_norm"][i]), "o": at("o")}
+        for name in ("q_norm", "k_norm"):
+            if name in lay:
+                layer[name] = t(lay[name][i])
+        if "router" in lay:
+            layer["router"] = t(np.asarray(lay["router"][i]).T)
+            layer["w_gate_up"] = t(np.concatenate(
+                [lay["w_gate"][i], lay["w_up"][i]], axis=-1))
+            layer["w_down"] = t(lay["w_down"][i])
+        else:
+            layer.update(down=at("down"),
+                         gate_up=fused([at("gate"), at("up")]))
+        if "se_gate" in lay:
+            layer.update(se_down=at("se_down"),
+                         se_gate_up=fused([at("se_gate"), at("se_up")]))
+            layer["se_gate_w"] = t(np.asarray(lay["se_gate_w"][i]).T)
         qkv = [at("q"), at("k"), at("v")]
         one = fused(qkv)
         layer.update({"qkv": one} if one is not None

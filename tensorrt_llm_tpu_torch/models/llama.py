@@ -1,4 +1,6 @@
-"""Llama-family decoder (Llama 2/3, TinyLlama, Mistral).
+"""Llama-family decoder (Llama 2/3, TinyLlama, Mistral), the trunk that
+Qwen2/Qwen3 (models/qwen.py) and the MoE families (models/mixtral.py,
+models/qwen_moe.py) extend.
 
 Port of ``tensorrt_llm_tpu/models/llama.py`` (``LlamaForCausalLM``):
 pre-norm blocks of paged attention and a gated-SiLU MLP. The JAX version
@@ -10,14 +12,21 @@ each layer's KV append updates it in place.
 Parameters:
   embed [V, H]; final_norm [H]; lm_head (the embed tensor itself when
   embeddings are tied and lm_head is unquantized); layers[l] =
-  {input_norm, post_norm, qkv, o, gate_up, down}. Each projection is the
+  {input_norm, post_norm, qkv, o, gate_up, down}, plus q_norm and k_norm
+  with ``use_qk_norm`` (per-head [hd] weights, or with ``qk_norm_full``
+  weights over the whole q and k projections). Each projection is the
   parameter dict of its linear method (ops/linear.py): unquantized
   {"weight": [out, in]}, e.g. qkv [(nq+2nkv)*hd, H] and gate_up [2I, H];
   weight-only quantized {"weight": int8 [K, N] or packed [K/2, N],
   "weight_scale", optionally "weight_zero"}. Methods are chosen per
   projection name (q_proj, k_proj, o_proj, mlp, lm_head) so that
   ``exclude_modules`` is honoured; when q and k/v differ, a layer holds
-  "q", "k", "v" apart instead of "qkv".
+  "q", "k", "v" apart instead of "qkv". A checkpoint's q/k/v/o biases
+  (Qwen2) ride in the projections' "bias" and through the fusion.
+
+Subclasses change the MLP through ``_mlp_params`` (its parameters, from a
+``weight(name)`` source) and ``_mlp`` (its forward), and the checkpoint
+names through ``_hf_module``.
 """
 from __future__ import annotations
 
@@ -55,8 +64,12 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             head_dim=self.head_dim,
             sm_scale=1.0 / math.sqrt(self.head_dim),
             rope=RopeConfig.from_hf_config(hf, self.head_dim),
-            sliding_window=getattr(hf, "sliding_window", None),
+            sliding_window=self._sliding_window(hf),
             is_neox=True)
+        # Qwen3-style per-head RMS norm on q/k before RoPE, or with
+        # qk_norm_full (OLMoE) one RMS norm over the whole projection
+        self.use_qk_norm = False
+        self.qk_norm_full = False
         # per-projection linear methods (exclude_modules goes by name)
         self.m_q = self._method("q_proj")
         self.m_kv = self._method("k_proj")
@@ -65,31 +78,69 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         self.m_lm_head = self._method("lm_head")
         self.attn_methods = AttentionMethods(self.m_q, self.m_kv, self.m_o)
 
+    def act_width_per_token(self) -> int:
+        """Activation elements per token of one layer (the graph pool's
+        estimate, ``ModelEngine.graph_pool_reserve``): 4 hidden-wide
+        tensors (residual, normed input, attention output, o-projection
+        output) and 3 intermediate-wide ones (gate and up projections,
+        their product)."""
+        return 4 * self.hidden_size + 3 * self.intermediate_size
+
+    @staticmethod
+    def _sliding_window(hf) -> Any:
+        """The window as the JAX model reads it (``sliding_window``),
+        unless the config turns it off (Qwen's ``use_sliding_window``)."""
+        if getattr(hf, "use_sliding_window", True) is False:
+            return None
+        return getattr(hf, "sliding_window", None)
+
     # ------------------------------------------------------------------ #
     # Parameters
     # ------------------------------------------------------------------ #
+    def _qk_norm_widths(self) -> tuple:
+        """The q_norm and k_norm weights' widths."""
+        hd = self.head_dim
+        if self.qk_norm_full:
+            return self.num_heads * hd, self.num_kv_heads * hd
+        return hd, hd
+
+    def _lin(self, method: LinearMethod, w, bias=None) -> Dict[str, Any]:
+        """One [out, in] projection (floats or a ``PrequantizedWeight``)
+        through its method onto the target device."""
+        return quantize_linear(method, hf_transpose(w), bias=bias,
+                               dtype=self.dtype, device=self.device)
+
     def _layer(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
                weight: Callable[[str], Any],
                bias: Callable[[str], Any] = lambda name: None
                ) -> Dict[str, Any]:
         """One layer's parameters. ``weight(name)`` gives projection
-        ``name`` (q, k, v, o, gate, up, down) as [out, in] floats or a
-        ``PrequantizedWeight``; each goes through its method on the
+        ``name`` (q, k, v, o and the MLP's, ``_mlp_params``) as [out, in]
+        floats or a ``PrequantizedWeight``, and with ``use_qk_norm`` the
+        q_norm / k_norm weights; each goes through its method on the
         target device, one at a time."""
         def lin(method: LinearMethod, name: str):
-            return quantize_linear(method, hf_transpose(weight(name)),
-                                   bias=bias(name), dtype=self.dtype,
-                                   device=self.device)
+            return self._lin(method, weight(name), bias(name))
 
         layer = {"input_norm": input_norm, "post_norm": post_norm}
         layer.update(fuse_projections(
             "qkv", ("q", "k", "v"), (self.m_q, self.m_kv, self.m_kv),
             [lin(self.m_q, "q"), lin(self.m_kv, "k"), lin(self.m_kv, "v")]))
         layer["o"] = lin(self.m_o, "o")
-        layer["gate_up"] = self.m_mlp.fuse([lin(self.m_mlp, "gate"),
-                                            lin(self.m_mlp, "up")])
-        layer["down"] = lin(self.m_mlp, "down")
+        if self.use_qk_norm:
+            for name in ("q_norm", "k_norm"):
+                layer[name] = torch.as_tensor(weight(name)).to(
+                    device=self.device, dtype=self.dtype)
+        layer.update(self._mlp_params(weight, bias))
         return layer
+
+    def _mlp_params(self, weight: Callable[[str], Any],
+                    bias: Callable[[str], Any]) -> Dict[str, Any]:
+        """The gated-SiLU MLP: gate and up fused, down."""
+        m = self.m_mlp
+        return {"gate_up": m.fuse([self._lin(m, weight("gate"), bias("gate")),
+                                   self._lin(m, weight("up"), bias("up"))]),
+                "down": self._lin(m, weight("down"), bias("down"))}
 
     def _lm_head(self, embed: torch.Tensor, weight) -> Dict[str, Any]:
         """``weight``: [V, H] floats, a ``PrequantizedWeight``, or None
@@ -104,7 +155,7 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         """Random weights (load_format="dummy"): normal(0, 0.02) matrices
         and unit norms, drawn on the target device from a seeded
         ``torch.Generator``, then quantized by each projection's method."""
-        H, V, I = self.hidden_size, self.vocab_size, self.intermediate_size
+        H, V = self.hidden_size, self.vocab_size
         nq, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         dev, dt = self.device, self.dtype
         gen = torch.Generator(device=dev)
@@ -122,23 +173,29 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             q, k, v = mat((nq + 2 * nkv) * hd, H).split(
                 [nq * hd, nkv * hd, nkv * hd])
             w = {"q": q, "k": k, "v": v, "o": mat(H, nq * hd)}
-            w["gate"], w["up"] = mat(2 * I, H).split(I)
-            w["down"] = mat(H, I)
+            if self.use_qk_norm:
+                qw, kw = self._qk_norm_widths()
+                w["q_norm"] = torch.ones(qw, device=dev, dtype=dt)
+                w["k_norm"] = torch.ones(kw, device=dev, dtype=dt)
+            w.update(self._init_mlp(mat))
             layers.append(self._layer(ones(), ones(), w.pop))
         embed = mat(V, H)
         lm_head = None if self.tie_embeddings else mat(V, H)
         return {"embed": embed, "layers": layers, "final_norm": ones(),
                 "lm_head": self._lm_head(embed, lm_head)}
 
+    def _init_mlp(self, mat: Callable[..., torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Random MLP weights of one layer for ``_mlp_params``."""
+        H, I = self.hidden_size, self.intermediate_size
+        gate, up = mat(2 * I, H).split(I)
+        return {"gate": gate, "up": up, "down": mat(H, I)}
+
     def load_hf_state_dict(self, sd: Mapping[str, Any]) -> Dict[str, Any]:
         """HF checkpoint names -> parameter dict (tensors, numpy arrays
         or ``PrequantizedWeight``s in; tensors on the model's device out,
         floats in its dtype)."""
         dev, dt = self.device, self.dtype
-        hf_names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
-                    "v": "self_attn.v_proj", "o": "self_attn.o_proj",
-                    "gate": "mlp.gate_proj", "up": "mlp.up_proj",
-                    "down": "mlp.down_proj"}
 
         def t(name):
             return torch.as_tensor(sd[name]).to(device=dev, dtype=dt)
@@ -149,14 +206,29 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             layers.append(self._layer(
                 t(p + "input_layernorm.weight"),
                 t(p + "post_attention_layernorm.weight"),
-                lambda n: sd[p + hf_names[n] + ".weight"],
-                lambda n: sd.get(p + hf_names[n] + ".bias")))
+                lambda n: self._hf_weight(sd, p, n),
+                lambda n: sd.get(p + self._hf_module(n) + ".bias")))
         embed = t("model.embed_tokens.weight")
         lm_head = None if self.tie_embeddings or "lm_head.weight" not in sd \
             else sd["lm_head.weight"]
         return {"embed": embed, "layers": layers,
                 "final_norm": t("model.norm.weight"),
                 "lm_head": self._lm_head(embed, lm_head)}
+
+    _HF_MODULES = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                   "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+                   "q_norm": "self_attn.q_norm", "k_norm": "self_attn.k_norm",
+                   "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+                   "down": "mlp.down_proj"}
+
+    def _hf_module(self, name: str) -> str:
+        """The checkpoint module (below ``model.layers.{i}.``) of the
+        layer weight ``name``."""
+        return self._HF_MODULES[name]
+
+    def _hf_weight(self, sd: Mapping[str, Any], prefix: str, name: str):
+        """Layer weight ``name`` of the layer at ``prefix``."""
+        return sd[prefix + self._hf_module(name) + ".weight"]
 
     # ------------------------------------------------------------------ #
     # Forward
@@ -167,8 +239,8 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         """(logits [S, V] float32 at ``logits_indices``, kv_pages), and
         with ``collect_hidden`` also the pre-final-norm hidden rows at
         ``logits_indices`` (the EAGLE draft head's features)."""
-        spec, eps, mlp = self.attn_spec, self.rms_eps, self.m_mlp
-        inter = self.intermediate_size
+        spec, eps = self.attn_spec, self.rms_eps
+        q_norm, k_norm = self._qk_norms()
         h = params["embed"][token_ids].to(self.dtype)
         cos_sin = rope_cos_sin(spec.rope, metadata.positions)
         L, P, ps = kv_pages.shape[:3]
@@ -177,11 +249,9 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             md_l = layer_metadata(metadata, li, P, ps, L)
             x = rms_norm(h, layer["input_norm"], eps)
             h = h + attention_block(layer, x, kv_flat, md_l, spec,
-                                    self.attn_methods, rope_cos_sin=cos_sin)
-            normed = rms_norm(h, layer["post_norm"], eps)
-            gate, up = mlp.apply(layer["gate_up"], normed).split(inter, -1)
-            act = F.silu(gate.float()).to(self.dtype) * up
-            h = h + mlp.apply(layer["down"], act)
+                                    self.attn_methods, rope_cos_sin=cos_sin,
+                                    q_norm=q_norm, k_norm=k_norm)
+            h = h + self._mlp(layer, rms_norm(h, layer["post_norm"], eps))
         # RMSNorm is row-wise: gather the logits rows first, then norm
         rows = h[metadata.logits_indices]
         last = rms_norm(rows, params["final_norm"], eps)
@@ -189,3 +259,29 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         if collect_hidden:
             return logits, kv_pages, rows
         return logits, kv_pages
+
+    def _mlp(self, layer: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        """The gated-SiLU MLP over the post-attention normed rows."""
+        mlp = self.m_mlp
+        gate, up = mlp.apply(layer["gate_up"], x).split(
+            self.intermediate_size, -1)
+        act = F.silu(gate.float()).to(self.dtype) * up
+        return mlp.apply(layer["down"], act)
+
+    def _qk_norms(self):
+        """(q_norm, k_norm) hooks of ``attention_block``: functions of
+        (layer params, [T, heads, hd]) that RMS-normalise each head over
+        hd, or with ``qk_norm_full`` the flattened projection; (None,
+        None) without ``use_qk_norm``."""
+        if not self.use_qk_norm:
+            return None, None
+        eps = self.rms_eps
+        if self.qk_norm_full:
+            def norm(w, x):
+                return rms_norm(x.reshape(x.shape[0], -1), w,
+                                eps).reshape(x.shape)
+        else:
+            def norm(w, x):
+                return rms_norm(x, w, eps)
+        return (lambda layer, q: norm(layer["q_norm"], q),
+                lambda layer, k: norm(layer["k_norm"], k))

@@ -17,7 +17,8 @@ each instead of three and two. Projections whose methods differ (an
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -97,11 +98,14 @@ def attention_block(params: Dict[str, Any],
                     spec: AttentionSpec,
                     methods: AttentionMethods,
                     rope_cos_sin: Optional[Tuple[torch.Tensor,
-                                                 torch.Tensor]] = None
+                                                 torch.Tensor]] = None,
+                    q_norm: Optional[Callable] = None,
+                    k_norm: Optional[Callable] = None
                     ) -> torch.Tensor:
     """QKV projection (``params["qkv"]`` fused, or "q", "k", "v" apart),
-    RoPE, KV append (in place) and paged attention, then the output
-    projection."""
+    the q/k norms (``q_norm(params, q [T, nq, hd])``, likewise k: Qwen3's
+    per-head RMS norm, OLMoE's over the whole projection), RoPE, KV append
+    (in place) and paged attention, then the output projection."""
     T = x.shape[0]
     nq, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     if "qkv" in params:
@@ -114,6 +118,10 @@ def attention_block(params: Dict[str, Any],
     q = q.reshape(T, nq, hd)
     k = k.reshape(T, nkv, hd)
     v = v.reshape(T, nkv, hd)
+    if q_norm is not None:
+        q = q_norm(params, q)
+    if k_norm is not None:
+        k = k_norm(params, k)
     if spec.rope is not None:
         cos, sin = rope_cos_sin if rope_cos_sin is not None else \
             rope_ops.rope_cos_sin(spec.rope, metadata.positions)

@@ -77,6 +77,17 @@ class _QuantizedMethod(LinearMethod):
         return out
 
 
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` (w [out, in]) accumulated and returned in float32, as
+    the JAX package's ``jnp.dot(..., preferred_element_type=float32)``
+    (the EAGLE head's products, the MoE router and shared-expert gate)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return F.linear(x, w)
+    if x.is_cuda:
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+    return F.linear(x.float(), w.float())
+
+
 def fuse_params(parts: List[Params], weight_dim: int) -> Params:
     """Join projections along the output axis: ``weight_dim`` of the
     weight, the last axis of every other tensor."""

@@ -1,0 +1,188 @@
+"""Mixture-of-experts MLP on one device.
+
+Port of the single-device half of ``tensorrt_llm_tpu/ops/moe.py``:
+``topk_routing``, ``moe_mlp_ragged`` (the (token, expert) pairs sorted by
+expert, grouped products, a weighted combine), ``moe_mlp_dense`` and the
+single-device branch of ``moe_mlp``, with router logits in float32. The
+multi-device paths (``moe_mlp_ep``, ``moe_mlp_adp``, ``moe_mlp_wide_ep``)
+are not ported.
+
+Expert layout, fixed at load time: ``w_gate_up`` [E, H, 2I] (gate
+columns, then up) and ``w_down`` [E, I, H], so an expert's product is
+``x @ w[e]`` as in the JAX package's [E, H, I] stacks; gate and up are
+joined so that one grouped product computes both.
+
+Routes, chosen by ``moe_route(dtype, device)`` and never by catching an
+error (no route gives way to another):
+
+- ``grouped`` (bf16 on CUDA): ``torch._grouped_mm`` over the sorted
+  pairs with int32 cumulative group offsets computed on the device. The
+  JAX package computes this product with ``jax.lax.ragged_dot``, which XLA
+  lowers outside any Pallas kernel, so this is a library call, not a
+  ported kernel. Model build probes it at the model's widths
+  (``check_grouped``) and raises if it is missing or refuses them.
+- ``dense`` (float32 on CUDA): the JAX package's ``moe_mlp_dense``, a
+  product over every expert weighted by a one-hot combine matrix.
+  ``torch._grouped_mm`` in float32 is a fallback that copies the group
+  offsets to the host and runs one product per group, so no CUDA graph
+  could capture it (``chip_smoke.py`` moe_block shows the sync).
+- ``plain`` (the CPU): the sort and one product per expert over its
+  rows, with group sizes read on the host. The tests' reference.
+
+Every shape on the CUDA routes is a function of the token count T and k
+(a graph bucket fixes both), and nothing reads a device value on the
+host: expert counts come from a fixed-size ``scatter_add_`` of length E.
+The combine inverts the sort into [T, k, H] and sums over k in a fixed
+order, so a graph replay equals the eager run bit for bit (a scatter-add
+combine would add with atomics). Padding rows of a bucket are routed
+like any token; a row's output depends on its own pairs only.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .linear import dot_f32
+
+ROUTES = ("grouped", "dense", "plain")
+
+
+def topk_routing(router_logits: torch.Tensor, top_k: int,
+                 renormalize: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(probs float32 [T, k], expert_idx int32 [T, k]): a float32 softmax,
+    its top k, then (``renormalize``) the k weights scaled to sum to 1."""
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    top_p, top_i = torch.topk(probs, top_k, dim=-1)
+    if renormalize:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return top_p, top_i.to(torch.int32)
+
+
+def moe_route(dtype: torch.dtype, device: torch.device) -> str:
+    """The MoE block's route for experts of ``dtype`` on ``device``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "plain"
+    if device.type == "cuda" and dtype == torch.bfloat16:
+        return "grouped"
+    if device.type == "cuda" and dtype == torch.float32:
+        return "dense"
+    raise NotImplementedError(
+        f"MoE experts in {dtype} on {device.type} are not supported by "
+        "this package (bf16 or float32 on CUDA, any type on the CPU)")
+
+
+def check_grouped(hidden: int, inter: int, device: torch.device) -> None:
+    """Model build on the ``grouped`` route: ``torch._grouped_mm`` must
+    exist and take bf16 products of the model's widths (H -> 2I, I -> H)
+    with an empty group among them. Raises otherwise."""
+    if not hasattr(torch, "_grouped_mm"):
+        raise RuntimeError(
+            f"torch {torch.__version__} has no torch._grouped_mm: the "
+            "bf16 MoE route on CUDA needs it (torch >= 2.8)")
+    x = torch.zeros((4, hidden), dtype=torch.bfloat16, device=device)
+    wgu = torch.zeros((3, hidden, 2 * inter), dtype=torch.bfloat16,
+                      device=device)
+    wd = torch.zeros((3, inter, hidden), dtype=torch.bfloat16,
+                     device=device)
+    offs = torch.tensor([1, 1, 4], dtype=torch.int32, device=device)
+    try:
+        h = torch._grouped_mm(x, wgu, offs=offs)[:, :inter].contiguous()
+        torch._grouped_mm(h, wd, offs=offs)
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"torch._grouped_mm refuses the MoE widths (hidden {hidden}, "
+            f"moe intermediate {inter}) on {device}: {e}") from e
+
+
+def _sort_pairs(expert_idx: torch.Tensor, num_experts: int):
+    """(order, token of each sorted pair, tokens per expert int32 [E]):
+    the T*k (token, expert) pairs, pair p = t*k + j, stably sorted by
+    expert."""
+    k = expert_idx.shape[1]
+    flat = expert_idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(num_experts, dtype=torch.int32,
+                         device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return order, order // k, counts
+
+
+def _combine(y: torch.Tensor, order: torch.Tensor,
+             probs: torch.Tensor) -> torch.Tensor:
+    """Sorted pair outputs y [T*k, H] -> [T, H]: back to pair order, each
+    scaled by its routing weight in y's type, summed over k."""
+    T, k = probs.shape
+    pairs = torch.empty_like(y).index_copy_(0, order, y)
+    return (pairs.view(T, k, -1) * probs.to(y.dtype)[:, :, None]).sum(1)
+
+
+def moe_mlp_grouped(x: torch.Tensor, w_gate_up: torch.Tensor,
+                    w_down: torch.Tensor, probs: torch.Tensor,
+                    expert_idx: torch.Tensor) -> torch.Tensor:
+    """The ``grouped`` route: two ``torch._grouped_mm`` over the sorted
+    pairs (bf16)."""
+    E, inter = w_gate_up.shape[0], w_down.shape[1]
+    order, tok_of, counts = _sort_pairs(expert_idx, E)
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    gu = torch._grouped_mm(x[tok_of], w_gate_up, offs=offs)
+    gate, up = gu.split(inter, dim=-1)
+    h = F.silu(gate.float()).to(x.dtype) * up
+    y = torch._grouped_mm(h, w_down, offs=offs)
+    return _combine(y, order, probs).to(x.dtype)
+
+
+def moe_mlp_plain(x: torch.Tensor, w_gate_up: torch.Tensor,
+                  w_down: torch.Tensor, probs: torch.Tensor,
+                  expert_idx: torch.Tensor) -> torch.Tensor:
+    """The ``plain`` route (CPU): ``moe_mlp_ragged`` with one product per
+    expert over its rows of the sorted pairs."""
+    E, inter = w_gate_up.shape[0], w_down.shape[1]
+    order, tok_of, counts = _sort_pairs(expert_idx, E)
+    xs = x[tok_of]
+    y = torch.empty((xs.shape[0], w_down.shape[2]), dtype=x.dtype,
+                    device=x.device)
+    start = 0
+    for e, n in enumerate(counts.tolist()):
+        if n:
+            gate, up = (xs[start:start + n] @ w_gate_up[e]).split(inter, -1)
+            h = F.silu(gate.float()).to(x.dtype) * up
+            y[start:start + n] = h @ w_down[e]
+        start += n
+    return _combine(y, order, probs).to(x.dtype)
+
+
+def moe_mlp_dense(x: torch.Tensor, w_gate_up: torch.Tensor,
+                  w_down: torch.Tensor, probs: torch.Tensor,
+                  expert_idx: torch.Tensor) -> torch.Tensor:
+    """The ``dense`` route: every expert on every token, products
+    accumulated in float32, weighted by a [T, E] combine matrix."""
+    T, E, inter = x.shape[0], w_gate_up.shape[0], w_down.shape[1]
+    combine = torch.zeros((T, E), dtype=torch.float32,
+                          device=x.device).scatter_add_(
+        1, expert_idx.long(), probs.float())
+    gu = torch.einsum("th,ehi->tei", x.float(), w_gate_up.float())
+    gate, up = gu.split(inter, dim=-1)
+    h = (F.silu(gate) * up).to(x.dtype)
+    y = torch.einsum("tei,eih->teh", h.float(), w_down.float())
+    return torch.einsum("teh,te->th", y, combine).to(x.dtype)
+
+
+_ROUTE_FNS = {"grouped": moe_mlp_grouped, "dense": moe_mlp_dense,
+              "plain": moe_mlp_plain}
+
+
+def moe_mlp(x: torch.Tensor, w_gate_up: torch.Tensor, w_down: torch.Tensor,
+            router: torch.Tensor, top_k: int, renormalize: bool = True
+            ) -> torch.Tensor:
+    """The MoE block: float32 router logits (``router`` [E, H]), top-k
+    routing, the experts on the route of their type and device, the
+    weighted combine. ``renormalize=False`` keeps the raw softmax weights
+    of the chosen experts (Qwen2-MoE's ``norm_topk_prob=False``)."""
+    probs, idx = topk_routing(dot_f32(x, router), top_k, renormalize)
+    route = moe_route(w_gate_up.dtype, x.device)
+    return _ROUTE_FNS[route](x.to(w_gate_up.dtype), w_gate_up, w_down,
+                             probs, idx)

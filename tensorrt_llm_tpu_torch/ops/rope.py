@@ -41,13 +41,17 @@ class RopeConfig:
                        ) -> "RopeConfig":
         head_dim = head_dim or getattr(cfg, "head_dim", None) or \
             cfg.hidden_size // cfg.num_attention_heads
-        rs = getattr(cfg, "rope_scaling", None) or {}
+        # transformers 5 keeps theta and the scaling in rope_parameters;
+        # earlier versions in rope_theta and rope_scaling
+        rp = getattr(cfg, "rope_parameters", None) or {}
+        rs = getattr(cfg, "rope_scaling", None) or rp
         stype = rs.get("rope_type", rs.get("type", "none")) if rs else "none"
         if stype == "default":
             stype = "none"
+        theta = getattr(cfg, "rope_theta", None) or rp.get("rope_theta")
         return cls(
             head_dim=head_dim,
-            rope_theta=getattr(cfg, "rope_theta", 10000.0),
+            rope_theta=theta or 10000.0,
             max_position_embeddings=getattr(cfg, "max_position_embeddings",
                                             8192),
             scaling_type=stype,

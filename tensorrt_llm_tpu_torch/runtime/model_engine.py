@@ -9,7 +9,9 @@ the fused speculative window's entry points ``forward_spec_window`` /
 row buckets, ``warmup`` / ``_warm_multi`` and KV-pool sizing, which
 carves out the draft head's pool) without guided decoding, LoRA,
 host-orchestrated drafts, tree drafts, VSWA, M-RoPE, MoE statistics and
-pipeline parallelism.
+pipeline parallelism. MoE models run through the same steps and graphs:
+their routing is computed on the device, and no MoE shape depends on it
+(ops/moe.py).
 
 Every step is padded to a (token bucket, row bucket) pair, as the JAX
 engine pads to its jit buckets. On CUDA, decode windows, spec windows and
@@ -191,9 +193,14 @@ class ModelEngine:
         (every row plus a full rider chunk), since a window's steps and
         the graphs, which replay one after another, reuse its blocks:
 
-        - per token, 4 hidden-wide tensors (residual, normed input,
-          attention output, o-projection output) and 3 intermediate-wide
-          ones (gate and up projections, their product), at 4 bytes
+        - per token, one layer's activations
+          (``model.act_width_per_token``): for a dense MLP 4 hidden-wide
+          tensors (residual, normed input, attention output, o-projection
+          output) and 3 intermediate-wide ones (gate and up projections,
+          their product); for an MoE MLP, instead of the latter, k routed
+          copies of the sorted input, gate|up at twice the experts'
+          intermediate width, their product and the down output (a MoE
+          model's ``intermediate_size`` does not enter), at 4 bytes
           though most are bf16;
         - per row, 6 [rows, vocab] float32 tensors of the sampler (logits,
           log-softmax, the generator's noise, the seeded rows' noise, the
@@ -212,7 +219,10 @@ class ModelEngine:
         (``chip_smoke.py``, which prints both)."""
         if self.device.type != "cuda":
             return 0
-        hf = self.model.hf
+        return self.graph_pool_estimate()
+
+    def graph_pool_estimate(self) -> int:
+        """``graph_pool_reserve``'s formula, whatever the device."""
         rows = self.max_batch_size
         tokens = rows + self.mixed_ctx_tokens
         sampler = rows * self.model.vocab_size * 4 * 6
@@ -221,7 +231,7 @@ class ModelEngine:
             tokens = max(tokens, rows * (d + 1))
             sampler = max(sampler,
                           rows * (d + 1) * self.model.vocab_size * 4 * 10)
-        acts = tokens * (4 * hf.hidden_size + 3 * hf.intermediate_size) * 4
+        acts = tokens * self.model.act_width_per_token() * 4
         return 2 * (acts + sampler)
 
     def _default_num_pages(self) -> int:

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from ..models.modeling_utils import (AttentionMethods, AttentionSpec,
                                      attention_block)
 from ..ops.attention import AttentionMetadata
-from ..ops.linear import LinearMethod
+from ..ops.linear import LinearMethod, dot_f32
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig
 from ..runtime.request import LlmRequest
@@ -40,16 +40,6 @@ from ..runtime.spec_window import HEAD_PAGE_SIZE
 from .interface import Drafter
 
 HEAD_EPS = 1e-6       # the head's RMSNorm epsilon (fixed, not the target's)
-
-
-def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.T`` (w [out, in]) accumulated and returned in float32, as
-    the JAX head's ``jnp.dot(..., preferred_element_type=float32)``."""
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return F.linear(x, w)
-    if x.is_cuda:
-        return torch.mm(x, w.t(), out_dtype=torch.float32)
-    return F.linear(x.float(), w.float())
 
 
 def head_params_from_jax(params_np: Mapping[str, Any], dtype: torch.dtype,

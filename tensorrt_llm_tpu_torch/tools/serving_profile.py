@@ -6,8 +6,10 @@ times, tokens/s and the TTFT / TPOT medians of the timed run, the summed
 GPU kernel time, the device's idle share (kernel time over the
 unprofiled wall time; the profiler itself slows the host), the KV pages
 the timed pass allocated (reused prefix pages included), the kernel
-time by class (the two attention kernels, the dequant-matmul kernel,
-library GEMMs, everything else), launches per output step (those the
+time by class (the two attention kernels, the dequant-matmul kernel, the
+MoE block's grouped products and its routing and sort, library GEMMs,
+everything else; the MoE block's counts, offsets and combine are small
+elementwise kernels and stay in "other"), launches per output step (those the
 host issues, a CUDA graph's replay being one, and the kernels the device
 runs), the CUDA graphs captured and replayed, the windows' dead-step
 share, and the top kernels by GPU time.
@@ -21,7 +23,13 @@ Two workloads:
   (``bench.py:183-251``: its default 1b geometry, 16 x 128 heads; 512
   requests of 128 -> 128 tokens with ``ignore_eos``; max_batch_size 256,
   decode_multi_step 16, max_inflight_steps 3, mixed_window_ctx 512,
-  decode_wait_occupancy 1.0, max_num_tokens 16384, page 32).
+  decode_wait_occupancy 1.0, max_num_tokens 16384, page 32);
+- ``--geometry qwen3-30b-a3b``: ``chip_smoke.py``'s moe_serving run,
+  Qwen3-30B-A3B at its published width and depth (48 layers, hidden
+  2048, 32 x 128 q heads, 4 KV heads, 128 experts, top 8, expert width
+  768, vocab 151,936; seeded random bf16 weights, 61.1 GB), 64 requests
+  of 128 prompt tokens and 64 output tokens with ``ignore_eos``, ``LLM``
+  defaults (64 rows, K = 8, depth 4).
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms). ``--spec EAGLE3 --draft-len d`` serves the
@@ -35,6 +43,8 @@ outside spec windows, and the launches replayed from spec graphs.
 
     python -m tensorrt_llm_tpu_torch.tools.serving_profile
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --bench-settings
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry qwen3-30b-a3b
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --quant W4A16_AWQ
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --spec EAGLE3 \
         --draft-len 3
@@ -60,14 +70,43 @@ TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                  num_hidden_layers=22, num_attention_heads=32,
                  num_key_value_heads=4, max_position_embeddings=4096)
 BENCH_1B = dict(TINYLLAMA, num_attention_heads=16, head_dim=128)
+# https://huggingface.co/Qwen/Qwen3-30B-A3B/blob/main/config.json
+QWEN3_30B_A3B = dict(
+    model_type="qwen3_moe", architectures=["Qwen3MoeForCausalLM"],
+    vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+    moe_intermediate_size=768, num_hidden_layers=48,
+    num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+    num_experts=128, num_experts_per_tok=8, norm_topk_prob=True,
+    decoder_sparse_step=1, mlp_only_layers=[], max_position_embeddings=40960,
+    rms_norm_eps=1e-6, rope_theta=1e6, attention_bias=False,
+    use_sliding_window=False, sliding_window=None,
+    tie_word_embeddings=False, bos_token_id=151643, eos_token_id=151645)
 
 
-def workload(bench_settings: bool):
-    """(LlamaConfig, LLM keyword arguments, prompts, SamplingParams)."""
+def qwen3_30b_a3b_config():
+    """Qwen3-30B-A3B's published config: ``transformers``'
+    ``Qwen3MoeConfig`` where it has one, else a ``PretrainedConfig``
+    carrying the same fields (the port reads attributes only)."""
+    import transformers
+    fields = {k: v for k, v in QWEN3_30B_A3B.items()
+              if k not in ("model_type", "architectures")}
+    cls = getattr(transformers, "Qwen3MoeConfig", None)
+    if cls is not None:
+        return cls(architectures=QWEN3_30B_A3B["architectures"], **fields)
+    return transformers.PretrainedConfig(**QWEN3_30B_A3B)
+
+
+def workload(bench_settings: bool = False, geometry: str = "tinyllama"):
+    """(config, LLM keyword arguments, prompts, SamplingParams)."""
     from transformers import LlamaConfig
 
     from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
     gen = torch.Generator().manual_seed(0)
+    if geometry == "qwen3-30b-a3b":
+        prompts = torch.randint(0, QWEN3_30B_A3B["vocab_size"], (64, 128),
+                                generator=gen).tolist()
+        return (qwen3_30b_a3b_config(), {}, prompts,
+                SamplingParams(max_tokens=64, top_k=1, ignore_eos=True))
     if not bench_settings:
         prompts = torch.randint(0, 32000, (16, 128), generator=gen).tolist()
         return (LlamaConfig(**TINYLLAMA), {}, prompts,
@@ -85,7 +124,9 @@ def workload(bench_settings: bool):
             SamplingParams(max_tokens=osl, top_k=1, ignore_eos=True))
 
 
-def _class(name: str) -> str:
+def _class(name: str, moe: bool = False) -> str:
+    """The GPU-time class of kernel ``name``. The MoE classes are kept for
+    a MoE model (``moe``): elsewhere a sort or top-k is the sampler's."""
     if any(k in name for k in _DECODE):
         return "decode_attention"
     if any(k in name for k in _PREFILL):
@@ -93,6 +134,10 @@ def _class(name: str) -> str:
     if "quant_matmul_kernel" in name:
         return "quant_matmul"
     low = name.lower()
+    if moe and any(k in low for k in ("grouped", "ptrarray", "groupproblem")):
+        return "moe_grouped_gemm"
+    if moe and ("topk" in low or "sort" in low):
+        return "moe_routing_sort"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
         return "gemm"
     return "other"
@@ -188,6 +233,7 @@ def _profiled(llm, prompts, sp, plain_wall: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
     eng = llm.engine
     steps0 = eng.decode_steps
+    moe = getattr(eng.model, "num_experts", 0) > 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, _ = _generate(llm, prompts, sp)
@@ -207,7 +253,7 @@ def _profiled(llm, prompts, sp, plain_wall: float) -> dict:
         if dev_us <= 0:
             continue
         device_launches += e.count
-        c = _class(e.key)
+        c = _class(e.key, moe)
         by_class[c] = by_class.get(c, 0.0) + dev_us / 1e3
         kernels.append((dev_us / 1e3, e.count, e.key[:90]))
     kernels.sort(reverse=True)
@@ -231,6 +277,9 @@ def main() -> None:
     ap.add_argument("--group-size", type=int, default=128)
     ap.add_argument("--bench-settings", action="store_true",
                     help="bench.py's throughput workload and settings")
+    ap.add_argument("--geometry", choices=["tinyllama", "qwen3-30b-a3b"],
+                    default="tinyllama",
+                    help="the model of the default workload")
     ap.add_argument("--spec", choices=["NONE", "EAGLE3"], default="NONE",
                     help="speculative mode (EAGLE3: a seeded random head)")
     ap.add_argument("--draft-len", type=int, default=3,
@@ -241,7 +290,7 @@ def main() -> None:
     from tensorrt_llm_tpu_torch import LLM, SpeculativeConfig
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
     from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
-    cfg, kwargs, prompts, sp = workload(args.bench_settings)
+    cfg, kwargs, prompts, sp = workload(args.bench_settings, args.geometry)
     if args.spec != "NONE":
         kwargs["speculative_config"] = SpeculativeConfig(
             mode=args.spec, max_draft_len=args.draft_len)
@@ -256,6 +305,7 @@ def main() -> None:
         llm.shutdown()
     print(json.dumps(dict(quant_algo=args.quant,
                           bench_settings=args.bench_settings,
+                          geometry=args.geometry,
                           spec=args.spec, draft_len=args.draft_len, **res)))
 
 

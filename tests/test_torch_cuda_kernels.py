@@ -570,3 +570,100 @@ def test_spec_window_replay_equals_eager(cuda, dtype):
     replayed = runs["graph"][2]
     assert replayed[dec.__name__] > 0 and replayed[pre.__name__] > 0
     assert not runs["eager"][2]
+
+
+# ---- MoE block (ops/moe.py) ----------------------------------------------
+
+def _moe_inputs(T, E, H, I, k, dtype, device, seed=0):
+    from tensorrt_llm_tpu_torch.ops import moe
+    from tensorrt_llm_tpu_torch.ops.linear import dot_f32
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def mat(*shape, std=0.02):
+        return (torch.randn(shape, generator=g, device=device) * std) \
+            .to(dtype)
+    x = mat(T, H, std=1.0)
+    router = mat(E, H)
+    probs, idx = moe.topk_routing(dot_f32(x, router), k)
+    return x, mat(E, H, 2 * I), mat(E, I, H), router, probs, idx
+
+
+@pytest.mark.parametrize("T", [1, 64, 2048])
+def test_moe_grouped_matches_plain_at_qwen3_30b_a3b_widths(cuda, T):
+    """The grouped route (``torch._grouped_mm``, bf16) against the plain
+    one at Qwen3-30B-A3B's widths (128 experts, top 8, hidden 2048,
+    expert width 768); T = 1 leaves 120 experts without a token."""
+    from tensorrt_llm_tpu_torch.ops import moe
+    moe.check_grouped(2048, 768, cuda)
+    x, wgu, wd, _, probs, idx = _moe_inputs(T, 128, 2048, 768, 8,
+                                            torch.bfloat16, cuda)
+    got = moe.moe_mlp_grouped(x, wgu, wd, probs, idx)
+    want = moe.moe_mlp_plain(x, wgu, wd, probs, idx)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOLS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_block_makes_no_host_sync(cuda, dtype):
+    """One eager MoE block (router, routing, the route of its type: dense
+    in float32, grouped in bf16, combine) under
+    ``set_sync_debug_mode("error")``: nothing reads a device value on the
+    host, so the block can be captured."""
+    from tensorrt_llm_tpu_torch.ops import moe
+    x, wgu, wd, router, _, _ = _moe_inputs(64, 32, 512, 256, 4, dtype, cuda)
+    moe.moe_mlp(x, wgu, wd, router, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe.moe_mlp(x, wgu, wd, router, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_block_replays_under_cuda_graph(cuda, dtype):
+    """The block captured into a graph: a replay gives the eager run's
+    bits (the combine sums over k in a fixed order, no atomics)."""
+    from tensorrt_llm_tpu_torch.ops import moe
+    x, wgu, wd, router, _, _ = _moe_inputs(64, 128, 2048, 768, 8, dtype,
+                                           cuda, seed=1)
+    eager, out, _ = _graphed(lambda: moe.moe_mlp(x, wgu, wd, router, 8))
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_window_replay_equals_eager(cuda, dtype):
+    """A tiny Qwen3-MoE (seeded dummy weights, 4 x 64 heads, 8 experts,
+    top 2) serves one workload twice: K-step windows replayed from CUDA
+    graphs, and the same windows run eagerly on the same static buffers.
+    Tokens are identical; the graphs replayed the decode kernel."""
+    from transformers import Qwen3MoeConfig
+
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    cfg = Qwen3MoeConfig(vocab_size=512, hidden_size=256,
+                         intermediate_size=512, moe_intermediate_size=128,
+                         num_hidden_layers=2, num_attention_heads=4,
+                         num_key_value_heads=2, head_dim=64, num_experts=8,
+                         num_experts_per_tok=2, norm_topk_prob=True,
+                         max_position_embeddings=512,
+                         tie_word_embeddings=False)
+    prompts = [[5, 9, 23, 44, 17], list(range(2, 90)), [7] * 12]
+    sp = SamplingParams(max_tokens=30, top_k=1, ignore_eos=True)
+    runs = {}
+    for mode in ("graph", "eager"):
+        llm = LLM(cfg, device=cuda, dtype=dtype, skip_tokenizer_init=True,
+                  max_batch_size=4, max_input_len=128, max_seq_len=192,
+                  max_num_tokens=128, enable_warmup=mode == "graph",
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=4096))
+        llm.engine.graphs.capture = mode == "graph"
+        try:
+            toks = [o.outputs[0].token_ids for o in llm.generate(prompts, sp)]
+            runs[mode] = (toks, llm.engine.graphs.replayed_launches())
+        finally:
+            llm.shutdown()
+    assert runs["graph"][0] == runs["eager"][0]
+    assert [len(t) for t in runs["graph"][0]] == [30] * 3
+    assert runs["graph"][1][dec.__name__] > 0
+    assert not runs["eager"][1]
