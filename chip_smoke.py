@@ -124,6 +124,43 @@ the run on error:
      prefill step) are K1 and K2 at the shapes moe_serving launches them
      with (32 x 128 q heads, 4 KV heads).
 
+ 12. gemma kernels (after spec_serving): K1 and K2 at head_dim 256 at the
+     shapes gemma_serving launches them with (``decode_gemma2_9b``: 16
+     rows at 6,145-6,208 KV, 16 x 256 q heads over 8 KV heads, soft cap
+     50, once global and once with window 4,096 (``_window``);
+     ``prefill_gemma2_9b``: one 6,144-token prompt, the first eager
+     prefill step; the Gemma-3-1B cases at group 4 over 1 KV head,
+     window 512), and float32 cases of both held to 1e-4; page tables as
+     wide as the engines'; q scaled by 8 so that the scores reach the
+     soft cap, each case held to its tolerance as ``allclose`` and
+     against tol x max |plain|, and the plain version without the cap or
+     the window must fail that check; each prints its time, its bound
+     (the KV the rows can see; operations at bf16 or float32 peak), its
+     share of the bound, the plain version's time and one SDPA call's
+     (with a soft cap, SDPA computes the attention without it, and is
+     held against the plain version without it: ``library_computes``);
+ 13. gemma_parity: tiny Gemma 2 (one pool and VSWA) and Gemma 3
+     checkpoints at hd 256 and 64 through ``LLM.generate``, the card
+     against the CPU plain path: identical greedy tokens in float32, in
+     bf16 a parting only at a near-tie; K1 and K2 must launch, VSWA must
+     release sliding blocks;
+ 14. gemma_serving: Gemma-2-9B at full width and depth (42 layers,
+     seeded random bf16, 18.5 GB), 16 x 6,144 -> 64 greedy tokens,
+     max_seq_len 8,192, once with VSWA (``max_attention_window=[4096,
+     8192]``) and once with one pool (tools/serving_profile.py
+     ``--geometry gemma2-9b [--vswa]``: tok/s, TTFT, TPOT, idle share,
+     GPU time by class, each pool's pages, tokens and bytes, sliding
+     blocks released, launches, replays, graph keys); the first 8 tokens
+     of every stream of the two runs identical or parted at a near-tie;
+     then Gemma-3-1B at full width, 32 x 1,024 -> 64, one pool. Each
+     run records the (q_lens, ctx) of its eager steps. The ``kernels``
+     line's rows carry ``launches_gemma_serving`` (the VSWA run's timed
+     pass);
+ 15. gemma_steps: K2 held against plain at every distinct eager step
+     gemma_serving recorded (Gemma-2-9B global and sliding, Gemma-3-1B),
+     and timed at the 9B step past a fresh prompt with the most attention
+     pairs (``prefill_gemma2_9b_step`` and ``_window``).
+
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results (launches from the bench-settings run, or the
 W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's and
@@ -139,6 +176,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 TOL = 2e-2
 NEAR_TIE = 3e-2               # log-probability margin below which the
                               # quantized cuda/cpu runs may part ways
@@ -604,9 +642,9 @@ def _rotate(fn, n):
     return step
 
 
-def _bound(io_bytes: int, flops: int) -> dict:
+def _bound(io_bytes: int, flops: int, flops_per_s: float = BF16_FLOPS) -> dict:
     t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -1484,6 +1522,491 @@ def moe_serving_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# Gemma 2 / Gemma 3: K1 and K2 at head_dim 256, VSWA
+# --------------------------------------------------------------------- #
+GEMMA_HD = 256
+# the hd-256 cases scale q so that scores (std 8 after sm_scale) reach a
+# soft cap of 50 and attention is peaked: the output is then of order one,
+# and a kernel that drops the cap, the window or a split's partial fails
+GEMMA_Q_SCALE = 8.0
+
+
+def _hold(name, got, ref, tol, what="kernel") -> float:
+    """Max |got - ref|, held to ``allclose(atol=rtol=tol)`` and to tol
+    times the largest |ref|."""
+    import torch
+    err = (got.float() - ref.float()).abs().max().item()
+    lim = tol * ref.float().abs().max().item()
+    if not torch.allclose(got.float(), ref.float(), atol=tol, rtol=tol) \
+            or err > lim:
+        raise AssertionError(f"{name}: {what} != plain (max {err}, "
+                             f"limit {lim})")
+    return err
+
+
+def _sensitive(name, ref, other, tol, what) -> float:
+    """Max |other - ref|, where ``other`` is the plain version without
+    the option ``what``: it must fail the check a kernel is held to, so a
+    kernel that ignored the option would fail too."""
+    import torch
+    diff = (other.float() - ref.float()).abs().max().item()
+    if torch.allclose(other.float(), ref.float(), atol=tol, rtol=tol) \
+            and diff <= tol * ref.float().abs().max().item():
+        raise AssertionError(f"{name}: the plain version without {what} "
+                             f"passes the kernel's check (max {diff})")
+    return diff
+
+
+def _gemma_kernel_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
+                       dtype, seed, pages_per_seq=0, timed=True) -> dict:
+    """One K1 (``kind`` "decode") or K2 ("prefill") case at hd 256, q
+    scaled by ``GEMMA_Q_SCALE``, held against its plain version (bf16
+    2e-2, float32 1e-4, as ``allclose`` and against tol x max |plain|);
+    the plain version without the soft cap, and without the window, must
+    fail that check. The page table has the engine's ``pages_per_seq``
+    columns, so that K1's ``max_kv_len`` hint and split count are the
+    serving launch's. With ``timed``: timed beside the plain version and
+    one SDPA call on the KV gathered to the longest row under an explicit
+    mask of each row's causal and window limits. SDPA has no soft cap:
+    with one, its call computes the same attention without the cap, and
+    is held against the plain version without it (``library_computes``).
+    The bound counts the KV positions the rows can see (the window's, not
+    the row's), each read once, and the operations at the type's peak
+    (bf16 tensor cores, float32 CUDA cores)."""
+    import torch
+    import torch.nn.functional as F
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    from tensorrt_llm_tpu_torch.tools.card_timing import (PAGE, dense_kv,
+                                                          make_case,
+                                                          time_ms)
+    hd = GEMMA_HD
+    q, pool, kv_lens, pt, cu = make_case(q_lens, ctx, qh, kvh, hd, seed=seed,
+                                         dtype=dtype,
+                                         pages_per_seq=pages_per_seq)
+    q.mul_(GEMMA_Q_SCALE)
+    kvs = [c + n for c, n in zip(ctx, q_lens)]
+    kw = dict(sm_scale=hd ** -0.5, sliding_window=window, soft_cap=cap)
+    tol = TOL if dtype == torch.bfloat16 else 1e-4
+    S, mq = len(q_lens), max(q_lens)
+    if kind == "decode":
+        reach = pt.shape[1] * PAGE
+        # the engine's hint (_kv_bound): a power of two, capped at reach
+        hint = min(1 << (max(kvs) - 1).bit_length(), reach)
+
+        def kernel():
+            return dec.paged_decode_attention(q, pool, kv_lens, pt,
+                                              max_kv_len=hint, **kw)
+
+        def plain(**o):
+            return dec.paged_decode_attention_plain(q, pool, kv_lens, pt,
+                                                    **{**kw, **o})
+        extra = dict(max_kv_len_hint=hint,
+                     splits=dec.splits_for(S, qh, kvh, reach, hint, window,
+                                           q.device))
+    else:
+        def kernel():
+            return pre.ragged_prefill_attention(q, pool, kv_lens, pt, cu,
+                                                max_q_len=mq, **kw)
+
+        def plain(**o):
+            return pre.ragged_prefill_attention_plain(
+                q, pool, kv_lens, pt, cu, **{**kw, **o})
+        extra = dict(route=pre.route_for(dtype))
+    got = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = _hold(name, got, ref, tol)
+    lref = plain(soft_cap=None) if cap else ref
+    if cap:
+        extra["cap_effect"] = _sensitive(name, ref, lref, tol, "the cap")
+    if window:
+        extra["window_effect"] = _sensitive(
+            name, ref, plain(sliding_window=None), tol, "the window")
+    res = dict(shape=dict(seqs=S, q_lens=sorted(set(q_lens)),
+                          kv_len=[min(kvs), max(kvs)], qh=qh, kvh=kvh, hd=hd,
+                          page=PAGE, pages_per_seq=pt.shape[1],
+                          window=window, soft_cap=cap, q_scale=GEMMA_Q_SCALE,
+                          dtype=str(dtype).split(".")[-1]),
+               max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
+               tol=tol, **extra)
+    if not timed:
+        del q, pool, kv_lens, pt, cu, got, ref, lref
+        return res
+    # what the rows can see: query i of a row at position p sees
+    # max(0, p - window + 1) .. p
+    pairs = seen = 0
+    for c, n in zip(ctx, q_lens):
+        lo_first = max(0, c - window + 1) if window else 0
+        seen += c + n - lo_first
+        for i in range(n):
+            p = c + i
+            pairs += p + 1 - (max(0, p - window + 1) if window else 0)
+    el = q.element_size()
+    flops = 4 * qh * hd * pairs
+    io_bytes = seen * kvh * hd * 2 * el + 2 * q.numel() * el \
+        + pt.numel() * 4 + (S + 1) * 4 * (2 if kind == "prefill" else 1)
+    res.update(bytes=io_bytes, flops=flops, **_bound(
+        io_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16
+        else F32_FLOPS))
+    res["ms"] = time_ms(kernel, 30)
+    res["plain_ms"] = time_ms(plain, 5)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    # one SDPA call over the gathered KV, queries padded to the
+    # longest segment, an explicit mask of each row's limits
+    Lq, Lk = mq, max(kvs)
+    dev = q.device
+    k, v = dense_kv(pool, pt, kvh, hd, Lk)
+    nq = torch.tensor(q_lens, device=dev)
+    seq = torch.repeat_interleave(torch.arange(S, device=dev), nq)
+    row = torch.cat([torch.arange(n, device=dev) for n in q_lens])
+    qp = torch.zeros((S, Lq, qh, hd), dtype=dtype, device=dev)
+    qp[seq, row] = q
+    qp = qp.transpose(1, 2).contiguous()
+    qpos = (torch.tensor(kvs, device=dev) - nq)[:, None] \
+        + torch.arange(Lq, device=dev)[None]
+    kpos = torch.arange(Lk, device=dev)[None, None]
+    mask = kpos <= qpos[:, :, None]
+    if window:
+        mask &= kpos > qpos[:, :, None] - window
+    mask[:, :, 0] |= ~mask.any(-1)            # padding rows: see one
+    mask = mask[:, None]
+    # fresh prompts of one length and no window: the causal flag alone
+    # (SDPA's fast backends take it; an explicit mask may not)
+    causal = not window and not any(ctx) and len(set(q_lens)) == 1
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qp, k, v, attn_mask=None if causal else mask,
+            is_causal=causal, scale=kw["sm_scale"], enable_gqa=True)
+    lib = sdpa().transpose(1, 2)[seq, row]
+    torch.cuda.synchronize()
+    lib_err = _hold(name, lib, lref, tol, "library")
+    res.update(library_ms=time_ms(sdpa, 10), library_max_abs_err=lib_err,
+               library_computes="the same function" if not cap else
+               "the same attention without the soft cap")
+    del k, v, qp, mask, lib
+    emit({"phase": "kernels", "case": name, **res})
+    del q, pool, kv_lens, pt, cu, got, ref, lref
+    torch.cuda.empty_cache()
+    return res
+
+
+# the engines' page-table widths: max_seq_len 8,192 (Gemma-2-9B) and
+# 1,152 (Gemma-3-1B) over pages of 32
+PAGES_9B, PAGES_1B = 256, 36
+
+
+def gemma_kernel_phase(results: dict) -> None:
+    """K1 and K2 at hd 256 at the shapes gemma_serving launches them with
+    (16 rows at 6,145-6,208 KV; the first eager prefill step, one fresh
+    6,144-token prompt; Gemma-2-9B's 16 q heads over 8 KV heads, soft cap
+    50), each once on a global layer and once on a sliding one (window
+    4,096), Gemma-3-1B's group 4 over one KV head (window 512, no cap: 32
+    rows at 1,025-1,088 KV; a 4,096-token prefill step of 4 prompts), and
+    float32 cases of both kernels held to 1e-4. The other eager steps are
+    held after gemma_serving, which records them (``gemma_step_phase``)."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    rows9 = [6145 + (63 * i) // 15 for i in range(16)]
+    rows1 = [1025 + (63 * i) // 31 for i in range(32)]
+    for args, pages in [
+            (("decode_gemma2_9b", "decode", [1] * 16, [k - 1 for k in rows9],
+              16, 8, None, 50.0, bf, 41), PAGES_9B),
+            (("decode_gemma2_9b_window", "decode", [1] * 16,
+              [k - 1 for k in rows9], 16, 8, 4096, 50.0, bf, 42), PAGES_9B),
+            (("prefill_gemma2_9b", "prefill", [6144], [0], 16, 8, None, 50.0,
+              bf, 43), PAGES_9B),
+            (("prefill_gemma2_9b_window", "prefill", [6144], [0], 16, 8,
+              4096, 50.0, bf, 44), PAGES_9B),
+            (("decode_gemma3_1b", "decode", [1] * 32, [k - 1 for k in rows1],
+              4, 1, 512, None, bf, 45), PAGES_1B),
+            (("prefill_gemma3_1b", "prefill", [1024] * 4, [0] * 4, 4, 1, 512,
+              None, bf, 46), PAGES_1B),
+            (("decode_float32_hd256", "decode", [1] * 4, [699, 32, 1499, 0],
+              16, 8, 512, 50.0, f32, 47), 0),
+            (("prefill_float32_hd256", "prefill", [300, 1, 70],
+              [0, 900, 500], 16, 8, 256, 50.0, f32, 48), 0)]:
+        results[args[0]] = _gemma_kernel_case(*args, pages_per_seq=pages)
+
+
+def gemma_step_phase(results: dict, steps: dict) -> None:
+    """K2 held against plain at every distinct eager step that
+    gemma_serving recorded (``steps``: run -> [(q_lens, ctx), ...]),
+    global and sliding for Gemma-2-9B, sliding and global for Gemma-3-1B,
+    and timed at the 9B step past a fresh prompt with the most attention
+    pairs (``prefill_gemma2_9b_step`` and its ``_window`` twin). Fails if
+    a run recorded no step besides a fresh prompt."""
+    import torch
+    bf = torch.bfloat16
+    geo = {"vswa": (16, 8, 4096, 50.0, PAGES_9B),
+           "gemma3_1b": (4, 1, 512, None, PAGES_1B)}
+    checked, later9 = {}, []
+    for run, (qh, kvh, window, cap, pages) in geo.items():
+        shapes = list(dict.fromkeys(
+            (tuple(q), tuple(c)) for q, c in steps[run]))
+        later = [sh for sh in shapes if any(sh[1]) or len(sh[0]) > 1]
+        if not later:
+            raise AssertionError(f"gemma_steps {run}: no eager step past a "
+                                 f"fresh prompt: {shapes}")
+        if run == "vswa":
+            later9 = later
+        errs = []
+        for i, (q, c) in enumerate(shapes):
+            for w in (None, window):
+                r = _gemma_kernel_case(f"step_{run}_{i}", "prefill", list(q),
+                                       list(c), qh, kvh, w, cap, bf, 60 + i,
+                                       pages_per_seq=pages, timed=False)
+                errs.append(r["max_abs_err"])
+        checked[run] = dict(distinct_steps=len(shapes), checks=len(errs),
+                            max_abs_err=max(errs), steps=[
+                                dict(q_lens=list(q), ctx=list(c))
+                                for q, c in shapes])
+    emit({"phase": "gemma_steps", **checked})
+
+    def pairs(sh):
+        return sum(n * c + n * (n + 1) // 2 for n, c in zip(*sh))
+    q, c = max(later9, key=pairs)
+    for name, w in (("prefill_gemma2_9b_step", None),
+                    ("prefill_gemma2_9b_step_window", 4096)):
+        results[name] = _gemma_kernel_case(
+            name, "prefill", list(q), list(c), 16, 8, w, 50.0, bf, 70,
+            pages_per_seq=PAGES_9B)
+
+
+def _save_tiny_gemma(path: Path, kind: str, hd: int) -> None:
+    """A tiny random ``transformers`` Gemma 2 or Gemma 3 (hidden 256, 4
+    q heads over 2 KV heads of ``hd``, intermediate 512, vocab 512, 4 or
+    6 layers, window 32) saved to ``path``, its norms redrawn at std 0.3
+    so that Gemma's (1 + w) offsets matter."""
+    import torch
+    import transformers as tf
+    base = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_attention_heads=4, num_key_value_heads=2, head_dim=hd,
+                query_pre_attn_scalar=hd, sliding_window=32,
+                max_position_embeddings=512)
+    if kind == "gemma2":
+        cfg = tf.Gemma2Config(num_hidden_layers=4, **base)
+        cls = tf.Gemma2ForCausalLM
+    else:
+        cfg = tf.Gemma3TextConfig(num_hidden_layers=6, **base)
+        cls = tf.Gemma3ForCausalLM
+    torch.manual_seed(31)
+    model = cls(cfg).float()
+    gen = torch.Generator().manual_seed(32)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    model.save_pretrained(path)
+
+
+def gemma_parity_phase() -> dict:
+    """Tiny Gemma 2 (one pool, and VSWA with window 32) and Gemma 3
+    checkpoints at hd 256 and hd 64 (the card's kernels take hd 64, 128
+    and 256) through ``LLM.generate``, the card against the port's CPU
+    plain path: greedy tokens identical in float32, in bf16 a parting only
+    where the CPU run decides by less than ``_compare_streams``' margin.
+    The card runs must launch K1 and K2."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    prompts = [list(range(2, 100)), [5, 17, 99, 3, 64, 12, 7] * 6,
+               [101, 2, 33, 400, 7], list(range(300, 240, -1))]
+    n_out = 40
+    sp = SamplingParams(max_tokens=n_out, top_k=1, ignore_eos=True,
+                        logprobs=2)
+    res = {}
+
+    def run(path, device, dtype, vswa):
+        kv = dict(tokens_per_block=16, max_tokens=4096)
+        if vswa:
+            kv["max_attention_window"] = [32, 256]
+        llm = LLM(str(path), device=device, dtype=dtype,
+                  skip_tokenizer_init=True, max_batch_size=4,
+                  max_input_len=128, max_seq_len=256, max_num_tokens=128,
+                  kv_cache_config=KvCacheConfig(**kv))
+        _zero_launches()
+        try:
+            outs = llm.generate(prompts, sp)
+            launches = _read_launches()
+            trimmed = getattr(llm.kv_cache_manager, "trimmed_blocks", 0)
+        finally:
+            llm.shutdown()
+        toks = [o.outputs[0].token_ids for o in outs]
+        if any(len(t) != n_out for t in toks):
+            raise AssertionError(f"gemma_parity {path.name} {device}: short")
+        return toks, [o.outputs[0].logprobs for o in outs], launches, trimmed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, hd, vswa in [("gemma2", 256, False), ("gemma2", 256, True),
+                               ("gemma2", 64, False), ("gemma2", 64, True),
+                               ("gemma3_text", 256, False),
+                               ("gemma3_text", 64, False)]:
+            path = Path(tmp) / f"{kind}_{hd}"
+            if not path.exists():
+                _save_tiny_gemma(path, kind, hd)
+            for dtype in ("float32", "bfloat16"):
+                cpu = run(path, "cpu", dtype, vswa)
+                card = run(path, "cuda", dtype, vswa)
+                cmp = _compare_streams(cpu[:2], card[:2])
+                name = f"{kind}_hd{hd}{'_vswa' if vswa else ''}_{dtype}"
+                if dtype == "float32" and card[0] != cpu[0]:
+                    raise AssertionError(f"gemma_parity {name}: card "
+                                         f"{card[0]} != cpu {cpu[0]}")
+                if cmp["unexplained_partings"]:
+                    raise AssertionError(f"gemma_parity {name}: a parting "
+                                         f"above the near-tie margin: {cmp}")
+                if min(card[2]["paged_decode_attention"],
+                       card[2]["ragged_prefill_attention"]) <= 0:
+                    raise AssertionError(f"gemma_parity {name}: K1 or K2 "
+                                         f"never launched: {card[2]}")
+                if vswa and not card[3]:
+                    raise AssertionError(f"gemma_parity {name}: no sliding "
+                                         "block was released")
+                res[name] = dict(kind=kind, hd=hd, vswa=vswa, dtype=dtype,
+                                 identical=card[0] == cpu[0],
+                                 launches=card[2], trimmed_blocks=card[3],
+                                 **cmp)
+                emit({"phase": "gemma_parity", **res[name]})
+    return res
+
+
+def _record_eager_steps(eng) -> list:
+    """Record (q_lens, ctx) of every eager step ``eng`` prepares (a step
+    whose longest query segment is more than one token) into the returned
+    list, until ``del eng.prepare_inputs``."""
+    import numpy as np
+    steps, real = [], eng.prepare_inputs
+
+    def spy(batch):
+        inp = real(batch)
+        if inp.max_q_len > 1:
+            n = inp.num_reqs
+            q = np.diff(inp.cu_q_lens[:n + 1])
+            steps.append((q.tolist(), (inp.kv_lens[:n] - q).tolist()))
+        return inp
+    eng.prepare_inputs = spy
+    return steps
+
+
+def gemma_serving_phase() -> dict:
+    """Gemma-2-9B at its published width and depth (42 layers; seeded
+    random bf16 weights, 18.5 GB), 16 requests of 6,144 prompt tokens ->
+    64 greedy tokens with ``ignore_eos`` (max_seq_len 8,192; one prompt
+    per prefill step), measured by tools/serving_profile.py
+    (``--geometry gemma2-9b [--vswa]``), twice: with VSWA
+    (``max_attention_window=[4096, 8192]``: the 21 sliding layers on a
+    pool of their own) and with one pool. Per run: tok/s, TTFT, TPOT,
+    device idle share, GPU time by class, each pool's pages, tokens and
+    bytes, sliding blocks released over the three passes, launches and
+    replays, graph keys. Then the first 8 tokens of every stream of the
+    two runs (logprobs on, so single steps): identical, or parted only
+    where the one-pool run decides by less than ``_compare_streams``'
+    margin. Last, Gemma-3-1B at full width (26 layers, 4 x 256 q heads
+    over 1 KV head, window 512 on five layers of six), 32 x 1,024 -> 64,
+    one pool, without the profiled pass. Prefix reuse is off in every
+    run (each pass prefills afresh). Each run records the (q_lens, ctx)
+    of its eager steps (``eager_steps``) for ``gemma_step_phase``. Fails
+    if a request comes back short or out of the
+    vocabulary, if K1 or K2 never launched, if no window replayed K1, or
+    if the graph pool outgrew its reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    out, first8 = {}, {}
+    for label, geometry, vswa in [("vswa", "gemma2-9b", True),
+                                  ("single_pool", "gemma2-9b", False),
+                                  ("gemma3_1b", "gemma3-1b", False)]:
+        cfg, kwargs, prompts, sp = sprof.workload(geometry=geometry,
+                                                  vswa=vswa)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        llm = LLM(cfg, dtype="bfloat16", **kwargs)
+        build_s = time.monotonic() - t0
+        try:
+            eng = llm.engine
+            weights_bytes = sum(t.numel() * t.element_size()
+                                for t in _tensors(eng.params))
+            replayed0 = eng.graphs.replayed_launches()
+            mgr = llm.kv_cache_manager
+            trimmed0 = getattr(mgr, "trimmed_blocks", 0)
+            steps = _record_eager_steps(eng)
+            # Gemma-3-1B's run shows it serves: its profile is left out
+            # to keep the script inside half its time limit
+            try:
+                res = sprof.measure(llm, prompts, sp,
+                                    profile=geometry == "gemma2-9b")
+            finally:
+                del eng.prepare_inputs
+            trimmed = getattr(mgr, "trimmed_blocks", 0) - trimmed0
+            graphs = _graph_stats(eng)
+            graphs["replayed_launches"] = {
+                k: v - replayed0[_kernel_counts()[k].__name__]
+                for k, v in graphs["replayed_launches"].items()}
+            graphs["keys"] = [str(k) for k in eng.graphs.steps]
+            reserve = eng.graph_pool_reserve()
+            ps = eng.page_size
+            pools = dict(global_pages=eng.num_kv_pages,
+                         global_tokens=eng.num_kv_pages * ps,
+                         global_bytes=eng.num_kv_pages
+                         * eng.bytes_per_kv_block,
+                         global_layers=eng._pool_layers,
+                         sliding_pages=eng.num_sw_pages,
+                         sliding_tokens=eng.num_sw_pages * ps,
+                         sliding_bytes=eng.num_sw_pages
+                         * eng.bytes_per_kv_block if eng._vswa else 0)
+            if geometry == "gemma2-9b":
+                f8 = llm.generate(prompts, SamplingParams(
+                    max_tokens=8, top_k=1, ignore_eos=True, logprobs=2))
+                first8[label] = ([o.outputs[0].token_ids for o in f8],
+                                 [o.outputs[0].logprobs for o in f8])
+            outs = llm.generate(prompts[:2], sp)
+        finally:
+            llm.shutdown()
+        peak = torch.cuda.max_memory_allocated()
+        del llm, eng, mgr          # the next run sizes its pools from what
+        gc.collect()               # is free
+        torch.cuda.empty_cache()
+        V = cfg.vocab_size
+        for o in outs:
+            toks = o.outputs[0].token_ids
+            if len(toks) != sp.max_tokens or not all(0 <= t < V
+                                                     for t in toks):
+                raise AssertionError(f"gemma_serving {label}: bad output")
+        if res["output_tokens"] != len(prompts) * sp.max_tokens:
+            raise AssertionError(f"gemma_serving {label}: "
+                                 f"{res['output_tokens']} tokens")
+        res.update(run=label, layers=cfg.num_hidden_layers,
+                   engine_build_s=build_s, weights_bytes=weights_bytes,
+                   peak_allocated_bytes=peak, pools=pools,
+                   eager_steps=steps,
+                   sliding_blocks_released=trimmed,
+                   graph_pool_reserve_bytes=reserve, graphs=graphs)
+        emit({"phase": "gemma_serving", **res})
+        if min(res["launches"][k] for k in ("paged_decode_attention",
+                                            "ragged_prefill_attention")) <= 0:
+            raise AssertionError(f"gemma_serving {label}: K1 or K2 never "
+                                 f"launched: {res['launches']}")
+        if not graphs["replayed_launches"]["paged_decode_attention"]:
+            raise AssertionError(f"gemma_serving {label}: no window "
+                                 f"replayed K1: {graphs}")
+        if vswa and not trimmed:
+            raise AssertionError("gemma_serving: no sliding block released")
+        _check_reserve(res)
+        out[label] = res
+    cmp = _compare_streams(first8["single_pool"], first8["vswa"])
+    emit({"phase": "gemma_serving_streams", "tokens_each": 8,
+          "identical": first8["single_pool"][0] == first8["vswa"][0], **cmp})
+    if cmp["unexplained_partings"]:
+        raise AssertionError(f"gemma_serving: VSWA and one pool part above "
+                             f"the near-tie margin: {cmp}")
+    return out
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -1510,18 +2033,33 @@ def main() -> int:
     emit({"phase": "build", "kernels": list(_build.KERNELS),
           "seconds": time.monotonic() - t0})
 
-    kern = kernel_phase()
-    moe_block_phase()
-    parity_phase(here)
-    quant_parity_phase()
-    graph_phase(here)
-    spec_parity_phase(here)
-    moe_parity_phase()
-    serving_phase()
-    serving_q = serving_phase("W4A16_AWQ")
-    bench = bench_serving_phase()
-    spec = spec_serving_phase()["spec"]
-    moe = moe_serving_phase()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.monotonic()
+        out = fn(*a)
+        seconds[name] = time.monotonic() - t
+        return out
+
+    kern = timed("kernels", kernel_phase)
+    timed("moe_block", moe_block_phase)
+    timed("parity", parity_phase, here)
+    timed("parity_quantized", quant_parity_phase)
+    timed("graphs", graph_phase, here)
+    timed("spec_parity", spec_parity_phase, here)
+    timed("moe_parity", moe_parity_phase)
+    timed("serving", serving_phase)
+    serving_q = timed("serving_quantized", serving_phase, "W4A16_AWQ")
+    bench = timed("serving_bench_settings", bench_serving_phase)
+    spec = timed("spec_serving", spec_serving_phase)["spec"]
+    timed("gemma_kernels", gemma_kernel_phase, kern)
+    timed("gemma_parity", gemma_parity_phase)
+    gemma_runs = timed("gemma_serving", gemma_serving_phase)
+    gemma = gemma_runs["vswa"]
+    timed("gemma_steps", gemma_step_phase, kern,
+          {k: v["eager_steps"] for k, v in gemma_runs.items()})
+    moe = timed("moe_serving", moe_serving_phase)
+    emit({"phase": "timing", "seconds": seconds})
 
     kernels = []
     for name, case, group, src, replaces, run in [
@@ -1542,6 +2080,7 @@ def main() -> int:
             launches_in=run.get("quant_algo", "bench_settings"),
             launches_spec_serving=spec["launches"][name],
             launches_moe_serving=moe["launches"][name],
+            launches_gemma_serving=gemma["launches"][name],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -57,10 +57,17 @@
 // parity path, which is tested to 1e-4 (TF32 would not hold it). It takes
 // the same splits and writes the same partials, in natural-log units.
 //
+// hd 256 (Gemma 2 and 3): a stage of 8 KB would hold 8 positions, too few
+// for one k-step of P.V, so the stage grows to 16 KB (16 positions, as at
+// hd 128): three stages x four warps are 192 KB, one CTA per SM. Q then
+// waits in shared memory (16 rows x 512 bytes, swizzled) and each k-step
+// reads its A fragment by ldmatrix: held in registers for the whole loop
+// it would take 64 of them beside the 128 of the output accumulator.
+//
 // What is left: TMA instead of per-thread cp.async; a persistent grid that
 // balances ragged batches better than equal splits per row; one launch
-// instead of two when splits > 1 (last-arriving CTA merges); hd 256;
-// int8/fp8 pools.
+// instead of two when splits > 1 (last-arriving CTA merges); int8/fp8
+// pools.
 
 #include "attention_common.cuh"
 
@@ -219,12 +226,17 @@ typedef __nv_bfloat16 bf16;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 3;
-constexpr int kStageBytes = 8192;   // K and V of one warp tile
-constexpr int kRingBytes = kStages * kStageBytes;
-constexpr size_t kSmemBytes = (size_t)kWarps * kRingBytes;
 
-// Positions per warp tile: 8 KB of K and V.
-template <int HD> struct WarpTile { static constexpr int N = kStageBytes / (4 * HD); };
+// A warp's ring: STAGE bytes of K and V per tile (8 KB, 16 KB at hd 256),
+// N positions per tile (32 at hd 64, 16 at hd 128 and 256). QSMEM: Q waits
+// in shared memory behind the rings instead of in registers.
+template <int HD> struct Ring {
+  static constexpr int STAGE = HD <= 128 ? 8192 : 16384;
+  static constexpr int BYTES = kStages * STAGE;
+  static constexpr int N = STAGE / (4 * HD);
+  static constexpr bool QSMEM = HD > 128;
+  static constexpr size_t SMEM = (size_t)kWarps * BYTES + (QSMEM ? 16 * HD * 2 : 0);
+};
 
 // PLAIN: no ALiBi, no soft cap, sm_scale > 0. The score transform is then
 // one multiply, folded into the exponent's FMA.
@@ -237,13 +249,15 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
                  float* __restrict__ part_ml, int qh, int kvh, int gchunks, int ps,
                  int num_pages, int max_pages, float sm_scale, int window,
                  float soft_cap, int splits) {
-  constexpr int TP = WarpTile<HD>::N;   // 32 or 16 positions
+  constexpr int TP = Ring<HD>::N;       // 32 or 16 positions
+  constexpr int kStageBytes = Ring<HD>::STAGE;
+  constexpr int kRingBytes = Ring<HD>::BYTES;
   constexpr int CH = HD / 8;            // 16-byte chunks per K (or V) row
   constexpr int KS = HD / 16;           // k-steps of Q.K^T
   constexpr int NT = TP / 8;            // score n-tiles per tile
   constexpr int PK = TP / 16;           // k-steps of P.V
   constexpr int ON = HD / 8;            // output n-tiles
-  constexpr int PPI = 32 / (2 * CH);    // positions one warp-wide copy covers
+  constexpr int COPIES = TP * 2 * CH / 32;   // 16-byte copies per lane per tile
   constexpr int OS = HD + 8;            // floats per row of a warp's final stash
   static_assert(16 * OS * 4 + 2 * 16 * 4 <= kRingBytes, "stash must fit the ring");
 
@@ -285,9 +299,9 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     unsigned char* k_dst = ring + st * kStageBytes;
     unsigned char* v_dst = k_dst + TP * HD * 2;
 #pragma unroll
-    for (int j = 0; j < TP / PPI; ++j) {
-      const int p = j * PPI + lane / (2 * CH);
-      const int c2 = lane % (2 * CH);            // chunk of the row's [k | v]
+    for (int j = 0; j < COPIES; ++j) {
+      const int p = (j * 32 + lane) / (2 * CH);
+      const int c2 = (j * 32 + lane) % (2 * CH);   // chunk of the row's [k | v]
       const int row_slot = __shfl_sync(0xffffffffu, slot, p);
       const bf16* src = kv + ((size_t)row_slot * combined + 2 * h) * HD + c2 * 8;
       unsigned char* dst = (c2 < CH ? k_dst : v_dst) + swz<HD>(p, c2 % CH);
@@ -301,11 +315,25 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     if (st < n_my) start_tile(st, st); else cp_async_commit();
   }
 
-  // Q as A fragments straight from global memory: rows g and g + 8 of the
-  // chunk's query heads, zero past the group.
-  uint32_t qf[KS][4];
-  {
-    const bf16* q_row = q + ((size_t)s * qh + h * group + g0) * HD;
+  // Q as A fragments: rows g and g + 8 of the chunk's query heads, zero
+  // past the group; straight from global memory into registers, or with
+  // QSMEM into shared memory (16 rows, swizzled like the K tiles), from
+  // where each k-step loads its fragment.
+  const bf16* q_row = q + ((size_t)s * qh + h * group + g0) * HD;
+  constexpr int QF = Ring<HD>::QSMEM ? 1 : KS;
+  uint32_t qf[QF][4];
+  unsigned char* q_s = smem + kWarps * kRingBytes;
+  if constexpr (Ring<HD>::QSMEM) {
+    for (int i = tid; i < 16 * CH; i += kThreads) {
+      const int r = i / CH;
+      const int c = i % CH;
+      const uint4 v = r < grows
+          ? *reinterpret_cast<const uint4*>(q_row + (size_t)r * HD + c * 8)
+          : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(q_s + swz<HD>(r, c)) = v;
+    }
+    __syncthreads();
+  } else {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -353,14 +381,20 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
       for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (Ring<HD>::QSMEM) {
+        // blocks: (rows 0..7 | 8..15) x (dims 16*ks + 0..7 | +8..15)
+        ldmatrix_x4(qf[0], q_s + swz<HD>((lane & 7) + (((lane >> 3) & 1) << 3),
+                                         ks * 2 + (lane >> 4)));
+      }
+      const uint32_t (&qa)[4] = qf[Ring<HD>::QSMEM ? 0 : ks];
 #pragma unroll
       for (int n2 = 0; n2 < NT / 2; ++n2) {
         // blocks: (positions 16*n2 + 0..7 | +8..15) x (dims 16*ks + 0..7 | +8..15)
         uint32_t b[4];
         ldmatrix_x4(b, k_s + swz<HD>(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
                                      ks * 2 + ((lane >> 3) & 1)));
-        mma_m16n8k16(sacc[2 * n2], qf[ks], b[0], b[1]);
-        mma_m16n8k16(sacc[2 * n2 + 1], qf[ks], b[2], b[3]);
+        mma_m16n8k16(sacc[2 * n2], qa, b[0], b[1]);
+        mma_m16n8k16(sacc[2 * n2 + 1], qa, b[2], b[3]);
       }
     }
 
@@ -552,11 +586,12 @@ cudaError_t launch_tc_as(const Args& a) {
   const int group = a.qh / a.kvh;
   const int gchunks = (group + 15) / 16;
   auto kernel = tc::decode_tc_kernel<HD, PLAIN>;
+  constexpr size_t smem = tc::Ring<HD>::SMEM;
   static SmemAllowed allowed = {};
-  cudaError_t err = allow_smem(kernel, tc::kSmemBytes, &allowed);
+  cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
   dim3 grid(a.S, a.kvh * gchunks, a.splits);
-  kernel<<<grid, tc::kThreads, tc::kSmemBytes, a.stream>>>(
+  kernel<<<grid, tc::kThreads, smem, a.stream>>>(
       static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.kv), a.kv_lens,
       a.page_idx, a.sinks, a.alibi, static_cast<tc::bf16*>(a.out), a.part_acc,
       a.part_ml, a.qh, a.kvh, gchunks, a.ps, a.num_pages, a.max_pages, a.sm_scale,
@@ -595,7 +630,9 @@ extern "C" int paged_decode_attention(
                   splits, static_cast<cudaStream_t>(stream)};
   if (dtype == ATTN_BF16 && hd == 64) return launch_tc<64>(a);
   if (dtype == ATTN_BF16 && hd == 128) return launch_tc<128>(a);
+  if (dtype == ATTN_BF16 && hd == 256) return launch_tc<256>(a);
   if (dtype == ATTN_F32 && hd == 64) return launch_f32<64>(a);
   if (dtype == ATTN_F32 && hd == 128) return launch_f32<128>(a);
+  if (dtype == ATTN_F32 && hd == 256) return launch_f32<256>(a);
   return (int)cudaErrorInvalidValue;
 }

@@ -68,8 +68,16 @@
 // turns at softmax and products; a K/V tile shared between
 // the query blocks of one sequence (each CTA re-reads its causal span
 // through L2); a split of the KV range for q_len-1 rows of mixed batches
-// (one CTA with 8 live rows of 64 walks the row's whole KV); hd 256;
-// int8/fp8 pools.
+// (one CTA with 8 live rows of 64 walks the row's whole KV); int8/fp8
+// pools.
+//
+// hd 256 (Gemma 2 and 3) keeps the one-warpgroup design: Q (32 KB) and a
+// two-stage ring of 32 KB K and V tiles take 161 KB, so one CTA per SM
+// (MINB 1, up to 255 registers a thread for the 128 output and 32 score
+// accumulators), and P.V is two m64n128k16 products per k-step, one per
+// half of V's four 64-column blocks, into the two halves of the output
+// accumulator (wgmma's widest transposed-B shape this file has is n128;
+// one n128 product alone would leave columns 128-255 unwritten).
 
 #include "attention_common.cuh"
 #include "wgmma.cuh"
@@ -287,7 +295,7 @@ constexpr int kPK = kTile / 16;   // k-steps of P.V per tile
 // is used); MINB: CTAs per SM the register budget is cut for.
 template <int HD> struct Shape {
   static constexpr int STAGES = 2;
-  static constexpr int MINB = HD <= 64 ? 4 : 2;
+  static constexpr int MINB = HD <= 64 ? 4 : (HD <= 128 ? 2 : 1);
   static constexpr int Q_BYTES = kRows * HD * sizeof(bf16);
   static constexpr int TILE_BYTES = kTile * HD * sizeof(bf16);   // K or V of a tile
   // + 1024: the tiles are aligned to the swizzle pattern's 1024 bytes
@@ -567,8 +575,15 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
       const uint64_t db = wgmma_desc(v_s + kk * 16 * 128, kTile * 128, 1024);
       if constexpr (HD == 64) {
         wgmma_m64n64k16_rs_tb(oacc, pa[kk], db);
-      } else {
+      } else if constexpr (HD == 128) {
         wgmma_m64n128k16_rs_tb(oacc, pa[kk], db);
+      } else {
+        // dims 0-127, then 128-255: V's blocks 2 and 3, two blocks on
+        static_assert(HD == 256, "P.V covers hd 64, 128 and 256");
+        wgmma_m64n128k16_rs_tb(*reinterpret_cast<float(*)[64]>(oacc), pa[kk], db);
+        wgmma_m64n128k16_rs_tb(
+            *reinterpret_cast<float(*)[64]>(oacc + 64), pa[kk],
+            wgmma_desc(v_s + 2 * kTile * 128 + kk * 16 * 128, kTile * 128, 1024));
       }
     }
     wgmma_commit();
@@ -646,8 +661,10 @@ extern "C" int ragged_prefill_attention(
              ps, num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, st
   if (dtype == ATTN_BF16 && hd == 64) return wg::launch<64>(ARGS);
   if (dtype == ATTN_BF16 && hd == 128) return wg::launch<128>(ARGS);
+  if (dtype == ATTN_BF16 && hd == 256) return wg::launch<256>(ARGS);
   if (dtype == ATTN_F32 && hd == 64) return simple::launch<64>(ARGS);
   if (dtype == ATTN_F32 && hd == 128) return simple::launch<128>(ARGS);
+  if (dtype == ATTN_F32 && hd == 256) return simple::launch<256>(ARGS);
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }

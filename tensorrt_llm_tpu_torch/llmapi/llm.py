@@ -9,8 +9,13 @@ model, build engine + executor, submit requests as futures.
 family is served from its own integers and scales) or a bare
 ``transformers`` config, which serves random weights like
 ``load_format="dummy"``. Families (``model_type``): llama, mistral,
-tinyllama, qwen2, qwen3, and the MoE families mixtral, qwen2_moe,
-qwen3_moe and olmoe on one GPU.
+tinyllama, qwen2, qwen3, gemma2, gemma3_text, and the MoE families
+mixtral, qwen2_moe, qwen3_moe and olmoe on one GPU.
+``kv_cache_config=KvCacheConfig(max_attention_window=[w, ...])`` serves
+Gemma 2 with VSWA: its sliding layers keep their KV in a second pool
+sized for the smallest window w, which is also their window (Gemma 3's
+five-to-one layers raise the JAX package's ValueError; any other family
+refuses the setting by name).
 ``quant_config=QuantConfig(quant_algo=...)`` quantizes float weights at
 load. ``speculative_config=SpeculativeConfig(mode="EAGLE3",
 max_draft_len=d, draft_model=...)`` serves EAGLE3 speculative decoding in
@@ -38,7 +43,7 @@ from ..quantization.checkpoint import (PrequantizedWeight,
                                        detect_prequantized)
 from ..quantization.mode import QuantAlgo
 from ..runtime.executor import GenerationResult, PyExecutor
-from ..runtime.kv_cache_manager import KVCacheManager
+from ..runtime.kv_cache_manager import KVCacheManager, VswaKvManager
 from ..runtime.model_engine import ModelEngine
 from ..runtime.request import LlmRequest
 from ..runtime.scheduler import (CapacityScheduler, MicroBatchScheduler,
@@ -132,6 +137,14 @@ class LLM:
         check_ported_spec(self.args.speculative_config,
                           hf_config.model_type)
         self.model = get_model_class(hf_config.model_type)(model_config)
+        maw = self.args.kv_cache_config.max_attention_window
+        if maw:
+            if not hasattr(self.model, "enable_vswa"):
+                raise NotImplementedError(
+                    "kv_cache_config.max_attention_window (VSWA) is served "
+                    f"for Gemma 2 only, not for {hf_config.model_type}")
+            # the smallest window sizes the sliding pool
+            self.model.enable_vswa(min(maw))
         if state_dict is None:
             self._params = self.model.init_params(seed=0)
         else:
@@ -240,6 +253,14 @@ class LLM:
             max_seq_len=args.max_seq_len,
             enable_block_reuse=args.kv_cache_config.enable_block_reuse,
             event_buffer_max_size=args.kv_cache_config.event_buffer_max_size)
+        if self.engine._vswa:
+            self.kv_cache_manager = VswaKvManager(
+                self.kv_cache_manager, KVCacheManager(
+                    num_blocks=self.engine.num_sw_pages,
+                    tokens_per_block=args.kv_cache_config.tokens_per_block,
+                    max_seq_len=args.max_seq_len, enable_block_reuse=False,
+                    ids_attr="kv_block_ids_sw"),
+                window=self.model.vswa_window)
         capacity = CapacityScheduler(
             max_num_requests=args.max_batch_size,
             kv_cache_manager=self.kv_cache_manager,

@@ -28,12 +28,23 @@ class KvCacheConfig(StrictBaseModel):
     free_gpu_memory_fraction: float = Field(0.9, gt=0.0, le=1.0)
     event_buffer_max_size: int = 0
     tokens_per_block: int = 32
+    # VSWA (Gemma 2): the smallest window of the list sizes the sliding
+    # layers' own KV pool and is their window
+    max_attention_window: Optional[List[int]] = None
 
     @field_validator("tokens_per_block")
     @classmethod
     def _power_of_two(cls, v: int) -> int:
         if v & (v - 1) or v <= 0:
             raise ValueError("tokens_per_block must be a power of 2")
+        return v
+
+    @field_validator("max_attention_window")
+    @classmethod
+    def _positive_windows(cls, v):
+        if v is not None and (not v or min(v) <= 0):
+            raise ValueError("max_attention_window must hold positive "
+                             "window sizes")
         return v
 
 
@@ -126,11 +137,11 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
                       model_type: Optional[str] = None) -> None:
     """Refuse, by name, a speculative mode or option this package does
     not have, and (with ``model_type``) a target it cannot draft for: the
-    EAGLE3 head reads the target's hidden rows, which the MoE families'
-    forward does not collect (nor does the JAX package's)."""
+    EAGLE3 head reads the target's hidden rows, which the MoE and Gemma
+    families' forward does not collect (nor does the JAX package's)."""
     if sc is None or sc.mode == "NONE":
         return
-    if model_type in MOE_MODEL_TYPES:
+    if model_type in MOE_MODEL_TYPES + GEMMA_MODEL_TYPES:
         raise NotImplementedError(
             f"speculative mode {sc.mode} with a {model_type} target is not "
             "supported by this package (EAGLE3 drafts for the Llama and "
@@ -154,6 +165,7 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
 
 
 MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe")
+GEMMA_MODEL_TYPES = ("gemma2", "gemma3_text")
 
 
 def check_ported_moe(args: "LlmArgs") -> None:

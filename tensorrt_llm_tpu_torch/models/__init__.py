@@ -1,6 +1,7 @@
 from .modeling_utils import (DecoderModelForCausalLM, MODEL_REGISTRY,
                              ModelConfig, get_model_class, register_model)
-from . import llama as _llama  # noqa: F401  (registers)
+from . import gemma as _gemma  # noqa: F401  (registers)
+from . import llama as _llama  # noqa: F401
 from . import mixtral as _mixtral  # noqa: F401
 from . import qwen as _qwen  # noqa: F401
 from . import qwen_moe as _qwen_moe  # noqa: F401

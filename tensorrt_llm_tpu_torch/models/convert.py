@@ -1,7 +1,8 @@
 """Parameter conversion from the JAX package's Llama and MoE layouts.
 
 ``from_jax_params`` takes the parameter tree of the JAX
-``LlamaForCausalLM`` (Qwen2/Qwen3 included) or ``MixtralForCausalLM``
+``LlamaForCausalLM`` (Qwen2/Qwen3 and Gemma 2/3 included) or
+``MixtralForCausalLM``
 (Qwen2-MoE, Qwen3-MoE, OLMoE included) as numpy arrays — stacked layers
 with a leading L axis, one dict per projection — and returns this
 package's parameters (a list of per-layer dicts, fused qkv and gate_up),
@@ -14,7 +15,10 @@ the experts ``w_gate`` / ``w_up`` [L, E, H, I] become one ``w_gate_up``
 [E, H, 2I] and ``w_down`` [L, E, I, H] stays [E, I, H] (ops/moe.py's
 layout); the shared expert's ``se_gate`` / ``se_up`` projections fuse into
 ``se_gate_up``, and its gate ``se_gate_w`` [L, H, 1] becomes [1, H].
-``q_norm`` / ``k_norm`` are carried as they are.
+``q_norm`` / ``k_norm`` are carried as they are, and so are the four
+norms of the JAX Gemma models (``post_attn_norm``, ``pre_ffn_norm``,
+``post_ffn_norm`` beside ``input_norm``); their ``is_sliding`` flags are
+static config here (``Gemma2ForCausalLM.layer_specs``) and are dropped.
 """
 from __future__ import annotations
 
@@ -24,6 +28,11 @@ import numpy as np
 import torch
 
 from ..ops.linear import fuse_params
+
+
+# a layer's norm weights: the Llama trunk's two, or Gemma's four
+_NORMS = ("input_norm", "post_norm", "post_attn_norm", "pre_ffn_norm",
+          "post_ffn_norm")
 
 
 def from_jax_params(params_np: Dict[str, Any], device="cpu",
@@ -64,8 +73,8 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
     for i in range(num_layers):
         def at(name):
             return proj({k: v[i] for k, v in lay[name].items()})
-        layer = {"input_norm": t(lay["input_norm"][i]),
-                 "post_norm": t(lay["post_norm"][i]), "o": at("o")}
+        layer = {name: t(lay[name][i]) for name in _NORMS if name in lay}
+        layer["o"] = at("o")
         for name in ("q_norm", "k_norm"):
             if name in lay:
                 layer[name] = t(lay[name][i])

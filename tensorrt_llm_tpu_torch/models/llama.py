@@ -78,6 +78,12 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         self.m_lm_head = self._method("lm_head")
         self.attn_methods = AttentionMethods(self.m_q, self.m_kv, self.m_o)
 
+    def attention_windows(self) -> tuple:
+        """The distinct sliding windows of the model's layers (None for
+        global attention): the decode kernel's split count is taken per
+        window, and the engine keys its CUDA graphs by all of them."""
+        return (self.attn_spec.sliding_window,)
+
     def act_width_per_token(self) -> int:
         """Activation elements per token of one layer (the graph pool's
         estimate, ``ModelEngine.graph_pool_reserve``): 4 hidden-wide

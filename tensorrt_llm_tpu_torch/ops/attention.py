@@ -49,6 +49,10 @@ class AttentionMetadata:
       max_kv_len:     host int, an upper bound of kv_lens (a hint: the
                       decode kernel picks its number of KV splits from
                       it); None means the page table's reach.
+      page_indices_sw, slot_mapping_sw: VSWA only (Gemma 2 with
+                      ``max_attention_window``): the sliding layers' own
+                      page table i32[S, P] and slots i32[T] in their
+                      smaller pool; None for a single pool.
     """
     kv_lens: torch.Tensor
     page_indices: torch.Tensor
@@ -59,6 +63,16 @@ class AttentionMetadata:
     logits_indices: torch.Tensor
     max_q_len: Optional[int] = None
     max_kv_len: Optional[int] = None
+    page_indices_sw: Optional[torch.Tensor] = None
+    slot_mapping_sw: Optional[torch.Tensor] = None
+
+    def for_sliding_pool(self) -> "AttentionMetadata":
+        """This metadata addressed at the sliding pool (VSWA); with
+        ``layer_metadata`` at that pool's own page count."""
+        return dataclasses.replace(
+            self, page_indices=self.page_indices_sw,
+            slot_mapping=self.slot_mapping_sw, page_indices_sw=None,
+            slot_mapping_sw=None)
 
 
 def layer_metadata(metadata: AttentionMetadata, layer_idx: int,

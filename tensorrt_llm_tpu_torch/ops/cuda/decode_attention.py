@@ -13,8 +13,10 @@ and for bf16 the query heads of a KV head are one tensor-core tile
 partial (m, l, acc) in scratch allocated here, and a small merge kernel
 combines them; one split writes the output directly. float32 inputs take
 the first version's CUDA-core kernel (float32 math throughout, 1e-4
-against the plain version), with the same splits. Left for later: TMA,
-one launch instead of two when split, hd 256, int8/fp8 pools.
+against the plain version), with the same splits. Head dims 64, 128 and
+256 (``HEAD_DIMS``; at 256 a warp's stage is 16 KB and Q waits in shared
+memory), any other is refused by name. Left for later: TMA, one launch
+instead of two when split, int8/fp8 pools.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and runs
 ``paged_decode_attention_plain`` only for CPU tensors.
@@ -40,6 +42,7 @@ from . import _build
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)   # the head dims the kernels are built for
 
 
 def _as_f32(x, device) -> Optional[torch.Tensor]:
@@ -59,7 +62,7 @@ def _kernel():
 
 
 SPLIT_TILE = 32        # positions per tile of the split rule (the bf16
-                       # kernel's warp tile is 2048 / hd: 32 or 16)
+                       # kernel's warp tile is 32 at hd 64, else 16)
 MIN_SPLIT = 256        # no split is planned shorter than this
 _MASK = -0.7 * torch.finfo(torch.float32).max   # csrc ATTN_MASK
 
@@ -232,7 +235,7 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         raise ValueError("q and kv_pages must be on the same CUDA device")
     if q.dtype not in _DTYPES or kv_pages.dtype != q.dtype:
         raise TypeError(f"unsupported dtypes q={q.dtype} kv={kv_pages.dtype}")
-    if hd not in (64, 128) or qh % kvh or qh // kvh > 64:
+    if hd not in HEAD_DIMS or qh % kvh or qh // kvh > 64:
         raise ValueError(f"unsupported geometry qh={qh} kvh={kvh} hd={hd}")
     if not (q.is_contiguous() and kv_pages.is_contiguous()):
         raise ValueError("q and kv_pages must be contiguous")

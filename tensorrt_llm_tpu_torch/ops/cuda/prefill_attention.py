@@ -20,9 +20,11 @@ picked by the element type (``route_for``):
   float32 math throughout (1e-4 against the plain version, which TF32
   would not hold).
 
-Left for later: a TMA producer warp, softmax overlapped with the next
-tile's product, K/V tiles shared between the query blocks of a sequence,
-a KV split for the q_len-1 rows of mixed batches, hd 256, int8/fp8 pools.
+Head dims 64, 128 and 256 (at 256 one CTA per SM, and P.V as two n128
+products per k-step); any other is refused by name. Left for later: a
+TMA producer warp, softmax overlapped with the next tile's product, K/V
+tiles shared between the query blocks of a sequence, a KV split for the
+q_len-1 rows of mixed batches, int8/fp8 pools.
 
 ``ragged_prefill_attention`` launches the kernel for CUDA tensors and runs
 ``ragged_prefill_attention_plain`` only for CPU tensors. ``LAUNCHES``
@@ -40,7 +42,7 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from .decode_attention import _DTYPES, _as_f32
+from .decode_attention import _DTYPES, HEAD_DIMS, _as_f32
 
 LAUNCHES = 0
 
@@ -158,7 +160,7 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         raise ValueError("q and kv_pages must be on the same CUDA device")
     if q.dtype not in _DTYPES or kv_pages.dtype != q.dtype:
         raise TypeError(f"unsupported dtypes q={q.dtype} kv={kv_pages.dtype}")
-    if hd not in (64, 128) or qh % kvh or qh // kvh > 64:
+    if hd not in HEAD_DIMS or qh % kvh or qh // kvh > 64:
         raise ValueError(f"unsupported geometry qh={qh} kvh={kvh} hd={hd}")
     if not (q.is_contiguous() and kv_pages.is_contiguous()):
         raise ValueError("q and kv_pages must be contiguous")

@@ -3,7 +3,9 @@
 Port of ``tensorrt_llm_tpu/ops/norm.py`` (``rms_norm``,
 ``rms_norm_residual``): the statistics are taken in float32 and the
 result cast back to the input's type before the weight multiply, as the
-JAX version does.
+JAX version does. ``gemma_rms_norm`` is Gemma's variant
+(``tensorrt_llm_tpu/models/gemma.py:26``): ``x * rsqrt(mean x^2 + eps)
+* (1 + w)`` all in float32, cast back only at the end.
 """
 from __future__ import annotations
 
@@ -28,3 +30,13 @@ def rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
     """Residual add + RMSNorm: returns (normed, new_residual)."""
     resid = x + residual
     return rms_norm(resid, weight, eps), resid
+
+
+def gemma_rms_norm(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Gemma's RMS norm: the weight is an offset from 1, and the product
+    is taken in float32 before the cast back to ``x``'s type."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + weight.float())
+    return out.to(x.dtype)

@@ -37,18 +37,28 @@ class RopeConfig:
     partial_rotary_factor: float = 1.0
 
     @classmethod
-    def from_hf_config(cls, cfg, head_dim: Optional[int] = None
-                       ) -> "RopeConfig":
+    def from_hf_config(cls, cfg, head_dim: Optional[int] = None,
+                       layer_type: str = "full_attention") -> "RopeConfig":
+        """The rotary table of ``cfg``'s layers of ``layer_type``
+        ("full_attention" or "sliding_attention": models whose two kinds
+        of layers rotate by different bases, as Gemma 3's do)."""
         head_dim = head_dim or getattr(cfg, "head_dim", None) or \
             cfg.hidden_size // cfg.num_attention_heads
-        # transformers 5 keeps theta and the scaling in rope_parameters;
-        # earlier versions in rope_theta and rope_scaling
-        rp = getattr(cfg, "rope_parameters", None) or {}
-        rs = getattr(cfg, "rope_scaling", None) or rp
+        # transformers 5 keeps theta and the scaling in rope_parameters,
+        # keyed by layer type where the layer types differ; earlier
+        # versions in rope_theta and rope_scaling
+        def of_layer(d):
+            d = d or {}
+            if any(isinstance(d.get(k), dict)
+                   for k in ("full_attention", "sliding_attention")):
+                return d.get(layer_type) or d.get("full_attention") or {}
+            return d
+        rp = of_layer(getattr(cfg, "rope_parameters", None))
+        rs = of_layer(getattr(cfg, "rope_scaling", None)) or rp
         stype = rs.get("rope_type", rs.get("type", "none")) if rs else "none"
         if stype == "default":
             stype = "none"
-        theta = getattr(cfg, "rope_theta", None) or rp.get("rope_theta")
+        theta = rp.get("rope_theta") or getattr(cfg, "rope_theta", None)
         return cls(
             head_dim=head_dim,
             rope_theta=theta or 10000.0,

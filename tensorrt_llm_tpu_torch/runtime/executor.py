@@ -596,10 +596,11 @@ class PyExecutor:
     # Mixed windows: context riders
     # ------------------------------------------------------------------ #
     def _mixed_ok(self) -> bool:
-        """Rider windows are on (``mixed_window_ctx`` > 0). The JAX
-        package also needs the plain attention pool (no VSWA, M-RoPE or
-        multimodal engine), which is all this package has."""
-        return self.engine.mixed_ctx_tokens > 0
+        """Rider windows are on (``mixed_window_ctx`` > 0) and the engine
+        has one KV pool (not VSWA), as in the JAX package, whose other
+        reasons (M-RoPE, multimodal engines) this package does not
+        have. The K-step window itself stays on under VSWA."""
+        return self.engine.riders_ok
 
     def _ctx_rider_ok(self, r: LlmRequest) -> bool:
         """A context request can ride once it holds a slot and its KV.

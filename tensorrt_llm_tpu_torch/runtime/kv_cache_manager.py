@@ -1,9 +1,9 @@
 """Paged KV-cache block manager with radix-tree prefix reuse.
 
 Host-side port of ``tensorrt_llm_tpu/runtime/kv_cache_manager.py``
-(``KVCacheManager``): integer page ids only, no device tensors. The
-secondary host/disk tiers and the VSWA dual-pool facade are not part of
-this package yet.
+(``KVCacheManager``, and the VSWA dual-pool facade ``VswaKvManager``):
+integer page ids only, no device tensors. The secondary host/disk tiers
+are not part of this package yet.
 
 Semantics:
   * Block identity: ``BlockKey`` = (tokens_in_block, lora_task_id,
@@ -11,6 +11,11 @@ Semantics:
   * Reuse: finished sequences attach their chain to a radix tree;
     new sequences claim the longest matched prefix (ref-counted).
   * Eviction: priority-bucketed LRU over *leaf* blocks only.
+  * VSWA (sliding-window layers on a pool of their own): a sequence's
+    sliding-pool blocks that no query still to be computed can see go
+    back to the free list while it runs (``trim_prefix``); their ids stay
+    in its page table as ``_TrimmedBlock`` placeholders (the kernels mask
+    those positions), and a trimmed chain never enters the reuse tree.
 """
 from __future__ import annotations
 
@@ -110,16 +115,20 @@ class KVCacheEvent:
 
 
 class KVCacheManager:
-    """Paged KV allocator for one attention-window size."""
+    """Paged KV allocator for one attention-window size. ``ids_attr`` is
+    the request field that holds this pool's block ids (``kv_block_ids``;
+    VSWA's sliding pool writes ``kv_block_ids_sw``)."""
 
     def __init__(self,
                  num_blocks: int,
                  tokens_per_block: int,
                  max_seq_len: int = 1 << 30,
                  enable_block_reuse: bool = True,
-                 event_buffer_max_size: int = 0):
+                 event_buffer_max_size: int = 0,
+                 ids_attr: str = "kv_block_ids"):
         if tokens_per_block <= 0:
             raise ValueError("tokens_per_block must be positive")
+        self.ids_attr = ids_attr
         self.num_blocks = num_blocks
         self.tokens_per_block = tokens_per_block
         self.max_seq_len = max_seq_len
@@ -216,8 +225,9 @@ class KVCacheManager:
         for _ in range(new_needed):
             chain.append(self._allocate_block())
         self._seq_blocks[rid] = chain
-        request.kv_block_ids = [b.block_id for b in chain]
-        request.num_cached_tokens = reused_tokens
+        self._set_ids(request, chain)
+        if reuse:
+            request.num_cached_tokens = reused_tokens
         self._stats.reused_blocks += len(chain) - new_needed
         self._stats.missed_blocks += new_needed
         self._stats.alloc_new_blocks += new_needed
@@ -240,7 +250,10 @@ class KVCacheManager:
             chain.append(self._allocate_block())
             self._stats.alloc_new_blocks += 1
             self._stats.alloc_total_blocks += 1
-        request.kv_block_ids = [b.block_id for b in chain]
+        self._set_ids(request, chain)
+
+    def _set_ids(self, request: LlmRequest, chain) -> None:
+        setattr(request, self.ids_attr, [b.block_id for b in chain])
 
     def free_resources(self, request: LlmRequest,
                        store_for_reuse: Optional[bool] = None) -> None:
@@ -249,6 +262,13 @@ class KVCacheManager:
         rid = request.request_id
         chain = self._seq_blocks.pop(rid, None)
         if chain is None:
+            return
+        if any(isinstance(b, _TrimmedBlock) for b in chain):
+            # the prefix's content is gone: release what is left directly
+            for b in chain:
+                if not isinstance(b, _TrimmedBlock):
+                    self._release_block(b)
+            self._set_ids(request, [])
             return
         store = self.enable_block_reuse if store_for_reuse is None \
             else store_for_reuse
@@ -294,7 +314,24 @@ class KVCacheManager:
                 self._release_block(block)
         if stored_hashes:
             self._push_event("stored", stored_hashes)
-        request.kv_block_ids = []
+        self._set_ids(request, [])
+
+    def trim_prefix(self, request: LlmRequest, keep_from_block: int) -> int:
+        """Release the sequence's blocks below ``keep_from_block`` to the
+        free list, leaving their ids in the request's block list (the page
+        table stays absolutely indexed). Returns the blocks released."""
+        chain = self._seq_blocks.get(request.request_id)
+        if chain is None:
+            return 0
+        freed = 0
+        for i in range(min(keep_from_block, len(chain))):
+            b = chain[i]
+            if isinstance(b, _TrimmedBlock):
+                continue
+            self._release_block(b)
+            chain[i] = _TrimmedBlock(b.block_id)
+            freed += 1
+        return freed
 
     def update_priority(self, request: LlmRequest, priority: int) -> None:
         """Retention priority: applied to tree nodes now and remembered
@@ -412,3 +449,81 @@ class KVCacheManager:
 
 class NoFreeBlocksError(RuntimeError):
     pass
+
+
+class _TrimmedBlock:
+    """A sliding-pool block released while its sequence runs: the id
+    stays in the sequence's page table, the block is back in the free
+    list."""
+    __slots__ = ("block_id",)
+
+    def __init__(self, block_id: int):
+        self.block_id = block_id
+
+
+class VswaKvManager:
+    """Dual-pool facade (VSWA): the global layers allocate from
+    ``global_mgr``, the sliding layers from ``sliding_mgr``, a smaller
+    pool whose blocks are released once out of every future query's
+    window. Unknown attributes go to the global manager (the capacity
+    scheduler's math, events and stats follow the larger pool).
+
+    The release rule: a query at position p sees keys above p - window,
+    so before a step whose first new query sits at position q
+    (``num_device_tokens``: the next decode step, or the first step of a
+    K-step window), the blocks wholly below q - window + 1 are released.
+    Nothing is released at admission: a prompt's early queries still
+    need its early keys during its prefill. (The JAX package trims at
+    admission, by the prompt's end, which lets a request admitted in the
+    same step be given blocks the prefill still writes and reads.)
+    Prefix reuse stays off under VSWA, as in the JAX package: a reused
+    global prefix has no sliding-pool twin."""
+
+    def __init__(self, global_mgr: KVCacheManager,
+                 sliding_mgr: KVCacheManager, window: int):
+        if (global_mgr.ids_attr, sliding_mgr.ids_attr) != (
+                "kv_block_ids", "kv_block_ids_sw"):
+            raise ValueError("VSWA's managers must write kv_block_ids and "
+                             "kv_block_ids_sw")
+        self.g = global_mgr
+        self.s = sliding_mgr
+        self.window = window
+        self.tokens_per_block = global_mgr.tokens_per_block
+        self.trimmed_blocks = 0      # sliding blocks released while running
+
+    def __getattr__(self, name):
+        return getattr(self.g, name)
+
+    def _trim(self, req: LlmRequest) -> None:
+        first_query = req.num_device_tokens
+        keep_from = max(0, first_query - self.window + 1) \
+            // self.tokens_per_block
+        self.trimmed_blocks += self.s.trim_prefix(req, keep_from)
+
+    def add_sequence(self, req: LlmRequest,
+                     enable_reuse: Optional[bool] = None) -> int:
+        reused = self.g.add_sequence(req, enable_reuse=False)
+        try:
+            self.s.add_sequence(req, enable_reuse=False)
+        except NoFreeBlocksError:
+            self.g.free_resources(req, store_for_reuse=False)
+            raise
+        return reused
+
+    def add_token(self, req: LlmRequest) -> None:
+        self._trim(req)
+        self.g.add_token(req)
+        self.s.add_token(req)
+
+    def add_tokens(self, req: LlmRequest, num_tokens: int) -> None:
+        self._trim(req)
+        self.g.add_tokens(req, num_tokens)
+        self.s.add_tokens(req, num_tokens)
+
+    def free_resources(self, req: LlmRequest,
+                       store_for_reuse: Optional[bool] = None) -> None:
+        self.g.free_resources(req, store_for_reuse=store_for_reuse)
+        self.s.free_resources(req, store_for_reuse=False)
+
+    def get_num_free_blocks(self) -> int:
+        return self.g.get_num_free_blocks()

@@ -7,11 +7,12 @@ draft head, the K-step decode window of ``_build_multi_step`` /
 the fused speculative window's entry points ``forward_spec_window`` /
 ``spec_seed`` and its state ``sd`` (runtime/spec_window.py), token and
 row buckets, ``warmup`` / ``_warm_multi`` and KV-pool sizing, which
-carves out the draft head's pool) without guided decoding, LoRA,
-host-orchestrated drafts, tree drafts, VSWA, M-RoPE, MoE statistics and
-pipeline parallelism. MoE models run through the same steps and graphs:
-their routing is computed on the device, and no MoE shape depends on it
-(ops/moe.py).
+carves out the draft head's pool, and VSWA's second pool: ``_vswa``,
+``num_sw_pages``, the sliding layers' page table and slot map in every
+step and window) without guided decoding, LoRA, host-orchestrated
+drafts, tree drafts, M-RoPE, MoE statistics and pipeline parallelism.
+MoE models run through the same steps and graphs: their routing is
+computed on the device, and no MoE shape depends on it (ops/moe.py).
 
 Every step is padded to a (token bucket, row bucket) pair, as the JAX
 engine pads to its jit buckets. On CUDA, decode windows, spec windows and
@@ -73,6 +74,21 @@ class StepInputs:
     num_reqs: int
     max_q_len: int                 # longest query segment (1 = decode-only)
     max_kv_len: int                # longest KV length incl. this step
+    # VSWA: the sliding layers' page table and slots (None: one pool)
+    page_indices_sw: Optional[np.ndarray] = None   # i32[S, P]
+    slot_mapping_sw: Optional[np.ndarray] = None   # i32[T]
+
+
+def _ptrs(kv_pages) -> List[int]:
+    """Device addresses of a model's KV pool, or of each of its pools."""
+    pools = kv_pages if isinstance(kv_pages, tuple) else (kv_pages,)
+    return [p.data_ptr() for p in pools]
+
+
+def _sliding(**per_pool) -> Dict[str, Any]:
+    """VSWA's fields from per-pool sequences past the global pool's:
+    {name: the sliding pool's entry}, empty with one pool."""
+    return {k: v[0] for k, v in per_pool.items() if len(v)}
 
 
 class HostFuture:
@@ -135,12 +151,25 @@ class ModelEngine:
         self.window_steps = 0
         self.dead_window_steps = 0
         self.params = params
+        # VSWA (Gemma 2 with max_attention_window): the sliding layers
+        # keep their KV in a second, smaller pool; self.kv_pages is then
+        # the pair (global, sliding)
+        self._vswa = bool(getattr(model, "vswa_enabled", False))
+        self.num_sw_pages = self._sw_pages() if self._vswa else 0
         self.num_kv_pages = num_kv_pages or self._default_num_pages()
         logger.info("KV pool: %d pages x %d tokens (%.1f MB/layer)",
                     self.num_kv_pages, self.page_size,
                     self._kv_bytes_per_layer() / 1e6)
-        self.kv_pages = model.make_kv_pages(self.num_kv_pages,
-                                            self.page_size)
+        # the request field of each pool's block ids: the global pool's,
+        # and under VSWA the sliding one's
+        self.pool_ids = ["kv_block_ids"]
+        if self._vswa:
+            logger.info("VSWA sliding pool: %d pages (window %d)",
+                        self.num_sw_pages, model.vswa_window)
+            self.pool_ids.append("kv_block_ids_sw")
+        self.kv_pages = model.make_kv_pages(
+            self.num_kv_pages, self.page_size,
+            **({"num_sw_pages": self.num_sw_pages} if self._vswa else {}))
         # slot-indexed device state; index max_batch_size is a trash slot
         # that absorbs the scatters of padding and inactive rows. Steps
         # update it in place: captured graphs hold its address
@@ -155,11 +184,32 @@ class ModelEngine:
     # Sizing
     # ------------------------------------------------------------------ #
     @property
+    def _pool_layers(self) -> int:
+        """Layers of the (global) pool: half of them under VSWA."""
+        L = self.model.num_layers
+        return L // 2 if self._vswa else L
+
+    @property
     def bytes_per_kv_block(self) -> int:
+        """Device bytes of one page of the (global) pool, all its layers;
+        under VSWA a sliding-pool page has the same size (L/2 layers)."""
         el = torch.empty((), dtype=self.model.config.kv_cache_dtype) \
             .element_size()
-        return (self.model.num_layers * self.page_size *
+        return (self._pool_layers * self.page_size *
                 2 * self.model.num_kv_heads * self.model.head_dim * el)
+
+    def _sw_pages(self) -> int:
+        """The sliding pool's pages: the JAX engine's formula (a window
+        plus a page, plus one, per sequence, and one max-length prompt's
+        pages), with the K-step window's pre-allocation added to the
+        window (the JAX engine trims after the window's allocation, this
+        one before it). No more than every sequence in full."""
+        ps = self.page_size
+        reach = self.model.vswa_window + max(1, self.args.decode_multi_step)
+        w_pages = -(-(reach + ps) // ps) + 1
+        transient = -(-self.args.max_input_len // ps)
+        return min(self.max_batch_size * w_pages + transient + 1,
+                   self.max_batch_size * self.pages_per_seq + 1)
 
     @property
     def spec_draft_len(self) -> int:
@@ -184,7 +234,7 @@ class ModelEngine:
 
     def _kv_bytes_per_layer(self) -> int:
         return self.num_kv_pages * self.bytes_per_kv_block \
-            // self.model.num_layers
+            // self._pool_layers
 
     def graph_pool_reserve(self) -> int:
         """Device bytes kept free for the CUDA graphs' shared pool when
@@ -224,7 +274,7 @@ class ModelEngine:
     def graph_pool_estimate(self) -> int:
         """``graph_pool_reserve``'s formula, whatever the device."""
         rows = self.max_batch_size
-        tokens = rows + self.mixed_ctx_tokens
+        tokens = rows + (self.mixed_ctx_tokens if self.riders_ok else 0)
         sampler = rows * self.model.vocab_size * 4 * 6
         d = self.spec_draft_len
         if d:
@@ -236,8 +286,9 @@ class ModelEngine:
 
     def _default_num_pages(self) -> int:
         """KV pool sizing from free device memory, less 1 GiB, the graph
-        pool's reserve and the draft head's state (a fixed 2 GiB budget on
-        the CPU)."""
+        pool's reserve, the draft head's state and under VSWA the sliding
+        pool (a fixed 2 GiB budget on the CPU, the sliding pool
+        included)."""
         cfg = self.args.kv_cache_config
         if cfg.max_tokens is not None:
             return -(-cfg.max_tokens // self.page_size)
@@ -248,6 +299,7 @@ class ModelEngine:
                 - self.graph_pool_reserve() - self.spec_state_bytes()
         else:
             budget = 2 << 30
+        budget -= self.num_sw_pages * bytes_per_page
         budget = max(budget, bytes_per_page * self.max_batch_size)
         pages = budget // bytes_per_page
         # at least one page per sequence; at most every sequence in full
@@ -287,20 +339,27 @@ class ModelEngine:
         head's chained decode-kernel steps in a spec window."""
         return self._kv_bound(n, self.sd.P_h * self.sd.ps_h)
 
-    def _splits(self, rows: int, bound: int, head: bool = False) -> int:
+    def _splits(self, rows: int, bound: int, head: bool = False):
         """KV splits of the decode kernel over ``rows`` at ``bound`` (1 on
-        the CPU, whose plain version does not split): the target's
-        layers, or with ``head`` the draft head's layer."""
-        if self.device.type != "cuda":
-            return 1
+        the CPU, whose plain version does not split): with ``head`` the
+        draft head's layer (an int), else the target's layers, one count
+        per distinct sliding window (``model.attention_windows``: a
+        tuple, since Gemma's sliding and global layers split apart)."""
         if head:
+            if self.device.type != "cuda":
+                return 1
             spec = self.sd.drafter.attn_spec
-            reach = self.sd.P_h * self.sd.ps_h
-        else:
-            spec = self.model.attn_spec
-            reach = self.pages_per_seq * self.page_size
-        return dec.splits_for(rows, spec.num_heads, spec.num_kv_heads,
-                              reach, bound, spec.sliding_window, self.device)
+            return dec.splits_for(rows, spec.num_heads, spec.num_kv_heads,
+                                  self.sd.P_h * self.sd.ps_h, bound,
+                                  spec.sliding_window, self.device)
+        windows = self.model.attention_windows()
+        if self.device.type != "cuda":
+            return (1,) * len(windows)
+        spec = self.model.attn_spec
+        reach = self.pages_per_seq * self.page_size
+        return tuple(dec.splits_for(rows, spec.num_heads, spec.num_kv_heads,
+                                    reach, bound, w, self.device)
+                     for w in windows)
 
     def _counts(self, use_penalties: bool) -> Optional[torch.Tensor]:
         if use_penalties and self.token_counts is None:
@@ -323,7 +382,7 @@ class ModelEngine:
         ``collect_hidden`` (logits, pre-final-norm hidden rows)."""
         out = self.model.forward(self.params, tokens, self.kv_pages,
                                  metadata, collect_hidden=collect_hidden)
-        if out[1].data_ptr() != self.kv_pages.data_ptr():
+        if _ptrs(out[1]) != _ptrs(self.kv_pages):
             raise RuntimeError("the model moved the KV pool")
         return (out[0], out[2]) if collect_hidden else out[0]
 
@@ -339,16 +398,18 @@ class ModelEngine:
         tok_list: List[int] = []
         prev_list: List[int] = []
         pos_list: List[int] = []
-        slot_map: List[int] = []
         kv_lens = np.zeros(S, np.int32)
-        page_indices = np.zeros((S, P), np.int32)
         cu_q = np.zeros(S + 1, np.int32)
         logits_idx = np.zeros(S, np.int32)
         out_slots = np.full(S, -1, np.int32)
+        # per KV pool: its page table and its slots of this step's tokens
+        tables = np.zeros((len(self.pool_ids), S, P), np.int32)
+        slot_maps: List[List[int]] = [[] for _ in self.pool_ids]
         max_q = 0
         for i, req in enumerate(reqs):
-            blocks = req.kv_block_ids
-            page_indices[i, :len(blocks)] = blocks
+            chains = [getattr(req, attr) for attr in self.pool_ids]
+            for table, chain in zip(tables, chains):
+                table[i, :len(chain)] = chain
             last_chunk_row = True
             if req.is_context_init_state:
                 start = req.context_current_position
@@ -357,8 +418,7 @@ class ModelEngine:
                 tok_list.extend(req.context_token_ids[start:end])
                 prev_list.extend([-1] * (end - start))
                 pos_list.extend(range(start, end))
-                slot_map.extend(blocks[p // ps] * ps + p % ps
-                                for p in range(start, end))
+                span = range(start, end)
                 kv_lens[i] = end
                 max_q = max(max_q, end - start)
             else:
@@ -372,9 +432,11 @@ class ModelEngine:
                     tok_list.append(0)
                     prev_list.append(req.seq_slot)
                 pos_list.append(pos)
-                slot_map.append(blocks[pos // ps] * ps + pos % ps)
+                span = range(pos, pos + 1)
                 kv_lens[i] = pos + 1
                 max_q = max(max_q, 1)
+            for sm, chain in zip(slot_maps, chains):
+                sm.extend(chain[p // ps] * ps + p % ps for p in span)
             logits_idx[i] = len(tok_list) - 1
             cu_q[i + 1] = len(tok_list)
             # mid-chunk context rows produce no real sample: route their
@@ -382,16 +444,19 @@ class ModelEngine:
             # prev_tokens / token_counts for the slot
             out_slots[i] = req.seq_slot if last_chunk_row else -1
         cu_q[len(reqs) + 1:] = len(tok_list)
+        slot_maps = [np.asarray(sm, np.int32) for sm in slot_maps]
         return StepInputs(
             token_ids=np.asarray(tok_list, np.int32),
             prev_slot=np.asarray(prev_list, np.int32),
             positions=np.asarray(pos_list, np.int32),
-            kv_lens=kv_lens, page_indices=page_indices, cu_q_lens=cu_q,
+            kv_lens=kv_lens, page_indices=tables[0], cu_q_lens=cu_q,
             num_seqs=np.asarray([len(reqs)], np.int32),
-            slot_mapping=np.asarray(slot_map, np.int32),
+            slot_mapping=slot_maps[0],
             logits_indices=logits_idx, out_slots=out_slots,
             num_tokens=len(tok_list), num_reqs=len(reqs), max_q_len=max_q,
-            max_kv_len=int(kv_lens.max()))
+            max_kv_len=int(kv_lens.max()),
+            **_sliding(page_indices_sw=tables[1:],
+                       slot_mapping_sw=slot_maps[1:]))
 
     # ------------------------------------------------------------------ #
     # One step for one scheduled batch
@@ -419,6 +484,12 @@ class ModelEngine:
                       logits_indices=inp.logits_indices,
                       out_slots=inp.out_slots, num_seqs=inp.num_seqs,
                       seeds=seeds, page_indices=inp.page_indices)
+        if self._vswa:
+            slots_sw = np.full(T, self.num_sw_pages * self.page_size,
+                               np.int32)
+            slots_sw[:n] = inp.slot_mapping_sw
+            inputs.update(page_indices_sw=inp.page_indices_sw,
+                          slot_mapping_sw=slots_sw)
         if not greedy:
             inputs["samp_ints"], inputs["samp_floats"] = \
                 SamplingTensors.rows(reqs, S)
@@ -482,7 +553,9 @@ class ModelEngine:
                 cu_q_lens=v["cu_q_lens"], num_seqs=v["num_seqs"],
                 slot_mapping=v["slot_mapping"], positions=v["positions"],
                 logits_indices=v["logits_indices"].long(),
-                max_q_len=max_q_len, max_kv_len=kv_bound),
+                max_q_len=max_q_len, max_kv_len=kv_bound,
+                page_indices_sw=v.get("page_indices_sw"),
+                slot_mapping_sw=v.get("slot_mapping_sw")),
                 collect_hidden=collect_hidden)
             if collect_hidden:
                 logits, hidden = logits
@@ -533,6 +606,13 @@ class ModelEngine:
     def mixed_ctx_tokens(self) -> int:
         """C: context tokens carried per window step (0 = disabled)."""
         return self.args.mixed_window_ctx
+
+    @property
+    def riders_ok(self) -> bool:
+        """Whether windows carry context riders: ``mixed_window_ctx`` > 0
+        and one KV pool (the JAX executor's ``_mixed_ok`` also keeps them
+        off under VSWA)."""
+        return self.mixed_ctx_tokens > 0 and not self._vswa
 
     @property
     def mixed_ctx_seqs(self) -> int:
@@ -607,7 +687,7 @@ class ModelEngine:
         rows[3] = -1
         seeds = np.zeros(Sb, np.int32)
         stop_ids = np.full((Sb, NSTOP), -1, np.int32)
-        page_indices = np.zeros((Sb, P), np.int32)
+        tables = np.zeros((len(self.pool_ids), Sb, P), np.int32)
         for i, r in enumerate(reqs):
             sp = r.sampling_params
             ndt = r.num_device_tokens
@@ -623,10 +703,12 @@ class ModelEngine:
                 seeds[i] = sp.seed & 0x7FFFFFFF or 1
             ids = list(sp.stop_id_list())[:NSTOP]
             stop_ids[i, :len(ids)] = ids
-            blocks = r.kv_block_ids
-            page_indices[i, :len(blocks)] = blocks
+            for table, attr in zip(tables, self.pool_ids):
+                chain = getattr(r, attr)
+                table[i, :len(chain)] = chain
         inputs = dict(rows=rows, seeds=seeds, stop_ids=stop_ids,
-                      page_indices=page_indices)
+                      page_indices=tables[0],
+                      **_sliding(page_indices_sw=tables[1:]))
         if not greedy:
             inputs["samp_ints"], inputs["samp_floats"] = \
                 SamplingTensors.rows(reqs, Sb)
@@ -694,6 +776,8 @@ class ModelEngine:
         ps, P = self.page_size, self.pages_per_seq
         NC = self.mixed_ctx_seqs if C else 0
         oob = self.num_kv_pages * ps
+        oob_sw = self.num_sw_pages * ps
+        vswa = self._vswa
         trash = self.max_batch_size
         dev = self.device
 
@@ -717,9 +801,19 @@ class ModelEngine:
             toks, lps = [], []
             for k in range(K):
                 kv_len = torch.where(valid, pos + 1, 1).to(torch.int32)
-                page_row = pages[iota, (pos // ps).clamp(0, P - 1).long()]
-                slot_map = torch.where(active, page_row * ps + pos % ps,
+                page_col = (pos // ps).clamp(0, P - 1).long()
+                slot_map = torch.where(active,
+                                       pages[iota, page_col] * ps + pos % ps,
                                        oob).to(torch.int32)
+                sw = {}
+                if vswa:
+                    # the sliding layers' slots in their own pool
+                    pages_sw = v["page_indices_sw"]
+                    sw = dict(page_indices_sw=pages_sw,
+                              slot_mapping_sw=torch.where(
+                                  active,
+                                  pages_sw[iota, page_col] * ps + pos % ps,
+                                  oob_sw).to(torch.int32))
                 if C:
                     # context riders: the step's planned chunk (C tokens
                     # over NC sequences and a filler row) joins the
@@ -748,7 +842,7 @@ class ModelEngine:
                         kv_lens=kv_len, page_indices=pages, cu_q_lens=cu_q,
                         num_seqs=num_seqs, slot_mapping=slot_map,
                         positions=pos, logits_indices=iota, max_q_len=1,
-                        max_kv_len=kv_bound))
+                        max_kv_len=kv_bound, **sw))
                 tok, lp = self._sample(
                     logits, st, v["seeds"] if seeded else None, kv_len,
                     torch.where(active, out_slots, trash).long(),
@@ -810,7 +904,7 @@ class ModelEngine:
         # executor's _multi_rows_ok, as in the JAX package)
         if K > 1 and self.sd is None:
             Ks = {K, max(1, K // 4)} if self.args.ttft_slo_ms > 0 else {K}
-            riders = [None] + ([[]] if self.mixed_ctx_tokens else [])
+            riders = [None] + ([[]] if self.riders_ok else [])
             for Sb in self.row_buckets:
                 for k in sorted(Ks):
                     for r in riders:

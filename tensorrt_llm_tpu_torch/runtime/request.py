@@ -100,6 +100,8 @@ class LlmRequest:
 
         # kv bookkeeping (owned by KVCacheManager)
         self.kv_block_ids: List[int] = []
+        # VSWA: the sliding layers' blocks in their own pool
+        self.kv_block_ids_sw: List[int] = []
         self.num_cached_tokens: int = 0         # prefix tokens reused from cache
 
         # seq slot assigned by the executor while scheduled
@@ -210,6 +212,7 @@ class LlmRequest:
         self.host_token_override = None
         self.draft_tokens = []
         self.kv_block_ids = []
+        self.kv_block_ids_sw = []
         self.num_cached_tokens = 0
 
     # ------------------------------------------------------------------ #

@@ -30,15 +30,18 @@ def time_ms(fn, reps: int = 30) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def make_case(q_lens, ctx_lens, qh, kvh, hd, seed, page=PAGE, dtype=None):
+def make_case(q_lens, ctx_lens, qh, kvh, hd, seed, page=PAGE, dtype=None,
+              pages_per_seq=0):
     """Packed queries (bf16 unless ``dtype``) and a shuffled paged pool on
-    the card: q, pool, kv_lens, page table, cu_q_lens."""
+    the card: q, pool, kv_lens, page table, cu_q_lens. The page table has
+    ``pages_per_seq`` columns (an engine's width) where that is more than
+    the longest row needs."""
     import torch
     dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(seed)
     S = len(q_lens)
     kv = [c + q for c, q in zip(ctx_lens, q_lens)]
-    maxp = max(-(-k // page) for k in kv)
+    maxp = max(pages_per_seq, max(-(-k // page) for k in kv))
     P = S * maxp + 1
     pool = torch.randn((P, page, 2 * kvh, hd), generator=g, device="cuda",
                        dtype=dtype)

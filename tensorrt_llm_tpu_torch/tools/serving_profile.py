@@ -29,7 +29,22 @@ Two workloads:
   2048, 32 x 128 q heads, 4 KV heads, 128 experts, top 8, expert width
   768, vocab 151,936; seeded random bf16 weights, 61.1 GB), 64 requests
   of 128 prompt tokens and 64 output tokens with ``ignore_eos``, ``LLM``
-  defaults (64 rows, K = 8, depth 4).
+  defaults (64 rows, K = 8, depth 4);
+- ``--geometry gemma2-9b``: ``chip_smoke.py``'s gemma_serving run,
+  Gemma-2-9B at its published width and depth (42 layers, hidden 3584,
+  16 x 256 q heads, 8 KV heads, intermediate 14,336, vocab 256,000,
+  sliding window 4,096 on the even layers, soft caps 50 and 30; seeded
+  random bf16 weights, 18.5 GB), 16 requests of 6,144 prompt tokens and
+  64 output tokens with ``ignore_eos``, max_batch_size 16, max_seq_len
+  8,192, max_num_tokens 6,144 (one prompt per prefill step), prefix
+  reuse off (each pass prefills afresh, as VSWA must); with
+  ``--vswa`` the sliding layers keep their KV in their own pool
+  (``max_attention_window=[4096, 8192]``);
+- ``--geometry gemma3-1b``: Gemma-3-1B at its published width and depth
+  (26 layers, hidden 1152, 4 x 256 q heads over 1 KV head, intermediate
+  6,912, vocab 262,144, window 512 on five layers of six, rope bases
+  1e6 / 1e4; seeded random bf16 weights), 32 requests of 1,024 -> 64
+  tokens with ``ignore_eos``, one pool, prefix reuse off.
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms). ``--spec EAGLE3 --draft-len d`` serves the
@@ -45,6 +60,8 @@ outside spec windows, and the launches replayed from spec graphs.
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --bench-settings
     python -m tensorrt_llm_tpu_torch.tools.serving_profile \
         --geometry qwen3-30b-a3b
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry gemma2-9b [--vswa]
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --quant W4A16_AWQ
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --spec EAGLE3 \
         --draft-len 3
@@ -81,6 +98,25 @@ QWEN3_30B_A3B = dict(
     rms_norm_eps=1e-6, rope_theta=1e6, attention_bias=False,
     use_sliding_window=False, sliding_window=None,
     tie_word_embeddings=False, bos_token_id=151643, eos_token_id=151645)
+# https://huggingface.co/google/gemma-2-9b/blob/main/config.json
+GEMMA2_9B = dict(
+    vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+    num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8,
+    head_dim=256, query_pre_attn_scalar=256, sliding_window=4096,
+    attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+    max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
+    hidden_activation="gelu_pytorch_tanh", bos_token_id=2, eos_token_id=1,
+    pad_token_id=0)
+# https://huggingface.co/google/gemma-3-1b-pt/blob/main/config.json
+GEMMA3_1B = dict(
+    vocab_size=262144, hidden_size=1152, intermediate_size=6912,
+    num_hidden_layers=26, num_attention_heads=4, num_key_value_heads=1,
+    head_dim=256, query_pre_attn_scalar=256, sliding_window=512,
+    sliding_window_pattern=6, max_position_embeddings=32768,
+    rms_norm_eps=1e-6, rope_theta=1e6, rope_local_base_freq=10000.0,
+    rope_scaling=None, attn_logit_softcapping=None,
+    final_logit_softcapping=None, hidden_activation="gelu_pytorch_tanh",
+    bos_token_id=2, eos_token_id=1, pad_token_id=0)
 
 
 def qwen3_30b_a3b_config():
@@ -96,12 +132,35 @@ def qwen3_30b_a3b_config():
     return transformers.PretrainedConfig(**QWEN3_30B_A3B)
 
 
-def workload(bench_settings: bool = False, geometry: str = "tinyllama"):
+def workload(bench_settings: bool = False, geometry: str = "tinyllama",
+             vswa: bool = False):
     """(config, LLM keyword arguments, prompts, SamplingParams)."""
     from transformers import LlamaConfig
 
     from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
     gen = torch.Generator().manual_seed(0)
+    if geometry == "gemma2-9b":
+        from transformers import Gemma2Config
+        prompts = torch.randint(3, GEMMA2_9B["vocab_size"], (16, 6144),
+                                generator=gen).tolist()
+        # prefix reuse off in both runs (VSWA has none): every pass
+        # prefills its prompts afresh
+        kv = dict(max_attention_window=[4096, 8192]) if vswa else {}
+        kwargs = dict(max_batch_size=16, max_input_len=6144,
+                      max_seq_len=8192, max_num_tokens=6144,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False,
+                                                    **kv))
+        return (Gemma2Config(**GEMMA2_9B), kwargs, prompts,
+                SamplingParams(max_tokens=64, top_k=1, ignore_eos=True))
+    if geometry == "gemma3-1b":
+        from transformers import Gemma3TextConfig
+        prompts = torch.randint(3, GEMMA3_1B["vocab_size"], (32, 1024),
+                                generator=gen).tolist()
+        kwargs = dict(max_batch_size=32, max_input_len=1024,
+                      max_seq_len=1024 + 128,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (Gemma3TextConfig(**GEMMA3_1B), kwargs, prompts,
+                SamplingParams(max_tokens=64, top_k=1, ignore_eos=True))
     if geometry == "qwen3-30b-a3b":
         prompts = torch.randint(0, QWEN3_30B_A3B["vocab_size"], (64, 128),
                                 generator=gen).tolist()
@@ -277,9 +336,12 @@ def main() -> None:
     ap.add_argument("--group-size", type=int, default=128)
     ap.add_argument("--bench-settings", action="store_true",
                     help="bench.py's throughput workload and settings")
-    ap.add_argument("--geometry", choices=["tinyllama", "qwen3-30b-a3b"],
+    ap.add_argument("--geometry", choices=["tinyllama", "qwen3-30b-a3b",
+                                           "gemma2-9b", "gemma3-1b"],
                     default="tinyllama",
                     help="the model of the default workload")
+    ap.add_argument("--vswa", action="store_true",
+                    help="gemma2-9b: the sliding layers on their own pool")
     ap.add_argument("--spec", choices=["NONE", "EAGLE3"], default="NONE",
                     help="speculative mode (EAGLE3: a seeded random head)")
     ap.add_argument("--draft-len", type=int, default=3,
@@ -290,7 +352,8 @@ def main() -> None:
     from tensorrt_llm_tpu_torch import LLM, SpeculativeConfig
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
     from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
-    cfg, kwargs, prompts, sp = workload(args.bench_settings, args.geometry)
+    cfg, kwargs, prompts, sp = workload(args.bench_settings, args.geometry,
+                                        args.vswa)
     if args.spec != "NONE":
         kwargs["speculative_config"] = SpeculativeConfig(
             mode=args.spec, max_draft_len=args.draft_len)
@@ -305,7 +368,7 @@ def main() -> None:
         llm.shutdown()
     print(json.dumps(dict(quant_algo=args.quant,
                           bench_settings=args.bench_settings,
-                          geometry=args.geometry,
+                          geometry=args.geometry, vswa=args.vswa,
                           spec=args.spec, draft_len=args.draft_len, **res)))
 
 

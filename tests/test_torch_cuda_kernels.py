@@ -667,3 +667,210 @@ def test_moe_window_replay_equals_eager(cuda, dtype):
     assert [len(t) for t in runs["graph"][0]] == [30] * 3
     assert runs["graph"][1][dec.__name__] > 0
     assert not runs["eager"][1]
+
+
+# ---- head_dim 256 (Gemma 2 and 3) ---------------------------------------
+# With a soft cap, q is scaled by 8 so that the scores (std 8) reach the
+# cap and attention is peaked; the plain version without the cap must then
+# fail the kernel's tolerance, so a kernel that dropped the cap would too.
+HD256_CAP_Q_SCALE = 8.0
+
+
+def _cap_matters(plain, ref, kw, dtype):
+    if kw.get("soft_cap"):
+        nocap = plain(**{**kw, "soft_cap": None})
+        assert not torch.allclose(nocap.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_splits", [1, 3, None])
+@pytest.mark.parametrize("kv_lens,qh,kvh,ps,opt", [
+    ([7, 300, 1, 0, 65], 2, 2, 16, None),                  # group 1
+    ([1500, 33, 0, 700], 16, 8, 32, "window_softcap"),     # Gemma-2-9B
+    ([900, 4, 513], 4, 1, 16, "window_softcap"),           # Gemma-3-1B
+    ([170, 44, 3, 0], 16, 2, 16, "sinks"),                 # group 8
+    ([9, 380, 26], 8, 2, 32, "alibi"),                     # group 4
+])
+def test_decode_hd256_matches_plain(cuda, dtype, num_splits, kv_lens, qh,
+                                    kvh, ps, opt):
+    """K1 at hd 256: groups 1/2/4/8, ragged lengths with zeros, window and
+    soft cap, sinks, ALiBi, forced and chosen splits."""
+    S = len(kv_lens)
+    q, pool, _, pt, _ = _inputs([1] * S, [max(k - 1, 0) for k in kv_lens],
+                                qh, kvh, 256, ps, dtype, cuda, seed=6)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=256 ** -0.5, **_opts(opt, qh, cuda))
+    if kw.get("soft_cap"):
+        q.mul_(HD256_CAP_Q_SCALE)
+    before = dec.LAUNCHES
+    got = dec.paged_decode_attention(q, pool, kvl, pt, num_splits=num_splits,
+                                     max_kv_len=max(kv_lens), **kw)
+    torch.cuda.synchronize()
+    assert dec.LAUNCHES == before + 1
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+    assert not got[torch.tensor(kv_lens) == 0].any()
+    _cap_matters(lambda **o: dec.paged_decode_attention_plain(
+        q, pool, kvl, pt, **o), ref, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_lens,ctx_lens,qh,kvh,ps,opt", [
+    ([70, 1, 45], [3, 90, 0], 2, 2, 16, None),             # group 1
+    ([200, 40, 1], [100, 0, 300], 16, 8, 32, "window_softcap"),
+    ([130, 1, 1], [0, 600, 20], 4, 1, 16, "window_softcap"),
+    ([64, 2], [0, 700], 16, 2, 32, "sinks"),               # group 8
+    ([13, 300], [5, 77], 8, 2, 16, "alibi"),               # group 4
+])
+def test_prefill_hd256_matches_plain(cuda, dtype, q_lens, ctx_lens, qh, kvh,
+                                     ps, opt):
+    """K2 at hd 256: both halves of the output columns, decode rows beside
+    chunks, window and soft cap, sinks, ALiBi."""
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx_lens, qh, kvh, 256, ps, dtype,
+                                   cuda, seed=7)
+    kw = dict(sm_scale=256 ** -0.5, **_opts(opt, qh, cuda))
+    if kw.get("soft_cap"):
+        q.mul_(HD256_CAP_Q_SCALE)
+    before = pre.LAUNCHES
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                       max_q_len=max(q_lens), **kw)
+    torch.cuda.synchronize()
+    assert pre.LAUNCHES == before + 1
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+    _cap_matters(lambda **o: pre.ragged_prefill_attention_plain(
+        q, pool, kvl, pt, cu, **o), ref, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hd256_nan_past_kv_len_is_ignored(cuda, dtype):
+    """Positions past kv_len (NaN here) reach neither kernel's output at
+    hd 256."""
+    q, pool, kvl, pt, cu = _inputs([50, 1], [0, 70], 8, 4, 256, 16, dtype,
+                                   cuda, seed=8)
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu,
+                                             sm_scale=0.0625)
+    for s, n in enumerate(kvl.tolist()):
+        page, off = pt[s, n // 16].item(), n % 16
+        pool[page, off:] = float("nan")
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu, max_q_len=50,
+                                       sm_scale=0.0625)
+    dgot = dec.paged_decode_attention(q[50:], pool, kvl[1:], pt[1:],
+                                      sm_scale=0.0625, num_splits=2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+    torch.testing.assert_close(dgot.float(), ref[50:].float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("hd", [96, 192, 512])
+def test_other_head_dims_refused_by_name(cuda, hd):
+    q, pool, kvl, pt, cu = _inputs([3], [5], 4, 2, hd, 16, torch.bfloat16,
+                                   cuda)
+    with pytest.raises(ValueError, match=f"hd={hd}"):
+        dec.paged_decode_attention(q[:1], pool, kvl, pt, sm_scale=0.1)
+    with pytest.raises(ValueError, match=f"hd={hd}"):
+        pre.ragged_prefill_attention(q, pool, kvl, pt, cu, sm_scale=0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_hd256_split_replays_under_cuda_graph(cuda, dtype):
+    """K1 at hd 256 with more than one split, window on: a replay gives the
+    eager launch's bits and reads the current q."""
+    kv_lens = [6200, 6150, 17, 6208]
+    S, qh, kvh, hd = 4, 16, 8, 256
+    q, pool, _, pt, _ = _inputs([1] * S, [k - 1 for k in kv_lens], qh, kvh,
+                                hd, 32, dtype, cuda, seed=9)
+    q.mul_(HD256_CAP_Q_SCALE)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5, max_kv_len=8192, sliding_window=4096,
+              soft_cap=50.0)
+    assert dec.splits_for(S, qh, kvh, pt.shape[1] * 32, 8192, 4096,
+                          cuda) > 1
+    eager, out, graph = _graphed(
+        lambda: dec.paged_decode_attention(q, pool, kvl, pt, **kw))
+    assert torch.equal(out, eager)
+    q.mul_(-0.5)
+    graph.replay()
+    want = dec.paged_decode_attention(q, pool, kvl, pt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    pkw = dict(sm_scale=hd ** -0.5, sliding_window=4096, soft_cap=50.0)
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, **pkw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+    _cap_matters(lambda **o: dec.paged_decode_attention_plain(
+        q, pool, kvl, pt, **o), ref, pkw, dtype)
+
+
+def _tiny_gemma2(hd=256):
+    from transformers import Gemma2Config
+    return Gemma2Config(vocab_size=512, hidden_size=256,
+                        intermediate_size=512, num_hidden_layers=4,
+                        num_attention_heads=4, num_key_value_heads=2,
+                        head_dim=hd, query_pre_attn_scalar=hd,
+                        sliding_window=32, max_position_embeddings=512)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vswa_window_replay_equals_eager(cuda, dtype):
+    """A tiny Gemma 2 at hd 256 with VSWA (window 32, page 16) serves one
+    workload twice: K-step windows replayed from CUDA graphs, and the
+    same windows run eagerly on the same static buffers. Tokens are
+    identical; the graphs replayed K1; and the windows ran with sliding
+    page tables that hold released entries (blocks handed back while the
+    sequences still ran)."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    prompts = [[5, 9, 23, 44, 17], list(range(2, 140)), [7] * 40]
+    sp = SamplingParams(max_tokens=60, top_k=1, ignore_eos=True)
+    runs = {}
+    for mode in ("graph", "eager"):
+        llm = LLM(_tiny_gemma2(), device=cuda, dtype=dtype,
+                  skip_tokenizer_init=True, max_batch_size=4,
+                  max_input_len=192, max_seq_len=256, max_num_tokens=256,
+                  enable_warmup=mode == "graph",
+                  kv_cache_config=KvCacheConfig(
+                      tokens_per_block=16, max_tokens=4096,
+                      max_attention_window=[32, 256]))
+        llm.engine.graphs.capture = mode == "graph"
+        try:
+            toks = [o.outputs[0].token_ids for o in llm.generate(prompts, sp)]
+            runs[mode] = (toks, llm.engine.graphs.replayed_launches(),
+                          llm.kv_cache_manager.trimmed_blocks)
+        finally:
+            llm.shutdown()
+    assert runs["graph"][0] == runs["eager"][0]
+    assert [len(t) for t in runs["graph"][0]] == [60] * 3
+    assert runs["graph"][1][dec.__name__] > 0
+    assert not runs["eager"][1]
+    assert runs["graph"][2] > 0 and runs["graph"][2] == runs["eager"][2]
+
+
+@pytest.mark.parametrize("vswa", [False, True], ids=["single", "vswa"])
+def test_gemma2_hd256_cuda_matches_cpu(cuda, vswa, tmp_path):
+    """The tiny Gemma 2 at hd 256 in float32 (a seeded transformers model
+    saved to a directory): the kernel path on the card (K1 and K2 at hd
+    256, window and soft cap) and the plain path on the CPU give the same
+    greedy tokens, with one pool and with VSWA."""
+    from transformers import Gemma2ForCausalLM
+
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    torch.manual_seed(0)
+    Gemma2ForCausalLM(_tiny_gemma2()).save_pretrained(tmp_path)
+    prompts = [list(range(2, 100)), [3, 1, 4, 1, 5, 9, 2, 6], [8] * 50]
+    sp = SamplingParams(max_tokens=40, top_k=1, ignore_eos=True)
+    kv = dict(tokens_per_block=16, max_tokens=4096)
+    if vswa:
+        kv["max_attention_window"] = [32, 256]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        llm = LLM(tmp_path, device=dev, dtype="float32",
+                  skip_tokenizer_init=True, max_batch_size=4,
+                  max_input_len=128, max_seq_len=256, max_num_tokens=128,
+                  kv_cache_config=KvCacheConfig(**kv))
+        try:
+            outs[dev] = [o.outputs[0].token_ids
+                         for o in llm.generate(prompts, sp)]
+        finally:
+            llm.shutdown()
+    assert outs["cuda"] == outs["cpu"]
