@@ -144,14 +144,16 @@ the run on error:
      against the CPU plain path: identical greedy tokens in float32, in
      bf16 a parting only at a near-tie; K1 and K2 must launch, VSWA must
      release sliding blocks;
- 14. gemma_serving: Gemma-2-9B at full width and depth (42 layers,
-     seeded random bf16, 18.5 GB), 16 x 6,144 -> 64 greedy tokens,
+ 14. gemma_serving: Gemma-2-9B at full width, 22 of its 42 layers
+     (``GEMMA2_9B_LAYERS``: a depth cut for the script's time budget;
+     seeded random bf16, 10.5 GB), 16 x 6,144 -> 64 greedy tokens,
      max_seq_len 8,192, once with VSWA (``max_attention_window=[4096,
      8192]``) and once with one pool (tools/serving_profile.py
      ``--geometry gemma2-9b [--vswa]``: tok/s, TTFT, TPOT, idle share,
      GPU time by class, each pool's pages, tokens and bytes, sliding
-     blocks released, launches, replays, graph keys); the first 8 tokens
-     of every stream of the two runs identical or parted at a near-tie;
+     blocks released, launches, replays, graph keys; the one-pool run
+     without its profiled pass); the first 8 tokens of every stream of
+     the two runs identical or parted at a near-tie;
      then Gemma-3-1B at full width, 32 x 1,024 -> 64, one pool. Each
      run records the (q_lens, ctx) of its eager steps. The ``kernels``
      line's rows carry ``launches_gemma_serving`` (the VSWA run's timed
@@ -160,11 +162,39 @@ the run on error:
      gemma_serving recorded (Gemma-2-9B global and sliding, Gemma-3-1B),
      and timed at the 9B step past a fresh prompt with the most attention
      pairs (``prefill_gemma2_9b_step`` and ``_window``).
+ 16. kv_quant_parity: tests/assets/tinycode-llama in float32 on INT8, FP8
+     and NVFP4 KV pools (``QuantConfig(kv_cache_quant_algo=...)``), the
+     card against the CPU with the CPU's calibrated scales written into
+     the card's scale tensors after its graphs were captured: greedy
+     tokens identical wherever the CPU run decides by more than 3e-2 in
+     log-probability; K1, K2 and graph replays required;
+ 17. kv_serving: Llama-3-8B at its published width and depth (32 layers;
+     seeded random bf16 weights, 16.1 GB), 64 x 2,048 -> 128 greedy
+     tokens, ``LLM`` defaults but prefix reuse off, on a bf16 pool and an
+     FP8 pool (tools/serving_profile.py ``--geometry llama3-8b [--kv
+     fp8]``; an INT8 pool by ``--kv int8``, left out here for time):
+     tok/s, TTFT and TPOT (median, max), idle share, GPU time by
+     class, the pool's pages, tokens and bytes, the calibrated scales'
+     range, launches and replays; every request 128 tokens, no NaN in
+     the pool or in the returned logprobs, K1 replayed in windows, K2
+     launched; the ``kernels`` line's ``launches_kv_serving`` (the FP8
+     run's timed pass);
+ 18. kv_quant_kernels: K1 and K2 on int8 and e4m3 pools against their
+     plain versions (q scaled by 8; bf16 held to 2e-2 x max |plain|,
+     and the plain version without either scale must fail that check),
+     at kv_serving's shapes (``decode_kv_*``: 64 rows at 2,049-2,176 KV,
+     32 x 128 q heads over 8; ``prefill_kv_*``: the FP8 run's first
+     eager prefill step), timed beside the plain version, the same
+     kernel on the bf16 pool (``bf16_pool_ms``) and SDPA on the KV
+     dequantized beforehand, the bound from the 8-bit bytes; one case at
+     hd 64 and one at hd 256, and float32 cases held to 1e-4; the
+     ``kernels`` line's ``max_abs_err_kv8``.
 
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results (launches from the bench-settings run, or the
-W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's and
-moe_serving's timed passes) and ``{"ok": true, "device": {...}}``.
+W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's,
+moe_serving's, gemma_serving's and kv_serving's timed passes) and
+``{"ok": true, "device": {...}}``.
 """
 import json
 import statistics
@@ -1558,30 +1588,43 @@ def _sensitive(name, ref, other, tol, what) -> float:
     return diff
 
 
-def _gemma_kernel_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
-                       dtype, seed, pages_per_seq=0, timed=True) -> dict:
-    """One K1 (``kind`` "decode") or K2 ("prefill") case at hd 256, q
+# an 8-bit pool's (k_scale, v_scale) in the kernel cases, for a pool
+# quantized from standard normals: int8 clips past 4 (3.5) sigma, e4m3
+# holds 7 (5.6) sigma inside +-448; K and V apart, so that a kernel that
+# swapped or dropped one fails
+KV8_SCALES = {"int8": (4 / 127, 3.5 / 127), "e4m3": (1 / 64, 1 / 80)}
+
+
+def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
+                    dtype, seed, pages_per_seq=0, timed=True, hd=GEMMA_HD,
+                    kv8=None) -> dict:
+    """One K1 (``kind`` "decode") or K2 ("prefill") case at ``hd``, q
     scaled by ``GEMMA_Q_SCALE``, held against its plain version (bf16
     2e-2, float32 1e-4, as ``allclose`` and against tol x max |plain|);
     the plain version without the soft cap, and without the window, must
-    fail that check. The page table has the engine's ``pages_per_seq``
-    columns, so that K1's ``max_kv_len`` hint and split count are the
-    serving launch's. With ``timed``: timed beside the plain version and
-    one SDPA call on the KV gathered to the longest row under an explicit
-    mask of each row's causal and window limits. SDPA has no soft cap:
-    with one, its call computes the same attention without the cap, and
-    is held against the plain version without it (``library_computes``).
-    The bound counts the KV positions the rows can see (the window's, not
-    the row's), each read once, and the operations at the type's peak
-    (bf16 tensor cores, float32 CUDA cores)."""
+    fail that check. ``kv8`` ("int8" or "e4m3"): the pool is quantized by
+    ``KV8_SCALES`` and the plain version without either scale must fail
+    the check too. The page table has the
+    engine's ``pages_per_seq`` columns, so that K1's ``max_kv_len`` hint
+    and split count are the serving launch's. With ``timed``: timed
+    beside the plain version and one SDPA call on the KV gathered to the
+    longest row (dequantized to q's type beforehand from an 8-bit pool)
+    under an explicit mask of each row's causal and window limits, and
+    from an 8-bit pool beside the same kernel on the bf16 pool it was
+    quantized from (``bf16_pool_ms``). SDPA has no soft cap: with one,
+    its call computes the same attention without the cap, and is held
+    against the plain version without it (``library_computes``). The
+    bound counts the KV positions the rows can see (the window's, not the
+    row's), each read once at the pool's element size, and the operations
+    at the type's peak (bf16 tensor cores, float32 CUDA cores)."""
     import torch
     import torch.nn.functional as F
+    from tensorrt_llm_tpu_torch.ops.attention import quantize_kv
     from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
     from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
     from tensorrt_llm_tpu_torch.tools.card_timing import (PAGE, dense_kv,
                                                           make_case,
                                                           time_ms)
-    hd = GEMMA_HD
     q, pool, kv_lens, pt, cu = make_case(q_lens, ctx, qh, kvh, hd, seed=seed,
                                          dtype=dtype,
                                          pages_per_seq=pages_per_seq)
@@ -1589,13 +1632,22 @@ def _gemma_kernel_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
     kvs = [c + n for c, n in zip(ctx, q_lens)]
     kw = dict(sm_scale=hd ** -0.5, sliding_window=window, soft_cap=cap)
     tol = TOL if dtype == torch.bfloat16 else 1e-4
+    wide_pool = pool
+    if kv8:
+        kdt = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}[kv8]
+        ks, vs = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                  for v in KV8_SCALES[kv8])
+        pool = torch.empty(pool.shape, dtype=kdt, device="cuda")
+        pool[:, :, 0::2] = quantize_kv(wide_pool[:, :, 0::2], ks, kdt)
+        pool[:, :, 1::2] = quantize_kv(wide_pool[:, :, 1::2], vs, kdt)
+        kw.update(k_scale=ks, v_scale=vs)
     S, mq = len(q_lens), max(q_lens)
     if kind == "decode":
         reach = pt.shape[1] * PAGE
         # the engine's hint (_kv_bound): a power of two, capped at reach
         hint = min(1 << (max(kvs) - 1).bit_length(), reach)
 
-        def kernel():
+        def kernel(pool=pool, kw=kw):
             return dec.paged_decode_attention(q, pool, kv_lens, pt,
                                               max_kv_len=hint, **kw)
 
@@ -1606,7 +1658,7 @@ def _gemma_kernel_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
                      splits=dec.splits_for(S, qh, kvh, reach, hint, window,
                                            q.device))
     else:
-        def kernel():
+        def kernel(pool=pool, kw=kw):
             return pre.ragged_prefill_attention(q, pool, kv_lens, pt, cu,
                                                 max_q_len=mq, **kw)
 
@@ -1624,15 +1676,20 @@ def _gemma_kernel_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
     if window:
         extra["window_effect"] = _sensitive(
             name, ref, plain(sliding_window=None), tol, "the window")
+    if kv8:
+        for s_name in ("k_scale", "v_scale"):
+            extra[f"{s_name}_effect"] = _sensitive(
+                name, ref, plain(**{s_name: None}), tol, s_name)
     res = dict(shape=dict(seqs=S, q_lens=sorted(set(q_lens)),
                           kv_len=[min(kvs), max(kvs)], qh=qh, kvh=kvh, hd=hd,
                           page=PAGE, pages_per_seq=pt.shape[1],
                           window=window, soft_cap=cap, q_scale=GEMMA_Q_SCALE,
-                          dtype=str(dtype).split(".")[-1]),
+                          dtype=str(dtype).split(".")[-1],
+                          kv=kv8 or str(dtype).split(".")[-1]),
                max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
                tol=tol, **extra)
     if not timed:
-        del q, pool, kv_lens, pt, cu, got, ref, lref
+        del q, pool, wide_pool, kv_lens, pt, cu, got, ref, lref
         return res
     # what the rows can see: query i of a row at position p sees
     # max(0, p - window + 1) .. p
@@ -1645,19 +1702,31 @@ def _gemma_kernel_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
             pairs += p + 1 - (max(0, p - window + 1) if window else 0)
     el = q.element_size()
     flops = 4 * qh * hd * pairs
-    io_bytes = seen * kvh * hd * 2 * el + 2 * q.numel() * el \
-        + pt.numel() * 4 + (S + 1) * 4 * (2 if kind == "prefill" else 1)
+    io_bytes = seen * kvh * hd * 2 * pool.element_size() \
+        + 2 * q.numel() * el + pt.numel() * 4 \
+        + (S + 1) * 4 * (2 if kind == "prefill" else 1) + (8 if kv8 else 0)
     res.update(bytes=io_bytes, flops=flops, **_bound(
         io_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16
         else F32_FLOPS))
     res["ms"] = time_ms(kernel, 30)
     res["plain_ms"] = time_ms(plain, 5)
     res["bound_share"] = res["bound_ms"] / res["ms"]
+    if kv8:
+        no_scale = {k: v for k, v in kw.items() if "scale" not in k
+                    or k == "sm_scale"}
+        res["bf16_pool_ms"] = time_ms(lambda: kernel(wide_pool, no_scale),
+                                      30)
     # one SDPA call over the gathered KV, queries padded to the
     # longest segment, an explicit mask of each row's limits
     Lq, Lk = mq, max(kvs)
     dev = q.device
-    k, v = dense_kv(pool, pt, kvh, hd, Lk)
+    if kv8:
+        # the 8-bit KV gathered by its bytes, then dequantized to q's type
+        k, v = dense_kv(pool.view(torch.uint8), pt, kvh, hd, Lk)
+        k = dec.dequant_kv(k.view(pool.dtype), ks, dtype)
+        v = dec.dequant_kv(v.view(pool.dtype), vs, dtype)
+    else:
+        k, v = dense_kv(pool, pt, kvh, hd, Lk)
     nq = torch.tensor(q_lens, device=dev)
     seq = torch.repeat_interleave(torch.arange(S, device=dev), nq)
     row = torch.cat([torch.arange(n, device=dev) for n in q_lens])
@@ -1688,7 +1757,7 @@ def _gemma_kernel_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
                "the same attention without the soft cap")
     del k, v, qp, mask, lib
     emit({"phase": "kernels", "case": name, **res})
-    del q, pool, kv_lens, pt, cu, got, ref, lref
+    del q, pool, wide_pool, kv_lens, pt, cu, got, ref, lref
     torch.cuda.empty_cache()
     return res
 
@@ -1696,6 +1765,10 @@ def _gemma_kernel_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
 # the engines' page-table widths: max_seq_len 8,192 (Gemma-2-9B) and
 # 1,152 (Gemma-3-1B) over pages of 32
 PAGES_9B, PAGES_1B = 256, 36
+# gemma_serving's depth of Gemma-2-9B: 22 of its 42 layers since PR 9
+# (even, as VSWA's strict alternation needs), to keep the script inside
+# its time budget beside kv_serving; every layer has the full width
+GEMMA2_9B_LAYERS = 22
 
 
 def gemma_kernel_phase(results: dict) -> None:
@@ -1728,7 +1801,7 @@ def gemma_kernel_phase(results: dict) -> None:
               16, 8, 512, 50.0, f32, 47), 0),
             (("prefill_float32_hd256", "prefill", [300, 1, 70],
               [0, 900, 500], 16, 8, 256, 50.0, f32, 48), 0)]:
-        results[args[0]] = _gemma_kernel_case(*args, pages_per_seq=pages)
+        results[args[0]] = _attention_case(*args, pages_per_seq=pages)
 
 
 def gemma_step_phase(results: dict, steps: dict) -> None:
@@ -1755,7 +1828,7 @@ def gemma_step_phase(results: dict, steps: dict) -> None:
         errs = []
         for i, (q, c) in enumerate(shapes):
             for w in (None, window):
-                r = _gemma_kernel_case(f"step_{run}_{i}", "prefill", list(q),
+                r = _attention_case(f"step_{run}_{i}", "prefill", list(q),
                                        list(c), qh, kvh, w, cap, bf, 60 + i,
                                        pages_per_seq=pages, timed=False)
                 errs.append(r["max_abs_err"])
@@ -1770,7 +1843,7 @@ def gemma_step_phase(results: dict, steps: dict) -> None:
     q, c = max(later9, key=pairs)
     for name, w in (("prefill_gemma2_9b_step", None),
                     ("prefill_gemma2_9b_step_window", 4096)):
-        results[name] = _gemma_kernel_case(
+        results[name] = _attention_case(
             name, "prefill", list(q), list(c), 16, 8, w, 50.0, bf, 70,
             pages_per_seq=PAGES_9B)
 
@@ -1890,15 +1963,17 @@ def _record_eager_steps(eng) -> list:
 
 
 def gemma_serving_phase() -> dict:
-    """Gemma-2-9B at its published width and depth (42 layers; seeded
-    random bf16 weights, 18.5 GB), 16 requests of 6,144 prompt tokens ->
+    """Gemma-2-9B at its published width, 22 of its 42 layers
+    (``GEMMA2_9B_LAYERS``; seeded random bf16 weights, 10.5 GB), 16
+    requests of 6,144 prompt tokens ->
     64 greedy tokens with ``ignore_eos`` (max_seq_len 8,192; one prompt
     per prefill step), measured by tools/serving_profile.py
     (``--geometry gemma2-9b [--vswa]``), twice: with VSWA
     (``max_attention_window=[4096, 8192]``: the 21 sliding layers on a
-    pool of their own) and with one pool. Per run: tok/s, TTFT, TPOT,
-    device idle share, GPU time by class, each pool's pages, tokens and
-    bytes, sliding blocks released over the three passes, launches and
+    pool of their own) and with one pool (without its profiled pass, for
+    the script's time budget). Per run: tok/s, TTFT, TPOT, device idle
+    share and GPU time by class (VSWA), each pool's pages, tokens and
+    bytes, sliding blocks released over the passes, launches and
     replays, graph keys. Then the first 8 tokens of every stream of the
     two runs (logprobs on, so single steps): identical, or parted only
     where the one-pool run decides by less than ``_compare_streams``'
@@ -1921,6 +1996,9 @@ def gemma_serving_phase() -> dict:
                                   ("gemma3_1b", "gemma3-1b", False)]:
         cfg, kwargs, prompts, sp = sprof.workload(geometry=geometry,
                                                   vswa=vswa)
+        if geometry == "gemma2-9b":
+            cfg = type(cfg)(**{**sprof.GEMMA2_9B,
+                               "num_hidden_layers": GEMMA2_9B_LAYERS})
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1935,11 +2013,11 @@ def gemma_serving_phase() -> dict:
             mgr = llm.kv_cache_manager
             trimmed0 = getattr(mgr, "trimmed_blocks", 0)
             steps = _record_eager_steps(eng)
-            # Gemma-3-1B's run shows it serves: its profile is left out
-            # to keep the script inside half its time limit
+            # Gemma-3-1B's run shows it serves, and the one-pool run is
+            # held against the VSWA run: their profiles are left out to
+            # keep the script inside its time budget (since kv_serving)
             try:
-                res = sprof.measure(llm, prompts, sp,
-                                    profile=geometry == "gemma2-9b")
+                res = sprof.measure(llm, prompts, sp, profile=label == "vswa")
             finally:
                 del eng.prepare_inputs
             trimmed = getattr(mgr, "trimmed_blocks", 0) - trimmed0
@@ -2007,6 +2085,236 @@ def gemma_serving_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# The quantized KV cache: K1 and K2 on 8-bit pools, Llama-3-8B on FP8
+# --------------------------------------------------------------------- #
+# Llama-3-8B's page table in kv_serving: max_seq_len 2,048 + 2,048 (the
+# LLM defaults) over pages of 32
+PAGES_8B = 128
+
+
+def _kv_scales(llm):
+    """The per-layer KV scales of an engine's layers."""
+    return [float(layer["kv_scale"]) for layer in llm.engine.params["layers"]]
+
+
+def kv_quant_parity_phase(repo: Path) -> dict:
+    """tests/assets/tinycode-llama in float32 on INT8, FP8 and NVFP4 KV
+    pools through ``LLM.generate``, the card (K1 and K2 on the 8-bit pool,
+    windows replayed from graphs captured at build) against the CPU (the
+    plain versions), the CPU's calibrated scales written into the card
+    engine's scale tensors in place after its graphs were captured.
+    Greedy tokens must be identical wherever the CPU run decides by more
+    than ``NEAR_TIE`` in log-probability; the card must have launched K1
+    and K2 and replayed windows."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
+    from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"import torch\n"), list(range(32, 120)),
+               list(range(3, 40))]
+    out = {}
+    for algo in ("INT8", "FP8", "NVFP4"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            llm = LLM(repo / "tests" / "assets" / "tinycode-llama",
+                      device=dev, dtype="float32", skip_tokenizer_init=True,
+                      max_batch_size=8, max_input_len=128, max_seq_len=256,
+                      max_num_tokens=512,
+                      quant_config=QuantConfig(
+                          kv_cache_quant_algo=KvCacheQuantAlgo[algo]),
+                      kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=4096))
+            try:
+                if dev == "cpu":
+                    scales = _kv_scales(llm)
+                else:
+                    card_own = _kv_scales(llm)
+                    for layer, sc in zip(llm.engine.params["layers"],
+                                         scales):
+                        layer["kv_scale"].fill_(sc)
+                    _zero_launches()
+                    replays0 = llm.engine.graphs.replays
+                outs = llm.generate(prompts, SamplingParams(
+                    max_tokens=32, top_k=1, ignore_eos=True,
+                    logprobs=2 if dev == "cpu" else None))
+                runs[dev] = ([o.outputs[0].token_ids for o in outs],
+                             [o.outputs[0].logprobs for o in outs])
+                if dev == "cuda":
+                    launches = _read_launches()
+                    replays = llm.engine.graphs.replays - replays0
+                    pool = llm.engine.kv_pages
+            finally:
+                llm.shutdown()
+        margins = []
+        for a_row, a_lps, b_row in zip(runs["cpu"][0], runs["cpu"][1],
+                                       runs["cuda"][0]):
+            for a, b, alp in zip(a_row, b_row, a_lps):
+                if a != b:
+                    top = sorted(alp.values(), reverse=True)
+                    margins.append(top[0] - top[1])
+                    break
+        res = dict(algo=algo, pool=str(pool.dtype).split(".")[-1],
+                   identical=runs["cpu"][0] == runs["cuda"][0],
+                   parting_margins=margins, scales=[min(scales), max(scales)],
+                   card_calibration_max_rel_diff=max(
+                       abs(a - b) / b for a, b in zip(card_own, scales)),
+                   launches=launches, graph_replays=replays)
+        emit({"phase": "kv_quant_parity", **res})
+        if any(m > NEAR_TIE for m in margins):
+            raise AssertionError(f"kv_quant_parity {algo}: the card parts "
+                                 f"from the CPU above the near-tie: {res}")
+        if min(launches[k] for k in ("paged_decode_attention",
+                                     "ragged_prefill_attention")) <= 0 \
+                or not replays:
+            raise AssertionError(f"kv_quant_parity {algo}: K1 or K2 never "
+                                 f"launched, or no graph replayed: {res}")
+        out[algo] = res
+    return out
+
+
+def _pool_nans(pools) -> int:
+    """NaN entries of a KV pool (or of each VSWA pool), counted one layer
+    at a time (a bool mask of the whole pool would not fit beside it);
+    e4m3 NaNs by their bytes (0x7f, 0xff)."""
+    import torch
+    n = 0
+    for pool in pools if isinstance(pools, tuple) else (pools,):
+        for layer in pool:
+            if layer.dtype == torch.float8_e4m3fn:
+                n += int(((layer.view(torch.uint8) & 0x7F) == 0x7F).sum())
+            elif layer.is_floating_point():
+                n += int(torch.isnan(layer).sum())
+    return n
+
+
+def kv_serving_phase() -> dict:
+    """Llama-3-8B at its published width and depth (32 layers; seeded
+    random bf16 weights, 16.1 GB), 64 requests of 2,048 prompt tokens ->
+    128 greedy tokens with ``ignore_eos``, ``LLM`` defaults but prefix
+    reuse off, measured by tools/serving_profile.py (``--geometry
+    llama3-8b [--kv fp8]``): on a bf16 pool and on an FP8 pool, scales
+    calibrated at build (``--kv int8`` serves it on an INT8 pool; left out
+    here to keep the script inside its time budget).
+    Per run: tok/s, TTFT and TPOT (median, max), device idle share, GPU
+    time by class, the pool's pages, tokens and bytes, the calibrated
+    scales' range, launches and replays, and the (q_lens, ctx) of its
+    eager steps. Fails if a request comes back short, if the pool or the
+    returned log-probabilities hold a NaN, if K1 or K2 never launched, if
+    no window replayed K1, or if the graph pool outgrew its reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
+    from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    out = {}
+    for label, algo in (("bf16", "NO_QUANT"), ("fp8", "FP8")):
+        cfg, kwargs, prompts, sp = sprof.workload(geometry="llama3-8b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
+            kv_cache_quant_algo=KvCacheQuantAlgo[algo]), **kwargs)
+        build_s = time.monotonic() - t0
+        try:
+            eng = llm.engine
+            weights_bytes = sum(t.numel() * t.element_size()
+                                for t in _tensors(eng.params))
+            scales = _kv_scales(llm) if algo != "NO_QUANT" else [1.0]
+            replayed0 = eng.graphs.replayed_launches()
+            steps = _record_eager_steps(eng)
+            try:
+                res = sprof.measure(llm, prompts, sp)
+            finally:
+                del eng.prepare_inputs
+            graphs = _graph_stats(eng)
+            graphs["replayed_launches"] = {
+                k: v - replayed0[_kernel_counts()[k].__name__]
+                for k, v in graphs["replayed_launches"].items()}
+            reserve = eng.graph_pool_reserve()
+            ps = eng.page_size
+            pool = dict(dtype=str(eng.kv_pages.dtype).split(".")[-1],
+                        pages=eng.num_kv_pages, tokens=eng.num_kv_pages * ps,
+                        bytes=eng.num_kv_pages * eng.bytes_per_kv_block,
+                        bytes_per_token=eng.bytes_per_kv_block // ps)
+            nans = _pool_nans(eng.kv_pages)
+        finally:
+            llm.shutdown()
+        peak = torch.cuda.max_memory_allocated()
+        del llm, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        res.update(run=label, kv_cache_quant_algo=algo, model="Llama-3-8B",
+                   layers=cfg.num_hidden_layers, engine_build_s=build_s,
+                   weights_bytes=weights_bytes, peak_allocated_bytes=peak,
+                   pool=pool, scales=[min(scales), max(scales)],
+                   pool_nans=nans, eager_steps=steps,
+                   graph_pool_reserve_bytes=reserve, graphs=graphs)
+        emit({"phase": "kv_serving", **res})
+        if res["output_tokens"] != len(prompts) * sp.max_tokens \
+                or res["min_output_tokens"] != sp.max_tokens:
+            raise AssertionError(f"kv_serving {label}: short outputs")
+        if nans or res["nonfinite_logprobs"] or not res["logprobs_recorded"]:
+            raise AssertionError(f"kv_serving {label}: NaN in the pool "
+                                 f"({nans}) or in the logprobs")
+        if min(res["launches"][k] for k in ("paged_decode_attention",
+                                            "ragged_prefill_attention")) <= 0:
+            raise AssertionError(f"kv_serving {label}: K1 or K2 never "
+                                 f"launched: {res['launches']}")
+        if not graphs["replayed_launches"]["paged_decode_attention"]:
+            raise AssertionError(f"kv_serving {label}: no window replayed "
+                                 f"K1: {graphs}")
+        _check_reserve(res)
+        out[label] = res
+    return out
+
+
+def kv_quant_kernel_phase(results: dict, first_step) -> None:
+    """K1 and K2 on int8 and e4m3 pools against their plain versions
+    (``_attention_case`` with ``kv8``: q scaled by 8, bf16 held to 2e-2
+    and to 2e-2 x max |plain|, the plain version without either scale must
+    fail that check): at kv_serving's shapes, K1 on 64 rows at 2,049-2,176
+    KV (32 x 128 q heads over 8 KV heads, the engine's 128-column page
+    table) and K2 at kv_serving's first eager prefill step
+    (``first_step``, (q_lens, ctx)), each timed beside its plain version,
+    the same kernel on the bf16 pool it was quantized from, and one SDPA
+    call on the KV gathered and dequantized beforehand, the bound by this
+    run's 8-bit bytes; then one case at hd 64 (K1, int8) and one at hd 256
+    (K2, e4m3, window 512 and soft cap 50), and float32 cases of both held
+    to 1e-4."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = [2049 + (127 * i) // 63 for i in range(64)]
+    q_lens, ctx = first_step
+    cases = []
+    for kv8 in ("int8", "e4m3"):
+        cases += [
+            (f"decode_kv_{kv8}", "decode", [1] * 64, [k - 1 for k in rows],
+             32, 8, None, None, bf, 90, PAGES_8B, True, 128, kv8),
+            (f"prefill_kv_{kv8}", "prefill", list(q_lens), list(ctx), 32, 8,
+             None, None, bf, 91, PAGES_8B, True, 128, kv8)]
+    cases += [
+        ("decode_kv_int8_hd64", "decode", [1] * 32, [1023] * 32, 32, 4,
+         None, None, bf, 92, 0, False, 64, "int8"),
+        ("prefill_kv_e4m3_hd256", "prefill", [1024, 1], [0, 700], 16, 8,
+         512, 50.0, bf, 93, 0, False, 256, "e4m3"),
+        ("decode_kv_float32", "decode", [1] * 4, [699, 32, 1499, 0], 32, 8,
+         512, 50.0, f32, 94, 0, False, 128, "e4m3"),
+        ("prefill_kv_float32", "prefill", [300, 1, 70], [0, 900, 500], 32,
+         8, None, None, f32, 95, 0, False, 128, "int8")]
+    for (name, kind, ql, cx, qh, kvh, window, cap, dtype, seed, pages,
+         timed, hd, kv8) in cases:
+        r = _attention_case(name, kind, ql, cx, qh, kvh, window, cap, dtype,
+                            seed, pages_per_seq=pages, timed=timed, hd=hd,
+                            kv8=kv8)
+        if not timed:
+            emit({"phase": "kernels", "case": name, **r})
+        results[name] = r
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -2059,6 +2367,10 @@ def main() -> int:
     timed("gemma_steps", gemma_step_phase, kern,
           {k: v["eager_steps"] for k, v in gemma_runs.items()})
     moe = timed("moe_serving", moe_serving_phase)
+    timed("kv_quant_parity", kv_quant_parity_phase, here)
+    kv_runs = timed("kv_serving", kv_serving_phase)
+    timed("kv_quant_kernels", kv_quant_kernel_phase, kern,
+          kv_runs["fp8"]["eager_steps"][0])
     emit({"phase": "timing", "seconds": seconds})
 
     kernels = []
@@ -2081,8 +2393,12 @@ def main() -> int:
             launches_spec_serving=spec["launches"][name],
             launches_moe_serving=moe["launches"][name],
             launches_gemma_serving=gemma["launches"][name],
+            launches_kv_serving=kv_runs["fp8"]["launches"][name],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
+            max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()
+                                 if c.startswith(group) and "_kv_" in c),
+                                default=None),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],

@@ -1,12 +1,15 @@
 // Shared helpers of the paged attention kernels (decode_attention.cu,
-// prefill_attention.cu): element conversion, 16-byte vector loads, warp
-// and quad reductions, the score transform, and the tensor-core building
-// blocks of the bf16 routes (cp.async, ldmatrix, mma.sync m16n8k16, the
-// shared-memory swizzle); the launch-side shared-memory opt-in is in
-// smem_optin.cuh.
+// prefill_attention.cu): element conversion (the 8-bit pool types
+// included), 16-byte vector loads, warp and quad reductions, the score
+// transform, and the tensor-core building blocks of the bf16 routes
+// (cp.async, ldmatrix, mma.sync m16n8k16, the shared-memory swizzle, the
+// widening of 8-bit pool chunks to bf16); the launch-side shared-memory
+// opt-in is in smem_optin.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -24,11 +27,26 @@
 
 enum AttnDtype { ATTN_F32 = 0, ATTN_BF16 = 1 };
 
+// The pool's element type: q's own, or an 8-bit quantized pool (int8, or
+// float8 e4m3) whose values are dequantized by a per-layer scale as the
+// reference does: x * scale in float32, then rounded to q's type
+// (ops/cuda/decode_attention.py KV_DTYPES, dequant_kv).
+enum AttnKv { KV_SAME = 0, KV_INT8 = 1, KV_E4M3 = 2 };
+
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) { return (float)x; }
+template <> __device__ __forceinline__ float to_f<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
+
+// The C++ element type of an 8-bit pool kind (the float32 routes' loads).
+template <int KV> struct KvElem;
+template <> struct KvElem<KV_INT8> { typedef int8_t T; };
+template <> struct KvElem<KV_E4M3> { typedef __nv_fp8_e4m3 T; };
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -185,4 +203,61 @@ __device__ __forceinline__ void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Byte I of a word of four 8-bit pool values as a float, without a
+// conversion instruction (the dequant runs in the kernels' inner loops):
+// int8 by the 2^23 magic number, on the word biased by kv8_bias (one
+// byte permute to 2^23 + (x + 128), then minus 2^23 + 128: exact); e4m3
+// by moving its exponent and mantissa bits into float's low exponent and
+// high mantissa bits (shifts and masks, which ran K1 faster on an H100
+// than a byte permute first), which gives the value times 2^-120 exactly
+// (a float denormal for e4m3's denormals), so `kv8_unit` folds 2^120
+// into the scale: (v 2^-120) (s 2^120) rounds once, to the same float as
+// v * s.
+template <int KV, int I>
+__device__ __forceinline__ float kv8_at(uint32_t w) {
+  static_assert(KV == KV_INT8 || KV == KV_E4M3, "an 8-bit pool type");
+  if constexpr (KV == KV_INT8) {
+    return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | I)) - 8388736.f;
+  } else {
+    const uint32_t b = (w >> (8 * I)) & 0xFFu;
+    return __uint_as_float(((b & 0x80u) << 24) | ((b & 0x7Fu) << 20));
+  }
+}
+
+// The word kv8_at reads: int8 bytes biased to unsigned (x + 128).
+template <int KV> __device__ __forceinline__ uint32_t kv8_bias(uint32_t w) {
+  return KV == KV_INT8 ? w ^ 0x80808080u : w;
+}
+
+// The multiplier of kv8_at's floats that dequantizes by `scale`.
+template <int KV> __device__ __forceinline__ float kv8_unit(float scale) {
+  return KV == KV_E4M3 ? scale * __uint_as_float(0x7B800000u) : scale;   // 2^120
+}
+
+// One 16-byte chunk of an 8-bit pool row (16 values) dequantized to bf16
+// as the reference does, bf16(x * scale) with the product in float32
+// (`unit` = kv8_unit(scale)): the first 8 values into `lo`, the next 8
+// into `hi`, in memory order.
+template <int KV>
+__device__ __forceinline__ void widen16(const uint4& raw, float unit, uint4& lo,
+                                        uint4& hi) {
+  const uint32_t w[4] = {kv8_bias<KV>(raw.x), kv8_bias<KV>(raw.y), kv8_bias<KV>(raw.z),
+                         kv8_bias<KV>(raw.w)};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = pack_bf16(kv8_at<KV, 0>(w[i]) * unit, kv8_at<KV, 1>(w[i]) * unit);
+    o[2 * i + 1] = pack_bf16(kv8_at<KV, 2>(w[i]) * unit, kv8_at<KV, 3>(w[i]) * unit);
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// A per-layer dequant scale from device memory (a 0-dim float32 tensor:
+// it stays a pointer so that a CUDA graph reads the value current at each
+// replay); 1 without one.
+__device__ __forceinline__ float load_scale(const float* scale) {
+  return scale != nullptr ? *scale : 1.f;
 }

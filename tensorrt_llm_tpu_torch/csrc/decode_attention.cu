@@ -64,10 +64,25 @@
 // reads its A fragment by ldmatrix: held in registers for the whole loop
 // it would take 64 of them beside the 128 of the output accumulator.
 //
+// 8-bit pools (int8, e4m3; the TPU kernel's k_scale / v_scale dequant,
+// ops/pallas/decode_attention.py:109-111): a quantized pool halves the
+// bytes the kernel must read, so the bf16 route copies the 8-bit tiles as
+// they are into a ring of half-size stages (the same positions per tile,
+// one stage deeper), and each warp dequantizes its current tile into one
+// bf16 tile of its own in shared memory, in the swizzled layout the
+// unchanged ldmatrix / mma code reads. The dequant is the reference's,
+// bf16(x * scale) with the product in float32 (the K and V operands are
+// the plain version's bits), without a conversion instruction but the
+// final rounding (attention_common.cuh kv8_at). The per-layer scales are
+// device pointers, so a graph replay reads the current value. The float32
+// route loads the 8-bit values and dequantizes them to float32 on the way
+// into shared memory.
+//
 // What is left: TMA instead of per-thread cp.async; a persistent grid that
 // balances ragged batches better than equal splits per row; one launch
-// instead of two when splits > 1 (last-arriving CTA merges); int8/fp8
-// pools.
+// instead of two when splits > 1 (last-arriving CTA merges); for 8-bit
+// pools, mma fragments built straight from the 8-bit stage (no widened
+// tile) and twice the positions per stage.
 
 #include "attention_common.cuh"
 
@@ -88,17 +103,20 @@ namespace simple {
 constexpr int kTile = 32;      // KV positions per tile (one per lane)
 constexpr int kThreads = 128;
 
-template <typename T, int HD>
+template <typename T, typename KVT, int HD>
 __global__ void __launch_bounds__(kThreads)
-decode_f32_simple_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+decode_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
                          const int* __restrict__ kv_lens,
                          const int* __restrict__ page_idx,
                          const float* __restrict__ sinks,
                          const float* __restrict__ alibi, T* __restrict__ out,
                          float* __restrict__ part_acc, float* __restrict__ part_ml,
                          int qh, int kvh, int ps, int num_pages, int max_pages,
-                         float sm_scale, int window, float soft_cap, int splits) {
+                         float sm_scale, int window, float soft_cap, int splits,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale) {
   constexpr int V = Vec<T>::N;
+  constexpr int VK = Vec<KVT>::N;    // pool elements per 16-byte load
   const int s = blockIdx.x;
   const int h = blockIdx.y;
   const int split = blockIdx.z;
@@ -133,28 +151,31 @@ decode_f32_simple_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   int lo, hi;
   split_range(kv_len, window, kTile, splits, split, &lo, &hi);
   const int* pt = page_idx + (size_t)s * max_pages;
+  // an 8-bit pool's scales (1 for a pool of q's type)
+  const float ks = load_scale(k_scale);
+  const float vs = load_scale(v_scale);
 
   for (int base = lo; base < hi; base += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid * V; i < kTile * HD; i += kThreads * V) {
+    for (int i = tid * VK; i < kTile * HD; i += kThreads * VK) {
       const int t = i / HD;
       const int d = i % HD;
       const int pos = base + t;
-      float kr[V], vr[V];
+      float kr[VK], vr[VK];
       if (pos < hi) {
         int page = pt[min(pos / ps, max_pages - 1)];
         page = min(max(page, 0), num_pages - 1);
-        const T* row = kv + (((size_t)page * ps + pos % ps) * combined + 2 * h) * HD;
-        load_vec<T>(row + d, kr);
-        load_vec<T>(row + HD + d, vr);
+        const KVT* row = kv + (((size_t)page * ps + pos % ps) * combined + 2 * h) * HD;
+        load_vec<KVT>(row + d, kr);
+        load_vec<KVT>(row + HD + d, vr);
       } else {
 #pragma unroll
-        for (int j = 0; j < V; ++j) kr[j] = vr[j] = 0.f;
+        for (int j = 0; j < VK; ++j) kr[j] = vr[j] = 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        k_s[t * (HD + 1) + d + j] = kr[j];
-        v_s[t * HD + d + j] = vr[j];
+      for (int j = 0; j < VK; ++j) {
+        k_s[t * (HD + 1) + d + j] = kr[j] * ks;
+        v_s[t * HD + d + j] = vr[j] * vs;
       }
     }
     __syncthreads();
@@ -227,32 +248,47 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 3;
 
-// A warp's ring: STAGE bytes of K and V per tile (8 KB, 16 KB at hd 256),
-// N positions per tile (32 at hd 64, 16 at hd 128 and 256). QSMEM: Q waits
-// in shared memory behind the rings instead of in registers.
-template <int HD> struct Ring {
+// A warp's region: a ring of STAGES stages of K and V per tile, N
+// positions per tile (32 at hd 64, 16 at hd 128 and 256), STAGE bytes of
+// them in bf16 (8 KB, 16 KB at hd 256). With an 8-bit pool (Q8) a stage
+// holds the same positions in RAW = STAGE / 2 bytes, the ring is one
+// stage deeper (more of the smaller stages in flight; two CTAs per SM
+// still fit at hd 64 and 128), and the region ends in one bf16 tile
+// (STAGE bytes) that the warp dequantizes its current stage into. QSMEM:
+// Q waits in shared memory behind the regions instead of in registers.
+template <int HD, int KV> struct Ring {
+  static constexpr bool Q8 = KV != KV_SAME;
+  static constexpr int STAGES = Q8 ? kStages + 1 : kStages;
   static constexpr int STAGE = HD <= 128 ? 8192 : 16384;
-  static constexpr int BYTES = kStages * STAGE;
+  static constexpr int RAW = Q8 ? STAGE / 2 : STAGE;
+  static constexpr int BYTES = STAGES * RAW + (Q8 ? STAGE : 0);
   static constexpr int N = STAGE / (4 * HD);
   static constexpr bool QSMEM = HD > 128;
   static constexpr size_t SMEM = (size_t)kWarps * BYTES + (QSMEM ? 16 * HD * 2 : 0);
 };
 
 // PLAIN: no ALiBi, no soft cap, sm_scale > 0. The score transform is then
-// one multiply, folded into the exponent's FMA.
-template <int HD, bool PLAIN>
+// one multiply, folded into the exponent's FMA. KV: the pool's element
+// type (KV_SAME: bf16).
+template <int HD, bool PLAIN, int KV>
 __global__ void __launch_bounds__(kThreads)
-decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
                  const int* __restrict__ kv_lens, const int* __restrict__ page_idx,
                  const float* __restrict__ sinks, const float* __restrict__ alibi,
                  bf16* __restrict__ out, float* __restrict__ part_acc,
                  float* __restrict__ part_ml, int qh, int kvh, int gchunks, int ps,
                  int num_pages, int max_pages, float sm_scale, int window,
-                 float soft_cap, int splits) {
-  constexpr int TP = Ring<HD>::N;       // 32 or 16 positions
-  constexpr int kStageBytes = Ring<HD>::STAGE;
-  constexpr int kRingBytes = Ring<HD>::BYTES;
-  constexpr int CH = HD / 8;            // 16-byte chunks per K (or V) row
+                 float soft_cap, int splits, const float* __restrict__ k_scale,
+                 const float* __restrict__ v_scale) {
+  typedef Ring<HD, KV> R;
+  constexpr bool Q8 = R::Q8;
+  constexpr int kStages = R::STAGES;    // the ring's depth
+  constexpr int TP = R::N;              // 32 or 16 positions
+  constexpr int kStageBytes = R::RAW;   // one ring stage
+  constexpr int kRingBytes = R::BYTES;  // a warp's region
+  constexpr int CH = HD / 8;            // 16-byte chunks per bf16 K (or V) row
+  constexpr int CH8 = HD / 16;          // 16-byte chunks per 8-bit row
+  constexpr int COPIES8 = TP * 2 * CH8 / 32;   // 8-bit chunks per lane per tile
   constexpr int KS = HD / 16;           // k-steps of Q.K^T
   constexpr int NT = TP / 8;            // score n-tiles per tile
   constexpr int PK = TP / 16;           // k-steps of P.V
@@ -273,9 +309,15 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
+  const bf16* kv = static_cast<const bf16*>(kv_pool);
+  const uint8_t* kv8 = static_cast<const uint8_t*>(kv_pool);
+  // an 8-bit pool's dequant multipliers (kv8_unit)
+  const float k_unit = kv8_unit<KV>(load_scale(k_scale));
+  const float v_unit = kv8_unit<KV>(load_scale(v_scale));
 
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem + warp * kRingBytes;
+  unsigned char* wide = ring + kStages * kStageBytes;   // Q8: the widened tile
 
   const int kv_len = kv_lens[s];
   const int q_pos = kv_len - 1;
@@ -297,15 +339,29 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
       slot = page * ps + pos % ps;
     }
     unsigned char* k_dst = ring + st * kStageBytes;
-    unsigned char* v_dst = k_dst + TP * HD * 2;
+    if constexpr (Q8) {
+      // 8-bit rows as they are: [TP][HD bytes] of K, then of V
+      unsigned char* v_dst = k_dst + TP * HD;
 #pragma unroll
-    for (int j = 0; j < COPIES; ++j) {
-      const int p = (j * 32 + lane) / (2 * CH);
-      const int c2 = (j * 32 + lane) % (2 * CH);   // chunk of the row's [k | v]
-      const int row_slot = __shfl_sync(0xffffffffu, slot, p);
-      const bf16* src = kv + ((size_t)row_slot * combined + 2 * h) * HD + c2 * 8;
-      unsigned char* dst = (c2 < CH ? k_dst : v_dst) + swz<HD>(p, c2 % CH);
-      cp_async_16(dst, src, base + p < hi);
+      for (int j = 0; j < COPIES8; ++j) {
+        const int p = (j * 32 + lane) / (2 * CH8);
+        const int c2 = (j * 32 + lane) % (2 * CH8);   // chunk of the row's [k | v]
+        const int row_slot = __shfl_sync(0xffffffffu, slot, p);
+        const uint8_t* src = kv8 + ((size_t)row_slot * combined + 2 * h) * HD + c2 * 16;
+        unsigned char* dst = (c2 < CH8 ? k_dst : v_dst) + p * HD + (c2 % CH8) * 16;
+        cp_async_16(dst, src, base + p < hi);
+      }
+    } else {
+      unsigned char* v_dst = k_dst + TP * HD * 2;
+#pragma unroll
+      for (int j = 0; j < COPIES; ++j) {
+        const int p = (j * 32 + lane) / (2 * CH);
+        const int c2 = (j * 32 + lane) % (2 * CH);   // chunk of the row's [k | v]
+        const int row_slot = __shfl_sync(0xffffffffu, slot, p);
+        const bf16* src = kv + ((size_t)row_slot * combined + 2 * h) * HD + c2 * 8;
+        unsigned char* dst = (c2 < CH ? k_dst : v_dst) + swz<HD>(p, c2 % CH);
+        cp_async_16(dst, src, base + p < hi);
+      }
     }
     cp_async_commit();
   };
@@ -320,10 +376,10 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   // QSMEM into shared memory (16 rows, swizzled like the K tiles), from
   // where each k-step loads its fragment.
   const bf16* q_row = q + ((size_t)s * qh + h * group + g0) * HD;
-  constexpr int QF = Ring<HD>::QSMEM ? 1 : KS;
+  constexpr int QF = R::QSMEM ? 1 : KS;
   uint32_t qf[QF][4];
   unsigned char* q_s = smem + kWarps * kRingBytes;
-  if constexpr (Ring<HD>::QSMEM) {
+  if constexpr (R::QSMEM) {
     for (int i = tid; i < 16 * CH; i += kThreads) {
       const int r = i / CH;
       const int c = i % CH;
@@ -368,11 +424,32 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   for (int i = 0; i < n_my; ++i) {
     const int base = lo + (warp + kWarps * i) * TP;
     const unsigned char* k_s = ring + (i % kStages) * kStageBytes;
-    const unsigned char* v_s = k_s + TP * HD * 2;
     cp_async_wait<kStages - 2>();   // this lane's copies of tile i have landed
     __syncwarp();                   // every lane's have; tile i-1 has been read
     const int nxt = i + kStages - 1;
     if (nxt < n_my) start_tile(nxt, nxt % kStages); else cp_async_commit();
+    if constexpr (Q8) {
+      // dequantize the 8-bit stage into the warp's bf16 tile, in the
+      // swizzled layout of a bf16 stage: chunk c of an 8-bit row is bf16
+      // chunks 2c and 2c + 1
+#pragma unroll
+      for (int j = 0; j < COPIES8; ++j) {
+        const int p = (j * 32 + lane) / (2 * CH8);
+        const int c2 = (j * 32 + lane) % (2 * CH8);
+        const int c = c2 % CH8;
+        const int is_v = c2 >= CH8;
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(k_s + is_v * TP * HD + p * HD + c * 16);
+        uint4 lo16, hi16;
+        widen16<KV>(raw, is_v ? v_unit : k_unit, lo16, hi16);
+        unsigned char* dst = wide + is_v * TP * HD * 2;
+        *reinterpret_cast<uint4*>(dst + swz<HD>(p, 2 * c)) = lo16;
+        *reinterpret_cast<uint4*>(dst + swz<HD>(p, 2 * c + 1)) = hi16;
+      }
+      __syncwarp();
+      k_s = wide;
+    }
+    const unsigned char* v_s = k_s + TP * HD * 2;
 
     float sacc[NT][4];
 #pragma unroll
@@ -381,12 +458,12 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
       for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      if constexpr (Ring<HD>::QSMEM) {
+      if constexpr (R::QSMEM) {
         // blocks: (rows 0..7 | 8..15) x (dims 16*ks + 0..7 | +8..15)
         ldmatrix_x4(qf[0], q_s + swz<HD>((lane & 7) + (((lane >> 3) & 1) << 3),
                                          ks * 2 + (lane >> 4)));
       }
-      const uint32_t (&qa)[4] = qf[Ring<HD>::QSMEM ? 0 : ks];
+      const uint32_t (&qa)[4] = qf[R::QSMEM ? 0 : ks];
 #pragma unroll
       for (int n2 = 0; n2 < NT / 2; ++n2) {
         // blocks: (positions 16*n2 + 0..7 | +8..15) x (dims 16*ks + 0..7 | +8..15)
@@ -549,6 +626,7 @@ struct Args {
   const float* sinks; const float* alibi; void* out; float* part_acc; float* part_ml;
   int S, qh, kvh, ps, num_pages, max_pages;
   float sm_scale; int window; float soft_cap; int splits;
+  const float* k_scale; const float* v_scale;
   cudaStream_t stream;
 };
 
@@ -560,79 +638,90 @@ cudaError_t merge(const Args& a, int hd, float unit) {
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, typename KVT>
 cudaError_t launch_f32(const Args& a) {
   const int group = a.qh / a.kvh;
   const size_t smem = sizeof(float) *
       (2 * group * HD + simple::kTile * (HD + 1) + simple::kTile * HD +
        group * simple::kTile + 3 * group);
-  auto kernel = simple::decode_f32_simple_kernel<float, HD>;
+  auto kernel = simple::decode_f32_simple_kernel<float, KVT, HD>;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
   dim3 grid(a.S, a.kvh, a.splits);
   kernel<<<grid, simple::kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.kv), a.kv_lens,
+      static_cast<const float*>(a.q), static_cast<const KVT*>(a.kv), a.kv_lens,
       a.page_idx, a.sinks, a.alibi, static_cast<float*>(a.out), a.part_acc, a.part_ml,
       a.qh, a.kvh, a.ps, a.num_pages, a.max_pages, a.sm_scale, a.window, a.soft_cap,
-      a.splits);
+      a.splits, a.k_scale, a.v_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return merge<float>(a, HD, ATTN_LOG2E);
 }
 
-template <int HD, bool PLAIN>
+template <int HD, bool PLAIN, int KV>
 cudaError_t launch_tc_as(const Args& a) {
   const int group = a.qh / a.kvh;
   const int gchunks = (group + 15) / 16;
-  auto kernel = tc::decode_tc_kernel<HD, PLAIN>;
-  constexpr size_t smem = tc::Ring<HD>::SMEM;
+  auto kernel = tc::decode_tc_kernel<HD, PLAIN, KV>;
+  constexpr size_t smem = tc::Ring<HD, KV>::SMEM;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
   dim3 grid(a.S, a.kvh * gchunks, a.splits);
   kernel<<<grid, tc::kThreads, smem, a.stream>>>(
-      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.kv), a.kv_lens,
-      a.page_idx, a.sinks, a.alibi, static_cast<tc::bf16*>(a.out), a.part_acc,
-      a.part_ml, a.qh, a.kvh, gchunks, a.ps, a.num_pages, a.max_pages, a.sm_scale,
-      a.window, a.soft_cap, a.splits);
+      static_cast<const tc::bf16*>(a.q), a.kv, a.kv_lens, a.page_idx, a.sinks,
+      a.alibi, static_cast<tc::bf16*>(a.out), a.part_acc, a.part_ml, a.qh, a.kvh,
+      gchunks, a.ps, a.num_pages, a.max_pages, a.sm_scale, a.window, a.soft_cap,
+      a.splits, a.k_scale, a.v_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return merge<tc::bf16>(a, HD, 1.f);
 }
 
-template <int HD>
+template <int HD, int KV>
 cudaError_t launch_tc(const Args& a) {
   const bool plain = a.alibi == nullptr && a.soft_cap <= 0.f && a.sm_scale > 0.f;
-  return plain ? launch_tc_as<HD, true>(a) : launch_tc_as<HD, false>(a);
+  return plain ? launch_tc_as<HD, true, KV>(a) : launch_tc_as<HD, false, KV>(a);
+}
+
+template <int HD>
+cudaError_t launch_hd(const Args& a, int dtype, int kv_dtype) {
+  if (dtype == ATTN_BF16 && kv_dtype == KV_SAME) return launch_tc<HD, KV_SAME>(a);
+  if (dtype == ATTN_BF16 && kv_dtype == KV_INT8) return launch_tc<HD, KV_INT8>(a);
+  if (dtype == ATTN_BF16 && kv_dtype == KV_E4M3) return launch_tc<HD, KV_E4M3>(a);
+  if (dtype == ATTN_F32 && kv_dtype == KV_SAME) return launch_f32<HD, float>(a);
+  if (dtype == ATTN_F32 && kv_dtype == KV_INT8) return launch_f32<HD, int8_t>(a);
+  if (dtype == ATTN_F32 && kv_dtype == KV_E4M3) return launch_f32<HD, __nv_fp8_e4m3>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
-// dtype: 0 float32, 1 bfloat16 (q, pool and out share it). sinks and alibi
-// are float32 [qh] device pointers or null. window <= 0 and soft_cap <= 0
-// disable those options. splits >= 1; with splits > 1, part_acc
-// (float32 [S, qh, splits, hd]) and part_ml (float32 [S, qh, splits, 2])
-// are scratch the caller allocated, else they may be null.
+// dtype: 0 float32, 1 bfloat16 (q and out share it). kv_dtype: the pool's
+// element type, 0 q's own, 1 int8, 2 float8 e4m3 (AttnKv); k_scale and
+// v_scale are float32 device scalars that dequantize an 8-bit pool (null:
+// 1). sinks and alibi are float32 [qh] device pointers or null. window <= 0
+// and soft_cap <= 0 disable those options. splits >= 1; with splits > 1,
+// part_acc (float32 [S, qh, splits, hd]) and part_ml (float32 [S, qh,
+// splits, 2]) are scratch the caller allocated, else they may be null.
 extern "C" int paged_decode_attention(
     const void* q, const void* kv, const int* kv_lens, const int* page_idx,
     const float* sinks, const float* alibi, void* out, float* part_acc,
     float* part_ml, int S, int qh, int kvh, int hd, int ps, int num_pages,
     int max_pages, float sm_scale, int window, float soft_cap, int splits,
-    int dtype, void* stream) {
+    int dtype, int kv_dtype, const float* k_scale, const float* v_scale,
+    void* stream) {
   if (S == 0) return 0;
   if (qh % kvh != 0 || splits < 1 || splits > 65535 ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a = {q, kv, kv_lens, page_idx, sinks, alibi, out, part_acc, part_ml,
                   S, qh, kvh, ps, num_pages, max_pages, sm_scale, window, soft_cap,
-                  splits, static_cast<cudaStream_t>(stream)};
-  if (dtype == ATTN_BF16 && hd == 64) return launch_tc<64>(a);
-  if (dtype == ATTN_BF16 && hd == 128) return launch_tc<128>(a);
-  if (dtype == ATTN_BF16 && hd == 256) return launch_tc<256>(a);
-  if (dtype == ATTN_F32 && hd == 64) return launch_f32<64>(a);
-  if (dtype == ATTN_F32 && hd == 128) return launch_f32<128>(a);
-  if (dtype == ATTN_F32 && hd == 256) return launch_f32<256>(a);
+                  splits, k_scale, v_scale, static_cast<cudaStream_t>(stream)};
+  if (hd == 64) return launch_hd<64>(a, dtype, kv_dtype);
+  if (hd == 128) return launch_hd<128>(a, dtype, kv_dtype);
+  if (hd == 256) return launch_hd<256>(a, dtype, kv_dtype);
   return (int)cudaErrorInvalidValue;
 }

@@ -68,8 +68,22 @@
 // turns at softmax and products; a K/V tile shared between
 // the query blocks of one sequence (each CTA re-reads its causal span
 // through L2); a split of the KV range for q_len-1 rows of mixed batches
-// (one CTA with 8 live rows of 64 walks the row's whole KV); int8/fp8
-// pools.
+// (one CTA with 8 live rows of 64 walks the row's whole KV); for 8-bit
+// pools, the dequant overlapped with the products (today one more
+// barrier per tile).
+//
+// 8-bit pools (int8, e4m3; the TPU kernel's k_scale / v_scale dequant,
+// ops/pallas/prefill_attention.py:145-147): wgmma reads both operands of
+// Q.K^T and V of P.V from shared memory in bf16 (q is bf16, not e4m3:
+// quantizing q would compute something else), so the bf16 route copies
+// the 8-bit K and V tiles as they are into a ring of half-size stages (row
+// major), and after the tile's barrier the warpgroup dequantizes the
+// current stage into one bf16 K and V tile in the swizzled operand layout,
+// as the reference does (bf16(x * scale), the product in float32:
+// attention_common.cuh widen16), fences it for the async proxy and meets
+// once more before the products. The scales are device pointers, so a
+// CUDA graph reads the current per-layer value. The float32 route loads
+// the 8-bit values and dequantizes them on the way into shared memory.
 //
 // hd 256 (Gemma 2 and 3) keeps the one-warpgroup design: Q (32 KB) and a
 // two-stage ring of 32 KB K and V tiles take 161 KB, so one CTA per SM
@@ -96,17 +110,20 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kRows / kWarps;   // 8
 constexpr int kPStride = kTile + 1;
 
-template <typename T, int HD>
+template <typename T, typename KVT, int HD>
 __global__ void __launch_bounds__(kThreads)
-prefill_f32_simple_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
                           const int* __restrict__ kv_lens,
                           const int* __restrict__ page_idx,
                           const int* __restrict__ cu_q_lens,
                           const float* __restrict__ sinks,
                           const float* __restrict__ alibi, T* __restrict__ out,
                           int qh, int kvh, int ps, int num_pages, int max_pages,
-                          float sm_scale, int window, float soft_cap) {
+                          float sm_scale, int window, float soft_cap,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale) {
   constexpr int V = Vec<T>::N;
+  constexpr int VK = Vec<KVT>::N;    // pool elements per 16-byte load
   constexpr int kCols = HD / 4;   // accumulator columns per thread
   const int qblk = blockIdx.x;
   const int h = blockIdx.y;
@@ -171,28 +188,31 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   if (window > 0) start = max(0, ctx + tok0 - window + 1);
   start = (start / kTile) * kTile;
   const int* pt = page_idx + (size_t)s * max_pages;
+  // an 8-bit pool's scales (1 for a pool of q's type)
+  const float ks = load_scale(k_scale);
+  const float vs = load_scale(v_scale);
 
   for (int base = start; base < kv_end; base += kTile) {
     __syncthreads();  // q_s ready / previous tile's readers are done
-    for (int i = tid * V; i < kTile * HD; i += kThreads * V) {
+    for (int i = tid * VK; i < kTile * HD; i += kThreads * VK) {
       const int t = i / HD;
       const int d = i % HD;
       const int pos = base + t;
-      float kr[V], vr[V];
+      float kr[VK], vr[VK];
       if (pos < kv_end) {
         int page = pt[min(pos / ps, max_pages - 1)];
         page = min(max(page, 0), num_pages - 1);
-        const T* row = kv + (((size_t)page * ps + pos % ps) * combined + 2 * h) * HD;
-        load_vec<T>(row + d, kr);
-        load_vec<T>(row + HD + d, vr);
+        const KVT* row = kv + (((size_t)page * ps + pos % ps) * combined + 2 * h) * HD;
+        load_vec<KVT>(row + d, kr);
+        load_vec<KVT>(row + HD + d, vr);
       } else {
 #pragma unroll
-        for (int j = 0; j < V; ++j) kr[j] = vr[j] = 0.f;
+        for (int j = 0; j < VK; ++j) kr[j] = vr[j] = 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        k_s[t * (HD + 1) + d + j] = kr[j];
-        v_s[t * HD + d + j] = vr[j];
+      for (int j = 0; j < VK; ++j) {
+        k_s[t * (HD + 1) + d + j] = kr[j] * ks;
+        v_s[t * HD + d + j] = vr[j] * vs;
       }
     }
     __syncthreads();
@@ -254,25 +274,26 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   }
 }
 
-template <int HD>
+template <int HD, typename KVT>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
                    const int* page_idx, const int* cu_q_lens, const float* sinks,
                    const float* alibi, void* out, int S, int qh, int kvh, int ps,
                    int num_pages, int max_pages, int max_q_len, float sm_scale,
-                   int window, float soft_cap, cudaStream_t stream) {
+                   int window, float soft_cap, const float* k_scale,
+                   const float* v_scale, cudaStream_t stream) {
   const int group = qh / kvh;
   const int qb = kRows / group;
   const size_t smem = sizeof(float) *
       (kRows * HD + kTile * (HD + 1) + kTile * HD + kRows * kPStride + 2 * kRows);
-  auto kernel = prefill_f32_simple_kernel<float, HD>;
+  auto kernel = prefill_f32_simple_kernel<float, KVT, HD>;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
   dim3 grid((max_q_len + qb - 1) / qb, kvh, S);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kv), kv_lens, page_idx,
+      static_cast<const float*>(q), static_cast<const KVT*>(kv), kv_lens, page_idx,
       cu_q_lens, sinks, alibi, static_cast<float*>(out), qh, kvh, ps, num_pages,
-      max_pages, sm_scale, window, soft_cap);
+      max_pages, sm_scale, window, soft_cap, k_scale, v_scale);
   return cudaGetLastError();
 }
 
@@ -292,14 +313,19 @@ constexpr int kNT = kTile / 8;    // 8-position blocks of a tile's scores
 constexpr int kPK = kTile / 16;   // k-steps of P.V per tile
 
 // STAGES: depth of the cp.async ring (STAGES - 1 tiles in flight while one
-// is used); MINB: CTAs per SM the register budget is cut for.
-template <int HD> struct Shape {
+// is used); MINB: CTAs per SM the register budget is cut for. With an
+// 8-bit pool (Q8) a ring stage holds K and V of a tile in RAW_BYTES each
+// (half a bf16 tile), and one widened bf16 K and V tile follows the ring.
+template <int HD, int KV> struct Shape {
+  static constexpr bool Q8 = KV != KV_SAME;
   static constexpr int STAGES = 2;
   static constexpr int MINB = HD <= 64 ? 4 : (HD <= 128 ? 2 : 1);
   static constexpr int Q_BYTES = kRows * HD * sizeof(bf16);
   static constexpr int TILE_BYTES = kTile * HD * sizeof(bf16);   // K or V of a tile
+  static constexpr int RAW_BYTES = Q8 ? kTile * HD : TILE_BYTES;  // ... in a stage
   // + 1024: the tiles are aligned to the swizzle pattern's 1024 bytes
-  static constexpr size_t SMEM = Q_BYTES + 2 * STAGES * TILE_BYTES + 1024;
+  static constexpr size_t SMEM =
+      Q_BYTES + 2 * STAGES * RAW_BYTES + (Q8 ? 2 * TILE_BYTES : 0) + 1024;
 };
 
 // Byte offset of the 16-byte chunk `c` of row `r` in a wgmma operand tile
@@ -311,20 +337,26 @@ __device__ __forceinline__ int tile_off(int r, int c) {
 }
 
 // PLAIN: no ALiBi, no soft cap, sm_scale > 0. The score transform is then
-// one multiply, folded into the exponent's FMA.
-template <int HD, bool PLAIN>
-__global__ void __launch_bounds__(kThreads, Shape<HD>::MINB)
-prefill_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+// one multiply, folded into the exponent's FMA. KV: the pool's element
+// type (KV_SAME: bf16).
+template <int HD, bool PLAIN, int KV>
+__global__ void __launch_bounds__(kThreads, Shape<HD, KV>::MINB)
+prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
                      const int* __restrict__ kv_lens,
                      const int* __restrict__ page_idx,
                      const int* __restrict__ cu_q_lens,
                      const float* __restrict__ sinks,
                      const float* __restrict__ alibi, bf16* __restrict__ out, int qh,
                      int kvh, int ps, int num_pages, int max_pages, float sm_scale,
-                     int window, float soft_cap) {
-  constexpr int kStages = Shape<HD>::STAGES;
-  constexpr int kTileBytes = Shape<HD>::TILE_BYTES;
-  constexpr int CH = HD / 8;     // 16-byte chunks per row
+                     int window, float soft_cap, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale) {
+  typedef Shape<HD, KV> SH;
+  constexpr bool Q8 = SH::Q8;
+  constexpr int kStages = SH::STAGES;
+  constexpr int kTileBytes = SH::TILE_BYTES;
+  constexpr int kRawBytes = SH::RAW_BYTES;
+  constexpr int CH = HD / 8;     // 16-byte chunks per bf16 row
+  constexpr int CH8 = HD / 16;   // 16-byte chunks per 8-bit row
   constexpr int KS = HD / 16;    // k-steps of Q.K^T
   constexpr int ON = HD / 8;     // 8-dim blocks of the output
 
@@ -379,11 +411,16 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   const int warp = tid >> 5;
   const int g = lane >> 2;      // accumulator row within the warp's 16
   const int t = lane & 3;
+  // an 8-bit pool's dequant multipliers (kv8_unit)
+  const float k_unit = kv8_unit<KV>(load_scale(k_scale));
+  const float v_unit = kv8_unit<KV>(load_scale(v_scale));
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* q_s = smem;                          // [kRows][HD]
-  unsigned char* kv_s = smem + Shape<HD>::Q_BYTES;    // stages x [K | V]
+  unsigned char* kv_s = smem + SH::Q_BYTES;           // stages x [K | V]
+  // Q8: the widened bf16 K and V tiles, after the ring
+  unsigned char* wide_s = kv_s + kStages * 2 * kRawBytes;
 
   int start = 0;
   if (window > 0) start = max(0, q_pos_first - window + 1);
@@ -394,27 +431,42 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   // bytes away under the swizzle, later blocks a whole [kTile][128] further
   const int ld_off = ld_r * 128 + ((ld_q ^ (ld_r & 7)) << 4);
   const size_t row_elems = (size_t)combined * HD;
+  const bf16* kv = static_cast<const bf16*>(kv_pool);
+  const uint8_t* kv8 = static_cast<const uint8_t*>(kv_pool);
   const bf16* kv_head = kv + 2 * h * HD + ld_q * 8;
+  const uint8_t* kv8_head = kv8 + 2 * h * HD + ld_q * 16;
   // Start the copies of the tile at `base` into ring stage `st`, K and V
   // as one commit group. Positions at or past kv_end are zero-filled (V
   // must be finite there: its weight is 0).
   auto start_tile = [&](int base, int st, const Pages& pages) {
-    unsigned char* k_dst = kv_s + st * 2 * kTileBytes;
-    unsigned char* v_dst = k_dst + kTileBytes;
+    unsigned char* k_dst = kv_s + st * 2 * kRawBytes;
+    unsigned char* v_dst = k_dst + kRawBytes;
 #pragma unroll
     for (int k = 0; k < LR; ++k) {
       const int pos = base + ld_r + k * kRowStep;
       const bool live = pos < kv_end;
       const int page = min(max(pages.p[k], 0), num_pages - 1);
       const int slot = page * ps + (ps_shift >= 0 ? pos & (ps - 1) : pos % ps);
-      const bf16* src = live ? kv_head + slot * row_elems : kv;
+      if constexpr (Q8) {
+        // 8-bit rows as they are, row major: [kTile][HD bytes]; this
+        // thread's chunks ld_q + 4i of its rows
+        const uint8_t* src = live ? kv8_head + slot * row_elems : kv8;
+        const int row_off = (ld_r + k * kRowStep) * HD + ld_q * 16;
 #pragma unroll
-      for (int i = 0; i < CH / 4; ++i) {
-        // the row k * kRowStep further has the same low bits: same swizzle
-        const int off = (i >> 1) * (kTile * 128) + (ld_off ^ ((i & 1) << 6)) +
-                        k * kRowStep * 128;
-        cp_async_16(k_dst + off, src + 32 * i, live);
-        cp_async_16(v_dst + off, src + (live ? HD + 32 * i : 0), live);
+        for (int i = 0; i < CH8 / 4; ++i) {
+          cp_async_16(k_dst + row_off + 64 * i, src + 64 * i, live);
+          cp_async_16(v_dst + row_off + 64 * i, src + (live ? HD + 64 * i : 0), live);
+        }
+      } else {
+        const bf16* src = live ? kv_head + slot * row_elems : kv;
+#pragma unroll
+        for (int i = 0; i < CH / 4; ++i) {
+          // the row k * kRowStep further has the same low bits: same swizzle
+          const int off = (i >> 1) * (kTile * 128) + (ld_off ^ ((i & 1) << 6)) +
+                          k * kRowStep * 128;
+          cp_async_16(k_dst + off, src + 32 * i, live);
+          cp_async_16(v_dst + off, src + (live ? HD + 32 * i : 0), live);
+        }
       }
     }
     cp_async_commit();
@@ -470,8 +522,7 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
 
   for (int j = 0; j < n_tiles; ++j) {
     const int base = start + j * kTile;
-    const unsigned char* k_s = kv_s + (j % kStages) * 2 * kTileBytes;
-    const unsigned char* v_s = k_s + kTileBytes;
+    const unsigned char* k_s = kv_s + (j % kStages) * 2 * kRawBytes;
     cp_async_wait<kStages - 2>();   // tile j (and Q) of this thread have landed
     fence_proxy_async();            // ... where wgmma will see them
     __syncthreads();                // everyone's have; tile j-1 has been read by all
@@ -482,6 +533,29 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     } else {
       cp_async_commit();
     }
+    if constexpr (Q8) {
+      // dequantize the 8-bit stage into the bf16 operand tiles: chunk c of
+      // an 8-bit row is bf16 chunks 2c and 2c + 1 of the swizzled layout;
+      // then make the stores visible to wgmma and meet (the last wgmma to
+      // read the tiles finished before the barrier above)
+#pragma unroll 4
+      for (int idx = tid; idx < 2 * kTile * CH8; idx += kThreads) {
+        const int is_v = idx / (kTile * CH8);
+        const int r = (idx / CH8) % kTile;
+        const int c = idx % CH8;
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(k_s + is_v * kRawBytes + r * HD + c * 16);
+        uint4 lo16, hi16;
+        widen16<KV>(raw, is_v ? v_unit : k_unit, lo16, hi16);
+        unsigned char* dst = wide_s + is_v * kTileBytes;
+        *reinterpret_cast<uint4*>(dst + tile_off<kTile>(r, 2 * c)) = lo16;
+        *reinterpret_cast<uint4*>(dst + tile_off<kTile>(r, 2 * c + 1)) = hi16;
+      }
+      fence_proxy_async();
+      __syncthreads();
+      k_s = wide_s;
+    }
+    const unsigned char* v_s = k_s + kTileBytes;
 
     // S = Q.K^T: the CTA's 64 rows x 64 positions
     float sacc[4 * kNT];
@@ -606,37 +680,40 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   }
 }
 
-template <int HD, bool PLAIN>
+template <int HD, bool PLAIN, int KV>
 cudaError_t launch_as(const void* q, const void* kv, const int* kv_lens,
                       const int* page_idx, const int* cu_q_lens, const float* sinks,
                       const float* alibi, void* out, int S, int qh, int kvh, int ps,
                       int num_pages, int max_pages, int max_q_len, float sm_scale,
-                      int window, float soft_cap, cudaStream_t stream) {
+                      int window, float soft_cap, const float* k_scale,
+                      const float* v_scale, cudaStream_t stream) {
   const int group = qh / kvh;
   const int qb = kRows / group;
-  constexpr size_t smem = Shape<HD>::SMEM;
-  auto kernel = prefill_wgmma_kernel<HD, PLAIN>;
+  constexpr size_t smem = Shape<HD, KV>::SMEM;
+  auto kernel = prefill_wgmma_kernel<HD, PLAIN, KV>;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
   dim3 grid((max_q_len + qb - 1) / qb, kvh, S);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kv), kv_lens, page_idx,
-      cu_q_lens, sinks, alibi, static_cast<bf16*>(out), qh, kvh, ps, num_pages,
-      max_pages, sm_scale, window, soft_cap);
+      static_cast<const bf16*>(q), kv, kv_lens, page_idx, cu_q_lens, sinks, alibi,
+      static_cast<bf16*>(out), qh, kvh, ps, num_pages, max_pages, sm_scale, window,
+      soft_cap, k_scale, v_scale);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int KV>
 cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
                    const int* page_idx, const int* cu_q_lens, const float* sinks,
                    const float* alibi, void* out, int S, int qh, int kvh, int ps,
                    int num_pages, int max_pages, int max_q_len, float sm_scale,
-                   int window, float soft_cap, cudaStream_t stream) {
+                   int window, float soft_cap, const float* k_scale,
+                   const float* v_scale, cudaStream_t stream) {
   const bool plain = alibi == nullptr && soft_cap <= 0.f && sm_scale > 0.f;
-  auto fn = plain ? launch_as<HD, true> : launch_as<HD, false>;
+  auto fn = plain ? launch_as<HD, true, KV> : launch_as<HD, false, KV>;
   return fn(q, kv, kv_lens, page_idx, cu_q_lens, sinks, alibi, out, S, qh, kvh, ps,
-            num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, stream);
+            num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, k_scale,
+            v_scale, stream);
 }
 
 }  // namespace wg
@@ -646,25 +723,37 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
 // dtype: 0 float32 (the CUDA-core route), 1 bfloat16 (the tensor-core
-// route). group = qh / kvh must be <= 64. max_q_len is the longest segment
-// of this batch (host-known; it sizes the grid).
+// route). kv_dtype: the pool's element type, 0 q's own, 1 int8, 2 float8
+// e4m3 (AttnKv); k_scale and v_scale are float32 device scalars that
+// dequantize an 8-bit pool (null: 1). group = qh / kvh must be <= 64.
+// max_q_len is the longest segment of this batch (host-known; it sizes the
+// grid).
 extern "C" int ragged_prefill_attention(
     const void* q, const void* kv, const int* kv_lens, const int* page_idx,
     const int* cu_q_lens, const float* sinks, const float* alibi, void* out,
     int S, int qh, int kvh, int hd, int ps, int num_pages, int max_pages,
     int max_q_len, float sm_scale, int window, float soft_cap, int dtype,
-    void* stream) {
+    int kv_dtype, const float* k_scale, const float* v_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 0 || max_q_len <= 0) return 0;
   if (qh % kvh != 0 || qh / kvh > 64) return (int)cudaErrorInvalidValue;
 #define ARGS q, kv, kv_lens, page_idx, cu_q_lens, sinks, alibi, out, S, qh, kvh, \
-             ps, num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, st
-  if (dtype == ATTN_BF16 && hd == 64) return wg::launch<64>(ARGS);
-  if (dtype == ATTN_BF16 && hd == 128) return wg::launch<128>(ARGS);
-  if (dtype == ATTN_BF16 && hd == 256) return wg::launch<256>(ARGS);
-  if (dtype == ATTN_F32 && hd == 64) return simple::launch<64>(ARGS);
-  if (dtype == ATTN_F32 && hd == 128) return simple::launch<128>(ARGS);
-  if (dtype == ATTN_F32 && hd == 256) return simple::launch<256>(ARGS);
+             ps, num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, \
+             k_scale, v_scale, st
+#define BY_KV(HD)                                                                   \
+  if (hd == HD) {                                                                   \
+    if (dtype == ATTN_BF16 && kv_dtype == KV_SAME) return wg::launch<HD, KV_SAME>(ARGS); \
+    if (dtype == ATTN_BF16 && kv_dtype == KV_INT8) return wg::launch<HD, KV_INT8>(ARGS); \
+    if (dtype == ATTN_BF16 && kv_dtype == KV_E4M3) return wg::launch<HD, KV_E4M3>(ARGS); \
+    if (dtype == ATTN_F32 && kv_dtype == KV_SAME) return simple::launch<HD, float>(ARGS); \
+    if (dtype == ATTN_F32 && kv_dtype == KV_INT8) return simple::launch<HD, int8_t>(ARGS); \
+    if (dtype == ATTN_F32 && kv_dtype == KV_E4M3)                                   \
+      return simple::launch<HD, __nv_fp8_e4m3>(ARGS);                               \
+  }
+  BY_KV(64)
+  BY_KV(128)
+  BY_KV(256)
+#undef BY_KV
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }

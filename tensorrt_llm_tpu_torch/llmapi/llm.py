@@ -17,7 +17,10 @@ sized for the smallest window w, which is also their window (Gemma 3's
 five-to-one layers raise the JAX package's ValueError; any other family
 refuses the setting by name).
 ``quant_config=QuantConfig(quant_algo=...)`` quantizes float weights at
-load. ``speculative_config=SpeculativeConfig(mode="EAGLE3",
+load; ``QuantConfig(kv_cache_quant_algo=INT8 | FP8 | NVFP4)`` keeps the KV
+cache in int8 or float8 e4m3 (NVFP4: e4m3 on the e2m1 grid), with
+per-layer scales calibrated at build over 512 seeded random tokens, as the
+JAX ``LLM`` does when the checkpoint brings none. ``speculative_config=SpeculativeConfig(mode="EAGLE3",
 max_draft_len=d, draft_model=...)`` serves EAGLE3 speculative decoding in
 the fused device window (runtime/spec_window.py); ``draft_model`` is a
 directory of ``*.safetensors`` head weights, a torch module whose
@@ -34,6 +37,7 @@ import copy
 from pathlib import Path
 from typing import Any, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..logger import logger
@@ -226,6 +230,13 @@ class LLM:
     def _build_executor(self):
         args = self.args
         self.engine = ModelEngine(self.model, self._params, args)
+        if self.model.config.uses_kv_quant:
+            # no checkpoint brings KV scales: calibrate them from one
+            # prefill pass over the JAX LLM's tokens (llm.py:459-470),
+            # before any graph is captured
+            rng = np.random.default_rng(0)
+            self.engine.calibrate_kv_scales(rng.integers(
+                1, max(2, self.model.vocab_size - 1), size=512))
         drafter = self._build_drafter()
         del self._params
         if drafter is not None:

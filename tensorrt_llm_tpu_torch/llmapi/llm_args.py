@@ -1,8 +1,8 @@
 """Configuration tree for the LLM API.
 
 Port of the subset of ``tensorrt_llm_tpu/llmapi/llm_args.py`` that the
-serving path reads, weight-only quantization, the single-device MoE
-options and EAGLE3 speculative decoding included. Unknown keys are
+serving path reads, weight-only quantization, the quantized KV cache,
+the single-device MoE options and EAGLE3 speculative decoding included. Unknown keys are
 rejected (so an option this package does not implement fails loudly
 instead of being ignored).
 """
@@ -79,7 +79,10 @@ class BucketingConfig(StrictBaseModel):
 class QuantConfig(StrictBaseModel):
     """Weight quantization: the algorithm, the group size of the
     group-wise ones (NVFP4 and MXFP4 fix their own), and name fragments of
-    the projections that stay unquantized."""
+    the projections that stay unquantized; and the KV cache's algorithm
+    (every ``KvCacheQuantAlgo`` is served: INT8, FP8, and NVFP4 on an e4m3
+    pool, models/modeling_utils.ModelConfig; any other name fails to
+    parse)."""
     quant_algo: QuantAlgo = QuantAlgo.NO_QUANT
     kv_cache_quant_algo: KvCacheQuantAlgo = KvCacheQuantAlgo.NO_QUANT
     group_size: int = 128
@@ -251,9 +254,4 @@ class LlmArgs(StrictBaseModel):
         check_ported(self.quant_config.quant_algo)
         check_ported_spec(self.speculative_config)
         check_ported_moe(self)
-        kv_algo = self.quant_config.kv_cache_quant_algo
-        if kv_algo != KvCacheQuantAlgo.NO_QUANT:
-            raise NotImplementedError(
-                f"kv_cache_quant_algo {kv_algo.value}: a quantized KV "
-                "cache is not supported by this package yet")
         return self

@@ -19,6 +19,9 @@ layout); the shared expert's ``se_gate`` / ``se_up`` projections fuse into
 norms of the JAX Gemma models (``post_attn_norm``, ``pre_ffn_norm``,
 ``post_ffn_norm`` beside ``input_norm``); their ``is_sliding`` flags are
 static config here (``Gemma2ForCausalLM.layer_specs``) and are dropped.
+With ``kv_scales`` (a model on a quantized KV cache), the JAX Llama's
+per-layer ``kv_scale`` [L] (float32) becomes each layer's 0-dim float32
+``kv_scale``, so that both packages quantize with the same scales.
 """
 from __future__ import annotations
 
@@ -36,10 +39,13 @@ _NORMS = ("input_norm", "post_norm", "post_attn_norm", "pre_ffn_norm",
 
 
 def from_jax_params(params_np: Dict[str, Any], device="cpu",
-                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                    dtype: Optional[torch.dtype] = None,
+                    kv_scales: bool = False) -> Dict[str, Any]:
     """JAX Llama params (numpy) -> port params (tensors on ``device``).
     ``dtype`` (default: the arrays' own) applies to the float weights,
-    norms and biases; integers and float32 scales keep their types."""
+    norms and biases; integers and float32 scales keep their types.
+    ``kv_scales``: carry the layers' ``kv_scale`` (a quantized KV
+    cache)."""
 
     def t(a, dt=dtype) -> torch.Tensor:
         a = np.asarray(a)
@@ -94,6 +100,9 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
         one = fused(qkv)
         layer.update({"qkv": one} if one is not None
                      else zip(("q", "k", "v"), qkv))
+        if kv_scales and "kv_scale" in lay:
+            layer["kv_scale"] = t(np.asarray(lay["kv_scale"][i],
+                                             np.float32), torch.float32)
         layers.append(layer)
     return {"embed": t(params_np["embed"]["weight"]),
             "layers": layers,

@@ -34,7 +34,9 @@ Parameters: those of models/llama.py with ``post_attn_norm``,
 ``pre_ffn_norm`` and ``post_ffn_norm`` in place of ``post_norm``, and for
 Gemma 3 ``q_norm`` / ``k_norm`` [hd] in float32. The EAGLE3 head cannot
 draft for these models (their forward collects no hidden rows, nor does
-the JAX one's): ``llmapi/llm_args.check_ported_spec`` refuses it.
+the JAX one's): ``llmapi/llm_args.check_ported_spec`` refuses it. On a
+quantized KV cache every layer takes the config's scale (the JAX
+gemma.py:157, 305, 425), and both VSWA pools hold the cache's type.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ from .modeling_utils import AttentionSpec, attention_block, register_model
 @register_model("gemma2")
 class Gemma2ForCausalLM(LlamaForCausalLM):
     architectures = ("Gemma2ForCausalLM",)
+    per_layer_kv_scale = False
 
     _HF_MODULES = {**LlamaForCausalLM._HF_MODULES,
                    "pre_ffn_norm": "pre_feedforward_layernorm",
@@ -245,7 +248,8 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
             a = attention_block(layer, x, flat[pi], md_l, spec,
                                 self.attn_methods,
                                 rope_cos_sin=cos_sin[spec.rope],
-                                q_norm=q_norm, k_norm=k_norm)
+                                q_norm=q_norm, k_norm=k_norm,
+                                kv_scale=self.kv_scale)
             h = h + gemma_rms_norm(a, layer["post_attn_norm"], eps)
             x = gemma_rms_norm(h, layer["pre_ffn_norm"], eps)
             h = h + gemma_rms_norm(self._mlp(layer, x),

@@ -22,7 +22,13 @@ Parameters:
   projection name (q_proj, k_proj, o_proj, mlp, lm_head) so that
   ``exclude_modules`` is honoured; when q and k/v differ, a layer holds
   "q", "k", "v" apart instead of "qkv". A checkpoint's q/k/v/o biases
-  (Qwen2) ride in the projections' "bias" and through the fusion.
+  (Qwen2) ride in the projections' "bias" and through the fusion. On a
+  quantized KV cache each layer also holds ``kv_scale``, a 0-dim float32
+  device tensor (the config's default until ``ModelEngine.
+  calibrate_kv_scales`` writes the calibrated value into it in place);
+  the MoE and Gemma families keep one scale for every layer
+  (``per_layer_kv_scale`` False; the model's ``kv_scale``), as the JAX
+  package does.
 
 Subclasses change the MLP through ``_mlp_params`` (its parameters, from a
 ``weight(name)`` source) and ``_mlp`` (its forward), and the checkpoint
@@ -49,6 +55,8 @@ from .modeling_utils import (AttentionMethods, AttentionSpec,
 @register_model("llama", "mistral", "tinyllama")
 class LlamaForCausalLM(DecoderModelForCausalLM):
     architectures = ("LlamaForCausalLM", "MistralForCausalLM")
+    # each layer its own (calibrated) KV scale on a quantized KV cache
+    per_layer_kv_scale = True
 
     def __init__(self, model_config: ModelConfig):
         super().__init__(model_config)
@@ -138,6 +146,10 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
                 layer[name] = torch.as_tensor(weight(name)).to(
                     device=self.device, dtype=self.dtype)
         layer.update(self._mlp_params(weight, bias))
+        if self.per_layer_kv_scale and self.config.uses_kv_quant:
+            layer["kv_scale"] = torch.full((), self.config.kv_scale,
+                                           dtype=torch.float32,
+                                           device=self.device)
         return layer
 
     def _mlp_params(self, weight: Callable[[str], Any],
@@ -241,22 +253,31 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
     # ------------------------------------------------------------------ #
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages: torch.Tensor, metadata: AttentionMetadata,
-                collect_hidden: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False):
         """(logits [S, V] float32 at ``logits_indices``, kv_pages), and
         with ``collect_hidden`` also the pre-final-norm hidden rows at
-        ``logits_indices`` (the EAGLE draft head's features)."""
+        ``logits_indices`` (the EAGLE draft head's features), or with
+        ``collect_kv_stats`` each layer's absmax of its fresh K and V,
+        float32 [L] (the KV-scale calibration pass)."""
         spec, eps = self.attn_spec, self.rms_eps
         q_norm, k_norm = self._qk_norms()
         h = params["embed"][token_ids].to(self.dtype)
         cos_sin = rope_cos_sin(spec.rope, metadata.positions)
         L, P, ps = kv_pages.shape[:3]
         kv_flat = kv_pages.view((L * P,) + tuple(kv_pages.shape[2:]))
+        stats = []
         for li, layer in enumerate(params["layers"]):
             md_l = layer_metadata(metadata, li, P, ps, L)
             x = rms_norm(h, layer["input_norm"], eps)
-            h = h + attention_block(layer, x, kv_flat, md_l, spec,
-                                    self.attn_methods, rope_cos_sin=cos_sin,
-                                    q_norm=q_norm, k_norm=k_norm)
+            a = attention_block(layer, x, kv_flat, md_l, spec,
+                                self.attn_methods, rope_cos_sin=cos_sin,
+                                q_norm=q_norm, k_norm=k_norm,
+                                kv_scale=layer.get("kv_scale", self.kv_scale),
+                                collect_kv_stats=collect_kv_stats)
+            if collect_kv_stats:
+                a, stat = a
+                stats.append(stat)
+            h = h + a
             h = h + self._mlp(layer, rms_norm(h, layer["post_norm"], eps))
         # RMSNorm is row-wise: gather the logits rows first, then norm
         rows = h[metadata.logits_indices]
@@ -264,6 +285,8 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         logits = self.m_lm_head.apply(params["lm_head"], last).float()
         if collect_hidden:
             return logits, kv_pages, rows
+        if collect_kv_stats:
+            return logits, kv_pages, torch.stack(stats)
         return logits, kv_pages
 
     def _mlp(self, layer: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:

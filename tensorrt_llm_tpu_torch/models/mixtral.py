@@ -32,6 +32,8 @@ from .modeling_utils import register_model
 @register_model("mixtral")
 class MixtralForCausalLM(LlamaForCausalLM):
     architectures = ("MixtralForCausalLM",)
+    # one KV scale, the config's, for every layer (the JAX mixtral.py:181)
+    per_layer_kv_scale = False
     # checkpoint modules below model.layers.{i}.: the router, and the
     # experts' gate, up and down projections ({e}: the expert)
     _ROUTER = "block_sparse_moe.gate"

@@ -13,6 +13,11 @@ place. Q, K and V come from one fused projection (and the MLP's gate and
 up from another) whenever they share a linear method: one matmul launch
 each instead of three and two. Projections whose methods differ (an
 ``exclude_modules`` entry that names only some of them) stay apart.
+
+A quantized KV cache (``QuantConfig(kv_cache_quant_algo=INT8 | FP8 |
+NVFP4)``) sets ``ModelConfig.kv_cache_dtype`` to int8 or float8 e4m3 and a
+default per-tensor scale; ``attention_block`` quantizes the fresh K/V by
+the layer's scale into the pool and attention dequantizes them.
 """
 from __future__ import annotations
 
@@ -24,11 +29,12 @@ import numpy as np
 import torch
 
 from ..ops import rope as rope_ops
-from ..ops.attention import (AttentionMetadata, ragged_paged_attention,
-                             write_kv)
+from ..ops.attention import (KV_DTYPES, AttentionMetadata,
+                             ragged_paged_attention, write_kv)
 from ..ops.linear import LinearMethod, make_linear_method
 from ..ops.quant import pack_int4
 from ..quantization.checkpoint import PrequantizedWeight
+from ..quantization.mode import KvCacheQuantAlgo
 
 MODEL_REGISTRY: Dict[str, type] = {}
 
@@ -58,13 +64,39 @@ class ModelConfig:
     device: torch.device = torch.device("cuda")
     kv_cache_dtype: Optional[torch.dtype] = None   # None -> dtype
     # llmapi.llm_args.QuantConfig (or anything with quant_algo,
-    # group_size and exclude_modules); None -> unquantized
+    # group_size and exclude_modules, and optionally kv_cache_quant_algo);
+    # None -> unquantized
     quant_config: Any = None
+    kv_scale: float = 1.0                 # per-tensor KV quant scale
+    # NVFP4 KV cache: appended K/V round to the e2m1 grid and are stored
+    # in the e4m3 pool (every grid value times the scale is exact there)
+    kv_fp4_grid: bool = False
 
     def __post_init__(self):
+        """The KV pool's type and default scale from
+        ``quant_config.kv_cache_quant_algo``, as the JAX ``ModelConfig``
+        (models/modeling_utils.py:80-95): INT8 -> int8, scale 0.05; FP8
+        -> e4m3, 1.0; NVFP4 -> e4m3 on the e2m1 grid, 1/6 (the grid tops
+        out at 6)."""
         self.device = torch.device(self.device)
         if self.kv_cache_dtype is None:
-            self.kv_cache_dtype = self.dtype
+            algo = getattr(self.quant_config, "kv_cache_quant_algo",
+                           KvCacheQuantAlgo.NO_QUANT)
+            if algo == KvCacheQuantAlgo.INT8:
+                self.kv_cache_dtype = torch.int8
+                self.kv_scale = 0.05
+            elif algo == KvCacheQuantAlgo.FP8:
+                self.kv_cache_dtype = torch.float8_e4m3fn
+            elif algo == KvCacheQuantAlgo.NVFP4:
+                self.kv_cache_dtype = torch.float8_e4m3fn
+                self.kv_fp4_grid = True
+                self.kv_scale = 1.0 / 6.0
+            else:
+                self.kv_cache_dtype = self.dtype
+
+    @property
+    def uses_kv_quant(self) -> bool:
+        return self.kv_cache_dtype in KV_DTYPES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +114,9 @@ class AttentionSpec:
     alibi_slopes: Optional[tuple] = None
     # attention sinks: layer params carry a per-q-head "sinks" tensor
     use_sinks: bool = False
+    # NVFP4 KV cache: round appended K/V to the e2m1 grid (stamped by the
+    # engine from ModelConfig.kv_fp4_grid)
+    kv_fp4: bool = False
 
 
 class AttentionMethods(NamedTuple):
@@ -100,12 +135,19 @@ def attention_block(params: Dict[str, Any],
                     rope_cos_sin: Optional[Tuple[torch.Tensor,
                                                  torch.Tensor]] = None,
                     q_norm: Optional[Callable] = None,
-                    k_norm: Optional[Callable] = None
-                    ) -> torch.Tensor:
+                    k_norm: Optional[Callable] = None,
+                    kv_scale=None,
+                    collect_kv_stats: bool = False):
     """QKV projection (``params["qkv"]`` fused, or "q", "k", "v" apart),
     the q/k norms (``q_norm(params, q [T, nq, hd])``, likewise k: Qwen3's
     per-head RMS norm, OLMoE's over the whole projection), RoPE, KV append
-    (in place) and paged attention, then the output projection."""
+    (in place) and paged attention, then the output projection.
+
+    An 8-bit pool (int8, e4m3) is written and read with ``kv_scale`` (the
+    layer's 0-dim float32 device tensor, or a float), rounded to the e2m1
+    grid with ``spec.kv_fp4``. ``collect_kv_stats`` returns (out, the
+    absmax of the fresh K and V before quantizing, a float32 scalar): the
+    calibration pass's statistic."""
     T = x.shape[0]
     nq, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     if "qkv" in params:
@@ -127,16 +169,26 @@ def attention_block(params: Dict[str, Any],
             rope_ops.rope_cos_sin(spec.rope, metadata.positions)
         q = rope_ops.apply_rope(q, cos, sin, spec.is_neox)
         k = rope_ops.apply_rope(k, cos, sin, spec.is_neox)
-    write_kv(kv_pages, k, v, metadata.slot_mapping)
+    quant = kv_pages.dtype in KV_DTYPES
+    ks = kv_scale if quant else None
+    write_kv(kv_pages, k, v, metadata.slot_mapping, k_scale=ks, v_scale=ks,
+             fp4_grid=spec.kv_fp4 and quant)
     # the dequant-matmul kernel returns bf16 whatever the model's type:
-    # attention runs in the pool's type and hands q's type back
+    # attention runs in the pool's type and hands q's type back; under an
+    # 8-bit pool it runs in the model's type (that of the normed input x)
+    dt = x.dtype if quant else kv_pages.dtype
     attn = ragged_paged_attention(
-        q.to(kv_pages.dtype).contiguous(), kv_pages, metadata,
+        q.to(dt).contiguous(), kv_pages, metadata,
         sm_scale=spec.sm_scale,
         sliding_window=spec.sliding_window, soft_cap=spec.soft_cap,
         alibi_slopes=spec.alibi_slopes,
-        sinks=params["sinks"] if spec.use_sinks else None).to(q.dtype)
-    return methods.o.apply(params["o"], attn.reshape(T, nq * hd))
+        sinks=params["sinks"] if spec.use_sinks else None,
+        k_scale=ks, v_scale=ks).to(q.dtype)
+    out = methods.o.apply(params["o"], attn.reshape(T, nq * hd))
+    if collect_kv_stats:
+        return out, torch.maximum(k.float().abs().amax(),
+                                  v.float().abs().amax())
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -206,6 +258,10 @@ class DecoderModelForCausalLM:
         self.hf = model_config.hf_config
         self.dtype = model_config.dtype
         self.device = model_config.device
+        # the config's KV scale as a device scalar: the scale of every
+        # layer without one of its own (the kernels read it by pointer)
+        self.kv_scale = torch.full((), model_config.kv_scale,
+                                   dtype=torch.float32, device=self.device)
 
     @property
     def num_layers(self) -> int:

@@ -5,7 +5,9 @@ model uses. All scheduled sequences' new tokens share one ragged token
 axis. Each layer:
 
   1. ``write_kv`` scatters this step's K/V into the paged pool at
-     ``slot_mapping`` (k at even combined-head indices, v at odd);
+     ``slot_mapping`` (k at even combined-head indices, v at odd),
+     quantizing them for an 8-bit pool (int8, float8 e4m3, or e4m3 on the
+     NVFP4 grid) by the layer's scale;
   2. ``ragged_paged_attention`` attends over (kv_lens, page_indices,
      cu_q_lens). A decode-only batch goes to the paged decode kernel
      (ops/cuda/decode_attention.py), any other batch to the ragged
@@ -15,7 +17,9 @@ axis. Each layer:
      of any length, so there is no dense fallback for long segments.
 
 ``_reference_attention`` is the dense gather implementation of the same
-semantics, kept for the tests.
+semantics, kept for the tests. Both attention paths take ``k_scale`` /
+``v_scale`` to dequantize an 8-bit pool, as the JAX package does
+(``dequant_kv``).
 """
 from __future__ import annotations
 
@@ -24,8 +28,12 @@ from typing import Optional, Sequence
 
 import torch
 
-from .cuda.decode_attention import paged_decode_attention
+from .cuda.decode_attention import (KV_DTYPES, dequant_kv,
+                                    paged_decode_attention)
 from .cuda.prefill_attention import ragged_prefill_attention
+from .quant import fp4_round
+
+E4M3_MAX = 448.0      # the largest finite float8 e4m3 value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +99,29 @@ def layer_metadata(metadata: AttentionMetadata, layer_idx: int,
         slot_mapping=sm)
 
 
+def quantize_kv(x: torch.Tensor, scale, dtype: torch.dtype,
+                fp4_grid: bool = False) -> torch.Tensor:
+    """K or V values of the compute type -> the pool's ``dtype``: divided
+    by ``scale`` in float32 (when given), then for int8 rounded half to
+    even and clipped to [-128, 127], or on the NVFP4 grid rounded to e2m1
+    (``fp4_round``); e4m3 is clamped to +-448 before the cast. The JAX
+    ``write_kv`` (ops/attention.py:200-213) stores the same bytes for
+    values inside the range; outside it, its cast gives NaN (ml_dtypes
+    saturates nothing), where this one stores +-448."""
+    if scale is not None:
+        x = x.float() / scale
+        if dtype == torch.int8:
+            x = torch.clamp(torch.round(x), -128, 127)
+        elif fp4_grid:
+            x = fp4_round(x)
+    if dtype == torch.float8_e4m3fn:
+        x = x.float().clamp(-E4M3_MAX, E4M3_MAX)
+    return x.to(dtype)
+
+
 def write_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             slot_mapping: torch.Tensor) -> torch.Tensor:
+             slot_mapping: torch.Tensor, k_scale=None, v_scale=None,
+             fp4_grid: bool = False) -> torch.Tensor:
     """Scatter new K/V into the paged pool, IN PLACE, and return the pool.
 
     kv_pages: [num_pages, page_size, 2*kv_heads, head_dim] (cache dtype)
@@ -102,12 +131,25 @@ def write_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the slot of the first kept row with that row's values (a duplicate
     write of identical data), or, when no row is kept, to slot 0 with the
     pool's own slot-0 contents.
+    k_scale, v_scale: an 8-bit pool's scales (0-dim float32 tensors or
+    floats), ``fp4_grid``: round to the NVFP4 grid (``quantize_kv``; K
+    and V in one pass when they share a scale, as a layer's do). An 8-bit
+    pool is scattered through its bytes (``index_copy_`` has no float8
+    kernel).
     """
     num_pages, page_size, combined, head_dim = kv_pages.shape
     n = num_pages * page_size
     flat = kv_pages.view(n, combined, head_dim)
-    kv = torch.stack([k, v], dim=2).reshape(k.shape[0], combined, head_dim)
-    kv = kv.to(kv_pages.dtype)
+    dt = kv_pages.dtype
+    if k_scale is v_scale:
+        kv = quantize_kv(torch.stack([k, v], dim=2), k_scale, dt, fp4_grid)
+    else:
+        kv = torch.stack([quantize_kv(k, k_scale, dt, fp4_grid).view(
+            torch.uint8), quantize_kv(v, v_scale, dt, fp4_grid).view(
+            torch.uint8)], dim=2).view(dt)
+    kv = kv.reshape(k.shape[0], combined, head_dim)
+    if kv_pages.element_size() == 1:
+        flat, kv = flat.view(torch.uint8), kv.view(torch.uint8)
     slots = slot_mapping.long()
     keep = (slots >= 0) & (slots < n)
     # the first kept row, as a 1-element index: indexing by a 0-dim
@@ -132,9 +174,10 @@ def ragged_paged_attention(q: torch.Tensor,            # [T, qh, hd]
                            soft_cap: Optional[float] = None,
                            alibi_slopes: Optional[Sequence[float]] = None,
                            sinks: Optional[torch.Tensor] = None,
-                           k_scale: Optional[float] = None,
-                           v_scale: Optional[float] = None) -> torch.Tensor:
-    """Mixed prefill/decode attention over the paged KV pool."""
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """Mixed prefill/decode attention over the paged KV pool (``k_scale``
+    / ``v_scale``: an 8-bit pool's scales, 0-dim float32 tensors on q's
+    device or floats)."""
     S = metadata.kv_lens.shape[0]
     T = q.shape[0]
     max_q = metadata.max_q_len
@@ -164,10 +207,12 @@ def ragged_paged_attention(q: torch.Tensor,            # [T, qh, hd]
 
 def _reference_attention(q, kv_pages, metadata, *, sm_scale,
                          sliding_window=None, soft_cap=None,
-                         alibi_slopes=None, sinks=None):
+                         alibi_slopes=None, sinks=None, k_scale=None,
+                         v_scale=None):
     """Dense gather-based paged attention, vectorized over sequences (the
-    JAX package's ``_reference_attention`` for the dense-model features;
-    a fully masked padding row averages V, as there)."""
+    JAX package's ``_reference_attention`` for the dense-model features,
+    the 8-bit pool's dequant included; a fully masked padding row averages
+    V, as there)."""
     T, num_q_heads, head_dim = q.shape
     num_pages, page_size, combined, _ = kv_pages.shape
     num_kv_heads = combined // 2
@@ -185,8 +230,8 @@ def _reference_attention(q, kv_pages, metadata, *, sm_scale,
 
     pages = kv_pages[metadata.page_indices.reshape(-1).long()]
     pages = pages.reshape(S, max_kv, combined, head_dim)
-    k = pages[:, :, 0::2].to(q.dtype)
-    v = pages[:, :, 1::2].to(q.dtype)
+    k = dequant_kv(pages[:, :, 0::2], k_scale, q.dtype)
+    v = dequant_kv(pages[:, :, 1::2], v_scale, q.dtype)
     k_tok = k[seq_of_tok]
     v_tok = v[seq_of_tok]
     group = num_q_heads // num_kv_heads

@@ -16,7 +16,17 @@ the first version's CUDA-core kernel (float32 math throughout, 1e-4
 against the plain version), with the same splits. Head dims 64, 128 and
 256 (``HEAD_DIMS``; at 256 a warp's stage is 16 KB and Q waits in shared
 memory), any other is refused by name. Left for later: TMA, one launch
-instead of two when split, int8/fp8 pools.
+instead of two when split.
+
+8-bit pools (``KV_DTYPES``: int8 and float8 e4m3, the TPU kernel's
+``k_scale`` / ``v_scale`` dequant): the pool may hold q's type or one of
+these, dequantized by per-layer scales (0-dim float32 tensors on the
+device, or floats). The plain versions dequantize as the JAX package does
+(``dequant_kv``: ``k.float() * k_scale``, then q's type); the kernels copy
+the 8-bit tiles and dequantize them in shared memory with the same
+arithmetic (the same bf16 or float32 operands), then run as on a pool of
+q's type. The scales stay device pointers, so a CUDA graph reads the value
+current at each replay.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and runs
 ``paged_decode_attention_plain`` only for CPU tensors.
@@ -42,6 +52,10 @@ from . import _build
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the quantized (8-bit) KV pool types, those of ModelConfig.kv_cache_dtype
+# under INT8, FP8 and NVFP4, and their csrc AttnKv codes (0: the pool
+# holds q's own type)
+KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 HEAD_DIMS = (64, 128, 256)   # the head dims the kernels are built for
 
 
@@ -51,12 +65,51 @@ def _as_f32(x, device) -> Optional[torch.Tensor]:
     return torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
 
 
+def dequant_kv(x: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
+    """Pool values in q's type: times the scale in float32 first when one
+    is given (an 8-bit pool; the JAX package's ``k.astype(f32) *
+    k_scale``, ops/attention.py:529-532), else cast."""
+    if scale is not None:
+        x = x.float() * scale
+    return x.to(dtype)
+
+
+def kv_code(q_dtype: torch.dtype, pool_dtype: torch.dtype) -> int:
+    """csrc's AttnKv code of a pool next to queries of ``q_dtype``: 0 for
+    q's own type, else an 8-bit type of ``KV_DTYPES``; anything else is
+    refused by name."""
+    if q_dtype not in _DTYPES:
+        raise TypeError(f"unsupported query dtype {q_dtype}")
+    if pool_dtype == q_dtype:
+        return 0
+    if pool_dtype in KV_DTYPES:
+        return KV_DTYPES[pool_dtype]
+    raise TypeError(f"unsupported KV pool dtype {pool_dtype} beside "
+                    f"queries of {q_dtype}: the pool holds q's type, int8 "
+                    "or float8_e4m3fn")
+
+
+def scale_ptr(scale, device: torch.device) -> Optional[torch.Tensor]:
+    """A dequant scale as a float32 scalar on ``device`` (the kernel reads
+    it there), or None. A tensor already there passes as it is; a float
+    becomes one by a fill (no host-to-device copy, so a capture takes
+    it)."""
+    if scale is None:
+        return None
+    if isinstance(scale, torch.Tensor):
+        if scale.numel() != 1 or scale.device != device:
+            raise ValueError("a KV scale is one float32 value on the "
+                             "queries' device")
+        return scale.reshape(()).to(torch.float32)
+    return torch.full((), float(scale), dtype=torch.float32, device=device)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The built C entry point, with its ctypes signature set once."""
     fn = _build.load("decode_attention").paged_decode_attention
     P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P_] * 9 + [I_] * 7 + [F_, I_, F_, I_, I_, P_]
+    fn.argtypes = [P_] * 9 + [I_] * 7 + [F_, I_, F_, I_, I_, I_, P_, P_, P_]
     fn.restype = I_
     return fn
 
@@ -106,10 +159,12 @@ def paged_decode_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
                                  soft_cap: Optional[float] = None,
                                  alibi_slopes: Optional[Sequence[float]] = None,
                                  sinks: Optional[torch.Tensor] = None,
-                                 num_splits: int = 1) -> torch.Tensor:
+                                 num_splits: int = 1,
+                                 k_scale=None, v_scale=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gather every page of the page
-    table, mask positions past kv_len (and outside the window), softmax in
-    float32 (with the sink logit in the denominator when given).
+    table, dequantize an 8-bit pool (``dequant_kv``), mask positions past
+    kv_len (and outside the window), softmax in float32 (with the sink
+    logit in the denominator when given).
 
     With ``num_splits`` > 1 it runs the kernel's split algorithm: each
     split computes (m, l, acc) over its share of the row's visible range,
@@ -121,8 +176,9 @@ def paged_decode_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
     group = qh // kvh
     max_kv = page_indices.shape[1] * ps
     pages = kv_pages[page_indices.clamp(0, P - 1).reshape(-1).long()]
-    pages = pages.reshape(S, max_kv, combined, hd).float()
-    k, v = pages[:, :, 0::2], pages[:, :, 1::2]          # [S, kv, kvh, hd]
+    pages = pages.reshape(S, max_kv, combined, hd)
+    k = dequant_kv(pages[:, :, 0::2], k_scale, q.dtype).float()
+    v = dequant_kv(pages[:, :, 1::2], v_scale, q.dtype).float()  # [S, kv, kvh, hd]
     qg = q.float().reshape(S, kvh, group, hd)
     scores = torch.einsum("skgd,sckd->skgc", qg, k) * sm_scale
     pos = torch.arange(max_kv, device=q.device)
@@ -206,35 +262,30 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            soft_cap: Optional[float] = None,
                            alibi_slopes: Optional[Sequence[float]] = None,
                            sinks: Optional[torch.Tensor] = None,
-                           k_scale: Optional[float] = None,
-                           v_scale: Optional[float] = None,
+                           k_scale=None, v_scale=None,
                            max_kv_len: Optional[int] = None,
                            num_splits: Optional[int] = None) -> torch.Tensor:
-    """q [S, qh, hd]; kv_pages [P, ps, 2*kvh, hd]; kv_lens i32[S];
-    page_indices i32[S, max_pages] -> out [S, qh, hd].
+    """q [S, qh, hd]; kv_pages [P, ps, 2*kvh, hd] in q's type, int8 or
+    float8 e4m3; kv_lens i32[S]; page_indices i32[S, max_pages] -> out
+    [S, qh, hd]. ``k_scale`` / ``v_scale`` dequantize an 8-bit pool (0-dim
+    float32 tensors on q's device, or floats; None: 1).
 
     ``max_kv_len`` is a host-known upper bound of ``kv_lens`` (a hint: it
     only picks the number of KV splits, any value gives the same result);
     without it the bound is the page table's reach. ``num_splits`` forces
     the count (tests and sweeps)."""
     if q.device.type == "cpu":
-        if k_scale is not None or v_scale is not None:
-            raise NotImplementedError("quantized KV pools are not supported")
         return paged_decode_attention_plain(
             q, kv_pages, kv_lens, page_indices, sm_scale=sm_scale,
             sliding_window=sliding_window, soft_cap=soft_cap,
             alibi_slopes=alibi_slopes, sinks=sinks,
-            num_splits=num_splits or 1)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the CUDA decode kernel has no int8/fp8 KV dequant yet")
+            num_splits=num_splits or 1, k_scale=k_scale, v_scale=v_scale)
     S, qh, hd = q.shape
     P, ps, combined, _ = kv_pages.shape
     kvh = combined // 2
     if q.device.type != "cuda" or kv_pages.device != q.device:
         raise ValueError("q and kv_pages must be on the same CUDA device")
-    if q.dtype not in _DTYPES or kv_pages.dtype != q.dtype:
-        raise TypeError(f"unsupported dtypes q={q.dtype} kv={kv_pages.dtype}")
+    kv_dtype = kv_code(q.dtype, kv_pages.dtype)
     if hd not in HEAD_DIMS or qh % kvh or qh // kvh > 64:
         raise ValueError(f"unsupported geometry qh={qh} kvh={kvh} hd={hd}")
     if not (q.is_contiguous() and kv_pages.is_contiguous()):
@@ -243,6 +294,7 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     page_indices = page_indices.to(torch.int32).contiguous()
     sinks_t = _as_f32(sinks, q.device)
     alibi_t = _as_f32(alibi_slopes, q.device)
+    ks, vs = scale_ptr(k_scale, q.device), scale_ptr(v_scale, q.device)
     splits = int(num_splits) if num_splits else splits_for(
         S, qh, kvh, page_indices.shape[1] * ps, max_kv_len, sliding_window,
         q.device)
@@ -263,7 +315,9 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         part_ml.data_ptr() if part_ml is not None else None,
         S, qh, kvh, hd, ps, P, page_indices.shape[1],
         float(sm_scale), int(sliding_window or 0), float(soft_cap or 0.0),
-        splits, _DTYPES[q.dtype],
+        splits, _DTYPES[q.dtype], kv_dtype,
+        ks.data_ptr() if ks is not None else None,
+        vs.data_ptr() if vs is not None else None,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     _build.count_launch(__name__)

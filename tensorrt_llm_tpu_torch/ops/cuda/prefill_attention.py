@@ -24,7 +24,13 @@ Head dims 64, 128 and 256 (at 256 one CTA per SM, and P.V as two n128
 products per k-step); any other is refused by name. Left for later: a
 TMA producer warp, softmax overlapped with the next tile's product, K/V
 tiles shared between the query blocks of a sequence, a KV split for the
-q_len-1 rows of mixed batches, int8/fp8 pools.
+q_len-1 rows of mixed batches.
+
+8-bit pools (int8, float8 e4m3; ``decode_attention.KV_DTYPES``), as in
+the decode kernel: the plain version dequantizes as the JAX package does,
+and the kernels copy the 8-bit tiles and dequantize them with the same
+arithmetic into bf16 operand tiles in shared memory (wgmma reads bf16; q
+stays bf16); the scales are device pointers.
 
 ``ragged_prefill_attention`` launches the kernel for CUDA tensors and runs
 ``ragged_prefill_attention_plain`` only for CPU tensors. ``LAUNCHES``
@@ -42,7 +48,8 @@ from typing import Optional, Sequence
 import torch
 
 from . import _build
-from .decode_attention import _DTYPES, HEAD_DIMS, _as_f32
+from .decode_attention import (_DTYPES, HEAD_DIMS, _as_f32, dequant_kv,
+                               kv_code, scale_ptr)
 
 LAUNCHES = 0
 
@@ -59,7 +66,7 @@ def _kernel():
     """The built C entry point, with its ctypes signature set once."""
     fn = _build.load("prefill_attention").ragged_prefill_attention
     P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P_] * 8 + [I_] * 8 + [F_, I_, F_, I_, P_]
+    fn.argtypes = [P_] * 8 + [I_] * 8 + [F_, I_, F_, I_, I_, P_, P_, P_]
     fn.restype = I_
     return fn
 
@@ -73,11 +80,13 @@ def ragged_prefill_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
                                    soft_cap: Optional[float] = None,
                                    alibi_slopes: Optional[Sequence[float]]
                                    = None,
-                                   sinks: Optional[torch.Tensor] = None
+                                   sinks: Optional[torch.Tensor] = None,
+                                   k_scale=None, v_scale=None
                                    ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, one sequence at a time: gather
-    the sequence's pages, causal + window mask, float32 softmax (sink
-    logit in the denominator when given). Rows past cu_q_lens[S] are 0."""
+    the sequence's pages, dequantize an 8-bit pool (``dequant_kv``),
+    causal + window mask, float32 softmax (sink logit in the denominator
+    when given). Rows past cu_q_lens[S] are 0."""
     T, qh, hd = q.shape
     P, ps, combined, _ = kv_pages.shape
     kvh = combined // 2
@@ -95,8 +104,8 @@ def ragged_prefill_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
         n_pages = -(-kv_len // ps)
         pids = page_indices[s, :n_pages].clamp(0, P - 1).long()
         pages = kv_pages[pids].reshape(n_pages * ps, combined, hd)[:kv_len]
-        k = pages[:, 0::2].float()                     # [kv, kvh, hd]
-        v = pages[:, 1::2].float()
+        k = dequant_kv(pages[:, 0::2], k_scale, q.dtype).float()  # [kv, kvh, hd]
+        v = dequant_kv(pages[:, 1::2], v_scale, q.dtype).float()
         qs = q[cu[s]:cu[s + 1]].float().reshape(q_len, kvh, group, hd)
         scores = torch.einsum("tkgd,ckd->kgtc", qs, k) * sm_scale
         q_pos = kv_len - q_len + torch.arange(q_len, device=q.device)
@@ -134,32 +143,28 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                              soft_cap: Optional[float] = None,
                              alibi_slopes: Optional[Sequence[float]] = None,
                              sinks: Optional[torch.Tensor] = None,
-                             k_scale: Optional[float] = None,
-                             v_scale: Optional[float] = None,
+                             k_scale=None, v_scale=None,
                              max_q_len: Optional[int] = None
                              ) -> torch.Tensor:
     """q [T, qh, hd] packed by cu_q_lens i32[S+1]; kv_pages
-    [P, ps, 2*kvh, hd]; kv_lens i32[S]; page_indices i32[S, max_pages] ->
-    out [T, qh, hd]. ``max_q_len`` (the longest segment) sizes the grid;
-    pass it from the host to avoid a device sync."""
+    [P, ps, 2*kvh, hd] in q's type, int8 or float8 e4m3; kv_lens i32[S];
+    page_indices i32[S, max_pages] -> out [T, qh, hd]. ``k_scale`` /
+    ``v_scale`` dequantize an 8-bit pool (0-dim float32 tensors on q's
+    device, or floats; None: 1). ``max_q_len`` (the longest segment)
+    sizes the grid; pass it from the host to avoid a device sync."""
     if q.device.type == "cpu":
-        if k_scale is not None or v_scale is not None:
-            raise NotImplementedError("quantized KV pools are not supported")
         return ragged_prefill_attention_plain(
             q, kv_pages, kv_lens, page_indices, cu_q_lens,
             sm_scale=sm_scale, sliding_window=sliding_window,
-            soft_cap=soft_cap, alibi_slopes=alibi_slopes, sinks=sinks)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the CUDA prefill kernel has no int8/fp8 KV dequant yet")
+            soft_cap=soft_cap, alibi_slopes=alibi_slopes, sinks=sinks,
+            k_scale=k_scale, v_scale=v_scale)
     T, qh, hd = q.shape
     P, ps, combined, _ = kv_pages.shape
     kvh = combined // 2
     S = kv_lens.shape[0]
     if q.device.type != "cuda" or kv_pages.device != q.device:
         raise ValueError("q and kv_pages must be on the same CUDA device")
-    if q.dtype not in _DTYPES or kv_pages.dtype != q.dtype:
-        raise TypeError(f"unsupported dtypes q={q.dtype} kv={kv_pages.dtype}")
+    kv_dtype = kv_code(q.dtype, kv_pages.dtype)
     if hd not in HEAD_DIMS or qh % kvh or qh // kvh > 64:
         raise ValueError(f"unsupported geometry qh={qh} kvh={kvh} hd={hd}")
     if not (q.is_contiguous() and kv_pages.is_contiguous()):
@@ -171,6 +176,7 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         max_q_len = int((cu_q_lens[1:] - cu_q_lens[:-1]).max())
     sinks_t = _as_f32(sinks, q.device)
     alibi_t = _as_f32(alibi_slopes, q.device)
+    ks, vs = scale_ptr(k_scale, q.device), scale_ptr(v_scale, q.device)
     out = torch.zeros_like(q)
     err = _kernel()(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
@@ -179,7 +185,9 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         alibi_t.data_ptr() if alibi_t is not None else None,
         out.data_ptr(), S, qh, kvh, hd, ps, P, page_indices.shape[1],
         int(max_q_len), float(sm_scale), int(sliding_window or 0),
-        float(soft_cap or 0.0), _DTYPES[q.dtype],
+        float(soft_cap or 0.0), _DTYPES[q.dtype], kv_dtype,
+        ks.data_ptr() if ks is not None else None,
+        vs.data_ptr() if vs is not None else None,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ragged_prefill_attention")
     _build.count_launch(__name__)

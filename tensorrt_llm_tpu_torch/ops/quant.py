@@ -118,12 +118,14 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 def fp4_round(x: torch.Tensor) -> torch.Tensor:
     """Round to the nearest e2m1 value (a tie goes to the larger
-    magnitude), saturating at +-6."""
-    grid = torch.tensor(_E2M1_GRID, dtype=torch.float32, device=x.device)
-    mids = (grid[:-1] + grid[1:]) / 2.0           # 7 decision points
-    xf = x.float().contiguous()
-    idx = torch.bucketize(xf.abs(), mids, right=True)   # #(mids <= |x|)
-    mag = grid[idx]
+    magnitude), saturating at +-6. Elementwise against host constants
+    only (no host-to-device copy), so a CUDA graph can capture it: the
+    KV append of an NVFP4 cache runs inside the decode windows."""
+    xf = x.float()
+    a = xf.abs()
+    mag = torch.zeros_like(a)
+    for lo, hi in zip(_E2M1_GRID[:-1], _E2M1_GRID[1:]):
+        mag = torch.where(a >= (lo + hi) / 2.0, hi, mag)   # up to the top
     return torch.where(xf < 0, -mag, mag)
 
 

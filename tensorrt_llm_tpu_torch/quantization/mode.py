@@ -3,9 +3,10 @@
 Port of the ``QuantAlgo`` / ``KvCacheQuantAlgo`` enums of
 ``tensorrt_llm_tpu/quantization/mode.py``. This package serves the
 weight-only algorithms (W8A16, W4A16, W4A16_AWQ, W4A16_GPTQ, NVFP4,
-MXFP4; ops/linear.py) over an unquantized KV cache. The other names exist
-so that configurations parse the same way and an algorithm that is not
-ported is refused by name.
+MXFP4; ops/linear.py) and every KV cache algorithm (INT8, FP8, NVFP4 on
+an e4m3 pool; models/modeling_utils.py ModelConfig). The other weight
+algorithms exist so that configurations parse the same way and an
+algorithm that is not ported is refused by name.
 """
 from __future__ import annotations
 

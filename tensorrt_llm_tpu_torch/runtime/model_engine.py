@@ -9,7 +9,8 @@ the fused speculative window's entry points ``forward_spec_window`` /
 row buckets, ``warmup`` / ``_warm_multi`` and KV-pool sizing, which
 carves out the draft head's pool, and VSWA's second pool: ``_vswa``,
 ``num_sw_pages``, the sliding layers' page table and slot map in every
-step and window) without guided decoding, LoRA, host-orchestrated
+step and window, the quantized KV cache's NVFP4 flag and
+``calibrate_kv_scales``) without guided decoding, LoRA, host-orchestrated
 drafts, tree drafts, M-RoPE, MoE statistics and pipeline parallelism.
 MoE models run through the same steps and graphs: their routing is
 computed on the device, and no MoE shape depends on it (ops/moe.py).
@@ -151,6 +152,14 @@ class ModelEngine:
         self.window_steps = 0
         self.dead_window_steps = 0
         self.params = params
+        # NVFP4 KV: stamp the e2m1-grid flag into the model's attention
+        # specs so that write_kv rounds appended K/V onto the grid (the
+        # JAX engine's model_engine.py:110-117)
+        if model.config.kv_fp4_grid:
+            for attr in ("attn_spec", "sliding_spec"):
+                sp = getattr(model, attr, None)
+                if sp is not None:
+                    setattr(model, attr, dataclasses.replace(sp, kv_fp4=True))
         # VSWA (Gemma 2 with max_attention_window): the sliding layers
         # keep their KV in a second, smaller pool; self.kv_pages is then
         # the pair (global, sliding)
@@ -385,6 +394,55 @@ class ModelEngine:
         if _ptrs(out[1]) != _ptrs(self.kv_pages):
             raise RuntimeError("the model moved the KV pool")
         return (out[0], out[2]) if collect_hidden else out[0]
+
+    @torch.no_grad()
+    def calibrate_kv_scales(self, token_ids: np.ndarray
+                            ) -> Optional[np.ndarray]:
+        """Set the per-layer KV scales from one prefill pass over
+        calibration tokens: each layer's absmax of its fresh K/V
+        projections over the grid's top, no less than 1e-6 (the JAX
+        engine's model_engine.py:1043-1081: the same token count, the
+        same float32 formula). The top is 127 for int8, 448 for e4m3 and
+        6 for the NVFP4 grid, where the JAX engine takes 448 and clips
+        every value above 6/448 of the absmax. Each scale is written into
+        its layer's tensor in place (``copy_``), so graphs captured before
+        read it. Runs at build, before any request owns KV pages, so the
+        pass's writes to the pool are scratch. None, changing nothing,
+        for a pool that is not quantized or a model without per-layer
+        scales (``per_layer_kv_scale``)."""
+        layers = self.params.get("layers") or []
+        cfg = self.model.config
+        if not cfg.uses_kv_quant or not layers \
+                or "kv_scale" not in layers[0]:
+            return None
+        ps = self.page_size
+        T = int(min(len(token_ids), self.args.max_num_tokens,
+                    (self.num_kv_pages - 1) * ps, self.max_seq_len))
+        n_pages = -(-T // ps)
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        metadata = AttentionMetadata(
+            kv_lens=torch.tensor([T], **i32),
+            page_indices=torch.arange(n_pages, **i32)[None, :],
+            cu_q_lens=torch.tensor([0, T], **i32),
+            num_seqs=torch.tensor([1], **i32),
+            slot_mapping=torch.arange(T, **i32),
+            positions=torch.arange(T, **i32),
+            logits_indices=torch.tensor([T - 1], **i32),
+            max_q_len=T, max_kv_len=T)
+        tokens = torch.as_tensor(np.asarray(token_ids[:T], np.int64),
+                                 device=dev)
+        _, _, stats = self.model.forward(self.params, tokens, self.kv_pages,
+                                         metadata, collect_kv_stats=True)
+        qmax = 127.0 if cfg.kv_cache_dtype == torch.int8 else \
+            (6.0 if cfg.kv_fp4_grid else 448.0)
+        scales = np.maximum(stats.cpu().numpy().astype(np.float32)
+                            / np.float32(qmax), np.float32(1e-6))
+        for layer, sc in zip(layers, scales):
+            layer["kv_scale"].copy_(torch.tensor(sc, dtype=torch.float32))
+        logger.info("calibrated KV scales over %d tokens: min=%.4g max=%.4g",
+                    T, scales.min(), scales.max())
+        return scales
 
     # ------------------------------------------------------------------ #
     # Input preparation (host, numpy)

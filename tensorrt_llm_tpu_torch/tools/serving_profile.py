@@ -2,7 +2,7 @@
 
 Runs a serving workload once to warm up, once timed without the profiler
 and once under ``torch.profiler``, then prints one JSON line: both wall
-times, tokens/s and the TTFT / TPOT medians of the timed run, the summed
+times, tokens/s and the TTFT / TPOT medians of the timed run (and their maxima), the summed
 GPU kernel time, the device's idle share (kernel time over the
 unprofiled wall time; the profiler itself slows the host), the KV pages
 the timed pass allocated (reused prefix pages included), the kernel
@@ -44,7 +44,16 @@ Two workloads:
   (26 layers, hidden 1152, 4 x 256 q heads over 1 KV head, intermediate
   6,912, vocab 262,144, window 512 on five layers of six, rope bases
   1e6 / 1e4; seeded random bf16 weights), 32 requests of 1,024 -> 64
-  tokens with ``ignore_eos``, one pool, prefix reuse off.
+  tokens with ``ignore_eos``, one pool, prefix reuse off;
+- ``--geometry llama3-8b``: ``chip_smoke.py``'s kv_serving run,
+  Llama-3-8B at its published width and depth (``bench.py``'s ``8b``
+  geometry: 32 layers, hidden 4,096, 32 x 128 q heads over 8 KV heads,
+  intermediate 14,336, vocab 128,256, rope theta 500,000; seeded random
+  bf16 weights, 16.1 GB), 64 requests of 2,048 prompt tokens -> 128
+  tokens with ``ignore_eos``, ``LLM`` defaults but prefix reuse off (each
+  pass prefills afresh); ``--kv fp8`` (or ``int8``, ``nvfp4``) keeps the
+  KV cache in 8 bits (``QuantConfig(kv_cache_quant_algo=...)``, scales
+  calibrated at build).
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms). ``--spec EAGLE3 --draft-len d`` serves the
@@ -62,6 +71,8 @@ outside spec windows, and the launches replayed from spec graphs.
         --geometry qwen3-30b-a3b
     python -m tensorrt_llm_tpu_torch.tools.serving_profile \
         --geometry gemma2-9b [--vswa]
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry llama3-8b [--kv fp8|int8]
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --quant W4A16_AWQ
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --spec EAGLE3 \
         --draft-len 3
@@ -70,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -107,6 +119,13 @@ GEMMA2_9B = dict(
     max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
     hidden_activation="gelu_pytorch_tanh", bos_token_id=2, eos_token_id=1,
     pad_token_id=0)
+# https://huggingface.co/meta-llama/Meta-Llama-3-8B/blob/main/config.json
+# (bench.py's "8b" geometry, with the config's rope theta and norm eps)
+LLAMA3_8B = dict(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=8192, rope_theta=500000.0, rms_norm_eps=1e-5,
+    tie_word_embeddings=False, bos_token_id=128000, eos_token_id=128001)
 # https://huggingface.co/google/gemma-3-1b-pt/blob/main/config.json
 GEMMA3_1B = dict(
     vocab_size=262144, hidden_size=1152, intermediate_size=6912,
@@ -139,6 +158,12 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
 
     from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
     gen = torch.Generator().manual_seed(0)
+    if geometry == "llama3-8b":
+        prompts = torch.randint(0, LLAMA3_8B["vocab_size"], (64, 2048),
+                                generator=gen).tolist()
+        kwargs = dict(kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (LlamaConfig(**LLAMA3_8B), kwargs, prompts,
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
     if geometry == "gemma2-9b":
         from transformers import Gemma2Config
         prompts = torch.randint(3, GEMMA2_9B["vocab_size"], (16, 6144),
@@ -240,6 +265,12 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
     steps = max(1, eng.decode_steps - steps0[0])
     perf = [o._result.request.perf for o in outs]
     n_out = [len(o.outputs[0].token_ids) for o in outs]
+    ttft = [p.first_token_time - p.arrival_time for p in perf]
+    tpot = [(p.last_token_time - p.first_token_time) / max(1, n - 1)
+            for p, n in zip(perf, n_out)]
+    # the chosen tokens' log-probabilities, which every step records
+    lps = [v for o in outs for d in (o.outputs[0].logprobs or [])
+           for v in d.values()]
     res = dict(
         device=torch.cuda.get_device_name(0),
         nvidia_smi=subprocess.run(
@@ -248,11 +279,13 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
             timeout=60).stdout.strip(),
         requests=len(prompts), output_tokens=sum(n_out),
         wall_ms=wall * 1e3, output_tok_per_s=sum(n_out) / wall,
-        ttft_ms_median=statistics.median(
-            p.first_token_time - p.arrival_time for p in perf) * 1e3,
-        tpot_ms_median=statistics.median(
-            (p.last_token_time - p.first_token_time) / max(1, n - 1)
-            for p, n in zip(perf, n_out)) * 1e3,
+        ttft_ms_median=statistics.median(ttft) * 1e3,
+        ttft_ms_max=max(ttft) * 1e3,
+        tpot_ms_median=statistics.median(tpot) * 1e3,
+        tpot_ms_max=max(tpot) * 1e3,
+        min_output_tokens=min(n_out),
+        logprobs_recorded=len(lps),
+        nonfinite_logprobs=sum(not math.isfinite(v) for v in lps),
         decode_steps=steps, launches=launches,
         graphs_captured=eng.graphs.num_graphs,
         graph_replays=eng.graphs.replays - replays0,
@@ -337,9 +370,12 @@ def main() -> None:
     ap.add_argument("--bench-settings", action="store_true",
                     help="bench.py's throughput workload and settings")
     ap.add_argument("--geometry", choices=["tinyllama", "qwen3-30b-a3b",
-                                           "gemma2-9b", "gemma3-1b"],
+                                           "gemma2-9b", "gemma3-1b",
+                                           "llama3-8b"],
                     default="tinyllama",
                     help="the model of the default workload")
+    ap.add_argument("--kv", choices=["none", "int8", "fp8", "nvfp4"],
+                    default="none", help="the KV cache's quantization")
     ap.add_argument("--vswa", action="store_true",
                     help="gemma2-9b: the sliding layers on their own pool")
     ap.add_argument("--spec", choices=["NONE", "EAGLE3"], default="NONE",
@@ -351,22 +387,24 @@ def main() -> None:
         raise SystemExit("needs a CUDA device")
     from tensorrt_llm_tpu_torch import LLM, SpeculativeConfig
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
-    from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
+    from tensorrt_llm_tpu_torch.quantization.mode import (KvCacheQuantAlgo,
+                                                          QuantAlgo)
     cfg, kwargs, prompts, sp = workload(args.bench_settings, args.geometry,
                                         args.vswa)
     if args.spec != "NONE":
         kwargs["speculative_config"] = SpeculativeConfig(
             mode=args.spec, max_draft_len=args.draft_len)
+    kv = "NO_QUANT" if args.kv == "none" else args.kv.upper()
     llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
-        quant_algo=QuantAlgo[args.quant], group_size=args.group_size),
-        **kwargs)
+        quant_algo=QuantAlgo[args.quant], group_size=args.group_size,
+        kv_cache_quant_algo=KvCacheQuantAlgo[kv]), **kwargs)
     try:
         res = measure(llm, prompts, sp)
         res["spec_replayed_launches"] = dict(
             llm.engine.graphs.replayed_launches("spec"))
     finally:
         llm.shutdown()
-    print(json.dumps(dict(quant_algo=args.quant,
+    print(json.dumps(dict(quant_algo=args.quant, kv=args.kv,
                           bench_settings=args.bench_settings,
                           geometry=args.geometry, vswa=args.vswa,
                           spec=args.spec, draft_len=args.draft_len, **res)))

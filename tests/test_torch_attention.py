@@ -144,11 +144,3 @@ def test_dispatch_matches_jax_reference(q_lens, ctx_lens, qh):
         T_(q), T_(pool), _metadata(tattn, T_, kvl, pt, cu, T),
         sm_scale=0.125)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
-
-
-def test_quantized_kv_refused():
-    q, pool, kvl, pt, cu = _setup(14, [1, 1], [3, 4], 4, 2, 64)
-    with pytest.raises(NotImplementedError):
-        tattn.ragged_paged_attention(
-            T_(q), T_(pool), _metadata(tattn, T_, kvl, pt, cu, 2),
-            sm_scale=0.125, k_scale=0.05, v_scale=0.05)

@@ -331,17 +331,6 @@ def test_quant_matmul_dispatch_on_cuda(cuda):
                                      group_size=64, bits=4)
 
 
-def test_quantized_pool_raises_on_cuda(cuda):
-    q, pool, kvl, pt, cu = _inputs([1, 1], [3, 4], 4, 2, 64, 16,
-                                   torch.bfloat16, cuda)
-    with pytest.raises(NotImplementedError):
-        dec.paged_decode_attention(q, pool, kvl, pt, sm_scale=0.125,
-                                   k_scale=0.05, v_scale=0.05)
-    with pytest.raises(NotImplementedError):
-        pre.ragged_prefill_attention(q, pool, kvl, pt, cu, sm_scale=0.125,
-                                     k_scale=0.05, v_scale=0.05)
-
-
 def test_llm_greedy_cuda_matches_cpu(cuda):
     """The parity checkpoint in float32: the kernel path on the card and
     the plain path on the CPU give the same greedy tokens — with more
@@ -873,4 +862,182 @@ def test_gemma2_hd256_cuda_matches_cpu(cuda, vswa, tmp_path):
                          for o in llm.generate(prompts, sp)]
         finally:
             llm.shutdown()
+    assert outs["cuda"] == outs["cpu"]
+
+
+# ---- 8-bit KV pools (int8, float8 e4m3) -----------------------------------
+
+# per-kind (k_scale, v_scale): different for K and V, so that a kernel that
+# swapped or dropped one fails; randn pools quantized by them (int8 clips
+# past about 4 sigma, e4m3 stays inside +-448)
+KV8 = {torch.int8: (0.04, 0.03), torch.float8_e4m3fn: (0.02, 0.015)}
+
+
+def _inputs8(q_lens, ctx_lens, qh, kvh, hd, ps, dtype, kv8, device, seed=0):
+    """``_inputs`` with the pool quantized to ``kv8`` by its KV8 scales
+    (``quantize_kv``, the port's write_kv arithmetic, K and V apart); the
+    scales come back as float32 scalars on the device."""
+    from tensorrt_llm_tpu_torch.ops.attention import quantize_kv
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx_lens, qh, kvh, hd, ps,
+                                   torch.float32, device, seed)
+    ks, vs = (torch.tensor(v, dtype=torch.float32, device=device)
+              for v in KV8[kv8])
+    pool8 = torch.empty(pool.shape, dtype=kv8, device=device)
+    pool8[:, :, 0::2] = quantize_kv(pool[:, :, 0::2], ks, kv8)
+    pool8[:, :, 1::2] = quantize_kv(pool[:, :, 1::2], vs, kv8)
+    return q.to(dtype), pool8, kvl, pt, cu, ks, vs
+
+
+def _scales_matter(ref, plain, kw, dtype):
+    """The plain version with either scale dropped misses the tolerance
+    the kernel is held to, so a kernel that lost a scale would fail."""
+    for drop in ("k_scale", "v_scale"):
+        other = plain(**{**kw, drop: None})
+        assert not torch.allclose(other.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("kv8", list(KV8), ids=["int8", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_lens,qh,kvh,hd,ps,opt,splits", [
+    ([7, 300, 1, 0, 65], 8, 2, 64, 16, None, None),       # group 4
+    ([150, 33, 513], 32, 4, 128, 16, None, None),         # group 8
+    ([100, 31], 8, 8, 64, 32, None, None),                # group 1
+    ([161, 5, 290], 8, 2, 64, 16, "window_softcap", None),
+    ([17, 44, 3], 8, 2, 128, 16, "sinks", None),
+    ([700, 1500, 33], 16, 8, 256, 32, "window_softcap", 3),
+    ([3000, 17, 2500, 1], 16, 4, 128, 32, None, 5),
+])
+def test_decode_kernel_8bit_pool_matches_plain(cuda, kv8, dtype, kv_lens, qh,
+                                               kvh, hd, ps, opt, splits):
+    S = len(kv_lens)
+    q, pool, _, pt, _, ks, vs = _inputs8([1] * S,
+                                         [max(k - 1, 0) for k in kv_lens],
+                                         qh, kvh, hd, ps, dtype, kv8, cuda)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5, k_scale=ks, v_scale=vs,
+              **_opts(opt, qh, cuda))
+    before = dec.LAUNCHES
+    got = dec.paged_decode_attention(q, pool, kvl, pt, num_splits=splits,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert dec.LAUNCHES == before + 1
+
+    def plain(**o):
+        return dec.paged_decode_attention_plain(q, pool, kvl, pt, **o)
+    ref = plain(**kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+    _scales_matter(ref, plain, kw, dtype)
+
+
+@pytest.mark.parametrize("kv8", list(KV8), ids=["int8", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_lens,ctx_lens,qh,kvh,hd,ps,opt", [
+    ([5, 1, 70], [0, 20, 100], 8, 2, 64, 16, None),
+    ([64, 1, 33], [0, 500, 7], 32, 4, 128, 16, None),     # group 8, mixed
+    ([40, 1], [0, 90], 8, 8, 64, 32, "window_softcap"),   # group 1
+    ([30, 2], [5, 40], 8, 2, 64, 16, "sinks"),
+    ([300, 1, 70], [0, 900, 500], 16, 8, 256, 32, "window_softcap"),
+    # the rider window's launch: decode rows, chunks and a filler row
+    ([1] * 64 + [60] * 8 + [32], [180 + i for i in range(64)]
+     + [64 * i for i in range(8)] + [0], 16, 4, 128, 16, None),
+    # the spec window's verify launch: 64 rows x 4 queries (d = 3)
+    ([4] * 64, [125 + 2 * i for i in range(64)], 16, 4, 128, 32, None),
+])
+def test_prefill_kernel_8bit_pool_matches_plain(cuda, kv8, dtype, q_lens,
+                                                ctx_lens, qh, kvh, hd, ps,
+                                                opt):
+    q, pool, kvl, pt, cu, ks, vs = _inputs8(q_lens, ctx_lens, qh, kvh, hd,
+                                            ps, dtype, kv8, cuda)
+    kw = dict(sm_scale=hd ** -0.5, k_scale=ks, v_scale=vs,
+              **_opts(opt, qh, cuda))
+    before = pre.LAUNCHES
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                       max_q_len=max(q_lens), **kw)
+    torch.cuda.synchronize()
+    assert pre.LAUNCHES == before + 1
+
+    def plain(**o):
+        return pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **o)
+    ref = plain(**kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+    _scales_matter(ref, plain, kw, dtype)
+
+
+@pytest.mark.parametrize("kv8", list(KV8), ids=["int8", "e4m3"])
+@pytest.mark.parametrize("kind", ["decode_split", "prefill_rider"])
+def test_8bit_pool_replay_reads_scales_changed_in_place(cuda, kv8, kind):
+    """A captured launch on an 8-bit pool gives the eager launch's bits,
+    and after the scales are changed in place (as calibration writes
+    them) a replay gives the bits of an eager launch at the new scales."""
+    if kind == "decode_split":
+        kv_lens = [3000, 17, 2500, 1]
+        q_lens, ctx = [1] * 4, [k - 1 for k in kv_lens]
+    else:
+        q_lens = [1] * 64 + [60] * 8 + [32]
+        ctx = [180 + i for i in range(64)] + [64 * i for i in range(8)] + [0]
+    q, pool, kvl, pt, cu, ks, vs = _inputs8(q_lens, ctx, 16, 4, 128, 32,
+                                            torch.bfloat16, kv8, cuda, seed=9)
+    kw = dict(sm_scale=128 ** -0.5, k_scale=ks, v_scale=vs)
+    if kind == "decode_split":
+        assert dec.splits_for(4, 16, 4, pt.shape[1] * 32, 3000, None,
+                              cuda) > 1
+
+        def run():
+            return dec.paged_decode_attention(q, pool, kvl, pt,
+                                              max_kv_len=3000, **kw)
+    else:
+        def run():
+            return pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                                max_q_len=512, **kw)
+    eager, out, graph = _graphed(run)
+    assert torch.equal(out, eager)
+    ks.mul_(1.5)
+    vs.mul_(0.5)
+    graph.replay()
+    want = run()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not torch.equal(out, eager)
+
+
+def test_pool_of_another_type_refused_by_name(cuda):
+    """A pool that is neither q's type nor an 8-bit KV type raises."""
+    q, pool, kvl, pt, cu = _inputs([1, 1], [3, 4], 4, 2, 64, 16,
+                                   torch.bfloat16, cuda)
+    for bad in (torch.float16, torch.float32):
+        with pytest.raises(TypeError, match="KV pool dtype"):
+            dec.paged_decode_attention(q, pool.to(bad), kvl, pt,
+                                       sm_scale=0.125)
+        with pytest.raises(TypeError, match="KV pool dtype"):
+            pre.ragged_prefill_attention(q, pool.to(bad), kvl, pt, cu,
+                                         sm_scale=0.125)
+
+
+def test_llm_int8_kv_cuda_matches_cpu(cuda):
+    """The parity checkpoint in float32 on an INT8 KV pool: the card's
+    8-bit kernels and the CPU's plain path give the same greedy tokens,
+    with the same calibrated scales."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
+    from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
+    prompts = [list(range(3 + i, 40 + i)) for i in range(3)] + [[7] * 70]
+    outs, scales = {}, {}
+    for dev in ("cuda", "cpu"):
+        llm = LLM("tests/assets/tinycode-llama", device=dev, dtype="float32",
+                  skip_tokenizer_init=True, max_batch_size=4,
+                  max_input_len=128, max_seq_len=256, max_num_tokens=64,
+                  quant_config=QuantConfig(
+                      kv_cache_quant_algo=KvCacheQuantAlgo.INT8),
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=4096))
+        try:
+            assert llm.engine.kv_pages.dtype == torch.int8
+            scales[dev] = [float(l["kv_scale"])
+                           for l in llm.engine.params["layers"]]
+            res = llm.generate(prompts, SamplingParams(max_tokens=24,
+                                                       top_k=1))
+            outs[dev] = [r.outputs[0].token_ids for r in res]
+        finally:
+            llm.shutdown()
+    np.testing.assert_allclose(scales["cuda"], scales["cpu"], rtol=1e-4)
     assert outs["cuda"] == outs["cpu"]

@@ -415,11 +415,7 @@ def test_llm_ingests_prequantized_checkpoint_as_jax_does(tmp_path, fmt):
 
 def test_llm_refuses_what_is_not_ported():
     import tensorrt_llm_tpu_torch as T
-    from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
     cfg = _hf_config()
     with pytest.raises(NotImplementedError, match="SmoothQuant"):
         T.LLM(cfg, device="cpu", quant_config=T.QuantConfig(
             quant_algo=T.QuantAlgo.W8A8_SQ_PER_CHANNEL))
-    with pytest.raises(NotImplementedError, match="KV"):
-        T.LLM(cfg, device="cpu", quant_config=T.QuantConfig(
-            kv_cache_quant_algo=KvCacheQuantAlgo.FP8))
