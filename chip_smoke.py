@@ -190,10 +190,41 @@ the run on error:
      hd 64 and one at hd 256, and float32 cases held to 1e-4; the
      ``kernels`` line's ``max_abs_err_kv8``.
 
+ 19. host_spec_parity: tests/assets/tinycode-llama in float32, 6 prompts
+     with repeated structure -> 32 greedy tokens, on the card and on the
+     CPU, without speculation and with the host drafters NGRAM (d = 3),
+     SA, DRAFT_TARGET (the checkpoint as its own draft model) and PARD
+     (the same, mask token 0): every mode's tokens equal the run without
+     speculation on both devices, DRAFT_TARGET accepts more than 0.9 of
+     its drafts, verify steps replayed from graphs on the card; prints the
+     drafts accepted per verify step of each mode;
+ 20. host_spec_serving: Llama-3-8B at its published width and depth on a
+     bf16 pool, 32 prompts of 512 tokens, each a seeded random 128-token
+     segment repeated 4 times, 128 greedy tokens with ``ignore_eos``,
+     ``LLM`` defaults but prefix reuse off (tools/serving_profile.py
+     ``--geometry llama3-8b-copy [--spec NGRAM|DRAFT_TARGET]``): without
+     speculation, with NGRAM (d = 4) and with DRAFT_TARGET (d = 4),
+     drafting with Llama-3.2-1B from its published config (seeded random
+     weights: acceptance near 0, so the run measures what drafting
+     costs). Per run: tok/s, TTFT and TPOT (median, max), idle share, GPU
+     time by class, the drafting calls' device time, accepted drafts per
+     verify step, verify steps replayed and run eagerly (0 without prompt
+     tokens, or the phase fails), K1 / K2 launches of the target and of
+     the drafter (both must launch both), peak allocated memory; the
+     greedy streams of the two spec runs against the first
+     (``_compare_streams``);
+ 21. host_spec_kernels: K1 and K2 at the new shapes of that path:
+     ``verify_host_8b`` (K2, 32 sequences x 5 queries at 513-640 KV, 32 x
+     128 q heads over 8) and ``decode_draft_1b`` (K1, 32 rows at 513-640
+     KV, 32 x 64 over 8, the drafter's 128-column page table), each
+     against its plain version, its bound and one SDPA call.
+
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results (launches from the bench-settings run, or the
 W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's,
-moe_serving's, gemma_serving's and kv_serving's timed passes) and
+moe_serving's, gemma_serving's, kv_serving's and host_spec_serving's
+DRAFT_TARGET timed passes, the last as the target's and the drafter's)
+and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -2315,6 +2346,179 @@ def kv_quant_kernel_phase(results: dict, first_step) -> None:
         results[name] = r
 
 
+def host_spec_parity_phase(repo: Path) -> dict:
+    """Host drafting on the parity checkpoint (tests/assets/tinycode-llama,
+    float32), 6 prompts with repeated structure -> 32 greedy tokens, on
+    the card and on the CPU: no speculation, NGRAM (d = 3), SA,
+    DRAFT_TARGET with the checkpoint as its own draft model, PARD with it
+    and mask token 0. Every mode's tokens equal the run without
+    speculation on both devices; DRAFT_TARGET accepts more than 0.9 of
+    its drafts; on the card the verify steps without prompt tokens replay
+    graphs (none runs eagerly)."""
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, SamplingParams,
+                                        SpeculativeConfig)
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    ckpt = repo / "tests" / "assets" / "tinycode-llama"
+    prompts = [list(b"def add(a, b):\n    return a + b\n\n\ndef sub(a, b):"
+                    b"\n    return "),
+               list(b"for i in range(10):\n    print(i)\nfor j in range("
+                    b"10):\n    "),
+               list(b"x = [1, 2, 3]\ny = [1, 2, 3]\nz = ["),
+               list(b"abcabcabcabcabcabc"),
+               list(b"self.a = a\nself.b = b\nself.c = "),
+               list(b"if x:\n    y = 1\nif z:\n    y = ")]
+    sp = SamplingParams(max_tokens=32, top_k=1, ignore_eos=True)
+    modes = {"none": None,
+             "NGRAM": dict(mode="NGRAM", max_draft_len=3),
+             "SA": dict(mode="SA", max_draft_len=3),
+             "DRAFT_TARGET": dict(mode="DRAFT_TARGET", max_draft_len=3,
+                                  draft_model=str(ckpt)),
+             "PARD": dict(mode="PARD", max_draft_len=3, draft_model=str(ckpt),
+                          pard_mask_token_id=0)}
+    out, ref = {}, None
+    for mode, spec in modes.items():
+        for device in ("cuda", "cpu"):
+            llm = LLM(ckpt, device=device, dtype="float32",
+                      skip_tokenizer_init=True, max_batch_size=8,
+                      max_input_len=128, max_seq_len=256, max_num_tokens=512,
+                      kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=8192),
+                      speculative_config=None if spec is None
+                      else SpeculativeConfig(**spec))
+            try:
+                toks = [o.outputs[0].token_ids
+                        for o in llm.generate(prompts, sp)]
+                stats = {} if spec is None else sprof.host_spec_summary(
+                    sprof.host_spec_counts(llm))
+            finally:
+                llm.shutdown()
+            ref = toks if ref is None else ref
+            r = dict(identical=toks == ref, **stats)
+            emit({"phase": "host_spec_parity", "mode": mode,
+                  "device": device, **r})
+            if toks != ref:
+                raise AssertionError(f"host_spec_parity {mode} {device}: "
+                                     f"tokens differ: {toks} vs {ref}")
+            if spec is not None and not stats["drafted_rows"]:
+                raise AssertionError(f"{mode} {device}: nothing drafted")
+            if device == "cuda" and spec is not None and (
+                    stats["verify_steps_eager_without_prompt"]
+                    or not stats["verify_steps_replayed"]):
+                raise AssertionError(f"{mode}: verify steps did not replay "
+                                     f"graphs: {stats}")
+            if mode == "DRAFT_TARGET" and stats["drafts_accepted"] <= \
+                    0.9 * stats["drafts_proposed"]:
+                raise AssertionError(f"DRAFT_TARGET on itself accepted "
+                                     f"too little: {stats}")
+            out[f"{mode}_{device}"] = r
+    return out
+
+
+def host_spec_serving_phase() -> dict:
+    """Llama-3-8B at full width and depth on a bf16 pool (seeded random
+    weights), 32 prompts of 512 tokens (a seeded 128-token segment
+    repeated 4 times) -> 128 greedy tokens, ``LLM`` defaults but prefix
+    reuse off (tools/serving_profile.py ``--geometry llama3-8b-copy``):
+    without speculation, with NGRAM (d = 4) and with DRAFT_TARGET (d = 4)
+    drafting with Llama-3.2-1B (published config, seeded random weights).
+    Each run: ``measure`` (warm-up, timed pass with the launch counters
+    zeroed right before and read right after, profiled pass), peak
+    allocated memory; the spec runs also the drafters' counters, verify
+    steps replayed and run eagerly, K1 / K2 launches of target and
+    drafter, and their greedy streams against the run without speculation
+    (``_compare_streams``, top-2 logprobs of that run: the run without
+    speculation decodes in K-step windows, the spec runs in single steps
+    and verify steps, whose bf16 sums round in another order). Fails on a
+    short output, an eager verify step without prompt tokens, a kernel
+    the target or the drafter never launched, or a parting the run
+    without speculation decides by more than max(3e-2, twice the
+    measured logprob drift) (``unexplained_partings``)."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="llama3-8b-copy")
+    sp_lp = SamplingParams(max_tokens=sp.max_tokens, top_k=1,
+                           ignore_eos=True, logprobs=2)
+    runs, streams = {}, {}
+    for label, mode in (("none", None), ("NGRAM", "NGRAM"),
+                        ("DRAFT_TARGET", "DRAFT_TARGET")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        extra = {} if mode is None else dict(
+            speculative_config=sprof.spec_config(mode, 4))
+        llm = LLM(cfg, dtype="bfloat16", **kwargs, **extra)
+        build_s = time.monotonic() - t0
+        try:
+            eng = llm.engine
+            res = sprof.measure(llm, prompts, sp)
+            outs = llm.generate(prompts[:8], sp_lp if mode is None else sp)
+            streams[label] = ([o.outputs[0].token_ids for o in outs],
+                              [o.outputs[0].logprobs for o in outs])
+            drafter = llm.executor.host_drafter
+            res.update(engine_build_s=build_s, graphs=_graph_stats(eng),
+                       graph_pool_reserve_bytes=eng.graph_pool_reserve(),
+                       kv_pages=eng.num_kv_pages,
+                       drafter_device_bytes=getattr(
+                           drafter, "device_bytes", 0))
+        finally:
+            llm.shutdown()
+        res.update(run=label, model="Llama-3-8B", draft_len=4 if mode else 0,
+                   draft_model="Llama-3.2-1B" if mode == "DRAFT_TARGET"
+                   else None, peak_allocated_bytes=torch.cuda
+                   .max_memory_allocated())
+        del llm, eng, drafter
+        if mode is not None:
+            res["streams_vs_none"] = _compare_streams(streams["none"],
+                                                      streams[label])
+        emit({"phase": "host_spec_serving", **res})
+        if res["output_tokens"] != len(prompts) * sp.max_tokens:
+            raise AssertionError(f"host_spec_serving {label}: short outputs")
+        if res["nonfinite_logprobs"]:
+            raise AssertionError(f"host_spec_serving {label}: NaN logprobs")
+        if mode is not None:
+            if res["verify_steps_eager_without_prompt"] or \
+                    not res["verify_steps_replayed"]:
+                raise AssertionError(f"{label}: verify steps without prompt "
+                                     f"tokens ran eagerly: {res}")
+            if res["streams_vs_none"]["unexplained_partings"]:
+                raise AssertionError(f"{label}: streams part where the run "
+                                     f"without speculation decides by more "
+                                     f"than the measured noise allows: "
+                                     f"{res['streams_vs_none']}")
+        if mode == "DRAFT_TARGET":
+            for who in ("launches_target", "launches_drafter"):
+                if min(res[who][k] for k in ("paged_decode_attention",
+                                             "ragged_prefill_attention")) <= 0:
+                    raise AssertionError(f"DRAFT_TARGET: {who} lacks K1 or "
+                                         f"K2: {res[who]}")
+        _check_reserve(res)
+        runs[label] = res
+    return runs["DRAFT_TARGET"]
+
+
+def host_spec_kernel_phase(results: dict) -> None:
+    """K1 and K2 at the shapes host_spec_serving gives them: the target's
+    verify step (``verify_host_8b``: K2, 32 sequences x 5 queries at
+    513-640 KV, Llama-3-8B's 32 x 128 q heads over 8, the engine's
+    128-column page table) and the drafter's chained steps
+    (``decode_draft_1b``: K1, 32 rows at 513-640 KV, Llama-3.2-1B's 32 x
+    64 over 8, its 128-column page table); each against its plain version
+    (2e-2), its bound and one SDPA call on the gathered KV
+    (``_attention_case``)."""
+    import torch
+    kvs = [513 + (127 * i) // 31 for i in range(32)]
+    for name, kind, q, hd, seed in (
+            ("verify_host_8b", "prefill", 5, 128, 96),
+            ("decode_draft_1b", "decode", 1, 64, 97)):
+        results[name] = _attention_case(
+            name, kind, [q] * 32, [k - q for k in kvs], 32, 8, None, None,
+            torch.bfloat16, seed, pages_per_seq=PAGES_8B, timed=True, hd=hd)
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -2371,6 +2575,9 @@ def main() -> int:
     kv_runs = timed("kv_serving", kv_serving_phase)
     timed("kv_quant_kernels", kv_quant_kernel_phase, kern,
           kv_runs["fp8"]["eager_steps"][0])
+    timed("host_spec_parity", host_spec_parity_phase, here)
+    host = timed("host_spec_serving", host_spec_serving_phase)
+    timed("host_spec_kernels", host_spec_kernel_phase, kern)
     emit({"phase": "timing", "seconds": seconds})
 
     kernels = []
@@ -2394,6 +2601,8 @@ def main() -> int:
             launches_moe_serving=moe["launches"][name],
             launches_gemma_serving=gemma["launches"][name],
             launches_kv_serving=kv_runs["fp8"]["launches"][name],
+            launches_host_spec=dict(target=host["launches_target"][name],
+                                    drafter=host["launches_drafter"][name]),
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()

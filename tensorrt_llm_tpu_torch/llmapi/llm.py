@@ -20,12 +20,18 @@ refuses the setting by name).
 load; ``QuantConfig(kv_cache_quant_algo=INT8 | FP8 | NVFP4)`` keeps the KV
 cache in int8 or float8 e4m3 (NVFP4: e4m3 on the e2m1 grid), with
 per-layer scales calibrated at build over 512 seeded random tokens, as the
-JAX ``LLM`` does when the checkpoint brings none. ``speculative_config=SpeculativeConfig(mode="EAGLE3",
-max_draft_len=d, draft_model=...)`` serves EAGLE3 speculative decoding in
-the fused device window (runtime/spec_window.py); ``draft_model`` is a
-directory of ``*.safetensors`` head weights, a torch module whose
-``state_dict`` holds them, or None for a seeded random head. The engine
-runs on the CUDA
+JAX ``LLM`` does when the checkpoint brings none.
+``speculative_config=SpeculativeConfig(mode=..., max_draft_len=d,
+draft_model=...)`` serves speculative decoding: ``"EAGLE3"`` in the fused
+device window (runtime/spec_window.py; ``draft_model`` a directory of
+``*.safetensors`` head weights, a torch module whose ``state_dict`` holds
+them, or None for a seeded random head), and on the sync scheduler with a
+host drafter ``"NGRAM"``, ``"SA"``, ``"AUTO"`` (SA up to 8 rows, else
+NGram), ``"USER_PROVIDED"`` (a ``Drafter`` in ``draft_model``, chain
+drafts only), ``"DRAFT_TARGET"`` and ``"PARD"`` (``draft_model`` a
+checkpoint directory, a torch module or a bare ``transformers`` config,
+which gets seeded random weights; PARD's mask token from
+``pard_mask_token_id`` or the draft config). The engine runs on the CUDA
 device unless ``device="cpu"`` is passed; without CUDA and without that
 argument, construction raises. On CUDA, ``enable_warmup`` (the default)
 captures the serving CUDA graphs at build, as the JAX ``LLM`` compiles
@@ -205,11 +211,96 @@ class LLM:
                             for v in sd.values()))
         return hf_config, sd
 
-    def _build_drafter(self):
-        """The EAGLE3 head of the fused window, or None without
-        speculation (``LlmArgs`` has refused every other mode)."""
+    def _build_host_drafter(self):
+        """(host drafter, drafts per verify step) of the modes that draft
+        on the sync scheduler (the JAX ``LLM._build_executor``, llm.py:
+        323-370), or (None, 0). Built before the engine, so that the
+        draft model's weights and pool are on the device before the
+        target's pool is sized from free memory."""
         sc = self.args.speculative_config
-        if sc is None or sc.mode == "NONE":
+        if sc is None or sc.mode in ("NONE", "EAGLE3"):
+            return None, 0
+        d = sc.max_draft_len or 4
+        if sc.mode == "USER_PROVIDED":
+            drafter = sc.draft_model
+            if not callable(getattr(drafter, "prepare_draft_tokens", None)):
+                raise ValueError("USER_PROVIDED needs a Drafter in "
+                                 "speculative_config.draft_model")
+            drafter.max_draft_len = d
+        elif sc.mode == "AUTO":
+            # a model-free scheme sized by the batch: the suffix automaton
+            # at small batch, NGram's bounded lookup beyond
+            from ..speculative.ngram import NGramDrafter
+            from ..speculative.suffix_automaton import SuffixAutomatonDrafter
+            if self.args.max_batch_size <= 8:
+                drafter = SuffixAutomatonDrafter(
+                    max_draft_len=d, threshold=sc.sa_threshold,
+                    max_concurrency=sc.max_concurrency or 32)
+            else:
+                drafter = NGramDrafter(max_draft_len=d,
+                                       max_matching_ngram_size=5)
+        elif sc.mode == "SA":
+            from ..speculative.suffix_automaton import SuffixAutomatonDrafter
+            drafter = SuffixAutomatonDrafter(
+                max_draft_len=d, threshold=sc.sa_threshold,
+                max_concurrency=sc.max_concurrency)
+        elif sc.mode == "NGRAM":
+            from ..speculative.ngram import NGramDrafter
+            drafter = NGramDrafter(
+                max_draft_len=d,
+                max_matching_ngram_size=sc.ngram_max_matching_ngram_size)
+        else:                                   # DRAFT_TARGET, PARD
+            drafter = self._build_two_model_drafter(sc, d)
+        return drafter, drafter.max_draft_len
+
+    def _build_two_model_drafter(self, sc, max_draft_len: int):
+        """The draft model of DRAFT_TARGET / PARD (the JAX
+        ``_build_two_model_drafter``, llm.py:274-320): a checkpoint
+        directory, a torch module, or a bare ``transformers`` config whose
+        weights are drawn from a seeded ``torch.Generator`` (seed 1)."""
+        from ..speculative.model_drafter import TwoModelDrafter
+        dm = sc.draft_model
+        if dm is None:
+            raise ValueError("DRAFT_TARGET needs speculative_config."
+                             "draft_model")
+        if isinstance(dm, (str, Path)):
+            from safetensors.torch import load_file
+            from transformers import AutoConfig
+            path = Path(dm)
+            hf_config = AutoConfig.from_pretrained(path)
+            sd = {}
+            for f in sorted(path.glob("*.safetensors")):
+                sd.update(load_file(str(f)))
+            sd = sd or None
+        elif hasattr(dm, "state_dict"):
+            hf_config = dm.config
+            sd = {k: v.detach().cpu().float()
+                  for k, v in dm.state_dict().items()}
+        else:                      # a bare config: seeded random weights
+            hf_config, sd = dm, None
+        model = get_model_class(hf_config.model_type)(ModelConfig(
+            hf_config=hf_config, dtype=_DTYPES[self.args.dtype],
+            device=self.device))
+        params = model.load_hf_state_dict(sd) if sd is not None \
+            else model.init_params(seed=1)
+        mask_id = sc.pard_mask_token_id
+        if sc.mode == "PARD" and mask_id is None:
+            mask_id = getattr(hf_config, "mask_token_id", None) or \
+                getattr(hf_config, "pard_token", None)
+            if mask_id is None:
+                raise ValueError(
+                    "PARD needs pard_mask_token_id (or a draft config "
+                    "carrying mask_token_id/pard_token)")
+        return TwoModelDrafter(
+            model, params, max_draft_len=max_draft_len,
+            max_slots=min(64, self.args.max_batch_size),
+            max_seq_len=self.args.max_seq_len,
+            parallel_draft=sc.mode == "PARD", mask_token_id=int(mask_id or 0))
+
+    def _build_eagle_head(self):
+        """The EAGLE3 head of the fused window, or None without it."""
+        sc = self.args.speculative_config
+        if sc is None or sc.mode != "EAGLE3":
             return None
         from ..speculative.eagle import Eagle3Drafter
         head_sd = None
@@ -229,7 +320,9 @@ class LLM:
 
     def _build_executor(self):
         args = self.args
-        self.engine = ModelEngine(self.model, self._params, args)
+        host_drafter, d = self._build_host_drafter()
+        self.engine = ModelEngine(self.model, self._params, args,
+                                  max_draft_len=d)
         if self.model.config.uses_kv_quant:
             # no checkpoint brings KV scales: calibrate them from one
             # prefill pass over the JAX LLM's tokens (llm.py:459-470),
@@ -237,16 +330,16 @@ class LLM:
             rng = np.random.default_rng(0)
             self.engine.calibrate_kv_scales(rng.integers(
                 1, max(2, self.model.vocab_size - 1), size=512))
-        drafter = self._build_drafter()
+        head = self._build_eagle_head()
         del self._params
-        if drafter is not None:
+        if head is not None:
             # device windows verify inside the fused window; the plain
             # step stays single-logit
             from ..runtime.spec_window import enable_spec_device
-            d = drafter.max_draft_len
+            d = head.max_draft_len
             K = args.speculative_config.device_window_iters or max(
                 1, args.decode_multi_step // (d + 1))
-            enable_spec_device(self.engine, drafter, d, K)
+            enable_spec_device(self.engine, head, d, K)
         if args.enable_warmup and self.device.type == "cuda":
             self.engine.warmup()
         # a single sequence can never exceed the KV pool
@@ -293,7 +386,8 @@ class LLM:
             waiting_queue_policy=args.scheduler_config.waiting_queue_policy,
             max_active_requests=args.scheduler_config.max_active_requests,
             decode_wait_occupancy=args.decode_wait_occupancy,
-            ttft_slo_ms=args.ttft_slo_ms, drafter=drafter)
+            ttft_slo_ms=args.ttft_slo_ms,
+            drafter=head if host_drafter is None else host_drafter)
 
     # ------------------------------------------------------------------ #
     # Generation

@@ -103,13 +103,17 @@ class MoeConfig(StrictBaseModel):
 class SpeculativeConfig(StrictBaseModel):
     """Umbrella for spec-decode modes: the JAX package's fields, defaults
     and meanings. This package serves ``mode="EAGLE3"`` with
-    ``device_window=True`` and a linear draft chain
+    ``device_window=True`` and a linear draft chain, and the host drafters
+    NGRAM, SA, AUTO, USER_PROVIDED, DRAFT_TARGET and PARD
     (``check_ported_spec``); every other mode or option is refused by
     name."""
     mode: Literal["NONE", "DRAFT_TARGET", "NGRAM", "EAGLE3", "MTP",
                   "SA", "AUTO", "PARD", "DFLASH", "USER_PROVIDED"] = "NONE"
     max_draft_len: int = 0
-    # checkpoint dir of *.safetensors, torch module, or None (a random head)
+    # EAGLE3: checkpoint dir of *.safetensors, torch module, or None (a
+    # random head); DRAFT_TARGET / PARD: checkpoint dir, torch module or a
+    # bare PretrainedConfig (seeded random weights); USER_PROVIDED: a
+    # Drafter
     draft_model: Optional[Any] = None
     # ngram
     ngram_max_matching_ngram_size: int = 4
@@ -136,27 +140,25 @@ class SpeculativeConfig(StrictBaseModel):
     eagle_dynamic_tree: bool = False
 
 
+HOST_SPEC_MODES = ("NGRAM", "SA", "AUTO", "USER_PROVIDED", "DRAFT_TARGET",
+                   "PARD")
+
+
 def check_ported_spec(sc: Optional[SpeculativeConfig],
                       model_type: Optional[str] = None) -> None:
     """Refuse, by name, a speculative mode or option this package does
-    not have, and (with ``model_type``) a target it cannot draft for: the
-    EAGLE3 head reads the target's hidden rows, which the MoE and Gemma
-    families' forward does not collect (nor does the JAX package's)."""
+    not have, and (with ``model_type``) a target EAGLE3 cannot draft for:
+    the EAGLE3 head reads the target's hidden rows, which the MoE and
+    Gemma families' forward does not collect (nor does the JAX
+    package's). The host drafters need no hidden rows and take any
+    target."""
     if sc is None or sc.mode == "NONE":
         return
-    if model_type in MOE_MODEL_TYPES + GEMMA_MODEL_TYPES:
-        raise NotImplementedError(
-            f"speculative mode {sc.mode} with a {model_type} target is not "
-            "supported by this package (EAGLE3 drafts for the Llama and "
-            "Qwen2/Qwen3 dense families)")
-    if sc.mode != "EAGLE3":
+    if sc.mode in ("MTP", "DFLASH"):
         raise NotImplementedError(
             f"speculative mode {sc.mode} is not supported by this package "
-            "yet (EAGLE3 with device_window=True is)")
-    if not sc.device_window:
-        raise NotImplementedError(
-            "speculative device_window=False (host-orchestrated drafting) "
-            "is not supported by this package yet")
+            "yet (EAGLE3 with device_window=True and the host drafters "
+            f"{', '.join(HOST_SPEC_MODES)} are)")
     if sc.eagle_tree_width > 1:
         raise NotImplementedError(
             "speculative eagle_tree_width > 1 (EAGLE tree drafts) is not "
@@ -165,6 +167,17 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
         raise NotImplementedError(
             "speculative eagle_dynamic_tree (dynamic-tree drafts) is not "
             "supported by this package yet")
+    if sc.mode in HOST_SPEC_MODES:
+        return
+    if model_type in MOE_MODEL_TYPES + GEMMA_MODEL_TYPES:
+        raise NotImplementedError(
+            f"speculative mode {sc.mode} with a {model_type} target is not "
+            "supported by this package (EAGLE3 drafts for the Llama and "
+            "Qwen2/Qwen3 dense families)")
+    if not sc.device_window:
+        raise NotImplementedError(
+            "speculative device_window=False (EAGLE3 on the host-"
+            "orchestrated path) is not supported by this package yet")
 
 
 MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe")

@@ -67,6 +67,13 @@ class SamplingTensors:
                             sp.frequency_penalty)
         return ints, floats
 
+    def repeat_rows(self, n: int) -> "SamplingTensors":
+        """Each row repeated ``n`` times in place (a verify step's logits
+        rows of one sequence)."""
+        return SamplingTensors(**{
+            f.name: getattr(self, f.name).repeat_interleave(n, 0)
+            for f in dataclasses.fields(self)})
+
     @staticmethod
     def from_rows(ints: torch.Tensor, floats: torch.Tensor
                   ) -> "SamplingTensors":

@@ -26,12 +26,22 @@ window runs beside a drafter, as in the JAX package). A prompt's last
 chunk, run in a prefill step, seeds its row's draft head on the device
 (``spec_seed``).
 
+With a host drafter (NGram, suffix automaton, AUTO, a user's drafter,
+the two-model drafter of DRAFT_TARGET / PARD) the executor is the JAX
+package's sync path: no overlap (the drafter needs the host's token
+history one step ahead), no multi-step window, and before each step
+``_prepare_drafts`` fills the decode rows' ``draft_tokens``; the step
+verifies them (``ModelEngine.forward_step`` with G logits rows per row)
+and result processing accepts the longest matching prefix plus one bonus
+token, discards tokens past a stop, rolls the device count back and
+rewinds the rejected drafts' KV blocks.
+
 This executor is the JAX package's single-engine role only: it has no
 leader, follower or attention-DP roles, so their branches of the
-schedule are not ported. Not ported either: host-orchestrated drafting,
-beam search, guided decoding, disaggregation, KV connectors, logits
-processors, hang detection, per-request error isolation, cancellation
-and iteration statistics.
+schedule are not ported. Not ported either: tree drafts, beam search,
+guided decoding, disaggregation, KV connectors, logits processors, hang
+detection, per-request error isolation, cancellation and iteration
+statistics.
 """
 from __future__ import annotations
 
@@ -168,6 +178,7 @@ class _InflightBatch:
     kind: str = "single"         # "single" | "multi" | "spec"
     planned: Optional[List[int]] = None   # multi/spec: per-row budget
     has_top_lp: bool = False
+    drafts: Optional[List[List[int]]] = None  # single: each row's drafts
 
 
 class PyExecutor:
@@ -189,12 +200,17 @@ class PyExecutor:
         self.kv = kv_cache_manager
         self.scheduler = scheduler
         self.tokenizer = tokenizer
-        # the EAGLE3 head of the fused speculative window (engine.sd); the
-        # executor only feeds it acceptance statistics
+        # the EAGLE3 head of the fused speculative window (engine.sd), which
+        # the executor only feeds acceptance statistics, or a host drafter
         self.drafter = drafter
+        self.host_drafter = drafter if engine.sd is None else None
         self.waiting = create_waiting_queue(waiting_queue_policy)
         self.max_active_requests = max_active_requests or \
             4 * engine.max_batch_size
+        if self.host_drafter is not None:
+            # host drafting needs the host-visible token history one step
+            # ahead: the sync scheduler (the JAX executor.py:281-288)
+            enable_overlap = False
         self.enable_overlap = enable_overlap
         self.stream_interval = stream_interval
         # decode window: K decode iterations per dispatch; 1 = one-token
@@ -215,6 +231,11 @@ class PyExecutor:
         # iterations that emitted nothing for any row (a graph runs them)
         self.nonspec_decode_rows = 0
         self.spec_idle_iters = 0
+        # host drafting: decode rows verified with drafts, drafts they
+        # carried and drafts accepted (after discarding past a stop)
+        self.drafted_rows = 0
+        self.drafts_proposed = 0
+        self.drafts_accepted = 0
 
         self._request_queue: "queue.Queue" = queue.Queue()
         self._results: Dict[int, GenerationResult] = {}
@@ -333,6 +354,8 @@ class PyExecutor:
                 if spec_side.generation_requests:
                     self._dispatch_spec(spec_side)
             if not batch.is_empty or gen_window is not None:
+                if self.host_drafter is not None and not multi:
+                    self._prepare_drafts(batch)
                 if wkind == "spec":
                     self._prepare_resources_spec(batch)
                 elif multi:
@@ -385,10 +408,10 @@ class PyExecutor:
                     # the draft head's pending pair, on the device
                     self.engine.spec_seed(outs[0], outs[-1], *seed)
                     outs = outs[:-1]
-                entries, samples = self._advance_device_state(batch)
+                entries, samples, drafts = self._advance_device_state(batch)
                 self._inflight.append(_InflightBatch(
                     entries, samples, HostFuture(*outs),
-                    has_top_lp=len(outs) > 2))
+                    has_top_lp=len(outs) > 2, drafts=drafts))
             while len(self._inflight) >= self.pipeline_depth:
                 self._process_inflight()
         # drain at shutdown
@@ -542,10 +565,46 @@ class PyExecutor:
         for req in batch.generation_requests:
             try:
                 self.kv.add_token(req)
+                if req.draft_tokens:
+                    self.kv.add_draft_tokens(req, len(req.draft_tokens))
             except NoFreeBlocksError:
                 starved.append(req)
         for req in starved:
+            req.draft_tokens = []
             batch.generation_requests.remove(req)
+
+    def _prepare_drafts(self, batch: ScheduledRequests) -> None:
+        """Draft proposal for the decode rows (the JAX executor.py:
+        1572-1601): rows without penalties are draftable (the penalty
+        counts cannot advance mid-step); each row keeps at most its
+        remaining tokens less one, its room in ``max_seq_len`` and
+        ``max_draft_len`` drafts. The scheduler counted one token per
+        decode row, so drafts are also cut, in row order, to the tokens
+        the step's largest bucket has left (the JAX engine raises past
+        it instead)."""
+        def draftable(r):
+            return not r.sampling_params.needs_penalties
+        gen = [r for r in batch.generation_requests if draftable(r)]
+        self.host_drafter.prepare_draft_tokens(gen)
+        left = self.engine.token_buckets[-1] - len(batch.generation_requests)
+        for r in batch.context_requests:
+            left -= min(r.context_len - r.context_current_position,
+                        r.context_chunk_size)
+        for req in batch.generation_requests:
+            if not draftable(req):
+                req.draft_tokens = []
+                continue
+            if req.draft_parents is not None:
+                raise NotImplementedError(
+                    "tree drafts (a drafter that sets draft_parents) are "
+                    "not supported by this package yet")
+            remaining = req.sampling_params.max_tokens - \
+                req.num_output_tokens - 1
+            room = self.engine.max_seq_len - (req.num_device_tokens + 1)
+            cap = max(0, min(remaining, room, self.engine.max_draft_len,
+                             left))
+            req.draft_tokens = list(req.draft_tokens)[:cap]
+            left -= len(req.draft_tokens)
 
     # ------------------------------------------------------------------ #
     # Multi-step decode window (K tokens per dispatch)
@@ -864,12 +923,15 @@ class PyExecutor:
                 req.num_device_tokens = req.context_len
             entries.append(req)
             samples.append(last_chunk)
+        drafts: List[List[int]] = [[] for _ in entries]
         for req in batch.generation_requests:
-            req.num_device_tokens += 1
+            drafts.append(list(req.draft_tokens))
+            req.num_device_tokens += 1 + len(req.draft_tokens)
+            req.draft_tokens = []
             req.host_token_override = None
             entries.append(req)
             samples.append(True)
-        return entries, samples
+        return entries, samples, drafts
 
     def _process_inflight(self):
         if not self._inflight:
@@ -882,7 +944,9 @@ class PyExecutor:
             self._process_spec(batch)
             return
         fetched = batch.result.get()               # sync point, one fetch
-        tokens, logprobs = fetched[:2]
+        G = self.engine.G
+        tokens = fetched[0].reshape(-1, G)         # [S, G] logits rows
+        logprobs = fetched[1].reshape(-1, G)
         top_lp = fetched[2:] if batch.has_top_lp else None
         finished: List[LlmRequest] = []
         for i, req in enumerate(batch.entries):
@@ -890,19 +954,42 @@ class PyExecutor:
                 continue  # stopped while this step was in flight
             if not batch.samples_output[i]:
                 continue  # mid-context chunk: logits unused
-            tok = int(tokens[i])
-            done = req.add_output_token(tok, float(logprobs[i]))
+            drafts = batch.drafts[i] if batch.drafts else []
+            # chain verification: the longest prefix of drafts equal to
+            # the target's own samples, plus one bonus token
+            accepted = 0
+            while accepted < len(drafts) and \
+                    int(tokens[i, accepted]) == drafts[accepted]:
+                accepted += 1
+            rejected = len(drafts) - accepted
             k = req.sampling_params.logprobs
-            if top_lp is not None and k:
-                vals, ids = top_lp
-                req.logprobs[-1] = {int(t): float(v) for v, t in
-                                    zip(vals[i][:k], ids[i][:k])}
-                req.logprobs[-1].setdefault(tok, float(logprobs[i]))
-            if not done and req.sampling_params.stop and \
-                    self.tokenizer is not None:
-                done = self._check_stop_strings(req)
+            for g in range(accepted + 1):
+                tok = int(tokens[i, g])
+                done = req.add_output_token(tok, float(logprobs[i, g]))
+                if top_lp is not None and k:
+                    vals, ids = top_lp
+                    req.logprobs[-1] = {
+                        int(t): float(v) for v, t in
+                        zip(vals[i * G + g][:k], ids[i * G + g][:k])}
+                    req.logprobs[-1].setdefault(tok, float(logprobs[i, g]))
+                if not done and req.sampling_params.stop and \
+                        self.tokenizer is not None:
+                    done = self._check_stop_strings(req)
+                if done:
+                    # tokens past a stop are discarded
+                    rejected += accepted - g
+                    accepted = g
+                    break
+            if rejected:
+                req.num_device_tokens -= rejected
+                self.kv.rewind_tokens(req, 0)
+            if drafts:
+                self.drafted_rows += 1
+                self.drafts_proposed += len(drafts)
+                self.drafts_accepted += accepted
+                self.host_drafter.update(req, drafts[:accepted])
             if not self.enable_overlap:
-                req.host_token_override = tok
+                req.host_token_override = int(tokens[i, accepted])
             if done:
                 finished.append(req)
             elif req.streaming and \
@@ -935,6 +1022,9 @@ class PyExecutor:
         return False
 
     def _finish_request(self, req: LlmRequest):
+        if self.host_drafter is not None and \
+                hasattr(self.host_drafter, "drop_request"):
+            self.host_drafter.drop_request(req.request_id)
         self.kv.free_resources(req)
         if req.seq_slot is not None:
             self._release_slot(req)

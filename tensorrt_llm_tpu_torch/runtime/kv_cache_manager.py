@@ -1,7 +1,8 @@
 """Paged KV-cache block manager with radix-tree prefix reuse.
 
 Host-side port of ``tensorrt_llm_tpu/runtime/kv_cache_manager.py``
-(``KVCacheManager``, and the VSWA dual-pool facade ``VswaKvManager``):
+(``KVCacheManager`` with the speculative pair ``add_draft_tokens`` /
+``rewind_tokens``, and the VSWA dual-pool facade ``VswaKvManager``):
 integer page ids only, no device tensors. The secondary host/disk tiers
 are not part of this package yet.
 
@@ -11,6 +12,13 @@ Semantics:
   * Reuse: finished sequences attach their chain to a radix tree;
     new sequences claim the longest matched prefix (ref-counted).
   * Eviction: priority-bucketed LRU over *leaf* blocks only.
+  * Speculation: a verify step writes KV for its drafts
+    (``add_draft_tokens``); rejected drafts' whole blocks go back to the
+    free list (``rewind_tokens``), and a sequence that carried drafts
+    stores only blocks whose every position holds an accepted token's KV
+    (positions below ``num_device_tokens``): its last position may still
+    hold a rejected draft's. (The JAX package stores by the token count
+    alone.)
   * VSWA (sliding-window layers on a pool of their own): a sequence's
     sliding-pool blocks that no query still to be computed can see go
     back to the free list while it runs (``trim_prefix``); their ids stay
@@ -144,6 +152,9 @@ class KVCacheManager:
         self._lru_clock = 0
 
         self._seq_blocks: Dict[int, List[Block]] = {}
+        # sequences that carried drafts: their stored prefix stops at
+        # num_device_tokens
+        self._drafted: set = set()
         self._req_priority: Dict[int, int] = {}
         self._reusable_prio: Dict[int, int] = {}  # block_id -> bucket used
 
@@ -243,6 +254,25 @@ class KVCacheManager:
         the results)."""
         self._grow(request, self._device_progress(request) + num_tokens)
 
+    def add_draft_tokens(self, request: LlmRequest, num_draft: int) -> None:
+        """Pages for a verify step: the input token and ``num_draft``
+        drafts behind it."""
+        self._drafted.add(request.request_id)
+        self._grow(request, self._device_progress(request) + 1 + num_draft)
+
+    def rewind_tokens(self, request: LlmRequest, num_tokens: int) -> None:
+        """Release the blocks past the last ``num_tokens`` of the host's
+        tokens (speculative rejection: the executor rewinds by 0 after
+        rolling ``num_device_tokens`` back)."""
+        chain = self._seq_blocks[request.request_id]
+        needed = self.blocks_for_tokens(
+            max(1, request.num_total_tokens - num_tokens))
+        while len(chain) > needed:
+            block = chain.pop()
+            if not isinstance(block, _TrimmedBlock):
+                self._release_block(block)
+        self._set_ids(request, chain)
+
     def _grow(self, request: LlmRequest, total_tokens: int) -> None:
         chain = self._seq_blocks[request.request_id]
         needed = self.blocks_for_tokens(total_tokens)
@@ -263,6 +293,8 @@ class KVCacheManager:
         chain = self._seq_blocks.pop(rid, None)
         if chain is None:
             return
+        drafted = rid in self._drafted
+        self._drafted.discard(rid)
         if any(isinstance(b, _TrimmedBlock) for b in chain):
             # the prefix's content is gone: release what is left directly
             for b in chain:
@@ -273,12 +305,15 @@ class KVCacheManager:
         store = self.enable_block_reuse if store_for_reuse is None \
             else store_for_reuse
         tokens = request.all_token_ids
+        # positions whose KV is an accepted token's
+        valid = min(len(tokens), request.num_device_tokens) if drafted \
+            else len(tokens)
         node: Optional[RadixNode] = self._root
         stored_hashes: List[int] = []
         phash: Optional[int] = None   # chained stable hash of the prefix
         for i, block in enumerate(chain):
             start = i * self.tokens_per_block
-            full = start + self.tokens_per_block <= len(tokens)
+            full = start + self.tokens_per_block <= valid
             if store and full and node is not None and block.node is None:
                 blk_tokens = tuple(
                     tokens[start:start + self.tokens_per_block])
@@ -519,6 +554,19 @@ class VswaKvManager:
         self._trim(req)
         self.g.add_tokens(req, num_tokens)
         self.s.add_tokens(req, num_tokens)
+
+    def add_draft_tokens(self, req: LlmRequest, num_draft: int) -> None:
+        """After ``add_token`` (which trimmed for this step's first
+        query): both pools grow by the drafts."""
+        self.g.add_draft_tokens(req, num_draft)
+        self.s.add_draft_tokens(req, num_draft)
+
+    def rewind_tokens(self, req: LlmRequest, num_tokens: int) -> None:
+        """Both pools give back the rejected drafts' blocks (the sliding
+        pool's trimmed head stays as it is: the rewind never reaches
+        below the step's first query)."""
+        self.g.rewind_tokens(req, num_tokens)
+        self.s.rewind_tokens(req, num_tokens)
 
     def free_resources(self, req: LlmRequest,
                        store_for_reuse: Optional[bool] = None) -> None:

@@ -10,8 +10,11 @@ row buckets, ``warmup`` / ``_warm_multi`` and KV-pool sizing, which
 carves out the draft head's pool, and VSWA's second pool: ``_vswa``,
 ``num_sw_pages``, the sliding layers' page table and slot map in every
 step and window, the quantized KV cache's NVFP4 flag and
-``calibrate_kv_scales``) without guided decoding, LoRA, host-orchestrated
-drafts, tree drafts, M-RoPE, MoE statistics and pipeline parallelism.
+``calibrate_kv_scales``, and the verify step of host-orchestrated
+drafting: ``max_draft_len`` > 0 gives each decode row its drafts behind
+its input token and G = max_draft_len + 1 logits rows, sampled rows
+verifying by ``rejection_sample``) without guided decoding, LoRA, tree
+drafts, M-RoPE, MoE statistics and pipeline parallelism.
 MoE models run through the same steps and graphs: their routing is
 computed on the device, and no MoE shape depends on it (ops/moe.py).
 
@@ -24,8 +27,11 @@ steps long whatever the rows' budgets, as the JAX scan is; a graph cannot
 skip a step that has no live row, as the JAX package does with
 ``lax.cond``, so such a step runs with every row inactive
 (``dead_window_steps`` counts the ones the host can foresee). Prefill
-steps outside rider windows run eagerly. Sampled tokens stay on the
-device, scattered by sequence slot into ``prev_tokens``; the next step gathers its decode inputs from there, so
+steps outside rider windows run eagerly; a verify step (decode rows
+with drafts, no prompt tokens) replays the graph of its key, whose
+prefill-kernel grid the fixed ``max_q_len`` = G sets. Sampled tokens stay
+on the device, scattered by sequence slot into ``prev_tokens``; the next
+step gathers its decode inputs from there, so
 the overlap scheduler (executor.py) never waits for a token on the host.
 Host inputs go up in one pinned, non-blocking copy per step and results
 come back the same way (``HostFuture``): the host only synchronizes when
@@ -45,8 +51,8 @@ from ..logger import logger
 from ..models.modeling_utils import DecoderModelForCausalLM
 from ..ops.attention import AttentionMetadata
 from ..ops.cuda import decode_attention as dec
-from ..ops.sampling_ops import (SamplingTensors, greedy_sample, sample,
-                                top_logprobs)
+from ..ops.sampling_ops import (SamplingTensors, greedy_sample,
+                                rejection_sample, sample, top_logprobs)
 from . import spec_window
 from .cuda_graph import GraphRunner, Inputs, upload
 from .scheduler import ScheduledRequests
@@ -69,12 +75,14 @@ class StepInputs:
     cu_q_lens: np.ndarray          # i32[S+1]
     num_seqs: np.ndarray           # i32[1]
     slot_mapping: np.ndarray       # i32[T]
-    logits_indices: np.ndarray     # i32[S]
+    logits_indices: np.ndarray     # i32[S*G] (G = logits rows per seq)
     out_slots: np.ndarray          # i32[S] slot to scatter sampled token to (-1 pad)
     num_tokens: int                # actual (unpadded) token count
     num_reqs: int
     max_q_len: int                 # longest query segment (1 = decode-only)
     max_kv_len: int                # longest KV length incl. this step
+    draft_ids: np.ndarray          # i32[S*G] each logits row's draft, -1 none
+    has_prompt: bool               # a context row is in the step
     # VSWA: the sliding layers' page table and slots (None: one pool)
     page_indices_sw: Optional[np.ndarray] = None   # i32[S, P]
     slot_mapping_sw: Optional[np.ndarray] = None   # i32[T]
@@ -122,8 +130,12 @@ class ModelEngine:
                  model: DecoderModelForCausalLM,
                  params: Dict[str, Any],
                  args: LlmArgs,
-                 num_kv_pages: Optional[int] = None):
+                 num_kv_pages: Optional[int] = None,
+                 max_draft_len: int = 0):
         self.model = model
+        # host-orchestrated drafting: drafts per decode row, and each
+        # row's logits rows G = max_draft_len + 1 in every step
+        self.max_draft_len = max_draft_len
         self.args = args
         self.device = model.device
         self.max_batch_size = args.max_batch_size
@@ -133,10 +145,11 @@ class ModelEngine:
         self.token_buckets = args.bucketing_config.resolve_token_buckets(
             args.max_num_tokens)
         # a decode-only full batch is the hottest shape: give it an exact
-        # bucket so it never pads to the next power
-        decode_bucket = min(self.max_batch_size, args.max_num_tokens)
-        self.token_buckets = sorted(set(self.token_buckets) |
-                                    {decode_bucket})
+        # bucket so it never pads to the next power (with drafts, the full
+        # verify step too)
+        self.token_buckets = sorted(set(self.token_buckets) | {
+            min(self.max_batch_size * g, args.max_num_tokens)
+            for g in {1, max_draft_len + 1}})
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
         self.graphs = GraphRunner(self.device, self.generator,
@@ -151,6 +164,10 @@ class ModelEngine:
         self.mixed_ctx_carved = 0
         self.window_steps = 0
         self.dead_window_steps = 0
+        # verify steps (a decode row carries drafts): all of them, and
+        # those with prompt tokens, which run eagerly
+        self.verify_steps = 0
+        self.verify_steps_with_prompt = 0
         self.params = params
         # NVFP4 KV: stamp the e2m1-grid flag into the model's attention
         # specs so that write_kv rounds appended K/V onto the grid (the
@@ -221,11 +238,16 @@ class ModelEngine:
                    self.max_batch_size * self.pages_per_seq + 1)
 
     @property
+    def G(self) -> int:
+        """Logits rows per sequence of a step: 1 + host drafts."""
+        return self.max_draft_len + 1
+
+    @property
     def spec_draft_len(self) -> int:
         """Drafts per iteration of the fused speculative window (0: no
-        speculation configured)."""
+        EAGLE3 window configured; host drafting is ``max_draft_len``)."""
         sc = self.args.speculative_config
-        if sc is None or sc.mode == "NONE":
+        if sc is None or sc.mode != "EAGLE3":
             return 0
         return sc.max_draft_len or 4
 
@@ -264,10 +286,11 @@ class ModelEngine:
         - per row, 6 [rows, vocab] float32 tensors of the sampler (logits,
           log-softmax, the generator's noise, the seeded rows' noise, the
           perturbed logits, their selection);
-        - with speculation, a spec window's verify pass instead: rows x
-          (d+1) tokens, and 10 [rows x (d+1), vocab] float32 tensors
-          (rejection sampling also holds the probabilities, the residual,
-          a second noise draw and the draft one-hot);
+        - with speculation, a verify pass instead (the spec window's, or
+          a host-drafted verify step's): rows x (d+1) tokens, and 10
+          [rows x (d+1), vocab] float32 tensors (rejection sampling also
+          holds the probabilities, the residual, a second noise draw and
+          the draft one-hot);
         - a factor 2 of headroom for the allocator's block rounding and
           the blocks that the graphs' static outputs keep.
 
@@ -285,7 +308,7 @@ class ModelEngine:
         rows = self.max_batch_size
         tokens = rows + (self.mixed_ctx_tokens if self.riders_ok else 0)
         sampler = rows * self.model.vocab_size * 4 * 6
-        d = self.spec_draft_len
+        d = max(self.spec_draft_len, self.max_draft_len)
         if d:
             tokens = max(tokens, rows * (d + 1))
             sampler = max(sampler,
@@ -448,8 +471,13 @@ class ModelEngine:
     # Input preparation (host, numpy)
     # ------------------------------------------------------------------ #
     def prepare_inputs(self, batch: ScheduledRequests) -> StepInputs:
-        """Flatten the scheduled batch into ragged arrays."""
+        """Flatten the scheduled batch into ragged arrays. A generation
+        row's drafts ride behind its input token at the next positions,
+        one logits row per fed token (the JAX engine's chain branch,
+        model_engine.py:1155-1251); each row fills its G logits rows,
+        repeating its last one."""
         S, P, ps = self.max_batch_size, self.pages_per_seq, self.page_size
+        G = self.G
         reqs = batch.context_requests + batch.generation_requests
         if len(reqs) > S:
             raise ValueError(f"{len(reqs)} > max_batch_size {S}")
@@ -458,7 +486,8 @@ class ModelEngine:
         pos_list: List[int] = []
         kv_lens = np.zeros(S, np.int32)
         cu_q = np.zeros(S + 1, np.int32)
-        logits_idx = np.zeros(S, np.int32)
+        logits_idx = np.zeros(S * G, np.int32)
+        draft_ids = np.full(S * G, -1, np.int32)
         out_slots = np.full(S, -1, np.int32)
         # per KV pool: its page table and its slots of this step's tokens
         tables = np.zeros((len(self.pool_ids), S, P), np.int32)
@@ -479,9 +508,11 @@ class ModelEngine:
                 span = range(start, end)
                 kv_lens[i] = end
                 max_q = max(max_q, end - start)
+                logits_idx[i * G:(i + 1) * G] = len(tok_list) - 1
             else:
                 # generation: the input token comes from prev_tokens[slot]
-                # (device, overlap mode) or the host (sync mode)
+                # (device, overlap mode) or the host (sync mode); drafts
+                # ride behind it at the next positions
                 pos = req.num_device_tokens
                 if req.host_token_override is not None:
                     tok_list.append(req.host_token_override)
@@ -489,13 +520,20 @@ class ModelEngine:
                 else:
                     tok_list.append(0)
                     prev_list.append(req.seq_slot)
-                pos_list.append(pos)
-                span = range(pos, pos + 1)
-                kv_lens[i] = pos + 1
-                max_q = max(max_q, 1)
+                drafts = req.draft_tokens[:self.max_draft_len]
+                tok_list.extend(drafts)
+                prev_list.extend([-1] * len(drafts))
+                n = 1 + len(drafts)
+                span = range(pos, pos + n)
+                pos_list.extend(span)
+                kv_lens[i] = pos + n
+                max_q = max(max_q, n)
+                base = len(tok_list) - n
+                logits_idx[i * G:(i + 1) * G] = base + np.minimum(
+                    np.arange(G), len(drafts))
+                draft_ids[i * G:i * G + len(drafts)] = drafts
             for sm, chain in zip(slot_maps, chains):
                 sm.extend(chain[p // ps] * ps + p % ps for p in span)
-            logits_idx[i] = len(tok_list) - 1
             cu_q[i + 1] = len(tok_list)
             # mid-chunk context rows produce no real sample: route their
             # scatter to the trash slot so junk tokens can't pollute
@@ -512,7 +550,8 @@ class ModelEngine:
             slot_mapping=slot_maps[0],
             logits_indices=logits_idx, out_slots=out_slots,
             num_tokens=len(tok_list), num_reqs=len(reqs), max_q_len=max_q,
-            max_kv_len=int(kv_lens.max()),
+            max_kv_len=int(kv_lens.max()), draft_ids=draft_ids,
+            has_prompt=bool(batch.context_requests),
             **_sliding(page_indices_sw=tables[1:],
                        slot_mapping_sw=slot_maps[1:]))
 
@@ -551,6 +590,8 @@ class ModelEngine:
         if not greedy:
             inputs["samp_ints"], inputs["samp_floats"] = \
                 SamplingTensors.rows(reqs, S)
+            if self.G > 1:
+                inputs["draft_ids"] = inp.draft_ids
         return inputs
 
     def _step_key(self, T: int, bound: int, greedy: bool,
@@ -559,15 +600,22 @@ class ModelEngine:
         return ("step", T, self._splits(min(self.max_batch_size, T), bound),
                 greedy, use_penalties, k_lp, seeded, hidden)
 
+    def _verify_key(self, T: int, greedy: bool, use_penalties: bool,
+                    k_lp: int, seeded: bool = False) -> tuple:
+        return ("verify", T, self.G, greedy, use_penalties, k_lp, seeded)
+
     @torch.no_grad()
     def forward_step(self, batch: ScheduledRequests,
                      use_penalties: bool = False,
                      collect_hidden: bool = False):
-        """Launch one iteration. Returns device tensors indexed by batch
-        row: (tokens, logprobs), then (top values, top ids) when a request
-        asked for logprobs, then with ``collect_hidden`` the pre-final-norm
-        hidden rows (which seed the draft head, ``spec_seed``). A
-        decode-only batch replays the graph of its key; a batch with
+        """Launch one iteration. Returns device tensors indexed by logits
+        row, G per batch row: (tokens, logprobs), then (top values, top
+        ids) when a request asked for logprobs, then with
+        ``collect_hidden`` the pre-final-norm hidden rows (which seed the
+        draft head, ``spec_seed``). A decode-only batch replays the graph
+        of its key, and so does a verify step (drafts behind decode rows,
+        no prompt tokens): its key fixes ``max_q_len`` = G, the prefill
+        kernel's grid, and rows with fewer drafts are data. A batch with
         prompt tokens runs eagerly."""
         inp = self.prepare_inputs(batch)
         T = self._pick_bucket(inp.num_tokens)
@@ -580,11 +628,25 @@ class ModelEngine:
         seeded = _seeded(reqs, greedy)
         inputs = self._step_inputs(inp, reqs, T, greedy)
         self._counts(use_penalties)
-        if inp.max_q_len > 1:
+        verify = bool((inp.draft_ids >= 0).any())
+        self.verify_steps += verify
+        if inp.max_q_len > 1 and inp.has_prompt:
+            self.verify_steps_with_prompt += verify
             body = self._step_body(inp.max_q_len, inp.max_kv_len, greedy,
                                    use_penalties, k_lp, seeded,
                                    collect_hidden)
             return body(upload(inputs, self.device))
+        if verify:
+            # the prefill kernel takes no KV hint: the page table's reach
+            reach = self.pages_per_seq * self.page_size
+            return self.graphs.run(
+                self._verify_key(T, greedy, use_penalties, k_lp, seeded),
+                inputs,
+                self._step_body(self.G, reach, greedy, use_penalties, k_lp,
+                                seeded),
+                inert=lambda: self._step_inputs(
+                    self.prepare_inputs(ScheduledRequests()), [], T,
+                    greedy))
         bound = self._kv_bound(inp.max_kv_len)
         self.decode_steps += 1
         return self.graphs.run(
@@ -599,7 +661,7 @@ class ModelEngine:
     def _step_body(self, max_q_len: int, kv_bound: int, greedy: bool,
                    use_penalties: bool, k_lp: int, seeded: bool = False,
                    collect_hidden: bool = False):
-        S = self.max_batch_size
+        S, G = self.max_batch_size, self.G
 
         def body(v):
             prev = v["prev_slot"].long()
@@ -620,11 +682,26 @@ class ModelEngine:
             out_slots = v["out_slots"]
             st = None if greedy else SamplingTensors.from_rows(
                 v["samp_ints"], v["samp_floats"])
-            outs = self._sample(logits, st,
-                                v["seeds"] if seeded else None,
-                                v["kv_lens"],
+            seeds = v["seeds"] if seeded else None
+            positions, drafts = v["kv_lens"], None
+            if G > 1:
+                # logits row g of a row samples at position pos_base + g,
+                # pos_base = kv_lens - drafts (the spread of the row's
+                # logits indices): the position a step without drafts
+                # would sample that token at (JAX model_engine.py:495-520)
+                li = v["logits_indices"].view(S, G)
+                g = torch.arange(G, dtype=torch.int32, device=li.device)
+                positions = ((v["kv_lens"] - (li[:, -1] - li[:, 0]))
+                             [:, None] + g).reshape(-1)
+                if st is not None:
+                    st = st.repeat_rows(G)
+                    drafts = v["draft_ids"]
+                if seeds is not None:
+                    seeds = seeds.repeat_interleave(G)
+            outs = self._sample(logits, st, seeds, positions,
                                 torch.where(out_slots >= 0, out_slots,
-                                            S).long(), use_penalties)
+                                            S).long(), use_penalties,
+                                draft_ids=drafts)
             if k_lp:
                 outs += top_logprobs(logits, k_lp)
             if collect_hidden:
@@ -633,23 +710,35 @@ class ModelEngine:
         return body
 
     def _sample(self, logits, st: Optional[SamplingTensors], seeds,
-                positions, slot_idx, use_penalties: bool):
+                positions, slot_idx, use_penalties: bool,
+                draft_ids: Optional[torch.Tensor] = None):
         """Sample (argmax when ``st`` is None; ``seeds`` None when no row
         has a seed, which skips the seeded rows' noise), scatter the tokens
         by slot for the next step's gather (padding and inactive rows land
-        in the trash slot) and count them for the penalties."""
+        in the trash slot) and count them for the penalties. With G > 1
+        logits rows per slot (a verify step: ``st``, ``seeds`` and
+        ``positions`` per logits row) sampled rows verify by
+        ``rejection_sample`` against ``draft_ids``, and each slot's first
+        row is the one scattered and counted."""
+        G = logits.shape[0] // slot_idx.shape[0]
+        counts = self.token_counts[slot_idx] if use_penalties else None
+        row_seeds = None if seeds is None else (seeds, positions)
         if st is None:
             tok, lp = greedy_sample(logits)
+        elif draft_ids is not None:
+            tok, lp = rejection_sample(
+                logits, st, self.generator, draft_ids,
+                token_counts=None if counts is None
+                else counts.repeat_interleave(G, 0), row_seeds=row_seeds)
         else:
-            tok, lp = sample(
-                logits, st, self.generator,
-                token_counts=self.token_counts[slot_idx]
-                if use_penalties else None,
-                row_seeds=None if seeds is None else (seeds, positions))
-        self.prev_tokens[slot_idx] = tok
+            tok, lp = sample(logits, st, self.generator,
+                             token_counts=counts, row_seeds=row_seeds)
+        first = tok.view(-1, G)[:, 0]
+        self.prev_tokens[slot_idx] = first
         if use_penalties:
             self.token_counts.index_put_(
-                (slot_idx, tok), torch.ones_like(tok, dtype=torch.int32),
+                (slot_idx, first),
+                torch.ones_like(first, dtype=torch.int32),
                 accumulate=True)
         return tok, lp
 
@@ -949,18 +1038,20 @@ class ModelEngine:
         """Capture the greedy window of every row bucket at K (and at K/4,
         the TTFT-budget window, when ``ttft_slo_ms`` is set), with and
         without riders when ``mixed_window_ctx`` > 0, the greedy spec
-        window of every row bucket when speculation is on, and the greedy
+        window of every row bucket when speculation is on, the greedy
         decode-only single step of every token bucket a decode batch
-        takes. Every row is inactive and the rider chunks are empty, so no
-        device state changes. Sampled, penalty and logprob variants, and
-        other KV split counts, are captured at first use."""
+        takes, and with host drafting the greedy verify step of every
+        token bucket a verify step takes. Every row is inactive and the
+        rider chunks are empty, so no device state changes. Sampled,
+        penalty and logprob variants, and other KV split counts, are
+        captured at first use."""
         K = self.args.decode_multi_step
         if self.sd is not None:
             for Sb in self.row_buckets:
                 self._warm_spec(Sb)
         # under speculation no row takes a multi-step window (the
         # executor's _multi_rows_ok, as in the JAX package)
-        if K > 1 and self.sd is None:
+        if K > 1 and self.sd is None and not self.max_draft_len:
             Ks = {K, max(1, K // 4)} if self.args.ttft_slo_ms > 0 else {K}
             riders = [None] + ([[]] if self.riders_ok else [])
             for Sb in self.row_buckets:
@@ -975,6 +1066,13 @@ class ModelEngine:
                     self._step_inputs(self.prepare_inputs(
                         ScheduledRequests()), [], T, True),
                     self._step_body(1, bound, True, False, 0))
+            if self.max_draft_len and T <= self.max_batch_size * self.G:
+                reach = self.pages_per_seq * self.page_size
+                self.graphs.ensure(
+                    self._verify_key(T, True, False, 0),
+                    self._step_inputs(self.prepare_inputs(
+                        ScheduledRequests()), [], T, True),
+                    self._step_body(self.G, reach, True, False, 0))
         # the inert steps scattered into the trash slot only; clear it in
         # place all the same (the graphs hold its address)
         self.prev_tokens.zero_()

@@ -85,10 +85,12 @@ class LlmRequest:
         self.output_token_ids: List[int] = []
         self.cum_logprob: float = 0.0
         self.logprobs: List[dict] = []          # per generated token: {tok: logprob}
-        # speculative draft for the next step (the scheduler counts it;
-        # always empty here: the fused speculative window drafts on the
-        # device)
+        # speculative draft for the next step, filled by a host drafter on
+        # the sync scheduler and verified in one step (the fused EAGLE3
+        # window drafts on the device and leaves it empty); tree drafts'
+        # parents are not served here, so draft_parents stays None
         self.draft_tokens: List[int] = []
+        self.draft_parents: Optional[List[int]] = None
 
         # chunked-prefill progress
         self.context_current_position: int = 0

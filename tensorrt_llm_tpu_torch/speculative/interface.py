@@ -4,9 +4,11 @@ Port of ``tensorrt_llm_tpu/speculative/interface.py``, unchanged: the
 mode taxonomy and the Drafter contract (reference:
 tensorrt_llm/_torch/speculative/interface.py:205 SpeculativeDecodingMode,
 drafter.py:12 Drafter.prepare_draft_tokens called from the executor loop
-py_executor.py:2671). This package runs one drafter, the EAGLE3 head of
-the fused device window (runtime/spec_window.py), which proposes on the
-device and never calls ``prepare_draft_tokens``.
+py_executor.py:2671). Host drafters (NGram, suffix automaton, a user's
+drafter, the two-model drafter) fill ``request.draft_tokens`` on the sync
+scheduler and the target verifies them in one step; the EAGLE3 head of
+the fused device window (runtime/spec_window.py) proposes on the device
+and never calls ``prepare_draft_tokens``.
 """
 from __future__ import annotations
 

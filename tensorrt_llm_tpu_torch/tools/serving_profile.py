@@ -53,7 +53,12 @@ Two workloads:
   tokens with ``ignore_eos``, ``LLM`` defaults but prefix reuse off (each
   pass prefills afresh); ``--kv fp8`` (or ``int8``, ``nvfp4``) keeps the
   KV cache in 8 bits (``QuantConfig(kv_cache_quant_algo=...)``, scales
-  calibrated at build).
+  calibrated at build);
+- ``--geometry llama3-8b-copy``: ``chip_smoke.py``'s host_spec_serving
+  run, Llama-3-8B as above, 32 requests of 512 prompt tokens, each a
+  seeded random 128-token segment repeated 4 times (input-grounded
+  copying traffic, what prompt lookup serves), 128 greedy tokens with
+  ``ignore_eos``, ``LLM`` defaults but prefix reuse off.
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms). ``--spec EAGLE3 --draft-len d`` serves the
@@ -64,6 +69,15 @@ the spec windows dispatched, their iterations, the dead ones the host
 foresaw and those that emitted nothing (a graph runs them all), the mean
 drafts accepted per iteration, the decode rows that ran
 outside spec windows, and the launches replayed from spec graphs.
+``--spec NGRAM|SA|DRAFT_TARGET|PARD --draft-len d`` serves it with a host
+drafter on the sync scheduler (DRAFT_TARGET and PARD draft with
+Llama-3.2-1B from its published config, ``LLAMA32_1B``, seeded random
+weights); the line then also carries the rows verified with drafts, the
+drafts proposed and accepted (per verify step and per drafted row), the
+verify steps replayed from graphs and run eagerly (with prompt tokens and
+without: the latter must be 0 on the card), the drafting calls' device
+time (CUDA events around each call, which ends in a host sync) and the
+K1 / K2 launches made while drafting (the rest are the target's).
 
     python -m tensorrt_llm_tpu_torch.tools.serving_profile
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --bench-settings
@@ -76,6 +90,8 @@ outside spec windows, and the launches replayed from spec graphs.
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --quant W4A16_AWQ
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --spec EAGLE3 \
         --draft-len 3
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry llama3-8b-copy --spec DRAFT_TARGET --draft-len 4
 """
 from __future__ import annotations
 
@@ -126,6 +142,19 @@ LLAMA3_8B = dict(
     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
     max_position_embeddings=8192, rope_theta=500000.0, rms_norm_eps=1e-5,
     tie_word_embeddings=False, bos_token_id=128000, eos_token_id=128001)
+# https://huggingface.co/meta-llama/Llama-3.2-1B/blob/main/config.json
+# (the draft model of DRAFT_TARGET / PARD beside LLAMA3_8B)
+LLAMA32_1B = dict(
+    vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=64, max_position_embeddings=131072, rope_theta=500000.0,
+    rope_scaling={"factor": 32.0, "high_freq_factor": 4.0,
+                  "low_freq_factor": 1.0,
+                  "original_max_position_embeddings": 8192,
+                  "rope_type": "llama3"},
+    rms_norm_eps=1e-5, tie_word_embeddings=True, bos_token_id=128000,
+    eos_token_id=128001)
+HOST_SPEC_MODES = ("NGRAM", "SA", "DRAFT_TARGET", "PARD")
 # https://huggingface.co/google/gemma-3-1b-pt/blob/main/config.json
 GEMMA3_1B = dict(
     vocab_size=262144, hidden_size=1152, intermediate_size=6912,
@@ -158,6 +187,13 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
 
     from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
     gen = torch.Generator().manual_seed(0)
+    if geometry == "llama3-8b-copy":
+        seg = torch.randint(0, LLAMA3_8B["vocab_size"], (32, 128),
+                            generator=gen)
+        prompts = seg.repeat(1, 4).tolist()
+        kwargs = dict(kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (LlamaConfig(**LLAMA3_8B), kwargs, prompts,
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
     if geometry == "llama3-8b":
         prompts = torch.randint(0, LLAMA3_8B["vocab_size"], (64, 2048),
                                 generator=gen).tolist()
@@ -236,6 +272,82 @@ def kernel_modules() -> dict:
             "groupwise_dequant_matmul": qmm}
 
 
+def spec_config(mode: str, draft_len: int):
+    """The ``SpeculativeConfig`` of ``--spec``: EAGLE3 with a seeded
+    random head; the host drafters, DRAFT_TARGET / PARD drafting with
+    Llama-3.2-1B's published config (seeded random weights; PARD's mask
+    token 0)."""
+    from transformers import LlamaConfig
+
+    from tensorrt_llm_tpu_torch import SpeculativeConfig
+    kw = {}
+    if mode in ("DRAFT_TARGET", "PARD"):
+        kw["draft_model"] = LlamaConfig(**LLAMA32_1B)
+    if mode == "PARD":
+        kw["pard_mask_token_id"] = 0
+    return SpeculativeConfig(mode=mode, max_draft_len=draft_len, **kw)
+
+
+class DraftTimer:
+    """Wraps a host drafter's ``prepare_draft_tokens``: device time of
+    each call (CUDA events around it; the call ends in a host sync, so
+    the span holds its work) and the kernels' launches made inside it."""
+
+    def __init__(self, drafter, kernels: dict):
+        self.drafter, self.kernels = drafter, kernels
+        self.orig = drafter.prepare_draft_tokens
+        self.events = []
+        self.launches = {k: 0 for k in kernels}
+        drafter.prepare_draft_tokens = self
+
+    def __call__(self, requests):
+        before = {k: m.LAUNCHES for k, m in self.kernels.items()}
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        self.orig(requests)
+        e1.record()
+        self.events.append((e0, e1))
+        for k, m in self.kernels.items():
+            self.launches[k] += m.LAUNCHES - before[k]
+
+    def close(self) -> dict:
+        self.drafter.prepare_draft_tokens = self.orig
+        torch.cuda.synchronize()
+        return dict(drafter_calls=len(self.events),
+                    drafter_ms=sum(a.elapsed_time(b) for a, b in self.events),
+                    launches_drafter=dict(self.launches))
+
+
+def host_spec_counts(llm):
+    """The host drafting counters (None without a host drafter);
+    ``measure`` reports their change over the timed pass."""
+    ex, eng = llm.executor, llm.engine
+    if ex.host_drafter is None:
+        return None
+    return dict(rows=ex.drafted_rows, proposed=ex.drafts_proposed,
+                accepted=ex.drafts_accepted, verify=eng.verify_steps,
+                verify_prompt=eng.verify_steps_with_prompt,
+                verify_replays=sum(
+                    st.replays for k, st in eng.graphs.steps.items()
+                    if k[0] == "verify" and st.graph is not None))
+
+
+def host_spec_summary(c: dict) -> dict:
+    """Host drafting counters ``c`` (of ``host_spec_counts``, or their
+    change over a pass) by name, with the derived shares: verify steps
+    without prompt tokens that no graph replayed ran eagerly."""
+    return dict(
+        drafted_rows=c["rows"], drafts_proposed=c["proposed"],
+        drafts_accepted=c["accepted"], verify_steps=c["verify"],
+        accepted_per_verify_step=c["accepted"] / max(1, c["verify"]),
+        accepted_per_drafted_row=c["accepted"] / max(1, c["rows"]),
+        verify_steps_replayed=c["verify_replays"],
+        verify_steps_eager_with_prompt=c["verify_prompt"],
+        verify_steps_eager_without_prompt=c["verify"] - c["verify_prompt"]
+        - c["verify_replays"])
+
+
 def _generate(llm, prompts, sp):
     """All requests submitted at once; (wall seconds, outputs)."""
     t0 = time.monotonic()
@@ -255,10 +367,16 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
     replays0 = eng.graphs.replays
     steps0 = (eng.decode_steps, eng.window_steps, eng.dead_window_steps)
     spec0 = _spec_counts(llm)
+    host0 = host_spec_counts(llm)
+    timer = None if host0 is None else \
+        DraftTimer(llm.executor.host_drafter, kernels)
     blocks0 = llm.kv_cache_manager.get_stats().alloc_total_blocks
     for mod in kernels.values():
         mod.LAUNCHES = 0
-    wall, outs = _generate(llm, prompts, sp)
+    try:
+        wall, outs = _generate(llm, prompts, sp)
+    finally:
+        drafting = timer.close() if timer is not None else None
     launches = {k: mod.LAUNCHES for k, mod in kernels.items()}
     spec1 = _spec_counts(llm)
     blocks = llm.kv_cache_manager.get_stats().alloc_total_blocks - blocks0
@@ -303,6 +421,11 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
                    spec_idle_iters=d["idle_iters"],
                    spec_mean_accepted=d["accepted"] / max(1, d["steps"]),
                    nonspec_decode_rows=d["nonspec_rows"])
+    if host0 is not None:
+        res.update(host_spec_summary(
+            {k: v - host0[k] for k, v in host_spec_counts(llm).items()}),
+            launches_target={k: v - drafting["launches_drafter"][k]
+                             for k, v in launches.items()}, **drafting)
     if profile:
         res.update(_profiled(llm, prompts, sp, wall))
     return res
@@ -371,29 +494,30 @@ def main() -> None:
                     help="bench.py's throughput workload and settings")
     ap.add_argument("--geometry", choices=["tinyllama", "qwen3-30b-a3b",
                                            "gemma2-9b", "gemma3-1b",
-                                           "llama3-8b"],
+                                           "llama3-8b", "llama3-8b-copy"],
                     default="tinyllama",
                     help="the model of the default workload")
     ap.add_argument("--kv", choices=["none", "int8", "fp8", "nvfp4"],
                     default="none", help="the KV cache's quantization")
     ap.add_argument("--vswa", action="store_true",
                     help="gemma2-9b: the sliding layers on their own pool")
-    ap.add_argument("--spec", choices=["NONE", "EAGLE3"], default="NONE",
-                    help="speculative mode (EAGLE3: a seeded random head)")
+    ap.add_argument("--spec", choices=("NONE", "EAGLE3") + HOST_SPEC_MODES,
+                    default="NONE",
+                    help="speculative mode (EAGLE3: a seeded random head; "
+                    "DRAFT_TARGET / PARD: Llama-3.2-1B, random weights)")
     ap.add_argument("--draft-len", type=int, default=3,
                     help="drafts per spec iteration")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    from tensorrt_llm_tpu_torch import LLM, SpeculativeConfig
+    from tensorrt_llm_tpu_torch import LLM
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
     from tensorrt_llm_tpu_torch.quantization.mode import (KvCacheQuantAlgo,
                                                           QuantAlgo)
     cfg, kwargs, prompts, sp = workload(args.bench_settings, args.geometry,
                                         args.vswa)
     if args.spec != "NONE":
-        kwargs["speculative_config"] = SpeculativeConfig(
-            mode=args.spec, max_draft_len=args.draft_len)
+        kwargs["speculative_config"] = spec_config(args.spec, args.draft_len)
     kv = "NO_QUANT" if args.kv == "none" else args.kv.upper()
     llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
         quant_algo=QuantAlgo[args.quant], group_size=args.group_size,

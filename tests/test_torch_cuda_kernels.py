@@ -1041,3 +1041,135 @@ def test_llm_int8_kv_cuda_matches_cpu(cuda):
             llm.shutdown()
     np.testing.assert_allclose(scales["cuda"], scales["cpu"], rtol=1e-4)
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---- host-orchestrated drafting (verify steps, the two-model drafter) ----
+
+_HOST_KVS = [513 + (127 * i) // 31 for i in range(32)]
+
+
+@pytest.mark.parametrize("kind,q_len,hd", [("verify_host_8b", 5, 128),
+                                           ("decode_draft_1b", 1, 64)])
+def test_host_spec_shapes_match_plain(cuda, kind, q_len, hd):
+    """K2 at the target's verify step (32 sequences x 5 queries at
+    513-640 KV, Llama-3-8B's 32 x 128 heads over 8) and K1 at the
+    drafter's chained steps (32 rows at 513-640 KV, Llama-3.2-1B's 32 x 64
+    over 8), bf16, against their plain versions."""
+    q, pool, kvl, pt, cu = _inputs([q_len] * 32,
+                                   [k - q_len for k in _HOST_KVS], 32, 8,
+                                   hd, 32, torch.bfloat16, cuda, seed=5)
+    kw = dict(sm_scale=hd ** -0.5)
+    if q_len > 1:
+        got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                           max_q_len=q_len, **kw)
+        ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    else:
+        got = dec.paged_decode_attention(q, pool, kvl, pt,
+                                         max_kv_len=max(_HOST_KVS), **kw)
+        ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, **kw)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **TOLS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_verify_step_replay_equals_eager(cuda, dtype):
+    """One verify step (decode rows with 0-3 drafts after a prefill step)
+    replayed from its graph and run eagerly on the same static buffers
+    (``graphs.capture = False``), each in an engine of its own from the
+    same state: tokens and logprobs bit-equal; the replay launched K2."""
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.runtime.request import (LlmRequest,
+                                                        LlmRequestState)
+    from tensorrt_llm_tpu_torch.runtime.scheduler import ScheduledRequests
+
+    def _batch(_, specs):
+        b = ScheduledRequests()
+        for i, sp in enumerate(specs):
+            r = LlmRequest(list(sp["prompt"]), T.SamplingParams(top_k=1),
+                           request_id=100 + i)
+            r.seq_slot, r.kv_block_ids = sp["slot"], list(sp["blocks"])
+            if sp["kind"] == "ctx":
+                r.context_chunk_size = sp["chunk"]
+                b.context_requests.append(r)
+            else:
+                r.state = LlmRequestState.GENERATION_IN_PROGRESS
+                r.output_token_ids = list(sp["out"])
+                r.num_device_tokens = sp["pos"]
+                r.host_token_override = sp["override"]
+                r.draft_tokens = list(sp["drafts"])
+                b.generation_requests.append(r)
+        return b
+    prompts = [list(range(3 + 2 * i, 30 + 3 * i)) for i in range(3)]
+    blocks = [[2 * i, 2 * i + 1, 20 + i] for i in range(3)]
+    ctx = [dict(kind="ctx", prompt=p, slot=i, blocks=b, start=0,
+                chunk=len(p)) for i, (p, b) in enumerate(zip(prompts, blocks))]
+    out = {}
+    for mode in ("graph", "eager"):
+        llm = T.LLM("tests/assets/tinycode-llama", device=cuda, dtype=dtype,
+                    skip_tokenizer_init=True, max_batch_size=6,
+                    max_input_len=64, max_seq_len=128, max_num_tokens=256,
+                    enable_warmup=False,
+                    speculative_config=T.SpeculativeConfig(mode="NGRAM",
+                                                           max_draft_len=3),
+                    kv_cache_config=T.KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=2048))
+        eng = llm.engine
+        eng.graphs.capture = mode == "graph"
+        try:
+            first = eng.forward_step(_batch("torch", ctx))[0].cpu()
+            first = first.view(-1, 4)[:3, 0].tolist()
+            drafts = ([5, 6, 7], [], [first[2], 1])
+            gen = [dict(kind="gen", prompt=p, out=[f], slot=i, blocks=b,
+                        pos=len(p), override=f, drafts=d)
+                   for i, (p, b, f, d) in enumerate(zip(prompts, blocks,
+                                                        first, drafts))]
+            before = pre.LAUNCHES
+            tok, lp = eng.forward_step(_batch("torch", gen))
+            torch.cuda.synchronize()
+            out[mode] = (tok.cpu().clone(), lp.cpu().clone(),
+                         pre.LAUNCHES - before,
+                         [k for k, s in eng.graphs.steps.items()
+                          if s.graph is not None and k[0] == "verify"])
+        finally:
+            llm.shutdown()
+    assert torch.equal(out["graph"][0], out["eager"][0])
+    assert torch.equal(out["graph"][1], out["eager"][1])
+    assert out["graph"][2] > 0 and out["graph"][3] and not out["eager"][3]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_drafter_chain_graph_equals_eager(cuda, dtype):
+    """The two-model drafter's chained steps replayed from a CUDA graph
+    and run eagerly on the same static buffers: drafts and the drafter's
+    KV pool bit-equal over three calls (catch-ups of one and of several
+    tokens); the replay launched K1."""
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.llmapi.llm import LLM
+
+    class R:
+        def __init__(self, rid, toks):
+            self.request_id, self.all_token_ids = rid, list(toks)
+            self.draft_tokens = []
+    out = {}
+    for mode in ("graph", "eager"):
+        holder = LLM.__new__(LLM)
+        holder.args = T.LlmArgs(model="m", dtype=dtype, max_batch_size=4,
+                                max_seq_len=256)
+        holder.device = cuda
+        dr = holder._build_two_model_drafter(T.SpeculativeConfig(
+            mode="DRAFT_TARGET", max_draft_len=4,
+            draft_model="tests/assets/tinycode-llama"), 4)
+        dr.graphs.capture = mode == "graph"
+        reqs = [R(0, b"def f(x):\n    return x"), R(1, b"import os\n"),
+                R(2, list(range(40, 60)))]
+        drafts = []
+        for step in range(3):
+            dr.prepare_draft_tokens(reqs)
+            drafts.append([r.draft_tokens for r in reqs])
+            for r in reqs:
+                r.all_token_ids += r.draft_tokens[:step + 1]
+        torch.cuda.synchronize()
+        out[mode] = (drafts, dr.kv.cpu(), dr.graphs.replayed_launches())
+    assert out["graph"][0] == out["eager"][0]
+    assert torch.equal(out["graph"][1], out["eager"][1])
+    assert out["graph"][2][dec.__name__] > 0 and not out["eager"][2]

@@ -372,12 +372,6 @@ def test_small_spec_window_after_a_large_one_reads_no_stale_row():
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(mode="DRAFT_TARGET"), "DRAFT_TARGET"),
-    (dict(mode="NGRAM"), "NGRAM"),
-    (dict(mode="SA"), "SA"),
-    (dict(mode="AUTO"), "AUTO"),
-    (dict(mode="USER_PROVIDED"), "USER_PROVIDED"),
-    (dict(mode="PARD"), "PARD"),
     (dict(mode="DFLASH"), "DFLASH"),
     (dict(mode="MTP"), "MTP"),
     (dict(mode="EAGLE3", device_window=False), "device_window"),
