@@ -170,9 +170,10 @@ the run on error:
      log-probability; K1, K2 and graph replays required;
  17. kv_serving: Llama-3-8B at its published width and depth (32 layers;
      seeded random bf16 weights, 16.1 GB), 64 x 2,048 -> 128 greedy
-     tokens, ``LLM`` defaults but prefix reuse off, on a bf16 pool and an
-     FP8 pool (tools/serving_profile.py ``--geometry llama3-8b [--kv
-     fp8]``; an INT8 pool by ``--kv int8``, left out here for time):
+     tokens, ``LLM`` defaults but prefix reuse off, on an FP8 pool
+     (tools/serving_profile.py ``--geometry llama3-8b --kv fp8``; the
+     bf16 pool by ``--geometry llama3-8b`` and an INT8 pool by ``--kv
+     int8``, left out here for the script's time budget):
      tok/s, TTFT and TPOT (median, max), idle share, GPU time by
      class, the pool's pages, tokens and bytes, the calibrated scales'
      range, launches and replays; every request 128 tokens, no NaN in
@@ -219,12 +220,36 @@ the run on error:
      KV, 32 x 64 over 8, the drafter's 128-column page table), each
      against its plain version, its bound and one SDPA call.
 
+ 22. surface_parity: tests/assets/tinycode-llama in float32, the card
+     against the CPU, on the overlap scheduler (K = 8) and on the sync
+     scheduler (``max_beam_width=4``): no-repeat-ngram, an embedding bias,
+     bad words, all three together, n = 3 greedy and seeded, and
+     prompt_logprobs on both; a forcing and a sampling logits processor
+     and beam search (width 4, n 3) on the sync one. Tokens identical,
+     prompt logprobs within 1e-4 (the same keys), beam hypotheses
+     identical and their scores within 1e-4;
+ 23. surface_serving: Llama-3-8B at its published width and depth on a
+     bf16 pool (seeded random weights), one ``LLM`` with
+     ``max_beam_width=4`` (the sync scheduler) and prefix reuse on,
+     serving one mixed batch (tools/serving_profile.py ``--surface``,
+     ``surface_workload``): 16 x 512 -> 128 seeded sampling with n = 4,
+     8 x 512 -> 128 greedy with no-repeat-ngram 3, a [V] bias and 16 bad
+     words, 4 x 512 -> 16 with prompt_logprobs 5, 4 x 256 -> 64 beam
+     search (best_of 4, n 2), 4 x 512 -> 64 with a numpy processor banning
+     64 tokens; per class tok/s, TTFT and TPOT (median, max), and the
+     device idle share, graphs, windows against single steps, K1 / K2
+     launches, the prompt-logprobs forward's mean ms, beam forks and
+     pages copied, reuse hits, peak memory. Fails unless every class
+     finishes at its length, every prompt-logprob dict holds its prompt
+     token, no bad word and no repeated 3-gram appears in that class, no
+     banned token in the processor's class, and K1 and K2 launched.
+
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results (launches from the bench-settings run, or the
 W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's,
-moe_serving's, gemma_serving's, kv_serving's and host_spec_serving's
-DRAFT_TARGET timed passes, the last as the target's and the drafter's)
-and
+moe_serving's, gemma_serving's, kv_serving's, host_spec_serving's
+DRAFT_TARGET (as the target's and the drafter's) and surface_serving's
+timed passes) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -2224,9 +2249,10 @@ def kv_serving_phase() -> dict:
     random bf16 weights, 16.1 GB), 64 requests of 2,048 prompt tokens ->
     128 greedy tokens with ``ignore_eos``, ``LLM`` defaults but prefix
     reuse off, measured by tools/serving_profile.py (``--geometry
-    llama3-8b [--kv fp8]``): on a bf16 pool and on an FP8 pool, scales
-    calibrated at build (``--kv int8`` serves it on an INT8 pool; left out
-    here to keep the script inside its time budget).
+    llama3-8b --kv fp8``): on an FP8 pool, scales calibrated at build
+    (the bf16 pool, ``--geometry llama3-8b``, and an INT8 pool, ``--kv
+    int8``, are left out here to keep the script inside its time
+    budget).
     Per run: tok/s, TTFT and TPOT (median, max), device idle share, GPU
     time by class, the pool's pages, tokens and bytes, the calibrated
     scales' range, launches and replays, and the (q_lens, ctx) of its
@@ -2241,7 +2267,7 @@ def kv_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     out = {}
-    for label, algo in (("bf16", "NO_QUANT"), ("fp8", "FP8")):
+    for label, algo in (("fp8", "FP8"),):
         cfg, kwargs, prompts, sp = sprof.workload(geometry="llama3-8b")
         gc.collect()
         torch.cuda.empty_cache()
@@ -2519,6 +2545,171 @@ def host_spec_kernel_phase(results: dict) -> None:
             torch.bfloat16, seed, pages_per_seq=PAGES_8B, timed=True, hd=hd)
 
 
+def _surface_runs(llm, sync: bool) -> dict:
+    """surface_parity's requests through one ``LLM``: (tokens, prompt
+    logprobs, beam hypotheses) by case."""
+    import numpy as np
+    from tensorrt_llm_tpu_torch import SamplingParams
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"abcabcabcabcabc"), list(b"import numpy as np\nimport ")]
+    V = llm.model.vocab_size
+    bias = np.random.default_rng(0).standard_normal(V).astype(np.float32)
+    cases = dict(
+        ngram=dict(no_repeat_ngram_size=2),
+        bias=dict(embedding_bias=bias * 3),
+        bad=dict(bad_token_ids=[32, 101, 10, 115]),
+        combined=dict(no_repeat_ngram_size=3, embedding_bias=bias,
+                      bad_token_ids=[32, 40]))
+    out = {}
+    for name, kw in cases.items():
+        outs = llm.generate(prompts, SamplingParams(
+            max_tokens=24, top_k=1, ignore_eos=True, **kw))
+        out[name] = [o.outputs[0].token_ids for o in outs]
+    for name, kw in (("n3_greedy", dict(top_k=1)),
+                     ("n3_seeded", dict(temperature=0.8, seed=11))):
+        o = llm.generate(prompts[0], SamplingParams(
+            max_tokens=16, n=3, ignore_eos=True, **kw))
+        out[name] = [x.token_ids for x in o.outputs]
+    o = llm.generate(prompts[2], SamplingParams(max_tokens=4, top_k=1,
+                                                prompt_logprobs=3))
+    out["prompt_logprobs"] = o.prompt_logprobs
+    if sync:
+        def force(logits):
+            logits[:] = -1e9
+            logits[33] = 0.0
+            return logits
+
+        def shift(logits):
+            logits[[40, 41, 42]] += 2.0
+            return logits
+        out["processor_force"] = llm.generate(prompts[0], SamplingParams(
+            max_tokens=6, top_k=1, logits_processor=force,
+            ignore_eos=True)).outputs[0].token_ids
+        out["processor_sampled"] = llm.generate(prompts[1], SamplingParams(
+            max_tokens=12, temperature=0.9, top_k=20, seed=3,
+            logits_processor=shift, ignore_eos=True)).outputs[0].token_ids
+        out["beam"] = [[(h.token_ids, h.cumulative_logprob)
+                        for h in r.outputs]
+                       for r in llm.generate(prompts, SamplingParams(
+                           max_tokens=12, use_beam_search=True, best_of=4,
+                           n=3, length_penalty=0.0))]
+    return out
+
+
+def surface_parity_phase(repo: Path) -> dict:
+    """The sampling surface on the parity checkpoint
+    (tests/assets/tinycode-llama, float32), the card against the CPU, on
+    the overlap scheduler (K = 8) and the sync one (``max_beam_width=4``):
+    tokens identical, prompt logprobs within 1e-4 (same keys), beam
+    hypotheses identical, scores within 1e-4."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig
+    ckpt = repo / "tests" / "assets" / "tinycode-llama"
+    res = {}
+    for sched, extra in (("overlap", {}), ("sync", dict(max_beam_width=4))):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            llm = LLM(ckpt, device=device, dtype="float32",
+                      skip_tokenizer_init=True, max_batch_size=8,
+                      max_input_len=128, max_seq_len=256, max_num_tokens=512,
+                      kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=8192),
+                      **extra)
+            try:
+                runs[device] = _surface_runs(llm, sched == "sync")
+                if device == "cuda":
+                    graphs = llm.engine.graphs.num_graphs
+                    replays = llm.engine.graphs.replays
+            finally:
+                llm.shutdown()
+        got, want = runs["cuda"], runs["cpu"]
+        tok_cases = [k for k in want if k not in ("prompt_logprobs", "beam")]
+        bad = [k for k in tok_cases if got[k] != want[k]]
+        plp_err = 0.0
+        for g, w in zip(got["prompt_logprobs"][1:],
+                        want["prompt_logprobs"][1:]):
+            if set(g) != set(w):
+                bad.append("prompt_logprobs_keys")
+                break
+            plp_err = max([plp_err] + [abs(g[k] - w[k]) for k in w])
+        beam_err = 0.0
+        for g, w in zip(got.get("beam", []), want.get("beam", [])):
+            if [t for t, _ in g] != [t for t, _ in w]:
+                bad.append("beam_tokens")
+            beam_err = max([beam_err] + [abs(a[1] - b[1])
+                                         for a, b in zip(g, w)])
+        r = dict(scheduler=sched, cases=sorted(want), mismatched=bad,
+                 prompt_logprobs_max_abs_err=plp_err,
+                 beam_score_max_abs_err=beam_err, graphs_captured=graphs,
+                 graph_replays=replays)
+        emit({"phase": "surface_parity", **r})
+        if bad or plp_err > 1e-4 or beam_err > 1e-4 or not replays:
+            raise AssertionError(f"surface_parity {sched}: {r}")
+        res[sched] = r
+    return res
+
+
+def surface_serving_phase() -> dict:
+    """Llama-3-8B at full width and depth (seeded random bf16), one
+    ``LLM`` with ``max_beam_width=4`` (the sync scheduler), prefix reuse
+    on, serving tools/serving_profile.py's ``surface_workload`` mixed
+    batch through ``measure_surface`` (warm-up, timed pass with the launch
+    counters zeroed right before and read right after, profiled pass).
+    Fails unless every class returns its full length, every prompt-logprob
+    dict holds its prompt token, the no-repeat-ngram class has no bad word
+    and no repeated 3-gram, the processor class no banned token, and K1
+    and K2 launched."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sps, classes, ids = sprof.surface_workload()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    try:
+        res, outs = sprof.measure_surface(llm, prompts, sps, classes)
+        res.update(engine_build_s=build_s, model="Llama-3-8B",
+                   layers=cfg.num_hidden_layers,
+                   kv_pages=llm.engine.num_kv_pages,
+                   surface_state_bytes=llm.engine.surface_state_bytes())
+    finally:
+        llm.shutdown()
+    del llm
+    faults = []
+    bad, banned = set(ids["bad_token_ids"]), set(ids["banned"])
+    for p, sp, c, o in zip(prompts, sps, classes, outs):
+        toks = [x.token_ids for x in o.outputs]
+        if any(len(t) != sp.max_tokens for t in toks) or \
+                len(toks) != sp.n:
+            faults.append(f"{c}: lengths {[len(t) for t in toks]}")
+        if c == "prompt_logprobs":
+            plp = o.prompt_logprobs
+            if plp is None or plp[0] is not None or len(plp) != len(p) or \
+                    any(p[i] not in plp[i] for i in range(1, len(p))):
+                faults.append("prompt_logprobs: a dict lacks its token")
+        if c == "ngram_bias_bad":
+            seq = p + toks[0]
+            grams = [tuple(seq[j:j + 3]) for j in range(len(seq) - 2)]
+            if bad & set(toks[0]):
+                faults.append("ngram_bias_bad: a bad word was emitted")
+            if any(grams[j] in grams[:j] for j in range(len(p) - 2,
+                                                        len(grams))):
+                faults.append("ngram_bias_bad: a 3-gram repeats")
+        if c == "processor" and banned & set(toks[0]):
+            faults.append("processor: a banned token was emitted")
+    if min(res["launches"][k] for k in ("paged_decode_attention",
+                                        "ragged_prefill_attention")) <= 0:
+        faults.append(f"K1 or K2 never launched: {res['launches']}")
+    res["faults"] = faults
+    emit({"phase": "surface_serving", **res})
+    if faults:
+        raise AssertionError(f"surface_serving: {faults}")
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -2578,6 +2769,8 @@ def main() -> int:
     timed("host_spec_parity", host_spec_parity_phase, here)
     host = timed("host_spec_serving", host_spec_serving_phase)
     timed("host_spec_kernels", host_spec_kernel_phase, kern)
+    timed("surface_parity", surface_parity_phase, here)
+    surface = timed("surface_serving", surface_serving_phase)
     emit({"phase": "timing", "seconds": seconds})
 
     kernels = []
@@ -2603,6 +2796,7 @@ def main() -> int:
             launches_kv_serving=kv_runs["fp8"]["launches"][name],
             launches_host_spec=dict(target=host["launches_target"][name],
                                     drafter=host["launches_drafter"][name]),
+            launches_surface_serving=surface["launches"][name],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()

@@ -36,6 +36,15 @@ device unless ``device="cpu"`` is passed; without CUDA and without that
 argument, construction raises. On CUDA, ``enable_warmup`` (the default)
 captures the serving CUDA graphs at build, as the JAX ``LLM`` compiles
 its buckets at build on the TPU.
+
+``SamplingParams`` as the JAX ``LLM`` serves them: ``n > 1`` samples
+(each its own request sharing the prompt through the prefix cache, seeds
+folded per sample), ``prompt_logprobs`` (one teacher-forced forward,
+returned on ``RequestOutput.prompt_logprobs``), ``no_repeat_ngram_size``,
+``bad_token_ids``, ``embedding_bias``, ``logits_processor`` (the sync
+scheduler: ``disable_overlap_scheduler=True``) and beam search
+(``use_beam_search`` with ``best_of`` beams; ``max_beam_width`` > 1
+implies the sync scheduler). ``guided_decoding`` is refused by name.
 """
 from __future__ import annotations
 
@@ -68,10 +77,15 @@ _DTYPES = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
 
 
 class RequestOutput:
-    """Final result wrapper around one request's GenerationResult."""
+    """Final result wrapper around one request's GenerationResult. May
+    aggregate n > 1 parallel samples (``SamplingParams.n``): each sample
+    is its own engine request sharing the prompt via the prefix cache,
+    and sample j's outputs carry ``index`` j."""
 
-    def __init__(self, result: GenerationResult, prompt: Optional[str]):
+    def __init__(self, result: GenerationResult, prompt: Optional[str],
+                 extra_results: Optional[List[GenerationResult]] = None):
         self._result = result
+        self._extra = extra_results or []
         self.prompt = prompt
 
     @property
@@ -83,15 +97,26 @@ class RequestOutput:
         return self._result.prompt_token_ids
 
     @property
+    def prompt_logprobs(self):
+        return self._result.prompt_logprobs
+
+    @property
     def outputs(self):
-        return list(self._result.outputs)
+        outs = list(self._result.outputs)
+        for i, r in enumerate(self._extra):
+            for o in r.outputs:
+                o.index = i + 1
+                outs.append(o)
+        return outs
 
     @property
     def finished(self) -> bool:
-        return self._result.finished
+        return self._result.finished and all(r.finished for r in self._extra)
 
     def result(self, timeout: Optional[float] = None) -> "RequestOutput":
         self._result.result(timeout)
+        for r in self._extra:
+            r.result(timeout)
         return self
 
     def __iter__(self):
@@ -379,7 +404,8 @@ class LLM:
             self.engine, self.kv_cache_manager,
             RequestScheduler(capacity, micro),
             tokenizer=self.tokenizer,
-            enable_overlap=not args.disable_overlap_scheduler,
+            enable_overlap=(not args.disable_overlap_scheduler
+                            and args.max_beam_width <= 1),
             stream_interval=args.stream_interval,
             pipeline_depth=args.max_inflight_steps,
             decode_multi_step=args.decode_multi_step,
@@ -419,8 +445,6 @@ class LLM:
         # SamplingParams across every prompt of a batch
         sampling_params = copy.copy(sampling_params) if sampling_params \
             else SamplingParams()
-        if sampling_params.n > 1:
-            raise NotImplementedError("n > 1 is not supported yet")
         if isinstance(prompt, str):
             if self.tokenizer is None:
                 raise ValueError("string prompt requires a tokenizer")
@@ -448,7 +472,23 @@ class LLM:
         req = LlmRequest(prompt_token_ids=token_ids,
                          sampling_params=sampling_params,
                          streaming=streaming)
-        return RequestOutput(self.executor.submit(req), prompt_text)
+        res = self.executor.submit(req)
+        extra = []
+        if sampling_params.n > 1 and not sampling_params.use_beam_search:
+            for j in range(1, sampling_params.n):
+                sib = copy.copy(sampling_params)
+                # the prompt's logprobs come with the first sample
+                sib.prompt_logprobs = None
+                if sib.seed:
+                    # seeded noise is a function of (seed, position):
+                    # fold the sample index into each sibling's seed so
+                    # that the samples part deterministically
+                    sib.seed = (sampling_params.seed * 0x9E3779B1
+                                + j) & 0x7FFFFFFF or 1
+                extra.append(self.executor.submit(LlmRequest(
+                    prompt_token_ids=list(token_ids),
+                    sampling_params=sib)))
+        return RequestOutput(res, prompt_text, extra_results=extra)
 
     # ------------------------------------------------------------------ #
     def shutdown(self):

@@ -234,6 +234,10 @@ class LlmArgs(StrictBaseModel):
 
     enable_chunked_prefill: bool = True
     disable_overlap_scheduler: bool = False
+    # widest beam a request may ask for; above 1 implies the sync
+    # scheduler (beam re-ranking needs each step's logprobs before the
+    # next step launches)
+    max_beam_width: int = 1
     # decode steps allowed in flight before the host consumes results
     # (the overlap scheduler generalized to depth N)
     max_inflight_steps: int = 4

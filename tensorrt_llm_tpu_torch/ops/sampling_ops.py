@@ -2,7 +2,9 @@
 
 Port of ``tensorrt_llm_tpu/ops/sampling_ops.py`` (``SamplingTensors``,
 ``apply_penalties``, ``mask_logits``, ``sample``, ``rejection_sample``,
-``top_logprobs``). One
+``top_logprobs``; ``NGRAM_MAX`` and ``ngram_ban_mask``; the embedding
+bias and the bad-word ban of the JAX engine's step, ``add_embedding_bias``
+and ``ban_token_ids``). One
 vectorized routine serves the whole batch with per-row parameters: the
 masking is one [B, V] sort, the draw a Gumbel argmax, and greedy rows take
 the plain argmax (bit-exact with the JAX version for equal logits).
@@ -263,3 +265,74 @@ def top_logprobs(logits: torch.Tensor, k: int
     lp = torch.log_softmax(logits.float(), dim=-1)
     vals, ids = torch.topk(lp, k, dim=-1)
     return vals, ids
+
+
+def add_embedding_bias(logits: torch.Tensor,        # f32[R, V]
+                       bias_rows: torch.Tensor      # f32[R, V]
+                       ) -> torch.Tensor:
+    """Per-row embedding bias folded into the logits (the JAX engine's
+    ``use_bias`` branch, model_engine.py:459-465)."""
+    return logits + bias_rows.to(logits.dtype)
+
+
+def ban_token_ids(logits: torch.Tensor,             # f32[R, V]
+                  bad_ids: torch.Tensor             # i32[R, NB], -1 = none
+                  ) -> torch.Tensor:
+    """Bad-word ban: each row's listed ids set to the float32 minimum,
+    the value the JAX engine's logits bitmask writes
+    (``jnp.where(mask, logits, finfo.min)``, model_engine.py:435-440).
+    The ids are scattered into V + 1 columns, the last absorbing the
+    padding, so nothing here syncs with the host."""
+    R, V = logits.shape
+    ids = bad_ids.long()
+    cols = torch.where((ids >= 0) & (ids < V), ids, V)
+    ban = torch.zeros((R, V + 1), dtype=torch.bool, device=logits.device)
+    ban.scatter_(1, cols, True)
+    return torch.where(ban[:, :V], NEG_INF, logits)
+
+
+NGRAM_MAX = 8  # largest supported no_repeat_ngram_size (static bound)
+
+
+def ngram_ban_mask(hist_rows: torch.Tensor,   # i32[S, L] per-row history
+                   ngram_n: torch.Tensor,     # i32[S] (0 = off)
+                   sample_idx: torch.Tensor,  # i32[S] index being sampled
+                   row_valid: torch.Tensor,   # bool[S]
+                   vocab_size: int) -> torch.Tensor:
+    """No-repeat-ngram ban (the JAX ``ngram_ban_mask``: ban any token v
+    whose appended n-gram already occurs in the sequence).
+
+    ``hist_rows[s, i]`` holds the token at sequence index ``i`` (prompt
+    and committed outputs, written by the engine). The token about to be
+    sampled lands at index ``sample_idx[s]``; its preceding (n-1)-gram is
+    ``hist[sample_idx-n+1 : sample_idx]``. For every earlier start j with
+    ``hist[j : j+n-1]`` equal to that gram, token ``hist[j+n-1]`` is
+    banned. Returns bool[S, vocab] (True = banned). The JAX version drops
+    the columns of non-hits by an out-of-range scatter (``mode="drop"``);
+    here they land in an extra column V that is sliced off, so the whole
+    mask is device ops without a host sync and a CUDA graph captures it."""
+    S, L = hist_rows.shape
+    NM = NGRAM_MAX
+    dev = hist_rows.device
+    n = ngram_n.long()[:, None]
+    at = sample_idx.long()[:, None]
+    pos = torch.arange(L, device=dev)[None, :]
+    # the trailing (n-1)-gram, gathered per row
+    i_iota = torch.arange(NM - 1, device=dev)[None, :]
+    pidx = (at - n + 1 + i_iota).clamp(0, L - 1)
+    pvalid = i_iota < (n - 1)
+    pref = torch.gather(hist_rows, 1, pidx)
+    # window match at every start j (shifted slice compares)
+    hp = F.pad(hist_rows, (0, NM), value=-1)
+    match = torch.ones((S, L), dtype=torch.bool, device=dev)
+    for i in range(NM - 1):
+        eq = hp[:, i:i + L] == pref[:, i:i + 1]
+        match &= eq | ~pvalid[:, i:i + 1]
+    # j must leave room for the full n-gram strictly before sample_idx
+    valid_j = (pos <= at - n) & (n > 0) & row_valid[:, None]
+    btok = torch.gather(hist_rows, 1, (pos + n - 1).clamp(0, L - 1)).long()
+    cols = torch.where(match & valid_j & (btok >= 0) & (btok < vocab_size),
+                       btok, vocab_size)
+    ban = torch.zeros((S, vocab_size + 1), dtype=torch.bool, device=dev)
+    ban.scatter_(1, cols, True)
+    return ban[:, :vocab_size]

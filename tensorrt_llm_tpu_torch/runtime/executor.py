@@ -36,12 +36,28 @@ and result processing accepts the longest matching prefix plus one bonus
 token, discards tokens past a stop, rolls the device count back and
 rewinds the rejected drafts' KV blocks.
 
+The sampling surface follows the JAX executor: the no-repeat-ngram
+history and the embedding bias land in the engine's slot state when a
+request takes its slot; bad-word ids ride each single step
+(``_apply_bad_words``); on the sync scheduler a logits processor sees
+its row's processed logits after the step and the row is re-sampled on
+the host (``_host_sample``, numpy), the result overriding the device's
+sample; beam search runs each beam as an engine row
+(runtime/beam_search.py), re-ranked after every step
+(``_update_beam_groups``); ``prompt_logprobs`` come from one
+teacher-forced forward (evaluate/perplexity.py) that this thread runs when
+it takes the request, since a launch from another thread during a CUDA
+graph capture would break the capture. Rows with bad words, a processor,
+beams or top-k logprobs leave K-step windows, and rows with bad words,
+an embedding bias, penalties (no-repeat-ngram among them), a processor
+or beams leave the fused speculative window.
+
 This executor is the JAX package's single-engine role only: it has no
 leader, follower or attention-DP roles, so their branches of the
-schedule are not ported. Not ported either: tree drafts, beam search,
-guided decoding, disaggregation, KV connectors, logits processors, hang
-detection, per-request error isolation, cancellation and iteration
-statistics.
+schedule are not ported. Not ported either: tree drafts, guided decoding,
+disaggregation, KV connectors, hang detection, per-request error
+isolation (a raising logits processor ends the loop, as every loop
+exception does), cancellation and iteration statistics.
 """
 from __future__ import annotations
 
@@ -56,6 +72,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..logger import logger
+from ..ops.sampling_ops import NGRAM_MAX
+from .beam_search import BeamGroup, make_beam_rows
 from .kv_cache_manager import KVCacheManager, NoFreeBlocksError
 from .model_engine import HostFuture, ModelEngine
 from .request import FinishReason, LlmRequest, LlmRequestState
@@ -93,6 +111,12 @@ class GenerationResult:
     @property
     def prompt_token_ids(self) -> List[int]:
         return self.request.prompt_token_ids
+
+    @property
+    def prompt_logprobs(self) -> Optional[list]:
+        """``SamplingParams.prompt_logprobs``'s per-position dicts (None
+        when not asked for)."""
+        return self.request.prompt_logprobs_result
 
     @property
     def finished(self) -> bool:
@@ -179,6 +203,37 @@ class _InflightBatch:
     planned: Optional[List[int]] = None   # multi/spec: per-row budget
     has_top_lp: bool = False
     drafts: Optional[List[List[int]]] = None  # single: each row's drafts
+    # single steps with logits processors: (batch rows, their processed
+    # logits rows on their way to the host)
+    logits_rows: Optional[tuple] = None
+
+
+def _host_sample(logits: np.ndarray, sp, step_idx: int):
+    """Host-side sampling for the logits-processor path (sync mode only),
+    the JAX executor's numpy routine unchanged, so that processor rows
+    sample the same token for the same seed."""
+    lf = logits.astype(np.float64)
+    if sp.greedy:
+        tok = int(np.argmax(lf))
+    else:
+        l = lf / max(sp.temperature, 1e-5)
+        if sp.top_k > 0:
+            kth = np.partition(l, -sp.top_k)[-sp.top_k]
+            l = np.where(l < kth, -np.inf, l)
+        if sp.top_p < 1.0:
+            order = np.argsort(-l)
+            p = np.exp(l[order] - l[order[0]])
+            p = p / p.sum()
+            keep = np.cumsum(p) - p <= sp.top_p
+            mask = np.full_like(l, -np.inf)
+            mask[order[keep]] = l[order[keep]]
+            l = mask
+        p = np.exp(l - np.max(l))
+        p = p / p.sum()
+        rng = np.random.default_rng(((sp.seed or 0) << 20) ^ step_idx)
+        tok = int(rng.choice(len(p), p=p))
+    logz = np.logaddexp.reduce(lf)
+    return tok, float(lf[tok] - logz)
 
 
 class PyExecutor:
@@ -236,6 +291,15 @@ class PyExecutor:
         self.drafted_rows = 0
         self.drafts_proposed = 0
         self.drafts_accepted = 0
+        # beam groups by parent request id (runtime/beam_search.py), and
+        # the rows that took another row's beam
+        self._beam_groups: Dict[int, "BeamGroup"] = {}
+        self.beam_forks = 0
+        # requests whose prompt_logprobs this thread computes when it takes
+        # them, and the teacher-forced forwards' count and wall time
+        self._prompt_lp_queue: "queue.Queue" = queue.Queue()
+        self.prompt_logprob_forwards = 0
+        self.prompt_logprob_ms = 0.0
 
         self._request_queue: "queue.Queue" = queue.Queue()
         self._results: Dict[int, GenerationResult] = {}
@@ -253,21 +317,54 @@ class PyExecutor:
     # API
     # ------------------------------------------------------------------ #
     def submit(self, request: LlmRequest) -> GenerationResult:
+        """Queue a request, with the JAX executor's checks
+        (executor.py:404-445): a logits processor and beam search need
+        the sync scheduler; no-repeat-ngram takes neither beams nor a
+        processor, and at most ``NGRAM_MAX`` tokens."""
         if self._shutdown.is_set():
             raise RuntimeError("executor is shut down")
         sp = request.sampling_params
-        if sp.use_beam_search or sp.logits_processor is not None or \
-                sp.guided_decoding is not None or sp.no_repeat_ngram_size \
-                or sp.bad_token_ids or sp.embedding_bias is not None:
+        if sp.guided_decoding is not None:
             raise NotImplementedError(
-                "beam search, logits processors, guided decoding, "
-                "no-repeat-ngram, bad words and embedding bias are not "
-                "supported by this package yet")
+                "guided decoding is not supported by this package yet")
+        if sp.logits_processor is not None and self.enable_overlap:
+            raise ValueError(
+                "logits_processor needs the sync scheduler: build the LLM "
+                "with disable_overlap_scheduler=True (reference gates "
+                "per-request processors the same way)")
+        if sp.no_repeat_ngram_size > 0:
+            if sp.use_beam_search:
+                raise ValueError(
+                    "no_repeat_ngram_size is not supported with beam "
+                    "search")
+            if sp.logits_processor is not None:
+                raise ValueError(
+                    "no_repeat_ngram_size cannot combine with a "
+                    "logits_processor (the in-graph history would record "
+                    "the pre-processor sample)")
+            if sp.no_repeat_ngram_size > NGRAM_MAX:
+                raise ValueError(
+                    f"no_repeat_ngram_size must be <= {NGRAM_MAX}")
+        if sp.use_beam_search and self.enable_overlap:
+            raise ValueError(
+                "beam search needs the sync scheduler: build the LLM "
+                "with disable_overlap_scheduler=True (or max_beam_width"
+                " > 1, which implies it)")
         res = GenerationResult(request, tokenizer=self.tokenizer,
                                streaming=request.streaming)
         with self._lock:
             self._results[request.request_id] = res
-        self._request_queue.put(request)
+        if sp.prompt_logprobs is not None:
+            self._prompt_lp_queue.put(request)
+        if sp.use_beam_search:
+            rows = make_beam_rows(request)
+            with self._lock:
+                self._beam_groups[request.request_id] = BeamGroup(request,
+                                                                  rows)
+            for row in rows:
+                self._request_queue.put(row)
+        else:
+            self._request_queue.put(request)
         self._work_event.set()
         return res
 
@@ -402,8 +499,17 @@ class PyExecutor:
                 seed = self._spec_seed_rows(batch)
                 if self.engine.sd is not None:
                     self.nonspec_decode_rows += len(batch.generation_requests)
-                outs = self.engine.forward_step(batch, use_penalties=use_pen,
-                                                collect_hidden=bool(seed[0]))
+                use_proc = any(r.sampling_params.logits_processor is not None
+                               for r in batch.all_requests)
+                outs = self.engine.forward_step(
+                    batch, use_penalties=use_pen,
+                    collect_hidden=bool(seed[0]),
+                    bad_ids=self._apply_bad_words(batch),
+                    collect_logits=use_proc)
+                logits_rows = None
+                if use_proc:
+                    rows, logits = self.engine._last_logits_rows
+                    logits_rows = (rows, HostFuture(logits))
                 if seed[0]:
                     # the draft head's pending pair, on the device
                     self.engine.spec_seed(outs[0], outs[-1], *seed)
@@ -411,7 +517,8 @@ class PyExecutor:
                 entries, samples, drafts = self._advance_device_state(batch)
                 self._inflight.append(_InflightBatch(
                     entries, samples, HostFuture(*outs),
-                    has_top_lp=len(outs) > 2, drafts=drafts))
+                    has_top_lp=len(outs) > 2, drafts=drafts,
+                    logits_rows=logits_rows))
             while len(self._inflight) >= self.pipeline_depth:
                 self._process_inflight()
         # drain at shutdown
@@ -488,6 +595,12 @@ class PyExecutor:
     def _fetch_new_requests(self):
         while True:
             try:
+                req = self._prompt_lp_queue.get_nowait()
+            except queue.Empty:
+                break
+            self._prompt_logprobs(req)
+        while True:
+            try:
                 req = self._request_queue.get_nowait()
             except queue.Empty:
                 break
@@ -496,10 +609,51 @@ class PyExecutor:
         while self.waiting and len(self._active) < self.max_active_requests:
             self._active.append(self.waiting.pop_request())
 
+    def _prompt_logprobs(self, req: LlmRequest) -> None:
+        """The request's ``prompt_logprobs``: one teacher-forced forward
+        over its prompt in a pool of its own (evaluate/perplexity.py),
+        run here on the executor thread, before the request is scheduled
+        (the JAX ``LLM.generate_async`` runs it on the caller's thread)."""
+        from ..evaluate.perplexity import prompt_logprob_dicts
+        t0 = time.perf_counter()
+        req.prompt_logprobs_result = prompt_logprob_dicts(
+            self.engine.model, self.engine.params, req.prompt_token_ids,
+            top_k=int(req.sampling_params.prompt_logprobs))
+        self.prompt_logprob_ms += (time.perf_counter() - t0) * 1e3
+        self.prompt_logprob_forwards += 1
+
+    def _beam_held(self) -> set:
+        """Ids of beam rows that sit out this iteration, so that a group's
+        rows step together: a group starts only when the free slots, less
+        those that partly started groups still need, hold all its rows,
+        and a group's decode rows wait while any of its rows is still in
+        its context phase. (The JAX executor admits beam rows one by one,
+        so a group wider than the free slots can start some rows while the
+        rest wait behind them.)"""
+        held: set = set()
+        free = len(self._free_slots)
+        fresh = []
+        for group in self._beam_groups.values():
+            waiting = [r for r in group.rows if r.seq_slot is None]
+            if len(waiting) == group.width:
+                fresh.append(group)
+                continue
+            free -= len(waiting)
+            if any(r.is_context_init_state for r in group.rows):
+                held.update(r.request_id for r in group.rows
+                            if not r.is_context_init_state)
+        for group in fresh:
+            if free >= group.width:
+                free -= group.width
+            else:
+                held.update(r.request_id for r in group.rows)
+        return held
+
     def _schedulable(self) -> List[LlmRequest]:
         out = []
+        held = self._beam_held() if self._beam_groups else ()
         for r in self._active:
-            if r.is_finished:
+            if r.is_finished or r.request_id in held:
                 continue
             if r.is_generation_in_progress and not r.is_context_init_state:
                 # length gate on device progress (overlap runs ahead)
@@ -553,6 +707,16 @@ class PyExecutor:
                     deferred.append(req)
                     continue
                 new_slots.append(req.seq_slot)
+                sp = req.sampling_params
+                if sp.no_repeat_ngram_size > 0:
+                    # seed the slot's token history with the context
+                    self.engine.write_history(req.seq_slot,
+                                              req.context_token_ids)
+                if sp.embedding_bias is not None or \
+                        self.engine.bias_pool is not None:
+                    # None clears a recycled slot's bias
+                    self.engine.set_embedding_bias(req.seq_slot,
+                                                   sp.embedding_bias)
                 if reused:
                     req.context_current_position = reused
                     req.perf.kv_cache_hit_tokens = reused
@@ -575,15 +739,18 @@ class PyExecutor:
 
     def _prepare_drafts(self, batch: ScheduledRequests) -> None:
         """Draft proposal for the decode rows (the JAX executor.py:
-        1572-1601): rows without penalties are draftable (the penalty
-        counts cannot advance mid-step); each row keeps at most its
+        1572-1601): rows without penalties (the penalty counts cannot
+        advance mid-step), a logits processor or beams are draftable;
+        each row keeps at most its
         remaining tokens less one, its room in ``max_seq_len`` and
         ``max_draft_len`` drafts. The scheduler counted one token per
         decode row, so drafts are also cut, in row order, to the tokens
         the step's largest bucket has left (the JAX engine raises past
         it instead)."""
         def draftable(r):
-            return not r.sampling_params.needs_penalties
+            sp = r.sampling_params
+            return not (sp.needs_penalties or r.is_beam_row
+                        or sp.logits_processor is not None)
         gen = [r for r in batch.generation_requests if draftable(r)]
         self.host_drafter.prepare_draft_tokens(gen)
         left = self.engine.token_buckets[-1] - len(batch.generation_requests)
@@ -611,7 +778,10 @@ class PyExecutor:
     # ------------------------------------------------------------------ #
     def _multi_step_ok(self, batch: ScheduledRequests) -> bool:
         """A pure-decode batch takes the K-step window unless a row needs
-        a per-token host look (top-k logprobs, too many stop ids)."""
+        a per-token host look (top-k logprobs, bad words, a logits
+        processor, beams, too many stop ids; the JAX _multi_rows_ok,
+        executor.py:1190-1205). No-repeat-ngram and embedding-bias rows
+        stay: the window carries their history and bias on the device."""
         if self.multi_step <= 1 or batch.context_requests:
             return False
         return self._multi_rows_ok(batch.generation_requests)
@@ -621,7 +791,9 @@ class PyExecutor:
             return False
         for r in gen_requests:
             sp = r.sampling_params
-            if sp.logprobs or len(sp.stop_id_list()) > self.engine.NSTOP:
+            if (sp.logprobs or sp.bad_token_ids or sp.use_beam_search
+                    or r.is_beam_row or sp.logits_processor is not None
+                    or len(sp.stop_id_list()) > self.engine.NSTOP):
                 return False
         return True
 
@@ -772,13 +944,17 @@ class PyExecutor:
         """Greedy and sampled rows qualify (seeded rows accept by
         position-keyed sample-and-match, unseeded ones by rejection
         sampling), top-k logprobs included, once a prefill step of this
-        engine seeded the row and while it has room. Penalty rows and rows
-        with more stop ids than the window checks do not. (Beam search,
-        bad words, embedding bias, logits processors, LoRA and guided
-        decoding, the JAX package's other reasons, are refused at submit
-        by this package.)"""
+        engine seeded the row and while it has room. Rows with penalties
+        (no-repeat-ngram among them), bad words, an embedding bias, a
+        logits processor or beams, and rows with more stop ids than the
+        window checks do not (the JAX executor.py:1385-1405; its other
+        reasons, LoRA and guided decoding, this package does not
+        serve)."""
         sp = r.sampling_params
-        if (sp.needs_penalties
+        if (sp.needs_penalties or sp.bad_token_ids
+                or sp.embedding_bias is not None
+                or sp.logits_processor is not None
+                or sp.use_beam_search or r.is_beam_row
                 or len(sp.stop_id_list()) > self.engine.NSTOP
                 or not r.spec_seeded):
             return False
@@ -948,12 +1124,34 @@ class PyExecutor:
         tokens = fetched[0].reshape(-1, G)         # [S, G] logits rows
         logprobs = fetched[1].reshape(-1, G)
         top_lp = fetched[2:] if batch.has_top_lp else None
+        proc_rows = {}
+        if batch.logits_rows is not None:
+            rows, fut = batch.logits_rows
+            proc_rows = dict(zip(rows, fut.get()[0]))
+            tokens = np.array(tokens)              # writable for overrides
+            logprobs = np.array(logprobs)
         finished: List[LlmRequest] = []
         for i, req in enumerate(batch.entries):
             if req.is_finished:
                 continue  # stopped while this step was in flight
             if not batch.samples_output[i]:
                 continue  # mid-context chunk: logits unused
+            if i in proc_rows:
+                # host logits-processor path (sync mode): process the
+                # row's logits, re-sample on the host and override the
+                # device's sample, so that everything downstream (stop
+                # checks, streaming, host_token_override) sees it
+                row = proc_rows[i].copy()
+                proc = req.sampling_params.logits_processor
+                try:
+                    out = proc(req.request_id, row,
+                               [list(req.output_token_ids)], None, None)
+                except TypeError:
+                    out = proc(row)
+                if out is not None:
+                    row = np.asarray(out, np.float64).reshape(-1)
+                tokens[i, 0], logprobs[i, 0] = _host_sample(
+                    row, req.sampling_params, req.num_output_tokens)
             drafts = batch.drafts[i] if batch.drafts else []
             # chain verification: the longest prefix of drafts equal to
             # the target's own samples, plus one bonus token
@@ -997,6 +1195,81 @@ class PyExecutor:
                 self._stream(req)
         for req in finished:
             self._finish_request(req)
+        self._update_beam_groups()
+
+    def _update_beam_groups(self) -> None:
+        """Re-rank each beam group whose rows all took a step since its
+        last update (the JAX executor.py:1939-1980); a finished group
+        hands its best hypothesis to the parent's result, the others as
+        extra outputs, and ends its own rows. (The JAX executor ends the
+        rows of the group its re-ranking loop visited last, so with two
+        groups in flight one group's end cancels the other's rows, and
+        that group never finishes.)"""
+        done = []
+        for pid, group in list(self._beam_groups.items()):
+            rows = group.rows
+            if any(r.is_context_init_state for r in rows):
+                continue
+            step = min(r.num_output_tokens for r in rows)
+            if step <= group.steps:
+                continue
+            group.steps = step
+            forks = group.forks
+            group.update(self.engine, self.kv)
+            self.beam_forks += group.forks - forks
+            if group.done:
+                done.append(pid)
+        for pid in done:
+            with self._lock:
+                group = self._beam_groups.pop(pid)
+            hyps = group.finalize()
+            parent, rows = group.parent, group.rows
+            # the parent never runs: its first and last token are its rows'
+            parent.perf.first_token_time = min(
+                r.perf.first_token_time for r in rows)
+            parent.perf.last_token_time = max(
+                r.perf.last_token_time for r in rows)
+            parent.output_token_ids = list(hyps[0].tokens) if hyps else []
+            parent.cum_logprob = hyps[0].score if hyps else 0.0
+            parent.finish_by_reason(
+                FinishReason.END_ID if (group.end_id is not None and hyps
+                                        and hyps[0].tokens and
+                                        hyps[0].tokens[-1] == group.end_id)
+                else FinishReason.LENGTH)
+            with self._lock:
+                res = self._results.pop(parent.request_id, None)
+            if res is not None:
+                res._on_finish()
+                # the runner-up hypotheses as extra outputs
+                for j, h in enumerate(hyps[1:], start=1):
+                    res.outputs.append(CompletionOutput(
+                        index=j, token_ids=list(h.tokens),
+                        cumulative_logprob=h.score,
+                        text=res._safe_decode(h.tokens),
+                        finish_reason=res.outputs[0].finish_reason))
+            for row in rows:
+                row.cancel()
+                self._finish_request(row)
+
+    def _apply_bad_words(self, batch: ScheduledRequests
+                         ) -> Optional[np.ndarray]:
+        """Each row's single-token ban list (``SamplingParams.
+        bad_token_ids``, ids inside the vocabulary) as i32[rows, n] with
+        -1 padding, or None when no row has one. The JAX executor folds
+        them into a [max_batch_size, V] bool mask copied up every step
+        (executor.py:1982-1996); the step here scatters the ids to the
+        same float32 minimum on the device."""
+        reqs = batch.context_requests + batch.generation_requests
+        V = self.engine.model.vocab_size
+        lists = [[t for t in (r.sampling_params.bad_token_ids or ())
+                  if 0 <= t < V] for r in reqs]
+        width = max((len(x) for x in lists), default=0)
+        if not width:
+            return None
+        out = np.full((len(reqs), width), -1, np.int32)
+        for i, ids in enumerate(lists):
+            out[i, :len(ids)] = ids
+        return out
 
     def _release_slot(self, req: LlmRequest) -> None:
         self._free_slots.append(req.seq_slot)

@@ -14,11 +14,15 @@ Semantics:
   * Eviction: priority-bucketed LRU over *leaf* blocks only.
   * Speculation: a verify step writes KV for its drafts
     (``add_draft_tokens``); rejected drafts' whole blocks go back to the
-    free list (``rewind_tokens``), and a sequence that carried drafts
-    stores only blocks whose every position holds an accepted token's KV
-    (positions below ``num_device_tokens``): its last position may still
-    hold a rejected draft's. (The JAX package stores by the token count
-    alone.)
+    free list (``rewind_tokens``).
+  * Storing: a sequence stores only blocks whose every position holds
+    KV the device wrote for one of its tokens (positions below
+    ``num_device_tokens``). A decode step writes the KV of the token it
+    consumes, so a sequence's last token never has KV: when it closes a
+    block, that block stays out of the tree; after drafts, the last
+    position may also hold a rejected draft's KV. (The JAX package
+    stores by the token count alone, so a later prompt that extends the
+    tokens reads the unwritten position.)
   * VSWA (sliding-window layers on a pool of their own): a sequence's
     sliding-pool blocks that no query still to be computed can see go
     back to the free list while it runs (``trim_prefix``); their ids stay
@@ -152,9 +156,6 @@ class KVCacheManager:
         self._lru_clock = 0
 
         self._seq_blocks: Dict[int, List[Block]] = {}
-        # sequences that carried drafts: their stored prefix stops at
-        # num_device_tokens
-        self._drafted: set = set()
         self._req_priority: Dict[int, int] = {}
         self._reusable_prio: Dict[int, int] = {}  # block_id -> bucket used
 
@@ -257,7 +258,6 @@ class KVCacheManager:
     def add_draft_tokens(self, request: LlmRequest, num_draft: int) -> None:
         """Pages for a verify step: the input token and ``num_draft``
         drafts behind it."""
-        self._drafted.add(request.request_id)
         self._grow(request, self._device_progress(request) + 1 + num_draft)
 
     def rewind_tokens(self, request: LlmRequest, num_tokens: int) -> None:
@@ -293,8 +293,6 @@ class KVCacheManager:
         chain = self._seq_blocks.pop(rid, None)
         if chain is None:
             return
-        drafted = rid in self._drafted
-        self._drafted.discard(rid)
         if any(isinstance(b, _TrimmedBlock) for b in chain):
             # the prefix's content is gone: release what is left directly
             for b in chain:
@@ -305,9 +303,8 @@ class KVCacheManager:
         store = self.enable_block_reuse if store_for_reuse is None \
             else store_for_reuse
         tokens = request.all_token_ids
-        # positions whose KV is an accepted token's
-        valid = min(len(tokens), request.num_device_tokens) if drafted \
-            else len(tokens)
+        # positions whose KV the device wrote for one of these tokens
+        valid = min(len(tokens), request.num_device_tokens)
         node: Optional[RadixNode] = self._root
         stored_hashes: List[int] = []
         phash: Optional[int] = None   # chained stable hash of the prefix
@@ -350,6 +347,15 @@ class KVCacheManager:
         if stored_hashes:
             self._push_event("stored", stored_hashes)
         self._set_ids(request, [])
+
+    def pool_block_ids(self, request: LlmRequest
+                       ) -> List[List[Optional[int]]]:
+        """The sequence's block ids page by page, one list per KV pool
+        (one here; ``VswaKvManager``: global, sliding), None where a block
+        was released while it runs (``trim_prefix``): what a beam fork
+        copies."""
+        return [[None if isinstance(b, _TrimmedBlock) else b.block_id
+                 for b in self._seq_blocks.get(request.request_id, ())]]
 
     def trim_prefix(self, request: LlmRequest, keep_from_block: int) -> int:
         """Release the sequence's blocks below ``keep_from_block`` to the
@@ -575,3 +581,6 @@ class VswaKvManager:
 
     def get_num_free_blocks(self) -> int:
         return self.g.get_num_free_blocks()
+
+    def pool_block_ids(self, req: LlmRequest) -> List[List[Optional[int]]]:
+        return self.g.pool_block_ids(req) + self.s.pool_block_ids(req)

@@ -13,8 +13,13 @@ step and window, the quantized KV cache's NVFP4 flag and
 ``calibrate_kv_scales``, and the verify step of host-orchestrated
 drafting: ``max_draft_len`` > 0 gives each decode row its drafts behind
 its input token and G = max_draft_len + 1 logits rows, sampled rows
-verifying by ``rejection_sample``) without guided decoding, LoRA, tree
-drafts, M-RoPE, MoE statistics and pipeline parallelism.
+verifying by ``rejection_sample``, and the sampling surface: the
+slot-indexed no-repeat-ngram history (``write_history``), the per-slot
+embedding bias pool (``set_embedding_bias``), the bad-word ban, the
+processed logits rows of the host logits-processor path
+(``collect_logits``, ``_last_logits_rows``) and the beam fork's page copy
+(``copy_pages``)) without guided decoding, LoRA, tree drafts, M-RoPE, MoE
+statistics and pipeline parallelism.
 MoE models run through the same steps and graphs: their routing is
 computed on the device, and no MoE shape depends on it (ops/moe.py).
 
@@ -51,11 +56,37 @@ from ..logger import logger
 from ..models.modeling_utils import DecoderModelForCausalLM
 from ..ops.attention import AttentionMetadata
 from ..ops.cuda import decode_attention as dec
-from ..ops.sampling_ops import (SamplingTensors, greedy_sample,
+from ..ops.sampling_ops import (NGRAM_MAX, SamplingTensors,
+                                add_embedding_bias, ban_token_ids,
+                                greedy_sample, ngram_ban_mask,
                                 rejection_sample, sample, top_logprobs)
 from . import spec_window
 from .cuda_graph import GraphRunner, Inputs, upload
 from .scheduler import ScheduledRequests
+
+
+@dataclasses.dataclass(frozen=True)
+class LogitsOps:
+    """What a step does to its logits between the forward and the sampler,
+    in the JAX engine's order (model_engine.py:435-480): the bad-word ban
+    (``nb``: the padded width of the rows' id lists, 0 = none), the
+    per-slot embedding bias, the no-repeat-ngram ban; and whether the
+    processed logits leave the step for the host logits processors
+    (``collect``). Part of every step, window and verify key, after the
+    penalty flag: each combination is a graph of its own."""
+    ngram: bool = False
+    bias: bool = False
+    nb: int = 0
+    collect: bool = False
+
+
+def _ngram_sizes(reqs, n: int) -> np.ndarray:
+    """Each row's no_repeat_ngram_size (at most ``NGRAM_MAX``), padded to
+    ``n`` rows with 0 (off)."""
+    out = np.zeros(n, np.int32)
+    for i, r in enumerate(reqs):
+        out[i] = min(r.sampling_params.no_repeat_ngram_size, NGRAM_MAX)
+    return out
 
 
 def _seeded(reqs, greedy: bool) -> bool:
@@ -202,6 +233,18 @@ class ModelEngine:
         self.prev_tokens = torch.zeros(self.max_batch_size + 1,
                                        dtype=torch.int64, device=self.device)
         self.token_counts: Optional[torch.Tensor] = None
+        # the sampling surface's slot-indexed state, allocated at first use
+        # (before any graph that reads it is captured) and then written in
+        # place only: the no-repeat-ngram token history [S + 1,
+        # max_seq_len] and the embedding bias pool [S + 1, V] (row S is the
+        # trash slot); their bytes are counted when the KV pool is sized
+        self.ngram_history: Optional[torch.Tensor] = None
+        self.bias_pool: Optional[torch.Tensor] = None
+        # collect_logits: (batch rows with a logits processor, their
+        # processed logits rows [n, V] on the device) of the last step
+        self._last_logits_rows = None
+        # beam forks: pages copied (every pool's)
+        self.pages_copied = 0
         # the fused speculative window's device state
         # (runtime/spec_window.py), set by ``enable_spec_device``
         self.sd: Optional[spec_window.SpecDeviceState] = None
@@ -316,19 +359,45 @@ class ModelEngine:
         acts = tokens * self.model.act_width_per_token() * 4
         return 2 * (acts + sampler)
 
+    def surface_state_bytes(self) -> int:
+        """Device bytes of the sampling surface's slot-indexed state, when
+        it is allocated: the no-repeat-ngram history (int32, max_seq_len
+        per slot) and the embedding bias pool (float32, vocab per slot),
+        the trash slot included."""
+        slots = self.max_batch_size + 1
+        return slots * 4 * (self.max_seq_len + self.model.vocab_size)
+
+    def prompt_logprob_bytes(self) -> int:
+        """Peak device bytes of one prompt-logprobs forward
+        (evaluate/perplexity.py) at ``max_input_len``: its own pool of
+        ceil(T / page) + 1 pages of every layer, and one chunk of
+        ``PROMPT_LOGPROB_CHUNK`` rows' float32 logits, their log-softmax
+        and its top-k scratch."""
+        from ..evaluate.perplexity import PROMPT_LOGPROB_CHUNK
+        ps = self.page_size
+        pages = -(-self.args.max_input_len // ps) + 1
+        per_page = self.bytes_per_kv_block * self.model.num_layers \
+            // self._pool_layers
+        rows = min(PROMPT_LOGPROB_CHUNK, self.args.max_input_len)
+        return pages * per_page + 3 * rows * self.model.vocab_size * 4
+
     def _default_num_pages(self) -> int:
         """KV pool sizing from free device memory, less 1 GiB, the graph
-        pool's reserve, the draft head's state and under VSWA the sliding
-        pool (a fixed 2 GiB budget on the CPU, the sliding pool
-        included)."""
+        pool's reserve, the draft head's state, the sampling surface's
+        slot state, the part of a prompt-logprobs forward that the memory
+        outside ``free_gpu_memory_fraction`` does not hold, and under VSWA
+        the sliding pool (a fixed 2 GiB budget on the CPU, the sliding
+        pool included)."""
         cfg = self.args.kv_cache_config
         if cfg.max_tokens is not None:
             return -(-cfg.max_tokens // self.page_size)
         bytes_per_page = self.bytes_per_kv_block
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
-            budget = int(free * cfg.free_gpu_memory_fraction) - (1 << 30) \
-                - self.graph_pool_reserve() - self.spec_state_bytes()
+            kept = int(free * cfg.free_gpu_memory_fraction)
+            budget = kept - (1 << 30) - self.graph_pool_reserve() \
+                - self.spec_state_bytes() - self.surface_state_bytes() \
+                - max(0, self.prompt_logprob_bytes() - (free - kept))
         else:
             budget = 2 << 30
         budget -= self.num_sw_pages * bytes_per_page
@@ -406,6 +475,105 @@ class ModelEngine:
         if self.token_counts is None or not slots:
             return
         self.token_counts[torch.as_tensor(slots, device=self.device)] = 0
+
+    # ------------------------------------------------------------------ #
+    # The sampling surface's slot state (the JAX engine's
+    # model_engine.py:199-245) and the beam fork's page copy (:1570-1582)
+    # ------------------------------------------------------------------ #
+    def write_history(self, slot: int, tokens) -> None:
+        """Upload a request's context into the slot's no-repeat-ngram
+        token history (steps and windows append their sampled tokens on
+        the device). The history is allocated at the first call, before
+        any graph that reads it exists, and written in place after."""
+        L = self.max_seq_len
+        if self.ngram_history is None:
+            self.ngram_history = torch.zeros(
+                (self.max_batch_size + 1, L), dtype=torch.int32,
+                device=self.device)
+        row = np.zeros(L, np.int32)
+        m = min(len(tokens), L)
+        row[:m] = np.asarray(tokens[:m], np.int32)
+        self.ngram_history[slot].copy_(torch.from_numpy(row))
+
+    def set_embedding_bias(self, slot: int, bias) -> None:
+        """Land a request's [vocab] logit bias in the slot's row of the
+        bias pool (None clears it: a recycled slot once the pool exists).
+        The pool is allocated at the first bias and written in place
+        after."""
+        V = self.model.vocab_size
+        if self.bias_pool is None:
+            if bias is None:
+                return
+            self.bias_pool = torch.zeros(
+                (self.max_batch_size + 1, V), dtype=torch.float32,
+                device=self.device)
+        vec = np.zeros(V, np.float32)
+        if bias is not None:
+            b = np.asarray(bias, np.float32).reshape(-1)
+            vec[:min(V, b.shape[0])] = b[:V]
+        self.bias_pool[slot].copy_(torch.from_numpy(vec))
+
+    @torch.no_grad()
+    def copy_pages(self, src: List[int], dst: List[int],
+                   pool: int = 0) -> None:
+        """Copy pages ``src`` onto pages ``dst`` of every layer of KV pool
+        ``pool`` (VSWA's sliding pool is 1) on the device, in one gather
+        and one scatter: every source is read before any destination is
+        written, so a fork that swaps two rows' pages copies what each
+        held (the JAX engine copies page by page, in order). The copy is
+        queued on the stream of the steps, so it lands before the next
+        step reads the pages."""
+        if not src:
+            return
+        pools = self.kv_pages if isinstance(self.kv_pages, tuple) \
+            else (self.kv_pages,)
+        kv = pools[pool]
+        s_idx = torch.as_tensor(src, dtype=torch.long).to(self.device)
+        d_idx = torch.as_tensor(dst, dtype=torch.long).to(self.device)
+        kv[:, d_idx] = kv[:, s_idx]
+        self.pages_copied += len(src)
+
+    def _logits_ops(self, logits: torch.Tensor, v, ops: LogitsOps,
+                    out_slots: torch.Tensor, sample_idx: torch.Tensor,
+                    valid: torch.Tensor, G: int = 1) -> torch.Tensor:
+        """The step's logits work between the forward and the sampler, in
+        the JAX engine's order: bad-word ban, embedding bias,
+        no-repeat-ngram ban (model_engine.py:435-480). ``out_slots`` /
+        ``sample_idx`` / ``valid``: each batch row's slot, the sequence
+        index its sample lands at, and whether it is a live row; with G
+        logits rows per batch row each row's mask repeats G times."""
+        if not (ops.nb or ops.bias or ops.ngram):
+            return logits
+        trash = self.max_batch_size
+        slot_idx = torch.where(valid, out_slots, trash).long()
+        if ops.nb:
+            bad = v["bad_ids"]
+            logits = ban_token_ids(
+                logits, bad.repeat_interleave(G, 0) if G > 1 else bad)
+        if ops.bias:
+            brow = self.bias_pool[slot_idx]
+            logits = add_embedding_bias(
+                logits, brow.repeat_interleave(G, 0) if G > 1 else brow)
+        if ops.ngram:
+            n = v["ngram_n"]
+            ban = ngram_ban_mask(self.ngram_history[slot_idx], n, sample_idx,
+                                 valid & (n > 0), logits.shape[-1])
+            if G > 1:
+                ban = ban.repeat_interleave(G, 0)
+            logits = torch.where(ban, torch.finfo(torch.float32).min,
+                                 logits)
+        return logits
+
+    def _append_history(self, tokens: torch.Tensor, out_slots: torch.Tensor,
+                        at: torch.Tensor, write: torch.Tensor) -> None:
+        """Each row's sampled token into its slot's history at sequence
+        index ``at`` where ``write`` (rows past the history's end, padding
+        and inactive rows go to the trash slot)."""
+        L = self.ngram_history.shape[1]
+        rows = torch.where(write & (at < L), out_slots,
+                           self.max_batch_size).long()
+        self.ngram_history[rows, at.clamp(0, L - 1).long()] = \
+            tokens.to(torch.int32)
 
     def _forward(self, tokens: torch.Tensor, metadata: AttentionMetadata,
                  collect_hidden: bool = False):
@@ -558,9 +726,12 @@ class ModelEngine:
     # ------------------------------------------------------------------ #
     # One step for one scheduled batch
     # ------------------------------------------------------------------ #
-    def _step_inputs(self, inp: StepInputs, reqs, T: int,
-                     greedy: bool) -> Inputs:
-        """A step's host inputs, padded to the token bucket T."""
+    def _step_inputs(self, inp: StepInputs, reqs, T: int, greedy: bool,
+                     ops: LogitsOps = LogitsOps(),
+                     bad_ids: Optional[np.ndarray] = None) -> Inputs:
+        """A step's host inputs, padded to the token bucket T; with
+        ``ops`` the rows' no_repeat_ngram_size and their bad-word ids
+        (``bad_ids`` i32[S, ops.nb], -1 padding; None: none)."""
         n, S = inp.num_tokens, self.max_batch_size
         tokens = np.zeros(T, np.int32)
         tokens[:n] = inp.token_ids
@@ -592,31 +763,61 @@ class ModelEngine:
                 SamplingTensors.rows(reqs, S)
             if self.G > 1:
                 inputs["draft_ids"] = inp.draft_ids
+        if ops.ngram:
+            inputs["ngram_n"] = _ngram_sizes(reqs, S)
+        if ops.nb:
+            bad = np.full((S, ops.nb), -1, np.int32)
+            if bad_ids is not None:
+                bad[:bad_ids.shape[0], :bad_ids.shape[1]] = bad_ids
+            inputs["bad_ids"] = bad
         return inputs
 
     def _step_key(self, T: int, bound: int, greedy: bool,
                   use_penalties: bool, k_lp: int,
-                  seeded: bool = False, hidden: bool = False) -> tuple:
+                  seeded: bool = False, hidden: bool = False,
+                  ops: LogitsOps = LogitsOps()) -> tuple:
         return ("step", T, self._splits(min(self.max_batch_size, T), bound),
-                greedy, use_penalties, k_lp, seeded, hidden)
+                greedy, use_penalties, ops, k_lp, seeded, hidden)
 
     def _verify_key(self, T: int, greedy: bool, use_penalties: bool,
-                    k_lp: int, seeded: bool = False) -> tuple:
-        return ("verify", T, self.G, greedy, use_penalties, k_lp, seeded)
+                    k_lp: int, seeded: bool = False,
+                    ops: LogitsOps = LogitsOps()) -> tuple:
+        return ("verify", T, self.G, greedy, use_penalties, ops, k_lp,
+                seeded)
+
+    def _logits_ops_of(self, reqs, bad_ids: Optional[np.ndarray],
+                       collect_logits: bool) -> LogitsOps:
+        """The logits work the rows ``reqs`` ask of a step: the history
+        and the bias pool only once a request has written them (the JAX
+        engine's ``use_ngram`` / ``use_bias``)."""
+        return LogitsOps(
+            ngram=self.ngram_history is not None and any(
+                r.sampling_params.no_repeat_ngram_size > 0 for r in reqs),
+            bias=self.bias_pool is not None and any(
+                r.sampling_params.embedding_bias is not None for r in reqs),
+            nb=0 if bad_ids is None else bad_ids.shape[1],
+            collect=collect_logits)
 
     @torch.no_grad()
     def forward_step(self, batch: ScheduledRequests,
                      use_penalties: bool = False,
-                     collect_hidden: bool = False):
+                     collect_hidden: bool = False,
+                     bad_ids: Optional[np.ndarray] = None,
+                     collect_logits: bool = False):
         """Launch one iteration. Returns device tensors indexed by logits
         row, G per batch row: (tokens, logprobs), then (top values, top
         ids) when a request asked for logprobs, then with
         ``collect_hidden`` the pre-final-norm hidden rows (which seed the
-        draft head, ``spec_seed``). A decode-only batch replays the graph
-        of its key, and so does a verify step (drafts behind decode rows,
-        no prompt tokens): its key fixes ``max_q_len`` = G, the prefill
-        kernel's grid, and rows with fewer drafts are data. A batch with
-        prompt tokens runs eagerly."""
+        draft head, ``spec_seed``). ``bad_ids`` (i32[rows, nb], -1
+        padding; of the executor's ``_apply_bad_words``) bans each row's
+        ids; with ``collect_logits`` the processed logits of the rows
+        whose request has a logits processor land in
+        ``_last_logits_rows`` (their batch rows and a [n, V] copy on the
+        device; the first logits row of each). A decode-only batch
+        replays the graph of its key, and so does a verify step (drafts
+        behind decode rows, no prompt tokens): its key fixes
+        ``max_q_len`` = G, the prefill kernel's grid, and rows with fewer
+        drafts are data. A batch with prompt tokens runs eagerly."""
         inp = self.prepare_inputs(batch)
         T = self._pick_bucket(inp.num_tokens)
         self.iter_counter += 1
@@ -626,7 +827,15 @@ class ModelEngine:
         k_lp = min(20, max((r.sampling_params.logprobs or 0)
                            for r in reqs) if reqs else 0)
         seeded = _seeded(reqs, greedy)
-        inputs = self._step_inputs(inp, reqs, T, greedy)
+        if bad_ids is not None:
+            # the id lists' width, bucketed to a power of two (>= 8), so
+            # that few widths make graphs of their own
+            nb = max(8, 1 << (max(1, bad_ids.shape[1]) - 1).bit_length())
+            pad = np.full((bad_ids.shape[0], nb), -1, np.int32)
+            pad[:, :bad_ids.shape[1]] = bad_ids
+            bad_ids = pad
+        ops = self._logits_ops_of(reqs, bad_ids, collect_logits)
+        inputs = self._step_inputs(inp, reqs, T, greedy, ops, bad_ids)
         self._counts(use_penalties)
         verify = bool((inp.draft_ids >= 0).any())
         self.verify_steps += verify
@@ -634,33 +843,47 @@ class ModelEngine:
             self.verify_steps_with_prompt += verify
             body = self._step_body(inp.max_q_len, inp.max_kv_len, greedy,
                                    use_penalties, k_lp, seeded,
-                                   collect_hidden)
-            return body(upload(inputs, self.device))
-        if verify:
+                                   collect_hidden, ops)
+            outs = body(upload(inputs, self.device))
+        elif verify:
             # the prefill kernel takes no KV hint: the page table's reach
             reach = self.pages_per_seq * self.page_size
-            return self.graphs.run(
-                self._verify_key(T, greedy, use_penalties, k_lp, seeded),
+            outs = self.graphs.run(
+                self._verify_key(T, greedy, use_penalties, k_lp, seeded,
+                                 ops),
                 inputs,
                 self._step_body(self.G, reach, greedy, use_penalties, k_lp,
-                                seeded),
+                                seeded, ops=ops),
                 inert=lambda: self._step_inputs(
                     self.prepare_inputs(ScheduledRequests()), [], T,
-                    greedy))
-        bound = self._kv_bound(inp.max_kv_len)
-        self.decode_steps += 1
-        return self.graphs.run(
-            self._step_key(T, bound, greedy, use_penalties, k_lp, seeded,
-                           collect_hidden),
-            inputs,
-            self._step_body(1, bound, greedy, use_penalties, k_lp, seeded,
-                            collect_hidden),
-            inert=lambda: self._step_inputs(
-                self.prepare_inputs(ScheduledRequests()), [], T, greedy))
+                    greedy, ops))
+        else:
+            bound = self._kv_bound(inp.max_kv_len)
+            self.decode_steps += 1
+            outs = self.graphs.run(
+                self._step_key(T, bound, greedy, use_penalties, k_lp, seeded,
+                               collect_hidden, ops),
+                inputs,
+                self._step_body(1, bound, greedy, use_penalties, k_lp,
+                                seeded, collect_hidden, ops),
+                inert=lambda: self._step_inputs(
+                    self.prepare_inputs(ScheduledRequests()), [], T, greedy,
+                    ops))
+        if not collect_logits:
+            return outs
+        # a copy of the processor rows: the graph's static output is
+        # rewritten by the key's next replay
+        rows = [i for i, r in enumerate(reqs)
+                if r.sampling_params.logits_processor is not None]
+        idx = torch.as_tensor([i * self.G for i in rows],
+                              dtype=torch.long).to(self.device)
+        self._last_logits_rows = (rows, outs[-1][idx])
+        return outs[:-1]
 
     def _step_body(self, max_q_len: int, kv_bound: int, greedy: bool,
                    use_penalties: bool, k_lp: int, seeded: bool = False,
-                   collect_hidden: bool = False):
+                   collect_hidden: bool = False,
+                   ops: LogitsOps = LogitsOps()):
         S, G = self.max_batch_size, self.G
 
         def body(v):
@@ -680,6 +903,8 @@ class ModelEngine:
             if collect_hidden:
                 logits, hidden = logits
             out_slots = v["out_slots"]
+            logits = self._logits_ops(logits, v, ops, out_slots,
+                                      v["kv_lens"], out_slots >= 0, G)
             st = None if greedy else SamplingTensors.from_rows(
                 v["samp_ints"], v["samp_floats"])
             seeds = v["seeds"] if seeded else None
@@ -702,10 +927,16 @@ class ModelEngine:
                                 torch.where(out_slots >= 0, out_slots,
                                             S).long(), use_penalties,
                                 draft_ids=drafts)
+            if ops.ngram:
+                # the sampled token lands at sequence index kv_lens
+                self._append_history(outs[0].view(-1, G)[:, 0], out_slots,
+                                     v["kv_lens"], out_slots >= 0)
             if k_lp:
                 outs += top_logprobs(logits, k_lp)
             if collect_hidden:
                 outs += (hidden,)
+            if ops.collect:
+                outs += (logits,)
             return outs
         return body
 
@@ -821,11 +1052,11 @@ class ModelEngine:
         return xs, carved
 
     def _window_inputs(self, reqs, Sb: int, K: int, greedy: bool,
-                       riders=None):
+                       riders=None, ops: LogitsOps = LogitsOps()):
         """Host inputs of a K-step window over the generation rows
         ``reqs`` padded to Sb rows, with the rider plan of ``riders``
-        (None: a window without the rider branch). Returns (inputs,
-        carved)."""
+        (None: a window without the rider branch) and with ``ops.ngram``
+        the rows' no_repeat_ngram_size. Returns (inputs, carved)."""
         P, NSTOP = self.pages_per_seq, self.NSTOP
         # rows: token_ids, prev_slot, start_pos, out_slots, max_new,
         # stop_gate; padding rows have no slot, so they never run
@@ -859,6 +1090,8 @@ class ModelEngine:
         if not greedy:
             inputs["samp_ints"], inputs["samp_floats"] = \
                 SamplingTensors.rows(reqs, Sb)
+        if ops.ngram:
+            inputs["ngram_n"] = _ngram_sizes(reqs, Sb)
         carved: List[int] = []
         if riders is not None:
             xs, carved = self.plan_ctx_chunks(riders, K)
@@ -867,11 +1100,12 @@ class ModelEngine:
 
     def _window_key(self, K: int, Sb: int, C: int, bound: int,
                     greedy: bool, use_penalties: bool,
-                    seeded: bool = False) -> tuple:
+                    seeded: bool = False,
+                    ops: LogitsOps = LogitsOps()) -> tuple:
         # a rider window's attention is the ragged kernel alone: no splits
         splits = 1 if C else self._splits(Sb, bound)
         return ("multi", K, Sb, C, self.mixed_ctx_seqs if C else 0, splits,
-                greedy, use_penalties, seeded)
+                greedy, use_penalties, ops, seeded)
 
     @torch.no_grad()
     def forward_multi_step(self, batch: ScheduledRequests, K: int,
@@ -892,7 +1126,11 @@ class ModelEngine:
             all(r.sampling_params.greedy for r in reqs)
         seeded = _seeded(reqs, greedy)
         riders = ctx_requests or None
-        inputs, carved = self._window_inputs(reqs, Sb, K, greedy, riders)
+        # rows with bad words or a logits processor never take a window
+        # (the executor's _multi_rows_ok)
+        ops = self._logits_ops_of(reqs, None, False)
+        inputs, carved = self._window_inputs(reqs, Sb, K, greedy, riders,
+                                             ops)
         C = self.mixed_ctx_tokens if riders else 0
         rows = inputs["rows"]
         # steps the host knows to be live: every row is done by its
@@ -910,16 +1148,18 @@ class ModelEngine:
         bound = self._kv_bound((int(rows[2].max()) if n else 0) + K)
         self._counts(use_penalties)
         out = self.graphs.run(
-            self._window_key(K, Sb, C, bound, greedy, use_penalties, seeded),
+            self._window_key(K, Sb, C, bound, greedy, use_penalties, seeded,
+                             ops),
             inputs,
-            self._window_body(K, Sb, C, bound, greedy, use_penalties, seeded),
+            self._window_body(K, Sb, C, bound, greedy, use_penalties, seeded,
+                              ops),
             inert=lambda: self._window_inputs(
-                [], Sb, K, greedy, [] if riders else None)[0])
+                [], Sb, K, greedy, [] if riders else None, ops)[0])
         return (*out, carved)
 
     def _window_body(self, K: int, Sb: int, C: int, kv_bound: int,
                      greedy: bool, use_penalties: bool,
-                     seeded: bool = False):
+                     seeded: bool = False, ops: LogitsOps = LogitsOps()):
         ps, P = self.page_size, self.pages_per_seq
         NC = self.mixed_ctx_seqs if C else 0
         oob = self.num_kv_pages * ps
@@ -946,6 +1186,9 @@ class ModelEngine:
             active = valid & (max_new > 0)
             emitted = torch.zeros(Sb, dtype=torch.int32, device=dev)
             toks, lps = [], []
+            slot_rows = torch.where(valid, out_slots, trash).long()
+            # the rows' bias, gathered once (the JAX window's ``brow``)
+            brow = self.bias_pool[slot_rows] if ops.bias else None
             for k in range(K):
                 kv_len = torch.where(valid, pos + 1, 1).to(torch.int32)
                 page_col = (pos // ps).clamp(0, P - 1).long()
@@ -990,10 +1233,22 @@ class ModelEngine:
                         num_seqs=num_seqs, slot_mapping=slot_map,
                         positions=pos, logits_indices=iota, max_q_len=1,
                         max_kv_len=kv_bound, **sw))
+                if brow is not None:
+                    logits = add_embedding_bias(logits, brow)
+                if ops.ngram:
+                    # the sampled token lands at pos + 1
+                    n = v["ngram_n"]
+                    ban = ngram_ban_mask(self.ngram_history[slot_rows], n,
+                                         pos + 1, active & (n > 0),
+                                         logits.shape[-1])
+                    logits = torch.where(
+                        ban, torch.finfo(torch.float32).min, logits)
                 tok, lp = self._sample(
                     logits, st, v["seeds"] if seeded else None, kv_len,
                     torch.where(active, out_slots, trash).long(),
                     use_penalties)
+                if ops.ngram:
+                    self._append_history(tok, out_slots, pos + 1, active)
                 new_emitted = emitted + active.to(torch.int32)
                 hit_stop = (tok[:, None] == stops).any(dim=1)
                 stopped = hit_stop & (new_emitted >= stop_gate)

@@ -1,7 +1,9 @@
 """Request state machine for the continuous-batching runtime.
 
 Port of ``tensorrt_llm_tpu/runtime/request.py`` (``LlmRequest`` /
-``LlmRequestState``), unchanged: it never touched a device.
+``LlmRequestState``), with the fields the JAX package sets on a request
+from outside it (``prompt_logprobs_result``) declared here, and the beam
+rows' marker ``is_beam_row``.
 Holds prompt/output tokens, scheduling state (context progress for chunked
 prefill), sampling params, and stop-criteria evaluation. Pure host object —
 nothing here touches a device.
@@ -85,6 +87,14 @@ class LlmRequest:
         self.output_token_ids: List[int] = []
         self.cum_logprob: float = 0.0
         self.logprobs: List[dict] = []          # per generated token: {tok: logprob}
+        # SamplingParams.prompt_logprobs: one entry per prompt position
+        # (None at position 0), filled by the executor when it takes the
+        # request (evaluate/perplexity.py)
+        self.prompt_logprobs_result: Optional[list] = None
+        # an engine row of a beam group (runtime/beam_search.py): the
+        # group forces its next token (host_token_override) and forks its
+        # KV; its own SamplingParams carry no beam search
+        self.is_beam_row: bool = False
         # speculative draft for the next step, filled by a host drafter on
         # the sync scheduler and verified in one step (the fused EAGLE3
         # window drafts on the device and leaves it empty); tree drafts'

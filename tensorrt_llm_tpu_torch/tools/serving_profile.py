@@ -58,7 +58,14 @@ Two workloads:
   run, Llama-3-8B as above, 32 requests of 512 prompt tokens, each a
   seeded random 128-token segment repeated 4 times (input-grounded
   copying traffic, what prompt lookup serves), 128 greedy tokens with
-  ``ignore_eos``, ``LLM`` defaults but prefix reuse off.
+  ``ignore_eos``, ``LLM`` defaults but prefix reuse off;
+- ``--surface``: ``chip_smoke.py``'s surface_serving run, Llama-3-8B as
+  above behind one ``LLM`` with ``max_beam_width=4`` (the sync
+  scheduler) and prefix reuse on, one mixed batch of the sampling
+  surface's options (``surface_workload``: seeded n = 4 sampling,
+  no-repeat-ngram with a bias and bad words, prompt logprobs, beam
+  search, a logits processor); the line then carries each class's rate,
+  TTFT and TPOT, and the surface's counters (``measure_surface``).
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms). ``--spec EAGLE3 --draft-len d`` serves the
@@ -92,6 +99,7 @@ K1 / K2 launches made while drafting (the rest are the target's).
         --draft-len 3
     python -m tensorrt_llm_tpu_torch.tools.serving_profile \
         --geometry llama3-8b-copy --spec DRAFT_TARGET --draft-len 4
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile --surface
 """
 from __future__ import annotations
 
@@ -102,6 +110,7 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 _DECODE = ("decode_tc_kernel", "decode_f32_simple_kernel",
@@ -349,9 +358,11 @@ def host_spec_summary(c: dict) -> dict:
 
 
 def _generate(llm, prompts, sp):
-    """All requests submitted at once; (wall seconds, outputs)."""
+    """All requests submitted at once (``sp``: one SamplingParams, or
+    one per prompt); (wall seconds, outputs)."""
+    sps = sp if isinstance(sp, list) else [sp] * len(prompts)
     t0 = time.monotonic()
-    futs = [llm.generate_async(p, sp) for p in prompts]
+    futs = [llm.generate_async(p, s) for p, s in zip(prompts, sps)]
     outs = [f.result() for f in futs]
     torch.cuda.synchronize()
     return time.monotonic() - t0, outs
@@ -431,6 +442,143 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
     return res
 
 
+class BanTokens:
+    """A numpy logits processor (one-argument form) that bans a token
+    set: its logits become -inf."""
+
+    def __init__(self, ids):
+        self.ids = np.asarray(sorted(ids), np.int64)
+
+    def __call__(self, logits):
+        logits[self.ids] = -np.inf
+        return logits
+
+
+def surface_workload():
+    """``chip_smoke.py``'s surface_serving traffic: Llama-3-8B (``LLAMA3_8B``,
+    seeded random weights) behind one ``LLM`` with ``max_beam_width=4``
+    (which implies the sync scheduler) and prefix reuse on, serving one
+    mixed OpenAI-style batch. Returns (config, LLM keyword arguments,
+    prompts, a SamplingParams per prompt, a class name per prompt, and
+    the bad-word ids and the processor's banned ids). The classes:
+
+    - ``sampled_n4``: 16 prompts of 512 tokens -> 128, temperature 0.8,
+      top_p 0.95, seeded, n = 4;
+    - ``ngram_bias_bad``: 8 x 512 -> 128 greedy with
+      ``no_repeat_ngram_size=3``, a seeded [V] embedding bias and 16
+      ``bad_token_ids``;
+    - ``prompt_logprobs``: 4 x 512 -> 16 greedy, ``prompt_logprobs=5``;
+    - ``beam``: 4 x 256 -> 64, beam search, ``best_of=4``, ``n=2``;
+    - ``processor``: 4 x 512 -> 64 greedy with a numpy logits processor
+      that bans 64 tokens (``BanTokens``).
+
+    No class stops at an end id: the model has no tokenizer here."""
+    from transformers import LlamaConfig
+
+    from tensorrt_llm_tpu_torch import SamplingParams
+    V = LLAMA3_8B["vocab_size"]
+    gen = torch.Generator().manual_seed(0)
+
+    def toks(n, length):
+        return torch.randint(0, V, (n, length), generator=gen).tolist()
+    bias = (torch.randn(V, generator=gen) * 2.0).numpy()
+    bad = torch.randint(0, V, (16,), generator=gen).tolist()
+    banned = sorted(set(torch.randint(0, V, (64,), generator=gen).tolist()))
+    prompts, sps, classes = [], [], []
+
+    def add(name, ps, make):
+        for i, p in enumerate(ps):
+            prompts.append(p)
+            sps.append(make(i))
+            classes.append(name)
+    add("sampled_n4", toks(16, 512), lambda i: SamplingParams(
+        max_tokens=128, temperature=0.8, top_p=0.95, seed=1000 + i, n=4))
+    add("ngram_bias_bad", toks(8, 512), lambda i: SamplingParams(
+        max_tokens=128, top_k=1, no_repeat_ngram_size=3,
+        embedding_bias=bias, bad_token_ids=bad))
+    add("prompt_logprobs", toks(4, 512), lambda i: SamplingParams(
+        max_tokens=16, top_k=1, prompt_logprobs=5))
+    add("beam", toks(4, 256), lambda i: SamplingParams(
+        max_tokens=64, use_beam_search=True, best_of=4, n=2))
+    add("processor", toks(4, 512), lambda i: SamplingParams(
+        max_tokens=64, top_k=1, logits_processor=BanTokens(banned)))
+    return (LlamaConfig(**LLAMA3_8B), dict(max_beam_width=4), prompts, sps,
+            classes, dict(bad_token_ids=bad, banned=banned))
+
+
+def surface_class_stats(outs, classes, wall: float) -> dict:
+    """Per class of ``surface_workload``: requests, the tokens returned
+    (every sample of n > 1, every hypothesis of a beam group), their rate
+    over the pass's wall time, and TTFT and TPOT (median, max) over the
+    class's engine requests (a beam group's from its rows' first and last
+    token)."""
+    per: dict = {}
+    for o, c in zip(outs, classes):
+        d = per.setdefault(c, dict(requests=0, tokens=0, ttft=[], tpot=[]))
+        d["requests"] += 1
+        d["tokens"] += sum(len(x.token_ids) for x in o.outputs)
+        for r in [o._result] + list(o._extra):
+            p = r.request.perf
+            n = len(r.outputs[0].token_ids)
+            d["ttft"].append((p.first_token_time - p.arrival_time) * 1e3)
+            d["tpot"].append((p.last_token_time - p.first_token_time)
+                             * 1e3 / max(1, n - 1))
+    return {c: dict(requests=d["requests"], output_tokens=d["tokens"],
+                    output_tok_per_s=d["tokens"] / wall,
+                    ttft_ms_median=statistics.median(d["ttft"]),
+                    ttft_ms_max=max(d["ttft"]),
+                    tpot_ms_median=statistics.median(d["tpot"]),
+                    tpot_ms_max=max(d["tpot"]))
+            for c, d in per.items()}
+
+
+def measure_surface(llm, prompts, sps, classes, profile: bool = True
+                    ) -> dict:
+    """Warm-up pass, timed pass (the kernels' launch counters zeroed right
+    before it and read right after), then (``profile``) a profiled pass of
+    the surface workload: per-class rates and latencies, and over the
+    timed pass the graphs captured and replayed, window steps against
+    single decode steps, the prompt-logprobs forwards and their mean
+    wall time, beam forks and pages copied, prefix-reuse blocks, the
+    device idle share (profiled pass) and peak allocated memory."""
+    kernels = kernel_modules()
+    _generate(llm, prompts, sps)
+    eng, ex, kv = llm.engine, llm.executor, llm.kv_cache_manager
+    c0 = dict(replays=eng.graphs.replays, decode=eng.decode_steps,
+              window=eng.window_steps, plp=ex.prompt_logprob_forwards,
+              plp_ms=ex.prompt_logprob_ms, forks=ex.beam_forks,
+              pages=eng.pages_copied, reused=kv.get_stats().reused_blocks)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    wall, outs = _generate(llm, prompts, sps)
+    launches = {k: mod.LAUNCHES for k, mod in kernels.items()}
+    plp = ex.prompt_logprob_forwards - c0["plp"]
+    res = dict(
+        device=torch.cuda.get_device_name(0),
+        nvidia_smi=subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
+        requests=len(prompts), wall_ms=wall * 1e3,
+        classes=surface_class_stats(outs, classes, wall),
+        launches=launches, graphs_captured=eng.graphs.num_graphs,
+        graph_replays=eng.graphs.replays - c0["replays"],
+        window_steps=eng.window_steps - c0["window"],
+        single_decode_steps=(eng.decode_steps - c0["decode"])
+        - (eng.window_steps - c0["window"]),
+        prompt_logprob_forwards=plp,
+        prompt_logprob_ms_mean=(ex.prompt_logprob_ms - c0["plp_ms"])
+        / max(1, plp),
+        beam_forks=ex.beam_forks - c0["forks"],
+        pages_copied=eng.pages_copied - c0["pages"],
+        reused_blocks=kv.get_stats().reused_blocks - c0["reused"],
+        peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    if profile:
+        res.update(_profiled(llm, prompts, sps, wall))
+    return res, outs
+
+
 def _spec_counts(llm):
     """The spec window's cumulative counters (None without speculation);
     ``measure`` reports their change over the timed pass."""
@@ -507,10 +655,22 @@ def main() -> None:
                     "DRAFT_TARGET / PARD: Llama-3.2-1B, random weights)")
     ap.add_argument("--draft-len", type=int, default=3,
                     help="drafts per spec iteration")
+    ap.add_argument("--surface", action="store_true",
+                    help="Llama-3-8B serving the sampling surface's mixed "
+                    "batch (surface_workload)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from tensorrt_llm_tpu_torch import LLM
+    if args.surface:
+        cfg, kwargs, prompts, sps, classes, _ = surface_workload()
+        llm = LLM(cfg, dtype="bfloat16", **kwargs)
+        try:
+            res, _ = measure_surface(llm, prompts, sps, classes)
+        finally:
+            llm.shutdown()
+        print(json.dumps(dict(surface=True, **res)))
+        return
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
     from tensorrt_llm_tpu_torch.quantization.mode import (KvCacheQuantAlgo,
                                                           QuantAlgo)

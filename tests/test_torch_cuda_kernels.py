@@ -1173,3 +1173,107 @@ def test_drafter_chain_graph_equals_eager(cuda, dtype):
     assert out["graph"][0] == out["eager"][0]
     assert torch.equal(out["graph"][1], out["eager"][1])
     assert out["graph"][2][dec.__name__] > 0 and not out["eager"][2]
+
+
+# ---- the sampling surface (no-repeat-ngram, bias, bad words, beams) -------
+
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_surface_options_replay_equals_eager(cuda, K, dtype):
+    """tinycode-llama serves one batch with no-repeat-ngram, an embedding
+    bias and bad words (each row its own mix) twice on the card: single
+    steps (K = 1) or K-step windows (K = 8; the bad-word rows take single
+    steps) replayed from CUDA graphs whose keys carry the options, and the
+    same steps run eagerly on the same static buffers. Tokens are
+    identical, and graphs with the options in their keys replayed."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.runtime.model_engine import LogitsOps
+    V = 256
+    bias = np.random.default_rng(0).standard_normal(V).astype(np.float32)
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"abcabcabcabc"), list(b"import torch\n"),
+               list(range(32, 90))]
+    sps = [SamplingParams(max_tokens=32, top_k=1, ignore_eos=True, **kw)
+           for kw in (dict(no_repeat_ngram_size=3),
+                      dict(embedding_bias=bias),
+                      dict(bad_token_ids=[32, 101, 10]),
+                      dict(no_repeat_ngram_size=2, embedding_bias=bias))]
+    runs = {}
+    for mode in ("graph", "eager"):
+        llm = LLM("tests/assets/tinycode-llama", device=cuda, dtype=dtype,
+                  skip_tokenizer_init=True, max_batch_size=4,
+                  max_input_len=128, max_seq_len=256, max_num_tokens=256,
+                  decode_multi_step=K, enable_warmup=mode == "graph",
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=4096))
+        llm.engine.graphs.capture = mode == "graph"
+        try:
+            futs = [llm.generate_async(p, sp) for p, sp in zip(prompts, sps)]
+            toks = [f.result().outputs[0].token_ids for f in futs]
+            ops = [[x for x in k if isinstance(x, LogitsOps)][0]
+                   for k, st in llm.engine.graphs.steps.items()
+                   if st.replays]
+            keys = [o for o in ops if o.ngram or o.bias or o.nb]
+            runs[mode] = (toks, keys)
+        finally:
+            llm.shutdown()
+    assert runs["graph"][0] == runs["eager"][0]
+    assert runs["graph"][1]
+    assert 32 not in runs["graph"][0][2] and 101 not in runs["graph"][0][2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_beam_fork_copy_pages_equals_host_copy(cuda, dtype):
+    """``ModelEngine.copy_pages`` on the card equals the same copy made on
+    a host copy of the pool, a swap of two pages among the copies."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig
+    llm = LLM("tests/assets/tinycode-llama", device=cuda, dtype=dtype,
+              skip_tokenizer_init=True, max_batch_size=2, max_input_len=64,
+              max_seq_len=128, enable_warmup=False,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=512))
+    try:
+        eng = llm.engine
+        g = torch.Generator(device=cuda).manual_seed(0)
+        eng.kv_pages.copy_(torch.randn(eng.kv_pages.shape, generator=g,
+                                       device=cuda).to(eng.kv_pages.dtype))
+        src, dst = [3, 7, 5, 9], [7, 3, 11, 12]
+        want = eng.kv_pages.cpu()
+        want[:, dst] = want[:, src].clone()
+        eng.copy_pages(src, dst)
+        assert torch.equal(eng.kv_pages.cpu(), want)
+        assert eng.pages_copied == 4
+    finally:
+        llm.shutdown()
+
+
+def test_beam_search_card_equals_cpu(cuda):
+    """Beam search (width 4, n 3) on tinycode-llama in float32: the card
+    (steps replayed from graphs, forks copied on the device) returns the
+    CPU's hypotheses, scores within 1e-4."""
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    sp = SamplingParams(max_tokens=12, use_beam_search=True, best_of=4, n=3,
+                        length_penalty=0.0)
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"import numpy as np\nimport ")]
+    outs = {}
+    for device in (cuda, "cpu"):
+        llm = LLM("tests/assets/tinycode-llama", device=device,
+                  dtype="float32", skip_tokenizer_init=True, max_batch_size=8,
+                  max_input_len=64, max_seq_len=128, max_beam_width=4,
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=1024))
+        try:
+            outs[str(device)] = [[(o.token_ids, o.cumulative_logprob)
+                                  for o in r.outputs]
+                                 for r in llm.generate(prompts, sp)]
+            if device != "cpu":
+                assert llm.engine.pages_copied > 0
+                assert llm.engine.graphs.replays > 0
+        finally:
+            llm.shutdown()
+    got, want = outs[str(cuda)], outs["cpu"]
+    for g_, w_ in zip(got, want):
+        assert [t for t, _ in g_] == [t for t, _ in w_]
+        np.testing.assert_allclose([s for _, s in g_], [s for _, s in w_],
+                                   rtol=0, atol=1e-4)

@@ -54,6 +54,10 @@ def test_block_manager_matches_jax(seed):
                 r.output_token_ids.append(tok)
         assert pair[0].kv_block_ids == pair[1].kv_block_ids
         assert mgrs[0].get_num_free_blocks() == mgrs[1].get_num_free_blocks()
+        for r in pair:
+            # as if every token's KV were written: the port stores only
+            # the positions below num_device_tokens
+            r.num_device_tokens = r.num_total_tokens
         live.append(pair)
     js, ts = mgrs[0].get_stats(), mgrs[1].get_stats()
     for f in ("free_blocks", "used_blocks", "reusable_blocks",

@@ -324,6 +324,77 @@ def test_rejected_draft_kv_is_never_stored_for_reuse():
     assert reused == [8, 4]
 
 
+def test_unwritten_last_token_is_never_stored_for_reuse():
+    """A sequence without drafts stops on a token that closes a page: a
+    decode step writes the KV of the token it consumes, so the last
+    token's KV was never written. The JAX manager stores the page by the
+    token count, and a later prompt that extends those tokens reuses it (8
+    tokens), reading the unwritten position; the port stores only pages
+    below ``num_device_tokens`` (4 tokens)."""
+    ps = 4
+    mgrs = (jkv.KVCacheManager(num_blocks=16, tokens_per_block=ps),
+            tkv.KVCacheManager(num_blocks=16, tokens_per_block=ps))
+    pair = _pair([10, 11, 12, 13, 14], 0)
+    for m, r in zip(mgrs, pair):
+        m.add_sequence(r)
+        r.num_device_tokens = 5          # the prefill wrote the prompt
+        r.output_token_ids.append(20)    # and sampled position 5
+    # two decode steps feed 20 and 21 (positions 5, 6) and sample 21, 22;
+    # 22 at position 7 closes the second page and the request stops
+    _verify_step(mgrs, pair, 0, 0, [21])
+    _verify_step(mgrs, pair, 0, 0, [22])
+    assert pair[1].all_token_ids == [10, 11, 12, 13, 14, 20, 21, 22]
+    assert pair[1].num_device_tokens == 7
+    for m, r in zip(mgrs, pair):
+        m.free_resources(r)
+    probe = _pair([10, 11, 12, 13, 14, 20, 21, 22, 40], 1)
+    reused = [m.add_sequence(r) for m, r in zip(mgrs, probe)]
+    assert reused == [8, 4]
+
+
+def test_prompt_extending_a_finished_request_is_served_right():
+    """End to end on tests/assets/tinycode-llama (float32, page 16, the
+    sync scheduler, one-token steps): request A's 13 prompt tokens and 3
+    outputs fill a page whose last position's KV was never written. B's
+    prompt extends A's tokens. With prefix reuse the port gives B the
+    tokens and logprobs (1e-5) of an engine without reuse; the JAX
+    ``LLM`` reuses the unwritten position and its logprobs for B part
+    from the run without reuse."""
+    import tensorrt_llm_tpu as J
+    import tensorrt_llm_tpu_torch as T
+    kw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+              max_input_len=64, max_seq_len=128, max_num_tokens=256,
+              decode_multi_step=1, disable_overlap_scheduler=True)
+    a = list(b"def f(x):\n  r")
+    assert len(a) == 13
+    runs = {}
+    for pkg, mod in (("jax", J), ("torch", T)):
+        for reuse in (True, False):
+            extra = {} if pkg == "jax" else dict(device="cpu")
+            llm = mod.LLM(model=CKPT, **extra, **kw,
+                          kv_cache_config=mod.KvCacheConfig(
+                              tokens_per_block=16, max_tokens=1024,
+                              enable_block_reuse=reuse))
+            try:
+                sp = mod.SamplingParams(max_tokens=3, top_k=1,
+                                        ignore_eos=True)
+                out_a = llm.generate(a, sp).outputs[0].token_ids
+                b = a + out_a + [32, 40]
+                o = llm.generate(b, mod.SamplingParams(
+                    max_tokens=6, top_k=1, ignore_eos=True,
+                    logprobs=1)).outputs[0]
+                runs[pkg, reuse] = (o.token_ids, [
+                    v for d in o.logprobs for v in d.values()])
+            finally:
+                llm.shutdown()
+    got, want = runs["torch", True], runs["torch", False]
+    assert got[0] == want[0] == runs["jax", False][0]
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+    jax_reuse, jax_fresh = runs["jax", True], runs["jax", False]
+    assert np.abs(np.asarray(jax_reuse[1]) -
+                  np.asarray(jax_fresh[1])).max() > 1e-3
+
+
 # ---- the engine ----------------------------------------------------------
 
 def _engines(d=3, **kw):
