@@ -203,16 +203,17 @@ the run on error:
      bf16 pool, 32 prompts of 512 tokens, each a seeded random 128-token
      segment repeated 4 times, 128 greedy tokens with ``ignore_eos``,
      ``LLM`` defaults but prefix reuse off (tools/serving_profile.py
-     ``--geometry llama3-8b-copy [--spec NGRAM|DRAFT_TARGET]``): without
-     speculation, with NGRAM (d = 4) and with DRAFT_TARGET (d = 4),
-     drafting with Llama-3.2-1B from its published config (seeded random
-     weights: acceptance near 0, so the run measures what drafting
-     costs). Per run: tok/s, TTFT and TPOT (median, max), idle share, GPU
+     ``--geometry llama3-8b-copy [--spec DRAFT_TARGET]``): without
+     speculation and with DRAFT_TARGET (d = 4), drafting with
+     Llama-3.2-1B from its published config (seeded random weights:
+     acceptance near 0, so the run measures what drafting costs); the
+     NGRAM run (``--spec NGRAM``) is left out for the script's time
+     budget. Per run: tok/s, TTFT and TPOT (median, max), idle share, GPU
      time by class, the drafting calls' device time, accepted drafts per
      verify step, verify steps replayed and run eagerly (0 without prompt
      tokens, or the phase fails), K1 / K2 launches of the target and of
      the drafter (both must launch both), peak allocated memory; the
-     greedy streams of the two spec runs against the first
+     greedy stream of the spec run against the first
      (``_compare_streams``);
  21. host_spec_kernels: K1 and K2 at the new shapes of that path:
      ``verify_host_8b`` (K2, 32 sequences x 5 queries at 513-640 KV, 32 x
@@ -244,12 +245,48 @@ the run on error:
      token, no bad word and no repeated 3-gram appears in that class, no
      banned token in the processor's class, and K1 and K2 launched.
 
+ 24. guided_parity: tests/assets/tinycode-llama in float32 with
+     byte-level token bytes (``guided_token_bytes="byte"``, EOS token 0,
+     ``end_id=0``) and a 16,384-state pool, the card against the CPU,
+     with the device guided backend on the overlap scheduler (K = 8) and
+     the host one (``dfa-host``, the sync scheduler): regex, JSON
+     schema, ``json_object``, EBNF and structural-tag requests, a mixed
+     batch with unguided rows, and beside 3 guided requests an unguided
+     request aborted mid-window and one whose grammar cannot fit the
+     pool (device) or one whose logits processor raises (host). Tokens
+     identical card/CPU and backend/backend, every guided output a live
+     prefix of its grammar (accepted where it ended on EOS), guided
+     windows replayed on the card; the aborted request CANCELLED, the
+     oversize one failed naming the pool, the poison one a
+     ``RequestError``, the requests beside them finished;
+ 25. guided_serving: Llama-3-8B at its published width and depth on a
+     bf16 pool (seeded random weights), one ``LLM`` with the device
+     guided backend, byte-level token bytes, a 16,384-state pool, prefix
+     reuse off, otherwise defaults (overlap depth 4, K = 8, 64 rows),
+     serving one mixed batch (tools/serving_profile.py ``--guided``,
+     ``guided_workload``): 16 x 512 -> 128 JSON-schema requests, 16
+     ID-regex ones, 8 EBNF arithmetic, 8 ``json_object``, 16 unguided,
+     8 unguided aborted through ``LLM.abort_request`` at 16 tokens, and
+     one regex of 20,001 DFA states; per class tok/s, TTFT and TPOT
+     (median, max), each grammar's build ms, pool states in use, guided
+     windows against single steps, graph replays, K1 / K2 launches, idle
+     share, GPU time by class, one step's grammar work (mask and walk)
+     and its share of GPU time, free KV blocks before and after,
+     ``get_stats`` length and peak memory. Fails unless each guided
+     output that ended on EOS matches its grammar in full (``json.loads``
+     and the schema's fields; ``re.fullmatch``) and each that hit its
+     length is a live prefix, the regex class ended on EOS, the aborted
+     requests ended CANCELLED and the oversize one failed naming the
+     pool while the rest finished, free blocks returned and every pool
+     segment's refcount is 0, guided rows rode replayed windows, and K1
+     and K2 launched.
+
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results (launches from the bench-settings run, or the
 W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's,
 moe_serving's, gemma_serving's, kv_serving's, host_spec_serving's
-DRAFT_TARGET (as the target's and the drafter's) and surface_serving's
-timed passes) and
+DRAFT_TARGET (as the target's and the drafter's), surface_serving's and
+guided_serving's timed passes) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -2445,15 +2482,16 @@ def host_spec_serving_phase() -> dict:
     weights), 32 prompts of 512 tokens (a seeded 128-token segment
     repeated 4 times) -> 128 greedy tokens, ``LLM`` defaults but prefix
     reuse off (tools/serving_profile.py ``--geometry llama3-8b-copy``):
-    without speculation, with NGRAM (d = 4) and with DRAFT_TARGET (d = 4)
-    drafting with Llama-3.2-1B (published config, seeded random weights).
-    Each run: ``measure`` (warm-up, timed pass with the launch counters
+    without speculation and with DRAFT_TARGET (d = 4) drafting with
+    Llama-3.2-1B (published config, seeded random weights); NGRAM
+    (``--spec NGRAM``) is left out for the script's time budget. Each
+    run: ``measure`` (warm-up, timed pass with the launch counters
     zeroed right before and read right after, profiled pass), peak
-    allocated memory; the spec runs also the drafters' counters, verify
+    allocated memory; the spec run also the drafter's counters, verify
     steps replayed and run eagerly, K1 / K2 launches of target and
-    drafter, and their greedy streams against the run without speculation
+    drafter, and its greedy streams against the run without speculation
     (``_compare_streams``, top-2 logprobs of that run: the run without
-    speculation decodes in K-step windows, the spec runs in single steps
+    speculation decodes in K-step windows, the spec run in single steps
     and verify steps, whose bf16 sums round in another order). Fails on a
     short output, an eager verify step without prompt tokens, a kernel
     the target or the drafter never launched, or a parting the run
@@ -2468,8 +2506,7 @@ def host_spec_serving_phase() -> dict:
     sp_lp = SamplingParams(max_tokens=sp.max_tokens, top_k=1,
                            ignore_eos=True, logprobs=2)
     runs, streams = {}, {}
-    for label, mode in (("none", None), ("NGRAM", "NGRAM"),
-                        ("DRAFT_TARGET", "DRAFT_TARGET")):
+    for label, mode in (("none", None), ("DRAFT_TARGET", "DRAFT_TARGET")):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2710,6 +2747,337 @@ def surface_serving_phase() -> dict:
     return res
 
 
+GUIDED_SPEC = {"structures": [{"begin": "<f>", "content_regex": "[0-9]+",
+                                "end": "</f>"}], "triggers": ["<f>"]}
+
+
+def _guided_params(kind: str):
+    """A ``GuidedDecodingParams`` of each grammar kind guided_parity
+    serves (the grammars of tools/serving_profile.py's guided_workload,
+    and a structural tag)."""
+    from tensorrt_llm_tpu_torch import GuidedDecodingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    return GuidedDecodingParams(**dict(
+        regex=dict(regex=sprof.GUIDED_REGEX),
+        json=dict(json=sprof.GUIDED_SCHEMA),
+        json_object=dict(json_object=True),
+        ebnf=dict(grammar=sprof.GUIDED_EBNF),
+        structural=dict(structural_tag=json.dumps(GUIDED_SPEC)))[kind])
+
+
+def _guided_walk(tokens, gp, factory):
+    """(alive, accepted, ended_on_eos) of byte-level ``tokens`` under the
+    grammar of ``gp``: its DFA walked over the bytes up to the first EOS
+    (token 0); ``alive``: the walk never died, ``accepted``: it ends in an
+    accepting state."""
+    _, dfa = factory.compile_dfa(gp)
+    state = dfa.start
+    eos = 0 in tokens
+    for t in tokens[:tokens.index(0) if eos else len(tokens)]:
+        if t >= 256:
+            return False, False, eos
+        state = int(dfa.table[state, t])
+        if state < 0:
+            return False, False, eos
+    return True, bool(dfa.accepting[state]), eos
+
+
+def _guided_factory():
+    from tensorrt_llm_tpu_torch.guided.grammar_matcher import (
+        MatcherFactory, TokenTable)
+    return MatcherFactory(TokenTable([bytes([i]) for i in range(256)],
+                                     eos_token_id=0))
+
+
+def _guided_runs(llm, device_backend: bool) -> dict:
+    """guided_parity's requests through one ``LLM``: tokens by case. Every
+    grammar kind over 3 prompts, a mixed batch of guided and unguided
+    rows queued before admission, and on the device backend one batch
+    holding a request aborted mid-window and one whose grammar cannot fit
+    the pool beside 3 guided requests; on the host backend (sync) one
+    batch holding a request whose logits processor raises beside 3
+    guided requests."""
+    from tensorrt_llm_tpu_torch import SamplingParams
+    from tensorrt_llm_tpu_torch.runtime.error_isolation import RequestError
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b'{"name": '), list(b"x = 1\ny = ")]
+    kinds = ("regex", "json", "json_object", "ebnf", "structural")
+
+    def sp(kind=None, **kw):
+        return SamplingParams(max_tokens=48, top_k=1, end_id=0,
+                              ignore_eos=kind is None,
+                              guided_decoding=_guided_params(kind)
+                              if kind else None, **kw)
+    out = {k: [o.outputs[0].token_ids
+               for o in llm.generate(prompts, sp(k))] for k in kinds}
+    mixed = [sp("regex"), sp(), sp("json"), sp(), sp("ebnf"), sp()]
+    out["mixed"] = _queued_generate(llm, prompts * 2, mixed)
+    side = [sp("json"), sp("regex"), sp("ebnf")]
+    ends = {}
+    if device_backend:
+        from tensorrt_llm_tpu_torch import GuidedDecodingParams
+        futs = [llm.generate_async(p, s) for p, s in zip(prompts, side)]
+        long = llm.generate_async(prompts[0], SamplingParams(
+            max_tokens=200, top_k=1, ignore_eos=True))
+        big = llm.generate_async(prompts[1], SamplingParams(
+            max_tokens=8, top_k=1, end_id=0, guided_decoding=
+            GuidedDecodingParams(regex=sprof.GUIDED_OVERSIZE)))
+        while long._result.request.num_output_tokens < 8 and \
+                not long.finished:
+            time.sleep(0.001)
+        llm.abort_request(long.request_id)
+        r = long.result(timeout=600)
+        ends["aborted"] = (r.outputs[0].finish_reason,
+                           len(r.outputs[0].token_ids))
+        try:
+            big.result(timeout=600)
+            ends["oversize"] = "finished"
+        except Exception as e:
+            ends["oversize"] = f"{type(e).__name__}: {e}"[:200]
+    else:
+        def poison(*a, **kw):
+            raise ValueError("poison processor")
+        futs = [llm.generate_async(p, s) for p, s in zip(prompts, side)]
+        bad = llm.generate_async(prompts[2], SamplingParams(
+            max_tokens=8, top_k=1, logits_processor=poison))
+        try:
+            bad.result(timeout=600)
+            ends["poison"] = "finished"
+        except RequestError as e:
+            ends["poison"] = f"RequestError: {e}"[:200]
+    out["side"] = [f.result(timeout=600).outputs[0].token_ids for f in futs]
+    out["ends"] = ends
+    return out
+
+
+def guided_parity_phase(repo: Path) -> dict:
+    """Guided decoding on the parity checkpoint (tests/assets/tinycode-llama,
+    float32, ``guided_token_bytes="byte"``, ``end_id=0``), the card
+    against the CPU: the device backend on the overlap scheduler (K = 8,
+    windows replayed) and the host backend (``dfa-host``, the sync
+    scheduler), each over regex, JSON schema, ``json_object``, EBNF and a
+    structural tag, a mixed batch with unguided rows, and one batch with
+    a request aborted mid-window and one whose grammar cannot fit the
+    pool (device) or whose logits processor raises (host). The pool holds
+    16,384 states (``json_object`` needs 10,976). Tokens must be
+    identical card/CPU and backend/backend, every guided output a live
+    prefix of its grammar (accepted where it ended on EOS), guided
+    windows replayed on the card, and the aborted, oversize and poison
+    requests must end alone (CANCELLED; an error naming the pool; a
+    ``RequestError``) while the requests beside them finish."""
+    import os
+
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    ckpt = repo / "tests" / "assets" / "tinycode-llama"
+    os.environ["TLLM_TPU_GUIDED_POOL_STATES"] = str(sprof.GUIDED_POOL_STATES)
+    runs, stats = {}, {}
+    for backend in ("dfa", "dfa-host"):
+        for device in ("cuda", "cpu"):
+            llm = LLM(ckpt, device=device, dtype="float32",
+                      skip_tokenizer_init=True, max_batch_size=8,
+                      max_input_len=128, max_seq_len=320,
+                      max_num_tokens=512, guided_decoding_backend=backend,
+                      guided_token_bytes="byte",
+                      disable_overlap_scheduler=backend == "dfa-host",
+                      kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=8192))
+            try:
+                _zero_launches()
+                runs[backend, device] = _guided_runs(llm, backend == "dfa")
+                if device == "cuda":
+                    eng = llm.engine
+                    stats[backend] = dict(
+                        launches=_read_launches(),
+                        graph_replays=eng.graphs.replays,
+                        guided_window_replays=sprof._guided_window_replays(
+                            eng),
+                        guided_windows=eng.guided_windows,
+                        guided_single_steps=eng.guided_steps,
+                        overlap=llm.executor.enable_overlap,
+                        stats_len=len(llm.get_stats()))
+            finally:
+                llm.shutdown()
+    factory = _guided_factory()
+    faults = []
+    ref = runs["dfa", "cpu"]
+    for key, got in runs.items():
+        for case in ("regex", "json", "json_object", "ebnf", "structural",
+                     "mixed", "side"):
+            if got[case] != ref[case]:
+                faults.append(f"{key} {case}: tokens differ from dfa/cpu")
+    for case in ("regex", "json", "json_object", "ebnf", "structural"):
+        for toks in ref[case]:
+            alive, acc, eos = _guided_walk(toks, _guided_params(case),
+                                           factory)
+            if not alive or (eos and not acc):
+                faults.append(f"{case}: {bytes(t for t in toks if t < 256)}"
+                              " is not accepted by its grammar")
+    for (backend, device), got in runs.items():
+        e = got["ends"]
+        if backend == "dfa":
+            if e["aborted"][0] != "cancelled" or e["aborted"][1] >= 200:
+                faults.append(f"{device}: abort did not cancel: {e}")
+            if "pool" not in e["oversize"]:
+                faults.append(f"{device}: oversize grammar: {e}")
+        elif not e["poison"].startswith("RequestError"):
+            faults.append(f"{device}: poison processor: {e}")
+    s = stats["dfa"]
+    if not s["overlap"] or not s["guided_window_replays"]:
+        faults.append(f"device backend: no guided window replayed: {s}")
+    if stats["dfa-host"]["overlap"]:
+        faults.append("host backend on the overlap scheduler")
+    r = dict(cases=["regex", "json", "json_object", "ebnf", "structural",
+                    "mixed", "side"], ends={f"{b}/{d}": v["ends"]
+                                            for (b, d), v in runs.items()},
+             card=stats, faults=faults)
+    emit({"phase": "guided_parity", **r})
+    if faults:
+        raise AssertionError(f"guided_parity: {faults}")
+    return r
+
+
+def _json_fields(text: bytes):
+    """(the parsed JSON value, escapes the grammar admitted that JSON does
+    not). The JSON grammars' strings admit a backslash before any byte
+    (``\\.``, the JAX package's ``_STRING``), so such escapes are doubled
+    before ``json.loads``; bytes are read as latin-1, one char each."""
+    import re
+    s = text.decode("latin-1")
+    bad = 0
+
+    def fix(m):
+        nonlocal bad
+        if m.group(1) in '"\\/bfnrt' or re.fullmatch(r"u[0-9a-fA-F]{4}",
+                                                      m.group(0)[1:]):
+            return m.group(0)
+        bad += 1
+        return "\\\\" + m.group(0)[1:]
+    s = re.sub(r'\\(u[0-9a-fA-F]{4}|.)', fix, s, flags=re.S)
+    return json.loads(s), bad
+
+
+def _guided_faults(outs, sps, classes) -> tuple:
+    """guided_serving's checks of each output: one that ended on EOS
+    matches its grammar in full (JSON schema: ``json.loads`` and the
+    schema's fields; regex and EBNF: ``re.fullmatch`` of the pattern;
+    ``json_object``: ``json.loads`` gives an object), one that hit
+    max_tokens is a live prefix of it; the regex class ends on EOS;
+    ``aborted`` ends CANCELLED, ``oversize`` fails naming the pool, the
+    rest finish. Returns (faults, invalid JSON escapes seen)."""
+    import re
+
+    from tensorrt_llm_tpu_torch.guided.ebnf import ebnf_to_regex
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    factory = _guided_factory()
+    faults, escapes = [], 0
+    schema = sprof.GUIDED_SCHEMA["properties"]
+    for o, sp, c in zip(outs, sps, classes):
+        if c == "oversize":
+            if not isinstance(o, Exception) or "pool" not in str(o):
+                faults.append(f"oversize: {o!r}"[:200])
+            continue
+        if isinstance(o, Exception):
+            faults.append(f"{c}: failed: {o!r}"[:200])
+            continue
+        out = o.outputs[0]
+        if c == "aborted":
+            if out.finish_reason != "cancelled":
+                faults.append(f"aborted: ended {out.finish_reason}")
+            continue
+        if out.finish_reason not in ("end_id", "length"):
+            faults.append(f"{c}: ended {out.finish_reason}")
+        gp = sp.guided_decoding
+        if gp is None:
+            continue
+        toks = out.token_ids
+        alive, acc, eos = _guided_walk(toks, gp, factory)
+        if not alive or (eos and not acc):
+            faults.append(f"{c}: not a live prefix / not accepted")
+            continue
+        if c == "regex" and not eos:
+            faults.append("regex: did not end on EOS")
+        if not eos:
+            continue
+        text = bytes(toks[:toks.index(0)])
+        try:
+            if c == "regex":
+                ok = re.fullmatch(sprof.GUIDED_REGEX, text.decode("latin-1"))
+            elif c == "ebnf":
+                ok = re.fullmatch(ebnf_to_regex(sprof.GUIDED_EBNF),
+                                  text.decode("latin-1"), flags=re.S)
+            else:
+                val, bad = _json_fields(text)
+                escapes += bad
+                ok = isinstance(val, dict)
+                if c == "json_schema":
+                    ok = ok and set(val) == set(schema) and \
+                        isinstance(val["name"], str) and \
+                        isinstance(val["age"], int) and \
+                        val["color"] in schema["color"]["enum"] and \
+                        isinstance(val["ids"], list) and \
+                        all(isinstance(x, int) for x in val["ids"])
+        except ValueError as e:
+            ok, text = False, f"{text!r}: {e}"
+        if not ok:
+            faults.append(f"{c}: {text!r} does not match"[:200])
+    return faults, escapes
+
+
+def guided_serving_phase() -> dict:
+    """Llama-3-8B at full width and depth on a bf16 pool (seeded random
+    weights), one ``LLM`` with ``guided_decoding_backend="dfa"``,
+    ``guided_token_bytes="byte"``, a 16,384-state pool, prefix reuse off
+    and otherwise defaults (overlap depth 4, K = 8, 64 rows), serving
+    tools/serving_profile.py's ``guided_workload`` through
+    ``measure_guided`` (warm-up, timed pass with the launch counters
+    zeroed right before and read right after, profiled pass). Fails
+    unless every output passes ``_guided_faults``, free KV blocks return
+    to their count before the pass, every pool segment's refcount is 0,
+    guided rows ran in replayed windows, and K1 and K2 launched."""
+    import gc
+    import os
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, pool, prompts, sps, classes = sprof.guided_workload("dfa")
+    os.environ["TLLM_TPU_GUIDED_POOL_STATES"] = str(pool)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    try:
+        res, outs = sprof.measure_guided(llm, prompts, sps, classes)
+        res.update(engine_build_s=build_s, model="Llama-3-8B",
+                   layers=cfg.num_hidden_layers,
+                   kv_pages=llm.engine.num_kv_pages,
+                   guided_pool_bytes=sum(t.nbytes for t in (
+                       llm.engine.g_byte_table, llm.engine.g_mask_bits,
+                       llm.engine.g_eos_ok, llm.engine.g_state)))
+    finally:
+        llm.shutdown()
+    del llm
+    faults, escapes = _guided_faults(outs, sps, classes)
+    res["invalid_json_escapes"] = escapes
+    if res["free_blocks_after"] != res["free_blocks_before"]:
+        faults.append("free KV blocks did not return")
+    if any(res["segment_refs"]):
+        faults.append(f"segments still referenced: {res['segment_refs']}")
+    if not res["guided_window_replays"]:
+        faults.append("no replayed window carried guided rows")
+    if min(res["launches"][k] for k in ("paged_decode_attention",
+                                        "ragged_prefill_attention")) <= 0:
+        faults.append(f"K1 or K2 never launched: {res['launches']}")
+    res["faults"] = faults
+    emit({"phase": "guided_serving", **res})
+    if faults:
+        raise AssertionError(f"guided_serving: {faults}")
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -2771,6 +3139,8 @@ def main() -> int:
     timed("host_spec_kernels", host_spec_kernel_phase, kern)
     timed("surface_parity", surface_parity_phase, here)
     surface = timed("surface_serving", surface_serving_phase)
+    timed("guided_parity", guided_parity_phase, here)
+    guided = timed("guided_serving", guided_serving_phase)
     emit({"phase": "timing", "seconds": seconds})
 
     kernels = []
@@ -2797,6 +3167,7 @@ def main() -> int:
             launches_host_spec=dict(target=host["launches_target"][name],
                                     drafter=host["launches_drafter"][name]),
             launches_surface_serving=surface["launches"][name],
+            launches_guided_serving=guided["launches"][name],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()

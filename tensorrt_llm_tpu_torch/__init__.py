@@ -10,8 +10,8 @@ from .llmapi.llm_args import (KvCacheConfig, LlmArgs, MoeConfig,
                               QuantConfig, SpeculativeConfig)
 from .models.convert import from_jax_params
 from .quantization.mode import QuantAlgo
-from .sampling_params import SamplingParams
+from .sampling_params import GuidedDecodingParams, SamplingParams
 
 __all__ = ["LLM", "RequestOutput", "LlmArgs", "KvCacheConfig", "MoeConfig",
            "QuantConfig", "QuantAlgo", "SamplingParams", "SpeculativeConfig",
-           "from_jax_params"]
+           "GuidedDecodingParams", "from_jax_params"]

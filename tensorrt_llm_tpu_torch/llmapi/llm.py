@@ -44,11 +44,28 @@ returned on ``RequestOutput.prompt_logprobs``), ``no_repeat_ngram_size``,
 ``bad_token_ids``, ``embedding_bias``, ``logits_processor`` (the sync
 scheduler: ``disable_overlap_scheduler=True``) and beam search
 (``use_beam_search`` with ``best_of`` beams; ``max_beam_width`` > 1
-implies the sync scheduler). ``guided_decoding`` is refused by name.
+implies the sync scheduler), and ``guided_decoding`` (regex, JSON
+schema, ``json_object``, EBNF grammar, structural tag) with
+``guided_decoding_backend="dfa"`` (the grammar walk on the device, in
+steps and K-step windows on the overlap scheduler) or ``"dfa-host"``
+(host masks on the sync scheduler); without a tokenizer each token's
+bytes follow ``guided_token_bytes``. Guided decoding is refused by name
+with speculative decoding, with beam search and on an ``LLM`` built
+without a guided backend.
+
+``LLM.abort_request`` cancels a request, ``LLM.get_stats`` returns the
+executor's per-iteration statistics, and a request whose own host work
+fails (a logits processor that raises, a grammar that does not compile
+or cannot fit the pool) fails alone while the loop serves on. An
+out-of-memory error while the weights load, the KV pool is allocated or
+the graphs are captured names that stage and its knob
+(``_creation_stage``).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import os
 from pathlib import Path
 from typing import Any, List, Optional, Sequence, Union
 
@@ -71,6 +88,19 @@ from ..sampling_params import SamplingParams
 from .llm_args import MOE_MODEL_TYPES, LlmArgs, check_ported_spec
 
 PromptInput = Union[str, Sequence[int]]
+
+
+@contextlib.contextmanager
+def _creation_stage(stage: str):
+    """Stage-tagged OOM explanation at build (the JAX llm.py:36-47): an
+    allocation failure names the stage and the knob that relieves it."""
+    from ..runtime.error_isolation import classify_error, explain_stage_oom
+    try:
+        yield
+    except Exception as e:
+        if classify_error(str(e)) == "severe":
+            raise RuntimeError(explain_stage_oom(stage, e)) from e
+        raise
 
 _DTYPES = {"auto": torch.bfloat16, "bfloat16": torch.bfloat16,
            "float32": torch.float32}
@@ -180,10 +210,11 @@ class LLM:
                     f"for Gemma 2 only, not for {hf_config.model_type}")
             # the smallest window sizes the sliding pool
             self.model.enable_vswa(min(maw))
-        if state_dict is None:
-            self._params = self.model.init_params(seed=0)
-        else:
-            self._params = self.model.load_hf_state_dict(state_dict)
+        with _creation_stage("weights"):
+            if state_dict is None:
+                self._params = self.model.init_params(seed=0)
+            else:
+                self._params = self.model.load_hf_state_dict(state_dict)
 
     def _load_checkpoint(self):
         if self._hf_config is not None:
@@ -343,11 +374,42 @@ class LLM:
                              max_seq_len=self.args.max_seq_len,
                              head_state_dict=head_sd)
 
+    def _build_guided_decoder(self):
+        """(guided decoder, device pool states) as the JAX ``LLM`` builds
+        them (llm.py:545-575), or (None, 0) without a guided backend. The
+        token table comes from the tokenizer, else from
+        ``guided_token_bytes``: "byte" (ids below 256 are their byte,
+        EOS is token 0), "decimal" (each id's decimal string, EOS 0)."""
+        from ..guided.grammar_matcher import TokenTable
+        from ..guided.guided_decoder import GuidedDecoder
+        args = self.args
+        if not args.guided_decoding_backend:
+            return None, 0
+        V = self.model.vocab_size
+        if self.tokenizer is not None:
+            table = TokenTable.from_tokenizer(self.tokenizer)
+        elif args.guided_token_bytes == "byte":
+            table = TokenTable([bytes([i]) for i in range(min(V, 256))] +
+                               [b""] * max(0, V - 256), eos_token_id=0)
+        else:
+            table = TokenTable([str(i) for i in range(V)], eos_token_id=0)
+        pool = 0
+        if args.guided_decoding_backend == "dfa":
+            pool = int(os.environ.get("TLLM_TPU_GUIDED_POOL_STATES", "8192"))
+        return GuidedDecoder(table, args.max_batch_size), pool
+
     def _build_executor(self):
         args = self.args
         host_drafter, d = self._build_host_drafter()
-        self.engine = ModelEngine(self.model, self._params, args,
-                                  max_draft_len=d)
+        guided, pool_states = self._build_guided_decoder()
+        with _creation_stage("kv_pool"):
+            # the guided pool is allocated first, so the KV pool's sizing
+            # from free memory counts it off
+            self.engine = ModelEngine(self.model, self._params, args,
+                                      max_draft_len=d,
+                                      guided_pool_states=pool_states)
+        if pool_states:
+            guided.attach_engine(self.engine, pool_states)
         if self.model.config.uses_kv_quant:
             # no checkpoint brings KV scales: calibrate them from one
             # prefill pass over the JAX LLM's tokens (llm.py:459-470),
@@ -366,7 +428,8 @@ class LLM:
                 1, args.decode_multi_step // (d + 1))
             enable_spec_device(self.engine, head, d, K)
         if args.enable_warmup and self.device.type == "cuda":
-            self.engine.warmup()
+            with _creation_stage("warmup"):
+                self.engine.warmup()
         # a single sequence can never exceed the KV pool
         pool_tokens = self.engine.num_kv_pages * \
             args.kv_cache_config.tokens_per_block
@@ -413,7 +476,8 @@ class LLM:
             max_active_requests=args.scheduler_config.max_active_requests,
             decode_wait_occupancy=args.decode_wait_occupancy,
             ttft_slo_ms=args.ttft_slo_ms,
-            drafter=head if host_drafter is None else host_drafter)
+            drafter=head if host_drafter is None else host_drafter,
+            guided_decoder=guided)
 
     # ------------------------------------------------------------------ #
     # Generation
@@ -489,6 +553,15 @@ class LLM:
                     prompt_token_ids=list(token_ids),
                     sampling_params=sib)))
         return RequestOutput(res, prompt_text, extra_results=extra)
+
+    def abort_request(self, request_id: int) -> None:
+        """Cancel a request: it ends CANCELLED with the tokens it has."""
+        self.executor.cancel(request_id)
+
+    def get_stats(self) -> list:
+        """The executor's ``IterationStats``, oldest first (the last
+        1,000 iterations)."""
+        return list(self.executor.stats_history)
 
     # ------------------------------------------------------------------ #
     def shutdown(self):

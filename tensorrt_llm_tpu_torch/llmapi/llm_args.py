@@ -263,6 +263,16 @@ class LlmArgs(StrictBaseModel):
     enable_warmup: bool = True
     load_format: Literal["auto", "dummy"] = "auto"
     stream_interval: int = 1
+    # guided decoding (guided/): "dfa" walks the grammar on the device
+    # (requests ride the overlap scheduler and K-step windows; the pool
+    # holds TLLM_TPU_GUIDED_POOL_STATES states, 8,192 by default),
+    # "dfa-host" masks each step from host matchers on the sync
+    # scheduler; None serves no guided request
+    guided_decoding_backend: Optional[Literal["dfa", "dfa-host"]] = None
+    # without a tokenizer, each token's bytes: "decimal" (the token id's
+    # decimal string: token-id-level grammars) or "byte" (token id ==
+    # byte, EOS = token 0: byte-level checkpoints emit literal text)
+    guided_token_bytes: Literal["decimal", "byte"] = "decimal"
 
     @model_validator(mode="after")
     def _fill_defaults(self):

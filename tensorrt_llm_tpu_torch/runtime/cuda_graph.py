@@ -27,8 +27,9 @@ replayed (``GraphRunner``):
 
 Before a capture the callable runs once eagerly, on a side stream and on
 inputs that change nothing (all rows inactive), so that lazy
-initialisation happens outside the capture. A capture that fails raises:
-no step is served by an unrecorded path. With ``capture`` off (the CPU,
+initialisation happens outside the capture. A capture that fails raises
+("CUDA graph capture failed", which the executor treats as fatal) and
+leaves no entry for its key: no step is served by an unrecorded path. With ``capture`` off (the CPU,
 or a CUDA engine run eagerly for comparison) the same static buffers are
 filled and the callable runs eagerly on them.
 """
@@ -157,7 +158,13 @@ class GraphRunner:
         if step is None:
             step = _Step(layout_of(inert), self.device)
             if self.capture:
-                self._capture(step, inert, body)
+                try:
+                    self._capture(step, inert, body)
+                except Exception as e:
+                    # fatal to the executor (runtime/error_isolation.py);
+                    # the half-built step never enters the cache
+                    raise RuntimeError(f"CUDA graph capture failed for "
+                                       f"step {key}: {e}") from e
             self.steps[key] = step
         return step
 

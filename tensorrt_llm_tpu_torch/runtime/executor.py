@@ -52,12 +52,33 @@ beams or top-k logprobs leave K-step windows, and rows with bad words,
 an embedding bias, penalties (no-repeat-ngram among them), a processor
 or beams leave the fused speculative window.
 
+Guided decoding follows the JAX executor (guided/): with the device
+backend a request's grammar segment lands in the engine's pool and its
+slot's state is set when it takes its slot (``on_slot_assigned``: a full
+pool defers the request, a grammar that can never fit fails it alone),
+and its rows ride the overlap scheduler and K-step windows, masked and
+advanced on the device; with the host backend (``"dfa-host"``) the
+scheduler is the sync one, each single step carries the rows' [S, V]
+mask (``build_mask``) and each accepted token advances the host matcher
+(``observe_token``), and such rows leave K-step windows.
+
+The loop is supervised as in the JAX package (runtime/error_isolation.py):
+an exception in one request's host work (a logits processor, a grammar
+compile, a prompt-logprobs forward) fails that request alone with a
+``RequestError``; any other loop exception fails the requests of the
+iteration it hit and of the dropped in-flight results, and the loop
+serves on, until the error budget runs out or the error is fatal (a
+sticky CUDA error, a failed graph capture), when every open request
+fails. ``cancel`` ends a request (``FinishReason.CANCELLED``) at the next
+iteration, or at admission when it is still queued; a ``HangDetector``
+dumps every thread's stack when an iteration takes longer than its
+timeout; each iteration appends an ``IterationStats`` to
+``stats_history``.
+
 This executor is the JAX package's single-engine role only: it has no
 leader, follower or attention-DP roles, so their branches of the
-schedule are not ported. Not ported either: tree drafts, guided decoding,
-disaggregation, KV connectors, hang detection, per-request error
-isolation (a raising logits processor ends the loop, as every loop
-exception does), cancellation and iteration statistics.
+schedule are not ported. Not ported either: tree drafts,
+disaggregation and KV connectors.
 """
 from __future__ import annotations
 
@@ -74,6 +95,8 @@ import numpy as np
 from ..logger import logger
 from ..ops.sampling_ops import NGRAM_MAX
 from .beam_search import BeamGroup, make_beam_rows
+from .error_isolation import ErrorBudget, RequestError
+from .hang_detector import HangDetector
 from .kv_cache_manager import KVCacheManager, NoFreeBlocksError
 from .model_engine import HostFuture, ModelEngine
 from .request import FinishReason, LlmRequest, LlmRequestState
@@ -208,6 +231,22 @@ class _InflightBatch:
     logits_rows: Optional[tuple] = None
 
 
+@dataclasses.dataclass
+class IterationStats:
+    """One executor iteration (the JAX executor's ``IterationStats``,
+    executor.py:209-221, with its field names; the MoE balancer's fields
+    stay None / 0, as for a dense model there)."""
+    iter_counter: int = 0
+    num_active_requests: int = 0
+    num_queued_requests: int = 0
+    num_ctx_tokens: int = 0
+    num_gen_tokens: int = 0
+    kv_cache_free_blocks: int = 0
+    iter_latency_ms: float = 0.0
+    moe_expert_skew: Optional[float] = None
+    moe_rebalances: int = 0
+
+
 def _host_sample(logits: np.ndarray, sp, step_idx: int):
     """Host-side sampling for the logits-processor path (sync mode only),
     the JAX executor's numpy routine unchanged, so that processor rows
@@ -250,7 +289,8 @@ class PyExecutor:
                  max_active_requests: Optional[int] = None,
                  decode_wait_occupancy: float = 0.0,
                  ttft_slo_ms: float = 0.0,
-                 drafter=None):
+                 drafter=None,
+                 guided_decoder=None):
         self.engine = engine
         self.kv = kv_cache_manager
         self.scheduler = scheduler
@@ -265,6 +305,12 @@ class PyExecutor:
         if self.host_drafter is not None:
             # host drafting needs the host-visible token history one step
             # ahead: the sync scheduler (the JAX executor.py:281-288)
+            enable_overlap = False
+        # guided decoding (guided/): the host backend's matcher must see
+        # token t before masking t + 1, so it takes the sync scheduler; the
+        # device backend rides the overlap one (the JAX executor.py:274-281)
+        self.guided_decoder = guided_decoder
+        if guided_decoder is not None and guided_decoder.device is None:
             enable_overlap = False
         self.enable_overlap = enable_overlap
         self.stream_interval = stream_interval
@@ -300,6 +346,24 @@ class PyExecutor:
         self._prompt_lp_queue: "queue.Queue" = queue.Queue()
         self.prompt_logprob_forwards = 0
         self.prompt_logprob_ms = 0.0
+        # guided decoding: admissions of guided requests and their wall
+        # time (a grammar's first admission compiles it; on the device
+        # backend it also builds the token DFA and lands the segment), and
+        # admissions deferred because the pool was full
+        self.guided_admissions = 0
+        self.guided_admission_ms = 0.0
+        self.guided_deferred = 0
+        # supervision (runtime/error_isolation.py, hang_detector.py): the
+        # fatal-promotion budget, the requests of the iteration being
+        # dispatched, requests failed alone, and the watchdog
+        self.error_budget = ErrorBudget()
+        self._iter_requests: List[LlmRequest] = []
+        self.requests_failed = 0
+        self._hang_detector = HangDetector(timeout_s=600.0)
+        self._hang_detector.start()
+        # iteration statistics (``LLM.get_stats``), the last 1,000
+        self.iter_counter = 0
+        self.stats_history: List[IterationStats] = []
 
         self._request_queue: "queue.Queue" = queue.Queue()
         self._results: Dict[int, GenerationResult] = {}
@@ -325,8 +389,7 @@ class PyExecutor:
             raise RuntimeError("executor is shut down")
         sp = request.sampling_params
         if sp.guided_decoding is not None:
-            raise NotImplementedError(
-                "guided decoding is not supported by this package yet")
+            self._check_guided(sp)
         if sp.logits_processor is not None and self.enable_overlap:
             raise ValueError(
                 "logits_processor needs the sync scheduler: build the LLM "
@@ -368,8 +431,39 @@ class PyExecutor:
         self._work_event.set()
         return res
 
+    def _check_guided(self, sp) -> None:
+        """Refuse, by name, what guided decoding is not served with: no
+        guided backend on this LLM (the JAX package ignores the
+        constraint silently there, having no decoder), speculative
+        decoding (the JAX package gives device-guided rows of a verify
+        step neither the walk nor a mask) and beam search (the JAX
+        package forks beams without their grammar state)."""
+        if self.guided_decoder is None:
+            raise ValueError(
+                "guided_decoding needs a guided backend: build the LLM with "
+                "guided_decoding_backend=\"dfa\" (the device walk) or "
+                "\"dfa-host\"")
+        if self.drafter is not None:
+            raise NotImplementedError(
+                "guided decoding with speculative decoding "
+                "(speculative_config) is not supported by this package yet")
+        if sp.use_beam_search:
+            raise NotImplementedError(
+                "guided decoding with beam search is not supported by this "
+                "package yet")
+
+    def cancel(self, request_id: int) -> None:
+        """End a request: it finishes CANCELLED at the next iteration
+        (``_reap_finished``), or at admission while it is still queued."""
+        with self._lock:
+            res = self._results.get(request_id)
+        if res is not None:
+            res.request.cancel()
+            self._work_event.set()
+
     def shutdown(self, wait: bool = True) -> None:
         self._shutdown.set()
+        self._hang_detector.stop()
         self._work_event.set()
         if wait and self._thread.is_alive():
             self._thread.join(timeout=60)
@@ -378,27 +472,95 @@ class PyExecutor:
     # Main loop
     # ------------------------------------------------------------------ #
     def _executor_loop(self):
-        try:
-            self._executor_loop_body()
-        except Exception as e:  # loop boundary: fail every open request
-            traceback.print_exc()
-            logger.error("executor loop died: %s", e)
-            with self._lock:
-                results = list(self._results.values())
-            for r in results:
-                if not r.finished:
-                    r._on_error(e)
+        """Loop supervisor (the JAX executor.py:482-523): a
+        ``RequestError`` fails its request alone; any other exception
+        fails the requests of the iteration it hit and those whose
+        in-flight results it drops (the JAX executor fails the former
+        only, though it drops the latter's results too), and the loop
+        goes on, unless the error budget says the error is fatal, or
+        nothing was implicated: then every open request fails."""
+        while True:
+            try:
+                self._executor_loop_body()
+                return
+            except RequestError as e:
+                fatal = self.error_budget.consume(str(e.cause))
+                self._abort_request(e.request, e)
+                if fatal:
+                    self._die(e)
+                    return
+                logger.error("request %s failed at %s; budget %.2f: loop "
+                             "continues", e.request.request_id, e.stage,
+                             self.error_budget.budget)
+            except Exception as e:
+                traceback.print_exc()
+                fatal = self.error_budget.consume(str(e))
+                culprits = list(self._iter_requests)
+                for ib in self._inflight:
+                    culprits += [r for r in ib.entries if r not in culprits]
+                culprits = [r for r in culprits if not r.is_finished]
+                self._inflight.clear()
+                self._iter_requests = []
+                for r in culprits:
+                    self._abort_request(r, e)
+                if fatal or not culprits:
+                    self._die(e)
+                    return
+                logger.error("executor iteration failed (%s); failed %d "
+                             "implicated request(s), budget %.2f: loop "
+                             "continues", e, len(culprits),
+                             self.error_budget.budget)
+
+    def _abort_request(self, req: LlmRequest, exc: Exception) -> None:
+        """Fail one request and release its KV and slot; the loop lives
+        (the JAX executor.py:542-560)."""
+        if not req.is_finished:
+            req.finish_by_reason(FinishReason.ERROR)
+        self.requests_failed += 1
+        for fn in (lambda: self.kv.free_resources(req),
+                   lambda: self._release_slot(req)
+                   if req.seq_slot is not None else None,
+                   lambda: self.guided_decoder.drop(req.request_id)
+                   if self.guided_decoder is not None else None):
+            try:
+                fn()
+            except Exception:  # release is best-effort
+                logger.error("request %d: release after failure raised",
+                             req.request_id)
+        if req in self._active:
+            self._active.remove(req)
+        with self._lock:
+            res = self._results.pop(req.request_id, None)
+        if res is not None:
+            res._on_error(exc)
+
+    def _die(self, e: Exception) -> None:
+        logger.error("executor loop died: %s", e)
+        self._hang_detector.disarm()
+        with self._lock:
+            results = list(self._results.values())
+        for r in results:
+            if not r.finished:
+                r._on_error(e)
 
     def _executor_loop_body(self):
         while not self._shutdown.is_set():
+            self._iter_requests = []
             if not self._active and not self._inflight:
                 self._work_event.wait(timeout=0.05)
                 self._work_event.clear()
             self._fetch_new_requests()
+            self._reap_finished()
             if not self._active and not self._inflight:
+                self._hang_detector.disarm()
                 continue
+            self._hang_detector.arm()
+            t0 = time.monotonic()
             batch = self._batching_wait(
                 self.scheduler.schedule(self._schedulable()))
+            # the requests this iteration's dispatch implicates, should it
+            # raise (error isolation)
+            self._iter_requests = list(batch.all_requests)
             if batch.paused_requests:
                 self._pause_requests(batch.paused_requests, batch)
             # TTFT budget: shrink the window while a request has waited
@@ -501,11 +663,13 @@ class PyExecutor:
                     self.nonspec_decode_rows += len(batch.generation_requests)
                 use_proc = any(r.sampling_params.logits_processor is not None
                                for r in batch.all_requests)
+                mask = self.guided_decoder.build_mask(batch) \
+                    if self.guided_decoder is not None else None
                 outs = self.engine.forward_step(
                     batch, use_penalties=use_pen,
                     collect_hidden=bool(seed[0]),
                     bad_ids=self._apply_bad_words(batch),
-                    collect_logits=use_proc)
+                    collect_logits=use_proc, logits_mask=mask)
                 logits_rows = None
                 if use_proc:
                     rows, logits = self.engine._last_logits_rows
@@ -521,9 +685,28 @@ class PyExecutor:
                     logits_rows=logits_rows))
             while len(self._inflight) >= self.pipeline_depth:
                 self._process_inflight()
+            self._record_stats(batch, time.monotonic() - t0, gen_window)
         # drain at shutdown
         while self._inflight:
             self._process_inflight()
+
+    def _record_stats(self, batch: ScheduledRequests, latency: float,
+                      extra: Optional[ScheduledRequests] = None) -> None:
+        """One ``IterationStats`` (the JAX executor.py:2072-2093)."""
+        self.iter_counter += 1
+        ngen = len(batch.generation_requests) + \
+            (len(extra.generation_requests) if extra is not None else 0)
+        self.stats_history.append(IterationStats(
+            iter_counter=self.iter_counter,
+            num_active_requests=len(self._active),
+            num_queued_requests=self._request_queue.qsize(),
+            num_ctx_tokens=sum(min(r.context_chunk_size, r.prompt_len)
+                               for r in batch.context_requests),
+            num_gen_tokens=ngen,
+            kv_cache_free_blocks=self.kv.get_num_free_blocks(),
+            iter_latency_ms=latency * 1e3))
+        if len(self.stats_history) > 1000:
+            self.stats_history.pop(0)
 
     def _dispatch_multi(self, wb: ScheduledRequests,
                         riders: List[LlmRequest]) -> None:
@@ -598,16 +781,35 @@ class PyExecutor:
                 req = self._prompt_lp_queue.get_nowait()
             except queue.Empty:
                 break
-            self._prompt_logprobs(req)
+            if req.is_finished:
+                continue              # cancelled before it was taken
+            try:
+                self._prompt_logprobs(req)
+            except Exception as e:
+                # its own forward: this request alone fails (it is still
+                # queued, so the waiting queue drops it at admission)
+                req.finish_by_reason(FinishReason.ERROR)
+                raise RequestError(req, "prompt_logprobs", e) from e
         while True:
             try:
                 req = self._request_queue.get_nowait()
             except queue.Empty:
                 break
             self.waiting.add_request(req)
-        # admission: waiting -> active while there is room
+        # admission: waiting -> active while there is room; a request
+        # cancelled (or failed) in the queue finishes here
         while self.waiting and len(self._active) < self.max_active_requests:
-            self._active.append(self.waiting.pop_request())
+            req = self.waiting.pop_request()
+            if req.is_finished:
+                self._finish_request(req)
+                continue
+            self._active.append(req)
+
+    def _reap_finished(self) -> None:
+        """Complete the requests finished out of band (cancellation; the
+        JAX executor.py:1927-1931)."""
+        for req in [r for r in self._active if r.is_finished]:
+            self._finish_request(req)
 
     def _prompt_logprobs(self, req: LlmRequest) -> None:
         """The request's ``prompt_logprobs``: one teacher-forced forward
@@ -706,6 +908,14 @@ class PyExecutor:
                     req.seq_slot = None
                     deferred.append(req)
                     continue
+                if req.sampling_params.guided_decoding is not None and \
+                        not self._admit_guided(req):
+                    if req.seq_slot is not None:      # deferred, not failed
+                        self.kv.free_resources(req, store_for_reuse=False)
+                        self._free_slots.append(req.seq_slot)
+                        req.seq_slot = None
+                    deferred.append(req)
+                    continue
                 new_slots.append(req.seq_slot)
                 sp = req.sampling_params
                 if sp.no_repeat_ngram_size > 0:
@@ -737,6 +947,34 @@ class PyExecutor:
             req.draft_tokens = []
             batch.generation_requests.remove(req)
 
+    def _admit_guided(self, req: LlmRequest) -> bool:
+        """Compile the request's grammar as it takes its slot (cached per
+        grammar); on the device backend also land its segment in the pool
+        and set the slot's state, past the tokens it already has when it
+        resumes (``on_slot_assigned``). False: the request does not run
+        now, either deferred (the pool is full) or failed alone (a
+        grammar that does not compile or can never fit the pool; the JAX
+        executor.py:1097-1113)."""
+        from ..guided.device_guided import NoPoolSpaceError
+        t0 = time.perf_counter()
+        try:
+            if self.guided_decoder.device is not None:
+                self.guided_decoder.on_slot_assigned(req, self.engine)
+            else:
+                self.guided_decoder.factory.compile_dfa(
+                    req.sampling_params.guided_decoding)
+        except NoPoolSpaceError:
+            self.guided_deferred += 1
+            return False
+        except Exception as e:
+            # the request's own fault: no draw on the loop's error budget
+            self._abort_request(req, e)
+            return False
+        finally:
+            self.guided_admissions += 1
+            self.guided_admission_ms += (time.perf_counter() - t0) * 1e3
+        return True
+
     def _prepare_drafts(self, batch: ScheduledRequests) -> None:
         """Draft proposal for the decode rows (the JAX executor.py:
         1572-1601): rows without penalties (the penalty counts cannot
@@ -750,7 +988,8 @@ class PyExecutor:
         def draftable(r):
             sp = r.sampling_params
             return not (sp.needs_penalties or r.is_beam_row
-                        or sp.logits_processor is not None)
+                        or sp.logits_processor is not None
+                        or sp.guided_decoding is not None)
         gen = [r for r in batch.generation_requests if draftable(r)]
         self.host_drafter.prepare_draft_tokens(gen)
         left = self.engine.token_buckets[-1] - len(batch.generation_requests)
@@ -787,13 +1026,17 @@ class PyExecutor:
         return self._multi_rows_ok(batch.generation_requests)
 
     def _multi_rows_ok(self, gen_requests) -> bool:
+        """Rows of the host guided backend leave windows (their matcher
+        must see each token); device-guided rows ride them."""
         if self.drafter is not None:
             return False
         for r in gen_requests:
             sp = r.sampling_params
             if (sp.logprobs or sp.bad_token_ids or sp.use_beam_search
                     or r.is_beam_row or sp.logits_processor is not None
-                    or len(sp.stop_id_list()) > self.engine.NSTOP):
+                    or len(sp.stop_id_list()) > self.engine.NSTOP
+                    or (sp.guided_decoding is not None
+                        and not r.guided_device)):
                 return False
         return True
 
@@ -946,12 +1189,12 @@ class PyExecutor:
         sampling), top-k logprobs included, once a prefill step of this
         engine seeded the row and while it has room. Rows with penalties
         (no-repeat-ngram among them), bad words, an embedding bias, a
-        logits processor or beams, and rows with more stop ids than the
-        window checks do not (the JAX executor.py:1385-1405; its other
-        reasons, LoRA and guided decoding, this package does not
-        serve)."""
+        logits processor, beams or a grammar, and rows with more stop ids
+        than the window checks do not (the JAX executor.py:1385-1405; its
+        other reason, LoRA, this package does not serve)."""
         sp = r.sampling_params
         if (sp.needs_penalties or sp.bad_token_ids
+                or sp.guided_decoding is not None
                 or sp.embedding_bias is not None
                 or sp.logits_processor is not None
                 or sp.use_beam_search or r.is_beam_row
@@ -1110,15 +1353,21 @@ class PyExecutor:
         return entries, samples, drafts
 
     def _process_inflight(self):
+        """Process the oldest in-flight dispatch's results. It leaves
+        ``_inflight`` only once processed, so that a failure there
+        implicates its requests (``_executor_loop``)."""
         if not self._inflight:
             return
-        batch = self._inflight.popleft()
+        batch = self._inflight[0]
         if batch.kind == "multi":
             self._process_multi(batch)
-            return
-        if batch.kind == "spec":
+        elif batch.kind == "spec":
             self._process_spec(batch)
-            return
+        else:
+            self._process_single(batch)
+        self._inflight.popleft()
+
+    def _process_single(self, batch: _InflightBatch) -> None:
         fetched = batch.result.get()               # sync point, one fetch
         G = self.engine.G
         tokens = fetched[0].reshape(-1, G)         # [S, G] logits rows
@@ -1140,18 +1389,18 @@ class PyExecutor:
                 # host logits-processor path (sync mode): process the
                 # row's logits, re-sample on the host and override the
                 # device's sample, so that everything downstream (stop
-                # checks, streaming, host_token_override) sees it
-                row = proc_rows[i].copy()
-                proc = req.sampling_params.logits_processor
+                # checks, streaming, host_token_override) sees it. A
+                # processor that raises fails its request alone (the JAX
+                # executor.py:1674-1683)
                 try:
-                    out = proc(req.request_id, row,
-                               [list(req.output_token_ids)], None, None)
-                except TypeError:
-                    out = proc(row)
-                if out is not None:
-                    row = np.asarray(out, np.float64).reshape(-1)
-                tokens[i, 0], logprobs[i, 0] = _host_sample(
-                    row, req.sampling_params, req.num_output_tokens)
+                    tokens[i, 0], logprobs[i, 0] = self._run_processor(
+                        req, proc_rows[i].copy())
+                except Exception as pe:
+                    if self.error_budget.consume(str(pe)):
+                        raise
+                    self._abort_request(
+                        req, RequestError(req, "logits_processor", pe))
+                    continue
             drafts = batch.drafts[i] if batch.drafts else []
             # chain verification: the longest prefix of drafts equal to
             # the target's own samples, plus one bonus token
@@ -1164,6 +1413,8 @@ class PyExecutor:
             for g in range(accepted + 1):
                 tok = int(tokens[i, g])
                 done = req.add_output_token(tok, float(logprobs[i, g]))
+                if self.guided_decoder is not None:
+                    self.guided_decoder.observe_token(req, tok)
                 if top_lp is not None and k:
                     vals, ids = top_lp
                     req.logprobs[-1] = {
@@ -1196,6 +1447,20 @@ class PyExecutor:
         for req in finished:
             self._finish_request(req)
         self._update_beam_groups()
+
+    @staticmethod
+    def _run_processor(req: LlmRequest, row: np.ndarray):
+        """(token, logprob) of one processor row: the request's logits
+        processor over the row, then the host sampler."""
+        proc = req.sampling_params.logits_processor
+        try:
+            out = proc(req.request_id, row,
+                       [list(req.output_token_ids)], None, None)
+        except TypeError:
+            out = proc(row)
+        if out is not None:
+            row = np.asarray(out, np.float64).reshape(-1)
+        return _host_sample(row, req.sampling_params, req.num_output_tokens)
 
     def _update_beam_groups(self) -> None:
         """Re-rank each beam group whose rows all took a step since its
@@ -1272,6 +1537,10 @@ class PyExecutor:
         return out
 
     def _release_slot(self, req: LlmRequest) -> None:
+        if self.guided_decoder is not None:
+            # clears the slot's grammar state (-1), after the windows in
+            # flight, and drops the segment's reference
+            self.guided_decoder.on_slot_released(req, self.engine)
         self._free_slots.append(req.seq_slot)
         req.seq_slot = None
 
@@ -1298,6 +1567,8 @@ class PyExecutor:
         if self.host_drafter is not None and \
                 hasattr(self.host_drafter, "drop_request"):
             self.host_drafter.drop_request(req.request_id)
+        if self.guided_decoder is not None:
+            self.guided_decoder.drop(req.request_id)
         self.kv.free_resources(req)
         if req.seq_slot is not None:
             self._release_slot(req)

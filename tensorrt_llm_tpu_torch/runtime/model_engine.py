@@ -18,8 +18,12 @@ slot-indexed no-repeat-ngram history (``write_history``), the per-slot
 embedding bias pool (``set_embedding_bias``), the bad-word ban, the
 processed logits rows of the host logits-processor path
 (``collect_logits``, ``_last_logits_rows``) and the beam fork's page copy
-(``copy_pages``)) without guided decoding, LoRA, tree drafts, M-RoPE, MoE
-statistics and pipeline parallelism.
+(``copy_pages``), and guided decoding: the device backend's pooled
+grammar tables and per-slot state (``enable_guided``, ``guided_upload``,
+``guided_set_state``), its mask and byte walk in every single step and
+every step of a K-step window, and the host backend's [S, V] mask (packed
+to a bit per token on its way up)) without LoRA, tree drafts, M-RoPE,
+MoE statistics and pipeline parallelism.
 MoE models run through the same steps and graphs: their routing is
 computed on the device, and no MoE shape depends on it (ops/moe.py).
 
@@ -69,15 +73,39 @@ from .scheduler import ScheduledRequests
 class LogitsOps:
     """What a step does to its logits between the forward and the sampler,
     in the JAX engine's order (model_engine.py:435-480): the bad-word ban
-    (``nb``: the padded width of the rows' id lists, 0 = none), the
-    per-slot embedding bias, the no-repeat-ngram ban; and whether the
-    processed logits leave the step for the host logits processors
-    (``collect``). Part of every step, window and verify key, after the
-    penalty flag: each combination is a graph of its own."""
+    (``nb``: the padded width of the rows' id lists, 0 = none) and the
+    host backend's guided mask (``mask``, a static [S, V] input; the JAX
+    engine folds bad words into that mask, and the AND of the two is the
+    same), the device backend's grammar mask (``guided``: each row's
+    state in the pool, whose walk advances after sampling), the per-slot
+    embedding bias, the no-repeat-ngram ban; and whether the processed
+    logits leave the step for the host logits processors (``collect``).
+    Part of every step, window and verify key, after the penalty flag:
+    each combination is a graph of its own."""
     ngram: bool = False
     bias: bool = False
     nb: int = 0
     collect: bool = False
+    guided: bool = False
+    mask: bool = False
+
+
+def _unpack_bits(bits: torch.Tensor, V: int) -> torch.Tensor:
+    """bool[R, V] from bits u8[R, ceil(V/8)] packed little-endian, as
+    ``np.packbits(..., bitorder="little")`` gives them."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    return ((bits[:, :, None] >> shifts) & 1).reshape(
+        bits.shape[0], -1)[:, :V].bool()
+
+
+def _pack_mask(mask: np.ndarray) -> np.ndarray:
+    """A bool [S, V] mask as the step's int32 input: a bit per token
+    (little-endian), each row padded to whole int32 words."""
+    bits = np.packbits(mask, axis=1, bitorder="little")
+    pad = -bits.shape[1] % 4
+    if pad:
+        bits = np.pad(bits, ((0, 0), (0, pad)))
+    return np.ascontiguousarray(bits).view(np.int32)
 
 
 def _ngram_sizes(reqs, n: int) -> np.ndarray:
@@ -162,7 +190,8 @@ class ModelEngine:
                  params: Dict[str, Any],
                  args: LlmArgs,
                  num_kv_pages: Optional[int] = None,
-                 max_draft_len: int = 0):
+                 max_draft_len: int = 0,
+                 guided_pool_states: int = 0):
         self.model = model
         # host-orchestrated drafting: drafts per decode row, and each
         # row's logits rows G = max_draft_len + 1 in every step
@@ -213,6 +242,19 @@ class ModelEngine:
         # the pair (global, sliding)
         self._vswa = bool(getattr(model, "vswa_enabled", False))
         self.num_sw_pages = self._sw_pages() if self._vswa else 0
+        # device-backend guided decoding (guided/device_guided.py): the
+        # pool's tensors are allocated here, before the KV pool is sized
+        # from free memory (so its bytes are counted off the KV budget)
+        # and before any graph that reads them is captured; they are
+        # written in place after. The grammar walk switches on with
+        # ``enable_guided``
+        self.g_enabled = False
+        self.g_eos_id = -1
+        self.g_state: Optional[torch.Tensor] = None
+        self.guided_windows = 0
+        self.guided_steps = 0
+        if guided_pool_states:
+            self._alloc_guided(guided_pool_states)
         self.num_kv_pages = num_kv_pages or self._default_num_pages()
         logger.info("KV pool: %d pages x %d tokens (%.1f MB/layer)",
                     self.num_kv_pages, self.page_size,
@@ -387,7 +429,8 @@ class ModelEngine:
         slot state, the part of a prompt-logprobs forward that the memory
         outside ``free_gpu_memory_fraction`` does not hold, and under VSWA
         the sliding pool (a fixed 2 GiB budget on the CPU, the sliding
-        pool included)."""
+        pool included). The guided pool is already allocated by then, so
+        free memory leaves it out."""
         cfg = self.args.kv_cache_config
         if cfg.max_tokens is not None:
             return -(-cfg.max_tokens // self.page_size)
@@ -513,6 +556,88 @@ class ModelEngine:
             vec[:min(V, b.shape[0])] = b[:V]
         self.bias_pool[slot].copy_(torch.from_numpy(vec))
 
+    # ------------------------------------------------------------------ #
+    # Device-backend guided decoding (the JAX engine's
+    # model_engine.py:169-195, :245-250): the pool tensors that steps
+    # and windows read by address, and writes into them in place
+    # ------------------------------------------------------------------ #
+    def _alloc_guided(self, pool_states: int) -> None:
+        dev = self.device
+        Vb = -(-self.model.vocab_size // 8)
+        self.g_byte_table = torch.full((pool_states, 256), -1,
+                                       dtype=torch.int16, device=dev)
+        self.g_mask_bits = torch.zeros((pool_states, Vb), dtype=torch.uint8,
+                                       device=dev)
+        self.g_eos_ok = torch.zeros(pool_states, dtype=torch.bool,
+                                    device=dev)
+        # the last entry is the trash slot of padding and inactive rows
+        self.g_state = torch.full((self.max_batch_size + 1,), -1,
+                                  dtype=torch.int32, device=dev)
+
+    def enable_guided(self, token_bytes: np.ndarray, token_lens: np.ndarray,
+                      eos_id: int, pool_states: int = 8192) -> None:
+        """Switch the grammar walk on: each token's bytes u8[V, L] and
+        lengths i32[V] (L, the longest token, is the walk's unrolled step
+        count) and the grammar EOS id, over the pool of ``pool_states``
+        states allocated at construction (``guided_pool_states``)."""
+        have = 0 if self.g_state is None else self.g_byte_table.shape[0]
+        if have != pool_states:
+            raise ValueError(
+                f"guided pool: {pool_states} states asked for, {have} "
+                "allocated at build (ModelEngine guided_pool_states)")
+        self.g_token_bytes = torch.as_tensor(
+            np.ascontiguousarray(token_bytes, np.uint8), device=self.device)
+        self.g_token_lens = torch.as_tensor(
+            np.asarray(token_lens, np.int32), device=self.device)
+        self.g_eos_id = int(eos_id)
+        self.g_enabled = True
+
+    def guided_upload(self, base: int, byte_table: np.ndarray,
+                      mask_bits: np.ndarray, eos_ok: np.ndarray) -> None:
+        """Land one grammar segment in the pool, rows [base, base + n)
+        written in place (captured graphs hold the pool's addresses)."""
+        n = byte_table.shape[0]
+        self.g_byte_table[base:base + n].copy_(
+            torch.from_numpy(np.ascontiguousarray(byte_table, np.int16)))
+        self.g_mask_bits[base:base + n].copy_(
+            torch.from_numpy(np.ascontiguousarray(mask_bits, np.uint8)))
+        self.g_eos_ok[base:base + n].copy_(
+            torch.from_numpy(np.ascontiguousarray(eos_ok, bool)))
+
+    def guided_set_state(self, slot: int, state: int) -> None:
+        """state = pool-global grammar state; -1 clears the slot. An
+        in-place write queued on the steps' stream, so it lands after the
+        windows already in flight (a finished request's last windows still
+        scatter into its slot) and before the next step reads it."""
+        self.g_state[int(slot)] = int(state)
+
+    def _guided_mask(self, logits: torch.Tensor, st: torch.Tensor,
+                     act: torch.Tensor) -> torch.Tensor:
+        """The device grammar mask: rows ``act`` keep only the tokens
+        their state ``st`` admits, and EOS where the state allows it
+        (``g_eos_ok``); other rows pass unmasked."""
+        V = logits.shape[-1]
+        gsc = st.clamp(min=0).long()
+        allowed = _unpack_bits(self.g_mask_bits[gsc], V)
+        if 0 <= self.g_eos_id < V:
+            allowed[:, self.g_eos_id] = self.g_eos_ok[gsc]
+        return torch.where(act[:, None] & ~allowed,
+                           torch.finfo(torch.float32).min, logits)
+
+    def _guided_walk(self, tok: torch.Tensor,
+                     st: torch.Tensor) -> torch.Tensor:
+        """The state after ``tok``: its bytes walked through the pooled
+        byte DFA, L unrolled steps (a dead state stays dead); EOS leaves
+        the state as it was."""
+        fb = self.g_token_bytes[tok].long()          # [R, L]
+        flen = self.g_token_lens[tok]
+        cur = st
+        for j in range(fb.shape[1]):
+            nxt = self.g_byte_table[cur.clamp(min=0).long(),
+                                    fb[:, j]].to(torch.int32)
+            cur = torch.where((j < flen) & (cur >= 0), nxt, cur)
+        return torch.where(tok == self.g_eos_id, st, cur)
+
     @torch.no_grad()
     def copy_pages(self, src: List[int], dst: List[int],
                    pool: int = 0) -> None:
@@ -535,14 +660,16 @@ class ModelEngine:
 
     def _logits_ops(self, logits: torch.Tensor, v, ops: LogitsOps,
                     out_slots: torch.Tensor, sample_idx: torch.Tensor,
-                    valid: torch.Tensor, G: int = 1) -> torch.Tensor:
+                    valid: torch.Tensor, G: int = 1,
+                    gst: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The step's logits work between the forward and the sampler, in
-        the JAX engine's order: bad-word ban, embedding bias,
+        the JAX engine's order: bad-word ban and host guided mask, device
+        grammar mask (``gst``: each row's grammar state), embedding bias,
         no-repeat-ngram ban (model_engine.py:435-480). ``out_slots`` /
         ``sample_idx`` / ``valid``: each batch row's slot, the sequence
         index its sample lands at, and whether it is a live row; with G
         logits rows per batch row each row's mask repeats G times."""
-        if not (ops.nb or ops.bias or ops.ngram):
+        if not (ops.nb or ops.bias or ops.ngram or ops.mask or ops.guided):
             return logits
         trash = self.max_batch_size
         slot_idx = torch.where(valid, out_slots, trash).long()
@@ -550,6 +677,15 @@ class ModelEngine:
             bad = v["bad_ids"]
             logits = ban_token_ids(
                 logits, bad.repeat_interleave(G, 0) if G > 1 else bad)
+        if ops.mask:
+            allowed = _unpack_bits(v["mask"].view(torch.uint8),
+                                   logits.shape[-1])
+            if G > 1:
+                allowed = allowed.repeat_interleave(G, 0)
+            logits = torch.where(allowed, logits,
+                                 torch.finfo(torch.float32).min)
+        if ops.guided:
+            logits = self._guided_mask(logits, gst, valid & (gst >= 0))
         if ops.bias:
             brow = self.bias_pool[slot_idx]
             logits = add_embedding_bias(
@@ -728,10 +864,12 @@ class ModelEngine:
     # ------------------------------------------------------------------ #
     def _step_inputs(self, inp: StepInputs, reqs, T: int, greedy: bool,
                      ops: LogitsOps = LogitsOps(),
-                     bad_ids: Optional[np.ndarray] = None) -> Inputs:
+                     bad_ids: Optional[np.ndarray] = None,
+                     mask: Optional[np.ndarray] = None) -> Inputs:
         """A step's host inputs, padded to the token bucket T; with
-        ``ops`` the rows' no_repeat_ngram_size and their bad-word ids
-        (``bad_ids`` i32[S, ops.nb], -1 padding; None: none)."""
+        ``ops`` the rows' no_repeat_ngram_size, their bad-word ids
+        (``bad_ids`` i32[S, ops.nb], -1 padding; None: none) and the host
+        guided mask (``mask`` bool[S, V], packed; None: all allowed)."""
         n, S = inp.num_tokens, self.max_batch_size
         tokens = np.zeros(T, np.int32)
         tokens[:n] = inp.token_ids
@@ -770,6 +908,18 @@ class ModelEngine:
             if bad_ids is not None:
                 bad[:bad_ids.shape[0], :bad_ids.shape[1]] = bad_ids
             inputs["bad_ids"] = bad
+        if ops.mask:
+            V = self.model.vocab_size
+            full = np.ones((S, V), bool)
+            if mask is not None:
+                # a tokenizer's vocabulary may stop short of the model's:
+                # its tokens past the table are empty, so a guided row
+                # never takes one (as on the device backend), an unguided
+                # (all-True) row may
+                w = min(V, mask.shape[1])
+                full[:, :w] = mask[:, :w]
+                full[:, w:] = mask.all(axis=1)[:, None]
+            inputs["mask"] = _pack_mask(full)
         return inputs
 
     def _step_key(self, T: int, bound: int, greedy: bool,
@@ -786,31 +936,42 @@ class ModelEngine:
                 seeded)
 
     def _logits_ops_of(self, reqs, bad_ids: Optional[np.ndarray],
-                       collect_logits: bool) -> LogitsOps:
+                       collect_logits: bool,
+                       mask: Optional[np.ndarray] = None) -> LogitsOps:
         """The logits work the rows ``reqs`` ask of a step: the history
         and the bias pool only once a request has written them (the JAX
-        engine's ``use_ngram`` / ``use_bias``)."""
+        engine's ``use_ngram`` / ``use_bias``), and the device grammar
+        walk when a row holds a device-guided slot and the step has one
+        logits row per row (a verify step gets none, as in the JAX engine,
+        model_engine.py:1709-1713)."""
         return LogitsOps(
             ngram=self.ngram_history is not None and any(
                 r.sampling_params.no_repeat_ngram_size > 0 for r in reqs),
             bias=self.bias_pool is not None and any(
                 r.sampling_params.embedding_bias is not None for r in reqs),
             nb=0 if bad_ids is None else bad_ids.shape[1],
-            collect=collect_logits)
+            collect=collect_logits,
+            guided=self.g_enabled and self.G == 1 and any(
+                r.guided_device for r in reqs),
+            mask=mask is not None)
 
     @torch.no_grad()
     def forward_step(self, batch: ScheduledRequests,
                      use_penalties: bool = False,
                      collect_hidden: bool = False,
                      bad_ids: Optional[np.ndarray] = None,
-                     collect_logits: bool = False):
+                     collect_logits: bool = False,
+                     logits_mask: Optional[np.ndarray] = None):
         """Launch one iteration. Returns device tensors indexed by logits
         row, G per batch row: (tokens, logprobs), then (top values, top
         ids) when a request asked for logprobs, then with
         ``collect_hidden`` the pre-final-norm hidden rows (which seed the
         draft head, ``spec_seed``). ``bad_ids`` (i32[rows, nb], -1
         padding; of the executor's ``_apply_bad_words``) bans each row's
-        ids; with ``collect_logits`` the processed logits of the rows
+        ids; ``logits_mask`` (bool[max_batch_size, V], the host guided
+        backend's ``build_mask``) keeps only each row's allowed tokens;
+        rows of device-guided requests mask and advance their grammar
+        state on the device; with ``collect_logits`` the processed logits of the rows
         whose request has a logits processor land in
         ``_last_logits_rows`` (their batch rows and a [n, V] copy on the
         device; the first logits row of each). A decode-only batch
@@ -834,8 +995,10 @@ class ModelEngine:
             pad = np.full((bad_ids.shape[0], nb), -1, np.int32)
             pad[:, :bad_ids.shape[1]] = bad_ids
             bad_ids = pad
-        ops = self._logits_ops_of(reqs, bad_ids, collect_logits)
-        inputs = self._step_inputs(inp, reqs, T, greedy, ops, bad_ids)
+        ops = self._logits_ops_of(reqs, bad_ids, collect_logits, logits_mask)
+        self.guided_steps += ops.guided or ops.mask
+        inputs = self._step_inputs(inp, reqs, T, greedy, ops, bad_ids,
+                                   logits_mask)
         self._counts(use_penalties)
         verify = bool((inp.draft_ids >= 0).any())
         self.verify_steps += verify
@@ -903,8 +1066,11 @@ class ModelEngine:
             if collect_hidden:
                 logits, hidden = logits
             out_slots = v["out_slots"]
+            valid = out_slots >= 0
+            gst = self.g_state[torch.where(valid, out_slots, S).long()] \
+                if ops.guided else None
             logits = self._logits_ops(logits, v, ops, out_slots,
-                                      v["kv_lens"], out_slots >= 0, G)
+                                      v["kv_lens"], valid, G, gst)
             st = None if greedy else SamplingTensors.from_rows(
                 v["samp_ints"], v["samp_floats"])
             seeds = v["seeds"] if seeded else None
@@ -931,6 +1097,11 @@ class ModelEngine:
                 # the sampled token lands at sequence index kv_lens
                 self._append_history(outs[0].view(-1, G)[:, 0], out_slots,
                                      v["kv_lens"], out_slots >= 0)
+            if ops.guided:
+                # advance each guided row's grammar state by its token
+                act = valid & (gst >= 0)
+                self.g_state[torch.where(act, out_slots, S).long()] = \
+                    torch.where(act, self._guided_walk(outs[0], gst), gst)
             if k_lp:
                 outs += top_logprobs(logits, k_lp)
             if collect_hidden:
@@ -1129,6 +1300,7 @@ class ModelEngine:
         # rows with bad words or a logits processor never take a window
         # (the executor's _multi_rows_ok)
         ops = self._logits_ops_of(reqs, None, False)
+        self.guided_windows += ops.guided
         inputs, carved = self._window_inputs(reqs, Sb, K, greedy, riders,
                                              ops)
         C = self.mixed_ctx_tokens if riders else 0
@@ -1189,6 +1361,9 @@ class ModelEngine:
             slot_rows = torch.where(valid, out_slots, trash).long()
             # the rows' bias, gathered once (the JAX window's ``brow``)
             brow = self.bias_pool[slot_rows] if ops.bias else None
+            # each row's grammar state rides the window and is scattered
+            # back to its slot at the end (the JAX window's ``gst``)
+            gst0 = gst = self.g_state[slot_rows] if ops.guided else None
             for k in range(K):
                 kv_len = torch.where(valid, pos + 1, 1).to(torch.int32)
                 page_col = (pos // ps).clamp(0, P - 1).long()
@@ -1233,6 +1408,9 @@ class ModelEngine:
                         num_seqs=num_seqs, slot_mapping=slot_map,
                         positions=pos, logits_indices=iota, max_q_len=1,
                         max_kv_len=kv_bound, **sw))
+                if ops.guided:
+                    g_act = valid & (gst >= 0)
+                    logits = self._guided_mask(logits, gst, g_act)
                 if brow is not None:
                     logits = add_embedding_bias(logits, brow)
                 if ops.ngram:
@@ -1249,6 +1427,9 @@ class ModelEngine:
                     use_penalties)
                 if ops.ngram:
                     self._append_history(tok, out_slots, pos + 1, active)
+                if ops.guided:
+                    gst = torch.where(active & g_act,
+                                      self._guided_walk(tok, gst), gst)
                 new_emitted = emitted + active.to(torch.int32)
                 hit_stop = (tok[:, None] == stops).any(dim=1)
                 stopped = hit_stop & (new_emitted >= stop_gate)
@@ -1259,6 +1440,9 @@ class ModelEngine:
                 cur = tok
                 toks.append(tok)
                 lps.append(lp)
+            if ops.guided:
+                keep = valid & (gst0 >= 0)
+                self.g_state[torch.where(keep, out_slots, trash).long()] = gst
             return torch.stack(toks), torch.stack(lps), emitted
         return body
 

@@ -118,6 +118,10 @@ class LlmRequest:
 
         # seq slot assigned by the executor while scheduled
         self.seq_slot: Optional[int] = None
+        # guided decoding on the device backend: the slot's grammar state
+        # lives in the engine's pool (guided/device_guided.py), set while
+        # the request holds its slot
+        self.guided_device: bool = False
 
         # device-side progress (overlap scheduling): number of tokens whose
         # KV has been scheduled/written on device — may run ahead of

@@ -65,7 +65,18 @@ Two workloads:
   surface's options (``surface_workload``: seeded n = 4 sampling,
   no-repeat-ngram with a bias and bad words, prompt logprobs, beam
   search, a logits processor); the line then carries each class's rate,
-  TTFT and TPOT, and the surface's counters (``measure_surface``).
+  TTFT and TPOT, and the surface's counters (``measure_surface``);
+- ``--guided [--guided-backend dfa|dfa-host]``: ``chip_smoke.py``'s
+  guided_serving run, Llama-3-8B as above behind one ``LLM`` with
+  guided decoding on the device (``dfa``, the default: overlap depth 4,
+  K = 8) or on the host (``dfa-host``, the sync scheduler), byte-level
+  token bytes and a 16,384-state pool, prefix reuse off, serving one
+  mixed batch (``guided_workload``: JSON schema, regex, EBNF and
+  ``json_object`` requests, unguided ones, unguided ones aborted through
+  ``LLM.abort_request`` at 16 tokens, and one regex too large for the
+  pool); the line then carries each class's rate, TTFT and TPOT, each
+  grammar's build ms, the pool states in use, the guided windows and
+  single steps, and how each request ended (``measure_guided``).
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms). ``--spec EAGLE3 --draft-len d`` serves the
@@ -100,6 +111,8 @@ K1 / K2 launches made while drafting (the rest are the target's).
     python -m tensorrt_llm_tpu_torch.tools.serving_profile \
         --geometry llama3-8b-copy --spec DRAFT_TARGET --draft-len 4
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --surface
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile --guided \
+        [--guided-backend dfa-host]
 """
 from __future__ import annotations
 
@@ -579,6 +592,243 @@ def measure_surface(llm, prompts, sps, classes, profile: bool = True
     return res, outs
 
 
+# guided_workload's grammars: an extraction / tool-call schema, a
+# fixed-length ID, arithmetic with bounded recursion (the EBNF compiler
+# expands it to a depth of 6), and a regex of 20,001 DFA states, more
+# than the pool's 16,384 (json_object_regex() needs 10,976, more than
+# the default 8,192, hence the larger pool)
+GUIDED_SCHEMA = {
+    "type": "object",
+    "properties": {"name": {"type": "string"},
+                   "age": {"type": "integer"},
+                   "color": {"type": "string",
+                             "enum": ["red", "green", "blue"]},
+                   "ids": {"type": "array", "items": {"type": "integer"},
+                           "maxItems": 8}},
+    "required": ["name", "age", "color", "ids"]}
+GUIDED_REGEX = r"\d{3}-\d{4}"
+GUIDED_EBNF = """root ::= expr
+expr ::= num | num op expr | "(" expr ")" | "(" expr ")" op expr
+num ::= [0-9]+
+op ::= [-+*/]
+"""
+GUIDED_OVERSIZE = "[0-9]{20000}"
+GUIDED_POOL_STATES = 16384
+GUIDED_ABORT_AT = 16
+
+
+def guided_workload(backend: str = "dfa"):
+    """``chip_smoke.py``'s guided_serving traffic: Llama-3-8B
+    (``LLAMA3_8B``, seeded random weights) behind one ``LLM`` with
+    ``guided_decoding_backend=backend``, ``guided_token_bytes="byte"``
+    (token i < 256 is byte i, EOS is token 0, so a grammar ends only with
+    ``end_id=0``), prefix reuse off, and otherwise ``LLM`` defaults (64
+    rows; on ``dfa`` overlap depth 4 and K = 8). Returns (config, LLM
+    keyword arguments, pool states for TLLM_TPU_GUIDED_POOL_STATES,
+    prompts, a SamplingParams per prompt, a class name per prompt). The
+    classes, 512 seeded random prompt tokens each:
+
+    - ``json_schema``: 16 -> 128 greedy, ``GUIDED_SCHEMA`` (a string, an
+      integer, an enum, an array of integers: what an extraction or a
+      tool-call client sends);
+    - ``regex``: 16 -> 128 greedy, ``GUIDED_REGEX`` (an ID, which ends on
+      EOS);
+    - ``ebnf``: 8 -> 128 greedy, ``GUIDED_EBNF`` (arithmetic);
+    - ``json_object``: 8 -> 128 greedy, any JSON object;
+    - ``unguided``: 16 -> 128 greedy;
+    - ``aborted``: 8 -> 128 greedy, unguided, each aborted through
+      ``LLM.abort_request`` once it has ``GUIDED_ABORT_AT`` tokens;
+    - ``oversize``: 1 -> 128, ``GUIDED_OVERSIZE``, which cannot fit the
+      pool: it must fail, naming the pool."""
+    from transformers import LlamaConfig
+
+    from tensorrt_llm_tpu_torch import (GuidedDecodingParams, KvCacheConfig,
+                                        SamplingParams)
+    V = LLAMA3_8B["vocab_size"]
+    gen = torch.Generator().manual_seed(0)
+    prompts, sps, classes = [], [], []
+
+    def add(name, n, **kw):
+        for p in torch.randint(0, V, (n, 512), generator=gen).tolist():
+            prompts.append(p)
+            classes.append(name)
+            gd = GuidedDecodingParams(**kw) if kw else None
+            sps.append(SamplingParams(max_tokens=128, top_k=1, end_id=0,
+                                      ignore_eos=not kw,
+                                      guided_decoding=gd))
+    add("json_schema", 16, json=GUIDED_SCHEMA)
+    add("regex", 16, regex=GUIDED_REGEX)
+    add("ebnf", 8, grammar=GUIDED_EBNF)
+    add("json_object", 8, json_object=True)
+    add("unguided", 16)
+    add("aborted", 8)
+    add("oversize", 1, regex=GUIDED_OVERSIZE)
+    kwargs = dict(guided_decoding_backend=backend, guided_token_bytes="byte",
+                  kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+    return (LlamaConfig(**LLAMA3_8B), kwargs, GUIDED_POOL_STATES, prompts,
+            sps, classes)
+
+
+def _guided_pass(llm, prompts, sps, classes):
+    """One pass of the guided workload: every request submitted at once,
+    the ``aborted`` class cancelled through ``LLM.abort_request`` once
+    each has ``GUIDED_ABORT_AT`` tokens (a thread polls them). Returns
+    (wall seconds, outputs by request: a RequestOutput, or the exception
+    its result raised)."""
+    import threading
+    t0 = time.monotonic()
+    futs = [llm.generate_async(p, s) for p, s in zip(prompts, sps)]
+    watch = [f for f, c in zip(futs, classes) if c == "aborted"]
+    stop = threading.Event()
+
+    def aborter():
+        left = list(watch)
+        while left and not stop.is_set():
+            for f in list(left):
+                req = f._result.request
+                if req.num_output_tokens >= GUIDED_ABORT_AT or \
+                        req.is_finished:
+                    llm.abort_request(f.request_id)
+                    left.remove(f)
+            time.sleep(0.001)
+    th = threading.Thread(target=aborter, daemon=True)
+    th.start()
+    outs = []
+    for f in futs:
+        try:
+            outs.append(f.result(timeout=900))
+        except Exception as e:      # the oversize request's error
+            outs.append(e)
+    stop.set()
+    th.join()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.monotonic() - t0, outs
+
+
+def measure_guided(llm, prompts, sps, classes, profile: bool = True
+                   ) -> dict:
+    """Warm-up pass (every grammar compiles and lands in the pool here),
+    timed pass (the kernels' launch counters zeroed right before it and
+    read right after), then (``profile``) a profiled pass of the guided
+    workload: per-class rates and latencies (of the requests that
+    returned), each grammar's build ms (warm-up pass), the pool states
+    in use, windows that carried device-guided rows against single steps
+    with guided rows, graph replays (and those of guided window keys),
+    free KV blocks before and after the timed pass, segment refcounts
+    after it, ``LLM.get_stats`` length, each request's end, the device
+    idle share and GPU time by class (profiled pass) and peak allocated
+    memory. Returns (result, the timed pass's outputs)."""
+    kernels = kernel_modules()
+    eng, ex, kv = llm.engine, llm.executor, llm.kv_cache_manager
+    mgr = ex.guided_decoder.device
+    _guided_pass(llm, prompts, sps, classes)
+    build_ms = dict(mgr.build_ms) if mgr is not None else {}
+    c0 = dict(replays=eng.graphs.replays, decode=eng.decode_steps,
+              window=eng.window_steps, gwin=eng.guided_windows,
+              gstep=eng.guided_steps, failed=ex.requests_failed,
+              adm=ex.guided_admissions, adm_ms=ex.guided_admission_ms,
+              gkeys=_guided_window_replays(eng))
+    free0 = kv.get_num_free_blocks()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    wall, outs = _guided_pass(llm, prompts, sps, classes)
+    launches = {k: mod.LAUNCHES for k, mod in kernels.items()}
+    # the loop releases a request's KV as it finishes; let it settle
+    for _ in range(200):
+        if kv.get_num_free_blocks() == free0:
+            break
+        time.sleep(0.01)
+    ok = [(o, c) for o, c in zip(outs, classes)
+          if not isinstance(o, Exception)]
+    ends: dict = {}
+    for o, c in zip(outs, classes):
+        end = "error" if isinstance(o, Exception) else \
+            o.outputs[0].finish_reason
+        ends.setdefault(c, {}).setdefault(end, 0)
+        ends[c][end] += 1
+    res = dict(
+        device=torch.cuda.get_device_name(0),
+        nvidia_smi=subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
+        backend=llm.args.guided_decoding_backend,
+        requests=len(prompts), wall_ms=wall * 1e3,
+        classes=surface_class_stats([o for o, _ in ok],
+                                    [c for _, c in ok], wall),
+        ends=ends,
+        errors=[f"{c}: {o}" for o, c in zip(outs, classes)
+                if isinstance(o, Exception)],
+        grammar_build_ms=list(build_ms.values()),
+        guided_admissions=ex.guided_admissions - c0["adm"],
+        guided_admission_ms=ex.guided_admission_ms - c0["adm_ms"],
+        pool_states=mgr.pool_states if mgr is not None else 0,
+        pool_states_in_use=mgr.states_in_use if mgr is not None else 0,
+        segment_refs=[s.refs for s in mgr._segments.values()]
+        if mgr is not None else [],
+        launches=launches, graphs_captured=eng.graphs.num_graphs,
+        graph_replays=eng.graphs.replays - c0["replays"],
+        guided_window_replays=_guided_window_replays(eng) - c0["gkeys"],
+        window_steps=eng.window_steps - c0["window"],
+        single_decode_steps=(eng.decode_steps - c0["decode"])
+        - (eng.window_steps - c0["window"]),
+        guided_windows=eng.guided_windows - c0["gwin"],
+        guided_single_steps=eng.guided_steps - c0["gstep"],
+        requests_failed=ex.requests_failed - c0["failed"],
+        free_blocks_before=free0, free_blocks_after=kv.get_num_free_blocks(),
+        stats_len=len(llm.get_stats()),
+        peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    if profile:
+        t0 = time.monotonic()
+        res.update(_profiled(llm, prompts, sps, wall,
+                             run=lambda: _guided_pass(llm, prompts, sps,
+                                                      classes)))
+        res["profiled_pass_s"] = time.monotonic() - t0
+        if mgr is not None:
+            # the grammar's cost per decode step (mask and byte walk over
+            # every row), times the guided decode steps of a pass, over
+            # the pass's GPU time
+            ms = guided_step_ms(eng, mgr.states_in_use)
+            steps = res["guided_windows"] * llm.args.decode_multi_step + \
+                res["guided_single_steps"]
+            res.update(guided_mask_walk_ms=ms,
+                       guided_share_of_gpu=ms * steps / res["gpu_kernel_ms"])
+    return res, outs
+
+
+def guided_step_ms(eng, states: int, reps: int = 30) -> float:
+    """Median ms (CUDA events) of one step's grammar work on the card at
+    ``max_batch_size`` rows: the device mask (``_guided_mask``) over
+    float32 logits and the byte walk (``_guided_walk``), from seeded
+    states below ``states``."""
+    dev, S, V = eng.device, eng.max_batch_size, eng.model.vocab_size
+    g = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn((S, V), generator=g, device=dev)
+    st = torch.randint(0, max(1, states), (S,), generator=g, device=dev,
+                       dtype=torch.int32)
+    tok = torch.randint(0, V, (S,), generator=g, device=dev)
+    act = torch.ones(S, dtype=torch.bool, device=dev)
+    times = []
+    for _ in range(reps + 3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        eng._guided_mask(logits, st, act)
+        eng._guided_walk(tok, st)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times[3:])
+
+
+def _guided_window_replays(eng) -> int:
+    """Replays of K-step window graphs whose key carries the device
+    grammar walk."""
+    return sum(s.replays for k, s in eng.graphs.steps.items()
+               if k[0] == "multi" and k[8].guided)
+
+
 def _spec_counts(llm):
     """The spec window's cumulative counters (None without speculation);
     ``measure`` reports their change over the timed pass."""
@@ -592,14 +842,17 @@ def _spec_counts(llm):
                 idle_iters=ex.spec_idle_iters)
 
 
-def _profiled(llm, prompts, sp, plain_wall: float) -> dict:
+def _profiled(llm, prompts, sp, plain_wall: float, run=None) -> dict:
+    """A pass under ``torch.profiler`` (``run``: the pass, by default
+    ``_generate`` of ``prompts`` and ``sp``)."""
     from torch.profiler import ProfilerActivity, profile
     eng = llm.engine
     steps0 = eng.decode_steps
     moe = getattr(eng.model, "num_experts", 0) > 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, _ = _generate(llm, prompts, sp)
+        wall, _ = run() if run is not None else \
+            _generate(llm, prompts, sp)
     # a pass's schedule may differ by a step or so between passes
     steps = max(1, eng.decode_steps - steps0)
     by_class: dict = {}
@@ -658,10 +911,26 @@ def main() -> None:
     ap.add_argument("--surface", action="store_true",
                     help="Llama-3-8B serving the sampling surface's mixed "
                     "batch (surface_workload)")
+    ap.add_argument("--guided", action="store_true",
+                    help="Llama-3-8B serving guided_workload's mixed batch")
+    ap.add_argument("--guided-backend", choices=("dfa", "dfa-host"),
+                    default="dfa", help="--guided: where the grammar walks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from tensorrt_llm_tpu_torch import LLM
+    if args.guided:
+        import os
+        cfg, kwargs, pool, prompts, sps, classes = guided_workload(
+            args.guided_backend)
+        os.environ["TLLM_TPU_GUIDED_POOL_STATES"] = str(pool)
+        llm = LLM(cfg, dtype="bfloat16", **kwargs)
+        try:
+            res, _ = measure_guided(llm, prompts, sps, classes)
+        finally:
+            llm.shutdown()
+        print(json.dumps(dict(guided=True, **res)))
+        return
     if args.surface:
         cfg, kwargs, prompts, sps, classes, _ = surface_workload()
         llm = LLM(cfg, dtype="bfloat16", **kwargs)

@@ -1277,3 +1277,109 @@ def test_beam_search_card_equals_cpu(cuda):
         assert [t for t, _ in g_] == [t for t, _ in w_]
         np.testing.assert_allclose([s for _, s in g_], [s for _, s in w_],
                                    rtol=0, atol=1e-4)
+
+
+def _guided_llm(device, dtype, K, mode="graph"):
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig
+    llm = LLM("tests/assets/tinycode-llama", device=device, dtype=dtype,
+              skip_tokenizer_init=True, max_batch_size=4, max_input_len=128,
+              max_seq_len=256, max_num_tokens=256, decode_multi_step=K,
+              enable_warmup=mode == "graph", guided_decoding_backend="dfa",
+              guided_token_bytes="byte",
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    llm.engine.graphs.capture = mode == "graph"
+    return llm
+
+
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_guided_replay_equals_eager(cuda, K, dtype):
+    """tinycode-llama with the device guided backend serves one batch of
+    grammar rows (regex, EBNF) beside an unguided row twice on the card:
+    single steps (K = 1) or K-step windows (K = 8) replayed from CUDA
+    graphs whose keys carry the grammar walk, and the same steps run
+    eagerly on the same static buffers. Tokens are identical, graphs with
+    the walk in their keys replayed, and each guided output is a live
+    prefix of its grammar."""
+    from tensorrt_llm_tpu_torch import GuidedDecodingParams, SamplingParams
+    from tensorrt_llm_tpu_torch.runtime.model_engine import LogitsOps
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"x = 1\ny = "), list(b"import torch\n")]
+    gps = [GuidedDecodingParams(regex=r"[a-z_]+\(\d{1,3}\)"),
+           GuidedDecodingParams(grammar='root ::= "[" [0-9]+ ("," [0-9]+)* '
+                                        '"]"'), None]
+    sps = [SamplingParams(max_tokens=32, top_k=1, end_id=0,
+                          ignore_eos=gp is None, guided_decoding=gp)
+           for gp in gps]
+    runs = {}
+    for mode in ("graph", "eager"):
+        llm = _guided_llm(cuda, dtype, K, mode)
+        try:
+            futs = [llm.generate_async(p, sp) for p, sp in zip(prompts, sps)]
+            toks = [f.result().outputs[0].token_ids for f in futs]
+            ops = [[x for x in k if isinstance(x, LogitsOps)][0]
+                   for k, st in llm.engine.graphs.steps.items()
+                   if st.replays]
+            runs[mode] = (toks, [o for o in ops if o.guided])
+            factory = llm.executor.guided_decoder.factory
+        finally:
+            llm.shutdown()
+    assert runs["graph"][0] == runs["eager"][0]
+    assert runs["graph"][1]
+    for toks, gp in zip(runs["graph"][0][:2], gps):
+        _, dfa = factory.compile_dfa(gp)
+        s = dfa.start
+        for t in toks[:toks.index(0) if 0 in toks else len(toks)]:
+            s = int(dfa.table[s, t])
+            assert s >= 0
+
+
+@pytest.mark.parametrize("V", [257, 128256])
+def test_guided_mask_unpack_equals_bool(cuda, V):
+    """The packed bit masks unpack on the card to the bool masks they came
+    from: the device pool's rows (``np.packbits``, little-endian) and the
+    host backend's mask as the step's int32 input (``_pack_mask``)."""
+    from tensorrt_llm_tpu_torch.runtime.model_engine import (_pack_mask,
+                                                             _unpack_bits)
+    rng = np.random.default_rng(V)
+    mask = rng.random((64, V)) < 0.3
+    bits = torch.as_tensor(np.packbits(mask, axis=1, bitorder="little"),
+                           device=cuda)
+    assert torch.equal(_unpack_bits(bits, V).cpu(), torch.as_tensor(mask))
+    words = torch.as_tensor(_pack_mask(mask), device=cuda)
+    assert torch.equal(_unpack_bits(words.view(torch.uint8), V).cpu(),
+                       torch.as_tensor(mask))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_guided_state_after_window_equals_host(cuda, dtype):
+    """After a request's last replayed window (17 tokens: the prefill
+    step's and two windows of K = 8, each of whose tokens the host keeps;
+    the grammar never accepting so that no EOS ends it), the slot's
+    grammar state on the card equals the host's ``state_after`` over the
+    tokens it returned."""
+    from tensorrt_llm_tpu_torch import GuidedDecodingParams, SamplingParams
+    llm = _guided_llm(cuda, dtype, 8)
+    seen = {}
+    ex = llm.executor
+    finish = ex._finish_request
+
+    def record(req):
+        if req.seq_slot is not None and req.guided_device:
+            torch.cuda.synchronize()
+            seen[req.request_id] = (int(llm.engine.g_state[req.seq_slot]),
+                                    list(req.output_token_ids))
+        finish(req)
+    ex._finish_request = record
+    gp = GuidedDecodingParams(regex="[a-z ]{40}")
+    try:
+        out = llm.generate(list(b"the quick brown fox "), SamplingParams(
+            max_tokens=17, top_k=1, end_id=0, guided_decoding=gp))
+        state, toks = seen[out.request_id]
+        assert toks == out.outputs[0].token_ids and len(toks) == 17
+        assert llm.engine.graphs.replays > 0
+        assert state == ex.guided_decoder.device.state_after(gp, toks)
+        assert state >= 0
+    finally:
+        llm.shutdown()

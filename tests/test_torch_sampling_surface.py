@@ -399,8 +399,11 @@ def test_ngram_with_processor_is_refused(sync_llms):
 
 
 def test_guided_decoding_stays_refused(llms):
+    """These LLMs have no guided backend: a guided request is refused,
+    naming the knob that serves it (tests/test_torch_guided.py serves
+    guided decoding)."""
     from tensorrt_llm_tpu_torch.sampling_params import GuidedDecodingParams
-    with pytest.raises(NotImplementedError, match="guided decoding"):
+    with pytest.raises(ValueError, match="guided_decoding_backend"):
         llms[1].generate([1, 2], _sp("torch", max_tokens=4,
                                      guided_decoding=GuidedDecodingParams(
                                          regex="a+")))
