@@ -144,9 +144,9 @@ the run on error:
      against the CPU plain path: identical greedy tokens in float32, in
      bf16 a parting only at a near-tie; K1 and K2 must launch, VSWA must
      release sliding blocks;
- 14. gemma_serving: Gemma-2-9B at full width, 22 of its 42 layers
+ 14. gemma_serving: Gemma-2-9B at full width, 12 of its 42 layers
      (``GEMMA2_9B_LAYERS``: a depth cut for the script's time budget;
-     seeded random bf16, 10.5 GB), 16 x 6,144 -> 64 greedy tokens,
+     seeded random bf16, 7.0 GB), 16 x 6,144 -> 64 greedy tokens,
      max_seq_len 8,192, once with VSWA (``max_attention_window=[4096,
      8192]``) and once with one pool (tools/serving_profile.py
      ``--geometry gemma2-9b [--vswa]``: tok/s, TTFT, TPOT, idle share,
@@ -168,7 +168,8 @@ the run on error:
      the card's scale tensors after its graphs were captured: greedy
      tokens identical wherever the CPU run decides by more than 3e-2 in
      log-probability; K1, K2 and graph replays required;
- 17. kv_serving: Llama-3-8B at its published width and depth (32 layers;
+ 17. kv_serving: Llama-3-8B at its published width and 16 of its 32
+     layers (``KV_SERVING_LAYERS``: a depth cut for the time budget;
      seeded random bf16 weights, 16.1 GB), 64 x 2,048 -> 128 greedy
      tokens, ``LLM`` defaults but prefix reuse off, on an FP8 pool
      (tools/serving_profile.py ``--geometry llama3-8b --kv fp8``; the
@@ -199,8 +200,9 @@ the run on error:
      speculation on both devices, DRAFT_TARGET accepts more than 0.9 of
      its drafts, verify steps replayed from graphs on the card; prints the
      drafts accepted per verify step of each mode;
- 20. host_spec_serving: Llama-3-8B at its published width and depth on a
-     bf16 pool, 32 prompts of 512 tokens, each a seeded random 128-token
+ 20. host_spec_serving: Llama-3-8B at its published width and 16 of its
+     32 layers (``HOST_SPEC_TARGET_LAYERS``: a depth cut for the time
+     budget) on a bf16 pool, 32 prompts of 512 tokens, each a seeded random 128-token
      segment repeated 4 times, 128 greedy tokens with ``ignore_eos``,
      ``LLM`` defaults but prefix reuse off (tools/serving_profile.py
      ``--geometry llama3-8b-copy [--spec DRAFT_TARGET]``): without
@@ -208,8 +210,9 @@ the run on error:
      Llama-3.2-1B from its published config (seeded random weights:
      acceptance near 0, so the run measures what drafting costs); the
      NGRAM run (``--spec NGRAM``) is left out for the script's time
-     budget. Per run: tok/s, TTFT and TPOT (median, max), idle share, GPU
-     time by class, the drafting calls' device time, accepted drafts per
+     budget. Per run: tok/s, TTFT and TPOT (median, max), idle share and
+     GPU time by class (the run without speculation only: time
+     budget), the drafting calls' device time, accepted drafts per
      verify step, verify steps replayed and run eagerly (0 without prompt
      tokens, or the phase fails), K1 / K2 launches of the target and of
      the drafter (both must launch both), peak allocated memory; the
@@ -237,8 +240,8 @@ the run on error:
      8 x 512 -> 128 greedy with no-repeat-ngram 3, a [V] bias and 16 bad
      words, 4 x 512 -> 16 with prompt_logprobs 5, 4 x 256 -> 64 beam
      search (best_of 4, n 2), 4 x 512 -> 64 with a numpy processor banning
-     64 tokens; per class tok/s, TTFT and TPOT (median, max), and the
-     device idle share, graphs, windows against single steps, K1 / K2
+     64 tokens; per class tok/s, TTFT and TPOT (median, max), and
+     (without a profiled pass: time budget) graphs, windows against single steps, K1 / K2
      launches, the prompt-logprobs forward's mean ms, beam forks and
      pages copied, reuse hits, peak memory. Fails unless every class
      finishes at its length, every prompt-logprob dict holds its prompt
@@ -269,9 +272,9 @@ the run on error:
      8 unguided aborted through ``LLM.abort_request`` at 16 tokens, and
      one regex of 20,001 DFA states; per class tok/s, TTFT and TPOT
      (median, max), each grammar's build ms, pool states in use, guided
-     windows against single steps, graph replays, K1 / K2 launches, idle
-     share, GPU time by class, one step's grammar work (mask and walk)
-     and its share of GPU time, free KV blocks before and after,
+     windows against single steps, graph replays, K1 / K2 launches (no
+     profiled pass, for the time budget: no idle share, GPU time by class
+     or grammar share), free KV blocks before and after,
      ``get_stats`` length and peak memory. Fails unless each guided
      output that ended on EOS matches its grammar in full (``json.loads``
      and the schema's fields; ``re.fullmatch``) and each that hit its
@@ -281,12 +284,46 @@ the run on error:
      segment's refcount is 0, guided rows rode replayed windows, and K1
      and K2 launched.
 
+ 26. quant_linear_kernels: K3's e4m3 body (FP8 weights) at Llama-3-8B's
+     projection shapes (qkv 4096 -> 6144, o 4096 -> 4096, gate_up 4096 ->
+     28672, down 14336 -> 4096) at 64 rows and one row, with per-tensor
+     scales (a fused projection's [N]) and 128 x 128 block scales: held
+     against its plain version (2e-2, and 2e-2 x max |plain|), timed warm
+     and cold beside its byte bound, ``F.linear`` on the bf16 weight (warm
+     and cold), the per-call-upcast route and the plain version; and
+     SmoothQuant's and W4A8's whole ``apply`` at the same shapes;
+ 27. quant_parity: tests/assets/tinycode-llama in float32 under FP8, FP8
+     block, SmoothQuant W8A8 (through the inline-model entry) and W4A8,
+     the card against the CPU: greedy tokens identical (FP8, through K3's
+     e4m3 body, wherever the CPU decides by more than 3e-2); K3's e4m3
+     body must launch under FP8 and smoothed q/k/v must stay apart;
+ 28. quant_serving: Llama-3-8B at full width and depth with FP8 weights
+     and a bf16 KV cache, 64 x 512 -> 128 (tools/serving_profile.py
+     ``--geometry llama3-8b-quant --quant FP8``): tok/s, TTFT, TPOT,
+     idle share, GPU time by class, weight bytes, peak memory, launches;
+     every window step's projections must launch K3's e4m3 body (no
+     weight widened in memory on a decode step); beside it 8-layer
+     passes of 64 x 512 -> 64 in bf16, FP8, FP8 block, SmoothQuant
+     (calibrated on an inline ``transformers`` module built on the card
+     in bf16, ``--inline``) and W4A8, with the same figures;
+ 29. families_parity: the nine Llama-derived families (Granite, OLMo 2,
+     Phi-3, GLM, GLM-4, SmolLM3, Helium, Arcee, EXAONE 4): a tiny seeded
+     float32 checkpoint of each, the card against the CPU, greedy tokens
+     identical and K1 / K2 launched; and one bf16 run of each at a
+     published model's width (``serving_profile.FAMILIES``: 2 layers, 4
+     for EXAONE-4.0-32B and SmolLM3-3B), 16 x 256 -> 32 through graphs,
+     K1 / K2 launched, windows replayed, every logprob finite.
+
+``python3 chip_smoke.py --only a,b`` runs just the named phases (a
+development run: no kernels line, no result line).
+
 The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results (launches from the bench-settings run, or the
 W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's,
 moe_serving's, gemma_serving's, kv_serving's, host_spec_serving's
 DRAFT_TARGET (as the target's and the drafter's), surface_serving's and
-guided_serving's timed passes) and
+guided_serving's timed passes; the dequant-matmul kernel's row also its
+e4m3 cases and its e4m3 launches in quant_serving's runs) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -1858,10 +1895,10 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
 # the engines' page-table widths: max_seq_len 8,192 (Gemma-2-9B) and
 # 1,152 (Gemma-3-1B) over pages of 32
 PAGES_9B, PAGES_1B = 256, 36
-# gemma_serving's depth of Gemma-2-9B: 22 of its 42 layers since PR 9
-# (even, as VSWA's strict alternation needs), to keep the script inside
-# its time budget beside kv_serving; every layer has the full width
-GEMMA2_9B_LAYERS = 22
+# gemma_serving's depth of Gemma-2-9B: 12 of its 42 layers (even, as
+# VSWA's strict alternation needs), to keep the script inside its time
+# budget; every layer has the full width
+GEMMA2_9B_LAYERS = 12
 
 
 def gemma_kernel_phase(results: dict) -> None:
@@ -2056,8 +2093,8 @@ def _record_eager_steps(eng) -> list:
 
 
 def gemma_serving_phase() -> dict:
-    """Gemma-2-9B at its published width, 22 of its 42 layers
-    (``GEMMA2_9B_LAYERS``; seeded random bf16 weights, 10.5 GB), 16
+    """Gemma-2-9B at its published width, 12 of its 42 layers
+    (``GEMMA2_9B_LAYERS``; seeded random bf16 weights, 7.0 GB), 16
     requests of 6,144 prompt tokens ->
     64 greedy tokens with ``ignore_eos`` (max_seq_len 8,192; one prompt
     per prefill step), measured by tools/serving_profile.py
@@ -2282,8 +2319,9 @@ def _pool_nans(pools) -> int:
 
 
 def kv_serving_phase() -> dict:
-    """Llama-3-8B at its published width and depth (32 layers; seeded
-    random bf16 weights, 16.1 GB), 64 requests of 2,048 prompt tokens ->
+    """Llama-3-8B at its published width and 16 of its 32 layers
+    (``KV_SERVING_LAYERS``, a depth cut for the script's time budget;
+    seeded random bf16 weights), 64 requests of 2,048 prompt tokens ->
     128 greedy tokens with ``ignore_eos``, ``LLM`` defaults but prefix
     reuse off, measured by tools/serving_profile.py (``--geometry
     llama3-8b --kv fp8``): on an FP8 pool, scales calibrated at build
@@ -2306,6 +2344,7 @@ def kv_serving_phase() -> dict:
     out = {}
     for label, algo in (("fp8", "FP8"),):
         cfg, kwargs, prompts, sp = sprof.workload(geometry="llama3-8b")
+        cfg.num_hidden_layers = KV_SERVING_LAYERS
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2477,9 +2516,16 @@ def host_spec_parity_phase(repo: Path) -> dict:
     return out
 
 
+# depth cuts of serving runs for the script's time budget: full width,
+# fewer layers
+HOST_SPEC_TARGET_LAYERS = 16
+KV_SERVING_LAYERS = 16
+
+
 def host_spec_serving_phase() -> dict:
-    """Llama-3-8B at full width and depth on a bf16 pool (seeded random
-    weights), 32 prompts of 512 tokens (a seeded 128-token segment
+    """Llama-3-8B at full width and 16 of its 32 layers
+    (``HOST_SPEC_TARGET_LAYERS``, a depth cut for the script's time
+    budget) on a bf16 pool (seeded random weights), 32 prompts of 512 tokens (a seeded 128-token segment
     repeated 4 times) -> 128 greedy tokens, ``LLM`` defaults but prefix
     reuse off (tools/serving_profile.py ``--geometry llama3-8b-copy``):
     without speculation and with DRAFT_TARGET (d = 4) drafting with
@@ -2503,6 +2549,7 @@ def host_spec_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch import LLM, SamplingParams
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     cfg, kwargs, prompts, sp = sprof.workload(geometry="llama3-8b-copy")
+    cfg.num_hidden_layers = HOST_SPEC_TARGET_LAYERS
     sp_lp = SamplingParams(max_tokens=sp.max_tokens, top_k=1,
                            ignore_eos=True, logprobs=2)
     runs, streams = {}, {}
@@ -2517,7 +2564,8 @@ def host_spec_serving_phase() -> dict:
         build_s = time.monotonic() - t0
         try:
             eng = llm.engine
-            res = sprof.measure(llm, prompts, sp)
+            # the drafting run without a profiled pass (time budget)
+            res = sprof.measure(llm, prompts, sp, profile=mode is None)
             outs = llm.generate(prompts[:8], sp_lp if mode is None else sp)
             streams[label] = ([o.outputs[0].token_ids for o in outs],
                               [o.outputs[0].logprobs for o in outs])
@@ -2707,7 +2755,9 @@ def surface_serving_phase() -> dict:
     llm = LLM(cfg, dtype="bfloat16", **kwargs)
     build_s = time.monotonic() - t0
     try:
-        res, outs = sprof.measure_surface(llm, prompts, sps, classes)
+        # without a profiled pass (time budget)
+        res, outs = sprof.measure_surface(llm, prompts, sps, classes,
+                                          profile=False)
         res.update(engine_build_s=build_s, model="Llama-3-8B",
                    layers=cfg.num_hidden_layers,
                    kv_pages=llm.engine.num_kv_pages,
@@ -3050,7 +3100,9 @@ def guided_serving_phase() -> dict:
     llm = LLM(cfg, dtype="bfloat16", **kwargs)
     build_s = time.monotonic() - t0
     try:
-        res, outs = sprof.measure_guided(llm, prompts, sps, classes)
+        # without a profiled pass (time budget)
+        res, outs = sprof.measure_guided(llm, prompts, sps, classes,
+                                         profile=False)
         res.update(engine_build_s=build_s, model="Llama-3-8B",
                    layers=cfg.num_hidden_layers,
                    kv_pages=llm.engine.num_kv_pages,
@@ -3075,6 +3127,409 @@ def guided_serving_phase() -> dict:
     emit({"phase": "guided_serving", **res})
     if faults:
         raise AssertionError(f"guided_serving: {faults}")
+    return res
+
+
+# --------------------------------------------------------------------- #
+# Weights quantized at load (FP8, FP8 block, SmoothQuant, W4A8) and the
+# Llama-derived dense families
+# --------------------------------------------------------------------- #
+# Llama-3-8B's projections (fused q|k|v and gate|up, as the port runs
+# them): (name, K, N, fused)
+LLAMA3_8B_PROJ = (("qkv", 4096, 6144, True), ("o", 4096, 4096, False),
+                  ("gate_up", 4096, 28672, True),
+                  ("down", 14336, 4096, False))
+
+
+def quant_linear_kernel_phase(results: dict) -> None:
+    """K3's e4m3 body at Llama-3-8B's projection shapes, at 64 rows (a
+    decode step) and one row, with FP8 per-tensor scales (a fused
+    projection holds each part's scale over its columns: [N]) and with
+    128 x 128 block scales: each case against the plain version on the
+    same inputs (2e-2, and 2e-2 x max |plain|), its time warm and cold
+    (rotating over weight copies past the L2 cache), the byte bound (K x
+    N e4m3 bytes + scales + x + out at 3.35 TB/s; the bf16 wgmma
+    operations at 989 TFLOP/s), ``F.linear`` on the bf16 weight (warm and
+    cold), the per-call-upcast route (the FP8 methods' route above 128
+    rows: the weight widened to bf16 on every call, then one float32-out
+    product, times the scale) and the plain version's time. Then
+    SmoothQuant's and W4A8's whole ``apply`` (smoothing, per-token int8,
+    ``torch._int_mm``, epilogue) at the same shapes and rows."""
+    import torch
+    import torch.nn.functional as F
+    from tensorrt_llm_tpu_torch import QuantAlgo, QuantConfig
+    from tensorrt_llm_tpu_torch.models.modeling_utils import quantize_linear
+    from tensorrt_llm_tpu_torch.ops import linear as L
+    from tensorrt_llm_tpu_torch.ops import quant as Q
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+
+    for proj, K, N, fused in LLAMA3_8B_PROJ:
+        g = torch.Generator(device="cuda").manual_seed(K + N)
+        w = torch.randn((K, N), generator=g, device="cuda") * 0.02
+        wb = w.t().to(torch.bfloat16).contiguous()          # F.linear's
+        forms = {}
+        q, s = Q.quantize_weight_fp8(w)
+        forms["fp8"] = (q, s.expand(N).contiguous() if fused else s)
+        forms["fp8_block"] = Q.quantize_weight_fp8_blockwise(w)
+        int8 = {}
+        smooth = torch.rand(K, generator=g, device="cuda") + 0.5
+        for algo in ("W8A8_SQ_PER_CHANNEL", "W4A8_AWQ"):
+            m = L.make_linear_method(QuantConfig(
+                quant_algo=QuantAlgo[algo], exclude_modules=[]))
+            int8[algo] = (m, quantize_linear(m, w, device="cuda",
+                                             smooth=smooth))
+        del w
+        wbs = _copies([wb])
+        for M in (64, 1):
+            x = torch.randn((M, K), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            library_ms = time_ms(lambda: F.linear(x, wb), 30)
+            library_cold = time_ms(_rotate(lambda i: F.linear(x, wbs[i][0]),
+                                           len(wbs)), 30)
+            for form, (q, s) in forms.items():
+                name = f"e4m3_{form}_{proj}_m{M}"
+                got = qmm.e4m3_dequant_matmul(x, q, s)
+                ref = qmm.e4m3_dequant_matmul_plain(x, q, s)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                top = ref.float().abs().max().item()
+                if err > TOL * max(1.0, top):
+                    raise AssertionError(f"{name}: kernel != plain (max "
+                                         f"{err}, |plain| {top})")
+                ms = time_ms(lambda: qmm.e4m3_dequant_matmul(x, q, s), 30)
+                qs = _copies([q, s])
+                ms_cold = time_ms(_rotate(
+                    lambda i: qmm.e4m3_dequant_matmul(x, *qs[i]), len(qs)),
+                    30)
+                del qs
+                if form == "fp8":
+                    def upcast():
+                        return (L.dot_f32(x, q.to(torch.bfloat16).t())
+                                * s).to(torch.bfloat16)
+                else:
+                    def upcast():
+                        return L.dot_f32(x, Q.dequantize_fp8_blockwise(
+                            q, s).to(torch.bfloat16).t()).to(torch.bfloat16)
+                upcast_ms = time_ms(upcast, 10)
+                plain_ms = time_ms(
+                    lambda: qmm.e4m3_dequant_matmul_plain(x, q, s), 10)
+                io_bytes = K * N + s.numel() * 4 + x.numel() * 2 + M * N * 2
+                res = dict(shape=dict(M=M, K=K, N=N, scales=list(s.shape)),
+                           max_abs_err=err, max_abs_plain=top, ms=ms,
+                           ms_cold=ms_cold, plain_ms=plain_ms,
+                           library_ms=library_ms,
+                           library_ms_cold=library_cold,
+                           upcast_ms=upcast_ms, bytes=io_bytes,
+                           flops=2 * M * K * N,
+                           **_bound(io_bytes, 2 * M * K * N))
+                res["bound_share_cold"] = res["bound_ms"] / ms_cold
+                results[name] = res
+                emit({"phase": "quant_linear_kernels", "case": name, **res})
+            for algo, (m, p) in int8.items():
+                name = f"int8_{algo}_{proj}_m{M}"
+                out = m.apply(p, x)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"{name}: non-finite output")
+                res = dict(shape=dict(M=M, K=K, N=N),
+                           ms=time_ms(lambda: m.apply(p, x), 30),
+                           library_ms=library_ms,
+                           library_ms_cold=library_cold)
+                results[name] = res
+                emit({"phase": "quant_linear_kernels", "case": name, **res})
+        del forms, int8, wb, wbs
+        torch.cuda.empty_cache()
+
+
+# the algorithms of quant_parity / quant_serving: (label, QuantAlgo name,
+# group size, calibrated on an inline module)
+QUANT_RUNS = (("fp8", "FP8", 128, False),
+              ("fp8_block", "FP8_BLOCK_SCALES", 128, False),
+              ("w8a8_sq", "W8A8_SQ_PER_CHANNEL", 128, True),
+              ("w4a8", "W4A8_AWQ", 128, False))
+
+
+def quant_load_parity_phase(repo: Path) -> dict:
+    """tests/assets/tinycode-llama in float32 under FP8 per-tensor, FP8
+    block, SmoothQuant W8A8 (through the inline-model entry: the same
+    ``transformers`` module, on the CPU, given to both runs, so both
+    calibrate the same smoothing scales) and W4A8 (group 16: 688 is 43
+    groups of 16), through ``LLM.generate`` on the card and on the CPU.
+    FP8 block, SmoothQuant and W4A8 run the CPU's arithmetic on the card
+    in float32 (the weights quantized there to the same bytes): greedy
+    tokens identical. FP8 per-tensor multiplies through K3's e4m3 body
+    (float32 out) wherever K is a multiple of 128, which scales each
+    group's partial sum where the CPU scales the whole sum: tokens
+    identical wherever the CPU run decides by more than 3e-2 in
+    log-probability (``_compare_streams``), and the body must launch.
+    Every run's failures are gathered and raised together."""
+    from transformers import LlamaForCausalLM
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, QuantAlgo,
+                                        QuantConfig, SamplingParams)
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
+    ckpt = repo / "tests" / "assets" / "tinycode-llama"
+    module = LlamaForCausalLM.from_pretrained(ckpt).float().eval()
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"import torch\n"), list(range(32, 120))]
+    n_out = 32
+    res, failures = {}, []
+    for label, algo, _, inline in QUANT_RUNS:
+        group = 16 if algo == "W4A8_AWQ" else 128
+        runs, launches = {}, {}
+        for dev in ("cpu", "cuda"):
+            qmm.LAUNCHES_E4M3 = 0
+            llm = LLM(module if inline else ckpt, device=dev,
+                      dtype="float32", skip_tokenizer_init=True,
+                      max_batch_size=8, max_input_len=128, max_seq_len=256,
+                      max_num_tokens=512, quant_config=QuantConfig(
+                          quant_algo=QuantAlgo[algo], group_size=group),
+                      kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=4096))
+            _zero_launches()
+            try:
+                outs = llm.generate(prompts, SamplingParams(
+                    max_tokens=n_out, top_k=1, logprobs=2))
+                apart = "q" in llm.engine.params["layers"][0]
+            finally:
+                llm.shutdown()
+            runs[dev] = ([o.outputs[0].token_ids for o in outs],
+                         [o.outputs[0].logprobs for o in outs])
+            launches[dev] = dict(_read_launches(), e4m3=qmm.LAUNCHES_E4M3)
+        cmp = _compare_streams(runs["cpu"], runs["cuda"])
+        identical = runs["cuda"][0] == runs["cpu"][0]
+        strict = algo != "FP8"
+        if (strict and not identical) or cmp["unexplained_partings"]:
+            failures.append(f"{label}: card {runs['cuda'][0]} != cpu "
+                            f"{runs['cpu'][0]} ({cmp})")
+        if any(len(t) != n_out for t in runs["cuda"][0]):
+            failures.append(f"{label}: short outputs")
+        if algo == "FP8" and not launches["cuda"]["e4m3"]:
+            failures.append("fp8: K3's e4m3 body never launched")
+        if inline and not apart:
+            failures.append("w8a8_sq: smoothed q/k/v were fused")
+        res[label] = dict(quant_algo=algo, group_size=group, inline=inline,
+                          identical=identical, strict=strict,
+                          prompts=len(prompts), tokens_each=n_out,
+                          launches=launches["cuda"], qkv_apart=apart, **cmp)
+        emit({"phase": "quant_parity", "run": label, **res[label]})
+    if failures:
+        raise AssertionError("quant_parity: " + "; ".join(failures))
+    return res
+
+
+def quant_serving_phase() -> dict:
+    """The slice's path: Llama-3-8B at its published width and depth (32
+    layers; seeded random weights drawn in bf16 and quantized at load)
+    with FP8 per-tensor weights and a bf16 KV cache, 64 requests of 512
+    prompt tokens -> 128 greedy tokens with ``ignore_eos``, ``LLM``
+    defaults (64 rows, K = 8 windows, depth 4, CUDA graphs) but prefix
+    reuse off (tools/serving_profile.py ``--geometry llama3-8b-quant
+    --quant FP8``): tok/s, TTFT, TPOT, idle share, GPU time by class,
+    weight bytes, peak allocated memory, launches (K3's e4m3 body apart).
+    Every window step's 4 x 32 projections must go through K3's e4m3
+    body (no weight is widened in memory on a decode step). Beside it,
+    one short pass each at full width and 8 layers (64 x 512 -> 64): bf16,
+    FP8 per-tensor, FP8 block, SmoothQuant W8A8 (calibrated on an inline
+    ``transformers`` module built on the card in bf16) and W4A8 (group
+    128), with the same figures."""
+    import gc
+    failures = []
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
+    from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    runs = [("fp8_32l", "FP8", 32, 128, False)] + [
+        (f"{label}_8l", algo, 8, 64, inline)
+        for label, algo, _, inline in (("bf16", "NO_QUANT", 128, False),
+                                       ("fp8", "FP8", 128, False),
+                                       *QUANT_RUNS[1:])]
+    out = {}
+    for label, algo, layers, n_out, inline in runs:
+        t_run = time.monotonic()
+        cfg, kwargs, prompts, sp = sprof.workload(geometry="llama3-8b-quant")
+        cfg.num_hidden_layers = layers
+        sp.max_tokens = n_out
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        model = sprof.inline_module(cfg) if inline else cfg
+        llm = LLM(model, dtype="bfloat16", quant_config=QuantConfig(
+            quant_algo=QuantAlgo[algo]), **kwargs)
+        del model
+        gc.collect()
+        build_s = time.monotonic() - t0
+        try:
+            eng = llm.engine
+            weights_bytes = sum(t.numel() * t.element_size()
+                                for t in _tensors(eng.params))
+            res = sprof.measure(llm, prompts, sp)
+            graphs = _graph_stats(eng)
+            reserve = eng.graph_pool_reserve()
+        finally:
+            llm.shutdown()
+        peak = torch.cuda.max_memory_allocated()
+        del llm, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        res.update(run=label, quant_algo=algo, layers=layers,
+                   model="Llama-3-8B", inline=inline, engine_build_s=build_s,
+                   weights_bytes=weights_bytes, peak_allocated_bytes=peak,
+                   graph_pool_reserve_bytes=reserve, graphs=graphs,
+                   run_s=time.monotonic() - t_run)
+        emit({"phase": "quant_serving", **res})
+        if res["output_tokens"] != len(prompts) * n_out \
+                or res["min_output_tokens"] != n_out:
+            failures.append(f"quant_serving {label}: short outputs")
+        if res["nonfinite_logprobs"] or not res["logprobs_recorded"]:
+            failures.append(f"quant_serving {label}: non-finite "
+                                 "logprobs")
+        if min(res["launches"][k] for k in ("paged_decode_attention",
+                                            "ragged_prefill_attention")) <= 0:
+            failures.append(f"quant_serving {label}: K1 or K2 never "
+                                 f"launched: {res['launches']}")
+        if algo.startswith("FP8"):
+            k3 = res["launches_e4m3"]
+            if k3 < 4 * layers * res["window_steps"] or not k3:
+                failures.append(
+                    f"quant_serving {label}: {k3} e4m3 launches for "
+                    f"{res['window_steps']} window steps of {layers} "
+                    "layers: a decode step left K3")
+        try:
+            _check_reserve(res)
+        except AssertionError as e:
+            failures.append(f"quant_serving {label}: {e}")
+        out[label] = res
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def _save_tiny_family(path: Path, name: str) -> None:
+    """A tiny random ``transformers`` model of family ``name`` (hidden
+    256, 4 q heads over 2 KV heads of 64, intermediate 512, vocab 512; 2
+    layers, 4 for EXAONE 4 (window 32 on three of four) and SmolLM3 (a
+    NoPE fourth layer)) saved to ``path``, its norms and biases redrawn
+    so that they matter."""
+    import torch
+    import transformers as tf
+    base = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, head_dim=64,
+                max_position_embeddings=512, tie_word_embeddings=False,
+                pad_token_id=0, eos_token_id=1, bos_token_id=2)
+    extra = {"granite": dict(embedding_multiplier=12.0,
+                             attention_multiplier=0.03,
+                             residual_multiplier=0.22, logits_scaling=8.0),
+             "glm": dict(partial_rotary_factor=0.5, attention_bias=True),
+             "glm4": dict(partial_rotary_factor=0.5, attention_bias=True),
+             "exaone4": dict(num_hidden_layers=4, sliding_window=32,
+                             layer_types=["sliding_attention"] * 3
+                             + ["full_attention"]),
+             "smollm3": dict(num_hidden_layers=4,
+                             no_rope_layers=[1, 1, 1, 0])}.get(name, {})
+    cls_name = {"olmo2": "Olmo2", "phi3": "Phi3", "glm": "Glm",
+                "glm4": "Glm4", "exaone4": "Exaone4", "smollm3": "SmolLM3",
+                "helium": "Helium", "arcee": "Arcee",
+                "granite": "Granite"}[name]
+    cfg = getattr(tf, cls_name + "Config")(**{**base, **extra})
+    torch.manual_seed(41)
+    model = getattr(tf, cls_name + "ForCausalLM")(cfg).float()
+    gen = torch.Generator().manual_seed(42)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+            elif "norm" in pname:
+                p.copy_(1 + torch.randn(p.shape, generator=gen) * 0.1)
+    model.save_pretrained(path)
+
+
+def families_parity_phase() -> dict:
+    """The nine Llama-derived families. (1) A tiny seeded float32
+    checkpoint of each (``_save_tiny_family``) through ``LLM.generate`` on
+    the card and on the CPU: greedy tokens identical, K1 and K2 launched
+    on the card. (2) One bf16 run of each at a published model's width
+    (tools/serving_profile.py ``FAMILIES``; 2 layers, 4 for EXAONE-4.0-32B
+    and SmolLM3-3B so that a global and a NoPE layer run; seeded random
+    weights), 16 x 256 -> 32 greedy tokens through graphs
+    (``--family NAME``): K1 and K2 launched, windows replayed, every
+    returned logprob finite."""
+    import gc
+    failures = []
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    prompts = [list(range(3, 90)), [5, 17, 99, 3, 64, 12, 7] * 6,
+               [101, 2, 33, 400, 7]]
+    n_out = 32
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in sprof.FAMILIES:
+            path = Path(tmp) / name
+            _save_tiny_family(path, name)
+            toks = {}
+            for dev in ("cpu", "cuda"):
+                llm = LLM(str(path), device=dev, dtype="float32",
+                          skip_tokenizer_init=True, max_batch_size=4,
+                          max_input_len=128, max_seq_len=256,
+                          max_num_tokens=256,
+                          kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                        max_tokens=4096))
+                _zero_launches()
+                try:
+                    outs = llm.generate(prompts, SamplingParams(
+                        max_tokens=n_out, top_k=1, ignore_eos=True))
+                    launches = _read_launches()
+                finally:
+                    llm.shutdown()
+                toks[dev] = [o.outputs[0].token_ids for o in outs]
+            if toks["cuda"] != toks["cpu"]:
+                failures.append(f"families_parity {name}: card "
+                                     f"{toks['cuda']} != cpu {toks['cpu']}")
+            if min(launches["paged_decode_attention"],
+                   launches["ragged_prefill_attention"]) <= 0:
+                failures.append(f"families_parity {name}: K1 or K2 "
+                                     f"never launched: {launches}")
+            res[name] = dict(tiny=dict(identical=True, tokens_each=n_out,
+                                       launches=launches))
+    for name, (_, _, layers, source) in sprof.FAMILIES.items():
+        cfg, kwargs, prompts, sp = sprof.family_workload(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        llm = LLM(cfg, dtype="bfloat16", enable_warmup=False, **kwargs)
+        try:
+            run = sprof.measure(llm, prompts, sp, profile=False)
+            graphs = _graph_stats(llm.engine)
+        finally:
+            llm.shutdown()
+        del llm
+        if min(run["launches"][k] for k in ("paged_decode_attention",
+                                            "ragged_prefill_attention")) <= 0:
+            failures.append(f"families_parity {name} at width: K1 or "
+                                 f"K2 never launched: {run['launches']}")
+        if not graphs["graph_replays"]:
+            failures.append(f"families_parity {name}: no graph replay")
+        if run["nonfinite_logprobs"] or not run["logprobs_recorded"] or \
+                run["min_output_tokens"] != sp.max_tokens:
+            failures.append(f"families_parity {name} at width: short "
+                                 "outputs or non-finite logprobs")
+        res[name]["width"] = dict(
+            source=source, layers=layers, hidden=cfg.hidden_size,
+            heads=cfg.num_attention_heads,
+            output_tok_per_s=run["output_tok_per_s"],
+            tpot_ms_median=run["tpot_ms_median"],
+            ttft_ms_median=run["ttft_ms_median"],
+            launches=run["launches"], graph_replays=graphs["graph_replays"],
+            logprobs_recorded=run["logprobs_recorded"])
+        emit({"phase": "families_parity", "family": name, **res[name]})
+    if failures:
+        raise AssertionError("; ".join(failures))
     return res
 
 
@@ -3105,8 +3560,15 @@ def main() -> int:
           "seconds": time.monotonic() - t0})
 
     seconds = {}
+    # --only a,b: run just those phases (a development run: it prints no
+    # kernels line and no result line)
+    only = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        only = set(sys.argv[2].split(","))
 
     def timed(name, fn, *a):
+        if only is not None and name not in only:
+            return None
         t = time.monotonic()
         out = fn(*a)
         seconds[name] = time.monotonic() - t
@@ -3122,18 +3584,17 @@ def main() -> int:
     timed("serving", serving_phase)
     serving_q = timed("serving_quantized", serving_phase, "W4A16_AWQ")
     bench = timed("serving_bench_settings", bench_serving_phase)
-    spec = timed("spec_serving", spec_serving_phase)["spec"]
+    spec_runs = timed("spec_serving", spec_serving_phase)
     timed("gemma_kernels", gemma_kernel_phase, kern)
     timed("gemma_parity", gemma_parity_phase)
     gemma_runs = timed("gemma_serving", gemma_serving_phase)
-    gemma = gemma_runs["vswa"]
-    timed("gemma_steps", gemma_step_phase, kern,
-          {k: v["eager_steps"] for k, v in gemma_runs.items()})
+    timed("gemma_steps", lambda: gemma_step_phase(
+        kern, {k: v["eager_steps"] for k, v in gemma_runs.items()}))
     moe = timed("moe_serving", moe_serving_phase)
     timed("kv_quant_parity", kv_quant_parity_phase, here)
     kv_runs = timed("kv_serving", kv_serving_phase)
-    timed("kv_quant_kernels", kv_quant_kernel_phase, kern,
-          kv_runs["fp8"]["eager_steps"][0])
+    timed("kv_quant_kernels", lambda: kv_quant_kernel_phase(
+        kern, kv_runs["fp8"]["eager_steps"][0]))
     timed("host_spec_parity", host_spec_parity_phase, here)
     host = timed("host_spec_serving", host_spec_serving_phase)
     timed("host_spec_kernels", host_spec_kernel_phase, kern)
@@ -3141,7 +3602,16 @@ def main() -> int:
     surface = timed("surface_serving", surface_serving_phase)
     timed("guided_parity", guided_parity_phase, here)
     guided = timed("guided_serving", guided_serving_phase)
-    emit({"phase": "timing", "seconds": seconds})
+    e4m3 = {}
+    timed("quant_linear_kernels", quant_linear_kernel_phase, e4m3)
+    timed("quant_parity", quant_load_parity_phase, here)
+    quant = timed("quant_serving", quant_serving_phase)
+    timed("families_parity", families_parity_phase)
+    emit({"phase": "timing", "seconds": seconds,
+          "total": sum(seconds.values())})
+    if only is not None:
+        return 0
+    spec, gemma = spec_runs["spec"], gemma_runs["vswa"]
 
     kernels = []
     for name, case, group, src, replaces, run in [
@@ -3178,6 +3648,16 @@ def main() -> int:
             shape=r["shape"],
             **{k: r[k] for k in ("ms_cold", "library_ms_cold", "splits")
                if k in r}))
+    # K3's e4m3 body: its cases and its launches in quant_serving's runs
+    kernels[-1].update(
+        max_abs_err_e4m3=max(v["max_abs_err"] for c, v in e4m3.items()
+                             if c.startswith("e4m3")),
+        e4m3_cases={c: {k: v[k] for k in (
+            "ms", "ms_cold", "bound_ms", "bound_share_cold", "library_ms",
+            "library_ms_cold", "upcast_ms", "plain_ms", "max_abs_err")}
+            for c, v in e4m3.items() if c.startswith("e4m3")},
+        launches_quant_serving={k: v["launches_e4m3"]
+                                for k, v in quant.items()})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

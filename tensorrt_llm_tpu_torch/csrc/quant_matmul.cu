@@ -12,6 +12,26 @@
 // Contract: G in {16, 32, 64, 128}; int4 K % 2G == 0, int8 K % G == 0; any
 // N (edge columns are zero-filled on the way in and not written).
 //
+// The e4m3 body (FP8 weights quantized at load, ops/linear.py Fp8QdqMethod
+// and Fp8BlockwiseMethod; on the TPU the JAX package leaves that product
+// to XLA, so this body ports no Pallas kernel): w float8 e4m3 [K, N], one
+// byte a value like int8, G = 128. Every finite e4m3 value is a bf16
+// value, and it reaches wgmma as exactly that value: cvt e4m3x2 -> f16x2
+// (exact: e4m3's subnormals, down to 2^-9, are normal f16 numbers), then
+// f16 -> float -> bf16 (exact: 4 significant bits). No rescaling by a
+// power of two, so no product nears float32's subnormal range. The scales
+// are read through a row stride and a column shift: scale(group g,
+// column n) = scales[g * s_row + (n >> s_shift)], which serves the
+// group-wise [K/G, N] layout (s_row N, s_shift 0), one scale per column
+// for every group (s_row 0: a fused per-tensor projection, each part's
+// scale over its columns), one scale for the tensor (s_row 0, s_shift
+// 31) and FP8 block scales [K/128, ceil(N/128)] (s_row ceil(N/128),
+// s_shift 7) without expanding them. The output is bf16, or float32 when
+// asked (out_f32: the FP8 methods return a float32 model's type). At one
+// byte a weight the body is bound by K*N bytes over 3.35 TB/s, half of
+// bf16's; the widening costs a cvt and two conversions per pair of
+// values, on the CUDA cores, beside the wgmma stream.
+//
 // What bounds it on the H100: up to 64 rows, the bytes of the quantized
 // weight (K*N/2 or K*N) over 3.35 TB/s. At M = 64 with int4 the product is
 // 256 FLOP per weight byte against the card's ridge of ~295 (989 TFLOP/s
@@ -60,6 +80,7 @@
 
 #include <cuda.h>   // CUtensorMap; the encoder is reached through the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -226,6 +247,17 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t v) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// Bytes at bits 0-7 and 16-23 (e4m3) -> two bf16 of the same values, the
+// first in the low half: exact (see the head of this file).
+__device__ __forceinline__ uint32_t e4m3_pair(uint32_t v) {
+  const unsigned short pair = (unsigned short)__byte_perm(v, 0u, 0x4420);
+  uint32_t h;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(h) : "h"(pair));
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+  __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<uint32_t*>(&b);
+}
+
 // Reads of wgmma accumulators stay after the wait that completes them:
 // later instructions depend on this asm's outputs, so the compiler cannot
 // hoist them above the wait (a read inside the pipeline makes it
@@ -251,7 +283,7 @@ __device__ __forceinline__ void load_raw(uint32_t (&raw)[KS][2], const uint8_t* 
 // A fragments of one half from the packed bytes: register a[s] is
 // mma.m16n8k16's A layout for k16 step s, fragment row g = column 2g, row
 // g + 8 = column 2g + 1.
-template <int BITS, int HALF, int KS>
+template <int BITS, int HALF, int KS, bool FP8>
 __device__ __forceinline__ void widen(uint32_t (&a)[KS][4], const uint32_t (&raw)[KS][2]) {
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
@@ -260,6 +292,9 @@ __device__ __forceinline__ void widen(uint32_t (&a)[KS][4], const uint32_t (&raw
       if constexpr (BITS == 4) {
         a[s][2 * i] = int4_pair(raw[s][i] >> (4 * HALF));
         a[s][2 * i + 1] = int4_pair(raw[s][i] >> (4 * HALF + 8));
+      } else if constexpr (FP8) {
+        a[s][2 * i] = e4m3_pair(raw[s][i]);
+        a[s][2 * i + 1] = e4m3_pair(raw[s][i] >> 8);
       } else {
         a[s][2 * i] = int8_pair(raw[s][i]);
         a[s][2 * i + 1] = int8_pair(raw[s][i] >> 8);
@@ -288,12 +323,12 @@ __device__ __forceinline__ void scale_add(float (&acc)[NR], float (&p)[NR], floa
   for (int i = 0; i < NR; ++i) acc[i] = fmaf(p[i], (i & 2) ? sc.y : sc.x, acc[i]);
 }
 
-template <int BITS, int NB, int G>
+template <int BITS, int NB, int G, bool FP8>
 __global__ void __launch_bounds__(kThreads, 1)
 quant_matmul_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __grid_constant__ CUtensorMap w_map, const uint8_t* __restrict__ w,
-                    const float* __restrict__ scales, bf16* __restrict__ out, int M, int K,
-                    int N, int w_piece, int s_piece) {
+                    const float* __restrict__ scales, void* __restrict__ out, int M, int K,
+                    int N, int w_piece, int s_piece, int s_row, int s_shift, int out_f32) {
   using P = Plan<BITS, NB, G>;
   constexpr int HALVES = P::HALVES;
   constexpr int NR = NB / 2;   // accumulator floats per thread
@@ -373,18 +408,18 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap x_map,
         for (int si = 0; si < P::SEGS; ++si) {
           const bool seg = si * P::SEG < rows;
           const float* src =
-              scales + (size_t)(h * groups + (r0 + (seg ? si * P::SEG : 0)) / G) * N + n0;
+              scales + (size_t)(h * groups + (r0 + (seg ? si * P::SEG : 0)) / G) * s_row;
           float* dst = sc + (h * P::SEGS + si) * kTN;
-          if (s_piece == 16) {
+          if (s_piece == 16) {   // s_shift 0
             const int c = lane * 4;
             const bool live = seg && n0 + c < N;   // N % 4 == 0: whole pieces
-            cp_async_16(dst + c, live ? src + c : scales, live ? 16 : 0);
+            cp_async_16(dst + c, live ? src + n0 + c : scales, live ? 16 : 0);
           } else {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int c = lane + 32 * i;
               const bool live = seg && n0 + c < N;
-              cp_async_4(dst + c, live ? src + c : scales, live ? 4 : 0);
+              cp_async_4(dst + c, live ? src + ((n0 + c) >> s_shift) : scales, live ? 4 : 0);
             }
           }
         }
@@ -428,8 +463,8 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap x_map,
         for (int si = 0; si < P::SEGS; ++si) {
           const int k0 = si * P::SEG;
           load_raw(raw, ws, k0, col, lane);
-          widen<BITS, 0>(a0, raw);
-          if constexpr (BITS == 4) widen<BITS, 1>(a1, raw);
+          widen<BITS, 0, P::KS, FP8>(a0, raw);
+          if constexpr (BITS == 4) widen<BITS, 1, P::KS, FP8>(a1, raw);
           if (last) {
             s0 = *reinterpret_cast<const float2*>(sc + si * kTN);
             if constexpr (BITS == 4) s1 = *reinterpret_cast<const float2*>(sc + (P::SEGS + si) * kTN);
@@ -477,7 +512,20 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap x_map,
       sum.z += o.z;
       sum.w += o.w;
     }
-    bf16* dst = out + (size_t)(m0 + m) * N + n0 + c;
+    const size_t at = (size_t)(m0 + m) * N + n0 + c;
+    if (out_f32) {
+      float* dst = static_cast<float*>(out) + at;
+      if ((N & 3) == 0) {   // n0 + c + 3 < N, 16-byte aligned
+        *reinterpret_cast<float4*>(dst) = sum;
+      } else {
+        const float f[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (n0 + c + i < N) dst[i] = f[i];
+      }
+      continue;
+    }
+    bf16* dst = static_cast<bf16*>(out) + at;
     if ((N & 3) == 0) {   // n0 + c + 3 < N, 8-byte aligned
       __nv_bfloat162 lo = __floats2bfloat162_rn(sum.x, sum.y);
       __nv_bfloat162 hi = __floats2bfloat162_rn(sum.z, sum.w);
@@ -532,11 +580,17 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64
          CUDA_SUCCESS;
 }
 
-template <int BITS, int NB, int G>
+// Where the scales are read: row stride and column shift (see the head).
+struct ScaleMap {
+  int row;
+  int shift;
+};
+
+template <int BITS, int NB, int G, bool FP8>
 cudaError_t launch(const void* x, const void* w, const float* scales, void* out, int M,
-                   int K, int N, int splits, cudaStream_t stream) {
+                   int K, int N, int splits, ScaleMap sm, int out_f32, cudaStream_t stream) {
   using P = Plan<BITS, NB, G>;
-  auto kernel = quant_matmul_kernel<BITS, NB, G>;
+  auto kernel = quant_matmul_kernel<BITS, NB, G, FP8>;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, P::SMEM, &allowed);
   if (err != cudaSuccess) return err;
@@ -545,7 +599,10 @@ cudaError_t launch(const void* x, const void* w, const float* scales, void* out,
   const int Kh = K / P::HALVES;
   const uintptr_t wp = reinterpret_cast<uintptr_t>(w);
   const int w_piece = (N % 16 == 0 && wp % 16 == 0) ? 0 : (N % 4 == 0 && wp % 4 == 0) ? 4 : 1;
-  const int s_piece = (N % 4 == 0 && reinterpret_cast<uintptr_t>(scales) % 16 == 0) ? 16 : 4;
+  const int s_piece = (N % 4 == 0 && sm.shift == 0 && sm.row % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(scales) % 16 == 0)
+                          ? 16
+                          : 4;
   CUtensorMap x_map = {}, w_map = {};
   if (!encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, 64, NB))
     return cudaErrorInvalidValue;
@@ -565,30 +622,43 @@ cudaError_t launch(const void* x, const void* w, const float* scales, void* out,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, x_map, w_map, static_cast<const uint8_t*>(w), scales,
-                           static_cast<bf16*>(out), M, K, N, w_piece, s_piece);
+                           out, M, K, N, w_piece, s_piece, sm.row, sm.shift, out_f32);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // wgmma's N by the rows of one row block: no more rows staged than needed.
-template <int BITS, int G>
+template <int BITS, int G, bool FP8>
 cudaError_t launch_rows(const void* x, const void* w, const float* scales, void* out, int M,
-                        int K, int N, int splits, cudaStream_t stream) {
+                        int K, int N, int splits, ScaleMap sm, int out_f32,
+                        cudaStream_t stream) {
   const int rows = M < kRowBlock ? M : kRowBlock;
-  if (rows <= 8) return launch<BITS, 8, G>(x, w, scales, out, M, K, N, splits, stream);
-  if (rows <= 16) return launch<BITS, 16, G>(x, w, scales, out, M, K, N, splits, stream);
-  if (rows <= 32) return launch<BITS, 32, G>(x, w, scales, out, M, K, N, splits, stream);
-  return launch<BITS, 64, G>(x, w, scales, out, M, K, N, splits, stream);
+  if (rows <= 8)
+    return launch<BITS, 8, G, FP8>(x, w, scales, out, M, K, N, splits, sm, out_f32, stream);
+  if (rows <= 16)
+    return launch<BITS, 16, G, FP8>(x, w, scales, out, M, K, N, splits, sm, out_f32, stream);
+  if (rows <= 32)
+    return launch<BITS, 32, G, FP8>(x, w, scales, out, M, K, N, splits, sm, out_f32, stream);
+  return launch<BITS, 64, G, FP8>(x, w, scales, out, M, K, N, splits, sm, out_f32, stream);
 }
 
 template <int BITS>
 cudaError_t launch_group(const void* x, const void* w, const float* scales, void* out, int M,
-                         int K, int N, int G, int splits, cudaStream_t stream) {
+                         int K, int N, int G, int splits, ScaleMap sm, int out_f32,
+                         cudaStream_t stream) {
   switch (G) {
-    case 16: return launch_rows<BITS, 16>(x, w, scales, out, M, K, N, splits, stream);
-    case 32: return launch_rows<BITS, 32>(x, w, scales, out, M, K, N, splits, stream);
-    case 64: return launch_rows<BITS, 64>(x, w, scales, out, M, K, N, splits, stream);
-    case 128: return launch_rows<BITS, 128>(x, w, scales, out, M, K, N, splits, stream);
+    case 16:
+      return launch_rows<BITS, 16, false>(x, w, scales, out, M, K, N, splits, sm, out_f32,
+                                          stream);
+    case 32:
+      return launch_rows<BITS, 32, false>(x, w, scales, out, M, K, N, splits, sm, out_f32,
+                                          stream);
+    case 64:
+      return launch_rows<BITS, 64, false>(x, w, scales, out, M, K, N, splits, sm, out_f32,
+                                          stream);
+    case 128:
+      return launch_rows<BITS, 128, false>(x, w, scales, out, M, K, N, splits, sm, out_f32,
+                                           stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -596,19 +666,29 @@ cudaError_t launch_group(const void* x, const void* w, const float* scales, void
 }  // namespace
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
-// x and out are bf16, w int8 (bits 4: [K/2, N] packed; bits 8: [K, N]),
-// scales float32 [K/G, N]; x must be 16-byte aligned. `splits` (1, 2, 4
-// or 8) is the cluster's CTAs along K, chosen by the caller.
+// x is bf16; w int8 (bits 4: [K/2, N] packed; bits 8: [K, N]) or, with
+// e4m3 (bits 8, G 128), float8 e4m3 [K, N]; scale(g, n) =
+// scales[g * s_row + (n >> s_shift)] (float32); out bf16, or float32 with
+// out_f32. x must be 16-byte aligned. `splits` (1, 2, 4 or 8) is the
+// cluster's CTAs along K, chosen by the caller.
 extern "C" int groupwise_dequant_matmul(const void* x, const void* w, const float* scales,
                                         void* out, int M, int K, int N, int G, int bits,
-                                        int splits, void* stream) {
+                                        int e4m3, int splits, int s_row, int s_shift,
+                                        int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
   if (G <= 0 || M < 0 || M > 2 * kRowBlock) return (int)cudaErrorInvalidValue;
   if (splits != 1 && splits != 2 && splits != 4 && splits != 8) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(x) % 16) return (int)cudaErrorInvalidValue;
+  if (s_row < 0 || s_shift < 0 || s_shift > 31) return (int)cudaErrorInvalidValue;
+  const ScaleMap sm = {s_row, s_shift};
+  if (e4m3) {
+    if (bits != 8 || G != 128 || K % G) return (int)cudaErrorInvalidValue;
+    return launch_rows<8, 128, true>(x, w, scales, out, M, K, N, splits, sm, out_f32, st);
+  }
   if (bits == 4 && K % (2 * G) == 0)
-    return launch_group<4>(x, w, scales, out, M, K, N, G, splits, st);
-  if (bits == 8 && K % G == 0) return launch_group<8>(x, w, scales, out, M, K, N, G, splits, st);
+    return launch_group<4>(x, w, scales, out, M, K, N, G, splits, sm, out_f32, st);
+  if (bits == 8 && K % G == 0)
+    return launch_group<8>(x, w, scales, out, M, K, N, G, splits, sm, out_f32, st);
   return (int)cudaErrorInvalidValue;
 }

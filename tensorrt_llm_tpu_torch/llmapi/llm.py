@@ -6,18 +6,29 @@ model, build engine + executor, submit requests as futures.
 
 ``model`` is a checkpoint directory (``config.json`` +
 ``model.safetensors``; an AutoAWQ or AutoGPTQ 4-bit checkpoint of a dense
-family is served from its own integers and scales) or a bare
-``transformers`` config, which serves random weights like
+family is served from its own integers and scales), a ``transformers``
+model (its ``state_dict`` is read, as the JAX ``LLM`` reads an inline
+model; with ``load_format="dummy"`` seeded random weights instead), or a
+bare ``transformers`` config, which serves random weights like
 ``load_format="dummy"``. Families (``model_type``): llama, mistral,
-tinyllama, qwen2, qwen3, gemma2, gemma3_text, and the MoE families
-mixtral, qwen2_moe, qwen3_moe and olmoe on one GPU.
+tinyllama, qwen2, qwen3, gemma2, gemma3_text, granite, olmo2, phi3, glm,
+glm4, exaone4, smollm3, helium, arcee, and the MoE families mixtral,
+qwen2_moe, qwen3_moe and olmoe on one GPU.
 ``kv_cache_config=KvCacheConfig(max_attention_window=[w, ...])`` serves
 Gemma 2 with VSWA: its sliding layers keep their KV in a second pool
 sized for the smallest window w, which is also their window (Gemma 3's
 five-to-one layers raise the JAX package's ValueError; any other family
 refuses the setting by name).
 ``quant_config=QuantConfig(quant_algo=...)`` quantizes float weights at
-load; ``QuantConfig(kv_cache_quant_algo=INT8 | FP8 | NVFP4)`` keeps the KV
+load (weight-only int, fp4, FP8 per-tensor or block, SmoothQuant W8A8,
+W4A8). Under W8A8_SQ_PER_CHANNEL(_PER_TOKEN_PLUGIN) an inline
+``transformers`` model is calibrated for SmoothQuant's smoothing scales
+(``smoothquant_val`` is alpha; four seeded prompts of 64 tokens) before
+its weights are read, as the JAX ``LLM`` does; the calibration forward
+runs where the module lives, on its device and in its type (a bf16
+module on the card calibrates in bf16 there), and the scales depend on
+both. A checkpoint directory or a config gets no smoothing, as in the
+JAX package. ``QuantConfig(kv_cache_quant_algo=INT8 | FP8 | NVFP4)`` keeps the KV
 cache in int8 or float8 e4m3 (NVFP4: e4m3 on the e2m1 grid), with
 per-layer scales calibrated at build over 512 seeded random tokens, as the
 JAX ``LLM`` does when the checkpoint brings none.
@@ -177,8 +188,15 @@ class LLM:
                  **kwargs):
         self.device = resolve_device(device)
         self._hf_config = None
+        self._inline_model = None
         if isinstance(model, (str, Path)):
             kwargs["model"] = str(model)
+        elif hasattr(model, "state_dict"):
+            # a transformers model: its config and state dict
+            self._inline_model = model
+            self._hf_config = model.config
+            kwargs["model"] = getattr(model.config, "name_or_path", "") or \
+                "__inline__"
         else:
             # a bare transformers config: random weights
             self._hf_config = model
@@ -210,6 +228,17 @@ class LLM:
                     f"for Gemma 2 only, not for {hf_config.model_type}")
             # the smallest window sizes the sliding pool
             self.model.enable_vswa(min(maw))
+        qc = self.args.quant_config
+        if qc.quant_algo in (QuantAlgo.W8A8_SQ_PER_CHANNEL,
+                             QuantAlgo.W8A8_SQ_PER_CHANNEL_PER_TOKEN_PLUGIN) \
+                and state_dict is not None \
+                and self._inline_model is not None:
+            from ..quantization.smoothquant import (calibrate_smooth_scales,
+                                                    default_calibration_ids)
+            self.model.smooth_scales = calibrate_smooth_scales(
+                self._inline_model,
+                default_calibration_ids(self.model.vocab_size),
+                alpha=qc.smoothquant_val)
         with _creation_stage("weights"):
             if state_dict is None:
                 self._params = self.model.init_params(seed=0)
@@ -217,6 +246,12 @@ class LLM:
                 self._params = self.model.load_hf_state_dict(state_dict)
 
     def _load_checkpoint(self):
+        if self._inline_model is not None:
+            if self.args.load_format == "dummy":
+                return self._hf_config, None
+            return self._hf_config, {
+                k: v.detach()
+                for k, v in self._inline_model.state_dict().items()}
         if self._hf_config is not None:
             return self._hf_config, None
         path = Path(self.args.model)

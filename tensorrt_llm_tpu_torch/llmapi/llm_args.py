@@ -82,10 +82,14 @@ class QuantConfig(StrictBaseModel):
     the projections that stay unquantized; and the KV cache's algorithm
     (every ``KvCacheQuantAlgo`` is served: INT8, FP8, and NVFP4 on an e4m3
     pool, models/modeling_utils.ModelConfig; any other name fails to
-    parse)."""
+    parse). ``smoothquant_val``: SmoothQuant's alpha, the migration
+    strength of the smoothing scales s = max|x|^alpha / max|w|^(1-alpha)
+    (quantization/smoothquant.py), calibrated when the ``LLM`` is given a
+    ``transformers`` module."""
     quant_algo: QuantAlgo = QuantAlgo.NO_QUANT
     kv_cache_quant_algo: KvCacheQuantAlgo = KvCacheQuantAlgo.NO_QUANT
     group_size: int = 128
+    smoothquant_val: float = 0.5
     exclude_modules: List[str] = Field(default_factory=lambda: ["lm_head"])
 
 

@@ -1,8 +1,13 @@
 from .modeling_utils import (DecoderModelForCausalLM, MODEL_REGISTRY,
                              ModelConfig, get_model_class, register_model)
 from . import gemma as _gemma  # noqa: F401  (registers)
+from . import glm as _glm  # noqa: F401
+from . import granite as _granite  # noqa: F401
 from . import llama as _llama  # noqa: F401
+from . import llama_variants as _llama_variants  # noqa: F401
 from . import mixtral as _mixtral  # noqa: F401
+from . import olmo as _olmo  # noqa: F401
+from . import phi as _phi  # noqa: F401
 from . import qwen as _qwen  # noqa: F401
 from . import qwen_moe as _qwen_moe  # noqa: F401
 from .convert import from_jax_params

@@ -8,17 +8,24 @@ with a leading L axis, one dict per projection — and returns this
 package's parameters (a list of per-layer dicts, fused qkv and gate_up),
 so that both packages compute the same function from the same numbers.
 An unquantized projection (``{"weight": [in, out]}``) becomes
-``{"weight": [out, in]}``; a weight-only quantized one keeps its [K, N]
-integers (packed int4 included), ``weight_scale``, ``weight_zero`` and
-``bias`` as they are. The MoE parts: ``router`` [L, H, E] becomes [E, H];
+``{"weight": [out, in]}``; a quantized one keeps its [K, N] integers
+(packed int4 included) or float8 e4m3 bytes (viewed as bytes, so that no
+value is converted), ``weight_scale``, ``weight_zero``, ``smooth`` and
+``bias`` as they are; a W4A8 one's int4-grid weight and group scales
+are folded into the int8 weight the port stores beside its
+``channel_scale`` (ops/quant.fold_w4a8). q/k/v and gate/up join where
+``ops.linear.can_fuse`` lets them (not under SmoothQuant's per-projection
+smoothing vectors, nor FP8 block scales over part-blocks). The MoE parts: ``router`` [L, H, E] becomes [E, H];
 the experts ``w_gate`` / ``w_up`` [L, E, H, I] become one ``w_gate_up``
 [E, H, 2I] and ``w_down`` [L, E, I, H] stays [E, I, H] (ops/moe.py's
 layout); the shared expert's ``se_gate`` / ``se_up`` projections fuse into
 ``se_gate_up``, and its gate ``se_gate_w`` [L, H, 1] becomes [1, H].
-``q_norm`` / ``k_norm`` are carried as they are, and so are the four
+``q_norm`` / ``k_norm`` are carried as they are, and so are GLM-4's
+sandwich norms (``post_attn_extra``, ``post_mlp_extra``), the four
 norms of the JAX Gemma models (``post_attn_norm``, ``pre_ffn_norm``,
 ``post_ffn_norm`` beside ``input_norm``); their ``is_sliding`` flags are
-static config here (``Gemma2ForCausalLM.layer_specs``) and are dropped.
+static config here (``layer_specs``) and are dropped, as are EXAONE 4's
+``is_sliding`` and SmolLM3's ``use_rope``.
 With ``kv_scales`` (a model on a quantized KV cache), the JAX Llama's
 per-layer ``kv_scale`` [L] (float32) becomes each layer's 0-dim float32
 ``kv_scale``, so that both packages quantize with the same scales.
@@ -30,12 +37,45 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..ops.linear import fuse_params
+from ..ops.linear import can_fuse, fuse_params
+from ..ops.quant import fold_w4a8
 
 
-# a layer's norm weights: the Llama trunk's two, or Gemma's four
-_NORMS = ("input_norm", "post_norm", "post_attn_norm", "pre_ffn_norm",
-          "post_ffn_norm")
+# a layer's norm weights: the Llama trunk's two, GLM-4's sandwich norms,
+# or Gemma's four
+_NORMS = ("input_norm", "post_norm", "post_attn_extra", "post_mlp_extra",
+          "post_attn_norm", "pre_ffn_norm", "post_ffn_norm")
+
+
+def carry_array(a, device="cpu", dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+    """One numpy array as a tensor on ``device`` (of ``dtype``, default
+    its own): float8 e4m3 by its bytes, ml_dtypes int4 widened to int8."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn).to(device)
+    if a.dtype.kind not in "fiub":
+        a = a.astype(np.int8)
+    out = torch.from_numpy(np.array(a))          # a writable copy
+    return out.to(device=device, dtype=dtype or out.dtype)
+
+
+def carry_projection(p: Dict[str, Any], device="cpu",
+                     dtype: Optional[torch.dtype] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """One JAX projection ({name: array}, layer axis already indexed) in
+    the port's form; ``dtype`` applies to float weights and the bias."""
+    if "weight_scale" not in p:
+        out = {"weight": carry_array(np.asarray(p["weight"]).T, device,
+                                     dtype)}
+    else:
+        out = {k: carry_array(p[k], device) for k in p if k != "bias"}
+    if "channel_scale" in out:             # W4A8: the port's folded form
+        out["weight"] = fold_w4a8(out["weight"], out.pop("weight_scale"))
+    if "bias" in p:
+        out["bias"] = carry_array(p["bias"], device, dtype)
+    return out
 
 
 def from_jax_params(params_np: Dict[str, Any], device="cpu",
@@ -48,30 +88,20 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
     cache)."""
 
     def t(a, dt=dtype) -> torch.Tensor:
-        a = np.asarray(a)
-        if a.dtype.kind not in "fiub":    # ml_dtypes int4: widen to int8
-            a = a.astype(np.int8)
-        out = torch.from_numpy(np.array(a))          # a writable copy
-        return out.to(device=device, dtype=dt or out.dtype)
+        return carry_array(a, device, dt)
 
     def proj(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One projection ({name: array}, layer axis already indexed)."""
-        if "weight_scale" not in p:
-            out = {"weight": t(np.asarray(p["weight"]).T)}
-        else:
-            out = {k: t(p[k], None) for k in p if k != "bias"}
-        if "bias" in p:
-            out["bias"] = t(p["bias"])
-        return out
+        return carry_projection(p, device, dtype)
 
-    def fused(parts):
-        """q, k, v (or gate, up) as one projection when they are of one
-        kind, else None."""
-        kinds = {frozenset(p) for p in parts}
-        if len(kinds) != 1:
-            return None
-        return fuse_params(
-            parts, weight_dim=-1 if "weight_scale" in parts[0] else 0)
+    def fused(at, name, names):
+        """{name: one projection} of the projections ``at(n)`` of
+        ``names`` where they join (``can_fuse``), else each under its own
+        name."""
+        parts = [at(n) for n in names]
+        if not can_fuse(parts):
+            return dict(zip(names, parts))
+        plain = set(parts[0]) <= {"weight", "bias"}    # [out, in]
+        return {name: fuse_params(parts, weight_dim=0 if plain else -1)}
 
     lay = params_np["layers"]
     num_layers = lay["input_norm"].shape[0]
@@ -90,16 +120,13 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
                 [lay["w_gate"][i], lay["w_up"][i]], axis=-1))
             layer["w_down"] = t(lay["w_down"][i])
         else:
-            layer.update(down=at("down"),
-                         gate_up=fused([at("gate"), at("up")]))
+            layer["down"] = at("down")
+            layer.update(fused(at, "gate_up", ("gate", "up")))
         if "se_gate" in lay:
-            layer.update(se_down=at("se_down"),
-                         se_gate_up=fused([at("se_gate"), at("se_up")]))
+            layer["se_down"] = at("se_down")
+            layer.update(fused(at, "se_gate_up", ("se_gate", "se_up")))
             layer["se_gate_w"] = t(np.asarray(lay["se_gate_w"][i]).T)
-        qkv = [at("q"), at("k"), at("v")]
-        one = fused(qkv)
-        layer.update({"qkv": one} if one is not None
-                     else zip(("q", "k", "v"), qkv))
+        layer.update(fused(at, "qkv", ("q", "k", "v")))
         if kv_scales and "kv_scale" in lay:
             layer["kv_scale"] = t(np.asarray(lay["kv_scale"][i],
                                              np.float32), torch.float32)

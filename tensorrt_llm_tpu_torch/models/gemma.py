@@ -45,7 +45,6 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..ops.attention import AttentionMetadata, layer_metadata
 from ..ops.norm import gemma_rms_norm
@@ -58,6 +57,8 @@ from .modeling_utils import AttentionSpec, attention_block, register_model
 class Gemma2ForCausalLM(LlamaForCausalLM):
     architectures = ("Gemma2ForCausalLM",)
     per_layer_kv_scale = False
+    # the JAX Gemma loader folds no SmoothQuant scales
+    takes_smoothing = False
 
     _HF_MODULES = {**LlamaForCausalLM._HF_MODULES,
                    "pre_ffn_norm": "pre_feedforward_layernorm",
@@ -68,6 +69,7 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
         hf = self.hf
         self.tie_embeddings = True
         self.final_softcap = getattr(hf, "final_logit_softcapping", 30.0)
+        self.mlp_act = "gelu_tanh"
         self.sliding_window = getattr(hf, "sliding_window", 4096)
         self.attn_spec = AttentionSpec(
             num_heads=self.num_heads, num_kv_heads=self.num_kv_heads,
@@ -103,10 +105,6 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
             sliding_window=self.vswa_window or self.sliding_window)
         return [sliding if self._layer_is_sliding(i) else self.attn_spec
                 for i in range(self.num_layers)]
-
-    def attention_windows(self) -> Tuple[Optional[int], ...]:
-        return tuple(dict.fromkeys(s.sliding_window
-                                   for s in self.layer_specs))
 
     def act_width_per_token(self) -> int:
         """``LlamaForCausalLM.act_width_per_token`` plus the two extra
@@ -156,12 +154,13 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
     # ------------------------------------------------------------------ #
     def _layer(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
                weight: Callable[[str], Any],
-               bias: Callable[[str], Any] = lambda name: None
+               bias: Callable[[str], Any] = lambda name: None,
+               smooth: Callable[[str], Any] = lambda name: None
                ) -> Dict[str, Any]:
         """``LlamaForCausalLM._layer`` with Gemma's four norms
         (``post_norm`` is the post-attention one) and Gemma 3's q/k norm
         weights kept in float32."""
-        layer = super()._layer(input_norm, post_norm, weight, bias)
+        layer = super()._layer(input_norm, post_norm, weight, bias, smooth)
         layer["post_attn_norm"] = layer.pop("post_norm")
         for name in ("pre_ffn_norm", "post_ffn_norm"):
             layer[name] = torch.as_tensor(weight(name)).to(
@@ -205,14 +204,6 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
-    def _mlp(self, layer: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        """GELU-tanh on the gate in float32, times up, then down."""
-        mlp = self.m_mlp
-        gate, up = mlp.apply(layer["gate_up"], x).split(
-            self.intermediate_size, -1)
-        act = F.gelu(gate.float(), approximate="tanh").to(self.dtype) * up
-        return mlp.apply(layer["down"], act)
-
     def _qk_norms(self):
         if not self.use_qk_norm:
             return None, None

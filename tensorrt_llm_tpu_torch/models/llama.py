@@ -30,6 +30,25 @@ Parameters:
   (``per_layer_kv_scale`` False; the model's ``kv_scale``), as the JAX
   package does.
 
+The JAX ``LlamaForCausalLM``'s knobs, which the Llama-derived families
+set (models/granite.py, olmo.py, phi.py, glm.py, llama_variants.py):
+``norm_placement`` "pre" (norm each sublayer's input), "post" (OLMo 2,
+EXAONE 4: norm each sublayer's output, with ``input_norm`` after
+attention and ``post_norm`` after the MLP) or "sandwich" (GLM-4: the
+pre-norms and extra norms ``post_attn_extra`` / ``post_mlp_extra`` on the
+sublayers' outputs); Granite's ``embedding_multiplier``,
+``residual_multiplier`` and ``logits_scaling``; ``mlp_act`` (silu,
+gelu_tanh, relu); and ``layer_specs``, each layer's ``AttentionSpec``
+(a window on some layers, no rotary embedding on others: ``rope`` None),
+static per layer, so that the step and window graphs hold no branch.
+
+Under SmoothQuant with smoothing scales (``smooth_scales``, set by the
+``LLM``'s inline-model entry, keyed by checkpoint weight name) each
+projection is smoothed at load and keeps its own vector; such
+projections stay apart (models/modeling_utils.fuse_projections). The MoE
+and Gemma families take no smoothing (``takes_smoothing``), as in the
+JAX package, whose loaders of those families read none.
+
 Subclasses change the MLP through ``_mlp_params`` (its parameters, from a
 ``weight(name)`` source) and ``_mlp`` (its forward), and the checkpoint
 names through ``_hf_module``.
@@ -37,7 +56,7 @@ names through ``_hf_module``.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, List, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -48,8 +67,13 @@ from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig, rope_cos_sin
 from .modeling_utils import (AttentionMethods, AttentionSpec,
                              DecoderModelForCausalLM, ModelConfig,
-                             attention_block, fuse_projections, hf_transpose,
-                             quantize_linear, register_model)
+                             apply_pair, attention_block, fuse_projections,
+                             hf_transpose, quantize_linear, register_model)
+
+# the gated MLP's activations (``mlp_act``), applied in float32
+_ACTS = {"silu": F.silu,
+         "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+         "relu": F.relu}
 
 
 @register_model("llama", "mistral", "tinyllama")
@@ -57,6 +81,13 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
     architectures = ("LlamaForCausalLM", "MistralForCausalLM")
     # each layer its own (calibrated) KV scale on a quantized KV cache
     per_layer_kv_scale = True
+    # SmoothQuant's smoothing scales are folded into the projections
+    takes_smoothing = True
+    # the checkpoint's two norms of a layer, read into input_norm and
+    # post_norm (OLMo 2 and EXAONE 4 name their output norms)
+    _NORM_NAMES = ("input_layernorm", "post_attention_layernorm")
+    # further per-layer norm weights, by the names of ``_HF_MODULES``
+    _extra_norms: tuple = ()
 
     def __init__(self, model_config: ModelConfig):
         super().__init__(model_config)
@@ -78,6 +109,14 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         # qk_norm_full (OLMoE) one RMS norm over the whole projection
         self.use_qk_norm = False
         self.qk_norm_full = False
+        # the JAX model's knobs (module docstring)
+        self.norm_placement = "pre"
+        self.embedding_multiplier = 1.0
+        self.residual_multiplier = 1.0
+        self.logits_scaling = 1.0
+        self.mlp_act = "silu"
+        # SmoothQuant: {checkpoint weight name: s [K]} (llmapi/llm.py)
+        self.smooth_scales: Dict[str, Any] = {}
         # per-projection linear methods (exclude_modules goes by name)
         self.m_q = self._method("q_proj")
         self.m_kv = self._method("k_proj")
@@ -86,11 +125,18 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         self.m_lm_head = self._method("lm_head")
         self.attn_methods = AttentionMethods(self.m_q, self.m_kv, self.m_o)
 
+    @property
+    def layer_specs(self) -> List[AttentionSpec]:
+        """Each layer's attention: ``attn_spec`` for every layer here;
+        EXAONE 4 and SmolLM3 differ per layer."""
+        return [self.attn_spec] * self.num_layers
+
     def attention_windows(self) -> tuple:
         """The distinct sliding windows of the model's layers (None for
         global attention): the decode kernel's split count is taken per
         window, and the engine keys its CUDA graphs by all of them."""
-        return (self.attn_spec.sliding_window,)
+        return tuple(dict.fromkeys(s.sliding_window
+                                   for s in self.layer_specs))
 
     def act_width_per_token(self) -> int:
         """Activation elements per token of one layer (the graph pool's
@@ -118,34 +164,42 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             return self.num_heads * hd, self.num_kv_heads * hd
         return hd, hd
 
-    def _lin(self, method: LinearMethod, w, bias=None) -> Dict[str, Any]:
+    def _lin(self, method: LinearMethod, w, bias=None,
+             smooth=None) -> Dict[str, Any]:
         """One [out, in] projection (floats or a ``PrequantizedWeight``)
-        through its method onto the target device."""
+        through its method onto the target device (``smooth``: its
+        SmoothQuant vector, under a method that takes one)."""
+        if type(method) is LinearMethod:
+            smooth = None
         return quantize_linear(method, hf_transpose(w), bias=bias,
-                               dtype=self.dtype, device=self.device)
+                               dtype=self.dtype, device=self.device,
+                               smooth=smooth)
 
     def _layer(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
                weight: Callable[[str], Any],
-               bias: Callable[[str], Any] = lambda name: None
+               bias: Callable[[str], Any] = lambda name: None,
+               smooth: Callable[[str], Any] = lambda name: None
                ) -> Dict[str, Any]:
         """One layer's parameters. ``weight(name)`` gives projection
         ``name`` (q, k, v, o and the MLP's, ``_mlp_params``) as [out, in]
         floats or a ``PrequantizedWeight``, and with ``use_qk_norm`` the
         q_norm / k_norm weights; each goes through its method on the
-        target device, one at a time."""
+        target device, one at a time. ``smooth(name)``: the projection's
+        SmoothQuant vector or None."""
         def lin(method: LinearMethod, name: str):
-            return self._lin(method, weight(name), bias(name))
+            return self._lin(method, weight(name), bias(name), smooth(name))
 
         layer = {"input_norm": input_norm, "post_norm": post_norm}
         layer.update(fuse_projections(
             "qkv", ("q", "k", "v"), (self.m_q, self.m_kv, self.m_kv),
             [lin(self.m_q, "q"), lin(self.m_kv, "k"), lin(self.m_kv, "v")]))
         layer["o"] = lin(self.m_o, "o")
-        if self.use_qk_norm:
-            for name in ("q_norm", "k_norm"):
-                layer[name] = torch.as_tensor(weight(name)).to(
-                    device=self.device, dtype=self.dtype)
-        layer.update(self._mlp_params(weight, bias))
+        norms = self._extra_norms + (("q_norm", "k_norm")
+                                     if self.use_qk_norm else ())
+        for name in norms:
+            layer[name] = torch.as_tensor(weight(name)).to(
+                device=self.device, dtype=self.dtype)
+        layer.update(self._mlp_params(weight, bias, smooth))
         if self.per_layer_kv_scale and self.config.uses_kv_quant:
             layer["kv_scale"] = torch.full((), self.config.kv_scale,
                                            dtype=torch.float32,
@@ -153,12 +207,18 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         return layer
 
     def _mlp_params(self, weight: Callable[[str], Any],
-                    bias: Callable[[str], Any]) -> Dict[str, Any]:
-        """The gated-SiLU MLP: gate and up fused, down."""
+                    bias: Callable[[str], Any],
+                    smooth: Callable[[str], Any] = lambda name: None
+                    ) -> Dict[str, Any]:
+        """The gated MLP: gate and up fused where they can be, down."""
         m = self.m_mlp
-        return {"gate_up": m.fuse([self._lin(m, weight("gate"), bias("gate")),
-                                   self._lin(m, weight("up"), bias("up"))]),
-                "down": self._lin(m, weight("down"), bias("down"))}
+
+        def lin(name):
+            return self._lin(m, weight(name), bias(name), smooth(name))
+        out = fuse_projections("gate_up", ("gate", "up"), (m, m),
+                               [lin("gate"), lin("up")])
+        out["down"] = lin("down")
+        return out
 
     def _lm_head(self, embed: torch.Tensor, weight) -> Dict[str, Any]:
         """``weight``: [V, H] floats, a ``PrequantizedWeight``, or None
@@ -191,6 +251,7 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             q, k, v = mat((nq + 2 * nkv) * hd, H).split(
                 [nq * hd, nkv * hd, nkv * hd])
             w = {"q": q, "k": k, "v": v, "o": mat(H, nq * hd)}
+            w.update({name: ones() for name in self._extra_norms})
             if self.use_qk_norm:
                 qw, kw = self._qk_norm_widths()
                 w["q_norm"] = torch.ones(qw, device=dev, dtype=dt)
@@ -218,14 +279,16 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         def t(name):
             return torch.as_tensor(sd[name]).to(device=dev, dtype=dt)
 
+        scales = self.smooth_scales if self.takes_smoothing else {}
         layers = []
+        n_in, n_post = self._NORM_NAMES
         for i in range(self.num_layers):
             p = f"model.layers.{i}."
             layers.append(self._layer(
-                t(p + "input_layernorm.weight"),
-                t(p + "post_attention_layernorm.weight"),
+                t(p + n_in + ".weight"), t(p + n_post + ".weight"),
                 lambda n: self._hf_weight(sd, p, n),
-                lambda n: sd.get(p + self._hf_module(n) + ".bias")))
+                lambda n: sd.get(p + self._hf_module(n) + ".bias"),
+                lambda n: scales.get(p + self._hf_module(n) + ".weight")))
         embed = t("model.embed_tokens.weight")
         lm_head = None if self.tie_embeddings or "lm_head.weight" not in sd \
             else sd["lm_head.weight"]
@@ -259,30 +322,50 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         ``logits_indices`` (the EAGLE draft head's features), or with
         ``collect_kv_stats`` each layer's absmax of its fresh K and V,
         float32 [L] (the KV-scale calibration pass)."""
-        spec, eps = self.attn_spec, self.rms_eps
+        eps = self.rms_eps
         q_norm, k_norm = self._qk_norms()
         h = params["embed"][token_ids].to(self.dtype)
-        cos_sin = rope_cos_sin(spec.rope, metadata.positions)
+        if self.embedding_multiplier != 1.0:
+            h = h * self.embedding_multiplier
+        rm = self.residual_multiplier
+        post = self.norm_placement == "post"
+        sandwich = self.norm_placement == "sandwich"
+        specs = self.layer_specs
+        cos_sin = {s.rope: rope_cos_sin(s.rope, metadata.positions)
+                   for s in specs if s.rope is not None}
         L, P, ps = kv_pages.shape[:3]
         kv_flat = kv_pages.view((L * P,) + tuple(kv_pages.shape[2:]))
         stats = []
-        for li, layer in enumerate(params["layers"]):
+        for li, (layer, spec) in enumerate(zip(params["layers"], specs)):
             md_l = layer_metadata(metadata, li, P, ps, L)
-            x = rms_norm(h, layer["input_norm"], eps)
+            x = h if post else rms_norm(h, layer["input_norm"], eps)
             a = attention_block(layer, x, kv_flat, md_l, spec,
-                                self.attn_methods, rope_cos_sin=cos_sin,
+                                self.attn_methods,
+                                rope_cos_sin=cos_sin.get(spec.rope),
                                 q_norm=q_norm, k_norm=k_norm,
                                 kv_scale=layer.get("kv_scale", self.kv_scale),
                                 collect_kv_stats=collect_kv_stats)
             if collect_kv_stats:
                 a, stat = a
                 stats.append(stat)
-            h = h + a
-            h = h + self._mlp(layer, rms_norm(h, layer["post_norm"], eps))
+            if post:
+                a = rms_norm(a, layer["input_norm"], eps)
+            elif sandwich:
+                a = rms_norm(a, layer["post_attn_extra"], eps)
+            h = h + (a if rm == 1.0 else rm * a)
+            m = self._mlp(layer, h if post else
+                          rms_norm(h, layer["post_norm"], eps))
+            if post:
+                m = rms_norm(m, layer["post_norm"], eps)
+            elif sandwich:
+                m = rms_norm(m, layer["post_mlp_extra"], eps)
+            h = h + (m if rm == 1.0 else rm * m)
         # RMSNorm is row-wise: gather the logits rows first, then norm
         rows = h[metadata.logits_indices]
         last = rms_norm(rows, params["final_norm"], eps)
         logits = self.m_lm_head.apply(params["lm_head"], last).float()
+        if self.logits_scaling != 1.0:
+            logits = logits / self.logits_scaling
         if collect_hidden:
             return logits, kv_pages, rows
         if collect_kv_stats:
@@ -290,11 +373,12 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         return logits, kv_pages
 
     def _mlp(self, layer: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        """The gated-SiLU MLP over the post-attention normed rows."""
+        """The gated MLP (``mlp_act`` on the gate in float32, times up,
+        then down) over the post-attention rows."""
         mlp = self.m_mlp
-        gate, up = mlp.apply(layer["gate_up"], x).split(
-            self.intermediate_size, -1)
-        act = F.silu(gate.float()).to(self.dtype) * up
+        gate, up = apply_pair(mlp, layer, "gate_up", ("gate", "up"), x,
+                              self.intermediate_size)
+        act = _ACTS[self.mlp_act](gate.float()).to(self.dtype) * up
         return mlp.apply(layer["down"], act)
 
     def _qk_norms(self):

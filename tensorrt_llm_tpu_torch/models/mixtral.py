@@ -26,7 +26,7 @@ from ..ops.linear import dot_f32
 from ..ops.moe import check_grouped, moe_mlp, moe_route
 from ..quantization.checkpoint import PrequantizedWeight
 from .llama import LlamaForCausalLM
-from .modeling_utils import register_model
+from .modeling_utils import apply_pair, fuse_projections, register_model
 
 
 @register_model("mixtral")
@@ -34,6 +34,8 @@ class MixtralForCausalLM(LlamaForCausalLM):
     architectures = ("MixtralForCausalLM",)
     # one KV scale, the config's, for every layer (the JAX mixtral.py:181)
     per_layer_kv_scale = False
+    # the JAX MoE loaders fold no SmoothQuant scales
+    takes_smoothing = False
     # checkpoint modules below model.layers.{i}.: the router, and the
     # experts' gate, up and down projections ({e}: the expert)
     _ROUTER = "block_sparse_moe.gate"
@@ -92,7 +94,9 @@ class MixtralForCausalLM(LlamaForCausalLM):
         return w
 
     def _mlp_params(self, weight: Callable[[str], Any],
-                    bias: Callable[[str], Any]) -> Dict[str, Any]:
+                    bias: Callable[[str], Any],
+                    smooth: Callable[[str], Any] = lambda name: None
+                    ) -> Dict[str, Any]:
         def dense(name):
             w = weight(name)
             if isinstance(w, PrequantizedWeight):
@@ -105,9 +109,10 @@ class MixtralForCausalLM(LlamaForCausalLM):
         out = {k: dense(k) for k in ("router", "w_gate_up", "w_down")}
         if self.has_shared_expert:
             m = self.m_mlp
-            out["se_gate_up"] = m.fuse([
-                self._lin(m, weight("se_gate"), bias("se_gate")),
-                self._lin(m, weight("se_up"), bias("se_up"))])
+            out.update(fuse_projections(
+                "se_gate_up", ("se_gate", "se_up"), (m, m),
+                [self._lin(m, weight("se_gate"), bias("se_gate")),
+                 self._lin(m, weight("se_up"), bias("se_up"))]))
             out["se_down"] = self._lin(m, weight("se_down"),
                                        bias("se_down"))
             out["se_gate_w"] = dense("se_gate_w")
@@ -162,8 +167,9 @@ class MixtralForCausalLM(LlamaForCausalLM):
                       renormalize=self.renormalize)
         if self.has_shared_expert:
             m = self.m_mlp
-            gate, up = m.apply(layer["se_gate_up"], x).split(
-                self.shared_intermediate, -1)
+            gate, up = apply_pair(m, layer, "se_gate_up",
+                                  ("se_gate", "se_up"), x,
+                                  self.shared_intermediate)
             se = m.apply(layer["se_down"],
                          F.silu(gate.float()).to(self.dtype) * up)
             g = torch.sigmoid(dot_f32(x, layer["se_gate_w"]))

@@ -31,7 +31,7 @@ import torch
 from ..ops import rope as rope_ops
 from ..ops.attention import (KV_DTYPES, AttentionMetadata,
                              ragged_paged_attention, write_kv)
-from ..ops.linear import LinearMethod, make_linear_method
+from ..ops.linear import LinearMethod, can_fuse, make_linear_method
 from ..ops.quant import pack_int4
 from ..quantization.checkpoint import PrequantizedWeight
 from ..quantization.mode import KvCacheQuantAlgo
@@ -205,12 +205,16 @@ def hf_transpose(w):
 
 def quantize_linear(method: LinearMethod, w, bias=None,
                     dtype: torch.dtype = torch.bfloat16,
-                    device="cpu") -> Dict[str, torch.Tensor]:
+                    device="cpu", smooth=None) -> Dict[str, torch.Tensor]:
     """One [K, N] weight through its method, onto ``device``. The float
     weight is moved first and quantized there, so only one tensor's float
     copy is alive at a time. A ``PrequantizedWeight`` keeps the
     checkpoint's own integers, scales and zero points; a symmetric int4
-    one is packed for the dequant-matmul kernel."""
+    one is packed for the dequant-matmul kernel. ``smooth`` (SmoothQuant,
+    [K]): the weight's input rows are multiplied by it in float32 before
+    quantizing, and the projection keeps it as ``params["smooth"]``
+    (float32), by which ``apply`` divides x: the JAX ``quantize_linear``'s
+    fold."""
     if isinstance(w, PrequantizedWeight):
         if type(method) is LinearMethod:
             raise ValueError("a prequantized projection is excluded from "
@@ -226,8 +230,15 @@ def quantize_linear(method: LinearMethod, w, bias=None,
     else:
         # w is a transposed view of an [out, in] tensor: the quantizers'
         # elementwise results inherit its strides
+        w = torch.as_tensor(w).to(device)
+        if smooth is not None:
+            smooth = torch.as_tensor(smooth).to(device=device,
+                                                dtype=torch.float32)
+            w = w.float() * smooth[:, None]
         params = {k: v.contiguous() for k, v in method.quantize_weights(
-            torch.as_tensor(w).to(device), dtype=dtype).items()}
+            w, dtype=dtype).items()}
+        if smooth is not None:
+            params["smooth"] = smooth
     if bias is not None:
         params["bias"] = torch.as_tensor(bias).to(device=device, dtype=dtype)
     return params
@@ -238,14 +249,26 @@ def fuse_projections(fused: str, names: Sequence[str],
                      parts: List[Dict[str, torch.Tensor]]
                      ) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{fused: one projection}`` when every part shares one method and
-    one set of tensors (scales are per output column, so joining
-    separately quantized parts along the output axis is exact — for
-    packed int4 too, since packing runs along K); otherwise the parts
-    under their own names."""
-    if all(m.same_as(methods[0]) for m in methods[1:]) and \
-            all(set(p) == set(parts[0]) for p in parts[1:]):
+    the parts can be joined (``ops.linear.can_fuse``: scales are per
+    output column, or a per-tensor scale is expanded over its part's
+    columns, so joining separately quantized parts along the output axis
+    is exact — for packed int4 too, since packing runs along K; a
+    SmoothQuant projection keeps its own smoothing vector, and FP8 block
+    scales need whole blocks); otherwise the parts under their own
+    names."""
+    if all(m.same_as(methods[0]) for m in methods[1:]) and can_fuse(parts):
         return {fused: methods[0].fuse(parts)}
     return dict(zip(names, parts))
+
+
+def apply_pair(method: LinearMethod, params: Dict[str, Any], fused: str,
+               names: Sequence[str], x: torch.Tensor, width: int):
+    """The two outputs of a pair of projections (gate and up) that
+    ``fuse_projections`` joined under ``fused`` (each ``width`` wide) or
+    kept apart under ``names``."""
+    if fused in params:
+        return method.apply(params[fused], x).split(width, -1)
+    return tuple(method.apply(params[n], x) for n in names)
 
 
 class DecoderModelForCausalLM:

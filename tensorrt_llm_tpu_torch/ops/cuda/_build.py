@@ -8,7 +8,8 @@ is rebuilt and an unchanged one is reused. ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
 Each wrapper module keeps ``LAUNCHES``, the number of times its kernel
-ran, and counts through ``count_launch``. A launch recorded into a CUDA
+ran (and may keep other counters of the same kind, such as a body's own),
+and counts through ``count_launch``. A launch recorded into a CUDA
 graph is not a run: while ``tally_launches`` is open on the thread, the
 launch goes into its tally instead, and whoever replays the graph adds
 the tally once per replay (``add_launches``; runtime/cuda_graph.py).
@@ -25,7 +26,7 @@ import subprocess
 import sys
 import threading
 from pathlib import Path
-from typing import Counter, Dict, Iterator, List
+from typing import Counter, Dict, Iterator, List, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -109,21 +110,22 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def count_launch(module: str) -> None:
+def count_launch(module: str, counter: str = "LAUNCHES") -> None:
     """One launch of the kernel wrapped by ``module`` (its ``__name__``):
     into the thread's open tally if there is one, else onto the module's
-    ``LAUNCHES``."""
+    ``counter``."""
     counts = getattr(_tally, "counts", None)
     if counts is not None:
-        counts[module] += 1
+        counts[module, counter] += 1
     else:
-        sys.modules[module].LAUNCHES += 1
+        mod = sys.modules[module]
+        setattr(mod, counter, getattr(mod, counter) + 1)
 
 
 @contextlib.contextmanager
-def tally_launches() -> Iterator[Counter[str]]:
-    """Record this thread's launches by module instead of counting them
-    (a capture records what each replay will launch)."""
+def tally_launches() -> Iterator[Counter[Tuple[str, str]]]:
+    """Record this thread's launches by (module, counter) instead of
+    counting them (a capture records what each replay will launch)."""
     prev = getattr(_tally, "counts", None)
     _tally.counts = collections.Counter()
     try:
@@ -132,7 +134,8 @@ def tally_launches() -> Iterator[Counter[str]]:
         _tally.counts = prev
 
 
-def add_launches(counts: Counter[str]) -> None:
+def add_launches(counts: Counter[Tuple[str, str]]) -> None:
     """Count a recorded tally once (one replay of a graph)."""
-    for module, n in counts.items():
-        sys.modules[module].LAUNCHES += n
+    for (module, counter), n in counts.items():
+        mod = sys.modules[module]
+        setattr(mod, counter, getattr(mod, counter) + n)

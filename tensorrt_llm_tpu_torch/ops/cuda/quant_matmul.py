@@ -27,6 +27,19 @@ TPU kernel does (it takes its output type from x after the cast,
 quant_matmul.py:131 and :156), so a float32 model carries bf16 from a
 quantized projection into whatever follows, in both packages.
 
+The e4m3 body (``e4m3_dequant_matmul``): float8 e4m3 weights [K, N] of
+the FP8 methods (ops/linear.py), group 128, with the scales as the
+methods keep them: one for the tensor (0-dim), one per column for every
+group ([N]: a fused per-tensor projection) or FP8 block scales
+[K/128, ceil(N/128)]; the kernel reads each through a row stride and a
+column shift, so nothing is expanded per call. Arithmetic: bf16 x, the
+e4m3 values exact in bf16, a float32 partial product per group of 128
+times its scale, summed; the result in x's type (bf16, or float32 for a
+float32 x: the JAX FP8 methods return x's type), at up to 128 rows on
+CUDA. ``LAUNCHES`` counts its launches with the integer bodies' and
+``LAUNCHES_E4M3`` alone. The JAX
+package has no kernel here: on the TPU it leaves the fp8 product to XLA.
+
 Dispatch, by shape only:
   * ``M > M_KERNEL_MAX`` (prefill): dequantize the weight to x's type and
     call one plain matmul (result in x's type), on any device — where the
@@ -48,6 +61,7 @@ from ..quant import dequantize_weight, unpack_int4
 from . import _build
 
 LAUNCHES = 0
+LAUNCHES_E4M3 = 0
 
 M_KERNEL_MAX = 128
 GROUP_SIZES = (16, 32, 64, 128)
@@ -111,7 +125,7 @@ def _kernel():
     """The built C entry point, with its ctypes signature set once."""
     fn = _build.load("quant_matmul").groupwise_dequant_matmul
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P_] * 4 + [I_] * 6 + [P_]
+    fn.argtypes = [P_] * 4 + [I_] * 10 + [P_]
     fn.restype = I_
     return fn
 
@@ -186,8 +200,106 @@ def groupwise_dequant_matmul(x: torch.Tensor,        # [M, K]
                            _sm_count(x.device.index or 0))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     err = _kernel()(xb.data_ptr(), w.data_ptr(), scales.data_ptr(),
-                    out.data_ptr(), M, K, N, group_size, bits, splits,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+                    out.data_ptr(), M, K, N, group_size, bits, 0, splits,
+                    N, 0, 0, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "groupwise_dequant_matmul")
     _build.count_launch(__name__)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# The e4m3 body
+# --------------------------------------------------------------------- #
+E4M3_GROUP = 128      # rows per scale group of the e4m3 body (FP8 block)
+
+
+def e4m3_kernel_takes(M: int, K: int) -> bool:
+    """Whether the e4m3 body's contract covers this product (any N)."""
+    return M <= M_KERNEL_MAX and K % E4M3_GROUP == 0
+
+
+def _scale_map(scales: torch.Tensor, K: int, N: int) -> Tuple[int, int]:
+    """(row stride, column shift) of the kernel's scale read, by the
+    scales' shape: 0-dim per-tensor, [N] per column, or block
+    [K/128, ceil(N/128)]."""
+    blocks = (K // E4M3_GROUP, -(-N // E4M3_GROUP))
+    if scales.dim() == 0:
+        return 0, 31
+    if tuple(scales.shape) == (N,):
+        return 0, 0
+    if tuple(scales.shape) == blocks:
+        return blocks[1], 7
+    raise ValueError(f"e4m3 scales {tuple(scales.shape)} are none of (), "
+                     f"({N},) and {blocks}")
+
+
+def e4m3_group_scales(scales: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """The scales as float32 [K/128, N], one row per group of 128 rows."""
+    row, shift = _scale_map(scales, K, N)
+    cols = torch.arange(N, device=scales.device) >> shift
+    flat = scales.float().reshape(-1)
+    idx = torch.arange(K // E4M3_GROUP, device=scales.device)[:, None] * row
+    return flat[idx + cols[None, :]]
+
+
+def _check_e4m3(x, w, scales):
+    M, K = x.shape
+    if w.dtype != torch.float8_e4m3fn:
+        raise TypeError(f"weights must be float8 e4m3, got {w.dtype}")
+    if w.shape[0] != K or K % E4M3_GROUP:
+        raise ValueError(f"weight {tuple(w.shape)} does not match K={K} "
+                         f"(a multiple of {E4M3_GROUP})")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"unsupported activation dtype {x.dtype}")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"scales must be float32, got {scales.dtype}")
+    _scale_map(scales, K, w.shape[1])
+    return M, K, w.shape[1]
+
+
+def e4m3_dequant_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                              scales: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the e4m3 body, with its arithmetic: bf16
+    x, e4m3 values exact, one float32 partial product per group of 128
+    times that group's scales, summed, in x's type."""
+    M, K, N = _check_e4m3(x, w, scales)
+    ng = K // E4M3_GROUP
+    xg = x.to(torch.bfloat16).float().reshape(M, ng, E4M3_GROUP)
+    wg = w.float().reshape(ng, E4M3_GROUP, N)
+    part = torch.einsum("mgk,gkn->gmn", xg, wg)
+    out = (part * e4m3_group_scales(scales, K, N)[:, None, :]).sum(dim=0)
+    return out.to(x.dtype)
+
+
+def e4m3_dequant_matmul(x: torch.Tensor,          # [M, K] bf16 / float32
+                        w: torch.Tensor,          # [K, N] float8 e4m3
+                        scales: torch.Tensor      # (), [N] or block
+                        ) -> torch.Tensor:
+    """x @ (w * scales) -> [M, N] in x's type: a CPU tensor runs
+    ``e4m3_dequant_matmul_plain``; a CUDA tensor launches the e4m3 body,
+    up to 128 rows (the FP8 methods take their own route above)."""
+    M, K, N = _check_e4m3(x, w, scales)
+    if x.device.type == "cpu":
+        return e4m3_dequant_matmul_plain(x, w, scales)
+    if x.device.type != "cuda" or w.device != x.device or \
+            scales.device != x.device:
+        raise ValueError("x, w and scales must be on the same CUDA device")
+    if M > M_KERNEL_MAX:
+        raise ValueError(f"shape outside the e4m3 body's contract: M={M}")
+    if not (w.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("w and scales must be contiguous")
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    row, shift = _scale_map(scales, K, N)
+    splits = choose_splits(M, K, N, E4M3_GROUP, 8,
+                           _sm_count(x.device.index or 0))
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _kernel()(xb.data_ptr(), w.data_ptr(), scales.data_ptr(),
+                    out.data_ptr(), M, K, N, E4M3_GROUP, 8, 1, splits, row,
+                    shift, int(x.dtype == torch.float32),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "e4m3_dequant_matmul")
+    _build.count_launch(__name__)
+    _build.count_launch(__name__, "LAUNCHES_E4M3")
     return out

@@ -1,12 +1,14 @@
 """Quantization algorithm names.
 
 Port of the ``QuantAlgo`` / ``KvCacheQuantAlgo`` enums of
-``tensorrt_llm_tpu/quantization/mode.py``. This package serves the
-weight-only algorithms (W8A16, W4A16, W4A16_AWQ, W4A16_GPTQ, NVFP4,
-MXFP4; ops/linear.py) and every KV cache algorithm (INT8, FP8, NVFP4 on
-an e4m3 pool; models/modeling_utils.py ModelConfig). The other weight
-algorithms exist so that configurations parse the same way and an
-algorithm that is not ported is refused by name.
+``tensorrt_llm_tpu/quantization/mode.py``. This package serves every
+weight algorithm the JAX package serves (ops/linear.py: W8A16, W4A16,
+W4A16_AWQ, W4A16_GPTQ, NVFP4, MXFP4, FP8, FP8_PER_CHANNEL_PER_TOKEN,
+FP8_BLOCK_SCALES, W8A8_SQ_PER_CHANNEL(_PER_TOKEN_PLUGIN), W4A8_AWQ) and
+every KV cache algorithm (INT8, FP8, NVFP4 on an e4m3 pool;
+models/modeling_utils.py ModelConfig). W8A8_SQ_PER_TENSOR_PLUGIN and
+MIXED_PRECISION, which the JAX factory refuses too, parse and are
+refused by name.
 """
 from __future__ import annotations
 

@@ -113,7 +113,8 @@ class _Step:
         self.views = _views(self.buf, layout)
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
         self.outputs: Tuple[torch.Tensor, ...] = ()
-        self.launches: Counter[str] = collections.Counter()
+        # (wrapper module, counter) -> launches recorded at capture
+        self.launches: Counter[Tuple[str, str]] = collections.Counter()
         self.replays = 0
 
 
@@ -147,8 +148,9 @@ class GraphRunner:
         for key, s in self.steps.items():
             if kind is not None and key[0] != kind:
                 continue
-            for module, n in s.launches.items():
-                total[module] += n * s.replays
+            for (module, counter), n in s.launches.items():
+                if counter == "LAUNCHES":
+                    total[module] += n * s.replays
         return total
 
     def ensure(self, key: tuple, inert: Inputs, body: Body) -> _Step:

@@ -5,9 +5,10 @@ and once under ``torch.profiler``, then prints one JSON line: both wall
 times, tokens/s and the TTFT / TPOT medians of the timed run (and their maxima), the summed
 GPU kernel time, the device's idle share (kernel time over the
 unprofiled wall time; the profiler itself slows the host), the KV pages
-the timed pass allocated (reused prefix pages included), the kernel
+the timed pass allocated (reused prefix pages included), the launches of
+each kernel (and of the dequant-matmul kernel's e4m3 body), the kernel
 time by class (the two attention kernels, the dequant-matmul kernel, the
-MoE block's grouped products and its routing and sort, library GEMMs,
+int8 products of SmoothQuant and W4A8, the MoE block's grouped products and its routing and sort, library GEMMs,
 everything else; the MoE block's counts, offsets and combine are small
 elementwise kernels and stay in "other"), launches per output step (those the
 host issues, a CUDA graph's replay being one, and the kernels the device
@@ -78,8 +79,27 @@ Two workloads:
   grammar's build ms, the pool states in use, the guided windows and
   single steps, and how each request ended (``measure_guided``).
 
+- ``--geometry llama3-8b-quant``: ``chip_smoke.py``'s quant_serving run,
+  Llama-3-8B as above, 64 requests of 512 prompt tokens -> 128 tokens
+  with ``ignore_eos``, ``LLM`` defaults (64 rows, K =
+  8 windows, depth 4, CUDA graphs) but prefix reuse off; with
+  ``--layers N`` at the first N layers;
+- ``--family NAME``: one Llama-derived family at a published model's
+  width (``FAMILIES``: Granite-3.1-8B, OLMo-2-1124-7B, Phi-3-medium-4k,
+  GLM-4-9B-0414, glm-4-9b-chat-hf, SmolLM3-3B, Helium-1-2B, AFM-4.5B,
+  EXAONE-4.0-32B) at the run depth the table gives (2 layers; 4 for
+  EXAONE 4 and SmolLM3, so that a global or NoPE layer runs), seeded
+  random bf16 weights, 16 requests of 256 prompt tokens -> 32 tokens.
+
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
-group-wise algorithms). ``--spec EAGLE3 --draft-len d`` serves the
+group-wise algorithms and W4A8): any ``QuantAlgo`` the package serves,
+among them FP8, FP8_PER_CHANNEL_PER_TOKEN, FP8_BLOCK_SCALES,
+W8A8_SQ_PER_CHANNEL and W4A8_AWQ. ``--inline`` builds the model as a
+``transformers`` module on the card in bf16 (its own seeded
+initialisation) and hands it to ``LLM`` as ``model=``; under
+W8A8_SQ_PER_CHANNEL its SmoothQuant scales are then calibrated on that
+module, on the card in bf16 (without ``--inline`` SmoothQuant applies no
+smoothing, as in the JAX package). ``--spec EAGLE3 --draft-len d`` serves the
 workload with EAGLE3 speculative decoding in the fused device window and
 a seeded random head (which accepts close to nothing: the run shows the
 window's mechanics and costs, not a speed-up); the line then also carries
@@ -110,6 +130,12 @@ K1 / K2 launches made while drafting (the rest are the target's).
         --draft-len 3
     python -m tensorrt_llm_tpu_torch.tools.serving_profile \
         --geometry llama3-8b-copy --spec DRAFT_TARGET --draft-len 4
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry llama3-8b-quant --quant FP8 [--layers 8]
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry llama3-8b-quant --quant W8A8_SQ_PER_CHANNEL --inline \
+        --layers 8
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile --family glm4
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --surface
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --guided \
         [--guided-backend dfa-host]
@@ -122,6 +148,8 @@ import math
 import statistics
 import subprocess
 import time
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -177,6 +205,134 @@ LLAMA32_1B = dict(
     rms_norm_eps=1e-5, tie_word_embeddings=True, bos_token_id=128000,
     eos_token_id=128001)
 HOST_SPEC_MODES = ("NGRAM", "SA", "DRAFT_TARGET", "PARD")
+# The Llama-derived dense families at a published model's width: (the
+# transformers config class, its fields, the layers a run keeps, the
+# source of the widths). Depth is cut to the run's layers; every width
+# is the source's.
+FAMILIES = {
+    # https://huggingface.co/ibm-granite/granite-3.1-8b-base config.json
+    "granite": ("GraniteConfig", dict(
+        vocab_size=49155, hidden_size=4096, intermediate_size=12800,
+        num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=131072, rope_theta=10000000.0,
+        rms_norm_eps=1e-5, embedding_multiplier=12.0,
+        attention_multiplier=0.0078125, residual_multiplier=0.22,
+        logits_scaling=16.0, tie_word_embeddings=True), 2,
+        "Granite-3.1-8B"),
+    # https://huggingface.co/allenai/OLMo-2-1124-7B config.json
+    "olmo2": ("Olmo2Config", dict(
+        vocab_size=100352, hidden_size=4096, intermediate_size=11008,
+        num_hidden_layers=32, num_attention_heads=32,
+        num_key_value_heads=32, max_position_embeddings=4096,
+        rope_theta=500000.0, rms_norm_eps=1e-6, tie_word_embeddings=False),
+        2, "OLMo-2-1124-7B"),
+    # https://huggingface.co/microsoft/Phi-3-medium-4k-instruct config.json
+    # (head dim 128; Phi-3-mini's 96 is refused by the CUDA kernels)
+    "phi3": ("Phi3Config", dict(
+        vocab_size=32064, hidden_size=5120, intermediate_size=17920,
+        num_hidden_layers=40, num_attention_heads=40,
+        num_key_value_heads=10, max_position_embeddings=4096,
+        sliding_window=2047, rope_theta=10000.0, rms_norm_eps=1e-5,
+        tie_word_embeddings=False, pad_token_id=32000, eos_token_id=32000,
+        bos_token_id=1), 2, "Phi-3-medium-4k"),
+    # https://huggingface.co/THUDM/glm-4-9b-chat-hf config.json
+    "glm": ("GlmConfig", dict(
+        vocab_size=151552, hidden_size=4096, intermediate_size=13696,
+        num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=2,
+        head_dim=128, partial_rotary_factor=0.5, attention_bias=True,
+        max_position_embeddings=131072, rope_theta=10000.0,
+        rms_norm_eps=1.5625e-07, tie_word_embeddings=False,
+        pad_token_id=151329, eos_token_id=151329, bos_token_id=151329), 2,
+        "glm-4-9b-chat-hf"),
+    # https://huggingface.co/THUDM/GLM-4-9B-0414 config.json
+    "glm4": ("Glm4Config", dict(
+        vocab_size=151552, hidden_size=4096, intermediate_size=13696,
+        num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=2,
+        head_dim=128, partial_rotary_factor=0.5, attention_bias=True,
+        max_position_embeddings=32768, rope_theta=10000.0,
+        rms_norm_eps=1e-5, tie_word_embeddings=False,
+        pad_token_id=151329, eos_token_id=151329, bos_token_id=151329), 2,
+        "GLM-4-9B-0414"),
+    # https://huggingface.co/HuggingFaceTB/SmolLM3-3B config.json (NoPE
+    # every fourth layer)
+    "smollm3": ("SmolLM3Config", dict(
+        vocab_size=128256, hidden_size=2048, intermediate_size=11008,
+        num_hidden_layers=36, num_attention_heads=16, num_key_value_heads=4,
+        max_position_embeddings=65536, rope_theta=5000000.0,
+        rms_norm_eps=1e-6, no_rope_layer_interval=4,
+        tie_word_embeddings=True, pad_token_id=128004,
+        eos_token_id=128012, bos_token_id=128000), 4, "SmolLM3-3B"),
+    # https://huggingface.co/kyutai/helium-1-preview-2b config.json
+    # (transformers' HeliumConfig defaults)
+    "helium": ("HeliumConfig", dict(
+        vocab_size=48000, hidden_size=2560, intermediate_size=7040,
+        num_hidden_layers=24, num_attention_heads=20,
+        num_key_value_heads=20, head_dim=128, max_position_embeddings=4096,
+        rope_theta=100000.0, rms_norm_eps=1e-8, tie_word_embeddings=False,
+        pad_token_id=3, eos_token_id=2, bos_token_id=1), 2,
+        "Helium-1-2B"),
+    # https://huggingface.co/arcee-ai/AFM-4.5B config.json (its long-
+    # context rope scaling left out: the runs stay in 4,096 positions)
+    "arcee": ("ArceeConfig", dict(
+        vocab_size=128004, hidden_size=2560, intermediate_size=18432,
+        num_hidden_layers=36, num_attention_heads=20, num_key_value_heads=4,
+        head_dim=128, max_position_embeddings=4096, rope_theta=10000.0,
+        rms_norm_eps=1e-5, tie_word_embeddings=False, pad_token_id=0,
+        eos_token_id=128001, bos_token_id=128000), 2, "AFM-4.5B"),
+    # https://huggingface.co/LGAI-EXAONE/EXAONE-4.0-32B config.json (three
+    # sliding-window layers of 4,096 to one global NoPE layer)
+    "exaone4": ("Exaone4Config", dict(
+        vocab_size=102400, hidden_size=5120, intermediate_size=27392,
+        num_hidden_layers=64, num_attention_heads=40,
+        num_key_value_heads=8, head_dim=128, max_position_embeddings=131072,
+        sliding_window=4096, sliding_window_pattern=4, rope_theta=1000000.0,
+        rope_scaling={"rope_type": "llama3", "factor": 16.0,
+                      "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                      "original_max_position_embeddings": 8192},
+        rms_norm_eps=1e-5, tie_word_embeddings=False, pad_token_id=0,
+        eos_token_id=361, bos_token_id=1), 4, "EXAONE-4.0-32B"),
+}
+
+
+def family_config(name: str, layers: Optional[int] = None):
+    """The ``transformers`` config of family ``name`` at its source's
+    widths and ``layers`` layers (default: the table's run depth)."""
+    import transformers
+    cls, fields, run_layers, _ = FAMILIES[name]
+    fields = dict(fields, num_hidden_layers=layers or run_layers)
+    if name == "smollm3":
+        n = fields["num_hidden_layers"]
+        fields["no_rope_layers"] = [int((i + 1) % 4 != 0) for i in range(n)]
+    if name == "exaone4":
+        n = fields["num_hidden_layers"]
+        fields["layer_types"] = ["full_attention" if (i + 1) % 4 == 0
+                                 else "sliding_attention" for i in range(n)]
+    return getattr(transformers, cls)(**fields)
+
+
+def family_workload(name: str):
+    """(config, LLM keyword arguments, prompts, SamplingParams) of
+    ``--family``: 16 requests of 256 seeded tokens -> 32."""
+    from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
+    cfg = family_config(name)
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(3, cfg.vocab_size - 1, (16, 256),
+                            generator=gen).tolist()
+    kwargs = dict(max_batch_size=16, max_input_len=256, max_seq_len=512,
+                  kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+    return cfg, kwargs, prompts, SamplingParams(
+        max_tokens=32, top_k=1, ignore_eos=True, logprobs=0)
+
+
+def inline_module(cfg, device="cuda"):
+    """A ``transformers`` causal LM of ``cfg`` built on ``device`` in bf16
+    with its own initialisation under torch seed 0 (the ``--inline``
+    model)."""
+    import transformers
+    torch.manual_seed(0)
+    with torch.device(device):
+        model = transformers.AutoModelForCausalLM.from_config(cfg)
+    return model.to(torch.bfloat16).eval()
 # https://huggingface.co/google/gemma-3-1b-pt/blob/main/config.json
 GEMMA3_1B = dict(
     vocab_size=262144, hidden_size=1152, intermediate_size=6912,
@@ -213,6 +369,12 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
         seg = torch.randint(0, LLAMA3_8B["vocab_size"], (32, 128),
                             generator=gen)
         prompts = seg.repeat(1, 4).tolist()
+        kwargs = dict(kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (LlamaConfig(**LLAMA3_8B), kwargs, prompts,
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
+    if geometry == "llama3-8b-quant":
+        prompts = torch.randint(0, LLAMA3_8B["vocab_size"], (64, 512),
+                                generator=gen).tolist()
         kwargs = dict(kv_cache_config=KvCacheConfig(enable_block_reuse=False))
         return (LlamaConfig(**LLAMA3_8B), kwargs, prompts,
                 SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
@@ -276,6 +438,8 @@ def _class(name: str, moe: bool = False) -> str:
     if "quant_matmul_kernel" in name:
         return "quant_matmul"
     low = name.lower()
+    if "int8" in low or "imma" in low or "tensorop_i" in low:
+        return "int8_gemm"
     if moe and any(k in low for k in ("grouped", "ptrarray", "groupproblem")):
         return "moe_grouped_gemm"
     if moe and ("topk" in low or "sort" in low):
@@ -395,13 +559,16 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
     timer = None if host0 is None else \
         DraftTimer(llm.executor.host_drafter, kernels)
     blocks0 = llm.kv_cache_manager.get_stats().alloc_total_blocks
+    qmm = kernels["groupwise_dequant_matmul"]
     for mod in kernels.values():
         mod.LAUNCHES = 0
+    qmm.LAUNCHES_E4M3 = 0
     try:
         wall, outs = _generate(llm, prompts, sp)
     finally:
         drafting = timer.close() if timer is not None else None
     launches = {k: mod.LAUNCHES for k, mod in kernels.items()}
+    launches_e4m3 = qmm.LAUNCHES_E4M3
     spec1 = _spec_counts(llm)
     blocks = llm.kv_cache_manager.get_stats().alloc_total_blocks - blocks0
     steps = max(1, eng.decode_steps - steps0[0])
@@ -428,7 +595,7 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
         min_output_tokens=min(n_out),
         logprobs_recorded=len(lps),
         nonfinite_logprobs=sum(not math.isfinite(v) for v in lps),
-        decode_steps=steps, launches=launches,
+        decode_steps=steps, launches=launches, launches_e4m3=launches_e4m3,
         graphs_captured=eng.graphs.num_graphs,
         graph_replays=eng.graphs.replays - replays0,
         window_steps=eng.window_steps - steps0[1],
@@ -895,9 +1062,17 @@ def main() -> None:
                     help="bench.py's throughput workload and settings")
     ap.add_argument("--geometry", choices=["tinyllama", "qwen3-30b-a3b",
                                            "gemma2-9b", "gemma3-1b",
-                                           "llama3-8b", "llama3-8b-copy"],
+                                           "llama3-8b", "llama3-8b-copy",
+                                           "llama3-8b-quant"],
                     default="tinyllama",
                     help="the model of the default workload")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the geometry's first N layers")
+    ap.add_argument("--inline", action="store_true",
+                    help="hand LLM a transformers module built on the card "
+                    "(SmoothQuant calibrates on it)")
+    ap.add_argument("--family", choices=sorted(FAMILIES), default=None,
+                    help="a Llama-derived family at a published width")
     ap.add_argument("--kv", choices=["none", "int8", "fp8", "nvfp4"],
                     default="none", help="the KV cache's quantization")
     ap.add_argument("--vswa", action="store_true",
@@ -943,12 +1118,18 @@ def main() -> None:
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
     from tensorrt_llm_tpu_torch.quantization.mode import (KvCacheQuantAlgo,
                                                           QuantAlgo)
-    cfg, kwargs, prompts, sp = workload(args.bench_settings, args.geometry,
-                                        args.vswa)
+    if args.family:
+        cfg, kwargs, prompts, sp = family_workload(args.family)
+    else:
+        cfg, kwargs, prompts, sp = workload(args.bench_settings,
+                                            args.geometry, args.vswa)
+    if args.layers:
+        cfg.num_hidden_layers = args.layers
+    model = inline_module(cfg) if args.inline else cfg
     if args.spec != "NONE":
         kwargs["speculative_config"] = spec_config(args.spec, args.draft_len)
     kv = "NO_QUANT" if args.kv == "none" else args.kv.upper()
-    llm = LLM(cfg, dtype="bfloat16", quant_config=QuantConfig(
+    llm = LLM(model, dtype="bfloat16", quant_config=QuantConfig(
         quant_algo=QuantAlgo[args.quant], group_size=args.group_size,
         kv_cache_quant_algo=KvCacheQuantAlgo[kv]), **kwargs)
     try:
@@ -960,6 +1141,8 @@ def main() -> None:
     print(json.dumps(dict(quant_algo=args.quant, kv=args.kv,
                           bench_settings=args.bench_settings,
                           geometry=args.geometry, vswa=args.vswa,
+                          family=args.family, layers=cfg.num_hidden_layers,
+                          inline=args.inline,
                           spec=args.spec, draft_len=args.draft_len, **res)))
 
 

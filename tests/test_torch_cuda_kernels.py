@@ -1383,3 +1383,198 @@ def test_guided_state_after_window_equals_host(cuda, dtype):
         assert state >= 0
     finally:
         llm.shutdown()
+
+
+# --------------------------------------------------------------------- #
+# The dequant-matmul kernel's e4m3 body and the load-time quantized
+# linears (FP8, SmoothQuant, W4A8) on the card
+# --------------------------------------------------------------------- #
+def _e4m3_inputs(M, K, N, form, dtype, device, seed=0):
+    """Seeded x, an e4m3 weight and its scales in ``form``: "tensor"
+    (0-dim), "column" ([N], a fused per-tensor projection) or "block"."""
+    from tensorrt_llm_tpu_torch.ops import quant as Q
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, N), np.float32) * 0.02)
+    if form == "block":
+        q, s = Q.quantize_weight_fp8_blockwise(w)
+    else:
+        q, s = Q.quantize_weight_fp8(w)
+        if form == "column":
+            s = torch.linspace(0.5, 2.0, N) * s
+    return x.to(dtype).to(device), q.to(device), s.to(device)
+
+
+@pytest.mark.parametrize("M,K,N,form,dtype", [
+    (64, 4096, 6144, "column", torch.bfloat16),     # Llama-3-8B qkv
+    (1, 4096, 4096, "tensor", torch.bfloat16),      # o, one row
+    (64, 4096, 28672, "block", torch.bfloat16),     # gate_up
+    (64, 14336, 4096, "block", torch.bfloat16),     # down
+    (65, 1024, 1024, "tensor", torch.bfloat16),     # a second row block
+    (8, 256, 130, "block", torch.bfloat16),         # N = 130: byte copies
+    (128, 1024, 257, "column", torch.bfloat16),     # scales in 4-byte pieces
+    (5, 384, 96, "tensor", torch.float32),          # float32 out
+    (64, 4096, 6144, "column", torch.float32),
+])
+def test_e4m3_kernel_matches_plain(cuda, M, K, N, form, dtype):
+    x, w, s = _e4m3_inputs(M, K, N, form, dtype, cuda)
+    before = (qmm.LAUNCHES, qmm.LAUNCHES_E4M3)
+    got = qmm.e4m3_dequant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert (qmm.LAUNCHES, qmm.LAUNCHES_E4M3) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert got.dtype == dtype and got.shape == (M, N)
+    ref = qmm.e4m3_dequant_matmul_plain(x, w, s)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                               atol=tol * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_finite_e4m3_code_reaches_wgmma_exactly(cuda, dtype):
+    """w [128, 256] holds each of the 254 finite e4m3 codes (and both
+    zeros) in every row and column position class (code (k + n) % 256,
+    the two NaN codes zeroed); x = I: out = w, exactly."""
+    k = torch.arange(128)[:, None]
+    n = torch.arange(256)[None, :]
+    codes = ((k + n) % 256).to(torch.uint8)
+    codes[(codes == 0x7F) | (codes == 0xFF)] = 0
+    w = codes.view(torch.float8_e4m3fn).to(cuda)
+    x = torch.eye(128, dtype=dtype, device=cuda)
+    one = torch.ones((), dtype=torch.float32, device=cuda)
+    got = qmm.e4m3_dequant_matmul(x, w, one)
+    torch.cuda.synchronize()
+    assert torch.equal(got.float(), w.float())
+
+
+def test_e4m3_kernel_refuses_more_than_128_rows(cuda):
+    x, w, s = _e4m3_inputs(129, 256, 96, "tensor", torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contract"):
+        qmm.e4m3_dequant_matmul(x, w, s)
+
+
+def test_e4m3_kernel_is_deterministic_and_replays(cuda):
+    x, w, s = _e4m3_inputs(64, 14336, 4096, "block", torch.bfloat16, cuda)
+    first = qmm.e4m3_dequant_matmul(x, w, s)
+    assert torch.equal(first, qmm.e4m3_dequant_matmul(x, w, s))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qmm.e4m3_dequant_matmul(x, w, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmm.e4m3_dequant_matmul(x, w, s)
+    x.mul_(-0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, qmm.e4m3_dequant_matmul(x, w, s))
+
+
+@pytest.mark.parametrize("algo", ["FP8", "FP8_BLOCK_SCALES",
+                                  "W8A8_SQ_PER_CHANNEL", "W4A8_AWQ"])
+@pytest.mark.parametrize("M", [1, 17, 64, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_linear_on_cuda_matches_cpu(cuda, algo, M, dtype):
+    """Each load-time method's ``apply`` on the card against the CPU's
+    (the JAX order): the e4m3 body at up to 128 rows (FP8; FP8 block in
+    bf16), the int8 product with its rows padded past 16 inside the call
+    (SmoothQuant, W4A8, smoothed), and the upcast route above 128 rows."""
+    from tensorrt_llm_tpu_torch import QuantAlgo, QuantConfig
+    from tensorrt_llm_tpu_torch.models.modeling_utils import quantize_linear
+    from tensorrt_llm_tpu_torch.ops import linear as L
+    m = L.make_linear_method(QuantConfig(quant_algo=QuantAlgo[algo]))
+    g = torch.Generator().manual_seed(M)
+    w = torch.randn((1024, 768), generator=g) * 0.02
+    smooth = torch.rand(1024, generator=g) + 0.5 \
+        if algo in ("W8A8_SQ_PER_CHANNEL", "W4A8_AWQ") else None
+    p = quantize_linear(m, w, dtype=dtype, smooth=smooth)
+    x = torch.randn((M, 1024), generator=g).to(dtype)
+    want = m.apply(p, x)
+    before = qmm.LAUNCHES_E4M3
+    got = m.apply({k: v.to(cuda) for k, v in p.items()}, x.to(cuda))
+    torch.cuda.synchronize()
+    kernel = algo == "FP8" or (algo == "FP8_BLOCK_SCALES" and
+                               dtype == torch.bfloat16)
+    assert qmm.LAUNCHES_E4M3 - before == int(kernel and M <= 128)
+    assert got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol * max(1.0, want.abs().max().item()))
+
+
+def test_int8_product_pads_rows_inside_a_graph(cuda):
+    from tensorrt_llm_tpu_torch.ops.linear import int8_mm
+    a = torch.randint(-128, 128, (3, 256), dtype=torch.int8, device=cuda)
+    b = torch.randint(-128, 128, (256, 512), dtype=torch.int8, device=cuda)
+    want = (a.cpu().int() @ b.cpu().int())
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        int8_mm(a, b)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = int8_mm(a, b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_mm(a[:, :100], b[:100])
+
+
+def test_phi3_mini_head_dim_96_is_refused_by_name_on_cuda(cuda):
+    """Phi-3-mini's head dim 96 is served on the CPU
+    (tests/test_torch_dense_families.py); the attention kernels take 64,
+    128 and 256 and refuse it by name (a ValueError, wrapped in the
+    RuntimeError of the graph capture that first meets it)."""
+    import transformers as tf
+    import tensorrt_llm_tpu_torch as T
+    cfg = tf.Phi3Config(vocab_size=128, hidden_size=192,
+                        intermediate_size=256, num_hidden_layers=2,
+                        num_attention_heads=2, num_key_value_heads=2,
+                        max_position_embeddings=256, pad_token_id=0,
+                        eos_token_id=1, bos_token_id=2)
+    with pytest.raises((ValueError, RuntimeError), match="hd=96"):
+        llm = T.LLM(cfg, skip_tokenizer_init=True, max_batch_size=2,
+                    max_input_len=32, max_seq_len=64, max_num_tokens=64,
+                    kv_cache_config=T.KvCacheConfig(tokens_per_block=16,
+                                                    max_tokens=256))
+        try:
+            llm.generate([[5, 6, 7]], T.SamplingParams(max_tokens=2))
+        finally:
+            llm.shutdown()
+
+
+def test_quantizers_on_cuda_give_the_cpu_bytes(cuda):
+    """Every load-time quantizer gives on the card the integers, fp8
+    bytes and scales it gives on the CPU (where they equal the JAX
+    package's): CUDA would multiply by the reciprocal of a host divisor,
+    one bit off the quotient, so the quantizers divide by a tensor
+    (``ops.quant.div``)."""
+    from tensorrt_llm_tpu_torch.ops import quant as Q
+    from tensorrt_llm_tpu_torch.ops.linear import W4A8QServeMethod
+    g = torch.Generator().manual_seed(5)
+    w = torch.randn((688, 384), generator=g) * 0.05
+    x = torch.randn((33, 688), generator=g)
+    cases = {
+        "fp8": lambda t: Q.quantize_weight_fp8(t),
+        "fp8_block": lambda t: Q.quantize_weight_fp8_blockwise(t),
+        "per_channel": lambda t: Q.quantize_weight_per_channel(t, bits=8),
+        "group": lambda t: Q.quantize_weight_groupwise(t, 16, 4)[:2],
+        "group_asym": lambda t: Q.quantize_weight_groupwise(
+            t, 16, 4, asymmetric=True),
+        "nvfp4": lambda t: Q.quantize_weight_fp4(t, 16, "e4m3"),
+        "w4a8": lambda t: tuple(W4A8QServeMethod(16).quantize_weights(
+            t).values()),
+        "per_token": lambda t: Q.quantize_activation_per_token_int8(x.to(
+            t.device)),
+    }
+    for name, fn in cases.items():
+        for a, b in zip(fn(w), fn(w.to(cuda))):
+            if a is None:
+                continue
+            b = b.cpu()
+            if a.dtype == torch.float8_e4m3fn:
+                a, b = a.view(torch.uint8), b.view(torch.uint8)
+            assert torch.equal(a, b), name

@@ -413,9 +413,18 @@ def test_llm_ingests_prequantized_checkpoint_as_jax_does(tmp_path, fmt):
     assert out["torch"] == out["jax"]
 
 
-def test_llm_refuses_what_is_not_ported():
+def test_llm_refuses_what_is_not_ported(tmp_path):
+    """What the JAX factory also refuses: SmoothQuant's per-tensor plugin
+    and mixed precision; and an 8-bit GPTQ checkpoint."""
     import tensorrt_llm_tpu_torch as T
     cfg = _hf_config()
-    with pytest.raises(NotImplementedError, match="SmoothQuant"):
-        T.LLM(cfg, device="cpu", quant_config=T.QuantConfig(
-            quant_algo=T.QuantAlgo.W8A8_SQ_PER_CHANNEL))
+    for algo, word in [("W8A8_SQ_PER_TENSOR_PLUGIN", "SmoothQuant"),
+                       ("MIXED_PRECISION", "mixed precision")]:
+        with pytest.raises(NotImplementedError, match=word):
+            T.LLM(cfg, device="cpu", quant_config=T.QuantConfig(
+                quant_algo=T.QuantAlgo[algo]))
+    _save_checkpoint(tmp_path, cfg, _state_dict(cfg), {
+        "quant_method": "gptq", "bits": 8, "group_size": 64,
+        "desc_act": False})
+    with pytest.raises(NotImplementedError, match="4-bit only"):
+        T.LLM(str(tmp_path), device="cpu", **_llm_kwargs())
