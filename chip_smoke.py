@@ -175,8 +175,8 @@ the run on error:
      (tools/serving_profile.py ``--geometry llama3-8b --kv fp8``; the
      bf16 pool by ``--geometry llama3-8b`` and an INT8 pool by ``--kv
      int8``, left out here for the script's time budget):
-     tok/s, TTFT and TPOT (median, max), idle share, GPU time by
-     class, the pool's pages, tokens and bytes, the calibrated scales'
+     tok/s, TTFT and TPOT (median, max; unprofiled, for the time budget),
+     the pool's pages, tokens and bytes, the calibrated scales'
      range, launches and replays; every request 128 tokens, no NaN in
      the pool or in the returned logprobs, K1 replayed in windows, K2
      launched; the ``kernels`` line's ``launches_kv_serving`` (the FP8
@@ -305,7 +305,8 @@ the run on error:
      weight widened in memory on a decode step); beside it 8-layer
      passes of 64 x 512 -> 64 in bf16, FP8, FP8 block, SmoothQuant
      (calibrated on an inline ``transformers`` module built on the card
-     in bf16, ``--inline``) and W4A8, with the same figures;
+     in bf16, ``--inline``) and W4A8, with the same figures but the
+     profiled ones (left out for the time budget);
  29. families_parity: the nine Llama-derived families (Granite, OLMo 2,
      Phi-3, GLM, GLM-4, SmolLM3, Helium, Arcee, EXAONE 4): a tiny seeded
      float32 checkpoint of each, the card against the CPU, greedy tokens
@@ -314,6 +315,27 @@ the run on error:
      for EXAONE-4.0-32B and SmolLM3-3B), 16 x 256 -> 32 through graphs,
      K1 / K2 launched, windows replayed, every logprob finite.
 
+ 30. gpt_kernels: K1 and K2 at this slice's shapes, held against their
+     plain versions and timed beside them, their bounds and one SDPA
+     call where one computes the same function: gpt-oss-20b's sliding
+     layers (sinks, window 128), bloom-7b1 (ALiBi), GPT-NeoX-20B (hd 96),
+     StableLM-3B-4E1T (hd 80) and Falcon-7B (71 q heads over one KV
+     head);
+ 31. gpt_parity: a tiny seeded float32 checkpoint of each GPT family
+     (GPT-2, GPT-NeoX, GPT-J, Falcon, StarCoder2, Cohere, Nemotron,
+     Cohere2, StableLM, BLOOM, MPT, OPT) and a tiny GPT-OSS whose experts
+     are MXFP4 blocks and scales, the card against the CPU: greedy tokens
+     identical, K1 / K2 launched (with sinks, with ALiBi);
+ 32. gpt_families: each GPT family at a published model's width
+     (``serving_profile.GPT_FAMILIES``: 2 layers, 4 for Command-R7B), 16 x
+     256 -> 32 through graphs: K1 / K2 launched, windows replayed, every
+     logprob finite;
+ 33. gptoss_serving: gpt-oss-20b at full width and depth (24 layers, 32
+     experts top 4, sinks, windows of 128), 64 x 512 -> 128, one bf16 KV
+     pool, K = 8 windows, graphs (``serving_profile --geometry
+     gpt-oss-20b``): tok/s, TTFT, TPOT, idle share, GPU time by class,
+     weights and peak memory, K1 / K2 launches and those with sinks.
+
 ``python3 chip_smoke.py --only a,b`` runs just the named phases (a
 development run: no kernels line, no result line).
 
@@ -321,8 +343,9 @@ The last three lines are the nvidia-smi line, one JSON object with the
 per-kernel results (launches from the bench-settings run, or the
 W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's,
 moe_serving's, gemma_serving's, kv_serving's, host_spec_serving's
-DRAFT_TARGET (as the target's and the drafter's), surface_serving's and
-guided_serving's timed passes; the dequant-matmul kernel's row also its
+DRAFT_TARGET (as the target's and the drafter's), surface_serving's,
+guided_serving's and gptoss_serving's timed passes (and those with sinks)
+and gpt_families' summed; the dequant-matmul kernel's row also its
 e4m3 cases and its e4m3 launches in quant_serving's runs) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1727,14 +1750,18 @@ KV8_SCALES = {"int8": (4 / 127, 3.5 / 127), "e4m3": (1 / 64, 1 / 80)}
 
 def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
                     dtype, seed, pages_per_seq=0, timed=True, hd=GEMMA_HD,
-                    kv8=None) -> dict:
+                    kv8=None, sinks=False, alibi=False,
+                    q_scale=GEMMA_Q_SCALE) -> dict:
     """One K1 (``kind`` "decode") or K2 ("prefill") case at ``hd``, q
     scaled by ``GEMMA_Q_SCALE``, held against its plain version (bf16
     2e-2, float32 1e-4, as ``allclose`` and against tol x max |plain|);
     the plain version without the soft cap, and without the window, must
     fail that check. ``kv8`` ("int8" or "e4m3"): the pool is quantized by
     ``KV8_SCALES`` and the plain version without either scale must fail
-    the check too. The page table has the
+    the check too. ``sinks``: a per-head sink logit (1 to 5) joins every
+    softmax; ``alibi``: the ALiBi slopes of ``qh`` heads (the models'
+    ``alibi_slopes``); the plain version without either must fail the
+    check. The page table has the
     engine's ``pages_per_seq`` columns, so that K1's ``max_kv_len`` hint
     and split count are the serving launch's. With ``timed``: timed
     beside the plain version and one SDPA call on the KV gathered to the
@@ -1743,7 +1770,9 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
     from an 8-bit pool beside the same kernel on the bf16 pool it was
     quantized from (``bf16_pool_ms``). SDPA has no soft cap: with one,
     its call computes the same attention without the cap, and is held
-    against the plain version without it (``library_computes``). The
+    against the plain version without it (``library_computes``); ALiBi
+    enters SDPA as a float mask of the bias; a sink enters as one more
+    key, a zero key and value whose mask column holds the sink logit. The
     bound counts the KV positions the rows can see (the window's, not the
     row's), each read once at the pool's element size, and the operations
     at the type's peak (bf16 tensor cores, float32 CUDA cores)."""
@@ -1758,9 +1787,15 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
     q, pool, kv_lens, pt, cu = make_case(q_lens, ctx, qh, kvh, hd, seed=seed,
                                          dtype=dtype,
                                          pages_per_seq=pages_per_seq)
-    q.mul_(GEMMA_Q_SCALE)
+    q.mul_(q_scale)
     kvs = [c + n for c, n in zip(ctx, q_lens)]
     kw = dict(sm_scale=hd ** -0.5, sliding_window=window, soft_cap=cap)
+    if sinks:
+        kw["sinks"] = torch.linspace(1.0, 5.0, qh, device="cuda")
+    if alibi:
+        from tensorrt_llm_tpu_torch.models.modeling_utils import \
+            alibi_slopes
+        kw["alibi_slopes"] = alibi_slopes(qh)
     tol = TOL if dtype == torch.bfloat16 else 1e-4
     wide_pool = pool
     if kv8:
@@ -1810,10 +1845,16 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
         for s_name in ("k_scale", "v_scale"):
             extra[f"{s_name}_effect"] = _sensitive(
                 name, ref, plain(**{s_name: None}), tol, s_name)
+    for opt in ("sinks", "alibi_slopes"):
+        if opt in kw:
+            extra[f"{opt}_effect"] = _sensitive(name, ref,
+                                                plain(**{opt: None}), tol,
+                                                opt)
     res = dict(shape=dict(seqs=S, q_lens=sorted(set(q_lens)),
                           kv_len=[min(kvs), max(kvs)], qh=qh, kvh=kvh, hd=hd,
                           page=PAGE, pages_per_seq=pt.shape[1],
-                          window=window, soft_cap=cap, q_scale=GEMMA_Q_SCALE,
+                          window=window, soft_cap=cap, q_scale=q_scale,
+                          sinks=sinks, alibi=alibi,
                           dtype=str(dtype).split(".")[-1],
                           kv=kv8 or str(dtype).split(".")[-1]),
                max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
@@ -1834,7 +1875,8 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
     flops = 4 * qh * hd * pairs
     io_bytes = seen * kvh * hd * 2 * pool.element_size() \
         + 2 * q.numel() * el + pt.numel() * 4 \
-        + (S + 1) * 4 * (2 if kind == "prefill" else 1) + (8 if kv8 else 0)
+        + (S + 1) * 4 * (2 if kind == "prefill" else 1) + (8 if kv8 else 0) \
+        + 4 * qh * (sinks + alibi)
     res.update(bytes=io_bytes, flops=flops, **_bound(
         io_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16
         else F32_FLOPS))
@@ -1871,9 +1913,28 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
         mask &= kpos > qpos[:, :, None] - window
     mask[:, :, 0] |= ~mask.any(-1)            # padding rows: see one
     mask = mask[:, None]
+    if alibi:
+        slopes = torch.tensor(kw["alibi_slopes"], device=dev)
+        mask = torch.where(
+            mask, slopes[None, :, None, None]
+            * (kpos - qpos[:, :, None])[:, None].float(),
+            float("-inf")).to(dtype)
+    if sinks:
+        # the sink as one more key: a zero key and value whose mask column
+        # holds the head's sink logit, so exp(sink) joins each denominator
+        # and adds nothing to the sum of values
+        k, v = (torch.cat([x, x.new_zeros(x.shape[:2] + (1, hd))], 2)
+                for x in (k, v))
+        if mask.dtype == torch.bool:
+            mask = torch.zeros(mask.shape, dtype=dtype, device=dev) \
+                .masked_fill(~mask, float("-inf"))
+        mask = mask.expand(S, qh, Lq, Lk)
+        mask = torch.cat([mask, kw["sinks"].to(dtype)[None, :, None, None]
+                          .expand(S, qh, Lq, 1)], -1)
     # fresh prompts of one length and no window: the causal flag alone
     # (SDPA's fast backends take it; an explicit mask may not)
-    causal = not window and not any(ctx) and len(set(q_lens)) == 1
+    causal = not window and not alibi and not sinks and not any(ctx) and \
+        len(set(q_lens)) == 1
 
     def sdpa():
         return F.scaled_dot_product_attention(
@@ -1881,10 +1942,21 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
             is_causal=causal, scale=kw["sm_scale"], enable_gqa=True)
     lib = sdpa().transpose(1, 2)[seq, row]
     torch.cuda.synchronize()
-    lib_err = _hold(name, lib, lref, tol, "library")
+    if alibi:
+        # the bias rounds to bf16 in SDPA's mask (to 1 at a distance of
+        # 256 and slope 1), which the check is not meant for: reported
+        lib_err = (lib.float() - lref.float()).abs().max().item()
+        computes = "the same function, the ALiBi bias rounded to bf16 " \
+            "in its mask"
+    else:
+        lib_err = _hold(name, lib, lref, tol, "library")
+        computes = "the same function" if not cap else \
+            "the same attention without the soft cap"
+        if sinks:
+            computes += ", the sink as a zero key whose mask column " \
+                "holds the sink logit (rounded to q's type)"
     res.update(library_ms=time_ms(sdpa, 10), library_max_abs_err=lib_err,
-               library_computes="the same function" if not cap else
-               "the same attention without the soft cap")
+               library_computes=computes)
     del k, v, qp, mask, lib
     emit({"phase": "kernels", "case": name, **res})
     del q, pool, wide_pool, kv_lens, pt, cu, got, ref, lref
@@ -2327,9 +2399,9 @@ def kv_serving_phase() -> dict:
     llama3-8b --kv fp8``): on an FP8 pool, scales calibrated at build
     (the bf16 pool, ``--geometry llama3-8b``, and an INT8 pool, ``--kv
     int8``, are left out here to keep the script inside its time
-    budget).
-    Per run: tok/s, TTFT and TPOT (median, max), device idle share, GPU
-    time by class, the pool's pages, tokens and bytes, the calibrated
+    budget, and its profiled pass too).
+    Per run: tok/s, TTFT and TPOT (median, max), the pool's pages,
+    tokens and bytes, the calibrated
     scales' range, launches and replays, and the (q_lens, ctx) of its
     eager steps. Fails if a request comes back short, if the pool or the
     returned log-probabilities hold a NaN, if K1 or K2 never launched, if
@@ -2360,7 +2432,7 @@ def kv_serving_phase() -> dict:
             replayed0 = eng.graphs.replayed_launches()
             steps = _record_eager_steps(eng)
             try:
-                res = sprof.measure(llm, prompts, sp)
+                res = sprof.measure(llm, prompts, sp, profile=False)
             finally:
                 del eng.prepare_inputs
             graphs = _graph_stats(eng)
@@ -3332,7 +3404,8 @@ def quant_serving_phase() -> dict:
     one short pass each at full width and 8 layers (64 x 512 -> 64): bf16,
     FP8 per-tensor, FP8 block, SmoothQuant W8A8 (calibrated on an inline
     ``transformers`` module built on the card in bf16) and W4A8 (group
-    128), with the same figures."""
+    128), with the same figures but the profiled ones (idle share, GPU
+    time by class), left out for the script's time budget."""
     import gc
     failures = []
 
@@ -3358,6 +3431,9 @@ def quant_serving_phase() -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         model = sprof.inline_module(cfg) if inline else cfg
+        # only the full-depth FP8 run is profiled (the script's time
+        # budget)
+        profile = layers == 32
         llm = LLM(model, dtype="bfloat16", quant_config=QuantConfig(
             quant_algo=QuantAlgo[algo]), **kwargs)
         del model
@@ -3367,7 +3443,7 @@ def quant_serving_phase() -> dict:
             eng = llm.engine
             weights_bytes = sum(t.numel() * t.element_size()
                                 for t in _tensors(eng.params))
-            res = sprof.measure(llm, prompts, sp)
+            res = sprof.measure(llm, prompts, sp, profile=profile)
             graphs = _graph_stats(eng)
             reserve = eng.graph_pool_reserve()
         finally:
@@ -3533,6 +3609,388 @@ def families_parity_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# The GPT families and GPT-OSS: K1 and K2 at hd 80 / 96, groups
+# above 64, sinks with windows, ALiBi
+# --------------------------------------------------------------------- #
+# the engines' page-table widths over pages of 32: gptoss_serving's
+# max_seq_len 640, gpt_families' 512
+PAGES_GPTOSS, PAGES_FAMILY = 20, 16
+
+
+def gpt_kernel_phase(results: dict) -> None:
+    """K1 and K2 at the shapes this slice's runs launch them with, each
+    held against its plain version (``_attention_case``: bf16 2e-2, and
+    the plain version without the case's option must fail that check),
+    timed beside it, its bound, and one SDPA call where one computes the
+    same function (none with sinks): gpt-oss-20b's sliding layers (64 x
+    64 heads over 8, sinks, window 128; 64 rows at 513-640 KV, one
+    prefill step of 16 fresh 512-token prompts), bloom-7b1 (32 x 128 MHA,
+    ALiBi), GPT-NeoX-20B (64 x 96 MHA), StableLM-3B-4E1T (32 x 80 MHA)
+    and Falcon-7B (71 x 64 over one KV head), the families at
+    gpt_families' shapes (16 rows at 257-288 KV, 16 fresh 256-token
+    prompts). q is unscaled (scores of order one) so that the sinks and
+    slopes weigh."""
+    import torch
+    bf = torch.bfloat16
+    oss = [513 + (127 * i) // 63 for i in range(64)]
+    fam = [257 + (31 * i) // 15 for i in range(16)]
+    dec_fam = ([1] * 16, [k - 1 for k in fam])
+    pre_fam = ([256] * 16, [0] * 16)
+    for name, kind, (q_lens, ctx), qh, kvh, hd, window, opts, pages in [
+            ("decode_gptoss", "decode", ([1] * 64, [k - 1 for k in oss]),
+             64, 8, 64, 128, dict(sinks=True), PAGES_GPTOSS),
+            ("prefill_gptoss", "prefill", ([512] * 16, [0] * 16), 64, 8, 64,
+             128, dict(sinks=True), PAGES_GPTOSS),
+            ("decode_alibi_bloom", "decode", dec_fam, 32, 32, 128, None,
+             dict(alibi=True), PAGES_FAMILY),
+            ("prefill_alibi_bloom", "prefill", pre_fam, 32, 32, 128, None,
+             dict(alibi=True), PAGES_FAMILY),
+            ("decode_hd96", "decode", dec_fam, 64, 64, 96, None, {},
+             PAGES_FAMILY),
+            ("prefill_hd96", "prefill", pre_fam, 64, 64, 96, None, {},
+             PAGES_FAMILY),
+            ("decode_hd80", "decode", dec_fam, 32, 32, 80, None, {},
+             PAGES_FAMILY),
+            ("decode_falcon7b", "decode", dec_fam, 71, 1, 64, None, {},
+             PAGES_FAMILY),
+            ("prefill_falcon7b", "prefill", pre_fam, 71, 1, 64, None, {},
+             PAGES_FAMILY)]:
+        results[name] = _attention_case(
+            name, kind, q_lens, ctx, qh, kvh, window, None, bf,
+            seed=60 + len(results), pages_per_seq=pages, hd=hd, q_scale=1.0,
+            **opts)
+
+
+# tiny float32 checkpoints of the GPT families for gpt_parity: the
+# transformers config class and its fields beside GPT_TINY_BASE (head dim
+# 64; GPT-NeoX at 96 and StableLM at 80, Falcon's 8 heads over one KV
+# head, windows of 32 that the prompts outgrow)
+GPT_TINY_BASE = dict(vocab_size=512, pad_token_id=0, eos_token_id=1,
+                     bos_token_id=2)
+GPT_TINY = {
+    "gpt2": ("GPT2", dict(n_embd=256, n_head=4, n_layer=2,
+                          n_positions=512)),
+    "gpt_neox": ("GPTNeoX", dict(hidden_size=384, intermediate_size=768,
+                                 num_hidden_layers=2, num_attention_heads=4,
+                                 rotary_pct=0.25,
+                                 max_position_embeddings=512,
+                                 tie_word_embeddings=False)),
+    "gptj": ("GPTJ", dict(n_embd=256, n_head=4, n_layer=2, rotary_dim=16,
+                          n_positions=512, tie_word_embeddings=False)),
+    "falcon": ("Falcon", dict(hidden_size=512, num_hidden_layers=2,
+                              num_attention_heads=8, multi_query=True,
+                              parallel_attn=True, bias=False,
+                              new_decoder_architecture=False,
+                              max_position_embeddings=512,
+                              tie_word_embeddings=False)),
+    "starcoder2": ("Starcoder2", dict(
+        hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=512, sliding_window=32,
+        tie_word_embeddings=False)),
+    "cohere": ("Cohere", dict(hidden_size=256, intermediate_size=512,
+                              num_hidden_layers=2, num_attention_heads=4,
+                              num_key_value_heads=2,
+                              max_position_embeddings=512, logit_scale=0.25,
+                              use_qk_norm=False)),
+    "nemotron": ("Nemotron", dict(
+        hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+        max_position_embeddings=512, partial_rotary_factor=0.5,
+        tie_word_embeddings=False)),
+    "cohere2": ("Cohere2", dict(
+        hidden_size=256, intermediate_size=512, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+        sliding_window=32, sliding_window_pattern=4, logit_scale=0.25,
+        max_position_embeddings=512)),
+    "stablelm": ("StableLm", dict(
+        hidden_size=320, intermediate_size=640, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=4,
+        partial_rotary_factor=0.25, max_position_embeddings=512,
+        tie_word_embeddings=False)),
+    "bloom": ("Bloom", dict(hidden_size=256, n_head=4, n_layer=2)),
+    "mpt": ("Mpt", dict(d_model=256, n_heads=4, n_layers=2,
+                        expansion_ratio=2, max_seq_len=512)),
+    "opt": ("OPT", dict(hidden_size=256, ffn_dim=512, num_hidden_layers=2,
+                        num_attention_heads=4, max_position_embeddings=512,
+                        word_embed_proj_dim=256,
+                        do_layer_norm_before=True)),
+}
+
+
+def _save_tiny_gpt(path: Path, name: str) -> None:
+    """A tiny random ``transformers`` model of GPT family ``name``
+    (``GPT_TINY``) saved to ``path``, its norms and biases redrawn and its
+    matrices scaled by 4 so that they matter (at the 0.02 of the
+    families' own initialisation most greedy streams repeat one
+    token)."""
+    import torch
+    import transformers as tf
+    cls_name, fields = GPT_TINY[name]
+    cfg = getattr(tf, cls_name + "Config")(**GPT_TINY_BASE, **fields)
+    torch.manual_seed(51)
+    model = getattr(tf, {"GPT2": "GPT2LMHead"}.get(cls_name, cls_name)
+                    + ("Model" if cls_name == "GPT2" else "ForCausalLM"))(
+        cfg).float()
+    gen = torch.Generator().manual_seed(52)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+            elif "norm" in pname or "ln" in pname.split(".")[-2]:
+                p.copy_(1 + torch.randn(p.shape, generator=gen) * 0.1)
+            elif p.dim() == 2:
+                p.mul_(4.0)
+    model.save_pretrained(path)
+
+
+def _save_tiny_gpt_oss_mxfp4(path: Path) -> None:
+    """A tiny GPT-OSS checkpoint in the release layout, written from
+    numpy (hidden 256, 4 q heads of 64 over 2 with sinks, windows of 32
+    on the even layers, 4 experts top 2 whose gate|up and down weights
+    are MXFP4 blocks and scales made by the port's ``quantize_mxfp4``; the
+    other weights float32)."""
+    import numpy as np
+    import transformers as tf
+    from safetensors.numpy import save_file
+    from tensorrt_llm_tpu_torch.quantization.mxfp4 import quantize_mxfp4
+    H, I, E, nq, nkv, hd, V, L = 256, 256, 4, 4, 2, 64, 512, 2
+    cfg = tf.GptOssConfig(
+        hidden_size=H, intermediate_size=I,
+        num_hidden_layers=L, num_attention_heads=nq,
+        num_key_value_heads=nkv, head_dim=hd, num_local_experts=E,
+        num_experts_per_tok=2, sliding_window=32,
+        layer_types=["sliding_attention", "full_attention"],
+        rope_scaling=None, rope_theta=150000.0, max_position_embeddings=512,
+        rms_norm_eps=1e-5, swiglu_limit=7.0, attention_bias=True,
+        tie_word_embeddings=False, **GPT_TINY_BASE)
+    rng = np.random.default_rng(53)
+
+    def mat(*shape, std=0.05):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+    sd = {"model.embed_tokens.weight": mat(V, H, std=1.0),
+          "model.norm.weight": 1 + mat(H, std=0.1),
+          "lm_head.weight": mat(V, H)}
+    for i in range(L):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": 1 + mat(H, std=0.1),
+                   p + "post_attention_layernorm.weight": 1 + mat(H, std=0.1),
+                   p + "self_attn.sinks": mat(nq, std=1.0),
+                   p + "mlp.router.weight": mat(E, H, std=0.2),
+                   p + "mlp.router.bias": mat(E, std=0.1),
+                   p + "mlp.experts.gate_up_proj_bias": mat(E, 2 * I,
+                                                            std=0.1),
+                   p + "mlp.experts.down_proj_bias": mat(E, H, std=0.1)})
+        for n, o in (("q", nq * hd), ("k", nkv * hd), ("v", nkv * hd)):
+            sd[p + f"self_attn.{n}_proj.weight"] = mat(o, H)
+            sd[p + f"self_attn.{n}_proj.bias"] = mat(o, std=0.1)
+        sd[p + "self_attn.o_proj.weight"] = mat(H, nq * hd)
+        sd[p + "self_attn.o_proj.bias"] = mat(H, std=0.1)
+        # the release layout: [E, out, in] as blocks and scales
+        for n, (o, k) in (("gate_up_proj", (2 * I, H)),
+                          ("down_proj", (H, I))):
+            blocks, scales = quantize_mxfp4(mat(E, o, k))
+            sd[p + f"mlp.experts.{n}_blocks"] = blocks
+            sd[p + f"mlp.experts.{n}_scales"] = scales
+    path.mkdir(parents=True, exist_ok=True)
+    cfg.save_pretrained(path)
+    save_file(sd, str(path / "model.safetensors"))
+
+
+def gpt_parity_phase() -> dict:
+    """Each GPT family's tiny float32 checkpoint (``_save_tiny_gpt``) and
+    a tiny GPT-OSS whose experts are MXFP4 blocks and scales
+    (``_save_tiny_gpt_oss_mxfp4``) through ``LLM.generate`` on the card
+    and on the CPU: greedy tokens identical, K1 and K2 launched on the
+    card (with sinks for GPT-OSS, ALiBi for BLOOM and MPT)."""
+    import torch  # noqa: F401
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    prompts = [list(range(3, 90)), [5, 17, 99, 3, 64, 12, 7] * 6,
+               [101, 2, 33, 400, 7]]
+    n_out = 32
+    failures, res = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in list(GPT_TINY) + ["gpt_oss_mxfp4"]:
+            path = Path(tmp) / name
+            if name == "gpt_oss_mxfp4":
+                _save_tiny_gpt_oss_mxfp4(path)
+            else:
+                _save_tiny_gpt(path, name)
+            toks = {}
+            for dev in ("cpu", "cuda"):
+                llm = LLM(str(path), device=dev, dtype="float32",
+                          skip_tokenizer_init=True, max_batch_size=4,
+                          max_input_len=128, max_seq_len=256,
+                          max_num_tokens=256,
+                          kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                        max_tokens=4096))
+                _zero_launches()
+                for mod in (dec, pre):
+                    mod.LAUNCHES_SINKS = mod.LAUNCHES_ALIBI = 0
+                try:
+                    outs = llm.generate(prompts, SamplingParams(
+                        max_tokens=n_out, top_k=1, ignore_eos=True))
+                    launches = _read_launches()
+                finally:
+                    llm.shutdown()
+                toks[dev] = [o.outputs[0].token_ids for o in outs]
+            opt = dict(sinks=[dec.LAUNCHES_SINKS, pre.LAUNCHES_SINKS],
+                       alibi=[dec.LAUNCHES_ALIBI, pre.LAUNCHES_ALIBI])
+            if toks["cuda"] != toks["cpu"]:
+                failures.append(f"gpt_parity {name}: card {toks['cuda']} "
+                                f"!= cpu {toks['cpu']}")
+            if min(launches["paged_decode_attention"],
+                   launches["ragged_prefill_attention"]) <= 0:
+                failures.append(f"gpt_parity {name}: K1 or K2 never "
+                                f"launched: {launches}")
+            need = {"gpt_oss_mxfp4": "sinks", "bloom": "alibi",
+                    "mpt": "alibi"}.get(name)
+            if need and min(opt[need]) <= 0:
+                failures.append(f"gpt_parity {name}: no K1 / K2 launch "
+                                f"with {need}: {opt}")
+            res[name] = dict(identical=toks["cuda"] == toks["cpu"],
+                             tokens_each=n_out, launches=launches,
+                             launches_with=opt)
+            emit({"phase": "gpt_parity", "family": name, **res[name]})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def gpt_families_phase() -> dict:
+    """Each GPT family at a published model's width
+    (tools/serving_profile.py ``GPT_FAMILIES``: 2 layers, 4 for
+    Command-R7B so that its global NoPE layer runs; seeded random bf16
+    weights), 16 x 256 -> 32 greedy tokens through graphs (``--family
+    NAME``): K1 and K2 launched (with ALiBi for bloom-7b1 and MPT-7B),
+    windows replayed, every returned logprob finite. A smoke of the
+    widths (hd 80, 96 and 256, 71 heads over one KV head, 256,000-token
+    vocabularies), not a cell."""
+    import gc
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    failures, res = [], {}
+    for name, (_, _, layers, source) in sprof.GPT_FAMILIES.items():
+        cfg, kwargs, prompts, sp = sprof.family_workload(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        llm = LLM(cfg, dtype="bfloat16", enable_warmup=False, **kwargs)
+        try:
+            eng = llm.engine
+            run = sprof.measure(llm, prompts, sp, profile=False)
+            graphs = _graph_stats(eng)
+            spec = eng.model.attn_spec
+        finally:
+            llm.shutdown()
+        del llm, eng
+        if min(run["launches"][k] for k in ("paged_decode_attention",
+                                            "ragged_prefill_attention")) <= 0:
+            failures.append(f"gpt_families {name}: K1 or K2 never "
+                            f"launched: {run['launches']}")
+        if spec.alibi_slopes and min(run["launches_alibi"].values()) <= 0:
+            failures.append(f"gpt_families {name}: no launch with ALiBi")
+        if not graphs["graph_replays"]:
+            failures.append(f"gpt_families {name}: no graph replay")
+        if run["nonfinite_logprobs"] or not run["logprobs_recorded"] or \
+                run["min_output_tokens"] != sp.max_tokens:
+            failures.append(f"gpt_families {name}: short outputs or "
+                            "non-finite logprobs")
+        res[name] = dict(
+            source=source, layers=layers, hidden=spec.num_heads
+            * spec.head_dim, heads=spec.num_heads, kv_heads=spec.num_kv_heads,
+            head_dim=spec.head_dim, output_tok_per_s=run["output_tok_per_s"],
+            tpot_ms_median=run["tpot_ms_median"],
+            ttft_ms_median=run["ttft_ms_median"], launches=run["launches"],
+            launches_alibi=run["launches_alibi"],
+            graph_replays=graphs["graph_replays"],
+            logprobs_recorded=run["logprobs_recorded"])
+        emit({"phase": "gpt_families", "family": name, **res[name]})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def gptoss_serving_phase() -> dict:
+    """gpt-oss-20b at its published width and depth (24 layers, hidden
+    2,880, 64 x 64 q heads over 8 with sinks, windows of 128 on the even
+    layers, 32 experts top 4; seeded random bf16 weights, ~41.8 GB), 64
+    requests of 512 prompt tokens -> 128 greedy tokens with
+    ``ignore_eos``, one bf16 KV pool, ``LLM`` defaults (64 rows, K = 8
+    windows, depth 4, CUDA graphs), prefix reuse off
+    (tools/serving_profile.py ``--geometry gpt-oss-20b``): a warm-up, a
+    timed pass (tok/s, TTFT and TPOT median and max, K1 / K2 launches
+    and those that carried sinks) and a profiled pass (device idle share,
+    GPU time by class: grouped expert products, K1, K2, library GEMMs,
+    the rest), weights and peak memory. Fails if a request comes back
+    short or out of the vocabulary, if K1 and K2 did not launch with
+    sinks, if no window replayed K1, or if the graph pool outgrew its
+    reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="gpt-oss-20b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    try:
+        eng = llm.engine
+        weights_bytes = sum(t.numel() * t.element_size()
+                            for t in _tensors(eng.params))
+        replayed0 = eng.graphs.replayed_launches()
+        res = sprof.measure(llm, prompts, sp)
+        graphs = _graph_stats(eng)
+        graphs["replayed_launches"] = {
+            k: v - replayed0[_kernel_counts()[k].__name__]
+            for k, v in graphs["replayed_launches"].items()}
+        reserve = eng.graph_pool_reserve()
+        pages = eng.num_kv_pages
+        kv_bytes_per_token = eng.bytes_per_kv_block // eng.page_size
+        outs = llm.generate(prompts[:4], sp)
+    finally:
+        llm.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = cfg.vocab_size
+    for o in outs:
+        toks = o.outputs[0].token_ids
+        if len(toks) != sp.max_tokens or not all(0 <= t < V for t in toks):
+            raise AssertionError(f"gptoss_serving: bad output {toks}")
+    if res["output_tokens"] != len(prompts) * sp.max_tokens or \
+            res["nonfinite_logprobs"]:
+        raise AssertionError(f"gptoss_serving: {res['output_tokens']} "
+                             "tokens, or non-finite logprobs")
+    res.update(model="gpt-oss-20b", layers=cfg.num_hidden_layers,
+               experts=cfg.num_local_experts,
+               top_k=cfg.num_experts_per_tok, engine_build_s=build_s,
+               weights_bytes=weights_bytes, peak_allocated_bytes=peak,
+               kv_pool_pages=pages, kv_bytes_per_token=kv_bytes_per_token,
+               graph_pool_reserve_bytes=reserve, graphs=graphs)
+    emit({"phase": "gptoss_serving", **res})
+    if not graphs["graph_replays"] or not \
+            graphs["replayed_launches"]["paged_decode_attention"]:
+        raise AssertionError(f"gptoss_serving: no window replayed K1: "
+                             f"{graphs}")
+    if min(res["launches_sinks"].values()) <= 0 or \
+            res["launches_sinks"] != {k: res["launches"][k]
+                                      for k in res["launches_sinks"]}:
+        raise AssertionError(f"gptoss_serving: K1 / K2 launches without "
+                             f"sinks: {res['launches']} "
+                             f"{res['launches_sinks']}")
+    _check_reserve(res)
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -3607,6 +4065,10 @@ def main() -> int:
     timed("quant_parity", quant_load_parity_phase, here)
     quant = timed("quant_serving", quant_serving_phase)
     timed("families_parity", families_parity_phase)
+    timed("gpt_kernels", gpt_kernel_phase, {} if kern is None else kern)
+    timed("gpt_parity", gpt_parity_phase)
+    gpt_fams = timed("gpt_families", gpt_families_phase)
+    gptoss = timed("gptoss_serving", gptoss_serving_phase)
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -3638,6 +4100,11 @@ def main() -> int:
                                     drafter=host["launches_drafter"][name]),
             launches_surface_serving=surface["launches"][name],
             launches_guided_serving=guided["launches"][name],
+            launches_gptoss_serving=gptoss["launches"][name],
+            launches_gptoss_serving_with_sinks=gptoss["launches_sinks"].get(
+                name, 0),
+            launches_gpt_families=sum(f["launches"][name]
+                                      for f in gpt_fams.values()),
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()

@@ -122,6 +122,23 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// How the prefill kernels' CTAs of `rows` score rows (tokens x query
+// heads) cover a KV head's `group` query heads: a group of up to `rows`
+// heads is one chunk (rows are tokens x group); a larger one (Falcon-7B's
+// 71 over one KV head) is cut into the fewest chunks of at most `rows`
+// heads, as equal as they can be (the last may have fewer live heads),
+// each CTA then holding one token of one chunk. The grid's second axis is
+// KV head x chunk.
+struct HeadChunks {
+  int n;      // chunks per KV head
+  int size;   // heads of a chunk: the rows a token takes in a CTA
+};
+
+__host__ __device__ inline HeadChunks head_chunks(int group, int rows) {
+  const int n = (group + rows - 1) / rows;
+  return {n, (group + n - 1) / n};
+}
+
 // This split's share [*lo, *hi) of a decode row's visible positions. The
 // visible range starts at the sliding window's first position (rounded
 // down to a tile) and is cut into `splits` runs of whole tiles, so a
@@ -138,6 +155,15 @@ __device__ __forceinline__ void split_range(int kv_len, int window, int tile,
 }
 
 // ---- tensor-core building blocks (bf16 routes) -------------------------
+
+// Width in bf16 of the shared-memory operand tiles for head dim `hd`: the
+// 128-byte swizzle and the mma shapes take rows of 64, 128 or 256 values,
+// so hd 80 and 96 (GPT-NeoX-20B, Phi-3-mini, StableLM-3B) are staged as
+// 128-wide tiles whose columns past hd are zero-filled on the way in:
+// they add 0 to every dot and give output columns that are never stored.
+// Global memory is read and written at hd, so the bytes moved are the
+// pool's own.
+__host__ __device__ constexpr int tile_hd(int hd) { return hd == 80 || hd == 96 ? 128 : hd; }
 
 // Byte offset of the 16-byte chunk `c` of row `r` in a shared-memory tile
 // whose rows hold HD bf16 values (128 or 256 bytes). The chunk index is

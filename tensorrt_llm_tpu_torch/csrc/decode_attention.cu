@@ -64,6 +64,13 @@
 // reads its A fragment by ldmatrix: held in registers for the whole loop
 // it would take 64 of them beside the 128 of the output accumulator.
 //
+// hd 80 and 96 (StableLM-3B, GPT-NeoX-20B, Phi-3-mini): the tiles are
+// 128 wide (attention_common.cuh tile_hd), as at hd 128; the copies read
+// the pool's hd columns of each row and zero-fill the rest, Q's fragments
+// are zero past hd, and only hd output columns are written. Groups above
+// 16 query heads (Falcon-7B's 71 over one KV head) are more chunks of the
+// grid's second axis, so the group has no upper limit.
+//
 // 8-bit pools (int8, e4m3; the TPU kernel's k_scale / v_scale dequant,
 // ops/pallas/decode_attention.py:109-111): a quantized pool halves the
 // bytes the kernel must read, so the bf16 route copies the 8-bit tiles as
@@ -280,21 +287,24 @@ decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
                  int num_pages, int max_pages, float sm_scale, int window,
                  float soft_cap, int splits, const float* __restrict__ k_scale,
                  const float* __restrict__ v_scale) {
-  typedef Ring<HD, KV> R;
+  constexpr int HP = tile_hd(HD);       // the shared-memory tiles' width
+  typedef Ring<HP, KV> R;
   constexpr bool Q8 = R::Q8;
   constexpr int kStages = R::STAGES;    // the ring's depth
   constexpr int TP = R::N;              // 32 or 16 positions
   constexpr int kStageBytes = R::RAW;   // one ring stage
   constexpr int kRingBytes = R::BYTES;  // a warp's region
   constexpr int CH = HD / 8;            // 16-byte chunks per bf16 K (or V) row
+  constexpr int CHP = HP / 8;           // ... per row of a tile (CH .. CHP - 1: zeros)
   constexpr int CH8 = HD / 16;          // 16-byte chunks per 8-bit row
-  constexpr int COPIES8 = TP * 2 * CH8 / 32;   // 8-bit chunks per lane per tile
-  constexpr int KS = HD / 16;           // k-steps of Q.K^T
+  constexpr int CH8P = HP / 16;         // ... per row of an 8-bit stage
+  constexpr int COPIES8 = TP * 2 * CH8P / 32;   // 8-bit chunks per lane per tile
+  constexpr int KS = HP / 16;           // k-steps of Q.K^T
   constexpr int NT = TP / 8;            // score n-tiles per tile
   constexpr int PK = TP / 16;           // k-steps of P.V
-  constexpr int ON = HD / 8;            // output n-tiles
-  constexpr int COPIES = TP * 2 * CH / 32;   // 16-byte copies per lane per tile
-  constexpr int OS = HD + 8;            // floats per row of a warp's final stash
+  constexpr int ON = HP / 8;            // output n-tiles
+  constexpr int COPIES = TP * 2 * CHP / 32;   // 16-byte copies per lane per tile
+  constexpr int OS = HP + 8;            // floats per row of a warp's final stash
   static_assert(16 * OS * 4 + 2 * 16 * 4 <= kRingBytes, "stash must fit the ring");
 
   const int s = blockIdx.x;
@@ -340,27 +350,34 @@ decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
     }
     unsigned char* k_dst = ring + st * kStageBytes;
     if constexpr (Q8) {
-      // 8-bit rows as they are: [TP][HD bytes] of K, then of V
-      unsigned char* v_dst = k_dst + TP * HD;
+      // 8-bit rows as they are: [TP][HP bytes] of K, then of V (chunks
+      // past HD zero-filled)
+      unsigned char* v_dst = k_dst + TP * HP;
 #pragma unroll
       for (int j = 0; j < COPIES8; ++j) {
-        const int p = (j * 32 + lane) / (2 * CH8);
-        const int c2 = (j * 32 + lane) % (2 * CH8);   // chunk of the row's [k | v]
+        const int p = (j * 32 + lane) / (2 * CH8P);
+        const int c2 = (j * 32 + lane) % (2 * CH8P);   // chunk of the tile row's [k | v]
+        const int c = c2 % CH8P;
+        const bool col = c < CH8;
         const int row_slot = __shfl_sync(0xffffffffu, slot, p);
-        const uint8_t* src = kv8 + ((size_t)row_slot * combined + 2 * h) * HD + c2 * 16;
-        unsigned char* dst = (c2 < CH8 ? k_dst : v_dst) + p * HD + (c2 % CH8) * 16;
-        cp_async_16(dst, src, base + p < hi);
+        const uint8_t* src = kv8 + ((size_t)row_slot * combined + 2 * h) * HD +
+                             (col ? (c2 >= CH8P) * HD + c * 16 : 0);
+        unsigned char* dst = (c2 < CH8P ? k_dst : v_dst) + p * HP + c * 16;
+        cp_async_16(dst, src, col && base + p < hi);
       }
     } else {
-      unsigned char* v_dst = k_dst + TP * HD * 2;
+      unsigned char* v_dst = k_dst + TP * HP * 2;
 #pragma unroll
       for (int j = 0; j < COPIES; ++j) {
-        const int p = (j * 32 + lane) / (2 * CH);
-        const int c2 = (j * 32 + lane) % (2 * CH);   // chunk of the row's [k | v]
+        const int p = (j * 32 + lane) / (2 * CHP);
+        const int c2 = (j * 32 + lane) % (2 * CHP);   // chunk of the tile row's [k | v]
+        const int c = c2 % CHP;
+        const bool col = c < CH;
         const int row_slot = __shfl_sync(0xffffffffu, slot, p);
-        const bf16* src = kv + ((size_t)row_slot * combined + 2 * h) * HD + c2 * 8;
-        unsigned char* dst = (c2 < CH ? k_dst : v_dst) + swz<HD>(p, c2 % CH);
-        cp_async_16(dst, src, base + p < hi);
+        const bf16* src = kv + ((size_t)row_slot * combined + 2 * h) * HD +
+                          (col ? (c2 >= CHP) * HD + c * 8 : 0);
+        unsigned char* dst = (c2 < CHP ? k_dst : v_dst) + swz<HP>(p, c);
+        cp_async_16(dst, src, col && base + p < hi);
       }
     }
     cp_async_commit();
@@ -380,13 +397,14 @@ decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
   uint32_t qf[QF][4];
   unsigned char* q_s = smem + kWarps * kRingBytes;
   if constexpr (R::QSMEM) {
+    static_assert(HP == HD, "Q waits in shared memory only at a tile's own width");
     for (int i = tid; i < 16 * CH; i += kThreads) {
       const int r = i / CH;
       const int c = i % CH;
       const uint4 v = r < grows
           ? *reinterpret_cast<const uint4*>(q_row + (size_t)r * HD + c * 8)
           : make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(q_s + swz<HD>(r, c)) = v;
+      *reinterpret_cast<uint4*>(q_s + swz<HP>(r, c)) = v;
     }
     __syncthreads();
   } else {
@@ -395,8 +413,8 @@ decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = g + 8 * (e & 1);
-        const int d = ks * 16 + 2 * t + 8 * (e >> 1);
-        qf[ks][e] = r < grows
+        const int d = ks * 16 + 2 * t + 8 * (e >> 1);   // 0 past HD
+        qf[ks][e] = r < grows && d < HD
             ? *reinterpret_cast<const uint32_t*>(q_row + (size_t)r * HD + d) : 0u;
       }
     }
@@ -434,22 +452,22 @@ decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
       // chunks 2c and 2c + 1
 #pragma unroll
       for (int j = 0; j < COPIES8; ++j) {
-        const int p = (j * 32 + lane) / (2 * CH8);
-        const int c2 = (j * 32 + lane) % (2 * CH8);
-        const int c = c2 % CH8;
-        const int is_v = c2 >= CH8;
+        const int p = (j * 32 + lane) / (2 * CH8P);
+        const int c2 = (j * 32 + lane) % (2 * CH8P);
+        const int c = c2 % CH8P;
+        const int is_v = c2 >= CH8P;
         const uint4 raw =
-            *reinterpret_cast<const uint4*>(k_s + is_v * TP * HD + p * HD + c * 16);
+            *reinterpret_cast<const uint4*>(k_s + is_v * TP * HP + p * HP + c * 16);
         uint4 lo16, hi16;
         widen16<KV>(raw, is_v ? v_unit : k_unit, lo16, hi16);
-        unsigned char* dst = wide + is_v * TP * HD * 2;
-        *reinterpret_cast<uint4*>(dst + swz<HD>(p, 2 * c)) = lo16;
-        *reinterpret_cast<uint4*>(dst + swz<HD>(p, 2 * c + 1)) = hi16;
+        unsigned char* dst = wide + is_v * TP * HP * 2;
+        *reinterpret_cast<uint4*>(dst + swz<HP>(p, 2 * c)) = lo16;
+        *reinterpret_cast<uint4*>(dst + swz<HP>(p, 2 * c + 1)) = hi16;
       }
       __syncwarp();
       k_s = wide;
     }
-    const unsigned char* v_s = k_s + TP * HD * 2;
+    const unsigned char* v_s = k_s + TP * HP * 2;
 
     float sacc[NT][4];
 #pragma unroll
@@ -460,7 +478,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
     for (int ks = 0; ks < KS; ++ks) {
       if constexpr (R::QSMEM) {
         // blocks: (rows 0..7 | 8..15) x (dims 16*ks + 0..7 | +8..15)
-        ldmatrix_x4(qf[0], q_s + swz<HD>((lane & 7) + (((lane >> 3) & 1) << 3),
+        ldmatrix_x4(qf[0], q_s + swz<HP>((lane & 7) + (((lane >> 3) & 1) << 3),
                                          ks * 2 + (lane >> 4)));
       }
       const uint32_t (&qa)[4] = qf[R::QSMEM ? 0 : ks];
@@ -468,7 +486,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
       for (int n2 = 0; n2 < NT / 2; ++n2) {
         // blocks: (positions 16*n2 + 0..7 | +8..15) x (dims 16*ks + 0..7 | +8..15)
         uint32_t b[4];
-        ldmatrix_x4(b, k_s + swz<HD>(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
+        ldmatrix_x4(b, k_s + swz<HP>(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
                                      ks * 2 + ((lane >> 3) & 1)));
         mma_m16n8k16(sacc[2 * n2], qa, b[0], b[1]);
         mma_m16n8k16(sacc[2 * n2 + 1], qa, b[2], b[3]);
@@ -535,7 +553,7 @@ decode_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_pool,
       for (int n2 = 0; n2 < ON / 2; ++n2) {
         // blocks: (positions 16*kk + 0..7 | +8..15) x (dims 16*n2 + 0..7 | +8..15)
         uint32_t b[4];
-        ldmatrix_x4_trans(b, v_s + swz<HD>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+        ldmatrix_x4_trans(b, v_s + swz<HP>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
                                            n2 * 2 + (lane >> 4)));
         mma_m16n8k16(oacc[2 * n2], a, b[0], b[1]);
         mma_m16n8k16(oacc[2 * n2 + 1], a, b[2], b[3]);
@@ -664,7 +682,7 @@ cudaError_t launch_tc_as(const Args& a) {
   const int group = a.qh / a.kvh;
   const int gchunks = (group + 15) / 16;
   auto kernel = tc::decode_tc_kernel<HD, PLAIN, KV>;
-  constexpr size_t smem = tc::Ring<HD, KV>::SMEM;
+  constexpr size_t smem = tc::Ring<tile_hd(HD), KV>::SMEM;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
@@ -721,6 +739,8 @@ extern "C" int paged_decode_attention(
                   S, qh, kvh, ps, num_pages, max_pages, sm_scale, window, soft_cap,
                   splits, k_scale, v_scale, static_cast<cudaStream_t>(stream)};
   if (hd == 64) return launch_hd<64>(a, dtype, kv_dtype);
+  if (hd == 80) return launch_hd<80>(a, dtype, kv_dtype);
+  if (hd == 96) return launch_hd<96>(a, dtype, kv_dtype);
   if (hd == 128) return launch_hd<128>(a, dtype, kv_dtype);
   if (hd == 256) return launch_hd<256>(a, dtype, kv_dtype);
   return (int)cudaErrorInvalidValue;

@@ -24,8 +24,9 @@
 // bf16 -> prefill_wgmma_kernel (FlashAttention shape on Hopper's warpgroup
 // MMA). A CTA is one warpgroup and owns 64 score rows of one (sequence, KV
 // head): rows are tokens x `group` query heads, r -> (tok0 + r / group,
-// r % group), so any group <= 64 works and the K/V tile a CTA stages
-// serves all the query heads that share it. (128-row CTAs of two
+// r % group), so the K/V tile a CTA stages serves all the query heads that
+// share it; a group above 64 (Falcon-7B's 71 over one KV head) is cut into
+// equal chunks of at most 64 heads, one token per CTA (head_chunks). (128-row CTAs of two
 // warpgroups halve the L2 traffic but ran 5-8 % slower at every shape
 // from 16 x 128 to one 8,192-token prompt: a barrier shared by two
 // warpgroups keeps them in step, so they want the tensor cores and the
@@ -85,6 +86,11 @@
 // CUDA graph reads the current per-layer value. The float32 route loads
 // the 8-bit values and dequantizes them on the way into shared memory.
 //
+// hd 80 and 96 (StableLM-3B, GPT-NeoX-20B, Phi-3-mini) run the hd-128
+// shapes on 128-wide tiles (attention_common.cuh tile_hd): Q, K and V
+// chunks past hd are zero-filled on the way in, and only hd output
+// columns are stored, so global memory is read and written at hd.
+//
 // hd 256 (Gemma 2 and 3) keeps the one-warpgroup design: Q (32 KB) and a
 // two-stage ring of 32 KB K and V tiles take 161 KB, so one CTA per SM
 // (MINB 1, up to 255 registers a thread for the 128 output and 32 score
@@ -126,12 +132,19 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
   constexpr int VK = Vec<KVT>::N;    // pool elements per 16-byte load
   constexpr int kCols = HD / 4;   // accumulator columns per thread
   const int qblk = blockIdx.x;
-  const int h = blockIdx.y;
-  const int s = blockIdx.z;
   const int group = qh / kvh;
-  const int qb = kRows / group;   // tokens per CTA
-  const int rows = qb * group;    // <= kRows
+  const HeadChunks hc = head_chunks(group, kRows);
+  const int h = blockIdx.y / hc.n;
+  const int g0 = (blockIdx.y % hc.n) * hc.size;   // first query head of the chunk
+  const int gs = hc.size;
+  const int grows = min(gs, group - g0);          // its live heads
+  const int s = blockIdx.z;
+  const int qb = kRows / gs;      // tokens per CTA
+  const int rows = qb * gs;       // <= kRows
   const int combined = 2 * kvh;
+  // the query head of row r (a dead row past the chunk's heads reads its
+  // last live head's sink and slope)
+  auto head_of = [&](int r) { return h * group + g0 + min(r % gs, grows - 1); };
 
   const int q_start = cu_q_lens[s];
   const int q_len = cu_q_lens[s + 1] - q_start;
@@ -154,13 +167,13 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
   float* a_s = p_s + kRows * kPStride;        // [kRows] rescale factor
   float* l_s = a_s + kRows;                   // [kRows] final denominators
 
-  // rows: r = token_local * group + g  ->  head h*group + g
+  // rows: r = token_local * gs + g  ->  head h*group + g0 + g
   for (int i = tid * V; i < kRows * HD; i += kThreads * V) {
     const int r = i / HD;
     const int d = i % HD;
-    const int tok = tok0 + r / group;
-    if (r < rows && tok < q_len) {
-      load_vec<T>(q + ((size_t)(q_start + tok) * qh + h * group + r % group) * HD + d,
+    const int tok = tok0 + r / gs;
+    if (r < rows && tok < q_len && r % gs < grows) {
+      load_vec<T>(q + ((size_t)(q_start + tok) * qh + head_of(r)) * HD + d,
                   q_s + i);
     } else {
 #pragma unroll
@@ -174,7 +187,7 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp + j * kWarps;
     const bool sink = sinks != nullptr && r < rows;
-    m_r[j] = sink ? sinks[h * group + r % group] : ATTN_MASK;
+    m_r[j] = sink ? sinks[head_of(r)] : ATTN_MASK;
     l_r[j] = sink ? 1.f : 0.f;
   }
   // P.V accumulator: row tid/4, columns (tid%4) + 4*c
@@ -232,12 +245,12 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
 #pragma unroll
     for (int j = 0; j < kRowsPerWarp; ++j) {
       const int r = warp + j * kWarps;
-      const int tok = tok0 + r / group;
+      const int tok = tok0 + r / gs;
       const int q_pos = ctx + tok;
-      const bool valid = r < rows && tok < q_len && pos < kv_end && pos <= q_pos &&
-                         (window <= 0 || pos > q_pos - window);
-      const float sc = attn_score(dot[j], sm_scale, alibi, h * group + r % group,
-                                  pos, q_pos, soft_cap, valid);
+      const bool valid = r < rows && tok < q_len && r % gs < grows && pos < kv_end &&
+                         pos <= q_pos && (window <= 0 || pos > q_pos - window);
+      const float sc = attn_score(dot[j], sm_scale, alibi, head_of(r), pos, q_pos,
+                                  soft_cap, valid);
       const float m_new = fmaxf(m_r[j], warp_max(sc));
       const float p = sc == -INFINITY ? 0.f : expf(sc - m_new);
       const float sum = warp_sum(p);
@@ -265,10 +278,10 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
     for (int j = 0; j < kRowsPerWarp; ++j) l_s[warp + j * kWarps] = l_r[j];
   }
   __syncthreads();
-  const int tok = tok0 + acc_row / group;
-  if (acc_row < rows && tok < q_len) {
+  const int tok = tok0 + acc_row / gs;
+  if (acc_row < rows && tok < q_len && acc_row % gs < grows) {
     const float inv = 1.f / fmaxf(l_s[acc_row], 1e-30f);
-    T* o = out + ((size_t)(q_start + tok) * qh + h * group + acc_row % group) * HD;
+    T* o = out + ((size_t)(q_start + tok) * qh + head_of(acc_row)) * HD;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) o[acc_sub + 4 * c] = from_f<T>(acc[c] * inv);
   }
@@ -281,15 +294,15 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
                    int num_pages, int max_pages, int max_q_len, float sm_scale,
                    int window, float soft_cap, const float* k_scale,
                    const float* v_scale, cudaStream_t stream) {
-  const int group = qh / kvh;
-  const int qb = kRows / group;
+  const HeadChunks hc = head_chunks(qh / kvh, kRows);
+  const int qb = kRows / hc.size;
   const size_t smem = sizeof(float) *
       (kRows * HD + kTile * (HD + 1) + kTile * HD + kRows * kPStride + 2 * kRows);
   auto kernel = prefill_f32_simple_kernel<float, KVT, HD>;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
-  dim3 grid((max_q_len + qb - 1) / qb, kvh, S);
+  dim3 grid((max_q_len + qb - 1) / qb, kvh * hc.n, S);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KVT*>(kv), kv_lens, page_idx,
       cu_q_lens, sinks, alibi, static_cast<float*>(out), qh, kvh, ps, num_pages,
@@ -350,22 +363,29 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
                      int kvh, int ps, int num_pages, int max_pages, float sm_scale,
                      int window, float soft_cap, const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale) {
-  typedef Shape<HD, KV> SH;
+  constexpr int HP = tile_hd(HD);   // the shared-memory tiles' width
+  typedef Shape<HP, KV> SH;
   constexpr bool Q8 = SH::Q8;
   constexpr int kStages = SH::STAGES;
   constexpr int kTileBytes = SH::TILE_BYTES;
   constexpr int kRawBytes = SH::RAW_BYTES;
   constexpr int CH = HD / 8;     // 16-byte chunks per bf16 row
+  constexpr int CHP = HP / 8;    // ... per tile row (CH .. CHP - 1: zeros)
   constexpr int CH8 = HD / 16;   // 16-byte chunks per 8-bit row
-  constexpr int KS = HD / 16;    // k-steps of Q.K^T
-  constexpr int ON = HD / 8;     // 8-dim blocks of the output
+  constexpr int CH8P = HP / 16;  // ... per row of an 8-bit stage
+  constexpr int KS = HP / 16;    // k-steps of Q.K^T
+  constexpr int ON = HP / 8;     // 8-dim blocks of the output
 
   // heaviest first: the last query block has the longest causal span
   const int qblk = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int s = blockIdx.z;
   const int group = qh / kvh;
-  const int qb = kRows / group;   // tokens per CTA
+  const HeadChunks hc = head_chunks(group, kRows);
+  const int h = blockIdx.y / hc.n;
+  const int g0 = (blockIdx.y % hc.n) * hc.size;   // first query head of the chunk
+  const int gs = hc.size;
+  const int grows = min(gs, group - g0);          // its live heads
+  const int s = blockIdx.z;
+  const int qb = kRows / gs;      // tokens per CTA
   const int combined = 2 * kvh;
   const int tid = threadIdx.x;
 
@@ -402,7 +422,11 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
   const int kv_len = kv_lens[s];
   const int ctx = kv_len - q_len;                 // position of token 0
   const int tok_last = min(tok0 + qb, q_len) - 1;
-  const int live_rows = (tok_last - tok0 + 1) * group;
+  const int ntok = tok_last - tok0 + 1;
+  // row r = token_local * gs + head_local is live for a token of the
+  // segment and a head of the chunk; its query head
+  auto row_live = [&](int r) { return r / gs < ntok && r % gs < grows; };
+  auto head_of = [&](int r) { return h * group + g0 + min(r % gs, grows - 1); };
   const int q_pos_first = ctx + tok0;
   const int q_pos_last = ctx + tok_last;
   const int kv_end = min(kv_len, q_pos_last + 1);
@@ -417,7 +441,7 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* q_s = smem;                          // [kRows][HD]
+  unsigned char* q_s = smem;                          // [kRows][HP]
   unsigned char* kv_s = smem + SH::Q_BYTES;           // stages x [K | V]
   // Q8: the widened bf16 K and V tiles, after the ring
   unsigned char* wide_s = kv_s + kStages * 2 * kRawBytes;
@@ -437,7 +461,8 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
   const uint8_t* kv8_head = kv8 + 2 * h * HD + ld_q * 16;
   // Start the copies of the tile at `base` into ring stage `st`, K and V
   // as one commit group. Positions at or past kv_end are zero-filled (V
-  // must be finite there: its weight is 0).
+  // must be finite there: its weight is 0), and so are a tile row's chunks
+  // past HD (chunk ld_q + 4i of a row is live below CH, or CH8).
   auto start_tile = [&](int base, int st, const Pages& pages) {
     unsigned char* k_dst = kv_s + st * 2 * kRawBytes;
     unsigned char* v_dst = k_dst + kRawBytes;
@@ -448,24 +473,26 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
       const int page = min(max(pages.p[k], 0), num_pages - 1);
       const int slot = page * ps + (ps_shift >= 0 ? pos & (ps - 1) : pos % ps);
       if constexpr (Q8) {
-        // 8-bit rows as they are, row major: [kTile][HD bytes]; this
+        // 8-bit rows as they are, row major: [kTile][HP bytes]; this
         // thread's chunks ld_q + 4i of its rows
         const uint8_t* src = live ? kv8_head + slot * row_elems : kv8;
-        const int row_off = (ld_r + k * kRowStep) * HD + ld_q * 16;
+        const int row_off = (ld_r + k * kRowStep) * HP + ld_q * 16;
 #pragma unroll
-        for (int i = 0; i < CH8 / 4; ++i) {
-          cp_async_16(k_dst + row_off + 64 * i, src + 64 * i, live);
-          cp_async_16(v_dst + row_off + 64 * i, src + (live ? HD + 64 * i : 0), live);
+        for (int i = 0; i < CH8P / 4; ++i) {
+          const bool on = live && ld_q + 4 * i < CH8;
+          cp_async_16(k_dst + row_off + 64 * i, src + (on ? 64 * i : 0), on);
+          cp_async_16(v_dst + row_off + 64 * i, src + (on ? HD + 64 * i : 0), on);
         }
       } else {
         const bf16* src = live ? kv_head + slot * row_elems : kv;
 #pragma unroll
-        for (int i = 0; i < CH / 4; ++i) {
+        for (int i = 0; i < CHP / 4; ++i) {
           // the row k * kRowStep further has the same low bits: same swizzle
           const int off = (i >> 1) * (kTile * 128) + (ld_off ^ ((i & 1) << 6)) +
                           k * kRowStep * 128;
-          cp_async_16(k_dst + off, src + 32 * i, live);
-          cp_async_16(v_dst + off, src + (live ? HD + 32 * i : 0), live);
+          const bool on = live && ld_q + 4 * i < CH;
+          cp_async_16(k_dst + off, src + (on ? 32 * i : 0), on);
+          cp_async_16(v_dst + off, src + (on ? HD + 32 * i : 0), on);
         }
       }
     }
@@ -474,13 +501,13 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
 
   // Q: rows r = token_local * group + head_local, dead rows zero-filled;
   // its copies ride in the first tile's group.
-  for (int i = tid; i < kRows * CH; i += kThreads) {
-    const int r = i / CH;
-    const int c = i % CH;
-    const bool live = r < live_rows;
+  for (int i = tid; i < kRows * CHP; i += kThreads) {
+    const int r = i / CHP;
+    const int c = i % CHP;
+    const bool live = row_live(r) && c < CH;
     const bf16* src = q;
     if (live)
-      src = q + ((size_t)(q_start + tok0 + r / group) * qh + h * group + r % group) * HD + c * 8;
+      src = q + ((size_t)(q_start + tok0 + r / gs) * qh + head_of(r)) * HD + c * 8;
     cp_async_16(q_s + tile_off<kRows>(r, c), src, live);
   }
   // Prologue: the first kStages - 1 tiles, then the pages of the tile the
@@ -505,8 +532,8 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int r = row0 + g + 8 * e;
-    const int head = h * group + r % group;
-    q_pos_r[e] = ctx + tok0 + r / group;
+    const int head = head_of(r);
+    q_pos_r[e] = ctx + tok0 + r / gs;
     slope_r[e] = alibi != nullptr ? alibi[head] : 0.f;
     const bool sink = sinks != nullptr;
     m_r[e] = sink ? sinks[head] * ATTN_LOG2E : ATTN_MASK;
@@ -539,12 +566,12 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
       // then make the stores visible to wgmma and meet (the last wgmma to
       // read the tiles finished before the barrier above)
 #pragma unroll 4
-      for (int idx = tid; idx < 2 * kTile * CH8; idx += kThreads) {
-        const int is_v = idx / (kTile * CH8);
-        const int r = (idx / CH8) % kTile;
-        const int c = idx % CH8;
+      for (int idx = tid; idx < 2 * kTile * CH8P; idx += kThreads) {
+        const int is_v = idx / (kTile * CH8P);
+        const int r = (idx / CH8P) % kTile;
+        const int c = idx % CH8P;
         const uint4 raw =
-            *reinterpret_cast<const uint4*>(k_s + is_v * kRawBytes + r * HD + c * 16);
+            *reinterpret_cast<const uint4*>(k_s + is_v * kRawBytes + r * HP + c * 16);
         uint4 lo16, hi16;
         widen16<KV>(raw, is_v ? v_unit : k_unit, lo16, hi16);
         unsigned char* dst = wide_s + is_v * kTileBytes;
@@ -647,13 +674,13 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
 #pragma unroll
     for (int kk = 0; kk < kPK; ++kk) {
       const uint64_t db = wgmma_desc(v_s + kk * 16 * 128, kTile * 128, 1024);
-      if constexpr (HD == 64) {
+      if constexpr (HP == 64) {
         wgmma_m64n64k16_rs_tb(oacc, pa[kk], db);
-      } else if constexpr (HD == 128) {
+      } else if constexpr (HP == 128) {
         wgmma_m64n128k16_rs_tb(oacc, pa[kk], db);
       } else {
         // dims 0-127, then 128-255: V's blocks 2 and 3, two blocks on
-        static_assert(HD == 256, "P.V covers hd 64, 128 and 256");
+        static_assert(HP == 256, "P.V covers tiles 64, 128 and 256 wide");
         wgmma_m64n128k16_rs_tb(*reinterpret_cast<float(*)[64]>(oacc), pa[kk], db);
         wgmma_m64n128k16_rs_tb(
             *reinterpret_cast<float(*)[64]>(oacc + 64), pa[kk],
@@ -669,11 +696,11 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
   for (int rr = 0; rr < 2; ++rr) {
     const int r = row0 + g + 8 * rr;
     const float l = quad_sum(l_r[rr]);
-    if (r >= live_rows) continue;
+    if (!row_live(r)) continue;
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    bf16* o = out + ((size_t)(q_start + tok0 + r / group) * qh + h * group + r % group) * HD;
+    bf16* o = out + ((size_t)(q_start + tok0 + r / gs) * qh + head_of(r)) * HD;
 #pragma unroll
-    for (int n = 0; n < ON; ++n) {
+    for (int n = 0; n < CH; ++n) {   // the output's HD columns
       *reinterpret_cast<__nv_bfloat162*>(o + n * 8 + 2 * t) = __floats2bfloat162_rn(
           oacc[4 * n + 2 * rr] * inv, oacc[4 * n + 2 * rr + 1] * inv);
     }
@@ -687,14 +714,14 @@ cudaError_t launch_as(const void* q, const void* kv, const int* kv_lens,
                       int num_pages, int max_pages, int max_q_len, float sm_scale,
                       int window, float soft_cap, const float* k_scale,
                       const float* v_scale, cudaStream_t stream) {
-  const int group = qh / kvh;
-  const int qb = kRows / group;
-  constexpr size_t smem = Shape<HD, KV>::SMEM;
+  const HeadChunks hc = head_chunks(qh / kvh, kRows);
+  const int qb = kRows / hc.size;
+  constexpr size_t smem = Shape<tile_hd(HD), KV>::SMEM;
   auto kernel = prefill_wgmma_kernel<HD, PLAIN, KV>;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
-  dim3 grid((max_q_len + qb - 1) / qb, kvh, S);
+  dim3 grid((max_q_len + qb - 1) / qb, kvh * hc.n, S);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), kv, kv_lens, page_idx, cu_q_lens, sinks, alibi,
       static_cast<bf16*>(out), qh, kvh, ps, num_pages, max_pages, sm_scale, window,
@@ -725,7 +752,7 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
 // dtype: 0 float32 (the CUDA-core route), 1 bfloat16 (the tensor-core
 // route). kv_dtype: the pool's element type, 0 q's own, 1 int8, 2 float8
 // e4m3 (AttnKv); k_scale and v_scale are float32 device scalars that
-// dequantize an 8-bit pool (null: 1). group = qh / kvh must be <= 64.
+// dequantize an 8-bit pool (null: 1). Head dims 64, 80, 96, 128 and 256.
 // max_q_len is the longest segment of this batch (host-known; it sizes the
 // grid).
 extern "C" int ragged_prefill_attention(
@@ -736,7 +763,7 @@ extern "C" int ragged_prefill_attention(
     int kv_dtype, const float* k_scale, const float* v_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 0 || max_q_len <= 0) return 0;
-  if (qh % kvh != 0 || qh / kvh > 64) return (int)cudaErrorInvalidValue;
+  if (qh % kvh != 0) return (int)cudaErrorInvalidValue;
 #define ARGS q, kv, kv_lens, page_idx, cu_q_lens, sinks, alibi, out, S, qh, kvh, \
              ps, num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, \
              k_scale, v_scale, st
@@ -751,6 +778,8 @@ extern "C" int ragged_prefill_attention(
       return simple::launch<HD, __nv_fp8_e4m3>(ARGS);                               \
   }
   BY_KV(64)
+  BY_KV(80)
+  BY_KV(96)
   BY_KV(128)
   BY_KV(256)
 #undef BY_KV

@@ -26,6 +26,15 @@ norms of the JAX Gemma models (``post_attn_norm``, ``pre_ffn_norm``,
 ``post_ffn_norm`` beside ``input_norm``); their ``is_sliding`` flags are
 static config here (``layer_specs``) and are dropped, as are EXAONE 4's
 ``is_sliding`` and SmolLM3's ``use_rope``.
+The LayerNorm GPT families' trees (``LnFamilyModel``: per-layer "ln1" /
+"ln2" {"w", "b"}, q/k/v/o, "fc", "fc2", "proj"; "wpe", "embed_ln",
+``final_norm`` {"w", "b"}) and GPT-2's (``ln1_w`` / ``ln1_b`` ...,
+``lnf_w`` / ``lnf_b``) become the port's family layout
+(models/gpt_family.py: q/k/v joined into "qkv", a gated MLP's fc/fc2 into
+"fc_pair"); Cohere2's ``is_sliding`` is static config here. GPT-OSS's
+layers add "sinks", ``router_bias`` and the experts' ``b_gate`` /
+``b_up`` (joined into ``b_gate_up`` [E, 2I]) and ``b_down``, all float32,
+and drop ``is_sliding`` (``layer_specs``).
 With ``kv_scales`` (a model on a quantized KV cache), the JAX Llama's
 per-layer ``kv_scale`` [L] (float32) becomes each layer's 0-dim float32
 ``kv_scale``, so that both packages quantize with the same scales.
@@ -104,6 +113,8 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
         return {name: fuse_params(parts, weight_dim=0 if plain else -1)}
 
     lay = params_np["layers"]
+    if "ln1" in lay or "ln1_w" in lay:
+        return _from_jax_ln_family(params_np, t, proj, fused)
     num_layers = lay["input_norm"].shape[0]
     layers = []
     for i in range(num_layers):
@@ -119,6 +130,12 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
             layer["w_gate_up"] = t(np.concatenate(
                 [lay["w_gate"][i], lay["w_up"][i]], axis=-1))
             layer["w_down"] = t(lay["w_down"][i])
+            if "b_gate" in lay:                  # GPT-OSS
+                layer["b_gate_up"] = t(np.concatenate(
+                    [lay["b_gate"][i], lay["b_up"][i]], axis=-1),
+                    torch.float32)
+                for name in ("b_down", "router_bias", "sinks"):
+                    layer[name] = t(lay[name][i], torch.float32)
         else:
             layer["down"] = at("down")
             layer.update(fused(at, "gate_up", ("gate", "up")))
@@ -135,3 +152,43 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
             "layers": layers,
             "final_norm": t(params_np["final_norm"]),
             "lm_head": proj(params_np["lm_head"])}
+
+
+def _from_jax_ln_family(params_np, t, proj, fused) -> Dict[str, Any]:
+    """``from_jax_params`` for the LayerNorm GPT families and GPT-2."""
+    lay = params_np["layers"]
+    gpt2 = "ln1_w" in lay
+
+    def norm(at):
+        return {k: t(v) for k, v in at.items()}
+
+    layers = []
+    for i in range(np.asarray(lay["q"]["weight"]).shape[0]):
+        def at(name):
+            return proj({k: v[i] for k, v in lay[name].items()})
+        if gpt2:
+            layer = {n: {"w": t(lay[n + "_w"][i]), "b": t(lay[n + "_b"][i])}
+                     for n in ("ln1", "ln2")}
+        else:
+            layer = {n: norm({k: v[i] for k, v in lay[n].items()})
+                     for n in ("ln1", "ln2") if n in lay}
+        layer.update(fused(at, "qkv", ("q", "k", "v")))
+        layer["o"] = at("o")
+        if "fc2" in lay:
+            layer.update(fused(at, "fc_pair", ("fc", "fc2")))
+        else:
+            layer["fc"] = at("fc")
+        layer["proj"] = at("proj")
+        layers.append(layer)
+    out = {"embed": t(params_np["embed"]["weight"]), "layers": layers,
+           "lm_head": proj(params_np["lm_head"])}
+    if gpt2:
+        out["final_norm"] = {"w": t(params_np["lnf_w"]),
+                             "b": t(params_np["lnf_b"])}
+    else:
+        out["final_norm"] = norm(params_np["final_norm"])
+    if "wpe" in params_np:
+        out["wpe"] = t(params_np["wpe"])
+    if "embed_ln" in params_np:
+        out["embed_ln"] = norm(params_np["embed_ln"])
+    return out

@@ -22,6 +22,7 @@ the layer's scale into the pool and attention dequantizes them.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
 
@@ -119,6 +120,22 @@ class AttentionSpec:
     kv_fp4: bool = False
 
 
+def alibi_slopes(num_heads: int) -> tuple:
+    """The ALiBi slope of each head (Press et al.; HF ``build_alibi``):
+    powers of 2^(-8/n) for the nearest power-of-two head count n, with
+    the interleaved extras for other counts (the JAX package's
+    ``alibi_slopes``, models/modeling_utils.py:124)."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    n2 = 2 ** int(math.floor(math.log2(num_heads)))
+    slopes = pow2_slopes(n2)
+    if n2 != num_heads:
+        slopes += pow2_slopes(2 * n2)[0::2][: num_heads - n2]
+    return tuple(slopes)
+
+
 class AttentionMethods(NamedTuple):
     """Linear methods of one attention block: q, k and v (shared), o."""
     q: LinearMethod
@@ -137,7 +154,8 @@ def attention_block(params: Dict[str, Any],
                     q_norm: Optional[Callable] = None,
                     k_norm: Optional[Callable] = None,
                     kv_scale=None,
-                    collect_kv_stats: bool = False):
+                    collect_kv_stats: bool = False,
+                    alibi_slopes: Optional[torch.Tensor] = None):
     """QKV projection (``params["qkv"]`` fused, or "q", "k", "v" apart),
     the q/k norms (``q_norm(params, q [T, nq, hd])``, likewise k: Qwen3's
     per-head RMS norm, OLMoE's over the whole projection), RoPE, KV append
@@ -147,7 +165,15 @@ def attention_block(params: Dict[str, Any],
     layer's 0-dim float32 device tensor, or a float), rounded to the e2m1
     grid with ``spec.kv_fp4``. ``collect_kv_stats`` returns (out, the
     absmax of the fresh K and V before quantizing, a float32 scalar): the
-    calibration pass's statistic."""
+    calibration pass's statistic. ``alibi_slopes``: the spec's slopes as
+    a float32 device tensor, made once at build, and the only form the
+    kernels are given (a tuple would be copied to the device at every
+    call, which a graph capture refuses); required when the spec has
+    slopes."""
+    if (spec.alibi_slopes is None) != (alibi_slopes is None):
+        raise ValueError(
+            "attention_block takes ALiBi slopes as a device tensor exactly "
+            "when the spec has slopes")
     T = x.shape[0]
     nq, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     if "qkv" in params:
@@ -181,7 +207,7 @@ def attention_block(params: Dict[str, Any],
         q.to(dt).contiguous(), kv_pages, metadata,
         sm_scale=spec.sm_scale,
         sliding_window=spec.sliding_window, soft_cap=spec.soft_cap,
-        alibi_slopes=spec.alibi_slopes,
+        alibi_slopes=alibi_slopes,
         sinks=params["sinks"] if spec.use_sinks else None,
         k_scale=ks, v_scale=ks).to(q.dtype)
     out = methods.o.apply(params["o"], attn.reshape(T, nq * hd))

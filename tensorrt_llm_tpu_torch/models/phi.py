@@ -9,8 +9,8 @@ part's), and joined again where their methods allow. Within the original
 context the unscaled rotary table is exact, which is what both packages
 use (``longrope``'s long factors are not applied).
 
-Head dim 96 (Phi-3-mini) is served on the CPU; the CUDA attention
-kernels take 64, 128 and 256 and refuse 96 by name.
+Head dim 96 (Phi-3-mini) is served on the CPU and on the card, where the
+attention kernels stage it as 128-wide tiles.
 """
 from __future__ import annotations
 

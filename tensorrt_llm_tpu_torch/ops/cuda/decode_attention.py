@@ -13,10 +13,13 @@ and for bf16 the query heads of a KV head are one tensor-core tile
 partial (m, l, acc) in scratch allocated here, and a small merge kernel
 combines them; one split writes the output directly. float32 inputs take
 the first version's CUDA-core kernel (float32 math throughout, 1e-4
-against the plain version), with the same splits. Head dims 64, 128 and
-256 (``HEAD_DIMS``; at 256 a warp's stage is 16 KB and Q waits in shared
-memory), any other is refused by name. Left for later: TMA, one launch
-instead of two when split.
+against the plain version), with the same splits. Head dims 64, 80, 96,
+128 and 256 (``HEAD_DIMS``; 80 and 96 are staged as 128-wide tiles, zero
+past the head dim, and read and written at their own width; at 256 a
+warp's stage is 16 KB and Q waits in shared memory), any other is refused
+by name; a KV head may carry any number of query heads (16 per CTA).
+Left for later: TMA, one launch instead of two when split, tiles of the
+head dim's own width at 80 and 96.
 
 8-bit pools (``KV_DTYPES``: int8 and float8 e4m3, the TPU kernel's
 ``k_scale`` / ``v_scale`` dequant): the pool may hold q's type or one of
@@ -50,13 +53,17 @@ import torch
 from . import _build
 
 LAUNCHES = 0
+# launches that carried attention sinks, and ALiBi slopes (counted with
+# LAUNCHES, where the kernel launches)
+LAUNCHES_SINKS = 0
+LAUNCHES_ALIBI = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the quantized (8-bit) KV pool types, those of ModelConfig.kv_cache_dtype
 # under INT8, FP8 and NVFP4, and their csrc AttnKv codes (0: the pool
 # holds q's own type)
 KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
-HEAD_DIMS = (64, 128, 256)   # the head dims the kernels are built for
+HEAD_DIMS = (64, 80, 96, 128, 256)   # the head dims the kernels are built for
 
 
 def _as_f32(x, device) -> Optional[torch.Tensor]:
@@ -286,7 +293,7 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     if q.device.type != "cuda" or kv_pages.device != q.device:
         raise ValueError("q and kv_pages must be on the same CUDA device")
     kv_dtype = kv_code(q.dtype, kv_pages.dtype)
-    if hd not in HEAD_DIMS or qh % kvh or qh // kvh > 64:
+    if hd not in HEAD_DIMS or qh % kvh:
         raise ValueError(f"unsupported geometry qh={qh} kvh={kvh} hd={hd}")
     if not (q.is_contiguous() and kv_pages.is_contiguous()):
         raise ValueError("q and kv_pages must be contiguous")
@@ -321,4 +328,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     _build.count_launch(__name__)
+    if sinks_t is not None:
+        _build.count_launch(__name__, "LAUNCHES_SINKS")
+    if alibi_t is not None:
+        _build.count_launch(__name__, "LAUNCHES_ALIBI")
     return out

@@ -20,8 +20,12 @@ picked by the element type (``route_for``):
   float32 math throughout (1e-4 against the plain version, which TF32
   would not hold).
 
-Head dims 64, 128 and 256 (at 256 one CTA per SM, and P.V as two n128
-products per k-step); any other is refused by name. Left for later: a
+Head dims 64, 80, 96, 128 and 256 (80 and 96 staged as 128-wide tiles,
+zero past the head dim, and read and written at their own width; at 256
+one CTA per SM, and P.V as two n128 products per k-step); any other is
+refused by name. A group of up to 64 query heads per KV head is one CTA's
+rows (tokens x group); a larger one (Falcon-7B's 71 over 1) is cut into
+equal chunks of at most 64 heads, one token per CTA. Left for later: a
 TMA producer warp, softmax overlapped with the next tile's product, K/V
 tiles shared between the query blocks of a sequence, a KV split for the
 q_len-1 rows of mixed batches.
@@ -52,6 +56,10 @@ from .decode_attention import (_DTYPES, HEAD_DIMS, _as_f32, dequant_kv,
                                kv_code, scale_ptr)
 
 LAUNCHES = 0
+# launches that carried attention sinks, and ALiBi slopes (counted with
+# LAUNCHES, where the kernel launches)
+LAUNCHES_SINKS = 0
+LAUNCHES_ALIBI = 0
 
 
 def route_for(dtype: torch.dtype) -> str:
@@ -165,7 +173,7 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     if q.device.type != "cuda" or kv_pages.device != q.device:
         raise ValueError("q and kv_pages must be on the same CUDA device")
     kv_dtype = kv_code(q.dtype, kv_pages.dtype)
-    if hd not in HEAD_DIMS or qh % kvh or qh // kvh > 64:
+    if hd not in HEAD_DIMS or qh % kvh:
         raise ValueError(f"unsupported geometry qh={qh} kvh={kvh} hd={hd}")
     if not (q.is_contiguous() and kv_pages.is_contiguous()):
         raise ValueError("q and kv_pages must be contiguous")
@@ -191,4 +199,8 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ragged_prefill_attention")
     _build.count_launch(__name__)
+    if sinks_t is not None:
+        _build.count_launch(__name__, "LAUNCHES_SINKS")
+    if alibi_t is not None:
+        _build.count_launch(__name__, "LAUNCHES_ALIBI")
     return out

@@ -29,6 +29,14 @@ error (no route gives way to another):
 - ``plain`` (the CPU): the sort and one product per expert over its
   rows, with group sizes read on the host. The tests' reference.
 
+GPT-OSS's experts (``moe_mlp_swiglu``, the JAX ``GptOssForCausalLM._moe``,
+models/gpt_oss.py:152-182) take the same three routes with two options:
+the router's logits get a bias and the top k of them are softmaxed
+(``topk_softmax_routing``); each expert's gate|up and down products get
+their float32 biases, and the activation is the clamped SwiGLU
+``clamp(gate, max=lim) * sigmoid(1.702 * gate) * (clamp(up, +-lim) + 1)``
+in float32 (``swiglu_limit``). The combine then sums float32 outputs.
+
 Every shape on the CUDA routes is a function of the token count T and k
 (a graph bucket fixes both), and nothing reads a device value on the
 host: expert counts come from a fixed-size ``scatter_add_`` of length E.
@@ -39,7 +47,7 @@ like any token; a row's output depends on its own pairs only.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +67,37 @@ def topk_routing(router_logits: torch.Tensor, top_k: int,
     if renormalize:
         top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     return top_p, top_i.to(torch.int32)
+
+
+def topk_softmax_routing(router_logits: torch.Tensor, top_k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(probs float32 [T, k], expert_idx int32 [T, k]) as GPT-OSS routes:
+    the top k of the float32 logits, then a softmax over those k."""
+    top_v, top_i = torch.topk(router_logits.float(), top_k, dim=-1)
+    return torch.softmax(top_v, dim=-1), top_i.to(torch.int32)
+
+
+SWIGLU_ALPHA = 1.702      # GPT-OSS's sigmoid slope
+
+
+def clamped_swiglu(gate: torch.Tensor, up: torch.Tensor,
+                   limit: float) -> torch.Tensor:
+    """GPT-OSS's activation on float32 gate and up."""
+    g = gate.clamp(max=limit)
+    return (up.clamp(-limit, limit) + 1.0) * (g * torch.sigmoid(
+        SWIGLU_ALPHA * g))
+
+
+def _activate(gu: torch.Tensor, inter: int, dtype: torch.dtype,
+              bias=None, limit: Optional[float] = None) -> torch.Tensor:
+    """The experts' activation of a gate|up product [.., 2I], in the
+    model's type: SiLU(gate) in float32 times up, or with ``limit`` (GPT-
+    OSS) the float32 ``bias`` rows added and the clamped SwiGLU."""
+    if limit is None:
+        gate, up = gu.split(inter, dim=-1)
+        return F.silu(gate.float()).to(dtype) * up
+    gu = gu.float() + bias
+    return clamped_swiglu(gu[..., :inter], gu[..., inter:], limit).to(dtype)
 
 
 def moe_route(dtype: torch.dtype, device: torch.device) -> str:
@@ -122,52 +161,71 @@ def _combine(y: torch.Tensor, order: torch.Tensor,
 
 def moe_mlp_grouped(x: torch.Tensor, w_gate_up: torch.Tensor,
                     w_down: torch.Tensor, probs: torch.Tensor,
-                    expert_idx: torch.Tensor) -> torch.Tensor:
+                    expert_idx: torch.Tensor, b_gate_up=None, b_down=None,
+                    swiglu_limit: Optional[float] = None) -> torch.Tensor:
     """The ``grouped`` route: two ``torch._grouped_mm`` over the sorted
-    pairs (bf16)."""
+    pairs (bf16); with ``swiglu_limit`` GPT-OSS's biases (float32 [E, 2I]
+    and [E, H]) and clamped SwiGLU."""
     E, inter = w_gate_up.shape[0], w_down.shape[1]
     order, tok_of, counts = _sort_pairs(expert_idx, E)
     offs = torch.cumsum(counts, 0, dtype=torch.int32)
     gu = torch._grouped_mm(x[tok_of], w_gate_up, offs=offs)
-    gate, up = gu.split(inter, dim=-1)
-    h = F.silu(gate.float()).to(x.dtype) * up
-    y = torch._grouped_mm(h, w_down, offs=offs)
+    if swiglu_limit is None:
+        y = torch._grouped_mm(_activate(gu, inter, x.dtype), w_down,
+                              offs=offs)
+    else:
+        se = expert_idx.reshape(-1).long()[order]   # each sorted pair's expert
+        h = _activate(gu, inter, x.dtype, b_gate_up[se], swiglu_limit)
+        y = torch._grouped_mm(h, w_down, offs=offs).float() + b_down[se]
     return _combine(y, order, probs).to(x.dtype)
 
 
 def moe_mlp_plain(x: torch.Tensor, w_gate_up: torch.Tensor,
                   w_down: torch.Tensor, probs: torch.Tensor,
-                  expert_idx: torch.Tensor) -> torch.Tensor:
+                  expert_idx: torch.Tensor, b_gate_up=None, b_down=None,
+                  swiglu_limit: Optional[float] = None) -> torch.Tensor:
     """The ``plain`` route (CPU): ``moe_mlp_ragged`` with one product per
-    expert over its rows of the sorted pairs."""
+    expert over its rows of the sorted pairs (GPT-OSS's options as in
+    ``moe_mlp_grouped``)."""
     E, inter = w_gate_up.shape[0], w_down.shape[1]
     order, tok_of, counts = _sort_pairs(expert_idx, E)
     xs = x[tok_of]
-    y = torch.empty((xs.shape[0], w_down.shape[2]), dtype=x.dtype,
+    y = torch.empty((xs.shape[0], w_down.shape[2]),
+                    dtype=x.dtype if b_down is None else torch.float32,
                     device=x.device)
     start = 0
     for e, n in enumerate(counts.tolist()):
         if n:
-            gate, up = (xs[start:start + n] @ w_gate_up[e]).split(inter, -1)
-            h = F.silu(gate.float()).to(x.dtype) * up
-            y[start:start + n] = h @ w_down[e]
+            h = _activate(xs[start:start + n] @ w_gate_up[e], inter, x.dtype,
+                          None if b_gate_up is None else b_gate_up[e],
+                          swiglu_limit)
+            out = h @ w_down[e]
+            y[start:start + n] = out if b_down is None else \
+                out.float() + b_down[e]
         start += n
     return _combine(y, order, probs).to(x.dtype)
 
 
 def moe_mlp_dense(x: torch.Tensor, w_gate_up: torch.Tensor,
                   w_down: torch.Tensor, probs: torch.Tensor,
-                  expert_idx: torch.Tensor) -> torch.Tensor:
+                  expert_idx: torch.Tensor, b_gate_up=None, b_down=None,
+                  swiglu_limit: Optional[float] = None) -> torch.Tensor:
     """The ``dense`` route: every expert on every token, products
-    accumulated in float32, weighted by a [T, E] combine matrix."""
+    accumulated in float32, weighted by a [T, E] combine matrix (GPT-OSS's
+    options as in ``moe_mlp_grouped``)."""
     T, E, inter = x.shape[0], w_gate_up.shape[0], w_down.shape[1]
     combine = torch.zeros((T, E), dtype=torch.float32,
                           device=x.device).scatter_add_(
         1, expert_idx.long(), probs.float())
     gu = torch.einsum("th,ehi->tei", x.float(), w_gate_up.float())
-    gate, up = gu.split(inter, dim=-1)
-    h = (F.silu(gate) * up).to(x.dtype)
+    if swiglu_limit is None:
+        gate, up = gu.split(inter, dim=-1)
+        h = (F.silu(gate) * up).to(x.dtype)
+    else:
+        h = _activate(gu, inter, x.dtype, b_gate_up[None], swiglu_limit)
     y = torch.einsum("tei,eih->teh", h.float(), w_down.float())
+    if b_down is not None:
+        y = y + b_down[None]
     return torch.einsum("teh,te->th", y, combine).to(x.dtype)
 
 
@@ -186,3 +244,19 @@ def moe_mlp(x: torch.Tensor, w_gate_up: torch.Tensor, w_down: torch.Tensor,
     route = moe_route(w_gate_up.dtype, x.device)
     return _ROUTE_FNS[route](x.to(w_gate_up.dtype), w_gate_up, w_down,
                              probs, idx)
+
+
+def moe_mlp_swiglu(x: torch.Tensor, router: torch.Tensor,
+                   router_bias: torch.Tensor, w_gate_up: torch.Tensor,
+                   b_gate_up: torch.Tensor, w_down: torch.Tensor,
+                   b_down: torch.Tensor, top_k: int,
+                   swiglu_limit: float) -> torch.Tensor:
+    """GPT-OSS's MoE block (the JAX ``GptOssForCausalLM._moe``): float32
+    router logits plus their bias, ``topk_softmax_routing``, the experts
+    on the route of their type and device with their float32 biases and
+    the clamped SwiGLU, the float32 combine."""
+    probs, idx = topk_softmax_routing(
+        dot_f32(x, router) + router_bias, top_k)
+    route = moe_route(w_gate_up.dtype, x.device)
+    return _ROUTE_FNS[route](x.to(w_gate_up.dtype), w_gate_up, w_down,
+                             probs, idx, b_gate_up, b_down, swiglu_limit)

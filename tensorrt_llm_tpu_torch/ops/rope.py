@@ -75,7 +75,8 @@ class RopeConfig:
             beta_slow=rs.get("beta_slow", 1.0),
             mscale=rs.get("mscale", 1.0),
             mscale_all_dim=rs.get("mscale_all_dim", 0.0),
-            partial_rotary_factor=getattr(cfg, "partial_rotary_factor", 1.0),
+            partial_rotary_factor=getattr(cfg, "partial_rotary_factor", None)
+            or rp.get("partial_rotary_factor", 1.0),
         )
 
 

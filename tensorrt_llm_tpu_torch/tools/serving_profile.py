@@ -89,7 +89,19 @@ Two workloads:
   GLM-4-9B-0414, glm-4-9b-chat-hf, SmolLM3-3B, Helium-1-2B, AFM-4.5B,
   EXAONE-4.0-32B) at the run depth the table gives (2 layers; 4 for
   EXAONE 4 and SmolLM3, so that a global or NoPE layer runs), seeded
-  random bf16 weights, 16 requests of 256 prompt tokens -> 32 tokens.
+  random bf16 weights, 16 requests of 256 prompt tokens -> 32 tokens; and
+  the GPT families (``GPT_FAMILIES``: GPT-2 XL, GPT-NeoX-20B, GPT-J-6B,
+  Falcon-7B, StarCoder2-15B, c4ai-command-r-v01, c4ai-command-r7b-12-2024,
+  Minitron-8B-Base, StableLM-3B-4E1T, bloom-7b1, MPT-7B, OPT-6.7B) the
+  same way, 2 layers (4 for Command-R7B, so that its global NoPE layer
+  runs);
+- ``--geometry gpt-oss-20b``: ``chip_smoke.py``'s gptoss_serving run,
+  gpt-oss-20b at its published width and depth (``GPT_OSS_20B``: 24
+  layers, hidden 2,880, 64 x 64 q heads over 8 with sinks, windows of 128
+  on the even layers, 32 experts top 4, seeded random bf16 weights), 64
+  requests of 512 prompt tokens -> 128 with ``ignore_eos``, ``LLM``
+  defaults (64 rows, K = 8, depth 4, CUDA graphs) but 8,192 tokens a
+  prefill step (16 prompts) and prefix reuse off.
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms and W4A8): any ``QuantAlgo`` the package serves,
@@ -136,6 +148,9 @@ K1 / K2 launches made while drafting (the rest are the target's).
         --geometry llama3-8b-quant --quant W8A8_SQ_PER_CHANNEL --inline \
         --layers 8
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --family glm4
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile --family falcon
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry gpt-oss-20b
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --surface
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --guided \
         [--guided-backend dfa-host]
@@ -227,7 +242,7 @@ FAMILIES = {
         rope_theta=500000.0, rms_norm_eps=1e-6, tie_word_embeddings=False),
         2, "OLMo-2-1124-7B"),
     # https://huggingface.co/microsoft/Phi-3-medium-4k-instruct config.json
-    # (head dim 128; Phi-3-mini's 96 is refused by the CUDA kernels)
+    # (head dim 128; Phi-3-mini's 96 runs in GPT-NeoX-20B's geometry)
     "phi3": ("Phi3Config", dict(
         vocab_size=32064, hidden_size=5120, intermediate_size=17920,
         num_hidden_layers=40, num_attention_heads=40,
@@ -294,12 +309,137 @@ FAMILIES = {
 }
 
 
+# The LayerNorm GPT families and GPT-2 at a published model's width, as
+# FAMILIES (a family's fields name its transformers config's own keys).
+GPT_FAMILIES = {
+    # https://huggingface.co/openai-community/gpt2-xl config.json
+    "gpt2": ("GPT2Config", dict(
+        vocab_size=50257, n_embd=1600, n_head=25, n_layer=48,
+        n_positions=1024, layer_norm_epsilon=1e-5, bos_token_id=50256,
+        eos_token_id=50256), 2, "GPT-2 XL"),
+    # https://huggingface.co/EleutherAI/gpt-neox-20b config.json (head
+    # dim 96)
+    "gpt_neox": ("GPTNeoXConfig", dict(
+        vocab_size=50432, hidden_size=6144, intermediate_size=24576,
+        num_hidden_layers=44, num_attention_heads=64, rotary_pct=0.25,
+        rotary_emb_base=10000, rope_theta=10000.0,
+        max_position_embeddings=2048, layer_norm_eps=1e-5,
+        use_parallel_residual=True, tie_word_embeddings=False,
+        bos_token_id=0, eos_token_id=0), 2, "GPT-NeoX-20B"),
+    # https://huggingface.co/EleutherAI/gpt-j-6b config.json (head dim 256)
+    "gptj": ("GPTJConfig", dict(
+        vocab_size=50400, n_embd=4096, n_head=16, n_layer=28,
+        rotary_dim=64, n_positions=2048, layer_norm_epsilon=1e-5,
+        tie_word_embeddings=False, bos_token_id=50256,
+        eos_token_id=50256), 2, "GPT-J-6B"),
+    # https://huggingface.co/tiiuae/falcon-7b config.json (71 q heads over
+    # one KV head)
+    "falcon": ("FalconConfig", dict(
+        vocab_size=65024, hidden_size=4544, num_hidden_layers=32,
+        num_attention_heads=71, multi_query=True, parallel_attn=True,
+        new_decoder_architecture=False, bias=False, alibi=False,
+        layer_norm_epsilon=1e-5, max_position_embeddings=2048,
+        rope_theta=10000.0, bos_token_id=11, eos_token_id=11), 2,
+        "Falcon-7B"),
+    # https://huggingface.co/bigcode/starcoder2-15b config.json
+    "starcoder2": ("Starcoder2Config", dict(
+        vocab_size=49152, hidden_size=6144, intermediate_size=24576,
+        num_hidden_layers=40, num_attention_heads=48,
+        num_key_value_heads=4, max_position_embeddings=16384,
+        sliding_window=4096, rope_theta=100000.0, norm_epsilon=1e-5,
+        use_bias=True, tie_word_embeddings=False, bos_token_id=0,
+        eos_token_id=0), 2, "StarCoder2-15B"),
+    # https://huggingface.co/CohereForAI/c4ai-command-r-v01 config.json
+    "cohere": ("CohereConfig", dict(
+        vocab_size=256000, hidden_size=8192, intermediate_size=22528,
+        num_hidden_layers=40, num_attention_heads=64,
+        num_key_value_heads=64, max_position_embeddings=8192,
+        rope_theta=8000000.0, layer_norm_eps=1e-5, logit_scale=0.0625,
+        use_qk_norm=False, tie_word_embeddings=True, bos_token_id=5,
+        eos_token_id=255001, pad_token_id=0), 2, "c4ai-command-r-v01"),
+    # https://huggingface.co/CohereForAI/c4ai-command-r7b-12-2024
+    # config.json (three sliding layers of 4,096 to one global NoPE one)
+    "cohere2": ("Cohere2Config", dict(
+        vocab_size=256000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32,
+        num_key_value_heads=8, head_dim=128, max_position_embeddings=8192,
+        sliding_window=4096, sliding_window_pattern=4, rope_theta=50000.0,
+        layer_norm_eps=1e-5, logit_scale=0.25, tie_word_embeddings=True,
+        bos_token_id=5, eos_token_id=255001, pad_token_id=0), 4,
+        "c4ai-command-r7b-12-2024"),
+    # https://huggingface.co/nvidia/Minitron-8B-Base config.json
+    "nemotron": ("NemotronConfig", dict(
+        vocab_size=256000, hidden_size=4096, intermediate_size=16384,
+        num_hidden_layers=32, num_attention_heads=48,
+        num_key_value_heads=8, head_dim=128, partial_rotary_factor=0.5,
+        max_position_embeddings=4096, rope_theta=10000.0, norm_eps=1e-5,
+        hidden_act="relu2", tie_word_embeddings=False, bos_token_id=2,
+        eos_token_id=3), 2, "Minitron-8B-Base"),
+    # https://huggingface.co/stabilityai/stablelm-3b-4e1t config.json (head
+    # dim 80)
+    "stablelm": ("StableLmConfig", dict(
+        vocab_size=50304, hidden_size=2560, intermediate_size=6912,
+        num_hidden_layers=32, num_attention_heads=32,
+        num_key_value_heads=32, partial_rotary_factor=0.25,
+        max_position_embeddings=4096, rope_theta=10000.0,
+        layer_norm_eps=1e-5, use_qkv_bias=False, tie_word_embeddings=False,
+        bos_token_id=0, eos_token_id=0), 2, "StableLM-3B-4E1T"),
+    # https://huggingface.co/bigscience/bloom-7b1 config.json (ALiBi)
+    "bloom": ("BloomConfig", dict(
+        vocab_size=250880, hidden_size=4096, n_head=32, n_layer=30,
+        layer_norm_epsilon=1e-5, bos_token_id=1, eos_token_id=2,
+        pad_token_id=3), 2, "bloom-7b1"),
+    # https://huggingface.co/mosaicml/mpt-7b config.json (ALiBi)
+    "mpt": ("MptConfig", dict(
+        vocab_size=50432, d_model=4096, n_heads=32, n_layers=32,
+        expansion_ratio=4, max_seq_len=2048, layer_norm_epsilon=1e-5,
+        no_bias=True), 2, "MPT-7B"),
+    # facebook/opt-6.7b on the Hugging Face Hub, its config.json
+    "opt": ("OPTConfig", dict(
+        vocab_size=50272, hidden_size=4096, ffn_dim=16384,
+        num_hidden_layers=32, num_attention_heads=32,
+        max_position_embeddings=2048, word_embed_proj_dim=4096,
+        do_layer_norm_before=True, bos_token_id=2, eos_token_id=2,
+        pad_token_id=1), 2, "OPT-6.7B"),
+}
+# https://huggingface.co/openai/gpt-oss-20b config.json (every field set:
+# transformers' GptOssConfig defaults are gpt-oss-120b's and carry no
+# swiglu_limit)
+GPT_OSS_20B = dict(
+    vocab_size=201088, hidden_size=2880, intermediate_size=2880,
+    num_hidden_layers=24, num_attention_heads=64, num_key_value_heads=8,
+    head_dim=64, num_local_experts=32, num_experts_per_tok=4,
+    sliding_window=128,
+    layer_types=["sliding_attention", "full_attention"] * 12,
+    rope_theta=150000.0,
+    rope_scaling={"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+                  "beta_slow": 1.0, "truncate": False,
+                  "original_max_position_embeddings": 4096},
+    max_position_embeddings=131072, rms_norm_eps=1e-5, swiglu_limit=7.0,
+    attention_bias=True, tie_word_embeddings=False, eos_token_id=200002,
+    pad_token_id=199999)
+
+
+def gpt_oss_20b_config(layers: Optional[int] = None):
+    """gpt-oss-20b's published config (``GPT_OSS_20B``) at ``layers``
+    layers (default all 24)."""
+    import transformers
+    fields = dict(GPT_OSS_20B)
+    if layers:
+        fields.update(num_hidden_layers=layers,
+                      layer_types=fields["layer_types"][:layers])
+    return transformers.GptOssConfig(**fields)
+
+
 def family_config(name: str, layers: Optional[int] = None):
     """The ``transformers`` config of family ``name`` at its source's
     widths and ``layers`` layers (default: the table's run depth)."""
     import transformers
-    cls, fields, run_layers, _ = FAMILIES[name]
+    cls, fields, run_layers, _ = {**FAMILIES, **GPT_FAMILIES}[name]
     fields = dict(fields, num_hidden_layers=layers or run_layers)
+    for key in ("n_layer", "n_layers"):        # the GPT configs' own name
+        if key in fields:
+            fields[key] = fields.pop("num_hidden_layers")
     if name == "smollm3":
         n = fields["num_hidden_layers"]
         fields["no_rope_layers"] = [int((i + 1) % 4 != 0) for i in range(n)]
@@ -406,6 +546,14 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
                       kv_cache_config=KvCacheConfig(enable_block_reuse=False))
         return (Gemma3TextConfig(**GEMMA3_1B), kwargs, prompts,
                 SamplingParams(max_tokens=64, top_k=1, ignore_eos=True))
+    if geometry == "gpt-oss-20b":
+        prompts = torch.randint(0, GPT_OSS_20B["vocab_size"], (64, 512),
+                                generator=gen).tolist()
+        kwargs = dict(max_batch_size=64, max_input_len=512, max_seq_len=640,
+                      max_num_tokens=8192,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (gpt_oss_20b_config(), kwargs, prompts,
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
     if geometry == "qwen3-30b-a3b":
         prompts = torch.randint(0, QWEN3_30B_A3B["vocab_size"], (64, 128),
                                 generator=gen).tolist()
@@ -560,15 +708,23 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
         DraftTimer(llm.executor.host_drafter, kernels)
     blocks0 = llm.kv_cache_manager.get_stats().alloc_total_blocks
     qmm = kernels["groupwise_dequant_matmul"]
+    attn = [kernels["paged_decode_attention"],
+            kernels["ragged_prefill_attention"]]
     for mod in kernels.values():
         mod.LAUNCHES = 0
     qmm.LAUNCHES_E4M3 = 0
+    for mod in attn:
+        mod.LAUNCHES_SINKS = mod.LAUNCHES_ALIBI = 0
     try:
         wall, outs = _generate(llm, prompts, sp)
     finally:
         drafting = timer.close() if timer is not None else None
     launches = {k: mod.LAUNCHES for k, mod in kernels.items()}
     launches_e4m3 = qmm.LAUNCHES_E4M3
+    launches_sinks = {k: kernels[k].LAUNCHES_SINKS for k in
+                      ("paged_decode_attention", "ragged_prefill_attention")}
+    launches_alibi = {k: kernels[k].LAUNCHES_ALIBI for k in
+                      ("paged_decode_attention", "ragged_prefill_attention")}
     spec1 = _spec_counts(llm)
     blocks = llm.kv_cache_manager.get_stats().alloc_total_blocks - blocks0
     steps = max(1, eng.decode_steps - steps0[0])
@@ -596,6 +752,7 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
         logprobs_recorded=len(lps),
         nonfinite_logprobs=sum(not math.isfinite(v) for v in lps),
         decode_steps=steps, launches=launches, launches_e4m3=launches_e4m3,
+        launches_sinks=launches_sinks, launches_alibi=launches_alibi,
         graphs_captured=eng.graphs.num_graphs,
         graph_replays=eng.graphs.replays - replays0,
         window_steps=eng.window_steps - steps0[1],
@@ -1063,7 +1220,7 @@ def main() -> None:
     ap.add_argument("--geometry", choices=["tinyllama", "qwen3-30b-a3b",
                                            "gemma2-9b", "gemma3-1b",
                                            "llama3-8b", "llama3-8b-copy",
-                                           "llama3-8b-quant"],
+                                           "llama3-8b-quant", "gpt-oss-20b"],
                     default="tinyllama",
                     help="the model of the default workload")
     ap.add_argument("--layers", type=int, default=None,
@@ -1071,8 +1228,11 @@ def main() -> None:
     ap.add_argument("--inline", action="store_true",
                     help="hand LLM a transformers module built on the card "
                     "(SmoothQuant calibrates on it)")
-    ap.add_argument("--family", choices=sorted(FAMILIES), default=None,
-                    help="a Llama-derived family at a published width")
+    ap.add_argument("--family", choices=sorted({**FAMILIES,
+                                                **GPT_FAMILIES}),
+                    default=None,
+                    help="a Llama-derived or GPT family at a published "
+                    "width")
     ap.add_argument("--kv", choices=["none", "int8", "fp8", "nvfp4"],
                     default="none", help="the KV cache's quantization")
     ap.add_argument("--vswa", action="store_true",
@@ -1124,6 +1284,8 @@ def main() -> None:
         cfg, kwargs, prompts, sp = workload(args.bench_settings,
                                             args.geometry, args.vswa)
     if args.layers:
+        cfg = gpt_oss_20b_config(args.layers) \
+            if args.geometry == "gpt-oss-20b" else cfg
         cfg.num_hidden_layers = args.layers
     model = inline_module(cfg) if args.inline else cfg
     if args.spec != "NONE":

@@ -49,6 +49,9 @@ def _opts(name, qh, device):
     if name == "alibi":
         return {"alibi_slopes": tuple(2.0 ** (-8.0 * (i + 1) / qh)
                                       for i in range(qh))}
+    if name == "sinks_window":      # gpt-oss's sliding layers
+        return {"sinks": torch.linspace(-1.0, 2.0, qh, device=device),
+                "sliding_window": 128}
     return {}
 
 
@@ -753,7 +756,7 @@ def test_hd256_nan_past_kv_len_is_ignored(cuda, dtype):
     torch.testing.assert_close(dgot.float(), ref[50:].float(), **TOLS[dtype])
 
 
-@pytest.mark.parametrize("hd", [96, 192, 512])
+@pytest.mark.parametrize("hd", [112, 192, 512])
 def test_other_head_dims_refused_by_name(cuda, hd):
     q, pool, kvl, pt, cu = _inputs([3], [5], 4, 2, hd, 16, torch.bfloat16,
                                    cuda)
@@ -1523,11 +1526,10 @@ def test_int8_product_pads_rows_inside_a_graph(cuda):
         int8_mm(a[:, :100], b[:100])
 
 
-def test_phi3_mini_head_dim_96_is_refused_by_name_on_cuda(cuda):
-    """Phi-3-mini's head dim 96 is served on the CPU
-    (tests/test_torch_dense_families.py); the attention kernels take 64,
-    128 and 256 and refuse it by name (a ValueError, wrapped in the
-    RuntimeError of the graph capture that first meets it)."""
+def test_phi3_mini_head_dim_96_is_served_on_cuda(cuda, tmp_path):
+    """Phi-3-mini's head dim 96 (hidden 192 over 2 heads here) is served
+    on the card since K1 and K2 stage hd 96 as 128-wide tiles: float32
+    greedy tokens of one saved checkpoint equal the CPU's."""
     import transformers as tf
     import tensorrt_llm_tpu_torch as T
     cfg = tf.Phi3Config(vocab_size=128, hidden_size=192,
@@ -1535,15 +1537,93 @@ def test_phi3_mini_head_dim_96_is_refused_by_name_on_cuda(cuda):
                         num_attention_heads=2, num_key_value_heads=2,
                         max_position_embeddings=256, pad_token_id=0,
                         eos_token_id=1, bos_token_id=2)
-    with pytest.raises((ValueError, RuntimeError), match="hd=96"):
-        llm = T.LLM(cfg, skip_tokenizer_init=True, max_batch_size=2,
+    torch.manual_seed(0)
+    model = tf.Phi3ForCausalLM(cfg).float()
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 2:
+                p.mul_(4.0)
+    model.save_pretrained(tmp_path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = dec.LAUNCHES, pre.LAUNCHES
+        llm = T.LLM(str(tmp_path), device=dev, dtype="float32",
+                    skip_tokenizer_init=True, max_batch_size=2,
                     max_input_len=32, max_seq_len=64, max_num_tokens=64,
                     kv_cache_config=T.KvCacheConfig(tokens_per_block=16,
                                                     max_tokens=256))
         try:
-            llm.generate([[5, 6, 7]], T.SamplingParams(max_tokens=2))
+            res = llm.generate([[5, 6, 7], [9, 3, 11, 40, 2]],
+                               T.SamplingParams(max_tokens=6, top_k=1,
+                                                end_id=-1))
+            out[dev] = [r.outputs[0].token_ids for r in res]
         finally:
             llm.shutdown()
+        if dev == "cuda":
+            assert dec.LAUNCHES > before[0] and pre.LAUNCHES > before[1]
+    assert out["cuda"] == out["cpu"]
+
+
+def _oss_inputs(T, E, H, I, k, dtype, device, seed=0):
+    from tensorrt_llm_tpu_torch.ops import moe
+    from tensorrt_llm_tpu_torch.ops.linear import dot_f32
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def mat(*shape, std=0.02, dt=dtype):
+        return (torch.randn(shape, generator=g, device=device) * std).to(dt)
+    x, router = mat(T, H, std=1.0), mat(E, H)
+    rb = mat(E, std=0.1, dt=torch.float32)
+    probs, idx = moe.topk_softmax_routing(dot_f32(x, router) + rb, k)
+    return dict(x=x, router=router, router_bias=rb,
+                w_gate_up=mat(E, H, 2 * I), w_down=mat(E, I, H),
+                b_gate_up=mat(E, 2 * I, std=0.1, dt=torch.float32),
+                b_down=mat(E, H, std=0.1, dt=torch.float32),
+                probs=probs, idx=idx)
+
+
+@pytest.mark.parametrize("T", [1, 64, 512])
+def test_gpt_oss_grouped_matches_plain_at_20b_widths(cuda, T):
+    """GPT-OSS's experts on the grouped route (``torch._grouped_mm``,
+    bf16, with the float32 biases and the clamped SwiGLU) against the plain
+    route at gpt-oss-20b's widths: 32 experts, top 4, hidden 2880, expert
+    width 2880 (``check_grouped`` takes them)."""
+    from tensorrt_llm_tpu_torch.ops import moe
+    moe.check_grouped(2880, 2880, cuda)
+    a = _oss_inputs(T, 32, 2880, 2880, 4, torch.bfloat16, cuda)
+    args = (a["x"], a["w_gate_up"], a["w_down"], a["probs"], a["idx"],
+            a["b_gate_up"], a["b_down"], 7.0)
+    got = moe.moe_mlp_grouped(*args)
+    want = moe.moe_mlp_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOLS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpt_oss_moe_block_makes_no_host_sync_and_replays(cuda, dtype):
+    """``moe_mlp_swiglu`` (dense route in float32, grouped in bf16) reads
+    no device value on the host, and a graph replay gives the eager bits;
+    the float32 dense route equals the plain one within 1e-4."""
+    from tensorrt_llm_tpu_torch.ops import moe
+    a = _oss_inputs(64, 8, 256, 128, 4, dtype, cuda, seed=3)
+    keys = ("x", "router", "router_bias", "w_gate_up", "b_gate_up",
+            "w_down", "b_down")
+
+    def block():
+        return moe.moe_mlp_swiglu(*(a[k] for k in keys), 4, 7.0)
+    block()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = block()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager, graphed, _ = _graphed(block)
+    assert torch.equal(graphed, eager)
+    if dtype == torch.float32:
+        want = moe.moe_mlp_plain(a["x"], a["w_gate_up"], a["w_down"],
+                                 a["probs"], a["idx"], a["b_gate_up"],
+                                 a["b_down"], 7.0)
+        torch.testing.assert_close(out, want, **TOLS[dtype])
 
 
 def test_quantizers_on_cuda_give_the_cpu_bytes(cuda):
@@ -1578,3 +1658,108 @@ def test_quantizers_on_cuda_give_the_cpu_bytes(cuda):
             if a.dtype == torch.float8_e4m3fn:
                 a, b = a.view(torch.uint8), b.view(torch.uint8)
             assert torch.equal(a, b), name
+
+
+# ---- the GPT families' geometries: hd 80 and 96, groups above 64, sinks
+# with a window, ALiBi -------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_splits", [1, 3, None])
+@pytest.mark.parametrize("kv_lens,qh,kvh,hd,ps,opt", [
+    ([7, 300, 1, 0, 65], 32, 32, 80, 16, None),         # StableLM-3B
+    ([150, 33, 513], 16, 16, 96, 16, None),             # GPT-NeoX-20B
+    ([9, 380, 26], 8, 8, 96, 16, "alibi"),
+    ([170, 44, 3, 0], 8, 2, 80, 16, "sinks_window"),
+    ([40, 700, 3, 0], 71, 1, 64, 16, None),             # Falcon-7B
+    ([300, 17], 71, 1, 64, 16, "sinks"),
+    ([513, 600, 640, 129, 5], 64, 8, 64, 16, "sinks_window"),   # gpt-oss
+    ([9, 380, 26], 32, 32, 128, 16, "alibi"),           # bloom-7b1
+])
+def test_gpt_geometry_decode_matches_plain(cuda, dtype, num_splits, kv_lens,
+                                           qh, kvh, hd, ps, opt):
+    S = len(kv_lens)
+    q, pool, _, pt, _ = _inputs([1] * S, [max(k - 1, 0) for k in kv_lens],
+                                qh, kvh, hd, ps, dtype, cuda, seed=7)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5, **_opts(opt, qh, cuda))
+    before = dec.LAUNCHES
+    got = dec.paged_decode_attention(q, pool, kvl, pt, num_splits=num_splits,
+                                     max_kv_len=max(kv_lens), **kw)
+    torch.cuda.synchronize()
+    assert dec.LAUNCHES == before + 1
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_lens,ctx_lens,qh,kvh,hd,ps,opt", [
+    ([70, 1, 45], [3, 90, 0], 8, 8, 80, 16, None),
+    ([200, 3], [0, 77], 16, 16, 96, 16, None),
+    ([250, 9], [10, 300], 8, 2, 96, 16, "window_softcap"),
+    ([9, 121, 1], [4, 0, 30], 8, 8, 80, 16, "alibi"),
+    ([13, 1, 90], [0, 400, 5], 71, 1, 64, 16, None),    # two head chunks
+    ([30, 2], [5, 40], 71, 1, 64, 16, "sinks"),
+    ([7, 20], [0, 33], 130, 1, 64, 16, "alibi"),        # three head chunks
+    ([300, 1, 40], [0, 600, 100], 64, 8, 64, 16, "sinks_window"),
+    ([130, 2], [0, 300], 8, 2, 96, 16, "sinks_window"),
+    ([9, 121, 1], [4, 0, 30], 32, 32, 128, 16, "alibi"),
+])
+def test_gpt_geometry_prefill_matches_plain(cuda, dtype, q_lens, ctx_lens,
+                                            qh, kvh, hd, ps, opt):
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx_lens, qh, kvh, hd, ps, dtype,
+                                   cuda, seed=8)
+    kw = dict(sm_scale=hd ** -0.5, **_opts(opt, qh, cuda))
+    before = pre.LAUNCHES
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                       max_q_len=max(q_lens), **kw)
+    torch.cuda.synchronize()
+    assert pre.LAUNCHES == before + 1
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("kv8", list(KV8), ids=["int8", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,qh,kvh", [(80, 8, 8), (96, 16, 4), (64, 71, 1)])
+def test_gpt_geometry_8bit_pool_matches_plain(cuda, kv8, dtype, hd, qh, kvh):
+    """K1 and K2 on int8 / e4m3 pools at hd 80 and 96 (the 8-bit stage is
+    a 128-byte row, zero past hd) and at group 71."""
+    kv_lens = [300, 17, 0, 129]
+    q, pool, _, pt, _, ks, vs = _inputs8([1] * 4, [max(k - 1, 0)
+                                                   for k in kv_lens],
+                                         qh, kvh, hd, 16, dtype, kv8, cuda)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5, k_scale=ks, v_scale=vs)
+    got = dec.paged_decode_attention(q, pool, kvl, pt, num_splits=2, **kw)
+    torch.cuda.synchronize()
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+    q, pool, kvl, pt, cu, ks, vs = _inputs8([70, 1, 33], [0, 200, 7], qh,
+                                            kvh, hd, 16, dtype, kv8, cuda)
+    kw = dict(sm_scale=hd ** -0.5, k_scale=ks, v_scale=vs)
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu, max_q_len=70,
+                                       **kw)
+    torch.cuda.synchronize()
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpt_geometry_padding_columns_stay_unwritten(cuda, dtype):
+    """At hd 80 the tiles are 128 wide: q and out are exactly [.., 80], so
+    a kernel that wrote a padding column would write into the next head.
+    Each output head matches the plain version on its own."""
+    q, pool, kvl, pt, cu = _inputs([40, 1], [0, 100], 4, 2, 80, 16, dtype,
+                                   cuda, seed=9)
+    kw = dict(sm_scale=80 ** -0.5)
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu, max_q_len=40,
+                                       **kw)
+    dgot = dec.paged_decode_attention(q[40:], pool, kvl[1:], pt[1:], **kw)
+    torch.cuda.synchronize()
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    for h in range(4):
+        torch.testing.assert_close(got[:, h].float(), ref[:, h].float(),
+                                   **TOLS[dtype])
+    torch.testing.assert_close(dgot.float(), ref[40:].float(), **TOLS[dtype])

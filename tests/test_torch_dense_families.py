@@ -13,7 +13,7 @@ Greedy tokens through both ``LLM``s are identical for one family per
 knob of the Llama base: post norms (OLMo 2), sandwich norms (GLM-4), the
 relu MLP (Arcee), NoPE layers (SmolLM3) and per-layer windows with rope
 on the sliding layers only (EXAONE 4). Phi-3-mini's head dim 96 is
-served on the CPU here; the card refuses it by name
+served on the CPU here, and on the card
 (tests/test_torch_cuda_kernels.py).
 """
 import jax
