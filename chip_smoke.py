@@ -336,6 +336,26 @@ the run on error:
      gpt-oss-20b``): tok/s, TTFT, TPOT, idle share, GPU time by class,
      weights and peak memory, K1 / K2 launches and those with sinks.
 
+ 34. deepseek_parity: tiny float32 DeepSeek-V3 (``q_lora_rank``) and
+     DeepSeek-V2 (group-limited) checkpoints written from a seeded numpy
+     generator, queued requests on 4 rows with K = 4 windows and rider
+     chunks: greedy tokens identical card against CPU and graphs
+     against eager, the windows on MLA's absorbed path, rider windows
+     and prefill steps on the decompressed one, on both devices;
+ 35. deepseek_serving: DeepSeek-V2-Lite at full width and depth (27
+     layers, MLA over a 576-wide latent pool, 64 experts top 6), 64 x 512
+     -> 128, one bf16 latent pool, K = 8 windows, graphs
+     (``serving_profile --geometry deepseek-v2-lite``): tok/s, TTFT,
+     TPOT, idle share, GPU time by class (MLA's float32 einsums among
+     them), weights and peak memory, MLA calls by path in the timed pass
+     and by graph kind over the replays: every replayed window absorbed;
+ 36. moe_families: GLM-4.5-Air, ERNIE-4.5-21B-A3B, Hunyuan-A13B,
+     Granite-3.1-3B-A800M, DeepSeek-V3 (one dense, one MoE layer),
+     Hunyuan-7B, Seed-OSS-36B, ERNIE-4.5-0.3B and Apertus-8B at
+     published widths (``serving_profile.MOE_FAMILIES``: 2 layers), 16 x
+     256 -> 32 through graphs: K1 / K2 launched (MLA's paths for
+     DeepSeek-V3), windows replayed, every logprob finite.
+
 ``python3 chip_smoke.py --only a,b`` runs just the named phases (a
 development run: no kernels line, no result line).
 
@@ -344,12 +364,14 @@ per-kernel results (launches from the bench-settings run, or the
 W4A16_AWQ run for the dequant-matmul kernel, and from spec_serving's,
 moe_serving's, gemma_serving's, kv_serving's, host_spec_serving's
 DRAFT_TARGET (as the target's and the drafter's), surface_serving's,
-guided_serving's and gptoss_serving's timed passes (and those with sinks)
-and gpt_families' summed; the dequant-matmul kernel's row also its
+guided_serving's, gptoss_serving's (and those with sinks) and
+deepseek_serving's timed passes (none: MLA calls no kernel), gpt_families'
+summed and moe_families' by family; the dequant-matmul kernel's row also its
 e4m3 cases and its e4m3 launches in quant_serving's runs) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3391,9 +3413,9 @@ def quant_load_parity_phase(repo: Path) -> dict:
 
 
 def quant_serving_phase() -> dict:
-    """The slice's path: Llama-3-8B at its published width and depth (32
-    layers; seeded random weights drawn in bf16 and quantized at load)
-    with FP8 per-tensor weights and a bf16 KV cache, 64 requests of 512
+    """Weights quantized at load: Llama-3-8B at its published width and
+    depth (32 layers; seeded random weights drawn in bf16 and quantized
+    at load) with FP8 per-tensor weights and a bf16 KV cache, 64 requests of 512
     prompt tokens -> 128 greedy tokens with ``ignore_eos``, ``LLM``
     defaults (64 rows, K = 8 windows, depth 4, CUDA graphs) but prefix
     reuse off (tools/serving_profile.py ``--geometry llama3-8b-quant
@@ -3991,6 +4013,468 @@ def gptoss_serving_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# The DeepSeek-style families: MLA over a latent pool, routed MoE
+# --------------------------------------------------------------------- #
+def _save_tiny_deepseek(path: Path, kind: str) -> None:
+    """A tiny DeepSeek checkpoint written from a seeded numpy generator
+    (config.json and model.safetensors under the published names, so that
+    no ``transformers`` module layout enters): hidden 256, 4 MLA heads over
+    a latent of 64 + 32, 3 layers (one dense), 8 experts top 2 of width
+    128, one shared expert, vocab 512; "v3" with ``q_lora_rank`` 96 and a
+    correction bias, "v2" group-limited (2 groups, 1 kept) without
+    ``q_lora_rank``. Routers at std 0.5 so that top-k choices are
+    decisive, norms near 1."""
+    import numpy as np
+    from safetensors.numpy import save_file
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    H, nh, lora, rope, nope, vd, E, Im, I, V, L = \
+        256, 4, 64, 32, 64, 64, 8, 128, 512, 512, 3
+    fields = dict(vocab_size=V, hidden_size=H, intermediate_size=I,
+                  moe_intermediate_size=Im, num_hidden_layers=L,
+                  num_attention_heads=nh, num_key_value_heads=nh,
+                  n_routed_experts=E, num_experts_per_tok=2,
+                  n_shared_experts=1, kv_lora_rank=lora,
+                  qk_rope_head_dim=rope, qk_nope_head_dim=nope,
+                  v_head_dim=vd, first_k_dense_replace=1,
+                  max_position_embeddings=1024, rms_norm_eps=1e-6,
+                  tie_word_embeddings=False)
+    if kind == "v3":
+        fields.update(q_lora_rank=96, n_group=1, topk_group=1,
+                      norm_topk_prob=True, routed_scaling_factor=2.5)
+        cfg = sprof._config("DeepseekV3Config", "deepseek_v3", fields)
+    else:
+        fields.update(q_lora_rank=None, topk_method="group_limited_greedy",
+                      n_group=2, topk_group=1, routed_scaling_factor=1.0)
+        cfg = sprof._config("DeepseekV2Config", "deepseek_v2", fields)
+    cfg.save_pretrained(path)
+    rng = np.random.default_rng(31 if kind == "v3" else 32)
+
+    def mat(*shape, std=0.05):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def norm(n):
+        return (1 + rng.standard_normal(n) * 0.1).astype(np.float32)
+
+    sd = {"model.embed_tokens.weight": mat(V, H, std=1.0),
+          "model.norm.weight": norm(H), "lm_head.weight": mat(V, H)}
+    for i in range(L):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        sd.update({p + "input_layernorm.weight": norm(H),
+                   p + "post_attention_layernorm.weight": norm(H),
+                   a + "kv_a_proj_with_mqa.weight": mat(lora + rope, H),
+                   a + "kv_a_layernorm.weight": norm(lora),
+                   a + "kv_b_proj.weight": mat(nh * (nope + vd), lora),
+                   a + "o_proj.weight": mat(H, nh * vd)})
+        if kind == "v3":
+            sd.update({a + "q_a_proj.weight": mat(96, H),
+                       a + "q_a_layernorm.weight": norm(96),
+                       a + "q_b_proj.weight": mat(nh * (nope + rope), 96)})
+        else:
+            sd[a + "q_proj.weight"] = mat(nh * (nope + rope), H)
+        m = p + "mlp."
+        if i == 0:
+            sd.update({m + "gate_proj.weight": mat(I, H),
+                       m + "up_proj.weight": mat(I, H),
+                       m + "down_proj.weight": mat(H, I)})
+            continue
+        sd[m + "gate.weight"] = mat(E, H, std=0.5)
+        if kind == "v3":
+            sd[m + "gate.e_score_correction_bias"] = mat(E, std=0.1)
+        for e in range(E):
+            x = f"{m}experts.{e}."
+            sd.update({x + "gate_proj.weight": mat(Im, H),
+                       x + "up_proj.weight": mat(Im, H),
+                       x + "down_proj.weight": mat(H, Im)})
+        sd.update({m + "shared_experts.gate_proj.weight": mat(Im, H),
+                   m + "shared_experts.up_proj.weight": mat(Im, H),
+                   m + "shared_experts.down_proj.weight": mat(H, Im)})
+    save_file(sd, str(path / "model.safetensors"))
+
+
+def deepseek_parity_phase() -> dict:
+    """Tiny DeepSeek-V3 (with ``q_lora_rank``) and DeepSeek-V2
+    (group-limited) checkpoints (``_save_tiny_deepseek``) through
+    ``LLM.generate`` in float32, card against the port's CPU path: every
+    request queued before admission (so the schedule follows from the
+    workload), 4 rows for 7 requests of differing lengths, K = 4 windows
+    with rider chunks of 32 tokens (``mixed_window_ctx``): greedy tokens
+    identical, the windows taking the absorbed MLA path and the rider
+    windows and prefill steps the decompressed one on both devices; then
+    the card run again without graphs, tokens identical to the replays.
+    Fails otherwise, or if no window was replayed, no rider window ran or
+    either path was never taken."""
+    import numpy as np
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.models import deepseek
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    rng = np.random.default_rng(33)
+    lens = (40, 9, 57, 23, 70, 31, 12)
+    prompts = [rng.integers(1, 511, n).tolist() for n in lens]
+    sps = [SamplingParams(max_tokens=n, top_k=1, ignore_eos=True)
+           for n in (24, 6, 30, 12, 20, 16, 8)]
+    kw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+              max_input_len=96, max_seq_len=160, max_num_tokens=128,
+              decode_multi_step=4, mixed_window_ctx=32,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    res, failures = {}, []
+
+    def run(path, device, capture=None):
+        llm = LLM(str(path), device=device,
+                  enable_warmup=capture is not False, **kw)
+        if capture is not None:
+            llm.engine.graphs.capture = capture
+        a0, d0 = deepseek.MLA_ABSORBED, deepseek.MLA_DECOMPRESSED
+        try:
+            toks = _queued_generate(llm, prompts, sps)
+            eng = llm.engine
+            stats = dict(mixed_windows=eng.mixed_windows_dispatched,
+                         absorbed=deepseek.MLA_ABSORBED - a0,
+                         decompressed=deepseek.MLA_DECOMPRESSED - d0)
+            if device == "cuda":
+                stats.update(graph_replays=eng.graphs.replays,
+                             mla_graph_calls=sprof.mla_graph_calls(eng))
+        finally:
+            llm.shutdown()
+        return toks, stats
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("v3", "v2"):
+            path = Path(tmp) / kind
+            path.mkdir()
+            _save_tiny_deepseek(path, kind)
+            cpu, cpu_stats = run(path, "cpu")
+            card, card_stats = run(path, "cuda")
+            eager, _ = run(path, "cuda", capture=False)
+            r = dict(kind=kind, identical=card == cpu,
+                     graph_equals_eager=eager == card, cpu=cpu_stats,
+                     card=card_stats)
+            emit({"phase": "deepseek_parity", **r})
+            if card != cpu or eager != card:
+                failures.append(f"deepseek_parity {kind}: card {card} / "
+                                f"eager {eager} != cpu {cpu}")
+            if [len(t) for t in card] != [sp.max_tokens for sp in sps]:
+                failures.append(f"deepseek_parity {kind}: short outputs")
+            for dev, st in (("cpu", cpu_stats), ("cuda", card_stats)):
+                if not (st["mixed_windows"] and st["absorbed"] and
+                        st["decompressed"]):
+                    failures.append(f"deepseek_parity {kind} {dev}: a path "
+                                    f"or the rider window never ran: {st}")
+            windows = card_stats["mla_graph_calls"].get("multi", {})
+            if not card_stats["graph_replays"] or not windows.get(
+                    "absorbed") or windows.get("decompressed"):
+                failures.append(f"deepseek_parity {kind}: replayed windows "
+                                f"not all absorbed: {card_stats}")
+            res[kind] = r
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def deepseek_serving_phase() -> dict:
+    """DeepSeek-V2-Lite at its published width and depth (27 layers, hidden
+    2,048, 16 MLA heads over one latent row of 512 + 64 a token, 64
+    experts top 6 and 2 shared after one dense layer, yarn factor 40;
+    seeded random bf16 weights, ~31.4 GB), 64 requests of 512 prompt
+    tokens -> 128 greedy tokens with ``ignore_eos``, one bf16 latent pool,
+    ``LLM`` defaults (64 rows, K = 8 windows, depth 4, CUDA graphs) but
+    8,192 tokens a prefill step and prefix reuse off
+    (tools/serving_profile.py ``--geometry deepseek-v2-lite``): a
+    warm-up, a timed pass (tok/s, TTFT and TPOT median and max, MLA calls
+    by path) and a profiled pass (device idle share, GPU time by class:
+    MLA's float32 einsums, grouped expert products, library GEMMs, the
+    rest), weights, peak memory, the latent pool's bytes a token, and the
+    MLA calls of graph replays by graph kind. Then a second engine of the
+    same model built for 16,384 positions a sequence serves a
+    long-context stage (``_deepseek_long_context``): 16 requests of 512
+    -> 32 decoding while two prompts of 12,288 tokens prefill beside them
+    -> 16, whose mixed steps decompress every sequence's latents over up
+    to 12,288 positions in chunks; on it the decompressed path at the
+    model's widths (8 sequences of 64 query tokens over 4,096 positions,
+    layer 0's ``kv_b``) runs in chunks of 512 positions against one
+    chunk (``_mla_chunking_check``). Fails if a
+    request comes back short, out of the vocabulary or with a non-finite
+    logprob, if no window was replayed, if a replayed window (without
+    riders) took the decompressed path or none took the absorbed one, if
+    the prefill steps took no decompressed call, if the chunked path
+    parts from one chunk by more than 1e-4, or if the graph pool outgrew
+    its reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="deepseek-v2-lite")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    try:
+        eng = llm.engine
+        weights_bytes = sum(t.numel() * t.element_size()
+                            for t in _tensors(eng.params))
+        res = sprof.measure(llm, prompts, sp)
+        graphs = _graph_stats(eng)
+        graphs["mla_calls"] = sprof.mla_graph_calls(eng)
+        reserve = eng.graph_pool_reserve()
+        pages = eng.num_kv_pages
+        kv_bytes_per_token = eng.bytes_per_kv_block // eng.page_size
+        pool_shape = list(eng.kv_pages.shape)
+        outs = llm.generate(prompts[:4], sp)
+    finally:
+        llm.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_ctx = _deepseek_long_context(cfg, kwargs)
+    V = cfg.vocab_size
+    for o in outs:
+        toks = o.outputs[0].token_ids
+        if len(toks) != sp.max_tokens or not all(0 <= t < V for t in toks):
+            raise AssertionError(f"deepseek_serving: bad output {toks}")
+    if res["output_tokens"] != len(prompts) * sp.max_tokens or \
+            res["nonfinite_logprobs"]:
+        raise AssertionError(f"deepseek_serving: {res['output_tokens']} "
+                             "tokens, or non-finite logprobs")
+    res.update(model="DeepSeek-V2-Lite", layers=cfg.num_hidden_layers,
+               experts=cfg.n_routed_experts, top_k=cfg.num_experts_per_tok,
+               engine_build_s=build_s, weights_bytes=weights_bytes,
+               peak_allocated_bytes=peak, kv_pool_pages=pages,
+               kv_pool_shape=pool_shape,
+               kv_bytes_per_token=kv_bytes_per_token,
+               graph_pool_reserve_bytes=reserve, graphs=graphs,
+               long_context=long_ctx)
+    emit({"phase": "deepseek_serving", **res})
+    windows = graphs["mla_calls"].get("multi", {})
+    if not graphs["graph_replays"] or not windows.get("absorbed") or \
+            windows.get("decompressed"):
+        raise AssertionError(f"deepseek_serving: replayed windows not all "
+                             f"absorbed: {graphs['mla_calls']}")
+    if not res["mla_calls"]["decompressed"]:
+        raise AssertionError(f"deepseek_serving: no decompressed MLA call "
+                             f"in the prefill steps: {res['mla_calls']}")
+    if not long_ctx["mla_chunking"]["max_abs_err"] <= 1e-4:
+        raise AssertionError(f"deepseek_serving: the decompressed path in "
+                             f"chunks parts from one chunk: "
+                             f"{long_ctx['mla_chunking']}")
+    if long_ctx["bad_outputs"] or not long_ctx["mla_calls"]["decompressed"]:
+        raise AssertionError(f"deepseek_serving: long-context stage: "
+                             f"{long_ctx}")
+    _check_reserve(res)
+    _check_reserve(long_ctx)
+    return res
+
+
+def _mla_chunking_check(eng) -> dict:
+    """The decompressed MLA path at the served model's widths (layer 0's
+    ``kv_b``, seeded random latents and queries of the model's type):
+    8 sequences of 64 query tokens ending at 4,096 positions, in chunks
+    of 512 positions (``MLA_CHUNK_BYTES`` cut to 8 x 512 positions' keys
+    and values) against one chunk; float32, TF32 off. Returns the max abs
+    difference and each version's time (CUDA events, median of 3) beside
+    the host's time to issue it (the median's run)."""
+    import torch
+    from tensorrt_llm_tpu_torch.models import deepseek
+    from tensorrt_llm_tpu_torch.ops.attention import AttentionMetadata
+    model, dev = eng.model, eng.device
+    S, q, N, ps = 8, 64, 4096, eng.page_size
+    nh, nope, rope = model.num_heads, model.qk_nope, model.qk_rope
+    lora = model.kv_lora_rank
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(model.dtype)
+    q_nope, q_pe = rnd(S * q, nh, nope), rnd(S * q, nh, rope)
+    c_all, kpe = rnd(S, N, lora), rnd(S, N, rope)
+    cu = torch.arange(S + 1, device=dev, dtype=torch.int32) * q
+    md = AttentionMetadata(
+        kv_lens=torch.full((S,), N, dtype=torch.int32, device=dev),
+        page_indices=torch.arange(S * N // ps, dtype=torch.int32,
+                                  device=dev).view(S, -1),
+        cu_q_lens=cu, num_seqs=torch.tensor([S], device=dev),
+        slot_mapping=torch.zeros(S * q, dtype=torch.int32, device=dev),
+        positions=torch.zeros(S * q, dtype=torch.int32, device=dev),
+        logits_indices=cu[1:] - 1, max_q_len=q, max_kv_len=N)
+    ctx = model._mla_context(md, S * q, ps, absorbed=False)
+    kv_b = eng.params["layers"][0]["kv_b"]
+
+    def run():
+        return model._decompressed(q_nope, q_pe, c_all, kpe,
+                                   lambda c: model.m_lin.apply(kv_b, c), ctx)
+    budget = deepseek.MLA_CHUNK_BYTES
+    width = nh * (nope + model.v_dim)
+    outs, ms, host = {}, {}, {}
+    try:
+        for label, b in (("one_chunk", 1 << 40),
+                         ("chunked", S * width * 6 * 512)):
+            deepseek.MLA_CHUNK_BYTES = b
+            times = []
+            for _ in range(3):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                t0.record()
+                outs[label] = run()
+                t1.record()
+                h1 = time.perf_counter()
+                torch.cuda.synchronize()
+                times.append((t0.elapsed_time(t1), (h1 - h0) * 1e3))
+            ms[label], host[label] = sorted(times)[1]
+    finally:
+        deepseek.MLA_CHUNK_BYTES = budget
+    err = (outs["chunked"] - outs["one_chunk"]).abs().max().item()
+    return dict(sequences=S, query_tokens=S * q, positions=N,
+                chunk_positions=512, max_abs_err=err,
+                finite=bool(torch.isfinite(outs["chunked"]).all()),
+                one_chunk_ms=ms["one_chunk"], chunked_ms=ms["chunked"],
+                one_chunk_host_ms=host["one_chunk"],
+                chunked_host_ms=host["chunked"])
+
+
+def _deepseek_long_context(cfg, kwargs: dict, long_len: int = 12288,
+                           **engine) -> dict:
+    """An ``LLM`` of ``cfg`` with ``kwargs`` but built for 16,384
+    positions a sequence (``engine`` overrides the LLM arguments): the
+    chunking check on its engine (``_mla_chunking_check``), then 16
+    requests of 512 seeded tokens -> 32 greedy tokens, and two of
+    ``long_len`` tokens -> 16 that arrive once the first short one has a
+    token, so that their chunks prefill in mixed steps beside the decode
+    rows (the decompressed path over every sequence at up to
+    ``long_len`` positions). Returns the wall time, the long requests'
+    TTFT, MLA calls by path, peak allocated memory, the engine's KV pages,
+    graph pool and its reserve, and the outputs that came back short, out
+    of the vocabulary or with a non-finite logprob."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    V = cfg.vocab_size
+    gen = torch.Generator().manual_seed(3)
+    short = torch.randint(0, V, (16, 512), generator=gen).tolist()
+    long = torch.randint(0, V, (2, long_len), generator=gen).tolist()
+    sps = [SamplingParams(max_tokens=32, top_k=1, ignore_eos=True),
+           SamplingParams(max_tokens=16, top_k=1, ignore_eos=True)]
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLM(cfg, **{**kwargs, "max_input_len": long_len,
+                      "max_seq_len": 16384, "dtype": "bfloat16", **engine})
+    try:
+        res = _long_context_pass(llm, short, long, sps)
+        res.update(mla_chunking=_mla_chunking_check(llm.engine),
+                   kv_pool_pages=llm.engine.num_kv_pages,
+                   max_seq_len=llm.engine.max_seq_len,
+                   graph_pool_reserve_bytes=llm.engine.graph_pool_reserve(),
+                   graphs=_graph_stats(llm.engine))
+    finally:
+        llm.shutdown()
+    res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _long_context_pass(llm, short, long, sps) -> dict:
+    """The long-context stage's requests through ``llm`` (see
+    ``_deepseek_long_context``)."""
+    from tensorrt_llm_tpu_torch.models import deepseek
+    V = llm.engine.model.vocab_size
+    a0, d0 = deepseek.MLA_ABSORBED, deepseek.MLA_DECOMPRESSED
+    t0 = time.monotonic()
+    futs = [llm.generate_async(p, sps[0]) for p in short]
+    deadline = time.monotonic() + 300
+    while not futs[0]._result.request.output_token_ids:
+        if time.monotonic() > deadline:
+            raise AssertionError("deepseek_serving: no first token")
+        time.sleep(0.005)
+    futs += [llm.generate_async(p, sps[1]) for p in long]
+    outs = [f.result(600) for f in futs]
+    wall = time.monotonic() - t0
+    bad = []
+    for i, o in enumerate(outs):
+        toks = o.outputs[0].token_ids
+        lps = [v for d in (o.outputs[0].logprobs or []) for v in d.values()]
+        n = sps[i >= len(short)].max_tokens
+        if len(toks) != n or not all(0 <= t < V for t in toks) or \
+                not all(math.isfinite(v) for v in lps):
+            bad.append(i)
+    perf = [o._result.request.perf for o in outs[len(short):]]
+    return dict(requests=len(outs), long_prompt_tokens=len(long[0]),
+                wall_ms=wall * 1e3,
+                long_ttft_ms=[(p.first_token_time - p.arrival_time) * 1e3
+                              for p in perf],
+                mla_calls=dict(absorbed=deepseek.MLA_ABSORBED - a0,
+                               decompressed=deepseek.MLA_DECOMPRESSED - d0),
+                bad_outputs=bad)
+
+
+def moe_families_phase() -> dict:
+    """Each family of this slice at a published model's width
+    (tools/serving_profile.py ``MOE_FAMILIES``: GLM-4.5-Air,
+    ERNIE-4.5-21B-A3B, Hunyuan-A13B, Granite-3.1-3B-A800M, DeepSeek-V3
+    with one dense layer before one MoE layer, Hunyuan-7B, Seed-OSS-36B,
+    ERNIE-4.5-0.3B, Apertus-8B; 2 layers; seeded random bf16 weights),
+    16 x 256 -> 32 greedy tokens through graphs (``--family NAME``): K1
+    and K2 launched (MLA instead for DeepSeek-V3: absorbed calls replayed
+    in windows, decompressed ones in prefill), windows replayed, every
+    returned logprob finite. A smoke of the widths, not a cell."""
+    import gc
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    failures, res = [], {}
+    for name, (_, _, layers, source) in sprof.MOE_FAMILIES.items():
+        cfg, kwargs, prompts, sp = sprof.family_workload(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        llm = LLM(cfg, dtype="bfloat16", enable_warmup=False, **kwargs)
+        try:
+            eng = llm.engine
+            run = sprof.measure(llm, prompts, sp, profile=False)
+            graphs = _graph_stats(eng)
+            spec = getattr(eng.model, "attn_spec", None)
+            mla = sprof.mla_graph_calls(eng) if spec is None else None
+        finally:
+            llm.shutdown()
+        del llm, eng
+        if spec is None:
+            windows = mla.get("multi", {})
+            if not windows.get("absorbed") or windows.get("decompressed") \
+                    or not run["mla_calls"]["decompressed"]:
+                failures.append(f"moe_families {name}: MLA paths {mla} "
+                                f"{run['mla_calls']}")
+        elif min(run["launches"][k] for k in ("paged_decode_attention",
+                                              "ragged_prefill_attention")) \
+                <= 0:
+            failures.append(f"moe_families {name}: K1 or K2 never "
+                            f"launched: {run['launches']}")
+        if not graphs["graph_replays"]:
+            failures.append(f"moe_families {name}: no graph replay")
+        if run["nonfinite_logprobs"] or not run["logprobs_recorded"] or \
+                run["min_output_tokens"] != sp.max_tokens:
+            failures.append(f"moe_families {name}: short outputs or "
+                            "non-finite logprobs")
+        res[name] = dict(
+            source=source, layers=layers, hidden=cfg.hidden_size,
+            heads=cfg.num_attention_heads,
+            kv_heads=None if spec is None else spec.num_kv_heads,
+            head_dim=None if spec is None else spec.head_dim,
+            output_tok_per_s=run["output_tok_per_s"],
+            tpot_ms_median=run["tpot_ms_median"],
+            ttft_ms_median=run["ttft_ms_median"], launches=run["launches"],
+            mla_calls=run.get("mla_calls"), mla_graph_calls=mla,
+            graph_replays=graphs["graph_replays"],
+            logprobs_recorded=run["logprobs_recorded"])
+        emit({"phase": "moe_families", "family": name, **res[name]})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -4069,6 +4553,9 @@ def main() -> int:
     timed("gpt_parity", gpt_parity_phase)
     gpt_fams = timed("gpt_families", gpt_families_phase)
     gptoss = timed("gptoss_serving", gptoss_serving_phase)
+    timed("deepseek_parity", deepseek_parity_phase)
+    deepseek = timed("deepseek_serving", deepseek_serving_phase)
+    moe_fams = timed("moe_families", moe_families_phase)
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -4105,6 +4592,9 @@ def main() -> int:
                 name, 0),
             launches_gpt_families=sum(f["launches"][name]
                                       for f in gpt_fams.values()),
+            launches_deepseek_serving=deepseek["launches"][name],
+            launches_moe_families={f: v["launches"][name]
+                                   for f, v in moe_fams.items()},
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()

@@ -12,8 +12,12 @@ model; with ``load_format="dummy"`` seeded random weights instead), or a
 bare ``transformers`` config, which serves random weights like
 ``load_format="dummy"``. Families (``model_type``): llama, mistral,
 tinyllama, qwen2, qwen3, gemma2, gemma3_text, granite, olmo2, phi3, glm,
-glm4, exaone4, smollm3, helium, arcee, and the MoE families mixtral,
-qwen2_moe, qwen3_moe and olmoe on one GPU.
+glm4, exaone4, smollm3, helium, arcee, hunyuan_v1_dense, seed_oss,
+ernie4_5, apertus, the GPT families (models/gpt_family.py, gpt2.py),
+deepseek_v2 and deepseek_v3 (MLA over a latent pool), and the MoE
+families mixtral, qwen2_moe, qwen3_moe, olmoe, gpt_oss, granitemoe,
+hunyuan_v1_moe, glm4_moe and ernie4_5_moe on one GPU; the JAX package's
+recurrent types, longcat_flash and bert are refused by name.
 ``kv_cache_config=KvCacheConfig(max_attention_window=[w, ...])`` serves
 Gemma 2 with VSWA: its sliding layers keep their KV in a second pool
 sized for the smallest window w, which is also their window (Gemma 3's

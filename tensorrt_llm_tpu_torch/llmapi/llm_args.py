@@ -152,10 +152,10 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
                       model_type: Optional[str] = None) -> None:
     """Refuse, by name, a speculative mode or option this package does
     not have, and (with ``model_type``) a target EAGLE3 cannot draft for:
-    the EAGLE3 head reads the target's hidden rows, which the MoE, Gemma
-    and LayerNorm GPT families' forward does not collect (nor does the
-    JAX package's). The host drafters need no hidden rows and take any
-    target."""
+    the EAGLE3 head reads the target's hidden rows, which the MoE (the
+    DeepSeek-style families included), Gemma, LayerNorm GPT and Apertus
+    forwards do not collect for it (nor do the JAX package's). The host
+    drafters need no hidden rows and take any target."""
     if sc is None or sc.mode == "NONE":
         return
     if sc.mode in ("MTP", "DFLASH"):
@@ -173,7 +173,8 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
             "supported by this package yet")
     if sc.mode in HOST_SPEC_MODES:
         return
-    if model_type in MOE_MODEL_TYPES + GEMMA_MODEL_TYPES + GPT_MODEL_TYPES:
+    if model_type in MOE_MODEL_TYPES + GEMMA_MODEL_TYPES + GPT_MODEL_TYPES \
+            + ("apertus",):
         raise NotImplementedError(
             f"speculative mode {sc.mode} with a {model_type} target is not "
             "supported by this package (EAGLE3 drafts for the Llama and "
@@ -184,7 +185,9 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
             "orchestrated path) is not supported by this package yet")
 
 
-MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe", "gpt_oss")
+MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe", "gpt_oss",
+                   "granitemoe", "hunyuan_v1_moe", "glm4_moe", "ernie4_5_moe",
+                   "deepseek_v2", "deepseek_v3")
 GEMMA_MODEL_TYPES = ("gemma2", "gemma3_text")
 # the LayerNorm GPT families (models/gpt_family.py, gpt2.py), whose
 # forward collects no hidden rows for an EAGLE3 head (nor does the JAX one)

@@ -35,6 +35,17 @@ The LayerNorm GPT families' trees (``LnFamilyModel``: per-layer "ln1" /
 layers add "sinks", ``router_bias`` and the experts' ``b_gate`` /
 ``b_up`` (joined into ``b_gate_up`` [E, 2I]) and ``b_down``, all float32,
 and drop ``is_sliding`` (``layer_specs``).
+The DeepSeek-style trees (``dense_layers`` and ``moe_layers``, each
+stacked: DeepSeek's MLA ``q`` or ``q_a`` / ``q_a_norm`` / ``q_b``,
+``kv_a``, ``kv_a_norm``, ``kv_b``, ``uk``, ``uv``; GLM-4.5's and ERNIE
+4.5's q/k/v and q/k norms; the MoE layers' ``router`` [H, E] (-> [E, H]),
+``router_bias`` (float32), stacked experts and shared experts ``s_gate``
+/ ``s_up`` / ``s_down``) become one list of layers in layer order, the
+shared experts under the Mixtral names ``se_gate_up`` / ``se_down``. An
+ungated shared expert (HunYuan-MoE) has no ``se_gate_w``. Apertus's
+layers (``norm`` / ``ff_norm``, a gateless ``up`` / ``down`` and the
+xIELU scalars) keep their names, the norms as ``input_norm`` /
+``post_norm``, the scalars as 0-dim float32 tensors.
 With ``kv_scales`` (a model on a quantized KV cache), the JAX Llama's
 per-layer ``kv_scale`` [L] (float32) becomes each layer's 0-dim float32
 ``kv_scale``, so that both packages quantize with the same scales.
@@ -112,9 +123,13 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
         plain = set(parts[0]) <= {"weight", "bias"}    # [out, in]
         return {name: fuse_params(parts, weight_dim=0 if plain else -1)}
 
+    if "layers" not in params_np:
+        return _from_jax_split_layers(params_np, t, proj, fused)
     lay = params_np["layers"]
     if "ln1" in lay or "ln1_w" in lay:
         return _from_jax_ln_family(params_np, t, proj, fused)
+    if "ff_norm" in lay:
+        return _from_jax_apertus(params_np, t, proj, fused)
     num_layers = lay["input_norm"].shape[0]
     layers = []
     for i in range(num_layers):
@@ -142,7 +157,8 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
         if "se_gate" in lay:
             layer["se_down"] = at("se_down")
             layer.update(fused(at, "se_gate_up", ("se_gate", "se_up")))
-            layer["se_gate_w"] = t(np.asarray(lay["se_gate_w"][i]).T)
+            if "se_gate_w" in lay:
+                layer["se_gate_w"] = t(np.asarray(lay["se_gate_w"][i]).T)
         layer.update(fused(at, "qkv", ("q", "k", "v")))
         if kv_scales and "kv_scale" in lay:
             layer["kv_scale"] = t(np.asarray(lay["kv_scale"][i],
@@ -192,3 +208,67 @@ def _from_jax_ln_family(params_np, t, proj, fused) -> Dict[str, Any]:
     if "embed_ln" in params_np:
         out["embed_ln"] = norm(params_np["embed_ln"])
     return out
+
+
+def _from_jax_split_layers(params_np, t, proj, fused) -> Dict[str, Any]:
+    """``from_jax_params`` for the trees with ``dense_layers`` and
+    ``moe_layers`` (DeepSeek-V2/V3, GLM-4.5, ERNIE 4.5 MoE)."""
+    vectors = ("input_norm", "post_norm", "q_norm", "k_norm", "kv_a_norm",
+               "q_a_norm", "uk", "uv")
+    layers = []
+    for group in ("dense_layers", "moe_layers"):
+        lay = params_np.get(group)
+        if lay is None:
+            continue
+        for i in range(np.asarray(lay["input_norm"]).shape[0]):
+            def at(name):
+                return proj({k: v[i] for k, v in lay[name].items()})
+            layer = {n: t(lay[n][i]) for n in vectors if n in lay}
+            for n in ("o", "kv_a", "kv_b", "q_a", "q_b"):
+                if n in lay:
+                    layer[n] = at(n)
+            if "k" in lay:
+                layer.update(fused(at, "qkv", ("q", "k", "v")))
+            elif "q" in lay:
+                layer["q"] = at("q")
+            if "router" in lay:
+                layer["router"] = t(np.asarray(lay["router"][i]).T)
+                layer["router_bias"] = t(lay["router_bias"][i],
+                                         torch.float32)
+                layer["w_gate_up"] = t(np.concatenate(
+                    [lay["w_gate"][i], lay["w_up"][i]], axis=-1))
+                layer["w_down"] = t(lay["w_down"][i])
+                if "s_gate" in lay:
+                    def shared(name):
+                        return at("s_" + name[3:])
+                    layer.update(fused(shared, "se_gate_up",
+                                       ("se_gate", "se_up")))
+                    layer["se_down"] = at("s_down")
+            else:
+                layer.update(fused(at, "gate_up", ("gate", "up")))
+                layer["down"] = at("down")
+            layers.append(layer)
+    return {"embed": t(params_np["embed"]["weight"]), "layers": layers,
+            "final_norm": t(params_np["final_norm"]),
+            "lm_head": proj(params_np["lm_head"])}
+
+
+def _from_jax_apertus(params_np, t, proj, fused) -> Dict[str, Any]:
+    """``from_jax_params`` for Apertus."""
+    lay = params_np["layers"]
+    layers = []
+    for i in range(np.asarray(lay["norm"]).shape[0]):
+        def at(name):
+            return proj({k: v[i] for k, v in lay[name].items()})
+        layer = {"input_norm": t(lay["norm"][i]),
+                 "post_norm": t(lay["ff_norm"][i]),
+                 "q_norm": t(lay["q_norm"][i]),
+                 "k_norm": t(lay["k_norm"][i]),
+                 "o": at("o"), "up": at("up"), "down": at("down")}
+        layer.update(fused(at, "qkv", ("q", "k", "v")))
+        for n in ("alpha_p", "alpha_n", "act_beta", "act_eps"):
+            layer[n] = t(np.asarray(lay[n][i], np.float32), torch.float32)
+        layers.append(layer)
+    return {"embed": t(params_np["embed"]["weight"]), "layers": layers,
+            "final_norm": t(params_np["final_norm"]),
+            "lm_head": proj(params_np["lm_head"])}

@@ -155,12 +155,13 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
     def _layer(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
                weight: Callable[[str], Any],
                bias: Callable[[str], Any] = lambda name: None,
-               smooth: Callable[[str], Any] = lambda name: None
-               ) -> Dict[str, Any]:
+               smooth: Callable[[str], Any] = lambda name: None,
+               idx: int = 0) -> Dict[str, Any]:
         """``LlamaForCausalLM._layer`` with Gemma's four norms
         (``post_norm`` is the post-attention one) and Gemma 3's q/k norm
         weights kept in float32."""
-        layer = super()._layer(input_norm, post_norm, weight, bias, smooth)
+        layer = super()._layer(input_norm, post_norm, weight, bias, smooth,
+                               idx=idx)
         layer["post_attn_norm"] = layer.pop("post_norm")
         for name in ("pre_ffn_norm", "post_ffn_norm"):
             layer[name] = torch.as_tensor(weight(name)).to(

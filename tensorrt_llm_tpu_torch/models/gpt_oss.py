@@ -80,9 +80,10 @@ class GptOssForCausalLM(MixtralForCausalLM):
     # ------------------------------------------------------------------ #
     def _layer(self, input_norm, post_norm, weight: Callable[[str], Any],
                bias: Callable[[str], Any] = lambda name: None,
-               smooth: Callable[[str], Any] = lambda name: None
-               ) -> Dict[str, Any]:
-        layer = super()._layer(input_norm, post_norm, weight, bias, smooth)
+               smooth: Callable[[str], Any] = lambda name: None,
+               idx: int = 0) -> Dict[str, Any]:
+        layer = super()._layer(input_norm, post_norm, weight, bias, smooth,
+                               idx=idx)
         layer["sinks"] = self._f32(weight("sinks"))
         return layer
 

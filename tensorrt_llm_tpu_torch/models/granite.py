@@ -15,16 +15,22 @@ from .llama import LlamaForCausalLM
 from .modeling_utils import register_model
 
 
+def set_granite_multipliers(model: LlamaForCausalLM) -> None:
+    """Set the four multipliers of ``model``'s config on the Llama trunk
+    (Granite and Granite-MoE, models/granite_moe.py)."""
+    hf = model.hf
+    model.embedding_multiplier = getattr(hf, "embedding_multiplier", 1.0)
+    model.residual_multiplier = getattr(hf, "residual_multiplier", 1.0)
+    model.logits_scaling = getattr(hf, "logits_scaling", 1.0)
+    am = getattr(hf, "attention_multiplier", None)
+    if am is not None:
+        model.attn_spec = dataclasses.replace(model.attn_spec, sm_scale=am)
+
+
 @register_model("granite")
 class GraniteForCausalLM(LlamaForCausalLM):
     architectures = ("GraniteForCausalLM",)
 
     def __init__(self, model_config):
         super().__init__(model_config)
-        hf = self.hf
-        self.embedding_multiplier = getattr(hf, "embedding_multiplier", 1.0)
-        self.residual_multiplier = getattr(hf, "residual_multiplier", 1.0)
-        self.logits_scaling = getattr(hf, "logits_scaling", 1.0)
-        am = getattr(hf, "attention_multiplier", None)
-        if am is not None:
-            self.attn_spec = dataclasses.replace(self.attn_spec, sm_scale=am)
+        set_granite_multipliers(self)

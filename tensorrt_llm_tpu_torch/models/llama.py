@@ -178,9 +178,9 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
     def _layer(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
                weight: Callable[[str], Any],
                bias: Callable[[str], Any] = lambda name: None,
-               smooth: Callable[[str], Any] = lambda name: None
-               ) -> Dict[str, Any]:
-        """One layer's parameters. ``weight(name)`` gives projection
+               smooth: Callable[[str], Any] = lambda name: None,
+               idx: int = 0) -> Dict[str, Any]:
+        """Layer ``idx``'s parameters. ``weight(name)`` gives projection
         ``name`` (q, k, v, o and the MLP's, ``_mlp_params``) as [out, in]
         floats or a ``PrequantizedWeight``, and with ``use_qk_norm`` the
         q_norm / k_norm weights; each goes through its method on the
@@ -199,12 +199,25 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         for name in norms:
             layer[name] = torch.as_tensor(weight(name)).to(
                 device=self.device, dtype=self.dtype)
-        layer.update(self._mlp_params(weight, bias, smooth))
+        layer.update(self._layer_mlp_params(idx, weight, bias, smooth))
         if self.per_layer_kv_scale and self.config.uses_kv_quant:
             layer["kv_scale"] = torch.full((), self.config.kv_scale,
                                            dtype=torch.float32,
                                            device=self.device)
         return layer
+
+    def _layer_mlp_params(self, idx: int, weight: Callable[[str], Any],
+                          bias: Callable[[str], Any],
+                          smooth: Callable[[str], Any]) -> Dict[str, Any]:
+        """Layer ``idx``'s MLP parameters: ``_mlp_params`` in every layer
+        here (GLM-4.5 and ERNIE 4.5 keep their first layers dense)."""
+        return self._mlp_params(weight, bias, smooth)
+
+    def _layer_init_mlp(self, idx: int, mat: Callable[..., torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """Random MLP weights of layer ``idx`` for
+        ``_layer_mlp_params``."""
+        return self._init_mlp(mat)
 
     def _mlp_params(self, weight: Callable[[str], Any],
                     bias: Callable[[str], Any],
@@ -247,7 +260,7 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             return torch.ones(H, device=dev, dtype=dt)
 
         layers = []
-        for _ in range(self.num_layers):
+        for i in range(self.num_layers):
             q, k, v = mat((nq + 2 * nkv) * hd, H).split(
                 [nq * hd, nkv * hd, nkv * hd])
             w = {"q": q, "k": k, "v": v, "o": mat(H, nq * hd)}
@@ -256,8 +269,8 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
                 qw, kw = self._qk_norm_widths()
                 w["q_norm"] = torch.ones(qw, device=dev, dtype=dt)
                 w["k_norm"] = torch.ones(kw, device=dev, dtype=dt)
-            w.update(self._init_mlp(mat))
-            layers.append(self._layer(ones(), ones(), w.pop))
+            w.update(self._layer_init_mlp(i, mat))
+            layers.append(self._layer(ones(), ones(), w.pop, idx=i))
         embed = mat(V, H)
         lm_head = None if self.tie_embeddings else mat(V, H)
         return {"embed": embed, "layers": layers, "final_norm": ones(),
@@ -288,7 +301,8 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
                 t(p + n_in + ".weight"), t(p + n_post + ".weight"),
                 lambda n: self._hf_weight(sd, p, n),
                 lambda n: sd.get(p + self._hf_module(n) + ".bias"),
-                lambda n: scales.get(p + self._hf_module(n) + ".weight")))
+                lambda n: scales.get(p + self._hf_module(n) + ".weight"),
+                idx=i))
         embed = t("model.embed_tokens.weight")
         lm_head = None if self.tie_embeddings or "lm_head.weight" not in sd \
             else sd["lm_head.weight"]

@@ -3,17 +3,21 @@
 Port of ``tensorrt_llm_tpu/models/mixtral.py`` (``MixtralForCausalLM``,
 forward :134-256) on one GPU: top-k routing over E experts through
 ops/moe.py, the optional always-on shared expert behind a float32
-sigmoid gate (Qwen2-MoE, :206-219) and the q/k-norm selection of the
-Llama trunk (:148-166). Left out: the wide-EP replica slots, deepstack
-inputs, MoE statistics and the Granite multipliers; the families that
-need them are not registered here.
+sigmoid gate (Qwen2-MoE, :206-219; ungated with ``shared_expert_gated``
+False, HunYuan-MoE), the q/k-norm selection of the Llama trunk
+(:148-166) and the Granite multipliers of the trunk's forward
+(``embedding_multiplier``, ``residual_multiplier``, ``logits_scaling``,
+:138-140, 251-252; Granite-MoE sets them, models/granite_moe.py). Left
+out: the wide-EP replica slots, deepstack inputs and MoE statistics; the
+families that need them are not registered here.
 
 Parameters of a layer's MLP (``_mlp_params``): "router" [E, H] in the
 model's type; "w_gate_up" [E, H, 2I] and "w_down" [E, I, H] (ops/moe.py's
 layout); with a shared expert "se_gate_up" and "se_down" through the MLP's
-linear method and "se_gate_w" [1, H]. As in the JAX package the experts
-stay in the model's type under weight-only quantization: only attention,
-the shared expert and lm_head go through their methods.
+linear method and, when it is gated, "se_gate_w" [1, H]. As in the JAX
+package the experts stay in the model's type under weight-only
+quantization: only attention, the shared expert and lm_head go through
+their methods.
 """
 from __future__ import annotations
 
@@ -52,7 +56,9 @@ class MixtralForCausalLM(LlamaForCausalLM):
         # routing renormalization (Mixtral yes; Qwen2-MoE no by default)
         self.renormalize = True
         # Qwen2-MoE's always-on shared expert behind a sigmoid gate
+        # (HunYuan-MoE's and the DeepSeek-style families' add ungated)
         self.has_shared_expert = False
+        self.shared_expert_gated = True
         if self.device.type == "cuda" and \
                 moe_route(self.dtype, self.device) == "grouped":
             check_grouped(self.hidden_size, self.moe_intermediate,
@@ -90,7 +96,9 @@ class MixtralForCausalLM(LlamaForCausalLM):
         if self.has_shared_expert:
             SI = self.shared_intermediate
             w["se_gate"], w["se_up"] = mat(2 * SI, H).split(SI)
-            w.update(se_down=mat(H, SI), se_gate_w=mat(1, H))
+            w["se_down"] = mat(H, SI)
+            if self.shared_expert_gated:
+                w["se_gate_w"] = mat(1, H)
         return w
 
     def _mlp_params(self, weight: Callable[[str], Any],
@@ -115,7 +123,8 @@ class MixtralForCausalLM(LlamaForCausalLM):
                  self._lin(m, weight("se_up"), bias("se_up"))]))
             out["se_down"] = self._lin(m, weight("se_down"),
                                        bias("se_down"))
-            out["se_gate_w"] = dense("se_gate_w")
+            if self.shared_expert_gated:
+                out["se_gate_w"] = dense("se_gate_w")
         return out
 
     _HF_MODULES = dict(
@@ -166,12 +175,19 @@ class MixtralForCausalLM(LlamaForCausalLM):
                       layer["router"], self.top_k,
                       renormalize=self.renormalize)
         if self.has_shared_expert:
-            m = self.m_mlp
-            gate, up = apply_pair(m, layer, "se_gate_up",
-                                  ("se_gate", "se_up"), x,
-                                  self.shared_intermediate)
-            se = m.apply(layer["se_down"],
-                         F.silu(gate.float()).to(self.dtype) * up)
-            g = torch.sigmoid(dot_f32(x, layer["se_gate_w"]))
-            out = out + g.to(self.dtype) * se
+            se = self._shared_expert(layer, x)
+            if self.shared_expert_gated:
+                g = torch.sigmoid(dot_f32(x, layer["se_gate_w"]))
+                se = g.to(self.dtype) * se
+            out = out + se
         return out
+
+    def _shared_expert(self, layer: Dict[str, Any],
+                       x: torch.Tensor) -> torch.Tensor:
+        """The always-on shared expert (a gated-SiLU MLP through the MLP's
+        linear method), before any gate."""
+        m = self.m_mlp
+        gate, up = apply_pair(m, layer, "se_gate_up", ("se_gate", "se_up"),
+                              x, self.shared_intermediate)
+        return m.apply(layer["se_down"],
+                       F.silu(gate.float()).to(self.dtype) * up)

@@ -49,7 +49,25 @@ def register_model(*model_types: str):
     return deco
 
 
+# model types the JAX package registers that this package does not serve
+# yet, each with its reason
+_RECURRENT = ("a recurrent state: ops/ssm.py and a cache indexed by "
+              "sequence slot are not ported")
+NOT_PORTED_MODEL_TYPES: Dict[str, str] = {
+    **{t: _RECURRENT for t in (
+        "mamba", "falcon_mamba", "mamba2", "bamba", "jamba", "zamba2",
+        "granitemoehybrid", "qwen3_next", "lfm2", "minimax")},
+    "longcat_flash": "the shortcut-connected MoE over paired MLA "
+                     "sublayers, which comes with MTP",
+    "bert": "an encoder without a generation path",
+}
+
+
 def get_model_class(model_type: str) -> type:
+    if model_type in NOT_PORTED_MODEL_TYPES:
+        raise NotImplementedError(
+            f"model_type '{model_type}' is not supported by this package "
+            f"yet ({NOT_PORTED_MODEL_TYPES[model_type]})")
     if model_type not in MODEL_REGISTRY:
         raise ValueError(
             f"unsupported model_type '{model_type}'; "
@@ -118,6 +136,9 @@ class AttentionSpec:
     # NVFP4 KV cache: round appended K/V to the e2m1 grid (stamped by the
     # engine from ModelConfig.kv_fp4_grid)
     kv_fp4: bool = False
+    # the q/k norms after the rotary embedding instead of before it
+    # (HunYuan, as transformers applies them)
+    qk_norm_after_rope: bool = False
 
 
 def alibi_slopes(num_heads: int) -> tuple:
@@ -158,7 +179,8 @@ def attention_block(params: Dict[str, Any],
                     alibi_slopes: Optional[torch.Tensor] = None):
     """QKV projection (``params["qkv"]`` fused, or "q", "k", "v" apart),
     the q/k norms (``q_norm(params, q [T, nq, hd])``, likewise k: Qwen3's
-    per-head RMS norm, OLMoE's over the whole projection), RoPE, KV append
+    per-head RMS norm, OLMoE's over the whole projection; after RoPE with
+    ``spec.qk_norm_after_rope``), RoPE, KV append
     (in place) and paged attention, then the output projection.
 
     An 8-bit pool (int8, e4m3) is written and read with ``kv_scale`` (the
@@ -186,15 +208,20 @@ def attention_block(params: Dict[str, Any],
     q = q.reshape(T, nq, hd)
     k = k.reshape(T, nkv, hd)
     v = v.reshape(T, nkv, hd)
-    if q_norm is not None:
+    late = spec.qk_norm_after_rope
+    if q_norm is not None and not late:
         q = q_norm(params, q)
-    if k_norm is not None:
+    if k_norm is not None and not late:
         k = k_norm(params, k)
     if spec.rope is not None:
         cos, sin = rope_cos_sin if rope_cos_sin is not None else \
             rope_ops.rope_cos_sin(spec.rope, metadata.positions)
         q = rope_ops.apply_rope(q, cos, sin, spec.is_neox)
         k = rope_ops.apply_rope(k, cos, sin, spec.is_neox)
+    if q_norm is not None and late:
+        q = q_norm(params, q)
+    if k_norm is not None and late:
+        k = k_norm(params, k)
     quant = kv_pages.dtype in KV_DTYPES
     ks = kv_scale if quant else None
     write_kv(kv_pages, k, v, metadata.slot_mapping, k_scale=ks, v_scale=ks,
@@ -338,10 +365,27 @@ class DecoderModelForCausalLM:
         return (self.num_layers, num_pages, page_size,
                 2 * self.num_kv_heads, self.head_dim)
 
+    def graph_bound_key(self, bound: int, splits) -> Any:
+        """What a decode graph's key holds for the step's KV ``bound``:
+        the decode kernel's split counts, ``splits(bound)``, which are all
+        that the bound changes in a step of K1 layers. A model that sizes
+        its own KV gather by the bound (MLA, models/deepseek.py) keys by
+        the bound itself."""
+        return splits(bound)
+
     def make_kv_pages(self, num_pages: int, page_size: int) -> torch.Tensor:
         return torch.zeros(self.kv_pool_shape(num_pages, page_size),
                            dtype=self.config.kv_cache_dtype,
                            device=self.device)
+
+    def attn_scratch_bytes(self, seqs: int, tokens: int,
+                           positions: int) -> int:
+        """Peak device bytes of one layer's attention scratch that grow
+        with the KV positions, in a step of ``seqs`` sequences and
+        ``tokens`` query tokens over ``positions`` (the graph pool's
+        estimate, beside ``act_width_per_token``): none for the paged
+        kernels; MLA's dense gather holds some (models/deepseek.py)."""
+        return 0
 
     def init_params(self, seed: int = 0) -> Dict[str, Any]:
         raise NotImplementedError

@@ -138,8 +138,7 @@ def write_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel).
     """
     num_pages, page_size, combined, head_dim = kv_pages.shape
-    n = num_pages * page_size
-    flat = kv_pages.view(n, combined, head_dim)
+    flat = kv_pages.view(num_pages * page_size, combined, head_dim)
     dt = kv_pages.dtype
     if k_scale is v_scale:
         kv = quantize_kv(torch.stack([k, v], dim=2), k_scale, dt, fp4_grid)
@@ -150,6 +149,19 @@ def write_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv = kv.reshape(k.shape[0], combined, head_dim)
     if kv_pages.element_size() == 1:
         flat, kv = flat.view(torch.uint8), kv.view(torch.uint8)
+    scatter_slots(flat, kv, slot_mapping)
+    return kv_pages
+
+
+def scatter_slots(flat: torch.Tensor, rows: torch.Tensor,
+                  slot_mapping: torch.Tensor) -> None:
+    """``flat[slot_mapping[t]] = rows[t]`` IN PLACE for the slots inside
+    ``flat``'s first axis; the others are dropped without a host sync: a
+    dropped row is redirected to the slot of the first kept row with that
+    row's values (a duplicate write of identical data), or, when no row
+    is kept, to slot 0 with its own contents. ``write_kv``'s scatter, and
+    MLA's latent write (models/deepseek.py)."""
+    n = flat.shape[0]
     slots = slot_mapping.long()
     keep = (slots >= 0) & (slots < n)
     # the first kept row, as a 1-element index: indexing by a 0-dim
@@ -158,11 +170,10 @@ def write_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     first = torch.argmax(keep.to(torch.int8)).view(1)
     any_keep = keep.any()
     fb_slot = torch.where(any_keep, slots[first], 0)
-    fb_val = torch.where(any_keep, kv[first], flat[:1])
+    fb_val = torch.where(any_keep, rows[first], flat[:1])
     idx = torch.where(keep, slots, fb_slot)
-    vals = torch.where(keep[:, None, None], kv, fb_val)
-    flat.index_copy_(0, idx, vals)
-    return kv_pages
+    mask = keep.view((-1,) + (1,) * (rows.dim() - 1))
+    flat.index_copy_(0, idx, torch.where(mask, rows, fb_val))
 
 
 def ragged_paged_attention(q: torch.Tensor,            # [T, qh, hd]

@@ -37,6 +37,17 @@ their float32 biases, and the activation is the clamped SwiGLU
 ``clamp(gate, max=lim) * sigmoid(1.702 * gate) * (clamp(up, +-lim) + 1)``
 in float32 (``swiglu_limit``). The combine then sums float32 outputs.
 
+The DeepSeek-style families choose and weigh their experts themselves
+and hand the routes the weights and indices (``moe_mlp_routed``, the JAX
+``moe_mlp_ragged`` called with the caller's routing): sigmoid scores
+chosen with a correction bias (``sigmoid_bias_routing``: DeepSeek-V3,
+GLM-4.5; the JAX models/deepseek.py:345-356, glm4_moe.py:143-153),
+DeepSeek-V2's softmax scores (``softmax_group_routing``,
+deepseek.py:336-343) and ERNIE 4.5's softmax scores chosen with a bias
+and renormalised over a clamped sum (``softmax_bias_routing``,
+glm4_moe.py:260-276); ``group_limit`` keeps the top ``topk_group``
+expert groups and masks the others with 0.0, as transformers does.
+
 Every shape on the CUDA routes is a function of the token count T and k
 (a graph bucket fixes both), and nothing reads a device value on the
 host: expert counts come from a fixed-size ``scatter_add_`` of length E.
@@ -260,3 +271,79 @@ def moe_mlp_swiglu(x: torch.Tensor, router: torch.Tensor,
     route = moe_route(w_gate_up.dtype, x.device)
     return _ROUTE_FNS[route](x.to(w_gate_up.dtype), w_gate_up, w_down,
                              probs, idx, b_gate_up, b_down, swiglu_limit)
+
+
+def moe_mlp_routed(x: torch.Tensor, w_gate_up: torch.Tensor,
+                   w_down: torch.Tensor, probs: torch.Tensor,
+                   expert_idx: torch.Tensor) -> torch.Tensor:
+    """The experts on given routing (``probs`` float32 [T, k],
+    ``expert_idx`` [T, k]), on the route of their type and device: the
+    JAX ``moe_mlp_ragged`` as the DeepSeek-style families call it."""
+    route = moe_route(w_gate_up.dtype, x.device)
+    return _ROUTE_FNS[route](x.to(w_gate_up.dtype), w_gate_up, w_down,
+                             probs, expert_idx.to(torch.int32))
+
+
+def group_limit(choice: torch.Tensor, n_group: int, topk_group: int,
+                group_score: str) -> torch.Tensor:
+    """``choice`` [T, E] with the experts outside the ``topk_group`` best
+    of ``n_group`` equal groups set to 0.0 (not -inf, as transformers
+    masks them). A group scores the sum of its top two (``"top2"``,
+    DeepSeek-V3 / GLM-4.5) or its maximum (``"max"``, DeepSeek-V2)."""
+    if n_group <= 1 or topk_group >= n_group:
+        return choice
+    T, E = choice.shape
+    grouped = choice.view(T, n_group, E // n_group)
+    if group_score == "top2":
+        gscore = grouped.topk(2, dim=-1)[0].sum(dim=-1)
+    else:
+        gscore = grouped.amax(dim=-1)
+    gidx = torch.topk(gscore, topk_group, dim=-1)[1]
+    keep = torch.zeros_like(gscore).scatter_(1, gidx, 1.0) > 0
+    keep = keep[:, :, None].expand(T, n_group, E // n_group).reshape(T, E)
+    return torch.where(keep, choice, torch.zeros_like(choice))
+
+
+def sigmoid_bias_routing(logits: torch.Tensor, bias: torch.Tensor,
+                         top_k: int, renormalize: bool, scale: float,
+                         n_group: int = 1, topk_group: int = 1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weights float32 [T, k], expert_idx int32 [T, k]) of DeepSeek-V3
+    and GLM-4.5: sigmoid scores; the experts chosen by the scores plus
+    the correction ``bias`` (group-limited, top-2 group scores) and
+    weighed by the raw scores, renormalised (``+ 1e-20``) with
+    ``renormalize``, then times ``scale`` (``routed_scaling_factor``)."""
+    scores = torch.sigmoid(logits.float())
+    choice = group_limit(scores + bias[None, :].float(), n_group,
+                         topk_group, "top2")
+    idx = torch.topk(choice, top_k, dim=-1)[1]
+    w = torch.gather(scores, 1, idx)
+    if renormalize:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return w * scale, idx.to(torch.int32)
+
+
+def softmax_group_routing(logits: torch.Tensor, top_k: int, scale: float,
+                          n_group: int = 1, topk_group: int = 1
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V2's gate: softmax scores, their top k (within the
+    ``topk_group`` best groups by maximum when grouped), times ``scale``;
+    never renormalised (transformers stores ``norm_topk_prob`` and never
+    applies it)."""
+    scores = torch.softmax(logits.float(), dim=-1)
+    choice = group_limit(scores, n_group, topk_group, "max")
+    w, idx = torch.topk(choice, top_k, dim=-1)
+    return w * scale, idx.to(torch.int32)
+
+
+def softmax_bias_routing(logits: torch.Tensor, bias: torch.Tensor,
+                         top_k: int, norm_min: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ERNIE 4.5's gate: softmax scores; the experts chosen by the scores
+    plus ``bias`` and weighed by the raw scores over their sum clamped
+    below at ``norm_min``."""
+    scores = torch.softmax(logits.float(), dim=-1)
+    idx = torch.topk(scores + bias[None, :].float(), top_k, dim=-1)[1]
+    w = torch.gather(scores, 1, idx)
+    w = w / w.sum(dim=-1, keepdim=True).clamp(min=norm_min)
+    return w, idx.to(torch.int32)

@@ -125,12 +125,15 @@ def rope_cos_sin(cfg: RopeConfig, positions: torch.Tensor
     inv_freq = compute_inv_freq(cfg, positions.device)
     angles = positions.float()[:, None] * inv_freq[None, :]
     attn_scale = 1.0
-    if cfg.scaling_type == "yarn" and cfg.mscale:
-        def yarn_mscale(scale, m):
-            return 1.0 if scale <= 1 or m == 0 \
-                else 0.1 * m * math.log(scale) + 1.0
-        attn_scale = yarn_mscale(cfg.scaling_factor, cfg.mscale) / \
-            yarn_mscale(cfg.scaling_factor, cfg.mscale_all_dim)
+    if cfg.scaling_type == "yarn":
+        # transformers' yarn attention factor: the ratio of the two
+        # magnitudes when the config sets both, else the factor's own
+        def yarn_mscale(scale, m=1.0):
+            return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+        f = cfg.scaling_factor
+        attn_scale = yarn_mscale(f, cfg.mscale) / \
+            yarn_mscale(f, cfg.mscale_all_dim) \
+            if cfg.mscale and cfg.mscale_all_dim else yarn_mscale(f)
     return torch.cos(angles) * attn_scale, torch.sin(angles) * attn_scale
 
 

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -302,12 +303,14 @@ class ModelEngine:
 
     @property
     def bytes_per_kv_block(self) -> int:
-        """Device bytes of one page of the (global) pool, all its layers;
-        under VSWA a sliding-pool page has the same size (L/2 layers)."""
+        """Device bytes of one page of the (global) pool, all its layers,
+        from the model's own pool shape (MLA's latent rows as well as
+        [2 * kv heads, head dim]); under VSWA a sliding-pool page has the
+        same size (L/2 layers)."""
         el = torch.empty((), dtype=self.model.config.kv_cache_dtype) \
             .element_size()
-        return (self._pool_layers * self.page_size *
-                2 * self.model.num_kv_heads * self.model.head_dim * el)
+        per_layer = math.prod(self.model.kv_pool_shape(1, self.page_size)[1:])
+        return self._pool_layers * per_layer * el
 
     def _sw_pages(self) -> int:
         """The sliding pool's pages: the JAX engine's formula (a window
@@ -368,6 +371,12 @@ class ModelEngine:
           intermediate width, their product and the down output (a MoE
           model's ``intermediate_size`` does not enter), at 4 bytes
           though most are bf16;
+        - the attention's own per-position scratch over the step's
+          sequences (every row, and the rider chunk's sequences and its
+          filler row) at ``max_seq_len`` positions
+          (``model.attn_scratch_bytes``): none for the paged kernels;
+          MLA's dense gather (models/deepseek.py) holds the gathered
+          latents and, on each path, what grows with them;
         - per row, 6 [rows, vocab] float32 tensors of the sampler (logits,
           log-softmax, the generator's noise, the seeded rows' noise, the
           perturbed logits, their selection);
@@ -392,13 +401,15 @@ class ModelEngine:
         """``graph_pool_reserve``'s formula, whatever the device."""
         rows = self.max_batch_size
         tokens = rows + (self.mixed_ctx_tokens if self.riders_ok else 0)
+        seqs = rows + (self.mixed_ctx_seqs + 1 if self.riders_ok else 0)
         sampler = rows * self.model.vocab_size * 4 * 6
         d = max(self.spec_draft_len, self.max_draft_len)
         if d:
             tokens = max(tokens, rows * (d + 1))
             sampler = max(sampler,
                           rows * (d + 1) * self.model.vocab_size * 4 * 10)
-        acts = tokens * self.model.act_width_per_token() * 4
+        acts = tokens * self.model.act_width_per_token() * 4 + \
+            self.model.attn_scratch_bytes(seqs, tokens, self.max_seq_len)
         return 2 * (acts + sampler)
 
     def surface_state_bytes(self) -> int:
@@ -488,7 +499,9 @@ class ModelEngine:
         the CPU, whose plain version does not split): with ``head`` the
         draft head's layer (an int), else the target's layers, one count
         per distinct sliding window (``model.attention_windows``: a
-        tuple, since Gemma's sliding and global layers split apart)."""
+        tuple, since Gemma's sliding and global layers split apart). A
+        graph key holds this in place of the bound, as
+        ``model.graph_bound_key`` has it (MLA keys by the bound)."""
         if head:
             if self.device.type != "cuda":
                 return 1
@@ -496,6 +509,10 @@ class ModelEngine:
             return dec.splits_for(rows, spec.num_heads, spec.num_kv_heads,
                                   self.sd.P_h * self.sd.ps_h, bound,
                                   spec.sliding_window, self.device)
+        return self.model.graph_bound_key(
+            bound, lambda b: self._k1_splits(rows, b))
+
+    def _k1_splits(self, rows: int, bound: int) -> tuple:
         windows = self.model.attention_windows()
         if self.device.type != "cuda":
             return (1,) * len(windows)
@@ -1274,7 +1291,8 @@ class ModelEngine:
                     seeded: bool = False,
                     ops: LogitsOps = LogitsOps()) -> tuple:
         # a rider window's attention is the ragged kernel alone: no splits
-        splits = 1 if C else self._splits(Sb, bound)
+        splits = self.model.graph_bound_key(bound, lambda b: 1) if C \
+            else self._splits(Sb, bound)
         return ("multi", K, Sb, C, self.mixed_ctx_seqs if C else 0, splits,
                 greedy, use_penalties, ops, seeded)
 
@@ -1317,7 +1335,12 @@ class ModelEngine:
         self.decode_steps += K
         self.window_steps += K
         self.dead_window_steps += max(0, K - live)
-        bound = self._kv_bound((int(rows[2].max()) if n else 0) + K)
+        reach = (int(rows[2].max()) if n else 0) + K
+        if riders:
+            # the bound also covers the riders' chunks, whose KV MLA
+            # gathers up to it (models/deepseek.py)
+            reach = max(reach, int(inputs["ctx_kv_lens"].max()))
+        bound = self._kv_bound(reach)
         self._counts(use_penalties)
         out = self.graphs.run(
             self._window_key(K, Sb, C, bound, greedy, use_penalties, seeded,

@@ -126,13 +126,18 @@ class TwoModelDrafter(Drafter):
         return min(1 << (max(n, 1) - 1).bit_length(), reach)
 
     def _splits(self, rows: int, bound: int) -> tuple:
+        return self.model.graph_bound_key(
+            bound, lambda b: self._k1_splits(rows, b))
+
+    def _k1_splits(self, rows: int, bound: int) -> tuple:
+        windows = self.model.attention_windows()
         if self.device.type != "cuda":
             return (1,)
         spec = self.model.attn_spec
         reach = self.pages_per_slot * self.page_size
         return tuple(dec.splits_for(rows, spec.num_heads, spec.num_kv_heads,
                                     reach, bound, w, self.device)
-                     for w in self.model.attention_windows())
+                     for w in windows)
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()

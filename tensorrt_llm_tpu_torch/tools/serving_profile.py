@@ -101,7 +101,19 @@ Two workloads:
   on the even layers, 32 experts top 4, seeded random bf16 weights), 64
   requests of 512 prompt tokens -> 128 with ``ignore_eos``, ``LLM``
   defaults (64 rows, K = 8, depth 4, CUDA graphs) but 8,192 tokens a
-  prefill step (16 prompts) and prefix reuse off.
+  prefill step (16 prompts) and prefix reuse off;
+- ``--geometry deepseek-v2-lite``: ``chip_smoke.py``'s deepseek_serving
+  run, DeepSeek-V2-Lite at its published width and depth
+  (``DEEPSEEK_V2_LITE``: 27 layers, hidden 2,048, 16 MLA heads over a
+  latent of 512 + 64 a token, 64 experts top 6 of width 1,408 and 2
+  shared ones after one dense layer, yarn factor 40; seeded random bf16
+  weights, ~31.4 GB), the same traffic as gpt-oss-20b's; MLA's float32
+  products are their own class (``mla_einsum``);
+- ``--family NAME`` also takes the DeepSeek-style families and the last
+  attention-only dense ones (``MOE_FAMILIES``: GLM-4.5-Air,
+  ERNIE-4.5-21B-A3B, Hunyuan-A13B, Granite-3.1-3B-A800M, DeepSeek-V3
+  with one dense layer before one MoE layer, Hunyuan-7B, Seed-OSS-36B,
+  ERNIE-4.5-0.3B, Apertus-8B), 2 layers.
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms and W4A8): any ``QuantAlgo`` the package serves,
@@ -420,6 +432,171 @@ GPT_OSS_20B = dict(
     pad_token_id=199999)
 
 
+# https://huggingface.co/deepseek-ai/DeepSeek-V2-Lite config.json (every
+# field the port reads; yarn factor 40)
+DEEPSEEK_V2_LITE = dict(
+    vocab_size=102400, hidden_size=2048, intermediate_size=10944,
+    moe_intermediate_size=1408, num_hidden_layers=27,
+    num_attention_heads=16, num_key_value_heads=16, n_routed_experts=64,
+    num_experts_per_tok=6, n_shared_experts=2, first_k_dense_replace=1,
+    moe_layer_freq=1, q_lora_rank=None, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    topk_method="greedy", n_group=1, topk_group=1, norm_topk_prob=False,
+    routed_scaling_factor=1.0, scoring_func="softmax",
+    max_position_embeddings=163840, rope_theta=10000.0,
+    rope_scaling={"type": "yarn", "factor": 40.0, "beta_fast": 32.0,
+                  "beta_slow": 1.0, "mscale": 0.707, "mscale_all_dim": 0.707,
+                  "original_max_position_embeddings": 4096},
+    rms_norm_eps=1e-6, attention_bias=False, tie_word_embeddings=False,
+    bos_token_id=100000, eos_token_id=100001)
+
+# The DeepSeek-style MoE families and the last attention-only dense ones
+# at a published model's width, as FAMILIES: (config class, its fields, the
+# layers a run keeps, the source). ``moe_family_config`` cuts the
+# per-layer lists and ERNIE's last MoE layer with the depth.
+MOE_FAMILIES = {
+    # https://huggingface.co/zai-org/GLM-4.5-Air config.json
+    "glm4_moe": ("Glm4MoeConfig", dict(
+        vocab_size=151552, hidden_size=4096, intermediate_size=10944,
+        moe_intermediate_size=1408, num_hidden_layers=46,
+        num_attention_heads=96, num_key_value_heads=8, head_dim=128,
+        n_routed_experts=128, num_experts_per_tok=8, n_shared_experts=1,
+        first_k_dense_replace=1, n_group=1, topk_group=1,
+        norm_topk_prob=True, routed_scaling_factor=1.0,
+        partial_rotary_factor=0.5, attention_bias=True, use_qk_norm=False,
+        max_position_embeddings=131072, rope_theta=1000000.0,
+        rms_norm_eps=1e-5, tie_word_embeddings=False, pad_token_id=151329,
+        eos_token_id=151329), 2, "GLM-4.5-Air"),
+    # https://huggingface.co/baidu/ERNIE-4.5-21B-A3B-PT config.json
+    "ernie4_5_moe": ("Ernie4_5_MoeConfig", dict(
+        vocab_size=103424, hidden_size=2560, intermediate_size=12288,
+        moe_intermediate_size=1536, num_hidden_layers=28,
+        num_attention_heads=20, num_key_value_heads=4, head_dim=128,
+        moe_num_experts=64, moe_k=6, moe_num_shared_experts=2,
+        moe_layer_start_index=1, moe_layer_end_index=27,
+        moe_layer_interval=1, moe_norm_min=1e-12, use_bias=False,
+        max_position_embeddings=131072, rope_theta=500000.0,
+        rms_norm_eps=1e-5, tie_word_embeddings=True, pad_token_id=0,
+        bos_token_id=1, eos_token_id=2), 2, "ERNIE-4.5-21B-A3B"),
+    # https://huggingface.co/tencent/Hunyuan-A13B-Instruct config.json
+    "hunyuan_v1_moe": ("HunYuanMoEV1Config", dict(
+        vocab_size=128167, hidden_size=4096, intermediate_size=3072,
+        moe_intermediate_size=[3072] * 32, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+        num_experts=64, moe_topk=[8] * 32, num_shared_expert=[1] * 32,
+        use_qk_norm=True, max_position_embeddings=32768,
+        rope_theta=10000.0, rope_scaling={"type": "dynamic",
+                                          "alpha": 1000.0, "factor": 1.0},
+        rms_norm_eps=1e-5, tie_word_embeddings=True, pad_token_id=127961,
+        bos_token_id=1, eos_token_id=127960), 2, "Hunyuan-A13B"),
+    # https://huggingface.co/ibm-granite/granite-3.1-3b-a800m-instruct
+    # config.json (head dim 64)
+    "granitemoe": ("GraniteMoeConfig", dict(
+        vocab_size=49155, hidden_size=1536, intermediate_size=512,
+        num_hidden_layers=32, num_attention_heads=24, num_key_value_heads=8,
+        num_local_experts=40, num_experts_per_tok=8,
+        embedding_multiplier=12.0, attention_multiplier=0.015625,
+        residual_multiplier=0.22, logits_scaling=6.0,
+        max_position_embeddings=131072, rope_theta=10000000.0,
+        rms_norm_eps=1e-6, tie_word_embeddings=True, pad_token_id=0,
+        bos_token_id=0, eos_token_id=0), 2, "Granite-3.1-3B-A800M"),
+    # https://huggingface.co/deepseek-ai/DeepSeek-V3 config.json, cut to
+    # one dense layer before one MoE layer (first_k_dense_replace 1)
+    "deepseek_v3": ("DeepseekV3Config", dict(
+        vocab_size=129280, hidden_size=7168, intermediate_size=18432,
+        moe_intermediate_size=2048, num_hidden_layers=61,
+        num_attention_heads=128, num_key_value_heads=128, q_lora_rank=1536,
+        kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, n_routed_experts=256, num_experts_per_tok=8,
+        n_shared_experts=1, first_k_dense_replace=3, n_group=8,
+        topk_group=4, norm_topk_prob=True, routed_scaling_factor=2.5,
+        topk_method="noaux_tc", max_position_embeddings=163840,
+        rope_theta=10000.0,
+        rope_scaling={"type": "yarn", "factor": 40.0, "beta_fast": 32.0,
+                      "beta_slow": 1.0, "mscale": 1.0, "mscale_all_dim": 1.0,
+                      "original_max_position_embeddings": 4096},
+        rms_norm_eps=1e-6, tie_word_embeddings=False, bos_token_id=0,
+        eos_token_id=1), 2, "DeepSeek-V3"),
+    # https://huggingface.co/tencent/Hunyuan-7B-Instruct config.json
+    "hunyuan_v1_dense": ("HunYuanDenseV1Config", dict(
+        vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        head_dim=128, use_qk_norm=True, max_position_embeddings=32768,
+        rope_theta=10000.0, rope_scaling={"type": "dynamic",
+                                          "alpha": 1000.0, "factor": 1.0},
+        rms_norm_eps=1e-5, tie_word_embeddings=True, pad_token_id=127961,
+        bos_token_id=1, eos_token_id=127960), 2, "Hunyuan-7B"),
+    # https://huggingface.co/ByteDance-Seed/Seed-OSS-36B-Instruct
+    # config.json
+    "seed_oss": ("SeedOssConfig", dict(
+        vocab_size=155136, hidden_size=5120, intermediate_size=27648,
+        num_hidden_layers=64, num_attention_heads=80, num_key_value_heads=8,
+        head_dim=128, attention_bias=True, attention_out_bias=False,
+        mlp_bias=False, max_position_embeddings=524288,
+        rope_theta=10000000.0, rms_norm_eps=1e-6, tie_word_embeddings=False,
+        pad_token_id=1, bos_token_id=0, eos_token_id=2), 2,
+        "Seed-OSS-36B"),
+    # https://huggingface.co/baidu/ERNIE-4.5-0.3B-PT config.json
+    "ernie4_5": ("Ernie4_5Config", dict(
+        vocab_size=103424, hidden_size=1024, intermediate_size=3072,
+        num_hidden_layers=18, num_attention_heads=16, num_key_value_heads=2,
+        head_dim=128, use_bias=False, max_position_embeddings=131072,
+        rope_theta=500000.0, rms_norm_eps=1e-5, tie_word_embeddings=True,
+        pad_token_id=0, bos_token_id=1, eos_token_id=2), 2,
+        "ERNIE-4.5-0.3B"),
+    # https://huggingface.co/swiss-ai/Apertus-8B-2509 config.json
+    "apertus": ("ApertusConfig", dict(
+        vocab_size=131072, hidden_size=4096, intermediate_size=21504,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=65536, rope_theta=12000000.0,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                      "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                      "original_max_position_embeddings": 8192},
+        rms_norm_eps=1e-5, attention_bias=False, tie_word_embeddings=False,
+        pad_token_id=3, bos_token_id=1, eos_token_id=68), 2,
+        "Apertus-8B"),
+}
+
+
+def _config(cls_name: str, model_type: str, fields: dict):
+    """``transformers``' config class ``cls_name`` of ``fields``, or, where
+    the installed version lacks it, a ``PretrainedConfig`` carrying the
+    same fields and ``model_type`` (the port reads attributes only)."""
+    import transformers
+    cls = getattr(transformers, cls_name, None)
+    if cls is not None:
+        return cls(**fields)
+    cfg = transformers.PretrainedConfig(**fields)
+    cfg.model_type = model_type
+    return cfg
+
+
+def deepseek_v2_lite_config(layers: Optional[int] = None):
+    """DeepSeek-V2-Lite's published config (``DEEPSEEK_V2_LITE``) at
+    ``layers`` layers (default all 27)."""
+    fields = dict(DEEPSEEK_V2_LITE)
+    if layers:
+        fields["num_hidden_layers"] = layers
+    return _config("DeepseekV2Config", "deepseek_v2", fields)
+
+
+def moe_family_config(name: str, layers: Optional[int] = None):
+    """The config of ``MOE_FAMILIES[name]`` at ``layers`` layers (default
+    the table's): per-layer lists cut to that depth, DeepSeek-V3's dense
+    layers cut to one and ERNIE's MoE layers ending at the last layer."""
+    cls, fields, run_layers, _ = MOE_FAMILIES[name]
+    L = layers or run_layers
+    fields = dict(fields, num_hidden_layers=L)
+    for key in ("moe_intermediate_size", "moe_topk", "num_shared_expert"):
+        if isinstance(fields.get(key), list):
+            fields[key] = fields[key][:L]
+    if name == "deepseek_v3":
+        fields["first_k_dense_replace"] = 1
+    if name == "ernie4_5_moe":
+        fields["moe_layer_end_index"] = L - 1
+    return _config(cls, name, fields)
+
+
 def gpt_oss_20b_config(layers: Optional[int] = None):
     """gpt-oss-20b's published config (``GPT_OSS_20B``) at ``layers``
     layers (default all 24)."""
@@ -454,7 +631,8 @@ def family_workload(name: str):
     """(config, LLM keyword arguments, prompts, SamplingParams) of
     ``--family``: 16 requests of 256 seeded tokens -> 32."""
     from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
-    cfg = family_config(name)
+    cfg = moe_family_config(name) if name in MOE_FAMILIES \
+        else family_config(name)
     gen = torch.Generator().manual_seed(0)
     prompts = torch.randint(3, cfg.vocab_size - 1, (16, 256),
                             generator=gen).tolist()
@@ -554,6 +732,14 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
                       kv_cache_config=KvCacheConfig(enable_block_reuse=False))
         return (gpt_oss_20b_config(), kwargs, prompts,
                 SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
+    if geometry == "deepseek-v2-lite":
+        prompts = torch.randint(0, DEEPSEEK_V2_LITE["vocab_size"], (64, 512),
+                                generator=gen).tolist()
+        kwargs = dict(max_batch_size=64, max_input_len=512, max_seq_len=640,
+                      max_num_tokens=8192,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (deepseek_v2_lite_config(), kwargs, prompts,
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
     if geometry == "qwen3-30b-a3b":
         prompts = torch.randint(0, QWEN3_30B_A3B["vocab_size"], (64, 128),
                                 generator=gen).tolist()
@@ -576,9 +762,11 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
             SamplingParams(max_tokens=osl, top_k=1, ignore_eos=True))
 
 
-def _class(name: str, moe: bool = False) -> str:
+def _class(name: str, moe: bool = False, mla: bool = False) -> str:
     """The GPU-time class of kernel ``name``. The MoE classes are kept for
-    a MoE model (``moe``): elsewhere a sort or top-k is the sampler's."""
+    a MoE model (``moe``): elsewhere a sort or top-k is the sampler's.
+    With MLA (``mla``, models/deepseek.py) the float32 products are its
+    einsums (the float32 router products are bf16 inputs)."""
     if any(k in name for k in _DECODE):
         return "decode_attention"
     if any(k in name for k in _PREFILL):
@@ -592,6 +780,8 @@ def _class(name: str, moe: bool = False) -> str:
         return "moe_grouped_gemm"
     if moe and ("topk" in low or "sort" in low):
         return "moe_routing_sort"
+    if mla and any(k in low for k in ("sgemm", "f32f32", "simt", "gemv")):
+        return "mla_einsum"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
         return "gemm"
     return "other"
@@ -682,6 +872,34 @@ def host_spec_summary(c: dict) -> dict:
         - c["verify_replays"])
 
 
+def _mla_module(llm):
+    """models/deepseek.py (its MLA path counters) when ``llm`` serves
+    MLA, else None."""
+    if not hasattr(llm.engine.model, "kv_lora_rank"):
+        return None
+    from tensorrt_llm_tpu_torch.models import deepseek
+    return deepseek
+
+
+def mla_graph_calls(eng) -> dict:
+    """MLA layer calls made by CUDA graph replays, by graph kind ("multi"
+    windows without riders, "multi_riders", "step", "verify") and path:
+    {kind: {"replays", "absorbed", "decompressed"}}."""
+    from tensorrt_llm_tpu_torch.models import deepseek
+    out: dict = {}
+    for key, st in eng.graphs.steps.items():
+        kind = key[0] + ("_riders" if key[0] == "multi" and key[3] else "")
+        d = out.setdefault(kind, dict(replays=0, absorbed=0,
+                                      decompressed=0))
+        d["replays"] += st.replays
+        for (mod, counter), n in st.launches.items():
+            if mod == deepseek.__name__:
+                path = "absorbed" if counter == "MLA_ABSORBED" \
+                    else "decompressed"
+                d[path] += n * st.replays
+    return out
+
+
 def _generate(llm, prompts, sp):
     """All requests submitted at once (``sp``: one SamplingParams, or
     one per prompt); (wall seconds, outputs)."""
@@ -715,6 +933,9 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
     qmm.LAUNCHES_E4M3 = 0
     for mod in attn:
         mod.LAUNCHES_SINKS = mod.LAUNCHES_ALIBI = 0
+    mla = _mla_module(llm)
+    if mla is not None:
+        mla.MLA_ABSORBED = mla.MLA_DECOMPRESSED = 0
     try:
         wall, outs = _generate(llm, prompts, sp)
     finally:
@@ -762,6 +983,9 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
         kv_blocks_allocated=blocks)
     res["dead_step_share"] = res["dead_window_steps"] / max(
         1, res["window_steps"])
+    if mla is not None:
+        res["mla_calls"] = dict(absorbed=mla.MLA_ABSORBED,
+                                decompressed=mla.MLA_DECOMPRESSED)
     if spec0 is not None:
         d = {k: spec1[k] - spec0[k] for k in spec0}
         res.update(spec_windows=d["windows"], spec_iters=d["iters"],
@@ -1166,39 +1390,64 @@ def _spec_counts(llm):
                 idle_iters=ex.spec_idle_iters)
 
 
+def profile_sums(prof, moe: bool = False, mla: bool = False):
+    """A finished ``torch.profiler.profile``'s device time by class
+    (``_class``, ms), its kernels by device time (ms, count, name), the
+    device kernels and the host launches (``_HOST_LAUNCH``): the sums of
+    ``key_averages`` taken from the raw events, without the event tree."""
+    per_name: dict = {}
+    host_launches = 0
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        if e.device_type() != cuda:
+            if name.startswith(_HOST_LAUNCH):
+                host_launches += 1
+            continue
+        if getattr(e, "is_user_annotation", lambda: False)():
+            continue
+        us, n = per_name.get(name, (0.0, 0))
+        per_name[name] = (us + e.duration_ns() / 1e3, n + 1)
+    by_class: dict = {}
+    kernels = []
+    device_launches = 0
+    for name, (dev_us, count) in per_name.items():
+        if dev_us <= 0:
+            continue
+        device_launches += count
+        c = _class(name, moe, mla)
+        by_class[c] = by_class.get(c, 0.0) + dev_us / 1e3
+        kernels.append((dev_us / 1e3, count, name[:90]))
+    kernels.sort(reverse=True)
+    return by_class, kernels, device_launches, host_launches
+
+
 def _profiled(llm, prompts, sp, plain_wall: float, run=None) -> dict:
     """A pass under ``torch.profiler`` (``run``: the pass, by default
-    ``_generate`` of ``prompts`` and ``sp``)."""
+    ``_generate`` of ``prompts`` and ``sp``). Its events are summed by
+    name straight from the profiler's raw results: building the
+    profiler's event tree (``key_averages``) takes tens of seconds of
+    host time at a few hundred thousand kernels, and grows with them;
+    ``profile_processing_s`` is what the sums took."""
     from torch.profiler import ProfilerActivity, profile
     eng = llm.engine
     steps0 = eng.decode_steps
     moe = getattr(eng.model, "num_experts", 0) > 0
+    mla = hasattr(eng.model, "kv_lora_rank")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, _ = run() if run is not None else \
             _generate(llm, prompts, sp)
+    t0 = time.perf_counter()
     # a pass's schedule may differ by a step or so between passes
     steps = max(1, eng.decode_steps - steps0)
-    by_class: dict = {}
-    kernels = []
-    device_launches = host_launches = 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            if e.key.startswith(_HOST_LAUNCH):
-                host_launches += e.count
-            continue
-        dev_us = getattr(e, "device_time_total", None)
-        if dev_us is None:
-            dev_us = e.cuda_time_total
-        if dev_us <= 0:
-            continue
-        device_launches += e.count
-        c = _class(e.key, moe)
-        by_class[c] = by_class.get(c, 0.0) + dev_us / 1e3
-        kernels.append((dev_us / 1e3, e.count, e.key[:90]))
-    kernels.sort(reverse=True)
+    by_class, kernels, device_launches, host_launches = \
+        profile_sums(prof, moe, mla)
     busy_ms = sum(by_class.values())
     return dict(
+        profile_processing_s=time.perf_counter() - t0,
         profiled_wall_ms=wall * 1e3, gpu_kernel_ms=busy_ms,
         idle_share=max(0.0, 1.0 - busy_ms / (plain_wall * 1e3)),
         profiled_idle_share=max(0.0, 1.0 - busy_ms / (wall * 1e3)),
@@ -1220,7 +1469,8 @@ def main() -> None:
     ap.add_argument("--geometry", choices=["tinyllama", "qwen3-30b-a3b",
                                            "gemma2-9b", "gemma3-1b",
                                            "llama3-8b", "llama3-8b-copy",
-                                           "llama3-8b-quant", "gpt-oss-20b"],
+                                           "llama3-8b-quant", "gpt-oss-20b",
+                                           "deepseek-v2-lite"],
                     default="tinyllama",
                     help="the model of the default workload")
     ap.add_argument("--layers", type=int, default=None,
@@ -1228,8 +1478,8 @@ def main() -> None:
     ap.add_argument("--inline", action="store_true",
                     help="hand LLM a transformers module built on the card "
                     "(SmoothQuant calibrates on it)")
-    ap.add_argument("--family", choices=sorted({**FAMILIES,
-                                                **GPT_FAMILIES}),
+    ap.add_argument("--family", choices=sorted({**FAMILIES, **GPT_FAMILIES,
+                                                **MOE_FAMILIES}),
                     default=None,
                     help="a Llama-derived or GPT family at a published "
                     "width")
@@ -1285,7 +1535,9 @@ def main() -> None:
                                             args.geometry, args.vswa)
     if args.layers:
         cfg = gpt_oss_20b_config(args.layers) \
-            if args.geometry == "gpt-oss-20b" else cfg
+            if args.geometry == "gpt-oss-20b" else \
+            moe_family_config(args.family, args.layers) \
+            if args.family in MOE_FAMILIES else cfg
         cfg.num_hidden_layers = args.layers
     model = inline_module(cfg) if args.inline else cfg
     if args.spec != "NONE":
@@ -1298,6 +1550,8 @@ def main() -> None:
         res = measure(llm, prompts, sp)
         res["spec_replayed_launches"] = dict(
             llm.engine.graphs.replayed_launches("spec"))
+        if _mla_module(llm) is not None:
+            res["mla_graph_calls"] = mla_graph_calls(llm.engine)
     finally:
         llm.shutdown()
     print(json.dumps(dict(quant_algo=args.quant, kv=args.kv,

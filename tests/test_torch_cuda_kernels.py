@@ -1763,3 +1763,174 @@ def test_gpt_geometry_padding_columns_stay_unwritten(cuda, dtype):
         torch.testing.assert_close(got[:, h].float(), ref[:, h].float(),
                                    **TOLS[dtype])
     torch.testing.assert_close(dgot.float(), ref[40:].float(), **TOLS[dtype])
+
+
+# --------------------------------------------------------------------- #
+# MLA (models/deepseek.py): plain torch on the card, no kernel of its own
+# --------------------------------------------------------------------- #
+def _tiny_deepseek(device, dtype):
+    import transformers
+    from tensorrt_llm_tpu_torch.models import ModelConfig, get_model_class
+    cfg = transformers.DeepseekV3Config(
+        vocab_size=256, hidden_size=128, intermediate_size=256,
+        moe_intermediate_size=64, num_hidden_layers=3,
+        num_attention_heads=4, num_key_value_heads=4, n_routed_experts=8,
+        num_experts_per_tok=2, n_shared_experts=1, q_lora_rank=48,
+        kv_lora_rank=64, qk_rope_head_dim=32, qk_nope_head_dim=64,
+        v_head_dim=64, first_k_dense_replace=1, n_group=2, topk_group=1,
+        max_position_embeddings=512)
+    model = get_model_class("deepseek_v3")(ModelConfig(
+        hf_config=cfg, dtype=dtype, device=device))
+    return model, model.init_params(seed=0)
+
+
+def _mla_md(kv_lens, q_lens, pages_per_seq, ps, device):
+    """Metadata of sequences with ``q_lens`` new tokens ending at
+    ``kv_lens``, each on its own run of pages."""
+    from tensorrt_llm_tpu_torch.ops.attention import AttentionMetadata
+    S = len(kv_lens)
+    pages = torch.arange(S * pages_per_seq, dtype=torch.int32).view(S, -1)
+    pos = torch.cat([torch.arange(k - q, k) for k, q in zip(kv_lens,
+                                                            q_lens)])
+    seq = torch.repeat_interleave(torch.arange(S), torch.tensor(q_lens))
+    slots = pages[seq, pos // ps] * ps + pos % ps
+    cu = torch.zeros(S + 1, dtype=torch.int32)
+    cu[1:] = torch.cumsum(torch.tensor(q_lens), 0)
+    md = AttentionMetadata(
+        kv_lens=torch.tensor(kv_lens, dtype=torch.int32), page_indices=pages,
+        cu_q_lens=cu, num_seqs=torch.tensor([S], dtype=torch.int32),
+        slot_mapping=slots.int(), positions=pos.int(),
+        logits_indices=(cu[1:] - 1).long(), max_q_len=max(q_lens),
+        max_kv_len=max(kv_lens))
+    return AttentionMetadata(**{
+        f: (v.to(device) if isinstance(v, torch.Tensor) else v)
+        for f, v in vars(md).items()})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["absorbed", "decompressed"])
+def test_mla_forward_replays_from_a_graph(cuda, dtype, path):
+    """A decode step of MLA (T == S: absorbed, or with uk / uv stripped:
+    decompressed) captured in a CUDA graph, with no host sync, and
+    replayed: the eager step's logits and latent pool, bit for bit."""
+    from tensorrt_llm_tpu_torch.models import deepseek
+    model, params = _tiny_deepseek(cuda, dtype)
+    if path == "decompressed":
+        params = dict(params, layers=[
+            {k: v for k, v in lay.items() if k not in ("uk", "uv")}
+            for lay in params["layers"]])
+    ps, per = 16, 4
+    pool = model.make_kv_pages(3 * per + 1, ps)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    pool.copy_(torch.randn(pool.shape, generator=g, device=cuda) * 0.5)
+    toks = torch.randint(0, 256, (3,), generator=g, device=cuda)
+    md = _mla_md([40, 17, 63], [1, 1, 1], per, ps, cuda)
+    a0, d0 = deepseek.MLA_ABSORBED, deepseek.MLA_DECOMPRESSED
+    eager_pool = pool.clone()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want, _ = model.forward(params, toks, eager_pool, md)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    took = (deepseek.MLA_ABSORBED - a0, deepseek.MLA_DECOMPRESSED - d0)
+    assert took == ((3, 0) if path == "absorbed" else (0, 3))
+    graph_pool = pool.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        model.forward(params, toks, graph_pool.clone(), md)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = model.forward(params, toks, graph_pool, md)
+    graph_pool.copy_(pool)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(graph_pool, eager_pool)
+
+
+def test_deepseek_pool_is_sized_by_its_own_shape(cuda):
+    """The engine's pool on the card is one latent row (kv_lora_rank +
+    qk_rope_head_dim) a token and layer, and its page bytes, by which the
+    pool is sized from free memory, are that row's."""
+    from tensorrt_llm_tpu_torch import LLM
+    model, _ = _tiny_deepseek("cpu", torch.float32)
+    llm = LLM(model.hf, device="cuda", dtype="bfloat16",
+              skip_tokenizer_init=True, max_batch_size=4, max_input_len=64,
+              max_seq_len=128, enable_warmup=False)
+    try:
+        e = llm.engine
+        assert tuple(e.kv_pages.shape[2:]) == (e.page_size, 96)
+        assert e.bytes_per_kv_block == 3 * e.page_size * 96 * 2
+        assert e.kv_pages.numel() * 2 == e.num_kv_pages * \
+            e.bytes_per_kv_block
+        from tensorrt_llm_tpu_torch import SamplingParams
+        out = llm.generate([5, 6, 7, 8], SamplingParams(max_tokens=4,
+                                                        top_k=1))
+        assert len(out.outputs[0].token_ids) == 4
+    finally:
+        llm.shutdown()
+
+
+def test_mla_decompressed_chunks_match_one_chunk(cuda, monkeypatch):
+    """The decompressed MLA step in chunks of 8 positions and tiles of 8
+    tokens, merged by its online softmax, gives one chunk's logits and
+    latent pool on the card (float32, within 1e-5)."""
+    from tensorrt_llm_tpu_torch.models import deepseek
+    model, params = _tiny_deepseek(cuda, torch.float32)
+    ps, per = 16, 8
+    pool = model.make_kv_pages(3 * per + 1, ps)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    pool.copy_(torch.randn(pool.shape, generator=g, device=cuda) * 0.5)
+    toks = torch.randint(0, 256, (70,), generator=g, device=cuda)
+    md = _mla_md([100, 60, 120], [30, 20, 20], per, ps, cuda)
+    outs = []
+    for small in (False, True):
+        if small:
+            width = model.num_heads * (model.qk_nope + model.v_dim)
+            monkeypatch.setattr(deepseek, "MLA_CHUNK_BYTES",
+                                3 * width * 6 * 8)
+            monkeypatch.setattr(deepseek, "MLA_TILE", 8)
+        p = pool.clone()
+        logits, _ = model.forward(params, toks, p, md)
+        outs.append((logits, p))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=0, atol=1e-5)
+
+
+def test_profile_sums_match_key_averages(cuda):
+    """``serving_profile.profile_sums`` (the profiler's raw events summed
+    by name) gives ``key_averages``' device time by class, device kernels
+    and host launches for a short greedy run on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    llm = LLM("tests/assets/tinycode-llama", device="cuda", dtype="bfloat16",
+              skip_tokenizer_init=True, max_batch_size=4, max_input_len=64,
+              max_seq_len=128)
+    try:
+        sp = SamplingParams(max_tokens=16, top_k=1, ignore_eos=True)
+        llm.generate([[5, 9, 23, 44], [7] * 30], sp)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            llm.generate([[5, 9, 23, 44], [7] * 30], sp)
+    finally:
+        llm.shutdown()
+    by_class, _, device, host = sprof.profile_sums(prof)
+    want: dict = {}
+    want_device = want_host = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.key.startswith(sprof._HOST_LAUNCH):
+                want_host += e.count
+            continue
+        if e.device_time_total <= 0:
+            continue
+        want_device += e.count
+        c = sprof._class(e.key)
+        want[c] = want.get(c, 0.0) + e.device_time_total / 1e3
+    assert (device, host) == (want_device, want_host)
+    assert by_class.keys() == want.keys()
+    for c in want:
+        assert abs(by_class[c] - want[c]) <= 1e-6 * want[c] + 1e-9, c
