@@ -356,6 +356,36 @@ the run on error:
      256 -> 32 through graphs: K1 / K2 launched (MLA's paths for
      DeepSeek-V3), windows replayed, every logprob finite.
 
+ 37. recurrent_kernels: K1 and K2 at bamba_serving's shapes
+     (``decode_bamba``: 64 rows at 513-640 KV, ``prefill_bamba``: 16
+     fresh 512-token prompts; 32 x 128 q heads over 8), each against its
+     plain version, its bound and one SDPA call;
+ 38. recurrent_parity: a tiny float32 checkpoint of each recurrent
+     family (Mamba, FalconMamba, Mamba2, Bamba, Granite-4.0-H, Zamba2,
+     Jamba, LFM2, Qwen3-Next, MiniMax), 7 queued requests on 4 rows (the
+     later ones in recycled slots), K = 4 windows: greedy tokens
+     identical card against CPU and graphs against eager, K1 and K2
+     launched for the hybrids; and Bamba-9B's widths at 2 layers (one
+     Mamba2, one attention; float32): the card's first 8 tokens of 4
+     streams against the CPU's, partings only at near-ties;
+ 39. bamba_serving: Bamba-9B at its published width and depth (32
+     layers, attention at 9, 18 and 27, seeded random bf16, ~9.8 B
+     parameters), 64 x 512 -> 128, K = 8 windows, graphs
+     (``serving_profile --geometry bamba-9b``): tok/s, TTFT, TPOT, idle
+     share, GPU time by class, weights, state-pool and peak bytes, K1 /
+     K2 launches, each eager prefill step's device ms, and one Mamba2
+     layer's SSD scan, conv and mixer timed alone at a prefill step's
+     and a decode step's shapes with the chunked SSD's peak memory
+     beside the per-token states of the plain form, and the chunked SSD
+     against the plain one at the model's widths (1e-3);
+ 40. recurrent_families: each recurrent family at a published model's
+     width (``serving_profile.RECURRENT_FAMILIES``, cut in depth so that
+     each kind of layer runs), 16 x 256 -> 32 through graphs: K1 / K2
+     launched for the hybrids, windows replayed, every logprob finite;
+     then Qwen3-Next's delta rule timed alone at its widths (a prefill
+     step's loop over 256 positions, a decode step's one iteration) and
+     its loop held against its plain form (1e-4).
+
 ``python3 chip_smoke.py --only a,b`` runs just the named phases (a
 development run: no kernels line, no result line).
 
@@ -366,7 +396,8 @@ moe_serving's, gemma_serving's, kv_serving's, host_spec_serving's
 DRAFT_TARGET (as the target's and the drafter's), surface_serving's,
 guided_serving's, gptoss_serving's (and those with sinks) and
 deepseek_serving's timed passes (none: MLA calls no kernel), gpt_families'
-summed and moe_families' by family; the dequant-matmul kernel's row also its
+summed, moe_families' by family, bamba_serving's timed pass and
+recurrent_families' by family; the dequant-matmul kernel's row also its
 e4m3 cases and its e4m3 launches in quant_serving's runs) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -4475,6 +4506,575 @@ def moe_families_phase() -> dict:
     return res
 
 
+# tiny float32 checkpoints of the recurrent families for recurrent_parity:
+# the transformers config class and its fields (vocab 512, attention at
+# head dim 64 where the family has attention, SSD chunks of 16 tokens so
+# that the prompts cross chunks)
+RECURRENT_TINY = {
+    "mamba": ("Mamba", dict(hidden_size=256, num_hidden_layers=2,
+                            state_size=16, conv_kernel=4, expand=2,
+                            time_step_rank=16)),
+    "falcon_mamba": ("FalconMamba", dict(
+        hidden_size=256, num_hidden_layers=2, state_size=16, conv_kernel=4,
+        expand=2, time_step_rank=16)),
+    "mamba2": ("Mamba2", dict(
+        hidden_size=256, num_hidden_layers=2, state_size=32, conv_kernel=4,
+        expand=2, num_heads=8, head_dim=64, n_groups=2, chunk_size=16)),
+    "bamba": ("Bamba", dict(
+        hidden_size=256, intermediate_size=512, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2,
+        attn_layer_indices=[1, 3], mamba_n_heads=8, mamba_d_head=64,
+        mamba_d_state=32, mamba_n_groups=2, mamba_expand=2, mamba_d_conv=4,
+        mamba_chunk_size=16)),
+    "granitemoehybrid": ("GraniteMoeHybrid", dict(
+        hidden_size=256, intermediate_size=128, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, num_local_experts=4,
+        num_experts_per_tok=2,
+        layer_types=["mamba", "attention", "mamba", "attention"],
+        mamba_n_heads=8, mamba_d_head=64, mamba_d_state=32,
+        mamba_n_groups=2, mamba_expand=2, mamba_d_conv=4,
+        mamba_chunk_size=16, shared_intermediate_size=256,
+        embedding_multiplier=2.0, residual_multiplier=0.5,
+        attention_multiplier=0.125, logits_scaling=3.0)),
+    "zamba2": ("Zamba2", dict(
+        hidden_size=128, intermediate_size=256, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=4, mamba_d_state=32,
+        mamba_ngroups=1, mamba_expand=2, mamba_d_conv=4, n_mamba_heads=4,
+        chunk_size=16,
+        layers_block_type=["mamba", "hybrid", "mamba", "hybrid"],
+        num_mem_blocks=2, use_mem_rope=True,
+        use_shared_attention_adapter=True, adapter_rank=8)),
+    "jamba": ("Jamba", dict(
+        hidden_size=256, intermediate_size=256, num_hidden_layers=8,
+        num_attention_heads=4, num_key_value_heads=2, num_experts=4,
+        num_experts_per_tok=2, mamba_d_state=16, mamba_d_conv=4,
+        mamba_expand=2, mamba_dt_rank=16, use_mamba_kernels=False)),
+    "lfm2": ("Lfm2", dict(
+        hidden_size=256, intermediate_size=512, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, conv_L_cache=3,
+        layer_types=["conv", "full_attention", "conv", "full_attention"])),
+    "qwen3_next": ("Qwen3Next", dict(
+        hidden_size=256, intermediate_size=256, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+        linear_num_value_heads=4, linear_num_key_heads=2,
+        linear_key_head_dim=32, linear_value_head_dim=32,
+        linear_conv_kernel_dim=4, num_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=64, shared_expert_intermediate_size=64,
+        decoder_sparse_step=1)),
+    "minimax": ("MiniMax", dict(
+        hidden_size=256, intermediate_size=256, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+        num_local_experts=4, num_experts_per_tok=2, block_size=16,
+        layer_types=["linear_attention", "full_attention"] * 2)),
+}
+HYBRIDS = ("bamba", "granitemoehybrid", "zamba2", "jamba", "lfm2",
+           "qwen3_next", "minimax")
+
+
+def _save_tiny_recurrent(path: Path, name: str) -> None:
+    """A tiny seeded float32 ``transformers`` model of recurrent family
+    ``name`` (``RECURRENT_TINY``), its norms and biases redrawn, saved to
+    ``path`` (the release layout's names)."""
+    import torch
+    import transformers
+    stem, fields = RECURRENT_TINY[name]
+    cfg = getattr(transformers, stem + "Config")(
+        vocab_size=512, max_position_embeddings=512,
+        tie_word_embeddings=False, **fields)
+    torch.manual_seed(41)
+    model = getattr(transformers, stem + "ForCausalLM")(cfg).float()
+    gen = torch.Generator().manual_seed(42)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".bias") and "conv1d" not in n:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+            elif "norm" in n and p.dim() == 1:
+                p.copy_(p + torch.randn(p.shape, generator=gen) * 0.1)
+            elif n.endswith("gate.weight") or "router" in n:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    model.save_pretrained(path)
+
+
+def _bamba_module(kinds, dtype):
+    """A ``transformers`` Bamba of Bamba-9B's widths with the layers
+    ``kinds`` and seeded random weights (``RandomCheckpoint``, drawn on
+    the card), its tensors on the host: both devices' ``LLM`` read the
+    same numbers from it."""
+    import torch
+    import transformers
+    from tensorrt_llm_tpu_torch.models.recurrent import (RandomCheckpoint,
+                                                         meta_shapes)
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg = sprof.bamba_9b_config(kinds=kinds)
+    shapes = meta_shapes(transformers.BambaForCausalLM, cfg)
+    ckpt = RandomCheckpoint(shapes, "cuda", dtype, seed=5)
+    with torch.device("meta"):
+        model = transformers.BambaForCausalLM(cfg)
+    model.load_state_dict({k: ckpt[k].cpu() for k in shapes}, assign=True)
+    return model.eval()
+
+
+def recurrent_parity_phase() -> dict:
+    """Each recurrent family's tiny float32 checkpoint
+    (``_save_tiny_recurrent``) through ``LLM.generate``, the card against
+    the port's CPU path: every request queued before admission, 4 rows for
+    7 requests of differing lengths (later ones take recycled slots), K =
+    4 windows: greedy tokens identical card against CPU and graph replays
+    against the card run eagerly, and K1 and K2 launched on the card for
+    the hybrids. Then Bamba-9B's widths at 2 layers (one Mamba2, one
+    attention; seeded random float32 weights, ``_bamba_module``): 4
+    prompts of 96 tokens -> 8 greedy tokens, the card against the CPU,
+    identical wherever the CPU decides by more than 3e-2 in
+    log-probability. Fails otherwise."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    rng = np.random.default_rng(43)
+    lens = (40, 9, 57, 23, 70, 31, 12)
+    prompts = [rng.integers(3, 509, n).tolist() for n in lens]
+    sps = [SamplingParams(max_tokens=n, top_k=1, ignore_eos=True)
+           for n in (24, 6, 30, 12, 20, 16, 8)]
+    kw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+              max_input_len=96, max_seq_len=160, max_num_tokens=256,
+              decode_multi_step=4,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    res, failures = {}, []
+
+    def run(path, device, capture=None):
+        llm = LLM(str(path), device=device,
+                  enable_warmup=capture is not False, **kw)
+        if capture is not None:
+            llm.engine.graphs.capture = capture
+        if device == "cuda":
+            _zero_launches()
+        try:
+            toks = _queued_generate(llm, prompts, sps)
+            stats = {}
+            if device == "cuda":
+                stats = dict(launches=_read_launches(),
+                             graph_replays=llm.engine.graphs.replays)
+        finally:
+            llm.shutdown()
+        return toks, stats
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in RECURRENT_TINY:
+            path = Path(tmp) / name
+            path.mkdir()
+            _save_tiny_recurrent(path, name)
+            try:
+                cpu, _ = run(path, "cpu")
+                card, st = run(path, "cuda")
+                eager, _ = run(path, "cuda", capture=False)
+            except Exception as e:        # the next family still runs
+                failures.append(f"recurrent_parity {name}: {e!r}")
+                emit({"phase": "recurrent_parity", "family": name,
+                      "error": repr(e)})
+                continue
+            r = dict(family=name, identical=card == cpu,
+                     graph_equals_eager=eager == card, **st)
+            emit({"phase": "recurrent_parity", **r})
+            if card != cpu or eager != card:
+                failures.append(f"recurrent_parity {name}: card {card} / "
+                                f"eager {eager} != cpu {cpu}")
+            if [len(t) for t in card] != [sp.max_tokens for sp in sps]:
+                failures.append(f"recurrent_parity {name}: short outputs")
+            if not st["graph_replays"]:
+                failures.append(f"recurrent_parity {name}: no replay")
+            if name in HYBRIDS and min(
+                    st["launches"][k] for k in ("paged_decode_attention",
+                                                "ragged_prefill_attention")
+                    ) <= 0:
+                failures.append(f"recurrent_parity {name}: K1 or K2 never "
+                                f"launched: {st['launches']}")
+            res[name] = r
+    # Bamba-9B's widths at 2 layers, float32
+    model = _bamba_module(["mamba", "attention"], torch.float32)
+    gen = torch.Generator().manual_seed(44)
+    bp = torch.randint(3, 128000, (4, 96), generator=gen).tolist()
+    bkw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+               max_input_len=96, max_seq_len=128, max_num_tokens=512,
+               kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+    streams = {}
+    for device in ("cpu", "cuda"):
+        llm = LLM(model, device=device, enable_warmup=device == "cuda",
+                  **bkw)
+        try:
+            outs = llm.generate(bp, SamplingParams(
+                max_tokens=8, top_k=1, ignore_eos=True, logprobs=2))
+        finally:
+            llm.shutdown()
+        streams[device] = ([o.outputs[0].token_ids for o in outs],
+                           [o.outputs[0].logprobs for o in outs])
+    del model
+    cmp = _compare_streams(streams["cpu"], streams["cuda"])
+    r = dict(family="bamba-9b-2-layers", identical=streams["cpu"][0] ==
+             streams["cuda"][0], cpu=streams["cpu"][0],
+             card=streams["cuda"][0], **cmp)
+    emit({"phase": "recurrent_parity", **r})
+    if cmp["unexplained_partings"]:
+        failures.append(f"recurrent_parity bamba-9b: {r}")
+    res["bamba_9b_2_layers"] = r
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def recurrent_kernel_phase(results: dict) -> None:
+    """K1 and K2 at the shapes bamba_serving launches them with (32 x 128
+    q heads over 8 KV heads): 64 decode rows at 513-640 KV and one prefill
+    step of 16 fresh 512-token prompts, each held against its plain
+    version (``_attention_case``: bf16 2e-2), timed beside it, its bound
+    and one SDPA call."""
+    import torch
+    rows = [513 + (127 * i) // 63 for i in range(64)]
+    for name, kind, (q_lens, ctx) in [
+            ("decode_bamba", "decode", ([1] * 64, [k - 1 for k in rows])),
+            ("prefill_bamba", "prefill", ([512] * 16, [0] * 16))]:
+        results[name] = _attention_case(
+            name, kind, q_lens, ctx, 32, 8, None, None, torch.bfloat16,
+            seed=90 + len(results), pages_per_seq=PAGES_GPTOSS, hd=128,
+            q_scale=1.0)
+
+
+def _ragged_md(lens, starts):
+    """``AttentionMetadata`` on the card of one ragged step of the scans:
+    row i holds ``lens[i]`` tokens from position ``starts[i]`` in slot
+    i."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops.attention import AttentionMetadata
+    i32 = dict(dtype=torch.int32, device="cuda")
+    S = len(lens)
+    cu = torch.zeros(S + 1, **i32)
+    cu[1:] = torch.cumsum(torch.tensor(lens, **i32), 0)
+    pos = torch.cat([torch.arange(s, s + n, **i32)
+                     for s, n in zip(starts, lens)])
+    return AttentionMetadata(
+        kv_lens=torch.tensor([s + n for s, n in zip(starts, lens)], **i32),
+        page_indices=torch.zeros(S, 1, **i32), cu_q_lens=cu,
+        num_seqs=torch.tensor([S], **i32),
+        slot_mapping=torch.zeros(len(pos), **i32), positions=pos,
+        logits_indices=cu[1:].long() - 1, max_q_len=max(lens),
+        seq_slots=torch.arange(S, **i32))
+
+
+def _delta_rule_cost() -> dict:
+    """Qwen3-Next-80B-A3B's gated delta rule (``RECURRENT_FAMILIES``'
+    widths: 32 value heads, keys and values of 128, float32 states)
+    timed alone with CUDA events (median of 10): a prefill step's 16
+    fresh prompts of 256 tokens (the loop over positions, 256 iterations
+    of all rows at once) and a decode step's 64 continuing rows (one
+    iteration); and the loop against the plain form (one token at a time
+    over the flat axis) on 4 prompts of 16 tokens, float32, 1e-4."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import ssm
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    f = sprof.RECURRENT_FAMILIES["qwen3_next"][1]
+    vh, dk, dv = (f["linear_num_value_heads"], f["linear_key_head_dim"],
+                  f["linear_value_head_dim"])
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def inputs(T, S):
+        r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+        q, k = r(T, vh, dk), r(T, vh, dk)
+        q = q / q.norm(dim=-1, keepdim=True) / dk ** 0.5
+        k = k / k.norm(dim=-1, keepdim=True)
+        return (q, k, r(T, vh, dv), -r(T, vh).abs() * 0.1,
+                torch.sigmoid(r(T, vh)),
+                r(S + 1, vh, dk, dv) * 0.1)
+
+    out = {}
+    for shape, lens, starts in (("prefill_16x256", [256] * 16, [0] * 16),
+                                ("decode_64", [1] * 64, [300] * 64)):
+        meta = _ragged_md(lens, starts)
+        q, k, v, g, b, state = inputs(sum(lens), len(lens))
+        ms = time_ms(lambda: ssm.gated_delta_scan(q, k, v, g, b, state,
+                                                  meta), 10)
+        out[shape] = dict(tokens=sum(lens), rows=len(lens),
+                          iterations=max(lens), ms=ms,
+                          ms_per_iteration=ms / max(lens))
+    meta = _ragged_md([16] * 4, [0] * 4)
+    q, k, v, g, b, state = inputs(64, 4)
+    ys = []
+    for form in ("plain", "bounded"):
+        st = state.clone()
+        ys.append((ssm.gated_delta_scan(q, k, v, g, b, st, meta, form=form),
+                   st[:4]))
+    err = max((ys[0][0] - ys[1][0]).abs().max().item(),
+              (ys[0][1] - ys[1][1]).abs().max().item())
+    out["loop_vs_plain_max_abs_err"] = err
+    if not err <= 1e-4:
+        raise AssertionError(f"recurrent_families: the delta rule's loop "
+                             f"parts from its plain form by {err}")
+    return out
+
+
+def _ssm_components(eng) -> dict:
+    """One Mamba2 layer of the served Bamba-9B (its first, on seeded
+    inputs of the model's type) timed alone with CUDA events (median of
+    10): the SSD scan, the conv and the whole mixer at a prefill step's
+    shape (16 fresh prompts of 512 tokens, the bounded form) and at a
+    decode step's (64 continuing rows, the one-step update), with the
+    bounded form's peak memory beside the bytes the per-token states of
+    the plain form would take; and the bounded form against the plain one
+    on 4 prompts of 64 tokens (float32, 1e-3)."""
+    import torch
+    from tensorrt_llm_tpu_torch.models.mamba2 import mamba2_mixer
+    from tensorrt_llm_tpu_torch.ops import ssm
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    m = eng.model
+    g = m.geom
+    i0 = m.block_types.index("mamba")
+    layer = eng.params["layers"][i0]
+    dev, dt = "cuda", m.dtype
+    gen = torch.Generator(device=dev).manual_seed(7)
+    md = _ragged_md
+
+    def pools(S):
+        shapes = g.state_shapes(1)
+        return {k: torch.randn((S + 1,) + shape, generator=gen,
+                               device=dev) * 0.1
+                for k, (_, shape) in shapes.items()}
+
+    def inputs(T):
+        r = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+        return dict(x=r(T, g.num_heads, g.head_dim).to(dt),
+                    dt=torch.rand(T, g.num_heads, generator=gen,
+                                  device=dev) * 0.1 + 0.01,
+                    B=r(T, g.n_groups, g.state_size).to(dt),
+                    C=r(T, g.n_groups, g.state_size).to(dt),
+                    xbc=r(T, g.conv_dim).to(dt), h=r(T, m.hidden_size).to(dt))
+
+    A = -torch.exp(layer["A_log"].float())
+    out = {}
+    for shape, lens, starts in (("prefill_16x512", [512] * 16, [0] * 16),
+                                ("decode_64", [1] * 64, [600] * 64)):
+        meta = md(lens, starts)
+        S, T = len(lens), sum(lens)
+        st = pools(S)
+        a = inputs(T)
+        scan = lambda: ssm.ssd_scan(a["x"], a["dt"], A, a["B"], a["C"],
+                                    layer["D"], st["ssm_state"], meta,
+                                    chunk=g.chunk)
+        conv = lambda: ssm.causal_conv1d(a["xbc"], layer["conv_w"],
+                                         layer["conv_b"], st["conv_state"],
+                                         meta)
+        mixer = lambda: mamba2_mixer(layer, a["h"], st["conv_state"],
+                                     st["ssm_state"], meta, g,
+                                     m._method("mlp"), dt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        scan()
+        torch.cuda.synchronize()
+        out[shape] = dict(
+            tokens=T, rows=S, form="bounded" if max(lens) > 1 else "step",
+            ssd_ms=time_ms(scan, 10), conv_ms=time_ms(conv, 10),
+            mixer_ms=time_ms(mixer, 10),
+            ssd_peak_bytes=torch.cuda.max_memory_allocated() - base,
+            plain_form_state_bytes=3 * T * 4 * g.num_heads * g.head_dim
+            * g.state_size)
+    # the bounded form against the plain one at the model's widths
+    meta = md([64] * 4, [0] * 4)
+    a = inputs(256)
+    ys = []
+    for form in ("plain", "bounded"):
+        st = pools(4)
+        st["ssm_state"].zero_()
+        ys.append((ssm.ssd_scan(a["x"].float(), a["dt"], A, a["B"].float(),
+                                a["C"].float(), layer["D"], st["ssm_state"],
+                                meta, form=form, chunk=g.chunk).float(),
+                   st["ssm_state"][:4].clone()))
+    err = max((ys[0][0] - ys[1][0]).abs().max().item(),
+              (ys[0][1] - ys[1][1]).abs().max().item())
+    out["bounded_vs_plain_max_abs_err"] = err
+    if not err <= 1e-3:
+        raise AssertionError(f"bamba_serving: the chunked SSD parts from "
+                             f"the plain form by {err}")
+    return out
+
+
+def _eager_step_ms(llm, prompts, sp) -> list:
+    """One more pass of the workload, each eager step (a step with
+    prompt tokens) timed on the device by CUDA events around its launch:
+    [(rows, tokens, ms)]."""
+    import torch
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    eng = llm.engine
+    real = eng.forward_step
+    marks = []
+
+    def spy(batch, *a, **kw):
+        if not batch.context_requests:
+            return real(batch, *a, **kw)
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs = real(batch, *a, **kw)
+        e1.record()
+        n = len(batch.context_requests) + len(batch.generation_requests)
+        marks.append((n, sum(r.context_len for r in batch.context_requests),
+                      e0, e1))
+        return outs
+    eng.forward_step = spy
+    try:
+        sprof._generate(llm, prompts, sp)
+    finally:
+        del eng.forward_step
+    torch.cuda.synchronize()
+    return [(n, t, e0.elapsed_time(e1)) for n, t, e0, e1 in marks]
+
+
+def bamba_serving_phase() -> dict:
+    """Bamba-9B at its published width and depth (32 layers: 29 Mamba2
+    layers of 128 heads x 64 over a state of 128, attention at layers 9,
+    18 and 27 through K1/K2; seeded random bf16 weights, ~9.8 B
+    parameters), 64 requests of 512 prompt tokens -> 128 greedy tokens
+    with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8 windows, depth
+    4, CUDA graphs) but 8,192 tokens a prefill step and prefix reuse off
+    (tools/serving_profile.py ``--geometry bamba-9b``): a warm-up, a timed
+    pass (tok/s, TTFT and TPOT median and max, K1 / K2 launches) and a
+    profiled pass (device idle share, GPU time by kernel class), weights,
+    the state pools' and the peak bytes; one more pass with each eager
+    prefill step timed (``_eager_step_ms``); one Mamba2 layer's SSD scan,
+    conv and mixer timed alone at a prefill step's and a decode step's
+    shapes, and the bounded SSD against the plain one at the model's
+    widths (``_ssm_components``). Fails if a request comes back short, out
+    of the vocabulary or with a non-finite logprob, if K1 or K2 never
+    launched or no window was replayed, or if the graph pool outgrew its
+    reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="bamba-9b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    try:
+        eng = llm.engine
+        weights_bytes = sum(t.numel() * t.element_size()
+                            for t in _tensors(eng.params))
+        res = sprof.measure(llm, prompts, sp)
+        graphs = _graph_stats(eng)
+        reserve = eng.graph_pool_reserve()
+        state_bytes = eng.recurrent_state_bytes()
+        pages = eng.num_kv_pages
+        steps = _eager_step_ms(llm, prompts, sp)
+        outs = llm.generate(prompts[:4], sp)
+        peak = torch.cuda.max_memory_allocated()
+        comp = _ssm_components(eng)
+    finally:
+        llm.shutdown()
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = cfg.vocab_size
+    for o in outs:
+        toks = o.outputs[0].token_ids
+        if len(toks) != sp.max_tokens or not all(0 <= t < V for t in toks):
+            raise AssertionError(f"bamba_serving: bad output {toks}")
+    if res["output_tokens"] != len(prompts) * sp.max_tokens or \
+            res["nonfinite_logprobs"]:
+        raise AssertionError(f"bamba_serving: {res['output_tokens']} "
+                             "tokens, or non-finite logprobs")
+    mamba_layers = sum(k == "mamba" for k in cfg.layers_block_type)
+    res.update(model="Bamba-9B", layers=cfg.num_hidden_layers,
+               mamba_layers=mamba_layers,
+               attention_layers=cfg.num_hidden_layers - mamba_layers,
+               weights_bytes=weights_bytes,
+               state_pool_bytes=state_bytes,
+               state_bytes_per_slot=state_bytes // (kwargs["max_batch_size"]
+                                                    + 1),
+               peak_allocated_bytes=peak, kv_pool_pages=pages,
+               graph_pool_reserve_bytes=reserve, graphs=graphs,
+               eager_steps=[dict(rows=n, prompt_tokens=t, ms=ms)
+                            for n, t, ms in steps],
+               ssm_components=comp,
+               ssd_ms_per_prefill_step_est=mamba_layers * comp[
+                   "prefill_16x512"]["ssd_ms"],
+               ssd_ms_per_decode_step_est=mamba_layers * comp[
+                   "decode_64"]["ssd_ms"],
+               conv_ms_per_decode_step_est=mamba_layers * comp[
+                   "decode_64"]["conv_ms"])
+    emit({"phase": "bamba_serving", **res})
+    if min(res["launches"][k] for k in ("paged_decode_attention",
+                                        "ragged_prefill_attention")) <= 0:
+        raise AssertionError(f"bamba_serving: K1 or K2 never launched: "
+                             f"{res['launches']}")
+    if not graphs["graph_replays"]:
+        raise AssertionError("bamba_serving: no graph replay")
+    _check_reserve(res)
+    return res
+
+
+def recurrent_families_phase() -> dict:
+    """Each recurrent family at a published model's width
+    (tools/serving_profile.py ``RECURRENT_FAMILIES``: Mamba-2.8B,
+    Falcon-Mamba-7B, Mamba2-2.7B, Granite-4.0-H-Tiny, Zamba2-1.2B,
+    Jamba-v0.1 (one period of 8 layers), LFM2-1.2B, Qwen3-Next-80B-A3B (4
+    layers), MiniMax-Text-01 (one linear and one full attention layer);
+    every kind of layer at least once; seeded random bf16 weights), 16 x
+    256 -> 32 greedy tokens through graphs (``--family NAME``): K1 and K2
+    launched for the hybrids, windows replayed, every returned logprob
+    finite. A smoke of the widths, not a cell. Then the cost of
+    Qwen3-Next's delta rule alone (``_delta_rule_cost``)."""
+    import gc
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    failures, res = [], {}
+    for name, (_, _, layers, source) in sprof.RECURRENT_FAMILIES.items():
+        cfg, kwargs, prompts, sp = sprof.family_workload(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            llm = LLM(cfg, dtype="bfloat16", enable_warmup=False, **kwargs)
+        except Exception as e:            # the next family still runs
+            failures.append(f"recurrent_families {name}: {e!r}")
+            emit({"phase": "recurrent_families", "family": name,
+                  "error": repr(e)})
+            continue
+        try:
+            eng = llm.engine
+            run = sprof.measure(llm, prompts, sp, profile=False)
+            graphs = _graph_stats(eng)
+            kinds = list(eng.model.block_types)
+            state = eng.recurrent_state_bytes()
+            attn = eng.model.n_attn
+        finally:
+            llm.shutdown()
+        del llm, eng
+        if attn and min(run["launches"][k] for k in (
+                "paged_decode_attention", "ragged_prefill_attention")) <= 0:
+            failures.append(f"recurrent_families {name}: K1 or K2 never "
+                            f"launched: {run['launches']}")
+        if not graphs["graph_replays"]:
+            failures.append(f"recurrent_families {name}: no graph replay")
+        if run["nonfinite_logprobs"] or not run["logprobs_recorded"] or \
+                run["min_output_tokens"] != sp.max_tokens:
+            failures.append(f"recurrent_families {name}: short outputs or "
+                            "non-finite logprobs")
+        res[name] = dict(
+            source=source, layers=layers, kinds=kinds,
+            hidden=cfg.hidden_size, state_pool_bytes=state,
+            output_tok_per_s=run["output_tok_per_s"],
+            tpot_ms_median=run["tpot_ms_median"],
+            ttft_ms_median=run["ttft_ms_median"], launches=run["launches"],
+            graph_replays=graphs["graph_replays"],
+            logprobs_recorded=run["logprobs_recorded"])
+        emit({"phase": "recurrent_families", "family": name, **res[name]})
+    emit({"phase": "recurrent_families",
+          "delta_rule_cost": _delta_rule_cost()})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -4556,6 +5156,11 @@ def main() -> int:
     timed("deepseek_parity", deepseek_parity_phase)
     deepseek = timed("deepseek_serving", deepseek_serving_phase)
     moe_fams = timed("moe_families", moe_families_phase)
+    timed("recurrent_kernels", recurrent_kernel_phase,
+          {} if kern is None else kern)
+    timed("recurrent_parity", recurrent_parity_phase)
+    bamba = timed("bamba_serving", bamba_serving_phase)
+    rec_fams = timed("recurrent_families", recurrent_families_phase)
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -4595,6 +5200,9 @@ def main() -> int:
             launches_deepseek_serving=deepseek["launches"][name],
             launches_moe_families={f: v["launches"][name]
                                    for f, v in moe_fams.items()},
+            launches_bamba_serving=bamba["launches"][name],
+            launches_recurrent_families={f: v["launches"][name]
+                                         for f, v in rec_fams.items()},
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()

@@ -40,6 +40,8 @@ def _chunks(model, params, token_ids: Sequence[int], page_size: int,
     num_pages = -(-T // page_size) + 1
     dev = model.device
     vswa = bool(getattr(model, "vswa_enabled", False))
+    # a recurrent model's state pools hold slot 0 and the trash slot
+    recurrent = bool(getattr(model, "has_recurrent_state", False))
     # under VSWA the sliding layers get a pool of their own as long as the
     # global one (the kernels apply their window)
     kv = model.make_kv_pages(num_pages, page_size, **(
@@ -59,7 +61,8 @@ def _chunks(model, params, token_ids: Sequence[int], page_size: int,
             positions=slots,
             # logits at every position (prediction targets are t + 1)
             logits_indices=torch.arange(b - a, **i32),
-            max_q_len=b - a, max_kv_len=b, **sw)
+            max_q_len=b - a, max_kv_len=b,
+            seq_slots=torch.zeros(1, **i32) if recurrent else None, **sw)
         logits, kv = model.forward(params, tokens[a:b], kv, md)[:2]
         yield a, torch.log_softmax(logits.float(), dim=-1)
 

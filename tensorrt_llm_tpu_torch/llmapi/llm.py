@@ -16,8 +16,12 @@ glm4, exaone4, smollm3, helium, arcee, hunyuan_v1_dense, seed_oss,
 ernie4_5, apertus, the GPT families (models/gpt_family.py, gpt2.py),
 deepseek_v2 and deepseek_v3 (MLA over a latent pool), and the MoE
 families mixtral, qwen2_moe, qwen3_moe, olmoe, gpt_oss, granitemoe,
-hunyuan_v1_moe, glm4_moe and ernie4_5_moe on one GPU; the JAX package's
-recurrent types, longcat_flash and bert are refused by name.
+hunyuan_v1_moe, glm4_moe and ernie4_5_moe on one GPU, and the recurrent
+families mamba, falcon_mamba, mamba2, bamba, jamba, zamba2,
+granitemoehybrid, lfm2, qwen3_next and minimax (models/recurrent.py:
+state pools indexed by sequence slot; no chunked prefill, no block
+reuse, no speculation); the JAX package's multimodal types,
+longcat_flash and bert are refused by name.
 ``kv_cache_config=KvCacheConfig(max_attention_window=[w, ...])`` serves
 Gemma 2 with VSWA: its sliding layers keep their KV in a second pool
 sized for the smallest window w, which is also their window (Gemma 3's
@@ -224,6 +228,11 @@ class LLM:
         check_ported_spec(self.args.speculative_config,
                           hf_config.model_type)
         self.model = get_model_class(hf_config.model_type)(model_config)
+        if getattr(self.model, "has_recurrent_state", False):
+            # a recurrent state is not addressable by block: no chunked
+            # prefill and no prefix reuse (the JAX LLM, llm.py:174-178)
+            self.args.enable_chunked_prefill = False
+            self.args.kv_cache_config.enable_block_reuse = False
         maw = self.args.kv_cache_config.max_attention_window
         if maw:
             if not hasattr(self.model, "enable_vswa"):

@@ -158,6 +158,14 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
     drafters need no hidden rows and take any target."""
     if sc is None or sc.mode == "NONE":
         return
+    if model_type in RECURRENT_MODEL_TYPES:
+        raise NotImplementedError(
+            f"speculative mode {sc.mode} with a {model_type} target is not "
+            "supported by this package: a verify step writes every drafted "
+            "token into the sequence's recurrent state, which cannot be "
+            "rolled back as KV pages can (the JAX package's NGRAM on a "
+            "Mamba target parts from greedy decoding at the first rejected "
+            "draft)")
     if sc.mode in ("MTP", "DFLASH"):
         raise NotImplementedError(
             f"speculative mode {sc.mode} is not supported by this package "
@@ -185,6 +193,11 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
             "orchestrated path) is not supported by this package yet")
 
 
+# the recurrent families (models/recurrent.py), kept here so that the
+# argument checks need not import the models
+RECURRENT_MODEL_TYPES = ("mamba", "falcon_mamba", "mamba2", "bamba",
+                         "jamba", "zamba2", "granitemoehybrid", "lfm2",
+                         "qwen3_next", "minimax")
 MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe", "gpt_oss",
                    "granitemoe", "hunyuan_v1_moe", "glm4_moe", "ernie4_5_moe",
                    "deepseek_v2", "deepseek_v3")

@@ -46,6 +46,22 @@ ungated shared expert (HunYuan-MoE) has no ``se_gate_w``. Apertus's
 layers (``norm`` / ``ff_norm``, a gateless ``up`` / ``down`` and the
 xIELU scalars) keep their names, the norms as ``input_norm`` /
 ``post_norm``, the scalars as 0-dim float32 tensors.
+The recurrent families' trees (``from_jax_params(..., model=m)`` with
+the port model ``m``, whose layer kinds order them): ``layers`` stacked
+(Mamba, Mamba2), ``runs`` of stacked same-kind layers (Bamba,
+Granite-4.0-H, LFM2, Qwen3-Next, MiniMax), Zamba2's per-layer ``layers``
+and shared ``blocks``, or Jamba's ``mamba_dense`` / ``mamba_moe`` /
+``attn`` stacked by period, become one list of layers in layer order.
+Projections are carried as above and joined (q/k/v into qkv, gate/up
+into gate_up, LFM2's w1/w3 into w13, the shared MLPs' s_gate/s_up and
+se_gate/se_up); the experts ``moe_gate`` / ``moe_up`` or ``w_gate`` /
+``w_up`` [E, H, I] become ``w_gate_up`` and the routers [H, E] become
+[E, H]; the [in, out] matrices the JAX models apply with ``jnp.dot``
+(Qwen3-Next's ``w_qkv``, ``w_z``, ``w_b``, ``w_a``, its attention's
+``gate`` and ``se_gate_w``; MiniMax's ``w_q``, ``w_k``, ``w_v``,
+``w_gate_out``) become [out, in]; Zamba2's adapters stay [in, out]; the
+mixers' conv_w, conv_b, A_log, D, dt_bias and MiniMax's slope stay
+float32.
 With ``kv_scales`` (a model on a quantized KV cache), the JAX Llama's
 per-layer ``kv_scale`` [L] (float32) becomes each layer's 0-dim float32
 ``kv_scale``, so that both packages quantize with the same scales.
@@ -100,12 +116,13 @@ def carry_projection(p: Dict[str, Any], device="cpu",
 
 def from_jax_params(params_np: Dict[str, Any], device="cpu",
                     dtype: Optional[torch.dtype] = None,
-                    kv_scales: bool = False) -> Dict[str, Any]:
+                    kv_scales: bool = False, model=None) -> Dict[str, Any]:
     """JAX Llama params (numpy) -> port params (tensors on ``device``).
     ``dtype`` (default: the arrays' own) applies to the float weights,
     norms and biases; integers and float32 scales keep their types.
     ``kv_scales``: carry the layers' ``kv_scale`` (a quantized KV
-    cache)."""
+    cache). ``model``: the port model, which a recurrent family's tree
+    needs for its layer order."""
 
     def t(a, dt=dtype) -> torch.Tensor:
         return carry_array(a, device, dt)
@@ -123,6 +140,8 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
         plain = set(parts[0]) <= {"weight", "bias"}    # [out, in]
         return {name: fuse_params(parts, weight_dim=0 if plain else -1)}
 
+    if getattr(model, "has_recurrent_state", False):
+        return _from_jax_recurrent(params_np, model, t, proj, fused)
     if "layers" not in params_np:
         return _from_jax_split_layers(params_np, t, proj, fused)
     lay = params_np["layers"]
@@ -272,3 +291,103 @@ def _from_jax_apertus(params_np, t, proj, fused) -> Dict[str, Any]:
     return {"embed": t(params_np["embed"]["weight"]), "layers": layers,
             "final_norm": t(params_np["final_norm"]),
             "lm_head": proj(params_np["lm_head"])}
+
+
+# the recurrent trees' [in, out] matrices applied with jnp.dot, carried
+# as [out, in]; their float32 mixer parameters
+_RAW_TRANSPOSED = ("w_qkv", "w_z", "w_b", "w_a", "gate", "se_gate_w",
+                   "w_q", "w_k", "w_v", "w_gate_out")
+_FLOAT32 = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "slope")
+# projections joined in the port's layers: (fused name, parts)
+_JOINED = (("qkv", ("q", "k", "v")), ("gate_up", ("gate", "up")),
+           ("w13", ("w1", "w3")), ("s_gate_up", ("s_gate", "s_up")),
+           ("se_gate_up", ("se_gate", "se_up")))
+
+
+def _unstack(tree, i):
+    """Entry ``i`` along the leading axis of every array of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _recurrent_layers(params_np, model) -> list:
+    """The JAX tree's per-layer dicts (numpy), in layer order."""
+    if "mamba_dense" in params_np:                  # Jamba, by period
+        per = model.hf.attn_layer_period
+        out = []
+        for i, bt in enumerate(model.block_types):
+            g = i // per
+            if i % per == 0:
+                n = {"mamba_dense": 0, "mamba_moe": 0}
+            if bt == model.ATTENTION:
+                out.append(_unstack(params_np["attn"], g))
+                continue
+            group = "mamba_moe" if model.is_moe[i] else "mamba_dense"
+            out.append(_unstack(_unstack(params_np[group], g), n[group]))
+            n[group] += 1
+        return out
+    if "runs" in params_np:
+        out = []
+        for run in params_np["runs"]:
+            n = len(np.asarray(next(iter(_leaves(run)))))
+            out.extend(_unstack(run, j) for j in range(n))
+        return out
+    lay = params_np["layers"]
+    if isinstance(lay, (tuple, list)):              # Zamba2: per layer
+        return list(lay)
+    n = len(np.asarray(next(iter(_leaves(lay)))))
+    return [_unstack(lay, i) for i in range(n)]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _recurrent_layer(lay, t, proj, fused) -> Dict[str, Any]:
+    """One JAX recurrent-family layer (numpy) in the port's form."""
+    out: Dict[str, Any] = {}
+    joined = {n for _, parts in _JOINED if all(p in lay for p in parts)
+              for n in parts}
+    for k, v in lay.items():
+        if k in joined:
+            continue
+        if isinstance(v, dict):
+            out[k] = proj(v)
+        elif k in ("moe_router", "router"):
+            out["router"] = t(np.asarray(v).T)
+        elif k in ("moe_gate", "w_gate"):
+            up = lay["moe_up" if k == "moe_gate" else "w_up"]
+            out["w_gate_up"] = t(np.concatenate([v, up], axis=-1))
+        elif k in ("moe_up", "w_up"):
+            continue
+        elif k in ("moe_down", "w_down"):
+            out["w_down"] = t(v)
+        elif k in _RAW_TRANSPOSED:
+            out[k] = t(np.ascontiguousarray(np.asarray(v).T))
+        elif k in _FLOAT32:
+            out[k] = t(np.asarray(v, np.float32), torch.float32)
+        else:
+            out[k] = t(v)
+    for name, parts in _JOINED:
+        if all(p in lay for p in parts):
+            out.update(fused(lambda n: proj(lay[n]), name, parts))
+    return out
+
+
+def _from_jax_recurrent(params_np, model, t, proj, fused) -> Dict[str, Any]:
+    """``from_jax_params`` for the recurrent families."""
+    out = {"layers": [_recurrent_layer(lay, t, proj, fused)
+                      for lay in _recurrent_layers(params_np, model)],
+           "embed": t(params_np["embed"]["weight"]),
+           "final_norm": t(params_np["final_norm"]),
+           "lm_head": proj(params_np["lm_head"])}
+    if "blocks" in params_np:                       # Zamba2's shared blocks
+        out["blocks"] = [None if b is None else
+                         _recurrent_layer(b, t, proj, fused)
+                         for b in params_np["blocks"]]
+    return out

@@ -51,12 +51,13 @@ def register_model(*model_types: str):
 
 # model types the JAX package registers that this package does not serve
 # yet, each with its reason
-_RECURRENT = ("a recurrent state: ops/ssm.py and a cache indexed by "
-              "sequence slot are not ported")
+_MULTIMODAL = ("a multimodal model: the vision encoders, image token "
+               "spans and M-RoPE are not ported")
 NOT_PORTED_MODEL_TYPES: Dict[str, str] = {
-    **{t: _RECURRENT for t in (
-        "mamba", "falcon_mamba", "mamba2", "bamba", "jamba", "zamba2",
-        "granitemoehybrid", "qwen3_next", "lfm2", "minimax")},
+    **{t: _MULTIMODAL for t in (
+        "gemma3", "gemma3_vl", "glm4v", "internvl", "llava", "llava_next",
+        "mistral3", "mllama", "paligemma", "qwen2_vl", "qwen2_5_vl",
+        "qwen3_vl", "qwen3_vl_moe")},
     "longcat_flash": "the shortcut-connected MoE over paired MLA "
                      "sublayers, which comes with MTP",
     "bert": "an encoder without a generation path",
@@ -176,7 +177,9 @@ def attention_block(params: Dict[str, Any],
                     k_norm: Optional[Callable] = None,
                     kv_scale=None,
                     collect_kv_stats: bool = False,
-                    alibi_slopes: Optional[torch.Tensor] = None):
+                    alibi_slopes: Optional[torch.Tensor] = None,
+                    lora_fn: Optional[Callable] = None,
+                    pre_o: Optional[Callable] = None):
     """QKV projection (``params["qkv"]`` fused, or "q", "k", "v" apart),
     the q/k norms (``q_norm(params, q [T, nq, hd])``, likewise k: Qwen3's
     per-head RMS norm, OLMoE's over the whole projection; after RoPE with
@@ -191,7 +194,11 @@ def attention_block(params: Dict[str, Any],
     a float32 device tensor, made once at build, and the only form the
     kernels are given (a tuple would be copied to the device at every
     call, which a graph capture refuses); required when the spec has
-    slopes."""
+    slopes. ``lora_fn(name, x, out)`` adds an adapter's term to the q, k
+    and v projections' outputs (Zamba2's per-use adapters), ``pre_o(params,
+    x, attn [T, nq * hd])`` rewrites the attention output before the
+    output projection (Qwen3-Next's output gate): the JAX hooks of the
+    same names."""
     if (spec.alibi_slopes is None) != (alibi_slopes is None):
         raise ValueError(
             "attention_block takes ALiBi slopes as a device tensor exactly "
@@ -205,6 +212,8 @@ def attention_block(params: Dict[str, Any],
         q = methods.q.apply(params["q"], x)
         k = methods.kv.apply(params["k"], x)
         v = methods.kv.apply(params["v"], x)
+    if lora_fn is not None:
+        q, k, v = (lora_fn(n, x, u) for n, u in zip("qkv", (q, k, v)))
     q = q.reshape(T, nq, hd)
     k = k.reshape(T, nkv, hd)
     v = v.reshape(T, nkv, hd)
@@ -237,7 +246,10 @@ def attention_block(params: Dict[str, Any],
         alibi_slopes=alibi_slopes,
         sinks=params["sinks"] if spec.use_sinks else None,
         k_scale=ks, v_scale=ks).to(q.dtype)
-    out = methods.o.apply(params["o"], attn.reshape(T, nq * hd))
+    attn = attn.reshape(T, nq * hd)
+    if pre_o is not None:
+        attn = pre_o(params, x, attn)
+    out = methods.o.apply(params["o"], attn)
     if collect_kv_stats:
         return out, torch.maximum(k.float().abs().amax(),
                                   v.float().abs().amax())

@@ -61,6 +61,9 @@ class AttentionMetadata:
                       ``max_attention_window``): the sliding layers' own
                       page table i32[S, P] and slots i32[T] in their
                       smaller pool; None for a single pool.
+      seq_slots:      i32[S]   each row's sequence slot, -1 for padding
+                      (the recurrent families index their state pools by
+                      it, ops/ssm.py); None where no model reads it.
     """
     kv_lens: torch.Tensor
     page_indices: torch.Tensor
@@ -73,6 +76,7 @@ class AttentionMetadata:
     max_kv_len: Optional[int] = None
     page_indices_sw: Optional[torch.Tensor] = None
     slot_mapping_sw: Optional[torch.Tensor] = None
+    seq_slots: Optional[torch.Tensor] = None
 
     def for_sliding_pool(self) -> "AttentionMetadata":
         """This metadata addressed at the sliding pool (VSWA); with

@@ -15,7 +15,9 @@ Departures from the JAX version, none of which changes a result it
 gets right:
 
 - a fork copies every pool's pages (VSWA's sliding pool too, skipping
-  the blocks that pool released while the rows run);
+  the blocks that pool released while the rows run), and a recurrent
+  model's slot states (``ModelEngine.copy_slot_states``), where the JAX
+  engine's page copy fails on the recurrent families' cache dict;
 - all of a step's forks read their source pages before any is written
   (``ModelEngine.copy_pages``). The JAX version copies page by page in
   plan order, so when two rows swap (row 0 continues row 1's beam and row
@@ -151,6 +153,12 @@ class BeamGroup:
             new_scores[dst] = score
         for pool, (s_ids, d_ids) in enumerate(copies):
             engine.copy_pages(s_ids, d_ids, pool)
+        # a recurrent model's rows carry their state in their slots
+        forks = [(rows[src].seq_slot, rows[dst].seq_slot)
+                 for dst, src, _, _ in plans if src != dst]
+        if forks and getattr(engine, "has_recurrent_state", False):
+            engine.copy_slot_states([s for s, _ in forks],
+                                    [d for _, d in forks])
         self.scores = new_scores
 
     def _best_possible(self, live) -> float:

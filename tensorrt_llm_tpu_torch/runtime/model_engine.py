@@ -148,10 +148,24 @@ class StepInputs:
     slot_mapping_sw: Optional[np.ndarray] = None   # i32[T]
 
 
+def _pools(kv_pages) -> tuple:
+    """A model's cache tensors: its KV pool, VSWA's pair, or a recurrent
+    model's dict (the KV pool and the state pools)."""
+    if isinstance(kv_pages, dict):
+        return tuple(kv_pages.values())
+    return kv_pages if isinstance(kv_pages, tuple) else (kv_pages,)
+
+
+def _kv_pools(kv_pages) -> tuple:
+    """The paged KV pools of a model's cache (not the state pools)."""
+    if isinstance(kv_pages, dict):
+        return (kv_pages["kv"],)
+    return _pools(kv_pages)
+
+
 def _ptrs(kv_pages) -> List[int]:
-    """Device addresses of a model's KV pool, or of each of its pools."""
-    pools = kv_pages if isinstance(kv_pages, tuple) else (kv_pages,)
-    return [p.data_ptr() for p in pools]
+    """Device addresses of a model's cache tensors."""
+    return [p.data_ptr() for p in _pools(kv_pages)]
 
 
 def _sliding(**per_pool) -> Dict[str, Any]:
@@ -256,10 +270,19 @@ class ModelEngine:
         self.guided_steps = 0
         if guided_pool_states:
             self._alloc_guided(guided_pool_states)
+        # recurrent families (models/recurrent.py): state pools indexed by
+        # sequence slot, [layers, max_batch_size + 1, ...] (the trash slot
+        # last), made with the KV pool below and before any graph capture;
+        # their bytes are counted off the KV pool's budget
+        self._recurrent = bool(getattr(model, "has_recurrent_state", False))
         self.num_kv_pages = num_kv_pages or self._default_num_pages()
-        logger.info("KV pool: %d pages x %d tokens (%.1f MB/layer)",
+        logger.info("KV pool: %d pages x %d tokens (%.1f MB/layer)%s",
                     self.num_kv_pages, self.page_size,
-                    self._kv_bytes_per_layer() / 1e6)
+                    self._kv_bytes_per_layer() / 1e6,
+                    ", recurrent state %.1f MB (%d slots)" % (
+                        self.recurrent_state_bytes() / 1e6,
+                        self.max_batch_size + 1) if self._recurrent
+                    else "")
         # the request field of each pool's block ids: the global pool's,
         # and under VSWA the sliding one's
         self.pool_ids = ["kv_block_ids"]
@@ -267,9 +290,11 @@ class ModelEngine:
             logger.info("VSWA sliding pool: %d pages (window %d)",
                         self.num_sw_pages, model.vswa_window)
             self.pool_ids.append("kv_block_ids_sw")
-        self.kv_pages = model.make_kv_pages(
-            self.num_kv_pages, self.page_size,
-            **({"num_sw_pages": self.num_sw_pages} if self._vswa else {}))
+        extra = {"num_sw_pages": self.num_sw_pages} if self._vswa else {}
+        if self._recurrent:
+            extra["num_slots"] = self.max_batch_size + 1
+        self.kv_pages = model.make_kv_pages(self.num_kv_pages,
+                                            self.page_size, **extra)
         # slot-indexed device state; index max_batch_size is a trash slot
         # that absorbs the scatters of padding and inactive rows. Steps
         # update it in place: captured graphs hold its address
@@ -297,9 +322,22 @@ class ModelEngine:
     # ------------------------------------------------------------------ #
     @property
     def _pool_layers(self) -> int:
-        """Layers of the (global) pool: half of them under VSWA."""
-        L = self.model.num_layers
+        """Layers of the (global) pool: half of them under VSWA; a
+        recurrent model's attention layers (at least one)."""
+        L = getattr(self.model, "kv_layers", self.model.num_layers)
         return L // 2 if self._vswa else L
+
+    @property
+    def has_recurrent_state(self) -> bool:
+        """Whether the model keeps slot-indexed state pools."""
+        return self._recurrent
+
+    def recurrent_state_bytes(self) -> int:
+        """Device bytes of a recurrent model's state pools (0 for the
+        others)."""
+        if not self._recurrent:
+            return 0
+        return self.model.state_bytes(self.max_batch_size + 1)
 
     @property
     def bytes_per_kv_block(self) -> int:
@@ -429,7 +467,8 @@ class ModelEngine:
         from ..evaluate.perplexity import PROMPT_LOGPROB_CHUNK
         ps = self.page_size
         pages = -(-self.args.max_input_len // ps) + 1
-        per_page = self.bytes_per_kv_block * self.model.num_layers \
+        per_page = self.bytes_per_kv_block * getattr(
+            self.model, "kv_layers", self.model.num_layers) \
             // self._pool_layers
         rows = min(PROMPT_LOGPROB_CHUNK, self.args.max_input_len)
         return pages * per_page + 3 * rows * self.model.vocab_size * 4
@@ -451,6 +490,7 @@ class ModelEngine:
             kept = int(free * cfg.free_gpu_memory_fraction)
             budget = kept - (1 << 30) - self.graph_pool_reserve() \
                 - self.spec_state_bytes() - self.surface_state_bytes() \
+                - self.recurrent_state_bytes() \
                 - max(0, self.prompt_logprob_bytes() - (free - kept))
         else:
             budget = 2 << 30
@@ -514,7 +554,7 @@ class ModelEngine:
 
     def _k1_splits(self, rows: int, bound: int) -> tuple:
         windows = self.model.attention_windows()
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not windows:
             return (1,) * len(windows)
         spec = self.model.attn_spec
         reach = self.pages_per_seq * self.page_size
@@ -667,13 +707,25 @@ class ModelEngine:
         step reads the pages."""
         if not src:
             return
-        pools = self.kv_pages if isinstance(self.kv_pages, tuple) \
-            else (self.kv_pages,)
-        kv = pools[pool]
+        kv = _kv_pools(self.kv_pages)[pool]
         s_idx = torch.as_tensor(src, dtype=torch.long).to(self.device)
         d_idx = torch.as_tensor(dst, dtype=torch.long).to(self.device)
         kv[:, d_idx] = kv[:, s_idx]
         self.pages_copied += len(src)
+
+    @torch.no_grad()
+    def copy_slot_states(self, src: List[int], dst: List[int]) -> None:
+        """Copy a recurrent model's state of slots ``src`` onto slots
+        ``dst`` in every state pool (a beam fork: the row that takes
+        another's continuation takes its state too), all sources read
+        before any destination is written, on the stream of the steps."""
+        if not src or not self._recurrent:
+            return
+        s_idx = torch.as_tensor(src, dtype=torch.long).to(self.device)
+        d_idx = torch.as_tensor(dst, dtype=torch.long).to(self.device)
+        for name, pool in self.kv_pages.items():
+            if name != "kv":
+                pool[:, d_idx] = pool[:, s_idx]
 
     def _logits_ops(self, logits: torch.Tensor, v, ops: LogitsOps,
                     out_slots: torch.Tensor, sample_idx: torch.Tensor,
@@ -1078,7 +1130,8 @@ class ModelEngine:
                 logits_indices=v["logits_indices"].long(),
                 max_q_len=max_q_len, max_kv_len=kv_bound,
                 page_indices_sw=v.get("page_indices_sw"),
-                slot_mapping_sw=v.get("slot_mapping_sw")),
+                slot_mapping_sw=v.get("slot_mapping_sw"),
+                seq_slots=v["out_slots"]),
                 collect_hidden=collect_hidden)
             if collect_hidden:
                 logits, hidden = logits
@@ -1175,10 +1228,13 @@ class ModelEngine:
 
     @property
     def riders_ok(self) -> bool:
-        """Whether windows carry context riders: ``mixed_window_ctx`` > 0
-        and one KV pool (the JAX executor's ``_mixed_ok`` also keeps them
+        """Whether windows carry context riders: ``mixed_window_ctx`` > 0,
+        no recurrent state (a rider's chunk would continue a prompt, which
+        the state pools, written at a segment's end, do not follow), and
+        one KV pool (the JAX executor's ``_mixed_ok`` also keeps them
         off under VSWA)."""
-        return self.mixed_ctx_tokens > 0 and not self._vswa
+        return self.mixed_ctx_tokens > 0 and not self._vswa \
+            and not self._recurrent
 
     @property
     def mixed_ctx_seqs(self) -> int:
@@ -1426,11 +1482,14 @@ class ModelEngine:
                             logits_indices=iota, max_q_len=max(C, 2),
                             max_kv_len=kv_bound))
                 else:
+                    # a row that is done stops updating its slot's
+                    # recurrent state
                     logits = self._forward(cur, AttentionMetadata(
                         kv_lens=kv_len, page_indices=pages, cu_q_lens=cu_q,
                         num_seqs=num_seqs, slot_mapping=slot_map,
                         positions=pos, logits_indices=iota, max_q_len=1,
-                        max_kv_len=kv_bound, **sw))
+                        max_kv_len=kv_bound,
+                        seq_slots=torch.where(active, out_slots, -1), **sw))
                 if ops.guided:
                     g_act = valid & (gst >= 0)
                     logits = self._guided_mask(logits, gst, g_act)

@@ -113,7 +113,20 @@ Two workloads:
   attention-only dense ones (``MOE_FAMILIES``: GLM-4.5-Air,
   ERNIE-4.5-21B-A3B, Hunyuan-A13B, Granite-3.1-3B-A800M, DeepSeek-V3
   with one dense layer before one MoE layer, Hunyuan-7B, Seed-OSS-36B,
-  ERNIE-4.5-0.3B, Apertus-8B), 2 layers.
+  ERNIE-4.5-0.3B, Apertus-8B), 2 layers;
+- ``--geometry bamba-9b``: ``chip_smoke.py``'s bamba_serving run,
+  Bamba-9B at its published width and depth (``BAMBA_9B``: 32 layers,
+  attention at 9, 18 and 27 through K1/K2, 29 Mamba2 layers of 128 heads
+  x 64 over a state of 128, seeded random bf16 weights, ~9.8 B
+  parameters), 64 requests of 512 prompt tokens -> 128 with
+  ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8, depth 4, CUDA graphs)
+  but 8,192 tokens a prefill step (16 prompts); the state pools hold
+  124.6 MB a slot, float32;
+- ``--family NAME`` also takes the recurrent families
+  (``RECURRENT_FAMILIES``: Mamba-2.8B, Falcon-Mamba-7B, Mamba2-2.7B,
+  Granite-4.0-H-Tiny, Zamba2-1.2B, Jamba-v0.1, LFM2-1.2B,
+  Qwen3-Next-80B-A3B, MiniMax-Text-01), each cut in depth so that every
+  kind of its layers runs at least once.
 
 ``--quant ALGO`` quantizes the weights at load (``--group-size`` for the
 group-wise algorithms and W4A8): any ``QuantAlgo`` the package serves,
@@ -163,6 +176,9 @@ K1 / K2 launches made while drafting (the rest are the target's).
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --family falcon
     python -m tensorrt_llm_tpu_torch.tools.serving_profile \
         --geometry gpt-oss-20b
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry bamba-9b
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile --family jamba
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --surface
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --guided \
         [--guided-backend dfa-host]
@@ -558,6 +574,149 @@ MOE_FAMILIES = {
 }
 
 
+# https://huggingface.co/ibm-ai-platform/Bamba-9B config.json: the fields
+# the port reads (the others at BambaConfig's defaults, among them
+# partial_rotary_factor 0.5 and rope_theta 10,000)
+BAMBA_9B = dict(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    attn_layer_indices=[9, 18, 27], mamba_n_heads=128, mamba_d_head=64,
+    mamba_n_groups=1, mamba_d_state=128, mamba_d_conv=4, mamba_expand=2,
+    mamba_chunk_size=256, rms_norm_eps=1e-5, tie_word_embeddings=False)
+
+# The recurrent families at a published model's width, as MOE_FAMILIES:
+# (config class, its fields, the layers a run keeps, the source). The
+# run's layers keep every kind of layer the model has (``layer_kinds``
+# cuts the per-layer lists); Jamba keeps one period of 8 (its MoE layers
+# alternate, its attention layer is the fifth).
+RECURRENT_FAMILIES = {
+    # https://huggingface.co/state-spaces/mamba-2.8b-hf config.json
+    "mamba": ("MambaConfig", dict(
+        vocab_size=50280, hidden_size=2560, num_hidden_layers=64,
+        state_size=16, expand=2, conv_kernel=4, time_step_rank=160,
+        layer_norm_epsilon=1e-5, use_bias=False, use_conv_bias=True),
+        2, "Mamba-2.8B"),
+    # https://huggingface.co/tiiuae/falcon-mamba-7b config.json
+    "falcon_mamba": ("FalconMambaConfig", dict(
+        vocab_size=65024, hidden_size=4096, num_hidden_layers=64,
+        state_size=16, expand=2, conv_kernel=4, time_step_rank=256,
+        mixer_rms_eps=1e-6, layer_norm_epsilon=1e-5, use_bias=False,
+        use_conv_bias=True), 2, "Falcon-Mamba-7B"),
+    # https://huggingface.co/state-spaces/mamba2-2.7b config.json
+    "mamba2": ("Mamba2Config", dict(
+        vocab_size=50288, hidden_size=2560, num_hidden_layers=64,
+        state_size=128, expand=2, conv_kernel=4, num_heads=80, head_dim=64,
+        n_groups=1, chunk_size=256, layer_norm_epsilon=1e-5,
+        use_bias=False, use_conv_bias=True), 2, "Mamba2-2.7B"),
+    # https://huggingface.co/ibm-granite/granite-4.0-h-tiny config.json
+    "granitemoehybrid": ("GraniteMoeHybridConfig", dict(
+        vocab_size=100352, hidden_size=1536, intermediate_size=512,
+        shared_intermediate_size=1024, num_hidden_layers=40,
+        num_attention_heads=12, num_key_value_heads=4,
+        num_local_experts=64, num_experts_per_tok=6, mamba_n_heads=48,
+        mamba_d_head=64, mamba_d_state=128, mamba_n_groups=1,
+        mamba_d_conv=4, mamba_expand=2, position_embedding_type="nope",
+        embedding_multiplier=12.0, residual_multiplier=0.22,
+        attention_multiplier=0.0078125, logits_scaling=6.0,
+        rms_norm_eps=1e-5, tie_word_embeddings=True,
+        layer_types=["attention" if i in (5, 15, 25, 35) else "mamba"
+                     for i in range(40)]), 2, "Granite-4.0-H-Tiny"),
+    # https://huggingface.co/Zyphra/Zamba2-1.2B config.json
+    "zamba2": ("Zamba2Config", dict(
+        vocab_size=32000, hidden_size=2048, num_hidden_layers=38,
+        num_attention_heads=32, num_key_value_heads=32,
+        intermediate_size=8192, mamba_d_state=128, mamba_d_conv=4,
+        mamba_expand=2, mamba_ngroups=1, n_mamba_heads=64,
+        num_mem_blocks=1, use_shared_attention_adapter=True,
+        adapter_rank=128, use_mem_rope=True,
+        layers_block_type=["hybrid" if i % 6 == 5 else "mamba"
+                           for i in range(38)]), 2, "Zamba2-1.2B"),
+    # https://huggingface.co/ai21labs/Jamba-v0.1 config.json
+    "jamba": ("JambaConfig", dict(
+        vocab_size=65536, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        num_experts=16, num_experts_per_tok=2, attn_layer_period=8,
+        attn_layer_offset=4, expert_layer_period=2, expert_layer_offset=1,
+        mamba_d_state=16, mamba_d_conv=4, mamba_expand=2, mamba_dt_rank=256,
+        use_mamba_kernels=False, rms_norm_eps=1e-6,
+        tie_word_embeddings=False), 8, "Jamba-v0.1"),
+    # https://huggingface.co/LiquidAI/LFM2-1.2B config.json
+    "lfm2": ("Lfm2Config", dict(
+        vocab_size=65536, hidden_size=2048, num_hidden_layers=16,
+        num_attention_heads=32, num_key_value_heads=8, conv_L_cache=3,
+        block_ff_dim=12288, block_auto_adjust_ff_dim=True,
+        block_ffn_dim_multiplier=1.0, block_multiple_of=256, norm_eps=1e-5,
+        rope_theta=1000000.0, max_position_embeddings=128000,
+        layer_types=["full_attention" if i in (2, 5, 8, 10, 12, 14)
+                     else "conv" for i in range(16)]), 3, "LFM2-1.2B"),
+    # https://huggingface.co/Qwen/Qwen3-Next-80B-A3B-Instruct config.json
+    # (transformers' Qwen3NextConfig defaults are this model's)
+    "qwen3_next": ("Qwen3NextConfig", dict(
+        vocab_size=151936, hidden_size=2048, num_hidden_layers=48,
+        num_attention_heads=16, num_key_value_heads=2, head_dim=256,
+        linear_num_value_heads=32, linear_num_key_heads=16,
+        linear_key_head_dim=128, linear_value_head_dim=128,
+        linear_conv_kernel_dim=4, num_experts=512, num_experts_per_tok=10,
+        moe_intermediate_size=512, shared_expert_intermediate_size=512,
+        partial_rotary_factor=0.25, rope_theta=10000000.0,
+        rms_norm_eps=1e-6, tie_word_embeddings=False,
+        layer_types=["full_attention" if i % 4 == 3 else "linear_attention"
+                     for i in range(48)]), 4, "Qwen3-Next-80B-A3B"),
+    # https://huggingface.co/MiniMaxAI/MiniMax-Text-01-hf config.json
+    # (its first linear and first full attention layer)
+    "minimax": ("MiniMaxConfig", dict(
+        vocab_size=200064, hidden_size=6144, num_hidden_layers=80,
+        num_attention_heads=64, num_key_value_heads=8, head_dim=128,
+        intermediate_size=9216, num_local_experts=32, num_experts_per_tok=2,
+        rope_theta=10000000.0, rms_norm_eps=1e-5,
+        full_attn_alpha_factor=3.5565588200778455, full_attn_beta_factor=1.0,
+        linear_attn_alpha_factor=3.5565588200778455,
+        linear_attn_beta_factor=1.0, mlp_alpha_factor=3.5565588200778455,
+        mlp_beta_factor=1.0, tie_word_embeddings=False,
+        layer_types=["full_attention" if i % 8 == 7 else "linear_attention"
+                     for i in range(80)]), 2, "MiniMax-Text-01"),
+}
+
+
+def _layer_kinds(kinds: list, n: int) -> list:
+    """The first ``n`` layers of ``kinds``, the last of them replaced by
+    the first layer of another kind where those leave one out (a cut
+    that keeps every kind of layer)."""
+    out = list(kinds[:n])
+    for k in dict.fromkeys(kinds):
+        if k not in out:
+            out[-1] = k
+    return out
+
+
+def recurrent_family_config(name: str, layers: Optional[int] = None):
+    """The config of ``RECURRENT_FAMILIES[name]`` at ``layers`` layers
+    (default the table's), its per-layer lists cut to keep every kind."""
+    cls, fields, run_layers, _ = RECURRENT_FAMILIES[name]
+    L = layers or run_layers
+    fields = dict(fields, num_hidden_layers=L)
+    for key in ("layer_types", "layers_block_type"):
+        if key in fields:
+            fields[key] = _layer_kinds(fields[key], L)
+    return _config(cls, name, fields)
+
+
+def bamba_9b_config(layers: Optional[int] = None, kinds=None):
+    """Bamba-9B's published config (``BAMBA_9B``) at ``layers`` layers
+    (default all 32); ``kinds`` ("mamba" / "attention" per layer) replaces
+    its attention indices."""
+    fields = dict(BAMBA_9B)
+    if layers:
+        fields["num_hidden_layers"] = layers
+        fields["attn_layer_indices"] = [
+            i for i in fields["attn_layer_indices"] if i < layers]
+    if kinds is not None:
+        fields["num_hidden_layers"] = len(kinds)
+        fields["attn_layer_indices"] = [i for i, k in enumerate(kinds)
+                                        if k == "attention"]
+    return _config("BambaConfig", "bamba", fields)
+
+
 def _config(cls_name: str, model_type: str, fields: dict):
     """``transformers``' config class ``cls_name`` of ``fields``, or, where
     the installed version lacks it, a ``PretrainedConfig`` carrying the
@@ -632,6 +791,7 @@ def family_workload(name: str):
     ``--family``: 16 requests of 256 seeded tokens -> 32."""
     from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
     cfg = moe_family_config(name) if name in MOE_FAMILIES \
+        else recurrent_family_config(name) if name in RECURRENT_FAMILIES \
         else family_config(name)
     gen = torch.Generator().manual_seed(0)
     prompts = torch.randint(3, cfg.vocab_size - 1, (16, 256),
@@ -731,6 +891,14 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
                       max_num_tokens=8192,
                       kv_cache_config=KvCacheConfig(enable_block_reuse=False))
         return (gpt_oss_20b_config(), kwargs, prompts,
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
+    if geometry == "bamba-9b":
+        prompts = torch.randint(0, BAMBA_9B["vocab_size"], (64, 512),
+                                generator=gen).tolist()
+        kwargs = dict(max_batch_size=64, max_input_len=512, max_seq_len=640,
+                      max_num_tokens=8192,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (bamba_9b_config(), kwargs, prompts,
                 SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
     if geometry == "deepseek-v2-lite":
         prompts = torch.randint(0, DEEPSEEK_V2_LITE["vocab_size"], (64, 512),
@@ -1470,7 +1638,7 @@ def main() -> None:
                                            "gemma2-9b", "gemma3-1b",
                                            "llama3-8b", "llama3-8b-copy",
                                            "llama3-8b-quant", "gpt-oss-20b",
-                                           "deepseek-v2-lite"],
+                                           "deepseek-v2-lite", "bamba-9b"],
                     default="tinyllama",
                     help="the model of the default workload")
     ap.add_argument("--layers", type=int, default=None,
@@ -1479,7 +1647,8 @@ def main() -> None:
                     help="hand LLM a transformers module built on the card "
                     "(SmoothQuant calibrates on it)")
     ap.add_argument("--family", choices=sorted({**FAMILIES, **GPT_FAMILIES,
-                                                **MOE_FAMILIES}),
+                                                **MOE_FAMILIES,
+                                                **RECURRENT_FAMILIES}),
                     default=None,
                     help="a Llama-derived or GPT family at a published "
                     "width")
@@ -1536,8 +1705,12 @@ def main() -> None:
     if args.layers:
         cfg = gpt_oss_20b_config(args.layers) \
             if args.geometry == "gpt-oss-20b" else \
+            bamba_9b_config(args.layers) \
+            if args.geometry == "bamba-9b" else \
             moe_family_config(args.family, args.layers) \
-            if args.family in MOE_FAMILIES else cfg
+            if args.family in MOE_FAMILIES else \
+            recurrent_family_config(args.family, args.layers) \
+            if args.family in RECURRENT_FAMILIES else cfg
         cfg.num_hidden_layers = args.layers
     model = inline_module(cfg) if args.inline else cfg
     if args.spec != "NONE":

@@ -320,8 +320,9 @@ def test_eagle3_refused_by_name(model_type):
 
 
 @pytest.mark.parametrize("model_type", [
-    "longcat_flash", "mamba", "falcon_mamba", "mamba2", "bamba", "jamba",
-    "zamba2", "granitemoehybrid", "qwen3_next", "lfm2", "minimax", "bert"])
+    "longcat_flash", "bert", "gemma3", "gemma3_vl", "glm4v", "internvl",
+    "llava", "llava_next", "mistral3", "mllama", "paligemma", "qwen2_vl",
+    "qwen2_5_vl", "qwen3_vl", "qwen3_vl_moe"])
 def test_unported_model_types_refused_by_name(model_type):
     from tensorrt_llm_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
     from tensorrt_llm_tpu_torch.models import get_model_class
