@@ -262,10 +262,11 @@ the run on error:
      windows replayed on the card; the aborted request CANCELLED, the
      oversize one failed naming the pool, the poison one a
      ``RequestError``, the requests beside them finished;
- 25. guided_serving: Llama-3-8B at its published width and depth on a
-     bf16 pool (seeded random weights), one ``LLM`` with the device
-     guided backend, byte-level token bytes, a 16,384-state pool, prefix
-     reuse off, otherwise defaults (overlap depth 4, K = 8, 64 rows),
+ 25. guided_serving: Llama-3-8B at its published width, 8 of its 32
+     layers (for the script's time limit), on a bf16 pool (seeded random
+     weights), one ``LLM`` with the device guided backend, byte-level
+     token bytes, a 16,384-state pool, prefix reuse off, otherwise
+     defaults (overlap depth 4, K = 8, 64 rows),
      serving one mixed batch (tools/serving_profile.py ``--guided``,
      ``guided_workload``): 16 x 512 -> 128 JSON-schema requests, 16
      ID-regex ones, 8 EBNF arithmetic, 8 ``json_object``, 16 unguided,
@@ -368,9 +369,9 @@ the run on error:
      launched for the hybrids; and Bamba-9B's widths at 2 layers (one
      Mamba2, one attention; float32): the card's first 8 tokens of 4
      streams against the CPU's, partings only at near-ties;
- 39. bamba_serving: Bamba-9B at its published width and depth (32
-     layers, attention at 9, 18 and 27, seeded random bf16, ~9.8 B
-     parameters), 64 x 512 -> 128, K = 8 windows, graphs
+ 39. bamba_serving: Bamba-9B at its published width, its first 19 of
+     32 layers (for the script's time limit; attention at 9 and 18,
+     seeded random bf16), 64 x 512 -> 128, K = 8 windows, graphs
      (``serving_profile --geometry bamba-9b``): tok/s, TTFT, TPOT, idle
      share, GPU time by class, weights, state-pool and peak bytes, K1 /
      K2 launches, each eager prefill step's device ms, and one Mamba2
@@ -386,6 +387,32 @@ the run on error:
      step's loop over 256 positions, a decode step's one iteration) and
      its loop held against its plain form (1e-4).
 
+ 41. mtp_parity: tiny float32 DeepSeek-V3 and DeepSeek-V2 checkpoints
+     with MTP (d = 2, the JAX package's seeded random module) in the
+     fused window and on the host path, queued requests on 4 rows: greedy
+     tokens identical card against CPU and against the run without
+     speculation, the drafts' counts equal on both devices;
+ 42. mtp_serving: DeepSeek-V3 at its published width, its first 4 layers
+     (3 dense, 1 MoE) and its MTP module (~53.4 GB), 64 x 512 -> 128,
+     K = 8, graphs (``serving_profile --geometry deepseek-v3-mtp``),
+     served without speculation, with MTP (d = 1) in the window and on
+     the host path: tok/s, TTFT, TPOT, idle share, GPU time by class,
+     weights and peak memory, MLA calls by path, drafts proposed and
+     accepted, one window iteration's head and verify ms, and the three
+     token streams against each other (partings only at near-ties);
+ 43. longcat_serving: LongCat-Flash at its published width at 1 of 28
+     pairs (512 experts top 12 beside 256 zero experts, ~43.1 GB), 64 x
+     512 -> 128, K = 8, graphs (``serving_profile --geometry
+     longcat-flash``): tok/s, TTFT, TPOT, idle share, GPU time by class,
+     weights and peak memory, MLA calls by path;
+ 44. longcat_parity: a tiny float32 LongCat-Flash checkpoint (queued
+     requests on 4 rows, K = 4 windows with rider chunks): greedy tokens
+     identical card against CPU and graphs against eager, zero experts
+     picked; and longcat_serving's full-width weights copied to the host:
+     the card's tokens of 2 prompts of 64 -> 8 against the CPU model's
+     forward, partings only at near-ties, and the share of picks that
+     fell on zero experts.
+
 ``python3 chip_smoke.py --only a,b`` runs just the named phases (a
 development run: no kernels line, no result line).
 
@@ -396,8 +423,10 @@ moe_serving's, gemma_serving's, kv_serving's, host_spec_serving's
 DRAFT_TARGET (as the target's and the drafter's), surface_serving's,
 guided_serving's, gptoss_serving's (and those with sinks) and
 deepseek_serving's timed passes (none: MLA calls no kernel), gpt_families'
-summed, moe_families' by family, bamba_serving's timed pass and
-recurrent_families' by family; the dequant-matmul kernel's row also its
+summed, moe_families' by family, bamba_serving's timed pass,
+recurrent_families' by family, mtp_serving's three timed passes and
+longcat_serving's (none: MLA, the MTP head and the ScMoE call no
+kernel); the dequant-matmul kernel's row also its
 e4m3 cases and its e4m3 launches in quant_serving's runs) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -414,6 +443,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 TOL = 2e-2
+# depths cut for the script's 1,200 s limit (guided_serving's time is
+# mostly its grammars' builds; bamba_serving keeps 2 of its 3 attention
+# layers)
+GUIDED_SERVING_LAYERS = 8
+BAMBA_SERVING_LAYERS = 19
 NEAR_TIE = 3e-2               # log-probability margin below which the
                               # quantized cuda/cpu runs may part ways
 
@@ -3201,8 +3235,9 @@ def _guided_faults(outs, sps, classes) -> tuple:
 
 
 def guided_serving_phase() -> dict:
-    """Llama-3-8B at full width and depth on a bf16 pool (seeded random
-    weights), one ``LLM`` with ``guided_decoding_backend="dfa"``,
+    """Llama-3-8B at full width, its first ``GUIDED_SERVING_LAYERS`` (8)
+    of 32 layers for the script's time limit, on a bf16 pool (seeded
+    random weights), one ``LLM`` with ``guided_decoding_backend="dfa"``,
     ``guided_token_bytes="byte"``, a 16,384-state pool, prefix reuse off
     and otherwise defaults (overlap depth 4, K = 8, 64 rows), serving
     tools/serving_profile.py's ``guided_workload`` through
@@ -3218,6 +3253,7 @@ def guided_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch import LLM
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     cfg, kwargs, pool, prompts, sps, classes = sprof.guided_workload("dfa")
+    cfg.num_hidden_layers = GUIDED_SERVING_LAYERS
     os.environ["TLLM_TPU_GUIDED_POOL_STATES"] = str(pool)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4928,10 +4964,11 @@ def _eager_step_ms(llm, prompts, sp) -> list:
 
 
 def bamba_serving_phase() -> dict:
-    """Bamba-9B at its published width and depth (32 layers: 29 Mamba2
-    layers of 128 heads x 64 over a state of 128, attention at layers 9,
-    18 and 27 through K1/K2; seeded random bf16 weights, ~9.8 B
-    parameters), 64 requests of 512 prompt tokens -> 128 greedy tokens
+    """Bamba-9B at its published width, its first
+    ``BAMBA_SERVING_LAYERS`` (19) of 32 layers for the script's time
+    limit (17 Mamba2 layers of 128 heads x 64 over a state of 128,
+    attention at layers 9 and 18 through K1/K2; seeded random bf16
+    weights), 64 requests of 512 prompt tokens -> 128 greedy tokens
     with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8 windows, depth
     4, CUDA graphs) but 8,192 tokens a prefill step and prefix reuse off
     (tools/serving_profile.py ``--geometry bamba-9b``): a warm-up, a timed
@@ -4951,6 +4988,7 @@ def bamba_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch import LLM
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     cfg, kwargs, prompts, sp = sprof.workload(geometry="bamba-9b")
+    cfg = sprof.bamba_9b_config(BAMBA_SERVING_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5075,6 +5113,557 @@ def recurrent_families_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# MTP speculation on the MLA targets, LongCat-Flash's shortcut MoE
+# --------------------------------------------------------------------- #
+def mtp_parity_phase() -> dict:
+    """Tiny float32 DeepSeek-V3 and DeepSeek-V2 checkpoints
+    (``_save_tiny_deepseek``) with MTP (d = 2, the JAX package's seeded
+    random module, ``speculative.mtp.synth_state_dict``) through
+    ``LLM.generate``, in the fused window and on the host path, the card
+    against the port's CPU path: 7 requests queued before admission on 4
+    rows (later ones in recycled slots and head slots), greedy tokens
+    identical card against CPU and against the run without speculation,
+    drafts proposed and accepted equal on both devices, the windows
+    replayed from graphs on the card. Fails otherwise."""
+    import numpy as np
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, SamplingParams,
+                                        SpeculativeConfig)
+    rng = np.random.default_rng(35)
+    lens = (40, 9, 57, 23, 70, 31, 12)
+    prompts = [rng.integers(1, 511, n).tolist() for n in lens]
+    sps = [SamplingParams(max_tokens=n, top_k=1, ignore_eos=True)
+           for n in (24, 6, 30, 12, 20, 16, 8)]
+    kw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+              max_input_len=96, max_seq_len=160, max_num_tokens=128,
+              decode_multi_step=4,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    res, failures = {}, []
+
+    def run(path, device, window):
+        spec = None if window is None else SpeculativeConfig(
+            mode="MTP", max_draft_len=2, device_window=window)
+        llm = LLM(str(path), device=device, speculative_config=spec, **kw)
+        try:
+            toks = _queued_generate(llm, prompts, sps)
+            eng, ex = llm.engine, llm.executor
+            st = {}
+            if window:
+                dr = eng.sd.drafter
+                st = dict(windows=eng.sd.windows,
+                          accepted=dr.accepted_total, steps=dr.steps_total,
+                          nonspec_rows=ex.nonspec_decode_rows)
+            elif window is not None:
+                st = dict(proposed=ex.drafts_proposed,
+                          accepted=ex.drafts_accepted,
+                          drafted_rows=ex.drafted_rows)
+            if device == "cuda":
+                st["graph_replays"] = eng.graphs.replays
+        finally:
+            llm.shutdown()
+        return toks, st
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("v3", "v2"):
+            path = Path(tmp) / kind
+            path.mkdir()
+            _save_tiny_deepseek(path, kind)
+            plain, _ = run(path, "cpu", None)
+            for window in (True, False):
+                cpu, cpu_st = run(path, "cpu", window)
+                card, card_st = run(path, "cuda", window)
+                path_name = "window" if window else "host"
+                stats = {k: v for k, v in card_st.items()
+                         if k != "graph_replays"}
+                r = dict(kind=kind, path=path_name, identical=card == cpu,
+                         equals_plain=card == plain,
+                         stats_equal=stats == cpu_st, cpu=cpu_st,
+                         card=card_st)
+                emit({"phase": "mtp_parity", **r})
+                if card != cpu or card != plain or stats != cpu_st:
+                    failures.append(f"mtp_parity {kind} {path_name}: {r}, "
+                                    f"card {card} cpu {cpu} plain {plain}")
+                if window and not (card_st["windows"] and
+                                   card_st["graph_replays"]):
+                    failures.append(f"mtp_parity {kind}: no window replayed")
+                if not window and not card_st["proposed"]:
+                    failures.append(f"mtp_parity {kind}: no drafts")
+                res[f"{kind}_{path_name}"] = r
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
+def _mtp_iteration_ms(eng, pos: int = 640, reps: int = 3) -> dict:
+    """One spec-window iteration's two parts at mtp_serving's shape,
+    outside the window (eager, CUDA events, median of ``reps`` after a
+    warm call; every write to an out-of-range slot, so nothing changes):
+    the MTP head's catch-up over d + 1 rows a sequence of all 64 slots
+    (MLA decompressed) with its d - 1 chained steps and the draft argmax,
+    and the target's verify over the same rows (decompressed MLA over
+    ``pos`` positions, logits and hidden rows, argmax)."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops.attention import AttentionMetadata
+    from tensorrt_llm_tpu_torch.speculative.one_model import head_step
+    sd, dev = eng.sd, eng.device
+    dr, rows, Dp = sd.drafter, eng.max_batch_size, sd.d + 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    T = rows * Dp
+    gen = torch.Generator(device=dev).manual_seed(7)
+    feats = torch.randn(T, eng.model.hidden_size, generator=gen, device=dev
+                        ).to(eng.model.dtype)
+    toks = torch.randint(0, eng.model.vocab_size, (T,), generator=gen,
+                         device=dev)
+    positions = (pos - Dp + torch.arange(Dp, device=dev)).repeat(rows) \
+        .to(torch.int32)
+    last = torch.arange(rows, device=dev) * Dp + Dp - 1
+    common = dict(kv_lens=torch.full((rows,), pos, **i32),
+                  cu_q_lens=torch.arange(rows + 1, **i32) * Dp,
+                  num_seqs=torch.full((1,), rows, **i32),
+                  positions=positions, max_q_len=Dp)
+    hpages = (torch.arange(rows, device=dev)[:, None] * sd.P_h
+              + torch.arange(sd.P_h, device=dev)[None]).to(torch.int32)
+    hbound = eng.head_kv_bound(pos + sd.d)
+    head_md = AttentionMetadata(
+        page_indices=hpages, logits_indices=last, max_kv_len=hbound,
+        slot_mapping=torch.full((T,), sd.kv.shape[0] * sd.ps_h, **i32),
+        **common)
+    P = eng.pages_per_seq
+    tpages = (torch.arange(rows * P, device=dev).reshape(rows, P)
+              % eng.num_kv_pages).to(torch.int32)
+    verify_md = AttentionMetadata(
+        page_indices=tpages, logits_indices=torch.arange(T, device=dev),
+        max_kv_len=eng._kv_bound(pos),
+        slot_mapping=torch.full((T,), eng.num_kv_pages * eng.page_size,
+                                **i32), **common)
+
+    def head():
+        h, f = head_step(dr, feats, toks, sd.kv, head_md)
+        h, tok = h[last], dr.draft_argmax(f[last])
+        for t in range(sd.d - 1):
+            p = torch.full((rows,), pos + t, **i32)
+            h, f = head_step(dr, h, tok, sd.kv, AttentionMetadata(
+                kv_lens=p + 1, page_indices=hpages,
+                cu_q_lens=torch.arange(rows + 1, **i32),
+                num_seqs=common["num_seqs"],
+                slot_mapping=torch.full((rows,), sd.kv.shape[0] * sd.ps_h,
+                                        **i32),
+                positions=p, logits_indices=torch.arange(rows, device=dev),
+                max_q_len=1, max_kv_len=hbound))
+            tok = dr.draft_argmax(f)
+
+    def verify():
+        logits, _ = eng._forward(toks, verify_md, collect_hidden=True)
+        torch.argmax(logits, -1)
+
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("head", head), ("verify", verify)):
+            fn()
+            times = []
+            for _ in range(reps):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                torch.cuda.synchronize()
+                times.append(e0.elapsed_time(e1))
+            out[f"{name}_ms"] = statistics.median(times)
+    out.update(rows=rows, query_rows=T, positions=pos)
+    return out
+
+
+def mtp_serving_phase() -> dict:
+    """DeepSeek-V3 at its published width (hidden 7,168, 128 MLA heads,
+    256 experts top 8 and 1 shared), its first 4 layers (3 dense, 1 MoE)
+    and its MTP module (seeded random bf16 weights made on the card,
+    ~53.4 GB with the module; tools/serving_profile.py ``--geometry
+    deepseek-v3-mtp``), 64 requests of 512 prompt tokens -> 128 greedy
+    tokens with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8, depth
+    4, CUDA graphs) but 8,192 tokens a prefill step and prefix reuse off,
+    served three times: without speculation, with MTP (d = 1, the one
+    token the published module is trained for) in the fused window
+    (4 iterations a window), and with MTP on the host path. Each: a
+    warm-up, a timed pass (tok/s, TTFT and TPOT median and max, MLA calls
+    by path, K1 / K2 / K3 launches, drafts proposed and accepted) and,
+    but on the host path, a profiled pass (GPU time by class, idle
+    share); weights (the module's too) and peak memory; for the window,
+    one iteration's head and verify ms at the served shape
+    (``_mtp_iteration_ms``). The run without speculation serves the
+    prompts once more with top-2 logprobs (single steps), against which
+    the spec runs' timed streams (each token's logprob recorded) must
+    agree, bf16 partings only where it decides by a near-tie
+    (``_compare_streams``). Fails otherwise, if a request comes back
+    short, out of the vocabulary or with a non-finite logprob, if no
+    window replayed, if the host path proposed nothing, or if a graph
+    pool outgrew its reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="deepseek-v3-mtp")
+    sp_lp = SamplingParams(max_tokens=sp.max_tokens, top_k=1,
+                           ignore_eos=True, logprobs=2)
+    runs, streams = {}, {}
+    V = cfg.vocab_size
+    for name, window in (("plain", None), ("window", True),
+                         ("host", False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(kwargs)
+        if window is not None:
+            kw["speculative_config"] = sprof.spec_config("MTP", 1, cfg,
+                                                         window)
+        t0 = time.monotonic()
+        llm = LLM(cfg, dtype="bfloat16", **kw)
+        build_s = time.monotonic() - t0
+        try:
+            eng = llm.engine
+            head = eng.sd.drafter if window else \
+                llm.executor.host_drafter if window is False else None
+            weights = sum(t.numel() * t.element_size()
+                          for t in _tensors(eng.params))
+            head_bytes = 0 if head is None else sum(
+                t.numel() * t.element_size() for t in _tensors(head.params))
+            outs = []
+            res = sprof.measure(llm, prompts, sp, profile=name != "host",
+                                outputs=outs)
+            graphs = _graph_stats(eng)
+            graphs["mla_calls"] = sprof.mla_graph_calls(eng)
+            if window:
+                res["iteration"] = _mtp_iteration_ms(eng)
+            reserve = eng.graph_pool_reserve()
+            if window is None:
+                # the reference stream: top-2 logprobs a token (single
+                # steps); the others record the chosen token's
+                outs = llm.generate(prompts, sp_lp)
+        finally:
+            llm.shutdown()
+        peak = torch.cuda.max_memory_allocated()
+        del llm, eng, head
+        streams[name] = ([o.outputs[0].token_ids for o in outs],
+                         [o.outputs[0].logprobs for o in outs])
+        for toks in streams[name][0]:
+            if len(toks) != sp.max_tokens or not all(0 <= t < V
+                                                     for t in toks):
+                raise AssertionError(f"mtp_serving {name}: bad output "
+                                     f"{toks}")
+        if res["output_tokens"] != len(prompts) * sp.max_tokens or \
+                res["nonfinite_logprobs"]:
+            raise AssertionError(f"mtp_serving {name}: "
+                                 f"{res['output_tokens']} tokens, or "
+                                 "non-finite logprobs")
+        res.update(run=name, model="DeepSeek-V3",
+                   layers=cfg.num_hidden_layers,
+                   dense_layers=cfg.first_k_dense_replace,
+                   experts=cfg.n_routed_experts,
+                   top_k=cfg.num_experts_per_tok, engine_build_s=build_s,
+                   weights_bytes=weights, head_weights_bytes=head_bytes,
+                   peak_allocated_bytes=peak,
+                   graph_pool_reserve_bytes=reserve, graphs=graphs)
+        emit({"phase": "mtp_serving", **res})
+        runs[name] = res
+        _check_reserve(res)
+    cmp = {k: _compare_streams(streams["plain"], streams[k])
+           for k in ("window", "host")}
+    identical = streams["plain"][0] == streams["window"][0] == \
+        streams["host"][0]
+    emit({"phase": "mtp_serving", "run": "compare", "identical": identical,
+          **{f"{k}_vs_plain": v for k, v in cmp.items()}})
+    if any(c["unexplained_partings"] for c in cmp.values()):
+        raise AssertionError(f"mtp_serving: token streams part beyond "
+                             f"near-ties: {cmp}")
+    if not runs["window"]["spec_windows"] or \
+            not runs["window"]["graphs"]["graph_replays"]:
+        raise AssertionError("mtp_serving: no spec window replayed")
+    if not runs["host"]["drafts_proposed"]:
+        raise AssertionError("mtp_serving: the host path proposed nothing")
+    return dict(runs=runs, identical=identical, compare=cmp)
+
+
+def _save_tiny_longcat(path: Path) -> None:
+    """A tiny LongCat-Flash checkpoint written from a seeded numpy
+    generator under the published names (config.json and
+    model.safetensors; ``checkpoint_shapes``, so that no transformers
+    module layout enters): hidden 256, 2 pairs of MLA (4 heads over a latent
+    of 64 + 32, q_lora 96) + dense MLP (512), 8 experts of 128 and 4 zero
+    experts, top 3, vocab 512. The router at std 0.5 so that rows pick by
+    their scores, zero experts among them; norms near 1."""
+    import numpy as np
+    import torch
+    from safetensors.numpy import save_file
+    from tensorrt_llm_tpu_torch.models import ModelConfig, get_model_class
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg = sprof._config("LongcatFlashConfig", "longcat_flash", dict(
+        vocab_size=512, hidden_size=256, ffn_hidden_size=512,
+        expert_ffn_hidden_size=128, num_layers=2, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=4, head_dim=32,
+        q_lora_rank=96, kv_lora_rank=64, qk_nope_head_dim=64,
+        qk_rope_head_dim=32, v_head_dim=64, n_routed_experts=8,
+        zero_expert_num=4, moe_topk=3, routed_scaling_factor=2.0,
+        max_position_embeddings=1024, rms_norm_eps=1e-5,
+        tie_word_embeddings=False))
+    cfg.save_pretrained(path)
+    rng = np.random.default_rng(37)
+    sd = {}
+    model = get_model_class("longcat_flash")(ModelConfig(
+        hf_config=cfg, dtype=torch.float32, device="cpu"))
+    for name, shape in model.checkpoint_shapes().items():
+        if "norm" in name and len(shape) == 1:
+            a = 1 + rng.standard_normal(shape) * 0.1
+        elif name.endswith("e_score_correction_bias"):
+            a = rng.standard_normal(shape) * 0.1
+        else:
+            std = 1.0 if "embed" in name else \
+                0.5 if "classifier" in name else 0.05
+            a = rng.standard_normal(shape) * std
+        sd[name] = a.astype(np.float32)
+    save_file(sd, str(path / "model.safetensors"))
+
+
+def _greedy_forward(model, params, prompts, n: int) -> tuple:
+    """Greedy tokens of each prompt by the model's forward alone, one
+    sequence at a time over a fresh pool of page 32 (prefill, then one
+    token a step): (tokens, per token {top-2 ids: log-probabilities})."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops.attention import AttentionMetadata
+    dev = model.device
+    ps = 32
+    i32 = dict(dtype=torch.int32, device=dev)
+    toks_all, lps_all = [], []
+    with torch.no_grad():
+        for prompt in prompts:
+            P = -(-(len(prompt) + n) // ps)
+            pool = model.make_kv_pages(P + 1, ps)
+            pages = torch.arange(P, **i32)[None]
+            seq, toks, lps = list(prompt), [], []
+            start = 0
+            for _ in range(n):
+                T = len(seq) - start
+                pos = torch.arange(start, len(seq), **i32)
+                logits, _ = model.forward(
+                    params, torch.tensor(seq[start:], device=dev), pool,
+                    AttentionMetadata(
+                        kv_lens=torch.tensor([len(seq)], **i32),
+                        page_indices=pages,
+                        cu_q_lens=torch.tensor([0, T], **i32),
+                        num_seqs=torch.tensor([1], **i32),
+                        slot_mapping=pos, positions=pos,
+                        logits_indices=torch.tensor([T - 1], device=dev),
+                        max_q_len=T, max_kv_len=len(seq)))
+                lp = torch.log_softmax(logits[0].float(), -1)
+                top = torch.topk(lp, 2)
+                tok = int(top.indices[0])
+                toks.append(tok)
+                lps.append({int(i): float(v)
+                            for i, v in zip(top.indices, top.values)})
+                start = len(seq)
+                seq.append(tok)
+            toks_all.append(toks)
+            lps_all.append(lps)
+    return toks_all, lps_all
+
+
+def longcat_serving_phase() -> dict:
+    """LongCat-Flash at its published width (hidden 6,144, 64 MLA heads,
+    dense MLPs of 12,288, 512 experts top 12 of 2,048 beside 256 zero
+    experts; tools/serving_profile.py ``--geometry longcat-flash``) at 1
+    of its 28 pairs (two MLA + dense sublayers and one shortcut MoE;
+    seeded random bf16 weights made on the card, ~43.1 GB), 64 requests
+    of 512 prompt tokens -> 128 greedy tokens with ``ignore_eos``, ``LLM``
+    defaults (64 rows, K = 8, depth 4, CUDA graphs) but 8,192 tokens a
+    prefill step and prefix reuse off: a warm-up, a timed pass (tok/s,
+    TTFT and TPOT median and max, MLA calls by path, K1 / K2 / K3
+    launches) and a profiled pass (idle share, GPU time by class), weights
+    and peak memory. Then 2 prompts of 64 tokens -> 8 with top-2
+    logprobs on the card, and the weights copied to the host for
+    longcat_parity's CPU run. Fails if a request comes back short, out of
+    the vocabulary or with a non-finite logprob, if no window replayed,
+    or if the graph pool outgrew its reserve. Returns (results, what
+    longcat_parity needs)."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="longcat-flash")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    short = [p[:64] for p in prompts[:2]]
+    try:
+        eng = llm.engine
+        weights = sum(t.numel() * t.element_size()
+                      for t in _tensors(eng.params))
+        res = sprof.measure(llm, prompts, sp)
+        graphs = _graph_stats(eng)
+        graphs["mla_calls"] = sprof.mla_graph_calls(eng)
+        reserve = eng.graph_pool_reserve()
+        pages = eng.num_kv_pages
+        kv_bytes_per_token = eng.bytes_per_kv_block // eng.page_size
+        outs = llm.generate(prompts[:4], sp)
+        card = llm.generate(short, SamplingParams(
+            max_tokens=8, top_k=1, ignore_eos=True, logprobs=2))
+        t1 = time.monotonic()
+        host_params = _tree_to(eng.params, "cpu")
+        copy_s = time.monotonic() - t1
+    finally:
+        llm.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = cfg.vocab_size
+    for o in outs:
+        toks = o.outputs[0].token_ids
+        if len(toks) != sp.max_tokens or not all(0 <= t < V for t in toks):
+            raise AssertionError(f"longcat_serving: bad output {toks}")
+    if res["output_tokens"] != len(prompts) * sp.max_tokens or \
+            res["nonfinite_logprobs"]:
+        raise AssertionError(f"longcat_serving: {res['output_tokens']} "
+                             "tokens, or non-finite logprobs")
+    res.update(model="LongCat-Flash", pairs=cfg.num_layers,
+               experts=cfg.n_routed_experts,
+               zero_experts=cfg.zero_expert_num, top_k=cfg.moe_topk,
+               engine_build_s=build_s, weights_bytes=weights,
+               peak_allocated_bytes=peak, kv_pool_pages=pages,
+               kv_bytes_per_token=kv_bytes_per_token,
+               graph_pool_reserve_bytes=reserve, graphs=graphs,
+               host_copy_s=copy_s)
+    emit({"phase": "longcat_serving", **res})
+    if not graphs["graph_replays"] or not graphs["mla_calls"].get(
+            "multi", {}).get("absorbed"):
+        raise AssertionError(f"longcat_serving: no absorbed window "
+                             f"replayed: {graphs}")
+    _check_reserve(res)
+    full = dict(cfg=cfg, params=host_params, prompts=short,
+                card=([o.outputs[0].token_ids for o in card],
+                      [o.outputs[0].logprobs for o in card]))
+    return res, full
+
+
+def _tree_to(tree, device):
+    """A parameter tree with every tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device) if hasattr(tree, "to") else tree
+
+
+def longcat_parity_phase(full) -> dict:
+    """A tiny float32 LongCat-Flash checkpoint (``_save_tiny_longcat``)
+    through ``LLM.generate``, the card against the port's CPU path: 7
+    requests queued before admission on 4 rows, K = 4 windows with rider
+    chunks of 32 tokens: greedy tokens identical card against CPU and
+    graphs against eager, zero experts picked. Then LongCat-Flash's
+    published width at one pair (longcat_serving's weights, bf16, copied
+    to the host): the card's served tokens of 2 prompts of 64 tokens -> 8
+    against the CPU model's forward (``_greedy_forward``), identical
+    wherever the CPU decides by more than 3e-2 in log-probability, and
+    the share of the CPU run's expert picks that fell on zero experts.
+    Fails otherwise."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.models import ModelConfig, get_model_class
+    rng = np.random.default_rng(39)
+    lens = (40, 9, 57, 23, 70, 31, 12)
+    prompts = [rng.integers(1, 511, n).tolist() for n in lens]
+    sps = [SamplingParams(max_tokens=n, top_k=1, ignore_eos=True)
+           for n in (24, 6, 30, 12, 20, 16, 8)]
+    kw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+              max_input_len=96, max_seq_len=160, max_num_tokens=128,
+              decode_multi_step=4, mixed_window_ctx=32,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    res, failures = {}, []
+
+    def count_zero_picks(model):
+        """Count the shortcut MoE's picks, the zero experts' among them
+        and the routed experts each call touched, over every eager call
+        (not while a graph is captured: a count reads the device; graph
+        replays run no Python)."""
+        seen = {"calls": 0, "picks": 0, "zero": 0, "experts_touched": 0}
+        route = model.sc_route
+
+        def counted(pair, x):
+            w, idx = route(pair, x)
+            if not torch.cuda.is_current_stream_capturing():
+                real = idx[idx < model.num_experts]
+                seen["calls"] += 1
+                seen["picks"] += idx.numel()
+                seen["zero"] += idx.numel() - real.numel()
+                seen["experts_touched"] += int(real.unique().numel())
+            return w, idx
+        model.sc_route = counted
+        return seen
+
+    def run(path, device, capture=None):
+        llm = LLM(str(path), device=device,
+                  enable_warmup=capture is not False, **kw)
+        if capture is not None:
+            llm.engine.graphs.capture = capture
+        seen = count_zero_picks(llm.model)
+        try:
+            toks = _queued_generate(llm, prompts, sps)
+            st = dict(mixed_windows=llm.engine.mixed_windows_dispatched,
+                      **seen)
+            if device == "cuda":
+                st["graph_replays"] = llm.engine.graphs.replays
+        finally:
+            llm.shutdown()
+        return toks, st
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "longcat"
+        path.mkdir()
+        _save_tiny_longcat(path)
+        cpu, cpu_st = run(path, "cpu")
+        card, card_st = run(path, "cuda")
+        eager, _ = run(path, "cuda", capture=False)
+    r = dict(kind="tiny", identical=card == cpu,
+             graph_equals_eager=eager == card, cpu=cpu_st, card=card_st)
+    emit({"phase": "longcat_parity", **r})
+    if card != cpu or eager != card:
+        failures.append(f"longcat_parity tiny: card {card} / eager {eager} "
+                        f"!= cpu {cpu}")
+    if not (card_st["graph_replays"] and card_st["mixed_windows"] and
+            cpu_st["zero"]):
+        failures.append(f"longcat_parity tiny: no replay, rider window or "
+                        f"zero-expert pick: {card_st} {cpu_st}")
+    res["tiny"] = r
+    if full is not None:
+        t0 = time.monotonic()
+        model = get_model_class("longcat_flash")(ModelConfig(
+            hf_config=full["cfg"], dtype=torch.bfloat16, device="cpu"))
+        seen = count_zero_picks(model)
+        cpu_stream = _greedy_forward(model, full["params"], full["prompts"],
+                                     8)
+        cmp = _compare_streams(cpu_stream, full["card"])
+        r = dict(kind="full_width_one_pair", identical=cpu_stream[0] ==
+                 full["card"][0], cpu=cpu_stream[0], card=full["card"][0],
+                 zero_pick_share=seen["zero"] / max(1, seen["picks"]),
+                 experts_touched_per_call=seen["experts_touched"] / max(
+                     1, seen["calls"]), routing=seen,
+                 cpu_s=time.monotonic() - t0, **cmp)
+        emit({"phase": "longcat_parity", **r})
+        if cmp["unexplained_partings"] or not seen["picks"]:
+            failures.append(f"longcat_parity full width: {r}")
+        res["full_width"] = r
+        del model
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -5114,6 +5703,7 @@ def main() -> int:
         t = time.monotonic()
         out = fn(*a)
         seconds[name] = time.monotonic() - t
+        emit({"phase_seconds": name, "seconds": seconds[name]})
         return out
 
     kern = timed("kernels", kernel_phase)
@@ -5161,6 +5751,13 @@ def main() -> int:
     timed("recurrent_parity", recurrent_parity_phase)
     bamba = timed("bamba_serving", bamba_serving_phase)
     rec_fams = timed("recurrent_families", recurrent_families_phase)
+    timed("mtp_parity", mtp_parity_phase)
+    mtp = timed("mtp_serving", mtp_serving_phase)
+    longcat = timed("longcat_serving", longcat_serving_phase)
+    timed("longcat_parity", lambda: longcat_parity_phase(
+        None if longcat is None else longcat[1]))
+    if longcat is not None:
+        longcat[1].clear()          # the host copy of the weights
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -5203,6 +5800,9 @@ def main() -> int:
             launches_bamba_serving=bamba["launches"][name],
             launches_recurrent_families={f: v["launches"][name]
                                          for f, v in rec_fams.items()},
+            launches_mtp_serving={k: v["launches"][name]
+                                  for k, v in mtp["runs"].items()},
+            launches_longcat_serving=longcat[0]["launches"][name],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()

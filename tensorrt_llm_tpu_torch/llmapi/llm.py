@@ -14,14 +14,14 @@ bare ``transformers`` config, which serves random weights like
 tinyllama, qwen2, qwen3, gemma2, gemma3_text, granite, olmo2, phi3, glm,
 glm4, exaone4, smollm3, helium, arcee, hunyuan_v1_dense, seed_oss,
 ernie4_5, apertus, the GPT families (models/gpt_family.py, gpt2.py),
-deepseek_v2 and deepseek_v3 (MLA over a latent pool), and the MoE
-families mixtral, qwen2_moe, qwen3_moe, olmoe, gpt_oss, granitemoe,
+deepseek_v2, deepseek_v3 and longcat_flash (MLA over a latent pool), and
+the MoE families mixtral, qwen2_moe, qwen3_moe, olmoe, gpt_oss, granitemoe,
 hunyuan_v1_moe, glm4_moe and ernie4_5_moe on one GPU, and the recurrent
 families mamba, falcon_mamba, mamba2, bamba, jamba, zamba2,
 granitemoehybrid, lfm2, qwen3_next and minimax (models/recurrent.py:
 state pools indexed by sequence slot; no chunked prefill, no block
-reuse, no speculation); the JAX package's multimodal types,
-longcat_flash and bert are refused by name.
+reuse, no speculation); the JAX package's multimodal types and bert
+are refused by name.
 ``kv_cache_config=KvCacheConfig(max_attention_window=[w, ...])`` serves
 Gemma 2 with VSWA: its sliding layers keep their KV in a second pool
 sized for the smallest window w, which is also their window (Gemma 3's
@@ -41,11 +41,14 @@ cache in int8 or float8 e4m3 (NVFP4: e4m3 on the e2m1 grid), with
 per-layer scales calibrated at build over 512 seeded random tokens, as the
 JAX ``LLM`` does when the checkpoint brings none.
 ``speculative_config=SpeculativeConfig(mode=..., max_draft_len=d,
-draft_model=...)`` serves speculative decoding: ``"EAGLE3"`` in the fused
-device window (runtime/spec_window.py; ``draft_model`` a directory of
+draft_model=...)`` serves speculative decoding: ``"EAGLE3"`` and (on a
+deepseek_v3 / deepseek_v2 target) ``"MTP"`` in the fused device window
+(runtime/spec_window.py) or, with ``device_window=False``, on the sync
+scheduler (speculative/one_model.py); ``draft_model`` a directory of
 ``*.safetensors`` head weights, a torch module whose ``state_dict`` holds
-them, or None for a seeded random head), and on the sync scheduler with a
-host drafter ``"NGRAM"``, ``"SA"``, ``"AUTO"`` (SA up to 8 rows, else
+them, a mapping of checkpoint names to tensors, or None for the JAX
+package's seeded random head; and on the sync scheduler with a host
+drafter ``"NGRAM"``, ``"SA"``, ``"AUTO"`` (SA up to 8 rows, else
 NGram), ``"USER_PROVIDED"`` (a ``Drafter`` in ``draft_model``, chain
 drafts only), ``"DRAFT_TARGET"`` and ``"PARD"`` (``draft_model`` a
 checkpoint directory, a torch module or a bare ``transformers`` config,
@@ -86,7 +89,7 @@ import contextlib
 import copy
 import os
 from pathlib import Path
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -318,14 +321,19 @@ class LLM:
     def _build_host_drafter(self):
         """(host drafter, drafts per verify step) of the modes that draft
         on the sync scheduler (the JAX ``LLM._build_executor``, llm.py:
-        323-370), or (None, 0). Built before the engine, so that the
-        draft model's weights and pool are on the device before the
-        target's pool is sized from free memory."""
+        323-403: EAGLE3 and MTP with ``device_window=False`` among them),
+        or (None, 0). Built before the engine, so that the draft model's
+        weights and pool are on the device before the target's pool is
+        sized from free memory."""
         sc = self.args.speculative_config
-        if sc is None or sc.mode in ("NONE", "EAGLE3"):
+        if sc is None or sc.mode == "NONE" or \
+                (sc.mode in ("EAGLE3", "MTP") and sc.device_window):
             return None, 0
         d = sc.max_draft_len or 4
-        if sc.mode == "USER_PROVIDED":
+        if sc.mode in ("EAGLE3", "MTP"):
+            drafter = self._build_one_model_head(
+                max_slots=min(32, self.args.max_batch_size))
+        elif sc.mode == "USER_PROVIDED":
             drafter = sc.draft_model
             if not callable(getattr(drafter, "prepare_draft_tokens", None)):
                 raise ValueError("USER_PROVIDED needs a Drafter in "
@@ -401,12 +409,26 @@ class LLM:
             max_seq_len=self.args.max_seq_len,
             parallel_draft=sc.mode == "PARD", mask_token_id=int(mask_id or 0))
 
-    def _build_eagle_head(self):
-        """The EAGLE3 head of the fused window, or None without it."""
+    def _build_spec_head(self):
+        """The EAGLE3 or MTP head of the fused window, or None without
+        one. Built before the engine, so that the head's weights are on
+        the device before the target's pool is sized from free memory
+        (the engine counts the head's pool off it, ``spec_state_bytes``)."""
         sc = self.args.speculative_config
-        if sc is None or sc.mode != "EAGLE3":
+        if sc is None or sc.mode not in ("EAGLE3", "MTP") or \
+                not sc.device_window:
             return None
-        from ..speculative.eagle import Eagle3Drafter
+        return self._build_one_model_head(max_slots=0)
+
+    def _build_one_model_head(self, max_slots: int):
+        """An EAGLE3 or MTP head (the JAX llm.py:372-403). Its weights come
+        from ``draft_model``: a directory of ``*.safetensors``, a torch
+        module whose ``state_dict`` holds them, or a mapping of
+        checkpoint names to tensors (read as the loader asks for each;
+        ``models.recurrent.RandomCheckpoint`` draws seeded random ones on
+        the device); without them, the JAX package's seeded random head.
+        ``max_slots`` > 0: the host path's own pool of that many slots."""
+        sc = self.args.speculative_config
         head_sd = None
         if isinstance(sc.draft_model, (str, Path)):
             from safetensors.torch import load_file
@@ -417,10 +439,16 @@ class LLM:
                 hasattr(sc.draft_model, "state_dict"):
             head_sd = {k: v.detach().cpu().float()
                        for k, v in sc.draft_model.state_dict().items()}
-        return Eagle3Drafter(self.model, self._params,
-                             max_draft_len=self.engine.spec_draft_len,
-                             max_seq_len=self.args.max_seq_len,
-                             head_state_dict=head_sd)
+        elif isinstance(sc.draft_model, Mapping):
+            head_sd = sc.draft_model
+        if sc.mode == "MTP":
+            from ..speculative.mtp import MtpDrafter as cls
+        else:
+            from ..speculative.eagle import Eagle3Drafter as cls
+        return cls(self.model, self._params,
+                   max_draft_len=sc.max_draft_len or 4, max_slots=max_slots,
+                   max_seq_len=self.args.max_seq_len,
+                   head_state_dict=head_sd)
 
     def _build_guided_decoder(self):
         """(guided decoder, device pool states) as the JAX ``LLM`` builds
@@ -449,6 +477,7 @@ class LLM:
     def _build_executor(self):
         args = self.args
         host_drafter, d = self._build_host_drafter()
+        head = self._build_spec_head()
         guided, pool_states = self._build_guided_decoder()
         with _creation_stage("kv_pool"):
             # the guided pool is allocated first, so the KV pool's sizing
@@ -465,7 +494,6 @@ class LLM:
             rng = np.random.default_rng(0)
             self.engine.calibrate_kv_scales(rng.integers(
                 1, max(2, self.model.vocab_size - 1), size=512))
-        head = self._build_eagle_head()
         del self._params
         if head is not None:
             # device windows verify inside the fused window; the plain

@@ -131,7 +131,8 @@ class SpeculativeConfig(StrictBaseModel):
     max_concurrency: Optional[int] = None
     # EAGLE3/MTP: run propose->verify->accept fused on the device
     # (runtime/spec_window.py) so speculation rides the overlap
-    # scheduler; False = host-orchestrated drafting (sync scheduler)
+    # scheduler; False = host-orchestrated drafting (sync scheduler,
+    # speculative/one_model.py)
     device_window: bool = True
     # spec iterations per fused dispatch (0 = derive from
     # decode_multi_step)
@@ -151,11 +152,14 @@ HOST_SPEC_MODES = ("NGRAM", "SA", "AUTO", "USER_PROVIDED", "DRAFT_TARGET",
 def check_ported_spec(sc: Optional[SpeculativeConfig],
                       model_type: Optional[str] = None) -> None:
     """Refuse, by name, a speculative mode or option this package does
-    not have, and (with ``model_type``) a target EAGLE3 cannot draft for:
-    the EAGLE3 head reads the target's hidden rows, which the MoE (the
-    DeepSeek-style families included), Gemma, LayerNorm GPT and Apertus
-    forwards do not collect for it (nor do the JAX package's). The host
-    drafters need no hidden rows and take any target."""
+    not have, and (with ``model_type``) a target the mode cannot draft
+    for: the EAGLE3 head reads the target's hidden rows, which the MoE
+    (the DeepSeek-style families included), Gemma, LayerNorm GPT and
+    Apertus forwards do not collect for it (nor do the JAX package's);
+    the MTP head is an MLA layer that needs a DeepSeek-V3 / V2 target
+    (the JAX package raises ValueError on any other, and on LongCat-Flash
+    its forward fails: it collects no hidden rows). The host drafters
+    need no hidden rows and take any target."""
     if sc is None or sc.mode == "NONE":
         return
     if model_type in RECURRENT_MODEL_TYPES:
@@ -166,11 +170,11 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
             "rolled back as KV pages can (the JAX package's NGRAM on a "
             "Mamba target parts from greedy decoding at the first rejected "
             "draft)")
-    if sc.mode in ("MTP", "DFLASH"):
+    if sc.mode == "DFLASH":
         raise NotImplementedError(
-            f"speculative mode {sc.mode} is not supported by this package "
-            "yet (EAGLE3 with device_window=True and the host drafters "
-            f"{', '.join(HOST_SPEC_MODES)} are)")
+            "speculative mode DFLASH (the EAGLE head's block proposal) is "
+            "not supported by this package yet (EAGLE3, MTP and the host "
+            f"drafters {', '.join(HOST_SPEC_MODES)} are)")
     if sc.eagle_tree_width > 1:
         raise NotImplementedError(
             "speculative eagle_tree_width > 1 (EAGLE tree drafts) is not "
@@ -179,7 +183,16 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
         raise NotImplementedError(
             "speculative eagle_dynamic_tree (dynamic-tree drafts) is not "
             "supported by this package yet")
-    if sc.mode in HOST_SPEC_MODES:
+    if sc.mode in HOST_SPEC_MODES or model_type is None:
+        return
+    if sc.mode == "MTP":
+        if model_type not in MTP_MODEL_TYPES:
+            raise NotImplementedError(
+                f"speculative mode MTP with a {model_type} target is not "
+                "supported by this package: the MTP head needs an MLA "
+                f"target ({', '.join(MTP_MODEL_TYPES)}); the JAX package "
+                "raises ValueError without an MLA latent pool and fails "
+                "on longcat_flash, whose forward collects no hidden rows")
         return
     if model_type in MOE_MODEL_TYPES + GEMMA_MODEL_TYPES + GPT_MODEL_TYPES \
             + ("apertus",):
@@ -187,12 +200,10 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
             f"speculative mode {sc.mode} with a {model_type} target is not "
             "supported by this package (EAGLE3 drafts for the Llama and "
             "Qwen2/Qwen3 dense families)")
-    if not sc.device_window:
-        raise NotImplementedError(
-            "speculative device_window=False (EAGLE3 on the host-"
-            "orchestrated path) is not supported by this package yet")
 
 
+# the targets the MTP head drafts for (MLA latent pools)
+MTP_MODEL_TYPES = ("deepseek_v3", "deepseek_v2")
 # the recurrent families (models/recurrent.py), kept here so that the
 # argument checks need not import the models
 RECURRENT_MODEL_TYPES = ("mamba", "falcon_mamba", "mamba2", "bamba",
@@ -200,7 +211,7 @@ RECURRENT_MODEL_TYPES = ("mamba", "falcon_mamba", "mamba2", "bamba",
                          "qwen3_next", "minimax")
 MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe", "gpt_oss",
                    "granitemoe", "hunyuan_v1_moe", "glm4_moe", "ernie4_5_moe",
-                   "deepseek_v2", "deepseek_v3")
+                   "deepseek_v2", "deepseek_v3", "longcat_flash")
 GEMMA_MODEL_TYPES = ("gemma2", "gemma3_text")
 # the LayerNorm GPT families (models/gpt_family.py, gpt2.py), whose
 # forward collects no hidden rows for an EAGLE3 head (nor does the JAX one)

@@ -35,6 +35,10 @@ The LayerNorm GPT families' trees (``LnFamilyModel``: per-layer "ln1" /
 layers add "sinks", ``router_bias`` and the experts' ``b_gate`` /
 ``b_up`` (joined into ``b_gate_up`` [E, 2I]) and ``b_down``, all float32,
 and drop ``is_sliding`` (``layer_specs``).
+LongCat-Flash's ``pairs`` tree (each pair's MLA + dense sublayers under
+keys ending in 0 and 1, its router [H, E+Z], ``router_bias`` and
+experts) becomes the flat sublayers 2i + s and one ``pairs`` entry a
+pair (models/deepseek.py ``LongcatFlashForCausalLM``).
 The DeepSeek-style trees (``dense_layers`` and ``moe_layers``, each
 stacked: DeepSeek's MLA ``q`` or ``q_a`` / ``q_a_norm`` / ``q_b``,
 ``kv_a``, ``kv_a_norm``, ``kv_b``, ``uk``, ``uv``; GLM-4.5's and ERNIE
@@ -142,6 +146,8 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
 
     if getattr(model, "has_recurrent_state", False):
         return _from_jax_recurrent(params_np, model, t, proj, fused)
+    if "pairs" in params_np:
+        return _from_jax_pairs(params_np, t, proj, fused)
     if "layers" not in params_np:
         return _from_jax_split_layers(params_np, t, proj, fused)
     lay = params_np["layers"]
@@ -229,11 +235,42 @@ def _from_jax_ln_family(params_np, t, proj, fused) -> Dict[str, Any]:
     return out
 
 
+_SPLIT_VECTORS = ("input_norm", "post_norm", "q_norm", "k_norm",
+                  "kv_a_norm", "q_a_norm", "uk", "uv")
+
+
+def _from_jax_pairs(params_np, t, proj, fused) -> Dict[str, Any]:
+    """``from_jax_params`` for LongCat-Flash's ``pairs`` tree: each pair's
+    sublayer s (keys ending in s) becomes flat layer 2i + s, its router,
+    correction bias and experts one entry of ``pairs``."""
+    lay = params_np["pairs"]
+    layers, pairs = [], []
+    for i in range(np.asarray(lay["router_bias"]).shape[0]):
+        for s in "01":
+            sub = {k[:-1]: v for k, v in lay.items() if k.endswith(s)}
+
+            def at(name):
+                return proj({k: v[i] for k, v in sub[name].items()})
+            layer = {n: t(sub[n][i]) for n in _SPLIT_VECTORS if n in sub}
+            for n in ("o", "kv_a", "kv_b", "q_a", "q_b", "q", "down"):
+                if n in sub:
+                    layer[n] = at(n)
+            layer.update(fused(at, "gate_up", ("gate", "up")))
+            layers.append(layer)
+        pairs.append({
+            "router": t(np.asarray(lay["router"][i]).T),
+            "router_bias": t(lay["router_bias"][i], torch.float32),
+            "w_gate_up": t(np.concatenate([lay["w_gate"][i],
+                                           lay["w_up"][i]], axis=-1)),
+            "w_down": t(lay["w_down"][i])})
+    return {"embed": t(params_np["embed"]["weight"]), "layers": layers,
+            "pairs": pairs, "final_norm": t(params_np["final_norm"]),
+            "lm_head": proj(params_np["lm_head"])}
+
+
 def _from_jax_split_layers(params_np, t, proj, fused) -> Dict[str, Any]:
     """``from_jax_params`` for the trees with ``dense_layers`` and
     ``moe_layers`` (DeepSeek-V2/V3, GLM-4.5, ERNIE 4.5 MoE)."""
-    vectors = ("input_norm", "post_norm", "q_norm", "k_norm", "kv_a_norm",
-               "q_a_norm", "uk", "uv")
     layers = []
     for group in ("dense_layers", "moe_layers"):
         lay = params_np.get(group)
@@ -242,7 +279,7 @@ def _from_jax_split_layers(params_np, t, proj, fused) -> Dict[str, Any]:
         for i in range(np.asarray(lay["input_norm"]).shape[0]):
             def at(name):
                 return proj({k: v[i] for k, v in lay[name].items()})
-            layer = {n: t(lay[n][i]) for n in vectors if n in lay}
+            layer = {n: t(lay[n][i]) for n in _SPLIT_VECTORS if n in lay}
             for n in ("o", "kv_a", "kv_b", "q_a", "q_b"):
                 if n in lay:
                     layer[n] = at(n)

@@ -74,8 +74,9 @@ import torch.nn.functional as F
 from ..ops.attention import AttentionMetadata, layer_metadata, scatter_slots
 from ..ops.cuda._build import count_launch
 from ..ops.linear import LinearMethod, dot_f32
-from ..ops.moe import (check_grouped, moe_mlp_routed, moe_route,
-                       sigmoid_bias_routing, softmax_group_routing)
+from ..ops.moe import (check_grouped, moe_mlp_routed, moe_mlp_zero_experts,
+                       moe_route, sigmoid_bias_routing,
+                       softmax_group_routing)
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig, apply_rope, rope_cos_sin
 from ..quantization.checkpoint import PrequantizedWeight
@@ -142,10 +143,12 @@ class DeepseekV3ForCausalLM(DecoderModelForCausalLM):
         self.m_lin = self._method("attn")
         self.m_mlp = self._method("mlp")
         self.m_lm_head = self._method("lm_head")
+        self.zero_experts = getattr(hf, "zero_expert_num", 0) or 0
         if self.num_layers > self.first_dense and \
                 self.device.type == "cuda" and \
                 moe_route(self.dtype, self.device) == "grouped":
-            check_grouped(self.hidden_size, self.moe_inter, self.device)
+            check_grouped(self.hidden_size, self.moe_inter, self.device,
+                          dropped=self.zero_experts > 0)
 
     # ------------------------------------------------------------------ #
     # The latent pool and the engine's sizing
@@ -272,6 +275,13 @@ class DeepseekV3ForCausalLM(DecoderModelForCausalLM):
         gen.manual_seed(seed)
 
         def mat(*shape):
+            if len(shape) == 3:
+                # an expert stack, one expert at a time: its float32 draw
+                # at DeepSeek-V3's width would take 30 GB
+                out = torch.empty(shape, device=dev, dtype=dt)
+                for e in range(shape[0]):
+                    out[e] = mat(*shape[1:])
+                return out
             return (torch.randn(shape, generator=gen, device=dev,
                                 dtype=torch.float32) * 0.02).to(dt)
 
@@ -325,44 +335,51 @@ class DeepseekV3ForCausalLM(DecoderModelForCausalLM):
         "se_up": "mlp.shared_experts.up_proj.weight",
         "se_down": "mlp.shared_experts.down_proj.weight"}
 
-    def load_hf_state_dict(self, sd: Mapping[str, Any]) -> Dict[str, Any]:
-        """HF checkpoint names -> parameters (the experts stacked into
-        ops/moe.py's layout one expert at a time on the target device;
-        V2's router has no correction bias: zeros, as in the JAX
-        loader)."""
+    def _hf_weight(self, sd: Mapping[str, Any], p: str, name: str):
+        """Parameter ``name`` of the layer at checkpoint prefix ``p`` (the
+        experts stacked into ops/moe.py's layout one expert at a time on
+        the target device; V2's router has no correction bias: zeros, as
+        in the JAX loader)."""
         E, Im, H = self.num_experts, self.moe_inter, self.hidden_size
-
-        def weight(p: str, name: str):
-            if name == "router_bias":
-                return sd.get(p + self._HF_NAMES[name], torch.zeros(E))
-            if name in ("w_gate_up", "w_down"):
-                e = p + "mlp.experts.{}."
-                if name == "w_down":
-                    out = torch.empty((E, Im, H), dtype=self.dtype,
-                                      device=self.device)
-                    for j in range(E):
-                        out[j] = torch.as_tensor(
-                            sd[e.format(j) + "down_proj.weight"]).t()
-                    return out
-                out = torch.empty((E, H, 2 * Im), dtype=self.dtype,
+        if name == "router_bias":
+            return sd.get(p + self._HF_NAMES[name], torch.zeros(E))
+        if name in ("w_gate_up", "w_down"):
+            e = p + "mlp.experts.{}."
+            if name == "w_down":
+                out = torch.empty((E, Im, H), dtype=self.dtype,
                                   device=self.device)
                 for j in range(E):
-                    out[j, :, :Im] = torch.as_tensor(
-                        sd[e.format(j) + "gate_proj.weight"]).t()
-                    out[j, :, Im:] = torch.as_tensor(
-                        sd[e.format(j) + "up_proj.weight"]).t()
+                    out[j] = torch.as_tensor(
+                        sd[e.format(j) + "down_proj.weight"]).t()
                 return out
-            return sd[p + self._HF_NAMES[name]]
+            out = torch.empty((E, H, 2 * Im), dtype=self.dtype,
+                              device=self.device)
+            for j in range(E):
+                out[j, :, :Im] = torch.as_tensor(
+                    sd[e.format(j) + "gate_proj.weight"]).t()
+                out[j, :, Im:] = torch.as_tensor(
+                    sd[e.format(j) + "up_proj.weight"]).t()
+            return out
+        return sd[p + self._HF_NAMES[name]]
 
-        layers = [self._layer(i, lambda n, p=f"model.layers.{i}.":
-                              weight(p, n))
-                  for i in range(self.num_layers)]
+    def hf_layer(self, sd: Mapping[str, Any], idx: int) -> Dict[str, Any]:
+        """Checkpoint layer ``idx``'s parameters (the MTP drafter reads
+        its module at index ``num_hidden_layers`` through this)."""
+        p = f"model.layers.{idx}."
+        return self._layer(idx, lambda n: self._hf_weight(sd, p, n))
+
+    def _embed_and_head(self, sd: Mapping[str, Any]) -> Dict[str, Any]:
         embed = self._vec(sd["model.embed_tokens.weight"])
         lm_head = None if self.tie_embeddings or "lm_head.weight" not in sd \
             else sd["lm_head.weight"]
-        return {"embed": embed, "layers": layers,
+        return {"embed": embed,
                 "final_norm": self._vec(sd["model.norm.weight"]),
                 "lm_head": self._lm_head(embed, lm_head)}
+
+    def load_hf_state_dict(self, sd: Mapping[str, Any]) -> Dict[str, Any]:
+        """HF checkpoint names -> parameters."""
+        return dict(self._embed_and_head(sd), layers=[
+            self.hf_layer(sd, i) for i in range(self.num_layers)])
 
     # ------------------------------------------------------------------ #
     # MLA over the paged latent cache
@@ -404,16 +421,28 @@ class DeepseekV3ForCausalLM(DecoderModelForCausalLM):
         sequence (B: ``MLA_TILE``, or less for short segments), so that
         the decompressed keys are gathered once a tile rather than once a
         token. Static shapes: at most ceil(T / B) + S tiles, filled on the
-        device. Returns (each tile's sequence [n], each row's token index
-        [n, B] (T for a row past its segment), whether the row holds a
-        token [n, B], each row's position [n, B])."""
+        device; where ``max_q_len`` fits one tile (a verify pass, a rider
+        window), exactly S tiles, tile i sequence i. Returns (each tile's
+        sequence [n], each row's token index [n, B] (T for a row past its
+        segment), whether the row holds a token [n, B], each row's
+        position [n, B])."""
         S = metadata.page_indices.shape[0]
         cu = metadata.cu_q_lens.long()
         dev = cu.device
-        B = min(MLA_TILE, 1 << (max(1, metadata.max_q_len or T) - 1)
-                .bit_length())
-        n = -(-T // B) + S
+        max_q = max(1, metadata.max_q_len or T)
+        B = min(MLA_TILE, 1 << (max_q - 1).bit_length())
         q_lens = cu[1:S + 1] - cu[:S]
+        if max_q <= B:
+            # every segment fits one tile: tile i is sequence i (S tiles,
+            # which ``_decompressed`` reads without a gather)
+            seq = torch.arange(S, device=dev)
+            off = torch.arange(B, device=dev)[None, :]
+            live = off < q_lens[:, None]
+            tok = torch.where(live, cu[:S, None] + off, T)
+            pos = metadata.kv_lens[:S].long()[:, None] - q_lens[:, None] \
+                + off
+            return seq, tok, live, pos
+        n = -(-T // B) + S
         per = (q_lens + B - 1) // B
         end = torch.cumsum(per, 0)
         i = torch.arange(n, device=dev)
@@ -442,6 +471,8 @@ class DeepseekV3ForCausalLM(DecoderModelForCausalLM):
         S, N, lora = c_all.shape
         _, valid, _, (seq, tok, _, _) = ctx
         n, B = tok.shape
+        # tile i is sequence i (``_query_tiles``): keys read in place
+        ident = n == S
         idx = tok.clamp(max=T - 1)
         qn = q_nope.float()[idx]                       # [n, B, nh, nope]
         qp = q_pe.float()[idx]
@@ -463,10 +494,11 @@ class DeepseekV3ForCausalLM(DecoderModelForCausalLM):
             kpe_c = kpe[:, pos].float()
             for c0 in range(0, n, chunk):
                 sl = slice(c0, c0 + chunk)
-                kv_t = knv[seq[sl]]                    # [c, kv, nh, nope+vd]
+                kv_t = knv[sl] if ident else knv[seq[sl]]
+                kp_t = kpe_c[sl] if ident else kpe_c[seq[sl]]
                 scores = torch.einsum("cbhd,ckhd->chbk", qn[sl],
                                       kv_t[..., :nope]) + \
-                    torch.einsum("cbhd,ckd->chbk", qp[sl], kpe_c[seq[sl]])
+                    torch.einsum("cbhd,ckd->chbk", qp[sl], kp_t)
                 scores = torch.where(valid[sl][:, None, :, pos],
                                      scores * self.sm_scale, neg)
                 new_max = torch.maximum(run_max[sl], scores.amax(-1))
@@ -591,18 +623,30 @@ class DeepseekV3ForCausalLM(DecoderModelForCausalLM):
         absorbed = T == metadata.page_indices.shape[0] and \
             "uk" in params["layers"][0]
         ctx = self._mla_context(metadata, T, ps, absorbed)
-        for li, layer in enumerate(params["layers"]):
-            md_l = layer_metadata(metadata, li, P, ps, L)
-            h = h + self._mla_attention(
-                layer, rms_norm(h, layer["input_norm"], eps), flat, md_l,
-                ctx, cos, sin)
-            h = h + self._mlp(layer, rms_norm(h, layer["post_norm"], eps))
+
+        def attn(li: int, x: torch.Tensor) -> torch.Tensor:
+            layer = params["layers"][li]
+            return self._mla_attention(
+                layer, rms_norm(x, layer["input_norm"], eps), flat,
+                layer_metadata(metadata, li, P, ps, L), ctx, cos, sin)
+        h = self._decoder(params, h, attn)
         rows = h[metadata.logits_indices]
         last = rms_norm(rows, params["final_norm"], eps)
         logits = self.m_lm_head.apply(params["lm_head"], last).float()
         if collect_hidden:
             return logits, kv_pages, rows
         return logits, kv_pages
+
+    def _decoder(self, params: Dict[str, Any], h: torch.Tensor,
+                 attn: Callable[[int, torch.Tensor], torch.Tensor]
+                 ) -> torch.Tensor:
+        """The decoder layers over the embedded tokens ``h``; ``attn(li,
+        h)``: layer li's MLA over its input-normed ``h``."""
+        eps = self.rms_eps
+        for li, layer in enumerate(params["layers"]):
+            h = h + attn(li, h)
+            h = h + self._mlp(layer, rms_norm(h, layer["post_norm"], eps))
+        return h
 
 
 @register_model("deepseek_v2")
@@ -612,3 +656,165 @@ class DeepseekV2ForCausalLM(DeepseekV3ForCausalLM):
     bias, never renormalised."""
     architectures = ("DeepseekV2ForCausalLM",)
     moe_softmax_greedy = True
+
+
+@register_model("longcat_flash")
+class LongcatFlashForCausalLM(DeepseekV3ForCausalLM):
+    """LongCat-Flash: the shortcut-connected MoE (ScMoE) over MLA (the JAX
+    ``LongcatFlashForCausalLM``, deepseek.py:449-616).
+
+    Each checkpoint layer (a "pair") holds two MLA + dense-MLP sublayers,
+    kept here as flat layers 2i and 2i+1 of ``params["layers"]`` and of
+    the latent pool (``2 * num_layers`` pool layers). The routed MoE of
+    pair i (``params["pairs"][i]``: "router" [E+Z, H], "router_bias"
+    [E+Z] float32, "w_gate_up", "w_down") is computed from sublayer 0's
+    post-attention normed stream and added after sublayer 1's dense MLP.
+    At load, ``sqrt(H / q_lora_rank)`` and ``sqrt(H / kv_lora_rank)`` are
+    folded into q_b and kv_b (in float32, before any quantization).
+    Routing: float32 softmax scores over the E routed and Z zero experts,
+    the top k of the scores plus the correction bias, weights the unbiased
+    scores times ``routed_scaling_factor``; a zero-expert pick adds w * x
+    (``ops.moe.moe_mlp_zero_experts``). The forward collects no hidden
+    rows, as the JAX one does not (no MTP drafting for this target)."""
+    architectures = ("LongcatFlashForCausalLM",)
+
+    def __init__(self, model_config: ModelConfig):
+        hf = model_config.hf_config
+        # transformers' names onto DeepSeek-V3's, as the JAX model sets
+        # them; the pool holds two sublayers a pair (transformers' own
+        # model sets num_hidden_layers so)
+        hf.num_hidden_layers = 2 * hf.num_layers
+        hf.first_k_dense_replace = 0
+        hf.num_experts_per_tok = hf.moe_topk
+        hf.moe_intermediate_size = hf.expert_ffn_hidden_size
+        hf.intermediate_size = hf.ffn_hidden_size
+        hf.n_shared_experts = 0
+        super().__init__(model_config)
+        self.n_pairs = hf.num_layers
+
+    def _is_moe(self, idx: int) -> bool:
+        return False            # every flat sublayer has a dense MLP
+
+    def act_width_per_token(self) -> int:
+        """The V3 estimate with both MLPs of a pair alive at once (the
+        shortcut MoE's output waits for sublayer 1)."""
+        Im = self.moe_inter
+        moe = self.num_experts + self.zero_experts + \
+            self.top_k * (2 * self.hidden_size + 3 * Im)
+        return super().act_width_per_token() + moe
+
+    def checkpoint_shapes(self) -> Dict[str, tuple]:
+        """{name: shape} of a LongCat-Flash checkpoint of this config
+        under the published names (one tensor an expert)."""
+        H, nh, V = self.hidden_size, self.num_heads, self.vocab_size
+        qd = nh * (self.qk_nope + self.qk_rope)
+        I, Im = self.intermediate_size, self.moe_inter
+        E, Z = self.num_experts, self.zero_experts
+        shapes = {"model.embed_tokens.weight": (V, H),
+                  "model.norm.weight": (H,), "lm_head.weight": (V, H)}
+        for i in range(self.n_pairs):
+            p = f"model.layers.{i}."
+            for s in (0, 1):
+                a = f"{p}self_attn.{s}."
+                shapes.update({
+                    f"{p}input_layernorm.{s}.weight": (H,),
+                    f"{p}post_attention_layernorm.{s}.weight": (H,),
+                    a + "q_a_proj.weight": (self.q_lora_rank, H),
+                    a + "q_a_layernorm.weight": (self.q_lora_rank,),
+                    a + "q_b_proj.weight": (qd, self.q_lora_rank),
+                    a + "kv_a_proj_with_mqa.weight": (self.latent_dim, H),
+                    a + "kv_a_layernorm.weight": (self.kv_lora_rank,),
+                    a + "kv_b_proj.weight": (
+                        nh * (self.qk_nope + self.v_dim), self.kv_lora_rank),
+                    a + "o_proj.weight": (H, nh * self.v_dim),
+                    f"{p}mlps.{s}.gate_proj.weight": (I, H),
+                    f"{p}mlps.{s}.up_proj.weight": (I, H),
+                    f"{p}mlps.{s}.down_proj.weight": (H, I)})
+            shapes[p + "mlp.router.classifier.weight"] = (E + Z, H)
+            shapes[p + "mlp.router.e_score_correction_bias"] = (E + Z,)
+            for e in range(E):
+                x = f"{p}mlp.experts.{e}."
+                shapes.update({x + "gate_proj.weight": (Im, H),
+                               x + "up_proj.weight": (Im, H),
+                               x + "down_proj.weight": (H, Im)})
+        return shapes
+
+    def init_params(self, seed: int = 0) -> Dict[str, Any]:
+        """Random weights (load_format="dummy"): a seeded
+        ``RandomCheckpoint`` of ``checkpoint_shapes``, drawn on the target
+        device one tensor at a time, through the checkpoint loader."""
+        from .recurrent import RandomCheckpoint
+        return self.load_hf_state_dict(RandomCheckpoint(
+            self.checkpoint_shapes(), self.device, self.dtype, seed))
+
+    def load_hf_state_dict(self, sd: Mapping[str, Any]) -> Dict[str, Any]:
+        """Sublayer j = 2i + s reads pair i's ``self_attn.{s}``,
+        ``mlps.{s}`` and ``*_layernorm.{s}`` tensors; the router, its
+        correction bias and the experts stay keyed by pair."""
+        scale = {"q_b": (self.hidden_size / self.q_lora_rank) ** 0.5,
+                 "kv_b": (self.hidden_size / self.kv_lora_rank) ** 0.5}
+
+        def sub_weight(j: int, name: str):
+            i, s = divmod(j, 2)
+            head, rest = self._HF_NAMES[name].split(".", 1)
+            head = "mlps" if head == "mlp" else head
+            w = sd[f"model.layers.{i}.{head}.{s}.{rest}"]
+            if name in scale:
+                w = torch.as_tensor(w).float() * scale[name]
+            return w
+
+        layers = [self._layer(j, lambda n, j=j: sub_weight(j, n))
+                  for j in range(self.num_layers)]
+        pairs = []
+        for i in range(self.n_pairs):
+            p = f"model.layers.{i}."
+            pairs.append({
+                "router": self._vec(sd[p + "mlp.router.classifier.weight"]),
+                "router_bias": self._vec(
+                    sd[p + "mlp.router.e_score_correction_bias"],
+                    torch.float32).reshape(-1),
+                "w_gate_up": self._hf_weight(sd, p, "w_gate_up"),
+                "w_down": self._hf_weight(sd, p, "w_down")})
+        return dict(self._embed_and_head(sd), layers=layers, pairs=pairs)
+
+    def sc_route(self, pair: Dict[str, Any], x: torch.Tensor):
+        """(weights float32 [T, k], expert indices [T, k]) of the shortcut
+        MoE: indices >= E are zero experts."""
+        scores = torch.softmax(dot_f32(x, pair["router"]), dim=-1)
+        _, idx = torch.topk(scores + pair["router_bias"], self.top_k, dim=-1)
+        return scores.gather(1, idx) * self.routed_scale, idx
+
+    def sc_moe(self, pair: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        """The JAX ``_sc_moe`` (deepseek.py:549-568)."""
+        w, idx = self.sc_route(pair, x)
+        return moe_mlp_zero_experts(x, pair["w_gate_up"], pair["w_down"],
+                                    w, idx)
+
+    def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
+                kv_pages: torch.Tensor, metadata: AttentionMetadata,
+                collect_hidden: bool = False):
+        if collect_hidden:
+            raise NotImplementedError(
+                "hidden rows of a longcat_flash target (MTP or EAGLE3 "
+                "drafting) are not supported by this package, nor by the "
+                "JAX package's LongcatFlashForCausalLM.forward")
+        return super().forward(params, token_ids, kv_pages, metadata)
+
+    def _decoder(self, params: Dict[str, Any], h: torch.Tensor,
+                 attn: Callable[[int, torch.Tensor], torch.Tensor]
+                 ) -> torch.Tensor:
+        """The pair forward (deepseek.py:590-608): sublayer 0's MLA and
+        dense MLP, the shortcut MoE from its post-attention normed stream,
+        sublayer 1's MLA and dense MLP, then the shortcut."""
+        eps = self.rms_eps
+        layers = params["layers"]
+        for i, pair in enumerate(params["pairs"]):
+            a0, a1 = layers[2 * i], layers[2 * i + 1]
+            h = h + attn(2 * i, h)
+            normed = rms_norm(h, a0["post_norm"], eps)
+            shortcut = self.sc_moe(pair, normed)
+            h = h + self._mlp(a0, normed)
+            h = h + attn(2 * i + 1, h)
+            h = h + self._mlp(a1, rms_norm(h, a1["post_norm"], eps)) + \
+                shortcut
+        return h

@@ -58,8 +58,6 @@ NOT_PORTED_MODEL_TYPES: Dict[str, str] = {
         "gemma3", "gemma3_vl", "glm4v", "internvl", "llava", "llava_next",
         "mistral3", "mllama", "paligemma", "qwen2_vl", "qwen2_5_vl",
         "qwen3_vl", "qwen3_vl_moe")},
-    "longcat_flash": "the shortcut-connected MoE over paired MLA "
-                     "sublayers, which comes with MTP",
     "bert": "an encoder without a generation path",
 }
 

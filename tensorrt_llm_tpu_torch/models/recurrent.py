@@ -48,8 +48,11 @@ class RandomCheckpoint(Mapping):
     """A transformers checkpoint of seeded random tensors, drawn on
     ``device`` in ``dtype`` when read: norms and ``D`` ones, ``A_log``
     log(1..n) along its last axis, ``dt_bias`` the inverse softplus of
-    0.01 to 0.1, biases zero, MiniMax's ``slope_rate`` 2^-(1..nh)/2,
-    everything else normal(0, 0.02). ``shapes``: {name: shape}."""
+    0.01 to 0.1, biases zero (a router's ``e_score_correction_bias``
+    too, as transformers initialises it: drawn at 0.02 it would outweigh
+    a 768-way softmax's scores and send every token to the same
+    experts), MiniMax's ``slope_rate`` 2^-(1..nh)/2, everything else
+    normal(0, 0.02). ``shapes``: {name: shape}."""
 
     def __init__(self, shapes: Dict[str, Tuple[int, ...]], device,
                  dtype: torch.dtype, seed: int = 0):
@@ -79,7 +82,7 @@ class RandomCheckpoint(Mapping):
         elif leaf == "slope_rate":
             nh = math.prod(shape)
             out = (0.5 * 2.0 ** -torch.arange(1, nh + 1, **kw)).view(shape)
-        elif leaf == "bias":
+        elif leaf in ("bias", "e_score_correction_bias"):
             out = torch.zeros(shape, **kw)
         elif "norm" in name and len(shape) == 1:
             out = torch.ones(shape, **kw)

@@ -125,10 +125,13 @@ def moe_route(dtype: torch.dtype, device: torch.device) -> str:
         "this package (bf16 or float32 on CUDA, any type on the CPU)")
 
 
-def check_grouped(hidden: int, inter: int, device: torch.device) -> None:
+def check_grouped(hidden: int, inter: int, device: torch.device,
+                  dropped: bool = False) -> None:
     """Model build on the ``grouped`` route: ``torch._grouped_mm`` must
     exist and take bf16 products of the model's widths (H -> 2I, I -> H)
-    with an empty group among them. Raises otherwise."""
+    with an empty group among them, and (``dropped``: zero-expert picks,
+    ``moe_mlp_zero_experts``) with rows past the last group. Raises
+    otherwise."""
     if not hasattr(torch, "_grouped_mm"):
         raise RuntimeError(
             f"torch {torch.__version__} has no torch._grouped_mm: the "
@@ -138,10 +141,11 @@ def check_grouped(hidden: int, inter: int, device: torch.device) -> None:
                       device=device)
     wd = torch.zeros((3, inter, hidden), dtype=torch.bfloat16,
                      device=device)
-    offs = torch.tensor([1, 1, 4], dtype=torch.int32, device=device)
     try:
-        h = torch._grouped_mm(x, wgu, offs=offs)[:, :inter].contiguous()
-        torch._grouped_mm(h, wd, offs=offs)
+        for ends in ([1, 1, 4], [1, 1, 3]) if dropped else ([1, 1, 4],):
+            offs = torch.tensor(ends, dtype=torch.int32, device=device)
+            h = torch._grouped_mm(x, wgu, offs=offs)[:, :inter].contiguous()
+            torch._grouped_mm(h, wd, offs=offs)
     except RuntimeError as e:
         raise RuntimeError(
             f"torch._grouped_mm refuses the MoE widths (hidden {hidden}, "
@@ -151,14 +155,23 @@ def check_grouped(hidden: int, inter: int, device: torch.device) -> None:
 def _sort_pairs(expert_idx: torch.Tensor, num_experts: int):
     """(order, token of each sorted pair, tokens per expert int32 [E]):
     the T*k (token, expert) pairs, pair p = t*k + j, stably sorted by
-    expert."""
+    expert. A pair of index E (dropped, ``moe_mlp_zero_experts``) sorts
+    after every expert's and belongs to no group."""
     k = expert_idx.shape[1]
     flat = expert_idx.reshape(-1).long()
     order = torch.argsort(flat, stable=True)
-    counts = torch.zeros(num_experts, dtype=torch.int32,
+    counts = torch.zeros(num_experts + 1, dtype=torch.int32,
                          device=flat.device).scatter_add_(
         0, flat, torch.ones_like(flat, dtype=torch.int32))
-    return order, order // k, counts
+    return order, order // k, counts[:num_experts]
+
+
+def _zero_dropped(y: torch.Tensor, offs_end: torch.Tensor) -> torch.Tensor:
+    """Sorted pair outputs with the rows past the last group (dropped
+    pairs, which no product wrote) set to 0."""
+    live = torch.arange(y.shape[0], device=y.device) < offs_end
+    return torch.where(live[:, None], y, torch.zeros((), dtype=y.dtype,
+                                                     device=y.device))
 
 
 def _combine(y: torch.Tensor, order: torch.Tensor,
@@ -173,10 +186,12 @@ def _combine(y: torch.Tensor, order: torch.Tensor,
 def moe_mlp_grouped(x: torch.Tensor, w_gate_up: torch.Tensor,
                     w_down: torch.Tensor, probs: torch.Tensor,
                     expert_idx: torch.Tensor, b_gate_up=None, b_down=None,
-                    swiglu_limit: Optional[float] = None) -> torch.Tensor:
+                    swiglu_limit: Optional[float] = None,
+                    drop: bool = False) -> torch.Tensor:
     """The ``grouped`` route: two ``torch._grouped_mm`` over the sorted
     pairs (bf16); with ``swiglu_limit`` GPT-OSS's biases (float32 [E, 2I]
-    and [E, H]) and clamped SwiGLU."""
+    and [E, H]) and clamped SwiGLU; with ``drop``, pairs of index E are in
+    no group and contribute 0."""
     E, inter = w_gate_up.shape[0], w_down.shape[1]
     order, tok_of, counts = _sort_pairs(expert_idx, E)
     offs = torch.cumsum(counts, 0, dtype=torch.int32)
@@ -188,20 +203,23 @@ def moe_mlp_grouped(x: torch.Tensor, w_gate_up: torch.Tensor,
         se = expert_idx.reshape(-1).long()[order]   # each sorted pair's expert
         h = _activate(gu, inter, x.dtype, b_gate_up[se], swiglu_limit)
         y = torch._grouped_mm(h, w_down, offs=offs).float() + b_down[se]
+    if drop:
+        y = _zero_dropped(y, offs[-1])
     return _combine(y, order, probs).to(x.dtype)
 
 
 def moe_mlp_plain(x: torch.Tensor, w_gate_up: torch.Tensor,
                   w_down: torch.Tensor, probs: torch.Tensor,
                   expert_idx: torch.Tensor, b_gate_up=None, b_down=None,
-                  swiglu_limit: Optional[float] = None) -> torch.Tensor:
+                  swiglu_limit: Optional[float] = None,
+                  drop: bool = False) -> torch.Tensor:
     """The ``plain`` route (CPU): ``moe_mlp_ragged`` with one product per
-    expert over its rows of the sorted pairs (GPT-OSS's options as in
-    ``moe_mlp_grouped``)."""
+    expert over its rows of the sorted pairs (GPT-OSS's options and
+    ``drop`` as in ``moe_mlp_grouped``)."""
     E, inter = w_gate_up.shape[0], w_down.shape[1]
     order, tok_of, counts = _sort_pairs(expert_idx, E)
     xs = x[tok_of]
-    y = torch.empty((xs.shape[0], w_down.shape[2]),
+    y = (torch.zeros if drop else torch.empty)((xs.shape[0], w_down.shape[2]),
                     dtype=x.dtype if b_down is None else torch.float32,
                     device=x.device)
     start = 0
@@ -220,14 +238,15 @@ def moe_mlp_plain(x: torch.Tensor, w_gate_up: torch.Tensor,
 def moe_mlp_dense(x: torch.Tensor, w_gate_up: torch.Tensor,
                   w_down: torch.Tensor, probs: torch.Tensor,
                   expert_idx: torch.Tensor, b_gate_up=None, b_down=None,
-                  swiglu_limit: Optional[float] = None) -> torch.Tensor:
+                  swiglu_limit: Optional[float] = None,
+                  drop: bool = False) -> torch.Tensor:
     """The ``dense`` route: every expert on every token, products
     accumulated in float32, weighted by a [T, E] combine matrix (GPT-OSS's
-    options as in ``moe_mlp_grouped``)."""
+    options and ``drop`` as in ``moe_mlp_grouped``)."""
     T, E, inter = x.shape[0], w_gate_up.shape[0], w_down.shape[1]
-    combine = torch.zeros((T, E), dtype=torch.float32,
+    combine = torch.zeros((T, E + 1), dtype=torch.float32,
                           device=x.device).scatter_add_(
-        1, expert_idx.long(), probs.float())
+        1, expert_idx.long(), probs.float())[:, :E]
     gu = torch.einsum("th,ehi->tei", x.float(), w_gate_up.float())
     if swiglu_limit is None:
         gate, up = gu.split(inter, dim=-1)
@@ -282,6 +301,26 @@ def moe_mlp_routed(x: torch.Tensor, w_gate_up: torch.Tensor,
     route = moe_route(w_gate_up.dtype, x.device)
     return _ROUTE_FNS[route](x.to(w_gate_up.dtype), w_gate_up, w_down,
                              probs, expert_idx.to(torch.int32))
+
+
+def moe_mlp_zero_experts(x: torch.Tensor, w_gate_up: torch.Tensor,
+                         w_down: torch.Tensor, probs: torch.Tensor,
+                         expert_idx: torch.Tensor) -> torch.Tensor:
+    """LongCat-Flash's experts (the JAX ``_sc_moe``'s products): an index
+    >= E picks a zero-computation expert, which adds its weight times x.
+    The JAX model sends such picks to expert 0 with weight 0 (a third of
+    all picks at LongCat-Flash's 256 zero experts of 768); here they are
+    left out of the sort's groups and the products (``drop``) and their
+    w * x is added directly, the same function."""
+    E = w_gate_up.shape[0]
+    zero = expert_idx >= E
+    idx = torch.where(zero, E, expert_idx).to(torch.int32)
+    real_w = torch.where(zero, 0.0, probs)
+    route = moe_route(w_gate_up.dtype, x.device)
+    routed = _ROUTE_FNS[route](x.to(w_gate_up.dtype), w_gate_up, w_down,
+                               real_w, idx, drop=True)
+    zero_w = torch.where(zero, probs, 0.0).sum(-1, keepdim=True)
+    return routed + (zero_w * x.float()).to(routed.dtype)
 
 
 def group_limit(choice: torch.Tensor, n_group: int, topk_group: int,

@@ -15,7 +15,8 @@ sit out while context runs and the pool is under the target) and the
 TTFT budget (``ttft_slo_ms``: windows shrink to K/4 while a request waits
 past it for its first token).
 
-With an EAGLE3 drafter (``LLM(speculative_config=...)``), decode rows
+With an EAGLE3 or MTP head in the fused window
+(``LLM(speculative_config=...)``), decode rows
 that qualify (``_spec_row_ok``: seeded by a prefill step of this engine,
 no penalties, few enough stop ids, room left) take the fused speculative
 window (``ModelEngine.forward_spec_window``, runtime/spec_window.py)
@@ -27,10 +28,14 @@ chunk, run in a prefill step, seeds its row's draft head on the device
 (``spec_seed``).
 
 With a host drafter (NGram, suffix automaton, AUTO, a user's drafter,
-the two-model drafter of DRAFT_TARGET / PARD) the executor is the JAX
-package's sync path: no overlap (the drafter needs the host's token
-history one step ahead), no multi-step window, and before each step
-``_prepare_drafts`` fills the decode rows' ``draft_tokens``; the step
+the two-model drafter of DRAFT_TARGET / PARD, an EAGLE3 or MTP head with
+``device_window=False``) the executor is the JAX package's sync path: no
+overlap (the drafter needs the host's token history one step ahead), no
+multi-step window, and before each step ``_prepare_drafts`` fills the
+decode rows' ``draft_tokens``; a one-model head (``wants_hidden_states``)
+gets every emitted token with the target's pre-norm hidden row that
+produced it (``LlmRequest.eagle_feats``, float32 on the host: each single
+step collects the hidden rows, the JAX executor.py:1719-1726); the step
 verifies them (``ModelEngine.forward_step`` with G logits rows per row)
 and result processing accepts the longest matching prefix plus one bonus
 token, discards tokens past a stop, rolls the device count back and
@@ -306,6 +311,11 @@ class PyExecutor:
             # host drafting needs the host-visible token history one step
             # ahead: the sync scheduler (the JAX executor.py:281-288)
             enable_overlap = False
+        # a one-model head on the host path reads every emitted token's
+        # (token, pre-norm hidden row) pair (the JAX executor.py:
+        # 1719-1726): single steps collect the hidden rows
+        self._stream_feats = getattr(self.host_drafter,
+                                     "wants_hidden_states", False)
         # guided decoding (guided/): the host backend's matcher must see
         # token t before masking t + 1, so it takes the sync scheduler; the
         # device backend rides the overlap one (the JAX executor.py:274-281)
@@ -667,7 +677,7 @@ class PyExecutor:
                     if self.guided_decoder is not None else None
                 outs = self.engine.forward_step(
                     batch, use_penalties=use_pen,
-                    collect_hidden=bool(seed[0]),
+                    collect_hidden=bool(seed[0]) or self._stream_feats,
                     bad_ids=self._apply_bad_words(batch),
                     collect_logits=use_proc, logits_mask=mask)
                 logits_rows = None
@@ -678,11 +688,14 @@ class PyExecutor:
                     # the draft head's pending pair, on the device
                     self.engine.spec_seed(outs[0], outs[-1], *seed)
                     outs = outs[:-1]
+                elif self._stream_feats:
+                    # the host path's features, float32 to the host
+                    outs = outs[:-1] + (outs[-1].float(),)
                 entries, samples, drafts = self._advance_device_state(batch)
                 self._inflight.append(_InflightBatch(
                     entries, samples, HostFuture(*outs),
-                    has_top_lp=len(outs) > 2, drafts=drafts,
-                    logits_rows=logits_rows))
+                    has_top_lp=len(outs) > 2 + self._stream_feats,
+                    drafts=drafts, logits_rows=logits_rows))
             while len(self._inflight) >= self.pipeline_depth:
                 self._process_inflight()
             self._record_stats(batch, time.monotonic() - t0, gen_window)
@@ -1372,7 +1385,8 @@ class PyExecutor:
         G = self.engine.G
         tokens = fetched[0].reshape(-1, G)         # [S, G] logits rows
         logprobs = fetched[1].reshape(-1, G)
-        top_lp = fetched[2:] if batch.has_top_lp else None
+        hidden = fetched[-1] if self._stream_feats else None
+        top_lp = fetched[2:4] if batch.has_top_lp else None
         proc_rows = {}
         if batch.logits_rows is not None:
             rows, fut = batch.logits_rows
@@ -1413,6 +1427,9 @@ class PyExecutor:
             for g in range(accepted + 1):
                 tok = int(tokens[i, g])
                 done = req.add_output_token(tok, float(logprobs[i, g]))
+                if hidden is not None:
+                    # the feature of the position that produced the token
+                    req.eagle_feats.append((tok, hidden[i * G + g]))
                 if self.guided_decoder is not None:
                     self.guided_decoder.observe_token(req, tok)
                 if top_lp is not None and k:

@@ -371,23 +371,29 @@ class ModelEngine:
     @property
     def spec_draft_len(self) -> int:
         """Drafts per iteration of the fused speculative window (0: no
-        EAGLE3 window configured; host drafting is ``max_draft_len``)."""
+        EAGLE3 or MTP window configured; host drafting, with
+        ``device_window=False`` too, is ``max_draft_len``)."""
         sc = self.args.speculative_config
-        if sc is None or sc.mode != "EAGLE3":
+        if sc is None or sc.mode not in ("EAGLE3", "MTP") or \
+                not sc.device_window:
             return 0
         return sc.max_draft_len or 4
 
     def spec_state_bytes(self) -> int:
-        """Device bytes of the draft head's KV pool and pending features
-        (``spec_window.head_pool_bytes``; 0 without speculation)."""
+        """Device bytes of the draft head's pool and pending features
+        (``spec_window.head_pool_bytes``; 0 without a fused window): an
+        EAGLE3 head's K/V of the target's geometry, an MTP head's latent
+        of the target's MLA."""
         d = self.spec_draft_len
         if not d:
             return 0
         m = self.model
         el = torch.empty((), dtype=m.dtype).element_size()
+        entry = m.latent_dim if self.args.speculative_config.mode == "MTP" \
+            else 2 * m.num_kv_heads * m.head_dim
         return spec_window.head_pool_bytes(
-            self.max_batch_size, self.max_seq_len, d, m.hidden_size,
-            m.num_kv_heads, m.head_dim, el)
+            self.max_batch_size, self.max_seq_len, d, m.hidden_size, entry,
+            el)
 
     def _kv_bytes_per_layer(self) -> int:
         return self.num_kv_pages * self.bytes_per_kv_block \
@@ -543,9 +549,11 @@ class ModelEngine:
         graph key holds this in place of the bound, as
         ``model.graph_bound_key`` has it (MLA keys by the bound)."""
         if head:
+            spec = getattr(self.sd.drafter, "attn_spec", None)
+            if spec is None:           # the MTP head's MLA gathers to it
+                return ("kv_bound", bound)
             if self.device.type != "cuda":
                 return 1
-            spec = self.sd.drafter.attn_spec
             return dec.splits_for(rows, spec.num_heads, spec.num_kv_heads,
                                   self.sd.P_h * self.sd.ps_h, bound,
                                   spec.sliding_window, self.device)
@@ -1000,9 +1008,10 @@ class ModelEngine:
 
     def _verify_key(self, T: int, greedy: bool, use_penalties: bool,
                     k_lp: int, seeded: bool = False,
-                    ops: LogitsOps = LogitsOps()) -> tuple:
+                    ops: LogitsOps = LogitsOps(),
+                    hidden: bool = False) -> tuple:
         return ("verify", T, self.G, greedy, use_penalties, ops, k_lp,
-                seeded)
+                seeded, hidden)
 
     def _logits_ops_of(self, reqs, bad_ids: Optional[np.ndarray],
                        collect_logits: bool,
@@ -1082,10 +1091,10 @@ class ModelEngine:
             reach = self.pages_per_seq * self.page_size
             outs = self.graphs.run(
                 self._verify_key(T, greedy, use_penalties, k_lp, seeded,
-                                 ops),
+                                 ops, collect_hidden),
                 inputs,
                 self._step_body(self.G, reach, greedy, use_penalties, k_lp,
-                                seeded, ops=ops),
+                                seeded, collect_hidden, ops),
                 inert=lambda: self._step_inputs(
                     self.prepare_inputs(ScheduledRequests()), [], T,
                     greedy, ops))
@@ -1532,11 +1541,13 @@ class ModelEngine:
     # Fused speculative window (runtime/spec_window.py)
     # ------------------------------------------------------------------ #
     def spec_key(self, Sb: int, greedy: bool, seeded: bool, k_lp: int,
-                 head_bound: int) -> tuple:
-        """A spec window's graph key: the head steps' decode-kernel split
-        count stands for their ``max_kv_len`` hint."""
+                 head_bound: int, bound: int) -> tuple:
+        """A spec window's graph key: the head's split count (EAGLE3) or
+        bound (MTP), and what the target verify's ``bound`` changes (an
+        MLA target's gather; nothing for the ragged prefill kernel)."""
         return ("spec", self.sd.K, Sb, greedy, seeded, k_lp,
-                self._splits(Sb, head_bound, head=True))
+                self._splits(Sb, head_bound, head=True),
+                self.model.graph_bound_key(bound, lambda b: ()))
 
     @torch.no_grad()
     def forward_spec_window(self, batch: ScheduledRequests):
@@ -1603,12 +1614,13 @@ class ModelEngine:
     def _warm_spec(self, Sb: int) -> None:
         """Capture one greedy spec window (all rows inactive)."""
         sd = self.sd
-        bound = self.head_kv_bound(sd.K * (sd.d + 1) + sd.d)
+        reach = sd.K * (sd.d + 1) + sd.d
+        head_bound, bound = self.head_kv_bound(reach), self._kv_bound(reach)
         self.graphs.ensure(
-            self.spec_key(Sb, True, False, 0, bound),
+            self.spec_key(Sb, True, False, 0, head_bound, bound),
             spec_window.spec_inputs(self, [], Sb, True),
             spec_window.build_spec_window(self, sd.K, Sb, True, False, 0,
-                                          bound))
+                                          head_bound, bound))
 
     def _warm_multi(self, K: int, Sb: int, riders) -> None:
         """Capture one greedy window (all rows inactive; ``riders`` [] for

@@ -101,6 +101,11 @@ class LlmRequest:
         # parents are not served here, so draft_parents stays None
         self.draft_tokens: List[int] = []
         self.draft_parents: Optional[List[int]] = None
+        # a one-model head on the host path (EAGLE3 / MTP with
+        # device_window=False): each emitted token with the target's
+        # pre-norm hidden row that produced it (float32 [H] on the host),
+        # until the head's next catch-up consumes them
+        self.eagle_feats: List = []
 
         # chunked-prefill progress
         self.context_current_position: int = 0

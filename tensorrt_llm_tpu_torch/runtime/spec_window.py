@@ -1,6 +1,11 @@
-"""Device-resident speculative decode window (one-model EAGLE3).
+"""Device-resident speculative decode window (one-model EAGLE3 or MTP).
 
-Port of ``tensorrt_llm_tpu/runtime/spec_window.py``. The whole
+Port of ``tensorrt_llm_tpu/runtime/spec_window.py``. The head is the
+drafter's (speculative/eagle.py ``Eagle3Drafter``, speculative/mtp.py
+``MtpDrafter``), the two signatures normalised by
+``speculative.one_model.head_step``; the head pool's entry is the
+drafter's ``kv_entry_shape`` ([2 * kv heads, head dim] for EAGLE3, the
+MLA latent [kv_lora_rank + qk_rope_head_dim] for MTP). The whole
 propose -> verify -> accept loop is one dispatch, iterated K times, so
 speculative decoding rides the overlap scheduler and pays the host
 round trip once per K*(d+1) potential tokens. Per iteration, for every
@@ -8,15 +13,19 @@ active row:
 
   1. head CATCH-UP: the previous iteration's emitted (token, feature)
      pairs run through the draft head as a ragged mini-prefill (d+1 query
-     rows per sequence, the ragged prefill kernel), writing verified
-     head-KV entries (overwriting last iteration's speculative entries at
-     the same positions); the output at the last pending row proposes
+     rows per sequence; EAGLE3's through the ragged prefill kernel, MTP's
+     on MLA's decompressed path), writing verified head-KV entries
+     (overwriting last iteration's speculative entries at the same
+     positions); the output at the last pending row proposes
      draft token 0;
   2. d-1 more head steps propose the remaining drafts (one query per
-     sequence, the paged decode kernel; speculative head-KV entries);
+     sequence: EAGLE3's through the paged decode kernel, MTP's on MLA's
+     absorbed path; speculative head-KV entries);
   3. the TARGET verifies [cur, draft_0..draft_{d-1}] in one pass (d+1
-     query rows per sequence through the ragged prefill kernel in every
-     layer) and returns logits and pre-norm hidden features;
+     query rows per sequence: a Llama-family target through the ragged
+     prefill kernel in every layer, an MLA target on its decompressed
+     path, its latents gathered up to the window's KV bound) and returns
+     logits and pre-norm hidden features;
   4. ACCEPTANCE: the longest draft prefix equal to what the target emits
      at each row (greedy: its argmax; sampled: ``rejection_sample``), plus
      one bonus token;
@@ -34,7 +43,9 @@ host can foresee to have no active row. JAX's ``.at[...].set(mode=
 "drop")`` scatters become scatters into a trash row S of each state
 tensor. The body reads only its static inputs, the state tensors below
 and the pools (all updated in place: a graph holds their addresses) and
-host ints fixed by its key.
+host ints fixed by its key. The key carries the head's decode-kernel split
+count (EAGLE3) or the head's KV bound (MTP, whose MLA gathers up to it),
+and for an MLA target the target's KV bound (``graph_bound_key``).
 
 State per sequence slot (device-resident, ``engine.sd``; row S is trash):
   pend_toks  i64[S+1, d+1]     emitted tokens awaiting head catch-up
@@ -67,32 +78,33 @@ import torch
 from ..ops.attention import AttentionMetadata
 from ..ops.sampling_ops import (SamplingTensors, greedy_sample,
                                 rejection_sample, top_logprobs)
+from ..speculative.one_model import head_step
 
 HEAD_PAGE_SIZE = 32          # the JAX drafter's page size
 _LOGPROB_BUCKETS = (1, 5, 8, 20)
 
 
 def head_pool_bytes(max_batch_size: int, max_seq_len: int, draft_len: int,
-                    hidden: int, num_kv_heads: int, head_dim: int,
-                    element_size: int) -> int:
-    """Device bytes of the head's KV pool and the pending features (what
-    ``enable_spec_device`` allocates), for the engine to carve out before
-    it sizes the target's KV pool."""
+                    hidden: int, entry_elems: int, element_size: int) -> int:
+    """Device bytes of the head's KV pool (``entry_elems`` a position:
+    2 * kv heads * head dim for EAGLE3, the latent width for MTP) and the
+    pending features (what ``enable_spec_device`` allocates), for the
+    engine to carve out before it sizes the target's KV pool."""
     S = max_batch_size
     pages = -(-max_seq_len // HEAD_PAGE_SIZE)
-    pool = S * pages * HEAD_PAGE_SIZE * 2 * num_kv_heads * head_dim
+    pool = S * pages * HEAD_PAGE_SIZE * entry_elems
     feats = (S + 1) * (draft_len + 1) * hidden
     return (pool + feats) * element_size
 
 
 @dataclasses.dataclass
 class SpecDeviceState:
-    drafter: Any           # speculative/eagle.py Eagle3Drafter
+    drafter: Any           # Eagle3Drafter or MtpDrafter
     d: int                 # drafts per iteration
     K: int                 # iterations per window
     ps_h: int              # head KV page size
     P_h: int               # head pages per slot
-    kv: torch.Tensor       # head KV pool [S*P_h, ps_h, 2nkv, hd]
+    kv: torch.Tensor       # head pool [S*P_h, ps_h, *kv_entry_shape]
     pend_toks: torch.Tensor
     pend_feats: torch.Tensor
     pend_n: torch.Tensor
@@ -192,10 +204,12 @@ def spec_inputs(engine, reqs, Sb: int, greedy: bool) -> Dict[str, Any]:
 
 def build_spec_window(engine, K: int, Sb: int, greedy: bool = True,
                       seeded: bool = False, num_logprobs: int = 0,
-                      head_bound: int = 1):
+                      head_bound: int = 1, bound: int = 0):
     """The window body for ``GraphRunner``: K unrolled iterations over Sb
-    rows. ``head_bound``: the decode kernel's ``max_kv_len`` hint for the
-    head's chained steps (the graph key carries its split count)."""
+    rows. ``head_bound``: the ``max_kv_len`` of the head's passes (the
+    decode kernel's hint for EAGLE3's chained steps, MLA's gather for
+    MTP's); ``bound``: the target verify's (0: none; an MLA target
+    gathers its latents up to it)."""
     sd = engine.sd
     dr = sd.drafter
     d = sd.d
@@ -251,16 +265,16 @@ def build_spec_window(engine, K: int, Sb: int, greedy: bool = True,
             hpage = hpages.gather(1, (hp // ps_h).clamp(0, P_h - 1).long())
             hslot = torch.where(vm, hpage * ps_h + hp % ps_h, oob_h)
             last_row = rowbase + (pn - 1).clamp(min=0)
-            f_all = dr.head_forward(
-                pfeats.reshape(Sb * Dp, H), ptoks.reshape(-1), sd.kv,
+            h_all, f_all = head_step(
+                dr, pfeats.reshape(Sb * Dp, H), ptoks.reshape(-1), sd.kv,
                 AttentionMetadata(
                     kv_lens=torch.where(active, hpos + pn, 1).to(torch.int32),
                     page_indices=hpages, cu_q_lens=cu_q, num_seqs=num_seqs,
                     slot_mapping=hslot.reshape(-1).to(torch.int32),
                     positions=hp_c.reshape(-1), logits_indices=last_row,
-                    max_q_len=Dp))
-            f = f_all[last_row]
-            tok = dr.draft_argmax(f)
+                    max_q_len=Dp, max_kv_len=head_bound))
+            f = h_all[last_row]
+            tok = dr.draft_argmax(f_all[last_row])
             drafts = [tok]
             hbase = hpos + pn     # verified head length after catch-up
             # 2) d-1 chained head steps
@@ -268,12 +282,12 @@ def build_spec_window(engine, K: int, Sb: int, greedy: bool = True,
                 p = hbase + t
                 hpg = hpages[iota, (p // ps_h).clamp(0, P_h - 1).long()]
                 sm = torch.where(active, hpg * ps_h + p % ps_h, oob_h)
-                f = dr.head_forward(f, tok, sd.kv, AttentionMetadata(
+                f, fh = head_step(dr, f, tok, sd.kv, AttentionMetadata(
                     kv_lens=torch.where(active, p + 1, 1).to(torch.int32),
                     page_indices=hpages, cu_q_lens=cu_q1, num_seqs=num_seqs,
                     slot_mapping=sm.to(torch.int32), positions=p,
                     logits_indices=iota, max_q_len=1, max_kv_len=head_bound))
-                tok = dr.draft_argmax(f)
+                tok = dr.draft_argmax(fh)
                 drafts.append(tok)
             drafts_t = torch.stack(drafts, dim=1)              # [Sb, d]
             # 3) target verify: query rows [cur, drafts...]
@@ -288,7 +302,8 @@ def build_spec_window(engine, K: int, Sb: int, greedy: bool = True,
                     num_seqs=num_seqs,
                     slot_mapping=tslot.reshape(-1).to(torch.int32),
                     positions=tp.reshape(-1), logits_indices=all_rows,
-                    max_q_len=Dp), collect_hidden=True)
+                    max_q_len=Dp, max_kv_len=bound or None),
+                collect_hidden=True)
             lf = logits.float()
             if greedy:
                 tgt, lp = greedy_sample(lf)
@@ -376,8 +391,11 @@ def forward_spec_window(engine, batch):
     engine.decode_steps += sd.K
     sd.dead_iters += max(0, sd.K - (int(budgets.max()) if n else 0))
     ndt = max((r.num_device_tokens for r in reqs), default=0)
-    bound = engine.head_kv_bound(ndt + sd.K * (sd.d + 1) + sd.d)
+    reach = ndt + sd.K * (sd.d + 1) + sd.d
+    head_bound = engine.head_kv_bound(reach)
+    bound = engine._kv_bound(reach)
     return engine.graphs.run(
-        engine.spec_key(Sb, greedy, seeded, k_lp, bound), inputs,
-        build_spec_window(engine, sd.K, Sb, greedy, seeded, k_lp, bound),
+        engine.spec_key(Sb, greedy, seeded, k_lp, head_bound, bound), inputs,
+        build_spec_window(engine, sd.K, Sb, greedy, seeded, k_lp, head_bound,
+                          bound),
         inert=lambda: spec_inputs(engine, [], Sb, greedy))

@@ -1,15 +1,16 @@
-"""EAGLE3 one-model speculative head, for the fused device window.
+"""EAGLE3 one-model speculative head.
 
-Port of ``tensorrt_llm_tpu/speculative/eagle.py`` (``Eagle3Drafter``)
-for the device window only (runtime/spec_window.py): the head's
-parameters (``_load_head``), its forward (``head_forward``), the
-embedding and lm_head it borrows from the target, and the acceptance
+Port of ``tensorrt_llm_tpu/speculative/eagle.py`` (``Eagle3Drafter``):
+the head's parameters (``_load_head``), its forward (``head_forward``),
+the embedding and lm_head it borrows from the target, and the acceptance
 statistics. A single trained decoder layer predicts the target's next
 hidden feature from (current feature, next token embedding); draft
 tokens come from applying the target's lm_head to predicted features,
 autoregressively (reference: tensorrt_llm/_torch/speculative/eagle3.py).
-The host-orchestrated proposal functions are not ported: the head runs
-inside the window, on the engine's head KV pool.
+The head runs inside the fused window (runtime/spec_window.py) on the
+engine's head KV pool, or with ``max_slots`` > 0 on the host path
+(speculative/one_model.py, a linear chain, on its own pool). The tree
+and DFLASH block proposals are not ported.
 
 Parameters (``{"weight": [out, in]}`` per projection, as the port's
 unquantized linear method keeps them): fuse [H, 2H], input_norm [H],
@@ -23,7 +24,7 @@ head is the same head in both packages.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,9 +36,8 @@ from ..ops.attention import AttentionMetadata
 from ..ops.linear import LinearMethod, dot_f32
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig
-from ..runtime.request import LlmRequest
 from ..runtime.spec_window import HEAD_PAGE_SIZE
-from .interface import Drafter
+from .one_model import OneModelDrafter
 
 HEAD_EPS = 1e-6       # the head's RMSNorm epsilon (fixed, not the target's)
 
@@ -61,13 +61,12 @@ def head_params_from_jax(params_np: Mapping[str, Any], dtype: torch.dtype,
             "gate_up": lin("gate", "up"), "down": lin("down")}
 
 
-class Eagle3Drafter(Drafter):
-    wants_hidden_states = True
-
+class Eagle3Drafter(OneModelDrafter):
     def __init__(self, target_model, target_params: Dict[str, Any], *,
-                 max_draft_len: int = 4, page_size: int = HEAD_PAGE_SIZE,
-                 max_seq_len: int = 2048,
-                 head_state_dict: Optional[Mapping[str, Any]] = None):
+                 max_draft_len: int = 4, max_slots: int = 0,
+                 page_size: int = HEAD_PAGE_SIZE, max_seq_len: int = 2048,
+                 head_state_dict: Optional[Mapping[str, Any]] = None,
+                 token_buckets=(16, 64, 256)):
         super().__init__(max_draft_len)
         self.model = target_model
         self.H = target_model.hidden_size
@@ -77,8 +76,6 @@ class Eagle3Drafter(Drafter):
         self.I = getattr(target_model.hf, "intermediate_size", 4 * self.H)
         self.dtype = target_model.dtype
         self.device = target_model.device
-        self.page_size = page_size
-        self.max_seq_len = max_seq_len
         # one entry of the head's single-layer paged KV pool
         self.kv_entry_shape = (2 * self.nkv, self.hd)
         self.attn_spec = AttentionSpec(
@@ -95,10 +92,7 @@ class Eagle3Drafter(Drafter):
         self.embed = target_params["embed"]
         self.lm_head = {"weight": target_model.m_lm_head.dequantize(
             target_params["lm_head"], self.dtype).t()}
-        self.acceptance_window: List[int] = []  # accepted-per-step stats
-        # every step since build: drafts accepted, steps
-        self.accepted_total = 0
-        self.steps_total = 0
+        self._init_host(max_slots, page_size, max_seq_len, token_buckets)
 
     # ------------------------------------------------------------------ #
     def _load_head(self, sd: Optional[Mapping[str, Any]]) -> Dict[str, Any]:
@@ -163,16 +157,3 @@ class Eagle3Drafter(Drafter):
         g, u = dot_f32(normed, p["gate_up"]["weight"]).split(self.I, -1)
         a = F.silu(g).to(dt) * u.to(dt)
         return h + F.linear(a, p["down"]["weight"])
-
-    def draft_argmax(self, f: torch.Tensor) -> torch.Tensor:
-        """The draft token of each feature row: argmax of ``f @ lm_head``
-        taken in float32."""
-        return torch.argmax(dot_f32(f, self.lm_head["weight"]), dim=-1)
-
-    # ------------------------------------------------------------------ #
-    def update(self, request: LlmRequest, accepted: List[int]) -> None:
-        self.acceptance_window.append(len(accepted))
-        if len(self.acceptance_window) > 512:
-            self.acceptance_window.pop(0)
-        self.accepted_total += len(accepted)
-        self.steps_total += 1

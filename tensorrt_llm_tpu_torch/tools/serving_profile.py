@@ -122,6 +122,21 @@ Two workloads:
   ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8, depth 4, CUDA graphs)
   but 8,192 tokens a prefill step (16 prompts); the state pools hold
   124.6 MB a slot, float32;
+- ``--geometry deepseek-v3-mtp``: ``chip_smoke.py``'s mtp_serving run,
+  DeepSeek-V3 at its published width (``DEEPSEEK_V3``: hidden 7,168, 128
+  MLA heads over a latent of 512 + 64, 256 experts top 8 of 2,048 in 8
+  groups and 1 shared, vocab 129,280), cut to its first 4 layers (3
+  dense, 1 MoE) plus its MTP module (``num_nextn_predict_layers`` 1),
+  seeded random bf16 weights made on the card (~53.4 GB with the head),
+  64 requests of 512 prompt tokens -> 128 with ``ignore_eos``, ``LLM``
+  defaults but 8,192 tokens a prefill step; ``--spec MTP --draft-len 1``
+  (``--spec-host``: the host path) drafts with the module's seeded random
+  weights (``mtp_head_checkpoint``);
+- ``--geometry longcat-flash``: ``chip_smoke.py``'s longcat_serving run,
+  LongCat-Flash at its published width (``LONGCAT_FLASH``: hidden 6,144,
+  64 MLA heads, dense MLPs of 12,288, 512 experts top 12 of 2,048 beside
+  256 zero experts, vocab 131,072) at 1 of its 28 pairs, seeded random
+  bf16 weights made on the card (~43.1 GB), the same traffic;
 - ``--family NAME`` also takes the recurrent families
   (``RECURRENT_FAMILIES``: Mamba-2.8B, Falcon-Mamba-7B, Mamba2-2.7B,
   Granite-4.0-H-Tiny, Zamba2-1.2B, Jamba-v0.1, LFM2-1.2B,
@@ -179,6 +194,10 @@ K1 / K2 launches made while drafting (the rest are the target's).
     python -m tensorrt_llm_tpu_torch.tools.serving_profile \
         --geometry bamba-9b
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --family jamba
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry deepseek-v3-mtp [--spec MTP --draft-len 1 [--spec-host]]
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry longcat-flash
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --surface
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --guided \
         [--guided-backend dfa-host]
@@ -574,6 +593,28 @@ MOE_FAMILIES = {
 }
 
 
+# https://huggingface.co/deepseek-ai/DeepSeek-V3 config.json (the widths of
+# transformers' DeepseekV3Config() defaults, with the published yarn
+# rope_scaling) and its one MTP module (num_nextn_predict_layers 1), cut to
+# its first 4 layers: the 3 dense ones and the first MoE layer
+DEEPSEEK_V3 = dict(MOE_FAMILIES["deepseek_v3"][1], num_hidden_layers=4,
+                   num_nextn_predict_layers=1)
+
+# https://huggingface.co/meituan-longcat/LongCat-Flash-Chat config.json
+# (the fields of transformers' LongcatFlashConfig() defaults), at 1 of its
+# 28 pairs of MLA + dense sublayers
+LONGCAT_FLASH = dict(
+    vocab_size=131072, hidden_size=6144, ffn_hidden_size=12288,
+    expert_ffn_hidden_size=2048, num_layers=1, num_attention_heads=64,
+    num_key_value_heads=64, head_dim=64, q_lora_rank=1536, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    n_routed_experts=512, zero_expert_num=256, moe_topk=12,
+    routed_scaling_factor=6.0, max_position_embeddings=131072,
+    rope_theta=10000000.0, rope_scaling=None, rms_norm_eps=1e-5,
+    attention_bias=False, tie_word_embeddings=False, bos_token_id=1,
+    eos_token_id=2)
+
+
 # https://huggingface.co/ibm-ai-platform/Bamba-9B config.json: the fields
 # the port reads (the others at BambaConfig's defaults, among them
 # partial_rotary_factor 0.5 and rope_theta 10,000)
@@ -739,6 +780,39 @@ def deepseek_v2_lite_config(layers: Optional[int] = None):
     return _config("DeepseekV2Config", "deepseek_v2", fields)
 
 
+def deepseek_v3_config(layers: Optional[int] = None):
+    """DeepSeek-V3's published config (``DEEPSEEK_V3``) at ``layers``
+    layers (default 4)."""
+    fields = dict(DEEPSEEK_V3)
+    if layers:
+        fields["num_hidden_layers"] = layers
+    return _config("DeepseekV3Config", "deepseek_v3", fields)
+
+
+def longcat_flash_config(pairs: Optional[int] = None):
+    """LongCat-Flash's published config (``LONGCAT_FLASH``) at ``pairs``
+    pairs (default 1); two pool layers a pair."""
+    fields = dict(LONGCAT_FLASH)
+    if pairs:
+        fields["num_layers"] = pairs
+    fields["num_hidden_layers"] = 2 * fields["num_layers"]
+    return _config("LongcatFlashConfig", "longcat_flash", fields)
+
+
+def mtp_head_checkpoint(cfg, device="cuda", seed: int = 11):
+    """The MTP module of a DeepSeek config as a seeded ``RandomCheckpoint``
+    on ``device`` (bf16, drawn when the loader reads each tensor): at
+    DeepSeek-V3's width the JAX package's numpy draws (``speculative.mtp.
+    synth_state_dict``) would take minutes on the host."""
+    from tensorrt_llm_tpu_torch.models import ModelConfig, get_model_class
+    from tensorrt_llm_tpu_torch.models.recurrent import RandomCheckpoint
+    from tensorrt_llm_tpu_torch.speculative.mtp import synth_shapes
+    m = get_model_class(cfg.model_type)(ModelConfig(
+        hf_config=cfg, dtype=torch.bfloat16, device=device))
+    return RandomCheckpoint(synth_shapes(m, m.num_layers), device,
+                            torch.bfloat16, seed)
+
+
 def moe_family_config(name: str, layers: Optional[int] = None):
     """The config of ``MOE_FAMILIES[name]`` at ``layers`` layers (default
     the table's): per-layer lists cut to that depth, DeepSeek-V3's dense
@@ -900,6 +974,16 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
                       kv_cache_config=KvCacheConfig(enable_block_reuse=False))
         return (bamba_9b_config(), kwargs, prompts,
                 SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
+    if geometry in ("deepseek-v3-mtp", "longcat-flash"):
+        cfg = deepseek_v3_config() if geometry == "deepseek-v3-mtp" \
+            else longcat_flash_config()
+        prompts = torch.randint(0, cfg.vocab_size, (64, 512),
+                                generator=gen).tolist()
+        kwargs = dict(max_batch_size=64, max_input_len=512, max_seq_len=640,
+                      max_num_tokens=8192,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (cfg, kwargs, prompts,
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
     if geometry == "deepseek-v2-lite":
         prompts = torch.randint(0, DEEPSEEK_V2_LITE["vocab_size"], (64, 512),
                                 generator=gen).tolist()
@@ -964,15 +1048,20 @@ def kernel_modules() -> dict:
             "groupwise_dequant_matmul": qmm}
 
 
-def spec_config(mode: str, draft_len: int):
+def spec_config(mode: str, draft_len: int, cfg=None,
+                device_window: bool = True):
     """The ``SpeculativeConfig`` of ``--spec``: EAGLE3 with a seeded
-    random head; the host drafters, DRAFT_TARGET / PARD drafting with
-    Llama-3.2-1B's published config (seeded random weights; PARD's mask
-    token 0)."""
+    random head; MTP with the seeded random module of the target config
+    ``cfg`` (``mtp_head_checkpoint``), in the window or (``device_window``
+    False) on the host path; the host drafters, DRAFT_TARGET / PARD
+    drafting with Llama-3.2-1B's published config (seeded random weights;
+    PARD's mask token 0)."""
     from transformers import LlamaConfig
 
     from tensorrt_llm_tpu_torch import SpeculativeConfig
-    kw = {}
+    kw = dict(device_window=device_window)
+    if mode == "MTP":
+        kw["draft_model"] = mtp_head_checkpoint(cfg)
     if mode in ("DRAFT_TARGET", "PARD"):
         kw["draft_model"] = LlamaConfig(**LLAMA32_1B)
     if mode == "PARD":
@@ -1079,10 +1168,12 @@ def _generate(llm, prompts, sp):
     return time.monotonic() - t0, outs
 
 
-def measure(llm, prompts, sp, profile: bool = True) -> dict:
+def measure(llm, prompts, sp, profile: bool = True,
+            outputs: Optional[list] = None) -> dict:
     """Warm-up pass, timed pass, then (``profile``) a profiled pass of
     the same requests through ``llm``. The kernels' launch counters are
-    zeroed right before the timed pass and read right after it."""
+    zeroed right before the timed pass and read right after it. The timed
+    pass's ``RequestOutput``s are appended to ``outputs``."""
     kernels = kernel_modules()
     _generate(llm, prompts, sp)
     eng = llm.engine
@@ -1108,6 +1199,8 @@ def measure(llm, prompts, sp, profile: bool = True) -> dict:
         wall, outs = _generate(llm, prompts, sp)
     finally:
         drafting = timer.close() if timer is not None else None
+    if outputs is not None:
+        outputs.extend(outs)
     launches = {k: mod.LAUNCHES for k, mod in kernels.items()}
     launches_e4m3 = qmm.LAUNCHES_E4M3
     launches_sinks = {k: kernels[k].LAUNCHES_SINKS for k in
@@ -1638,7 +1731,9 @@ def main() -> None:
                                            "gemma2-9b", "gemma3-1b",
                                            "llama3-8b", "llama3-8b-copy",
                                            "llama3-8b-quant", "gpt-oss-20b",
-                                           "deepseek-v2-lite", "bamba-9b"],
+                                           "deepseek-v2-lite", "bamba-9b",
+                                           "deepseek-v3-mtp",
+                                           "longcat-flash"],
                     default="tinyllama",
                     help="the model of the default workload")
     ap.add_argument("--layers", type=int, default=None,
@@ -1656,10 +1751,14 @@ def main() -> None:
                     default="none", help="the KV cache's quantization")
     ap.add_argument("--vswa", action="store_true",
                     help="gemma2-9b: the sliding layers on their own pool")
-    ap.add_argument("--spec", choices=("NONE", "EAGLE3") + HOST_SPEC_MODES,
-                    default="NONE",
-                    help="speculative mode (EAGLE3: a seeded random head; "
-                    "DRAFT_TARGET / PARD: Llama-3.2-1B, random weights)")
+    ap.add_argument("--spec", choices=("NONE", "EAGLE3", "MTP")
+                    + HOST_SPEC_MODES, default="NONE",
+                    help="speculative mode (EAGLE3, MTP: a seeded random "
+                    "head; DRAFT_TARGET / PARD: Llama-3.2-1B, random "
+                    "weights)")
+    ap.add_argument("--spec-host", action="store_true",
+                    help="EAGLE3 / MTP on the host path "
+                    "(device_window=False)")
     ap.add_argument("--draft-len", type=int, default=3,
                     help="drafts per spec iteration")
     ap.add_argument("--surface", action="store_true",
@@ -1714,7 +1813,8 @@ def main() -> None:
         cfg.num_hidden_layers = args.layers
     model = inline_module(cfg) if args.inline else cfg
     if args.spec != "NONE":
-        kwargs["speculative_config"] = spec_config(args.spec, args.draft_len)
+        kwargs["speculative_config"] = spec_config(
+            args.spec, args.draft_len, cfg, not args.spec_host)
     kv = "NO_QUANT" if args.kv == "none" else args.kv.upper()
     llm = LLM(model, dtype="bfloat16", quant_config=QuantConfig(
         quant_algo=QuantAlgo[args.quant], group_size=args.group_size,

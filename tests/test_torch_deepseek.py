@@ -561,10 +561,17 @@ def test_mla_scratch_grows_with_the_latents_alone():
 
 @pytest.mark.parametrize("mode", ["EAGLE3", "MTP"])
 def test_speculation_refused_by_name(mode):
-    """EAGLE3 on a DeepSeek target (its forward collects no hidden rows
-    for the head) and MTP are refused by name."""
+    """EAGLE3 on a DeepSeek target (the head is a Llama layer over the
+    target's hidden rows, which the JAX package does not draft for) and
+    MTP on LongCat-Flash (its forward collects no hidden rows, nor does
+    the JAX one) are refused by name; MTP on DeepSeek targets is served
+    (tests/test_torch_mtp.py)."""
     from tensorrt_llm_tpu_torch import LLM, SpeculativeConfig
-    cfg, _ = _cfg("v3")
+    if mode == "EAGLE3":
+        cfg, _ = _cfg("v3")
+    else:
+        from tests.test_torch_longcat import _cfg as longcat_cfg
+        cfg = longcat_cfg()
     with pytest.raises(NotImplementedError, match=mode):
         LLM(cfg, device="cpu", dtype="float32", skip_tokenizer_init=True,
             speculative_config=SpeculativeConfig(mode=mode, max_draft_len=2))

@@ -614,9 +614,11 @@ def _tiny(**kw):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(mode="EAGLE3", device_window=False), "device_window"),
+    (dict(mode="EAGLE3", device_window=False, eagle_tree_width=2),
+     "eagle_tree_width"),
     (dict(mode="DFLASH"), "DFLASH"),
-    (dict(mode="MTP"), "MTP"),
+    (dict(mode="MTP", device_window=False, eagle_dynamic_tree=True),
+     "eagle_dynamic_tree"),
     (dict(mode="NGRAM", eagle_tree_width=2), "eagle_tree_width"),
     (dict(mode="DRAFT_TARGET", eagle_dynamic_tree=True),
      "eagle_dynamic_tree"),

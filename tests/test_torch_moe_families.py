@@ -310,7 +310,7 @@ def test_options_the_jax_package_serves_otherwise_are_refused(family, change,
 
 @pytest.mark.parametrize("model_type", [
     "granitemoe", "hunyuan_v1_moe", "glm4_moe", "ernie4_5_moe", "apertus",
-    "deepseek_v2", "deepseek_v3"])
+    "deepseek_v2", "deepseek_v3", "longcat_flash"])
 def test_eagle3_refused_by_name(model_type):
     from tensorrt_llm_tpu_torch.llmapi.llm_args import (SpeculativeConfig,
                                                         check_ported_spec)
@@ -320,7 +320,7 @@ def test_eagle3_refused_by_name(model_type):
 
 
 @pytest.mark.parametrize("model_type", [
-    "longcat_flash", "bert", "gemma3", "gemma3_vl", "glm4v", "internvl",
+    "bert", "gemma3", "gemma3_vl", "glm4v", "internvl",
     "llava", "llava_next", "mistral3", "mllama", "paligemma", "qwen2_vl",
     "qwen2_5_vl", "qwen3_vl", "qwen3_vl_moe"])
 def test_unported_model_types_refused_by_name(model_type):
