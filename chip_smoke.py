@@ -412,6 +412,32 @@ the run on error:
      the card's tokens of 2 prompts of 64 -> 8 against the CPU model's
      forward, partings only at near-ties, and the share of picks that
      fell on zero experts.
+ 45. hd48_kernels: K1 and K2 at head dim 48 (tinypasskey-llama's 4 x 48
+     heads over 4 KV heads) at eval_accuracy's shapes, on a bf16 and an
+     e4m3 pool, against the plain version, timed beside it, its bound and
+     SDPA;
+ 46. eval_accuracy: the port's first accuracy on trained weights:
+     PasskeyRetrieval on tests/assets/tinypasskey-llama at context 250
+     and 3,072, each in bf16, on an FP8 KV pool and with FP8 weights,
+     and HumanEval on tests/assets/tinycode-llama in bf16: accuracies and
+     K1 / K2 / K3 launches (bf16 at 250 must reach 80 %);
+ 47. bert_parity: ``LLM.classify`` in float32 card against CPU, a tiny
+     BERT (also against transformers) and BERT-large at full width on 4
+     pairs (2e-4);
+ 48. bert_serving: BERT-large as a cross-encoder reranker, 128 pairs of
+     200-512 tokens with token types (bucket 512): pairs/s, ms a batch,
+     peak memory;
+ 49. llava_parity: image prompts through ``LLM.generate`` in float32,
+     card against CPU: the tiny LLaVA (tokens identical) and
+     LLaVA-1.5-7B's full-width tower and projector over 2 text layers
+     (partings only at near-ties);
+ 50. llava_serving: LLaVA-1.5-7B at full width and depth, 64 x (one 336
+     x 336 image + 64 text tokens = 640) -> 128, K = 8, graphs
+     (``serving_profile --geometry llava-1.5-7b``): tok/s, TTFT, TPOT,
+     the tower's ms per image, K1 / K2 launches, idle share, GPU time by
+     class, weights and peak memory, and the blocks reused by 16 requests
+     of one text beside different images (none) and of one text and one
+     image.
 
 ``python3 chip_smoke.py --only a,b`` runs just the named phases (a
 development run: no kernels line, no result line).
@@ -426,7 +452,9 @@ deepseek_serving's timed passes (none: MLA calls no kernel), gpt_families'
 summed, moe_families' by family, bamba_serving's timed pass,
 recurrent_families' by family, mtp_serving's three timed passes and
 longcat_serving's (none: MLA, the MTP head and the ScMoE call no
-kernel); the dequant-matmul kernel's row also its
+kernel), eval_accuracy's runs, bert_serving's (none: the encoder calls no
+kernel) and llava_serving's timed pass; K1's and K2's rows also their
+hd-48 cases; the dequant-matmul kernel's row also its
 e4m3 cases and its e4m3 launches in quant_serving's runs) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -448,6 +476,8 @@ TOL = 2e-2
 # layers)
 GUIDED_SERVING_LAYERS = 8
 BAMBA_SERVING_LAYERS = 19
+# deepseek_serving keeps its dense first layer and 8 of its 26 MoE layers
+DEEPSEEK_SERVING_LAYERS = 9
 NEAR_TIE = 3e-2               # log-probability margin below which the
                               # quantized cuda/cpu runs may part ways
 
@@ -4241,11 +4271,13 @@ def deepseek_parity_phase() -> dict:
 
 
 def deepseek_serving_phase() -> dict:
-    """DeepSeek-V2-Lite at its published width and depth (27 layers, hidden
+    """DeepSeek-V2-Lite at its published width, its first 9 of 27 layers
+    (``DEEPSEEK_SERVING_LAYERS``, for the script's time limit; hidden
     2,048, 16 MLA heads over one latent row of 512 + 64 a token, 64
     experts top 6 and 2 shared after one dense layer, yarn factor 40;
-    seeded random bf16 weights, ~31.4 GB), 64 requests of 512 prompt
-    tokens -> 128 greedy tokens with ``ignore_eos``, one bf16 latent pool,
+    seeded random bf16 weights, ~31.4 GB at full depth), 64 requests of
+    512 prompt tokens -> 128 greedy tokens with ``ignore_eos``, one bf16
+    latent pool,
     ``LLM`` defaults (64 rows, K = 8 windows, depth 4, CUDA graphs) but
     8,192 tokens a prefill step and prefix reuse off
     (tools/serving_profile.py ``--geometry deepseek-v2-lite``): a
@@ -4273,7 +4305,8 @@ def deepseek_serving_phase() -> dict:
     import torch
     from tensorrt_llm_tpu_torch import LLM
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
-    cfg, kwargs, prompts, sp = sprof.workload(geometry="deepseek-v2-lite")
+    _, kwargs, prompts, sp = sprof.workload(geometry="deepseek-v2-lite")
+    cfg = sprof.deepseek_v2_lite_config(DEEPSEEK_SERVING_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5664,6 +5697,478 @@ def longcat_parity_phase(full) -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# BERT, the evaluate harness (K1/K2 at hd 48), the prompt-embedding path
+# and LLaVA
+# --------------------------------------------------------------------- #
+ASSETS = Path(__file__).resolve().parent / "tests" / "assets"
+PASSKEY_CKPT = str(ASSETS / "tinypasskey-llama")
+CODE_CKPT = str(ASSETS / "tinycode-llama")
+PASSKEY_CTX = 3072
+# eval_accuracy's engine: max_seq_len 3,072 + 96 over pages of 32
+PAGES_PASSKEY = -(-(PASSKEY_CTX + 96) // 32)
+
+
+def hd48_kernel_phase(results: dict) -> None:
+    """K1 and K2 at head dim 48 (tinypasskey-llama: 4 x 48 q heads over 4
+    KV heads; the kernels stage it as 64-wide tiles) at eval_accuracy's
+    shapes: ``decode_hd48`` 2 rows at 250 and 3,072 positions,
+    ``prefill_hd48`` one fresh 3,072-token prompt, each also on an e4m3
+    pool (``_kv_e4m3``, the FP8-KV run's), held against the plain version
+    (``_attention_case``: bf16 2e-2), timed beside it, its bound
+    (max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s)) and SDPA on the KV
+    gathered to the longest row. q is unscaled (scores of order one)."""
+    import torch
+    bf = torch.bfloat16
+    dec_rows = ([1, 1], [249, PASSKEY_CTX - 1])
+    prompt = ([PASSKEY_CTX], [0])
+    for name, kind, (q_lens, ctx), kv8 in [
+            ("decode_hd48", "decode", dec_rows, None),
+            ("prefill_hd48", "prefill", prompt, None),
+            ("decode_hd48_kv_e4m3", "decode", dec_rows, "e4m3"),
+            ("prefill_hd48_kv_e4m3", "prefill", prompt, "e4m3")]:
+        results[name] = _attention_case(
+            name, kind, q_lens, ctx, 4, 4, None, None, bf,
+            seed=80 + len(results), pages_per_seq=PAGES_PASSKEY, hd=48,
+            q_scale=1.0, kv8=kv8)
+
+
+def eval_accuracy_phase() -> dict:
+    """The port's first accuracy on trained weights (evaluate/tasks.py
+    through ``LLM.generate``): ``PasskeyRetrieval(style="marker")`` on
+    tests/assets/tinypasskey-llama (4 x 48 heads: K1 and K2 at hd 48) at
+    the JAX test's settings (context 250, depths 0.2 / 0.5 / 0.8, 2 keys)
+    and at context 3,072 (depths 0.15 to 0.9, 2 keys), each served three
+    ways: bf16, an FP8 KV pool (scales calibrated at build) and FP8
+    weights (per-tensor e4m3: the q/k/v, o and gate/up products, K =
+    192, take the FP8 method's dequantize-then-matmul, the down product,
+    K = 512, takes K3's e4m3 body at up to 128 rows). Then
+    ``HumanEval(byte_prompts=True)`` on tests/assets/tinycode-llama in
+    bf16. Each run's accuracy, per-depth accuracy and the kernels'
+    launches (counts zeroed right before it, read right after). Fails if
+    bf16 at context 250 retrieves less than the JAX test's 80 %, or if a
+    passkey run did not launch K1 and K2."""
+    import torch
+    from tensorrt_llm_tpu_torch import KvCacheConfig, LLM, QuantConfig
+    from tensorrt_llm_tpu_torch.evaluate.tasks import (HumanEval,
+                                                       PasskeyRetrieval)
+    from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
+    from tensorrt_llm_tpu_torch.quantization.mode import (KvCacheQuantAlgo,
+                                                          QuantAlgo)
+    settings = (("ctx250", 250, (0.2, 0.5, 0.8)),
+                ("ctx3072", PASSKEY_CTX, (0.15, 0.35, 0.55, 0.75, 0.9)))
+    modes = (("bf16", QuantConfig()),
+             ("fp8_kv", QuantConfig(
+                 kv_cache_quant_algo=KvCacheQuantAlgo.FP8)),
+             ("fp8_weights", QuantConfig(quant_algo=QuantAlgo.FP8)))
+    kw = dict(dtype="bfloat16", skip_tokenizer_init=True, max_batch_size=16,
+              max_input_len=PASSKEY_CTX + 64,
+              max_seq_len=PASSKEY_CTX + 96, max_num_tokens=8192,
+              kv_cache_config=KvCacheConfig(tokens_per_block=32,
+                                            enable_block_reuse=False))
+    runs = {}
+    for mode, qc in modes:
+        llm = LLM(PASSKEY_CKPT, quant_config=qc, **kw)
+        try:
+            for name, ctx, depths in settings:
+                _zero_launches()
+                qmm.LAUNCHES_E4M3 = 0
+                t0 = time.monotonic()
+                r = PasskeyRetrieval(context_len=ctx, depths=depths,
+                                     num_keys=2, style="marker"
+                                     ).evaluate(llm)
+                runs[f"{mode}_{name}"] = dict(
+                    task="passkey", mode=mode, context=ctx,
+                    accuracy=r["accuracy"], per_depth=r["per_depth"],
+                    num_samples=r["num_samples"],
+                    seconds=time.monotonic() - t0,
+                    launches=_read_launches(),
+                    launches_e4m3=qmm.LAUNCHES_E4M3)
+                emit({"phase": "eval_accuracy", "run": f"{mode}_{name}",
+                      **runs[f"{mode}_{name}"]})
+        finally:
+            llm.shutdown()
+        torch.cuda.empty_cache()
+    llm = LLM(CODE_CKPT, dtype="bfloat16", skip_tokenizer_init=True,
+              max_batch_size=2, max_input_len=512, max_seq_len=768,
+              max_num_tokens=768)
+    try:
+        _zero_launches()
+        r = HumanEval(byte_prompts=True, max_tokens=48,
+                      timeout_s=5).evaluate(llm)
+        runs["humaneval_bf16"] = dict(
+            task="humaneval", mode="bf16", pass_at_1=r["pass@1"],
+            accuracy=r["accuracy"], num_samples=r["num_samples"],
+            launches=_read_launches())
+        emit({"phase": "eval_accuracy", "run": "humaneval_bf16",
+              **runs["humaneval_bf16"]})
+    finally:
+        llm.shutdown()
+    bad = [k for k, v in runs.items() if v["task"] == "passkey" and not (
+        v["launches"]["paged_decode_attention"] and
+        v["launches"]["ragged_prefill_attention"])]
+    if bad or runs["bf16_ctx250"]["accuracy"] < 80.0:
+        raise AssertionError(f"eval_accuracy: K1/K2 not launched in {bad}, "
+                             f"or bf16 at 250 below 80 %: "
+                             f"{runs['bf16_ctx250']}")
+    return runs
+
+
+def _tiny_bert(num_labels: int = 3):
+    import torch
+    from transformers import BertConfig, BertForSequenceClassification
+    torch.manual_seed(0)
+    return BertForSequenceClassification(BertConfig(
+        vocab_size=96, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=128,
+        max_position_embeddings=128, num_labels=num_labels)).eval()
+
+
+def bert_parity_phase() -> dict:
+    """``LLM.classify`` in float32, the card against the port's CPU path:
+    a tiny seeded ``transformers`` BERT (3 labels; also against
+    ``transformers``) on a ragged batch of pairs with token types, and
+    BERT-large at its published width (``serving_profile.BERT_LARGE``,
+    one label; seeded random weights drawn on the card and copied to the
+    host) on 4 pairs of 100-120 tokens (bucket 128). Logits held to 2e-4
+    (rtol and atol). Fails otherwise."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.models import ModelConfig, get_model_class
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    res, failures = {}, []
+    tm = _tiny_bert()
+    prompts = [[2, 5, 9, 23, 40, 41], [7, 11, 13], list(range(3, 40))]
+    tts = [[0, 0, 0, 1, 1, 1], [0, 0, 1], [0] * 10 + [1] * 27]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        llm = LLM(tm, device=dev, dtype="float32", skip_tokenizer_init=True)
+        outs[dev] = llm.classify(prompts, token_type_ids=tts)
+        llm.shutdown()
+    with torch.no_grad():
+        ref = np.stack([tm(input_ids=torch.tensor([p]),
+                           token_type_ids=torch.tensor([t])
+                           ).logits[0].numpy()
+                        for p, t in zip(prompts, tts)])
+    for name, a, b in (("tiny_card_vs_cpu", outs["cuda"], outs["cpu"]),
+                       ("tiny_card_vs_transformers", outs["cuda"], ref)):
+        err = float(np.abs(a - b).max())
+        res[name] = err
+        if not np.allclose(a, b, rtol=2e-4, atol=2e-4):
+            failures.append(f"{name}: {err}")
+    cfg = sprof.bert_large_config()
+    ids, types = sprof.bert_pairs(4, 100, 120, seed=1)
+    llm = LLM(cfg, dtype="float32")
+    try:
+        card = llm.classify(ids, token_type_ids=types)
+        params = _tree_to(llm._encoder_params, "cpu")
+    finally:
+        llm.shutdown()
+    t0 = time.monotonic()
+    model = get_model_class("bert")(ModelConfig(
+        hf_config=cfg, dtype=torch.float32, device="cpu"))
+    cpu = model.classify(params, ids, types)
+    err = float(np.abs(card - cpu).max())
+    res.update(bert_large_card_vs_cpu=err, bert_large_cpu_s=time.monotonic()
+               - t0, bert_large_logits=card[:, 0].tolist())
+    if not (np.isfinite(card).all() and
+            np.allclose(card, cpu, rtol=2e-4, atol=2e-4)):
+        failures.append(f"bert-large card vs cpu: {err}")
+    del params, model
+    emit({"phase": "bert_parity", **res})
+    if failures:
+        raise AssertionError("bert_parity: " + "; ".join(failures))
+    return res
+
+
+def bert_serving_phase() -> dict:
+    """BERT-large at its published width and depth as a cross-encoder
+    reranker (``serving_profile.BERT_LARGE``: 24 layers, 1,024 wide, 16
+    heads, MLP 4,096, vocab 30,522, one label; seeded random bf16
+    weights), 128 query-passage pairs of 200-512 tokens with token types
+    (``bert_pairs``; the batch pads to the 512 bucket) scored by one
+    ``LLM.classify`` call a batch: a warm-up, then 5 timed batches
+    (host clock around each call, which ends in the logits' copy to the
+    host): pairs/s, ms a batch (median, max), peak memory, weights. No
+    kernel of the port runs here (the JAX package leaves the encoder to
+    XLA). Fails on logits that are not finite or of the wrong shape."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    ids, types = sprof.bert_pairs(128)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLM(sprof.bert_large_config(), dtype="bfloat16")
+    try:
+        weights = sum(t.numel() * t.element_size()
+                      for t in _tensors(llm._encoder_params))
+        out = llm.classify(ids, token_type_ids=types)
+        _zero_launches()
+        ms = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            out = llm.classify(ids, token_type_ids=types)
+            ms.append((time.monotonic() - t0) * 1e3)
+        launches = _read_launches()
+    finally:
+        llm.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    res = dict(model="bert-large-uncased (1 label)", pairs=len(ids),
+               tokens=sum(map(len, ids)), bucket=512,
+               ms_per_batch_median=statistics.median(ms),
+               ms_per_batch_max=max(ms), ms_per_batch=ms,
+               pairs_per_s=len(ids) / (statistics.median(ms) / 1e3),
+               weights_bytes=weights, peak_allocated_bytes=peak,
+               launches=launches, score_range=[float(out.min()),
+                                               float(out.max())])
+    emit({"phase": "bert_serving", **res})
+    if out.shape != (len(ids), 1) or not np.isfinite(out).all():
+        raise AssertionError(f"bert_serving: logits {out.shape}")
+    return res
+
+
+class _Checkpoint:
+    """A ``transformers`` config and a state dict in the form ``LLM``
+    takes an inline model: ``.config`` and ``.state_dict()``."""
+
+    def __init__(self, config, sd):
+        self.config, self.sd = config, sd
+
+    def state_dict(self):
+        return self.sd
+
+
+def _tiny_llava():
+    import torch
+    from transformers import (CLIPVisionConfig, LlamaConfig, LlavaConfig,
+                              LlavaForConditionalGeneration)
+    torch.manual_seed(0)
+    vc = CLIPVisionConfig(hidden_size=32, intermediate_size=64,
+                          num_hidden_layers=2, num_attention_heads=4,
+                          image_size=16, patch_size=8)
+    # head dim 64: the trunk's attention is K1 / K2 on the card
+    tc = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256,
+                     num_hidden_layers=2, num_attention_heads=2,
+                     num_key_value_heads=1, max_position_embeddings=256)
+    return LlavaForConditionalGeneration(LlavaConfig(
+        vision_config=vc, text_config=tc, image_token_index=120,
+        vision_feature_layer=-2, vision_feature_select_strategy="default")
+    ).eval()
+
+
+def llava_parity_phase() -> dict:
+    """LLaVA through ``LLM.generate`` with image prompts, float32, the
+    card against the port's CPU path: the tiny seeded ``transformers``
+    LLaVA (3 prompts of 4 image + 3-30 text tokens -> 8, greedy tokens
+    identical), then LLaVA-1.5-7B's full-width tower (CLIP ViT-L/14 at
+    336 px) and projector over 2 of its 32 text layers at full width
+    (seeded random float32 weights drawn on the card and copied to the
+    host; 2 prompts of one 336 x 336 image and 32 text tokens -> 8):
+    greedy tokens identical wherever the CPU decides by more than 3e-2
+    in log-probability (``_compare_streams``). Fails otherwise."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch import KvCacheConfig, LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.models.recurrent import (RandomCheckpoint,
+                                                         meta_shapes)
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    res, failures = {}, []
+    hf = _tiny_llava()
+    rng = np.random.default_rng(5)
+    prompts = [{"prompt_token_ids": [5, 9, 120] + rng.integers(
+        3, 110, n).tolist(), "multi_modal_data": {"image": [
+            rng.standard_normal((3, 16, 16)).astype(np.float32)]}}
+        for n in (3, 12, 30)]
+    sp = SamplingParams(max_tokens=8, top_k=1, ignore_eos=True)
+    kw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+              max_input_len=64, max_seq_len=128,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=2048))
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        llm = LLM(hf, device=dev, **kw)
+        try:
+            toks[dev] = [o.outputs[0].token_ids
+                         for o in llm.generate(prompts, sp)]
+            if dev == "cuda":
+                res["tiny_embed_steps"] = llm.engine.embed_steps
+        finally:
+            llm.shutdown()
+    res["tiny_identical"] = toks["cuda"] == toks["cpu"]
+    res["tiny_tokens"] = toks["cuda"]
+    if not res["tiny_identical"]:
+        failures.append(f"tiny: card {toks['cuda']} != cpu {toks['cpu']}")
+    cfg = sprof.llava_15_7b_config(text_layers=2)
+    from transformers import LlavaForConditionalGeneration as HF
+    shapes = meta_shapes(HF, cfg)
+    rand = RandomCheckpoint(shapes, "cuda", torch.float32, seed=3)
+    card_sd = {k: rand[k] for k in shapes}
+    prompts = sprof.llava_prompts(2, 32, seed=4)
+    sp = SamplingParams(max_tokens=8, top_k=1, ignore_eos=True, logprobs=2)
+    kw.update(max_input_len=640, max_seq_len=704, max_num_tokens=2048,
+              kv_cache_config=KvCacheConfig(tokens_per_block=32,
+                                            max_tokens=4096))
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        sd = card_sd if dev == "cuda" else {k: v.cpu()
+                                            for k, v in card_sd.items()}
+        t0 = time.monotonic()
+        llm = LLM(_Checkpoint(cfg, sd), device=dev, **kw)
+        try:
+            outs = llm.generate(prompts, sp)
+        finally:
+            llm.shutdown()
+        del sd
+        streams[dev] = ([o.outputs[0].token_ids for o in outs],
+                        [o.outputs[0].logprobs for o in outs])
+        res[f"full_width_{dev}_s"] = time.monotonic() - t0
+    del card_sd
+    torch.cuda.empty_cache()
+    cmp = _compare_streams(streams["cpu"], streams["cuda"])
+    res.update(full_width=dict(identical=streams["cpu"][0] ==
+                               streams["cuda"][0], cpu=streams["cpu"][0],
+                               card=streams["cuda"][0], **cmp))
+    if cmp["unexplained_partings"]:
+        failures.append(f"full width: {res['full_width']}")
+    emit({"phase": "llava_parity", **res})
+    if failures:
+        raise AssertionError("llava_parity: " + "; ".join(failures))
+    return res
+
+
+# llava_serving's profiled pass: the first 16 of its 64 requests
+PROFILED_REQUESTS = 16
+
+
+def _reused_blocks(llm, prompts, sp) -> int:
+    """KV blocks the prompts' requests took from the reuse tree (the
+    first one alone, so that its blocks are stored before the rest)."""
+    mgr = llm.kv_cache_manager
+    before = mgr.get_stats().reused_blocks
+    llm.generate(prompts[:1], sp)
+    llm.generate(prompts[1:], sp)
+    return mgr.get_stats().reused_blocks - before
+
+
+def llava_serving_phase() -> dict:
+    """LLaVA-1.5-7B at its published width and depth
+    (tools/serving_profile.py ``--geometry llava-1.5-7b``: CLIP ViT-L/14
+    at 336 px, its layer -2 features without the class token, a GELU
+    projector to 4,096, Vicuna-7B's 32 layers of 32 heads; seeded random
+    bf16 weights drawn on the card, ~14.1 GB), 64 requests of one 336 x
+    336 image and 64 text tokens (640 prompt tokens) -> 128 greedy tokens
+    with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8 windows, CUDA
+    graphs) but 8,192 tokens a prefill step and prefix reuse off: the
+    tower and projector run once per request on the caller's thread
+    (the features stay on the card), the trunk's prefill steps are eager
+    K2 steps with the embedding rows, decode is K1 in replayed windows. A
+    warm-up, a timed pass (tok/s, TTFT and TPOT median and max, K1 / K2
+    launches, eager steps with embedding rows), then 16 of the requests
+    unprofiled and under the profiler (``PROFILED_REQUESTS``: device idle
+    share, GPU time by class), weights and peak memory, the
+    tower and projector's ms per image (CUDA events, one image at a time,
+    the serving call), then with prefix reuse on: the blocks reused by 16
+    requests of one text beside 16 different images (must be none) and
+    by 16 of one text and one image (each but the first reuses its
+    prompt's full blocks). Fails if a request comes back short or out of
+    the vocabulary, if K1 or K2 did not launch, if no window replayed, if
+    the reuse counts are not so, or if the graph pool outgrew its
+    reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="llava-1.5-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    try:
+        eng = llm.engine
+        weights_bytes = sum(t.numel() * t.element_size()
+                            for t in _tensors(eng.params))
+        vision_bytes = sum(t.numel() * t.element_size() for t in _tensors(
+            [llm.model.vision_params, llm.model.projector]))
+        embed0 = eng.embed_steps
+        t1 = time.monotonic()
+        res = sprof.measure(llm, prompts, sp, profile=False)
+        # the profiled pass: 16 of the 64 requests (tracing every pass's
+        # 1.3 M kernels cost ~45 s of the script's time), its idle share
+        # against an unprofiled pass of the same 16
+        wall16, _ = sprof._generate(llm, prompts[:PROFILED_REQUESTS], sp)
+        res.update(sprof._profiled(llm, prompts[:PROFILED_REQUESTS], sp,
+                                   wall16),
+                   profiled_requests=PROFILED_REQUESTS,
+                   profiled_plain_wall_ms=wall16 * 1e3)
+        measure_s = time.monotonic() - t1
+        graphs = _graph_stats(eng)
+        res["embed_steps_all_passes"] = eng.embed_steps - embed0
+        reserve = eng.graph_pool_reserve()
+        pages = eng.num_kv_pages
+        kv_bytes_per_token = eng.bytes_per_kv_block // eng.page_size
+        image = prompts[0]["multi_modal_data"]["image"][0][None]
+        tower_ms = time_ms(lambda: llm.model.encode_images(image), 20)
+        outs = llm.generate(prompts[:4], sp)
+        short = SamplingParams(max_tokens=1, top_k=1, ignore_eos=True)
+        llm.kv_cache_manager.enable_block_reuse = True
+        text = prompts[0]["prompt_token_ids"]
+        other = sprof.llava_prompts(16, 64, seed=9)
+        reuse_images = _reused_blocks(llm, [
+            {"prompt_token_ids": text, "multi_modal_data": p[
+                "multi_modal_data"]} for p in other], short)
+        reuse_both = _reused_blocks(llm, [prompts[0]] * 16, short)
+        rest_s = time.monotonic() - t1 - measure_s
+    finally:
+        llm.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = cfg.text_config.vocab_size
+    for o in outs:
+        toks = o.outputs[0].token_ids
+        if len(toks) != sp.max_tokens or not all(0 <= t < V for t in toks):
+            raise AssertionError(f"llava_serving: bad output {toks}")
+    if res["output_tokens"] != len(prompts) * sp.max_tokens or \
+            res["nonfinite_logprobs"]:
+        raise AssertionError(f"llava_serving: {res['output_tokens']} "
+                             "tokens, or non-finite logprobs")
+    full_blocks = (len(outs[0].prompt_token_ids) - 1) // 32
+    res.update(model="LLaVA-1.5-7B", text_layers=cfg.text_config
+               .num_hidden_layers, prompt_tokens=len(outs[0].prompt_token_ids),
+               engine_build_s=build_s, measure_s=measure_s,
+               tower_timing_and_reuse_s=rest_s,
+               weights_bytes=weights_bytes,
+               vision_weights_bytes=vision_bytes,
+               peak_allocated_bytes=peak, kv_pool_pages=pages,
+               kv_bytes_per_token=kv_bytes_per_token,
+               tower_projector_ms_per_image=tower_ms,
+               reused_blocks_same_text_other_images=reuse_images,
+               reused_blocks_same_text_and_image=reuse_both,
+               reused_blocks_expected=15 * full_blocks,
+               graph_pool_reserve_bytes=reserve, graphs=graphs)
+    emit({"phase": "llava_serving", **res})
+    if not (res["launches"]["paged_decode_attention"] and
+            res["launches"]["ragged_prefill_attention"]):
+        raise AssertionError(f"llava_serving: K1/K2 not launched: "
+                             f"{res['launches']}")
+    if not graphs["graph_replays"] or not res["embed_steps_all_passes"]:
+        raise AssertionError(f"llava_serving: no replayed window or no "
+                             f"embedding step: {graphs}")
+    if reuse_images or reuse_both != 15 * full_blocks:
+        raise AssertionError(f"llava_serving: reuse {reuse_images} / "
+                             f"{reuse_both}, want 0 / {15 * full_blocks}")
+    _check_reserve(res)
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -5758,6 +6263,12 @@ def main() -> int:
         None if longcat is None else longcat[1]))
     if longcat is not None:
         longcat[1].clear()          # the host copy of the weights
+    timed("hd48_kernels", hd48_kernel_phase, {} if kern is None else kern)
+    evals = timed("eval_accuracy", eval_accuracy_phase)
+    timed("bert_parity", bert_parity_phase)
+    bert = timed("bert_serving", bert_serving_phase)
+    timed("llava_parity", llava_parity_phase)
+    llava = timed("llava_serving", llava_serving_phase)
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -5803,6 +6314,10 @@ def main() -> int:
             launches_mtp_serving={k: v["launches"][name]
                                   for k, v in mtp["runs"].items()},
             launches_longcat_serving=longcat[0]["launches"][name],
+            launches_eval_accuracy={k: v["launches"][name]
+                                    for k, v in evals.items()},
+            launches_bert_serving=bert["launches"][name],
+            launches_llava_serving=llava["launches"][name],
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()
@@ -5813,6 +6328,11 @@ def main() -> int:
             shape=r["shape"],
             **{k: r[k] for k in ("ms_cold", "library_ms_cold", "splits")
                if k in r}))
+    # K1 and K2 at head dim 48: eval_accuracy's shapes
+    for row, kind in zip(kernels[:2], ("decode", "prefill")):
+        row["hd48"] = {c: {k: kern[c][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")} for c in (f"{kind}_hd48", f"{kind}_hd48_kv_e4m3")}
     # K3's e4m3 body: its cases and its launches in quant_serving's runs
     kernels[-1].update(
         max_abs_err_e4m3=max(v["max_abs_err"] for c, v in e4m3.items()
@@ -5822,7 +6342,10 @@ def main() -> int:
             "library_ms_cold", "upcast_ms", "plain_ms", "max_abs_err")}
             for c, v in e4m3.items() if c.startswith("e4m3")},
         launches_quant_serving={k: v["launches_e4m3"]
-                                for k, v in quant.items()})
+                                for k, v in quant.items()},
+        launches_e4m3_eval_accuracy={k: v["launches_e4m3"]
+                                     for k, v in evals.items()
+                                     if "launches_e4m3" in v})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

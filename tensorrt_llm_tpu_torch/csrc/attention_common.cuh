@@ -159,11 +159,14 @@ __device__ __forceinline__ void split_range(int kv_len, int window, int tile,
 // Width in bf16 of the shared-memory operand tiles for head dim `hd`: the
 // 128-byte swizzle and the mma shapes take rows of 64, 128 or 256 values,
 // so hd 80 and 96 (GPT-NeoX-20B, Phi-3-mini, StableLM-3B) are staged as
-// 128-wide tiles whose columns past hd are zero-filled on the way in:
+// 128-wide tiles, and hd 48 (the tinypasskey checkpoint's 4 x 48 heads)
+// as 64-wide ones, whose columns past hd are zero-filled on the way in:
 // they add 0 to every dot and give output columns that are never stored.
 // Global memory is read and written at hd, so the bytes moved are the
 // pool's own.
-__host__ __device__ constexpr int tile_hd(int hd) { return hd == 80 || hd == 96 ? 128 : hd; }
+__host__ __device__ constexpr int tile_hd(int hd) {
+  return hd == 48 ? 64 : (hd == 80 || hd == 96 ? 128 : hd);
+}
 
 // Byte offset of the 16-byte chunk `c` of row `r` in a shared-memory tile
 // whose rows hold HD bf16 values (128 or 256 bytes). The chunk index is

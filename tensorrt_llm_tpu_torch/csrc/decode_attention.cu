@@ -69,7 +69,9 @@
 // the pool's hd columns of each row and zero-fill the rest, Q's fragments
 // are zero past hd, and only hd output columns are written. Groups above
 // 16 query heads (Falcon-7B's 71 over one KV head) are more chunks of the
-// grid's second axis, so the group has no upper limit.
+// grid's second axis, so the group has no upper limit. hd 48 rides the
+// hd-64 shapes the same way: 64-wide tiles, 32 positions a stage, Q's
+// fragments and the copies' chunks zero past 48.
 //
 // 8-bit pools (int8, e4m3; the TPU kernel's k_scale / v_scale dequant,
 // ops/pallas/decode_attention.py:109-111): a quantized pool halves the
@@ -738,6 +740,7 @@ extern "C" int paged_decode_attention(
   const Args a = {q, kv, kv_lens, page_idx, sinks, alibi, out, part_acc, part_ml,
                   S, qh, kvh, ps, num_pages, max_pages, sm_scale, window, soft_cap,
                   splits, k_scale, v_scale, static_cast<cudaStream_t>(stream)};
+  if (hd == 48) return launch_hd<48>(a, dtype, kv_dtype);
   if (hd == 64) return launch_hd<64>(a, dtype, kv_dtype);
   if (hd == 80) return launch_hd<80>(a, dtype, kv_dtype);
   if (hd == 96) return launch_hd<96>(a, dtype, kv_dtype);

@@ -89,7 +89,8 @@
 // hd 80 and 96 (StableLM-3B, GPT-NeoX-20B, Phi-3-mini) run the hd-128
 // shapes on 128-wide tiles (attention_common.cuh tile_hd): Q, K and V
 // chunks past hd are zero-filled on the way in, and only hd output
-// columns are stored, so global memory is read and written at hd.
+// columns are stored, so global memory is read and written at hd. hd 48
+// runs the hd-64 shapes on 64-wide tiles in the same way.
 //
 // hd 256 (Gemma 2 and 3) keeps the one-warpgroup design: Q (32 KB) and a
 // two-stage ring of 32 KB K and V tiles take 161 KB, so one CTA per SM
@@ -752,7 +753,7 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
 // dtype: 0 float32 (the CUDA-core route), 1 bfloat16 (the tensor-core
 // route). kv_dtype: the pool's element type, 0 q's own, 1 int8, 2 float8
 // e4m3 (AttnKv); k_scale and v_scale are float32 device scalars that
-// dequantize an 8-bit pool (null: 1). Head dims 64, 80, 96, 128 and 256.
+// dequantize an 8-bit pool (null: 1). Head dims 48, 64, 80, 96, 128 and 256.
 // max_q_len is the longest segment of this batch (host-known; it sizes the
 // grid).
 extern "C" int ragged_prefill_attention(
@@ -777,6 +778,7 @@ extern "C" int ragged_prefill_attention(
     if (dtype == ATTN_F32 && kv_dtype == KV_E4M3)                                   \
       return simple::launch<HD, __nv_fp8_e4m3>(ARGS);                               \
   }
+  BY_KV(48)
   BY_KV(64)
   BY_KV(80)
   BY_KV(96)

@@ -20,8 +20,22 @@ hunyuan_v1_moe, glm4_moe and ernie4_5_moe on one GPU, and the recurrent
 families mamba, falcon_mamba, mamba2, bamba, jamba, zamba2,
 granitemoehybrid, lfm2, qwen3_next and minimax (models/recurrent.py:
 state pools indexed by sequence slot; no chunked prefill, no block
-reuse, no speculation); the JAX package's multimodal types and bert
+reuse, no speculation), the splice-only vision-language models llava,
+llava_next, mistral3 and internvl (multimodal/: a vision tower and
+projector in plain torch whose features replace the image placeholders'
+embeddings over the Llama trunk), and ``bert`` (encoder-only: no KV pool,
+no executor; ``LLM.classify``); the JAX package's other multimodal types
 are refused by name.
+
+A prompt is token ids, a string (with a tokenizer), or a dict as the JAX
+``LLM`` takes it: ``prompt`` or ``prompt_token_ids``, with
+``multi_modal_data`` ({"image": [...]}, the model's input processor:
+placeholders expanded, features spliced, the images' hash joined to
+``cache_salt`` so that equal text beside different images shares no KV
+block), ``prompt_embeds`` (float32 [T, H], rows that are not NaN replace
+their token's embedding) or ``prompt_tuning_config`` (an
+``embedding_table`` whose rows the virtual ids vocab, vocab + 1, ...
+take). Each sample of ``n > 1`` carries the embeddings too.
 ``kv_cache_config=KvCacheConfig(max_attention_window=[w, ...])`` serves
 Gemma 2 with VSWA: its sliding layers keep their KV in a second pool
 sized for the smallest window w, which is also their window (Gemma 3's
@@ -109,7 +123,7 @@ from ..runtime.scheduler import (CapacityScheduler, MicroBatchScheduler,
 from ..sampling_params import SamplingParams
 from .llm_args import MOE_MODEL_TYPES, LlmArgs, check_ported_spec
 
-PromptInput = Union[str, Sequence[int]]
+PromptInput = Union[str, Sequence[int], Mapping[str, Any]]
 
 
 @contextlib.contextmanager
@@ -217,6 +231,16 @@ class LLM:
         self.args = LlmArgs(**kwargs)
         self.tokenizer = tokenizer
         self._build_model()
+        if getattr(self.model, "is_encoder_only", False):
+            # an encoder (BERT reranker): no KV pool, no executor, no
+            # graphs; one bidirectional pass per classify() call (the JAX
+            # llm.py:126-133)
+            self._encoder_params = self._params
+            del self._params
+            self.executor = self.engine = None
+            return
+        from ..multimodal import create_input_processor
+        self.input_processor = create_input_processor(self.model)
         self._build_executor()
 
     # ------------------------------------------------------------------ #
@@ -563,7 +587,7 @@ class LLM:
                  sampling_params: Optional[Union[SamplingParams,
                                                  List[SamplingParams]]] = None
                  ) -> Union[RequestOutput, List[RequestOutput]]:
-        single = isinstance(prompts, str) or (
+        single = isinstance(prompts, (str, Mapping)) or (
             isinstance(prompts, Sequence) and prompts and
             isinstance(prompts[0], int))
         batch = [prompts] if single else list(prompts)
@@ -580,11 +604,18 @@ class LLM:
     def generate_async(self,
                        prompt: PromptInput,
                        sampling_params: Optional[SamplingParams] = None,
-                       streaming: bool = False) -> RequestOutput:
+                       streaming: bool = False,
+                       cache_salt: Optional[str] = None) -> RequestOutput:
         # per-request clamps land on a private copy: generate() shares one
         # SamplingParams across every prompt of a batch
         sampling_params = copy.copy(sampling_params) if sampling_params \
             else SamplingParams()
+        prompt_embeds = mm_data = ptuning = None
+        if isinstance(prompt, Mapping):
+            mm_data = prompt.get("multi_modal_data")
+            prompt_embeds = prompt.get("prompt_embeds")
+            ptuning = prompt.get("prompt_tuning_config")
+            prompt = prompt.get("prompt", prompt.get("prompt_token_ids"))
         if isinstance(prompt, str):
             if self.tokenizer is None:
                 raise ValueError("string prompt requires a tokenizer")
@@ -600,6 +631,15 @@ class LLM:
             raise ValueError(
                 f"prompt length {len(token_ids)} exceeds max_input_len "
                 f"{self.args.max_input_len}")
+        if mm_data is not None:
+            token_ids, prompt_embeds, cache_salt = self._multimodal(
+                token_ids, mm_data, cache_salt)
+        if ptuning is not None:
+            token_ids, prompt_embeds, cache_salt = self._prompt_table(
+                token_ids, prompt_embeds, ptuning, cache_salt)
+        if prompt_embeds is not None:
+            prompt_embeds = self._check_embeds(prompt_embeds, token_ids,
+                                               sampling_params)
         room = self.args.max_seq_len - len(token_ids)
         if room < 1:
             raise ValueError("prompt leaves no room for generation within "
@@ -611,7 +651,8 @@ class LLM:
                 sampling_params.end_id = eos
         req = LlmRequest(prompt_token_ids=token_ids,
                          sampling_params=sampling_params,
-                         streaming=streaming)
+                         streaming=streaming, cache_salt=cache_salt,
+                         prompt_embeds=prompt_embeds)
         res = self.executor.submit(req)
         extra = []
         if sampling_params.n > 1 and not sampling_params.use_beam_search:
@@ -625,10 +666,103 @@ class LLM:
                     # that the samples part deterministically
                     sib.seed = (sampling_params.seed * 0x9E3779B1
                                 + j) & 0x7FFFFFFF or 1
+                # each sample carries the prompt's embeddings (the JAX
+                # LLM submits its siblings without them, llm.py:844-866,
+                # so they decode the placeholders' own embeddings)
                 extra.append(self.executor.submit(LlmRequest(
-                    prompt_token_ids=list(token_ids),
-                    sampling_params=sib)))
+                    prompt_token_ids=list(token_ids), sampling_params=sib,
+                    cache_salt=cache_salt, prompt_embeds=prompt_embeds)))
         return RequestOutput(res, prompt_text, extra_results=extra)
+
+    def _multimodal(self, token_ids: List[int], mm_data: Mapping,
+                    cache_salt: Optional[str]):
+        """(expanded token ids, prompt embeddings on the device, salt) of
+        a prompt with ``multi_modal_data``: the model's input processor
+        expands the image placeholders and runs the vision tower and
+        projector here, on the caller's thread, holding the engine's graph
+        lock so that no CUDA graph capture on the executor thread sees
+        its launches; the images' hash joins ``cache_salt`` (the JAX
+        llm.py:762-777)."""
+        if self.input_processor is None:
+            raise ValueError(f"model {type(self.model).__name__} has no "
+                             "multimodal input processor")
+        with self.engine.graphs.lock:
+            token_ids, embeds, salt = self.input_processor(token_ids,
+                                                           mm_data)
+        if len(token_ids) > self.args.max_input_len:
+            raise ValueError(
+                f"prompt with expanded image tokens ({len(token_ids)}) "
+                f"exceeds max_input_len {self.args.max_input_len}")
+        return token_ids, embeds, (cache_salt or "") + salt
+
+    def _prompt_table(self, token_ids: List[int], prompt_embeds, ptuning,
+                      cache_salt: Optional[str]):
+        """Prompt tuning (the JAX llm.py:780-809): the virtual ids
+        [vocab, vocab + rows) take rows of the request's
+        ``embedding_table`` through the prompt-embedding path (their ids
+        become 0, which only keys reuse), and the table's hash joins
+        ``cache_salt``."""
+        import hashlib
+        table = ptuning["embedding_table"] if isinstance(ptuning, Mapping) \
+            else ptuning.embedding_table
+        table = np.asarray(table.detach().cpu() if isinstance(
+            table, torch.Tensor) else table, np.float32)
+        vocab = self.model.vocab_size
+        token_ids = list(token_ids)
+        if prompt_embeds is None:
+            embeds = np.full((len(token_ids), table.shape[1]), np.nan,
+                             np.float32)
+        else:
+            embeds = np.array(prompt_embeds.cpu() if isinstance(
+                prompt_embeds, torch.Tensor) else prompt_embeds, np.float32)
+        for i, t in enumerate(token_ids):
+            if t < vocab:
+                continue
+            if t - vocab >= table.shape[0]:
+                raise ValueError(
+                    f"virtual token {t} outside the prompt table "
+                    f"({table.shape[0]} rows from id {vocab})")
+            embeds[i, :table.shape[1]] = table[t - vocab]
+            token_ids[i] = 0
+        salt = hashlib.sha256(table.tobytes()).hexdigest()[:16]
+        return token_ids, embeds, (cache_salt or "") + salt
+
+    def _check_embeds(self, prompt_embeds, token_ids: List[int],
+                      sp: SamplingParams) -> torch.Tensor:
+        """A request's prompt embeddings as float32 [T, H] on the device,
+        with the refusals of their path: ``prompt_logprobs`` (the JAX
+        ValueError, llm.py:812-818), beam search and speculative decoding
+        (by name: neither the beam rows nor a drafter take embeddings)."""
+        if sp.prompt_logprobs is not None:
+            raise ValueError("prompt_logprobs is unsupported with "
+                             "multimodal / prompt-embeds inputs")
+        if sp.use_beam_search:
+            raise NotImplementedError(
+                "beam search with multimodal / prompt-embeds inputs is not "
+                "supported by this package")
+        sc = self.args.speculative_config
+        if sc is not None and sc.mode != "NONE":
+            raise NotImplementedError(
+                f"speculative mode {sc.mode} with multimodal / "
+                "prompt-embeds inputs is not supported by this package: a "
+                "drafter sees token ids, not the embeddings")
+        e = torch.as_tensor(prompt_embeds.detach() if isinstance(
+            prompt_embeds, torch.Tensor) else np.asarray(
+                prompt_embeds, np.float32))
+        if e.dim() != 2 or e.shape[0] != len(token_ids):
+            raise ValueError(f"prompt_embeds of shape {tuple(e.shape)} do "
+                             f"not cover the {len(token_ids)} prompt tokens")
+        return e.to(device=self.device, dtype=torch.float32)
+
+    def classify(self, prompts, token_type_ids=None) -> np.ndarray:
+        """Encoder-only scoring (the JAX llm.py:898-906): lists of token
+        ids (or one list) -> float32 [B, num_labels] logits."""
+        if not getattr(self.model, "is_encoder_only", False):
+            raise ValueError("classify() requires an encoder-only model")
+        if prompts and isinstance(prompts[0], int):
+            prompts = [prompts]
+        return self.model.classify(self._encoder_params, prompts,
+                                   token_type_ids)
 
     def abort_request(self, request_id: int) -> None:
         """Cancel a request: it ends CANCELLED with the tokens it has."""

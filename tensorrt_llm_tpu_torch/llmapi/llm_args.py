@@ -162,6 +162,12 @@ def check_ported_spec(sc: Optional[SpeculativeConfig],
     need no hidden rows and take any target."""
     if sc is None or sc.mode == "NONE":
         return
+    if model_type in VLM_MODEL_TYPES:
+        raise NotImplementedError(
+            f"speculative mode {sc.mode} with a {model_type} target is not "
+            "supported by this package: a drafter sees the prompt's token "
+            "ids, and an image's rows are one placeholder id repeated, not "
+            "the features the target reads")
     if model_type in RECURRENT_MODEL_TYPES:
         raise NotImplementedError(
             f"speculative mode {sc.mode} with a {model_type} target is not "
@@ -213,6 +219,9 @@ MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe", "gpt_oss",
                    "granitemoe", "hunyuan_v1_moe", "glm4_moe", "ernie4_5_moe",
                    "deepseek_v2", "deepseek_v3", "longcat_flash")
 GEMMA_MODEL_TYPES = ("gemma2", "gemma3_text")
+# the splice-only vision-language models (multimodal/): image features
+# replace the placeholder tokens' embeddings of a Llama trunk
+VLM_MODEL_TYPES = ("llava", "llava_next", "mistral3", "internvl")
 # the LayerNorm GPT families (models/gpt_family.py, gpt2.py), whose
 # forward collects no hidden rows for an EAGLE3 head (nor does the JAX one)
 GPT_MODEL_TYPES = ("gpt2", "gpt_neox", "gptj", "falcon", "starcoder2",

@@ -1,6 +1,7 @@
 from .modeling_utils import (DecoderModelForCausalLM, MODEL_REGISTRY,
                              ModelConfig, get_model_class, register_model)
 from . import bamba as _bamba  # noqa: F401  (registers)
+from . import bert as _bert  # noqa: F401
 from . import deepseek as _deepseek  # noqa: F401
 from . import gemma as _gemma  # noqa: F401
 from . import glm as _glm  # noqa: F401
@@ -27,6 +28,10 @@ from . import qwen3_next as _qwen3_next  # noqa: F401
 from . import qwen_moe as _qwen_moe  # noqa: F401
 from . import zamba2 as _zamba2  # noqa: F401
 from .convert import from_jax_params
+from ..multimodal import internvl as _internvl  # noqa: F401,E402
+from ..multimodal import llava as _llava  # noqa: F401,E402
+from ..multimodal import llava_next as _llava_next  # noqa: F401,E402
+from ..multimodal import pixtral as _pixtral  # noqa: F401,E402
 
 __all__ = ["DecoderModelForCausalLM", "MODEL_REGISTRY", "ModelConfig",
            "get_model_class", "register_model", "from_jax_params"]

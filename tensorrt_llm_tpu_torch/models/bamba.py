@@ -20,7 +20,7 @@ from typing import Any, Dict
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig
 from .mamba2 import load_mamba2_layer, mamba2_geom, mamba2_mixer
-from .modeling_utils import AttentionSpec, register_model
+from .modeling_utils import AttentionSpec, embed_tokens, register_model
 from .recurrent import RecurrentModel
 
 
@@ -111,10 +111,11 @@ class BambaForCausalLM(RecurrentModel):
         return self._gated_mlp(layer, x)
 
     def forward(self, params, token_ids, kv_pages, metadata,
-                collect_hidden: bool = False, collect_kv_stats: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False,
+                input_embeds=None):
         self._check_slots(metadata)
         eps = self.eps
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         for i, layer in enumerate(params["layers"]):
             h = h + self._mixer(layer, rms_norm(h, layer["norm"], eps),
                                 kv_pages, metadata, i)

@@ -82,8 +82,8 @@ from ..ops.rope import RopeConfig, apply_rope, rope_cos_sin
 from ..quantization.checkpoint import PrequantizedWeight
 from .llama import LlamaForCausalLM
 from .modeling_utils import (DecoderModelForCausalLM, ModelConfig,
-                             apply_pair, fuse_projections, hf_transpose,
-                             quantize_linear, register_model)
+                             apply_pair, embed_tokens, fuse_projections,
+                             hf_transpose, quantize_linear, register_model)
 
 # MLA layer calls by path (counted as kernel launches are)
 MLA_ABSORBED = 0
@@ -609,12 +609,12 @@ class DeepseekV3ForCausalLM(DecoderModelForCausalLM):
     # ------------------------------------------------------------------ #
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages: torch.Tensor, metadata: AttentionMetadata,
-                collect_hidden: bool = False):
+                collect_hidden: bool = False, input_embeds=None):
         """(logits [S, V] float32 at ``logits_indices``, kv_pages), and
         with ``collect_hidden`` the pre-final-norm hidden rows there (the
         JAX model's MTP features)."""
         eps = self.rms_eps
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         cos, sin = rope_cos_sin(self.rope_cfg, metadata.positions)
         L, P, ps = kv_pages.shape[:3]
         flat = kv_pages.view((L * P,) + tuple(kv_pages.shape[2:]))
@@ -792,13 +792,14 @@ class LongcatFlashForCausalLM(DeepseekV3ForCausalLM):
 
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages: torch.Tensor, metadata: AttentionMetadata,
-                collect_hidden: bool = False):
+                collect_hidden: bool = False, input_embeds=None):
         if collect_hidden:
             raise NotImplementedError(
                 "hidden rows of a longcat_flash target (MTP or EAGLE3 "
                 "drafting) are not supported by this package, nor by the "
                 "JAX package's LongcatFlashForCausalLM.forward")
-        return super().forward(params, token_ids, kv_pages, metadata)
+        return super().forward(params, token_ids, kv_pages, metadata,
+                               input_embeds=input_embeds)
 
     def _decoder(self, params: Dict[str, Any], h: torch.Tensor,
                  attn: Callable[[int, torch.Tensor], torch.Tensor]

@@ -50,7 +50,8 @@ from ..ops.attention import AttentionMetadata, layer_metadata
 from ..ops.norm import gemma_rms_norm
 from ..ops.rope import RopeConfig, rope_cos_sin
 from .llama import LlamaForCausalLM
-from .modeling_utils import AttentionSpec, attention_block, register_model
+from .modeling_utils import (AttentionSpec, attention_block, embed_tokens,
+                             register_model)
 
 
 @register_model("gemma2")
@@ -214,7 +215,7 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
 
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages, metadata: AttentionMetadata,
-                collect_hidden: bool = False):
+                collect_hidden: bool = False, input_embeds=None):
         """(logits [S, V] float32 at ``logits_indices``, kv_pages).
         ``kv_pages`` is one pool [L, P, ps, 2kvh, hd], or under VSWA the
         pair (global, sliding), each updated in place."""
@@ -224,7 +225,10 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
                 "draft head for a Gemma target)")
         eps = self.rms_eps
         q_norm, k_norm = self._qk_norms()
-        h = params["embed"][token_ids].to(self.dtype) * self.embed_scale
+        # the sqrt(H) scale applies to overridden rows too (JAX gemma.py:
+        # 141-142)
+        h = embed_tokens(params["embed"], token_ids, input_embeds,
+                         self.dtype) * self.embed_scale
         specs = self.layer_specs
         cos_sin = {s.rope: rope_cos_sin(s.rope, metadata.positions)
                    for s in specs}

@@ -57,8 +57,8 @@ from ..ops.rope import RopeConfig, rope_cos_sin
 from .modeling_utils import (AttentionMethods, AttentionSpec,
                              DecoderModelForCausalLM, ModelConfig,
                              alibi_slopes, apply_pair, attention_block,
-                             fuse_projections, hf_transpose, quantize_linear,
-                             register_model)
+                             embed_tokens, fuse_projections, hf_transpose,
+                             quantize_linear, register_model)
 
 # the MLP activations, applied in float32
 _ACTS: Dict[str, Callable] = {
@@ -283,7 +283,7 @@ class LnFamilyModel(DecoderModelForCausalLM):
     # ---- forward -------------------------------------------------------
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages: torch.Tensor, metadata: AttentionMetadata,
-                collect_hidden: bool = False):
+                collect_hidden: bool = False, input_embeds=None):
         """(logits [S, V] float32 at ``logits_indices``, kv_pages)."""
         if collect_hidden:
             raise NotImplementedError(
@@ -294,7 +294,7 @@ class LnFamilyModel(DecoderModelForCausalLM):
         def ln(x, p):
             return layer_norm(x, p["w"], p.get("b"), eps)
 
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         if "wpe" in params:
             h = h + params["wpe"][metadata.positions.long()
                                   + self.pos_offset].to(self.dtype)

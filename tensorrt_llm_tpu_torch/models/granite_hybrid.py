@@ -21,7 +21,7 @@ from ..ops.moe import moe_mlp
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig
 from .bamba import BambaForCausalLM
-from .modeling_utils import register_model
+from .modeling_utils import embed_tokens, register_model
 
 
 @register_model("granitemoehybrid")
@@ -84,10 +84,11 @@ class GraniteMoeHybridForCausalLM(BambaForCausalLM):
         return out
 
     def forward(self, params, token_ids, kv_pages, metadata,
-                collect_hidden: bool = False, collect_kv_stats: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False,
+                input_embeds=None):
         self._check_slots(metadata)
         eps, rm = self.eps, self.residual_multiplier
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         if self.embedding_multiplier != 1.0:
             h = h * self.embedding_multiplier
         for i, layer in enumerate(params["layers"]):

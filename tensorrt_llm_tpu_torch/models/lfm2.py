@@ -32,7 +32,7 @@ from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig
 from ..ops.ssm import causal_conv1d
 from .llama import LlamaForCausalLM
-from .modeling_utils import AttentionSpec, register_model
+from .modeling_utils import AttentionSpec, embed_tokens, register_model
 from .recurrent import RecurrentModel
 
 _XIELU = ("alpha_p", "alpha_n", "act_beta", "act_eps")
@@ -168,13 +168,14 @@ class Lfm2ForCausalLM(RecurrentModel):
         return m.apply(layer["out_proj"], (c.float() * y).to(self.dtype))
 
     def forward(self, params, token_ids, kv_pages, metadata,
-                collect_hidden: bool = False, collect_kv_stats: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False,
+                input_embeds=None):
         self._check_slots(metadata)
         eps = self.eps
 
         def qk_norm(name):
             return lambda layer, u: rms_norm(u, layer[name], eps)
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         for i, layer in enumerate(params["layers"]):
             x = rms_norm(h, layer["norm"], eps)
             if self.block_types[i] == "conv":

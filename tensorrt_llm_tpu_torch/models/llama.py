@@ -67,8 +67,9 @@ from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig, rope_cos_sin
 from .modeling_utils import (AttentionMethods, AttentionSpec,
                              DecoderModelForCausalLM, ModelConfig,
-                             apply_pair, attention_block, fuse_projections,
-                             hf_transpose, quantize_linear, register_model)
+                             apply_pair, attention_block, embed_tokens,
+                             fuse_projections, hf_transpose, quantize_linear,
+                             register_model)
 
 # the gated MLP's activations (``mlp_act``), applied in float32
 _ACTS = {"silu": F.silu,
@@ -330,7 +331,8 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
     # ------------------------------------------------------------------ #
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages: torch.Tensor, metadata: AttentionMetadata,
-                collect_hidden: bool = False, collect_kv_stats: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False,
+                input_embeds=None):
         """(logits [S, V] float32 at ``logits_indices``, kv_pages), and
         with ``collect_hidden`` also the pre-final-norm hidden rows at
         ``logits_indices`` (the EAGLE draft head's features), or with
@@ -338,7 +340,7 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         float32 [L] (the KV-scale calibration pass)."""
         eps = self.rms_eps
         q_norm, k_norm = self._qk_norms()
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         if self.embedding_multiplier != 1.0:
             h = h * self.embedding_multiplier
         rm = self.residual_multiplier

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..ops.norm import rms_norm
 from ..ops.ssm import causal_conv1d, selective_scan
-from .modeling_utils import register_model
+from .modeling_utils import embed_tokens, register_model
 from .recurrent import RecurrentModel
 
 
@@ -130,10 +130,11 @@ class MambaForCausalLM(RecurrentModel):
             sd, "backbone.embeddings.weight", "backbone.norm_f.weight")}
 
     def forward(self, params, token_ids, kv_pages, metadata,
-                collect_hidden: bool = False, collect_kv_stats: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False,
+                input_embeds=None):
         self._check_slots(metadata)
         m = self._method("mlp")
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         for i, layer in enumerate(params["layers"]):
             h = h + mamba_mixer(
                 layer, rms_norm(h, layer["norm"], self.eps),

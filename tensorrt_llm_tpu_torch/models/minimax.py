@@ -31,7 +31,7 @@ from ..ops.moe import moe_mlp
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig
 from ..ops.ssm import ssd_scan
-from .modeling_utils import AttentionSpec, register_model
+from .modeling_utils import AttentionSpec, embed_tokens, register_model
 from .recurrent import RecurrentModel, stack_experts
 
 
@@ -121,10 +121,11 @@ class MiniMaxForCausalLM(RecurrentModel):
         return self._method("o_proj").apply(layer["out"], y)
 
     def forward(self, params, token_ids, kv_pages, metadata,
-                collect_hidden: bool = False, collect_kv_stats: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False,
+                input_embeds=None):
         self._check_slots(metadata)
         eps = self.eps
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         for i, layer in enumerate(params["layers"]):
             x = rms_norm(h, layer["norm"], eps)
             if self.block_types[i] == self.ATTENTION:

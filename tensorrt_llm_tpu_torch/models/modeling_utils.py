@@ -50,15 +50,20 @@ def register_model(*model_types: str):
 
 
 # model types the JAX package registers that this package does not serve
-# yet, each with its reason
-_MULTIMODAL = ("a multimodal model: the vision encoders, image token "
-               "spans and M-RoPE are not ported")
+# yet, each with its reason (the splice-only VLMs, llava, llava_next,
+# mistral3 and internvl, are served: tensorrt_llm_tpu_torch/multimodal)
+_MROPE = ("a multimodal model whose text positions are M-RoPE's "
+          "(temporal, height, width) sections, which the engine does not "
+          "carry")
+_IMAGE_GROUPS = ("a multimodal model whose image tokens attend "
+                 "bidirectionally within their group, which the paged "
+                 "kernels' causal mask does not express")
 NOT_PORTED_MODEL_TYPES: Dict[str, str] = {
-    **{t: _MULTIMODAL for t in (
-        "gemma3", "gemma3_vl", "glm4v", "internvl", "llava", "llava_next",
-        "mistral3", "mllama", "paligemma", "qwen2_vl", "qwen2_5_vl",
-        "qwen3_vl", "qwen3_vl_moe")},
-    "bert": "an encoder without a generation path",
+    **{t: _MROPE for t in ("glm4v", "qwen2_vl", "qwen2_5_vl", "qwen3_vl",
+                           "qwen3_vl_moe")},
+    **{t: _IMAGE_GROUPS for t in ("gemma3", "gemma3_vl", "paligemma")},
+    "mllama": ("a multimodal model whose text layers cross-attend to the "
+               "image states, which the engine does not keep"),
 }
 
 
@@ -154,6 +159,22 @@ def alibi_slopes(num_heads: int) -> tuple:
     if n2 != num_heads:
         slopes += pow2_slopes(2 * n2)[0::2][: num_heads - n2]
     return tuple(slopes)
+
+
+def embed_tokens(embed: torch.Tensor, token_ids: torch.Tensor,
+                 input_embeds: Optional[torch.Tensor],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The token embedding lookup, in ``dtype``, with the per-token
+    override of the prompt-embedding path (multimodal features, prompt
+    tables, ``prompt_embeds``): each row of ``input_embeds`` [T, H] whose
+    first value is not NaN replaces its token's row, cast to ``dtype``
+    (the JAX ``DecoderModelForCausalLM._embed``, models/modeling_utils.py:
+    382-394). Every family's forward looks its tokens up through this."""
+    h = embed[token_ids].to(dtype)
+    if input_embeds is None:
+        return h
+    override = ~torch.isnan(input_embeds[:, :1])
+    return torch.where(override, torch.nan_to_num(input_embeds).to(dtype), h)
 
 
 class AttentionMethods(NamedTuple):
@@ -403,5 +424,6 @@ class DecoderModelForCausalLM:
     def load_hf_state_dict(self, state_dict) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def forward(self, params, token_ids, kv_pages, metadata):
+    def forward(self, params, token_ids, kv_pages, metadata,
+                input_embeds=None):
         raise NotImplementedError

@@ -34,7 +34,7 @@ from ..ops.moe import moe_mlp
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig
 from ..ops.ssm import causal_conv1d, gated_delta_scan
-from .modeling_utils import AttentionSpec, register_model
+from .modeling_utils import AttentionSpec, embed_tokens, register_model
 from .recurrent import RecurrentModel, stack_experts
 
 
@@ -190,7 +190,8 @@ class Qwen3NextForCausalLM(RecurrentModel):
             layer["out"], y.reshape(T, vh * dv).to(self.dtype))
 
     def forward(self, params, token_ids, kv_pages, metadata,
-                collect_hidden: bool = False, collect_kv_stats: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False,
+                input_embeds=None):
         self._check_slots(metadata)
         eps = self.eps
 
@@ -200,7 +201,7 @@ class Qwen3NextForCausalLM(RecurrentModel):
         def pre_o(layer, x, attn):
             return attn * torch.sigmoid(dot_f32(x, layer["gate"])).to(
                 attn.dtype)
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         for i, layer in enumerate(params["layers"]):
             x = rms_norm(h, layer["norm"], eps)
             if self.block_types[i] == self.ATTENTION:

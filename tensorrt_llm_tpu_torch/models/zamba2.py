@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..ops.norm import rms_norm
 from ..ops.rope import RopeConfig
 from .mamba2 import load_mamba2_layer, mamba2_geom, mamba2_mixer
-from .modeling_utils import AttentionSpec, register_model
+from .modeling_utils import AttentionSpec, embed_tokens, register_model
 from .recurrent import RecurrentModel
 
 _ACTS = {"gelu": lambda x: F.gelu(x),
@@ -179,9 +179,10 @@ class Zamba2ForCausalLM(RecurrentModel):
         return m.apply(block["down"], self.act(g.float()).to(self.dtype) * u)
 
     def forward(self, params, token_ids, kv_pages, metadata,
-                collect_hidden: bool = False, collect_kv_stats: bool = False):
+                collect_hidden: bool = False, collect_kv_stats: bool = False,
+                input_embeds=None):
         self._check_slots(metadata)
-        h = params["embed"][token_ids].to(self.dtype)
+        h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
         original = h
         m, j = self._method("mlp"), 0
         for i, layer in enumerate(params["layers"]):

@@ -13,13 +13,13 @@ and for bf16 the query heads of a KV head are one tensor-core tile
 partial (m, l, acc) in scratch allocated here, and a small merge kernel
 combines them; one split writes the output directly. float32 inputs take
 the first version's CUDA-core kernel (float32 math throughout, 1e-4
-against the plain version), with the same splits. Head dims 64, 80, 96,
-128 and 256 (``HEAD_DIMS``; 80 and 96 are staged as 128-wide tiles, zero
-past the head dim, and read and written at their own width; at 256 a
-warp's stage is 16 KB and Q waits in shared memory), any other is refused
-by name; a KV head may carry any number of query heads (16 per CTA).
-Left for later: TMA, one launch instead of two when split, tiles of the
-head dim's own width at 80 and 96.
+against the plain version), with the same splits. Head dims 48, 64, 80,
+96, 128 and 256 (``HEAD_DIMS``; 80 and 96 are staged as 128-wide tiles and
+48 as 64-wide ones, zero past the head dim, and read and written at their
+own width; at 256 a warp's stage is 16 KB and Q waits in shared memory),
+any other is refused by name; a KV head may carry any number of query
+heads (16 per CTA). Left for later: TMA, one launch instead of two when
+split, tiles of the head dim's own width at 48, 80 and 96.
 
 8-bit pools (``KV_DTYPES``: int8 and float8 e4m3, the TPU kernel's
 ``k_scale`` / ``v_scale`` dequant): the pool may hold q's type or one of
@@ -63,7 +63,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # under INT8, FP8 and NVFP4, and their csrc AttnKv codes (0: the pool
 # holds q's own type)
 KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
-HEAD_DIMS = (64, 80, 96, 128, 256)   # the head dims the kernels are built for
+HEAD_DIMS = (48, 64, 80, 96, 128, 256)   # the head dims the kernels are built for
 
 
 def _as_f32(x, device) -> Optional[torch.Tensor]:

@@ -20,8 +20,8 @@ picked by the element type (``route_for``):
   float32 math throughout (1e-4 against the plain version, which TF32
   would not hold).
 
-Head dims 64, 80, 96, 128 and 256 (80 and 96 staged as 128-wide tiles,
-zero past the head dim, and read and written at their own width; at 256
+Head dims 48, 64, 80, 96, 128 and 256 (80 and 96 staged as 128-wide
+tiles and 48 as 64-wide ones, zero past the head dim, and read and written at their own width; at 256
 one CTA per SM, and P.V as two n128 products per k-step); any other is
 refused by name. A group of up to 64 query heads per KV head is one CTA's
 rows (tokens x group); a larger one (Falcon-7B's 71 over 1) is cut into

@@ -6,7 +6,9 @@ statistics are taken in float32 and the result cast back to the input's
 type before the weight multiply (and bias add), as the JAX version does.
 XLA fuses these on the TPU; no Pallas kernel computes them. ``gemma_rms_norm`` is Gemma's variant
 (``tensorrt_llm_tpu/models/gemma.py:26``): ``x * rsqrt(mean x^2 + eps)
-* (1 + w)`` all in float32, cast back only at the end.
+* (1 + w)`` all in float32, cast back only at the end, and
+``layer_norm_f32`` the encoders' LayerNorm (BERT, the vision towers),
+whose weight and bias are applied in float32 too.
 """
 from __future__ import annotations
 
@@ -55,6 +57,19 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         out = out + bias
     return out
+
+
+def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the statistics, the weight and the bias in float32,
+    cast back to ``x``'s type at the end (the JAX package's BERT and
+    vision-tower ``_ln``, models/bert.py:22, multimodal/encoders.py:21)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    d = xf - mean
+    var = (d * d).mean(dim=-1, keepdim=True)
+    return (d * torch.rsqrt(var + eps) * weight.float()
+            + bias.float()).to(x.dtype)
 
 
 def layer_norm_residual(x: torch.Tensor, residual: torch.Tensor,

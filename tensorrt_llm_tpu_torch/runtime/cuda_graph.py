@@ -36,6 +36,7 @@ filled and the callable runs eagerly on them.
 from __future__ import annotations
 
 import collections
+import threading
 import time
 from typing import Callable, Counter, Dict, Optional, Tuple
 
@@ -132,6 +133,10 @@ class GraphRunner:
         self.steps: Dict[tuple, _Step] = {}
         self.capture_seconds = 0.0
         self.pool_bytes = 0
+        # held while a graph is captured: work another thread launches on
+        # the device (a multimodal request's vision tower, on the caller's
+        # thread) takes it, so that no capture sees it
+        self.lock = threading.Lock()
 
     @property
     def num_graphs(self) -> int:
@@ -190,6 +195,11 @@ class GraphRunner:
         return outputs
 
     def _capture(self, step: _Step, inert: Inputs, body: Body) -> None:
+        with self.lock:
+            self._capture_locked(step, inert, body)
+
+    def _capture_locked(self, step: _Step, inert: Inputs,
+                        body: Body) -> None:
         copy_in(inert, step.buf)
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)

@@ -1090,11 +1090,12 @@ class PyExecutor:
         return self.engine.riders_ok
 
     def _ctx_rider_ok(self, r: LlmRequest) -> bool:
-        """A context request can ride once it holds a slot and its KV.
-        Requests of this package carry no prompt embeddings, cross states
-        or LoRA adapters, the JAX package's other reasons to keep one in
-        the prefill step."""
-        return r.seq_slot is not None
+        """A context request can ride once it holds a slot and its KV,
+        unless it carries prompt embeddings: a window takes token ids
+        only, so such a request stays in the prefill step (the JAX
+        executor.py:1217-1223; this package has no cross states or LoRA
+        adapters, the JAX package's other reasons)."""
+        return r.seq_slot is not None and r.prompt_embeds is None
 
     def _advance_ctx_riders(self, riders: List[LlmRequest],
                             carved: List[int]) -> None:

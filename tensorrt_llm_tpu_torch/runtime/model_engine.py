@@ -36,8 +36,11 @@ steps long whatever the rows' budgets, as the JAX scan is; a graph cannot
 skip a step that has no live row, as the JAX package does with
 ``lax.cond``, so such a step runs with every row inactive
 (``dead_window_steps`` counts the ones the host can foresee). Prefill
-steps outside rider windows run eagerly; a verify step (decode rows
-with drafts, no prompt tokens) replays the graph of its key, whose
+steps outside rider windows run eagerly, and so does every step with
+prompt-embedding rows (``_prompt_embeds``: a one-token image chunk
+would otherwise replay a decode graph that has no embedding input, as
+the JAX engine keys its step functions by ``use_embeds``); a verify step
+(decode rows with drafts, no prompt tokens) replays the graph of its key, whose
 prefill-kernel grid the fixed ``max_q_len`` = G sets. Sampled tokens stay
 on the device, scattered by sequence slot into ``prev_tokens``; the next
 step gathers its decode inputs from there, so
@@ -243,6 +246,8 @@ class ModelEngine:
         # those with prompt tokens, which run eagerly
         self.verify_steps = 0
         self.verify_steps_with_prompt = 0
+        # eager steps that carried prompt-embedding rows
+        self.embed_steps = 0
         self.params = params
         # NVFP4 KV: stamp the e2m1-grid flag into the model's attention
         # specs so that write_kv rounds appended K/V onto the grid (the
@@ -789,12 +794,16 @@ class ModelEngine:
             tokens.to(torch.int32)
 
     def _forward(self, tokens: torch.Tensor, metadata: AttentionMetadata,
-                 collect_hidden: bool = False):
+                 collect_hidden: bool = False,
+                 input_embeds: Optional[torch.Tensor] = None):
         """The model over the KV pool, which it updates in place (captured
         graphs hold the pool's address): logits, and with
-        ``collect_hidden`` (logits, pre-final-norm hidden rows)."""
+        ``collect_hidden`` (logits, pre-final-norm hidden rows).
+        ``input_embeds`` [T, H]: the step's prompt-embedding rows."""
+        kw = {} if input_embeds is None else {"input_embeds": input_embeds}
         out = self.model.forward(self.params, tokens, self.kv_pages,
-                                 metadata, collect_hidden=collect_hidden)
+                                 metadata, collect_hidden=collect_hidden,
+                                 **kw)
         if _ptrs(out[1]) != _ptrs(self.kv_pages):
             raise RuntimeError("the model moved the KV pool")
         return (out[0], out[2]) if collect_hidden else out[0]
@@ -935,6 +944,45 @@ class ModelEngine:
             has_prompt=bool(batch.context_requests),
             **_sliding(page_indices_sw=tables[1:],
                        slot_mapping_sw=slot_maps[1:]))
+
+    def _prompt_embeds(self, batch: ScheduledRequests,
+                       T: int) -> Optional[torch.Tensor]:
+        """The step's prompt-embedding rows, float32 [T, H] on the device,
+        in ``prepare_inputs``' token order: each context row's chunk
+        ``[context_current_position, + context_chunk_size)`` of its
+        request's ``prompt_embeds``, NaN (the token lookup) elsewhere, as
+        the JAX engine builds them (model_engine.py:1689-1705); None when
+        no context row has embeddings. A request's rows go to the device
+        once (its first chunk) and stay there; positions past the prompt
+        (a request recomputed after a pause) take the lookup."""
+        ctx = batch.context_requests
+        widths = [r.prompt_embeds.shape[1] for r in ctx
+                  if r.prompt_embeds is not None]
+        if not widths:
+            return None
+        H = widths[0]
+        dev = self.device
+        parts, n = [], 0
+        for r in ctx:
+            start = r.context_current_position
+            end = min(r.context_len, start + r.context_chunk_size)
+            pe = r.prompt_embeds
+            if pe is not None:
+                if not isinstance(pe, torch.Tensor):
+                    pe = torch.as_tensor(np.asarray(pe, np.float32))
+                # a no-op for rows already on the device
+                pe = r.prompt_embeds = pe.to(dev, torch.float32)
+            have = 0 if pe is None else max(0, min(end, pe.shape[0]) - start)
+            if have:
+                parts.append(pe[start:start + have].float())
+            if end - start - have:
+                parts.append(torch.full((end - start - have, H), math.nan,
+                                        dtype=torch.float32, device=dev))
+            n += end - start
+        if T > n:
+            parts.append(torch.full((T - n, H), math.nan,
+                                    dtype=torch.float32, device=dev))
+        return torch.cat(parts)
 
     # ------------------------------------------------------------------ #
     # One step for one scheduled batch
@@ -1080,12 +1128,17 @@ class ModelEngine:
         self._counts(use_penalties)
         verify = bool((inp.draft_ids >= 0).any())
         self.verify_steps += verify
-        if inp.max_q_len > 1 and inp.has_prompt:
+        embeds = self._prompt_embeds(batch, T)
+        if (inp.max_q_len > 1 and inp.has_prompt) or embeds is not None:
             self.verify_steps_with_prompt += verify
             body = self._step_body(inp.max_q_len, inp.max_kv_len, greedy,
                                    use_penalties, k_lp, seeded,
                                    collect_hidden, ops)
-            outs = body(upload(inputs, self.device))
+            views = upload(inputs, self.device)
+            if embeds is not None:
+                self.embed_steps += 1
+                views["input_embeds"] = embeds
+            outs = body(views)
         elif verify:
             # the prefill kernel takes no KV hint: the page table's reach
             reach = self.pages_per_seq * self.page_size
@@ -1132,6 +1185,7 @@ class ModelEngine:
             tokens = torch.where(prev >= 0,
                                  self.prev_tokens[prev.clamp(min=0)],
                                  v["tokens"].long())
+            embeds = v.get("input_embeds")
             logits = self._forward(tokens, AttentionMetadata(
                 kv_lens=v["kv_lens"], page_indices=v["page_indices"],
                 cu_q_lens=v["cu_q_lens"], num_seqs=v["num_seqs"],
@@ -1141,7 +1195,8 @@ class ModelEngine:
                 page_indices_sw=v.get("page_indices_sw"),
                 slot_mapping_sw=v.get("slot_mapping_sw"),
                 seq_slots=v["out_slots"]),
-                collect_hidden=collect_hidden)
+                collect_hidden=collect_hidden,
+                **({} if embeds is None else {"input_embeds": embeds}))
             if collect_hidden:
                 logits, hidden = logits
             out_slots = v["out_slots"]

@@ -73,7 +73,8 @@ class LlmRequest:
                  lora_task_id: Optional[int] = None,
                  cache_salt: Optional[str] = None,
                  arrival_time: Optional[float] = None,
-                 streaming: bool = False):
+                 streaming: bool = False,
+                 prompt_embeds=None):
         self.request_id = next_request_id() if request_id is None else request_id
         self.prompt_token_ids: List[int] = list(prompt_token_ids)
         if not self.prompt_token_ids:
@@ -82,6 +83,11 @@ class LlmRequest:
         self.lora_task_id = lora_task_id
         self.cache_salt = cache_salt
         self.streaming = streaming
+        # the prompt-embedding path: float32 [prompt length, H] (a numpy
+        # array or a tensor; the engine keeps it on its device after the
+        # first step), rows that are not NaN replace their token's
+        # embedding (multimodal features, prompt tables); None: none
+        self.prompt_embeds = prompt_embeds
         self.state = LlmRequestState.CONTEXT_INIT
         self.finish_reason = FinishReason.NOT_FINISHED
         self.output_token_ids: List[int] = []

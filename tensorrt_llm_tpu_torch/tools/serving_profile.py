@@ -137,6 +137,14 @@ Two workloads:
   64 MLA heads, dense MLPs of 12,288, 512 experts top 12 of 2,048 beside
   256 zero experts, vocab 131,072) at 1 of its 28 pairs, seeded random
   bf16 weights made on the card (~43.1 GB), the same traffic;
+- ``--geometry llava-1.5-7b``: ``chip_smoke.py``'s llava_serving run,
+  LLaVA-1.5-7B at its published width and depth (``LLAVA_15_7B``: CLIP
+  ViT-L/14 at 336 px, its layer -2 features, a GELU projector to 4,096,
+  Vicuna-7B's 32 layers), seeded random bf16 weights made on the card
+  (~14.1 GB), 64 requests of one 336 x 336 image (576 tokens) and 64
+  text tokens -> 128 with ``ignore_eos``, ``LLM`` defaults but 8,192
+  tokens a prefill step and prefix reuse off (``--layers N`` cuts the
+  text model only);
 - ``--family NAME`` also takes the recurrent families
   (``RECURRENT_FAMILIES``: Mamba-2.8B, Falcon-Mamba-7B, Mamba2-2.7B,
   Granite-4.0-H-Tiny, Zamba2-1.2B, Jamba-v0.1, LFM2-1.2B,
@@ -897,6 +905,87 @@ GEMMA3_1B = dict(
     bos_token_id=2, eos_token_id=1, pad_token_id=0)
 
 
+# https://huggingface.co/llava-hf/llava-1.5-7b-hf config.json: CLIP
+# ViT-L/14 at 336 px (24 layers, 1,024 wide, 16 heads, quick GELU),
+# features from layer -2 without the class token (576 a 336 x 336 image),
+# a 1,024 -> 4,096 -> 4,096 GELU projector, and Vicuna-7B-v1.5 (the Llama
+# defaults: 32 layers, 4,096 wide, 32 heads without GQA, MLP 11,008, rope
+# theta 10,000) over a vocabulary of 32,064 with the image token 32,000
+LLAVA_15_7B = dict(
+    image_token_index=32000, pad_token_id=32001, projector_hidden_act="gelu",
+    tie_word_embeddings=False, vision_feature_layer=-2,
+    vision_feature_select_strategy="default", vocab_size=32064)
+LLAVA_15_7B_VISION = dict(
+    hidden_size=1024, image_size=336, intermediate_size=4096,
+    num_attention_heads=16, num_hidden_layers=24, patch_size=14,
+    projection_dim=768, vocab_size=32000)
+LLAVA_15_7B_TEXT = dict(
+    vocab_size=32064, hidden_size=4096, intermediate_size=11008,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+    max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+    tie_word_embeddings=False)
+# https://huggingface.co/google-bert/bert-large-uncased config.json, with
+# one label: a cross-encoder reranker's score head
+BERT_LARGE = dict(
+    vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
+    num_attention_heads=16, intermediate_size=4096, hidden_act="gelu",
+    max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+    pad_token_id=0, num_labels=1)
+
+
+def llava_15_7b_config(text_layers: Optional[int] = None):
+    """LLaVA-1.5-7B's published config (``LLAVA_15_7B``) with its text
+    model cut to ``text_layers`` layers (default all 32; the tower and
+    the projector stay whole)."""
+    import transformers
+    text = dict(LLAVA_15_7B_TEXT)
+    if text_layers:
+        text["num_hidden_layers"] = text_layers
+    return transformers.LlavaConfig(
+        vision_config=transformers.CLIPVisionConfig(**LLAVA_15_7B_VISION),
+        text_config=transformers.LlamaConfig(**text), **LLAVA_15_7B)
+
+
+def llava_prompts(n: int, text_tokens: int, seed: int = 0,
+                  distinct_images: bool = True, device="cuda"):
+    """``n`` LLaVA-1.5-7B prompts: one image placeholder (576 tokens once
+    expanded) and ``text_tokens`` seeded random text ids, each with a
+    336 x 336 image of seeded normal pixels drawn on ``device``
+    (``distinct_images`` False: every prompt the same image)."""
+    gen = torch.Generator().manual_seed(seed)
+    text = torch.randint(3, LLAVA_15_7B["image_token_index"],
+                         (n, text_tokens), generator=gen).tolist()
+    dgen = torch.Generator(device=device)
+    dgen.manual_seed(seed)
+    images = [torch.randn((3, 336, 336), generator=dgen, device=device)
+              for _ in range(n if distinct_images else 1)]
+    return [{"prompt_token_ids": [LLAVA_15_7B["image_token_index"]] + t,
+             "multi_modal_data": {"image": [images[i % len(images)]]}}
+            for i, t in enumerate(text)]
+
+
+def bert_large_config():
+    import transformers
+    return transformers.BertConfig(**BERT_LARGE)
+
+
+def bert_pairs(n: int = 128, lo: int = 200, hi: int = 512, seed: int = 0):
+    """``n`` query-passage pairs of ``lo`` to ``hi`` tokens in all
+    ([CLS] query [SEP] passage [SEP], a query of 16-32 tokens): (token ids,
+    token types), seeded."""
+    gen = torch.Generator().manual_seed(seed)
+    ids, types = [], []
+    for _ in range(n):
+        total = int(torch.randint(lo, hi + 1, (1,), generator=gen))
+        q = int(torch.randint(16, 33, (1,), generator=gen))
+        p = total - q - 3
+        words = torch.randint(1000, BERT_LARGE["vocab_size"], (q + p,),
+                              generator=gen).tolist()
+        ids.append([101] + words[:q] + [102] + words[q:] + [102])
+        types.append([0] * (q + 2) + [1] * (p + 1))
+    return ids, types
+
+
 def qwen3_30b_a3b_config():
     """Qwen3-30B-A3B's published config: ``transformers``'
     ``Qwen3MoeConfig`` where it has one, else a ``PretrainedConfig``
@@ -991,6 +1080,14 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
                       max_num_tokens=8192,
                       kv_cache_config=KvCacheConfig(enable_block_reuse=False))
         return (deepseek_v2_lite_config(), kwargs, prompts,
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
+    if geometry == "llava-1.5-7b":
+        # one image (576 tokens) + 64 text tokens -> 128; prefix reuse off
+        # (each pass prefills afresh)
+        kwargs = dict(max_batch_size=64, max_input_len=640, max_seq_len=768,
+                      max_num_tokens=8192,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (llava_15_7b_config(), kwargs, llava_prompts(64, 64),
                 SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
     if geometry == "qwen3-30b-a3b":
         prompts = torch.randint(0, QWEN3_30B_A3B["vocab_size"], (64, 128),
@@ -1733,7 +1830,8 @@ def main() -> None:
                                            "llama3-8b-quant", "gpt-oss-20b",
                                            "deepseek-v2-lite", "bamba-9b",
                                            "deepseek-v3-mtp",
-                                           "longcat-flash"],
+                                           "longcat-flash",
+                                           "llava-1.5-7b"],
                     default="tinyllama",
                     help="the model of the default workload")
     ap.add_argument("--layers", type=int, default=None,
@@ -1801,7 +1899,9 @@ def main() -> None:
     else:
         cfg, kwargs, prompts, sp = workload(args.bench_settings,
                                             args.geometry, args.vswa)
-    if args.layers:
+    if args.layers and args.geometry == "llava-1.5-7b":
+        cfg = llava_15_7b_config(args.layers)
+    elif args.layers:
         cfg = gpt_oss_20b_config(args.layers) \
             if args.geometry == "gpt-oss-20b" else \
             bamba_9b_config(args.layers) \
@@ -1830,7 +1930,9 @@ def main() -> None:
     print(json.dumps(dict(quant_algo=args.quant, kv=args.kv,
                           bench_settings=args.bench_settings,
                           geometry=args.geometry, vswa=args.vswa,
-                          family=args.family, layers=cfg.num_hidden_layers,
+                          family=args.family,
+                          layers=getattr(cfg, "text_config",
+                                         cfg).num_hidden_layers,
                           inline=args.inline,
                           spec=args.spec, draft_len=args.draft_len, **res)))
 

@@ -1934,3 +1934,72 @@ def test_profile_sums_match_key_averages(cuda):
     assert by_class.keys() == want.keys()
     for c in want:
         assert abs(by_class[c] - want[c]) <= 1e-6 * want[c] + 1e-9, c
+
+
+# --------------------------------------------------------------------- #
+# head_dim 48 (the tinypasskey checkpoint: 4 x 48 heads over 4 KV heads)
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("kv8", [None, torch.int8, torch.float8_e4m3fn],
+                         ids=["same", "int8", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_lens,splits", [
+    ([250, 3072], None),                  # the passkey decode rows
+    ([7, 300, 1, 0, 65], None),
+    ([3000, 17, 2500, 1], 5),
+])
+def test_decode_hd48_matches_plain(cuda, kv8, dtype, kv_lens, splits):
+    """K1 at hd 48 (64-wide tiles, zero past 48) on pools of q's type and
+    8-bit ones, against the plain version; q and out are exactly [.., 48],
+    so a written padding column would land in the next head."""
+    S, qh, kvh, hd = len(kv_lens), 4, 4, 48
+    ctx = [max(k - 1, 0) for k in kv_lens]
+    if kv8 is None:
+        q, pool, _, pt, _ = _inputs([1] * S, ctx, qh, kvh, hd, 32, dtype,
+                                    cuda, seed=5)
+        scales = {}
+    else:
+        q, pool, _, pt, _, ks, vs = _inputs8([1] * S, ctx, qh, kvh, hd, 32,
+                                             dtype, kv8, cuda, seed=5)
+        scales = dict(k_scale=ks, v_scale=vs)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=hd ** -0.5, **scales)
+    before = dec.LAUNCHES
+    got = dec.paged_decode_attention(q, pool, kvl, pt, num_splits=splits,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert dec.LAUNCHES == before + 1
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt, **kw)
+    for h in range(qh):
+        torch.testing.assert_close(got[:, h].float(), ref[:, h].float(),
+                                   **TOLS[dtype])
+
+
+@pytest.mark.parametrize("kv8", [None, torch.int8, torch.float8_e4m3fn],
+                         ids=["same", "int8", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_lens,ctx_lens", [
+    ([3072], [0]),                        # the passkey prompt
+    ([40, 1, 70], [0, 100, 500]),         # mixed rows
+])
+def test_prefill_hd48_matches_plain(cuda, kv8, dtype, q_lens, ctx_lens):
+    """K2 at hd 48 against the plain version, each head on its own."""
+    qh, kvh, hd = 4, 4, 48
+    if kv8 is None:
+        q, pool, kvl, pt, cu = _inputs(q_lens, ctx_lens, qh, kvh, hd, 32,
+                                       dtype, cuda, seed=6)
+        scales = {}
+    else:
+        q, pool, kvl, pt, cu, ks, vs = _inputs8(q_lens, ctx_lens, qh, kvh,
+                                                hd, 32, dtype, kv8, cuda,
+                                                seed=6)
+        scales = dict(k_scale=ks, v_scale=vs)
+    kw = dict(sm_scale=hd ** -0.5, **scales)
+    before = pre.LAUNCHES
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                       max_q_len=max(q_lens), **kw)
+    torch.cuda.synchronize()
+    assert pre.LAUNCHES == before + 1
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu, **kw)
+    for h in range(qh):
+        torch.testing.assert_close(got[:, h].float(), ref[:, h].float(),
+                                   **TOLS[dtype])
