@@ -393,7 +393,7 @@ the run on error:
      tokens identical card against CPU and against the run without
      speculation, the drafts' counts equal on both devices;
  42. mtp_serving: DeepSeek-V3 at its published width, its first 4 layers
-     (3 dense, 1 MoE) and its MTP module (~53.4 GB), 64 x 512 -> 128,
+     (3 dense, 1 MoE) and its MTP module (~53.4 GB), 64 x 512 -> 32,
      K = 8, graphs (``serving_profile --geometry deepseek-v3-mtp``),
      served without speculation, with MTP (d = 1) in the window and on
      the host path: tok/s, TTFT, TPOT, idle share, GPU time by class,
@@ -438,6 +438,26 @@ the run on error:
      class, weights and peak memory, and the blocks reused by 16 requests
      of one text beside different images (none) and of one text and one
      image.
+ 51. mrope_kernels: K1 and K2 at Qwen2.5-VL-7B's heads (28 x 128 over 4
+     KV heads, a GQA group of 7) at qwen25vl_serving's shapes (64 rows at
+     641-768 KV; one step of 8 fresh 640-token prompts), against the
+     plain version, timed beside it, its bound and SDPA;
+ 52. mrope_parity: image prompts through ``LLM.generate`` in float32,
+     card against CPU, both at K = 8 windows (on the card replayed from
+     graphs, each row rotated at pos + its mrope_delta): tiny models of
+     the five M-RoPE types (tokens identical, an ``n = 2`` request's
+     samples equal) and Qwen2.5-VL-7B's full-width tower over 2 text
+     layers (partings only at near-ties);
+ 53. qwen25vl_serving: Qwen2.5-VL-7B at full width and depth, 64 x (one
+     672 x 672 image = 576 tokens + 64 text tokens) -> 128, K = 8,
+     graphs (``serving_profile --geometry qwen2.5-vl-7b``): tok/s, TTFT,
+     TPOT, idle share, GPU time by class, the tower's ms per image,
+     weights (trunk and tower apart), peak memory, K1 / K2 launches,
+     eager steps with embedding rows;
+ 54. mrope_families: Qwen2-VL-7B, Qwen3-VL-8B, Qwen3-VL-30B-A3B and
+     GLM-4.1V-9B at their published widths over 2 text layers with the
+     full tower, 4 image requests each through graphs: K1 / K2 launched,
+     windows replayed, logprobs finite, the tower's ms per image.
 
 ``python3 chip_smoke.py --only a,b`` runs just the named phases (a
 development run: no kernels line, no result line).
@@ -453,8 +473,9 @@ summed, moe_families' by family, bamba_serving's timed pass,
 recurrent_families' by family, mtp_serving's three timed passes and
 longcat_serving's (none: MLA, the MTP head and the ScMoE call no
 kernel), eval_accuracy's runs, bert_serving's (none: the encoder calls no
-kernel) and llava_serving's timed pass; K1's and K2's rows also their
-hd-48 cases; the dequant-matmul kernel's row also its
+kernel), llava_serving's and qwen25vl_serving's timed passes and
+mrope_families' by family; K1's and K2's rows also their hd-48 and
+group-7 cases; the dequant-matmul kernel's row also its
 e4m3 cases and its e4m3 launches in quant_serving's runs) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -478,6 +499,9 @@ GUIDED_SERVING_LAYERS = 8
 BAMBA_SERVING_LAYERS = 19
 # deepseek_serving keeps its dense first layer and 8 of its 26 MoE layers
 DEEPSEEK_SERVING_LAYERS = 9
+# mtp_serving's requests stop at 32 tokens (the geometry's 128: its spec
+# passes decode at ~96 ms an iteration)
+MTP_SERVING_TOKENS = 32
 NEAR_TIE = 3e-2               # log-probability margin below which the
                               # quantized cuda/cpu runs may part ways
 
@@ -5313,9 +5337,11 @@ def mtp_serving_phase() -> dict:
     256 experts top 8 and 1 shared), its first 4 layers (3 dense, 1 MoE)
     and its MTP module (seeded random bf16 weights made on the card,
     ~53.4 GB with the module; tools/serving_profile.py ``--geometry
-    deepseek-v3-mtp``), 64 requests of 512 prompt tokens -> 128 greedy
-    tokens with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8, depth
-    4, CUDA graphs) but 8,192 tokens a prefill step and prefix reuse off,
+    deepseek-v3-mtp``), 64 requests of 512 prompt tokens -> 32 greedy
+    tokens (``MTP_SERVING_TOKENS``; the geometry's 128 cut for the
+    script's time) with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8,
+    depth 4, CUDA graphs) but 8,192 tokens a prefill step and prefix
+    reuse off,
     served three times: without speculation, with MTP (d = 1, the one
     token the published module is trained for) in the fused window
     (4 iterations a window), and with MTP on the host path. Each: a
@@ -5338,6 +5364,8 @@ def mtp_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch import LLM, SamplingParams
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     cfg, kwargs, prompts, sp = sprof.workload(geometry="deepseek-v3-mtp")
+    sp = SamplingParams(max_tokens=MTP_SERVING_TOKENS, top_k=1,
+                        ignore_eos=True)
     sp_lp = SamplingParams(max_tokens=sp.max_tokens, top_k=1,
                            ignore_eos=True, logprobs=2)
     runs, streams = {}, {}
@@ -6169,6 +6197,376 @@ def llava_serving_phase() -> dict:
     return res
 
 
+# ---- the M-RoPE group (Qwen2-VL, Qwen2.5-VL, Qwen3-VL, GLM-4.1V) --------
+# Qwen2.5-VL-7B's trunk: 28 x 128 q heads over 4 KV heads (a GQA group of
+# 7); qwen25vl_serving's engine keeps 24 pages of 32 a sequence
+QWEN25VL_HEADS = (28, 4)
+QWEN25VL_PAGES = 24
+QWEN25VL_WARMUP = 8
+QWEN25VL_PROFILED = 4
+
+
+def mrope_kernel_phase(results: dict) -> None:
+    """K1 and K2 at Qwen2.5-VL-7B's heads (28 x 128 over 4 KV heads) at
+    qwen25vl_serving's shapes: ``decode_group7`` 64 rows at 641-768 KV
+    positions, ``prefill_group7`` one eager step of 8 fresh 640-token
+    image prompts, each held against the plain version
+    (``_attention_case``: bf16 2e-2), timed beside it, its bound and
+    SDPA on the KV gathered to the longest row. q is unscaled."""
+    import torch
+    qh, kvh = QWEN25VL_HEADS
+    ctx = [640 + (127 * i) // 63 for i in range(64)]
+    for name, kind, q_lens, c in [
+            ("decode_group7", "decode", [1] * 64, ctx),
+            ("prefill_group7", "prefill", [640] * 8, [0] * 8)]:
+        results[name] = _attention_case(
+            name, kind, q_lens, c, qh, kvh, None, None, torch.bfloat16,
+            seed=90 + len(results), pages_per_seq=QWEN25VL_PAGES, hd=128,
+            q_scale=1.0)
+
+
+# tiny float32 M-RoPE models for mrope_parity: head dim 64 (K1 / K2 on
+# the card), sections over 32 rotary frequencies (16 for GLM's half)
+def _tiny_mrope(name: str):
+    import torch
+    import transformers as tf
+    text = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, max_position_embeddings=1024,
+                rope_theta=10000.0)
+    patches = dict(patch_size=4, temporal_patch_size=2, spatial_merge_size=2,
+                   in_channels=3)
+    ids = dict(image_token_id=151, video_token_id=152,
+               vision_start_token_id=153)
+    chunked = {"rope_type": "default", "mrope_section": [8, 12, 12]}
+    inter = {"rope_type": "default", "mrope_section": [12, 10, 10],
+             "mrope_interleaved": True}
+    vis3 = dict(patches, depth=2, hidden_size=64, out_hidden_size=256,
+                num_heads=4, intermediate_size=96,
+                deepstack_visual_indexes=[0, 1], num_position_embeddings=64)
+    if name == "qwen2_vl":
+        cfg = tf.Qwen2VLConfig(
+            text_config=dict(text, rope_scaling=chunked),
+            vision_config=dict(patches, depth=2, embed_dim=64, num_heads=4,
+                               hidden_size=256, mlp_ratio=2),
+            vision_end_token_id=154, **ids)
+    elif name == "qwen2_5_vl":
+        cfg = tf.Qwen2_5_VLConfig(
+            text_config=dict(text, rope_scaling=chunked),
+            vision_config=dict(patches, depth=2, hidden_size=64,
+                               out_hidden_size=256, num_heads=4,
+                               intermediate_size=96, window_size=32,
+                               fullatt_block_indexes=[1]),
+            vision_end_token_id=154, **ids)
+    elif name == "qwen3_vl":
+        cfg = tf.Qwen3VLConfig(
+            text_config=dict(text, head_dim=64, rope_scaling=inter),
+            vision_config=vis3, **ids)
+    elif name == "qwen3_vl_moe":
+        cfg = tf.Qwen3VLMoeConfig(
+            text_config=dict(text, head_dim=64, moe_intermediate_size=96,
+                             num_experts=4, num_experts_per_tok=2,
+                             decoder_sparse_step=1, norm_topk_prob=True,
+                             rope_scaling=inter),
+            vision_config=vis3, **ids)
+    else:
+        cfg = tf.Glm4vConfig(
+            text_config=dict(text, partial_rotary_factor=0.5,
+                             rope_scaling={"rope_type": "default",
+                                           "mrope_section": [4, 6, 6]}),
+            vision_config=dict(patches, depth=2, hidden_size=64,
+                               out_hidden_size=256, num_heads=4,
+                               intermediate_size=96, image_size=32,
+                               attention_bias=True),
+            image_token_id=151, video_token_id=152,
+            image_start_token_id=153, image_end_token_id=154)
+    from tensorrt_llm_tpu_torch.models import get_model_class
+    torch.manual_seed(0)
+    hf = getattr(tf, get_model_class(name).hf_class)(cfg).float().eval()
+    # q and k scaled 8x: attention sharp enough that a rotation at the
+    # wrong position moves the argmax (tests/torch_mrope_util.sharpen)
+    with torch.no_grad():
+        for n, p in hf.named_parameters():
+            if "language_model" in n and ("q_proj" in n or "k_proj" in n):
+                p.mul_(8.0)
+    return hf
+
+
+def mrope_parity_phase() -> dict:
+    """The M-RoPE group through ``LLM.generate`` with image prompts,
+    float32, the card against the port's CPU path, both at K = 8 windows
+    (on the card replayed from CUDA graphs, each row rotated at pos +
+    its sequence's mrope_delta): tiny seeded models of the five types
+    (head dim 64; 3 prompts of a (1, 16, 16) grid, 64 image tokens,
+    mrope_delta -48, and 3-30 text tokens -> 16, then one ``n = 2``
+    request), greedy tokens identical; then Qwen2.5-VL-7B's full-width
+    tower (32 windowed blocks) over 2 of its 28 text layers at full width
+    (seeded random float32 weights drawn on the card and copied to the
+    host; 2 prompts of a (1, 16, 16) grid and 32 text tokens -> 8):
+    greedy tokens identical wherever the CPU decides by more than 3e-2 in
+    log-probability (``_compare_streams``). Fails otherwise, or if a
+    card run replayed no window."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch import KvCacheConfig, LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.models.recurrent import (RandomCheckpoint,
+                                                         meta_shapes)
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    res, failures = {}, []
+    rng = np.random.default_rng(6)
+    grid = (1, 16, 16)
+    prompts = [{"prompt_token_ids": [5, 153, 151, 154] + rng.integers(
+        3, 150, n).tolist(), "multi_modal_data": {
+            "image": [rng.standard_normal((256, 96)).astype(np.float32)],
+            "image_grid_thw": [grid]}} for n in (3, 12, 30)]
+    sp = SamplingParams(max_tokens=16, top_k=1, ignore_eos=True)
+    sp2 = SamplingParams(max_tokens=16, top_k=1, ignore_eos=True, n=2)
+    kw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+              max_input_len=128, max_seq_len=192, decode_multi_step=8,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    for name in ("qwen2_vl", "qwen2_5_vl", "qwen3_vl", "qwen3_vl_moe",
+                 "glm4v"):
+        hf = _tiny_mrope(name)
+        toks, windows = {}, {}
+        for dev in ("cuda", "cpu"):
+            llm = LLM(hf, device=dev, **kw)
+            try:
+                outs = llm.generate(prompts, sp)
+                n2 = llm.generate(prompts[1], sp2)
+                toks[dev] = [o.outputs[0].token_ids for o in outs] + \
+                    [o.token_ids for o in n2.outputs]
+                windows[dev] = (llm.engine.window_steps,
+                                _graph_stats(llm.engine)["graph_replays"])
+            finally:
+                llm.shutdown()
+        same = toks["cuda"] == toks["cpu"]
+        res[name] = dict(identical=same, tokens=toks["cuda"],
+                         n2_equal=toks["cuda"][3] == toks["cuda"][4]
+                         == toks["cuda"][1],
+                         window_steps=windows["cuda"][0],
+                         graph_replays=windows["cuda"][1])
+        if not same or not res[name]["n2_equal"]:
+            failures.append(f"{name}: card {toks['cuda']} != cpu "
+                            f"{toks['cpu']}")
+        if not windows["cuda"][0] or not windows["cuda"][1]:
+            failures.append(f"{name}: no window replayed {windows}")
+    cfg = sprof.qwen25_vl_7b_config(text_layers=2)
+    from transformers import Qwen2_5_VLForConditionalGeneration as HF
+    shapes = meta_shapes(HF, cfg)
+    rand = RandomCheckpoint(shapes, "cuda", torch.float32, seed=3)
+    card_sd = {k: rand[k] for k in shapes}
+    prompts = sprof.mrope_prompts(cfg, 2, 32, grid=grid, seed=4)
+    sp = SamplingParams(max_tokens=8, top_k=1, ignore_eos=True, logprobs=2)
+    kw.update(max_input_len=128, max_seq_len=192, max_num_tokens=2048,
+              kv_cache_config=KvCacheConfig(tokens_per_block=32,
+                                            max_tokens=4096))
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        sd = card_sd if dev == "cuda" else {k: v.cpu()
+                                            for k, v in card_sd.items()}
+        t0 = time.monotonic()
+        llm = LLM(_Checkpoint(cfg, sd), device=dev, **kw)
+        try:
+            outs = llm.generate(prompts, sp)
+        finally:
+            llm.shutdown()
+        del sd
+        streams[dev] = ([o.outputs[0].token_ids for o in outs],
+                        [o.outputs[0].logprobs for o in outs])
+        res[f"full_width_{dev}_s"] = time.monotonic() - t0
+    del card_sd
+    torch.cuda.empty_cache()
+    cmp = _compare_streams(streams["cpu"], streams["cuda"])
+    res.update(full_width=dict(identical=streams["cpu"][0] ==
+                               streams["cuda"][0], cpu=streams["cpu"][0],
+                               card=streams["cuda"][0], **cmp))
+    if cmp["unexplained_partings"]:
+        failures.append(f"full width: {res['full_width']}")
+    emit({"phase": "mrope_parity", **res})
+    if failures:
+        raise AssertionError("mrope_parity: " + "; ".join(failures))
+    return res
+
+
+def qwen25vl_serving_phase() -> dict:
+    """Qwen2.5-VL-7B at its published width and depth
+    (tools/serving_profile.py ``--geometry qwen2.5-vl-7b``: the Qwen2
+    trunk of 28 layers, 28 x 128 q heads over 4 KV heads, M-RoPE; the
+    windowed ViT of 32 blocks; seeded random bf16 weights drawn on the
+    card, ~15.2 + 1.35 GB), 64 requests of one 672 x 672 image (a (1, 48,
+    48) grid, 576 tokens) and 64 text tokens -> 128 greedy tokens with
+    ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8 windows, CUDA graphs)
+    but 8,192 tokens a prefill step and prefix reuse off: the tower runs
+    once per request on the caller's thread, the trunk's prefill steps
+    are eager K2 steps with the embedding rows and the prompts' M-RoPE
+    positions, decode is K1 in replayed windows rotating each row at pos
+    + its mrope_delta (-552 here). A warm-up of 8 of the requests (its
+    wall time kept), a timed pass
+    (tok/s, TTFT and TPOT median and max, K1 / K2 launches, eager steps
+    with embedding rows), then 4 of them unprofiled (the caller's ms to
+    submit each: the processor and the tower's launches on its thread)
+    and under the profiler (device idle
+    share, GPU time by class), weights (trunk and tower apart), peak
+    memory and the tower's ms per image (CUDA events, the serving call).
+    Fails if a request comes back short or out of the
+    vocabulary, if K1 or K2 did not launch, if no window replayed, if the
+    slots' deltas were not the prompts', or if the graph pool outgrew its
+    reserve."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    cfg, kwargs, prompts, sp = sprof.workload(geometry="qwen2.5-vl-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    try:
+        eng = llm.engine
+        weights_bytes = sum(t.numel() * t.element_size()
+                            for t in _tensors(eng.params))
+        vision_bytes = sum(t.numel() * t.element_size()
+                           for t in _tensors(llm.model.vision_params))
+        embed0 = eng.embed_steps
+        t1 = time.monotonic()
+        first_s, _ = sprof._generate(llm, prompts[:QWEN25VL_WARMUP], sp)
+        res = sprof.measure(llm, prompts, sp, profile=False, warmup=False)
+        few = prompts[:QWEN25VL_PROFILED]
+        t2 = time.monotonic()
+        futs = [llm.generate_async(p, sp) for p in few]
+        submit_s = time.monotonic() - t2
+        for f in futs:
+            f.result()
+        torch.cuda.synchronize()
+        wall_few = time.monotonic() - t2
+        res.update(sprof._profiled(llm, few, sp, wall_few),
+                   warmup_requests=QWEN25VL_WARMUP,
+                   warmup_wall_ms=first_s * 1e3,
+                   profiled_requests=len(few),
+                   profiled_plain_wall_ms=wall_few * 1e3,
+                   submit_ms_per_request=submit_s * 1e3 / len(few))
+        measure_s = time.monotonic() - t1
+        graphs = _graph_stats(eng)
+        res["embed_steps_all_passes"] = eng.embed_steps - embed0
+        reserve = eng.graph_pool_reserve()
+        pages = eng.num_kv_pages
+        kv_bytes_per_token = eng.bytes_per_kv_block // eng.page_size
+        mm = prompts[0]["multi_modal_data"]
+        px = mm["image"][0].cuda()
+        tower_ms = time_ms(lambda: llm.model.encode_images(
+            px, mm["image_grid_thw"]), 10)
+        # the slots' deltas while the last requests decode
+        ids, _, _, extra = llm.input_processor(
+            prompts[0]["prompt_token_ids"], mm)
+        outs = llm.generate(prompts[:4], sp)
+    finally:
+        llm.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = cfg.text_config.vocab_size
+    for o in outs:
+        toks = o.outputs[0].token_ids
+        if len(toks) != sp.max_tokens or not all(0 <= t < V for t in toks):
+            raise AssertionError(f"qwen25vl_serving: bad output {toks}")
+    if res["output_tokens"] != len(prompts) * sp.max_tokens or \
+            res["nonfinite_logprobs"]:
+        raise AssertionError(f"qwen25vl_serving: {res['output_tokens']} "
+                             "tokens, or non-finite logprobs")
+    res.update(model="Qwen2.5-VL-7B", text_layers=cfg.text_config
+               .num_hidden_layers, prompt_tokens=len(ids),
+               mrope_delta=extra["mrope_delta"], engine_build_s=build_s,
+               measure_s=measure_s, weights_bytes=weights_bytes,
+               vision_weights_bytes=vision_bytes,
+               peak_allocated_bytes=peak, kv_pool_pages=pages,
+               kv_bytes_per_token=kv_bytes_per_token,
+               tower_ms_per_image=tower_ms,
+               graph_pool_reserve_bytes=reserve, graphs=graphs)
+    emit({"phase": "qwen25vl_serving", **res})
+    if not (res["launches"]["paged_decode_attention"] and
+            res["launches"]["ragged_prefill_attention"]):
+        raise AssertionError(f"qwen25vl_serving: K1/K2 not launched: "
+                             f"{res['launches']}")
+    if not graphs["graph_replays"] or not res["embed_steps_all_passes"]:
+        raise AssertionError(f"qwen25vl_serving: no replayed window or no "
+                             f"embedding step: {graphs}")
+    if extra["mrope_delta"] >= 0 or len(ids) != 640:
+        raise AssertionError(f"qwen25vl_serving: {len(ids)} prompt tokens, "
+                             f"delta {extra['mrope_delta']}")
+    _check_reserve(res)
+    return res
+
+
+def mrope_families_phase() -> dict:
+    """Qwen2-VL-7B, Qwen3-VL-8B, Qwen3-VL-30B-A3B and GLM-4.1V-9B at their
+    published widths (tools/serving_profile.py ``MROPE_FAMILIES``, the
+    fields of their ``config.json``) over 2 text layers with the full
+    tower, seeded random bf16 weights: 4 requests of one image (a (1, 32,
+    32) grid, 256 tokens) and 32 text tokens -> 32 greedy tokens through
+    K = 8 windows on graphs: K1 and K2 launched, windows replayed, every
+    returned logprob finite, and the tower's ms per image. A smoke of the
+    widths, not a cell."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import KvCacheConfig, LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    failures, res = [], {}
+    sp = SamplingParams(max_tokens=32, top_k=1, ignore_eos=True, logprobs=0)
+    for name in sprof.MROPE_FAMILIES:
+        cfg = sprof.mrope_family_config(name, text_layers=2)
+        prompts = sprof.mrope_prompts(cfg, 4, 32, grid=(1, 32, 32), seed=7)
+        gc.collect()
+        torch.cuda.empty_cache()
+        llm = LLM(cfg, dtype="bfloat16", max_batch_size=4, max_input_len=320,
+                  max_seq_len=384, enable_warmup=False,
+                  kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        try:
+            eng = llm.engine
+            run = sprof.measure(llm, prompts, sp, profile=False)
+            graphs = _graph_stats(eng)
+            mm = prompts[0]["multi_modal_data"]
+            px = mm["image"][0].cuda()
+            tower_ms = time_ms(lambda: llm.model.encode_images(
+                px, mm["image_grid_thw"]), 5)
+            spec = eng.model.attn_spec
+        finally:
+            llm.shutdown()
+        del llm, eng
+        if min(run["launches"][k] for k in ("paged_decode_attention",
+                                            "ragged_prefill_attention")) <= 0:
+            failures.append(f"mrope_families {name}: K1 or K2 never "
+                            f"launched: {run['launches']}")
+        if not graphs["graph_replays"]:
+            failures.append(f"mrope_families {name}: no graph replay")
+        if run["nonfinite_logprobs"] or not run["logprobs_recorded"] or \
+                run["min_output_tokens"] != sp.max_tokens:
+            failures.append(f"mrope_families {name}: short outputs or "
+                            "non-finite logprobs")
+        tc = cfg.text_config
+        res[name] = dict(
+            source=sprof.MROPE_FAMILIES[name][0], text_layers=2,
+            hidden=tc.hidden_size, heads=spec.num_heads,
+            kv_heads=spec.num_kv_heads, head_dim=spec.head_dim,
+            tower_depth=cfg.vision_config.depth, tower_ms_per_image=tower_ms,
+            output_tok_per_s=run["output_tok_per_s"],
+            tpot_ms_median=run["tpot_ms_median"],
+            ttft_ms_median=run["ttft_ms_median"], launches=run["launches"],
+            graph_replays=graphs["graph_replays"],
+            logprobs_recorded=run["logprobs_recorded"])
+        emit({"phase": "mrope_families", "family": name, **res[name]})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -6269,6 +6667,10 @@ def main() -> int:
     bert = timed("bert_serving", bert_serving_phase)
     timed("llava_parity", llava_parity_phase)
     llava = timed("llava_serving", llava_serving_phase)
+    timed("mrope_kernels", mrope_kernel_phase, {} if kern is None else kern)
+    timed("mrope_parity", mrope_parity_phase)
+    qwen25vl = timed("qwen25vl_serving", qwen25vl_serving_phase)
+    mrope_fams = timed("mrope_families", mrope_families_phase)
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -6318,6 +6720,9 @@ def main() -> int:
                                     for k, v in evals.items()},
             launches_bert_serving=bert["launches"][name],
             launches_llava_serving=llava["launches"][name],
+            launches_qwen25vl_serving=qwen25vl["launches"][name],
+            launches_mrope_families={f: v["launches"][name]
+                                     for f, v in mrope_fams.items()},
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()
@@ -6333,6 +6738,10 @@ def main() -> int:
         row["hd48"] = {c: {k: kern[c][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")} for c in (f"{kind}_hd48", f"{kind}_hd48_kv_e4m3")}
+        # and at GQA group 7: qwen25vl_serving's shapes
+        row["group7"] = {k: kern[f"{kind}_group7"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "shape")}
     # K3's e4m3 body: its cases and its launches in quant_serving's runs
     kernels[-1].update(
         max_abs_err_e4m3=max(v["max_abs_err"] for c, v in e4m3.items()

@@ -23,9 +23,13 @@ state pools indexed by sequence slot; no chunked prefill, no block
 reuse, no speculation), the splice-only vision-language models llava,
 llava_next, mistral3 and internvl (multimodal/: a vision tower and
 projector in plain torch whose features replace the image placeholders'
-embeddings over the Llama trunk), and ``bert`` (encoder-only: no KV pool,
-no executor; ``LLM.classify``); the JAX package's other multimodal types
-are refused by name.
+embeddings over the Llama trunk), the M-RoPE vision-language models
+qwen2_vl, qwen2_5_vl, qwen3_vl, qwen3_vl_moe and glm4v (the Qwen2, Qwen3,
+Qwen3-MoE and GLM-4 trunks, whose prompt positions are the image grid's
+(temporal, height, width) sections and whose later positions move by the
+request's ``mrope_delta``), and ``bert`` (encoder-only: no KV pool, no
+executor; ``LLM.classify``); the JAX package's other multimodal types are
+refused by name.
 
 A prompt is token ids, a string (with a tokenizer), or a dict as the JAX
 ``LLM`` takes it: ``prompt`` or ``prompt_token_ids``, with
@@ -35,7 +39,8 @@ placeholders expanded, features spliced, the images' hash joined to
 block), ``prompt_embeds`` (float32 [T, H], rows that are not NaN replace
 their token's embedding) or ``prompt_tuning_config`` (an
 ``embedding_table`` whose rows the virtual ids vocab, vocab + 1, ...
-take). Each sample of ``n > 1`` carries the embeddings too.
+take). Each sample of ``n > 1`` carries the embeddings (and the M-RoPE
+positions) too.
 ``kv_cache_config=KvCacheConfig(max_attention_window=[w, ...])`` serves
 Gemma 2 with VSWA: its sliding layers keep their KV in a second pool
 sized for the smallest window w, which is also their window (Gemma 3's
@@ -611,6 +616,7 @@ class LLM:
         sampling_params = copy.copy(sampling_params) if sampling_params \
             else SamplingParams()
         prompt_embeds = mm_data = ptuning = None
+        mm_extra = {}
         if isinstance(prompt, Mapping):
             mm_data = prompt.get("multi_modal_data")
             prompt_embeds = prompt.get("prompt_embeds")
@@ -632,8 +638,8 @@ class LLM:
                 f"prompt length {len(token_ids)} exceeds max_input_len "
                 f"{self.args.max_input_len}")
         if mm_data is not None:
-            token_ids, prompt_embeds, cache_salt = self._multimodal(
-                token_ids, mm_data, cache_salt)
+            token_ids, prompt_embeds, cache_salt, mm_extra = \
+                self._multimodal(token_ids, mm_data, cache_salt)
         if ptuning is not None:
             token_ids, prompt_embeds, cache_salt = self._prompt_table(
                 token_ids, prompt_embeds, ptuning, cache_salt)
@@ -652,7 +658,7 @@ class LLM:
         req = LlmRequest(prompt_token_ids=token_ids,
                          sampling_params=sampling_params,
                          streaming=streaming, cache_salt=cache_salt,
-                         prompt_embeds=prompt_embeds)
+                         prompt_embeds=prompt_embeds, **mm_extra)
         res = self.executor.submit(req)
         extra = []
         if sampling_params.n > 1 and not sampling_params.use_beam_search:
@@ -666,34 +672,39 @@ class LLM:
                     # that the samples part deterministically
                     sib.seed = (sampling_params.seed * 0x9E3779B1
                                 + j) & 0x7FFFFFFF or 1
-                # each sample carries the prompt's embeddings (the JAX
-                # LLM submits its siblings without them, llm.py:844-866,
-                # so they decode the placeholders' own embeddings)
+                # each sample carries the prompt's embeddings and M-RoPE
+                # positions (the JAX LLM submits its siblings without
+                # them, llm.py:844-866, so they decode the placeholders'
+                # own embeddings at plain positions)
                 extra.append(self.executor.submit(LlmRequest(
                     prompt_token_ids=list(token_ids), sampling_params=sib,
-                    cache_salt=cache_salt, prompt_embeds=prompt_embeds)))
+                    cache_salt=cache_salt, prompt_embeds=prompt_embeds,
+                    **mm_extra)))
         return RequestOutput(res, prompt_text, extra_results=extra)
 
     def _multimodal(self, token_ids: List[int], mm_data: Mapping,
                     cache_salt: Optional[str]):
-        """(expanded token ids, prompt embeddings on the device, salt) of
-        a prompt with ``multi_modal_data``: the model's input processor
-        expands the image placeholders and runs the vision tower and
-        projector here, on the caller's thread, holding the engine's graph
-        lock so that no CUDA graph capture on the executor thread sees
-        its launches; the images' hash joins ``cache_salt`` (the JAX
-        llm.py:762-777)."""
+        """(expanded token ids, prompt embeddings on the device, salt,
+        request fields) of a prompt with ``multi_modal_data``: the model's
+        input processor expands the image placeholders and runs the vision
+        tower and projector here, on the caller's thread, holding the
+        engine's graph lock so that no CUDA graph capture on the executor
+        thread sees its launches; the images' hash joins ``cache_salt``;
+        a processor's optional fourth result (the M-RoPE models'
+        ``mrope_positions`` and ``mrope_delta``) is set on the request (the
+        JAX llm.py:762-777, 834-835)."""
         if self.input_processor is None:
             raise ValueError(f"model {type(self.model).__name__} has no "
                              "multimodal input processor")
         with self.engine.graphs.lock:
-            token_ids, embeds, salt = self.input_processor(token_ids,
-                                                           mm_data)
+            out = self.input_processor(token_ids, mm_data)
+        token_ids, embeds, salt = out[:3]
+        extra = dict(out[3]) if len(out) > 3 else {}
         if len(token_ids) > self.args.max_input_len:
             raise ValueError(
                 f"prompt with expanded image tokens ({len(token_ids)}) "
                 f"exceeds max_input_len {self.args.max_input_len}")
-        return token_ids, embeds, (cache_salt or "") + salt
+        return token_ids, embeds, (cache_salt or "") + salt, extra
 
     def _prompt_table(self, token_ids: List[int], prompt_embeds, ptuning,
                       cache_salt: Optional[str]):

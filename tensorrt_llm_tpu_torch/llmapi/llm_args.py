@@ -219,9 +219,13 @@ MOE_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe", "gpt_oss",
                    "granitemoe", "hunyuan_v1_moe", "glm4_moe", "ernie4_5_moe",
                    "deepseek_v2", "deepseek_v3", "longcat_flash")
 GEMMA_MODEL_TYPES = ("gemma2", "gemma3_text")
-# the splice-only vision-language models (multimodal/): image features
-# replace the placeholder tokens' embeddings of a Llama trunk
-VLM_MODEL_TYPES = ("llava", "llava_next", "mistral3", "internvl")
+# the vision-language models (multimodal/): image features replace the
+# placeholder tokens' embeddings of a Llama-derived trunk (the M-RoPE ones
+# also rotate by the image grid's positions)
+MROPE_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl", "qwen3_vl_moe",
+                     "glm4v")
+VLM_MODEL_TYPES = ("llava", "llava_next", "mistral3", "internvl") \
+    + MROPE_MODEL_TYPES
 # the LayerNorm GPT families (models/gpt_family.py, gpt2.py), whose
 # forward collects no hidden rows for an EAGLE3 head (nor does the JAX one)
 GPT_MODEL_TYPES = ("gpt2", "gpt_neox", "gptj", "falcon", "starcoder2",

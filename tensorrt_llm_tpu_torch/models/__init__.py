@@ -32,6 +32,9 @@ from ..multimodal import internvl as _internvl  # noqa: F401,E402
 from ..multimodal import llava as _llava  # noqa: F401,E402
 from ..multimodal import llava_next as _llava_next  # noqa: F401,E402
 from ..multimodal import pixtral as _pixtral  # noqa: F401,E402
+from ..multimodal import glm4v as _glm4v  # noqa: F401,E402
+from ..multimodal import qwen2_vl as _qwen2_vl  # noqa: F401,E402
+from ..multimodal import qwen3_vl as _qwen3_vl  # noqa: F401,E402
 
 __all__ = ["DecoderModelForCausalLM", "MODEL_REGISTRY", "ModelConfig",
            "get_model_class", "register_model", "from_jax_params"]

@@ -66,6 +66,13 @@ se_gate/se_up); the experts ``moe_gate`` / ``moe_up`` or ``w_gate`` /
 ``w_gate_out``) become [out, in]; Zamba2's adapters stay [in, out]; the
 mixers' conv_w, conv_b, A_log, D, dt_bias and MiniMax's slope stay
 float32.
+The M-RoPE vision-language models (qwen2_vl, qwen2_5_vl, qwen3_vl,
+qwen3_vl_moe, glm4v): the trunk's tree goes through its family's path
+above, and with ``vision=`` the JAX model's ``_vision_params`` (its
+tower's tree: stacked ``blocks``, matrices [in, out]) become the port
+model's ``vision_params`` (``from_jax_vision``): the blocks unstacked into
+a list, every name and orientation kept, Qwen2.5-VL's ``is_full`` flags
+dropped (the port's tower holds ``fullatt_block_indexes`` as config).
 With ``kv_scales`` (a model on a quantized KV cache), the JAX Llama's
 per-layer ``kv_scale`` [L] (float32) becomes each layer's 0-dim float32
 ``kv_scale``, so that both packages quantize with the same scales.
@@ -120,13 +127,17 @@ def carry_projection(p: Dict[str, Any], device="cpu",
 
 def from_jax_params(params_np: Dict[str, Any], device="cpu",
                     dtype: Optional[torch.dtype] = None,
-                    kv_scales: bool = False, model=None) -> Dict[str, Any]:
+                    kv_scales: bool = False, model=None,
+                    vision=None) -> Dict[str, Any]:
     """JAX Llama params (numpy) -> port params (tensors on ``device``).
     ``dtype`` (default: the arrays' own) applies to the float weights,
     norms and biases; integers and float32 scales keep their types.
     ``kv_scales``: carry the layers' ``kv_scale`` (a quantized KV
     cache). ``model``: the port model, which a recurrent family's tree
-    needs for its layer order."""
+    needs for its layer order, and whose ``vision_params`` an M-RoPE
+    model's tower tree ``vision`` (numpy) becomes."""
+    if vision is not None:
+        model.vision_params = from_jax_vision(vision, device, dtype)
 
     def t(a, dt=dtype) -> torch.Tensor:
         return carry_array(a, device, dt)
@@ -193,6 +204,33 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
             "layers": layers,
             "final_norm": t(params_np["final_norm"]),
             "lm_head": proj(params_np["lm_head"])}
+
+
+def from_jax_vision(tree: Dict[str, Any], device="cpu",
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """An M-RoPE model's JAX tower tree (numpy) in the port's layout
+    (multimodal/qwen2_vl.py): the stacked ``blocks`` as a list of
+    per-block dicts without Qwen2.5-VL's ``is_full``; every other leaf, and
+    the mergers' dicts, as tensors of the same names. GLM-4.1V's position
+    table stays a float32 host array (its bicubic sampler's input), and
+    Qwen3-VL's gets that host copy beside it (``pos_host``)."""
+    def t(a):
+        return carry_array(a, device, dtype)
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if k == "blocks":
+            n = len(next(iter(v.values())))
+            out[k] = [{bk: t(bv[i]) for bk, bv in v.items()
+                       if bk != "is_full"} for i in range(n)]
+        elif isinstance(v, dict):
+            out[k] = {kk: t(vv) for kk, vv in v.items()}
+        elif k == "pos" and "post_conv_ln" in tree:      # GLM-4.1V
+            out[k] = np.asarray(v, np.float32)
+        else:
+            out[k] = t(v)
+    if isinstance(out.get("pos"), torch.Tensor):          # Qwen3-VL
+        out["pos_host"] = out["pos"].float().cpu().numpy()
+    return out
 
 
 def _from_jax_ln_family(params_np, t, proj, fused) -> Dict[str, Any]:

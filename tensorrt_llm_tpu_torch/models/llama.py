@@ -332,12 +332,15 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages: torch.Tensor, metadata: AttentionMetadata,
                 collect_hidden: bool = False, collect_kv_stats: bool = False,
-                input_embeds=None):
+                input_embeds=None, deepstack=None):
         """(logits [S, V] float32 at ``logits_indices``, kv_pages), and
         with ``collect_hidden`` also the pre-final-norm hidden rows at
         ``logits_indices`` (the EAGLE draft head's features), or with
         ``collect_kv_stats`` each layer's absmax of its fresh K and V,
-        float32 [L] (the KV-scale calibration pass)."""
+        float32 [L] (the KV-scale calibration pass). ``deepstack`` [n, T,
+        H] (Qwen3-VL): after layer k < n, slice k is added to the hidden
+        rows (image features at the image rows, 0.0 elsewhere; the JAX
+        models/llama.py:344-350, which the MoE trunk shares here)."""
         eps = self.rms_eps
         q_norm, k_norm = self._qk_norms()
         h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
@@ -347,7 +350,7 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         post = self.norm_placement == "post"
         sandwich = self.norm_placement == "sandwich"
         specs = self.layer_specs
-        cos_sin = {s.rope: rope_cos_sin(s.rope, metadata.positions)
+        cos_sin = {s.rope: self._base_cos_sin(s.rope, metadata)
                    for s in specs if s.rope is not None}
         L, P, ps = kv_pages.shape[:3]
         kv_flat = kv_pages.view((L * P,) + tuple(kv_pages.shape[2:]))
@@ -376,6 +379,8 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             elif sandwich:
                 m = rms_norm(m, layer["post_mlp_extra"], eps)
             h = h + (m if rm == 1.0 else rm * m)
+            if deepstack is not None and li < deepstack.shape[0]:
+                h = h + deepstack[li].to(h.dtype)
         # RMSNorm is row-wise: gather the logits rows first, then norm
         rows = h[metadata.logits_indices]
         last = rms_norm(rows, params["final_norm"], eps)
@@ -387,6 +392,17 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         if collect_kv_stats:
             return logits, kv_pages, torch.stack(stats)
         return logits, kv_pages
+
+    def _base_cos_sin(self, rope: RopeConfig, metadata: AttentionMetadata):
+        """The rotary tables of a step (the JAX ``_base_cos_sin``
+        hook, models/llama.py:178): at ``positions``, moved by
+        ``rope_offset`` where the metadata has one; the M-RoPE models
+        (multimodal/qwen2_vl.py, qwen3_vl.py, glm4v.py) build theirs from
+        ``positions_mrope`` when a step carries it."""
+        pos = metadata.positions
+        if metadata.rope_offset is not None:
+            pos = pos + metadata.rope_offset
+        return rope_cos_sin(rope, pos)
 
     def _mlp(self, layer: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         """The gated MLP (``mlp_act`` on the gate in float32, times up,

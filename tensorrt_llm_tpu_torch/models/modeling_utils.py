@@ -51,16 +51,13 @@ def register_model(*model_types: str):
 
 # model types the JAX package registers that this package does not serve
 # yet, each with its reason (the splice-only VLMs, llava, llava_next,
-# mistral3 and internvl, are served: tensorrt_llm_tpu_torch/multimodal)
-_MROPE = ("a multimodal model whose text positions are M-RoPE's "
-          "(temporal, height, width) sections, which the engine does not "
-          "carry")
+# mistral3 and internvl, and the M-RoPE ones, qwen2_vl, qwen2_5_vl,
+# qwen3_vl, qwen3_vl_moe and glm4v, are served:
+# tensorrt_llm_tpu_torch/multimodal)
 _IMAGE_GROUPS = ("a multimodal model whose image tokens attend "
                  "bidirectionally within their group, which the paged "
                  "kernels' causal mask does not express")
 NOT_PORTED_MODEL_TYPES: Dict[str, str] = {
-    **{t: _MROPE for t in ("glm4v", "qwen2_vl", "qwen2_5_vl", "qwen3_vl",
-                           "qwen3_vl_moe")},
     **{t: _IMAGE_GROUPS for t in ("gemma3", "gemma3_vl", "paligemma")},
     "mllama": ("a multimodal model whose text layers cross-attend to the "
                "image states, which the engine does not keep"),

@@ -65,6 +65,22 @@ def image_list(mm_data: Dict[str, Any]) -> List[Any]:
     return list(images) if isinstance(images, (list, tuple)) else [images]
 
 
+def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """Data (a numpy array, a list or a tensor) as a tensor on ``device``
+    (of ``dtype`` when given). From the host to
+    a CUDA device it goes through pinned memory without blocking the
+    host: a pageable copy waits for every kernel queued before it, and
+    a processor runs on the caller's thread while the executor queues
+    decode windows (a tower with a few such copies waited ~1 s an image
+    behind them)."""
+    if not isinstance(a, torch.Tensor) and dtype is not None:
+        a = np.asarray(a)
+    t = torch.as_tensor(a, dtype=dtype)
+    if t.is_cuda or torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def pixels(image, device: torch.device) -> torch.Tensor:
     """One image as float32 on ``device``."""
     return torch.as_tensor(host_array(image) if not isinstance(
@@ -101,8 +117,7 @@ def splice(token_ids: Sequence[int], image_token: int,
                          f"supply {feats.shape[0]} feature rows")
     embeds = torch.full((len(token_ids), feats.shape[-1]), float("nan"),
                         dtype=torch.float32, device=feats.device)
-    embeds[torch.as_tensor(pos, dtype=torch.long,
-                           device=feats.device)] = feats.float()
+    embeds[to_device(pos, feats.device, torch.long)] = feats.float()
     return embeds
 
 

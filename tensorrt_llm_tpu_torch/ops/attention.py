@@ -64,6 +64,13 @@ class AttentionMetadata:
       seq_slots:      i32[S]   each row's sequence slot, -1 for padding
                       (the recurrent families index their state pools by
                       it, ops/ssm.py); None where no model reads it.
+      positions_mrope: i32[3, T] M-RoPE's (temporal, height, width)
+                      position of each new token (the M-RoPE models'
+                      single steps); None elsewhere.
+      rope_offset:    i32[T]   added to ``positions`` for the rotary
+                      tables only (an M-RoPE sequence's ``mrope_delta``
+                      in the decode windows, where all three axes hold
+                      pos + delta and M-RoPE is plain RoPE there); None: 0.
     """
     kv_lens: torch.Tensor
     page_indices: torch.Tensor
@@ -77,6 +84,8 @@ class AttentionMetadata:
     page_indices_sw: Optional[torch.Tensor] = None
     slot_mapping_sw: Optional[torch.Tensor] = None
     seq_slots: Optional[torch.Tensor] = None
+    positions_mrope: Optional[torch.Tensor] = None
+    rope_offset: Optional[torch.Tensor] = None
 
     def for_sliding_pool(self) -> "AttentionMetadata":
         """This metadata addressed at the sliding pool (VSWA); with

@@ -1,8 +1,9 @@
 """Rotary position embeddings.
 
 Port of ``tensorrt_llm_tpu/ops/rope.py`` (``RopeConfig``,
-``compute_inv_freq``, ``rope_cos_sin``, ``apply_rope``). The inverse
-frequency table and the angles are float32, as in the JAX version.
+``compute_inv_freq``, ``rope_cos_sin``, ``apply_rope``, ``mrope_cos_sin``)
+and of Qwen3-VL's interleaved M-RoPE tables. The inverse frequency table
+and the angles are float32, as in the JAX version.
 
 Scaling families: none, linear, llama3 (low/high-frequency wavelength
 bands) and yarn; gpt-neox (rotate halves) and gpt-j (interleaved) styles.
@@ -135,6 +136,60 @@ def rope_cos_sin(cfg: RopeConfig, positions: torch.Tensor
             yarn_mscale(f, cfg.mscale_all_dim) \
             if cfg.mscale and cfg.mscale_all_dim else yarn_mscale(f)
     return torch.cos(angles) * attn_scale, torch.sin(angles) * attn_scale
+
+
+def mrope_section(cfg, default: tuple) -> tuple:
+    """A text config's M-RoPE sections (``mrope_section``, from
+    ``rope_scaling`` or transformers 5's ``rope_parameters``), or
+    ``default``."""
+    for name in ("rope_scaling", "rope_parameters"):
+        d = getattr(cfg, name, None) or {}
+        if d.get("mrope_section"):
+            return tuple(d["mrope_section"])
+    return tuple(default)
+
+
+def _angles3(cfg: RopeConfig, positions3: torch.Tensor) -> torch.Tensor:
+    """float32 [3, T, rot/2]: each axis's positions times the inverse
+    frequencies."""
+    inv_freq = compute_inv_freq(cfg, positions3.device)
+    return positions3.float()[:, :, None] * inv_freq[None, None, :]
+
+
+def mrope_cos_sin(cfg: RopeConfig, positions3: torch.Tensor,
+                  sections: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE tables (Qwen2-VL, Qwen2.5-VL, GLM-4.1V; the JAX
+    ``mrope_cos_sin``, ops/rope.py:149): ``positions3`` i32[3, T] holds
+    the temporal, height and width positions; the rot/2 frequency dims
+    are cut into ``sections`` and section j takes its angles from axis
+    j % 3. Where the three axes agree, these are ``rope_cos_sin``'s
+    tables at that position (the decode windows rely on it)."""
+    angles3 = _angles3(cfg, positions3)
+    parts, off = [], 0
+    for j, s in enumerate(sections):
+        parts.append(angles3[j % 3, :, off:off + s])
+        off += s
+    angles = torch.cat(parts, dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def mrope_cos_sin_interleaved(cfg: RopeConfig, positions3: torch.Tensor,
+                              sections: tuple
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen3-VL's interleaved M-RoPE (the JAX
+    ``mrope_cos_sin_interleaved``, multimodal/qwen3_vl.py:35): the
+    temporal angles, with the height axis's at dims 1, 4, ..., 3 *
+    sections[1] - 2 and the width axis's at dims 2, 5, ..., 3 *
+    sections[2] - 1."""
+    angles3 = _angles3(cfg, positions3)
+    angles = angles3[0].clone()
+    rot = angles.shape[-1]
+    for dim, offset in ((1, 1), (2, 2)):
+        # a strided slice, not an index tensor: no host copy, so a CUDA
+        # graph can capture it
+        end = min(sections[dim] * 3, rot)
+        angles[:, offset:end:3] = angles3[dim][:, offset:end:3]
+    return torch.cos(angles), torch.sin(angles)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

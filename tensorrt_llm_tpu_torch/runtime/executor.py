@@ -930,6 +930,10 @@ class PyExecutor:
                     deferred.append(req)
                     continue
                 new_slots.append(req.seq_slot)
+                if self.engine._mrope:
+                    # the windows rotate the slot's rows at pos + delta
+                    self.engine.set_mrope_delta(req.seq_slot,
+                                                req.mrope_delta)
                 sp = req.sampling_params
                 if sp.no_repeat_ngram_size > 0:
                     # seed the slot's token history with the context
@@ -1083,10 +1087,10 @@ class PyExecutor:
     # Mixed windows: context riders
     # ------------------------------------------------------------------ #
     def _mixed_ok(self) -> bool:
-        """Rider windows are on (``mixed_window_ctx`` > 0) and the engine
-        has one KV pool (not VSWA), as in the JAX package, whose other
-        reasons (M-RoPE, multimodal engines) this package does not
-        have. The K-step window itself stays on under VSWA."""
+        """Rider windows are on (``mixed_window_ctx`` > 0), the engine
+        has one KV pool (not VSWA) and no M-RoPE model, as in the JAX
+        package (executor.py:1214; its image-group engines are not ported
+        here). The K-step window itself stays on under VSWA and M-RoPE."""
         return self.engine.riders_ok
 
     def _ctx_rider_ok(self, r: LlmRequest) -> bool:
@@ -1559,6 +1563,8 @@ class PyExecutor:
             # clears the slot's grammar state (-1), after the windows in
             # flight, and drops the segment's reference
             self.guided_decoder.on_slot_released(req, self.engine)
+        if self.engine._mrope:
+            self.engine.set_mrope_delta(req.seq_slot, 0)
         self._free_slots.append(req.seq_slot)
         req.seq_slot = None
 

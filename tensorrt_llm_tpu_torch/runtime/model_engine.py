@@ -22,8 +22,12 @@ processed logits rows of the host logits-processor path
 grammar tables and per-slot state (``enable_guided``, ``guided_upload``,
 ``guided_set_state``), its mask and byte walk in every single step and
 every step of a K-step window, and the host backend's [S, V] mask (packed
-to a bit per token on its way up)) without LoRA, tree drafts, M-RoPE,
-MoE statistics and pipeline parallelism.
+to a bit per token on its way up), and M-RoPE (``_mrope``: single steps
+carry each token's ``positions_mrope`` as the JAX engine builds them,
+model_engine.py:1278-1294, and the K-step windows rotate each row at pos
++ its sequence's ``mrope_delta``, read from the slot-indexed
+``mrope_delta`` tensor, where the JAX windows drop the delta)) without
+LoRA, tree drafts, MoE statistics and pipeline parallelism.
 MoE models run through the same steps and graphs: their routing is
 computed on the device, and no MoE shape depends on it (ops/moe.py).
 
@@ -149,6 +153,8 @@ class StepInputs:
     # VSWA: the sliding layers' page table and slots (None: one pool)
     page_indices_sw: Optional[np.ndarray] = None   # i32[S, P]
     slot_mapping_sw: Optional[np.ndarray] = None   # i32[T]
+    # M-RoPE models: each token's (temporal, height, width) position
+    positions_mrope: Optional[np.ndarray] = None   # i32[3, T]
 
 
 def _pools(kv_pages) -> tuple:
@@ -280,6 +286,13 @@ class ModelEngine:
         # last), made with the KV pool below and before any graph capture;
         # their bytes are counted off the KV pool's budget
         self._recurrent = bool(getattr(model, "has_recurrent_state", False))
+        # M-RoPE models (multimodal/qwen2_vl.py): each sequence slot's
+        # mrope_delta, written at admission and zeroed on release (the
+        # trash slot stays 0); the windows read it by address
+        self._mrope = bool(getattr(model, "uses_mrope", False))
+        self.mrope_delta: Optional[torch.Tensor] = torch.zeros(
+            self.max_batch_size + 1, dtype=torch.int32,
+            device=self.device) if self._mrope else None
         self.num_kv_pages = num_kv_pages or self._default_num_pages()
         logger.info("KV pool: %d pages x %d tokens (%.1f MB/layer)%s",
                     self.num_kv_pages, self.page_size,
@@ -708,6 +721,11 @@ class ModelEngine:
             cur = torch.where((j < flen) & (cur >= 0), nxt, cur)
         return torch.where(tok == self.g_eos_id, st, cur)
 
+    def set_mrope_delta(self, slot: int, delta: int) -> None:
+        """Write a sequence slot's M-RoPE delta in place (a stream-ordered
+        write: windows already dispatched read the old value)."""
+        self.mrope_delta[slot] = int(delta)
+
     @torch.no_grad()
     def copy_pages(self, src: List[int], dst: List[int],
                    pool: int = 0) -> None:
@@ -931,6 +949,23 @@ class ModelEngine:
             out_slots[i] = req.seq_slot if last_chunk_row else -1
         cu_q[len(reqs) + 1:] = len(tok_list)
         slot_maps = [np.asarray(sm, np.int32) for sm in slot_maps]
+        positions_mrope = None
+        if self._mrope:
+            # a prompt position reads the request's [3, prompt_len] grid;
+            # past it (generated tokens, a recomputed sequence's tail) all
+            # three axes hold p + mrope_delta (the JAX model_engine.py:
+            # 1278-1294)
+            positions_mrope = np.zeros((3, len(pos_list)), np.int32)
+            for i, req in enumerate(reqs):
+                lo, hi = cu_q[i], cu_q[i + 1]
+                p = np.asarray(pos_list[lo:hi], np.int64)
+                rows = np.broadcast_to(p + req.mrope_delta, (3, hi - lo))
+                mp = req.mrope_positions
+                if mp is not None:
+                    inside = p < mp.shape[1]
+                    rows = np.where(inside[None], mp[:, np.minimum(
+                        p, mp.shape[1] - 1)], rows)
+                positions_mrope[:, lo:hi] = rows
         return StepInputs(
             token_ids=np.asarray(tok_list, np.int32),
             prev_slot=np.asarray(prev_list, np.int32),
@@ -942,6 +977,7 @@ class ModelEngine:
             num_tokens=len(tok_list), num_reqs=len(reqs), max_q_len=max_q,
             max_kv_len=int(kv_lens.max()), draft_ids=draft_ids,
             has_prompt=bool(batch.context_requests),
+            positions_mrope=positions_mrope,
             **_sliding(page_indices_sw=tables[1:],
                        slot_mapping_sw=slot_maps[1:]))
 
@@ -954,13 +990,15 @@ class ModelEngine:
         the JAX engine builds them (model_engine.py:1689-1705); None when
         no context row has embeddings. A request's rows go to the device
         once (its first chunk) and stay there; positions past the prompt
-        (a request recomputed after a pause) take the lookup."""
+        (a request recomputed after a pause) take the lookup. Rows narrower
+        than the step's widest (Qwen3-VL's carry deepstack columns) are
+        padded with NaN, which the deepstack split reads as 0."""
         ctx = batch.context_requests
         widths = [r.prompt_embeds.shape[1] for r in ctx
                   if r.prompt_embeds is not None]
         if not widths:
             return None
-        H = widths[0]
+        H = max(widths)
         dev = self.device
         parts, n = [], 0
         for r in ctx:
@@ -974,7 +1012,12 @@ class ModelEngine:
                 pe = r.prompt_embeds = pe.to(dev, torch.float32)
             have = 0 if pe is None else max(0, min(end, pe.shape[0]) - start)
             if have:
-                parts.append(pe[start:start + have].float())
+                rows = pe[start:start + have].float()
+                if rows.shape[1] < H:
+                    rows = torch.cat([rows, torch.full(
+                        (have, H - rows.shape[1]), math.nan,
+                        dtype=torch.float32, device=dev)], dim=1)
+                parts.append(rows)
             if end - start - have:
                 parts.append(torch.full((end - start - have, H), math.nan,
                                         dtype=torch.float32, device=dev))
@@ -1021,6 +1064,10 @@ class ModelEngine:
             slots_sw[:n] = inp.slot_mapping_sw
             inputs.update(page_indices_sw=inp.page_indices_sw,
                           slot_mapping_sw=slots_sw)
+        if self._mrope:
+            pm = np.zeros((3, T), np.int32)
+            pm[:, :n] = inp.positions_mrope
+            inputs["positions_mrope"] = pm
         if not greedy:
             inputs["samp_ints"], inputs["samp_floats"] = \
                 SamplingTensors.rows(reqs, S)
@@ -1194,7 +1241,8 @@ class ModelEngine:
                 max_q_len=max_q_len, max_kv_len=kv_bound,
                 page_indices_sw=v.get("page_indices_sw"),
                 slot_mapping_sw=v.get("slot_mapping_sw"),
-                seq_slots=v["out_slots"]),
+                seq_slots=v["out_slots"],
+                positions_mrope=v.get("positions_mrope")),
                 collect_hidden=collect_hidden,
                 **({} if embeds is None else {"input_embeds": embeds}))
             if collect_hidden:
@@ -1295,10 +1343,10 @@ class ModelEngine:
         """Whether windows carry context riders: ``mixed_window_ctx`` > 0,
         no recurrent state (a rider's chunk would continue a prompt, which
         the state pools, written at a segment's end, do not follow), and
-        one KV pool (the JAX executor's ``_mixed_ok`` also keeps them
-        off under VSWA)."""
+        one KV pool and no M-RoPE model (the JAX executor's ``_mixed_ok``
+        also keeps them off under VSWA and M-RoPE)."""
         return self.mixed_ctx_tokens > 0 and not self._vswa \
-            and not self._recurrent
+            and not self._recurrent and not self._mrope
 
     @property
     def mixed_ctx_seqs(self) -> int:
@@ -1507,6 +1555,10 @@ class ModelEngine:
             # each row's grammar state rides the window and is scattered
             # back to its slot at the end (the JAX window's ``gst``)
             gst0 = gst = self.g_state[slot_rows] if ops.guided else None
+            # M-RoPE: past the prompt all three axes hold pos + delta,
+            # where M-RoPE's tables are RoPE's at that position; the KV
+            # slots, lengths and bound stay by pos
+            offset = self.mrope_delta[slot_rows] if self._mrope else None
             for k in range(K):
                 kv_len = torch.where(valid, pos + 1, 1).to(torch.int32)
                 page_col = (pos // ps).clamp(0, P - 1).long()
@@ -1553,7 +1605,8 @@ class ModelEngine:
                         num_seqs=num_seqs, slot_mapping=slot_map,
                         positions=pos, logits_indices=iota, max_q_len=1,
                         max_kv_len=kv_bound,
-                        seq_slots=torch.where(active, out_slots, -1), **sw))
+                        seq_slots=torch.where(active, out_slots, -1),
+                        rope_offset=offset, **sw))
                 if ops.guided:
                     g_act = valid & (gst >= 0)
                     logits = self._guided_mask(logits, gst, g_act)

@@ -2,8 +2,9 @@
 
 Port of ``tensorrt_llm_tpu/runtime/request.py`` (``LlmRequest`` /
 ``LlmRequestState``), with the fields the JAX package sets on a request
-from outside it (``prompt_logprobs_result``) declared here, and the beam
-rows' marker ``is_beam_row``.
+from outside it (``prompt_logprobs_result``; the M-RoPE fields
+``mrope_positions`` and ``mrope_delta``) declared here, and the beam rows'
+marker ``is_beam_row``.
 Holds prompt/output tokens, scheduling state (context progress for chunked
 prefill), sampling params, and stop-criteria evaluation. Pure host object —
 nothing here touches a device.
@@ -74,7 +75,9 @@ class LlmRequest:
                  cache_salt: Optional[str] = None,
                  arrival_time: Optional[float] = None,
                  streaming: bool = False,
-                 prompt_embeds=None):
+                 prompt_embeds=None,
+                 mrope_positions=None,
+                 mrope_delta: int = 0):
         self.request_id = next_request_id() if request_id is None else request_id
         self.prompt_token_ids: List[int] = list(prompt_token_ids)
         if not self.prompt_token_ids:
@@ -88,6 +91,12 @@ class LlmRequest:
         # first step), rows that are not NaN replace their token's
         # embedding (multimodal features, prompt tables); None: none
         self.prompt_embeds = prompt_embeds
+        # M-RoPE (multimodal/qwen2_vl.py): the prompt's (temporal, height,
+        # width) positions, int [3, prompt length] on the host, and the
+        # shift of every position past the prompt (all three axes hold
+        # pos + mrope_delta there); None and 0 for a text prompt
+        self.mrope_positions = mrope_positions
+        self.mrope_delta = int(mrope_delta)
         self.state = LlmRequestState.CONTEXT_INIT
         self.finish_reason = FinishReason.NOT_FINISHED
         self.output_token_ids: List[int] = []

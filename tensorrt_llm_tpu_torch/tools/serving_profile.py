@@ -145,6 +145,16 @@ Two workloads:
   text tokens -> 128 with ``ignore_eos``, ``LLM`` defaults but 8,192
   tokens a prefill step and prefix reuse off (``--layers N`` cuts the
   text model only);
+- ``--geometry qwen2.5-vl-7b``: ``chip_smoke.py``'s qwen25vl_serving
+  run, Qwen2.5-VL-7B at its published width and depth (``QWEN25_VL_7B``:
+  the Qwen2 trunk of 28 layers, 28 x 128 q heads over 4 KV heads, with
+  M-RoPE; the windowed ViT of 32 blocks merged to 3,584), seeded random
+  bf16 weights made on the card (~15.2 GB of trunk, ~1.35 GB of tower),
+  64 requests of one 672 x 672 image (a (1, 48, 48) grid of flattened
+  patches, 576 tokens) and 64 text tokens (the vision markers among
+  them) -> 128 with ``ignore_eos``, ``LLM`` defaults but 8,192 tokens a
+  prefill step and prefix reuse off (``--layers N`` cuts the text model
+  only);
 - ``--family NAME`` also takes the recurrent families
   (``RECURRENT_FAMILIES``: Mamba-2.8B, Falcon-Mamba-7B, Mamba2-2.7B,
   Granite-4.0-H-Tiny, Zamba2-1.2B, Jamba-v0.1, LFM2-1.2B,
@@ -964,6 +974,151 @@ def llava_prompts(n: int, text_tokens: int, seed: int = 0,
             for i, t in enumerate(text)]
 
 
+# https://huggingface.co/Qwen/Qwen2.5-VL-7B-Instruct config.json: the
+# Qwen2 trunk (28 layers, 3,584 wide, 28 x 128 q heads over 4 KV heads,
+# MLP 18,944, rope theta 1e6, M-RoPE sections 16 / 24 / 24) over a
+# vocabulary of 152,064, untied; the ViT of 32 blocks 1,280 wide (16 heads,
+# SiLU-gated MLP of 3,420), 14-pixel patches over 2 frames, 2 x 2 merge,
+# 112-pixel windows with full attention at blocks 7, 15, 23, 31, merged to
+# 3,584
+QWEN25_VL_7B = dict(
+    image_token_id=151655, video_token_id=151656,
+    vision_start_token_id=151652, vision_end_token_id=151653,
+    tie_word_embeddings=False)
+QWEN25_VL_7B_TEXT = dict(
+    vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+    num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+    max_position_embeddings=128000, rms_norm_eps=1e-6, rope_theta=1e6,
+    rope_scaling={"rope_type": "default", "mrope_section": [16, 24, 24]},
+    sliding_window=32768, use_sliding_window=False,
+    tie_word_embeddings=False, hidden_act="silu")
+QWEN25_VL_7B_VISION = dict(
+    depth=32, hidden_size=1280, num_heads=16, intermediate_size=3420,
+    patch_size=14, temporal_patch_size=2, spatial_merge_size=2,
+    window_size=112, fullatt_block_indexes=[7, 15, 23, 31],
+    hidden_act="silu", out_hidden_size=3584, in_channels=3,
+    tokens_per_second=2)
+# the other M-RoPE models at their published widths (``mrope_families``):
+# {model type: (transformers config class, top-level fields, text fields,
+# vision fields)}
+MROPE_FAMILIES = {
+    # https://huggingface.co/Qwen/Qwen2-VL-7B-Instruct config.json
+    "qwen2_vl": ("Qwen2VLConfig", dict(
+        image_token_id=151655, video_token_id=151656,
+        vision_start_token_id=151652, vision_end_token_id=151653,
+        tie_word_embeddings=False), dict(
+        vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+        max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=1e6,
+        rope_scaling={"rope_type": "default", "mrope_section": [16, 24, 24]},
+        tie_word_embeddings=False), dict(
+        depth=32, embed_dim=1280, hidden_size=3584, mlp_ratio=4,
+        num_heads=16, in_channels=3, patch_size=14, spatial_merge_size=2,
+        temporal_patch_size=2)),
+    # https://huggingface.co/Qwen/Qwen3-VL-8B-Instruct config.json
+    "qwen3_vl": ("Qwen3VLConfig", dict(
+        image_token_id=151655, video_token_id=151656,
+        vision_start_token_id=151652, vision_end_token_id=151653,
+        tie_word_embeddings=False), dict(
+        vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+        num_hidden_layers=36, num_attention_heads=32, num_key_value_heads=8,
+        head_dim=128, max_position_embeddings=262144, rms_norm_eps=1e-6,
+        rope_theta=5e6, rope_scaling={
+            "rope_type": "default", "mrope_section": [24, 20, 20],
+            "mrope_interleaved": True}, tie_word_embeddings=False), dict(
+        depth=27, hidden_size=1152, intermediate_size=4304, num_heads=16,
+        out_hidden_size=4096, patch_size=16, temporal_patch_size=2,
+        spatial_merge_size=2, num_position_embeddings=2304,
+        deepstack_visual_indexes=[8, 16, 24], in_channels=3,
+        hidden_act="gelu_pytorch_tanh")),
+    # https://huggingface.co/Qwen/Qwen3-VL-30B-A3B-Instruct config.json
+    "qwen3_vl_moe": ("Qwen3VLMoeConfig", dict(
+        image_token_id=151655, video_token_id=151656,
+        vision_start_token_id=151652, vision_end_token_id=151653,
+        tie_word_embeddings=False), dict(
+        vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+        moe_intermediate_size=768, num_hidden_layers=48,
+        num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+        num_experts=128, num_experts_per_tok=8, decoder_sparse_step=1,
+        norm_topk_prob=True, max_position_embeddings=262144,
+        rms_norm_eps=1e-6, rope_theta=5e6, rope_scaling={
+            "rope_type": "default", "mrope_section": [24, 20, 20],
+            "mrope_interleaved": True}, tie_word_embeddings=False), dict(
+        depth=27, hidden_size=1152, intermediate_size=4304, num_heads=16,
+        out_hidden_size=2048, patch_size=16, temporal_patch_size=2,
+        spatial_merge_size=2, num_position_embeddings=2304,
+        deepstack_visual_indexes=[8, 16, 24], in_channels=3,
+        hidden_act="gelu_pytorch_tanh")),
+    # https://huggingface.co/zai-org/GLM-4.1V-9B-Thinking config.json
+    "glm4v": ("Glm4vConfig", dict(
+        image_token_id=151343, video_token_id=151344,
+        image_start_token_id=151339, image_end_token_id=151340,
+        tie_word_embeddings=False), dict(
+        vocab_size=151552, hidden_size=4096, intermediate_size=13696,
+        num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=2,
+        head_dim=128, partial_rotary_factor=0.5, attention_bias=True,
+        max_position_embeddings=65536, rms_norm_eps=1e-5, rope_theta=10000.0,
+        rope_scaling={"rope_type": "default", "mrope_section": [8, 12, 12]},
+        tie_word_embeddings=False), dict(
+        depth=24, hidden_size=1536, intermediate_size=13696, num_heads=12,
+        out_hidden_size=4096, patch_size=14, temporal_patch_size=2,
+        spatial_merge_size=2, image_size=336, rms_norm_eps=1e-5,
+        attention_bias=False, hidden_act="silu", in_channels=3)),
+}
+
+
+def qwen25_vl_7b_config(text_layers: Optional[int] = None):
+    """Qwen2.5-VL-7B's published config (``QWEN25_VL_7B``) with its text
+    model cut to ``text_layers`` layers (default all 28; the tower stays
+    whole)."""
+    import transformers
+    text = dict(QWEN25_VL_7B_TEXT)
+    if text_layers:
+        text["num_hidden_layers"] = text_layers
+    return transformers.Qwen2_5_VLConfig(
+        text_config=text, vision_config=dict(QWEN25_VL_7B_VISION),
+        **QWEN25_VL_7B)
+
+
+def mrope_family_config(name: str, text_layers: Optional[int] = None):
+    """``MROPE_FAMILIES[name]``'s published config, its text model cut to
+    ``text_layers`` layers (default: whole)."""
+    import transformers
+    cls, top, text, vision = MROPE_FAMILIES[name]
+    text = dict(text)
+    if text_layers:
+        text["num_hidden_layers"] = text_layers
+    return getattr(transformers, cls)(text_config=text,
+                                      vision_config=dict(vision), **top)
+
+
+def mrope_prompts(cfg, n: int, text_tokens: int, grid=(1, 48, 48),
+                  seed: int = 0):
+    """``n`` prompts of an M-RoPE model ``cfg``: the vision start token,
+    one image placeholder (t*h*w / 4 tokens once expanded), the vision
+    end token and ``text_tokens`` - 2 seeded random text ids, each image
+    a grid of seeded normal flattened patches ([t*h*w, 3 * 2 * p * p],
+    as transformers' image processor gives them) on the host, where a
+    client's images come from (a (1, 48, 48) grid: a 672 x 672 image at
+    patch 14). The processor uploads them without blocking; an image on
+    the card would be copied back for its hash, a sync behind every
+    window the executor has queued."""
+    vc = cfg.vision_config
+    start = getattr(cfg, "vision_start_token_id", None) or \
+        cfg.image_start_token_id
+    end = getattr(cfg, "vision_end_token_id", None) or \
+        cfg.image_end_token_id
+    gen = torch.Generator().manual_seed(seed)
+    text = torch.randint(3, 150000, (n, text_tokens - 2),
+                         generator=gen).tolist()
+    t, h, w = grid
+    width = vc.in_channels * vc.temporal_patch_size * vc.patch_size ** 2
+    return [{"prompt_token_ids": [start, cfg.image_token_id, end] + tt,
+             "multi_modal_data": {
+                 "image": [torch.randn((t * h * w, width), generator=gen)],
+                 "image_grid_thw": [grid]}} for tt in text]
+
+
 def bert_large_config():
     import transformers
     return transformers.BertConfig(**BERT_LARGE)
@@ -1088,6 +1243,15 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
                       max_num_tokens=8192,
                       kv_cache_config=KvCacheConfig(enable_block_reuse=False))
         return (llava_15_7b_config(), kwargs, llava_prompts(64, 64),
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
+    if geometry == "qwen2.5-vl-7b":
+        # one 672 x 672 image (576 tokens) + 64 text tokens (the vision
+        # markers among them) -> 128; prefix reuse off
+        cfg = qwen25_vl_7b_config()
+        kwargs = dict(max_batch_size=64, max_input_len=640, max_seq_len=768,
+                      max_num_tokens=8192,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (cfg, kwargs, mrope_prompts(cfg, 64, 64),
                 SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
     if geometry == "qwen3-30b-a3b":
         prompts = torch.randint(0, QWEN3_30B_A3B["vocab_size"], (64, 128),
@@ -1266,13 +1430,15 @@ def _generate(llm, prompts, sp):
 
 
 def measure(llm, prompts, sp, profile: bool = True,
-            outputs: Optional[list] = None) -> dict:
-    """Warm-up pass, timed pass, then (``profile``) a profiled pass of
-    the same requests through ``llm``. The kernels' launch counters are
-    zeroed right before the timed pass and read right after it. The timed
-    pass's ``RequestOutput``s are appended to ``outputs``."""
+            outputs: Optional[list] = None, warmup: bool = True) -> dict:
+    """Warm-up pass (unless the caller ran one: ``warmup`` False), timed
+    pass, then (``profile``) a profiled pass of the same requests through
+    ``llm``. The kernels' launch counters are zeroed right before the
+    timed pass and read right after it. The timed pass's
+    ``RequestOutput``s are appended to ``outputs``."""
     kernels = kernel_modules()
-    _generate(llm, prompts, sp)
+    if warmup:
+        _generate(llm, prompts, sp)
     eng = llm.engine
     replays0 = eng.graphs.replays
     steps0 = (eng.decode_steps, eng.window_steps, eng.dead_window_steps)
@@ -1831,7 +1997,7 @@ def main() -> None:
                                            "deepseek-v2-lite", "bamba-9b",
                                            "deepseek-v3-mtp",
                                            "longcat-flash",
-                                           "llava-1.5-7b"],
+                                           "llava-1.5-7b", "qwen2.5-vl-7b"],
                     default="tinyllama",
                     help="the model of the default workload")
     ap.add_argument("--layers", type=int, default=None,
@@ -1901,6 +2067,8 @@ def main() -> None:
                                             args.geometry, args.vswa)
     if args.layers and args.geometry == "llava-1.5-7b":
         cfg = llava_15_7b_config(args.layers)
+    elif args.layers and args.geometry == "qwen2.5-vl-7b":
+        cfg = qwen25_vl_7b_config(args.layers)
     elif args.layers:
         cfg = gpt_oss_20b_config(args.layers) \
             if args.geometry == "gpt-oss-20b" else \

@@ -2003,3 +2003,102 @@ def test_prefill_hd48_matches_plain(cuda, kv8, dtype, q_lens, ctx_lens):
     for h in range(qh):
         torch.testing.assert_close(got[:, h].float(), ref[:, h].float(),
                                    **TOLS[dtype])
+
+
+# --------------------------------------------------------------------- #
+# GQA group 7 (Qwen2.5-VL-7B's trunk: 28 x 128 query heads over 4 KV heads)
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_lens,splits", [
+    (list(range(641, 769, 2)), None),     # the serving decode rows: 64
+    ([700, 3, 1, 0, 2048], None),
+    ([1500, 641, 90], 4),
+])
+def test_decode_group7_matches_plain(cuda, dtype, kv_lens, splits):
+    S, qh, kvh, hd = len(kv_lens), 28, 4, 128
+    q, pool, _, pt, _ = _inputs([1] * S, [max(k - 1, 0) for k in kv_lens],
+                                qh, kvh, hd, 32, dtype, cuda, seed=7)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=cuda)
+    before = dec.LAUNCHES
+    got = dec.paged_decode_attention(q, pool, kvl, pt, num_splits=splits,
+                                     max_kv_len=max(kv_lens),
+                                     sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert dec.LAUNCHES == before + 1
+    ref = dec.paged_decode_attention_plain(q, pool, kvl, pt,
+                                           sm_scale=hd ** -0.5)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_lens,ctx_lens", [
+    ([640] * 8, [0] * 8),                 # 8 fresh 640-token image prompts
+    ([1, 1, 640, 1, 70], [700, 20, 0, 31, 500]),
+])
+def test_prefill_group7_matches_plain(cuda, dtype, q_lens, ctx_lens):
+    qh, kvh, hd = 28, 4, 128
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx_lens, qh, kvh, hd, 32, dtype,
+                                   cuda, seed=8)
+    before = pre.LAUNCHES
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                       max_q_len=max(q_lens),
+                                       sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert pre.LAUNCHES == before + 1
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu,
+                                             sm_scale=hd ** -0.5)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mrope_window_on_graphs_equals_eager_single_steps(cuda, dtype):
+    """A tiny Qwen2-VL (seeded, 4 x 64 heads over 2) serves two image
+    prompts whose mrope_delta is not 0: K = 8 windows replayed from CUDA
+    graphs (each row rotated at pos + delta[slot]) give the tokens of the
+    same windows run eagerly, and in float32 those of eager single steps
+    (positions_mrope built on the host per step; in bf16 their other
+    matmul shapes may round a near tie the other way)."""
+    from transformers import Qwen2VLConfig
+
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    cfg = Qwen2VLConfig(
+        text_config=dict(vocab_size=512, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         max_position_embeddings=1024,
+                         rope_scaling={"rope_type": "default",
+                                       "mrope_section": [8, 12, 12]}),
+        vision_config=dict(depth=1, embed_dim=64, num_heads=4,
+                           hidden_size=256, patch_size=4,
+                           temporal_patch_size=2, spatial_merge_size=2,
+                           in_channels=3, mlp_ratio=2),
+        image_token_id=151, video_token_id=152, vision_start_token_id=153,
+        vision_end_token_id=154)
+    rng = np.random.default_rng(0)
+    prompts = [{"prompt_token_ids": [5, 153, 151, 154] + list(range(20, 20 + n)),
+                "multi_modal_data": {
+                    "image": [rng.standard_normal((16 * 16, 96))
+                              .astype(np.float32)],
+                    "image_grid_thw": [(1, 16, 16)]}} for n in (3, 40)]
+    sp = SamplingParams(max_tokens=24, top_k=1, end_id=-1)
+    runs = {}
+    for mode, K in (("graph", 8), ("eager", 8), ("steps", 1)):
+        llm = LLM(cfg, device=cuda, dtype=dtype, skip_tokenizer_init=True,
+                  max_batch_size=4, max_input_len=256, max_seq_len=320,
+                  max_num_tokens=512, decode_multi_step=K,
+                  enable_warmup=mode == "graph",
+                  kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                                max_tokens=4096))
+        llm.engine.graphs.capture = mode == "graph"
+        try:
+            toks = [o.outputs[0].token_ids for o in llm.generate(prompts, sp)]
+            runs[mode] = (toks, llm.engine.window_steps,
+                          llm.engine.graphs.replayed_launches())
+        finally:
+            llm.shutdown()
+    assert runs["graph"][0] == runs["eager"][0]
+    if dtype == "float32":
+        assert runs["graph"][0] == runs["steps"][0]
+    assert runs["graph"][1] > 0 and runs["steps"][1] == 0
+    assert runs["graph"][2][dec.__name__] > 0
+    assert not runs["eager"][2] and not runs["steps"][2]
