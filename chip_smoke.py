@@ -493,15 +493,17 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 TOL = 2e-2
 # depths cut for the script's 1,200 s limit (guided_serving's time is
-# mostly its grammars' builds; bamba_serving keeps 2 of its 3 attention
+# mostly its grammars' builds; bamba_serving keeps 1 of its 3 attention
 # layers)
 GUIDED_SERVING_LAYERS = 8
-BAMBA_SERVING_LAYERS = 19
+BAMBA_SERVING_LAYERS = 10
 # deepseek_serving keeps its dense first layer and 8 of its 26 MoE layers
 DEEPSEEK_SERVING_LAYERS = 9
 # mtp_serving's requests stop at 32 tokens (the geometry's 128: its spec
 # passes decode at ~96 ms an iteration)
 MTP_SERVING_TOKENS = 32
+# ... and 32 of its 64 requests run
+MTP_SERVING_REQUESTS = 32
 NEAR_TIE = 3e-2               # log-probability margin below which the
                               # quantized cuda/cpu runs may part ways
 
@@ -1889,10 +1891,55 @@ def _sensitive(name, ref, other, tol, what) -> float:
 KV8_SCALES = {"int8": (4 / 127, 3.5 / 127), "e4m3": (1 / 64, 1 / 80)}
 
 
+def _group_arrays(pt, kvs, q_lens, spans, page):
+    """Image groups of a K2 case: (q_groups i32[T], the group pool of the
+    case's pages, each position's group per row [S, max kv] on the host):
+    ``spans[s]`` lists (first position, length) of row s's images, image
+    i in group i, -1 elsewhere."""
+    import numpy as np
+    import torch
+    S = len(kvs)
+    g = np.full((S, max(kvs)), -1, np.int64)
+    for s, sp in enumerate(spans):
+        for i, (a, n) in enumerate(sp):
+            g[s, a:min(a + n, kvs[s])] = i
+    ptn = pt.cpu().numpy()
+    pool = np.full((int(ptn.max()) + 2) * page, -1, np.int32)
+    qg = []
+    for s in range(S):
+        p = np.arange(kvs[s])
+        pool[ptn[s, p // page] * page + p % page] = g[s, :kvs[s]]
+        qg.append(g[s, kvs[s] - q_lens[s]:kvs[s]])
+    return (torch.tensor(np.concatenate(qg), dtype=torch.int32,
+                         device="cuda"),
+            torch.tensor(pool, device="cuda"), g)
+
+
+def _visible(ctx, q_lens, window, groups=None):
+    """(pairs, positions): the (query, key) pairs the rows can see, and
+    the KV positions that some row of each sequence sees (the bound's
+    bytes), with the image-group or-mask when ``groups`` [S, max kv]."""
+    import numpy as np
+    pairs = seen = 0
+    for s, (c, n) in enumerate(zip(ctx, q_lens)):
+        kv = c + n
+        p = np.arange(c, kv)[:, None]
+        k = np.arange(kv)[None, :]
+        vis = k <= p
+        if window:
+            vis &= k > p - window
+        if groups is not None:
+            gq = groups[s, c:kv][:, None]
+            vis |= (gq >= 0) & (gq == groups[s, :kv][None, :])
+        pairs += int(vis.sum())
+        seen += int(vis.any(0).sum())
+    return pairs, seen
+
+
 def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
                     dtype, seed, pages_per_seq=0, timed=True, hd=GEMMA_HD,
                     kv8=None, sinks=False, alibi=False,
-                    q_scale=GEMMA_Q_SCALE) -> dict:
+                    q_scale=GEMMA_Q_SCALE, groups=None) -> dict:
     """One K1 (``kind`` "decode") or K2 ("prefill") case at ``hd``, q
     scaled by ``GEMMA_Q_SCALE``, held against its plain version (bf16
     2e-2, float32 1e-4, as ``allclose`` and against tol x max |plain|);
@@ -1902,7 +1949,11 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
     the check too. ``sinks``: a per-head sink logit (1 to 5) joins every
     softmax; ``alibi``: the ALiBi slopes of ``qh`` heads (the models'
     ``alibi_slopes``); the plain version without either must fail the
-    check. The page table has the
+    check. ``groups`` (K2; the image-group VLMs): each row's image spans
+    ``[(first position, length), ...]``, K2 given the or-mask, the plain
+    version without the groups must fail the check; the case also times
+    the same launch without groups (``causal_ms``, the text path), and
+    SDPA's mask ORs the same-group pairs in. The page table has the
     engine's ``pages_per_seq`` columns, so that K1's ``max_kv_len`` hint
     and split count are the serving launch's. With ``timed``: timed
     beside the plain version and one SDPA call on the KV gathered to the
@@ -1948,6 +1999,10 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
         pool[:, :, 1::2] = quantize_kv(wide_pool[:, :, 1::2], vs, kdt)
         kw.update(k_scale=ks, v_scale=vs)
     S, mq = len(q_lens), max(q_lens)
+    group_pos = None
+    if groups is not None:
+        qg, gpool, group_pos = _group_arrays(pt, kvs, q_lens, groups, PAGE)
+        kw.update(q_groups=qg, kv_group_pool=gpool)
     if kind == "decode":
         reach = pt.shape[1] * PAGE
         # the engine's hint (_kv_bound): a power of two, capped at reach
@@ -1991,11 +2046,16 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
             extra[f"{opt}_effect"] = _sensitive(name, ref,
                                                 plain(**{opt: None}), tol,
                                                 opt)
+    if groups is not None:
+        extra["groups_effect"] = _sensitive(
+            name, ref, plain(q_groups=None, kv_group_pool=None), tol,
+            "the image groups")
+        extra["grouped_rows"] = int((kw["q_groups"] >= 0).sum())
     res = dict(shape=dict(seqs=S, q_lens=sorted(set(q_lens)),
                           kv_len=[min(kvs), max(kvs)], qh=qh, kvh=kvh, hd=hd,
                           page=PAGE, pages_per_seq=pt.shape[1],
                           window=window, soft_cap=cap, q_scale=q_scale,
-                          sinks=sinks, alibi=alibi,
+                          sinks=sinks, alibi=alibi, groups=groups is not None,
                           dtype=str(dtype).split(".")[-1],
                           kv=kv8 or str(dtype).split(".")[-1]),
                max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
@@ -2004,25 +2064,24 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
         del q, pool, wide_pool, kv_lens, pt, cu, got, ref, lref
         return res
     # what the rows can see: query i of a row at position p sees
-    # max(0, p - window + 1) .. p
-    pairs = seen = 0
-    for c, n in zip(ctx, q_lens):
-        lo_first = max(0, c - window + 1) if window else 0
-        seen += c + n - lo_first
-        for i in range(n):
-            p = c + i
-            pairs += p + 1 - (max(0, p - window + 1) if window else 0)
+    # max(0, p - window + 1) .. p, and with groups its image's positions
+    pairs, seen = _visible(ctx, q_lens, window, group_pos)
     el = q.element_size()
     flops = 4 * qh * hd * pairs
     io_bytes = seen * kvh * hd * 2 * pool.element_size() \
         + 2 * q.numel() * el + pt.numel() * 4 \
         + (S + 1) * 4 * (2 if kind == "prefill" else 1) + (8 if kv8 else 0) \
-        + 4 * qh * (sinks + alibi)
+        + 4 * qh * (sinks + alibi) \
+        + (4 * (q.shape[0] + seen) if groups is not None else 0)
     res.update(bytes=io_bytes, flops=flops, **_bound(
         io_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16
         else F32_FLOPS))
     res["ms"] = time_ms(kernel, 30)
     res["plain_ms"] = time_ms(plain, 5)
+    if groups is not None:
+        causal_kw = {k: v for k, v in kw.items()
+                     if k not in ("q_groups", "kv_group_pool")}
+        res["causal_ms"] = time_ms(lambda: kernel(pool, causal_kw), 30)
     res["bound_share"] = res["bound_ms"] / res["ms"]
     if kv8:
         no_scale = {k: v for k, v in kw.items() if "scale" not in k
@@ -2052,6 +2111,13 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
     mask = kpos <= qpos[:, :, None]
     if window:
         mask &= kpos > qpos[:, :, None] - window
+    if group_pos is not None:
+        # the or-mask: a row's image positions, below its kv_len
+        gk = torch.tensor(group_pos, device=dev)               # [S, Lk]
+        gq = torch.gather(gk, 1, qpos.clamp(0, Lk - 1))       # [S, Lq]
+        kv_t = torch.tensor(kvs, device=dev)[:, None, None]
+        mask |= (gq[:, :, None] >= 0) & (gq[:, :, None] == gk[:, None]) \
+            & (kpos < kv_t)
     mask[:, :, 0] |= ~mask.any(-1)            # padding rows: see one
     mask = mask[:, None]
     if alibi:
@@ -2075,7 +2141,7 @@ def _attention_case(name, kind, q_lens, ctx, qh, kvh, window, cap,
     # fresh prompts of one length and no window: the causal flag alone
     # (SDPA's fast backends take it; an explicit mask may not)
     causal = not window and not alibi and not sinks and not any(ctx) and \
-        len(set(q_lens)) == 1
+        len(set(q_lens)) == 1 and groups is None
 
     def sdpa():
         return F.scaled_dot_product_attention(
@@ -2111,7 +2177,7 @@ PAGES_9B, PAGES_1B = 256, 36
 # gemma_serving's depth of Gemma-2-9B: 12 of its 42 layers (even, as
 # VSWA's strict alternation needs), to keep the script inside its time
 # budget; every layer has the full width
-GEMMA2_9B_LAYERS = 12
+GEMMA2_9B_LAYERS = 8
 
 
 def gemma_kernel_phase(results: dict) -> None:
@@ -2731,7 +2797,7 @@ def host_spec_parity_phase(repo: Path) -> dict:
 
 # depth cuts of serving runs for the script's time budget: full width,
 # fewer layers
-HOST_SPEC_TARGET_LAYERS = 16
+HOST_SPEC_TARGET_LAYERS = 8
 KV_SERVING_LAYERS = 16
 
 
@@ -3533,10 +3599,15 @@ def quant_load_parity_phase(repo: Path) -> dict:
     return res
 
 
+# quant_serving's FP8 pass: 16 of Llama-3-8B's 32 layers (the script's
+# time limit)
+QUANT_SERVING_LAYERS = 16
+
+
 def quant_serving_phase() -> dict:
     """Weights quantized at load: Llama-3-8B at its published width and
-    depth (32 layers; seeded random weights drawn in bf16 and quantized
-    at load) with FP8 per-tensor weights and a bf16 KV cache, 64 requests of 512
+    ``QUANT_SERVING_LAYERS`` of its 32 layers (seeded random weights drawn
+    in bf16 and quantized at load) with FP8 per-tensor weights and a bf16 KV cache, 64 requests of 512
     prompt tokens -> 128 greedy tokens with ``ignore_eos``, ``LLM``
     defaults (64 rows, K = 8 windows, depth 4, CUDA graphs) but prefix
     reuse off (tools/serving_profile.py ``--geometry llama3-8b-quant
@@ -3558,7 +3629,7 @@ def quant_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch.ops.cuda import quant_matmul as qmm
     from tensorrt_llm_tpu_torch.quantization.mode import QuantAlgo
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
-    runs = [("fp8_32l", "FP8", 32, 128, False)] + [
+    runs = [("fp8_16l", "FP8", QUANT_SERVING_LAYERS, 128, False)] + [
         (f"{label}_8l", algo, 8, 64, inline)
         for label, algo, _, inline in (("bf16", "NO_QUANT", 128, False),
                                        ("fp8", "FP8", 128, False),
@@ -4057,8 +4128,14 @@ def gpt_families_phase() -> dict:
     return res
 
 
+# gptoss_serving's depth: 12 of gpt-oss-20b's 24 layers (the script's
+# time limit; the windows still alternate)
+GPTOSS_SERVING_LAYERS = 12
+
+
 def gptoss_serving_phase() -> dict:
-    """gpt-oss-20b at its published width and depth (24 layers, hidden
+    """gpt-oss-20b at its published width and ``GPTOSS_SERVING_LAYERS`` of
+    its 24 layers (hidden
     2,880, 64 x 64 q heads over 8 with sinks, windows of 128 on the even
     layers, 32 experts top 4; seeded random bf16 weights, ~41.8 GB), 64
     requests of 512 prompt tokens -> 128 greedy tokens with
@@ -4078,6 +4155,7 @@ def gptoss_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch import LLM
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     cfg, kwargs, prompts, sp = sprof.workload(geometry="gpt-oss-20b")
+    cfg = sprof.gpt_oss_20b_config(GPTOSS_SERVING_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5022,9 +5100,9 @@ def _eager_step_ms(llm, prompts, sp) -> list:
 
 def bamba_serving_phase() -> dict:
     """Bamba-9B at its published width, its first
-    ``BAMBA_SERVING_LAYERS`` (19) of 32 layers for the script's time
-    limit (17 Mamba2 layers of 128 heads x 64 over a state of 128,
-    attention at layers 9 and 18 through K1/K2; seeded random bf16
+    ``BAMBA_SERVING_LAYERS`` (10) of 32 layers for the script's time
+    limit (9 Mamba2 layers of 128 heads x 64 over a state of 128,
+    attention at layer 9 through K1/K2; seeded random bf16
     weights), 64 requests of 512 prompt tokens -> 128 greedy tokens
     with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8 windows, depth
     4, CUDA graphs) but 8,192 tokens a prefill step and prefix reuse off
@@ -5337,9 +5415,9 @@ def mtp_serving_phase() -> dict:
     256 experts top 8 and 1 shared), its first 4 layers (3 dense, 1 MoE)
     and its MTP module (seeded random bf16 weights made on the card,
     ~53.4 GB with the module; tools/serving_profile.py ``--geometry
-    deepseek-v3-mtp``), 64 requests of 512 prompt tokens -> 32 greedy
-    tokens (``MTP_SERVING_TOKENS``; the geometry's 128 cut for the
-    script's time) with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8,
+    deepseek-v3-mtp``), 32 of its 64 requests (``MTP_SERVING_REQUESTS``)
+    of 512 prompt tokens -> 32 greedy tokens (``MTP_SERVING_TOKENS``; the
+    geometry's 128 cut for the script's time) with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8,
     depth 4, CUDA graphs) but 8,192 tokens a prefill step and prefix
     reuse off,
     served three times: without speculation, with MTP (d = 1, the one
@@ -5364,6 +5442,7 @@ def mtp_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch import LLM, SamplingParams
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     cfg, kwargs, prompts, sp = sprof.workload(geometry="deepseek-v3-mtp")
+    prompts = prompts[:MTP_SERVING_REQUESTS]
     sp = SamplingParams(max_tokens=MTP_SERVING_TOKENS, top_k=1,
                         ignore_eos=True)
     sp_lp = SamplingParams(max_tokens=sp.max_tokens, top_k=1,
@@ -6068,7 +6147,12 @@ def llava_parity_phase() -> dict:
 
 
 # llava_serving's profiled pass: the first 16 of its 64 requests
-PROFILED_REQUESTS = 16
+# llava_serving's warm-up: 8 of its requests; its depth: 16 of the text
+# model's 32 layers; llava_serving and qwen25vl_serving run 32 of their
+# geometries' 64 requests (the script's time limit)
+LLAVA_WARMUP = 8
+LLAVA_SERVING_LAYERS = 16
+VLM_SERVING_REQUESTS = 32
 
 
 def _reused_blocks(llm, prompts, sp) -> int:
@@ -6082,21 +6166,22 @@ def _reused_blocks(llm, prompts, sp) -> int:
 
 
 def llava_serving_phase() -> dict:
-    """LLaVA-1.5-7B at its published width and depth
-    (tools/serving_profile.py ``--geometry llava-1.5-7b``: CLIP ViT-L/14
-    at 336 px, its layer -2 features without the class token, a GELU
-    projector to 4,096, Vicuna-7B's 32 layers of 32 heads; seeded random
-    bf16 weights drawn on the card, ~14.1 GB), 64 requests of one 336 x
+    """LLaVA-1.5-7B at its published width (tools/serving_profile.py
+    ``--geometry llava-1.5-7b``: CLIP ViT-L/14 at 336 px, its layer -2
+    features without the class token, a GELU projector to 4,096, and
+    ``LLAVA_SERVING_LAYERS`` of Vicuna-7B's 32 layers of 32 heads; seeded
+    random bf16 weights drawn on the card), 32 (``VLM_SERVING_REQUESTS``)
+    of the geometry's 64 requests of one 336 x
     336 image and 64 text tokens (640 prompt tokens) -> 128 greedy tokens
     with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8 windows, CUDA
     graphs) but 8,192 tokens a prefill step and prefix reuse off: the
     tower and projector run once per request on the caller's thread
     (the features stay on the card), the trunk's prefill steps are eager
     K2 steps with the embedding rows, decode is K1 in replayed windows. A
-    warm-up, a timed pass (tok/s, TTFT and TPOT median and max, K1 / K2
-    launches, eager steps with embedding rows), then 16 of the requests
-    unprofiled and under the profiler (``PROFILED_REQUESTS``: device idle
-    share, GPU time by class), weights and peak memory, the
+    warm-up of 8 requests (``LLAVA_WARMUP``), a timed pass (tok/s, TTFT
+    and TPOT median and max, K1 / K2
+    launches, eager steps with embedding rows), weights and peak memory,
+    the
     tower and projector's ms per image (CUDA events, one image at a time,
     the serving call), then with prefix reuse on: the blocks reused by 16
     requests of one text beside 16 different images (must be none) and
@@ -6112,6 +6197,8 @@ def llava_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
     cfg, kwargs, prompts, sp = sprof.workload(geometry="llava-1.5-7b")
+    cfg = sprof.llava_15_7b_config(LLAVA_SERVING_LAYERS)
+    prompts = prompts[:VLM_SERVING_REQUESTS]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6126,15 +6213,10 @@ def llava_serving_phase() -> dict:
             [llm.model.vision_params, llm.model.projector]))
         embed0 = eng.embed_steps
         t1 = time.monotonic()
-        res = sprof.measure(llm, prompts, sp, profile=False)
-        # the profiled pass: 16 of the 64 requests (tracing every pass's
-        # 1.3 M kernels cost ~45 s of the script's time), its idle share
-        # against an unprofiled pass of the same 16
-        wall16, _ = sprof._generate(llm, prompts[:PROFILED_REQUESTS], sp)
-        res.update(sprof._profiled(llm, prompts[:PROFILED_REQUESTS], sp,
-                                   wall16),
-                   profiled_requests=PROFILED_REQUESTS,
-                   profiled_plain_wall_ms=wall16 * 1e3)
+        sprof._generate(llm, prompts[:LLAVA_WARMUP], sp)
+        # no profiled pass (the script's time limit; PERF.md keeps the
+        # GPU time by class of earlier runs)
+        res = sprof.measure(llm, prompts, sp, profile=False, warmup=False)
         measure_s = time.monotonic() - t1
         graphs = _graph_stats(eng)
         res["embed_steps_all_passes"] = eng.embed_steps - embed0
@@ -6204,6 +6286,9 @@ QWEN25VL_HEADS = (28, 4)
 QWEN25VL_PAGES = 24
 QWEN25VL_WARMUP = 8
 QWEN25VL_PROFILED = 4
+# qwen25vl_serving's depth: 14 of the trunk's 28 layers (the script's
+# time limit)
+QWEN25VL_SERVING_LAYERS = 14
 
 
 def mrope_kernel_phase(results: dict) -> None:
@@ -6390,12 +6475,14 @@ def mrope_parity_phase() -> dict:
 
 
 def qwen25vl_serving_phase() -> dict:
-    """Qwen2.5-VL-7B at its published width and depth
-    (tools/serving_profile.py ``--geometry qwen2.5-vl-7b``: the Qwen2
-    trunk of 28 layers, 28 x 128 q heads over 4 KV heads, M-RoPE; the
+    """Qwen2.5-VL-7B at its published width and
+    ``QWEN25VL_SERVING_LAYERS`` of its depth (tools/serving_profile.py
+    ``--geometry qwen2.5-vl-7b``: the Qwen2 trunk's 28 layers cut to 14,
+    28 x 128 q heads over 4 KV heads, M-RoPE; the
     windowed ViT of 32 blocks; seeded random bf16 weights drawn on the
-    card, ~15.2 + 1.35 GB), 64 requests of one 672 x 672 image (a (1, 48,
-    48) grid, 576 tokens) and 64 text tokens -> 128 greedy tokens with
+    card), 32 (``VLM_SERVING_REQUESTS``) of the geometry's 64 requests of
+    one 672 x 672 image (a (1, 48, 48) grid, 576 tokens) and 64 text
+    tokens -> 128 greedy tokens with
     ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8 windows, CUDA graphs)
     but 8,192 tokens a prefill step and prefix reuse off: the tower runs
     once per request on the caller's thread, the trunk's prefill steps
@@ -6420,6 +6507,8 @@ def qwen25vl_serving_phase() -> dict:
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
     cfg, kwargs, prompts, sp = sprof.workload(geometry="qwen2.5-vl-7b")
+    cfg = sprof.qwen25_vl_7b_config(QWEN25VL_SERVING_LAYERS)
+    prompts = prompts[:VLM_SERVING_REQUESTS]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6567,6 +6656,426 @@ def mrope_families_phase() -> dict:
     return res
 
 
+# Gemma-3-4B's attention (8 x 256 q heads over 4 KV heads), its window
+# and gemma3vl_serving's page-table width (max_seq_len 448, pages of 32)
+GEMMA3_4B_HEADS = (8, 4)
+GEMMA3_4B_WINDOW = 1024
+GEMMA3_4B_PAGES = 14
+# gemma3vl_serving's warm-up and profiled requests (of 64)
+GEMMA3VL_WARMUP = 8
+GEMMA3VL_PROFILED = 2
+
+
+def imagegroup_kernel_phase(results: dict) -> None:
+    """K2 with the image-group or-mask (``_attention_case`` with
+    ``groups``) at Gemma-3-4B's attention (8 x 256 q heads over 4, bf16,
+    q unscaled), each case held against the plain version (the plain
+    version without the groups must fail that check), timed beside it,
+    beside the same launch without groups (``causal_ms``) and beside one
+    SDPA call with the or-mask in its boolean mask:
+    ``prefill_imagegroup_global``: one eager step of 8 fresh prompts of
+    one 256-token image (at positions 3-258) and 64 text tokens, a global
+    layer; ``_sliding``: the same rows behind 960 positions of context on
+    a sliding layer of window 1,024 (so that the window cuts); ``_chunk_cut``:
+    4 first chunks of 128 tokens that end inside the image and 4 second
+    chunks of 192 that hold its rest; ``_prefix``: PaliGemma's prefix LM,
+    every one of the 320 prompt positions in group 0 (every CTA grouped).
+    """
+    import torch
+    qh, kvh = GEMMA3_4B_HEADS
+    img = [(3, 256)]
+    for i, (name, q_lens, ctx, window, spans) in enumerate([
+            ("prefill_imagegroup_global", [320] * 8, [0] * 8, None,
+             [img] * 8),
+            ("prefill_imagegroup_sliding", [320] * 8, [960] * 8,
+             GEMMA3_4B_WINDOW, [[(963, 256)]] * 8),
+            ("prefill_imagegroup_chunk_cut", [128] * 4 + [192] * 4,
+             [0] * 4 + [128] * 4, None, [img] * 8),
+            ("prefill_imagegroup_prefix", [320] * 8, [0] * 8, None,
+             [[(0, 320)]] * 8)]):
+        fits = max(c + n for c, n in zip(ctx, q_lens)) <= 32 * GEMMA3_4B_PAGES
+        results[name] = _attention_case(
+            name, "prefill", q_lens, ctx, qh, kvh, window, None,
+            torch.bfloat16, seed=120 + i,
+            pages_per_seq=GEMMA3_4B_PAGES if fits else 0, hd=256,
+            q_scale=1.0, groups=spans)
+
+
+def _tiny_imagegroup(name: str):
+    """A tiny seeded float32 ``transformers`` Gemma 3, PaliGemma 2 or
+    Mllama with head dim 64 (K1 / K2 on the card): hidden 256, 4 q heads
+    over 2, a window of 8 on the Gemma layers, towers of 2 layers; Gemma
+    3's projection drawn (transformers initialises it to zero), Mllama's
+    gates 0.7 / 0.5."""
+    import torch
+    import transformers as tf
+    torch.manual_seed(0)
+    vis = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+               num_attention_heads=4, image_size=16, patch_size=4)
+    text = dict(vocab_size=260, hidden_size=256, intermediate_size=512,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, head_dim=64, query_pre_attn_scalar=64,
+                sliding_window=8, max_position_embeddings=512)
+    if name == "gemma3":
+        cfg = tf.Gemma3Config(
+            vision_config=tf.SiglipVisionConfig(**vis).to_dict(),
+            text_config=tf.Gemma3TextConfig(**text).to_dict(),
+            image_token_index=255, boi_token_index=253, eoi_token_index=254,
+            mm_tokens_per_image=4)
+        hf = tf.Gemma3ForConditionalGeneration(cfg)
+        with torch.no_grad():
+            hf.model.multi_modal_projector.mm_input_projection_weight \
+                .normal_(0, 0.3)
+    elif name == "paligemma":
+        cfg = tf.PaliGemmaConfig(
+            vision_config=tf.SiglipVisionConfig(projection_dim=256,
+                                                **vis).to_dict(),
+            text_config=tf.Gemma2Config(**text).to_dict(),
+            image_token_index=255, projection_dim=256)
+        hf = tf.PaliGemmaForConditionalGeneration(cfg)
+    else:
+        from transformers.models.mllama.configuration_mllama import (
+            MllamaTextConfig, MllamaVisionConfig)
+        vc = MllamaVisionConfig(
+            hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_global_layers=1, attention_heads=4, image_size=32,
+            patch_size=8, max_num_tiles=2,
+            supported_aspect_ratios=[[1, 1], [1, 2], [2, 1]],
+            vision_output_dim=64, intermediate_layers_indices=[1])
+        tc = MllamaTextConfig(
+            vocab_size=256, hidden_size=256, intermediate_size=512,
+            num_hidden_layers=4, num_attention_heads=4,
+            num_key_value_heads=2, cross_attention_layers=[1, 3],
+            max_position_embeddings=512, pad_token_id=0,
+            rope_scaling={"rope_type": "default"})
+        hf = tf.MllamaForConditionalGeneration(tf.MllamaConfig(
+            vision_config=vc.to_dict(), text_config=tc.to_dict(),
+            image_token_index=250))
+        with torch.no_grad():
+            for li in (1, 3):
+                lyr = hf.model.language_model.layers[li]
+                lyr.cross_attn_attn_gate.fill_(0.7)
+                lyr.cross_attn_mlp_gate.fill_(0.5)
+    return hf.float().eval()
+
+
+def imagegroup_parity_phase() -> dict:
+    """The image-group and cross-attention types through ``LLM.generate``,
+    float32, the card against the port's CPU path, K = 8 windows (on the
+    card replayed from CUDA graphs): tiny seeded Gemma 3, PaliGemma 2 and
+    Mllama (``_tiny_imagegroup``), 3 image prompts (3-30 text tokens) ->
+    16 greedy tokens, then one text-only prompt served after them (in a
+    recycled slot: the image requests' groups, or Mllama's vision state,
+    must not reach it), tokens identical. Fails otherwise, if no window
+    replayed, or if no K2 launch carried groups (Gemma 3, PaliGemma)."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch import KvCacheConfig, LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    res, failures = {}, []
+    rng = np.random.default_rng(8)
+    sp = SamplingParams(max_tokens=16, top_k=1, ignore_eos=True)
+    kw = dict(skip_tokenizer_init=True, dtype="float32", max_batch_size=4,
+              max_input_len=128, max_seq_len=192, decode_multi_step=8,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    for name in ("gemma3", "paligemma", "mllama"):
+        hf = _tiny_imagegroup(name)
+        if name == "mllama":
+            lead = [2, 250]
+            mms = [{"pixel_values": rng.standard_normal(
+                (1, 2, 3, 32, 32)).astype(np.float32),
+                "aspect_ratio_ids": np.asarray([2]),
+                "aspect_ratio_mask": np.asarray([[1, 1]])}
+                for _ in range(3)]
+        else:
+            lead = [2, 253, 255, 254] if name == "gemma3" else [2, 255]
+            mms = [{"image": [rng.standard_normal((3, 16, 16)).astype(
+                np.float32)]} for _ in range(3)]
+        prompts = [{"prompt_token_ids": lead + rng.integers(
+            3, 240, n).tolist(), "multi_modal_data": mm}
+            for n, mm in zip((3, 12, 30), mms)]
+        text = rng.integers(3, 240, 9).tolist()
+        toks, stats = {}, {}
+        for dev in ("cuda", "cpu"):
+            llm = LLM(hf, device=dev, **kw)
+            try:
+                grouped0 = pre.LAUNCHES_GROUPS
+                outs = llm.generate(prompts, sp)
+                solo = llm.generate(text, sp)
+                toks[dev] = [o.outputs[0].token_ids for o in outs] + \
+                    [solo.outputs[0].token_ids]
+                stats[dev] = dict(
+                    window_steps=llm.engine.window_steps,
+                    graph_replays=_graph_stats(llm.engine)["graph_replays"],
+                    grouped_steps=llm.engine.grouped_steps,
+                    k2_grouped_launches=pre.LAUNCHES_GROUPS - grouped0)
+            finally:
+                llm.shutdown()
+        same = toks["cuda"] == toks["cpu"]
+        res[name] = dict(identical=same, tokens=toks["cuda"], **stats["cuda"])
+        emit({"phase": "imagegroup_parity", "model": name, **res[name]})
+        if not same:
+            failures.append(f"{name}: card {toks['cuda']} != cpu "
+                            f"{toks['cpu']}")
+        if not stats["cuda"]["window_steps"] or \
+                not stats["cuda"]["graph_replays"]:
+            failures.append(f"{name}: no window replayed {stats['cuda']}")
+        if name != "mllama" and not stats["cuda"]["k2_grouped_launches"]:
+            failures.append(f"{name}: no K2 launch carried groups")
+    if failures:
+        raise AssertionError("imagegroup_parity: " + "; ".join(failures))
+    return res
+
+
+def _vlm_serving(label: str, geometry: str, warmup: int, profiled: int,
+                 tower) -> tuple:
+    """A full-width vision-language serving run (``serving_profile
+    .workload(geometry=...)``, seeded random bf16 weights on the card): a
+    warm-up of ``warmup`` requests (its wall time kept), the timed pass of
+    all of them, then ``profiled`` of them unprofiled (the caller's ms to
+    submit each) and under the profiler; weights (trunk and tower apart),
+    peak memory, KV bytes a token and the tower's ms an image (``tower``:
+    (llm, first prompt) -> a function that encodes its image). Returns
+    (result, llm's model config, the engine's cross or group stats)."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    cfg, kwargs, prompts, sp = sprof.workload(geometry=geometry)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    llm = LLM(cfg, dtype="bfloat16", **kwargs)
+    build_s = time.monotonic() - t0
+    extra = {}
+    try:
+        eng = llm.engine
+        weights_bytes = sum(t.numel() * t.element_size()
+                            for t in _tensors(eng.params))
+        vision_bytes = sum(t.numel() * t.element_size()
+                           for t in _tensors(llm.model.vision_params))
+        t1 = time.monotonic()
+        first_s, _ = sprof._generate(llm, prompts[:warmup], sp)
+        grouped0 = eng.grouped_steps
+        res = sprof.measure(llm, prompts, sp, profile=False, warmup=False)
+        res["grouped_steps"] = eng.grouped_steps - grouped0
+        few = prompts[:profiled]
+        t2 = time.monotonic()
+        futs = [llm.generate_async(p, sp) for p in few]
+        submit_s = time.monotonic() - t2
+        for f in futs:
+            f.result()
+        torch.cuda.synchronize()
+        wall_few = time.monotonic() - t2
+        res.update(sprof._profiled(llm, few, sp, wall_few),
+                   warmup_requests=warmup, warmup_wall_ms=first_s * 1e3,
+                   profiled_requests=len(few),
+                   profiled_plain_wall_ms=wall_few * 1e3,
+                   submit_ms_per_request=submit_s * 1e3 / len(few))
+        measure_s = time.monotonic() - t1
+        res["tower_ms_per_image"] = time_ms(tower(llm, prompts[0]), 3)
+        extra = dict(graphs=_graph_stats(eng),
+                     reserve=eng.graph_pool_reserve(),
+                     pages=eng.num_kv_pages,
+                     kv_bytes_per_token=eng.bytes_per_kv_block
+                     // eng.page_size)
+        if getattr(eng, "_cross", False):
+            extra["cross"] = _cross_share(llm)
+            extra["cross_bytes_per_slot"] = \
+                llm.model.cross_state_bytes(1) - 4
+    finally:
+        llm.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    del llm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = getattr(cfg, "text_config", cfg).vocab_size
+    if res["output_tokens"] != len(prompts) * sp.max_tokens or \
+            res["nonfinite_logprobs"]:
+        raise AssertionError(f"{label}: {res['output_tokens']} tokens, or "
+                             "non-finite logprobs")
+    res.update(engine_build_s=build_s, measure_s=measure_s,
+               weights_bytes=weights_bytes, vision_weights_bytes=vision_bytes,
+               peak_allocated_bytes=peak, kv_pool_pages=extra["pages"],
+               kv_bytes_per_token=extra["kv_bytes_per_token"],
+               graph_pool_reserve_bytes=extra["reserve"],
+               graphs=extra["graphs"], vocab=V)
+    if not (res["launches"]["paged_decode_attention"] and
+            res["launches"]["ragged_prefill_attention"]):
+        raise AssertionError(f"{label}: K1/K2 not launched: "
+                             f"{res['launches']}")
+    if not extra["graphs"]["graph_replays"]:
+        raise AssertionError(f"{label}: no replayed window")
+    _check_reserve(res)
+    return res, cfg, extra
+
+
+def _cross_share(llm) -> dict:
+    """Mllama's cross-attention against one decode step, on the device:
+    one forward of ``max_batch_size`` decode rows at 128 positions, each
+    row's slot holding one image's vision state, and the cross-attention
+    layers alone on the same rows (q projection to gated MLP), each
+    captured in a CUDA graph (as the decode windows run) and timed by
+    its replays (CUDA events)."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops.attention import AttentionMetadata
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    eng, m = llm.engine, llm.model
+    S, ps = eng.max_batch_size, eng.page_size
+    n = m.max_vision_tokens
+    states = torch.randn(n, m.hidden_size, device="cuda")
+    for slot in range(S):
+        eng.set_cross_state(slot, states)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pages = torch.arange(S * 4, **i32).reshape(S, 4)
+    md = AttentionMetadata(
+        kv_lens=torch.full((S,), 128, **i32), page_indices=pages,
+        cu_q_lens=torch.arange(S + 1, **i32),
+        num_seqs=torch.tensor([S], **i32),
+        slot_mapping=pages[:, 3] * ps + 127 % ps,
+        positions=torch.full((S,), 127, **i32),
+        logits_indices=torch.arange(S, device="cuda"), max_q_len=1,
+        max_kv_len=128, seq_slots=torch.arange(S, **i32))
+    tokens = torch.randint(0, 1000, (S,), device="cuda")
+    kv = eng.kv_pages
+    h = torch.randn(S, m.hidden_size, device="cuda", dtype=m.dtype)
+    rows = m._cross_rows(md, S, kv["cross_len"].shape[0] - 1)
+
+    def step():
+        m.forward(eng.params, tokens, kv, md)
+
+    def cross():
+        for ci in range(len(m.cross_layers)):
+            m._cross_block(eng.params["cross"][ci], h, kv["cross_k"][ci],
+                           kv["cross_v"][ci], kv["cross_len"], rows,
+                           kv["cross_len"].shape[0] - 1)
+    times = []
+    with torch.no_grad():
+        for fn in (step, cross):
+            fn()
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                fn()
+            times.append(time_ms(g.replay, 10))
+            del g
+    step_ms, cross_ms = times
+    for slot in range(S):
+        eng.clear_cross_state(slot)
+    return dict(rows=S, vision_positions=n, decode_step_ms=step_ms,
+                cross_layers_ms=cross_ms, cross_share=cross_ms / step_ms)
+
+
+def gemma3vl_serving_phase() -> dict:
+    """Gemma-3-4B at its published width and depth
+    (tools/serving_profile.py ``--geometry gemma-3-4b``: 34 text layers,
+    8 x 256 q heads over 4 KV heads, windows of 1,024 on five layers of
+    six; SigLIP at 896 px over 27 layers pooled to 256 tokens; seeded
+    random bf16 weights drawn on the card), 64 requests of one 896 x 896
+    host image (256 tokens, one image group) and 64 text tokens -> 128
+    greedy tokens with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8
+    windows, CUDA graphs) but 8,192 tokens a prefill step and prefix reuse
+    off (``_vlm_serving``): tok/s, TTFT and TPOT, K1 / K2 launches and
+    K2's launches with groups, eager steps with groups, GPU time by
+    class, the tower's ms an image. Fails if a request comes back short,
+    if K1, K2 or a grouped K2 did not launch, or if no window replayed."""
+    import torch
+
+    def tower(llm, prompt):
+        px = prompt["multi_modal_data"]["image"][0].cuda()[None]
+        return lambda: llm.model.encode_images(px)
+    res, cfg, _ = _vlm_serving("gemma3vl_serving", "gemma-3-4b",
+                               GEMMA3VL_WARMUP, GEMMA3VL_PROFILED, tower)
+    res.update(model="Gemma-3-4B", text_layers=cfg.text_config
+               .num_hidden_layers, image_tokens=cfg.mm_tokens_per_image)
+    emit({"phase": "gemma3vl_serving", **res})
+    if not res["launches_groups"] or not res["grouped_steps"]:
+        raise AssertionError("gemma3vl_serving: no K2 launch with groups")
+    torch.cuda.empty_cache()
+    return res
+
+
+def mllama_serving_phase() -> dict:
+    """Llama-3.2-11B-Vision at its published width
+    (tools/serving_profile.py ``--geometry llama-3.2-11b-vision``: 40 text
+    layers, 8 of them cross-attention, 4,096 wide, 32 q heads over 8; the
+    tiled tower at 560 px, 4 tiles; seeded random bf16 weights drawn on
+    the card), 16 requests of 64 tokens (8 with one 4-tile image, 8
+    text-only, interleaved) -> 64 greedy tokens, 16 rows, K = 8 windows on
+    CUDA graphs, prefix reuse off (``_vlm_serving``): tok/s, TTFT and
+    TPOT, the cross cache's bytes a slot, the cross-attention layers'
+    share of one decode step's device time at 16 rows
+    (``_cross_share``), GPU time by class, the tower's ms an image."""
+    def tower(llm, prompt):
+        mm = prompt["multi_modal_data"]
+        return lambda: llm.model.encode_images(
+            mm["pixel_values"], mm["aspect_ratio_ids"],
+            mm["aspect_ratio_mask"])
+    res, cfg, extra = _vlm_serving("mllama_serving", "llama-3.2-11b-vision",
+                                   4, 4, tower)
+    res.update(model="Llama-3.2-11B-Vision",
+               text_layers=cfg.text_config.num_hidden_layers,
+               cross_layers=len(cfg.text_config.cross_attention_layers),
+               cross_bytes_per_slot=extra["cross_bytes_per_slot"],
+               cross=extra["cross"])
+    emit({"phase": "mllama_serving", **res})
+    return res
+
+
+def vlm_families_phase() -> dict:
+    """PaliGemma-2-3B (``serving_profile.VLM_FAMILIES``) at its published
+    width over 2 text layers with the whole tower, seeded random bf16
+    weights: 4 requests of one 224 x 224 image (256 tokens, the whole
+    prompt in group 0) and 32 text tokens -> 32 greedy tokens on K = 8
+    windows: K1, K2 and grouped K2 launched, windows replayed, logprobs
+    finite. A smoke of the width, not a cell."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import KvCacheConfig, LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    res = {}
+    sp = SamplingParams(max_tokens=32, top_k=1, ignore_eos=True, logprobs=0)
+    for name in sprof.VLM_FAMILIES:
+        cfg = sprof.vlm_family_config(name, text_layers=2)
+        prompts = sprof.image_group_prompts(cfg, 4, 32, seed=7)
+        gc.collect()
+        torch.cuda.empty_cache()
+        llm = LLM(cfg, dtype="bfloat16", max_batch_size=4, max_input_len=320,
+                  max_seq_len=384, enable_warmup=False,
+                  kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        try:
+            run = sprof.measure(llm, prompts, sp, profile=False)
+            graphs = _graph_stats(llm.engine)
+            px = prompts[0]["multi_modal_data"]["image"][0].cuda()[None]
+            tower_ms = time_ms(lambda: llm.model.encode_images(px), 5)
+        finally:
+            llm.shutdown()
+        del llm
+        res[name] = dict(
+            text_layers=2, hidden=cfg.text_config.hidden_size,
+            tower_ms_per_image=tower_ms,
+            output_tok_per_s=run["output_tok_per_s"],
+            tpot_ms_median=run["tpot_ms_median"],
+            ttft_ms_median=run["ttft_ms_median"], launches=run["launches"],
+            launches_groups=run["launches_groups"],
+            graph_replays=graphs["graph_replays"],
+            logprobs_recorded=run["logprobs_recorded"])
+        emit({"phase": "vlm_families", "family": name, **res[name]})
+        if min(run["launches"][k] for k in ("paged_decode_attention",
+                                            "ragged_prefill_attention")) \
+                <= 0 or not run["launches_groups"] or \
+                not graphs["graph_replays"] or run["nonfinite_logprobs"] \
+                or run["min_output_tokens"] != sp.max_tokens:
+            raise AssertionError(f"vlm_families {name}: {res[name]}")
+    return res
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -6671,6 +7180,12 @@ def main() -> int:
     timed("mrope_parity", mrope_parity_phase)
     qwen25vl = timed("qwen25vl_serving", qwen25vl_serving_phase)
     mrope_fams = timed("mrope_families", mrope_families_phase)
+    timed("imagegroup_kernels", imagegroup_kernel_phase,
+          {} if kern is None else kern)
+    timed("imagegroup_parity", imagegroup_parity_phase)
+    gemma3vl = timed("gemma3vl_serving", gemma3vl_serving_phase)
+    mllama = timed("mllama_serving", mllama_serving_phase)
+    vlm_fams = timed("vlm_families", vlm_families_phase)
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -6723,6 +7238,10 @@ def main() -> int:
             launches_qwen25vl_serving=qwen25vl["launches"][name],
             launches_mrope_families={f: v["launches"][name]
                                      for f, v in mrope_fams.items()},
+            launches_gemma3vl_serving=gemma3vl["launches"][name],
+            launches_mllama_serving=mllama["launches"][name],
+            launches_vlm_families={f: v["launches"][name]
+                                   for f, v in vlm_fams.items()},
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()
@@ -6742,6 +7261,15 @@ def main() -> int:
         row["group7"] = {k: kern[f"{kind}_group7"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err", "shape")}
+    # K2 with the image-group or-mask: its cases and grouped launches
+    kernels[1].update(
+        imagegroup={c: {k: kern[c][k] for k in (
+            "ms", "causal_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "grouped_rows")}
+            for c in kern if c.startswith("prefill_imagegroup")},
+        launches_groups_gemma3vl_serving=gemma3vl["launches_groups"],
+        launches_groups_vlm_families={f: v["launches_groups"]
+                                      for f, v in vlm_fams.items()})
     # K3's e4m3 body: its cases and its launches in quant_serving's runs
     kernels[-1].update(
         max_abs_err_e4m3=max(v["max_abs_err"] for c, v in e4m3.items()

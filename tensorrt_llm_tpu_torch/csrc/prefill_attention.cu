@@ -54,7 +54,29 @@
 // to every row skip the mask, only edge tiles test each element. The rescale
 // of the output accumulator is skipped once the running maxima have
 // settled. Query blocks are mapped last to first so the CTAs with the
-// longest causal span start first.
+// longest causal span start first (a heuristic since the image groups: a
+// grouped block spans [0, kv_len) wherever it sits).
+//
+// Image groups (the image-group VLMs: Gemma 3's images, PaliGemma's whole
+// prompt; the JAX _reference_attention's or-mask, ops/attention.py:
+// 568-586): q_groups i32[T] (-1 = none) and kv_groups, the group id of
+// every KV slot, read at (page % group_pages) * ps + offset, so a layer's
+// view of the flat all-layers pool folds back onto the one group pool. A
+// pair whose query group is >= 0 and equals the key's is visible past the
+// diagonal and outside the window, never at or past kv_len. A CTA finds
+// out once (__syncthreads_or over its tokens) whether any of its rows
+// carries a group; such a CTA walks [0, kv_len) instead of its causal and
+// window span, stages the tile's group ids beside K and V, and tests every
+// element of a tile it does not see whole. The or-mask is compiled into a
+// second library of its own (csrc/prefill_groups.cu defines PREFILL_GROUPS
+// and includes this file; entry ragged_prefill_attention_groups, bf16 and
+// float32 pools of q's type): in this file's own library kGroups is false
+// and the group code folds away, so a text prompt runs the kernels it ran
+// before image groups, bit for bit and at their speed (the or-mask built
+// into every launch cost the causal launches 7-8 % and spilled the
+// 128-register hd-48/64 shapes). A grouped CTA's extra tiles are work the
+// causal mask would skip: a PaliGemma prompt (every row in group 0) makes
+// every CTA grouped, about twice a causal prefill's pairs.
 //
 // float32 -> prefill_f32_simple_kernel: the first version's CUDA-core
 // kernel, kept because TF32 does not hold the 1e-4 that the float32 parity
@@ -103,7 +125,14 @@
 #include "attention_common.cuh"
 #include "wgmma.cuh"
 
+#ifndef PREFILL_GROUPS
+#define PREFILL_GROUPS 0
+#endif
+
 namespace {
+
+// the image-group or-mask is compiled in (csrc/prefill_groups.cu)
+constexpr bool kGroups = PREFILL_GROUPS != 0;
 
 // ------------------------------------------------------------------------
 // float32 route: CUDA cores, float32 math throughout.
@@ -128,7 +157,9 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
                           int qh, int kvh, int ps, int num_pages, int max_pages,
                           float sm_scale, int window, float soft_cap,
                           const float* __restrict__ k_scale,
-                          const float* __restrict__ v_scale) {
+                          const float* __restrict__ v_scale,
+                          const int* __restrict__ q_groups,
+                          const int* __restrict__ kv_groups, int group_pages) {
   constexpr int V = Vec<T>::N;
   constexpr int VK = Vec<KVT>::N;    // pool elements per 16-byte load
   constexpr int kCols = HD / 4;   // accumulator columns per thread
@@ -154,11 +185,16 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
   const int kv_len = kv_lens[s];
   const int ctx = kv_len - q_len;                 // position of token 0
   const int tok_last = min(tok0 + qb, q_len) - 1;
-  const int kv_end = min(kv_len, ctx + tok_last + 1);
-
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // image groups: a CTA with a grouped row walks [0, kv_len)
+  bool grouped = false;
+  if (kGroups && q_groups != nullptr) {
+    const int tg = tid <= tok_last - tok0 ? q_groups[q_start + tok0 + tid] : -1;
+    grouped = __syncthreads_or(tg >= 0);
+  }
+  const int kv_end = grouped ? kv_len : min(kv_len, ctx + tok_last + 1);
 
   extern __shared__ float smem[];
   float* q_s = smem;                          // [kRows][HD]
@@ -167,6 +203,7 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
   float* p_s = v_s + kTile * HD;              // [kRows][kPStride]
   float* a_s = p_s + kRows * kPStride;        // [kRows] rescale factor
   float* l_s = a_s + kRows;                   // [kRows] final denominators
+  int* g_s = reinterpret_cast<int*>(l_s + kRows);   // [kTile] the tile's groups
 
   // rows: r = token_local * gs + g  ->  head h*group + g0 + g
   for (int i = tid * V; i < kRows * HD; i += kThreads * V) {
@@ -184,12 +221,15 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
 
   // per-row online-softmax state, owned by the warp that scores the row
   float m_r[kRowsPerWarp], l_r[kRowsPerWarp];
+  int gq_r[kRowsPerWarp];   // each row's image group (-1: none)
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int r = warp + j * kWarps;
     const bool sink = sinks != nullptr && r < rows;
     m_r[j] = sink ? sinks[head_of(r)] : ATTN_MASK;
     l_r[j] = sink ? 1.f : 0.f;
+    const int tok = tok0 + r / gs;
+    gq_r[j] = grouped && r < rows && tok < q_len ? q_groups[q_start + tok] : -1;
   }
   // P.V accumulator: row tid/4, columns (tid%4) + 4*c
   const int acc_row = tid >> 2;
@@ -199,7 +239,7 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
   for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
 
   int start = 0;
-  if (window > 0) start = max(0, ctx + tok0 - window + 1);
+  if (window > 0 && !grouped) start = max(0, ctx + tok0 - window + 1);
   start = (start / kTile) * kTile;
   const int* pt = page_idx + (size_t)s * max_pages;
   // an 8-bit pool's scales (1 for a pool of q's type)
@@ -219,7 +259,9 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
         const KVT* row = kv + (((size_t)page * ps + pos % ps) * combined + 2 * h) * HD;
         load_vec<KVT>(row + d, kr);
         load_vec<KVT>(row + HD + d, vr);
+        if (grouped && d == 0) g_s[t] = kv_groups[(page % group_pages) * ps + pos % ps];
       } else {
+        if (kGroups && d == 0) g_s[t] = -1;
 #pragma unroll
         for (int j = 0; j < VK; ++j) kr[j] = vr[j] = 0.f;
       }
@@ -248,8 +290,10 @@ prefill_f32_simple_kernel(const T* __restrict__ q, const KVT* __restrict__ kv,
       const int r = warp + j * kWarps;
       const int tok = tok0 + r / gs;
       const int q_pos = ctx + tok;
+      const bool causal = pos <= q_pos && (window <= 0 || pos > q_pos - window);
+      const bool same = gq_r[j] >= 0 && gq_r[j] == g_s[lane];
       const bool valid = r < rows && tok < q_len && r % gs < grows && pos < kv_end &&
-                         pos <= q_pos && (window <= 0 || pos > q_pos - window);
+                         (causal || same);
       const float sc = attn_score(dot[j], sm_scale, alibi, head_of(r), pos, q_pos,
                                   soft_cap, valid);
       const float m_new = fmaxf(m_r[j], warp_max(sc));
@@ -294,11 +338,13 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
                    const float* alibi, void* out, int S, int qh, int kvh, int ps,
                    int num_pages, int max_pages, int max_q_len, float sm_scale,
                    int window, float soft_cap, const float* k_scale,
-                   const float* v_scale, cudaStream_t stream) {
+                   const float* v_scale, const int* q_groups, const int* kv_groups,
+                   int group_pages, cudaStream_t stream) {
   const HeadChunks hc = head_chunks(qh / kvh, kRows);
   const int qb = kRows / hc.size;
-  const size_t smem = sizeof(float) *
-      (kRows * HD + kTile * (HD + 1) + kTile * HD + kRows * kPStride + 2 * kRows);
+  const size_t smem = sizeof(float) * (kRows * HD + kTile * (HD + 1) + kTile * HD +
+                                       kRows * kPStride + 2 * kRows +
+                                       (kGroups ? kTile : 0));
   auto kernel = prefill_f32_simple_kernel<float, KVT, HD>;
   static SmemAllowed allowed = {};
   cudaError_t err = allow_smem(kernel, smem, &allowed);
@@ -307,7 +353,8 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KVT*>(kv), kv_lens, page_idx,
       cu_q_lens, sinks, alibi, static_cast<float*>(out), qh, kvh, ps, num_pages,
-      max_pages, sm_scale, window, soft_cap, k_scale, v_scale);
+      max_pages, sm_scale, window, soft_cap, k_scale, v_scale, q_groups, kv_groups,
+      group_pages);
   return cudaGetLastError();
 }
 
@@ -363,7 +410,9 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
                      const float* __restrict__ alibi, bf16* __restrict__ out, int qh,
                      int kvh, int ps, int num_pages, int max_pages, float sm_scale,
                      int window, float soft_cap, const float* __restrict__ k_scale,
-                     const float* __restrict__ v_scale) {
+                     const float* __restrict__ v_scale,
+                     const int* __restrict__ q_groups,
+                     const int* __restrict__ kv_groups, int group_pages) {
   constexpr int HP = tile_hd(HD);   // the shared-memory tiles' width
   typedef Shape<HP, KV> SH;
   constexpr bool Q8 = SH::Q8;
@@ -377,7 +426,8 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
   constexpr int KS = HP / 16;    // k-steps of Q.K^T
   constexpr int ON = HP / 8;     // 8-dim blocks of the output
 
-  // heaviest first: the last query block has the longest causal span
+  // heaviest first: the last query block has the longest causal span (a
+  // heuristic with image groups: a grouped block walks [0, kv_len))
   const int qblk = gridDim.x - 1 - blockIdx.x;
   const int group = qh / kvh;
   const HeadChunks hc = head_chunks(group, kRows);
@@ -430,7 +480,15 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
   auto head_of = [&](int r) { return h * group + g0 + min(r % gs, grows - 1); };
   const int q_pos_first = ctx + tok0;
   const int q_pos_last = ctx + tok_last;
-  const int kv_end = min(kv_len, q_pos_last + 1);
+  // image groups: a CTA with a grouped row walks [0, kv_len)
+  bool grouped = false;
+  if (kGroups && q_groups != nullptr) {
+    const int tg = tid < ntok ? q_groups[q_start + tok0 + tid] : -1;
+    grouped = __syncthreads_or(tg >= 0);
+  }
+  const int kv_end = grouped ? kv_len : min(kv_len, q_pos_last + 1);
+  // the group ids of a ring stage's positions (grouped CTAs only)
+  __shared__ int grp_s[kGroups ? SH::STAGES : 1][kGroups ? kTile : 1];
 
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -448,7 +506,7 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
   unsigned char* wide_s = kv_s + kStages * 2 * kRawBytes;
 
   int start = 0;
-  if (window > 0) start = max(0, q_pos_first - window + 1);
+  if (window > 0 && !grouped) start = max(0, q_pos_first - window + 1);
   start = (start / kTile) * kTile;
   const int n_tiles = kv_end > start ? (kv_end - start + kTile - 1) / kTile : 0;
 
@@ -472,7 +530,11 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
       const int pos = base + ld_r + k * kRowStep;
       const bool live = pos < kv_end;
       const int page = min(max(pages.p[k], 0), num_pages - 1);
-      const int slot = page * ps + (ps_shift >= 0 ? pos & (ps - 1) : pos % ps);
+      const int off_in_page = ps_shift >= 0 ? pos & (ps - 1) : pos % ps;
+      const int slot = page * ps + off_in_page;
+      if (grouped && ld_q == 0)
+        grp_s[st][ld_r + k * kRowStep] =
+            live ? kv_groups[(page % group_pages) * ps + off_in_page] : -1;
       if constexpr (Q8) {
         // 8-bit rows as they are, row major: [kTile][HP bytes]; this
         // thread's chunks ld_q + 4i of its rows
@@ -528,13 +590,14 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
 
   // This thread's two rows: row0 + g and row0 + g + 8.
   const int row0 = warp * 16;
-  int q_pos_r[2];
+  int q_pos_r[2], gq_r[2];
   float slope_r[2], m_r[2], l_r[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int r = row0 + g + 8 * e;
     const int head = head_of(r);
     q_pos_r[e] = ctx + tok0 + r / gs;
+    gq_r[e] = grouped && row_live(r) ? q_groups[q_start + tok0 + r / gs] : -1;
     slope_r[e] = alibi != nullptr ? alibi[head] : 0.f;
     const bool sink = sinks != nullptr;
     m_r[e] = sink ? sinks[head] * ATTN_LOG2E : ATTN_MASK;
@@ -614,14 +677,20 @@ prefill_wgmma_kernel(const bf16* __restrict__ q, const void* __restrict__ kv_poo
     const bool full = base + kTile - 1 <= q_pos_first &&
                       (window <= 0 || base > q_pos_last - window);
     if (!full) {
+      // causal and window, or the row's image group is the key's (a row
+      // without a group has gq -1, as every row has without kGroups)
+      const int* gt = grp_s[j % kStages];
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int pos = base + n * 8 + 2 * t + (e & 1);
+          const int i = n * 8 + 2 * t + (e & 1);
+          const int pos = base + i;
           const int q_pos = q_pos_r[e >> 1];
-          const bool valid = pos <= q_pos && pos < kv_end &&
-                             (window <= 0 || pos > q_pos - window);
+          const int gq = gq_r[e >> 1];
+          const bool valid = pos < kv_end &&
+                             ((pos <= q_pos && (window <= 0 || pos > q_pos - window)) ||
+                              (gq >= 0 && gq == gt[i]));
           sacc[4 * n + e] = valid ? sacc[4 * n + e] : -INFINITY;
         }
       }
@@ -714,7 +783,8 @@ cudaError_t launch_as(const void* q, const void* kv, const int* kv_lens,
                       const float* alibi, void* out, int S, int qh, int kvh, int ps,
                       int num_pages, int max_pages, int max_q_len, float sm_scale,
                       int window, float soft_cap, const float* k_scale,
-                      const float* v_scale, cudaStream_t stream) {
+                      const float* v_scale, const int* q_groups, const int* kv_groups,
+                      int group_pages, cudaStream_t stream) {
   const HeadChunks hc = head_chunks(qh / kvh, kRows);
   const int qb = kRows / hc.size;
   constexpr size_t smem = Shape<tile_hd(HD), KV>::SMEM;
@@ -726,7 +796,7 @@ cudaError_t launch_as(const void* q, const void* kv, const int* kv_lens,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), kv, kv_lens, page_idx, cu_q_lens, sinks, alibi,
       static_cast<bf16*>(out), qh, kvh, ps, num_pages, max_pages, sm_scale, window,
-      soft_cap, k_scale, v_scale);
+      soft_cap, k_scale, v_scale, q_groups, kv_groups, group_pages);
   return cudaGetLastError();
 }
 
@@ -736,12 +806,13 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
                    const float* alibi, void* out, int S, int qh, int kvh, int ps,
                    int num_pages, int max_pages, int max_q_len, float sm_scale,
                    int window, float soft_cap, const float* k_scale,
-                   const float* v_scale, cudaStream_t stream) {
+                   const float* v_scale, const int* q_groups, const int* kv_groups,
+                   int group_pages, cudaStream_t stream) {
   const bool plain = alibi == nullptr && soft_cap <= 0.f && sm_scale > 0.f;
   auto fn = plain ? launch_as<HD, true, KV> : launch_as<HD, false, KV>;
   return fn(q, kv, kv_lens, page_idx, cu_q_lens, sinks, alibi, out, S, qh, kvh, ps,
             num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, k_scale,
-            v_scale, stream);
+            v_scale, q_groups, kv_groups, group_pages, stream);
 }
 
 }  // namespace wg
@@ -755,19 +826,37 @@ cudaError_t launch(const void* q, const void* kv, const int* kv_lens,
 // e4m3 (AttnKv); k_scale and v_scale are float32 device scalars that
 // dequantize an 8-bit pool (null: 1). Head dims 48, 64, 80, 96, 128 and 256.
 // max_q_len is the longest segment of this batch (host-known; it sizes the
-// grid).
+// grid). q_groups and kv_groups, a pool of group_pages pages: the
+// image-group or-mask, taken by ragged_prefill_attention_groups (built from
+// csrc/prefill_groups.cu, pools of q's type only); ragged_prefill_attention
+// refuses them.
+#if PREFILL_GROUPS
+extern "C" int ragged_prefill_attention_groups(
+#else
 extern "C" int ragged_prefill_attention(
+#endif
     const void* q, const void* kv, const int* kv_lens, const int* page_idx,
     const int* cu_q_lens, const float* sinks, const float* alibi, void* out,
     int S, int qh, int kvh, int hd, int ps, int num_pages, int max_pages,
     int max_q_len, float sm_scale, int window, float soft_cap, int dtype,
-    int kv_dtype, const float* k_scale, const float* v_scale, void* stream) {
+    int kv_dtype, const float* k_scale, const float* v_scale, const int* q_groups,
+    const int* kv_groups, int group_pages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 0 || max_q_len <= 0) return 0;
   if (qh % kvh != 0) return (int)cudaErrorInvalidValue;
+  if (kGroups != (q_groups != nullptr) ||
+      (kGroups && (kv_groups == nullptr || group_pages <= 0)))
+    return (int)cudaErrorInvalidValue;
 #define ARGS q, kv, kv_lens, page_idx, cu_q_lens, sinks, alibi, out, S, qh, kvh, \
              ps, num_pages, max_pages, max_q_len, sm_scale, window, soft_cap, \
-             k_scale, v_scale, st
+             k_scale, v_scale, q_groups, kv_groups, group_pages, st
+#if PREFILL_GROUPS
+#define BY_KV(HD)                                                                   \
+  if (hd == HD) {                                                                   \
+    if (dtype == ATTN_BF16 && kv_dtype == KV_SAME) return wg::launch<HD, KV_SAME>(ARGS); \
+    if (dtype == ATTN_F32 && kv_dtype == KV_SAME) return simple::launch<HD, float>(ARGS); \
+  }
+#else
 #define BY_KV(HD)                                                                   \
   if (hd == HD) {                                                                   \
     if (dtype == ATTN_BF16 && kv_dtype == KV_SAME) return wg::launch<HD, KV_SAME>(ARGS); \
@@ -778,6 +867,7 @@ extern "C" int ragged_prefill_attention(
     if (dtype == ATTN_F32 && kv_dtype == KV_E4M3)                                   \
       return simple::launch<HD, __nv_fp8_e4m3>(ARGS);                               \
   }
+#endif
   BY_KV(48)
   BY_KV(64)
   BY_KV(80)

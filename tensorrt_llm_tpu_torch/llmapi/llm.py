@@ -27,9 +27,13 @@ embeddings over the Llama trunk), the M-RoPE vision-language models
 qwen2_vl, qwen2_5_vl, qwen3_vl, qwen3_vl_moe and glm4v (the Qwen2, Qwen3,
 Qwen3-MoE and GLM-4 trunks, whose prompt positions are the image grid's
 (temporal, height, width) sections and whose later positions move by the
-request's ``mrope_delta``), and ``bert`` (encoder-only: no KV pool, no
-executor; ``LLM.classify``); the JAX package's other multimodal types are
-refused by name.
+request's ``mrope_delta``), the image-group vision-language models gemma3
+/ gemma3_vl and paligemma (the Gemma 3 and Gemma 2 trunks, whose image
+tokens, or PaliGemma's whole prompt, attend bidirectionally within their
+group: the request's ``mm_group_ids``), mllama (the Llama trunk with
+cross-attention layers over the request's vision K/V, kept by sequence
+slot from its admission: the request's ``cross_states``), and ``bert``
+(encoder-only: no KV pool, no executor; ``LLM.classify``).
 
 A prompt is token ids, a string (with a tokenizer), or a dict as the JAX
 ``LLM`` takes it: ``prompt`` or ``prompt_token_ids``, with
@@ -646,6 +650,8 @@ class LLM:
         if prompt_embeds is not None:
             prompt_embeds = self._check_embeds(prompt_embeds, token_ids,
                                                sampling_params)
+        elif mm_extra.get("cross_states") is not None:
+            self._check_mm_path(sampling_params)
         room = self.args.max_seq_len - len(token_ids)
         if room < 1:
             raise ValueError("prompt leaves no room for generation within "
@@ -672,10 +678,11 @@ class LLM:
                     # that the samples part deterministically
                     sib.seed = (sampling_params.seed * 0x9E3779B1
                                 + j) & 0x7FFFFFFF or 1
-                # each sample carries the prompt's embeddings and M-RoPE
-                # positions (the JAX LLM submits its siblings without
-                # them, llm.py:844-866, so they decode the placeholders'
-                # own embeddings at plain positions)
+                # each sample carries the prompt's embeddings, M-RoPE
+                # positions, image groups and cross states (the JAX LLM
+                # submits its siblings without them, llm.py:844-866, so
+                # they decode the placeholders' own embeddings at plain
+                # positions, causally and without the image's K/V)
                 extra.append(self.executor.submit(LlmRequest(
                     prompt_token_ids=list(token_ids), sampling_params=sib,
                     cache_salt=cache_salt, prompt_embeds=prompt_embeds,
@@ -741,9 +748,21 @@ class LLM:
     def _check_embeds(self, prompt_embeds, token_ids: List[int],
                       sp: SamplingParams) -> torch.Tensor:
         """A request's prompt embeddings as float32 [T, H] on the device,
-        with the refusals of their path: ``prompt_logprobs`` (the JAX
-        ValueError, llm.py:812-818), beam search and speculative decoding
-        (by name: neither the beam rows nor a drafter take embeddings)."""
+        with the refusals of their path (``_check_mm_path``)."""
+        self._check_mm_path(sp)
+        e = torch.as_tensor(prompt_embeds.detach() if isinstance(
+            prompt_embeds, torch.Tensor) else np.asarray(
+                prompt_embeds, np.float32))
+        if e.dim() != 2 or e.shape[0] != len(token_ids):
+            raise ValueError(f"prompt_embeds of shape {tuple(e.shape)} do "
+                             f"not cover the {len(token_ids)} prompt tokens")
+        return e.to(device=self.device, dtype=torch.float32)
+
+    def _check_mm_path(self, sp: SamplingParams) -> None:
+        """The refusals of a prompt with embeddings or cross states:
+        ``prompt_logprobs`` (the JAX ValueError, llm.py:812-818), beam
+        search and speculative decoding (by name: neither the beam rows
+        nor a drafter take embeddings or a slot's vision state)."""
         if sp.prompt_logprobs is not None:
             raise ValueError("prompt_logprobs is unsupported with "
                              "multimodal / prompt-embeds inputs")
@@ -757,13 +776,6 @@ class LLM:
                 f"speculative mode {sc.mode} with multimodal / "
                 "prompt-embeds inputs is not supported by this package: a "
                 "drafter sees token ids, not the embeddings")
-        e = torch.as_tensor(prompt_embeds.detach() if isinstance(
-            prompt_embeds, torch.Tensor) else np.asarray(
-                prompt_embeds, np.float32))
-        if e.dim() != 2 or e.shape[0] != len(token_ids):
-            raise ValueError(f"prompt_embeds of shape {tuple(e.shape)} do "
-                             f"not cover the {len(token_ids)} prompt tokens")
-        return e.to(device=self.device, dtype=torch.float32)
 
     def classify(self, prompts, token_type_ids=None) -> np.ndarray:
         """Encoder-only scoring (the JAX llm.py:898-906): lists of token

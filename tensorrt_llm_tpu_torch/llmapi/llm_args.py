@@ -224,8 +224,11 @@ GEMMA_MODEL_TYPES = ("gemma2", "gemma3_text")
 # also rotate by the image grid's positions)
 MROPE_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl", "qwen3_vl_moe",
                      "glm4v")
+# the image-group ones (their image tokens attend bidirectionally within
+# their group) and the cross-attention one (mllama)
+IMAGE_GROUP_MODEL_TYPES = ("gemma3", "gemma3_vl", "paligemma")
 VLM_MODEL_TYPES = ("llava", "llava_next", "mistral3", "internvl") \
-    + MROPE_MODEL_TYPES
+    + MROPE_MODEL_TYPES + IMAGE_GROUP_MODEL_TYPES + ("mllama",)
 # the LayerNorm GPT families (models/gpt_family.py, gpt2.py), whose
 # forward collects no hidden rows for an EAGLE3 head (nor does the JAX one)
 GPT_MODEL_TYPES = ("gpt2", "gpt_neox", "gptj", "falcon", "starcoder2",

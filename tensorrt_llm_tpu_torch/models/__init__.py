@@ -35,6 +35,9 @@ from ..multimodal import pixtral as _pixtral  # noqa: F401,E402
 from ..multimodal import glm4v as _glm4v  # noqa: F401,E402
 from ..multimodal import qwen2_vl as _qwen2_vl  # noqa: F401,E402
 from ..multimodal import qwen3_vl as _qwen3_vl  # noqa: F401,E402
+from ..multimodal import gemma3_vl as _gemma3_vl  # noqa: F401,E402
+from ..multimodal import paligemma as _paligemma  # noqa: F401,E402
+from ..multimodal import mllama as _mllama  # noqa: F401,E402
 
 __all__ = ["DecoderModelForCausalLM", "MODEL_REGISTRY", "ModelConfig",
            "get_model_class", "register_model", "from_jax_params"]

@@ -73,6 +73,13 @@ tower's tree: stacked ``blocks``, matrices [in, out]) become the port
 model's ``vision_params`` (``from_jax_vision``): the blocks unstacked into
 a list, every name and orientation kept, Qwen2.5-VL's ``is_full`` flags
 dropped (the port's tower holds ``fullatt_block_indexes`` as config).
+The image-group and cross-attention models (gemma3, paligemma, mllama):
+the trunk's tree as above (Mllama's self-attention layers are its
+``layers``; its stacked ``cross`` layers become a list of per-layer
+dicts, projections [out, in] and the MLP's gate and up fused), the
+tower's tree with ``vision=`` (SigLIP's stacked ``layers``, Mllama's
+``local`` and ``global``, unstacked) and ``projector=`` (the JAX model's
+``_projector``: the same names, as tensors).
 With ``kv_scales`` (a model on a quantized KV cache), the JAX Llama's
 per-layer ``kv_scale`` [L] (float32) becomes each layer's 0-dim float32
 ``kv_scale``, so that both packages quantize with the same scales.
@@ -128,16 +135,20 @@ def carry_projection(p: Dict[str, Any], device="cpu",
 def from_jax_params(params_np: Dict[str, Any], device="cpu",
                     dtype: Optional[torch.dtype] = None,
                     kv_scales: bool = False, model=None,
-                    vision=None) -> Dict[str, Any]:
+                    vision=None, projector=None) -> Dict[str, Any]:
     """JAX Llama params (numpy) -> port params (tensors on ``device``).
     ``dtype`` (default: the arrays' own) applies to the float weights,
     norms and biases; integers and float32 scales keep their types.
     ``kv_scales``: carry the layers' ``kv_scale`` (a quantized KV
     cache). ``model``: the port model, which a recurrent family's tree
-    needs for its layer order, and whose ``vision_params`` an M-RoPE
-    model's tower tree ``vision`` (numpy) becomes."""
+    needs for its layer order, and whose ``vision_params`` a
+    vision-language model's tower tree ``vision`` (numpy) becomes, and
+    its ``projector`` the tree ``projector``."""
     if vision is not None:
         model.vision_params = from_jax_vision(vision, device, dtype)
+    if projector is not None:
+        model.projector = {k: carry_array(v, device, dtype)
+                           for k, v in projector.items()}
 
     def t(a, dt=dtype) -> torch.Tensor:
         return carry_array(a, device, dt)
@@ -200,35 +211,68 @@ def from_jax_params(params_np: Dict[str, Any], device="cpu",
             layer["kv_scale"] = t(np.asarray(lay["kv_scale"][i],
                                              np.float32), torch.float32)
         layers.append(layer)
-    return {"embed": t(params_np["embed"]["weight"]),
-            "layers": layers,
-            "final_norm": t(params_np["final_norm"]),
-            "lm_head": proj(params_np["lm_head"])}
+    out = {"embed": t(params_np["embed"]["weight"]),
+           "layers": layers,
+           "final_norm": t(params_np["final_norm"]),
+           "lm_head": proj(params_np["lm_head"])}
+    if "cross" in params_np:                      # Mllama
+        out["cross"] = _from_jax_cross(params_np["cross"], t, proj, fused)
+    return out
+
+
+def _from_jax_cross(cross, t, proj, fused) -> list:
+    """Mllama's stacked cross-attention layers -> a list of the port's
+    per-layer dicts (multimodal/mllama.py ``_cross_layer``)."""
+    layers = []
+    for i in range(np.asarray(cross["norm"]).shape[0]):
+        def at(name):
+            return proj({k: v[i] for k, v in cross[name].items()})
+        layer = {n: t(cross[n][i]) for n in ("norm", "post_norm", "q_norm",
+                                              "k_norm")}
+        for n in ("gate_attn", "gate_mlp"):
+            layer[n] = t(np.asarray(cross[n][i], np.float32), torch.float32)
+        for n in ("q", "k", "v", "o", "down"):
+            layer[n] = at(n)
+        layer.update(fused(at, "gate_up", ("gate", "up")))
+        layers.append(layer)
+    return layers
+
+
+# the JAX towers' stacked per-layer trees: the M-RoPE towers' blocks,
+# SigLIP's layers, Mllama's local and global transformers
+_STACKED = ("blocks", "layers", "local", "global")
 
 
 def from_jax_vision(tree: Dict[str, Any], device="cpu",
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """An M-RoPE model's JAX tower tree (numpy) in the port's layout
-    (multimodal/qwen2_vl.py): the stacked ``blocks`` as a list of
-    per-block dicts without Qwen2.5-VL's ``is_full``; every other leaf, and
-    the mergers' dicts, as tensors of the same names. GLM-4.1V's position
-    table stays a float32 host array (its bicubic sampler's input), and
-    Qwen3-VL's gets that host copy beside it (``pos_host``)."""
+    """A vision-language model's JAX tower tree (numpy) in the port's
+    layout (multimodal/qwen2_vl.py, encoders.py, mllama.py): the stacked
+    trees (``_STACKED``) as lists of per-layer dicts (nested dicts kept)
+    without Qwen2.5-VL's ``is_full``; every other leaf, and the other
+    dicts, as tensors of the same names. GLM-4.1V's position table stays a
+    float32 host array (its bicubic sampler's input), and Qwen3-VL's gets
+    that host copy beside it (``pos_host``)."""
     def t(a):
         return carry_array(a, device, dtype)
+
+    def layer(v, i):
+        return {k: layer(x, i) if isinstance(x, dict) else t(x[i])
+                for k, x in v.items() if k != "is_full"}
     out: Dict[str, Any] = {}
     for k, v in tree.items():
-        if k == "blocks":
-            n = len(next(iter(v.values())))
-            out[k] = [{bk: t(bv[i]) for bk, bv in v.items()
-                       if bk != "is_full"} for i in range(n)]
+        if k in _STACKED:
+            first = next(iter(v.values()))
+            while isinstance(first, dict):
+                first = next(iter(first.values()))
+            out[k] = [layer(v, i) for i in range(len(first))]
         elif isinstance(v, dict):
             out[k] = {kk: t(vv) for kk, vv in v.items()}
         elif k == "pos" and "post_conv_ln" in tree:      # GLM-4.1V
             out[k] = np.asarray(v, np.float32)
         else:
             out[k] = t(v)
-    if isinstance(out.get("pos"), torch.Tensor):          # Qwen3-VL
+    if isinstance(out.get("pos"), torch.Tensor) and "blocks" in tree:
+        # Qwen3-VL
         out["pos_host"] = out["pos"].float().cpu().numpy()
     return out
 

@@ -51,7 +51,7 @@ from ..ops.norm import gemma_rms_norm
 from ..ops.rope import RopeConfig, rope_cos_sin
 from .llama import LlamaForCausalLM
 from .modeling_utils import (AttentionSpec, attention_block, embed_tokens,
-                             register_model)
+                             override_rows, register_model)
 
 
 @register_model("gemma2")
@@ -60,6 +60,8 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
     per_layer_kv_scale = False
     # the JAX Gemma loader folds no SmoothQuant scales
     takes_smoothing = False
+    # the sqrt(hidden) embedding scale applies to prompt-embedding rows too
+    scale_input_embeds = True
 
     _HF_MODULES = {**LlamaForCausalLM._HF_MODULES,
                    "pre_ffn_norm": "pre_feedforward_layernorm",
@@ -226,9 +228,15 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
         eps = self.rms_eps
         q_norm, k_norm = self._qk_norms()
         # the sqrt(H) scale applies to overridden rows too (JAX gemma.py:
-        # 141-142)
-        h = embed_tokens(params["embed"], token_ids, input_embeds,
-                         self.dtype) * self.embed_scale
+        # 141-142), unless the model scales only the looked-up rows
+        # (Gemma 3's image rows, multimodal/gemma3_vl.py)
+        if self.scale_input_embeds:
+            h = embed_tokens(params["embed"], token_ids, input_embeds,
+                             self.dtype) * self.embed_scale
+        else:
+            h = override_rows(embed_tokens(params["embed"], token_ids, None,
+                                           self.dtype) * self.embed_scale,
+                              input_embeds)
         specs = self.layer_specs
         cos_sin = {s.rope: rope_cos_sin(s.rope, metadata.positions)
                    for s in specs}

@@ -50,18 +50,9 @@ def register_model(*model_types: str):
 
 
 # model types the JAX package registers that this package does not serve
-# yet, each with its reason (the splice-only VLMs, llava, llava_next,
-# mistral3 and internvl, and the M-RoPE ones, qwen2_vl, qwen2_5_vl,
-# qwen3_vl, qwen3_vl_moe and glm4v, are served:
+# yet, each with its reason (none left: every multimodal type is served,
 # tensorrt_llm_tpu_torch/multimodal)
-_IMAGE_GROUPS = ("a multimodal model whose image tokens attend "
-                 "bidirectionally within their group, which the paged "
-                 "kernels' causal mask does not express")
-NOT_PORTED_MODEL_TYPES: Dict[str, str] = {
-    **{t: _IMAGE_GROUPS for t in ("gemma3", "gemma3_vl", "paligemma")},
-    "mllama": ("a multimodal model whose text layers cross-attend to the "
-               "image states, which the engine does not keep"),
-}
+NOT_PORTED_MODEL_TYPES: Dict[str, str] = {}
 
 
 def get_model_class(model_type: str) -> type:
@@ -167,11 +158,19 @@ def embed_tokens(embed: torch.Tensor, token_ids: torch.Tensor,
     first value is not NaN replaces its token's row, cast to ``dtype``
     (the JAX ``DecoderModelForCausalLM._embed``, models/modeling_utils.py:
     382-394). Every family's forward looks its tokens up through this."""
-    h = embed[token_ids].to(dtype)
+    return override_rows(embed[token_ids].to(dtype), input_embeds)
+
+
+def override_rows(h: torch.Tensor,
+                  input_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """``h`` [T, H] with each row of ``input_embeds`` whose first value is
+    not NaN in place of its row, cast to h's type (``embed_tokens``'
+    override, for a forward that scales the looked-up rows first)."""
     if input_embeds is None:
         return h
     override = ~torch.isnan(input_embeds[:, :1])
-    return torch.where(override, torch.nan_to_num(input_embeds).to(dtype), h)
+    return torch.where(override, torch.nan_to_num(input_embeds).to(h.dtype),
+                       h)
 
 
 class AttentionMethods(NamedTuple):

@@ -53,6 +53,26 @@ def image_token_of(cfg) -> int:
     return tok if tok is not None else cfg.image_token_id
 
 
+def split_checkpoint(sd: Mapping[str, Any], vision: str = "vision_tower."
+                     ) -> Tuple[Mapping, Mapping, Mapping]:
+    """(trunk, tower, projector) views of a vision-language checkpoint:
+    the trunk's under the Llama names (``model.layers...``,
+    ``lm_head.weight``), the tower's and the projector's below their
+    prefixes (``vision``: the tower's, ``vision_model.`` for Mllama)."""
+    lm, vis, pj = {}, {}, {}
+    for k in sd:
+        k2 = k[len("model."):] if k.startswith("model.") else k
+        if k2.startswith("language_model."):
+            lm["model." + k2[len("language_model."):]] = k
+        elif k2.startswith(vision):
+            vis[k2[len(vision):]] = k
+        elif k2.startswith("multi_modal_projector."):
+            pj[k2[len("multi_modal_projector."):]] = k
+        elif k2 == "lm_head.weight":
+            lm["lm_head.weight"] = k
+    return _Renamed(sd, lm), _Renamed(sd, vis), _Renamed(sd, pj)
+
+
 class VisionLanguageModel(LlamaForCausalLM):
     """A Llama trunk over ``text_config`` with a vision tower and a
     projector beside it."""
@@ -68,21 +88,7 @@ class VisionLanguageModel(LlamaForCausalLM):
 
     def split_state_dict(self, sd: Mapping[str, Any]
                          ) -> Tuple[Mapping, Mapping, Mapping]:
-        """(trunk, tower, projector) views of a checkpoint: the trunk's
-        under the Llama names (``model.layers...``, ``lm_head.weight``),
-        the tower's and the projector's below their prefixes."""
-        lm, vis, pj = {}, {}, {}
-        for k in sd:
-            k2 = k[len("model."):] if k.startswith("model.") else k
-            if k2.startswith("language_model."):
-                lm["model." + k2[len("language_model."):]] = k
-            elif k2.startswith("vision_tower."):
-                vis[k2[len("vision_tower."):]] = k
-            elif k2.startswith("multi_modal_projector."):
-                pj[k2[len("multi_modal_projector."):]] = k
-            elif k2 == "lm_head.weight":
-                lm["lm_head.weight"] = k
-        return _Renamed(sd, lm), _Renamed(sd, vis), _Renamed(sd, pj)
+        return split_checkpoint(sd)
 
     def tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(device=self.device, dtype=self.dtype)

@@ -15,6 +15,10 @@ axis. Each layer:
      mixed batch are q_len-1 segments of that kernel. This is the JAX
      package's ``hybrid_decode`` rule. The prefill kernel takes segments
      of any length, so there is no dense fallback for long segments.
+     A step whose query rows carry an image group (``mm_grouped``: the
+     image-group VLMs' prompt rows) always goes to the prefill kernel,
+     which ORs same-group pairs into its mask; the JAX package sends such
+     steps to its dense reference (ops/attention.py:394-402).
 
 ``_reference_attention`` is the dense gather implementation of the same
 semantics, kept for the tests. Both attention paths take ``k_scale`` /
@@ -71,6 +75,20 @@ class AttentionMetadata:
                       tables only (an M-RoPE sequence's ``mrope_delta``
                       in the decode windows, where all three axes hold
                       pos + delta and M-RoPE is plain RoPE there); None: 0.
+      mm_groups_q:    i32[T]   each new token's image group, -1 for none
+                      (the image-group VLMs, multimodal/gemma3_vl.py);
+                      None elsewhere.
+      mm_group_pool:  i32[pages * page_size] the persistent group id of
+                      every KV slot (-1: none), layer-independent: a
+                      layer's page ``l * P + i`` reads entry ``i``.
+      mm_grouped:     host bool, some row of ``mm_groups_q`` is >= 0: the
+                      or-mask applies (the kernels take the groups only
+                      then, so a text step runs the causal code).
+      cross_segments: host list of (first row, end row, sequence slot) of
+                      each sequence of a prompt step (Mllama's
+                      cross-attention reads the slot's vision state,
+                      multimodal/mllama.py; slot -1: none); None
+                      elsewhere.
     """
     kv_lens: torch.Tensor
     page_indices: torch.Tensor
@@ -86,6 +104,10 @@ class AttentionMetadata:
     seq_slots: Optional[torch.Tensor] = None
     positions_mrope: Optional[torch.Tensor] = None
     rope_offset: Optional[torch.Tensor] = None
+    mm_groups_q: Optional[torch.Tensor] = None
+    mm_group_pool: Optional[torch.Tensor] = None
+    mm_grouped: bool = False
+    cross_segments: Optional[list] = None
 
     def for_sliding_pool(self) -> "AttentionMetadata":
         """This metadata addressed at the sliding pool (VSWA); with
@@ -212,7 +234,9 @@ def ragged_paged_attention(q: torch.Tensor,            # [T, qh, hd]
     opts = dict(sm_scale=sm_scale, sliding_window=sliding_window,
                 soft_cap=soft_cap, alibi_slopes=alibi_slopes, sinks=sinks,
                 k_scale=k_scale, v_scale=v_scale)
-    if max_q <= 1:
+    grouped = metadata.mm_grouped and metadata.mm_groups_q is not None \
+        and metadata.mm_group_pool is not None
+    if max_q <= 1 and not grouped:
         # decode-only batch: row i of q is sequence i's single token
         m = min(S, T)
         out_s = paged_decode_attention(
@@ -224,9 +248,12 @@ def ragged_paged_attention(q: torch.Tensor,            # [T, qh, hd]
         out = torch.zeros_like(q)
         out[:m] = out_s
         return out
+    if grouped:
+        opts.update(q_groups=metadata.mm_groups_q,
+                    kv_group_pool=metadata.mm_group_pool)
     return ragged_prefill_attention(
         q, kv_pages, metadata.kv_lens, metadata.page_indices,
-        metadata.cu_q_lens, max_q_len=max_q, **opts)
+        metadata.cu_q_lens, max_q_len=max(max_q, 1), **opts)
 
 
 def _reference_attention(q, kv_pages, metadata, *, sm_scale,
@@ -235,8 +262,8 @@ def _reference_attention(q, kv_pages, metadata, *, sm_scale,
                          v_scale=None):
     """Dense gather-based paged attention, vectorized over sequences (the
     JAX package's ``_reference_attention`` for the dense-model features,
-    the 8-bit pool's dequant included; a fully masked padding row averages
-    V, as there)."""
+    the 8-bit pool's dequant and the image-group or-mask included; a fully
+    masked padding row averages V, as there)."""
     T, num_q_heads, head_dim = q.shape
     num_pages, page_size, combined, _ = kv_pages.shape
     num_kv_heads = combined // 2
@@ -274,6 +301,18 @@ def _reference_attention(q, kv_pages, metadata, *, sm_scale,
     valid = (kv_pos[None, :] <= tok_kv_pos[:, None]) & in_len
     if sliding_window is not None:
         valid &= kv_pos[None, :] > (tok_kv_pos[:, None] - sliding_window)
+    if metadata.mm_group_pool is not None and \
+            metadata.mm_groups_q is not None:
+        # same-image pairs attend bidirectionally, past the diagonal and
+        # outside the window, never past the length bound (JAX
+        # ops/attention.py:568-586); the group pool is layer-independent,
+        # so the modulo folds layer_metadata's l * P offset back
+        pool2d = metadata.mm_group_pool.reshape(-1, page_size)
+        kv_groups = pool2d[metadata.page_indices.reshape(-1).long()
+                           % pool2d.shape[0]].reshape(S, max_kv)
+        gq = metadata.mm_groups_q.long()
+        bidir = (gq[:, None] >= 0) & (gq[:, None] == kv_groups[seq_of_tok])
+        valid |= bidir & in_len
     neg = torch.finfo(torch.float32).min
     scores = torch.where(valid[:, None, None, :], scores, neg)
     if sinks is not None:

@@ -31,7 +31,9 @@ from typing import Counter, Dict, Iterator, List, Tuple
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("decode_attention", "prefill_attention", "quant_matmul")
+# prefill_groups: prefill_attention.cu again with the image-group or-mask
+KERNELS = ("decode_attention", "prefill_attention", "prefill_groups",
+           "quant_matmul")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -51,8 +53,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of ``name`` under a hash of every source in csrc/ (a
+    source may include another's .cu: prefill_groups.cu)."""
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

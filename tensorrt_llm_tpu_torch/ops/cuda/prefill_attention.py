@@ -36,6 +36,21 @@ and the kernels copy the 8-bit tiles and dequantize them with the same
 arithmetic into bf16 operand tiles in shared memory (wgmma reads bf16; q
 stays bf16); the scales are device pointers.
 
+Image groups (the image-group VLMs: Gemma 3's images, PaliGemma's whole
+prompt): with ``q_groups`` (i32[T], -1 = none) and ``kv_group_pool`` (the
+group id of every KV slot, read at ``(page % pool_pages) * ps +
+offset``, so a layer's view of a flat all-layers pool folds back onto
+the one group pool), a pair whose query group is >= 0 and equals the
+key's is visible past the diagonal and outside the window, never past
+kv_len (the JAX ``_reference_attention``'s or-mask, ops/attention.py:
+568-586, which the JAX package serves only on its dense path). In the
+kernels a CTA whose rows carry a group walks the whole KV range [0,
+kv_len); a CTA without one walks its causal span as before. The mask is
+compiled into a library of its own (``csrc/prefill_groups.cu``), launched
+only for a call with groups, so a text step's kernels are the ones without
+it; it takes pools of q's type (an 8-bit pool with groups is refused by
+name). ``LAUNCHES_GROUPS`` counts the launches that carried groups.
+
 ``ragged_prefill_attention`` launches the kernel for CUDA tensors and runs
 ``ragged_prefill_attention_plain`` only for CPU tensors. ``LAUNCHES``
 counts kernel launches (a captured launch once per replay of its graph).
@@ -60,6 +75,8 @@ LAUNCHES = 0
 # LAUNCHES, where the kernel launches)
 LAUNCHES_SINKS = 0
 LAUNCHES_ALIBI = 0
+# launches with the image-group or-mask
+LAUNCHES_GROUPS = 0
 
 
 def route_for(dtype: torch.dtype) -> str:
@@ -70,11 +87,16 @@ def route_for(dtype: torch.dtype) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The built C entry point, with its ctypes signature set once."""
-    fn = _build.load("prefill_attention").ragged_prefill_attention
+def _kernel(groups: bool = False):
+    """The built C entry point (with the image-group or-mask: the
+    ``prefill_groups`` library's), with its ctypes signature set once."""
+    if groups:
+        fn = _build.load("prefill_groups").ragged_prefill_attention_groups
+    else:
+        fn = _build.load("prefill_attention").ragged_prefill_attention
     P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P_] * 8 + [I_] * 8 + [F_, I_, F_, I_, I_, P_, P_, P_]
+    fn.argtypes = [P_] * 8 + [I_] * 8 + [F_, I_, F_, I_, I_, P_, P_, P_, P_,
+                                         I_, P_]
     fn.restype = I_
     return fn
 
@@ -89,11 +111,14 @@ def ragged_prefill_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
                                    alibi_slopes: Optional[Sequence[float]]
                                    = None,
                                    sinks: Optional[torch.Tensor] = None,
-                                   k_scale=None, v_scale=None
-                                   ) -> torch.Tensor:
+                                   k_scale=None, v_scale=None,
+                                   q_groups: Optional[torch.Tensor] = None,
+                                   kv_group_pool: Optional[torch.Tensor]
+                                   = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, one sequence at a time: gather
     the sequence's pages, dequantize an 8-bit pool (``dequant_kv``),
-    causal + window mask, float32 softmax (sink logit in the denominator
+    causal + window mask OR the same-image-group pairs (``q_groups`` /
+    ``kv_group_pool``), float32 softmax (sink logit in the denominator
     when given). Rows past cu_q_lens[S] are 0."""
     T, qh, hd = q.shape
     P, ps, combined, _ = kv_pages.shape
@@ -126,6 +151,13 @@ def ragged_prefill_attention_plain(q: torch.Tensor, kv_pages: torch.Tensor,
         valid = pos[None, :] <= q_pos[:, None]
         if sliding_window is not None:
             valid &= pos[None, :] > q_pos[:, None] - sliding_window
+        if q_groups is not None:
+            gpages = kv_group_pool.numel() // ps
+            slots = (pids % gpages)[:, None] * ps + torch.arange(
+                ps, device=q.device)
+            kg = kv_group_pool[slots.reshape(-1)[:kv_len]]
+            gq = q_groups[cu[s]:cu[s + 1]]
+            valid |= (gq[:, None] >= 0) & (gq[:, None] == kg[None, :])
         scores = scores.masked_fill(~valid, float("-inf"))
         m = scores.amax(dim=-1)                         # [kvh, g, t]
         if sk is not None:
@@ -152,20 +184,27 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                              alibi_slopes: Optional[Sequence[float]] = None,
                              sinks: Optional[torch.Tensor] = None,
                              k_scale=None, v_scale=None,
-                             max_q_len: Optional[int] = None
+                             max_q_len: Optional[int] = None,
+                             q_groups: Optional[torch.Tensor] = None,
+                             kv_group_pool: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """q [T, qh, hd] packed by cu_q_lens i32[S+1]; kv_pages
     [P, ps, 2*kvh, hd] in q's type, int8 or float8 e4m3; kv_lens i32[S];
     page_indices i32[S, max_pages] -> out [T, qh, hd]. ``k_scale`` /
     ``v_scale`` dequantize an 8-bit pool (0-dim float32 tensors on q's
     device, or floats; None: 1). ``max_q_len`` (the longest segment)
-    sizes the grid; pass it from the host to avoid a device sync."""
+    sizes the grid; pass it from the host to avoid a device sync.
+    ``q_groups`` i32[T] and ``kv_group_pool`` i32[pool_pages * ps]
+    (together or not at all): the image-group or-mask."""
+    if (q_groups is None) != (kv_group_pool is None):
+        raise ValueError("q_groups and kv_group_pool go together")
     if q.device.type == "cpu":
         return ragged_prefill_attention_plain(
             q, kv_pages, kv_lens, page_indices, cu_q_lens,
             sm_scale=sm_scale, sliding_window=sliding_window,
             soft_cap=soft_cap, alibi_slopes=alibi_slopes, sinks=sinks,
-            k_scale=k_scale, v_scale=v_scale)
+            k_scale=k_scale, v_scale=v_scale, q_groups=q_groups,
+            kv_group_pool=kv_group_pool)
     T, qh, hd = q.shape
     P, ps, combined, _ = kv_pages.shape
     kvh = combined // 2
@@ -185,8 +224,22 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     sinks_t = _as_f32(sinks, q.device)
     alibi_t = _as_f32(alibi_slopes, q.device)
     ks, vs = scale_ptr(k_scale, q.device), scale_ptr(v_scale, q.device)
+    group_pages = 0
+    if q_groups is not None:
+        if q_groups.shape[0] < T or kv_group_pool.numel() % ps or \
+                q_groups.device != q.device or \
+                kv_group_pool.device != q.device:
+            raise ValueError("q_groups must cover the T rows and the group "
+                             "pool whole pages, on q's device")
+        if kv_dtype:
+            raise NotImplementedError(
+                "the image-group or-mask on an 8-bit KV pool is not "
+                "supported by this package")
+        q_groups = q_groups.to(torch.int32).contiguous()
+        kv_group_pool = kv_group_pool.to(torch.int32).contiguous()
+        group_pages = kv_group_pool.numel() // ps
     out = torch.zeros_like(q)
-    err = _kernel()(
+    err = _kernel(q_groups is not None)(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(), cu_q_lens.data_ptr(),
         sinks_t.data_ptr() if sinks_t is not None else None,
@@ -196,9 +249,13 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         float(soft_cap or 0.0), _DTYPES[q.dtype], kv_dtype,
         ks.data_ptr() if ks is not None else None,
         vs.data_ptr() if vs is not None else None,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q_groups.data_ptr() if q_groups is not None else None,
+        kv_group_pool.data_ptr() if q_groups is not None else None,
+        group_pages, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ragged_prefill_attention")
     _build.count_launch(__name__)
+    if q_groups is not None:
+        _build.count_launch(__name__, "LAUNCHES_GROUPS")
     if sinks_t is not None:
         _build.count_launch(__name__, "LAUNCHES_SINKS")
     if alibi_t is not None:

@@ -934,6 +934,16 @@ class PyExecutor:
                     # the windows rotate the slot's rows at pos + delta
                     self.engine.set_mrope_delta(req.seq_slot,
                                                 req.mrope_delta)
+                if self.engine._cross:
+                    # Mllama: the request's vision K/V into its slot, or
+                    # a text-only request clears the recycled slot's
+                    # (the JAX executor.py:1127-1135)
+                    if req.cross_states is not None:
+                        self.engine.set_cross_state(req.seq_slot,
+                                                    req.cross_states)
+                        req.cross_states = None
+                    else:
+                        self.engine.clear_cross_state(req.seq_slot)
                 sp = req.sampling_params
                 if sp.no_repeat_ngram_size > 0:
                     # seed the slot's token history with the context
@@ -1088,16 +1098,17 @@ class PyExecutor:
     # ------------------------------------------------------------------ #
     def _mixed_ok(self) -> bool:
         """Rider windows are on (``mixed_window_ctx`` > 0), the engine
-        has one KV pool (not VSWA) and no M-RoPE model, as in the JAX
-        package (executor.py:1214; its image-group engines are not ported
-        here). The K-step window itself stays on under VSWA and M-RoPE."""
+        has one KV pool (not VSWA) and no M-RoPE, image-group or
+        cross-attention model, as in the JAX package (executor.py:1214).
+        The K-step window itself stays on for all of them."""
         return self.engine.riders_ok
 
     def _ctx_rider_ok(self, r: LlmRequest) -> bool:
         """A context request can ride once it holds a slot and its KV,
         unless it carries prompt embeddings: a window takes token ids
         only, so such a request stays in the prefill step (the JAX
-        executor.py:1217-1223; this package has no cross states or LoRA
+        executor.py:1217-1223; the cross-attention model's requests never
+        meet a rider window, ``_mixed_ok``, and this package has no LoRA
         adapters, the JAX package's other reasons)."""
         return r.seq_slot is not None and r.prompt_embeds is None
 

@@ -26,8 +26,16 @@ to a bit per token on its way up), and M-RoPE (``_mrope``: single steps
 carry each token's ``positions_mrope`` as the JAX engine builds them,
 model_engine.py:1278-1294, and the K-step windows rotate each row at pos
 + its sequence's ``mrope_delta``, read from the slot-indexed
-``mrope_delta`` tensor, where the JAX windows drop the delta)) without
-LoRA, tree drafts, MoE statistics and pipeline parallelism.
+``mrope_delta`` tensor, where the JAX windows drop the delta), the
+image-group VLMs (``_mmg``: each step carries its tokens' image groups,
+``mm_groups``, which the model scatters into its group pool; a step with
+a group of 0 or more runs eagerly and its attention takes the or-mask in
+the prefill kernel; decode rows and the windows carry -1) and Mllama's
+cross cache (``_cross``: the slot-indexed vision K/V written at
+admission, ``set_cross_state`` / ``clear_cross_state``; prompt steps run
+eagerly with each sequence's rows and slot in ``cross_segments``, the
+windows read the cache through their rows' slots)) without LoRA, tree
+drafts, MoE statistics and pipeline parallelism.
 MoE models run through the same steps and graphs: their routing is
 computed on the device, and no MoE shape depends on it (ops/moe.py).
 
@@ -155,6 +163,8 @@ class StepInputs:
     slot_mapping_sw: Optional[np.ndarray] = None   # i32[T]
     # M-RoPE models: each token's (temporal, height, width) position
     positions_mrope: Optional[np.ndarray] = None   # i32[3, T]
+    # image-group models: each token's image group, -1 for none
+    mm_groups: Optional[np.ndarray] = None         # i32[T]
 
 
 def _pools(kv_pages) -> tuple:
@@ -252,8 +262,9 @@ class ModelEngine:
         # those with prompt tokens, which run eagerly
         self.verify_steps = 0
         self.verify_steps_with_prompt = 0
-        # eager steps that carried prompt-embedding rows
+        # eager steps that carried prompt-embedding rows, and image groups
         self.embed_steps = 0
+        self.grouped_steps = 0
         self.params = params
         # NVFP4 KV: stamp the e2m1-grid flag into the model's attention
         # specs so that write_kv rounds appended K/V onto the grid (the
@@ -293,6 +304,13 @@ class ModelEngine:
         self.mrope_delta: Optional[torch.Tensor] = torch.zeros(
             self.max_batch_size + 1, dtype=torch.int32,
             device=self.device) if self._mrope else None
+        # image-group VLMs (multimodal/gemma3_vl.py, paligemma.py): every
+        # step carries its tokens' groups (the model keeps the pool)
+        self._mmg = bool(getattr(model, "uses_mm_groups", False))
+        # Mllama: the slot-indexed cross cache (the model's ``cross_*``
+        # tensors, max_batch_size + 1 slots, the trash slot last), counted
+        # off the KV budget
+        self._cross = bool(getattr(model, "has_cross_states", False))
         self.num_kv_pages = num_kv_pages or self._default_num_pages()
         logger.info("KV pool: %d pages x %d tokens (%.1f MB/layer)%s",
                     self.num_kv_pages, self.page_size,
@@ -309,7 +327,7 @@ class ModelEngine:
                         self.num_sw_pages, model.vswa_window)
             self.pool_ids.append("kv_block_ids_sw")
         extra = {"num_sw_pages": self.num_sw_pages} if self._vswa else {}
-        if self._recurrent:
+        if self._recurrent or self._cross:
             extra["num_slots"] = self.max_batch_size + 1
         self.kv_pages = model.make_kv_pages(self.num_kv_pages,
                                             self.page_size, **extra)
@@ -351,8 +369,10 @@ class ModelEngine:
         return self._recurrent
 
     def recurrent_state_bytes(self) -> int:
-        """Device bytes of a recurrent model's state pools (0 for the
-        others)."""
+        """Device bytes of a recurrent model's state pools, or of Mllama's
+        cross cache (0 for the others)."""
+        if self._cross:
+            return self.model.cross_state_bytes(self.max_batch_size + 1)
         if not self._recurrent:
             return 0
         return self.model.state_bytes(self.max_batch_size + 1)
@@ -721,6 +741,23 @@ class ModelEngine:
             cur = torch.where((j < flen) & (cur >= 0), nxt, cur)
         return torch.where(tok == self.g_eos_id, st, cur)
 
+    @torch.no_grad()
+    def set_cross_state(self, slot: int, cross_states) -> None:
+        """Compute a request's per-layer vision K/V from its projected
+        cross states [n, H] (``model.compute_cross_kv``) and write them
+        into the slot's rows of the cross cache, in place on the steps'
+        stream (the JAX model_engine.py:1312-1325)."""
+        ks, vs = self.model.compute_cross_kv(self.params, cross_states)
+        n = ks.shape[2]
+        kv = self.kv_pages
+        kv["cross_k"][:, slot, :, :n] = ks.to(kv["cross_k"].dtype)
+        kv["cross_v"][:, slot, :, :n] = vs.to(kv["cross_v"].dtype)
+        kv["cross_len"][slot] = n
+
+    def clear_cross_state(self, slot: int) -> None:
+        """A text-only request in a recycled slot: no vision state."""
+        self.kv_pages["cross_len"][slot] = 0
+
     def set_mrope_delta(self, slot: int, delta: int) -> None:
         """Write a sequence slot's M-RoPE delta in place (a stream-ordered
         write: windows already dispatched read the old value)."""
@@ -966,6 +1003,20 @@ class ModelEngine:
                     rows = np.where(inside[None], mp[:, np.minimum(
                         p, mp.shape[1] - 1)], rows)
                 positions_mrope[:, lo:hi] = rows
+        mm_groups = None
+        if self._mmg:
+            # a prompt position takes the request's image group, any other
+            # -1 (the JAX model_engine.py:1267-1277)
+            mm_groups = np.full(len(pos_list), -1, np.int32)
+            for i, req in enumerate(reqs):
+                gi = req.mm_group_ids
+                if gi is None:
+                    continue
+                lo, hi = cu_q[i], cu_q[i + 1]
+                p = np.asarray(pos_list[lo:hi], np.int64)
+                inside = p < len(gi)
+                mm_groups[lo:hi] = np.where(
+                    inside, np.asarray(gi)[np.minimum(p, len(gi) - 1)], -1)
         return StepInputs(
             token_ids=np.asarray(tok_list, np.int32),
             prev_slot=np.asarray(prev_list, np.int32),
@@ -977,7 +1028,7 @@ class ModelEngine:
             num_tokens=len(tok_list), num_reqs=len(reqs), max_q_len=max_q,
             max_kv_len=int(kv_lens.max()), draft_ids=draft_ids,
             has_prompt=bool(batch.context_requests),
-            positions_mrope=positions_mrope,
+            positions_mrope=positions_mrope, mm_groups=mm_groups,
             **_sliding(page_indices_sw=tables[1:],
                        slot_mapping_sw=slot_maps[1:]))
 
@@ -1068,6 +1119,10 @@ class ModelEngine:
             pm = np.zeros((3, T), np.int32)
             pm[:, :n] = inp.positions_mrope
             inputs["positions_mrope"] = pm
+        if self._mmg:
+            groups = np.full(T, -1, np.int32)
+            groups[:n] = inp.mm_groups
+            inputs["mm_groups"] = groups
         if not greedy:
             inputs["samp_ints"], inputs["samp_floats"] = \
                 SamplingTensors.rows(reqs, S)
@@ -1176,15 +1231,25 @@ class ModelEngine:
         verify = bool((inp.draft_ids >= 0).any())
         self.verify_steps += verify
         embeds = self._prompt_embeds(batch, T)
-        if (inp.max_q_len > 1 and inp.has_prompt) or embeds is not None:
+        # a row with an image group takes the or-mask in the prefill
+        # kernel; an Mllama prompt step's rows attend by their slots
+        grouped = self._mmg and bool((inp.mm_groups >= 0).any())
+        if (inp.max_q_len > 1 and inp.has_prompt) or embeds is not None \
+                or grouped or (self._cross and inp.has_prompt):
             self.verify_steps_with_prompt += verify
             body = self._step_body(inp.max_q_len, inp.max_kv_len, greedy,
                                    use_penalties, k_lp, seeded,
-                                   collect_hidden, ops)
+                                   collect_hidden, ops, grouped)
             views = upload(inputs, self.device)
             if embeds is not None:
                 self.embed_steps += 1
                 views["input_embeds"] = embeds
+            if grouped:
+                self.grouped_steps += 1
+            if self._cross:
+                views["cross_segments"] = [
+                    (int(inp.cu_q_lens[i]), int(inp.cu_q_lens[i + 1]),
+                     r.seq_slot) for i, r in enumerate(reqs)]
             outs = body(views)
         elif verify:
             # the prefill kernel takes no KV hint: the page table's reach
@@ -1224,7 +1289,7 @@ class ModelEngine:
     def _step_body(self, max_q_len: int, kv_bound: int, greedy: bool,
                    use_penalties: bool, k_lp: int, seeded: bool = False,
                    collect_hidden: bool = False,
-                   ops: LogitsOps = LogitsOps()):
+                   ops: LogitsOps = LogitsOps(), mm_grouped: bool = False):
         S, G = self.max_batch_size, self.G
 
         def body(v):
@@ -1242,7 +1307,9 @@ class ModelEngine:
                 page_indices_sw=v.get("page_indices_sw"),
                 slot_mapping_sw=v.get("slot_mapping_sw"),
                 seq_slots=v["out_slots"],
-                positions_mrope=v.get("positions_mrope")),
+                positions_mrope=v.get("positions_mrope"),
+                mm_groups_q=v.get("mm_groups"), mm_grouped=mm_grouped,
+                cross_segments=v.get("cross_segments")),
                 collect_hidden=collect_hidden,
                 **({} if embeds is None else {"input_embeds": embeds}))
             if collect_hidden:
@@ -1343,10 +1410,13 @@ class ModelEngine:
         """Whether windows carry context riders: ``mixed_window_ctx`` > 0,
         no recurrent state (a rider's chunk would continue a prompt, which
         the state pools, written at a segment's end, do not follow), and
-        one KV pool and no M-RoPE model (the JAX executor's ``_mixed_ok``
-        also keeps them off under VSWA and M-RoPE)."""
+        one KV pool and no M-RoPE, image-group or cross-attention model
+        (the JAX executor's ``_mixed_ok``, executor.py:1206-1215, keeps
+        them off for these too: its cross-attention model's cache is a
+        dict)."""
         return self.mixed_ctx_tokens > 0 and not self._vswa \
-            and not self._recurrent and not self._mrope
+            and not self._recurrent and not self._mrope and not self._mmg \
+            and not self._cross
 
     @property
     def mixed_ctx_seqs(self) -> int:

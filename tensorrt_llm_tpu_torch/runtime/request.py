@@ -3,8 +3,9 @@
 Port of ``tensorrt_llm_tpu/runtime/request.py`` (``LlmRequest`` /
 ``LlmRequestState``), with the fields the JAX package sets on a request
 from outside it (``prompt_logprobs_result``; the M-RoPE fields
-``mrope_positions`` and ``mrope_delta``) declared here, and the beam rows'
-marker ``is_beam_row``.
+``mrope_positions`` and ``mrope_delta``; the image groups
+``mm_group_ids`` and Mllama's ``cross_states``) declared here, and the
+beam rows' marker ``is_beam_row``.
 Holds prompt/output tokens, scheduling state (context progress for chunked
 prefill), sampling params, and stop-criteria evaluation. Pure host object —
 nothing here touches a device.
@@ -77,7 +78,9 @@ class LlmRequest:
                  streaming: bool = False,
                  prompt_embeds=None,
                  mrope_positions=None,
-                 mrope_delta: int = 0):
+                 mrope_delta: int = 0,
+                 mm_group_ids=None,
+                 cross_states=None):
         self.request_id = next_request_id() if request_id is None else request_id
         self.prompt_token_ids: List[int] = list(prompt_token_ids)
         if not self.prompt_token_ids:
@@ -97,6 +100,14 @@ class LlmRequest:
         # pos + mrope_delta there); None and 0 for a text prompt
         self.mrope_positions = mrope_positions
         self.mrope_delta = int(mrope_delta)
+        # image-group VLMs (multimodal/gemma3_vl.py, paligemma.py): each
+        # prompt token's image group, int32 [prompt length] on the host,
+        # -1 for a token outside every image; None for a text prompt
+        self.mm_group_ids = mm_group_ids
+        # Mllama (multimodal/mllama.py): the projected vision states
+        # float32 [n, H] on the device, turned into the slot's cross K/V
+        # at admission and then dropped; None for a text prompt
+        self.cross_states = cross_states
         self.state = LlmRequestState.CONTEXT_INIT
         self.finish_reason = FinishReason.NOT_FINISHED
         self.output_token_ids: List[int] = []

@@ -1,6 +1,8 @@
 """Build report and split sweep of the paged attention kernels on the card.
 
     python -m tensorrt_llm_tpu_torch.tools.attention_sweep [--build-only]
+    python -m tensorrt_llm_tpu_torch.tools.attention_sweep \
+        --k2-against PATH
 
 Prints, one JSON object per line:
 
@@ -17,7 +19,16 @@ Prints, one JSON object per line:
   ``scaled_dot_product_attention`` on the gathered KV (PyTorch's pick of backend, and its FlashAttention and
   cuDNN backends one by one): what one CTA's chain of dependent steps
   costs, and what a full card sustains;
-- ``device``: the card's name and power limit as nvidia-smi gives them.
+- ``device``: the card's name and power limit as nvidia-smi gives them;
+- ``k2_against`` (``--k2-against PATH``, alone): this tree's prefill
+  kernel without image groups against the one another checkout at PATH
+  builds from its ``csrc/prefill_attention.cu`` (an entry point without
+  the three image-group arguments, as before them), on the same inputs
+  and in turns (other, this, this, other; median of 30 launches each),
+  at the bench-settings step (128 x 128, 16 x 128 heads), Qwen2.5-VL's
+  (8 x 640, 28 x 128 over 4) and Gemma-3-4B's text rows (8 x 320, 8 x
+  256 over 4, and on a window of 1,024 behind 960 positions): whether
+  the causal path moved.
 
 It needs a CUDA device and nvcc.
 """
@@ -132,9 +143,69 @@ def prefill_scale_sweep() -> None:
                "tflops": flops / ms / 1e9, "sdpa_ms": lib})
 
 
+def k2_against(other: str) -> None:
+    import ctypes
+    from pathlib import Path
+
+    import torch
+    from ..ops.cuda import _build
+    from ..ops.cuda import prefill_attention as pre
+    from .card_timing import make_case, time_ms
+    out = _build.BUILD_DIR / "libprefill_attention-against.so"
+    cmd = _build._nvcc_cmd("prefill_attention", out)
+    cmd[-1] = str(Path(other) / "tensorrt_llm_tpu_torch" / "csrc"
+                  / "prefill_attention.cu")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run(cmd, check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).ragged_prefill_attention
+    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P_] * 8 + [I_] * 8 + [F_, I_, F_, I_, I_, P_, P_, P_]
+    fn.restype = I_
+    for name, q_lens, ctx, qh, kvh, hd, window in [
+            ("prefill_bench", [128] * 128, [0] * 128, 16, 4, 128, None),
+            ("prefill_group7", [640] * 8, [0] * 8, 28, 4, 128, None),
+            ("gemma3_4b_text", [320] * 8, [0] * 8, 8, 4, 256, None),
+            ("gemma3_4b_window", [320] * 8, [960] * 8, 8, 4, 256, 1024)]:
+        q, pool, kv_lens, pt, cu = make_case(q_lens, ctx, qh, kvh, hd,
+                                             seed=len(name))
+        kw = dict(sm_scale=hd ** -0.5, sliding_window=window,
+                  max_q_len=max(q_lens))
+
+        def this():
+            return pre.ragged_prefill_attention(q, pool, kv_lens, pt, cu,
+                                                **kw)
+
+        def against():
+            o = torch.zeros_like(q)
+            err = fn(q.data_ptr(), pool.data_ptr(), kv_lens.data_ptr(),
+                     pt.data_ptr(), cu.data_ptr(), None, None, o.data_ptr(),
+                     len(q_lens), qh, kvh, hd, pool.shape[1], pool.shape[0],
+                     pt.shape[1], max(q_lens), kw["sm_scale"], window or 0,
+                     0.0, 1, 0, None, None,
+                     torch.cuda.current_stream().cuda_stream)
+            _build.check(err, "ragged_prefill_attention (against)")
+            return o
+        same = torch.equal(this(), against())
+        turns = [("against", against), ("this", this), ("this", this),
+                 ("against", against)]
+        times = {"against": [], "this": []}
+        for who, f in turns:
+            times[who].append(time_ms(f, 30))
+        _emit({"phase": "k2_against", "case": name, "other": other,
+               "shape": dict(seqs=len(q_lens), q_len=q_lens[0], ctx=ctx[0],
+                             qh=qh, kvh=kvh, hd=hd, window=window),
+               "bits_equal": same, "ms_this": times["this"],
+               "ms_against": times["against"]})
+        del q, pool, kv_lens, pt, cu
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--build-only", action="store_true")
+    ap.add_argument("--k2-against", default=None, metavar="PATH",
+                    help="time K2 without groups against another "
+                    "checkout's prefill kernel")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -145,6 +216,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     _emit({"phase": "device", "nvidia_smi": smi})
+    if args.k2_against:
+        k2_against(args.k2_against)
+        return 0
     build_report()
     if not args.build_only:
         decode_split_sweep()

@@ -155,6 +155,27 @@ Two workloads:
   them) -> 128 with ``ignore_eos``, ``LLM`` defaults but 8,192 tokens a
   prefill step and prefix reuse off (``--layers N`` cuts the text model
   only);
+- ``--geometry gemma-3-4b``: ``chip_smoke.py``'s gemma3vl_serving run,
+  Gemma-3-4B at its published width and depth (``GEMMA3_4B``: 34 text
+  layers, 2,560 wide, 8 x 256 q heads over 4 KV heads, five sliding
+  layers of window 1,024 to one global; SigLIP at 896 px, 27 layers,
+  pooled from 4,096 patches to 256 tokens), seeded random bf16 weights
+  made on the card, 64 requests of one 896 x 896 image from the host (256
+  tokens, one image group) and 64 text tokens -> 128 with ``ignore_eos``,
+  ``LLM`` defaults but 8,192 tokens a prefill step and prefix reuse off:
+  the prompt steps take K2's image-group or-mask;
+- ``--geometry llama-3.2-11b-vision``: ``chip_smoke.py``'s mllama_serving
+  run, Llama-3.2-11B-Vision at its published width (``LLAMA32_11B_VISION``:
+  40 text layers of which 8 cross-attend, 4,096 wide, 32 q heads over 8;
+  the tiled tower at 560 px, 4 tiles of 1,601 positions, 32 local and 8
+  global layers, 7,680 features projected to 4,096), seeded random bf16
+  weights made on the card, 16 requests (8 of one 4-tile image, 8
+  text-only) of 64 text tokens -> 64 with ``ignore_eos``, 16 batch rows
+  (the cross cache: 210 MB a slot), prefix reuse off (``--layers N``
+  cuts the text model to its first N layers);
+- ``--family paligemma2_3b`` (``VLM_FAMILIES``): PaliGemma-2-3B at 224 px
+  (Gemma 2's 2,304-wide trunk, every prompt token in image group 0) over
+  2 text layers with the whole tower;
 - ``--family NAME`` also takes the recurrent families
   (``RECURRENT_FAMILIES``: Mamba-2.8B, Falcon-Mamba-7B, Mamba2-2.7B,
   Granite-4.0-H-Tiny, Zamba2-1.2B, Jamba-v0.1, LFM2-1.2B,
@@ -216,6 +237,12 @@ K1 / K2 launches made while drafting (the rest are the target's).
         --geometry deepseek-v3-mtp [--spec MTP --draft-len 1 [--spec-host]]
     python -m tensorrt_llm_tpu_torch.tools.serving_profile \
         --geometry longcat-flash
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry gemma-3-4b
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --geometry llama-3.2-11b-vision [--layers 10]
+    python -m tensorrt_llm_tpu_torch.tools.serving_profile \
+        --family paligemma2_3b
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --surface
     python -m tensorrt_llm_tpu_torch.tools.serving_profile --guided \
         [--guided-backend dfa-host]
@@ -1124,6 +1151,174 @@ def bert_large_config():
     return transformers.BertConfig(**BERT_LARGE)
 
 
+# https://huggingface.co/google/gemma-3-4b-it config.json: the Gemma 3
+# trunk (34 layers, 2,560 wide, MLP 10,240, 8 x 256 q heads over 4 KV
+# heads, query scale 256, sliding window 1,024 on five layers of six,
+# global rope theta 1e6 with linear scaling 8, local 10,000) over a
+# vocabulary of 262,208; SigLIP at 896 px (27 layers, 1,152 wide, 16
+# heads, MLP 4,304, 14-pixel patches: 4,096 of them, average-pooled to
+# 256 tokens an image), the image token 262,144
+GEMMA3_4B = dict(image_token_index=262144, boi_token_index=255999,
+                 eoi_token_index=256000, mm_tokens_per_image=256)
+GEMMA3_4B_TEXT = dict(
+    vocab_size=262208, hidden_size=2560, intermediate_size=10240,
+    num_hidden_layers=34, num_attention_heads=8, num_key_value_heads=4,
+    head_dim=256, query_pre_attn_scalar=256, sliding_window=1024,
+    sliding_window_pattern=6, max_position_embeddings=131072,
+    rms_norm_eps=1e-6, rope_theta=1e6, rope_local_base_freq=10000.0,
+    rope_scaling={"factor": 8.0, "rope_type": "linear"},
+    attn_logit_softcapping=None, final_logit_softcapping=None,
+    hidden_activation="gelu_pytorch_tanh", bos_token_id=2, eos_token_id=1,
+    pad_token_id=0)
+GEMMA3_4B_VISION = dict(
+    hidden_size=1152, image_size=896, intermediate_size=4304,
+    num_attention_heads=16, num_hidden_layers=27, patch_size=14,
+    layer_norm_eps=1e-6, vision_use_head=False)
+# https://huggingface.co/meta-llama/Llama-3.2-11B-Vision-Instruct
+# config.json: the Llama 3.1 trunk (40 layers, cross-attention at 3, 8,
+# 13, 18, 23, 28, 33, 38; 4,096 wide, 32 q heads over 8, MLP 14,336, rope
+# theta 500,000 with llama3 scaling 8) over a vocabulary of 128,256 (the
+# embedding 8 rows longer), the image token 128,256; the tiled tower at
+# 560 px (14-pixel patches, 1,601 positions a tile with the class token,
+# up to 4 tiles; 32 local and 8 gated global layers 1,280 wide, 16 heads,
+# MLP 5,120; the final states joined to those of layers 3, 7, 15, 23, 30:
+# 7,680 features projected to 4,096)
+LLAMA32_11B_VISION = dict(image_token_index=128256)
+LLAMA32_11B_VISION_TEXT = dict(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=8,
+    cross_attention_layers=[3, 8, 13, 18, 23, 28, 33, 38],
+    max_position_embeddings=131072, rms_norm_eps=1e-5, rope_theta=500000.0,
+    rope_scaling={"factor": 8.0, "high_freq_factor": 4.0,
+                  "low_freq_factor": 1.0,
+                  "original_max_position_embeddings": 8192,
+                  "rope_type": "llama3"},
+    hidden_act="silu", tie_word_embeddings=False, bos_token_id=128000,
+    eos_token_id=128001, pad_token_id=128004)
+LLAMA32_11B_VISION_VISION = dict(
+    hidden_size=1280, image_size=560, patch_size=14, num_channels=3,
+    attention_heads=16, intermediate_size=5120, num_hidden_layers=32,
+    num_global_layers=8, max_num_tiles=4, norm_eps=1e-5,
+    intermediate_layers_indices=[3, 7, 15, 23, 30], vision_output_dim=7680,
+    supported_aspect_ratios=[[1, 1], [1, 2], [1, 3], [1, 4], [2, 1],
+                             [2, 2], [3, 1], [4, 1]], hidden_act="gelu")
+VLM_FAMILIES = {
+    # https://huggingface.co/google/paligemma2-3b-pt-224 config.json:
+    # Gemma 2's trunk (26 layers, 2,304 wide, MLP 9,216, 8 x 256 q heads
+    # over 4, window 4,096, soft caps 50 / 30) over 257,216 tokens, the
+    # image token 257,152; SigLIP at 224 px (27 layers, 1,152 wide, 16
+    # heads, 256 patches) projected to 2,304
+    "paligemma2_3b": ("PaliGemmaConfig", dict(
+        image_token_index=257152, projection_dim=2304, hidden_size=2048,
+        bos_token_id=2, eos_token_id=1, pad_token_id=0), dict(
+        model_type="gemma2", vocab_size=257216, hidden_size=2304,
+        intermediate_size=9216, num_hidden_layers=26,
+        num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+        query_pre_attn_scalar=256, sliding_window=4096,
+        final_logit_softcapping=30.0, attn_logit_softcapping=50.0,
+        hidden_activation="gelu_pytorch_tanh",
+        max_position_embeddings=8192), dict(
+        hidden_size=1152, intermediate_size=4304, num_attention_heads=16,
+        num_hidden_layers=27, patch_size=14, image_size=224,
+        projection_dim=2304, vision_use_head=False)),
+}
+
+
+def gemma3_4b_config(text_layers: Optional[int] = None):
+    """Gemma-3-4B's published config (``GEMMA3_4B``) with its text model
+    cut to ``text_layers`` layers (default all 34; the tower stays
+    whole)."""
+    import transformers
+    text = dict(GEMMA3_4B_TEXT)
+    if text_layers:
+        text["num_hidden_layers"] = text_layers
+    return transformers.Gemma3Config(
+        text_config=transformers.Gemma3TextConfig(**text).to_dict(),
+        vision_config=transformers.SiglipVisionConfig(
+            **GEMMA3_4B_VISION).to_dict(), **GEMMA3_4B)
+
+
+def llama32_11b_vision_config(text_layers: Optional[int] = None):
+    """Llama-3.2-11B-Vision's published config (``LLAMA32_11B_VISION``)
+    with its text model cut to its first ``text_layers`` layers and the
+    cross-attention layers among them (default all 40; the tower stays
+    whole)."""
+    import transformers
+    from transformers.models.mllama.configuration_mllama import (
+        MllamaTextConfig, MllamaVisionConfig)
+    text = dict(LLAMA32_11B_VISION_TEXT)
+    if text_layers:
+        text["num_hidden_layers"] = text_layers
+        text["cross_attention_layers"] = [
+            i for i in text["cross_attention_layers"] if i < text_layers]
+    return transformers.MllamaConfig(
+        text_config=MllamaTextConfig(**text).to_dict(),
+        vision_config=MllamaVisionConfig(
+            **LLAMA32_11B_VISION_VISION).to_dict(), **LLAMA32_11B_VISION)
+
+
+def vlm_family_config(name: str, text_layers: Optional[int] = None):
+    """``VLM_FAMILIES[name]``'s published config, its text model cut to
+    ``text_layers`` layers (default: whole)."""
+    import transformers
+    cls, top, text, vision = VLM_FAMILIES[name]
+    text = dict(text)
+    if text_layers:
+        text["num_hidden_layers"] = text_layers
+    return getattr(transformers, cls)(text_config=text,
+                                      vision_config=dict(vision), **top)
+
+
+def image_group_prompts(cfg, n: int, text_tokens: int, seed: int = 0):
+    """``n`` prompts of a Gemma 3 or PaliGemma config: (Gemma 3) the
+    start-of-image token, one image placeholder, the end-of-image token,
+    or (PaliGemma) the placeholder alone, then seeded random text ids, to
+    ``text_tokens`` text ids in all; each image of seeded normal pixels
+    at the tower's input size on the host."""
+    vc = cfg.vision_config
+    tok = getattr(cfg, "image_token_index", None) or cfg.image_token_id
+    boi = getattr(cfg, "boi_token_index", None)
+    gen = torch.Generator().manual_seed(seed)
+    lead = [2] + ([boi] if boi is not None else [])
+    tail = [cfg.eoi_token_index] if boi is not None else []
+    n_text = text_tokens - len(lead) - len(tail)
+    text = torch.randint(3, 250000, (n, n_text), generator=gen).tolist()
+    return [{"prompt_token_ids": lead + [tok] + tail + t,
+             "multi_modal_data": {"image": [torch.randn(
+                 (3, vc.image_size, vc.image_size), generator=gen)]}}
+            for t in text]
+
+
+def mllama_prompts(cfg, n_image: int, n_text: int, text_tokens: int,
+                   seed: int = 0):
+    """``n_image`` Mllama prompts of one image of every tile (pixels of a
+    2 x 2 tiling, seeded normal, on the host; aspect-ratio id of (2, 2))
+    and ``n_text`` text-only ones, interleaved, each of ``text_tokens``
+    tokens (the image token among them)."""
+    vc = cfg.vision_config
+    tiles = vc.max_num_tiles
+    aid = [list(r) for r in vc.supported_aspect_ratios].index([2, 2]) + 1
+    gen = torch.Generator().manual_seed(seed)
+    text = torch.randint(3, 128000, (n_image + n_text, text_tokens - 1),
+                         generator=gen).tolist()
+    out, images = [], 0
+    for i, t in enumerate(text):
+        texts = i - images
+        if images < n_image and (i % 2 == 0 or texts >= n_text):
+            images += 1
+            px = torch.randn((1, tiles, 3, vc.image_size, vc.image_size),
+                             generator=gen)
+            out.append({"prompt_token_ids": [cfg.image_token_index] + t,
+                        "multi_modal_data": {
+                            "pixel_values": px,
+                            "aspect_ratio_ids": torch.tensor([aid]),
+                            "aspect_ratio_mask": torch.ones(1, tiles,
+                                                            dtype=torch.long)}})
+        else:
+            out.append([128000] + t)
+    return out
+
+
 def bert_pairs(n: int = 128, lo: int = 200, hi: int = 512, seed: int = 0):
     """``n`` query-passage pairs of ``lo`` to ``hi`` tokens in all
     ([CLS] query [SEP] passage [SEP], a query of 16-32 tokens): (token ids,
@@ -1253,6 +1448,23 @@ def workload(bench_settings: bool = False, geometry: str = "tinyllama",
                       kv_cache_config=KvCacheConfig(enable_block_reuse=False))
         return (cfg, kwargs, mrope_prompts(cfg, 64, 64),
                 SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
+    if geometry == "gemma-3-4b":
+        # one 896 x 896 image (256 tokens) + 64 text tokens -> 128; prefix
+        # reuse off
+        cfg = gemma3_4b_config()
+        kwargs = dict(max_batch_size=64, max_input_len=320, max_seq_len=448,
+                      max_num_tokens=8192,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (cfg, kwargs, image_group_prompts(cfg, 64, 64),
+                SamplingParams(max_tokens=128, top_k=1, ignore_eos=True))
+    if geometry == "llama-3.2-11b-vision":
+        # 8 requests of one 4-tile image and 8 text-only, 64 tokens -> 64
+        cfg = llama32_11b_vision_config()
+        kwargs = dict(max_batch_size=16, max_input_len=128, max_seq_len=192,
+                      max_num_tokens=8192,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        return (cfg, kwargs, mllama_prompts(cfg, 8, 8, 64),
+                SamplingParams(max_tokens=64, top_k=1, ignore_eos=True))
     if geometry == "qwen3-30b-a3b":
         prompts = torch.randint(0, QWEN3_30B_A3B["vocab_size"], (64, 128),
                                 generator=gen).tolist()
@@ -1429,16 +1641,32 @@ def _generate(llm, prompts, sp):
     return time.monotonic() - t0, outs
 
 
+def _warmup_params(llm, sp):
+    """``sp`` (one SamplingParams or a list) with each request stopped
+    after two K-step windows: the warm-up runs every prefill step and
+    captures the full batch's window graphs without decoding every
+    token."""
+    import copy
+    stop = 2 * max(1, llm.args.decode_multi_step)
+
+    def short(p):
+        p = copy.copy(p)
+        p.max_tokens = min(p.max_tokens, stop)
+        return p
+    return [short(p) for p in sp] if isinstance(sp, list) else short(sp)
+
+
 def measure(llm, prompts, sp, profile: bool = True,
             outputs: Optional[list] = None, warmup: bool = True) -> dict:
-    """Warm-up pass (unless the caller ran one: ``warmup`` False), timed
-    pass, then (``profile``) a profiled pass of the same requests through
-    ``llm``. The kernels' launch counters are zeroed right before the
-    timed pass and read right after it. The timed pass's
+    """Warm-up pass of the same requests, each stopped after two K-step
+    windows (``_warmup_params``; unless the caller ran one: ``warmup``
+    False), timed pass, then (``profile``) a profiled pass of the same
+    requests through ``llm``. The kernels' launch counters are zeroed
+    right before the timed pass and read right after it. The timed pass's
     ``RequestOutput``s are appended to ``outputs``."""
     kernels = kernel_modules()
     if warmup:
-        _generate(llm, prompts, sp)
+        _generate(llm, prompts, _warmup_params(llm, sp))
     eng = llm.engine
     replays0 = eng.graphs.replays
     steps0 = (eng.decode_steps, eng.window_steps, eng.dead_window_steps)
@@ -1455,6 +1683,7 @@ def measure(llm, prompts, sp, profile: bool = True,
     qmm.LAUNCHES_E4M3 = 0
     for mod in attn:
         mod.LAUNCHES_SINKS = mod.LAUNCHES_ALIBI = 0
+    attn[1].LAUNCHES_GROUPS = 0
     mla = _mla_module(llm)
     if mla is not None:
         mla.MLA_ABSORBED = mla.MLA_DECOMPRESSED = 0
@@ -1470,6 +1699,8 @@ def measure(llm, prompts, sp, profile: bool = True,
                       ("paged_decode_attention", "ragged_prefill_attention")}
     launches_alibi = {k: kernels[k].LAUNCHES_ALIBI for k in
                       ("paged_decode_attention", "ragged_prefill_attention")}
+    # K2's launches with the image-group or-mask
+    launches_groups = attn[1].LAUNCHES_GROUPS
     spec1 = _spec_counts(llm)
     blocks = llm.kv_cache_manager.get_stats().alloc_total_blocks - blocks0
     steps = max(1, eng.decode_steps - steps0[0])
@@ -1498,6 +1729,7 @@ def measure(llm, prompts, sp, profile: bool = True,
         nonfinite_logprobs=sum(not math.isfinite(v) for v in lps),
         decode_steps=steps, launches=launches, launches_e4m3=launches_e4m3,
         launches_sinks=launches_sinks, launches_alibi=launches_alibi,
+        launches_groups=launches_groups,
         graphs_captured=eng.graphs.num_graphs,
         graph_replays=eng.graphs.replays - replays0,
         window_steps=eng.window_steps - steps0[1],
@@ -1997,7 +2229,9 @@ def main() -> None:
                                            "deepseek-v2-lite", "bamba-9b",
                                            "deepseek-v3-mtp",
                                            "longcat-flash",
-                                           "llava-1.5-7b", "qwen2.5-vl-7b"],
+                                           "llava-1.5-7b", "qwen2.5-vl-7b",
+                                           "gemma-3-4b",
+                                           "llama-3.2-11b-vision"],
                     default="tinyllama",
                     help="the model of the default workload")
     ap.add_argument("--layers", type=int, default=None,
@@ -2007,7 +2241,8 @@ def main() -> None:
                     "(SmoothQuant calibrates on it)")
     ap.add_argument("--family", choices=sorted({**FAMILIES, **GPT_FAMILIES,
                                                 **MOE_FAMILIES,
-                                                **RECURRENT_FAMILIES}),
+                                                **RECURRENT_FAMILIES,
+                                                **VLM_FAMILIES}),
                     default=None,
                     help="a Llama-derived or GPT family at a published "
                     "width")
@@ -2060,7 +2295,15 @@ def main() -> None:
     from tensorrt_llm_tpu_torch.llmapi.llm_args import QuantConfig
     from tensorrt_llm_tpu_torch.quantization.mode import (KvCacheQuantAlgo,
                                                           QuantAlgo)
-    if args.family:
+    if args.family in VLM_FAMILIES:
+        from tensorrt_llm_tpu_torch import KvCacheConfig, SamplingParams
+        cfg = vlm_family_config(args.family, text_layers=2)
+        kwargs = dict(max_batch_size=4, max_input_len=320, max_seq_len=384,
+                      enable_warmup=False,
+                      kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+        prompts = image_group_prompts(cfg, 4, 32, seed=7)
+        sp = SamplingParams(max_tokens=32, top_k=1, ignore_eos=True)
+    elif args.family:
         cfg, kwargs, prompts, sp = family_workload(args.family)
     else:
         cfg, kwargs, prompts, sp = workload(args.bench_settings,
@@ -2069,6 +2312,10 @@ def main() -> None:
         cfg = llava_15_7b_config(args.layers)
     elif args.layers and args.geometry == "qwen2.5-vl-7b":
         cfg = qwen25_vl_7b_config(args.layers)
+    elif args.layers and args.geometry == "gemma-3-4b":
+        cfg = gemma3_4b_config(args.layers)
+    elif args.layers and args.geometry == "llama-3.2-11b-vision":
+        cfg = llama32_11b_vision_config(args.layers)
     elif args.layers:
         cfg = gpt_oss_20b_config(args.layers) \
             if args.geometry == "gpt-oss-20b" else \

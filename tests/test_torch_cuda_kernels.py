@@ -2102,3 +2102,79 @@ def test_mrope_window_on_graphs_equals_eager_single_steps(cuda, dtype):
     assert runs["graph"][1] > 0 and runs["steps"][1] == 0
     assert runs["graph"][2][dec.__name__] > 0
     assert not runs["eager"][2] and not runs["steps"][2]
+
+
+def _groups(pt, kv_lens, q_lens, ps, spans, device):
+    """(q_groups i32[T], group pool i32[P * ps]) for image spans:
+    ``spans[s]`` lists (first position, length) of sequence s's images,
+    image i in group i; every other position -1."""
+    P = int(pt.max()) + 4
+    pool = torch.full((P * ps,), -1, dtype=torch.int32)
+    q_groups = []
+    for s, (kv, q) in enumerate(zip(kv_lens.tolist(), q_lens)):
+        g = [-1] * kv
+        for i, (a, n) in enumerate(spans[s]):
+            for p in range(a, min(a + n, kv)):
+                g[p] = i
+        for p in range(kv):
+            pool[int(pt[s, p // ps]) * ps + p % ps] = g[p]
+        q_groups += g[kv - q:]
+    return (torch.tensor(q_groups, dtype=torch.int32, device=device),
+            pool.to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,q_lens,ctx_lens,qh,kvh,hd,window,spans", [
+    # Gemma-3-4B's heads: 320-token prompts, one 256-token image each
+    ("gemma3_global", [320] * 3, [0] * 3, 8, 4, 256, None,
+     [[(4, 256)], [(40, 256)], [(60, 256)]]),
+    ("gemma3_sliding", [320] * 3, [0] * 3, 8, 4, 256, 100,
+     [[(4, 256)], [(40, 256)], [(60, 256)]]),
+    # the chunk edge inside the image: a first chunk (kv_len bounds the
+    # image) and a second one over the first's positions; text rows and a
+    # decode row beside them
+    ("chunk_cut", [150, 100, 1, 37], [0, 150, 90, 0], 8, 2, 64, 64,
+     [[(20, 200)], [(20, 200)], [(3, 50)], []]),
+    # PaliGemma: the whole prompt one group, two images' worth of rows
+    ("prefix", [300, 77], [0, 40], 8, 4, 256, 128,
+     [[(0, 300)], [(0, 117)]]),
+    ("hd128_two_images", [200, 130], [0, 70], 16, 8, 128, None,
+     [[(10, 64), (100, 64)], [(50, 64), (130, 64)]]),
+])
+def test_prefill_groups_match_plain(cuda, dtype, name, q_lens, ctx_lens, qh,
+                                    kvh, hd, window, spans):
+    """K2 with the image-group or-mask against its plain version, and the
+    groups' effect: without them the kernel gives another answer."""
+    ps = 32 if hd != 64 else 16
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx_lens, qh, kvh, hd, ps, dtype,
+                                   cuda, seed=11)
+    qg, gpool = _groups(pt.cpu(), kvl.cpu(), q_lens, ps, spans, cuda)
+    kw = dict(sm_scale=hd ** -0.5, sliding_window=window)
+    before, grouped = pre.LAUNCHES, pre.LAUNCHES_GROUPS
+    got = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                       max_q_len=max(q_lens), q_groups=qg,
+                                       kv_group_pool=gpool, **kw)
+    torch.cuda.synchronize()
+    assert (pre.LAUNCHES, pre.LAUNCHES_GROUPS) == (before + 1, grouped + 1)
+    ref = pre.ragged_prefill_attention_plain(q, pool, kvl, pt, cu,
+                                             q_groups=qg,
+                                             kv_group_pool=gpool, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), **TOLS[dtype])
+    causal = pre.ragged_prefill_attention(q, pool, kvl, pt, cu,
+                                          max_q_len=max(q_lens), **kw)
+    assert (causal.float() - ref.float()).abs().max() > 0.05
+
+
+def test_prefill_groups_of_a_text_step_cost_nothing(cuda):
+    """A launch whose rows carry no group (all -1) gives the causal
+    kernel's bits."""
+    q_lens, ctx = [128, 64], [0, 64]
+    q, pool, kvl, pt, cu = _inputs(q_lens, ctx, 8, 4, 256, 32,
+                                   torch.bfloat16, cuda, seed=12)
+    qg, gpool = _groups(pt.cpu(), kvl.cpu(), q_lens, 32, [[], []], cuda)
+    a = pre.ragged_prefill_attention(q, pool, kvl, pt, cu, max_q_len=128,
+                                     sm_scale=0.0625, sliding_window=64,
+                                     q_groups=qg, kv_group_pool=gpool)
+    b = pre.ragged_prefill_attention(q, pool, kvl, pt, cu, max_q_len=128,
+                                     sm_scale=0.0625, sliding_window=64)
+    assert torch.equal(a, b)

@@ -321,9 +321,16 @@ def test_eagle3_refused_by_name(model_type):
 
 @pytest.mark.parametrize("model_type", [
     "gemma3", "gemma3_vl", "mllama", "paligemma"])
-def test_unported_model_types_refused_by_name(model_type):
+def test_last_jax_model_types_served(model_type):
+    """The four types the port refused by name until the image-group and
+    cross-attention models came: each JAX registry name resolves to a
+    port class of the same architecture, and no JAX type is left out."""
     from tensorrt_llm_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
-    from tensorrt_llm_tpu_torch.models import get_model_class
-    assert model_type in JAX_REGISTRY
-    with pytest.raises(NotImplementedError, match=model_type):
-        get_model_class(model_type)
+    from tensorrt_llm_tpu_torch.models import (MODEL_REGISTRY,
+                                               get_model_class)
+    from tensorrt_llm_tpu_torch.models.modeling_utils import \
+        NOT_PORTED_MODEL_TYPES
+    cls = get_model_class(model_type)
+    assert cls.architectures[0] == JAX_REGISTRY[model_type].architectures[0]
+    assert not NOT_PORTED_MODEL_TYPES
+    assert set(JAX_REGISTRY) <= set(MODEL_REGISTRY)

@@ -17,7 +17,7 @@ package on the CPU, float32, tiny seeded ``transformers`` models:
   sibling without the image (llm.py:844-866), so its second sample is the
   no-image stream;
 - the refusals: speculation, beam search and prompt logprobs with an
-  image prompt.
+  image prompt; every vision-language type has its processor.
 """
 import numpy as np
 import pytest
@@ -341,11 +341,16 @@ def test_image_prompts_refuse_what_takes_no_embeddings(llava):
                                                 max_draft_len=2), name)
 
 
-def test_the_other_multimodal_types_name_their_missing_piece():
+def test_every_multimodal_type_has_its_input_processor():
+    """Each vision-language type is served with the processor its model
+    names (the image-group and cross-attention ones included)."""
+    from tensorrt_llm_tpu_torch.llmapi.llm_args import VLM_MODEL_TYPES
     from tensorrt_llm_tpu_torch.models import get_model_class
-    for name, piece in (("gemma3", "group"), ("mllama", "cross-attend")):
-        with pytest.raises(NotImplementedError, match=piece):
-            get_model_class(name)
+    from tensorrt_llm_tpu_torch.multimodal import INPUT_PROCESSOR_REGISTRY
+    for name in VLM_MODEL_TYPES:
+        cls = get_model_class(name)
+        assert getattr(cls, "processor_type", name) in \
+            INPUT_PROCESSOR_REGISTRY, name
 
 
 def test_guided_decoding_on_an_image_prompt_matches_jax(llava):
