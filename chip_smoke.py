@@ -459,6 +459,26 @@ the run on error:
      full tower, 4 image requests each through graphs: K1 / K2 launched,
      windows replayed, logprobs finite, the tower's ms per image.
 
+ 55. imagegroup_kernels, imagegroup_parity, gemma3vl_serving,
+     mllama_serving, vlm_families: the image-group VLMs and Mllama (each
+     phase's docstring);
+ 56. lora_parity: multi-adapter LoRA on tinycode-llama in float32 (an
+     adapter on all seven modules against its weights folded into the
+     checkpoint and against the CPU port, two adapters beside base rows,
+     DoRA against the merged weight, LoRA steps replayed from graphs
+     keyed by LoRA), in bf16 against the folded checkpoint, and on a
+     W4A16 base through the dequant-matmul kernel, card against CPU;
+ 57. lora_serving: Llama-3-8B at full width and 8 layers, 64 x 512 ->
+     128, 56 rows over 8 rank-16 adapters and 8 base rows, against the
+     same requests without adapters at K = 8 and K = 1: tok/s, TTFT,
+     TPOT, the LoRA products' share of GPU time, the windows' worth,
+     peak memory, the adapter stacks' bytes;
+ 58. kv_tier_serving: Llama-3-8B at full width and 8 layers, three
+     waves of 32 x 2,048 tokens over a pool that holds one, through the
+     host tier, the disk tier, ``HostMemoryKvConnector``, recompute and a
+     pool that holds everything: tokens against the last, tier stats,
+     page moves and host syncs, wave C's TTFT, the movers' GB/s.
+
 ``python3 chip_smoke.py --only a,b`` runs just the named phases (a
 development run: no kernels line, no result line).
 
@@ -7076,6 +7096,697 @@ def vlm_families_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------- #
+# LoRA and the KV tiers
+# --------------------------------------------------------------------- #
+LORA_MODULES = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+                "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+                "down": "mlp.down_proj"}
+# lora_serving and kv_tier_serving: Llama-3-8B at full width, the first
+# 8 of its 32 layers (as host_spec_serving's target)
+LORA_SERVING_LAYERS = HOST_SPEC_TARGET_LAYERS
+KV_TIER_LAYERS = HOST_SPEC_TARGET_LAYERS
+# kv_tier_serving's waves (requests, prefix and suffix tokens) and pool
+# (pages of 32 tokens: one wave and its decode fit, two do not)
+KV_TIER_WAVE = (32, 1536, 512)
+KV_TIER_POOL_PAGES = 2240
+
+
+def _seeded_adapter(task_id: int, cfg, rank: int, seed: int,
+                    scale: float = 1.0, std: float = 0.05, mags=None):
+    """A port ``LoraAdapter`` of seeded normal(0, ``std``) A and B on all
+    seven modules of every layer of the Llama config ``cfg``; ``mags``
+    ({layer: {module: raw magnitude [N]}}) makes it DoRA (normalize it
+    against the base before use)."""
+    import numpy as np
+    from tensorrt_llm_tpu_torch.lora.lora_manager import (LoraAdapter,
+                                                          LoraLayerWeights)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    hd = getattr(cfg, "head_dim", None) or H // cfg.num_attention_heads
+    nq, nkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    shapes = {"q": (H, nq), "k": (H, nkv), "v": (H, nkv), "o": (nq, H),
+              "gate": (H, I), "up": (H, I), "down": (I, H)}
+    rng = np.random.default_rng(seed)
+    w = {m: {} for m in shapes}
+    for layer in range(cfg.num_hidden_layers):
+        for m, (K, N) in shapes.items():
+            w[m][layer] = LoraLayerWeights(
+                a=(rng.standard_normal((K, rank)) * std).astype(np.float32),
+                b=(rng.standard_normal((rank, N)) * std).astype(np.float32),
+                scale=scale,
+                mag=None if mags is None else mags[layer][m],
+                mag_is_raw=mags is not None)
+    return LoraAdapter(task_id, rank, w)
+
+
+def _fold(module, adapter, dora: bool = False):
+    """A copy of the transformers ``module`` with ``adapter`` merged into
+    its weights: W + scale·(A@B)ᵀ, or with DoRA m / ||W + dW||_row · (W +
+    dW) from the adapter's raw magnitudes (``adapter.raw_mags``)."""
+    import copy
+
+    import torch
+    m = copy.deepcopy(module)
+    with torch.no_grad():
+        for mod, per in adapter.weights.items():
+            for layer, w in per.items():
+                lin = m.get_submodule(f"model.layers.{layer}."
+                                      f"{LORA_MODULES[mod]}")
+                merged = lin.weight.float() + torch.tensor(
+                    (w.a @ w.b).T * w.scale)
+                if dora:
+                    raw = torch.tensor(adapter.raw_mags[layer][mod])
+                    merged = raw[:, None] / torch.linalg.norm(
+                        merged, dim=1, keepdim=True) * merged
+                lin.weight.copy_(merged.to(lin.weight.dtype))
+    return m
+
+
+def _lora_requests(llm, prompts, sp, loras, timeout: float = 600):
+    """Every request queued at once, request i with adapter ``loras[i]``
+    (None: the base model); (wall seconds, ``RequestOutput``s)."""
+    import torch
+    from tensorrt_llm_tpu_torch.lora.lora_manager import LoraRequest
+    t0 = time.monotonic()
+    futs = [llm.generate_async(p, sp, lora_request=None if t is None
+                               else LoraRequest(f"a{t}", t, ""))
+            for p, t in zip(prompts, loras)]
+    outs = [f.result(timeout) for f in futs]
+    torch.cuda.synchronize()
+    return time.monotonic() - t0, outs
+
+
+def _near_tie_compare(ref, got, margin: float) -> dict:
+    """Greedy streams ``got`` against ``ref`` = (tokens, top-2 logprobs):
+    tokens equal up to each stream's first parting, and every parting at
+    a margin the reference decides by at most ``margin``."""
+    agreed, margins = 0, []
+    for r, lps, g in zip(ref[0], ref[1], got):
+        if len(g) != len(r):
+            raise AssertionError(f"stream lengths differ: {r} vs {g}")
+        for a, b, lp in zip(r, g, lps):
+            if a != b:
+                top = sorted(lp.values(), reverse=True)
+                margins.append(top[0] - top[1])
+                break
+            agreed += 1
+    bad = [m for m in margins if m > margin]
+    if bad:
+        raise AssertionError(f"greedy streams part where the reference "
+                             f"decides by {bad} (> {margin}): {ref[0]} vs "
+                             f"{got}")
+    return dict(tokens_equal=agreed, parted_at_near_tie=len(margins),
+                identical=not margins)
+
+
+def lora_parity_phase(repo: Path) -> dict:
+    """Multi-adapter LoRA on the card against folded weights and the CPU:
+
+    - tests/assets/tinycode-llama (6 layers) in float32, a seeded rank-8
+      adapter on all seven modules: greedy tokens of 4 prompts -> 24 equal
+      those of the checkpoint with the adapter folded into its weights
+      (card) and the CPU port's with the adapter, and every decode step
+      of the LoRA rows replays a graph keyed by LoRA;
+    - two adapters and base rows in one batch: the base rows' tokens are
+      the base run's;
+    - a DoRA adapter against the merged weight (float32);
+    - bf16: the adapter against the folded checkpoint, partings only at
+      near-ties (3e-2);
+    - a W4A16_AWQ base (a seeded config whose widths fit the
+      dequant-matmul kernel, group 64): the seven projections go through
+      K3 with the adapter's delta added, card against CPU at near-ties.
+    Prints the K1 / K2 / K3 launches of the card's LoRA runs."""
+    import numpy as np
+    import torch
+    from transformers import LlamaConfig, LlamaForCausalLM
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, QuantAlgo,
+                                        QuantConfig, SamplingParams)
+    ckpt = repo / "tests" / "assets" / "tinycode-llama"
+    base = LlamaForCausalLM.from_pretrained(ckpt, dtype=torch.float32)
+    cfg = base.config
+    prompts = [list(b"def forward(self, x):\n    return "),
+               list(b"import numpy as np\n"), [7, 3, 99, 4, 61, 17],
+               list(b"for i in range(10):\n    ")]
+    sp = SamplingParams(max_tokens=24, top_k=1, ignore_eos=True, logprobs=2)
+    kw = dict(skip_tokenizer_init=True, max_batch_size=8, max_input_len=128,
+              max_seq_len=256, max_num_tokens=256, enable_warmup=False,
+              kv_cache_config=KvCacheConfig(tokens_per_block=16,
+                                            max_tokens=4096))
+    lkw = dict(kw, enable_lora=True,
+               lora_config={"max_lora_rank": 8, "max_loras": 4})
+    ad1 = _seeded_adapter(1, cfg, 8, seed=1)
+    ad2 = _seeded_adapter(2, cfg, 8, seed=2, scale=2.0)
+    rng = np.random.default_rng(3)
+    raw = {layer: {m: rng.uniform(0.5, 1.5, size=getattr(
+        base.get_submodule(f"model.layers.{layer}.{n}"), "out_features"))
+        .astype(np.float32) for m, n in LORA_MODULES.items()}
+        for layer in range(cfg.num_hidden_layers)}
+    dora = _seeded_adapter(3, cfg, 8, seed=3, mags=raw)
+    dora.raw_mags = raw
+    dora.normalize_dora({k: v.float().numpy()
+                         for k, v in base.state_dict().items()})
+
+    def toks(outs):
+        return [o.outputs[0].token_ids for o in outs]
+
+    def lps(outs):
+        return [o.outputs[0].logprobs for o in outs]
+
+    out, launches = {}, {}
+    # the card, float32: the adapter, two adapters beside base rows, DoRA
+    llm = LLM(base, device="cuda", dtype="float32", **lkw)
+    try:
+        for ad in (ad1, ad2, dora):
+            llm.lora_manager.add_adapter(ad)
+            llm.lora_manager.activate(ad.task_id)
+        llm.engine.refresh_lora()
+        _zero_launches()
+        r0 = llm.engine.graphs.replays
+        _, o = _lora_requests(llm, prompts, sp, [1] * 4)
+        launches["float32"] = _read_launches()
+        lora_graphs = {str(k): v.replays
+                       for k, v in llm.engine.graphs.steps.items()
+                       if "lora" in k}
+        out["lora_card"] = (toks(o), lps(o))
+        _, o = _lora_requests(llm, prompts, sp, [None] * 4)
+        out["base_card"] = (toks(o), lps(o))
+        _, o = _lora_requests(llm, prompts * 2, sp,
+                              [1, None, 2, None, None, 2, None, 1])
+        out["mixed"] = toks(o)
+        _, o = _lora_requests(llm, prompts, sp, [3] * 4)
+        out["dora_card"] = toks(o)
+        replays = llm.engine.graphs.replays - r0
+    finally:
+        llm.shutdown()
+    for name, ad, dora_fold in (("folded", ad1, False),
+                                ("dora_merged", dora, True)):
+        llm = LLM(_fold(base, ad, dora_fold), device="cuda",
+                  dtype="float32", **kw)
+        try:
+            o = llm.generate(prompts, sp)
+            out[name] = (toks(o), lps(o))
+        finally:
+            llm.shutdown()
+    llm = LLM(base, device="cpu", dtype="float32", **lkw)
+    try:
+        llm.lora_manager.add_adapter(ad1)
+        out["lora_cpu"] = toks(_lora_requests(llm, prompts, sp, [1] * 4)[1])
+    finally:
+        llm.shutdown()
+    def pick(stream, idx):
+        return ([stream[0][i] for i in idx], [stream[1][i] for i in idx])
+
+    # float32 partings only where the reference decides by under 1e-3
+    # (folding rounds W + dW once; batch shapes may pick other GEMMs)
+    res = dict(
+        float32_vs_folded=_near_tie_compare(out["folded"],
+                                            out["lora_card"][0], 1e-3),
+        float32_card_vs_cpu=_near_tie_compare(out["lora_card"],
+                                              out["lora_cpu"], 1e-3),
+        dora_vs_merged=_near_tie_compare(out["dora_merged"],
+                                         out["dora_card"], 1e-3),
+        mixed_base_rows=_near_tie_compare(
+            pick(out["base_card"], (1, 3, 0, 2)),
+            [out["mixed"][i] for i in (1, 3, 4, 6)], 1e-3),
+        mixed_lora_rows=_near_tie_compare(
+            pick(out["lora_card"], (0, 3)),
+            [out["mixed"][i] for i in (0, 7)], 1e-3),
+        lora_differs_from_base=out["lora_card"][0] != out["base_card"][0],
+        graph_replays=replays, lora_graph_replays=lora_graphs,
+        launches_float32=launches["float32"])
+    if not res["lora_differs_from_base"]:
+        raise AssertionError(f"lora_parity: the adapter changed nothing: "
+                             f"{out}")
+    if not sum(lora_graphs.values()):
+        raise AssertionError(f"lora_parity: no LoRA step replayed a graph: "
+                             f"{lora_graphs}")
+    # bf16: the adapter against the folded checkpoint
+    bf = {}
+    for name, model, extra in (("lora", base, lkw), ("folded",
+                                                     _fold(base, ad1), kw)):
+        llm = LLM(model, device="cuda", dtype="bfloat16", **extra)
+        try:
+            if name == "lora":
+                llm.lora_manager.add_adapter(ad1)
+            o = _lora_requests(llm, prompts, sp,
+                               [1 if name == "lora" else None] * 4)[1]
+            bf[name] = (toks(o), lps(o))
+        finally:
+            llm.shutdown()
+    res["bf16_vs_folded"] = _near_tie_compare(bf["folded"], bf["lora"][0],
+                                              NEAR_TIE)
+    # a W4A16 base: K3 with the adapter's delta added
+    qcfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_hidden_layers=2, num_attention_heads=4,
+                       num_key_value_heads=2, max_position_embeddings=256,
+                       tie_word_embeddings=False)
+    torch.manual_seed(1)
+    qbase = LlamaForCausalLM(qcfg).eval()
+    qad = _seeded_adapter(4, qcfg, 8, seed=4, scale=2.0)
+    qp = [list(range(3, 40)), [7, 300, 41, 5, 99, 250]]
+    q = {}
+    for dev in ("cuda", "cpu"):
+        llm = LLM(qbase, device=dev, dtype="float32",
+                  quant_config=QuantConfig(quant_algo=QuantAlgo.W4A16_AWQ,
+                                           group_size=64), **lkw)
+        try:
+            llm.lora_manager.add_adapter(qad)
+            _zero_launches()
+            o = _lora_requests(llm, qp, sp, [4, 4])[1]
+            q[dev] = (toks(o), lps(o))
+            if dev == "cuda":
+                launches["w4a16"] = _read_launches()
+                q["base"] = toks(_lora_requests(llm, qp, sp, [None] * 2)[1])
+        finally:
+            llm.shutdown()
+    res["w4a16_card_vs_cpu"] = _near_tie_compare(q["cpu"], q["cuda"][0],
+                                                 NEAR_TIE)
+    res["w4a16_lora_differs_from_base"] = q["cuda"][0] != q["base"]
+    res["launches_w4a16"] = launches["w4a16"]
+    emit({"phase": "lora_parity", **res})
+    if not launches["w4a16"]["groupwise_dequant_matmul"] or \
+            not res["w4a16_lora_differs_from_base"]:
+        raise AssertionError(f"lora_parity W4A16: {res}")
+    for k in ("paged_decode_attention", "ragged_prefill_attention"):
+        if not launches["float32"][k]:
+            raise AssertionError(f"lora_parity: {k} not launched")
+    return res
+
+
+def _serve_stats(wall: float, outs) -> dict:
+    """tok/s, TTFT and TPOT (medians and max) of a pass's outputs."""
+    perf = [o._result.request.perf for o in outs]
+    n = [len(o.outputs[0].token_ids) for o in outs]
+    ttft = [p.first_token_time - p.arrival_time for p in perf]
+    tpot = [(p.last_token_time - p.first_token_time) / max(1, k - 1)
+            for p, k in zip(perf, n)]
+    return dict(requests=len(outs), output_tokens=sum(n),
+                wall_ms=wall * 1e3, output_tok_per_s=sum(n) / wall,
+                ttft_ms_median=statistics.median(ttft) * 1e3,
+                ttft_ms_max=max(ttft) * 1e3,
+                tpot_ms_median=statistics.median(tpot) * 1e3,
+                tpot_ms_max=max(tpot) * 1e3)
+
+
+def lora_serving_phase() -> dict:
+    """Llama-3-8B at full width and 8 of its 32 layers
+    (``LORA_SERVING_LAYERS``, seeded random bf16 weights), 64 requests of
+    512 tokens -> 128 greedy tokens, 56 of them spread over 8 adapters of
+    rank 16 on all seven modules (7 rows each) and 8 base rows; ``max_loras`` 8, CUDA
+    graphs, prefix reuse off. Three runs of the same requests: without
+    adapters at K = 8 windows, without adapters at K = 1 (the single
+    steps a LoRA batch takes, as in the JAX package), and with the
+    adapters. Each: a warm-up pass, a timed pass (K1 / K2 launch counters
+    zeroed right before, read right after), a profiled pass. Reports
+    tok/s, TTFT, TPOT, steps replayed against eager, the LoRA products'
+    share of GPU time (the LoRA run's GPU kernel time less the K = 1
+    run's, over the LoRA run's; and the seven products of every layer
+    timed alone at a decode step's 64 rows and at an 8,192-token prefill
+    step), the windows' worth (K = 1 against K = 8 TPOT), peak device
+    memory (the largest prefill bucket runs in the LoRA run) and the
+    adapter stacks' bytes."""
+    import gc
+
+    import torch
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.lora.lora_manager import LoraStep
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
+    cfg, _, prompts, _ = sprof.workload(geometry="llama3-8b-quant")
+    cfg.num_hidden_layers = LORA_SERVING_LAYERS
+    sp = SamplingParams(max_tokens=128, top_k=1, ignore_eos=True)
+    n_ad, rank = 8, 16
+    # every eighth row the base model, the other 56 over all 8 adapters
+    loras = [None if i % 8 == 7 else 1 + (i - i // 8) % n_ad
+             for i in range(64)]
+    kw = dict(dtype="bfloat16", max_batch_size=64, max_input_len=512,
+              max_seq_len=640, max_num_tokens=8192,
+              kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+    runs = {}
+    for label, extra in (("base_k8", {}), ("base_k1",
+                                           dict(decode_multi_step=1)),
+                         ("lora", dict(enable_lora=True, lora_config={
+                             "max_lora_rank": rank, "max_loras": n_ad}))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        llm = LLM(cfg, **kw, **extra)
+        build_s = time.monotonic() - t0
+        ids = loras if label == "lora" else [None] * len(prompts)
+        try:
+            eng = llm.engine
+            if label == "lora":
+                t1 = time.monotonic()
+                for t in range(1, n_ad + 1):
+                    llm.lora_manager.add_adapter(_seeded_adapter(
+                        t, cfg, rank, seed=10 + t, std=0.01))
+                    llm.lora_manager.activate(t)
+                eng.refresh_lora()
+                refresh_s = time.monotonic() - t1
+            warm = [p[:64] for p in prompts[:16]]
+            _lora_requests(llm, warm, SamplingParams(
+                max_tokens=16, top_k=1, ignore_eos=True), ids[:16])
+            torch.cuda.reset_peak_memory_stats()
+            r0, s0 = eng.graphs.replays, eng.decode_steps
+            it0 = eng.iter_counter
+            _zero_launches()
+            wall, outs = _lora_requests(llm, prompts, sp, ids)
+            res = dict(_serve_stats(wall, outs), launches=_read_launches(),
+                       peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                       graph_replays=eng.graphs.replays - r0,
+                       decode_steps=eng.decode_steps - s0,
+                       dispatches=eng.iter_counter - it0)
+            res["eager_dispatches"] = res["dispatches"] - res["graph_replays"]
+            res.update(sprof._profiled(llm, prompts, sp, wall, run=lambda:
+                                       _lora_requests(llm, prompts, sp, ids)))
+            res.update(engine_build_s=build_s, kv_pages=eng.num_kv_pages,
+                       graphs=_graph_stats(eng))
+            if label == "lora":
+                res.update(adapter_refresh_s=refresh_s,
+                           lora_stack_bytes=eng.lora_bytes)
+                # the seven products of every layer, timed alone
+                g = torch.Generator(device=eng.device).manual_seed(0)
+                shapes = eng.model.lora_module_shapes()
+                for T in (64, 8192):
+                    slots = torch.randint(0, n_ad, (T,), generator=g,
+                                          device=eng.device, dtype=torch.int32)
+                    step = LoraStep(eng.lora_stacks, slots, False)
+                    xs = {m: torch.randn(T, K, generator=g, device=eng.device,
+                                         dtype=torch.bfloat16)
+                          for m, (K, _) in shapes.items()}
+                    outs0 = {m: torch.zeros(T, N, device=eng.device,
+                                            dtype=torch.bfloat16)
+                             for m, (_, N) in shapes.items()}
+
+                    def all_layers():
+                        for layer in range(cfg.num_hidden_layers):
+                            f = step.layer_fn(layer)
+                            for m in shapes:
+                                f(m, xs[m], outs0[m])
+                    # replayed from a CUDA graph, as the decode steps are:
+                    # the device's time, not the host's enqueue
+                    all_layers()
+                    torch.cuda.synchronize()
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        all_layers()
+                    res[f"lora_products_ms_T{T}"] = time_ms(graph.replay, 10)
+                    del graph
+        finally:
+            llm.shutdown()
+        del llm, eng
+        res.update(run=label, model="Llama-3-8B",
+                   layers=cfg.num_hidden_layers)
+        emit({"phase": "lora_serving", **res})
+        if res["output_tokens"] != len(prompts) * sp.max_tokens:
+            raise AssertionError(f"lora_serving {label}: short outputs")
+        if not (res["launches"]["paged_decode_attention"]
+                and res["launches"]["ragged_prefill_attention"]):
+            raise AssertionError(f"lora_serving {label}: K1 / K2 not "
+                                 f"launched: {res['launches']}")
+        runs[label] = res
+    lo, k1, k8 = runs["lora"], runs["base_k1"], runs["base_k8"]
+    summary = dict(
+        lora_gpu_share=(lo["gpu_kernel_ms"] - k1["gpu_kernel_ms"])
+        / lo["gpu_kernel_ms"],
+        window_loss_tpot_ms=k1["tpot_ms_median"] - k8["tpot_ms_median"],
+        lora_tpot_over_k1=lo["tpot_ms_median"] / k1["tpot_ms_median"],
+        lora_tok_per_s_over_k8=lo["output_tok_per_s"]
+        / k8["output_tok_per_s"],
+        # the products timed alone, over the pass's replayed decode steps
+        # and its eager prefill steps (at the 8,192-token bucket)
+        lora_products_est_share=(
+            lo["graph_replays"] * lo["lora_products_ms_T64"]
+            + lo["eager_dispatches"] * lo["lora_products_ms_T8192"])
+        / lo["gpu_kernel_ms"],
+        lora_stack_bytes=lo["lora_stack_bytes"])
+    emit({"phase": "lora_serving_summary", **summary})
+    if lo["graphs"]["graph_replays"] == 0:
+        raise AssertionError("lora_serving: no LoRA step replayed a graph")
+    return dict(runs, summary=summary)
+
+
+def _tier_prompts(vocab: int):
+    """kv_tier_serving's three waves (``KV_TIER_WAVE``): A (distinct
+    1,536-token prefixes, 512-token suffixes), B (fresh 2,048-token
+    prompts), C (A's prefixes, new 512-token suffixes); seeded."""
+    import torch
+    n, pre, suf = KV_TIER_WAVE
+    g = torch.Generator().manual_seed(7)
+
+    def draw(*shape):
+        return torch.randint(3, vocab - 1, shape, generator=g).tolist()
+    prefixes = draw(n, pre)
+    a = [p + s for p, s in zip(prefixes, draw(n, suf))]
+    b = draw(n, pre + suf)
+    c = [p + s for p, s in zip(prefixes, draw(n, suf))]
+    return a, b, c
+
+
+def _page_move_rates(eng, n: int = 256) -> dict:
+    """D2H and H2D GB/s of the page movers over ``n`` pages (1 MB each at
+    Llama-3-8B's 8 layers and page 32), on an idle engine: ``n``
+    ``offload_page`` calls then a sync, then ``n`` ``onboard_page`` calls
+    then a sync."""
+    import torch
+    ids = list(range(min(n, eng.num_kv_pages)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages = [eng.offload_page(i) for i in ids]
+    torch.cuda.synchronize()
+    d2h = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, p in zip(ids, pages):
+        eng.onboard_page(i, p)
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    nbytes = len(ids) * eng.bytes_per_kv_block
+    return dict(pages=len(ids), page_bytes=eng.bytes_per_kv_block,
+                d2h_gb_per_s=nbytes / d2h / 1e9,
+                h2d_gb_per_s=nbytes / h2d / 1e9)
+
+
+def _tree_pages(kv) -> dict:
+    """Content hash -> device block id of every reuse-tree node of ``kv``
+    that holds a page on the device."""
+    out, stack = {}, [kv._root]
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children.values())
+        if node.block is not None and node.content_hash is not None:
+            out[node.content_hash] = node.block.block_id
+    return out
+
+
+def _settle(kv, timeout: float = 60.0) -> None:
+    """Wait until every request has given its blocks back to ``kv`` (a
+    connector holds a finished request's blocks until its save lands)."""
+    end = time.monotonic() + timeout
+    while kv._seq_blocks:
+        if time.monotonic() > end:
+            raise AssertionError("kv_tier_serving: blocks still held "
+                                 f"{timeout} s after the wave")
+        time.sleep(0.01)
+
+
+def _snapshot_pages(eng, kv):
+    """Wave A's pages as they stand once the wave has finished, before
+    any is offloaded: (content hash -> index, a device copy [L, n, ...])."""
+    import torch
+    pages = _tree_pages(kv)
+    ids = torch.tensor(list(pages.values()), device=eng.device)
+    snap = eng.tier_pool()[:, ids].clone()
+    torch.cuda.synchronize()     # before the next wave's steps write
+    return {h: i for i, h in enumerate(pages)}, snap
+
+
+def _pages_vs_snapshot(eng, kv, snap) -> dict:
+    """Every device page of the reuse tree whose content hash wave A also
+    held, byte for byte against wave A's copy: onboarded from the host or
+    the disk, loaded by a connector, or never evicted."""
+    import torch
+    index, ref = snap
+    now = {h: b for h, b in _tree_pages(kv).items() if h in index}
+    pool, differ = eng.tier_pool(), 0
+    hashes = list(now)
+    for i in range(0, len(hashes), 256):
+        hs = hashes[i:i + 256]
+        cur = pool[:, torch.tensor([now[h] for h in hs], device=eng.device)]
+        want = ref[:, torch.tensor([index[h] for h in hs],
+                                   device=eng.device)]
+        ne = cur.view(torch.uint8) != want.view(torch.uint8)
+        differ += int(ne.transpose(0, 1).reshape(len(hs), -1).any(1).sum())
+    return dict(pages_compared=len(hashes), pages_differ=differ)
+
+
+def kv_tier_serving_phase() -> dict:
+    """Llama-3-8B at full width and 8 of its 32 layers (``KV_TIER_LAYERS``,
+    seeded random bf16 weights), page 32 (1 MB of KV a page), a pool of
+    2,240 pages (71,680 tokens: one wave of 32 x 2,048-token prompts and
+    its decode fits, two do not), prefix reuse on, 16 greedy tokens a
+    request. Traffic: wave A (32 distinct 1,536-token prefixes with
+    512-token suffixes), wave B (32 fresh prompts, which evict A), wave C
+    (A's prefixes with new suffixes). Runs: the host tier (4 GB),
+    a 64-page host tier over a 2 GB disk tier in a temporary directory,
+    ``HostMemoryKvConnector``, the tiers off (wave C recomputes its
+    prefixes), and a pool that holds everything (the tokens' reference).
+    Reports each run's tier stats, page moves, host syncs (the executor
+    thread's waits on a device copy not yet landed) and host buffers
+    pinned one by one per pass, the disk store's blocking reads, wave C's
+    TTFT against the run that recomputes, the page movers' D2H / H2D
+    GB/s, and K1 / K2 launches. Fails unless wave C onboards or loads its
+    prefixes, every device page of the host, disk and connector runs'
+    trees that wave A also held equals wave A's copy of it byte for byte
+    (at least as many pages as wave C restored), and every run's tokens
+    equal the reference's up to partings at near-ties or the measured
+    drift."""
+    import gc
+    import shutil
+
+    import torch
+    from transformers import LlamaConfig
+    from tensorrt_llm_tpu_torch import LLM, KvCacheConfig, SamplingParams
+    from tensorrt_llm_tpu_torch.runtime.kv_connector import \
+        HostMemoryKvConnector
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg = LlamaConfig(**dict(sprof.LLAMA3_8B,
+                             num_hidden_layers=KV_TIER_LAYERS))
+    waves = _tier_prompts(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=16, top_k=1, ignore_eos=True, logprobs=2)
+    pool = KV_TIER_POOL_PAGES * 32
+    n, pre, suf = KV_TIER_WAVE
+    tmp = Path(tempfile.mkdtemp(prefix="kv_tier_"))
+    runs_cfg = {
+        "full_pool": dict(max_tokens=8 * pool),
+        "host": dict(max_tokens=pool, host_cache_size=4 << 30),
+        "disk": dict(max_tokens=pool, host_cache_size=64 << 20,
+                     disk_cache_dir=str(tmp / "disk"),
+                     disk_cache_size=2 << 30),
+        "connector": dict(max_tokens=pool),
+        "recompute": dict(max_tokens=pool)}
+    runs, ref = {}, None
+    try:
+        for label, kvc in runs_cfg.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            conn = HostMemoryKvConnector(32) if label == "connector" \
+                else None
+            t0 = time.monotonic()
+            llm = LLM(cfg, dtype="bfloat16", max_batch_size=n,
+                      max_input_len=pre + suf, max_seq_len=pre + suf + 16,
+                      max_num_tokens=8192, enable_warmup=False,
+                      kv_cache_config=KvCacheConfig(tokens_per_block=32,
+                                                    **kvc),
+                      **({} if conn is None else dict(
+                          kv_connector_config={"instance": conn})))
+            build_s = time.monotonic() - t0
+            try:
+                eng, kv = llm.engine, llm.kv_cache_manager
+                res = dict(run=label, engine_build_s=build_s,
+                           kv_pages=eng.num_kv_pages, waves={})
+                toks, snap = [], None
+                check_pages = label in ("host", "disk", "connector")
+                _zero_launches()
+                for name, prompts in zip("ABC", waves):
+                    m0 = dict(eng.kv_moves)
+                    restored0 = kv.get_stats().onboarded_blocks + (
+                        conn.stats["loaded_blocks"] if conn else 0)
+                    wall, outs = _lora_requests(llm, prompts, sp,
+                                                [None] * len(prompts))
+                    _settle(kv)
+                    if check_pages and name == "A":
+                        snap = _snapshot_pages(eng, kv)
+                    st = kv.get_stats()
+                    res["waves"][name] = dict(
+                        _serve_stats(wall, outs),
+                        hit_tokens=sum(o._result.request.perf
+                                       .kv_cache_hit_tokens for o in outs),
+                        moves={k: eng.kv_moves[k] - m0[k]
+                               for k in eng.kv_moves},
+                        offloaded_blocks=st.offloaded_blocks,
+                        onboarded_blocks=st.onboarded_blocks,
+                        disk_blocks=st.disk_blocks,
+                        disk_onboarded_blocks=st.disk_onboarded_blocks,
+                        host_blocks=st.host_blocks,
+                        restored_blocks=st.onboarded_blocks + (
+                            conn.stats["loaded_blocks"] if conn else 0)
+                        - restored0)
+                    if check_pages and name == "C":
+                        res["waves"]["C"].update(
+                            _pages_vs_snapshot(eng, kv, snap))
+                    toks.append(([o.outputs[0].token_ids for o in outs],
+                                 [o.outputs[0].logprobs for o in outs]))
+                res["launches"] = _read_launches()
+                del snap
+                if conn is not None:
+                    res["connector"] = dict(conn.stats)
+                if kv._disk is not None:
+                    res["disk_store"] = kv._disk.stats.as_dict()
+                if label == "host":
+                    res["page_moves"] = _page_move_rates(eng)
+            finally:
+                llm.shutdown()
+            del llm, eng, kv
+            if ref is None:
+                ref = toks
+            else:
+                # another pool schedules other prefill batches: bf16
+                # partings only at near-ties or the measured drift (the
+                # tier runs are held to their pages above, byte for byte)
+                res["vs_full_pool"] = {
+                    w: _compare_streams(r, t)
+                    for w, r, t in zip("ABC", ref, toks)}
+            emit({"phase": "kv_tier_serving", **res})
+            runs[label] = res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    c = {k: v["waves"]["C"] for k, v in runs.items()}
+    summary = dict(
+        ttft_c_ms_median={k: v["ttft_ms_median"] for k, v in c.items()},
+        ttft_c_over_recompute={k: v["ttft_ms_median"]
+                               / c["recompute"]["ttft_ms_median"]
+                               for k, v in c.items()},
+        host_syncs={k: {w: v["waves"][w]["moves"]["host_syncs"]
+                        for w in "ABC"} for k, v in runs.items()},
+        pinned_allocs={k: {w: v["waves"][w]["moves"]["pinned_allocs"]
+                           for w in "ABC"} for k, v in runs.items()},
+        pages_checked={k: (c[k]["pages_compared"], c[k]["pages_differ"])
+                       for k in ("host", "disk", "connector")},
+        disk_store=runs["disk"]["disk_store"],
+        page_moves=runs["host"]["page_moves"])
+    emit({"phase": "kv_tier_summary", **summary})
+    for label in ("host", "disk"):
+        if not c[label]["onboarded_blocks"]:
+            raise AssertionError(f"kv_tier_serving {label}: wave C "
+                                 f"onboarded nothing: {c[label]}")
+    if not c["disk"]["disk_onboarded_blocks"]:
+        raise AssertionError("kv_tier_serving disk: nothing came back "
+                             "from the disk tier")
+    if not runs["connector"]["connector"]["loaded_blocks"]:
+        raise AssertionError("kv_tier_serving connector: nothing loaded")
+    for label in ("host", "disk", "connector"):
+        w = c[label]
+        if w["pages_differ"] or w["pages_compared"] < w["restored_blocks"]:
+            raise AssertionError(
+                f"kv_tier_serving {label}: wave C's pages are not wave A's "
+                f"byte for byte: {w['pages_differ']} of "
+                f"{w['pages_compared']} differ, {w['restored_blocks']} "
+                "restored")
+    bad = {k: v["vs_full_pool"] for k, v in runs.items()
+           if k != "full_pool" and any(w["unexplained_partings"]
+                                       for w in v["vs_full_pool"].values())}
+    if bad:
+        raise AssertionError(f"kv_tier_serving: streams part from the full "
+                             f"pool's beyond the measured drift: {bad}")
+    for label, r in runs.items():
+        if not (r["launches"]["paged_decode_attention"]
+                and r["launches"]["ragged_prefill_attention"]):
+            raise AssertionError(f"kv_tier_serving {label}: K1 / K2 not "
+                                 f"launched: {r['launches']}")
+    return dict(runs, summary=summary)
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -7186,6 +7897,9 @@ def main() -> int:
     gemma3vl = timed("gemma3vl_serving", gemma3vl_serving_phase)
     mllama = timed("mllama_serving", mllama_serving_phase)
     vlm_fams = timed("vlm_families", vlm_families_phase)
+    lora_par = timed("lora_parity", lora_parity_phase, here)
+    lora_srv = timed("lora_serving", lora_serving_phase)
+    tiers = timed("kv_tier_serving", kv_tier_serving_phase)
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -7242,6 +7956,12 @@ def main() -> int:
             launches_mllama_serving=mllama["launches"][name],
             launches_vlm_families={f: v["launches"][name]
                                    for f, v in vlm_fams.items()},
+            launches_lora_parity={k: lora_par[k][name] for k in (
+                "launches_float32", "launches_w4a16")},
+            launches_lora_serving=lora_srv["lora"]["launches"][name],
+            launches_kv_tier_serving={
+                k: v["launches"][name] for k, v in tiers.items()
+                if k != "summary"},
             max_abs_err=max(v["max_abs_err"] for c, v in kern.items()
                             if c.startswith(group)),
             max_abs_err_kv8=max((v["max_abs_err"] for c, v in kern.items()

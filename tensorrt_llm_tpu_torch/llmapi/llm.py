@@ -98,6 +98,19 @@ bytes follow ``guided_token_bytes``. Guided decoding is refused by name
 with speculative decoding, with beam search and on an ``LLM`` built
 without a guided backend.
 
+``enable_lora=True`` with ``lora_config`` (``lora.LoraConfig``'s fields)
+serves adapters on the Llama-trunk types (``llm_args.LORA_MODEL_TYPES``;
+any other type refuses by name): ``generate`` / ``generate_async`` take
+``lora_request`` (``lora.LoraRequest``: an adapter from the host cache,
+``llm.lora_manager``, or a PEFT directory at ``lora_path``), activated
+into a device slot and written into the engine's stacks at submission.
+``KvCacheConfig(host_cache_size=..., disk_cache_dir=...,
+disk_cache_size=..., secondary_offload_min_priority=...)`` adds the KV
+host and disk tiers under the reuse tree, and ``kv_connector_config`` an
+external KV store (runtime/kv_connector.py), on a model with one KV pool
+(refused by name under VSWA and on the recurrent, image-group and Mllama
+models).
+
 ``LLM.abort_request`` cancels a request, ``LLM.get_stats`` returns the
 executor's per-iteration statistics, and a request whose own host work
 fails (a logits processor that raises, a grammar that does not compile
@@ -130,7 +143,8 @@ from ..runtime.request import LlmRequest
 from ..runtime.scheduler import (CapacityScheduler, MicroBatchScheduler,
                                  RequestScheduler)
 from ..sampling_params import SamplingParams
-from .llm_args import MOE_MODEL_TYPES, LlmArgs, check_ported_spec
+from .llm_args import (MOE_MODEL_TYPES, LlmArgs, check_lora_served,
+                       check_ported_spec)
 
 PromptInput = Union[str, Sequence[int], Mapping[str, Any]]
 
@@ -264,6 +278,9 @@ class LLM:
         check_ported_spec(self.args.speculative_config,
                           hf_config.model_type)
         self.model = get_model_class(hf_config.model_type)(model_config)
+        if self.args.enable_lora:
+            check_lora_served(hf_config.model_type)
+        self._check_tier_pool(hf_config.model_type)
         if getattr(self.model, "has_recurrent_state", False):
             # a recurrent state is not addressable by block: no chunked
             # prefill and no prefix reuse (the JAX LLM, llm.py:174-178)
@@ -293,6 +310,35 @@ class LLM:
                 self._params = self.model.init_params(seed=0)
             else:
                 self._params = self.model.load_hf_state_dict(state_dict)
+
+    def _check_tier_pool(self, model_type: str) -> None:
+        """Refuse, by name, the KV host tier and a KV connector on a model
+        whose cache is not one KV pool: the page movers take one array,
+        as the JAX movers do (``kv_pages[:, bid]``), which VSWA's pair and
+        the dict pools of the recurrent, image-group and Mllama models are
+        not (the JAX package hands them the tier all the same, and its
+        movers fail on the first page)."""
+        kvc = self.args.kv_cache_config
+        opts = [name for name, on in (
+            ("kv_cache_config.host_cache_size", kvc.host_cache_size),
+            ("kv_connector_config", self.args.kv_connector_config)) if on]
+        if not opts:
+            return
+        m = self.model
+        if kvc.max_attention_window:
+            kind = "VSWA's pair of KV pools"
+        elif getattr(m, "has_recurrent_state", False):
+            kind = "a dict of pools (KV and recurrent state)"
+        elif getattr(m, "uses_mm_groups", False):
+            kind = "a dict of pools (KV and image groups)"
+        elif getattr(m, "has_cross_states", False):
+            kind = "a dict of pools (KV and the cross-attention cache)"
+        else:
+            return
+        raise NotImplementedError(
+            f"{' and '.join(opts)} with model type {model_type} is not "
+            "supported by this package: the KV tiers and connectors move "
+            f"pages of one KV pool, and this model keeps {kind}")
 
     def _load_checkpoint(self):
         if self._inline_model is not None:
@@ -536,6 +582,17 @@ class LLM:
             K = args.speculative_config.device_window_iters or max(
                 1, args.decode_multi_step // (d + 1))
             enable_spec_device(self.engine, head, d, K)
+        if args.enable_lora:
+            # the JAX llm.py:472-483: the manager's slots, written into the
+            # engine's stacks (all zero until an adapter is activated)
+            from ..lora.lora_manager import LoraConfig, LoraManager
+            self.lora_manager = LoraManager(
+                LoraConfig(**(args.lora_config or {})),
+                num_layers=self.model.num_layers)
+            self.engine.set_lora_manager(self.lora_manager)
+            self.engine.refresh_lora()
+        else:
+            self.lora_manager = None
         if args.enable_warmup and self.device.type == "cuda":
             with _creation_stage("warmup"):
                 self.engine.warmup()
@@ -553,7 +610,8 @@ class LLM:
             tokens_per_block=args.kv_cache_config.tokens_per_block,
             max_seq_len=args.max_seq_len,
             enable_block_reuse=args.kv_cache_config.enable_block_reuse,
-            event_buffer_max_size=args.kv_cache_config.event_buffer_max_size)
+            event_buffer_max_size=args.kv_cache_config.event_buffer_max_size,
+            **self._tier_kwargs())
         if self.engine._vswa:
             self.kv_cache_manager = VswaKvManager(
                 self.kv_cache_manager, KVCacheManager(
@@ -586,7 +644,61 @@ class LLM:
             decode_wait_occupancy=args.decode_wait_occupancy,
             ttft_slo_ms=args.ttft_slo_ms,
             drafter=head if host_drafter is None else host_drafter,
-            guided_decoder=guided)
+            guided_decoder=guided, kv_connector=self._build_connector())
+
+    def _tier_kwargs(self) -> dict:
+        """The KV manager's host and disk tiers (the JAX llm.py:498-517):
+        ``host_cache_size`` bytes of host pages, the engine's movers, and
+        with ``disk_cache_dir`` a disk store of ``disk_cache_size`` bytes
+        (unbounded without it)."""
+        kvc = self.args.kv_cache_config
+        if not kvc.host_cache_size:
+            return {}
+        per_block = self.engine.bytes_per_kv_block
+        blocks = max(1, kvc.host_cache_size // per_block)
+        kw = dict(host_cache_blocks=blocks,
+                  offload_fn=self.engine.offload_page,
+                  onboard_fn=self.engine.onboard_page,
+                  secondary_offload_min_priority=(
+                      kvc.secondary_offload_min_priority or 0))
+        in_flight = 0
+        if kvc.disk_cache_dir:
+            from ..runtime.kv_tiers import DiskKvStore
+            kw["disk_store"] = store = DiskKvStore(
+                kvc.disk_cache_dir,
+                max_blocks=max(1, kvc.disk_cache_size // per_block)
+                if kvc.disk_cache_size else 1 << 20)
+            # demoted pages stay pinned until the writer has saved them
+            in_flight = store.max_inflight_bytes // per_block
+        self.engine.reserve_host_pages(blocks + in_flight)
+        return kw
+
+    def _build_connector(self):
+        """The ``KvConnectorManager`` of ``kv_connector_config`` (the JAX
+        llm.py:589-608): an in-process ``instance`` with both halves, or a
+        worker (and scheduler) class from ``connector_module`` built with
+        ``kwargs``; None without one."""
+        kc = self.args.kv_connector_config
+        if not kc:
+            return None
+        from ..runtime.kv_connector import (KvCacheConnectorScheduler,
+                                            KvConnectorManager)
+        if "instance" in kc:
+            worker = kc["instance"]
+            sched = worker if isinstance(worker, KvCacheConnectorScheduler) \
+                else None
+        else:
+            import importlib
+            mod = importlib.import_module(kc["connector_module"])
+            kwargs = kc.get("kwargs", {})
+            worker = getattr(mod, kc["connector_worker_class"])(**kwargs)
+            sched = worker if isinstance(worker, KvCacheConnectorScheduler) \
+                else None
+            if "connector_scheduler_class" in kc:
+                sched = getattr(mod, kc["connector_scheduler_class"])(
+                    **kwargs)
+        worker.register_engine(self.engine)
+        return KvConnectorManager(worker, sched)
 
     # ------------------------------------------------------------------ #
     # Generation
@@ -594,7 +706,8 @@ class LLM:
     def generate(self,
                  prompts: Union[PromptInput, Sequence[PromptInput]],
                  sampling_params: Optional[Union[SamplingParams,
-                                                 List[SamplingParams]]] = None
+                                                 List[SamplingParams]]] = None,
+                 lora_request=None
                  ) -> Union[RequestOutput, List[RequestOutput]]:
         single = isinstance(prompts, (str, Mapping)) or (
             isinstance(prompts, Sequence) and prompts and
@@ -605,8 +718,10 @@ class LLM:
             sp_list = [sampling_params] * len(batch)
         else:
             sp_list = list(sampling_params)
-        futures = [self.generate_async(p, sp)
-                   for p, sp in zip(batch, sp_list)]
+        lr_list = lora_request if isinstance(lora_request, list) \
+            else [lora_request] * len(batch)
+        futures = [self.generate_async(p, sp, lora_request=lr)
+                   for p, sp, lr in zip(batch, sp_list, lr_list)]
         results = [f.result() for f in futures]
         return results[0] if single else results
 
@@ -614,6 +729,7 @@ class LLM:
                        prompt: PromptInput,
                        sampling_params: Optional[SamplingParams] = None,
                        streaming: bool = False,
+                       lora_request=None,
                        cache_salt: Optional[str] = None) -> RequestOutput:
         # per-request clamps land on a private copy: generate() shares one
         # SamplingParams across every prompt of a batch
@@ -661,9 +777,11 @@ class LLM:
             eos = getattr(self.tokenizer, "eos_token_id", None)
             if eos is not None:
                 sampling_params.end_id = eos
+        lora_task_id = self._lora_task(lora_request)
         req = LlmRequest(prompt_token_ids=token_ids,
                          sampling_params=sampling_params,
                          streaming=streaming, cache_salt=cache_salt,
+                         lora_task_id=lora_task_id,
                          prompt_embeds=prompt_embeds, **mm_extra)
         res = self.executor.submit(req)
         extra = []
@@ -685,9 +803,28 @@ class LLM:
                 # positions, causally and without the image's K/V)
                 extra.append(self.executor.submit(LlmRequest(
                     prompt_token_ids=list(token_ids), sampling_params=sib,
-                    cache_salt=cache_salt, prompt_embeds=prompt_embeds,
-                    **mm_extra)))
+                    cache_salt=cache_salt, lora_task_id=lora_task_id,
+                    prompt_embeds=prompt_embeds, **mm_extra)))
         return RequestOutput(res, prompt_text, extra_results=extra)
+
+    def _lora_task(self, lora_request) -> Optional[int]:
+        """The request's adapter id (the JAX llm.py:750-761): an adapter
+        not in a slot yet is loaded from ``lora_path`` unless the host
+        cache holds it, activated, and written into the engine's stacks
+        (in place, behind the steps already dispatched)."""
+        if lora_request is None:
+            return None
+        if self.lora_manager is None:
+            raise ValueError("enable_lora=False: build the LLM with "
+                             "enable_lora=True for adapter requests")
+        tid = lora_request.lora_int_id
+        if self.lora_manager.slot_for(tid) < 0:
+            if tid not in self.lora_manager._host_cache:
+                self.lora_manager.load_from_path(tid,
+                                                 lora_request.lora_path)
+            self.lora_manager.activate(tid)
+            self.engine.refresh_lora()
+        return tid
 
     def _multimodal(self, token_ids: List[int], mm_data: Mapping,
                     cache_salt: Optional[str]):

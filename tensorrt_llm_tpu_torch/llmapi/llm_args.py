@@ -8,7 +8,7 @@ instead of being ignored).
 """
 from __future__ import annotations
 
-from typing import Any, List, Literal, Optional
+from typing import Any, Dict, List, Literal, Optional
 
 from pydantic import BaseModel, Field, field_validator, model_validator
 
@@ -31,6 +31,16 @@ class KvCacheConfig(StrictBaseModel):
     # VSWA (Gemma 2): the smallest window of the list sizes the sliding
     # layers' own KV pool and is their window
     max_attention_window: Optional[List[int]] = None
+    # the host tier (bytes of pinned host memory): evicted reuse blocks
+    # offload there and onboard on a later prefix match
+    host_cache_size: Optional[int] = None
+    # the disk tier under the host one: host-LRU victims demote to files
+    # in this directory (runtime/kv_tiers.py), at most disk_cache_size
+    # bytes; None = two tiers only
+    disk_cache_dir: Optional[str] = None
+    disk_cache_size: Optional[int] = None
+    # blocks of a lower retention priority are dropped, not offloaded
+    secondary_offload_min_priority: Optional[int] = None
 
     @field_validator("tokens_per_block")
     @classmethod
@@ -236,6 +246,44 @@ GPT_MODEL_TYPES = ("gpt2", "gpt_neox", "gptj", "falcon", "starcoder2",
                    "mpt", "opt")
 
 
+# the model types whose forward takes the LoRA hooks of the Llama trunk
+# (models/llama.py), as the JAX package's do
+LORA_MODEL_TYPES = ("llama", "tinyllama", "mistral", "qwen2", "qwen3",
+                    "phi3", "olmo2", "granite", "glm", "glm4", "exaone4",
+                    "smollm3", "helium", "arcee", "seed_oss", "ernie4_5",
+                    "hunyuan_v1_dense", "llava", "llava_next", "internvl",
+                    "mistral3", "qwen2_vl", "qwen2_5_vl", "glm4v",
+                    "qwen3_vl")
+
+# the types whose JAX forward accepts ``lora`` and ignores it
+LORA_DROPPED_MODEL_TYPES = ("mixtral", "qwen2_moe", "qwen3_moe", "olmoe",
+                            "granitemoe", "hunyuan_v1_moe", "qwen3_vl_moe",
+                            "gemma3", "gemma3_vl", "paligemma", "mllama")
+
+
+def check_lora_served(model_type: str) -> None:
+    """Refuse ``enable_lora`` by name on a model type whose forward does
+    not apply adapters. The JAX package builds such an LLM but then fails
+    its first LoRA step (Gemma 2 / 3: the forward takes no ``lora``, a
+    TypeError), serves the base model for an adapter request (the MoE
+    families, qwen3_vl_moe, the image-group VLMs and mllama: their
+    forwards drop ``lora``), or refuses at construction ("LoRA not
+    supported": every other type)."""
+    if model_type in LORA_MODEL_TYPES:
+        return
+    if model_type in GEMMA_MODEL_TYPES:
+        why = ("the JAX package's forward of this type takes no adapters "
+               "and raises TypeError at the first LoRA step")
+    elif model_type in LORA_DROPPED_MODEL_TYPES:
+        why = ("the JAX package's forward of this type drops the adapter "
+               "and serves the base model")
+    else:
+        why = "the JAX package refuses it as well (no adapter hooks)"
+    raise NotImplementedError(
+        f"LoRA (enable_lora) with model type {model_type} is not supported "
+        f"by this package: {why}")
+
+
 def check_ported_moe(args: "LlmArgs") -> None:
     """Refuse, by name, the MoE options of the JAX package that need more
     than one device or its expert load balancer, or that this package
@@ -325,6 +373,15 @@ class LlmArgs(StrictBaseModel):
     # decimal string: token-id-level grammars) or "byte" (token id ==
     # byte, EOS = token 0: byte-level checkpoints emit literal text)
     guided_token_bytes: Literal["decimal", "byte"] = "decimal"
+    # multi-adapter LoRA (lora/): LoraConfig's fields (max_lora_rank,
+    # max_loras, max_cpu_loras, lora_target_modules)
+    enable_lora: bool = False
+    lora_config: Optional[Dict[str, Any]] = None
+    # an external KV connector (runtime/kv_connector.py):
+    # {"connector_module": str, "connector_worker_class": str,
+    # "connector_scheduler_class": str, "kwargs": {...}}, or
+    # {"instance": obj} for an in-process connector with both halves
+    kv_connector_config: Optional[Dict[str, Any]] = None
 
     @model_validator(mode="after")
     def _fill_defaults(self):

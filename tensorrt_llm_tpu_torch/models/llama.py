@@ -56,7 +56,7 @@ names through ``_hf_module``.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Mapping
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -125,6 +125,15 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         self.m_mlp = self._method("mlp")
         self.m_lm_head = self._method("lm_head")
         self.attn_methods = AttentionMethods(self.m_q, self.m_kv, self.m_o)
+
+    def lora_module_shapes(self) -> Dict[str, tuple]:
+        """(K, N) of each projection an adapter may target, the JAX
+        model's (models/llama.py:172-177)."""
+        H, I = self.hidden_size, self.intermediate_size
+        nq, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        return {"q": (H, nq * hd), "k": (H, nkv * hd), "v": (H, nkv * hd),
+                "o": (nq * hd, H), "gate": (H, I), "up": (H, I),
+                "down": (I, H)}
 
     @property
     def layer_specs(self) -> List[AttentionSpec]:
@@ -332,7 +341,7 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
     def forward(self, params: Dict[str, Any], token_ids: torch.Tensor,
                 kv_pages: torch.Tensor, metadata: AttentionMetadata,
                 collect_hidden: bool = False, collect_kv_stats: bool = False,
-                input_embeds=None, deepstack=None):
+                input_embeds=None, deepstack=None, lora=None):
         """(logits [S, V] float32 at ``logits_indices``, kv_pages), and
         with ``collect_hidden`` also the pre-final-norm hidden rows at
         ``logits_indices`` (the EAGLE draft head's features), or with
@@ -340,7 +349,10 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         float32 [L] (the KV-scale calibration pass). ``deepstack`` [n, T,
         H] (Qwen3-VL): after layer k < n, slice k is added to the hidden
         rows (image features at the image rows, 0.0 elsewhere; the JAX
-        models/llama.py:344-350, which the MoE trunk shares here)."""
+        models/llama.py:344-350, which the MoE trunk shares here).
+        ``lora`` (a ``lora.lora_manager.LoraStep``): each token's adapter
+        added to the q, k, v, o, gate, up and down outputs of every layer
+        (the JAX ``make_lora_fn`` hooks, models/llama.py:211-235)."""
         eps = self.rms_eps
         q_norm, k_norm = self._qk_norms()
         h = embed_tokens(params["embed"], token_ids, input_embeds, self.dtype)
@@ -358,12 +370,14 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         for li, (layer, spec) in enumerate(zip(params["layers"], specs)):
             md_l = layer_metadata(metadata, li, P, ps, L)
             x = h if post else rms_norm(h, layer["input_norm"], eps)
+            lora_fn = None if lora is None else lora.layer_fn(li)
             a = attention_block(layer, x, kv_flat, md_l, spec,
                                 self.attn_methods,
                                 rope_cos_sin=cos_sin.get(spec.rope),
                                 q_norm=q_norm, k_norm=k_norm,
                                 kv_scale=layer.get("kv_scale", self.kv_scale),
-                                collect_kv_stats=collect_kv_stats)
+                                collect_kv_stats=collect_kv_stats,
+                                lora_fn=lora_fn)
             if collect_kv_stats:
                 a, stat = a
                 stats.append(stat)
@@ -372,8 +386,9 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             elif sandwich:
                 a = rms_norm(a, layer["post_attn_extra"], eps)
             h = h + (a if rm == 1.0 else rm * a)
-            m = self._mlp(layer, h if post else
-                          rms_norm(h, layer["post_norm"], eps))
+            xm = h if post else rms_norm(h, layer["post_norm"], eps)
+            m = self._mlp(layer, xm) if lora_fn is None else \
+                self._mlp(layer, xm, lora_fn)
             if post:
                 m = rms_norm(m, layer["post_norm"], eps)
             elif sandwich:
@@ -404,14 +419,20 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
             pos = pos + metadata.rope_offset
         return rope_cos_sin(rope, pos)
 
-    def _mlp(self, layer: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, layer: Dict[str, Any], x: torch.Tensor,
+             lora_fn: Optional[Callable] = None) -> torch.Tensor:
         """The gated MLP (``mlp_act`` on the gate in float32, times up,
-        then down) over the post-attention rows."""
+        then down) over the post-attention rows; ``lora_fn(name, x, out)``
+        adds the adapters to the gate, up and down outputs (each its own
+        part of a fused gate|up output)."""
         mlp = self.m_mlp
         gate, up = apply_pair(mlp, layer, "gate_up", ("gate", "up"), x,
                               self.intermediate_size)
+        if lora_fn is not None:
+            gate, up = lora_fn("gate", x, gate), lora_fn("up", x, up)
         act = _ACTS[self.mlp_act](gate.float()).to(self.dtype) * up
-        return mlp.apply(layer["down"], act)
+        out = mlp.apply(layer["down"], act)
+        return out if lora_fn is None else lora_fn("down", act, out)
 
     def _qk_norms(self):
         """(q_norm, k_norm) hooks of ``attention_block``: functions of

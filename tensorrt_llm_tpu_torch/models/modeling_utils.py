@@ -209,11 +209,12 @@ def attention_block(params: Dict[str, Any],
     a float32 device tensor, made once at build, and the only form the
     kernels are given (a tuple would be copied to the device at every
     call, which a graph capture refuses); required when the spec has
-    slopes. ``lora_fn(name, x, out)`` adds an adapter's term to the q, k
-    and v projections' outputs (Zamba2's per-use adapters), ``pre_o(params,
-    x, attn [T, nq * hd])`` rewrites the attention output before the
-    output projection (Qwen3-Next's output gate): the JAX hooks of the
-    same names."""
+    slopes. ``lora_fn(name, x, out)`` adds an adapter's term to the q, k,
+    v and o projections' outputs, each over its own input (Zamba2's
+    per-use adapters, the LoRA adapters of lora/lora_manager.py; a fused
+    qkv output takes each part's term apart), ``pre_o(params, x, attn [T,
+    nq * hd])`` rewrites the attention output before the output projection
+    (Qwen3-Next's output gate): the JAX hooks of the same names."""
     if (spec.alibi_slopes is None) != (alibi_slopes is None):
         raise ValueError(
             "attention_block takes ALiBi slopes as a device tensor exactly "
@@ -265,6 +266,8 @@ def attention_block(params: Dict[str, Any],
     if pre_o is not None:
         attn = pre_o(params, x, attn)
     out = methods.o.apply(params["o"], attn)
+    if lora_fn is not None:
+        out = lora_fn("o", attn, out)
     if collect_kv_stats:
         return out, torch.maximum(k.float().abs().amax(),
                                   v.float().abs().amax())

@@ -167,6 +167,8 @@ class Zamba2ForCausalLM(RecurrentModel):
         lora_fn = None
         if self.attn_adapter:
             def lora_fn(n, x, base):
+                if n == "o":            # the shared block's o has none
+                    return base
                 return base + ((x @ layer[f"{n}_a0"]) @ layer[f"{n}_a1"]
                                ).to(base.dtype)
         attn = self._attention(block, normed, kv_pages, metadata, i,

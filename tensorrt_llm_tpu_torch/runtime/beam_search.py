@@ -195,9 +195,12 @@ def make_beam_rows(parent: LlmRequest) -> List[LlmRequest]:
             max_tokens=sp.max_tokens + 1,  # group terminates before this
             top_k=1, logprobs=width,
             end_id=None, ignore_eos=True)   # EOS handled by the group
+        # each beam carries the request's adapter (the JAX rows drop it
+        # and decode the base model)
         row = LlmRequest(prompt_token_ids=list(parent.prompt_token_ids),
                          sampling_params=row_sp,
-                         cache_salt=parent.cache_salt)
+                         cache_salt=parent.cache_salt,
+                         lora_task_id=parent.lora_task_id)
         row.is_beam_row = True
         rows.append(row)
     return rows

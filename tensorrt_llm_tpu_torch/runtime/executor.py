@@ -80,10 +80,18 @@ dumps every thread's stack when an iteration takes longer than its
 timeout; each iteration appends an ``IterationStats`` to
 ``stats_history``.
 
+LoRA rows (``lora_task_id``) take single steps: no K-step window, no
+rider window for their prompts, no speculative window (the JAX
+executor.py:1198, :1221, :1400). A KV connector (runtime/kv_connector.py)
+is driven at the JAX package's sites: ``query_match`` / ``after_alloc``
+at admission, ``begin_batch`` after the iteration's allocation,
+``on_request_finished`` (blocks parked until an asynchronous save lands,
+``poll_finished_saves`` in ``_reap_finished``).
+
 This executor is the JAX package's single-engine role only: it has no
 leader, follower or attention-DP roles, so their branches of the
-schedule are not ported. Not ported either: tree drafts,
-disaggregation and KV connectors.
+schedule are not ported. Not ported either: tree drafts and
+disaggregation.
 """
 from __future__ import annotations
 
@@ -295,8 +303,13 @@ class PyExecutor:
                  decode_wait_occupancy: float = 0.0,
                  ttft_slo_ms: float = 0.0,
                  drafter=None,
-                 guided_decoder=None):
+                 guided_decoder=None,
+                 kv_connector=None):
         self.engine = engine
+        # an external KV store (runtime/kv_connector.py KvConnectorManager)
+        # and the finished requests whose blocks wait for its async save
+        self.kv_connector = kv_connector
+        self._save_parked: List[LlmRequest] = []
         self.kv = kv_cache_manager
         self.scheduler = scheduler
         self.tokenizer = tokenizer
@@ -477,6 +490,8 @@ class PyExecutor:
         self._work_event.set()
         if wait and self._thread.is_alive():
             self._thread.join(timeout=60)
+        if self.kv_connector is not None:
+            self.kv_connector.shutdown()
 
     # ------------------------------------------------------------------ #
     # Main loop
@@ -636,6 +651,11 @@ class PyExecutor:
                         self._prepare_resources_spec(gen_window)
                     else:
                         self._prepare_resources_multi(gen_window)
+                if self.kv_connector is not None:
+                    # connector metadata out, and external KV into the
+                    # pages just allocated, before the forward (the JAX
+                    # executor.py:705-708)
+                    self.kv_connector.begin_batch()
             # mixed window: resourced context chunks ride inside the
             # decode window's steps, where their prefill hides under the
             # decode steps' weight reads; they leave the prefill step
@@ -820,9 +840,17 @@ class PyExecutor:
 
     def _reap_finished(self) -> None:
         """Complete the requests finished out of band (cancellation; the
-        JAX executor.py:1927-1931)."""
+        JAX executor.py:1927-1931), and free the KV of requests whose
+        connector save landed."""
         for req in [r for r in self._active if r.is_finished]:
             self._finish_request(req)
+        if self.kv_connector is not None and self._save_parked:
+            for req in self.kv_connector.poll_finished_saves():
+                self.kv.free_resources(req)
+                if req.seq_slot is not None:
+                    self._release_slot(req)
+                if req in self._save_parked:
+                    self._save_parked.remove(req)
 
     def _prompt_logprobs(self, req: LlmRequest) -> None:
         """The request's ``prompt_logprobs``: one teacher-forced forward
@@ -936,12 +964,15 @@ class PyExecutor:
                                                 req.mrope_delta)
                 if self.engine._cross:
                     # Mllama: the request's vision K/V into its slot, or
-                    # a text-only request clears the recycled slot's
-                    # (the JAX executor.py:1127-1135)
+                    # a text-only request clears the recycled slot's. The
+                    # states stay on the request until it finishes, so a
+                    # request paused under MAX_UTILIZATION writes them
+                    # into its new slot again (the JAX executor.py:
+                    # 1127-1135 drops them here, and such a request
+                    # decodes the rest of its output as text)
                     if req.cross_states is not None:
                         self.engine.set_cross_state(req.seq_slot,
                                                     req.cross_states)
-                        req.cross_states = None
                     else:
                         self.engine.clear_cross_state(req.seq_slot)
                 sp = req.sampling_params
@@ -957,6 +988,17 @@ class PyExecutor:
                 if reused:
                     req.context_current_position = reused
                     req.perf.kv_cache_hit_tokens = reused
+                if self.kv_connector is not None:
+                    # the external store may extend the reused prefix, by
+                    # whole blocks and never to the last prompt token (the
+                    # JAX executor.py:1141-1150)
+                    extra = self.kv_connector.query_match(req, reused)
+                    extra = min(extra, req.context_len - 1 - reused)
+                    extra -= extra % self.kv.tokens_per_block
+                    if extra > 0:
+                        req.context_current_position = reused + extra
+                        req.perf.kv_cache_hit_tokens = reused + extra
+                    self.kv_connector.after_alloc(req, extra)
                 if req.perf.first_scheduled_time == 0:
                     req.perf.first_scheduled_time = time.monotonic()
         for req in deferred:
@@ -1061,6 +1103,7 @@ class PyExecutor:
             sp = r.sampling_params
             if (sp.logprobs or sp.bad_token_ids or sp.use_beam_search
                     or r.is_beam_row or sp.logits_processor is not None
+                    or r.lora_task_id is not None
                     or len(sp.stop_id_list()) > self.engine.NSTOP
                     or (sp.guided_decoding is not None
                         and not r.guided_device)):
@@ -1105,12 +1148,13 @@ class PyExecutor:
 
     def _ctx_rider_ok(self, r: LlmRequest) -> bool:
         """A context request can ride once it holds a slot and its KV,
-        unless it carries prompt embeddings: a window takes token ids
-        only, so such a request stays in the prefill step (the JAX
-        executor.py:1217-1223; the cross-attention model's requests never
-        meet a rider window, ``_mixed_ok``, and this package has no LoRA
-        adapters, the JAX package's other reasons)."""
-        return r.seq_slot is not None and r.prompt_embeds is None
+        unless it carries prompt embeddings or an adapter: a window takes
+        token ids only and applies no adapter, so such a request stays in
+        the prefill step (the JAX executor.py:1217-1223; the
+        cross-attention model's requests never meet a rider window,
+        ``_mixed_ok``)."""
+        return r.seq_slot is not None and r.prompt_embeds is None \
+            and r.lora_task_id is None
 
     def _advance_ctx_riders(self, riders: List[LlmRequest],
                             carved: List[int]) -> None:
@@ -1218,11 +1262,12 @@ class PyExecutor:
         sampling), top-k logprobs included, once a prefill step of this
         engine seeded the row and while it has room. Rows with penalties
         (no-repeat-ngram among them), bad words, an embedding bias, a
-        logits processor, beams or a grammar, and rows with more stop ids
-        than the window checks do not (the JAX executor.py:1385-1405; its
-        other reason, LoRA, this package does not serve)."""
+        logits processor, beams, a grammar or an adapter, and rows with
+        more stop ids than the window checks do not (the JAX
+        executor.py:1385-1405)."""
         sp = r.sampling_params
         if (sp.needs_penalties or sp.bad_token_ids
+                or r.lora_task_id is not None
                 or sp.guided_decoding is not None
                 or sp.embedding_bias is not None
                 or sp.logits_processor is not None
@@ -1604,6 +1649,20 @@ class PyExecutor:
             self.host_drafter.drop_request(req.request_id)
         if self.guided_decoder is not None:
             self.guided_decoder.drop(req.request_id)
+        req.cross_states = None
+        if self.kv_connector is not None and \
+                self.kv_connector.on_request_finished(req):
+            # an async external save in flight: blocks and slot stay held
+            # until the worker reports it done (``_reap_finished``; the
+            # JAX executor.py:2050-2062)
+            if req in self._active:
+                self._active.remove(req)
+            self._save_parked.append(req)
+            with self._lock:
+                res = self._results.pop(req.request_id, None)
+            if res is not None:
+                res._on_finish()
+            return
         self.kv.free_resources(req)
         if req.seq_slot is not None:
             self._release_slot(req)

@@ -2,16 +2,22 @@
 
 Host-side port of ``tensorrt_llm_tpu/runtime/kv_cache_manager.py``
 (``KVCacheManager`` with the speculative pair ``add_draft_tokens`` /
-``rewind_tokens``, and the VSWA dual-pool facade ``VswaKvManager``):
-integer page ids only, no device tensors. The secondary host/disk tiers
-are not part of this package yet.
+``rewind_tokens``, the VSWA dual-pool facade ``VswaKvManager``, and the
+host and disk tiers): integer page ids only, no device tensors; the page
+movers of the tiers are the engine's, injected as callbacks.
 
 Semantics:
   * Block identity: ``BlockKey`` = (tokens_in_block, lora_task_id,
     cache_salt); exact-key per block, longest-prefix over the chain.
   * Reuse: finished sequences attach their chain to a radix tree;
     new sequences claim the longest matched prefix (ref-counted).
-  * Eviction: priority-bucketed LRU over *leaf* blocks only.
+  * Eviction: priority-bucketed LRU over the deepest primary block of
+    a path. With a host tier (``host_cache_blocks`` > 0 and the movers
+    ``offload_fn`` / ``onboard_fn``) an evicted block of at least
+    ``secondary_offload_min_priority`` offloads to host memory and
+    onboards on a later prefix match; host-LRU victims demote to the
+    disk store (``disk_store``, runtime/kv_tiers.py) when there is one,
+    and promote disk -> device directly on a match.
   * Speculation: a verify step writes KV for its drafts
     (``add_draft_tokens``); rejected drafts' whole blocks go back to the
     free list (``rewind_tokens``).
@@ -33,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from .request import LlmRequest
 
@@ -68,9 +74,10 @@ def stable_block_hash(tokens, parent_hash: Optional[int] = None,
 
 
 class RadixNode:
-    """Reuse-tree node holding (while cached) one primary block."""
-    __slots__ = ("key", "parent", "children", "block", "priority",
-                 "_lru_tick", "content_hash")
+    """Reuse-tree node: holds a primary block, offloaded host data or a
+    disk key (or, transiently, none of them before it is pruned)."""
+    __slots__ = ("key", "parent", "children", "block", "host_data",
+                 "disk_key", "priority", "_lru_tick", "content_hash")
 
     def __init__(self, key: Optional[BlockKey] = None,
                  parent: Optional["RadixNode"] = None):
@@ -79,6 +86,8 @@ class RadixNode:
         self.parent = parent
         self.children: Dict[BlockKey, "RadixNode"] = {}
         self.block: Optional["Block"] = None
+        self.host_data = None
+        self.disk_key = None
         self.priority = DEFAULT_PRIORITY
         self._lru_tick = 0
 
@@ -91,6 +100,7 @@ class RadixNode:
             self.parent.children.pop(self.key, None)
         self.parent = None
         self.children = {}
+        self.host_data = None
         if self.block is not None:
             self.block.node = None
             self.block = None
@@ -116,13 +126,18 @@ class KvCacheStats:
     reused_blocks: int = 0
     missed_blocks: int = 0
     cache_hit_rate: float = 0.0
+    offloaded_blocks: int = 0
+    disk_blocks: int = 0
+    disk_onboarded_blocks: int = 0
+    onboarded_blocks: int = 0
+    host_blocks: int = 0
 
 
 @dataclasses.dataclass
 class KVCacheEvent:
     """Block stored/removed events for external routers."""
     event_id: int
-    kind: str                   # "stored" | "removed"
+    kind: str          # "stored" | "removed" | "offloaded" | "demoted_disk"
     block_hashes: List[int]
 
 
@@ -137,7 +152,12 @@ class KVCacheManager:
                  max_seq_len: int = 1 << 30,
                  enable_block_reuse: bool = True,
                  event_buffer_max_size: int = 0,
-                 ids_attr: str = "kv_block_ids"):
+                 ids_attr: str = "kv_block_ids",
+                 host_cache_blocks: int = 0,
+                 offload_fn: Optional[Callable[[int], object]] = None,
+                 onboard_fn: Optional[Callable[[int, object], None]] = None,
+                 secondary_offload_min_priority: int = 0,
+                 disk_store=None):
         if tokens_per_block <= 0:
             raise ValueError("tokens_per_block must be positive")
         self.ids_attr = ids_attr
@@ -145,6 +165,15 @@ class KVCacheManager:
         self.tokens_per_block = tokens_per_block
         self.max_seq_len = max_seq_len
         self.enable_block_reuse = enable_block_reuse
+        # the host tier: at most host_cache_blocks offloaded blocks, in
+        # LRU order; the disk tier under it (kv_tiers.DiskKvStore)
+        self.host_cache_blocks = host_cache_blocks
+        self._offload_fn = offload_fn
+        self._onboard_fn = onboard_fn
+        self.secondary_offload_min_priority = secondary_offload_min_priority
+        self._host_lru: "OrderedDict[RadixNode, None]" = OrderedDict()
+        self._disk = disk_store
+        self._claiming: Optional[RadixNode] = None   # see _claim_node
 
         self._blocks = [Block(i) for i in range(num_blocks)]
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))  # LIFO
@@ -220,9 +249,12 @@ class KVCacheManager:
             pos = 0
             while matchable - pos >= self.tokens_per_block:
                 child = node.children.get(self._make_key(request, pos))
-                if child is None or child.block is None:
+                if child is None:
                     break
-                chain.append(self._claim_node(child))
+                block = self._claim_node(child)
+                if block is None:
+                    break    # no data in any tier, or no room to onboard
+                chain.append(block)
                 pos += self.tokens_per_block
                 node = child
             reused_tokens = pos
@@ -390,6 +422,7 @@ class KVCacheManager:
         s.free_blocks = self.free_block_count
         s.used_blocks = self.num_blocks - s.free_blocks
         s.reusable_blocks = self._num_reusable
+        s.host_blocks = len(self._host_lru)
         total = s.reused_blocks + s.missed_blocks
         s.cache_hit_rate = s.reused_blocks / total if total else 0.0
         return s
@@ -410,12 +443,52 @@ class KVCacheManager:
             lora_task_id=request.lora_task_id,
             cache_salt=request.cache_salt)
 
-    def _claim_node(self, node: RadixNode) -> Block:
-        """Take a reference on a matched node's block."""
-        if node.block.ref_count == 0:
-            self._reusable_remove(node.block, node)
-        node.block.ref_count += 1
-        return node.block
+    def _claim_node(self, node: RadixNode) -> Optional[Block]:
+        """Take a reference on a matched node's block, onboarding it from
+        the host or the disk tier if need be; None when the node holds no
+        data or no block is free to onboard it into."""
+        if node.block is not None:
+            if node.block.ref_count == 0:
+                self._reusable_remove(node.block, node)
+            node.block.ref_count += 1
+            return node.block
+        if node.host_data is not None and self._onboard_fn is not None:
+            # the allocation may offload a block and overflow the host
+            # LRU; the node being claimed must not be the one it drops
+            self._claiming = node
+            try:
+                block = self._allocate_block()
+            except NoFreeBlocksError:
+                return None
+            finally:
+                self._claiming = None
+            self._onboard_fn(block.block_id, node.host_data)
+            self._host_lru.pop(node, None)
+            node.host_data = None
+            node.block = block
+            block.node = node
+            self._stats.onboarded_blocks += 1
+            return block
+        if node.disk_key is not None and self._disk is not None \
+                and self._onboard_fn is not None:
+            data = self._disk.get(node.disk_key)
+            if data is None:
+                node.disk_key = None
+                return None
+            try:
+                block = self._allocate_block()
+            except NoFreeBlocksError:
+                return None
+            # disk -> device promotion (skips the host tier)
+            self._onboard_fn(block.block_id, data)
+            self._disk.drop(node.disk_key)
+            node.disk_key = None
+            node.block = block
+            block.node = node
+            self._stats.onboarded_blocks += 1
+            self._stats.disk_onboarded_blocks += 1
+            return block
+        return None
 
     def _release_block(self, block: Block) -> None:
         block.ref_count -= 1
@@ -436,28 +509,74 @@ class KVCacheManager:
         return block
 
     def _evict_one(self) -> Block:
-        """Evict the lowest-priority LRU *leaf* reusable block."""
+        """Evict the lowest-priority LRU reusable block that is the
+        deepest primary block of its path (offloaded descendants may stay
+        below it); offload it to the host tier when there is one and its
+        priority reaches ``secondary_offload_min_priority``."""
+        def primary_below(n: RadixNode) -> bool:
+            return any(c.block is not None or primary_below(c)
+                       for c in n.children.values())
+
         for priority in sorted(self._reusable):
             bucket = self._reusable[priority]
             for block_id in bucket:
                 block = self._blocks[block_id]
                 node = block.node
-                if node is not None and node.is_leaf:
-                    self._reusable_remove(block, node)
-                    self._push_event("removed", [
-                        node.content_hash if node.content_hash
-                        is not None else hash(node.key)])
+                if node is None or (not node.is_leaf
+                                    and primary_below(node)):
+                    continue
+                self._reusable_remove(block, node)
+                if (self._offload_fn is not None
+                        and self.host_cache_blocks > 0
+                        and node.priority >=
+                        self.secondary_offload_min_priority):
+                    self._offload_node(node)
+                else:
+                    self._push_event("removed", [self._hash_of(node)])
                     parent = node.parent
                     node.detach()
                     self._maybe_prune(parent)
-                    block.node = None
-                    return block
+                block.node = None
+                return block
         raise NoFreeBlocksError("no free or evictable KV blocks")
+
+    @staticmethod
+    def _hash_of(node: RadixNode) -> int:
+        return node.content_hash if node.content_hash is not None \
+            else hash(node.key)
+
+    def _offload_node(self, node: RadixNode) -> None:
+        """Move an evicted node's block to the host tier (its page copy is
+        queued on the steps' stream before the block's next owner writes
+        it), and demote the host LRU's overflow to disk, or drop it."""
+        node.host_data = self._offload_fn(node.block.block_id)
+        node.block = None
+        self._host_lru[node] = None
+        self._stats.offloaded_blocks += 1
+        self._push_event("offloaded", [self._hash_of(node)])
+        while len(self._host_lru) > self.host_cache_blocks:
+            victim = next(n for n in self._host_lru
+                          if n is not self._claiming)
+            del self._host_lru[victim]
+            if self._disk is not None:
+                # the writer thread waits for the page's copy to land
+                victim.disk_key = self._disk.put(victim.host_data)
+                victim.host_data = None
+                self._stats.disk_blocks += 1
+                self._push_event("demoted_disk", [self._hash_of(victim)])
+            elif victim.is_leaf:
+                # only a leaf detaches; an interior victim waits, dataless
+                parent = victim.parent
+                victim.detach()
+                self._maybe_prune(parent)
+            else:
+                victim.host_data = None
 
     def _maybe_prune(self, node: Optional[RadixNode]) -> None:
         """Remove dataless interior nodes that became childless."""
         while (node is not None and node is not self._root and node.is_leaf
-               and node.block is None):
+               and node.block is None and node.host_data is None
+               and node.disk_key is None):
             parent = node.parent
             node.detach()
             node = parent

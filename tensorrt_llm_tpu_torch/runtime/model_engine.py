@@ -34,8 +34,18 @@ the prefill kernel; decode rows and the windows carry -1) and Mllama's
 cross cache (``_cross``: the slot-indexed vision K/V written at
 admission, ``set_cross_state`` / ``clear_cross_state``; prompt steps run
 eagerly with each sequence's rows and slot in ``cross_segments``, the
-windows read the cache through their rows' slots)) without LoRA, tree
-drafts, MoE statistics and pipeline parallelism.
+windows read the cache through their rows' slots), multi-adapter LoRA
+(``set_lora_manager`` / ``refresh_lora``: the adapter stacks are static
+buffers allocated before the KV pool is sized and rewritten in place;
+each token of a step carries its adapter slot, ``lora_slots``, -1 for
+none, chunks and drafts repeating their request's; a step with a LoRA
+row keys its graph by that and by DoRA, one without keeps its key) and
+the page movers of the KV host and disk tiers and the KV connectors
+(``offload_page`` / ``onboard_page``, ``extract_kv`` / ``inject_kv``: a
+gather into a device staging buffer and one non-blocking copy into
+pinned host memory behind an event, and in-place writes into the pool,
+all on the steps' stream) without tree drafts, MoE statistics and
+pipeline parallelism.
 MoE models run through the same steps and graphs: their routing is
 computed on the device, and no MoE shape depends on it (ops/moe.py).
 
@@ -73,6 +83,7 @@ import torch
 
 from ..llmapi.llm_args import LlmArgs
 from ..logger import logger
+from ..lora.lora_manager import LoraConfig, LoraModuleStack, LoraStep
 from ..models.modeling_utils import DecoderModelForCausalLM
 from ..ops.attention import AttentionMetadata
 from ..ops.cuda import decode_attention as dec
@@ -82,6 +93,7 @@ from ..ops.sampling_ops import (NGRAM_MAX, SamplingTensors,
                                 rejection_sample, sample, top_logprobs)
 from . import spec_window
 from .cuda_graph import GraphRunner, Inputs, upload
+from .kv_tiers import HostPage, PinnedPages
 from .scheduler import ScheduledRequests
 
 
@@ -165,6 +177,8 @@ class StepInputs:
     positions_mrope: Optional[np.ndarray] = None   # i32[3, T]
     # image-group models: each token's image group, -1 for none
     mm_groups: Optional[np.ndarray] = None         # i32[T]
+    # LoRA: each token's adapter slot, -1 for none (None: no LoRA row)
+    lora_slots: Optional[np.ndarray] = None        # i32[T]
 
 
 def _pools(kv_pages) -> tuple:
@@ -285,6 +299,22 @@ class ModelEngine:
         # and before any graph that reads them is captured; they are
         # written in place after. The grammar walk switches on with
         # ``enable_guided``
+        # multi-adapter LoRA (lora/lora_manager.py): the stacks are
+        # allocated here, before the KV pool is sized from free memory,
+        # and rewritten in place by ``refresh_lora`` (graphs read them by
+        # address); ``lora_dora``: an active adapter has DoRA scales
+        self.lora_manager = None
+        self.lora_stacks: Optional[Dict[str, LoraModuleStack]] = None
+        self.lora_dora = False
+        if args.enable_lora:
+            self._alloc_lora(LoraConfig(**(args.lora_config or {})))
+        # the tiers' and connectors' page moves: pages and bytes each way,
+        # the executor thread's waits on a copy not yet landed, and the
+        # host buffers pinned one by one (the host tier's slab is pinned
+        # once, ``reserve_host_pages``)
+        self.kv_moves = dict(d2h_pages=0, d2h_bytes=0, h2d_pages=0,
+                             h2d_bytes=0, host_syncs=0, pinned_allocs=0)
+        self.host_pages: Optional[PinnedPages] = None
         self.g_enabled = False
         self.g_eos_id = -1
         self.g_state: Optional[torch.Tensor] = None
@@ -763,6 +793,182 @@ class ModelEngine:
         write: windows already dispatched read the old value)."""
         self.mrope_delta[slot] = int(delta)
 
+    # ------------------------------------------------------------------ #
+    # LoRA (the JAX model_engine.py:1138-1146)
+    # ------------------------------------------------------------------ #
+    def _alloc_lora(self, cfg: LoraConfig) -> None:
+        """Empty adapter stacks of every module of
+        ``model.lora_module_shapes()`` (``LoraModuleStack``: A [L, K, n·r],
+        B [L, n·r, N] in the model's type, the scales float32 [n + 1],
+        the DoRA scales [L, n + 1, N], ones); ``lora_written``: the
+        adapter each slot holds now."""
+        L, n, r = self.model.num_layers, cfg.max_loras, cfg.max_lora_rank
+        self.lora_stacks = {
+            m: LoraModuleStack.empty(L, K, N, n, r, self.model.dtype,
+                                     self.device)
+            for m, (K, N) in self.model.lora_module_shapes().items()}
+        self.lora_written: List[Optional[object]] = [None] * n
+
+    @property
+    def lora_bytes(self) -> int:
+        """Device bytes of the adapter stacks (0 without LoRA)."""
+        return sum(t.numel() * t.element_size()
+                   for st in (self.lora_stacks or {}).values() for t in st)
+
+    def set_lora_manager(self, manager) -> None:
+        self.lora_manager = manager
+
+    @torch.no_grad()
+    def refresh_lora(self) -> None:
+        """After an (de)activation, write each slot whose adapter changed
+        into the stacks (the adapter's weights, or zeros), in place on the
+        steps' stream: steps already dispatched read the old adapters,
+        later ones the new. The graph lock keeps the copies out of a
+        capture on the executor thread."""
+        mgr = self.lora_manager
+        with self.graphs.lock:
+            for slot, had in enumerate(self.lora_written):
+                now = mgr.adapter_in(slot)
+                if now is had:
+                    continue
+                for mod, st in self.lora_stacks.items():
+                    mgr.write_slot(st, mod, slot)
+                self.lora_written[slot] = now
+            self.lora_dora = mgr.has_dora
+
+    def _lora_step(self, reqs) -> Optional[bool]:
+        """Whether the step's adapters take the DoRA scales, when a row
+        of it asks for an adapter (the JAX engine's ``use_lora``); None
+        when none does."""
+        if self.lora_manager is None or \
+                all(r.lora_task_id is None for r in reqs):
+            return None
+        return self.lora_dora
+
+    # ------------------------------------------------------------------ #
+    # Page movers of the KV tiers and connectors (the JAX
+    # model_engine.py:1504-1568)
+    # ------------------------------------------------------------------ #
+    def tier_pool(self) -> torch.Tensor:
+        """The one KV pool the page movers read and write; a pair (VSWA)
+        or a dict of pools (recurrent state, image groups, Mllama's cross
+        cache) is refused by name, as the JAX movers, which index
+        ``kv_pages[:, bid]``, cannot take one either."""
+        if not isinstance(self.kv_pages, torch.Tensor):
+            kind = "VSWA's pair of pools" if self._vswa else \
+                "a dict of pools (" + ", ".join(self.kv_pages) + ")"
+            raise NotImplementedError(
+                "the KV host and disk tiers and KV connectors move pages "
+                f"of one KV pool; this model keeps {kind}")
+        return self.kv_pages
+
+    def reserve_host_pages(self, n: int) -> None:
+        """Pin ``n`` pages of host memory for ``offload_page`` at once
+        (the host tier's capacity; past it a page is pinned alone)."""
+        if self.device.type == "cuda" and n > 0:
+            kv = self.tier_pool()
+            self.host_pages = PinnedPages(n, kv.shape[:1] + kv.shape[2:],
+                                          kv.dtype)
+
+    def _to_host(self, src: torch.Tensor, pages: int = 1) -> HostPage:
+        """``src`` (a device view of ``pages`` pages) gathered into a
+        contiguous staging buffer and copied, without blocking, into
+        pinned host memory (a page of the host slab where one page is
+        asked for and one is free); the copy's event rides along
+        (``HostPage``)."""
+        staging = src.contiguous()
+        if self.device.type != "cuda":
+            page = HostPage(staging.clone() if staging is src else staging)
+        else:
+            slot = self.host_pages.take() if pages == 1 and \
+                self.host_pages is not None else None
+            if slot is None:
+                host = torch.empty(staging.shape, dtype=staging.dtype,
+                                   pin_memory=True)
+                self.kv_moves["pinned_allocs"] += 1
+            else:
+                host = slot[1]
+            host.copy_(staging, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            page = HostPage(host, event)
+            if slot is not None:
+                self.host_pages.attach(page, slot[0])
+        self.kv_moves["d2h_pages"] += pages
+        self.kv_moves["d2h_bytes"] += page.nbytes
+        return page
+
+    def _to_pool(self, ids, data: torch.Tensor) -> None:
+        """Write host ``data`` [L, len(ids) or one page, ...] into pages
+        ``ids`` of the pool, in place on the steps' stream (captured
+        graphs keep reading the same pool)."""
+        kv = self.tier_pool()
+        if self.device.type == "cuda":
+            if not data.is_pinned():
+                # a disk page or a connector's blob: pinned here, alone
+                data = data.pin_memory()
+                self.kv_moves["pinned_allocs"] += 1
+            data = data.to(self.device, non_blocking=True)
+        kv[:, ids] = data.to(kv.dtype)
+        self.kv_moves["h2d_pages"] += 1 if isinstance(ids, int) \
+            else len(ids)
+        self.kv_moves["h2d_bytes"] += data.numel() * data.element_size()
+
+    def _device_ids(self, block_ids: List[int]) -> torch.Tensor:
+        """Block ids as a device index, uploaded from pinned memory
+        without blocking (a pageable upload waits for the stream)."""
+        ids = torch.as_tensor(block_ids, dtype=torch.long)
+        if self.device.type == "cuda":
+            ids = ids.pin_memory().to(self.device, non_blocking=True)
+        return ids
+
+    def host_page(self, page: HostPage) -> torch.Tensor:
+        """``page``'s tensor, counting a wait on the executor thread for
+        a copy that has not landed (``kv_moves["host_syncs"]``)."""
+        if not page.ready():
+            self.kv_moves["host_syncs"] += 1
+        return page.get()
+
+    @torch.no_grad()
+    def offload_page(self, block_id: int) -> HostPage:
+        """Page ``block_id`` of every layer, [L, page, ...], on its way to
+        pinned host memory. Queued on the steps' stream, so it copies what
+        the steps already dispatched wrote, before the page's next owner
+        writes it; nothing waits here."""
+        return self._to_host(self.tier_pool()[:, block_id])
+
+    @torch.no_grad()
+    def onboard_page(self, block_id: int, data) -> None:
+        """Write a page back (a ``HostPage`` of the host tier, or the
+        disk tier's tensor) into page ``block_id``, in place."""
+        if isinstance(data, HostPage):
+            data = data.tensor     # its copy is ahead on the same stream
+        self._to_pool(block_id, data)
+
+    @torch.no_grad()
+    def extract_kv(self, block_ids: List[int], num_tokens: int) -> HostPage:
+        """A request's KV as one host tensor [L, num_tokens, ...] on its
+        way to pinned memory (one gather, one copy)."""
+        kv = self.tier_pool()
+        g = kv[:, self._device_ids(block_ids)]                           # [L, n, page, ...]
+        flat = g.reshape(g.shape[0], -1, *g.shape[3:])[:, :num_tokens]
+        return self._to_host(flat, len(block_ids))
+
+    @torch.no_grad()
+    def inject_kv(self, block_ids: List[int],
+                  kv_host: torch.Tensor) -> None:
+        """Scatter a host KV blob [L, tokens, ...] into pages
+        ``block_ids``, in place (padded to whole pages)."""
+        ps = self.page_size
+        n_tok = kv_host.shape[1]
+        pad = -n_tok % ps
+        if pad:
+            kv_host = torch.cat([kv_host, kv_host.new_zeros(
+                kv_host.shape[0], pad, *kv_host.shape[2:])], dim=1)
+        n = kv_host.shape[1] // ps
+        blob = kv_host.reshape(kv_host.shape[0], n, ps, *kv_host.shape[2:])
+        self._to_pool(self._device_ids(block_ids[:n]), blob)
+
     @torch.no_grad()
     def copy_pages(self, src: List[int], dst: List[int],
                    pool: int = 0) -> None:
@@ -850,12 +1056,16 @@ class ModelEngine:
 
     def _forward(self, tokens: torch.Tensor, metadata: AttentionMetadata,
                  collect_hidden: bool = False,
-                 input_embeds: Optional[torch.Tensor] = None):
+                 input_embeds: Optional[torch.Tensor] = None,
+                 lora: Optional[LoraStep] = None):
         """The model over the KV pool, which it updates in place (captured
         graphs hold the pool's address): logits, and with
         ``collect_hidden`` (logits, pre-final-norm hidden rows).
-        ``input_embeds`` [T, H]: the step's prompt-embedding rows."""
+        ``input_embeds`` [T, H]: the step's prompt-embedding rows;
+        ``lora``: the step's adapters."""
         kw = {} if input_embeds is None else {"input_embeds": input_embeds}
+        if lora is not None:
+            kw["lora"] = lora
         out = self.model.forward(self.params, tokens, self.kv_pages,
                                  metadata, collect_hidden=collect_hidden,
                                  **kw)
@@ -938,6 +1148,8 @@ class ModelEngine:
         tables = np.zeros((len(self.pool_ids), S, P), np.int32)
         slot_maps: List[List[int]] = [[] for _ in self.pool_ids]
         max_q = 0
+        lora = self._lora_step(reqs) is not None
+        lora_list: List[int] = []
         for i, req in enumerate(reqs):
             chains = [getattr(req, attr) for attr in self.pool_ids]
             for table, chain in zip(tables, chains):
@@ -979,6 +1191,11 @@ class ModelEngine:
                 draft_ids[i * G:i * G + len(drafts)] = drafts
             for sm, chain in zip(slot_maps, chains):
                 sm.extend(chain[p // ps] * ps + p % ps for p in span)
+            if lora:
+                # chunks and drafts repeat the request's slot (the JAX
+                # model_engine.py:1180-1197, :1246)
+                lora_list.extend([self.lora_manager.slot_for(
+                    req.lora_task_id)] * len(span))
             cu_q[i + 1] = len(tok_list)
             # mid-chunk context rows produce no real sample: route their
             # scatter to the trash slot so junk tokens can't pollute
@@ -1029,6 +1246,7 @@ class ModelEngine:
             max_kv_len=int(kv_lens.max()), draft_ids=draft_ids,
             has_prompt=bool(batch.context_requests),
             positions_mrope=positions_mrope, mm_groups=mm_groups,
+            lora_slots=np.asarray(lora_list, np.int32) if lora else None,
             **_sliding(page_indices_sw=tables[1:],
                        slot_mapping_sw=slot_maps[1:]))
 
@@ -1123,6 +1341,10 @@ class ModelEngine:
             groups = np.full(T, -1, np.int32)
             groups[:n] = inp.mm_groups
             inputs["mm_groups"] = groups
+        if inp.lora_slots is not None:
+            lslots = np.full(T, -1, np.int32)
+            lslots[:n] = inp.lora_slots
+            inputs["lora_slots"] = lslots
         if not greedy:
             inputs["samp_ints"], inputs["samp_floats"] = \
                 SamplingTensors.rows(reqs, S)
@@ -1152,16 +1374,22 @@ class ModelEngine:
     def _step_key(self, T: int, bound: int, greedy: bool,
                   use_penalties: bool, k_lp: int,
                   seeded: bool = False, hidden: bool = False,
-                  ops: LogitsOps = LogitsOps()) -> tuple:
+                  ops: LogitsOps = LogitsOps(),
+                  lora: Optional[bool] = None) -> tuple:
+        """A decode step's graph key; a step with LoRA rows adds
+        ("lora", DoRA)."""
         return ("step", T, self._splits(min(self.max_batch_size, T), bound),
-                greedy, use_penalties, ops, k_lp, seeded, hidden)
+                greedy, use_penalties, ops, k_lp, seeded, hidden) + \
+            (() if lora is None else ("lora", lora))
 
     def _verify_key(self, T: int, greedy: bool, use_penalties: bool,
                     k_lp: int, seeded: bool = False,
                     ops: LogitsOps = LogitsOps(),
-                    hidden: bool = False) -> tuple:
+                    hidden: bool = False,
+                    lora: Optional[bool] = None) -> tuple:
         return ("verify", T, self.G, greedy, use_penalties, ops, k_lp,
-                seeded, hidden)
+                seeded, hidden) + \
+            (() if lora is None else ("lora", lora))
 
     def _logits_ops_of(self, reqs, bad_ids: Optional[np.ndarray],
                        collect_logits: bool,
@@ -1224,6 +1452,7 @@ class ModelEngine:
             pad[:, :bad_ids.shape[1]] = bad_ids
             bad_ids = pad
         ops = self._logits_ops_of(reqs, bad_ids, collect_logits, logits_mask)
+        lora = self._lora_step(reqs)
         self.guided_steps += ops.guided or ops.mask
         inputs = self._step_inputs(inp, reqs, T, greedy, ops, bad_ids,
                                    logits_mask)
@@ -1239,7 +1468,7 @@ class ModelEngine:
             self.verify_steps_with_prompt += verify
             body = self._step_body(inp.max_q_len, inp.max_kv_len, greedy,
                                    use_penalties, k_lp, seeded,
-                                   collect_hidden, ops, grouped)
+                                   collect_hidden, ops, grouped, lora)
             views = upload(inputs, self.device)
             if embeds is not None:
                 self.embed_steps += 1
@@ -1256,25 +1485,21 @@ class ModelEngine:
             reach = self.pages_per_seq * self.page_size
             outs = self.graphs.run(
                 self._verify_key(T, greedy, use_penalties, k_lp, seeded,
-                                 ops, collect_hidden),
+                                 ops, collect_hidden, lora),
                 inputs,
                 self._step_body(self.G, reach, greedy, use_penalties, k_lp,
-                                seeded, collect_hidden, ops),
-                inert=lambda: self._step_inputs(
-                    self.prepare_inputs(ScheduledRequests()), [], T,
-                    greedy, ops))
+                                seeded, collect_hidden, ops, lora=lora),
+                inert=lambda: self._inert_inputs(T, greedy, ops, lora))
         else:
             bound = self._kv_bound(inp.max_kv_len)
             self.decode_steps += 1
             outs = self.graphs.run(
                 self._step_key(T, bound, greedy, use_penalties, k_lp, seeded,
-                               collect_hidden, ops),
+                               collect_hidden, ops, lora),
                 inputs,
                 self._step_body(1, bound, greedy, use_penalties, k_lp,
-                                seeded, collect_hidden, ops),
-                inert=lambda: self._step_inputs(
-                    self.prepare_inputs(ScheduledRequests()), [], T, greedy,
-                    ops))
+                                seeded, collect_hidden, ops, lora=lora),
+                inert=lambda: self._inert_inputs(T, greedy, ops, lora))
         if not collect_logits:
             return outs
         # a copy of the processor rows: the graph's static output is
@@ -1286,10 +1511,21 @@ class ModelEngine:
         self._last_logits_rows = (rows, outs[-1][idx])
         return outs[:-1]
 
+    def _inert_inputs(self, T: int, greedy: bool, ops: LogitsOps,
+                      lora: Optional[bool]) -> Inputs:
+        """Inputs of a step key's layout that change no device state
+        (every row inactive; with ``lora`` every token without an
+        adapter)."""
+        inp = self.prepare_inputs(ScheduledRequests())
+        if lora is not None:
+            inp.lora_slots = np.zeros(0, np.int32)
+        return self._step_inputs(inp, [], T, greedy, ops)
+
     def _step_body(self, max_q_len: int, kv_bound: int, greedy: bool,
                    use_penalties: bool, k_lp: int, seeded: bool = False,
                    collect_hidden: bool = False,
-                   ops: LogitsOps = LogitsOps(), mm_grouped: bool = False):
+                   ops: LogitsOps = LogitsOps(), mm_grouped: bool = False,
+                   lora: Optional[bool] = None):
         S, G = self.max_batch_size, self.G
 
         def body(v):
@@ -1311,7 +1547,9 @@ class ModelEngine:
                 mm_groups_q=v.get("mm_groups"), mm_grouped=mm_grouped,
                 cross_segments=v.get("cross_segments")),
                 collect_hidden=collect_hidden,
-                **({} if embeds is None else {"input_embeds": embeds}))
+                **({} if embeds is None else {"input_embeds": embeds}),
+                **({} if lora is None else {"lora": LoraStep(
+                    self.lora_stacks, v["lora_slots"], lora)}))
             if collect_hidden:
                 logits, hidden = logits
             out_slots = v["out_slots"]
@@ -1546,6 +1784,10 @@ class ModelEngine:
         (a mixed window), each step also prefills a planned context
         chunk."""
         reqs = batch.generation_requests
+        if self._lora_step(reqs + list(ctx_requests or ())) is not None:
+            # a window applies no adapter: the executor keeps LoRA rows
+            # in single steps (the JAX executor.py:1198, :1221)
+            raise ValueError("a LoRA row cannot take a K-step window")
         n = len(reqs)
         Sb = self._pick_row_bucket(n)
         self.iter_counter += 1

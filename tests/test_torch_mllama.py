@@ -313,3 +313,83 @@ def test_weights_carried_across_from_jax(pair):
     np.testing.assert_allclose(
         _port_logits(pair, PROMPT, states, params=params),
         _port_logits(pair, PROMPT, _states(pair)), rtol=1e-5, atol=1e-5)
+
+
+
+EVICT_KV = dict(tokens_per_block=16, max_tokens=48, enable_block_reuse=False)
+
+
+def _evicting_run(pair, pkg, sp):
+    """Two image requests (different images) through ``pkg``'s ``LLM``,
+    whose pool (3 blocks of 16) holds one of them to its end but not
+    both, under MAX_UTILIZATION and without prefix reuse (a resumed
+    request recomputes its whole sequence). Returns each request's
+    tokens and the request's output count at its first pause (None:
+    never paused)."""
+    prompts = [{"prompt_token_ids": [2, 250, 5 + i, 7, 9, 11],
+                "multi_modal_data": pair.mm(i)} for i in range(2)]
+    if pkg is T:
+        from tensorrt_llm_tpu_torch.llmapi.llm_args import SchedulerConfig
+        from tensorrt_llm_tpu_torch.runtime.scheduler import \
+            CapacitySchedulerPolicy
+        llm = T.LLM(pair.hf, device="cpu", **LLM_KW,
+                    kv_cache_config=T.KvCacheConfig(**EVICT_KV),
+                    scheduler_config=SchedulerConfig(
+                        capacity_scheduler_policy=CapacitySchedulerPolicy
+                        .MAX_UTILIZATION))
+    else:
+        from tensorrt_llm_tpu.llmapi.llm_args import SchedulerConfig
+        from tensorrt_llm_tpu.runtime.scheduler import \
+            CapacitySchedulerPolicy
+        llm = J.LLM(model=pair.hf, **LLM_KW,
+                    kv_cache_config=J.KvCacheConfig(**EVICT_KV),
+                    scheduler_config=SchedulerConfig(
+                        capacity_scheduler_policy=CapacitySchedulerPolicy
+                        .MAX_UTILIZATION))
+    ex = llm.executor
+    first = {}
+    pause = ex._pause_requests
+
+    def record(paused, batch):
+        pause(paused, batch)         # drains the steps in flight first
+        for r in paused:
+            if not r.is_finished:
+                first.setdefault(r.request_id, r.num_output_tokens)
+    ex._pause_requests = record
+    try:
+        outs = llm.generate(prompts, pkg.SamplingParams(**sp))
+    finally:
+        llm.shutdown()
+    return ([o.outputs[0].token_ids for o in outs],
+            [first.get(o.request_id) for o in outs],
+            [p["prompt_token_ids"] for p in prompts])
+
+
+EVICT_SP = dict(max_tokens=30, top_k=1, end_id=-1)
+
+
+def test_evicted_request_keeps_its_image(pair):
+    """A request paused under memory pressure and admitted again writes
+    its vision state into its new slot: both requests' tokens equal
+    transformers' greedy tokens with their images, one of them paused."""
+    toks, paused, prompts = _evicting_run(pair, T, EVICT_SP)
+    assert any(k is not None for k in paused)
+    for i, (t, ids) in enumerate(zip(toks, prompts)):
+        assert t == _greedy_hf(pair, ids, EVICT_SP["max_tokens"], i)
+
+
+def test_jax_decodes_an_evicted_requests_tail_as_text(pair):
+    """The JAX executor drops a request's cross states at admission
+    (executor.py:1127-1135), so a paused request comes back text-only:
+    its tokens past the pause are transformers' greedy continuation of
+    the text model, not the image model's (ROADMAP C)."""
+    toks, paused, prompts = _evicting_run(pair, J, EVICT_SP)
+    n = EVICT_SP["max_tokens"]
+    hit = [i for i, k in enumerate(paused) if k is not None]
+    assert hit
+    for i in hit:
+        k = paused[i]
+        assert toks[i][:k] == _greedy_hf(pair, prompts[i], n, i)[:k]
+        assert toks[i][k:] == _greedy_hf(pair, prompts[i] + toks[i][:k],
+                                         n - k, None)
+        assert toks[i] != _greedy_hf(pair, prompts[i], n, i)
