@@ -478,6 +478,24 @@ the run on error:
      host tier, the disk tier, ``HostMemoryKvConnector``, recompute and a
      pool that holds everything: tokens against the last, tier stats,
      page moves and host syncs, wave C's TTFT, the movers' GB/s.
+ 59. sparse_kernels: K1 on the pages the ROCKET_TOPK and DSA indexers
+     select (keep_pages 16 and 64, bf16 and e4m3 pools, 32 rows at
+     8,062-8,192 positions, Llama-3-8B's 32 x 128 heads over 8) against
+     the plain sparse attention (the JAX function in float32 torch), with
+     the indexer's, K1-on-the-selected-pages' and dense K1's times; K2
+     through STAR's virtual-sequence remap against the prefill kernel's
+     plain version (and, small, the plain STAR reference) beside causal
+     K2 on the same chunk;
+ 60. sparse_serving: Llama-3-8B at full width and 8 layers, 32 x 8,192
+     -> 128, dense / ROCKET_TOPK / DSA at keep_pages 16 / STAR at blocks
+     of 2,048: tok/s, TTFT, TPOT, K1 and K2 launches by route, graph
+     replays, peak memory; then the DSA LLM sleeps and wakes (bytes
+     freed, graphs dropped and captured again, one batch's tokens
+     unchanged);
+ 61. sparse_accuracy: passkey retrieval on tinypasskey-llama at 3,072
+     tokens (pages of 32) and at 250 (pages of 16), dense and under
+     ROCKET_TOPK / DSA at two page budgets and STAR at blocks of as many
+     pages.
 
 ``python3 chip_smoke.py --only a,b`` runs just the named phases (a
 development run: no kernels line, no result line).
@@ -495,7 +513,9 @@ longcat_serving's (none: MLA, the MTP head and the ScMoE call no
 kernel), eval_accuracy's runs, bert_serving's (none: the encoder calls no
 kernel), llava_serving's and qwen25vl_serving's timed passes and
 mrope_families' by family; K1's and K2's rows also their hd-48 and
-group-7 cases; the dequant-matmul kernel's row also its
+group-7 cases, their sparse / STAR cases and their launches (all, and
+on the sparse route or through STAR's remap) in sparse_serving's and
+sparse_accuracy's runs; the dequant-matmul kernel's row also its
 e4m3 cases and its e4m3 launches in quant_serving's runs) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -5640,8 +5660,8 @@ def longcat_serving_phase() -> dict:
     TTFT and TPOT median and max, MLA calls by path, K1 / K2 / K3
     launches) and a profiled pass (idle share, GPU time by class), weights
     and peak memory. Then 2 prompts of 64 tokens -> 8 with top-2
-    logprobs on the card, and the weights copied to the host for
-    longcat_parity's CPU run. Fails if a request comes back short, out of
+    logprobs on the card, and the weights copied to the host through a
+    pinned buffer (``staged_copy``) for longcat_parity's CPU run. Fails if a request comes back short, out of
     the vocabulary or with a non-finite logprob, if no window replayed,
     or if the graph pool outgrew its reserve. Returns (results, what
     longcat_parity needs)."""
@@ -5649,6 +5669,7 @@ def longcat_serving_phase() -> dict:
 
     import torch
     from tensorrt_llm_tpu_torch import LLM, SamplingParams
+    from tensorrt_llm_tpu_torch.runtime.model_engine import staged_copy
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     cfg, kwargs, prompts, sp = sprof.workload(geometry="longcat-flash")
     gc.collect()
@@ -5672,7 +5693,7 @@ def longcat_serving_phase() -> dict:
         card = llm.generate(short, SamplingParams(
             max_tokens=8, top_k=1, ignore_eos=True, logprobs=2))
         t1 = time.monotonic()
-        host_params = _tree_to(eng.params, "cpu")
+        host_params = staged_copy(eng.params, "cpu")
         copy_s = time.monotonic() - t1
     finally:
         llm.shutdown()
@@ -5707,15 +5728,6 @@ def longcat_serving_phase() -> dict:
                 card=([o.outputs[0].token_ids for o in card],
                       [o.outputs[0].logprobs for o in card]))
     return res, full
-
-
-def _tree_to(tree, device):
-    """A parameter tree with every tensor moved to ``device``."""
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_to(v, device) for v in tree)
-    return tree.to(device) if hasattr(tree, "to") else tree
 
 
 def longcat_parity_phase(full) -> dict:
@@ -5963,6 +5975,7 @@ def bert_parity_phase() -> dict:
     import torch
     from tensorrt_llm_tpu_torch import LLM
     from tensorrt_llm_tpu_torch.models import ModelConfig, get_model_class
+    from tensorrt_llm_tpu_torch.runtime.model_engine import staged_copy
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     res, failures = {}, []
     tm = _tiny_bert()
@@ -5989,7 +6002,7 @@ def bert_parity_phase() -> dict:
     llm = LLM(cfg, dtype="float32")
     try:
         card = llm.classify(ids, token_type_ids=types)
-        params = _tree_to(llm._encoder_params, "cpu")
+        params = staged_copy(llm._encoder_params, "cpu")
     finally:
         llm.shutdown()
     t0 = time.monotonic()
@@ -6308,7 +6321,7 @@ QWEN25VL_WARMUP = 8
 QWEN25VL_PROFILED = 4
 # qwen25vl_serving's depth: 14 of the trunk's 28 layers (the script's
 # time limit)
-QWEN25VL_SERVING_LAYERS = 14
+QWEN25VL_SERVING_LAYERS = 8
 
 
 def mrope_kernel_phase(results: dict) -> None:
@@ -6497,7 +6510,7 @@ def mrope_parity_phase() -> dict:
 def qwen25vl_serving_phase() -> dict:
     """Qwen2.5-VL-7B at its published width and
     ``QWEN25VL_SERVING_LAYERS`` of its depth (tools/serving_profile.py
-    ``--geometry qwen2.5-vl-7b``: the Qwen2 trunk's 28 layers cut to 14,
+    ``--geometry qwen2.5-vl-7b``: the Qwen2 trunk's 28 layers cut to 8,
     28 x 128 q heads over 4 KV heads, M-RoPE; the
     windowed ViT of 32 blocks; seeded random bf16 weights drawn on the
     card), 32 (``VLM_SERVING_REQUESTS``) of the geometry's 64 requests of
@@ -6681,7 +6694,7 @@ def mrope_families_phase() -> dict:
 GEMMA3_4B_HEADS = (8, 4)
 GEMMA3_4B_WINDOW = 1024
 GEMMA3_4B_PAGES = 14
-# gemma3vl_serving's warm-up and profiled requests (of 64)
+# gemma3vl_serving's warm-up and profiled requests (of 32)
 GEMMA3VL_WARMUP = 8
 GEMMA3VL_PROFILED = 2
 
@@ -6851,7 +6864,8 @@ def imagegroup_parity_phase() -> dict:
 def _vlm_serving(label: str, geometry: str, warmup: int, profiled: int,
                  tower) -> tuple:
     """A full-width vision-language serving run (``serving_profile
-    .workload(geometry=...)``, seeded random bf16 weights on the card): a
+    .workload(geometry=...)``, seeded random bf16 weights on the card), at
+    most ``VLM_SERVING_REQUESTS`` of its requests: a
     warm-up of ``warmup`` requests (its wall time kept), the timed pass of
     all of them, then ``profiled`` of them unprofiled (the caller's ms to
     submit each) and under the profiler; weights (trunk and tower apart),
@@ -6865,6 +6879,7 @@ def _vlm_serving(label: str, geometry: str, warmup: int, profiled: int,
     from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
     from tensorrt_llm_tpu_torch.tools.card_timing import time_ms
     cfg, kwargs, prompts, sp = sprof.workload(geometry=geometry)
+    prompts = prompts[:VLM_SERVING_REQUESTS]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6995,8 +7010,9 @@ def gemma3vl_serving_phase() -> dict:
     (tools/serving_profile.py ``--geometry gemma-3-4b``: 34 text layers,
     8 x 256 q heads over 4 KV heads, windows of 1,024 on five layers of
     six; SigLIP at 896 px over 27 layers pooled to 256 tokens; seeded
-    random bf16 weights drawn on the card), 64 requests of one 896 x 896
-    host image (256 tokens, one image group) and 64 text tokens -> 128
+    random bf16 weights drawn on the card), 32 (``VLM_SERVING_REQUESTS``,
+    for the script's time limit) of the geometry's 64 requests of one
+    896 x 896 host image (256 tokens, one image group) and 64 text tokens -> 128
     greedy tokens with ``ignore_eos``, ``LLM`` defaults (64 rows, K = 8
     windows, CUDA graphs) but 8,192 tokens a prefill step and prefix reuse
     off (``_vlm_serving``): tok/s, TTFT and TPOT, K1 / K2 launches and
@@ -7787,6 +7803,607 @@ def kv_tier_serving_phase() -> dict:
     return dict(runs, summary=summary)
 
 
+# sparse attention (ops/sparse_attention.py) and STAR at Llama-3-8B's
+# width: 32 rows at 8,192 positions, keep_pages 16 and 64, STAR blocks of
+# 2,048; sparse_serving keeps 8 of the 32 layers (the time limit)
+SPARSE_ROWS, SPARSE_CTX, SPARSE_NEW = 32, 8192, 128
+SPARSE_KEEPS = (16, 64)
+STAR_BLOCK = 2048
+# Mistral-7B-v0.1's sliding window, for STAR's windowed launches
+STAR_WINDOW = 4096
+SPARSE_SERVING_LAYERS = 8
+
+
+def _sparse_case(name, algo, keep, kv8, q, pool, kv_lens, pt, qh, kvh,
+                 hd) -> dict:
+    """One sparse decode case: the route (the indexer in torch ops, the
+    selection, K1 on the compacted table) against the plain version (the
+    JAX function in float32 torch: every page gathered), bf16 2e-2; the
+    dense K1 launch over the whole table must fail that check. Timed:
+    the route, its indexer (scores, selection and compaction), K1 on the
+    selected pages, dense K1, the plain version, and SDPA on the selected
+    pages gathered beforehand (the library's part of the same work). The
+    bound: the keys the indexer reads (every key for ROCKET_TOPK, head 0
+    at every second position for DSA) and the selected pages' K and V,
+    each once, q and the output."""
+    import torch
+    import torch.nn.functional as F
+    from tensorrt_llm_tpu_torch.ops import sparse_attention as sa
+    from tensorrt_llm_tpu_torch.ops.attention import quantize_kv
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.tools.card_timing import (PAGE, dense_kv,
+                                                          time_ms)
+    kw = dict(sm_scale=hd ** -0.5)
+    if kv8:
+        ks, vs = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                  for v in KV8_SCALES[kv8])
+        p8 = torch.empty(pool.shape, dtype=torch.float8_e4m3fn,
+                         device="cuda")
+        p8[:, :, 0::2] = quantize_kv(pool[:, :, 0::2], ks, p8.dtype)
+        p8[:, :, 1::2] = quantize_kv(pool[:, :, 1::2], vs, p8.dtype)
+        pool = p8
+        kw.update(k_scale=ks, v_scale=vs)
+    S = q.shape[0]
+    reach = pt.shape[1] * PAGE
+    bound = min(1 << (int(kv_lens.max()) - 1).bit_length(), reach)
+    table = pt[:, :-(-bound // PAGE)]
+
+    # the pool is the layer's part a serving step reads
+    whole = (0, pool.shape[0])
+
+    def route():
+        return sa.sparse_paged_decode_attention(
+            q, pool, kv_lens, pt, keep_pages=keep, algo=algo,
+            max_kv_len=bound, pool_pages=whole, **kw)
+
+    def index():
+        score = sa.page_scores(q, pool, kv_lens, table, algo=algo,
+                               k_scale=kw.get("k_scale"), pool_pages=whole)
+        sel, live = sa.select_pages(score, kv_lens, PAGE, keep)
+        return sa.compact_pages(table, kv_lens, sel, live, PAGE)
+
+    ct, cl = index()
+
+    def selected():
+        return dec.paged_decode_attention(q, pool, cl, ct,
+                                          max_kv_len=keep * PAGE, **kw)
+
+    def dense():
+        return dec.paged_decode_attention(q, pool, kv_lens, pt,
+                                          max_kv_len=bound, **kw)
+
+    def plain():
+        return sa.sparse_paged_decode_attention_plain(
+            q, pool, kv_lens, pt, keep_pages=keep, algo=algo, **kw)
+    got, ref = route(), plain()
+    torch.cuda.synchronize()
+    err = _hold(name, got, ref, TOL)
+    dense_diff = _sensitive(name, ref, dense(), TOL, "the page selection")
+    el = pool.element_size()
+    n_sel = int(cl.long().sum())
+    n_kv = int(kv_lens.long().sum())
+    index_bytes = n_kv * kvh * hd * el if algo == "ROCKET_TOPK" \
+        else (n_kv // 2) * hd * el
+    io_bytes = index_bytes + n_sel * 2 * kvh * hd * el \
+        + 2 * q.numel() * q.element_size() + pt.numel() * 4 + S * 4
+    flops = 4 * qh * hd * n_sel + 2 * (
+        S * pt.shape[1] * qh * hd if algo == "ROCKET_TOPK"
+        else n_kv // 2 * hd * sa.DSA_RANK)
+    res = dict(shape=dict(seqs=S, kv_len=[int(kv_lens.min()),
+                                          int(kv_lens.max())],
+                          qh=qh, kvh=kvh, hd=hd, page=PAGE,
+                          pages_per_seq=pt.shape[1], keep_pages=keep,
+                          algo=algo, kv=kv8 or "bfloat16"),
+               max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
+               dense_differs_by=dense_diff, tol=TOL,
+               selected_positions=n_sel, bytes=io_bytes, flops=flops,
+               **_bound(io_bytes, flops))
+    res["ms"] = time_ms(route, 30)
+    res["indexer_ms"] = time_ms(index, 30)
+    res["k1_selected_ms"] = time_ms(selected, 30)
+    res["dense_k1_ms"] = time_ms(dense, 30)
+    res["plain_ms"] = time_ms(plain, 3)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    # SDPA over the selected pages, gathered (and dequantized) beforehand
+    L = ct.shape[1] * PAGE
+    if kv8:
+        k, v = dense_kv(pool.view(torch.uint8), ct, kvh, hd, L)
+        k = dec.dequant_kv(k.view(pool.dtype), kw["k_scale"], q.dtype)
+        v = dec.dequant_kv(v.view(pool.dtype), kw["v_scale"], q.dtype)
+    else:
+        k, v = dense_kv(pool, ct, kvh, hd, L)
+    mask = (torch.arange(L, device="cuda")[None, :] < cl[:, None].long()
+            )[:, None, None, :]
+    qp = q[:, :, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qp, k, v, attn_mask=mask, scale=kw["sm_scale"], enable_gqa=True)
+    lib = sdpa()[:, :, 0]
+    res.update(library_ms=time_ms(sdpa, 10),
+               library_max_abs_err=_hold(name, lib, ref, TOL, "library"),
+               library_computes="attention over the selected pages "
+               "(gathered beforehand), without the indexer")
+    emit({"phase": "sparse_kernels", "case": name, **res})
+    del k, v, mask, lib, got, ref, ct, cl
+    torch.cuda.empty_cache()
+    return res
+
+
+def _star_case(name, chunk, start, block, qh, kvh, hd, seed,
+               window=None) -> dict:
+    """K2 through STAR's launches (ops/attention.py star_launches; under
+    a sliding window one launch per window the rows need): one prompt
+    chunk of ``chunk`` tokens from position ``start``, through the
+    dispatch (``ragged_paged_attention``), against the prefill kernel's
+    plain version over the same launches (bf16 2e-2) and against the
+    plain STAR route (``star_reference_attention``, a sequence at a time
+    in chunks of rows, timed as ``star_plain_route_ms``; the small case
+    also against ``_reference_attention``, which gathers the KV per
+    row); the causal launch over the real sequence (with the window) must
+    fail the check. Timed beside causal K2 on the same chunk and SDPA
+    with the STAR mask (and the window) on the KV gathered beforehand.
+    The bound: the positions the rows see, q, the output and the KV the
+    launches read, once."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from tensorrt_llm_tpu_torch.ops import attention as att
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    from tensorrt_llm_tpu_torch.tools.card_timing import (PAGE, dense_kv,
+                                                          make_case,
+                                                          time_ms)
+    q, pool, kv_lens, pt, cu = make_case([chunk], [start], qh, kvh, hd,
+                                         seed=seed)
+    scale = hd ** -0.5
+    launches = att.star_metadata(cu.cpu().numpy(), kv_lens.cpu().numpy(),
+                                 pt.cpu().numpy(), 1, block, PAGE,
+                                 (window,), "cuda")[window]
+    md = att.AttentionMetadata(
+        kv_lens=kv_lens, page_indices=pt, cu_q_lens=cu,
+        num_seqs=torch.tensor([1], device="cuda"),
+        slot_mapping=torch.zeros(chunk, dtype=torch.int32, device="cuda"),
+        positions=torch.zeros(chunk, dtype=torch.int32, device="cuda"),
+        logits_indices=torch.zeros(1, dtype=torch.int64, device="cuda"),
+        max_q_len=chunk)
+    md_star = dataclasses.replace(md, star_segments={window: launches})
+
+    def remap():
+        return att.ragged_paged_attention(q, pool, md_star, sm_scale=scale,
+                                          sliding_window=window)
+
+    def causal():
+        return pre.ragged_prefill_attention(q, pool, kv_lens, pt, cu,
+                                            max_q_len=chunk, sm_scale=scale,
+                                            sliding_window=window)
+
+    def plain():
+        out = torch.zeros_like(q)
+        for ln in launches:
+            rows = slice(None) if ln.rows is None else ln.rows
+            out[rows] = pre.ragged_prefill_attention_plain(
+                q[rows], pool, ln.kv_lens, ln.page_indices, ln.cu_q_lens,
+                sm_scale=scale, sliding_window=ln.window)
+        return out
+
+    def star_plain():
+        return att.star_reference_attention(
+            q, pool, md, star_block_size=block, sm_scale=scale,
+            sliding_window=window)
+    got, ref = remap(), plain()
+    torch.cuda.synchronize()
+    err = _hold(name, got, ref, TOL)
+    extra = dict(star_plain_route_err=_hold(
+        name, got, star_plain(), TOL, "the plain STAR route vs kernel"))
+    if chunk * (start + chunk) <= 1 << 20:
+        star_ref = att._reference_attention(q, pool, md, sm_scale=scale,
+                                            star_block_size=block,
+                                            sliding_window=window)
+        extra["star_reference_err"] = _hold(name, got, star_ref, TOL,
+                                            "the STAR reference vs kernel")
+    extra["causal_differs_by"] = _sensitive(name, ref, causal(), TOL,
+                                            "the STAR remap")
+    Lk = start + chunk
+    qpos = torch.arange(start, Lk, device="cuda")[:, None]
+    kpos = torch.arange(Lk, device="cuda")[None, :]
+    mask = (kpos <= qpos) & ((kpos // block == 0)
+                             | (kpos // block == qpos // block))
+    if window is not None:
+        mask &= kpos > qpos - window
+    pairs = int(mask.sum())
+    kv_read = sum(int(ln.kv_lens.long().sum()) for ln in launches)
+    el = q.element_size()
+    io_bytes = 2 * q.numel() * el + kv_read * 2 * kvh * hd * el \
+        + sum(ln.page_indices.numel() * 4 for ln in launches)
+    flops = 4 * qh * hd * pairs
+    res = dict(shape=dict(chunk=chunk, start=start, kv_len=Lk,
+                          block=block, window=window,
+                          launches=len(launches),
+                          launch_windows=[ln.window for ln in launches],
+                          virtual_seqs=sum(len(ln.kv_lens)
+                                           for ln in launches),
+                          qh=qh, kvh=kvh, hd=hd, page=PAGE),
+               max_abs_err=err, tol=TOL, bytes=io_bytes, flops=flops,
+               **extra, **_bound(io_bytes, flops))
+    res["ms"] = time_ms(remap, 30)
+    res["causal_ms"] = time_ms(causal, 30)
+    res["plain_ms"] = time_ms(plain, 3)
+    res["star_plain_route_ms"] = time_ms(star_plain, 2)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    k, v = dense_kv(pool, pt, kvh, hd, Lk)
+    qp = q.transpose(0, 1)[None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qp, k, v, attn_mask=mask[None, None], scale=scale,
+            enable_gqa=True)
+    lib = sdpa()[0].transpose(0, 1)
+    res.update(library_ms=time_ms(sdpa, 10),
+               library_max_abs_err=_hold(name, lib, ref, TOL, "library"),
+               library_computes="the same function (SDPA, the STAR mask"
+               + ("" if window is None else " and the window") + ")")
+    emit({"phase": "sparse_kernels", "case": name, **res})
+    del q, pool, k, v, mask, lib, got, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+# pools holding these many times the table's entries, for ROCKET_TOPK's
+# two indexer paths (POOL_SUM_RATIO and POOL_SUM_RATIO_8BIT pick between
+# them)
+INDEXER_POOL_RATIOS = (1, 2, 3, 4, 6, 8)
+
+
+def _indexer_paths(q, pool, kv_lens, pt, kvh, hd) -> dict:
+    """ROCKET_TOPK's page scores at sparse_serving's table (32 rows at
+    8,192 positions) by its two paths, the one-pass sum over the layer's
+    part of the pool and the chunked gather of the table's pages, on
+    pools of ``INDEXER_POOL_RATIOS`` times the table's entries (the
+    table's pages first, random pages after them), bf16 and e4m3: both
+    timed, and their scores held to each other (2e-2 of the largest
+    score; both sum in float32)."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import sparse_attention as sa
+    from tensorrt_llm_tpu_torch.ops.attention import quantize_kv
+    from tensorrt_llm_tpu_torch.tools.card_timing import PAGE, time_ms
+    S = q.shape[0]
+    bound = min(1 << (int(kv_lens.max()) - 1).bit_length(),
+                pt.shape[1] * PAGE)
+    table = pt[:, :-(-bound // PAGE)]
+    entries = table.numel()
+    n_max = max(INDEXER_POOL_RATIOS) * entries
+    g = torch.Generator(device="cuda").manual_seed(99)
+    rows, err = [], 0.0
+    saved = dict(bfloat16=sa.POOL_SUM_RATIO, e4m3=sa.POOL_SUM_RATIO_8BIT)
+    try:
+        sa.POOL_SUM_RATIO = sa.POOL_SUM_RATIO_8BIT = float("inf")
+        for kv8 in (None, "e4m3"):
+            big = torch.randn((n_max,) + tuple(pool.shape[1:]), generator=g,
+                              device="cuda", dtype=pool.dtype)
+            big[:pool.shape[0]] = pool
+            ks = None
+            if kv8:
+                ks, vs = (torch.tensor(v, dtype=torch.float32,
+                                       device="cuda")
+                          for v in KV8_SCALES[kv8])
+                p8 = torch.empty(big.shape, dtype=torch.float8_e4m3fn,
+                                 device="cuda")
+                p8[:, :, 0::2] = quantize_kv(big[:, :, 0::2], ks, p8.dtype)
+                p8[:, :, 1::2] = quantize_kv(big[:, :, 1::2], vs, p8.dtype)
+                del big
+                big = p8
+            for ratio in INDEXER_POOL_RATIOS:
+                n = max(ratio * entries, pool.shape[0])
+
+                def by_pool():
+                    return sa.page_scores(q, big, kv_lens, table,
+                                          algo="ROCKET_TOPK", k_scale=ks,
+                                          pool_pages=(0, n))
+
+                def by_chunks():
+                    return sa.page_scores(q, big, kv_lens, table,
+                                          algo="ROCKET_TOPK", k_scale=ks)
+                a, b = by_pool(), by_chunks()
+                diff = (a - b).abs().max().item()
+                if diff > TOL * b.abs().max().item():
+                    raise AssertionError(f"indexer paths differ by {diff} "
+                                         f"(pool {ratio}x, {kv8})")
+                err = max(err, diff)
+                rows.append(dict(kv=kv8 or "bfloat16", ratio=n / entries,
+                                 pool_pages=n, pool_ms=time_ms(by_pool, 10),
+                                 chunks_ms=time_ms(by_chunks, 10)))
+            del big
+            torch.cuda.empty_cache()
+    finally:
+        sa.POOL_SUM_RATIO = saved["bfloat16"]
+        sa.POOL_SUM_RATIO_8BIT = saved["e4m3"]
+    for r in rows:
+        r["faster"] = "pool" if r["pool_ms"] < r["chunks_ms"] else "chunks"
+        r["chosen"] = "pool" if r["ratio"] <= saved[r["kv"]] else "chunks"
+    res = dict(table_entries=entries, page=PAGE, kvh=kvh, hd=hd, seqs=S,
+               pool_sum_ratio=saved, rows=rows, max_abs_err=err,
+               chosen_is_faster=all(r["faster"] == r["chosen"]
+                                    for r in rows))
+    emit({"phase": "sparse_kernels", "case": "indexer_paths", **res})
+    return res
+
+
+def sparse_kernel_phase(results: dict) -> None:
+    """The decode kernel (K1) on the pages the sparse indexers select and
+    the prefill kernel (K2) through STAR's remap, at Llama-3-8B's heads
+    (32 x 128 over 8 KV heads): ``decode_sparse_{rocket,dsa}_k{16,64}``
+    over 32 rows at 8,062-8,192 positions (tails partly filled) on a bf16
+    pool, and at keep_pages 16 on an e4m3 pool (``_kv_e4m3``); STAR:
+    ``prefill_star``, one 4,096-token chunk at positions 4,096-8,191 over
+    2,048-token blocks (two virtual sequences), ``prefill_star_window``,
+    the same chunk under Mistral-7B's 4,096-token window (two launches:
+    rows of block 2 see block 0 through a window of 2,048, rows of block
+    3 their own block alone), and ``prefill_star_small``, a 384-token
+    chunk across two block edges of 128, also held against the plain
+    STAR reference; and ``indexer_paths``, ROCKET_TOPK's two indexer
+    paths on pools of 1-8 times the table."""
+    import torch
+    from tensorrt_llm_tpu_torch.tools.card_timing import PAGE, make_case
+    qh, kvh, hd = 32, 8, 128
+    ctx = [SPARSE_CTX - 1 - 4 * i for i in range(SPARSE_ROWS)]
+    pages = -(-(SPARSE_CTX + SPARSE_NEW) // PAGE)
+    q, pool, kv_lens, pt, _ = make_case([1] * SPARSE_ROWS, ctx, qh, kvh, hd,
+                                        seed=95, pages_per_seq=pages)
+    for algo, tag in (("ROCKET_TOPK", "rocket"), ("DSA", "dsa")):
+        for keep in SPARSE_KEEPS:
+            name = f"decode_sparse_{tag}_k{keep}"
+            results[name] = _sparse_case(name, algo, keep, None, q, pool,
+                                         kv_lens, pt, qh, kvh, hd)
+        name = f"decode_sparse_{tag}_k{SPARSE_KEEPS[0]}_kv_e4m3"
+        results[name] = _sparse_case(name, algo, SPARSE_KEEPS[0], "e4m3", q,
+                                     pool, kv_lens, pt, qh, kvh, hd)
+    results["indexer_paths"] = _indexer_paths(q, pool, kv_lens, pt, kvh, hd)
+    del q, pool, kv_lens, pt
+    torch.cuda.empty_cache()
+    results["prefill_star"] = _star_case("prefill_star", 4096, 4096,
+                                         STAR_BLOCK, qh, kvh, hd, seed=96)
+    results["prefill_star_window"] = _star_case(
+        "prefill_star_window", 4096, 4096, STAR_BLOCK, qh, kvh, hd, seed=98,
+        window=STAR_WINDOW)
+    results["prefill_star_small"] = _star_case(
+        "prefill_star_small", 384, 64, 128, qh, kvh, hd, seed=97)
+
+
+def _sparse_launch_counts() -> dict:
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    return dict(_read_launches(), k1_sparse=dec.LAUNCHES_SPARSE,
+                k2_star=pre.LAUNCHES_STAR)
+
+
+def _zero_sparse_launches() -> None:
+    from tensorrt_llm_tpu_torch.ops.cuda import decode_attention as dec
+    from tensorrt_llm_tpu_torch.ops.cuda import prefill_attention as pre
+    _zero_launches()
+    dec.LAUNCHES_SPARSE = 0
+    pre.LAUNCHES_STAR = 0
+
+
+def sparse_serving_phase() -> dict:
+    """Llama-3-8B at full width and 8 of its 32 layers
+    (``SPARSE_SERVING_LAYERS``, seeded random bf16 weights; KV ~8.7 GB),
+    32 requests of 8,192 tokens -> 128 greedy tokens, K = 8, graphs, prefix
+    reuse off, four ways: dense, ROCKET_TOPK and DSA at keep_pages 16,
+    STAR at blocks of 2,048; then STAR on the same model with Mistral-7B's
+    4,096-token sliding window (``star_window``: K2 through the windowed
+    launches), and STAR at blocks of 2,040, not a whole number of pages
+    (``star_plain``: the plain STAR route, 8 of the requests -> 16
+    tokens). Each: the window graph at the pass's KV bound captured
+    first, then a timed pass (counts zeroed right before, read right
+    after): tok/s, TTFT, TPOT, K1 / K2 launches by route (K1 on selected
+    pages, K2 through STAR's remap), graph replays, the engine's sparse
+    and STAR steps, peak memory. Then the DSA LLM sleeps and wakes: the
+    device bytes freed, the graphs dropped and captured again, one
+    batch's tokens before and after."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig, SamplingParams,
+                                        SparseAttentionConfig)
+    from tensorrt_llm_tpu_torch.tools import serving_profile as sprof
+    cfg, _, _, _ = sprof.workload(geometry="llama3-8b-quant")
+    cfg.num_hidden_layers = SPARSE_SERVING_LAYERS
+    cfg.max_position_embeddings = SPARSE_CTX + SPARSE_NEW
+    rng = np.random.default_rng(22)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (SPARSE_ROWS, SPARSE_CTX)).tolist()
+    sp = SamplingParams(max_tokens=SPARSE_NEW, top_k=1, ignore_eos=True)
+    kw = dict(dtype="bfloat16", max_batch_size=SPARSE_ROWS,
+              max_input_len=SPARSE_CTX, max_seq_len=SPARSE_CTX + SPARSE_NEW,
+              max_num_tokens=SPARSE_CTX,
+              kv_cache_config=KvCacheConfig(enable_block_reuse=False))
+    windowed = copy.deepcopy(cfg)
+    windowed.sliding_window = STAR_WINDOW
+    star = SparseAttentionConfig(algo="STAR", star_block_size=STAR_BLOCK)
+    runs = {}
+    for label, sac, model, n_req, sp_run in (
+            ("dense", None, cfg, SPARSE_ROWS, sp),
+            ("rocket", SparseAttentionConfig(algo="ROCKET_TOPK",
+                                             keep_pages=SPARSE_KEEPS[0]),
+             cfg, SPARSE_ROWS, sp),
+            ("dsa", SparseAttentionConfig(algo="DSA",
+                                          keep_pages=SPARSE_KEEPS[0]),
+             cfg, SPARSE_ROWS, sp),
+            ("star", star, cfg, SPARSE_ROWS, sp),
+            ("star_window", star, windowed, SPARSE_ROWS, sp),
+            ("star_plain", SparseAttentionConfig(
+                algo="STAR", star_block_size=STAR_BLOCK - 8), cfg, 8,
+             SamplingParams(max_tokens=16, top_k=1, ignore_eos=True))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        llm = LLM(model, sparse_attention_config=sac, **kw)
+        build_s = time.monotonic() - t0
+        try:
+            eng = llm.engine
+            K = llm.args.decode_multi_step
+            bound = eng._kv_bound(SPARSE_CTX + SPARSE_NEW)
+            inert, _ = eng._window_inputs([], SPARSE_ROWS, K, True)
+            eng.graphs.ensure(
+                eng._window_key(K, SPARSE_ROWS, 0, bound, True, False),
+                inert, eng._window_body(K, SPARSE_ROWS, 0, bound, True,
+                                        False))
+            torch.cuda.reset_peak_memory_stats()
+            r0, s0 = eng.graphs.replays, eng.decode_steps
+            sp0, st0 = eng.sparse_steps, eng.star_steps
+            _zero_sparse_launches()
+            t1 = time.monotonic()
+            outs = llm.generate(prompts[:n_req], sp_run)
+            wall = time.monotonic() - t1
+            res = dict(_serve_stats(wall, outs),
+                       launches=_sparse_launch_counts(),
+                       peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                       graph_replays=eng.graphs.replays - r0,
+                       decode_steps=eng.decode_steps - s0,
+                       sparse_steps=eng.sparse_steps - sp0,
+                       star_steps=eng.star_steps - st0,
+                       star_plain_steps=eng.star_plain_steps,
+                       star_remap=eng.star_remap,
+                       engine_build_s=build_s, kv_pages=eng.num_kv_pages,
+                       kv_pool_bytes=eng.num_kv_pages
+                       * eng.bytes_per_kv_block,
+                       graphs=eng.graphs.num_graphs,
+                       graph_pool_bytes=eng.graphs.pool_bytes)
+            toks = [o.outputs[0].token_ids for o in outs]
+            if any(len(t) != sp_run.max_tokens or min(t) < 0
+                   or max(t) >= cfg.vocab_size for t in toks):
+                raise AssertionError(f"sparse_serving {label}: outputs "
+                                     "short or out of the vocabulary")
+            if label == "dsa":
+                res["sleep_wake"] = _sleep_wake(llm, prompts)
+        finally:
+            llm.shutdown()
+        del llm, eng
+        res.update(run=label, model="Llama-3-8B", requests=n_req,
+                   sliding_window=getattr(model, "sliding_window", None),
+                   layers=cfg.num_hidden_layers,
+                   config=None if sac is None else sac.model_dump())
+        emit({"phase": "sparse_serving", **res})
+        ln = res["launches"]
+        want_k1 = ln["k1_sparse"] > 0 if label in ("rocket", "dsa") \
+            else ln["k1_sparse"] == 0
+        if label == "star_plain":
+            want_k2 = ln["k2_star"] == 0 and res["star_plain_steps"] > 0 \
+                and res["star_steps"] == 0
+        else:
+            want_k2 = ln["ragged_prefill_attention"] > 0 and (
+                ln["k2_star"] > 0 if label.startswith("star")
+                else ln["k2_star"] == 0)
+        if not (ln["paged_decode_attention"] and want_k1 and want_k2):
+            raise AssertionError(f"sparse_serving {label}: launches by "
+                                 f"route {ln}")
+        runs[label] = res
+    return runs
+
+
+def _sleep_wake(llm, prompts) -> dict:
+    """Sleep and wake an idle LLM: device bytes before, asleep and after,
+    the graphs dropped and captured again, and one small batch's tokens
+    before and after (they must be equal)."""
+    import torch
+    from tensorrt_llm_tpu_torch import SamplingParams
+    batch = [p[:2048] for p in prompts[:4]]
+    sp = SamplingParams(max_tokens=16, top_k=1, ignore_eos=True)
+    before = [o.outputs[0].token_ids for o in llm.generate(batch, sp)]
+    torch.cuda.synchronize()
+    eng = llm.engine
+    awake_bytes = torch.cuda.memory_allocated()
+    graphs = eng.graphs.num_graphs
+    t0 = time.monotonic()
+    dropped = llm.release_memory()
+    sleep_s = time.monotonic() - t0
+    asleep_bytes = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    llm.resume_memory()
+    wake_s = time.monotonic() - t0
+    woken_bytes = torch.cuda.memory_allocated()
+    recaptured = eng.graphs.num_graphs
+    after = [o.outputs[0].token_ids for o in llm.generate(batch, sp)]
+    res = dict(awake_bytes=awake_bytes, asleep_bytes=asleep_bytes,
+               freed_bytes=awake_bytes - asleep_bytes,
+               woken_bytes=woken_bytes, graphs_before=graphs,
+               graphs_dropped=dropped, graphs_recaptured=recaptured,
+               sleep_s=sleep_s, wake_s=wake_s,
+               tokens_equal=before == after)
+    if not res["tokens_equal"] or dropped == 0 or recaptured == 0 or \
+            res["freed_bytes"] <= 0:
+        raise AssertionError(f"sleep/wake: {res}")
+    return res
+
+
+# (label, context, page, budgets in pages): 3,072 tokens (eval_accuracy's
+# longer length), beyond this checkpoint's reach even dense, and 250,
+# which it retrieves
+SPARSE_ACC = (("ctx3072", 3072, 32, (8, 16)), ("ctx250", 250, 16, (4, 8)))
+
+
+def sparse_accuracy_phase() -> dict:
+    """Passkey retrieval (evaluate/tasks.py, ``style="marker"``, depths
+    0.15 to 0.9, 2 keys) on tests/assets/tinypasskey-llama in bf16, dense
+    and under ROCKET_TOPK and DSA at two page budgets and STAR at blocks
+    of as many pages: at 3,072 tokens over pages of 32 (8 and 16 of 96
+    pages; dense retrieves nothing there, as in eval_accuracy) and
+    at 250 tokens over pages of 16 (4 and 8 of 16 pages; dense retrieves
+    every key): the first sparse accuracy on trained weights. Each run's
+    accuracy, per-depth accuracy and launches by route."""
+    import torch
+    from tensorrt_llm_tpu_torch import (LLM, KvCacheConfig,
+                                        SparseAttentionConfig)
+    from tensorrt_llm_tpu_torch.evaluate.tasks import PasskeyRetrieval
+    runs = {}
+    for setting, ctx, page, budgets in SPARSE_ACC:
+        kw = dict(dtype="bfloat16", skip_tokenizer_init=True,
+                  max_batch_size=16, max_input_len=ctx + 64,
+                  max_seq_len=ctx + 96, max_num_tokens=8192,
+                  kv_cache_config=KvCacheConfig(tokens_per_block=page,
+                                                enable_block_reuse=False))
+        configs = [("dense", None)]
+        for keep in budgets:
+            configs += [
+                (f"rocket_k{keep}", SparseAttentionConfig(
+                    algo="ROCKET_TOPK", keep_pages=keep)),
+                (f"dsa_k{keep}", SparseAttentionConfig(algo="DSA",
+                                                       keep_pages=keep)),
+                (f"star_b{keep * page}", SparseAttentionConfig(
+                    algo="STAR", star_block_size=keep * page))]
+        for name, sac in configs:
+            label = f"{setting}_{name}"
+            llm = LLM(PASSKEY_CKPT, sparse_attention_config=sac, **kw)
+            try:
+                _zero_sparse_launches()
+                r = PasskeyRetrieval(context_len=ctx,
+                                     depths=(0.15, 0.35, 0.55, 0.75, 0.9),
+                                     num_keys=2, style="marker"
+                                     ).evaluate(llm)
+                runs[label] = dict(accuracy=r["accuracy"],
+                                   per_depth=r["per_depth"],
+                                   num_samples=r["num_samples"],
+                                   context=ctx, page=page,
+                                   launches=_sparse_launch_counts(),
+                                   sparse_steps=llm.engine.sparse_steps,
+                                   star_steps=llm.engine.star_steps)
+            finally:
+                llm.shutdown()
+            torch.cuda.empty_cache()
+            emit({"phase": "sparse_accuracy", "run": label, **runs[label]})
+            ln = runs[label]["launches"]
+            if (name.startswith(("rocket", "dsa")) and not ln["k1_sparse"]) \
+                    or (name.startswith("star") and not ln["k2_star"]):
+                raise AssertionError(f"sparse_accuracy {label}: {ln}")
+    if runs["ctx250_dense"]["accuracy"] < 80.0:
+        raise AssertionError(f"sparse_accuracy: dense at 250 tokens "
+                             f"{runs['ctx250_dense']}")
+    return runs
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     if not (here / "tensorrt_llm_tpu_torch" / "csrc").is_dir():
@@ -7900,6 +8517,10 @@ def main() -> int:
     lora_par = timed("lora_parity", lora_parity_phase, here)
     lora_srv = timed("lora_serving", lora_serving_phase)
     tiers = timed("kv_tier_serving", kv_tier_serving_phase)
+    timed("sparse_kernels", sparse_kernel_phase,
+          {} if kern is None else kern)
+    sparse_srv = timed("sparse_serving", sparse_serving_phase)
+    sparse_acc = timed("sparse_accuracy", sparse_accuracy_phase)
     emit({"phase": "timing", "seconds": seconds,
           "total": sum(seconds.values())})
     if only is not None:
@@ -7990,6 +8611,24 @@ def main() -> int:
         launches_groups_gemma3vl_serving=gemma3vl["launches_groups"],
         launches_groups_vlm_families={f: v["launches_groups"]
                                       for f, v in vlm_fams.items()})
+    # K1 on the sparse indexers' selected pages and K2 through STAR's
+    # remap: their cases, and their launches (all, and on the route) in
+    # sparse_serving's runs and sparse_accuracy's, by algo
+    for row, name, route, prefix in (
+            (kernels[0], "paged_decode_attention", "k1_sparse",
+             "decode_sparse"),
+            (kernels[1], "ragged_prefill_attention", "k2_star",
+             "prefill_star")):
+        row["launches_sparse_serving"] = {
+            k: dict(all=v["launches"][name], route=v["launches"][route])
+            for k, v in sparse_srv.items()}
+        row["launches_sparse_accuracy"] = {
+            k: dict(all=v["launches"][name], route=v["launches"][route])
+            for k, v in sparse_acc.items()}
+        row["sparse_cases"] = {c: {k: v for k, v in kern[c].items() if k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "indexer_ms", "k1_selected_ms", "dense_k1_ms",
+            "causal_ms", "shape")} for c in kern if c.startswith(prefix)}
     # K3's e4m3 body: its cases and its launches in quant_serving's runs
     kernels[-1].update(
         max_abs_err_e4m3=max(v["max_abs_err"] for c, v in e4m3.items()

@@ -7,11 +7,13 @@ neither JAX nor the JAX package.
 """
 from .llmapi.llm import LLM, RequestOutput
 from .llmapi.llm_args import (KvCacheConfig, LlmArgs, MoeConfig,
-                              QuantConfig, SpeculativeConfig)
+                              QuantConfig, SparseAttentionConfig,
+                              SpeculativeConfig)
 from .models.convert import from_jax_params
 from .quantization.mode import QuantAlgo
 from .sampling_params import GuidedDecodingParams, SamplingParams
 
 __all__ = ["LLM", "RequestOutput", "LlmArgs", "KvCacheConfig", "MoeConfig",
            "QuantConfig", "QuantAlgo", "SamplingParams", "SpeculativeConfig",
+           "SparseAttentionConfig",
            "GuidedDecodingParams", "from_jax_params"]

@@ -111,6 +111,18 @@ external KV store (runtime/kv_connector.py), on a model with one KV pool
 (refused by name under VSWA and on the recurrent, image-group and Mllama
 models).
 
+``sparse_attention_config=SparseAttentionConfig(algo=...)`` serves
+ROCKET_TOPK / DSA sparse decode and STAR prefill on the Llama-trunk
+types (``llm_args.SPARSE_MODEL_TYPES``; any other type refuses by name,
+where the JAX ``LLM`` serves it dense). Checkpoints are read through
+``quantization/lazy_state_dict.py`` (a tensor at a time);
+``num_postprocess_workers`` decodes streamed text off the executor loop;
+``generate_async(trace_headers=...)`` traces a request
+(llmapi/tracing.py); ``TLLM_TPU_NATIVE=1`` takes the native block
+manager. ``release_memory`` / ``resume_memory`` put the engine to sleep
+and wake it, ``update_weights`` swaps the weights, and
+``get_kv_cache_events`` returns the KV manager's block events.
+
 ``LLM.abort_request`` cancels a request, ``LLM.get_stats`` returns the
 executor's per-iteration statistics, and a request whose own host work
 fails (a logits processor that raises, a grammar that does not compile
@@ -135,6 +147,7 @@ from ..models import ModelConfig, get_model_class
 from ..quantization.checkpoint import (PrequantizedWeight,
                                        convert_state_dict,
                                        detect_prequantized)
+from ..quantization.lazy_state_dict import LazyStateDict
 from ..quantization.mode import QuantAlgo
 from ..runtime.executor import GenerationResult, PyExecutor
 from ..runtime.kv_cache_manager import KVCacheManager, VswaKvManager
@@ -144,7 +157,8 @@ from ..runtime.scheduler import (CapacityScheduler, MicroBatchScheduler,
                                  RequestScheduler)
 from ..sampling_params import SamplingParams
 from .llm_args import (MOE_MODEL_TYPES, LlmArgs, check_lora_served,
-                       check_ported_spec)
+                       check_ported_spec, check_sparse_served)
+from .tracing import RequestTracer, extract_trace_context
 
 PromptInput = Union[str, Sequence[int], Mapping[str, Any]]
 
@@ -271,10 +285,17 @@ class LLM:
     # ------------------------------------------------------------------ #
     def _build_model(self):
         hf_config, state_dict = self._load_checkpoint()
-        model_config = ModelConfig(hf_config=hf_config,
-                                   dtype=_DTYPES[self.args.dtype],
-                                   device=self.device,
-                                   quant_config=self.args.quant_config)
+        check_sparse_served(self.args, hf_config.model_type)
+        # the sparse settings as the JAX llm.py:155-164 sets them
+        sac = self.args.sparse_attention_config
+        model_config = ModelConfig(
+            hf_config=hf_config, dtype=_DTYPES[self.args.dtype],
+            device=self.device, quant_config=self.args.quant_config,
+            sparse_keep_pages=(sac.keep_pages if sac and sac.algo in
+                               ("ROCKET_TOPK", "DSA") else None),
+            sparse_algo=sac.algo if sac else "ROCKET_TOPK",
+            star_block_size=(sac.star_block_size if sac and
+                             sac.algo == "STAR" else None))
         check_ported_spec(self.args.speculative_config,
                           hf_config.model_type)
         self.model = get_model_class(hf_config.model_type)(model_config)
@@ -364,13 +385,8 @@ class LLM:
                 logger.warning("tokenizer load failed: %s", e)
         if self.args.load_format == "dummy":
             return hf_config, None
-        from safetensors.torch import load_file
-        files = sorted(path.glob("*.safetensors"))
-        if not files:
-            raise FileNotFoundError(f"no *.safetensors under {path}")
-        sd = {}
-        for f in files:
-            sd.update(load_file(str(f)))
+        # memory-mapped shards, a tensor read when its parameter is built
+        sd = LazyStateDict(path)
         # a prequantized checkpoint (AutoAWQ / AutoGPTQ) brings its own
         # recipe: adopt it and unpack its integer weights
         pq = detect_prequantized(path)
@@ -455,14 +471,11 @@ class LLM:
             raise ValueError("DRAFT_TARGET needs speculative_config."
                              "draft_model")
         if isinstance(dm, (str, Path)):
-            from safetensors.torch import load_file
             from transformers import AutoConfig
             path = Path(dm)
             hf_config = AutoConfig.from_pretrained(path)
-            sd = {}
-            for f in sorted(path.glob("*.safetensors")):
-                sd.update(load_file(str(f)))
-            sd = sd or None
+            sd = LazyStateDict(path) if any(path.glob("*.safetensors")) \
+                else None
         elif hasattr(dm, "state_dict"):
             hf_config = dm.config
             sd = {k: v.detach().cpu().float()
@@ -510,10 +523,9 @@ class LLM:
         sc = self.args.speculative_config
         head_sd = None
         if isinstance(sc.draft_model, (str, Path)):
-            from safetensors.torch import load_file
-            head_sd = {}
-            for f in sorted(Path(sc.draft_model).glob("*.safetensors")):
-                head_sd.update(load_file(str(f)))
+            # a directory without weights: the seeded random head
+            head_sd = LazyStateDict(sc.draft_model) if any(
+                Path(sc.draft_model).glob("*.safetensors")) else {}
         elif sc.draft_model is not None and \
                 hasattr(sc.draft_model, "state_dict"):
             head_sd = {k: v.detach().cpu().float()
@@ -605,13 +617,17 @@ class LLM:
                 "clamping max_seq_len to the pool capacity",
                 pool_tokens, args.max_seq_len)
             args.max_seq_len = pool_tokens
-        self.kv_cache_manager = KVCacheManager(
+        kv_kw = dict(
             num_blocks=self.engine.num_kv_pages,
             tokens_per_block=args.kv_cache_config.tokens_per_block,
             max_seq_len=args.max_seq_len,
             enable_block_reuse=args.kv_cache_config.enable_block_reuse,
-            event_buffer_max_size=args.kv_cache_config.event_buffer_max_size,
-            **self._tier_kwargs())
+            event_buffer_max_size=args.kv_cache_config.event_buffer_max_size)
+        if os.environ.get("TLLM_TPU_NATIVE", "0") == "1":
+            self.kv_cache_manager = self._native_manager(kv_kw)
+        else:
+            self.kv_cache_manager = KVCacheManager(**kv_kw,
+                                                   **self._tier_kwargs())
         if self.engine._vswa:
             self.kv_cache_manager = VswaKvManager(
                 self.kv_cache_manager, KVCacheManager(
@@ -644,7 +660,30 @@ class LLM:
             decode_wait_occupancy=args.decode_wait_occupancy,
             ttft_slo_ms=args.ttft_slo_ms,
             drafter=head if host_drafter is None else host_drafter,
-            guided_decoder=guided, kv_connector=self._build_connector())
+            guided_decoder=guided, kv_connector=self._build_connector(),
+            tracer=RequestTracer.from_env(),
+            num_postprocess_workers=args.num_postprocess_workers)
+
+    def _native_manager(self, kv_kw: dict):
+        """The native block manager of ``TLLM_TPU_NATIVE=1`` (the JAX
+        llm.py:489-496), built with g++ at first use; a failed build
+        raises. Refused by name beside what it does not keep: the host
+        and disk tiers (the JAX LLM drops them under it, llm.py:497-500)
+        and VSWA's second pool."""
+        from ..runtime.native_block_manager import NativeKVCacheManager
+        kvc = self.args.kv_cache_config
+        for name, on in (("kv_cache_config.host_cache_size",
+                          kvc.host_cache_size),
+                         ("kv_cache_config.disk_cache_dir",
+                          kvc.disk_cache_dir),
+                         ("kv_cache_config.max_attention_window (VSWA)",
+                          self.engine._vswa)):
+            if on:
+                raise NotImplementedError(
+                    f"{name} with the native block manager "
+                    "(TLLM_TPU_NATIVE=1) is not supported by this package: "
+                    "it keeps one pool and no tiers")
+        return NativeKVCacheManager(**kv_kw)
 
     def _tier_kwargs(self) -> dict:
         """The KV manager's host and disk tiers (the JAX llm.py:498-517):
@@ -730,7 +769,13 @@ class LLM:
                        sampling_params: Optional[SamplingParams] = None,
                        streaming: bool = False,
                        lora_request=None,
-                       cache_salt: Optional[str] = None) -> RequestOutput:
+                       cache_salt: Optional[str] = None,
+                       trace_headers: Optional[Mapping[str, str]] = None
+                       ) -> RequestOutput:
+        """Submit one prompt; ``trace_headers`` (an HTTP header mapping
+        with a W3C ``traceparent``) makes the request's span a child of
+        that trace (llmapi/tracing.py; exported when
+        ``OTEL_EXPORTER_OTLP_TRACES_ENDPOINT`` is set)."""
         # per-request clamps land on a private copy: generate() shares one
         # SamplingParams across every prompt of a batch
         sampling_params = copy.copy(sampling_params) if sampling_params \
@@ -777,12 +822,16 @@ class LLM:
             eos = getattr(self.tokenizer, "eos_token_id", None)
             if eos is not None:
                 sampling_params.end_id = eos
+        if self.engine.asleep:
+            raise RuntimeError("the LLM is asleep (release_memory): call "
+                               "resume_memory before submitting requests")
         lora_task_id = self._lora_task(lora_request)
         req = LlmRequest(prompt_token_ids=token_ids,
                          sampling_params=sampling_params,
                          streaming=streaming, cache_salt=cache_salt,
                          lora_task_id=lora_task_id,
                          prompt_embeds=prompt_embeds, **mm_extra)
+        req.trace_ctx = extract_trace_context(trace_headers)
         res = self.executor.submit(req)
         extra = []
         if sampling_params.n > 1 and not sampling_params.use_beam_search:
@@ -927,6 +976,39 @@ class LLM:
     def abort_request(self, request_id: int) -> None:
         """Cancel a request: it ends CANCELLED with the tokens it has."""
         self.executor.cancel(request_id)
+
+    # ------------------------------------------------------------------ #
+    # Sleep / wake / weight swap (the JAX llm.py:866-879)
+    # ------------------------------------------------------------------ #
+    def release_memory(self) -> int:
+        """Sleep: free the device bytes of the weights (kept on the host),
+        the KV pool and the CUDA graphs; refused while a request is open.
+        The prefix cache forgets its device blocks (the pool's contents are
+        gone). Returns the graphs dropped."""
+        if self.executor.has_open_requests():
+            raise RuntimeError("cannot sleep with active requests")
+        dropped = self.engine.release_weights()
+        self.kv_cache_manager.drop_device_blocks()
+        return dropped
+
+    def resume_memory(self) -> None:
+        """Wake: weights and a fresh KV pool back on the device, the
+        serving graphs captured again."""
+        self.engine.resume_weights()
+
+    def update_weights(self, state_dict) -> None:
+        """RLHF hot-swap: a full checkpoint state dict (names -> tensors
+        or arrays) replaces the weights in place; the next steps, replayed
+        graphs included, read the new values."""
+        self.engine.update_weights({
+            k: v.detach() if isinstance(v, torch.Tensor) else v
+            for k, v in state_dict.items()})
+
+    def get_kv_cache_events(self) -> list:
+        """The KV manager's block events since the last call (stored,
+        removed, offloaded, ...; ``KvCacheConfig.event_buffer_max_size``
+        sets how many are kept)."""
+        return self.kv_cache_manager.get_latest_events()
 
     def get_stats(self) -> list:
         """The executor's ``IterationStats``, oldest first (the last

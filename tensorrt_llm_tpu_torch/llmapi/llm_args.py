@@ -284,6 +284,46 @@ def check_lora_served(model_type: str) -> None:
         f"by this package: {why}")
 
 
+class SparseAttentionConfig(StrictBaseModel):
+    """Sparse attention (the JAX ``SparseAttentionConfig``, llm_args.py:
+    164-175): ROCKET_TOPK and DSA keep ``keep_pages`` pages per sequence
+    in a sparse decode step (the sink page and the tail page always among
+    them; ops/sparse_attention.py), STAR lets a prompt row in block b >= 1
+    of ``star_block_size`` tokens attend block 0 and its own block only
+    (decode rows attend globally; ops/attention.py star_launches)."""
+    algo: Literal["ROCKET_TOPK", "DSA", "STAR"] = "ROCKET_TOPK"
+    keep_pages: int = Field(16, ge=1)
+    star_block_size: int = Field(1024, ge=1)
+
+
+# the types whose JAX forward passes the sparse settings to its attention
+# (the Llama trunk's layer, models/llama.py:296-300): the LoRA types
+SPARSE_MODEL_TYPES = LORA_MODEL_TYPES
+
+
+def check_sparse_served(args: "LlmArgs", model_type: str) -> None:
+    """Refuse, by name, a sparse attention config on a model type whose
+    JAX forward never passes it to attention (the JAX ``LLM`` accepts
+    the config there and serves the type dense: every family with a
+    forward of its own, the MoE trunks among them), and with speculative
+    decoding (the JAX engine runs its verify steps dense and its decode
+    steps at a token bucket that is not the row count)."""
+    sac = args.sparse_attention_config
+    if sac is None:
+        return
+    if model_type not in SPARSE_MODEL_TYPES:
+        raise NotImplementedError(
+            f"sparse_attention_config ({sac.algo}) with model type "
+            f"{model_type} is not supported by this package: the JAX "
+            "package's forward of this type does not pass the sparse "
+            "settings to its attention and serves it dense")
+    sc = args.speculative_config
+    if sc is not None and sc.mode != "NONE":
+        raise NotImplementedError(
+            f"sparse_attention_config ({sac.algo}) with speculative mode "
+            f"{sc.mode} is not supported by this package")
+
+
 def check_ported_moe(args: "LlmArgs") -> None:
     """Refuse, by name, the MoE options of the JAX package that need more
     than one device or its expert load balancer, or that this package
@@ -377,6 +417,12 @@ class LlmArgs(StrictBaseModel):
     # max_loras, max_cpu_loras, lora_target_modules)
     enable_lora: bool = False
     lora_config: Optional[Dict[str, Any]] = None
+    # sparse attention (ROCKET_TOPK / DSA decode, STAR prefill) on the
+    # Llama-trunk types (SPARSE_MODEL_TYPES)
+    sparse_attention_config: Optional[SparseAttentionConfig] = None
+    # threads that detokenize streamed chunks and finished requests off
+    # the executor loop (0: the loop does it)
+    num_postprocess_workers: int = Field(0, ge=0)
     # an external KV connector (runtime/kv_connector.py):
     # {"connector_module": str, "connector_worker_class": str,
     # "connector_scheduler_class": str, "kwargs": {...}}, or

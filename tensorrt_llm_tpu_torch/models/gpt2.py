@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.linear import LinearMethod
+from ..quantization.lazy_state_dict import strip_prefix
 from .gpt_family import LnFamilyModel
 from .modeling_utils import register_model
 
@@ -56,9 +57,9 @@ class GPT2LMHeadModel(LnFamilyModel):
         return {"wpe": mat(self.hf.n_positions, self.hidden_size)}
 
     def _prepare(self, sd):
-        """HF prefixes the trunk with "transformer."."""
-        return {k[len("transformer."):] if k.startswith("transformer.")
-                else k: v for k, v in sd.items()}
+        """HF prefixes the trunk with "transformer." (a view: nothing is
+        read here)."""
+        return strip_prefix(sd, "transformer.")
 
     def _hf_layer(self, sd, i):
         H = self.hidden_size

@@ -54,6 +54,7 @@ from ..ops.attention import AttentionMetadata, layer_metadata
 from ..ops.linear import LinearMethod
 from ..ops.norm import layer_norm, layer_norm_residual
 from ..ops.rope import RopeConfig, rope_cos_sin
+from ..quantization.lazy_state_dict import strip_prefix
 from .modeling_utils import (AttentionMethods, AttentionSpec,
                              DecoderModelForCausalLM, ModelConfig,
                              alibi_slopes, apply_pair, attention_block,
@@ -240,7 +241,7 @@ class LnFamilyModel(DecoderModelForCausalLM):
         """HF checkpoint names -> parameters, through the subclass's
         ``_hf_layer`` (one layer's norms and projections) and ``_hf_top``
         (the embedding, final norm, head and extras)."""
-        sd = self._prepare(dict(sd))
+        sd = self._prepare(sd)
         layers = [self._layer(*self._hf_layer(sd, i))
                   for i in range(self.num_layers)]
         top = self._hf_top(sd)
@@ -811,8 +812,7 @@ class OPTForCausalLM(LnFamilyModel):
                            self.hidden_size)}
 
     def _prepare(self, sd):
-        return {k[len("model."):] if k.startswith("model.") else k: v
-                for k, v in sd.items()}
+        return strip_prefix(sd, "model.")
 
     def _hf_layer(self, sd, i):
         pre = f"decoder.layers.{i}."

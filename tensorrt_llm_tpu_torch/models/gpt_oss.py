@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.moe import moe_mlp_swiglu
+from ..quantization.lazy_state_dict import RenamedStateDict
 from ..quantization.mxfp4 import normalize_mxfp4_state_dict
 from .mixtral import MixtralForCausalLM
 from .modeling_utils import AttentionSpec, register_model
@@ -127,14 +128,16 @@ class GptOssForCausalLM(MixtralForCausalLM):
         """The checkpoint (bf16 experts, or MXFP4 blocks and scales) in
         the Llama loader's names: the experts' interleaved gate|up
         columns split, the sinks and router bias under their names."""
-        sd = dict(sd)
         if any(k.endswith("gate_up_proj_blocks") for k in sd):
-            sd = normalize_mxfp4_state_dict(sd)
-            for i in range(self.num_layers):
-                for nm in ("gate_up_proj", "down_proj"):
-                    k = f"model.layers.{i}.mlp.experts.{nm}"
-                    sd[k] = np.ascontiguousarray(
-                        np.transpose(np.asarray(sd[k]), (0, 2, 1)))
+            deq = normalize_mxfp4_state_dict(sd)
+            # the dequantized experts transposed, each when it is read
+            sd = RenamedStateDict(deq, {k: k for k in deq}, {
+                f"model.layers.{i}.mlp.experts.{nm}":
+                (lambda k=f"model.layers.{i}.mlp.experts.{nm}":
+                 np.ascontiguousarray(np.transpose(np.asarray(deq[k]),
+                                                   (0, 2, 1))))
+                for i in range(self.num_layers)
+                for nm in ("gate_up_proj", "down_proj")})
         return super().load_hf_state_dict(sd)
 
     def _hf_weight(self, sd: Mapping[str, Any], prefix: str, name: str):

@@ -367,6 +367,9 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
         L, P, ps = kv_pages.shape[:3]
         kv_flat = kv_pages.view((L * P,) + tuple(kv_pages.shape[2:]))
         stats = []
+        # the JAX trunk passes the sparse settings to every layer
+        # (models/llama.py:296-300); a sliding layer stays dense
+        sparse_keep = self.config.sparse_keep_pages
         for li, (layer, spec) in enumerate(zip(params["layers"], specs)):
             md_l = layer_metadata(metadata, li, P, ps, L)
             x = h if post else rms_norm(h, layer["input_norm"], eps)
@@ -377,7 +380,9 @@ class LlamaForCausalLM(DecoderModelForCausalLM):
                                 q_norm=q_norm, k_norm=k_norm,
                                 kv_scale=layer.get("kv_scale", self.kv_scale),
                                 collect_kv_stats=collect_kv_stats,
-                                lora_fn=lora_fn)
+                                lora_fn=lora_fn,
+                                sparse_keep_pages=sparse_keep,
+                                sparse_algo=self.config.sparse_algo)
             if collect_kv_stats:
                 a, stat = a
                 stats.append(stat)

@@ -2,8 +2,7 @@
 
 Port of ``tensorrt_llm_tpu/models/modeling_utils.py`` (``ModelConfig``,
 ``AttentionSpec``, ``attention_block``, ``DecoderModelForCausalLM``)
-without ring/Ulysses context parallelism, LoRA, sparse or star attention
-and tensor parallelism.
+without ring/Ulysses context parallelism and tensor parallelism.
 
 Models are functions over a dict of parameter tensors; a model object
 holds only static config. The KV pool is owned by the engine and passed
@@ -82,6 +81,13 @@ class ModelConfig:
     # NVFP4 KV cache: appended K/V round to the e2m1 grid and are stored
     # in the e4m3 pool (every grid value times the scale is exact there)
     kv_fp4_grid: bool = False
+    # sparse attention (llmapi.llm_args.SparseAttentionConfig, set by the
+    # LLM as the JAX llm.py:155-164 sets them): the pages a sparse decode
+    # step keeps per sequence (ROCKET_TOPK / DSA; None: dense), the
+    # indexer, and STAR's block size (None: no STAR)
+    sparse_keep_pages: Optional[int] = None
+    sparse_algo: str = "ROCKET_TOPK"
+    star_block_size: Optional[int] = None
 
     def __post_init__(self):
         """The KV pool's type and default scale from
@@ -194,7 +200,9 @@ def attention_block(params: Dict[str, Any],
                     collect_kv_stats: bool = False,
                     alibi_slopes: Optional[torch.Tensor] = None,
                     lora_fn: Optional[Callable] = None,
-                    pre_o: Optional[Callable] = None):
+                    pre_o: Optional[Callable] = None,
+                    sparse_keep_pages: Optional[int] = None,
+                    sparse_algo: str = "ROCKET_TOPK"):
     """QKV projection (``params["qkv"]`` fused, or "q", "k", "v" apart),
     the q/k norms (``q_norm(params, q [T, nq, hd])``, likewise k: Qwen3's
     per-head RMS norm, OLMoE's over the whole projection; after RoPE with
@@ -214,7 +222,10 @@ def attention_block(params: Dict[str, Any],
     per-use adapters, the LoRA adapters of lora/lora_manager.py; a fused
     qkv output takes each part's term apart), ``pre_o(params, x, attn [T,
     nq * hd])`` rewrites the attention output before the output projection
-    (Qwen3-Next's output gate): the JAX hooks of the same names."""
+    (Qwen3-Next's output gate): the JAX hooks of the same names.
+    ``sparse_keep_pages`` / ``sparse_algo``: the model's sparse config,
+    which the step's attention takes where the metadata allows it
+    (``ops.attention.ragged_paged_attention``)."""
     if (spec.alibi_slopes is None) != (alibi_slopes is None):
         raise ValueError(
             "attention_block takes ALiBi slopes as a device tensor exactly "
@@ -261,7 +272,8 @@ def attention_block(params: Dict[str, Any],
         sliding_window=spec.sliding_window, soft_cap=spec.soft_cap,
         alibi_slopes=alibi_slopes,
         sinks=params["sinks"] if spec.use_sinks else None,
-        k_scale=ks, v_scale=ks).to(q.dtype)
+        k_scale=ks, v_scale=ks, sparse_keep_pages=sparse_keep_pages,
+        sparse_algo=sparse_algo).to(q.dtype)
     attn = attn.reshape(T, nq * hd)
     if pre_o is not None:
         attn = pre_o(params, x, attn)

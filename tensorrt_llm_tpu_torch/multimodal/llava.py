@@ -19,31 +19,15 @@ model's own shapes (``init_params``), on the device, one tensor at a time.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..models.llama import LlamaForCausalLM
 from ..models.modeling_utils import ModelConfig, register_model
+from ..quantization.lazy_state_dict import RenamedStateDict
 from .encoders import VisionTower, linear
-
-
-class _Renamed(Mapping):
-    """A view of a checkpoint under other names ({new: old}); a tensor is
-    read from the checkpoint only when asked for."""
-
-    def __init__(self, sd: Mapping[str, Any], names: Dict[str, str]):
-        self.sd, self.names = sd, names
-
-    def __getitem__(self, name: str):
-        return self.sd[self.names[name]]
-
-    def __iter__(self) -> Iterator[str]:
-        return iter(self.names)
-
-    def __len__(self) -> int:
-        return len(self.names)
 
 
 def image_token_of(cfg) -> int:
@@ -70,7 +54,8 @@ def split_checkpoint(sd: Mapping[str, Any], vision: str = "vision_tower."
             pj[k2[len("multi_modal_projector."):]] = k
         elif k2 == "lm_head.weight":
             lm["lm_head.weight"] = k
-    return _Renamed(sd, lm), _Renamed(sd, vis), _Renamed(sd, pj)
+    return (RenamedStateDict(sd, lm), RenamedStateDict(sd, vis),
+            RenamedStateDict(sd, pj))
 
 
 class VisionLanguageModel(LlamaForCausalLM):

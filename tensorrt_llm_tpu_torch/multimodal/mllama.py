@@ -52,8 +52,9 @@ from ..models.modeling_utils import (ModelConfig, attention_block,
                                      embed_tokens, register_model)
 from ..ops.attention import AttentionMetadata, layer_metadata
 from ..ops.norm import layer_norm_f32, rms_norm
+from ..quantization.lazy_state_dict import RenamedStateDict
 from .encoders import linear_f32
-from .llava import _Renamed, split_checkpoint
+from .llava import split_checkpoint
 from .processor import (host_array, mm_hash, register_input_processor,
                         to_device)
 
@@ -314,7 +315,7 @@ class MllamaForConditionalGeneration(LlamaForCausalLM):
                     continue
                 parts[2] = str(self.self_layers.index(li))
             names[".".join(parts)] = k
-        params = super().load_hf_state_dict(_Renamed(lm, names))
+        params = super().load_hf_state_dict(RenamedStateDict(lm, names))
         params["cross"] = cross
         return params
 

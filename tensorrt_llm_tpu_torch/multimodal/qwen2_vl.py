@@ -46,8 +46,8 @@ from ..models.modeling_utils import ModelConfig, register_model
 from ..models.qwen import Qwen2ForCausalLM
 from ..ops.norm import layer_norm_f32
 from ..ops.rope import mrope_cos_sin, mrope_section
+from ..quantization.lazy_state_dict import RenamedStateDict
 from .encoders import linear_f32
-from .llava import _Renamed
 from .processor import (expand, host_array, image_list, mm_hash,
                         register_input_processor, splice, to_device)
 
@@ -448,7 +448,7 @@ def split_visual(sd: Mapping[str, Any]) -> Tuple[Mapping, Mapping]:
             vis[k2[len("visual."):]] = k
         elif k2 == "lm_head.weight":
             lm["lm_head.weight"] = k
-    return _Renamed(sd, lm), _Renamed(sd, vis)
+    return RenamedStateDict(sd, lm), RenamedStateDict(sd, vis)
 
 
 class MropeVisionModel:

@@ -57,6 +57,10 @@ LAUNCHES = 0
 # LAUNCHES, where the kernel launches)
 LAUNCHES_SINKS = 0
 LAUNCHES_ALIBI = 0
+# launches on the sparse route's compacted page tables
+# (ops/sparse_attention.py; counted with LAUNCHES, where the kernel
+# launches)
+LAUNCHES_SPARSE = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the quantized (8-bit) KV pool types, those of ModelConfig.kv_cache_dtype
@@ -271,7 +275,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                            sinks: Optional[torch.Tensor] = None,
                            k_scale=None, v_scale=None,
                            max_kv_len: Optional[int] = None,
-                           num_splits: Optional[int] = None) -> torch.Tensor:
+                           num_splits: Optional[int] = None,
+                           count_as: Optional[str] = None) -> torch.Tensor:
     """q [S, qh, hd]; kv_pages [P, ps, 2*kvh, hd] in q's type, int8 or
     float8 e4m3; kv_lens i32[S]; page_indices i32[S, max_pages] -> out
     [S, qh, hd]. ``k_scale`` / ``v_scale`` dequantize an 8-bit pool (0-dim
@@ -280,7 +285,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     ``max_kv_len`` is a host-known upper bound of ``kv_lens`` (a hint: it
     only picks the number of KV splits, any value gives the same result);
     without it the bound is the page table's reach. ``num_splits`` forces
-    the count (tests and sweeps)."""
+    the count (tests and sweeps). ``count_as`` names a second counter of
+    this module that a launch also adds to (a route's own count)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, kv_pages, kv_lens, page_indices, sm_scale=sm_scale,
@@ -328,6 +334,8 @@ def paged_decode_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     _build.count_launch(__name__)
+    if count_as is not None:
+        _build.count_launch(__name__, count_as)
     if sinks_t is not None:
         _build.count_launch(__name__, "LAUNCHES_SINKS")
     if alibi_t is not None:

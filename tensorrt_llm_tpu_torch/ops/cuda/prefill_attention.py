@@ -77,6 +77,9 @@ LAUNCHES_SINKS = 0
 LAUNCHES_ALIBI = 0
 # launches with the image-group or-mask
 LAUNCHES_GROUPS = 0
+# launches over STAR's virtual sequences (ops/attention.py star_launches;
+# counted with LAUNCHES, where the kernel launches)
+LAUNCHES_STAR = 0
 
 
 def route_for(dtype: torch.dtype) -> str:
@@ -186,7 +189,8 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                              k_scale=None, v_scale=None,
                              max_q_len: Optional[int] = None,
                              q_groups: Optional[torch.Tensor] = None,
-                             kv_group_pool: Optional[torch.Tensor] = None
+                             kv_group_pool: Optional[torch.Tensor] = None,
+                             count_as: Optional[str] = None
                              ) -> torch.Tensor:
     """q [T, qh, hd] packed by cu_q_lens i32[S+1]; kv_pages
     [P, ps, 2*kvh, hd] in q's type, int8 or float8 e4m3; kv_lens i32[S];
@@ -195,7 +199,9 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     device, or floats; None: 1). ``max_q_len`` (the longest segment)
     sizes the grid; pass it from the host to avoid a device sync.
     ``q_groups`` i32[T] and ``kv_group_pool`` i32[pool_pages * ps]
-    (together or not at all): the image-group or-mask."""
+    (together or not at all): the image-group or-mask. ``count_as`` names
+    a second counter of this module that a launch also adds to (a route's
+    own count)."""
     if (q_groups is None) != (kv_group_pool is None):
         raise ValueError("q_groups and kv_group_pool go together")
     if q.device.type == "cpu":
@@ -254,6 +260,8 @@ def ragged_prefill_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         group_pages, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ragged_prefill_attention")
     _build.count_launch(__name__)
+    if count_as is not None:
+        _build.count_launch(__name__, count_as)
     if q_groups is not None:
         _build.count_launch(__name__, "LAUNCHES_GROUPS")
     if sinks_t is not None:

@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, List, Mapping, Optional
 
 import numpy as np
 
@@ -179,31 +179,31 @@ def dequantize_prequant(pq: PrequantizedWeight,
 # --------------------------------------------------------------------- #
 # State-dict conversion
 # --------------------------------------------------------------------- #
-def convert_state_dict(sd: Dict[str, Any],
-                       cfg: PrequantConfig) -> Dict[str, Any]:
-    """Rewrite a prequantized state dict so each ``<name>.weight`` entry
-    is a :class:`PrequantizedWeight`; the model loaders pass these
-    through ``models.modeling_utils.quantize_linear`` untouched. Other
-    entries pass through as they are."""
-    out: Dict[str, Any] = {}
+def convert_state_dict(sd: Mapping[str, Any],
+                       cfg: PrequantConfig) -> Mapping[str, Any]:
+    """A view of a prequantized state dict in which each
+    ``<name>.weight`` entry is a :class:`PrequantizedWeight`, unpacked
+    when it is looked up (the model loaders pass these through
+    ``models.modeling_utils.quantize_linear`` untouched). Other entries
+    pass through as they are; nothing is read before a lookup."""
+    from .lazy_state_dict import RenamedStateDict
+    computed = {}
     done = set()
-    for name in list(sd):
+    for name in sd:
         if not name.endswith(".qweight"):
             continue
         base = name[:-len(".qweight")]
-        qzeros = sd.get(base + ".qzeros")
-        scales = sd.get(base + ".scales")
-        if scales is None or qzeros is None:
+        if base + ".scales" not in sd or base + ".qzeros" not in sd:
             raise ValueError(f"{base}: qweight without scales / qzeros")
-        if cfg.fmt == "awq":
-            pq = unpack_awq_gemm(sd[name], qzeros, scales, cfg.group_size)
-        else:
-            pq = unpack_gptq(sd[name], qzeros, scales, cfg.group_size,
-                             v2=cfg.gptq_v2)
-        out[base + ".weight"] = pq
+
+        def unpack(base=base):
+            q, z, s = (sd[base + k] for k in (".qweight", ".qzeros",
+                                              ".scales"))
+            if cfg.fmt == "awq":
+                return unpack_awq_gemm(q, z, s, cfg.group_size)
+            return unpack_gptq(q, z, s, cfg.group_size, v2=cfg.gptq_v2)
+        computed[base + ".weight"] = unpack
         done.update((name, base + ".qzeros", base + ".scales",
                      base + ".g_idx"))
-    for name, v in sd.items():
-        if name not in done and name not in out:
-            out[name] = v
-    return out
+    return RenamedStateDict(sd, {n: n for n in sd if n not in done and
+                                 n not in computed}, computed)

@@ -64,20 +64,23 @@ def quantize_mxfp4(w) -> tuple:
     return blocks, exp
 
 
-def normalize_mxfp4_state_dict(sd: dict) -> dict:
-    """Every ``<name>_blocks`` / ``<name>_scales`` pair replaced by the
-    dequantized ``<name>`` (float32, the checkpoint's [out, in]
-    orientation kept; callers transpose as usual). Other tensors pass
-    through untouched."""
-    out = dict(sd)
-    for key in list(sd):
+def normalize_mxfp4_state_dict(sd):
+    """A view of ``sd`` in which every ``<name>_blocks`` /
+    ``<name>_scales`` pair is replaced by the dequantized ``<name>``
+    (float32, the checkpoint's [out, in] orientation kept; callers
+    transpose as usual), dequantized when it is looked up. Other tensors
+    pass through untouched."""
+    from .lazy_state_dict import RenamedStateDict
+    computed, done = {}, set()
+    for key in sd:
         if not key.endswith("_blocks"):
             continue
         base = key[: -len("_blocks")]
         skey = base + "_scales"
         if skey not in sd:
             continue
-        out[base] = dequant_mxfp4(sd[key], sd[skey])
-        del out[key]
-        del out[skey]
-    return out
+        computed[base] = (lambda k=key, s=skey:
+                          dequant_mxfp4(sd[k], sd[s]))
+        done.update((key, skey))
+    return RenamedStateDict(sd, {k: k for k in sd if k not in done},
+                            computed)

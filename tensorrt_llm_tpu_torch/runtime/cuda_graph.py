@@ -158,6 +158,19 @@ class GraphRunner:
                     total[module] += n * s.replays
         return total
 
+    def clear(self) -> int:
+        """Drop every step, its graph and static buffers, and the shared
+        pool (the engine's sleep: the bytes go back to the allocator, and
+        a later dispatch captures its key anew). Returns the graphs
+        dropped."""
+        with self.lock:
+            dropped = self.num_graphs
+            self.steps.clear()
+            if self.capture:
+                self.pool = torch.cuda.graph_pool_handle()
+            self.pool_bytes = 0
+        return dropped
+
     def ensure(self, key: tuple, inert: Inputs, body: Body) -> _Step:
         """The step of ``key``, captured now if it is new (``inert``:
         inputs of the key's layout that change no device state)."""

@@ -101,6 +101,7 @@ import threading
 import time
 import traceback
 from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -128,13 +129,18 @@ class CompletionOutput:
 
 
 class GenerationResult:
-    """Future-like handle for one request."""
+    """Future-like handle for one request. With ``postproc_pool`` (the
+    executor's ``num_postprocess_workers`` threads, the JAX
+    executor.py:40-55) each streamed chunk is decoded on the pool and the
+    stream queue holds its future, so chunks keep their order; the final
+    output is built there too."""
 
     def __init__(self, request: LlmRequest, tokenizer=None,
-                 streaming: bool = False):
+                 streaming: bool = False, postproc_pool=None):
         self.request = request
         self.tokenizer = tokenizer
         self.streaming = streaming
+        self._pool = postproc_pool
         self._done = threading.Event()
         self._stream_queue: "queue.Queue" = queue.Queue()
         self.outputs: List[CompletionOutput] = []
@@ -172,16 +178,30 @@ class GenerationResult:
             item = self._stream_queue.get()
             if item is None:
                 break
+            if isinstance(item, Future):
+                item = item.result()
             yield item
 
     # executor-side callbacks ------------------------------------------- #
     def _on_tokens(self, new_tokens: List[int]) -> None:
         if self.streaming:
             toks = list(new_tokens)
-            self._stream_queue.put(CompletionOutput(
-                index=0, token_ids=toks, text=self._safe_decode(toks)))
 
-    def _on_finish(self) -> None:
+            def make():
+                return CompletionOutput(index=0, token_ids=toks,
+                                        text=self._safe_decode(toks))
+            self._stream_queue.put(make() if self._pool is None
+                                   else self._pool.submit(make))
+
+    def _on_finish(self, inline: bool = False) -> None:
+        """The request is done: its output is built (on the postprocess
+        pool when there is one, unless ``inline``) and waiters wake."""
+        if self._pool is not None and not inline:
+            self._pool.submit(self._finish_impl)
+        else:
+            self._finish_impl()
+
+    def _finish_impl(self) -> None:
         req = self.request
         if self.streaming and req.num_tokens_streamed < req.num_output_tokens:
             tail = req.output_token_ids[req.num_tokens_streamed:]
@@ -304,8 +324,17 @@ class PyExecutor:
                  ttft_slo_ms: float = 0.0,
                  drafter=None,
                  guided_decoder=None,
-                 kv_connector=None):
+                 kv_connector=None,
+                 tracer=None,
+                 num_postprocess_workers: int = 0):
         self.engine = engine
+        # a span per finished request (llmapi/tracing.py RequestTracer)
+        self.tracer = tracer
+        # detokenization off the loop: streamed chunks and final outputs
+        # are built on these threads (the JAX executor.py:256-262)
+        self._postproc = ThreadPoolExecutor(
+            num_postprocess_workers, thread_name_prefix="tllm-postproc") \
+            if num_postprocess_workers > 0 else None
         # an external KV store (runtime/kv_connector.py KvConnectorManager)
         # and the finished requests whose blocks wait for its async save
         self.kv_connector = kv_connector
@@ -403,6 +432,11 @@ class PyExecutor:
     # ------------------------------------------------------------------ #
     # API
     # ------------------------------------------------------------------ #
+    def has_open_requests(self) -> bool:
+        """Whether a submitted request has not finished yet."""
+        with self._lock:
+            return any(not r.finished for r in self._results.values())
+
     def submit(self, request: LlmRequest) -> GenerationResult:
         """Queue a request, with the JAX executor's checks
         (executor.py:404-445): a logits processor and beam search need
@@ -437,7 +471,8 @@ class PyExecutor:
                 "with disable_overlap_scheduler=True (or max_beam_width"
                 " > 1, which implies it)")
         res = GenerationResult(request, tokenizer=self.tokenizer,
-                               streaming=request.streaming)
+                               streaming=request.streaming,
+                               postproc_pool=self._postproc)
         with self._lock:
             self._results[request.request_id] = res
         if sp.prompt_logprobs is not None:
@@ -492,6 +527,12 @@ class PyExecutor:
             self._thread.join(timeout=60)
         if self.kv_connector is not None:
             self.kv_connector.shutdown()
+        if self._postproc is not None:
+            # queued chunks and outputs still run; nothing waits for them
+            self._postproc.shutdown(wait=False)
+        if self.tracer is not None and self.tracer.exporter is not None:
+            # the spans still buffered are posted now, not dropped
+            self.tracer.exporter.shutdown()
 
     # ------------------------------------------------------------------ #
     # Main loop
@@ -1582,7 +1623,7 @@ class PyExecutor:
             with self._lock:
                 res = self._results.pop(parent.request_id, None)
             if res is not None:
-                res._on_finish()
+                res._on_finish(inline=True)
                 # the runner-up hypotheses as extra outputs
                 for j, h in enumerate(hyps[1:], start=1):
                     res.outputs.append(CompletionOutput(
@@ -1644,6 +1685,8 @@ class PyExecutor:
         return False
 
     def _finish_request(self, req: LlmRequest):
+        if self.tracer is not None:
+            self.tracer.on_request_finished(req)
         if self.host_drafter is not None and \
                 hasattr(self.host_drafter, "drop_request"):
             self.host_drafter.drop_request(req.request_id)

@@ -427,6 +427,28 @@ class KVCacheManager:
         s.cache_hit_rate = s.reused_blocks / total if total else 0.0
         return s
 
+    def drop_device_blocks(self) -> int:
+        """Forget the device data of every reusable block (the engine's
+        pool was freed and allocated anew: sleep and wake); the host and
+        disk tiers' copies stay matchable. Refused while a sequence holds
+        blocks. Returns the blocks dropped."""
+        if self._seq_blocks:
+            raise RuntimeError("KV blocks are held by running sequences")
+        dropped = 0
+        for bucket in list(self._reusable.values()):
+            for block_id in list(bucket):
+                block = self._blocks[block_id]
+                node = block.node
+                self._reusable_remove(block, node)
+                self._push_event("removed", [self._hash_of(node)])
+                node.block = None
+                block.node = None
+                self._free.append(block_id)
+                dropped += 1
+                if node.is_leaf:
+                    self._maybe_prune(node)
+        return dropped
+
     def get_latest_events(self, clear: bool = True) -> List[KVCacheEvent]:
         ev = self._events
         if clear:

@@ -44,8 +44,21 @@ the page movers of the KV host and disk tiers and the KV connectors
 (``offload_page`` / ``onboard_page``, ``extract_kv`` / ``inject_kv``: a
 gather into a device staging buffer and one non-blocking copy into
 pinned host memory behind an event, and in-place writes into the pool,
-all on the steps' stream) without tree drafts, MoE statistics and
-pipeline parallelism.
+all on the steps' stream), and sparse attention: under ROCKET_TOPK or
+DSA (``sparse``) the steps the JAX engine runs on its sparse path, a
+decode step whose token bucket equals ``max_batch_size`` and a K-step
+window without riders (its static condition ``q.shape[0] ==
+kv_lens.shape[0]``, ops/attention.py:350-351), carry ``sparse_step`` and
+key their graphs by their KV bound as well (the indexer reads the page
+table up to it; the decode kernel's splits follow keep_pages), while a
+rider window's decode rows stay dense, as the JAX mixed split runs them
+(ops/attention.py:262-301); under STAR (``star``) every eager prompt
+step carries ``star_segments`` (its prefill launches over virtual
+sequences, per sliding window of the layers), or where the block is not
+a whole number of pages takes the plain STAR route
+(``star_plain_steps``), and windows carry no riders
+(the JAX mixed split drops the STAR mask). All this without tree drafts,
+MoE statistics and pipeline parallelism.
 MoE models run through the same steps and graphs: their routing is
 computed on the device, and no MoE shape depends on it (ops/moe.py).
 
@@ -85,12 +98,13 @@ from ..llmapi.llm_args import LlmArgs
 from ..logger import logger
 from ..lora.lora_manager import LoraConfig, LoraModuleStack, LoraStep
 from ..models.modeling_utils import DecoderModelForCausalLM
-from ..ops.attention import AttentionMetadata
+from ..ops.attention import AttentionMetadata, star_metadata
 from ..ops.cuda import decode_attention as dec
 from ..ops.sampling_ops import (NGRAM_MAX, SamplingTensors,
                                 add_embedding_bias, ban_token_ids,
                                 greedy_sample, ngram_ban_mask,
                                 rejection_sample, sample, top_logprobs)
+from ..ops.sparse_attention import INDEXER_CHUNK_BYTES
 from . import spec_window
 from .cuda_graph import GraphRunner, Inputs, upload
 from .kv_tiers import HostPage, PinnedPages
@@ -199,6 +213,56 @@ def _kv_pools(kv_pages) -> tuple:
 def _ptrs(kv_pages) -> List[int]:
     """Device addresses of a model's cache tensors."""
     return [p.data_ptr() for p in _pools(kv_pages)]
+
+
+def _tree_map(fn, tree):
+    """``fn`` over every tensor of a parameter tree (dicts, lists and
+    tuples), each shared tensor once, so that tied weights stay tied."""
+    seen: Dict[int, Any] = {}
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            if id(x) not in seen:
+                seen[id(x)] = fn(x)
+            return seen[id(x)]
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return x
+    return walk(tree)
+
+
+# the pinned buffer through which weights move between host and card
+HOST_STAGE_BYTES = 256 << 20
+
+
+def staged_copy(tree, device):
+    """A parameter tree with every tensor copied to ``device``, each
+    shared tensor once. A contiguous tensor that moves between the host
+    and a CUDA device goes in chunks through one pinned buffer: a copy
+    to or from pageable host memory runs at a fraction of the link's
+    rate. Other tensors take ``Tensor.to``."""
+    device = torch.device(device)
+    stage: List[torch.Tensor] = []
+
+    def copy(t):
+        if (t.device.type == "cuda") == (device.type == "cuda") or \
+                not t.is_contiguous() or t.numel() == 0:
+            return t.to(device, copy=True)
+        out = torch.empty(t.shape, dtype=t.dtype, device=device)
+        src = t.reshape(-1).view(torch.uint8)
+        dst = out.reshape(-1).view(torch.uint8)
+        if not stage:
+            stage.append(torch.empty(HOST_STAGE_BYTES, dtype=torch.uint8,
+                                     pin_memory=True))
+        buf = stage[0]
+        for o in range(0, src.numel(), buf.numel()):
+            n = min(buf.numel(), src.numel() - o)
+            buf[:n].copy_(src[o:o + n])     # a blocking copy each way
+            dst[o:o + n].copy_(buf[:n])
+        return out
+    return _tree_map(copy, tree)
 
 
 def _sliding(**per_pool) -> Dict[str, Any]:
@@ -341,6 +405,19 @@ class ModelEngine:
         # tensors, max_batch_size + 1 slots, the trash slot last), counted
         # off the KV budget
         self._cross = bool(getattr(model, "has_cross_states", False))
+        # sparse attention (ops/sparse_attention.py) and STAR: the steps
+        # that take the sparse route (decode steps and window steps), the
+        # eager prompt steps through the virtual-sequence remap and
+        # through the plain STAR reference
+        self.sparse = model.config.sparse_keep_pages is not None
+        self.star = model.config.star_block_size
+        # the remap needs whole pages a block; else the plain STAR route,
+        # chosen here once
+        self.star_remap = self.star is not None and \
+            self.star % self.page_size == 0
+        self.sparse_steps = 0
+        self.star_steps = 0
+        self.star_plain_steps = 0
         self.num_kv_pages = num_kv_pages or self._default_num_pages()
         logger.info("KV pool: %d pages x %d tokens (%.1f MB/layer)%s",
                     self.num_kv_pages, self.page_size,
@@ -356,11 +433,9 @@ class ModelEngine:
             logger.info("VSWA sliding pool: %d pages (window %d)",
                         self.num_sw_pages, model.vswa_window)
             self.pool_ids.append("kv_block_ids_sw")
-        extra = {"num_sw_pages": self.num_sw_pages} if self._vswa else {}
-        if self._recurrent or self._cross:
-            extra["num_slots"] = self.max_batch_size + 1
-        self.kv_pages = model.make_kv_pages(self.num_kv_pages,
-                                            self.page_size, **extra)
+        self.kv_pages = self._make_kv_pages()
+        # sleep (``release_weights``): the weights' host copy while asleep
+        self._host_params: Optional[Dict[str, Any]] = None
         # slot-indexed device state; index max_batch_size is a trash slot
         # that absorbs the scatters of padding and inactive rows. Steps
         # update it in place: captured graphs hold its address
@@ -382,6 +457,70 @@ class ModelEngine:
         # the fused speculative window's device state
         # (runtime/spec_window.py), set by ``enable_spec_device``
         self.sd: Optional[spec_window.SpecDeviceState] = None
+
+    def _make_kv_pages(self):
+        """The model's KV pool (and state pools) at this engine's size."""
+        extra = {"num_sw_pages": self.num_sw_pages} if self._vswa else {}
+        if self._recurrent or self._cross:
+            extra["num_slots"] = self.max_batch_size + 1
+        return self.model.make_kv_pages(self.num_kv_pages, self.page_size,
+                                        **extra)
+
+    # ------------------------------------------------------------------ #
+    # Sleep, wake and weight swap (the JAX engine's release_weights /
+    # resume_weights / update_weights, model_engine.py:1362-1383)
+    # ------------------------------------------------------------------ #
+    @property
+    def asleep(self) -> bool:
+        return self._host_params is not None
+
+    def release_weights(self) -> int:
+        """Sleep: the weights move to host memory, the KV pool is freed
+        (its contents are lost, as in the JAX engine), and so are every
+        CUDA graph and their pool, which hold both by address. Returns
+        the graphs dropped."""
+        if self.asleep:
+            return 0
+        dropped = self.graphs.clear()
+        self._host_params = staged_copy(self.params, "cpu")
+        self.params = None
+        self.kv_pages = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        return dropped
+
+    def resume_weights(self) -> None:
+        """Wake: the weights back on the device, a fresh KV pool of the
+        same size, the slot tokens zeroed; with ``enable_warmup`` on CUDA
+        the serving graphs are captured again (else at first use)."""
+        if not self.asleep:
+            return
+        self.params = staged_copy(self._host_params, self.device)
+        self._host_params = None
+        self.kv_pages = self._make_kv_pages()
+        self.prev_tokens.zero_()
+        if self.args.enable_warmup and self.device.type == "cuda":
+            self.warmup()
+
+    def update_weights(self, state_dict) -> None:
+        """Hot-swap the weights from a checkpoint state dict (the JAX
+        ``update_weights``): loaded through the model's loader (quantized
+        methods quantize again; an 8-bit KV cache returns to the
+        config's scales, as in the JAX engine) in place of the current
+        ones. The graphs, which hold the old weights by address, are
+        dropped and captured again (with ``enable_warmup`` on CUDA now,
+        else at first use). The new weights are not copied into the old
+        tensors: those may share memory with the caller's checkpoint (an
+        inline model's tensors on their own device and type)."""
+        if self.asleep:
+            raise RuntimeError("update_weights on a sleeping engine: call "
+                               "resume_weights first")
+        params = self.model.load_hf_state_dict(state_dict)
+        self.graphs.clear()
+        self.params = params
+        if self.args.enable_warmup and self.device.type == "cuda":
+            self.warmup()
 
     # ------------------------------------------------------------------ #
     # Sizing
@@ -522,6 +661,9 @@ class ModelEngine:
                           rows * (d + 1) * self.model.vocab_size * 4 * 10)
         acts = tokens * self.model.act_width_per_token() * 4 + \
             self.model.attn_scratch_bytes(seqs, tokens, self.max_seq_len)
+        if self.sparse:
+            # the indexer's chunk of pages, gathered and in float32
+            acts += 2 * INDEXER_CHUNK_BYTES
         return 2 * (acts + sampler)
 
     def surface_state_bytes(self) -> int:
@@ -1377,10 +1519,18 @@ class ModelEngine:
                   ops: LogitsOps = LogitsOps(),
                   lora: Optional[bool] = None) -> tuple:
         """A decode step's graph key; a step with LoRA rows adds
-        ("lora", DoRA)."""
+        ("lora", DoRA), a sparse step its bound."""
         return ("step", T, self._splits(min(self.max_batch_size, T), bound),
                 greedy, use_penalties, ops, k_lp, seeded, hidden) + \
-            (() if lora is None else ("lora", lora))
+            (() if lora is None else ("lora", lora)) + \
+            (("sparse", bound) if self._sparse_step(T) else ())
+
+    def _sparse_step(self, T: int) -> bool:
+        """Whether a single step of token bucket T is one the JAX engine
+        runs on its sparse path: its T equals its row count, S =
+        ``max_batch_size`` (the static condition; the step's attention
+        then takes the route when the step is decode-only)."""
+        return self.sparse and T == self.max_batch_size
 
     def _verify_key(self, T: int, greedy: bool, use_penalties: bool,
                     k_lp: int, seeded: bool = False,
@@ -1466,10 +1616,26 @@ class ModelEngine:
         if (inp.max_q_len > 1 and inp.has_prompt) or embeds is not None \
                 or grouped or (self._cross and inp.has_prompt):
             self.verify_steps_with_prompt += verify
+            star_plain = False
+            segs = None
+            if self.star is not None and inp.has_prompt:
+                if self.star_remap:
+                    self.star_steps += 1
+                    segs = star_metadata(
+                        inp.cu_q_lens, inp.kv_lens, inp.page_indices,
+                        inp.num_reqs, self.star, self.page_size,
+                        self.model.attention_windows(), self.device)
+                else:
+                    self.star_plain_steps += 1
+                    star_plain = True
             body = self._step_body(inp.max_q_len, inp.max_kv_len, greedy,
                                    use_penalties, k_lp, seeded,
-                                   collect_hidden, ops, grouped, lora)
+                                   collect_hidden, ops, grouped, lora,
+                                   sparse_step=self._sparse_step(T),
+                                   star_plain=star_plain)
             views = upload(inputs, self.device)
+            if segs is not None:
+                views["star_segments"] = segs
             if embeds is not None:
                 self.embed_steps += 1
                 views["input_embeds"] = embeds
@@ -1493,12 +1659,14 @@ class ModelEngine:
         else:
             bound = self._kv_bound(inp.max_kv_len)
             self.decode_steps += 1
+            self.sparse_steps += self._sparse_step(T)
             outs = self.graphs.run(
                 self._step_key(T, bound, greedy, use_penalties, k_lp, seeded,
                                collect_hidden, ops, lora),
                 inputs,
                 self._step_body(1, bound, greedy, use_penalties, k_lp,
-                                seeded, collect_hidden, ops, lora=lora),
+                                seeded, collect_hidden, ops, lora=lora,
+                                sparse_step=self._sparse_step(T)),
                 inert=lambda: self._inert_inputs(T, greedy, ops, lora))
         if not collect_logits:
             return outs
@@ -1525,8 +1693,10 @@ class ModelEngine:
                    use_penalties: bool, k_lp: int, seeded: bool = False,
                    collect_hidden: bool = False,
                    ops: LogitsOps = LogitsOps(), mm_grouped: bool = False,
-                   lora: Optional[bool] = None):
+                   lora: Optional[bool] = None, sparse_step: bool = False,
+                   star_plain: bool = False):
         S, G = self.max_batch_size, self.G
+        star_block = self.star if star_plain else None
 
         def body(v):
             prev = v["prev_slot"].long()
@@ -1545,7 +1715,10 @@ class ModelEngine:
                 seq_slots=v["out_slots"],
                 positions_mrope=v.get("positions_mrope"),
                 mm_groups_q=v.get("mm_groups"), mm_grouped=mm_grouped,
-                cross_segments=v.get("cross_segments")),
+                cross_segments=v.get("cross_segments"),
+                sparse_step=sparse_step,
+                star_segments=v.get("star_segments"),
+                star_block_size=star_block),
                 collect_hidden=collect_hidden,
                 **({} if embeds is None else {"input_embeds": embeds}),
                 **({} if lora is None else {"lora": LoraStep(
@@ -1651,10 +1824,11 @@ class ModelEngine:
         one KV pool and no M-RoPE, image-group or cross-attention model
         (the JAX executor's ``_mixed_ok``, executor.py:1206-1215, keeps
         them off for these too: its cross-attention model's cache is a
-        dict)."""
+        dict), and no STAR (the JAX mixed split attends the riders'
+        chunks without the STAR mask, ops/attention.py:262-301)."""
         return self.mixed_ctx_tokens > 0 and not self._vswa \
             and not self._recurrent and not self._mrope and not self._mmg \
-            and not self._cross
+            and not self._cross and self.star is None
 
     @property
     def mixed_ctx_seqs(self) -> int:
@@ -1770,7 +1944,8 @@ class ModelEngine:
         splits = self.model.graph_bound_key(bound, lambda b: 1) if C \
             else self._splits(Sb, bound)
         return ("multi", K, Sb, C, self.mixed_ctx_seqs if C else 0, splits,
-                greedy, use_penalties, ops, seeded)
+                greedy, use_penalties, ops, seeded) + \
+            (("sparse", bound) if self.sparse and not C else ())
 
     @torch.no_grad()
     def forward_multi_step(self, batch: ScheduledRequests, K: int,
@@ -1814,6 +1989,7 @@ class ModelEngine:
                        else 0)
         self.decode_steps += K
         self.window_steps += K
+        self.sparse_steps += K if self.sparse and not riders else 0
         self.dead_window_steps += max(0, K - live)
         reach = (int(rows[2].max()) if n else 0) + K
         if riders:
@@ -1916,7 +2092,7 @@ class ModelEngine:
                         kv_lens=kv_len, page_indices=pages, cu_q_lens=cu_q,
                         num_seqs=num_seqs, slot_mapping=slot_map,
                         positions=pos, logits_indices=iota, max_q_len=1,
-                        max_kv_len=kv_bound,
+                        max_kv_len=kv_bound, sparse_step=self.sparse,
                         seq_slots=torch.where(active, out_slots, -1),
                         rope_offset=offset, **sw))
                 if ops.guided:
@@ -2017,7 +2193,8 @@ class ModelEngine:
                     self._step_key(T, bound, True, False, 0),
                     self._step_inputs(self.prepare_inputs(
                         ScheduledRequests()), [], T, True),
-                    self._step_body(1, bound, True, False, 0))
+                    self._step_body(1, bound, True, False, 0,
+                                    sparse_step=self._sparse_step(T)))
             if self.max_draft_len and T <= self.max_batch_size * self.G:
                 reach = self.pages_per_seq * self.page_size
                 self.graphs.ensure(

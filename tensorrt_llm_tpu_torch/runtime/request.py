@@ -174,6 +174,9 @@ class LlmRequest:
 
         self.perf = PerfMetrics(arrival_time=arrival_time or time.monotonic())
         self.priority: float = 0.5
+        # (trace id, parent span id, flags) of an inbound traceparent
+        # (llmapi/tracing.py), None when untraced
+        self.trace_ctx = None
 
         # streaming: index of last token already emitted to the client
         self.num_tokens_streamed: int = 0
